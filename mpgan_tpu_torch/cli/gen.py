@@ -47,8 +47,8 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit(f"model {args.model!r} is not ported yet (ROADMAP.md Queue 1)")
     if ns.g_state.endswith(".npz"):
         raise SystemExit(
-            f"{ns.g_state}: TrainState .npz checkpoints load once the optimizer and "
-            "train state are ported (ROADMAP.md Queue 1 item 7); pass a reference G .pt"
+            f"{ns.g_state}: gen reads a reference G .pt; generating from a TrainState .npz "
+            "(training/checkpoint.py) comes later, ROADMAP.md Queue 1 item 5"
         )
 
     g_cfg = build_mpgan_generator(args)

@@ -1,8 +1,11 @@
 // Dense message-passing edge aggregate for Hopper (sm_90a), FP32 on CUDA cores.
 //
 // Replaces the Pallas TPU kernels of mpgan_tpu/ops/mp_pallas.py:
-//   - K2 forward: edge_aggregate (_fwd_kernel_jets / _fwd_kernel), dropout_p = 0,
+//   - K2 forward: edge_aggregate (_fwd_kernel_jets / _fwd_kernel), with K1, the
+//     in-kernel dropout hash (_dropmul), in train mode,
 //   - K4: edge_aggregate_fn (_fwd_kernel_jets_fn / _fwd_kernel_fn / _fn_tail).
+// The backward, K3, is in edge_aggregate_bwd.cu; the shared pieces are in
+// edge_common.cuh.
 //
 // For every jet b and receiver i
 //   agg[b, i] = sum_j mask[b, j] * chain(leaky(u1[b, i] + u2[b, j]))    (/ n for mean)
@@ -30,128 +33,26 @@
 //     flight to cover their latency (a sweep of warps and unroll depth on the H100
 //     is in PERF.md);
 //   - K4 runs fn on the whole group's rows at once;
+//   - train mode (kDrop) multiplies each activation by K1's multiplier after
+//     layer 1's LeakyReLU (salt 0) and after hidden layer k (salt k), keyed on
+//     the global pair id, so K3 replays the same masks. The eval instantiation
+//     has no hash code in it;
 //   - no tensor cores and no TF32, so results hold FP32 parity with the plain
 //     version. There is no sender padding: the TPU's pad to 8 senders is a
 //     sublane device.
 
-#include <cuda_runtime.h>
+#include "edge_common.cuh"
 
 namespace {
 
-constexpr int kMaxLayers = 8;
-constexpr int kMaxWidth = 256;
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowBlock = 32;      // rows of a warp tile: 4 row groups x 8 rows
-constexpr int kColBlock = 32;      // columns of a warp tile: 8 column groups x 4 columns
-constexpr int kMaxGroup = 32;      // receivers per CTA
-constexpr int kMaxPassRows = 128;  // pair rows per pass through the chain
-constexpr int kMaxSmemBytes = 227 * 1024;
-
-struct Chain {
-  const float* w[kMaxLayers];  // layer l weight, [dim[l], dim[l + 1]] row-major ([in, out])
-  const float* b[kMaxLayers];  // layer l bias, [dim[l + 1]]
-  int dim[kMaxLayers + 1];
-  int n;                       // number of layers
-  const float* w0_lo;          // layer 0 rows k >= k0_split (fn: the x rows); else unused
-  int k0_split;                // layer 0 rows read from w[0]
-  int act_last;                // last layer has an activation
-};
-
-struct Plan {
-  int group;  // receivers per CTA
-  int ti;     // receivers per pass
-  int jc;     // senders per pass
-  int ldr;    // row stride of the fe buffers (floats)
-  int ldf;    // row stride of the fn buffers
-  int buf0;   // floats in each ping-pong buffer
-  int buf1;
-};
-
-__device__ __forceinline__ float leaky(float v, float alpha) { return v >= 0.f ? v : alpha * v; }
-
-__host__ __device__ __forceinline__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
-// acc[8 rows][4 cols] += A[r0:r0+8, k_begin:k_end] @ W[0:k_end-k_begin, c0:c0+4],
-// with A stored transposed (A[k * lda + r]).
-template <bool kVec>
-__device__ __forceinline__ void accumulate(const float* __restrict__ A, int lda, int k_begin,
-                                           int k_end, const float* __restrict__ W, int M, int r0,
-                                           int c0, float (&acc)[8][4]) {
-  const float* a_ptr = A + (size_t)k_begin * lda + r0;
-  const float* w_ptr = W + c0;
-#pragma unroll 16
-  for (int k = k_begin; k < k_end; ++k, a_ptr += lda, w_ptr += M) {
-    float w[4];
-    if (kVec) {
-      const float4 w4 = __ldg(reinterpret_cast<const float4*>(w_ptr));
-      w[0] = w4.x, w[1] = w4.y, w[2] = w4.z, w[3] = w4.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = (c0 + j < M) ? __ldg(w_ptr + j) : 0.f;
-    }
-    const float4 a0 = *reinterpret_cast<const float4*>(a_ptr);
-    const float4 a1 = *reinterpret_cast<const float4*>(a_ptr + 4);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-  }
-}
-
-// C = act(A @ W + bias) for `rows` rows, A [K features x lda] and C [M x ldc] stored
-// transposed in shared memory. `rows` is a multiple of kRowBlock; rows k >= k_split
-// of W come from W_lo.
-__device__ void dense_layer(const float* __restrict__ A, int lda, float* __restrict__ C, int ldc,
-                            int rows, int K, int M, const float* __restrict__ W,
-                            const float* __restrict__ W_lo, int k_split,
-                            const float* __restrict__ bias, bool act, float alpha) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nrb = rows / kRowBlock, ncb = (M + kColBlock - 1) / kColBlock;
-  const bool vec = (M & 3) == 0;
-  for (int wb = warp; wb < nrb * ncb; wb += kWarps) {
-    const int r0 = (wb / ncb) * kRowBlock + (lane >> 3) * 8;
-    const int c0 = (wb % ncb) * kColBlock + (lane & 7) * 4;
-    if (c0 >= M) continue;
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    if (vec) {
-      accumulate<true>(A, lda, 0, k_split, W, M, r0, c0, acc);
-      if (k_split < K) accumulate<true>(A, lda, k_split, K, W_lo, M, r0, c0, acc);
-    } else {
-      accumulate<false>(A, lda, 0, k_split, W, M, r0, c0, acc);
-      if (k_split < K) accumulate<false>(A, lda, k_split, K, W_lo, M, r0, c0, acc);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + j;
-      if (c >= M) break;
-      const float bc = __ldg(bias + c);
-      float v[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        v[i] = acc[i][j] + bc;
-        if (act) v[i] = leaky(v[i], alpha);
-      }
-      float4* dst = reinterpret_cast<float4*>(C + (size_t)c * ldc + r0);
-      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-    }
-  }
-}
-
 // grid = (batch, number of receiver groups); dynamic shared memory holds the two
 // ping-pong buffers and the group's aggregate [group, h_out].
-template <bool kFuseFn>
+template <bool kFuseFn, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
     edge_aggregate_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
                           const float* __restrict__ mask, const float* __restrict__ x,
                           float* __restrict__ out, int n, int h1, int feat, Plan p, Chain fe,
-                          Chain fn, float alpha, float fn_alpha, int sum_agg) {
+                          Chain fn, float alpha, float fn_alpha, int sum_agg, Drop drop) {
   extern __shared__ float4 smem4[];
   float* buf0 = reinterpret_cast<float*>(smem4);
   float* buf1 = buf0 + p.buf0;
@@ -172,14 +73,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int rows = round_up(ti_eff * p.jc, kRowBlock);
     for (int j0 = 0; j0 < n; j0 += p.jc) {
       const int jc_eff = min(p.jc, n - j0);
+      if (kDrop) drop.base = (unsigned)(b * n + g0 + ib) * (unsigned)drop.ns + (unsigned)j0;
       __syncthreads();  // the previous pass's reduction has finished reading the buffers
       // layer 1, decomposed; row r = (receiver ii, sender jj); h fastest for coalesced reads
       for (int t = threadIdx.x; t < rows * h1; t += kThreads) {
         const int r = t / h1, h = t - (t / h1) * h1;
         const int ii = r / p.jc, jj = r - (r / p.jc) * p.jc;
         float v = 0.f;
-        if (ii < ti_eff && jj < jc_eff)
+        if (ii < ti_eff && jj < jc_eff) {
           v = leaky(u1b[(size_t)(ib + ii) * h1 + h] + u2b[(size_t)(j0 + jj) * h1 + h], alpha);
+          if (kDrop) v *= dropmul(drop, pair_id(drop, r), (unsigned)h, 0u);
+        }
         buf0[h * p.ldr + r] = v;
       }
       float* src = buf0;
@@ -187,8 +91,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int l = 0; l < fe.n; ++l) {
         __syncthreads();
         const int K = fe.dim[l], M = fe.dim[l + 1];
-        dense_layer(src, p.ldr, dst, p.ldr, rows, K, M, fe.w[l], nullptr, K, fe.b[l], true,
-                    alpha);
+        dense_layer<kDrop>(src, p.ldr, dst, p.ldr, rows, K, M, fe.w[l], nullptr, K, fe.b[l], true,
+                           alpha, drop, (unsigned)(l + 1));
         float* tmp = src;
         src = dst;
         dst = tmp;
@@ -232,8 +136,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     const int K = fn.dim[l], M = fn.dim[l + 1];
     const bool act = l < fn.n - 1 || fn.act_last;
-    dense_layer(src, p.ldf, dst, p.ldf, fn_rows, K, M, fn.w[l], l == 0 ? fn.w0_lo : nullptr,
-                l == 0 ? fn.k0_split : K, fn.b[l], act, fn_alpha);
+    dense_layer<false>(src, p.ldf, dst, p.ldf, fn_rows, K, M, fn.w[l],
+                       l == 0 ? fn.w0_lo : nullptr, l == 0 ? fn.k0_split : K, fn.b[l], act,
+                       fn_alpha, drop, 0u);
     float* tmp = src;
     src = dst;
     dst = tmp;
@@ -246,24 +151,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-bool fill_chain(Chain& c, int n_layers, const void* const* w, const void* const* b,
-                const int* dims) {
-  if (n_layers < 0 || n_layers > kMaxLayers) return false;
-  c = Chain{};
-  c.n = n_layers;
-  for (int l = 0; l <= n_layers; ++l) {
-    if (dims[l] < 1 || dims[l] > kMaxWidth) return false;
-    c.dim[l] = dims[l];
-  }
-  for (int l = 0; l < n_layers; ++l) {
-    c.w[l] = static_cast<const float*>(w[l]);
-    c.b[l] = static_cast<const float*>(b[l]);
-  }
-  c.k0_split = n_layers > 0 ? dims[0] : 0;
-  c.act_last = 1;
-  return true;
-}
-
 // Widest layer a chain keeps in each ping-pong buffer (even and odd positions).
 void chain_widths(const Chain& c, int& even, int& odd) {
   for (int l = 0; l <= c.n; ++l) {
@@ -272,40 +159,16 @@ void chain_widths(const Chain& c, int& even, int& odd) {
   }
 }
 
-// Padded pair rows that one receiver group of `g` costs over `n` senders.
-long long pass_rows_total(int g, int n, int ti, int jc) {
-  long long rows = 0;
-  for (int ib = 0; ib < g; ib += ti) {
-    const int te = g - ib < ti ? g - ib : ti;
-    rows += round_up(te * jc, kRowBlock);
-  }
-  return rows * ((n + jc - 1) / jc);
-}
-
 // Choose the receiver group, the pass shape (fewest padded rows) and the buffer
 // sizes; shrink the pass until the shared memory fits. Returns the bytes, or 0.
 size_t make_plan(int n, const Chain& fe, const Chain* fn, Plan& p) {
-  const int n_groups = (n + kMaxGroup - 1) / kMaxGroup;
-  p.group = (n + n_groups - 1) / n_groups;
+  p.group = group_size(n);
   p.ldf = round_up(p.group, kRowBlock) + 4;
   const int h_out = fe.dim[fe.n];
   for (int max_rows = kMaxPassRows; max_rows >= kRowBlock; max_rows -= kRowBlock) {
-    long long best = -1;
-    int best_ti = 0, best_jc = 0;
-    for (int jc = 1; jc <= n && jc <= max_rows; ++jc) {
-      for (int ti = 1; ti <= p.group && ti * jc <= max_rows; ++ti) {
-        const long long cost = pass_rows_total(p.group, n, ti, jc);
-        if (best < 0 || cost < best || (cost == best && ti * jc > best_ti * best_jc)) {
-          best = cost;
-          best_ti = ti;
-          best_jc = jc;
-        }
-      }
-    }
-    p.ti = best_ti;
-    p.jc = best_jc;
+    choose_pass(n, p.group, max_rows, p.ti, p.jc);
     // stride = rows + 4 floats: 16-byte aligned rows, and column walks spread over banks
-    p.ldr = round_up(best_ti * best_jc, kRowBlock) + 4;
+    p.ldr = round_up(p.ti * p.jc, kRowBlock) + 4;
     int fe_even = 0, fe_odd = 0;
     chain_widths(fe, fe_even, fe_odd);
     p.buf0 = fe_even * p.ldr;
@@ -322,20 +185,23 @@ size_t make_plan(int n, const Chain& fe, const Chain* fn, Plan& p) {
   return 0;
 }
 
-template <bool kFuseFn>
+template <bool kFuseFn, bool kDrop>
 int launch(const float* u1, const float* u2, const float* mask, const float* x, float* out,
            int batch, int n, int h1, int feat, const Chain& fe, const Chain& fn, float alpha,
-           float fn_alpha, int sum_agg, void* stream) {
+           float fn_alpha, int sum_agg, Drop drop, void* stream) {
   if (batch < 1 || n < 1 || h1 < 1 || h1 > kMaxWidth) return (int)cudaErrorInvalidValue;
   Plan p;
   const size_t smem = make_plan(n, fe, kFuseFn ? &fn : nullptr, p);
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(edge_aggregate_kernel<kFuseFn>,
+  cudaError_t err = cudaFuncSetAttribute(edge_aggregate_kernel<kFuseFn, kDrop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  drop.jc = p.jc;
+  drop.ns = round_up(n, 8);
   const dim3 grid(batch, (n + p.group - 1) / p.group);
-  edge_aggregate_kernel<kFuseFn><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      u1, u2, mask, x, out, n, h1, feat, p, fe, fn, alpha, fn_alpha, sum_agg);
+  edge_aggregate_kernel<kFuseFn, kDrop>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          u1, u2, mask, x, out, n, h1, feat, p, fe, fn, alpha, fn_alpha, sum_agg, drop);
   return (int)cudaGetLastError();
 }
 
@@ -353,8 +219,27 @@ int mpgan_edge_aggregate(const float* u1, const float* u2, const float* mask, fl
   if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || fe.dim[0] != h1)
     return (int)cudaErrorInvalidValue;
   fn = Chain{};
-  return launch<false>(u1, u2, mask, nullptr, out, batch, n, h1, 0, fe, fn, alpha, 0.f, sum_agg,
-                       stream);
+  return launch<false, false>(u1, u2, mask, nullptr, out, batch, n, h1, 0, fe, fn, alpha, 0.f,
+                              sum_agg, Drop{}, stream);
+}
+
+// K2 forward in train mode, with K1 dropout: seed in [0, 2^31), keep threshold
+// `thr` and multiplier `mult` as computed on the host (see Drop).
+int mpgan_edge_aggregate_train(const float* u1, const float* u2, const float* mask, float* out,
+                               int batch, int n, int h1, int n_hidden,
+                               const void* const* hidden_w, const void* const* hidden_b,
+                               const int* hidden_dims, float alpha, int sum_agg, int seed,
+                               unsigned thr, float mult, void* stream) {
+  Chain fe, fn;
+  if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || fe.dim[0] != h1 || seed < 0)
+    return (int)cudaErrorInvalidValue;
+  fn = Chain{};
+  Drop drop{};
+  drop.seed_key = (unsigned)seed * 0xC2B2AE3Du;
+  drop.thr = thr;
+  drop.mult = mult;
+  return launch<false, true>(u1, u2, mask, nullptr, out, batch, n, h1, 0, fe, fn, alpha, 0.f,
+                             sum_agg, drop, stream);
 }
 
 // K4. fn_w[0] is fn's first-layer weight rows for agg ([h_out, dims[1]]), fn_w0_lo its rows
@@ -375,8 +260,8 @@ int mpgan_edge_aggregate_fn(const float* u1, const float* u2, const float* mask,
   fn.w0_lo = static_cast<const float*>(fn_w0_lo);
   fn.k0_split = h_out;
   fn.act_last = fn_act_last;
-  return launch<true>(u1, u2, mask, x, out, batch, n, h1, feat, fe, fn, alpha, fn_alpha, sum_agg,
-                      stream);
+  return launch<true, false>(u1, u2, mask, x, out, batch, n, h1, feat, fe, fn, alpha, fn_alpha,
+                             sum_agg, Drop{}, stream);
 }
 
 const char* mpgan_cuda_error_string(int code) {

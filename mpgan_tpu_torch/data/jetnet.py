@@ -1,5 +1,4 @@
-"""Native JetNet data layer (numpy only; ``mpgan_tpu/data/jetnet.py`` without
-the post-generation corrections, which come with evaluation).
+"""Native JetNet data layer (numpy only; ``mpgan_tpu/data/jetnet.py``).
 
 Loads the JetNet / JetNet150 HDF5 files (``<jet_type>.hdf5`` with
 ``particle_features [num_jets, N, 4]`` = [eta_rel, phi_rel, pt_rel, mask] and
@@ -189,3 +188,24 @@ def _load_hdf5(path: pathlib.Path, num_particles: int) -> tuple[np.ndarray, np.n
     counts = particles[..., -1].sum(axis=1, keepdims=True)
     return particles, counts.astype(np.float32)
 
+
+def gen_jet_corrections(
+    jets: np.ndarray,
+    ret_mask_separate: bool = True,
+    zero_mask_particles: bool = True,
+    zero_neg_pt: bool = True,
+) -> tuple[np.ndarray, np.ndarray | None] | np.ndarray:
+    """Post-generation corrections (``jetnet.utils.gen_jet_corrections``, used at
+    train.py:705-729): threshold the mask feature at 0.5, optionally zero the
+    masked particles and clamp negative pT. Input jets are *unnormalized*, with
+    the mask as the last feature when ``ret_mask_separate``."""
+    jets = np.array(jets, copy=True)
+    mask = None
+    if ret_mask_separate:
+        mask = jets[:, :, -1] >= 0.5
+        jets = jets[:, :, :-1]
+        if zero_mask_particles:
+            jets *= mask[:, :, None].astype(jets.dtype)
+    if zero_neg_pt:
+        jets[:, :, 2] = np.maximum(jets[:, :, 2], 0)
+    return (jets, mask) if ret_mask_separate else jets

@@ -1,4 +1,4 @@
-"""MPGAN generator, eval mode (``mpgan_tpu/models/mpgan.py``).
+"""MPGAN generator and discriminator (``mpgan_tpu/models/mpgan.py``).
 
 A stack of message-passing layers between the generator's hooks
 (mpgan/model.py:387-752): the optional latent fully-connected layer ``lfc``,
@@ -15,8 +15,16 @@ Masking strategies (mpgan/model.py:608-752):
 
 As in the JAX package, ``fmg`` takes the generator's input node size, the
 legacy model's choice (the reference's ``MPGenerator._init_mask`` references an
-undefined attribute, mpgan/model.py:626). The discriminator comes with the
-train step (ROADMAP.md Queue 1 item 6).
+undefined attribute, mpgan/model.py:626).
+
+The discriminator (mpgan/model.py:810-894) splits the mask feature off its
+input (``x[..., -1] + 0.5``), runs the message-passing stack with it, pools
+the nodes (masked sum, or mean with ``+1e-12``), runs the ``fnd`` head (with
+dropout after its final linear layer in train mode) and the final activation.
+
+Train-mode dropout keys follow the JAX key paths: ``rng`` (see
+:mod:`..ops.keys`) splits into one key per message-passing layer plus one for
+the mask hook (G) or the ``fnd`` head (D).
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import torch
 from torch import nn
 
 from ..ops.linear import MLP, MLPConfig, linear_init
-from ..ops.masking import counts_from_labels, mask_from_counts
+from ..ops.masking import counts_from_labels, mask_from_counts, split_mask
 from ..ops.mp import MPLayer, MPLayerConfig
 
 
@@ -172,14 +180,14 @@ class MPGenerator(nn.Module):
             self.fmg_layer = MLP(cfg.fmg_cfg, generator)
         self.to(device)
 
-    def _get_mask(self, x, labels):
+    def _get_mask(self, x, labels, train, rng, update_sn):
         """Masking hook (mpgan/model.py:632-721). Returns ``(x, mask, num_jet_particles)``."""
         m = self.cfg.mask
         if not m.use_mask_gen:
             return x, None, None
         num_jet_particles = None
         if m.mask_learn:
-            raw = self.fmg_layer(x)
+            raw = self.fmg_layer(x, train=train, rng=rng, update_sn=update_sn)
             mask = torch.sign(raw) if m.mask_learn_bin else torch.sigmoid(raw)
             if m.mask_fne_np:
                 num_jet_particles = mask.mean(dim=1)
@@ -189,23 +197,26 @@ class MPGenerator(nn.Module):
         else:  # mask_learn_sep: the last "particle" is the jet-level noise
             njp_input = x[:, -1, :]
             x = x[:, :-1, :]
-            num_jet_particles = torch.argmax(self.fmg_layer(njp_input), dim=1)
+            logits = self.fmg_layer(njp_input, train=train, rng=rng, update_sn=update_sn)
+            num_jet_particles = torch.argmax(logits, dim=1)
             mask = mask_from_counts(x[:, :, 0], num_jet_particles)
         return x, mask, num_jet_particles
 
     def forward(self, x: torch.Tensor, labels: torch.Tensor | None = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, rng=None, update_sn: bool = True) -> torch.Tensor:
         """``x``: ``[B, lfc_latent_size]`` with lfc, else ``[B, N(+1 if
         mask_learn_sep), input_node_size]`` noise. Returns ``[B, N,
         output_node_size (+1 if masked)]``, the mask feature as ``mask - 0.5``."""
         cfg = self.cfg
+        n_rngs = len(self.mp_layers) + 1
+        rngs = rng.split(n_rngs) if rng is not None else [None] * n_rngs
         if cfg.lfc:
             x = self.lfc_layer(x).reshape(x.shape[0], cfg.num_particles, cfg.input_node_size)
-        x, mask, num_jet_particles = self._get_mask(x, labels)
-        for layer in self.mp_layers:
+        x, mask, num_jet_particles = self._get_mask(x, labels, train, rngs[-1], update_sn)
+        for layer, layer_rng in zip(self.mp_layers, rngs):
             x = layer(
                 x, mask=mask, labels=labels, num_jet_particles=num_jet_particles,
-                train=train, use_kernels=cfg.use_kernels,
+                train=train, rng=layer_rng, update_sn=update_sn, use_kernels=cfg.use_kernels,
             )
         if cfg.final_activation == "tanh":
             x = torch.tanh(x)
@@ -216,4 +227,143 @@ class MPGenerator(nn.Module):
             x = x[:, :, :-1]
         if mask is not None:
             x = torch.cat([x, mask - 0.5], dim=2)
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
+class MPDiscriminatorConfig:
+    num_particles: int
+    input_node_size: int
+    layers: tuple[MPLayerConfig, ...]
+    mask: MaskConfig
+    final_activation: str = "sigmoid"
+    dea: bool = True
+    dea_sum: bool = True
+    fnd_cfg: MLPConfig | None = None
+    mask_manual: bool = False
+    # None = auto: the CUDA kernels for CUDA tensors, the plain path elsewhere
+    use_kernels: bool | None = None
+
+    @property
+    def use_mask(self) -> bool:
+        return (
+            self.mask_manual
+            or self.mask.mask_learn
+            or self.mask.mask_c
+            or self.mask.mask_learn_sep
+        )
+
+    @staticmethod
+    def build(
+        num_particles: int,
+        input_node_size: int,
+        mp_iters: int = 2,
+        fe_layers: list[int] = (96, 160, 192),
+        fn_layers: list[int] = (256, 256),
+        fe1_layers: list[int] | None = None,
+        fn1_layers: list[int] | None = None,
+        hidden_node_size: int = 32,
+        final_activation: str = "sigmoid",
+        dea: bool = True,
+        dea_sum: bool = True,
+        fnd: list[int] = (),
+        mask: MaskConfig = MaskConfig(),
+        mask_manual: bool = False,
+        mp_args: dict[str, Any] | None = None,
+        mp_args_first_layer: dict[str, Any] | None = None,
+        linear_args: dict[str, Any] | None = None,
+        use_kernels: bool | None = None,
+    ) -> "MPDiscriminatorConfig":
+        output_node_size = 1 if not dea else hidden_node_size
+        layers = _build_layers(
+            num_particles, input_node_size, mp_iters, list(fe_layers), list(fn_layers),
+            fe1_layers, fn1_layers, hidden_node_size, output_node_size,
+            mp_args or {}, mp_args_first_layer or {}, linear_args or {},
+        )
+        fnd_cfg = None
+        if dea:
+            fnd_cfg = MLPConfig.build(
+                list(fnd),
+                input_size=hidden_node_size + int(mask.mask_fnd_np),
+                output_size=1,
+                final_linear=True,
+                **(linear_args or {}),
+            )
+        return MPDiscriminatorConfig(
+            num_particles=num_particles,
+            input_node_size=input_node_size,
+            layers=layers,
+            mask=mask,
+            final_activation=final_activation,
+            dea=dea,
+            dea_sum=dea_sum,
+            fnd_cfg=fnd_cfg,
+            mask_manual=mask_manual,
+            use_kernels=use_kernels,
+        )
+
+
+class MPDiscriminator(nn.Module):
+    """Discriminator module; ``state_dict`` keys are the reference's
+    (``mp_layers.{i}.fe/fn.*``, ``fnd_layer.*``)."""
+
+    def __init__(
+        self,
+        cfg: MPDiscriminatorConfig,
+        generator: torch.Generator | None = None,
+        device: torch.device | str = "cpu",
+    ):
+        super().__init__()
+        self.cfg = cfg
+        self.mp_layers = nn.ModuleList(MPLayer(c, generator) for c in cfg.layers)
+        if cfg.fnd_cfg is not None:
+            self.fnd_layer = MLP(cfg.fnd_cfg, generator)
+        self.to(device)
+
+    def forward(self, x: torch.Tensor, labels: torch.Tensor | None = None,
+                train: bool = False, rng=None, update_sn: bool = True) -> torch.Tensor:
+        """``x``: ``[B, N, input_node_size (+1 mask feature if masked)]``.
+        Returns ``[B, 1]``."""
+        cfg = self.cfg
+        n_rngs = len(self.mp_layers) + 1
+        rngs = rng.split(n_rngs) if rng is not None else [None] * n_rngs
+
+        mask = None
+        num_jet_particles = None
+        if cfg.use_mask or cfg.mask.mask_fnd_np:
+            _, mask = split_mask(x)
+        if cfg.use_mask:
+            x = x[:, :, :-1]
+        elif not cfg.mask.mask_fnd_np:
+            mask = None
+        if cfg.mask.mask_fne_np:
+            num_jet_particles = mask.mean(dim=1)
+
+        mp_mask = mask if cfg.use_mask else None
+        if mp_mask is not None:
+            mp_mask = mp_mask.contiguous()
+        for layer, layer_rng in zip(self.mp_layers, rngs):
+            x = layer(
+                x, mask=mp_mask, labels=labels, num_jet_particles=num_jet_particles,
+                train=train, rng=layer_rng, update_sn=update_sn, use_kernels=cfg.use_kernels,
+            )
+
+        # pooling (mpgan/model.py:810-822)
+        do_mean = not (cfg.dea and cfg.dea_sum)
+        if cfg.use_mask:
+            x = (x * mp_mask).sum(dim=1)
+            if do_mean:
+                x = x / (mp_mask.sum(dim=1) + 1e-12)
+        else:
+            x = x.mean(dim=1) if do_mean else x.sum(dim=1)
+
+        if cfg.dea:
+            if cfg.mask.mask_fnd_np:
+                x = torch.cat([num_jet_particles, x], dim=1)
+            x = self.fnd_layer(x, train=train, rng=rngs[-1], update_sn=update_sn)
+
+        if cfg.final_activation == "sigmoid":
+            x = torch.sigmoid(x)
+        elif cfg.final_activation == "tanh":
+            x = torch.tanh(x)
         return x

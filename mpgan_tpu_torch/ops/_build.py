@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``mpgan_tpu_torch/csrc/`` are compiled at first use with
-``nvcc`` into a shared library with a plain C interface, and loaded through
-``ctypes``. The library lands in ``build/torch_ext/<hash>/`` at the root of
+``nvcc``, one process per source started together, and linked into a shared
+library with a plain C interface, loaded through ``ctypes``. The library lands in ``build/torch_ext/<hash>/`` at the root of
 the checkout, where ``<hash>`` covers the sources and the compiler flags, so a
 changed source builds anew and an unchanged one is reused. Nothing here falls
 back: a missing ``nvcc`` or a failed compile raises.
@@ -23,10 +23,11 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_ext"
-SOURCES = ("edge_aggregate.cu",)
+SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu")
+HEADERS = ("edge_common.cuh",)
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 _LIB_NAME = "libmpgan_kernels.so"
 
@@ -51,7 +52,7 @@ def find_nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -67,23 +68,32 @@ def build() -> pathlib.Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    # compile to a private name, then rename: concurrent builders never see a partial file
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    # compile to private names, then rename: a concurrent build never sees a partial file
+    tmp_dir = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        objs = [tmp_dir / (pathlib.Path(src).stem + ".o") for src in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+                for src, obj in zip(SOURCES, objs)]
+        cmds.append([nvcc, *NVCC_FLAGS[:4], "-shared", "-o", str(tmp_dir / _LIB_NAME),
+                     *map(str, objs)])
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds[:-1]]
+        results = [(c, *pr.communicate(), pr.returncode) for c, pr in zip(cmds, procs)]
+        if all(rc == 0 for *_, rc in results):
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            results.append((cmds[-1], link.stdout, link.stderr, link.returncode))
+        log = "".join(" ".join(c) + "\n" + out + err for c, out, err, _ in results)
+        failed = [(c, rc) for c, _, _, rc in results if rc != 0]
+        if failed:
+            cmd, rc = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+        os.replace(tmp_dir / _LIB_NAME, lib_path)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    build_info.update(
-        path=str(lib_path), seconds=seconds, cached=False, log=proc.stdout + proc.stderr
-    )
+    (out_dir / "build.log").write_text(log)
+    build_info.update(path=str(lib_path), seconds=seconds, cached=False, log=log)
     return lib_path
 
 
@@ -94,6 +104,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, i, i, i, i, parr, parr, iarr, f, i, p,
     ]
     lib.mpgan_edge_aggregate.restype = i
+    lib.mpgan_edge_aggregate_train.argtypes = [
+        p, p, p, p, i, i, i, i, parr, parr, iarr, f, i, i, ctypes.c_uint, f, p,
+    ]
+    lib.mpgan_edge_aggregate_train.restype = i
+    lib.mpgan_edge_aggregate_groups.argtypes = [i]
+    lib.mpgan_edge_aggregate_groups.restype = i
+    lib.mpgan_edge_aggregate_bwd.argtypes = [
+        p, p, p, p, p, p, p, parr, p, p, p, i, i, i, i, parr, parr, parr, iarr,
+        f, i, i, i, ctypes.c_uint, f, i, p,
+    ]
+    lib.mpgan_edge_aggregate_bwd.restype = i
     lib.mpgan_edge_aggregate_fn.argtypes = [
         p, p, p, p, p, i, i, i, i, i, parr, parr, iarr, i, parr, p, parr, iarr, f, i, f, i, p,
     ]

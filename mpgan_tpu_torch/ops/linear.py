@@ -1,29 +1,32 @@
-"""MLP stack (the reference's ``LinearNet``, mpgan/model.py:11-88), eval mode.
+"""MLP stack (the reference's ``LinearNet``, mpgan/model.py:11-88).
 
 Counterpart of ``mpgan_tpu/ops/linear.py``:
 
 - Linear layers with LeakyReLU(alpha); ``final_linear`` leaves the last layer
   without activation or normalization,
-- optional BatchNorm *after* the activation (mpgan/model.py:80-82), evaluated
-  with the running statistics and eps 1e-5,
+- dropout after *every* layer in train mode, a final linear one included
+  (mpgan/model.py:83), drawn by ``hash_dropout``,
+- optional BatchNorm *after* the activation (mpgan/model.py:80-82): running
+  statistics in eval, biased batch statistics in train, which also update the
+  running statistics (momentum 0.1, unbiased variance), eps 1e-5,
 - optional spectral norm on every layer except a final linear one
-  (mpgan/model.py:65-68).
+  (mpgan/model.py:65-68); its ``u`` advances on every forward with
+  ``update_sn`` set, eval included, as in the reference
+  (spectral_normalization.py:62-64). Generation passes ``update_sn=False``,
+  since the JAX package discards the advanced state there.
 
 Submodule names follow the reference, so its ``state_dict`` keys load as they
 are: ``net.{k}.weight``/``bias`` for a plain layer,
 ``net.{k}.module.{weight_bar,bias,weight_u,weight_v}`` for a spectral-norm
 layer (mpgan/spectral_normalization.py:44-60) and ``bn.{j}.*`` for BatchNorm.
-Weights are ``[out, in]``, as in the JAX package.
-
-Evaluation does not advance the spectral-norm ``u`` buffer: generation
-discards the advanced state in the JAX package too
-(``mpgan_tpu/training/sampling.py``). Training mode, including dropout
-(``hash_dropout``), comes with the train step (ROADMAP.md Queue 1 item 6).
+Weights are ``[out, in]``, as in the JAX package. Mutable state (BN running
+statistics, SN vectors) is updated in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Sequence
 
@@ -33,10 +36,62 @@ from torch import nn
 from .spectral_norm import spectral_normalize
 
 _BN_EPS = 1e-5
-TRAIN_NOT_PORTED = (
-    "train mode (dropout, batch-norm batch statistics, spectral-norm updates) "
-    "comes with the train step, ROADMAP.md Queue 1 item 6"
-)
+_BN_MOMENTUM = 0.1
+_M32 = 0xFFFFFFFF
+
+
+def _i32(c: int) -> int:
+    """A uint32 constant as the int32 with the same bits."""
+    c &= _M32
+    return c - 2**32 if c >= 2**31 else c
+
+
+def dropout_threshold_mult(p: float) -> tuple[int, float]:
+    """The hash's keep threshold ``min(int(p * 2**32), 2**32 - 1)`` and the
+    float32 multiplier ``1/(1-p)``, computed on the host as the JAX code does."""
+    mult = float(torch.tensor(1.0 / (1.0 - p), dtype=torch.float32))
+    return min(int(p * 2**32), 2**32 - 1), mult
+
+
+def hash_mult(h: torch.Tensor, p: float, dtype: torch.dtype) -> torch.Tensor:
+    """The hash's finisher and keep test on int32 keys ``h`` (uint32 bits):
+    xor-shift 16, multiply by 0x85EBCA6B, xor-shift 15, keep iff
+    ``h >= threshold`` as uint32. Returns the multiplier ``1/(1-p)`` or 0.
+
+    int32 arithmetic wraps like uint32; the shifts are masked to be logical and
+    the keep test compares sign-flipped values."""
+    h = h ^ ((h >> 16) & 0xFFFF)
+    h = h * _i32(0x85EBCA6B)
+    h = h ^ ((h >> 15) & 0x1FFFF)
+    threshold, mult = dropout_threshold_mult(p)
+    keep = (h ^ _i32(2**31)) >= _i32(threshold ^ 2**31)
+    return keep.to(dtype) * mult
+
+
+@functools.lru_cache(maxsize=64)
+def _hash_keys(rows: int, cols: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """``hash_dropout``'s row keys ``row * 0x9E3779B1`` ``[rows, 1]`` and column
+    keys ``col * 0x85EBCA77`` ``[1, cols]``, as int32 bit patterns."""
+    r = torch.arange(rows, dtype=torch.int32, device=device)[:, None] * _i32(0x9E3779B1)
+    c = torch.arange(cols, dtype=torch.int32, device=device)[None, :] * _i32(0x85EBCA77)
+    return r, c
+
+
+def hash_dropout(x: torch.Tensor, p: float, words: tuple[int, int]) -> torch.Tensor:
+    """Torch-semantics dropout (keep with probability ``1-p``, scale by
+    ``1/(1-p)``) from the outer-sum hash of ``mpgan_tpu.ops.linear.hash_dropout``:
+    row key ``row * 0x9E3779B1 + seed`` with ``seed = w0 * 0xC2B2AE3D +
+    w1 * 0x27D4EB2F`` from the two key words, column key ``col * 0x85EBCA77``.
+    The same two words give the JAX package's mask bit for bit.
+
+    It runs on the main train path (every fn and fnd layer of D), so it is
+    written for few kernel launches: int32 arithmetic and cached row and
+    column keys."""
+    w0, w1 = (int(w) & _M32 for w in words)
+    seed = _i32(w0 * 0xC2B2AE3D + w1 * 0x27D4EB2F)
+    cols = x.shape[-1]
+    rkey, ckey = _hash_keys(x.numel() // cols, cols, str(x.device))
+    return x * hash_mult((rkey + seed) + ckey, p, x.dtype).reshape(x.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,16 +159,22 @@ class SNLinear(nn.Module):
         super().__init__()
         self.module = _SNParams(in_dim, out_dim)
 
-    def weight_and_bias(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def weight_and_bias(self, update_sn: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+        """The normalized weight; ``update_sn`` keeps the advanced ``u``/``v``."""
         m = self.module
-        w, _, _ = spectral_normalize(m.weight_bar, m.weight_u)
+        w, u, v = spectral_normalize(m.weight_bar, m.weight_u)
+        if update_sn:
+            with torch.no_grad():
+                m.weight_u.copy_(u)
+                m.weight_v.copy_(v)
         return w, m.bias
 
 
-def layer_weight_and_bias(layer: nn.Module) -> tuple[torch.Tensor, torch.Tensor]:
+def layer_weight_and_bias(layer: nn.Module, update_sn: bool = True
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The effective ``(w [out, in], b)`` of a plain or spectral-norm layer."""
     if isinstance(layer, SNLinear):
-        return layer.weight_and_bias()
+        return layer.weight_and_bias(update_sn)
     return layer.weight, layer.bias
 
 
@@ -146,19 +207,41 @@ class MLP(nn.Module):
                 if cfg.layer_has_activation(i)
             )
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(TRAIN_NOT_PORTED)
+    def forward(self, x: torch.Tensor, train: bool = False, rng=None,
+                update_sn: bool = True) -> torch.Tensor:
+        """``x`` (``[..., sizes[0]]``) through the stack. In train mode with
+        dropout, ``rng`` (see :mod:`.keys`) splits into one key per layer, as
+        ``mlp_apply`` splits its JAX key."""
         cfg = self.cfg
+        dropout = train and cfg.dropout_p > 0
+        if dropout and rng is None:
+            raise ValueError("dropout in train mode needs an rng")
+        drop_keys = rng.split(cfg.num_layers) if dropout else None
         bn_idx = 0
         for i, layer in enumerate(self.net):
-            w, b = layer_weight_and_bias(layer)
+            w, b = layer_weight_and_bias(layer, update_sn)
             x = torch.matmul(x, w.t()) + b
             if cfg.layer_has_activation(i):
                 x = torch.where(x >= 0, x, cfg.leaky_relu_alpha * x)
                 if cfg.batch_norm:
-                    bn = self.bn[bn_idx]
-                    x = (x - bn.running_mean) * torch.rsqrt(bn.running_var + _BN_EPS) \
-                        * bn.weight + bn.bias
+                    x = _batch_norm(x, self.bn[bn_idx], train)
                     bn_idx += 1
+            if dropout:
+                x = hash_dropout(x, cfg.dropout_p, drop_keys[i].words())
         return x
+
+
+def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool) -> torch.Tensor:
+    """BatchNorm over every axis but the last: running statistics in eval;
+    in train, biased batch statistics, and the running statistics move by
+    momentum 0.1 toward the batch mean and the unbiased batch variance."""
+    if not train:
+        return (x - bn.running_mean) * torch.rsqrt(bn.running_var + _BN_EPS) * bn.weight + bn.bias
+    axes = tuple(range(x.dim() - 1))
+    mean = x.mean(dim=axes)
+    var = x.var(dim=axes, unbiased=False)
+    n = x.numel() // x.shape[-1]
+    with torch.no_grad():
+        bn.running_mean.mul_(1 - _BN_MOMENTUM).add_(_BN_MOMENTUM * mean)
+        bn.running_var.mul_(1 - _BN_MOMENTUM).add_(_BN_MOMENTUM * var * n / max(n - 1, 1))
+    return (x - mean) * torch.rsqrt(var + _BN_EPS) * bn.weight + bn.bias

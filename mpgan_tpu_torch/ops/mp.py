@@ -1,4 +1,4 @@
-"""Dense message passing over particle clouds, eval mode (``mpgan_tpu/ops/mp.py``).
+"""Dense message passing over particle clouds (``mpgan_tpu/ops/mp.py``).
 
 One message-passing iteration (reference ``MPLayer``, mpgan/model.py:91-384)
 builds ``A[b, i, j] = [x_i, x_j (, edge features)]``, runs the edge MLP ``fe``,
@@ -12,8 +12,15 @@ Two paths compute it:
   embeddings and hands the N^2 edge chain to the CUDA kernels of
   :mod:`.mp_kernels` (on the CPU their plain versions). It takes the kernel
   that also runs fn (K4) for eval at N <= 64 without BN/SN in fn, clabels or
-  ``mask_fne_np``, and the edge-only kernel (K2) followed by fn in torch
-  otherwise — the JAX package's default gate (``ops/mp.py:347-355``).
+  ``mask_fne_np``, and the edge-only kernel (K2, backward K3) followed by fn in
+  torch otherwise, train mode always — the JAX package's default gate
+  (``ops/mp.py:347-355``).
+
+Train-mode dropout keys follow the JAX key paths (see :mod:`.keys`): the plain
+path splits ``rng`` into fe and fn keys, each MLP into one key per layer; the
+kernel path takes the second of two splits, draws the in-kernel seed from it
+and hands it to fn. The two paths therefore draw different masks, as in the
+JAX package.
 
 Conditioning labels are broadcast per batch element, fixing the reference's
 ``Tensor.repeat`` label scramble (mpgan/model.py:249-253) as the JAX package does.
@@ -27,8 +34,8 @@ from typing import Any
 import torch
 from torch import nn
 
-from .linear import MLP, MLPConfig, TRAIN_NOT_PORTED, layer_weight_and_bias
-from .mp_kernels import edge_aggregate, edge_aggregate_fn
+from .linear import MLP, MLPConfig, layer_weight_and_bias
+from .mp_kernels import EdgeAggregate, edge_aggregate_fn
 
 KNN_NOT_PORTED = (
     "the knn (fully_connected=False) message-passing layer comes with the "
@@ -108,10 +115,11 @@ class MPLayer(nn.Module):
         self.fn = MLP(cfg.fn, generator)
 
     def forward(self, x, *, mask=None, labels=None, num_jet_particles=None,
-                train: bool = False, use_kernels: bool | None = None):
+                train: bool = False, rng=None, update_sn: bool = True,
+                use_kernels: bool | None = None):
         return mp_layer_apply(
             self, x, mask=mask, labels=labels, num_jet_particles=num_jet_particles,
-            train=train, use_kernels=use_kernels,
+            train=train, rng=rng, update_sn=update_sn, use_kernels=use_kernels,
         )
 
 
@@ -158,9 +166,9 @@ def fused_eligible(cfg: MPLayerConfig, train: bool) -> bool:
     return True
 
 
-def _fe_weights_sn(layer: MPLayer) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """fe-layer weights ``(w [out, in], b)`` with spectral norm applied."""
-    return [layer_weight_and_bias(lin) for lin in layer.fe.net]
+def _fe_weights_sn(layer: MPLayer, update_sn: bool) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """fe-layer weights ``(w [out, in], b)`` with spectral norm applied (and advanced)."""
+    return [layer_weight_and_bias(lin, update_sn) for lin in layer.fe.net]
 
 
 def _decompose_first_layer(cfg: MPLayerConfig, weights, x, labels, num_jet_particles):
@@ -182,18 +190,20 @@ def _decompose_first_layer(cfg: MPLayerConfig, weights, x, labels, num_jet_parti
     return u1, u2
 
 
-def _mp_layer_apply_fused(layer: MPLayer, x, mask, labels, num_jet_particles):
+def _mp_layer_apply_fused(layer: MPLayer, x, mask, labels, num_jet_particles, train, rng,
+                          update_sn):
     """Kernel path: decomposed fe layer 1, then K4 (fe chain + aggregate + fn) or
-    K2 (fe chain + aggregate) followed by fn in torch."""
+    K2 (fe chain + aggregate, K3 backward) followed by fn in torch."""
     cfg = layer.cfg
-    weights = _fe_weights_sn(layer)
+    weights = _fe_weights_sn(layer, update_sn)
     u1, u2 = _decompose_first_layer(cfg, weights, x, labels, num_jet_particles)
     hidden_flat = tuple(p for w, b in weights[1:] for p in (w.t().contiguous(), b))
     m = mask if mask is not None else torch.ones(x.shape[:2] + (1,), dtype=x.dtype, device=x.device)
     m = m.contiguous()
 
     if (
-        x.shape[1] <= 64
+        not train
+        and x.shape[1] <= 64
         and not cfg.fn.batch_norm
         and not cfg.fn.spectral_norm
         and cfg.clabels == 0
@@ -210,12 +220,19 @@ def _mp_layer_apply_fused(layer: MPLayer, x, mask, labels, num_jet_particles):
             cfg.fe.leaky_relu_alpha, cfg.sum_agg, cfg.fn.leaky_relu_alpha, cfg.fn.final_linear,
         )
 
-    agg = edge_aggregate(
-        u1.contiguous(), u2.contiguous(), m, hidden_flat, cfg.fe.leaky_relu_alpha, cfg.sum_agg
+    dropout_p = cfg.fe.dropout_p if train else 0.0
+    seed = 0
+    if dropout_p > 0:
+        if rng is None:
+            raise ValueError("fe dropout in train mode needs an rng")
+        seed = rng.edge_seed()
+    agg = EdgeAggregate.apply(
+        u1.contiguous(), u2.contiguous(), m, cfg.fe.leaky_relu_alpha, cfg.sum_agg, dropout_p,
+        seed, *hidden_flat,
     )
     h = torch.cat([agg, x], dim=-1)
     h = _append_cond(cfg, h, labels, num_jet_particles)
-    return layer.fn(h)
+    return layer.fn(h, train=train, rng=rng, update_sn=update_sn)
 
 
 def _check_edge_features(cfg: MPLayerConfig) -> None:
@@ -256,31 +273,36 @@ def mp_layer_apply(
     labels: torch.Tensor | None = None,
     num_jet_particles: torch.Tensor | None = None,
     train: bool = False,
+    rng=None,
+    update_sn: bool = True,
     use_kernels: bool | None = None,
 ) -> torch.Tensor:
     """One message-passing iteration: ``[B, N, input_node_size] -> [B, N, output_node_size]``.
 
     ``use_kernels=None`` takes the kernel path for CUDA tensors and the plain
     path elsewhere; ``True`` on the CPU runs the kernel path through the
-    kernels' plain versions.
+    kernels' plain versions. ``rng`` (see :mod:`.keys`) feeds train-mode dropout.
     """
     cfg = layer.cfg
     _check_edge_features(cfg)
     if not cfg.fully_connected:
         raise NotImplementedError(KNN_NOT_PORTED)
-    if train:
-        raise NotImplementedError(TRAIN_NOT_PORTED)
     if use_kernels is None:
         use_kernels = x.is_cuda
     if use_kernels and fused_eligible(cfg, train):
-        return _mp_layer_apply_fused(layer, x, mask, labels, num_jet_particles)
+        fn_rng = rng.split(2)[1] if rng is not None else None
+        return _mp_layer_apply_fused(layer, x, mask, labels, num_jet_particles, train, fn_rng,
+                                     update_sn)
+    fe_rng = fn_rng = None
+    if rng is not None:
+        fe_rng, fn_rng = rng.split(2)
 
     a = _pairwise_fully_connected(cfg, x)  # [B, N, N, fe_in]
     a = _append_cond(cfg, a, labels, num_jet_particles)
-    a = layer.fe(a)
+    a = layer.fe(a, train=train, rng=fe_rng, update_sn=update_sn)
     if mask is not None:
         a = a * mask[:, None, :, :]  # mask senders (mpgan/model.py:262)
     agg = a.sum(dim=2) if cfg.sum_agg else a.mean(dim=2)
     h = torch.cat([agg, x], dim=-1)
     h = _append_cond(cfg, h, labels, num_jet_particles)
-    return layer.fn(h)
+    return layer.fn(h, train=train, rng=fn_rng, update_sn=update_sn)

@@ -6,10 +6,10 @@ as an eval-able dict string (``<name>_args.txt``, setup_training.py:1159-1163)
 that doubles as the model-card format for the shipped ``trained_models``. This
 module defines the same defaults (setup_training.py:76-715), applies the same
 defaulting cascade (process_args, setup_training.py:747-1040) and builds the
-generator config the way ``setup_mpgan`` does (setup_training.py:1195-1347).
-The card's ``use_pallas`` key selects the port's kernel path
-(``MPGeneratorConfig.use_kernels``). The discriminator and GAPT builders come
-with the train step (ROADMAP.md Queue 1 item 6).
+generator and discriminator configs the way ``setup_mpgan`` does
+(setup_training.py:1195-1347). The card's ``use_pallas`` key selects the
+port's kernel path (``use_kernels``). The GAPT config comes with GAPT
+(ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import ast
 import math
 from typing import Any
 
-from ..models.mpgan import MaskConfig, MPGeneratorConfig
+from ..models.mpgan import MaskConfig, MPDiscriminatorConfig, MPGeneratorConfig
 
 
 class Args:
@@ -384,4 +384,33 @@ def build_mpgan_generator(args: Args) -> MPGeneratorConfig:
         mp_args_first_layer={"clabels": clabels_fl},
         linear_args=_linear_args(args, gen=True),
         use_kernels=args.get("use_pallas"),
+    )
+
+
+def build_mpgan_discriminator(args: Args) -> MPDiscriminatorConfig:
+    clabels_fl = args.get("clabels_first_layer", args.clabels if args.clabels_fl else 0)
+    use_kernels = args.get("use_pallas")
+    if args.get("gp"):
+        # the gradient penalty differentiates D's input gradient (a double
+        # backward); the kernels' backward is once differentiable, so GP
+        # configs pin D to the plain path, as the JAX package does
+        use_kernels = False
+    return MPDiscriminatorConfig.build(
+        num_particles=args.num_hits,
+        input_node_size=args.node_feat_size,
+        mp_iters=args.mp_iters_disc or args.mp_iters,
+        fe_layers=list(args.fe),
+        fn_layers=list(args.fn),
+        fe1_layers=list(args.fe1d) if args.fe1d else None,
+        hidden_node_size=args.hidden_node_size,
+        final_activation="" if args.loss in ("w", "hinge") else "sigmoid",
+        dea=args.dea,
+        dea_sum=args.sum,
+        fnd=list(args.fnd),
+        mask=_mask_config(args) if args.get("mask", True) else MaskConfig(mask_c=False),
+        mask_manual=args.mask_manual,
+        mp_args=_mp_args(args),
+        mp_args_first_layer={"clabels": clabels_fl, "all_ef": False},
+        linear_args=_linear_args(args, gen=False),
+        use_kernels=use_kernels,
     )

@@ -1,0 +1,248 @@
+"""Training orchestration (``mpgan_tpu/training/loop.py``; train.py:686-985):
+the run directory, resume, the epoch loop with the D/G interleave, and the
+periodic checkpoint and evaluation.
+
+The epoch is a host loop over batches: the training set is staged on the
+device once, each epoch's shuffled order goes over as one index array, and the
+loss sums stay on the device with one host sync per epoch. (The JAX package
+runs the epoch as one ``lax.scan`` program, a TPU dispatch device; a CUDA-graph
+epoch is later work, ROADMAP.md Queue 1 item 7.)
+
+Refused at start with ``NotImplementedError`` (not ported yet, see
+ROADMAP.md): models other than MPGAN, ``--efp``, ``--fpd``, ``--fpnd``,
+``--cov-mmd``, augmentation, bf16 training, a device mesh or multi-GPU,
+``--profile``, ``--debug``, ``--debug-nans`` and delayed masking. Plots are
+skipped with one log line.
+"""
+
+from __future__ import annotations
+
+import logging
+import pathlib
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..data.jetnet import gen_jet_corrections
+from ..data.loader import BatchLoader
+from ..evaluation.w1 import w1m, w1p
+from ..models.mpgan import MPDiscriminator, MPGenerator
+from . import checkpoint as ckpt
+from .config import Args, build_mpgan_discriminator, build_mpgan_generator
+from .optimizers import build_optimizer
+from .sampling import generate_multi_batch, noise_spec
+from .train_step import StepConfig, TrainState, d_step, g_step
+
+logger = logging.getLogger(__name__)
+
+_REFUSED_FLAGS = {
+    "efp": "EFP and w1efp (ROADMAP.md Queue 1 item 8)",
+    "fpd": "FPD (ROADMAP.md Queue 1 item 8)",
+    "fpnd": "FPND (ROADMAP.md Queue 1 item 11)",
+    "cov_mmd": "coverage/MMD (ROADMAP.md Queue 1 item 8)",
+    "mesh_shape": "multi-device training (ROADMAP.md Queue 1 item 11)",
+    "multi_gpu": "multi-device training (ROADMAP.md Queue 1 item 11)",
+    "profile": "the profiled first epoch (ROADMAP.md Queue 1 item 7)",
+    "debug": "the D-output debug log (ROADMAP.md Queue 1 item 7)",
+    "debug_nans": "the NaN debugger (ROADMAP.md Queue 1 item 7)",
+    "mask_epoch": "delayed masking (ROADMAP.md Queue 1 item 11)",
+}
+
+
+def check_supported(args: Args) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    if args.model != "mpgan" or args.get("model_D", "mpgan") != "mpgan":
+        raise NotImplementedError(
+            f"model {args.model!r} / discriminator {args.get('model_D')!r}: only MPGAN is "
+            "ported, the other models come later (ROADMAP.md Queue 1 items 10-11)"
+        )
+    for key, what in _REFUSED_FLAGS.items():
+        if args.get(key):
+            raise NotImplementedError(f"--{key.replace('_', '-')}: {what} is not ported yet")
+    if args.get("compute_dtype", "float32") != "float32":
+        raise NotImplementedError(
+            "--compute-dtype bfloat16: bf16 training is not ported yet (ROADMAP.md Queue 1 item 6)"
+        )
+
+
+def _corrected(unnorm: np.ndarray, use_mask: bool, **kwargs):
+    if use_mask:
+        return gen_jet_corrections(unnorm, ret_mask_separate=True, **kwargs)
+    return gen_jet_corrections(unnorm, ret_mask_separate=False, **kwargs), None
+
+
+class Trainer:
+    def __init__(self, args: Args, train_dataset: Any = None, valid_dataset: Any = None,
+                 device: torch.device | str = "cuda"):
+        check_supported(args)
+        self.args = args
+        self.device = torch.device(device)
+        self.train_dataset = train_dataset
+        self.valid_dataset = valid_dataset
+
+        # directory scaffolding and the name-collision guard (setup_training.py:1086-1110)
+        self.out_dir = pathlib.Path(args.dir_path or "outputs") / args.name
+        self.models_dir = self.out_dir / "models"
+        self.losses_dir = self.out_dir / "losses"
+        self.figs_dir = self.out_dir / "figs"
+        if (self.out_dir.exists() and args.name != "test" and not args.get("load_model", True)
+                and not args.get("override_load_check")):
+            raise RuntimeError(
+                "A model directory of this name already exists, either change the name or use "
+                "the --override-load-check flag"
+            )
+        for d in (self.models_dir, self.losses_dir, self.figs_dir):
+            d.mkdir(parents=True, exist_ok=True)
+
+        # resume detection before the args card, which only a fresh run writes
+        self.start_epoch = ckpt.latest_epoch(self.models_dir) if args.get("load_model", True) else 0
+        if self.start_epoch == 0:
+            (self.out_dir / f"{args.name}_args.txt").write_text(str(args.to_dict()))
+
+        # the reference's eval-time use_mask gate (train.py:703), quirk included
+        self.use_labels = bool(args.get("mask_c") or args.clabels or args.get("gapt_mask"))
+        self.step_cfg = StepConfig(
+            loss=args.loss, gp_lambda=args.gp, label_smoothing=args.label_smoothing,
+            label_noise=args.label_noise,
+            augment=bool(args.aug_t or args.aug_f or args.aug_r90 or args.aug_s),
+        )
+        g_cfg = build_mpgan_generator(args)
+        self.spec = noise_spec(
+            "mpgan",
+            {"lfc": args.lfc, "lfc_latent_size": args.lfc_latent_size,
+             "mask_learn_sep": args.mask_learn_sep,
+             "latent_node_size": args.latent_node_size or args.hidden_node_size},
+            args.num_hits, args.sd,
+        )
+        # one CPU generator: model init first, then every draw of every step
+        rng = torch.Generator().manual_seed(int(args.seed))
+        g = MPGenerator(g_cfg, rng, device=self.device)
+        d = MPDiscriminator(build_mpgan_discriminator(args), rng, device=self.device)
+        opt = lambda m, lr: build_optimizer(  # noqa: E731
+            args.optimizer, m.parameters(), lr, beta1=args.beta1, beta2=args.beta2)
+        self.state = TrainState(g, d, opt(g, args.lr_gen), opt(d, args.lr_disc), rng)
+        if self.start_epoch > 0:
+            ckpt.load_train_state(ckpt.checkpoint_path(self.models_dir, self.start_epoch),
+                                  self.state)
+            logger.info(f"resumed from epoch {self.start_epoch}")
+
+        self.d_loss_keys = ["Dr", "Df", "D"] + (["gp"] if args.gp else [])
+        self.eval_keys = ["w1p", "w1m"]
+        self.multi_value_keys = ["w1p", "w1m"]
+        keys = self.d_loss_keys + ["G"] + self.eval_keys
+        if self.start_epoch:
+            self.losses = ckpt.load_losses(self.losses_dir, keys, self.eval_keys,
+                                           self.multi_value_keys, self.start_epoch,
+                                           args.save_epochs)
+        else:
+            self.losses = {k: [] for k in keys}
+        self._staged = None
+        self._staged_loader = None
+
+    # -- one epoch (train.py:812-886) ----------------------------------------
+
+    def _stage(self, loader: BatchLoader):
+        """The loader's arrays on the device, copied once per loader."""
+        if self._staged_loader is not loader:
+            data = torch.as_tensor(loader.arrays[0], device=self.device)
+            labels = None
+            if self.use_labels and len(loader.arrays) > 1 and loader.arrays[1] is not None:
+                labels = torch.as_tensor(loader.arrays[1], device=self.device)
+            self._staged, self._staged_loader = (data, labels), loader
+        return self._staged
+
+    def train_epoch(self, epoch: int, loader: BatchLoader) -> dict[str, float]:
+        args = self.args
+        if len(loader) == 0:
+            raise ValueError(
+                f"training dataset ({loader.n} samples) is smaller than the batch size "
+                f"({loader.batch_size}): no full batch to train on"
+            )
+        data_all, labels_all = self._stage(loader)
+        order = torch.as_tensor(loader.epoch_batch_indices(), device=self.device)
+        num_batches = len(loader)
+        sums = {k: torch.zeros((), device=self.device) for k in self.d_loss_keys + ["G"]}
+        for batch_ndx in range(num_batches):
+            idx = order[batch_ndx]
+            data = data_all[idx]
+            labels = labels_all[idx] if labels_all is not None else None
+            # the num_critic / num_gen interleave (train.py:841-878)
+            if args.num_critic > 1 or batch_ndx == 0 or (batch_ndx - 1) % args.num_gen == 0:
+                for k, v in d_step(self.state, self.step_cfg, self.spec, data, labels).items():
+                    sums[k] += v
+            if args.num_critic == 1 or (batch_ndx - 1) % args.num_critic == 0:
+                sums["G"] += g_step(self.state, self.step_cfg, self.spec, data, labels)["G"]
+            if args.get("break_zero") and batch_ndx == 0:
+                break
+            if args.get("bottleneck") and batch_ndx == 10:
+                break
+        epoch_loss = dict(zip(sums, torch.stack(list(sums.values())).tolist()))  # one sync
+        bad = [k for k, v in epoch_loss.items() if not np.isfinite(v)]
+        if bad:
+            logger.warning(f"non-finite epoch losses at epoch {epoch}: {bad}")
+        for key in self.d_loss_keys:
+            self.losses[key].append(epoch_loss[key] / (num_batches / args.num_gen))
+        self.losses["G"].append(epoch_loss["G"] / (num_batches / args.num_critic))
+        return epoch_loss
+
+    # -- checkpoint + evaluation (train.py:686-809) ---------------------------
+
+    def eval_save_plot(self, epoch: int) -> None:
+        args = self.args
+        ckpt.save_train_state(ckpt.checkpoint_path(self.models_dir, epoch), self.state)
+
+        ds = self.valid_dataset
+        n_eval = min(args.eval_tot_samples, len(ds))
+        if args.get("eval_shuffle"):
+            sel = np.sort(np.random.default_rng(args.seed).permutation(len(ds))[:n_eval])
+        else:
+            sel = slice(None, n_eval)
+        real_jets, _ = _corrected(ds.particle_normalisation(ds.particle_data[sel], inverse=True),
+                                  self.use_labels, zero_mask_particles=False, zero_neg_pt=False)
+        labels = ds.jet_data[sel] if self.use_labels else None
+        gen_norm = generate_multi_batch(
+            self.state.g, self.spec, torch.Generator(device=self.device).manual_seed(epoch),
+            n_eval, args.batch_size, labels=labels,
+        )
+        gen_jets, _ = _corrected(ds.particle_normalisation(gen_norm, inverse=True),
+                                 self.use_labels, zero_mask_particles=self.use_labels,
+                                 zero_neg_pt=False)
+
+        num_w1 = (args.w1_num_samples[0] if isinstance(args.w1_num_samples, list)
+                  else args.w1_num_samples)
+        num_batches = max(len(real_jets) // num_w1, 1)
+        w1pm, w1ps = w1p(real_jets, gen_jets, num_eval_samples=num_w1, num_batches=num_batches)
+        self.losses["w1p"].append(np.concatenate([w1pm, w1ps]).tolist())
+        w1mm, w1ms = w1m(real_jets, gen_jets, num_eval_samples=num_w1, num_batches=num_batches)
+        self.losses["w1m"].append([w1mm, w1ms])
+        ckpt.save_losses(self.losses, self.losses_dir)
+        logger.info(f"epoch {epoch}: w1p {w1pm} w1m {w1mm:.6f}; plots are not ported yet "
+                    "(ROADMAP.md Queue 1 item 11)")
+
+    # -- full run (train.py:889-985) -----------------------------------------
+
+    def train(self) -> None:
+        args = self.args
+        if self.start_epoch == 0 and args.get("save_zero"):
+            self.eval_save_plot(0)
+        loader = BatchLoader(
+            self.train_dataset.particle_data,
+            self.train_dataset.jet_data if self.use_labels else None,
+            batch_size=args.batch_size, shuffle=True, seed=args.seed,
+        )
+        for i in range(self.start_epoch, args.num_epochs):
+            epoch = i + 1
+            t0 = time.time()
+            self.train_epoch(epoch, loader)
+            logger.info(
+                f"epoch {epoch}: "
+                + " ".join(f"{k}={self.losses[k][-1]:.4f}" for k in self.d_loss_keys + ["G"])
+                + f" ({time.time() - t0:.1f}s)"
+            )
+            if epoch % args.save_epochs == 0:
+                self.eval_save_plot(epoch)
+            elif epoch % args.save_model_epochs == 0:
+                ckpt.save_train_state(ckpt.checkpoint_path(self.models_dir, epoch), self.state)
+                ckpt.save_losses(self.losses, self.losses_dir)

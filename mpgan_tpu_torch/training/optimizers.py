@@ -1,0 +1,56 @@
+"""Optimizers (``mpgan_tpu/training/optimizers.py``; setup_training.py:1500-1539).
+
+The reference uses ``torch.optim`` directly; the JAX package re-derives the
+same update rules as optax transformations. The port builds the torch
+optimizers with the reference's settings:
+
+- RMSprop (the default): alpha 0.99, eps 1e-8, no momentum, not centered;
+- Adadelta: rho 0.9, eps 1e-6;
+- Adam with L2 weight decay 5e-4 coupled into the gradient (not AdamW),
+  eps 1e-8.
+
+The per-parameter state (``square_avg``; ``exp_avg``/``exp_avg_sq`` and
+``step``; ``square_avg``/``acc_delta``) maps one to one onto the JAX states'
+leaves (``RMSPropState.sq_avg``, ``AdamState(count, mu, nu)``,
+``AdadeltaState(sq_avg, acc_delta)``): see ``training/checkpoint.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import torch
+
+
+def build_optimizer(
+    name: str,
+    params: Iterable[torch.nn.Parameter],
+    lr: float,
+    *,
+    beta1: float = 0.9,
+    beta2: float = 0.999,
+    weight_decay: float = 5e-4,
+) -> torch.optim.Optimizer:
+    """Optimizer factory mirroring setup_training.optimizers
+    (setup_training.py:1511-1523; the Adam branch always uses wd=5e-4)."""
+    params = list(params)
+    if name == "rmsprop":
+        return torch.optim.RMSprop(params, lr=lr, alpha=0.99, eps=1e-8)
+    if name == "adadelta":
+        return torch.optim.Adadelta(params, lr=lr, rho=0.9, eps=1e-6)
+    if name in ("adam", "None"):
+        return torch.optim.Adam(params, lr=lr, betas=(beta1, beta2), eps=1e-8,
+                                weight_decay=weight_decay)
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+def state_names(opt: torch.optim.Optimizer) -> tuple[str, ...]:
+    """The per-parameter state tensors, in the JAX state's leaf order
+    (``step`` stands for Adam's shared ``count``)."""
+    if isinstance(opt, torch.optim.RMSprop):
+        return ("square_avg",)
+    if isinstance(opt, torch.optim.Adadelta):
+        return ("square_avg", "acc_delta")
+    if isinstance(opt, torch.optim.Adam):
+        return ("step", "exp_avg", "exp_avg_sq")
+    raise TypeError(f"no JAX state layout for {type(opt).__name__}")

@@ -3,7 +3,9 @@
 The MPGAN noise shape follows ``get_gen_noise`` (train.py:116-141); the other
 model families come with their ports. All randomness comes from an explicit
 ``torch.Generator`` on the device the noise is drawn on. Generation runs in
-eval mode under ``torch.inference_mode()``.
+eval mode under ``torch.inference_mode()`` and leaves the spectral-norm
+vectors where they were (``update_sn=False``), as the JAX package discards
+the advanced state there.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ def generate(
 ) -> torch.Tensor:
     """Generate ``num_samples`` clouds in one batch, on the generator's device."""
     with torch.inference_mode():
-        return g(spec.sample(generator, num_samples, _device_of(g)), labels)
+        return g(spec.sample(generator, num_samples, _device_of(g)), labels, update_sn=False)
 
 
 def generate_multi_batch(
@@ -88,6 +90,7 @@ def generate_multi_batch(
             batch_labels = None
             if labels_all is not None:
                 batch_labels = labels_all[i * batch_size : (i + 1) * batch_size]
-            outs.append(g(spec.sample(generator, batch_size, device), batch_labels))
+            outs.append(g(spec.sample(generator, batch_size, device), batch_labels,
+                          update_sn=False))
         out = torch.cat(outs, dim=0)[:num_samples]
     return out.cpu().numpy()

@@ -1,0 +1,164 @@
+"""The GAN train step: the D update and the G update (``mpgan_tpu/training/train_step.py``;
+the reference's ``train_D`` / ``train_G``, train.py:398-523).
+
+Kept from the reference, as the JAX package keeps them:
+
+- during the D step the generator runs in eval mode (``G.eval()``,
+  train.py:421): no dropout, but its spectral-norm vectors still advance;
+- during the G step the discriminator stays in train mode (the reference never
+  calls ``D.eval()`` in ``train_G``), so D's dropout is on and its
+  spectral-norm vectors advance;
+- the real pass runs on unaugmented data (train.py:425);
+- with ``gp_lambda`` the WGAN-GP penalty differentiates through a third D
+  forward on interpolated samples (a double backward).
+
+The G step differentiates through D with respect to D's *input* only. D's
+parameters have ``requires_grad`` off for that pass, so the edge kernel's
+backward (K3) runs without its weight contractions: the counterpart of the
+JAX package's ``skip_weight_grads``.
+
+Every random draw of a step (noise, smoothed targets, the GP weight, the
+dropout key words and in-kernel seeds) comes from ``TrainState.generator``, a
+CPU ``torch.Generator``, in a fixed order. A test can pass the draws instead
+(``DDraws``/``GDraws``), for example the JAX package's own.
+
+Not ported here (each raises ``NotImplementedError``): augmentation,
+bf16 training, the batched real+fake D pass and data-parallel steps
+(ROADMAP.md Queue 1 items 6 and 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..ops.keys import GeneratorKeys
+from .losses import d_loss, d_targets, g_loss, gp_alpha, gradient_penalty
+from .sampling import NoiseSpec
+
+
+@dataclasses.dataclass
+class TrainState:
+    g: torch.nn.Module
+    d: torch.nn.Module
+    g_opt: torch.optim.Optimizer
+    d_opt: torch.optim.Optimizer
+    generator: torch.Generator  # CPU; every draw of the step
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    loss: str = "ls"
+    gp_lambda: float = 0.0
+    label_smoothing: bool = False
+    label_noise: float = 0.0
+    augment: bool = False
+    bf16: bool = False
+    batched_d: bool = False
+
+    def __post_init__(self):
+        refused = [k for k in ("augment", "bf16", "batched_d") if getattr(self, k)]
+        if refused:
+            raise NotImplementedError(
+                f"{', '.join(refused)} in the train step: not ported yet, ROADMAP.md Queue 1 "
+                "item 6"
+            )
+
+
+@dataclasses.dataclass
+class DDraws:
+    """The draws of one D step: G's noise, the dropout keys of the real and the
+    fake pass, the loss targets (None: plain 1 and 0), and the GP's keys and
+    interpolation weight."""
+
+    noise: torch.Tensor
+    real: Any
+    fake: Any
+    targets: tuple[torch.Tensor, torch.Tensor] | None = None
+    gp: Any = None
+    gp_alpha: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
+class GDraws:
+    """The draws of one G step: the noise and the dropout keys of G and of D."""
+
+    noise: torch.Tensor
+    g: Any
+    d: Any
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """Copy a host draw to ``device`` without making the host wait for the
+    device's queue (a pageable copy would drain it every step)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def draw_d(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor) -> DDraws:
+    gen = state.generator
+    b = data.shape[0]
+    noise = to_device(spec.sample(gen, b, "cpu"), data.device)
+    targets = None
+    if cfg.loss in ("og", "ls") and (cfg.label_smoothing or cfg.label_noise):
+        targets = tuple(to_device(t, data.device)
+                        for t in d_targets(gen, b, cfg.label_smoothing, cfg.label_noise))
+    alpha = to_device(gp_alpha(gen, data), data.device) if cfg.gp_lambda else None
+    keys = GeneratorKeys(gen)
+    return DDraws(noise, keys, keys, targets, keys, alpha)
+
+
+def draw_g(state: TrainState, spec: NoiseSpec, batch_size: int, device) -> GDraws:
+    keys = GeneratorKeys(state.generator)
+    return GDraws(to_device(spec.sample(state.generator, batch_size, "cpu"), device), keys, keys)
+
+
+def d_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor,
+           labels: torch.Tensor | None = None, draws: DDraws | None = None
+           ) -> dict[str, torch.Tensor]:
+    """One D update; returns the loss parts ``{Dr, Df, D(, gp)}`` as device scalars."""
+    draws = draws if draws is not None else draw_d(state, cfg, spec, data)
+    g, d = state.g, state.d
+    with torch.no_grad():
+        # fresh fake batch, G in eval mode with spectral norm advancing (train.py:421,428)
+        fake = g(draws.noise, labels, train=False)
+    real_out = d(data, labels, train=True, rng=draws.real)  # unaugmented (train.py:425)
+    fake_out = d(fake, labels, train=True, rng=draws.fake)
+    total, parts = d_loss(cfg.loss, real_out, fake_out, draws.targets)
+    if cfg.gp_lambda:
+        gp = gradient_penalty(lambda x: d(x, labels, train=True, rng=draws.gp), draws.gp_alpha,
+                              data, fake, cfg.gp_lambda)
+        parts = dict(parts, gp=gp)
+        total = total + gp
+    state.d_opt.zero_grad(set_to_none=True)
+    total.backward()
+    state.d_opt.step()
+    return {k: v.detach() for k, v in parts.items()}
+
+
+def g_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor,
+           labels: torch.Tensor | None = None, draws: GDraws | None = None
+           ) -> dict[str, torch.Tensor]:
+    """One G update (``data`` only sets the batch size, train.py:497); returns ``{G}``."""
+    batch_size = labels.shape[0] if labels is not None else data.shape[0]
+    draws = draws if draws is not None else draw_g(state, spec, batch_size, data.device)
+    g, d = state.g, state.d
+    fake = g(draws.noise, labels, train=True, rng=draws.g)
+    # D in train mode; only its input gradient is used, so its parameters stay
+    # out of the graph and the edge kernel's backward skips the weight contractions
+    flags = [p.requires_grad for p in d.parameters()]
+    d.requires_grad_(False)
+    try:
+        fake_out = d(fake, labels, train=True, rng=draws.d)
+    finally:
+        for p, flag in zip(d.parameters(), flags):
+            p.requires_grad_(flag)
+    loss = g_loss(cfg.loss, fake_out)
+    state.g_opt.zero_grad(set_to_none=True)
+    loss.backward()
+    state.g_opt.step()
+    return {"G": loss.detach()}

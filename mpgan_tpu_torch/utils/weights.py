@@ -1,9 +1,10 @@
-"""Generator weights: the JAX package's pytrees, and the reference's ``.pt`` files.
+"""Model weights: the JAX package's pytrees, and the reference's ``.pt`` files.
 
 The port's modules carry the reference's submodule names, so a reference
-``G_*.pt`` state dict loads with ``load_state_dict(strict=True)``. The layout,
-per ``LinearNet`` at ``prefix`` (``mp_layers.{i}.fe.``, ``mp_layers.{i}.fn.``,
-``fmg_layer.``), against the JAX pytrees (``mpgan_tpu/utils/torch_import.py``):
+``G_*.pt`` or ``D_*.pt`` state dict loads with ``load_state_dict(strict=True)``.
+The layout, per ``LinearNet`` at ``prefix`` (``mp_layers.{i}.fe.``,
+``mp_layers.{i}.fn.``, ``fmg_layer.``, and the discriminator's head
+``fnd_layer.``), against the JAX pytrees (``mpgan_tpu/utils/torch_import.py``):
 
 ==================================================  ==================================
 reference / port key                                JAX params / state
@@ -17,6 +18,12 @@ reference / port key                                JAX params / state
 ``bn.{j}.num_batches_tracked``                      not carried (0)
 ``lfc_layer.weight``, ``lfc_layer.bias``            ``lfc.w``, ``lfc.b``
 ==================================================  ==================================
+
+:func:`jax_leaves` lists a module's tensors in the order ``jax.tree.flatten``
+visits the JAX params (or mutable state) pytree: dict keys sorted (``bn``
+before ``layers``, ``b`` before ``w``, ``bias`` before ``scale``, ``fmg`` and
+``lfc`` before ``mp_layers``, ``fnd`` before ``mp_layers``), ``None`` entries
+skipped. The checkpoint layout shared with the JAX package rests on it.
 """
 
 from __future__ import annotations
@@ -26,8 +33,13 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from ..models.mpgan import MPGenerator, MPGeneratorConfig
-from ..ops.linear import MLPConfig
+from ..models.mpgan import (
+    MPDiscriminator,
+    MPDiscriminatorConfig,
+    MPGenerator,
+    MPGeneratorConfig,
+)
+from ..ops.linear import MLP, MLPConfig, SNLinear
 
 
 def _tensors(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -88,6 +100,76 @@ def mp_generator_from_jax(
     return g
 
 
+def discriminator_sd_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
+                              cfg: MPDiscriminatorConfig) -> dict[str, torch.Tensor]:
+    """JAX discriminator pytrees (numpy leaves) as a reference-layout state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for i, layer_cfg in enumerate(cfg.layers):
+        p, s = params["mp_layers"][i], state["mp_layers"][i]
+        sd.update(mlp_sd_from_jax(f"mp_layers.{i}.fe.", layer_cfg.fe, p["fe"], s["fe"]))
+        sd.update(mlp_sd_from_jax(f"mp_layers.{i}.fn.", layer_cfg.fn, p["fn"], s["fn"]))
+    if cfg.fnd_cfg is not None:
+        sd.update(mlp_sd_from_jax("fnd_layer.", cfg.fnd_cfg, params["fnd"], state.get("fnd", {})))
+    return sd
+
+
+def mp_discriminator_from_jax(
+    params: Mapping[str, Any], state: Mapping[str, Any], cfg: MPDiscriminatorConfig,
+    device: torch.device | str = "cpu",
+) -> MPDiscriminator:
+    """An :class:`MPDiscriminator` holding the weights of JAX ``(params, state)`` pytrees."""
+    d = MPDiscriminator(cfg, device=device)
+    d.load_state_dict(discriminator_sd_from_jax(params, state, cfg), strict=True)
+    return d
+
+
+def _mlp_leaves(mlp: MLP, params: bool) -> list[torch.Tensor]:
+    cfg = mlp.cfg
+    out: list[torch.Tensor] = []
+    if params:
+        if cfg.batch_norm:
+            for bn in mlp.bn:
+                out += [bn.bias, bn.weight]  # "bias" < "scale"
+        for lin in mlp.net:
+            m = lin.module if isinstance(lin, SNLinear) else lin
+            out += [m.bias, m.weight_bar if isinstance(lin, SNLinear) else m.weight]
+    else:
+        if cfg.batch_norm:
+            for bn in mlp.bn:
+                out += [bn.running_mean, bn.running_var]
+        if cfg.spectral_norm:
+            out += [lin.module.weight_u for lin in mlp.net if isinstance(lin, SNLinear)]
+    return out
+
+
+def jax_leaves(model: MPGenerator | MPDiscriminator, params: bool) -> list[torch.Tensor]:
+    """The module's parameters (``params=True``) or mutable state (BN running
+    statistics, SN ``u``) in the JAX pytree's flatten order."""
+    out: list[torch.Tensor] = []
+    if isinstance(model, MPDiscriminator):
+        if model.cfg.fnd_cfg is not None:
+            out += _mlp_leaves(model.fnd_layer, params)
+    else:
+        if model.cfg.fmg_cfg is not None:
+            out += _mlp_leaves(model.fmg_layer, params)
+        if model.cfg.lfc and params:
+            out += [model.lfc_layer.bias, model.lfc_layer.weight]
+    for layer in model.mp_layers:
+        out += _mlp_leaves(layer.fe, params) + _mlp_leaves(layer.fn, params)
+    return out
+
+
+def refresh_sn_v(model: torch.nn.Module) -> None:
+    """Recompute every spectral-norm ``weight_v = normalize(w^T u)`` after ``u``
+    was loaded (the JAX package carries ``u`` only)."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, SNLinear):
+                m = mod.module
+                v = m.weight_bar.t() @ m.weight_u
+                m.weight_v.copy_(v / (torch.linalg.vector_norm(v) + 1e-12))
+
+
 def load_reference_state_dict(path: str) -> dict[str, torch.Tensor]:
     """Read a reference ``G_*.pt`` state dict (tensors only) onto the CPU."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -96,6 +178,7 @@ def load_reference_state_dict(path: str) -> dict[str, torch.Tensor]:
     return dict(sd)
 
 
-def mp_generator_to_reference_sd(module: MPGenerator) -> dict[str, torch.Tensor]:
-    """The module's weights as a reference-layout state dict on the CPU (``torch.save``-able)."""
+def mp_generator_to_reference_sd(module: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """A generator's or discriminator's weights as a reference-layout state dict
+    on the CPU (``torch.save``-able)."""
     return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}

@@ -4,7 +4,8 @@ Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false (no
 CUDA kernel runs on the CPU). Run them on a GPU machine with
 ``python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest`` (the
 suite's conftest imports jax, which the port does not need). Flagship widths;
-tolerance rtol = atol = 1e-4 (FP32 FMA chains against cuBLAS FP32, TF32 off).
+tolerance rtol = atol = 1e-4 (FP32 FMA chains against cuBLAS FP32, TF32 off);
+weight gradients, which sum every pair row, within 1e-4 of max(1, max|ref|).
 """
 
 import ctypes
@@ -14,10 +15,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from mpgan_tpu_torch.models.mpgan import MPGenerator
+from mpgan_tpu_torch.models.mpgan import MPDiscriminator, MPGenerator
 from mpgan_tpu_torch.ops import _build
 from mpgan_tpu_torch.ops import mp_kernels as mk
-from mpgan_tpu_torch.training.config import build_mpgan_generator, from_args_dict
+from mpgan_tpu_torch.ops.keys import GeneratorKeys
+from mpgan_tpu_torch.training.config import (
+    build_mpgan_discriminator,
+    build_mpgan_generator,
+    from_args_dict,
+)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -138,3 +144,109 @@ def test_generator_kernel_path_matches_plain_path(dev, num_hits):
         y_plain = g(noise, labels)
     torch.testing.assert_close(y_kernel, y_plain, **TOL)
     assert torch.equal(y_kernel[..., -1], y_plain[..., -1])
+
+
+# ---------------------------------------------------------------------------
+# train mode: K2 with dropout (K1) and K3
+# ---------------------------------------------------------------------------
+
+
+def _assert_wgrad_close(out, ref):
+    bound = 1e-4 * max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= bound
+
+
+def _chain(dev, b, n, widths, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, scale=0.5: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
+    hidden = tuple(t for a, c in zip(widths[:-1], widths[1:])
+                   for t in (r(a, c, scale=a ** -0.5), r(c, scale=0.1)))
+    mask = (torch.rand(b, n, 1, generator=g, device=dev) > 0.3).float()
+    return r(b, n, widths[0]), r(b, n, widths[0]), mask, hidden, r(b, n, widths[-1])
+
+
+@pytest.mark.parametrize("sum_agg", [True, False])
+@pytest.mark.parametrize("b,n,widths", [
+    (64, 30, [96, 160, 192]), (4, 150, [96, 160, 192]), (3, 13, [96, 160, 192]),
+    (2, 13, [30, 50, 7]), (2, 33, [24, 16]), (2, 5, [96]),
+])
+def test_edge_aggregate_train_kernel_matches_plain(dev, sum_agg, b, n, widths):
+    u1, u2, mask, hidden, _ = _chain(dev, b, n, widths, seed=n)
+    before = mk.launch_counts["edge_aggregate_train"]
+    out = mk.edge_aggregate(u1, u2, mask, hidden, 0.2, sum_agg, 0.5, 987654)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["edge_aggregate_train"] == before + 1
+    ref = mk.edge_aggregate_reference(u1, u2, mask, hidden, 0.2, sum_agg, 0.5, 987654)
+    torch.testing.assert_close(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("need_wgrads", [True, False])
+@pytest.mark.parametrize("dropout_p", [0.0, 0.5])
+@pytest.mark.parametrize("sum_agg", [True, False])
+@pytest.mark.parametrize("b,n,widths", [
+    (64, 30, [96, 160, 192]), (4, 150, [96, 160, 192]), (3, 13, [96, 160, 192]),
+    (2, 13, [30, 50, 7]), (2, 70, [24, 16]), (2, 5, [96]),
+])
+def test_edge_aggregate_bwd_kernel_matches_plain(dev, need_wgrads, dropout_p, sum_agg, b, n,
+                                                 widths):
+    u1, u2, mask, hidden, g = _chain(dev, b, n, widths, seed=n + 1)
+    name = "edge_aggregate_bwd" if need_wgrads else "edge_aggregate_bwd_no_wgrads"
+    before = mk.launch_counts[name]
+    out = mk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2, sum_agg, dropout_p, 4242,
+                                need_wgrads)
+    torch.cuda.synchronize()
+    assert mk.launch_counts[name] == before + 1
+    ref = mk.edge_aggregate_bwd_reference(u1, u2, mask, hidden, g, 0.2, sum_agg, dropout_p, 4242,
+                                          need_wgrads)
+    for o, r in zip(out[:3], ref[:3]):
+        torch.testing.assert_close(o, r, **TOL)
+    for o, r in zip(out[3], ref[3]):
+        _assert_wgrad_close(o, r)
+        if not need_wgrads:
+            assert not o.any()
+
+
+def test_edge_aggregate_bwd_kernel_is_deterministic(dev):
+    u1, u2, mask, hidden, g = _chain(dev, 64, 30, [96, 160, 192], seed=3)
+    a = mk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2, True, 0.5, 7)
+    b = mk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2, True, 0.5, 7)
+    for x, y in zip(a[:3] + a[3], b[:3] + b[3]):
+        assert torch.equal(x, y)
+
+
+def test_edge_aggregate_function_grads_match_plain_on_the_card(dev):
+    u1, u2, mask, hidden, g = _chain(dev, 8, 30, [96, 160, 192], seed=5)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_() for t in (u1, u2, mask, *hidden)]
+        out = fn(*ins)
+        (out * g).sum().backward()
+        return [t.grad for t in ins]
+
+    k = grads(lambda a, b, m, *h: mk.EdgeAggregate.apply(a, b, m, 0.2, True, 0.5, 99, *h))
+    p = grads(lambda a, b, m, *h: mk.edge_aggregate_reference(a, b, m, h, 0.2, True, 0.5, 99))
+    for x, y in zip(k[:3], p[:3]):
+        torch.testing.assert_close(x, y, **TOL)
+    for x, y in zip(k[3:], p[3:]):
+        _assert_wgrad_close(x, y)
+
+
+def test_discriminator_without_weight_grads_launches_k3_without_them(dev):
+    """The G step's D pass: parameters with requires_grad off, so the backward
+    takes K3 without the weight contractions, and only the input has a gradient."""
+    args = from_args_dict({"model": "mpgan"})
+    d = MPDiscriminator(build_mpgan_discriminator(args), torch.Generator().manual_seed(0),
+                        device=dev)
+    x = torch.randn(16, 30, 4, device=dev) * 0.3
+    x[..., -1] = (torch.rand(16, 30, device=dev) > 0.3).float() - 0.5
+    x.requires_grad_()
+    d.requires_grad_(False)
+    mk.reset_launch_counts()
+    out = d(x, None, train=True, rng=GeneratorKeys(torch.Generator().manual_seed(1)))
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert mk.launch_counts["edge_aggregate_train"] == 2
+    assert mk.launch_counts["edge_aggregate_bwd_no_wgrads"] == 2
+    assert mk.launch_counts["edge_aggregate_bwd"] == 0
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    assert all(p.grad is None for p in d.parameters())

@@ -1,4 +1,5 @@
-"""PyTorch port ops against the JAX package: MLP (eval), spectral norm, masking.
+"""PyTorch port ops against the JAX package: MLP (eval and train), hash dropout,
+spectral norm, masking.
 
 Inputs come from numpy seeds and go to both packages; tolerance rtol = atol =
 1e-5 (float32, different summation order), masks exactly equal.
@@ -11,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 
 from mpgan_tpu.ops import linear as jlinear
@@ -79,10 +81,95 @@ def test_mlp_eval_matches_jax(final_linear, batch_norm, spectral_norm):
     np.testing.assert_allclose(y_torch.detach().numpy(), np.asarray(y_jax), **TOL)
 
 
-def test_mlp_train_mode_waits_for_train_pr():
+class JaxKeys:
+    """The port's keys protocol (``mpgan_tpu_torch.ops.keys``) replaying JAX key
+    splits, so a port module draws the dropout masks the JAX module draws for
+    the same key. The other train tests import it from here."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def split(self, num):
+        return [JaxKeys(k) for k in jax.random.split(self.key, num)]
+
+    def words(self):
+        kd = np.asarray(self.key).ravel()
+        return int(kd[0]), int(kd[-1])
+
+    def edge_seed(self):
+        s = jax.random.randint(jax.random.fold_in(self.key, 1), (), 0, 2**30, dtype=jnp.int32)
+        return int(np.float32(s))
+
+
+@pytest.mark.parametrize("n", [13, 30, 150])
+@pytest.mark.parametrize("p", [0.5, 0.1])
+def test_hash_dropout_bit_identical_to_jax(n, p):
+    x = np.random.RandomState(n).randn(3, n, 17).astype(np.float32)
+    key = jax.random.PRNGKey(n)
+    j = np.asarray(jlinear.hash_dropout(jnp.asarray(x), p, key))
+    t = tlinear.hash_dropout(torch.from_numpy(x), p, JaxKeys(key).words()).numpy()
+    np.testing.assert_array_equal(t, j)
+    assert abs((t == 0).mean() - p) < 0.05
+
+
+@pytest.mark.parametrize("final_linear", [False, True])
+@pytest.mark.parametrize("batch_norm,spectral_norm,dropout_p", [
+    (False, False, 0.5), (True, False, 0.0), (False, True, 0.3), (True, True, 0.5),
+])
+def test_mlp_train_matches_jax(final_linear, batch_norm, spectral_norm, dropout_p):
+    """Train mode: hash dropout after every layer, BN batch statistics with the
+    running-statistic update, SN advancing; outputs and new state within 1e-5."""
+    kw = dict(batch_norm=batch_norm, spectral_norm=spectral_norm, dropout_p=dropout_p)
+    jcfg = jlinear.MLPConfig.build([24, 16], input_size=10, output_size=6,
+                                   final_linear=final_linear, **kw)
+    tcfg = tlinear.MLPConfig.build([24, 16], input_size=10, output_size=6,
+                                   final_linear=final_linear, **kw)
+    params, state = _mlp_pytrees(jcfg, seed=5)
+    x = np.random.RandomState(6).randn(5, 7, 10).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    y_jax, new_state = jlinear.mlp_apply(
+        jcfg, _to_jnp(params), _to_jnp(state), jnp.asarray(x), train=True, rng=key
+    )
+    mlp = tlinear.MLP(tcfg)
+    mlp.load_state_dict(mlp_sd_from_jax("", tcfg, params, state), strict=True)
+    y_torch = mlp(torch.from_numpy(x), train=True, rng=JaxKeys(key))
+    np.testing.assert_allclose(y_torch.detach().numpy(), np.asarray(y_jax), **TOL)
+    # the same zeros: dropout masks agree bit for bit
+    np.testing.assert_array_equal(y_torch.detach().numpy() == 0, np.asarray(y_jax) == 0)
+    sd = mlp.state_dict()
+    for j, bn in enumerate(new_state.get("bn", [])):
+        np.testing.assert_allclose(sd[f"bn.{j}.running_mean"].numpy(), np.asarray(bn["mean"]),
+                                   **TOL)
+        np.testing.assert_allclose(sd[f"bn.{j}.running_var"].numpy(), np.asarray(bn["var"]),
+                                   **TOL)
+    for k, u in enumerate(new_state.get("sn_u", [])):
+        if u is not None:
+            np.testing.assert_allclose(sd[f"net.{k}.module.weight_u"].numpy(), np.asarray(u),
+                                       **TOL)
+
+
+@pytest.mark.parametrize("update_sn", [True, False])
+def test_mlp_eval_spectral_norm_update_matches_jax(update_sn):
+    """SN ``u`` advances on an eval forward too, unless ``update_sn`` is off."""
+    jcfg = jlinear.MLPConfig.build([16], input_size=8, output_size=4, spectral_norm=True)
+    tcfg = tlinear.MLPConfig.build([16], input_size=8, output_size=4, spectral_norm=True)
+    params, state = _mlp_pytrees(jcfg, seed=9)
+    x = np.random.RandomState(1).randn(4, 8).astype(np.float32)
+    _, new_state = jlinear.mlp_apply(jcfg, _to_jnp(params), _to_jnp(state), jnp.asarray(x),
+                                     update_sn=update_sn)
+    mlp = tlinear.MLP(tcfg)
+    mlp.load_state_dict(mlp_sd_from_jax("", tcfg, params, state), strict=True)
+    with torch.no_grad():
+        mlp(torch.from_numpy(x), update_sn=update_sn)
+    np.testing.assert_allclose(mlp.net[0].module.weight_u.numpy(),
+                               np.asarray(new_state["sn_u"][0]), **TOL)
+
+
+def test_mlp_train_dropout_needs_an_rng():
     mlp = tlinear.MLP(tlinear.MLPConfig.build([8], input_size=4, output_size=2, dropout_p=0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs an rng"):
         mlp(torch.zeros(3, 4), train=True)
+    assert mlp(torch.zeros(3, 4), train=False).shape == (3, 2)
 
 
 def test_mlp_init_distribution_matches_linear_init():

@@ -1,0 +1,219 @@
+"""The PyTorch port's training loop, checkpoints, data and CLI against the JAX package.
+
+- a checkpoint written by JAX ``save_train_state`` loads in the port (and a
+  JAX-written run resumes in the port's ``Trainer``), and the reverse;
+- ``BatchLoader`` gives the same batches; the same argv gives the same Args;
+- ``w1p``/``w1m`` and ``gen_jet_corrections`` agree with the JAX package;
+- a tiny ``cli.train`` run on the CPU writes its run directory and resumes;
+- the refusals of what is not ported yet.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+
+from mpgan_tpu.cli import args as jargs_cli
+from mpgan_tpu.data import jetnet as jjetnet
+from mpgan_tpu.data.loader import BatchLoader as JBatchLoader
+from mpgan_tpu.evaluation import w1 as jw1
+from mpgan_tpu.models.mpgan import mp_discriminator_init, mp_generator_init
+from mpgan_tpu.training import checkpoint as jckpt
+from mpgan_tpu.training import config as jconfig
+from mpgan_tpu.training import optimizers as jopt
+from mpgan_tpu.training import train_step as jts
+from mpgan_tpu_torch.cli import args as targs_cli
+from mpgan_tpu_torch.cli import train as ttrain_cli
+from mpgan_tpu_torch.data import jetnet as tjetnet
+from mpgan_tpu_torch.data.loader import BatchLoader as TBatchLoader
+from mpgan_tpu_torch.evaluation import w1 as tw1
+from mpgan_tpu_torch.training import checkpoint as tckpt
+from mpgan_tpu_torch.training import config as tconfig
+from mpgan_tpu_torch.training.loop import Trainer
+from mpgan_tpu_torch.utils.weights import jax_leaves
+
+TINY = ["--model", "mpgan", "--jets", "g", "--num-hits", "8", "--hidden-node-size", "8",
+        "--fe", "12", "16", "--fn", "16", "--batch-size", "16", "--eval-tot-samples", "64",
+        "--w1-num-samples", "50", "--num-samples", "200", "--save-model-epochs", "1"]
+
+
+def _jax_state(card, optimizer="rmsprop", seed=0):
+    a = jconfig.from_args_dict(dict(card, optimizer=optimizer))
+    gcfg, dcfg = jconfig.build_mpgan_generator(a), jconfig.build_mpgan_discriminator(a)
+    g_opt = jopt.build_optimizer(optimizer, a.lr_gen, beta1=a.beta1, beta2=a.beta2)
+    d_opt = jopt.build_optimizer(optimizer, a.lr_disc, beta1=a.beta1, beta2=a.beta2)
+    return jts.init_train_state(jax.random.PRNGKey(seed), mp_generator_init,
+                                mp_discriminator_init, gcfg, dcfg, g_opt, d_opt)
+
+
+def _datasets(args):
+    kw = dict(num_particles=args.num_hits, synthetic_num_jets=args.num_samples,
+              mask_feature=True)
+    return tjetnet.JetNetDataset("g", split="train", **kw), \
+        tjetnet.JetNetDataset("g", split="valid", **kw)
+
+
+def _trainer(tmp_path, card, **kw):
+    args = tconfig.from_args_dict(dict(card, dir_path=str(tmp_path)))
+    train, valid = _datasets(args)
+    return Trainer(args, train, valid, device="cpu", **kw)
+
+
+CARD = {"model": "mpgan", "name": "ck", "num_hits": 8, "hidden_node_size": 8, "fe": [12, 16],
+        "fn": [16], "batch_size": 16, "num_samples": 200, "eval_tot_samples": 64,
+        "w1_num_samples": [50], "spectral_norm_disc": True, "batch_norm_gen": True}
+
+
+@pytest.mark.parametrize("optimizer", ["rmsprop", "adam", "adadelta"])
+def test_jax_checkpoint_resumes_in_the_port_trainer(tmp_path, optimizer):
+    """A JAX TrainState saved with ``save_train_state`` (SN state in D, BN in G,
+    optimizer state) is what the port's Trainer resumes from."""
+    card = dict(CARD, optimizer=optimizer)
+    jstate = _jax_state(card, optimizer, seed=3)
+    # non-trivial optimizer state: one update with random gradients
+    leaves = jax.tree.leaves(jstate.d_opt_state)
+    rng = np.random.RandomState(0)
+    jstate = jstate._replace(d_opt_state=jax.tree.unflatten(
+        jax.tree.structure(jstate.d_opt_state),
+        [np.asarray(x) + (rng.rand(*np.shape(x)).astype(np.asarray(x).dtype)
+                          if np.asarray(x).dtype == np.float32 else 1) for x in leaves]))
+    models = tmp_path / "ck" / "models"
+    models.mkdir(parents=True)
+    jckpt.save_train_state(jckpt.checkpoint_path(models, 1), jstate)
+    (tmp_path / "ck" / "ck_args.txt").write_text(
+        str(tconfig.from_args_dict(dict(card, dir_path=str(tmp_path))).to_dict()))
+
+    trainer = _trainer(tmp_path, dict(card, num_epochs=2, save_epochs=2))
+    assert trainer.start_epoch == 1
+    st = trainer.state
+    want = jax.tree.leaves(jstate)
+    got = tckpt.train_state_leaves(st)
+    assert len(got) == len(want)
+    for a, b in zip(got[:-1], want[:-1]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    sn = st.d.mp_layers[0].fe.net[0].module
+    assert torch.allclose(sn.weight_u, torch.from_numpy(np.array(
+        jstate.d_state["mp_layers"][0]["fe"]["sn_u"][0])))
+    trainer.train()
+    assert tckpt.latest_epoch(models) == 2
+    assert np.isfinite(trainer.losses["D"]).all() and len(trainer.losses["G"]) == 1
+
+
+@pytest.mark.parametrize("optimizer", ["rmsprop", "adam"])
+def test_port_checkpoint_loads_in_jax(tmp_path, optimizer):
+    card = dict(CARD, optimizer=optimizer, num_epochs=1, save_epochs=1)
+    trainer = _trainer(tmp_path, card)
+    trainer.train()
+    path = tckpt.checkpoint_path(trainer.models_dir, 1)
+    template = _jax_state(card, optimizer)
+    loaded = jckpt.load_train_state(path, template)
+    st = trainer.state
+    ref = (jax_leaves(st.g, True) + jax_leaves(st.g, False)
+           + jax_leaves(st.d, True) + jax_leaves(st.d, False))
+    for a, b in zip(jax.tree.leaves(loaded), ref):
+        np.testing.assert_array_equal(np.asarray(a), b.detach().numpy())
+    if optimizer == "adam":
+        assert int(loaded.d_opt_state.count) == len(trainer.train_dataset) // 16
+    assert np.asarray(loaded.rng).dtype == np.uint32 and loaded.rng.shape == (2,)
+
+
+def test_checkpoint_rng_continues_the_saved_stream(tmp_path):
+    trainer = _trainer(tmp_path, dict(CARD, num_epochs=1))
+    tckpt.save_train_state(tmp_path / "a.npz", trainer.state)
+    after_save = torch.randint(0, 2**31, (4,), generator=trainer.state.generator)
+    tckpt.load_train_state(tmp_path / "a.npz", trainer.state)
+    after_load = torch.randint(0, 2**31, (4,), generator=trainer.state.generator)
+    assert torch.equal(after_save, after_load)
+
+
+def test_batch_loader_order_matches_jax():
+    a = np.arange(103 * 2, dtype=np.float32).reshape(103, 2)
+    lab = np.arange(103, dtype=np.float32)[:, None]
+    jl = JBatchLoader(a, lab, batch_size=16, shuffle=True, seed=7)
+    tl = TBatchLoader(a, lab, batch_size=16, shuffle=True, seed=7)
+    assert len(jl) == len(tl) == 6
+    for _ in range(2):
+        for (ja, jb), (ta, tb) in zip(jl, tl):
+            np.testing.assert_array_equal(ja, ta)
+            np.testing.assert_array_equal(jb, tb)
+    np.testing.assert_array_equal(jl.epoch_batch_indices(), tl.epoch_batch_indices())
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--name", "x", "--num-hits", "150", "--mean", "--fe", "128", "256", "--no-mask-c"],
+    ["--loss", "w", "--gp", "10", "--optimizer", "adam", "--label-smoothing", "--jets", "t"],
+])
+def test_same_argv_gives_the_same_args(argv):
+    assert targs_cli.parse_cli(argv).to_dict() == jargs_cli.parse_cli(argv).to_dict()
+
+
+def test_argv_errors_exit_like_jax():
+    with pytest.raises(SystemExit):
+        targs_cli.parse_cli(["--int-diffs"])
+
+
+def test_w1_metrics_and_corrections_match_jax():
+    rng = np.random.RandomState(0)
+    real = np.abs(rng.randn(300, 8, 4)).astype(np.float32)
+    gen = np.abs(rng.randn(300, 8, 4) * 1.1).astype(np.float32)
+    real[..., 3] = rng.rand(300, 8) > 0.3
+    gen[..., 3] = rng.rand(300, 8)
+    for kw in ({}, {"zero_mask_particles": False, "zero_neg_pt": False}):
+        tj, tm = tjetnet.gen_jet_corrections(gen, **kw)
+        jj, jm = jjetnet.gen_jet_corrections(gen, **kw)
+        np.testing.assert_array_equal(tj, jj)
+        np.testing.assert_array_equal(tm, jm)
+    r, g = real[..., :3], tjetnet.gen_jet_corrections(gen)[0]
+    for fn in ("w1p", "w1m"):
+        t = getattr(tw1, fn)(r, g, num_eval_samples=100, num_batches=3)
+        j = getattr(jw1, fn)(r, g, num_eval_samples=100, num_batches=3)
+        for a, b in zip(t, j):
+            np.testing.assert_allclose(a, b, rtol=1e-12)
+
+
+def test_train_cli_tiny_run_writes_the_run_directory_and_resumes(tmp_path):
+    argv = ["--device", "cpu", "--name", "tiny", "--dir-path", str(tmp_path), *TINY]
+    t1 = ttrain_cli.main(argv + ["--num-epochs", "2", "--save-epochs", "2"])
+    run = tmp_path / "tiny"
+    assert (run / "tiny_args.txt").exists()
+    assert sorted(p.name for p in (run / "models").iterdir()) == ["state_1.npz", "state_2.npz"]
+    assert {p.name for p in (run / "losses").iterdir()} >= {"D.txt", "G.txt", "w1p.txt",
+                                                             "w1m.txt"}
+    assert len(t1.losses["G"]) == 2 and len(t1.losses["w1m"]) == 1
+    t2 = ttrain_cli.main(argv + ["--num-epochs", "3", "--save-epochs", "2"])
+    assert t2.start_epoch == 2 and len(t2.losses["G"]) == 3
+    assert (run / "models" / "state_3.npz").exists()
+    assert np.isfinite(t2.losses["G"]).all()
+    # the resumed run started from the saved weights
+    np.testing.assert_array_equal(t1.losses["G"], t2.losses["G"][:2])
+
+
+def test_train_cli_refuses_cuda_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        ttrain_cli.main(["--name", "x", "--dir-path", str(tmp_path), *TINY])
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--efp"], "efp"), (["--fpd"], "fpd"), (["--fpnd", "--num-hits", "30"], "fpnd"), (["--cov-mmd"], "cov-mmd"),
+    (["--aug-t"], "augment"), (["--compute-dtype", "bfloat16"], "bf16"),
+    (["--mesh-shape", "4"], "mesh"), (["--model", "gapt"], "gapt"),
+])
+def test_trainer_refuses_what_is_not_ported(tmp_path, flags, match):
+    args = targs_cli.parse_cli(["--name", "r", "--dir-path", str(tmp_path), *TINY, *flags])
+    train, valid = _datasets(args)
+    with pytest.raises(NotImplementedError, match=match) as err:
+        Trainer(args, train, valid, device="cpu")
+    assert "ROADMAP" in str(err.value)
+
+
+def test_trainer_knn_layer_is_refused_at_the_first_step(tmp_path):
+    args = targs_cli.parse_cli(["--name", "k", "--dir-path", str(tmp_path), *TINY,
+                                "--no-fully-connected", "--num-epochs", "1"])
+    train, valid = _datasets(args)
+    with pytest.raises(NotImplementedError, match="knn"):
+        Trainer(args, train, valid, device="cpu").train()

@@ -1,0 +1,204 @@
+"""The PyTorch port's train step against the JAX package.
+
+- the discriminator (eval and train, plain and kernel path);
+- one ``d_step`` and one ``g_step`` from the same JAX-initialised state, batch
+  and draws: the JAX key splits (``train_step.py:182-183, 261-262``) are
+  replayed here and handed to the port, so both draw the same noise and
+  dropout masks. Losses within 1e-5, gradients within 1e-4; updated params are
+  compared where the gradient is clear of zero (RMSprop's first step is about
+  ``10 * lr * sign(g)``).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+
+from mpgan_tpu.models.mpgan import (
+    mp_discriminator_apply,
+    mp_discriminator_init,
+    mp_generator_apply,
+    mp_generator_init,
+)
+from mpgan_tpu.training import config as jconfig
+from mpgan_tpu.training import losses as jlosses
+from mpgan_tpu.training import optimizers as jopt
+from mpgan_tpu.training import sampling as jsampling
+from mpgan_tpu.training import train_step as jts
+from mpgan_tpu_torch.data.jetnet import JetNetDataset
+from mpgan_tpu_torch.training import config as tconfig
+from mpgan_tpu_torch.training import optimizers as topt
+from mpgan_tpu_torch.training import sampling as tsampling
+from mpgan_tpu_torch.training import train_step as tts
+from mpgan_tpu_torch.utils.weights import (
+    jax_leaves,
+    mp_discriminator_from_jax,
+    mp_generator_from_jax,
+)
+
+from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+
+torch.backends.cuda.matmul.allow_tf32 = False
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+NARROW = {"model": "mpgan", "num_hits": 10, "hidden_node_size": 8, "fe": [12, 16], "fn": [16]}
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _batch(card, b, seed=0):
+    ds = JetNetDataset("g", num_particles=card["num_hits"], synthetic_num_jets=200, seed=seed)
+    return ds.particle_data[:b], ds.jet_data[:b]
+
+
+# ---------------------------------------------------------------------------
+# discriminator
+# ---------------------------------------------------------------------------
+
+
+def _disc_pair(card, seed=0):
+    jcfg = jconfig.build_mpgan_discriminator(jconfig.from_args_dict(card))
+    tcfg = tconfig.build_mpgan_discriminator(tconfig.from_args_dict(card))
+    params, state = mp_discriminator_init(jax.random.PRNGKey(seed), jcfg)
+    return jcfg, params, state, mp_discriminator_from_jax(_np(params), _np(state), tcfg)
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("extra", [{}, {"mean": True, "fnd": [8]}, {"spectral_norm_disc": True}])
+def test_discriminator_matches_jax(train, use_pallas, extra):
+    card = dict(NARROW, **{k: v for k, v in extra.items() if k != "mean"})
+    if extra.get("mean"):
+        card["sum"] = False
+    jcfg, params, state, d = _disc_pair(card)
+    data, labels = _batch(card, 4)
+    key = jax.random.PRNGKey(5)
+    yj, _ = mp_discriminator_apply(dataclasses.replace(jcfg, use_pallas=use_pallas), params, state,
+                                   jnp.asarray(data), jnp.asarray(labels), train=train,
+                                   rng=key if train else None)
+    d.cfg = dataclasses.replace(d.cfg, use_kernels=use_pallas)
+    yt = d(torch.from_numpy(data), torch.from_numpy(labels), train=train,
+           rng=JaxKeys(key) if train else None)
+    assert yt.shape == (4, 1)
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), **FWD_TOL)
+
+
+def test_discriminator_config_pins_gp_configs_to_the_plain_path():
+    card = dict(NARROW, gp=10.0, use_pallas=True)
+    assert tconfig.build_mpgan_discriminator(tconfig.from_args_dict(card)).use_kernels is False
+    assert jconfig.build_mpgan_discriminator(jconfig.from_args_dict(card)).use_pallas is False
+
+
+def test_step_config_refuses_what_is_not_ported():
+    for flag in ("augment", "bf16", "batched_d"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tts.StepConfig(**{flag: True})
+
+
+# ---------------------------------------------------------------------------
+# one D step and one G step
+# ---------------------------------------------------------------------------
+
+
+def _step_pair(card, use_pallas):
+    card = dict(card, use_pallas=use_pallas)
+    jargs = jconfig.from_args_dict(card)
+    targs = tconfig.from_args_dict(card)
+    gcfg, dcfg = jconfig.build_mpgan_generator(jargs), jconfig.build_mpgan_discriminator(jargs)
+    spec = jsampling.noise_spec("mpgan", {"latent_node_size": jargs.latent_node_size},
+                                jargs.num_hits, jargs.sd)
+    g_opt = jopt.build_optimizer("rmsprop", jargs.lr_gen)
+    d_opt = jopt.build_optimizer("rmsprop", jargs.lr_disc)
+    jstate = jts.init_train_state(jax.random.PRNGKey(0), mp_generator_init,
+                                  mp_discriminator_init, gcfg, dcfg, g_opt, d_opt)
+    d_step, g_step = jts.make_train_steps(
+        step_cfg=jts.StepConfig(), g_apply=mp_generator_apply, d_apply=mp_discriminator_apply,
+        g_cfg=gcfg, d_cfg=dcfg, spec=spec, g_opt=g_opt, d_opt=d_opt)
+    g = mp_generator_from_jax(_np(jstate.g_params), _np(jstate.g_state),
+                              tconfig.build_mpgan_generator(targs))
+    d = mp_discriminator_from_jax(_np(jstate.d_params), _np(jstate.d_state),
+                                  tconfig.build_mpgan_discriminator(targs))
+    tstate = tts.TrainState(g, d, topt.build_optimizer("rmsprop", g.parameters(), targs.lr_gen),
+                            topt.build_optimizer("rmsprop", d.parameters(), targs.lr_disc),
+                            torch.Generator().manual_seed(0))
+    tspec = tsampling.noise_spec("mpgan", {"latent_node_size": targs.latent_node_size},
+                                 targs.num_hits, targs.sd)
+    return (gcfg, dcfg, spec, jstate, d_step, g_step), (tstate, tspec)
+
+
+def _compare_update(t_params, j_old, j_new, j_grads, lr):
+    for t, old, new, g in zip(t_params, jax.tree.leaves(j_old), jax.tree.leaves(j_new),
+                              jax.tree.leaves(j_grads)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **BWD_TOL)
+        clear = np.abs(np.asarray(g)) > 1e-3
+        np.testing.assert_allclose(t.detach().numpy()[clear], np.asarray(new)[clear],
+                                   rtol=0, atol=lr)
+        assert not np.array_equal(np.asarray(new), np.asarray(old))
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_d_step_and_g_step_match_jax(use_pallas):
+    (gcfg, dcfg, spec, jstate, d_step, g_step), (tstate, tspec) = _step_pair(NARROW, use_pallas)
+    data, labels = _batch(NARROW, 4)
+    jd, jl = jnp.asarray(data), jnp.asarray(labels)
+    td, tl = torch.from_numpy(data), torch.from_numpy(labels)
+
+    # D step: replay train_step.py:182-183
+    _, k_noise, k_real, k_fake, *_ = jax.random.split(jstate.rng, 9)
+    noise, _ = spec.sample(k_noise, 4)
+
+    def d_loss_fn(d_params):
+        fake, _ = mp_generator_apply(gcfg, jstate.g_params, jstate.g_state, noise, jl)
+        r, s1 = mp_discriminator_apply(dcfg, d_params, jstate.d_state, jd, jl, train=True,
+                                       rng=k_real)
+        f, _ = mp_discriminator_apply(dcfg, d_params, s1, fake, jl, train=True, rng=k_fake)
+        return jlosses.d_loss("ls", r, f)[0]
+
+    jgrads = jax.grad(d_loss_fn)(jstate.d_params)
+    jstate1, jparts = d_step(jstate, jd, jl)
+    tparts = tts.d_step(tstate, tts.StepConfig(), tspec, td, tl, draws=tts.DDraws(
+        torch.from_numpy(np.array(noise)), JaxKeys(k_real), JaxKeys(k_fake)))
+    for k in ("Dr", "Df", "D"):
+        np.testing.assert_allclose(tparts[k].numpy(), np.asarray(jparts[k]), **FWD_TOL)
+    _compare_update(jax_leaves(tstate.d, True), jstate.d_params, jstate1.d_params, jgrads,
+                    1e-6)
+
+    # G step: replay train_step.py:261-262
+    _, k_noise, k_g, k_d, _ = jax.random.split(jstate1.rng, 5)
+    noise, _ = spec.sample(k_noise, 4)
+
+    def g_loss_fn(g_params):
+        fake, _ = mp_generator_apply(gcfg, g_params, jstate1.g_state, noise, jl, train=True,
+                                     rng=k_g)
+        out, _ = mp_discriminator_apply(dcfg, jstate1.d_params, jstate1.d_state, fake, jl,
+                                        train=True, rng=k_d)
+        return jlosses.g_loss("ls", out)
+
+    jgrads = jax.grad(g_loss_fn)(jstate1.g_params)
+    jstate2, jmetrics = g_step(jstate1, jd, jl)
+    tmetrics = tts.g_step(tstate, tts.StepConfig(), tspec, td, tl, draws=tts.GDraws(
+        torch.from_numpy(np.array(noise)), JaxKeys(k_g), JaxKeys(k_d)))
+    np.testing.assert_allclose(tmetrics["G"].numpy(), np.asarray(jmetrics["G"]), **FWD_TOL)
+    _compare_update(jax_leaves(tstate.g, True), jstate1.g_params, jstate2.g_params, jgrads,
+                    1e-6)
+    # D's parameters took no gradient in the G step and are trainable again
+    assert all(p.requires_grad for p in tstate.d.parameters())
+
+
+def test_steps_draw_everything_from_the_state_generator():
+    """Without explicit draws, two states seeded alike take identical steps."""
+    outs = []
+    for _ in range(2):
+        _, (tstate, tspec) = _step_pair(NARROW, True)
+        data, labels = map(torch.from_numpy, _batch(NARROW, 4))
+        parts = tts.d_step(tstate, tts.StepConfig(label_smoothing=True), tspec, data, labels)
+        parts.update(tts.g_step(tstate, tts.StepConfig(), tspec, data, labels))
+        outs.append({k: v.item() for k, v in parts.items()})
+    assert outs[0] == outs[1]
