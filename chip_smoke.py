@@ -36,7 +36,45 @@ Phases, each printed as it finishes:
     events, best of 3), with TFLOP/s against the 679 GFLOP the flagship step
     needs; K3 and K2-train against their plain versions; the host's time to
     issue a step; a ``torch.profiler`` breakdown of three kernel-path steps,
-    its idle share taken against those steps' own wall time.
+    its idle share taken against those steps' own wall time;
+11. the knn kernels against their plain versions at B=160 N=150 k=20 (published
+    widths) and at a small ragged shape (N=13 k=5): K5 eval and with dropout
+    0.5, with and without self loops, sum and mean, with and without the
+    distance feature; K6 with and without weight gradients from the plain
+    forward's ``idx``/``dists``, two runs compared bit for bit. ``idx`` is
+    compared exactly under the near-tie rule (a differing receiver row must
+    have its swapped keys within one bucket step, and at most 1% of the rows may
+    differ; the kernel builds the plain version's keys bit for bit, so 0 are
+    expected) and the outputs on the agreeing rows, same tolerances as above;
+12. the 150-particle knn-20 generation path: 2,048 jets through
+    ``generate_multi_batch`` at B=512 and through the ``gen`` CLI (counters
+    reset before, read after), shape, finiteness and mask counts; 8 jets on
+    the card against the same path through the plain versions on the CPU
+    (same keys, so rtol = atol = 1e-4), and against the plain path, whose
+    exact-distance search may pick another k-th neighbour at a bucket tie
+    (mask column equal, share of values beyond tolerance logged and at most
+    20%); jets/s of both paths in turns;
+13. one knn-20 D+G step at B=8 N=150 on the card against the CPU, kernel path
+    with dropout 0.5 and plain path with dropout 0. The two round a layer's
+    inputs otherwise, so a near-tie may pick another neighbour in a few rows:
+    losses within 2e-3, gradients within 5e-2 of max(1, max|ref|);
+14. the knn train path: ``mpgan_tpu_torch.cli.train`` with ``--num-hits 150
+    --no-fully-connected --num-knn 20`` at its default batch (160), 2 epochs, a
+    resume that restores the state exactly, and launch counts equal to the
+    prediction: per D+G step 8 K5 launches that emit ``idx`` (D on real and
+    fake in the D step, G and D in the G step, 2 layers each), 6 K6 with weight
+    gradients (D twice in the D step, G in the G step), 2 K6 without (D in the G
+    step) and 2 K5 without ``idx`` (the D step's fake batch), plus 2 per
+    evaluation batch;
+15. the knn D+G step at B=128 N=150, kernel and plain path in turns; K5 (eval
+    B=512, train B=160) and K6 (B=160, with and without weight gradients)
+    beside their plain versions.
+
+Every kernel's entry in the JSON line carries its bound: the larger of its
+FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
+read once, outputs written once) over 3.35 TB/s, at the shape its ``ms`` was
+taken at. ``library_ms`` is null: no single PyTorch call computes any of these
+functions.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -62,9 +100,59 @@ REPLACES = {
     "edge_aggregate": "mpgan_tpu/ops/mp_pallas.py:319",
     "edge_aggregate_fn": "mpgan_tpu/ops/mp_pallas.py:965",
     "edge_aggregate_bwd": "mpgan_tpu/ops/mp_pallas.py:709",
+    "knn_fused_layer": "mpgan_tpu/ops/knn_pallas.py:2023",
+    "knn_edge_aggregate_bwd": "mpgan_tpu/ops/knn_pallas.py:1549",
 }
 K1 = "mpgan_tpu/ops/mp_pallas.py:80 (_dropmul, K1, a device function inside the kernel)"
 STEP_GFLOP = 679.0  # one flagship D+G step at B=256, N=30 (PERF.md)
+FE = [96, 160, 192]  # the published fe widths
+FN = [224, 256, 256]  # fn's input [agg | x] and hidden widths; the output width varies
+KNN150 = {**FLAGSHIP, "num_hits": 150, "fully_connected": False, "num_knn": 20}
+MAX_DIFFERING_SHARE = 0.01  # receiver rows whose neighbours may differ at near-ties
+# a knn step on the card against the CPU: the two round a layer's inputs otherwise, so a
+# few of the step's ~20,000 receiver rows swap two near-tied neighbours and with them
+# their dropout masks (an untrained G's particles lie close: one row in seven of its
+# batch has two selected keys within a bucket step). The bounds catch a wrong path; bit
+# for bit the kernels are held to their plain versions on equal inputs in phase 11
+NEAR_TIE_LOSS_TOL = 2e-3
+NEAR_TIE_GRAD_TOL = 5e-2
+PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet)
+PEAK_HBM = 3.35e12  # bytes/s
+
+
+def dense_fwd_bound(b: int, n: int, fn_out: int | None = None) -> dict:
+    """Bound of K2 (``fn_out`` None) or K4 at the published widths."""
+    hidden = macs(FE) + sum(FE[1:])  # weights and biases
+    floats = 2 * b * n * FE[0] + b * n + hidden + b * n * (FE[-1] if fn_out is None else fn_out)
+    flops = 2 * b * n * n * macs(FE)
+    if fn_out is not None:
+        fn = FN + [fn_out]
+        floats += b * n * 32 + macs(fn) + sum(fn[1:])
+        flops += 2 * b * n * macs(fn)
+    return bound(flops, 4 * floats)
+
+
+def dense_bwd_bound(b: int, n: int, wgrads: bool = True) -> dict:
+    """Bound of K3: the recompute, da and (with ``wgrads``) dW, each one chain."""
+    hidden = macs(FE) + sum(FE[1:])
+    floats = (2 * b * n * FE[0] + b * n) * 2 + b * n * FE[-1] + hidden * (2 if wgrads else 1)
+    return bound((3 if wgrads else 2) * 2 * b * n * n * macs(FE), 4 * floats)
+
+
+def macs(widths) -> int:
+    return sum(a * c for a, c in zip(widths[:-1], widths[1:]))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(flops: float, moved: int) -> dict:
+    """The least time the card could take: operations over the FP32 peak or
+    bytes over the memory rate, whichever is larger."""
+    ops, mem = flops / PEAK_FP32 * 1e3, moved / PEAK_HBM * 1e3
+    return {"bound_ms": max(ops, mem), "bound_by": "operations" if ops >= mem else "bytes",
+            "library_ms": None}
 
 
 def log(phase: str, **kv) -> None:
@@ -100,10 +188,12 @@ def errors(out, ref):
     return err.max().item(), rel, bad
 
 
-def wgrad_err(out, ref):
-    """Max abs error of a weight gradient and whether it is within 1e-4 * max(1, max|ref|)."""
+def wgrad_err(out, ref, tol=TOL):
+    """Max abs error of a weight gradient and whether it is within tol * max(1, max|ref|)."""
+    if out.numel() == 0:
+        return 0.0, True
     err = (out - ref).abs().max().item()
-    return err, err <= TOL * max(1.0, ref.abs().max().item())
+    return err, err <= tol * max(1.0, ref.abs().max().item())
 
 
 def best_ms(fn, reps=3, inner=3):
@@ -206,17 +296,24 @@ def real_batch(b, n=30):
     return torch.as_tensor(ds.particle_data[:b]), torch.as_tensor(ds.jet_data[:b])
 
 
-def step_check(dev, from_args_dict):
-    """Phase 8: a flagship-width D+G step on the card against the CPU."""
+def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
+               cpu_plain_kernels=True, loss_tol=TOL, grad_tol=TOL):
+    """Phases 8 and 13: a D+G step at the published widths on the card against the
+    CPU. The kernel path runs with dropout 0.5 against the kernels' plain
+    versions on the CPU. The card's plain path runs with dropout 0: against the
+    CPU's kernel path for the dense layer (one function, two paths), against the
+    CPU's plain path for the knn layer (``cpu_plain_kernels=False``: its two
+    paths search differently)."""
     from mpgan_tpu_torch.utils.weights import jax_leaves
 
-    data, labels = real_batch(16)
+    data, labels = real_batch(batch, card["num_hits"])
     worst = {}
     for path, dropout in (("kernel", 0.5), ("plain", 0.0)):
-        args = from_args_dict({**FLAGSHIP, "disc_dropout": dropout})
+        args = from_args_dict({**card, "disc_dropout": dropout})
         res = {}
         for side, device, kernels in (("card", dev, path == "kernel"),
-                                      ("cpu", torch.device("cpu"), True)):
+                                      ("cpu", torch.device("cpu"),
+                                       path == "kernel" or cpu_plain_kernels)):
             st = make_state(args, device)
             use_kernels(st, kernels)
             parts = step_fn(st, args, data.to(device), labels.to(device))()
@@ -225,12 +322,15 @@ def step_check(dev, from_args_dict):
                          [gr.detach().cpu() for gr in grads])
         (lc, gc), (lp, gp) = res["card"], res["cpu"]
         loss_err = max(abs(lc[k] - lp[k]) / max(1.0, abs(lp[k])) for k in lp)
-        grad_err = [wgrad_err(a, b) for a, b in zip(gc, gp)]
-        log("step_check", path=path, disc_dropout=dropout, losses_card=lc, losses_cpu=lp,
+        grad_err = [wgrad_err(a, b, grad_tol) for a, b in zip(gc, gp)]
+        log(phase, path=path, disc_dropout=dropout, batch=batch, losses_card=lc, losses_cpu=lp,
             max_rel_loss_err=loss_err, max_abs_grad_err=max(e for e, _ in grad_err),
-            tensors=len(grad_err))
-        if loss_err > TOL or not all(ok for _, ok in grad_err):
-            raise SystemExit(f"D+G step on the card ({path} path) disagrees with the CPU")
+            max_grad_err_over_bound=max(
+                (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                for a, b in zip(gc, gp)),
+            loss_tol=loss_tol, grad_tol=grad_tol, tensors=len(grad_err))
+        if loss_err > loss_tol or not all(ok for _, ok in grad_err):
+            raise SystemExit(f"{phase}: D+G step on the card ({path} path) disagrees with the CPU")
         worst[path] = loss_err
     return worst
 
@@ -369,6 +469,304 @@ def train_timings(mk, dev, from_args_dict, card):
     return ms, times
 
 
+def knn_inputs(dev, b, n, c, widths, k, seed):
+    """Operands of the fused knn layer; jets hold between 1 and n real
+    particles (some fewer than k), the first one all n."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, scale=0.5: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
+    xs = r(b, n, c, scale=0.3)
+    counts = torch.randint(1, n + 1, (b,), generator=g, device=dev)
+    counts[0] = n
+    mask = (torch.arange(n, device=dev)[None, :] < counts[:, None]).float()[..., None]
+    hidden = tuple(t for a, w in zip(widths[:-1], widths[1:])
+                   for t in (r(a, w, scale=a ** -0.5), r(w, scale=0.1)))
+    return dict(xs=xs, xf=((1 - 1e4) * mask + 1e4) * xs, u1=r(b, n, widths[0]),
+                u2m=torch.cat([r(b, n, widths[0]), mask], dim=-1), w_d=r(widths[0], scale=0.3),
+                hidden=hidden, g=r(b, n, widths[-1]), mask=mask)
+
+
+def knn_kernel_checks(kk, mk, dev):
+    """Phase 11: K5 and K6 against their plain versions."""
+    max_err = {"knn_fused_layer": 0.0, "knn_edge_aggregate_bwd": 0.0}
+    rows_differing = rows_total = 0
+    for b, n, c, widths, k in ((160, 150, 32, FE, 20), (3, 13, 8, [24, 16, 12], 5)):
+        d = knn_inputs(dev, b, n, c, widths, k, seed=100 + n)
+        keys = kk.knn_keys(d["xs"], d["xf"])
+        for self_loops, sum_agg, pos_diffs in ((True, True, False), (False, False, True),
+                                               (True, False, False), (False, True, True)):
+            w_d = d["w_d"] if pos_diffs else None
+            for p in (0.0, 0.5):
+                fwd = (d["xs"], d["xf"], d["u1"], d["u2m"], w_d, d["hidden"], k, self_loops,
+                       pos_diffs, 0.2, sum_agg, p, 123457)
+                out, idx, dists = kk.knn_fused_layer(*fwd, True)
+                out_eval = kk.knn_fused_layer(*fwd)[0]
+                ref, idx_ref, dists_ref = kk.knn_fused_layer_reference(*fwd, True)
+                torch.cuda.synchronize()
+                agree, differing, far = kk.compare_neighbours(idx, idx_ref, keys, d["mask"])
+                rows_differing += differing
+                rows_total += agree.numel()
+                abs_err, _, bad = errors(out[agree], ref[agree])
+                if pos_diffs:
+                    live = torch.gather(d["mask"][:, None, :, 0].expand(-1, n, -1), 2,
+                                        idx_ref.long()) > 0
+                    live &= agree[..., None]
+                    bad += errors(dists[live], dists_ref[live])[2]
+                same = torch.equal(out, out_eval)
+                log("knn_kernel_check", kernel="knn_fused_layer", b=b, n=n, k=k, dropout=p,
+                    self_loops=self_loops, sum_agg=sum_agg, pos_diffs=pos_diffs,
+                    rows_differing=differing, rows_not_near_ties=far, max_abs_err=abs_err,
+                    out_of_tol=bad, launch_without_idx_equal=same)
+                if bad or far or not same or differing > MAX_DIFFERING_SHARE * agree.numel():
+                    raise SystemExit(f"knn_fused_layer disagrees at b={b} n={n} p={p} "
+                                     f"self_loops={self_loops} sum={sum_agg} dists={pos_diffs}")
+                max_err["knn_fused_layer"] = max(max_err["knn_fused_layer"], abs_err)
+                for need in (True, False):
+                    bwd = (d["u1"], d["u2m"], idx_ref, dists_ref, w_d, d["hidden"], d["g"], 0.2,
+                           sum_agg, p, 123457, need)
+                    res = kk.knn_edge_aggregate_bwd(*bwd)
+                    again = kk.knn_edge_aggregate_bwd(*bwd)
+                    rref = kk.knn_edge_aggregate_bwd_reference(*bwd)
+                    torch.cuda.synchronize()
+                    flat = lambda t: [x for x in (*t[:5], *t[5]) if x is not None]  # noqa: E731
+                    repeat = all(torch.equal(x, y) for x, y in zip(flat(res), flat(again)))
+                    # dmask of a masked sender sums activations at the scale of its
+                    # pushed-away distance (1e4 under pos_diffs), with cancellation: it is
+                    # held to the weight gradients' bound, the real senders' to the strict one
+                    real = d["mask"] > 0
+                    errs = [errors(o, r) for o, r in ((res[0], rref[0]), (res[1], rref[1]),
+                                                      (res[2][real], rref[2][real]))]
+                    if pos_diffs:
+                        errs.append(errors(res[3], rref[3]))
+                    wpairs = list(zip(res[5], rref[5])) + ([(res[4], rref[4])] if pos_diffs
+                                                           else [])
+                    wpairs.append((res[2][~real], rref[2][~real]))
+                    werrs = [wgrad_err(o, r) for o, r in wpairs]
+                    bad = sum(e[2] for e in errs) + sum(not ok for _, ok in werrs)
+                    wgrads_out = [o for o in (*res[5], res[4]) if o is not None]
+                    if not need and any(o.any().item() for o in wgrads_out):
+                        bad += 1
+                    err = max([e[0] for e in errs] + [e for e, _ in werrs[:-1]])
+                    log("knn_kernel_check", kernel="knn_edge_aggregate_bwd", b=b, n=n, k=k,
+                        dropout=p, wgrads=need, sum_agg=sum_agg, pos_diffs=pos_diffs,
+                        max_abs_err_du1_du2_dmask_ddists=[e[0] for e in errs],
+                        max_abs_err_wgrads=[e for e, _ in werrs[:-1]],
+                        max_abs_err_dmask_of_masked_senders=werrs[-1][0], failures=bad,
+                        two_runs_bit_identical=repeat)
+                    if bad or not repeat:
+                        raise SystemExit(f"knn_edge_aggregate_bwd disagrees at b={b} n={n} p={p} "
+                                         f"wgrads={need} sum={sum_agg} dists={pos_diffs}")
+                    max_err["knn_edge_aggregate_bwd"] = max(max_err["knn_edge_aggregate_bwd"],
+                                                            err)
+                del out, ref, res, again, rref
+        del d, keys
+        torch.cuda.empty_cache()
+    log("knn_neighbour_rows", compared=rows_total, differing=rows_differing,
+        share=rows_differing / rows_total, bound=MAX_DIFFERING_SHARE)
+    return max_err
+
+
+def knn_generation(mk, gen_cli, dev, card):
+    """Phase 12: the 150-particle knn-20 generation path."""
+    from mpgan_tpu_torch.data.jetnet import JetNetDataset
+    from mpgan_tpu_torch.models.mpgan import MPGenerator
+    from mpgan_tpu_torch.training.config import build_mpgan_generator, from_args_dict
+    from mpgan_tpu_torch.training.sampling import generate_multi_batch, noise_spec
+    from mpgan_tpu_torch.utils.weights import mp_generator_to_reference_sd
+
+    args = from_args_dict(KNN150)
+    cfg = build_mpgan_generator(args)
+    g_cpu = MPGenerator(cfg, torch.Generator().manual_seed(3))
+    g = MPGenerator(cfg, torch.Generator().manual_seed(3), device=dev)
+    spec = noise_spec("mpgan", {"latent_node_size": 32}, 150, args.sd)
+    ds = JetNetDataset("g", num_particles=150, split="valid")
+    lab = ds.jet_data[np.random.default_rng(0).choice(len(ds), size=2048)]
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate_multi_batch(g, spec, torch.Generator(device=dev).manual_seed(1), 2048, 512,
+                               labels=lab)
+    wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "card.txt").write_text(repr(args.to_dict()))
+        torch.save(mp_generator_to_reference_sd(g_cpu), tmp / "G.pt")
+        t0 = time.perf_counter()
+        gen_cli.main(["--g-args", str(tmp / "card.txt"), "--g-state", str(tmp / "G.pt"),
+                      "--output-file", str(tmp / "gen.npy"), "--device", "cuda", "--seed", "0",
+                      "--num-samples", "2048", "--batch-size", "512"])
+        wall_cli = time.perf_counter() - t0
+        jets = np.load(tmp / "gen.npy")
+    launches = dict(mk.launch_counts)
+    counts = (lab[:, -1].astype(np.float32) * 150).astype(np.int32)
+    if out.shape != (2048, 150, 4) or not np.isfinite(out).all():
+        raise SystemExit(f"150p knn output {out.shape} is not finite (2048, 150, 4)")
+    if not np.array_equal((out[..., -1] + 0.5).sum(1), counts):
+        raise SystemExit("150p knn mask counts disagree with the labels")
+    if jets.shape != (2048, 150, 3) or not np.isfinite(jets).all():
+        raise SystemExit(f"knn gen CLI output {jets.shape} is not finite (2048, 150, 3)")
+    if not np.array_equal(np.any(jets != 0, axis=-1).sum(axis=1), counts) \
+            or (jets[:, :, 2] < 0).any():
+        raise SystemExit("knn gen CLI output: masked particles not zero or negative pT")
+    log("main_path_150p_knn20", jets=list(out.shape), wall_s=wall, cli_jets=list(jets.shape),
+        cli_wall_s=wall_cli, launches=launches)
+    if launches["knn_fused_layer"] != 2 * 4 * 2:  # 2 layers, 4 batches, both entry points
+        raise SystemExit(f"knn generation launched K5 {launches['knn_fused_layer']} times, not 16")
+
+    # 8 jets: against the same path through the plain versions (CPU), and the plain path
+    noise = torch.randn(512, 150, 32, generator=torch.Generator(device=dev).manual_seed(2),
+                        device=dev) * 0.2
+    labels = torch.as_tensor(lab[:512], device=dev)
+    kernel_cfg, plain_cfg = cfg, dataclasses.replace(cfg, use_kernels=False)
+    g_cpu.cfg = dataclasses.replace(cfg, use_kernels=True)
+    with torch.inference_mode():
+        y_k = g(noise[:8], labels[:8])
+        y_ref = g_cpu(noise[:8].cpu(), labels[:8].cpu()).to(dev)
+        g.cfg = plain_cfg
+        y_p = g(noise[:8], labels[:8])
+        g.cfg = kernel_cfg
+    abs_err, rel_err, bad = errors(y_k, y_ref)
+    p_err, _, p_bad = errors(y_k, y_p)
+    share = p_bad / y_p.numel()
+    log("knn_generator_check", n=150, jets=8, max_abs_err_vs_plain_versions=abs_err,
+        out_of_tol_vs_plain_versions=bad, max_abs_err_vs_plain_path=p_err,
+        share_beyond_tol_vs_plain_path=share)
+    if bad or not torch.equal(y_k[..., -1], y_ref[..., -1]):
+        raise SystemExit("150p knn generator: kernel path disagrees with its plain versions")
+    if share > 0.2 or not torch.equal(y_k[..., -1], y_p[..., -1]):
+        raise SystemExit("150p knn generator: kernel path too far from the plain path")
+
+    def run(c):
+        def f():
+            g.cfg = c
+            with torch.inference_mode():
+                g(noise, labels)
+        return f
+
+    ms = {"kernel": float("inf"), "plain": float("inf")}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for which in order:
+            ms[which] = min(ms[which], best_ms(run(kernel_cfg if which == "kernel"
+                                                   else plain_cfg)))
+    g.cfg = kernel_cfg
+    log("generation_rate", card=card, n=150, knn=20, batch=512, kernel_ms=ms["kernel"],
+        plain_ms=ms["plain"], kernel_jets_per_s=512 / ms["kernel"] * 1e3,
+        plain_jets_per_s=512 / ms["plain"] * 1e3)
+    return launches
+
+
+def knn_train_path(mk, train_cli, tmp):
+    """Phase 14: the train CLI on the 150-particle knn-20 model at its default
+    batch, 2 epochs, then a resume that restores the state exactly."""
+    argv = ["--device", "cuda", "--name", "knn", "--model", "mpgan", "--jets", "g",
+            "--num-hits", "150", "--no-fully-connected", "--num-knn", "20",
+            "--dir-path", str(tmp), "--num-samples", "3200", "--eval-tot-samples", "640",
+            "--w1-num-samples", "320", "--save-model-epochs", "1", "--save-epochs", "2",
+            "--num-epochs", "2"]
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    t1 = train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    before = [t.detach().cpu().clone() for t in _leaves(t1.state)]
+    rng_before = t1.state.generator.get_state()
+    t2 = train_cli.main(argv)  # resume, no epoch to run
+    counts = dict(mk.launch_counts)
+    after = [t.detach().cpu() for t in _leaves(t2.state)]
+    restored = (t2.start_epoch == 2 and len(before) == len(after)
+                and all(torch.equal(a, b) for a, b in zip(before, after))
+                and torch.equal(t2.state.generator.get_state(), rng_before))
+    batch = t1.args.batch_size
+    steps = 2 * (len(t1.train_dataset) // batch)
+    eval_batches = -(-min(t1.args.eval_tot_samples, len(t1.valid_dataset)) // batch)
+    # per D+G step: D on real and fake (D step) and G and D (G step) emit idx, 2 layers
+    # each; K6 with weight gradients for D twice and G once, without for D in the G step;
+    # the D step's fake batch and the evaluation run K5 without idx
+    predicted = {"knn_fused_layer_train": 8 * steps, "knn_edge_aggregate_bwd": 6 * steps,
+                 "knn_edge_aggregate_bwd_no_wgrads": 2 * steps,
+                 "knn_fused_layer": 2 * steps + 2 * eval_batches}
+    losses = {k: t1.losses[k] for k in ("Dr", "Df", "D", "G")}
+    finite = all(np.isfinite(v).all() for v in losses.values()) and \
+        all(np.isfinite(np.asarray(t1.losses[k])).all() for k in ("w1p", "w1m"))
+    files = sorted(f.name for f in (tmp / "knn" / "models").iterdir())
+    log("main_path_train_knn20", wall_s_2_epochs=wall, batch=batch, steps=steps,
+        eval_batches=eval_batches, checkpoints=files, resumed_from=t2.start_epoch,
+        state_restored=restored, losses=losses, w1m=t1.losses["w1m"], launches=counts,
+        predicted=predicted)
+    if batch != 160 or not all(not c.fully_connected and c.num_knn == 20
+                               for c in t1.state.d.cfg.layers + t1.state.g.cfg.layers):
+        raise SystemExit("knn train CLI did not build the knn-20 model at batch 160")
+    if files != ["state_1.npz", "state_2.npz"] or not restored:
+        raise SystemExit(f"knn train CLI: checkpoints {files}, state restored: {restored}")
+    if not finite or len(t1.losses["G"]) != 2 or t2.losses["G"] != t1.losses["G"]:
+        raise SystemExit(f"knn train CLI losses not finite or not resumed: {losses}")
+    for name, want in predicted.items():
+        if counts[name] != want:
+            raise SystemExit(f"knn train path launched {name} {counts[name]} times, "
+                             f"predicted {want}")
+    if any(v for k, v in counts.items() if k not in predicted):
+        raise SystemExit(f"knn train path launched a dense kernel: {counts}")
+    return counts
+
+
+def knn_timings(kk, dev, from_args_dict, card):
+    """Phase 15: the knn D+G step at B=128 N=150 and K5/K6 beside their plain versions."""
+    args = from_args_dict(KNN150)
+    data, labels = (t.to(dev) for t in real_batch(128, 150))
+    st = make_state(args, dev)
+    step = step_fn(st, args, data, labels)
+
+    def run(flag):
+        def f():
+            use_kernels(st, flag)
+            step()
+        return f
+
+    ms = {"kernel": float("inf"), "plain": float("inf")}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for which in order:
+            ms[which] = min(ms[which], best_ms(run(which == "kernel"), inner=2))
+    log("train_step_time", card=card, batch=128, n=150, knn=20, kernel_ms=ms["kernel"],
+        plain_ms=ms["plain"])
+    del st, step
+    torch.cuda.empty_cache()
+
+    times = {}
+    d = knn_inputs(dev, 512, 150, 32, FE, 20, seed=8)
+    fwd = (d["xs"], d["xf"], d["u1"], d["u2m"], None, d["hidden"], 20, True, False, 0.2, True)
+    out = kk.knn_fused_layer(*fwd)[0]
+    times["eval"] = dict(
+        shape="B=512 N=150 k=20 eval",
+        ms=best_ms(lambda: kk.knn_fused_layer(*fwd), inner=1),
+        plain_ms=best_ms(lambda: kk.knn_fused_layer_reference(*fwd), inner=1),
+        **bound(2 * 512 * 150 * (20 * macs(FE) + 150 * 33),
+                nbytes(d["xs"], d["xf"], d["u1"], d["u2m"], *d["hidden"], out)))
+    del d, fwd, out
+    torch.cuda.empty_cache()
+    d = knn_inputs(dev, 160, 150, 32, FE, 20, seed=9)
+    fwd = (d["xs"], d["xf"], d["u1"], d["u2m"], None, d["hidden"], 20, True, False, 0.2, True,
+           0.5, 5)
+    out, idx, _ = kk.knn_fused_layer(*fwd, True)
+    rows = 160 * 150 * 20
+    times["train"] = dict(
+        shape="B=160 N=150 k=20 dropout 0.5, idx written",
+        ms=best_ms(lambda: kk.knn_fused_layer(*fwd, True), inner=1),
+        plain_ms=best_ms(lambda: kk.knn_fused_layer_reference(*fwd, True), inner=1),
+        **bound(2 * rows * macs(FE) + 2 * 160 * 150 * 150 * 33,
+                nbytes(d["xs"], d["xf"], d["u1"], d["u2m"], *d["hidden"], out, idx)))
+    for need in (True, False):
+        bwd = (d["u1"], d["u2m"], idx, None, None, d["hidden"], d["g"], 0.2, True, 0.5, 5, need)
+        res = kk.knn_edge_aggregate_bwd(*bwd)
+        grads = (*res[:3], *(res[5] if need else ()))
+        times["bwd" if need else "bwd_no_wgrads"] = dict(
+            shape="B=160 N=150 k=20 dropout 0.5, " + ("with" if need else "without")
+            + " weight gradients",
+            ms=best_ms(lambda: kk.knn_edge_aggregate_bwd(*bwd), inner=1),
+            plain_ms=best_ms(lambda: kk.knn_edge_aggregate_bwd_reference(*bwd), inner=1),
+            **bound((3 if need else 2) * 2 * rows * macs(FE),
+                    nbytes(d["u1"], d["u2m"], idx, d["g"], *d["hidden"], *grads)))
+        del res, grads
+    log("knn_kernel_times", card=card, **times)
+    return ms, times
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -378,6 +776,7 @@ def main() -> None:
     from mpgan_tpu_torch.data.jetnet import JetNetDataset
     from mpgan_tpu_torch.models.mpgan import MPGenerator
     from mpgan_tpu_torch.ops import _build
+    from mpgan_tpu_torch.ops import knn_kernels as kk
     from mpgan_tpu_torch.ops import mp_kernels as mk
     from mpgan_tpu_torch.training.config import build_mpgan_generator, from_args_dict
     from mpgan_tpu_torch.training.sampling import generate_multi_batch, noise_spec
@@ -540,6 +939,15 @@ def main() -> None:
         train_launches = main_train_path(mk, train_cli, pathlib.Path(tmp))
     step_ms, ttimes = train_timings(mk, dev, from_args_dict, card)
 
+    # 11-15. the 150-particle knn-20 path
+    knn_err = knn_kernel_checks(kk, mk, dev)
+    knn_gen_launches = knn_generation(mk, gen, dev, card)
+    step_check(dev, from_args_dict, card=KNN150, batch=8, phase="knn_step_check",
+               cpu_plain_kernels=False, loss_tol=NEAR_TIE_LOSS_TOL, grad_tol=NEAR_TIE_GRAD_TOL)
+    with tempfile.TemporaryDirectory() as tmp:
+        knn_train_launches = knn_train_path(mk, train_cli, pathlib.Path(tmp))
+    knn_step_ms, ktimes = knn_timings(kk, dev, from_args_dict, card)
+
     fwd_src = "mpgan_tpu_torch/csrc/edge_aggregate.cu"
     kernels = [
         {"name": "edge_aggregate", "route": "cuda", "source": fwd_src,
@@ -547,24 +955,45 @@ def main() -> None:
          "launches": launches["edge_aggregate"] + train_launches["edge_aggregate"]
          + train_launches["edge_aggregate_train"],
          "max_abs_err": max(max_err["edge_aggregate"], train_err["edge_aggregate"]),
-         "ms": k2[0], "plain_ms": k2[1], "shape": "B=512 N=150 eval",
+         "ms": k2[0], "plain_ms": k2[1], **dense_fwd_bound(512, 150), "shape": "B=512 N=150 eval",
          "train_ms": ttimes["train_fwd_30"][0], "train_plain_ms": ttimes["train_fwd_30"][1],
-         "train_shape": "B=256 N=30 dropout 0.5"},
+         "train_shape": "B=256 N=30 dropout 0.5",
+         "train_bound_ms": dense_fwd_bound(256, 30)["bound_ms"]},
         {"name": "edge_aggregate_fn", "route": "cuda", "source": fwd_src,
          "replaces": REPLACES["edge_aggregate_fn"],
          "launches": launches["edge_aggregate_fn"] + train_launches["edge_aggregate_fn"],
          "max_abs_err": max_err["edge_aggregate_fn"], "ms": k4[0], "plain_ms": k4[1],
-         "shape": "B=4096 N=30"},
+         **dense_fwd_bound(4096, 30, 3), "shape": "B=4096 N=30"},
         {"name": "edge_aggregate_bwd", "route": "cuda",
          "source": "mpgan_tpu_torch/csrc/edge_aggregate_bwd.cu",
          "replaces": REPLACES["edge_aggregate_bwd"], "includes": K1,
          "launches": train_launches["edge_aggregate_bwd"]
          + train_launches["edge_aggregate_bwd_no_wgrads"],
          "max_abs_err": train_err["edge_aggregate_bwd"],
-         "ms": ttimes["bwd_30"][0], "plain_ms": ttimes["bwd_30"][1],
+         "ms": ttimes["bwd_30"][0], "plain_ms": ttimes["bwd_30"][1], **dense_bwd_bound(256, 30),
          "shape": "B=256 N=30 dropout 0.5 with weight gradients",
-         "ms_150": ttimes["bwd_150"][0], "plain_ms_150": ttimes["bwd_150"][1]},
+         "ms_150": ttimes["bwd_150"][0], "plain_ms_150": ttimes["bwd_150"][1],
+         "bound_ms_150": dense_bwd_bound(32, 150)["bound_ms"]},
+        {"name": "knn_fused_layer", "route": "cuda",
+         "source": "mpgan_tpu_torch/csrc/knn_fused.cu", "replaces": REPLACES["knn_fused_layer"],
+         "includes": K1,
+         "launches": knn_gen_launches["knn_fused_layer"] + knn_train_launches["knn_fused_layer"]
+         + knn_train_launches["knn_fused_layer_train"],
+         "max_abs_err": knn_err["knn_fused_layer"], **ktimes["eval"],
+         "train_ms": ktimes["train"]["ms"], "train_plain_ms": ktimes["train"]["plain_ms"],
+         "train_shape": ktimes["train"]["shape"], "train_bound_ms": ktimes["train"]["bound_ms"]},
+        {"name": "knn_edge_aggregate_bwd", "route": "cuda",
+         "source": "mpgan_tpu_torch/csrc/knn_edge_bwd.cu",
+         "replaces": REPLACES["knn_edge_aggregate_bwd"], "includes": K1,
+         "launches": knn_train_launches["knn_edge_aggregate_bwd"]
+         + knn_train_launches["knn_edge_aggregate_bwd_no_wgrads"],
+         "max_abs_err": knn_err["knn_edge_aggregate_bwd"], **ktimes["bwd"],
+         "ms_no_wgrads": ktimes["bwd_no_wgrads"]["ms"],
+         "plain_ms_no_wgrads": ktimes["bwd_no_wgrads"]["plain_ms"],
+         "bound_ms_no_wgrads": ktimes["bwd_no_wgrads"]["bound_ms"]},
     ]
+    log("knn_train_step", batch=128, kernel_ms=knn_step_ms["kernel"],
+        plain_ms=knn_step_ms["plain"])
     log("train_step", kernel_ms=step_ms["kernel"], plain_ms=step_ms["plain"])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
-// Pieces shared by the dense edge kernels (edge_aggregate.cu: K2 and K4;
-// edge_aggregate_bwd.cu: K3): layer-chain descriptions, the pass planner, the
+// Pieces shared by the edge kernels (dense: edge_aggregate.cu, K2 and K4, and
+// edge_aggregate_bwd.cu, K3; knn: knn_fused.cu, K5, and knn_edge_bwd.cu, K6):
+// layer-chain descriptions, the pass planner, the
 // FP32 register-tiled dense layer over activations stored transposed in shared
 // memory, and K1, the dropout hash of mpgan_tpu/ops/mp_pallas.py::_dropmul.
 #pragma once
@@ -40,16 +41,18 @@ struct Plan {
 
 // K1: the dropout hash of one element. A pass row r is the pair (receiver
 // ii = r / jc, sender jj = r % jc) of the pass; its global id is
-// base + ii * ns + jj, where base = b*n*ns + (first receiver)*ns + first sender
-// and ns = ceil(n / 8) * 8, the TPU kernel's padded sender count (the ids keep
-// it, so masks agree bit for bit with the JAX package).
+// base + ii * ns + jj, where base = b*n*ns + (first receiver)*ns + first sender.
+// Dense kernels: ns = ceil(n / 8) * 8, the TPU kernel's padded sender count (the
+// ids keep it, so masks agree bit for bit with the JAX package). knn kernels: the
+// "sender" of a row is the neighbour's extraction rank s, ns = k and jc the ranks
+// per pass, so the id is b*n*k + i*k + s (knn_pallas._v3_ids_at).
 struct Drop {
   unsigned seed_key;  // seed * 0xC2B2AE3D
   unsigned thr;       // keep iff hash >= thr; thr = min(int(p * 2^32), 2^32 - 1)
   float mult;         // float32(1 / (1 - p))
   unsigned base;      // id of the pass's row 0
-  int jc;             // senders per pass
-  int ns;             // padded sender count of the ids
+  int jc;             // senders (knn: neighbour ranks) per pass
+  int ns;             // sender count the ids are laid out on
 };
 
 __device__ __forceinline__ unsigned pair_id(const Drop& d, int r) {

@@ -2,10 +2,11 @@
 
 The sources under ``mpgan_tpu_torch/csrc/`` are compiled at first use with
 ``nvcc``, one process per source started together, and linked into a shared
-library with a plain C interface, loaded through ``ctypes``. The library lands in ``build/torch_ext/<hash>/`` at the root of
-the checkout, where ``<hash>`` covers the sources and the compiler flags, so a
-changed source builds anew and an unchanged one is reused. Nothing here falls
-back: a missing ``nvcc`` or a failed compile raises.
+library with a plain C interface, loaded through ``ctypes``. The library lands
+in ``build/torch_ext/<hash>/`` at the root of the checkout, where ``<hash>``
+covers the sources and the compiler flags, so a changed source builds anew and
+an unchanged one is reused. Nothing here falls back: a missing ``nvcc`` or a
+failed compile raises.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_ext"
-SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu")
-HEADERS = ("edge_common.cuh",)
+SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu", "knn_fused.cu", "knn_edge_bwd.cu")
+HEADERS = ("edge_common.cuh", "edge_bwd_common.cuh")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -119,6 +120,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i, i, i, i, i, parr, parr, iarr, i, parr, p, parr, iarr, f, i, f, i, p,
     ]
     lib.mpgan_edge_aggregate_fn.restype = i
+    lib.mpgan_knn_fused_layer.argtypes = [
+        p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, parr, parr, iarr, f, i, i, i,
+        ctypes.c_uint, f, p,
+    ]
+    lib.mpgan_knn_fused_layer.restype = i
+    lib.mpgan_knn_edge_aggregate_bwd.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p, parr, p, p, p, i, i, i, i, i, parr, parr, parr, iarr,
+        f, i, i, i, ctypes.c_uint, f, i, p,
+    ]
+    lib.mpgan_knn_edge_aggregate_bwd.restype = i
     lib.mpgan_cuda_error_string.argtypes = [i]
     lib.mpgan_cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,0 +1,466 @@
+"""Fused knn message-passing edge kernels: plain PyTorch versions and CUDA wrappers.
+
+Counterpart of ``mpgan_tpu/ops/knn_pallas.py`` (its fully fused generation,
+``_fused_kernel_v4`` forward and ``_bwd_kernel_v3`` backward), as
+:mod:`.mp_kernels` is of ``mp_pallas.py``:
+
+- ``knn_fused_layer`` (K5, ``csrc/knn_fused.cu``): per jet, the neighbour
+  search, the sender gather, the edge MLP and the masked aggregation over the
+  ``k`` neighbours in one kernel::
+
+      d[i, j]   = (-2 xs[i] | 1) . (xf[j] | |xf[j]|^2) + |xs[i]|^2
+      key[i, j] = bits(max(d, 0)) & ~(2^bits - 1) | j,   bits = max(8, bitlen(n - 1))
+      idx[i, s] = the sender of the s-th smallest key of row i
+                  (the first dropped without self loops)
+      z1        = u1[i] + u2m[idx[i, s], :H1] (+ dist[i, s] * w_d)
+      agg[i]    = sum_s u2m[idx[i, s], H1] * chain(leaky(z1))      (/ k for the mean)
+
+  ``xs`` are the receivers' selection features, ``xf`` the senders' with masked
+  particles pushed away, ``u1``/``u2m = [u2 | mask]`` the decomposed first fe
+  layer (bias and per-jet conditioning folded into ``u2``), ``chain`` the
+  hidden fe layers ``hidden_flat = (w2, b2, ...)`` with weights ``[in, out]``
+  and LeakyReLU after each. ``dist = |xf[idx] - xs + 1e-12|`` is computed on
+  the selected edges when ``want_dists``. With ``dropout_p > 0`` every
+  activation is multiplied by the K1 hash multiplier, keyed on the pair id
+  ``b*n*k + i*k + s`` (the extraction rank ``s`` is part of the id, so the
+  neighbours come out in ascending key order), salt 0 after layer 1 and
+  ``l`` after hidden layer ``l``. A launch that feeds a backward also returns
+  ``idx`` (int32 ``[B, N, k]``) and ``dists``.
+- ``knn_edge_aggregate_bwd`` (K6, ``csrc/knn_edge_bwd.cu``): the backward from
+  ``idx``/``dists``. It recomputes the chain, replays the dropout masks and
+  returns ``du1`` (sum over ``k``), ``du2`` and ``dmask`` (scatter-add into the
+  sender rows), ``ddists``, ``dw_d`` and the hidden layers' weight and bias
+  gradients (zeros with ``need_wgrads=False``).
+- :class:`KnnFusedLayer`: the autograd ``Function`` of K5 and K6. The selection
+  is detached and the distances are differentiable, as in the JAX package: the
+  ``ddists -> dxs, dxf`` step is plain torch.
+
+The neighbour sets of two implementations may differ only at near-ties:
+sums taken in another order move a ``d`` by an ulp, and a key sits on a
+bucket edge once in a while. :func:`compare_neighbours` counts such rows and
+checks that the swapped senders' keys are within one bucket step.
+
+A wrapper runs the plain version for tensors on the CPU, and the kernel for
+tensors on a CUDA device; anything else raises. Launches are counted in
+``mp_kernels.launch_counts``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import torch
+from torch.autograd.function import once_differentiable
+
+from . import _build
+from .linear import _M32, dropout_threshold_mult
+from .mp_kernels import (
+    MAX_WIDTH,
+    _chain_args,
+    _chain_dims,
+    _check_cuda_args,
+    _check_dropout,
+    _dleaky,
+    _dropmul,
+    _leaky,
+    _on_cpu,
+    _pairs,
+    launch_counts,
+)
+
+
+def key_bits(n: int) -> int:
+    """Low key bits that hold the sender index (``knn_pallas.py:1727``)."""
+    return max(8, (n - 1).bit_length())
+
+
+def knn_pair_ids(b: int, n: int, k: int, device) -> torch.Tensor:
+    """``[B, N, k, 1]`` global pair ids ``b*n*k + i*k + s`` mod 2**32 as int32
+    bit patterns (``knn_pallas._v3_ids_at``; unpadded ``n``, unlike the dense ids)."""
+    ar = lambda m: torch.arange(m, dtype=torch.int64, device=device)  # noqa: E731
+    ids = ar(b)[:, None, None] * (n * k) + ar(n)[None, :, None] * k + ar(k)[None, None, :]
+    return (((ids + 2**31) & _M32) - 2**31).to(torch.int32)[..., None]
+
+
+def _sq_norm(x: torch.Tensor) -> torch.Tensor:
+    """``sum_c x_c^2`` over the last axis, each product and each sum rounded on
+    its own, in column order."""
+    s = x[..., 0] * x[..., 0]
+    for c in range(1, x.shape[-1]):
+        s = s + x[..., c] * x[..., c]
+    return s
+
+
+def knn_keys(xs: torch.Tensor, xf: torch.Tensor) -> torch.Tensor:
+    """The packed int32 selection keys ``[B, N, N]`` (receiver, sender): the
+    float32 bits of the squared distance with the low :func:`key_bits` bits
+    replaced by the sender index, so keys are unique and ties inside a
+    truncation bucket break by index.
+
+    ``d = (-2 xs | 1) . (xf | |xf|^2) + |xs|^2`` is summed term by term in
+    column order, every product and every sum rounded to float32 on its own (no
+    fused multiply-add, no library matmul). K5 takes the same steps in the same
+    order, so the kernel and this version build the same keys bit for bit, on
+    any device; against another implementation of the formula (the JAX
+    package's matmul) a ``d`` may move by an ulp, see :func:`compare_neighbours`."""
+    n, c = xs.shape[1], xs.shape[2]
+    a = -2.0 * xs
+    d = a[:, :, None, 0] * xf[:, None, :, 0]
+    for col in range(1, c):
+        d = d + a[:, :, None, col] * xf[:, None, :, col]
+    d = d + _sq_norm(xf)[:, None, :]
+    d = d + _sq_norm(xs)[:, :, None]
+    d = torch.where(d > 0, d, torch.zeros_like(d))
+    low = (1 << key_bits(n)) - 1
+    cols = torch.arange(n, dtype=torch.int32, device=xs.device)
+    return (d.contiguous().view(torch.int32) & ~low) | cols
+
+
+def knn_select_reference(xs, xf, k: int, self_loops: bool) -> torch.Tensor:
+    """int32 ``[B, N, k]`` neighbours in ascending key order: ``k`` (or ``k + 1``,
+    the first dropped) min-extractions of the packed keys."""
+    start = 0 if self_loops else 1
+    keys = knn_keys(xs, xf)
+    low = (1 << key_bits(xs.shape[1])) - 1
+    smallest = torch.topk(keys, k + start, dim=-1, largest=False, sorted=True).values
+    return (smallest[..., start:] & low).contiguous()
+
+
+def compare_neighbours(idx: torch.Tensor, idx_ref: torch.Tensor, keys_ref: torch.Tensor,
+                       sender_mask: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, int, int]:
+    """Hold ``idx`` against ``idx_ref`` (both ``[B, N, k]``) under the near-tie
+    rule. Positions where both selected senders are masked (``sender_mask``
+    ``[B, N, 1]``, 0 = masked) are not compared: their order is set by
+    cancellation at the scale of the pushed-away coordinates and their edges
+    carry weight 0. Returns ``(agree [B, N] bool, differing rows, bad rows)``;
+    a differing row is bad when at some position the two senders' reference
+    keys are more than one bucket step apart."""
+    n = keys_ref.shape[-1]
+    bits = key_bits(n)
+    a, r = idx.long(), idx_ref.long()
+    differ = a != r
+    if sender_mask is not None:
+        m = sender_mask[..., 0]
+        live = (torch.gather(m[:, None, :].expand(-1, n, -1), 2, a) != 0) | \
+               (torch.gather(m[:, None, :].expand(-1, n, -1), 2, r) != 0)
+        differ = differ & live
+    bucket_a = torch.gather(keys_ref, 2, a) >> bits
+    bucket_r = torch.gather(keys_ref, 2, r) >> bits
+    far = differ & ((bucket_a - bucket_r).abs() > 1)
+    agree = ~differ.any(dim=-1)
+    return agree, int((~agree).sum()), int(far.any(dim=-1).sum())
+
+
+def _gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t [B, N, F]`` rows at ``idx [B, N, k]`` -> ``[B, N, k, F]``."""
+    b, n, k = idx.shape
+    flat = idx.long().reshape(b, n * k, 1).expand(-1, -1, t.shape[-1])
+    return torch.gather(t, 1, flat).reshape(b, n, k, t.shape[-1])
+
+
+def _edge_dists(xs, xf, idx):
+    """``|xf[idx] - xs + 1e-12|`` on the selected edges, ``[B, N, k]``; also the
+    shifted differences."""
+    diffs = _gather_rows(xf, idx) - xs[:, :, None, :] + 1e-12
+    return torch.sqrt((diffs * diffs).sum(dim=-1)), diffs
+
+
+def _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p, seed):
+    """Pre-activations, activations (after dropout) and dropout multipliers of
+    every layer on the selected edges ``[B, N, k, H_l]``, and the gathered
+    sender mask ``[B, N, k, 1]``."""
+    h1 = u1.shape[-1]
+    b, n, k = idx.shape
+    g2 = _gather_rows(u2m, idx)
+    z = u1[:, :, None, :] + g2[..., :h1]
+    if dists is not None:
+        z = z + dists[..., None] * w_d
+    ids = knn_pair_ids(b, n, k, u1.device) if dropout_p > 0 else None
+    pairs = _pairs(hidden_flat)
+    zs, acts, mults = [], [], []
+    for salt in range(len(pairs) + 1):
+        if salt:
+            w, bias = pairs[salt - 1]
+            z = torch.matmul(acts[-1], w) + bias
+        a = _leaky(z, alpha)
+        m = _dropmul(ids, z.shape[-1], dropout_p, seed, salt) if dropout_p > 0 else None
+        zs.append(z)
+        mults.append(m)
+        acts.append(a if m is None else a * m)
+    return zs, acts, mults, g2[..., h1:]
+
+
+def knn_fused_layer_reference(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
+                              want_dists: bool, alpha: float, sum_agg: bool,
+                              dropout_p: float = 0.0, seed: int = 0, emit_idx: bool = False):
+    """Plain PyTorch version of K5 (``knn_pallas._fused_kernel_v4``). Returns
+    ``(agg, idx, dists)``; ``idx`` and ``dists`` are None unless ``emit_idx``
+    (and ``want_dists``)."""
+    idx = knn_select_reference(xs, xf, k, self_loops)
+    dists = _edge_dists(xs, xf, idx)[0] if want_dists else None
+    _, acts, _, smask = _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p, seed)
+    agg = (acts[-1] * smask).sum(dim=2)
+    if not sum_agg:
+        agg = agg / k
+    return agg, (idx if emit_idx else None), (dists if emit_idx else None)
+
+
+def knn_edge_aggregate_bwd_reference(u1, u2m, idx, dists, w_d, hidden_flat, g, alpha: float,
+                                     sum_agg: bool, dropout_p: float = 0.0, seed: int = 0,
+                                     need_wgrads: bool = True):
+    """Plain PyTorch version of K6 (``knn_pallas._bwd_kernel_v3``). Returns
+    ``(du1, du2, dmask, ddists, dw_d, dhidden_flat)``; ``ddists``/``dw_d`` are
+    None without ``dists``; the weight gradients are zeros without
+    ``need_wgrads``."""
+    b, n, k = idx.shape
+    h1 = u1.shape[-1]
+    pairs = _pairs(hidden_flat)
+    zs, acts, mults, smask = _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p,
+                                        seed)
+    if not sum_agg:
+        g = g / k
+    g_rows = g[:, :, None, :]
+    dsmask = (acts[-1] * g_rows).sum(dim=-1)  # [B, N, k]
+    da = g_rows * smask
+    dhidden = [torch.zeros_like(t) for t in hidden_flat]
+    for layer in range(len(pairs), -1, -1):
+        if mults[layer] is not None:
+            da = da * mults[layer]
+        dz = da * _dleaky(zs[layer], alpha)
+        if layer == 0:
+            break
+        w = pairs[layer - 1][0]
+        if need_wgrads:
+            a_in = acts[layer - 1]
+            dhidden[2 * (layer - 1)] = torch.matmul(
+                a_in.reshape(-1, a_in.shape[-1]).t(), dz.reshape(-1, dz.shape[-1]))
+            dhidden[2 * (layer - 1) + 1] = dz.sum(dim=(0, 1, 2))
+        da = torch.matmul(dz, w.t())
+    flat = (idx.long() + torch.arange(b, device=idx.device)[:, None, None] * n).reshape(-1)
+    du2 = torch.zeros(b * n, h1, dtype=dz.dtype, device=dz.device)
+    du2.index_add_(0, flat, dz.reshape(-1, h1))
+    dmask = torch.zeros(b * n, dtype=dz.dtype, device=dz.device)
+    dmask.index_add_(0, flat, dsmask.reshape(-1))
+    ddists = dw_d = None
+    if dists is not None:
+        ddists = (dz * w_d).sum(dim=-1)
+        dw_d = (dists[..., None] * dz).sum(dim=(0, 1, 2)) if need_wgrads \
+            else torch.zeros_like(w_d)
+    return (dz.sum(dim=2), du2.reshape(b, n, h1), dmask.reshape(b, n, 1), ddists, dw_d,
+            tuple(dhidden))
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_knn_shapes(name, xs, xf, u1, u2m, w_d, pairs, k, self_loops, want_dists):
+    if xs.dim() != 3 or xf.shape != xs.shape:
+        raise ValueError(f"{name}: xs {tuple(xs.shape)} and xf {tuple(xf.shape)} must be [B, N, C]")
+    b, n, c = xs.shape
+    if not 1 <= c <= MAX_WIDTH:
+        raise ValueError(f"{name}: {c} selection features exceed the kernel cap {MAX_WIDTH}")
+    if u1.dim() != 3 or u1.shape[:2] != (b, n):
+        raise ValueError(f"{name}: u1 {tuple(u1.shape)} must be [{b}, {n}, H1]")
+    _check_u2m(name, u1, u2m, w_d, want_dists)
+    if k < 1 or k + (0 if self_loops else 1) > n:
+        raise ValueError(
+            f"{name}: k={k} (+{0 if self_loops else 1} dropped self) exceeds the {n} "
+            "available senders"
+        )
+    return _chain_dims(name, "hidden", [u1.shape[2]], pairs)
+
+
+def _check_u2m(name, u1, u2m, w_d, want_dists):
+    b, n, h1 = u1.shape
+    if u2m.shape != (b, n, h1 + 1):
+        raise ValueError(f"{name}: u2m {tuple(u2m.shape)} must be [{b}, {n}, {h1 + 1}] "
+                         "([u2 | mask])")
+    if want_dists and (w_d is None or w_d.shape != (h1,)):
+        raise ValueError(f"{name}: want_dists needs w_d of shape ({h1},)")
+
+
+def knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
+                    want_dists: bool, alpha: float, sum_agg: bool, dropout_p: float = 0.0,
+                    seed: int = 0, emit_idx: bool = False):
+    """K5: the plain version on the CPU, the CUDA kernel on a GPU. Returns
+    ``(agg, idx, dists)`` like :func:`knn_fused_layer_reference`."""
+    hidden_flat = tuple(hidden_flat)
+    name = "knn_fused_layer_train" if emit_idx else "knn_fused_layer"
+    _check_dropout(name, dropout_p, seed)
+    w_d = w_d if want_dists else None
+    extra = () if w_d is None else (w_d,)
+    pairs = _pairs(hidden_flat)
+    dims = _check_knn_shapes(name, xs, xf, u1, u2m, w_d, pairs, k, self_loops, want_dists)
+    if _on_cpu(xs, xf, u1, u2m, *extra, *hidden_flat):
+        return knn_fused_layer_reference(xs, xf, u1, u2m, w_d, hidden_flat, k, self_loops,
+                                         want_dists, alpha, sum_agg, dropout_p, seed, emit_idx)
+    _check_cuda_args(name, {"xs": xs, "xf": xf, "u1": u1, "u2m": u2m,
+                            **({} if w_d is None else {"w_d": w_d}),
+                            **{f"hidden[{i}]": t for i, t in enumerate(hidden_flat)}},
+                     hidden_flat[::2])
+    b_sz, n, c = xs.shape
+    dev = xs.device
+    out = torch.empty((b_sz, n, dims[-1]), dtype=torch.float32, device=dev)
+    idx = torch.empty((b_sz, n, k), dtype=torch.int32, device=dev) if emit_idx else None
+    dists = torch.empty((b_sz, n, k), dtype=torch.float32, device=dev) \
+        if emit_idx and want_dists else None
+    lib = _build.library()
+    w, bias = _chain_args(pairs)
+    dim_arr = (ctypes.c_int * len(dims))(*dims)
+    thr, mult = dropout_threshold_mult(dropout_p) if dropout_p > 0 else (0, 1.0)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        code = lib.mpgan_knn_fused_layer(
+            xs.data_ptr(), xf.data_ptr(), u1.data_ptr(), u2m.data_ptr(), ptr(w_d),
+            out.data_ptr(), ptr(idx), ptr(dists), b_sz, n, c, dims[0], k,
+            int(bool(self_loops)), int(bool(want_dists)), len(pairs), w, bias, dim_arr,
+            float(alpha), int(bool(sum_agg)), int(dropout_p > 0), int(seed), thr, mult,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, name)
+    launch_counts[name] += 1
+    return out, idx, dists
+
+
+def knn_edge_aggregate_bwd(u1, u2m, idx, dists, w_d, hidden_flat, g, alpha: float,
+                           sum_agg: bool, dropout_p: float = 0.0, seed: int = 0,
+                           need_wgrads: bool = True):
+    """K6: the plain backward on the CPU, the CUDA kernel on a GPU. Returns
+    ``(du1, du2, dmask, ddists, dw_d, dhidden_flat)``."""
+    hidden_flat = tuple(hidden_flat)
+    name = "knn_edge_aggregate_bwd" if need_wgrads else "knn_edge_aggregate_bwd_no_wgrads"
+    _check_dropout(name, dropout_p, seed)
+    want_dists = dists is not None
+    w_d = w_d if want_dists else None
+    extra = (dists, w_d) if want_dists else ()
+    if u1.dim() != 3:
+        raise ValueError(f"{name}: u1 {tuple(u1.shape)} must be [B, N, H1]")
+    _check_u2m(name, u1, u2m, w_d, want_dists)
+    b_sz, n, h1 = u1.shape
+    if idx.dim() != 3 or idx.shape[:2] != (b_sz, n) or idx.dtype != torch.int32:
+        raise ValueError(f"{name}: idx must be int32 [{b_sz}, {n}, k], got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    k = idx.shape[2]
+    if want_dists and dists.shape != idx.shape:
+        raise ValueError(f"{name}: dists {tuple(dists.shape)} must be {tuple(idx.shape)}")
+    pairs = _pairs(hidden_flat)
+    dims = _chain_dims(name, "hidden", [h1], pairs)
+    if g.shape != (b_sz, n, dims[-1]):
+        raise ValueError(f"{name}: g {tuple(g.shape)} must be {(b_sz, n, dims[-1])}")
+    if _on_cpu(u1, u2m, idx, g, *extra, *hidden_flat):
+        return knn_edge_aggregate_bwd_reference(u1, u2m, idx, dists, w_d, hidden_flat, g, alpha,
+                                                sum_agg, dropout_p, seed, need_wgrads)
+    if alpha <= 0:
+        # the kernel reads LeakyReLU's slope off the sign of the stored activation
+        raise ValueError(f"{name}: the kernel needs leaky_relu_alpha > 0, got {alpha}")
+    if not idx.is_contiguous():
+        raise ValueError(f"{name}: idx must be contiguous")
+    # the kernel reads W^T for da = dz @ W^T: [out, in] copies of the hidden weights
+    w_t = tuple(w.t().contiguous() for w, _ in pairs)
+    _check_cuda_args(name, {"u1": u1, "u2m": u2m, "g": g,
+                            **({"dists": dists, "w_d": w_d} if want_dists else {}),
+                            **{f"hidden[{i}]": t for i, t in enumerate(hidden_flat)}},
+                     hidden_flat[::2] + w_t)
+    dev = u1.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    du1 = torch.empty_like(u1)
+    du2 = torch.empty((b_sz, n, h1), **f32)
+    dmask = torch.empty((b_sz, n, 1), **f32)
+    ddists = torch.empty((b_sz, n, k), **f32) if want_dists else None
+    dw_d = torch.zeros((h1,), **f32) if want_dists else None
+    dhidden = tuple(torch.zeros_like(t) for t in hidden_flat)
+    lib = _build.library()
+    n_groups = lib.mpgan_edge_aggregate_groups(n)
+    n_cta = b_sz * n_groups
+    w_total = sum(a * c + c for a, c in zip(dims[:-1], dims[1:])) + (h1 if want_dists else 0)
+    # per-CTA partial sums, reduced in a second pass in a fixed order; the
+    # sender partials start at zero, since which rows a CTA adds to depends on idx
+    du2_part = torch.zeros((b_sz, n_groups, n, h1), **f32)
+    dmask_part = torch.zeros((b_sz, n_groups, n), **f32)
+    w_part = torch.empty((n_cta, w_total) if need_wgrads and w_total else (1,), **f32)
+    w, bias = _chain_args(pairs)
+    wt_arr = (ctypes.c_void_p * max(len(pairs), 1))(*[t.data_ptr() for t in w_t])
+    dw_arr = (ctypes.c_void_p * max(len(hidden_flat), 1))(*[t.data_ptr() for t in dhidden])
+    dim_arr = (ctypes.c_int * len(dims))(*dims)
+    thr, mult = dropout_threshold_mult(dropout_p) if dropout_p > 0 else (0, 1.0)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        code = lib.mpgan_knn_edge_aggregate_bwd(
+            u1.data_ptr(), u2m.data_ptr(), idx.data_ptr(), ptr(dists), ptr(w_d), g.data_ptr(),
+            du1.data_ptr(), du2.data_ptr(), dmask.data_ptr(), ptr(ddists), ptr(dw_d), dw_arr,
+            du2_part.data_ptr(), dmask_part.data_ptr(), w_part.data_ptr(),
+            b_sz, n, h1, k, len(pairs), w, wt_arr, bias, dim_arr, float(alpha),
+            int(bool(sum_agg)), int(dropout_p > 0), int(seed), thr, mult,
+            int(bool(need_wgrads)), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, name)
+    launch_counts[name] += 1
+    return du1, du2, dmask, ddists, dw_d, dhidden
+
+
+def _dists_backward(xs, xf, idx, dists, ddists):
+    """``ddists -> (dxs, dxf)`` through ``dist = |xf[idx] - xs + 1e-12|`` with
+    the selection held fixed (``knn_pallas.py:2063-2079``)."""
+    _, diffs = _edge_dists(xs, xf, idx)
+    d_diffs = (ddists / dists)[..., None] * diffs  # [B, N, k, C]
+    b, n, k = idx.shape
+    flat = (idx.long() + torch.arange(b, device=idx.device)[:, None, None] * n).reshape(-1)
+    dxf = torch.zeros(b * n, xs.shape[-1], dtype=xs.dtype, device=xs.device)
+    dxf.index_add_(0, flat, d_diffs.reshape(b * n * k, -1))
+    return -d_diffs.sum(dim=2), dxf.reshape(xf.shape)
+
+
+class KnnFusedLayer(torch.autograd.Function):
+    """K5 forward, K6 backward (``knn_pallas.knn_fused_layer``'s custom VJP).
+
+    ``KnnFusedLayer.apply(xs, xf, u1, u2m, w_d, k, self_loops, want_dists,
+    alpha, sum_agg, dropout_p, seed, *hidden_flat)``; ``w_d`` is None without
+    ``want_dists``. The forward asks K5 for ``idx`` (and ``dists``), the
+    backward's residuals; :func:`knn_aggregate` goes around the Function where
+    no gradient is needed. The backward launches K6 with the weight
+    contractions only when a hidden weight, bias or ``w_d`` needs a gradient.
+    ``xs`` and ``xf`` get a gradient through the distances only (the selection
+    is detached); that step is plain torch, and its scatter into ``dxf`` is an
+    ``index_add_``, whose order of additions on a GPU is not fixed. Once
+    differentiable, like :class:`.mp_kernels.EdgeAggregate`."""
+
+    @staticmethod
+    def forward(ctx, xs, xf, u1, u2m, w_d, k, self_loops, want_dists, alpha, sum_agg,
+                dropout_p, seed, *hidden_flat):
+        agg, idx, dists = knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k, self_loops,
+                                          want_dists, alpha, sum_agg, dropout_p, seed, True)
+        ctx.save_for_backward(xs, xf, u1, u2m, w_d, idx, dists, *hidden_flat)
+        ctx.cfg = (alpha, sum_agg, dropout_p, seed)
+        return agg
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        xs, xf, u1, u2m, w_d, idx, dists, *hidden_flat = ctx.saved_tensors
+        alpha, sum_agg, dropout_p, seed = ctx.cfg
+        need_wgrads = ctx.needs_input_grad[4] or any(ctx.needs_input_grad[12:])
+        du1, du2, dmask, ddists, dw_d, dhidden = knn_edge_aggregate_bwd(
+            u1, u2m, idx, dists, w_d, hidden_flat, g.contiguous(), alpha, sum_agg, dropout_p,
+            seed, need_wgrads,
+        )
+        dxs = dxf = None
+        if dists is not None and (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
+            dxs, dxf = _dists_backward(xs, xf, idx, dists, ddists)
+        if not need_wgrads:
+            dw_d, dhidden = None, (None,) * len(hidden_flat)
+        return (dxs, dxf, du1, torch.cat([du2, dmask], dim=-1), dw_d,
+                None, None, None, None, None, None, None, *dhidden)
+
+
+def knn_aggregate(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool, want_dists: bool,
+                  alpha: float, sum_agg: bool, dropout_p: float = 0.0, seed: int = 0):
+    """The knn edge stage for a layer: :class:`KnnFusedLayer` when some tensor
+    needs a gradient, else K5 alone, which then writes no ``idx``/``dists``."""
+    tensors = [t for t in (xs, xf, u1, u2m, w_d, *hidden_flat) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return KnnFusedLayer.apply(xs, xf, u1, u2m, w_d, k, self_loops, want_dists, alpha,
+                                   sum_agg, dropout_p, seed, *hidden_flat)
+    return knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k, self_loops, want_dists, alpha,
+                           sum_agg, dropout_p, seed)[0]

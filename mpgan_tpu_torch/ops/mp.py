@@ -1,26 +1,38 @@
-"""Dense message passing over particle clouds (``mpgan_tpu/ops/mp.py``).
+"""Message passing over particle clouds, dense and k-nearest-neighbour
+(``mpgan_tpu/ops/mp.py``).
 
 One message-passing iteration (reference ``MPLayer``, mpgan/model.py:91-384)
-builds ``A[b, i, j] = [x_i, x_j (, edge features)]``, runs the edge MLP ``fe``,
-masks padded senders, aggregates over senders (sum or mean), concatenates the
-aggregate with the node features and runs the node MLP ``fn``.
+builds ``A[b, i, j] = [x_i, x_j (, edge features)]`` over every sender ``j``
+(``fully_connected``) or over the ``num_knn`` nearest ones, runs the edge MLP
+``fe``, masks padded senders, aggregates over senders (sum or mean),
+concatenates the aggregate with the node features and runs the node MLP ``fn``.
 
 Two paths compute it:
 
 - the plain path materializes the pairwise tensor, as the JAX jnp path does;
+  for knn it searches with a full distance matrix and a stable sort and
+  gathers the neighbours' rows;
 - the kernel path decomposes fe's first layer into receiver and sender
-  embeddings and hands the N^2 edge chain to the CUDA kernels of
-  :mod:`.mp_kernels` (on the CPU their plain versions). It takes the kernel
-  that also runs fn (K4) for eval at N <= 64 without BN/SN in fn, clabels or
-  ``mask_fne_np``, and the edge-only kernel (K2, backward K3) followed by fn in
-  torch otherwise, train mode always — the JAX package's default gate
-  (``ops/mp.py:347-355``).
+  embeddings and hands the edge chain to hand-written CUDA kernels (on the CPU
+  their plain versions). Dense (:mod:`.mp_kernels`): the kernel that also runs
+  fn (K4) for eval at N <= 64 without BN/SN in fn, clabels or ``mask_fne_np``,
+  and the edge-only kernel (K2, backward K3) followed by fn in torch otherwise,
+  train mode always — the JAX package's default gate (``ops/mp.py:347-355``).
+  knn (:mod:`.knn_kernels`): one kernel searches, gathers, runs the chain and
+  aggregates (K5, backward K6), then fn in torch — the JAX package's fully
+  fused kernel generation (``ops/mp.py:453-477``), the only one carried over.
 
 Train-mode dropout keys follow the JAX key paths (see :mod:`.keys`): the plain
 path splits ``rng`` into fe and fn keys, each MLP into one key per layer; the
 kernel path takes the second of two splits, draws the in-kernel seed from it
 and hands it to fn. The two paths therefore draw different masks, as in the
 JAX package.
+
+The plain knn search and the kernel's differ as in the JAX package: the plain
+one ranks exact distances ``|x_far_j - x_i + 1e-12|`` (and differentiates
+through them under ``pos_diffs``), the kernel ranks truncated squared distances
+with ties broken by index, so the two may pick different neighbours at
+near-ties.
 
 Conditioning labels are broadcast per batch element, fixing the reference's
 ``Tensor.repeat`` label scramble (mpgan/model.py:249-253) as the JAX package does.
@@ -34,13 +46,11 @@ from typing import Any
 import torch
 from torch import nn
 
+from .knn_kernels import knn_aggregate
 from .linear import MLP, MLPConfig, layer_weight_and_bias
 from .mp_kernels import EdgeAggregate, edge_aggregate_fn
 
-KNN_NOT_PORTED = (
-    "the knn (fully_connected=False) message-passing layer comes with the "
-    "150-particle knn slice, ROADMAP.md Queue 1 item 9"
-)
+_MASK_PUSH = 1e4  # masked particles move this far out, so no search selects them
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +152,59 @@ def _pairwise_fully_connected(cfg: MPLayerConfig, x: torch.Tensor) -> torch.Tens
     return torch.cat(parts, dim=-1)
 
 
+def _push_masked(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """The reference's ``mul = 1e4`` trick (mpgan/model.py:332-334)."""
+    return x if mask is None else ((1 - _MASK_PUSH) * mask + _MASK_PUSH) * x
+
+
+def _select_columns(cfg: MPLayerConfig, x: torch.Tensor) -> torch.Tensor:
+    """The features the knn search measures distances on."""
+    return x if (cfg.all_ef or not cfg.pos_diffs) else x[..., : cfg.num_coords]
+
+
+def _check_knn_fits(cfg: MPLayerConfig, n: int) -> None:
+    extra = 0 if cfg.self_loops else 1
+    if cfg.num_knn + extra > n:
+        raise ValueError(
+            f"knn MP layer: num_knn={cfg.num_knn} (+{extra} dropped self) exceeds the {n} "
+            "available senders"
+        )
+
+
+def _knn_search(cfg: MPLayerConfig, x: torch.Tensor, mask: torch.Tensor | None):
+    """Neighbour indices ``[B, N, k]`` and distances ``[B, N, k, 1]``
+    (mpgan/model.py:339-359): the ``k`` smallest ``|x_far_j - x_i + 1e-12|``,
+    the first dropped without self loops. A stable sort stands where the JAX
+    package has ``approx_max_k`` at recall 1: equal distances (masked particles
+    pushed onto one point) come out in index order, as they do there, and the
+    rank decides which dropout mask an edge draws."""
+    x1 = _select_columns(cfg, x)[:, :, None, :]
+    x2 = _select_columns(cfg, _push_masked(x, mask))[:, None, :, :]
+    dists = torch.linalg.vector_norm(x2 - x1 + 1e-12, dim=-1)  # [B, N, N]
+    start = 0 if cfg.self_loops else 1
+    top, order = torch.sort(dists, dim=-1, stable=True)
+    keep = slice(start, start + cfg.num_knn)
+    return order[:, :, keep], top[:, :, keep, None]
+
+
+def _pairwise_knn(cfg: MPLayerConfig, x: torch.Tensor, mask: torch.Tensor | None):
+    """``A[b, i, s] = [x_i, x_nbr(i, s) (, dist)]`` ``[B, N, k, fe_in]`` and the
+    neighbours' masks ``[B, N, k, 1]`` (None without ``mask``), mpgan/model.py:319-381.
+    The neighbours' rows are an indexed read (the JAX package's one-hot matmul
+    is a TPU device)."""
+    b, n, f = x.shape
+    idx, knn_dists = _knn_search(cfg, x, mask)
+    flat = idx.reshape(b, n * cfg.num_knn, 1)
+    x2 = torch.gather(x, 1, flat.expand(-1, -1, f)).reshape(b, n, cfg.num_knn, f)
+    a_mask = None
+    if mask is not None:
+        a_mask = torch.gather(mask, 1, flat).reshape(b, n, cfg.num_knn, 1)
+    parts = [x[:, :, None, :].expand(b, n, cfg.num_knn, f), x2]
+    if cfg.pos_diffs:
+        parts.append(knn_dists)
+    return torch.cat(parts, dim=-1), a_mask
+
+
 def _append_cond(cfg: MPLayerConfig, t: torch.Tensor, labels, num_jet_particles) -> torch.Tensor:
     """Broadcast conditioning labels / particle counts onto the trailing axis."""
     parts = [t]
@@ -158,7 +221,8 @@ def _append_cond(cfg: MPLayerConfig, t: torch.Tensor, labels, num_jet_particles)
 
 def fused_eligible(cfg: MPLayerConfig, train: bool) -> bool:
     """The kernel path covers the dense layer without pairwise-distance edge
-    features; fe batch-norm reduces over the whole batch and needs the plain path."""
+    features and every knn layer; fe batch-norm reduces over the whole batch and
+    needs the plain path."""
     if cfg.fe.batch_norm:
         return False
     if cfg.fully_connected:
@@ -171,15 +235,21 @@ def _fe_weights_sn(layer: MPLayer, update_sn: bool) -> list[tuple[torch.Tensor, 
     return [layer_weight_and_bias(lin, update_sn) for lin in layer.fe.net]
 
 
-def _decompose_first_layer(cfg: MPLayerConfig, weights, x, labels, num_jet_particles):
+def _decompose_first_layer(cfg: MPLayerConfig, weights, x, labels, num_jet_particles,
+                           extract_wd: bool = False):
     """Split fe layer 1 into receiver/sender embeddings ``(u1, u2)``, each
-    ``[B, N, H1]``; W1 columns follow ``[x_recv | x_send | clabels | njp]`` and
-    the bias plus every per-jet conditioning term fold into ``u2``."""
+    ``[B, N, H1]``, and the dists weight column ``w_d [H1]`` (None unless
+    ``extract_wd``); W1 columns follow ``[x_recv | x_send | dists? | clabels |
+    njp]`` and the bias plus every per-jet conditioning term fold into ``u2``."""
     f = cfg.input_node_size
     w1, b1 = weights[0]
     u1 = torch.matmul(x, w1[:, :f].t())
     bias = b1.expand(x.shape[0], b1.shape[0])
     col = 2 * f
+    w_d = None
+    if extract_wd:
+        w_d = w1[:, col]
+        col += 1
     if cfg.clabels:
         bias = bias + labels[:, : cfg.clabels].to(x.dtype) @ w1[:, col : col + cfg.clabels].t()
         col += cfg.clabels
@@ -187,7 +257,7 @@ def _decompose_first_layer(cfg: MPLayerConfig, weights, x, labels, num_jet_parti
         njp = num_jet_particles.to(x.dtype).reshape(-1, 1)
         bias = bias + njp @ w1[:, col : col + 1].t()
     u2 = torch.matmul(x, w1[:, f : 2 * f].t()) + bias[:, None, :]
-    return u1, u2
+    return u1, u2, w_d
 
 
 def _mp_layer_apply_fused(layer: MPLayer, x, mask, labels, num_jet_particles, train, rng,
@@ -196,7 +266,7 @@ def _mp_layer_apply_fused(layer: MPLayer, x, mask, labels, num_jet_particles, tr
     K2 (fe chain + aggregate, K3 backward) followed by fn in torch."""
     cfg = layer.cfg
     weights = _fe_weights_sn(layer, update_sn)
-    u1, u2 = _decompose_first_layer(cfg, weights, x, labels, num_jet_particles)
+    u1, u2, _ = _decompose_first_layer(cfg, weights, x, labels, num_jet_particles)
     hidden_flat = tuple(p for w, b in weights[1:] for p in (w.t().contiguous(), b))
     m = mask if mask is not None else torch.ones(x.shape[:2] + (1,), dtype=x.dtype, device=x.device)
     m = m.contiguous()
@@ -220,15 +290,45 @@ def _mp_layer_apply_fused(layer: MPLayer, x, mask, labels, num_jet_particles, tr
             cfg.fe.leaky_relu_alpha, cfg.sum_agg, cfg.fn.leaky_relu_alpha, cfg.fn.final_linear,
         )
 
-    dropout_p = cfg.fe.dropout_p if train else 0.0
-    seed = 0
-    if dropout_p > 0:
-        if rng is None:
-            raise ValueError("fe dropout in train mode needs an rng")
-        seed = rng.edge_seed()
+    dropout_p, seed = _edge_dropout(cfg, train, rng)
     agg = EdgeAggregate.apply(
         u1.contiguous(), u2.contiguous(), m, cfg.fe.leaky_relu_alpha, cfg.sum_agg, dropout_p,
         seed, *hidden_flat,
+    )
+    h = torch.cat([agg, x], dim=-1)
+    h = _append_cond(cfg, h, labels, num_jet_particles)
+    return layer.fn(h, train=train, rng=rng, update_sn=update_sn)
+
+
+def _edge_dropout(cfg: MPLayerConfig, train: bool, rng) -> tuple[float, int]:
+    """The in-kernel dropout rate and seed of a kernel-path layer."""
+    dropout_p = cfg.fe.dropout_p if train else 0.0
+    if dropout_p <= 0:
+        return 0.0, 0
+    if rng is None:
+        raise ValueError("fe dropout in train mode needs an rng")
+    return dropout_p, rng.edge_seed()
+
+
+def _mp_layer_apply_fused_knn(layer: MPLayer, x, mask, labels, num_jet_particles, train, rng,
+                              update_sn):
+    """Kernel path of the knn layer: decomposed fe layer 1, then K5 (search +
+    gather + fe chain + aggregate over the neighbours, K6 backward) followed by
+    fn in torch."""
+    cfg = layer.cfg
+    weights = _fe_weights_sn(layer, update_sn)
+    dropout_p, seed = _edge_dropout(cfg, train, rng)
+    m = mask if mask is not None else torch.ones(x.shape[:2] + (1,), dtype=x.dtype, device=x.device)
+    u1, u2, w_d = _decompose_first_layer(cfg, weights, x, labels, num_jet_particles,
+                                         extract_wd=cfg.pos_diffs)
+    u2m = torch.cat([u2, m.to(x.dtype)], dim=-1)
+    hidden_flat = tuple(p for w, b in weights[1:] for p in (w.t().contiguous(), b))
+    agg = knn_aggregate(
+        _select_columns(cfg, x).contiguous(),
+        _select_columns(cfg, _push_masked(x, mask)).contiguous(),
+        u1.contiguous(), u2m, None if w_d is None else w_d.contiguous(), hidden_flat,
+        cfg.num_knn, cfg.self_loops, cfg.pos_diffs, cfg.fe.leaky_relu_alpha, cfg.sum_agg,
+        dropout_p, seed,
     )
     h = torch.cat([agg, x], dim=-1)
     h = _append_cond(cfg, h, labels, num_jet_particles)
@@ -286,22 +386,26 @@ def mp_layer_apply(
     cfg = layer.cfg
     _check_edge_features(cfg)
     if not cfg.fully_connected:
-        raise NotImplementedError(KNN_NOT_PORTED)
+        _check_knn_fits(cfg, x.shape[1])
     if use_kernels is None:
         use_kernels = x.is_cuda
     if use_kernels and fused_eligible(cfg, train):
         fn_rng = rng.split(2)[1] if rng is not None else None
-        return _mp_layer_apply_fused(layer, x, mask, labels, num_jet_particles, train, fn_rng,
-                                     update_sn)
+        fused = _mp_layer_apply_fused if cfg.fully_connected else _mp_layer_apply_fused_knn
+        return fused(layer, x, mask, labels, num_jet_particles, train, fn_rng, update_sn)
     fe_rng = fn_rng = None
     if rng is not None:
         fe_rng, fn_rng = rng.split(2)
 
-    a = _pairwise_fully_connected(cfg, x)  # [B, N, N, fe_in]
+    if cfg.fully_connected:
+        a = _pairwise_fully_connected(cfg, x)  # [B, N, N, fe_in]
+        a_mask = None if mask is None else mask[:, None, :, :]  # senders (mpgan/model.py:262)
+    else:
+        a, a_mask = _pairwise_knn(cfg, x, mask)  # [B, N, k, fe_in]
     a = _append_cond(cfg, a, labels, num_jet_particles)
     a = layer.fe(a, train=train, rng=fe_rng, update_sn=update_sn)
-    if mask is not None:
-        a = a * mask[:, None, :, :]  # mask senders (mpgan/model.py:262)
+    if a_mask is not None:
+        a = a * a_mask
     agg = a.sum(dim=2) if cfg.sum_agg else a.mean(dim=2)
     h = torch.cat([agg, x], dim=-1)
     h = _append_cond(cfg, h, labels, num_jet_particles)

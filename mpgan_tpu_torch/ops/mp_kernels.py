@@ -22,14 +22,17 @@ version and a wrapper around a hand-written Hopper kernel
   backward. It launches K3 without the weight contractions when no hidden
   weight needs a gradient (the G step through D).
 
-K1 (``mp_pallas._dropmul``) keys each element on the global pair id
-``b*n*ns + i*ns + j`` with ``ns = ceil(n/8)*8`` (the TPU kernel's sender
-padding, kept in the ids though nothing is padded here), the feature column,
-the layer salt (0 for layer 1, k for hidden layer k) and an integer seed.
+K1 (``mp_pallas._dropmul``) keys each element on a global pair id, the feature
+column, the layer salt (0 for layer 1, k for hidden layer k) and an integer
+seed. The dense kernels' ids are ``b*n*ns + i*ns + j`` with ``ns =
+ceil(n/8)*8`` (the TPU kernel's sender padding, kept in the ids though nothing
+is padded here); the knn kernels of :mod:`.knn_kernels` use ``b*n*k + i*k + s``
+with the unpadded ``n`` and the neighbour's extraction rank ``s``.
 
 A wrapper runs the plain version for tensors on the CPU, and the kernel for
 tensors on a CUDA device; anything else raises. ``launch_counts`` counts kernel
-launches, so a run can show that it went through the kernels.
+launches (the knn kernels' too), so a run can show that it went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -52,6 +55,10 @@ launch_counts = {
     "edge_aggregate_fn": 0,         # K4
     "edge_aggregate_bwd": 0,        # K3 with weight gradients
     "edge_aggregate_bwd_no_wgrads": 0,  # K3 without them
+    "knn_fused_layer": 0,           # K5 without residuals (no gradient needed)
+    "knn_fused_layer_train": 0,     # K5 emitting idx (and dists) for the backward
+    "knn_edge_aggregate_bwd": 0,    # K6 with weight gradients
+    "knn_edge_aggregate_bwd_no_wgrads": 0,  # K6 without them
 }
 
 

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from mpgan_tpu_torch.models.mpgan import MPDiscriminator, MPGenerator
 from mpgan_tpu_torch.ops import _build
+from mpgan_tpu_torch.ops import knn_kernels as kk
 from mpgan_tpu_torch.ops import mp_kernels as mk
 from mpgan_tpu_torch.ops.keys import GeneratorKeys
 from mpgan_tpu_torch.training.config import (
@@ -250,3 +251,195 @@ def test_discriminator_without_weight_grads_launches_k3_without_them(dev):
     assert mk.launch_counts["edge_aggregate_bwd"] == 0
     assert x.grad is not None and torch.isfinite(x.grad).all()
     assert all(p.grad is None for p in d.parameters())
+
+
+# ---------------------------------------------------------------------------
+# the knn layer: K5 (search + gather + chain + aggregate) and K6 (its backward)
+# ---------------------------------------------------------------------------
+
+
+def _knn_inputs(dev, b, n, c, widths, k, seed):
+    """Operands of the fused knn layer; jets hold between 1 and n real
+    particles (some fewer than k), the first one all n."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, scale=0.5: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
+    xs = r(b, n, c, scale=0.3)
+    counts = torch.randint(1, n + 1, (b,), generator=g, device=dev)
+    counts[0] = n
+    mask = (torch.arange(n, device=dev)[None, :] < counts[:, None]).float()[..., None]
+    xf = ((1 - 1e4) * mask + 1e4) * xs
+    h1 = widths[0]
+    hidden = tuple(t for a, w in zip(widths[:-1], widths[1:])
+                   for t in (r(a, w, scale=a ** -0.5), r(w, scale=0.1)))
+    u2m = torch.cat([r(b, n, h1), mask], dim=-1)
+    return dict(xs=xs, xf=xf, u1=r(b, n, h1), u2m=u2m, w_d=r(h1, scale=0.3), hidden=hidden,
+                g=r(b, n, widths[-1]), mask=mask, k=k)
+
+
+KNN_SHAPES = [
+    (8, 150, 32, [96, 160, 192], 20),   # the published widths
+    (3, 13, 8, [24, 16, 12], 5),        # small and ragged
+    (2, 70, 3, [30, 50, 7], 33),        # several groups, ranks split over passes, odd widths
+    (2, 9, 4, [96], 3),                 # fe without hidden layers
+]
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.5])
+@pytest.mark.parametrize("sum_agg,self_loops,want_dists", [
+    (True, True, False), (False, False, True), (True, False, False), (False, True, True),
+])
+@pytest.mark.parametrize("b,n,c,widths,k", KNN_SHAPES)
+def test_knn_fused_layer_kernel_matches_plain(dev, b, n, c, widths, k, sum_agg, self_loops,
+                                              want_dists, dropout_p):
+    d = _knn_inputs(dev, b, n, c, widths, k, seed=n)
+    args = (d["xs"], d["xf"], d["u1"], d["u2m"], d["w_d"] if want_dists else None, d["hidden"],
+            k, self_loops, want_dists, 0.2, sum_agg, dropout_p, 31337)
+    before = dict(mk.launch_counts)
+    out, idx, dists = kk.knn_fused_layer(*args, True)
+    out_eval, no_idx, no_dists = kk.knn_fused_layer(*args)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["knn_fused_layer_train"] == before["knn_fused_layer_train"] + 1
+    assert mk.launch_counts["knn_fused_layer"] == before["knn_fused_layer"] + 1
+    assert no_idx is None and no_dists is None and torch.equal(out, out_eval)
+    ref, idx_ref, dists_ref = kk.knn_fused_layer_reference(*args, True)
+    # the kernel builds the plain version's keys bit for bit: no row may differ
+    agree, differing, bad = kk.compare_neighbours(idx, idx_ref, kk.knn_keys(d["xs"], d["xf"]),
+                                                  d["mask"])
+    assert differing == 0 and bad == 0 and torch.equal(idx, idx_ref)
+    torch.testing.assert_close(out, ref, **TOL)
+    if want_dists:
+        live = torch.gather(d["mask"][:, None, :, 0].expand(-1, n, -1), 2, idx.long()) > 0
+        torch.testing.assert_close(dists[live], dists_ref[live], **TOL)
+    else:
+        assert dists is None
+
+
+@pytest.mark.parametrize("need_wgrads", [True, False])
+@pytest.mark.parametrize("dropout_p", [0.0, 0.5])
+@pytest.mark.parametrize("sum_agg,want_dists", [(True, False), (False, True)])
+@pytest.mark.parametrize("b,n,c,widths,k", KNN_SHAPES)
+def test_knn_edge_aggregate_bwd_kernel_matches_plain(dev, b, n, c, widths, k, sum_agg,
+                                                     want_dists, dropout_p, need_wgrads):
+    d = _knn_inputs(dev, b, n, c, widths, k, seed=n + 1)
+    idx = kk.knn_select_reference(d["xs"], d["xf"], k, True)
+    dists = kk._edge_dists(d["xs"], d["xf"], idx)[0] if want_dists else None
+    args = (d["u1"], d["u2m"], idx, dists, d["w_d"] if want_dists else None, d["hidden"], d["g"],
+            0.2, sum_agg, dropout_p, 4242, need_wgrads)
+    name = "knn_edge_aggregate_bwd" if need_wgrads else "knn_edge_aggregate_bwd_no_wgrads"
+    before = mk.launch_counts[name]
+    out = kk.knn_edge_aggregate_bwd(*args)
+    again = kk.knn_edge_aggregate_bwd(*args)
+    torch.cuda.synchronize()
+    assert mk.launch_counts[name] == before + 2
+    ref = kk.knn_edge_aggregate_bwd_reference(*args)
+    for o, r in zip(out[:2], ref[:2]):
+        torch.testing.assert_close(o, r, **TOL)
+    # dmask of a masked sender sums activations at the scale of its pushed-away
+    # distance (1e4 with dists), with cancellation: the weight gradients' bound
+    real = d["mask"] > 0
+    torch.testing.assert_close(out[2][real], ref[2][real], **TOL)
+    if (~real).any():
+        _assert_wgrad_close(out[2][~real], ref[2][~real])
+    if want_dists:
+        torch.testing.assert_close(out[3], ref[3], **TOL)
+        _assert_wgrad_close(out[4], ref[4])
+    else:
+        assert out[3] is None and out[4] is None
+    for o, r in zip(out[5], ref[5]):
+        _assert_wgrad_close(o, r)
+        if not need_wgrads:
+            assert not o.any()
+    # the sender scatter and the sums across CTAs are in a fixed order
+    flat = lambda res: [t for t in (*res[:5], *res[5]) if t is not None]  # noqa: E731
+    for x, y in zip(flat(out), flat(again)):
+        assert torch.equal(x, y)
+
+
+def test_knn_fused_layer_function_grads_match_plain_on_the_card(dev):
+    d = _knn_inputs(dev, 4, 150, 32, [96, 160, 192], 20, seed=9)
+
+    def grads(kernel):
+        ins = [d[key].clone().requires_grad_() for key in ("xs", "xf", "u1", "u2m", "w_d")]
+        hidden = [t.clone().requires_grad_() for t in d["hidden"]]
+        if kernel:
+            out = kk.KnnFusedLayer.apply(*ins, 20, True, True, 0.2, True, 0.5, 99, *hidden)
+        else:
+            idx = kk.knn_select_reference(ins[0], ins[1], 20, True)
+            dists = kk._edge_dists(ins[0], ins[1], idx)[0]
+            acts, smask = kk._knn_chain(ins[2], ins[3], idx, dists, ins[4], hidden, 0.2, 0.5,
+                                        99)[1::2]
+            out = (acts[-1] * smask).sum(dim=2)
+        (out * d["g"]).sum().backward()
+        return [t.grad for t in ins], [t.grad for t in hidden]
+
+    (kin, kw), (pin, pw) = grads(True), grads(False)
+    for x, y in zip(kin[2:4], pin[2:4]):
+        torch.testing.assert_close(x, y, **TOL)
+    # masked senders sit 1e4 out: their distance gradient is that much larger
+    for x, y in zip(kin[:2], pin[:2]):
+        scale = y.abs().clamp_min(1.0)
+        torch.testing.assert_close(x / scale, y / scale, **TOL)
+    for x, y in zip([kin[4]] + kw, [pin[4]] + pw):
+        _assert_wgrad_close(x, y)
+
+
+def test_knn_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    d = _knn_inputs(dev, 2, 13, 8, [24, 16, 12], 5, seed=1)
+    fwd = lambda **kw: kk.knn_fused_layer(**{**dict(  # noqa: E731
+        xs=d["xs"], xf=d["xf"], u1=d["u1"], u2m=d["u2m"], w_d=None, hidden_flat=d["hidden"], k=5,
+        self_loops=True, want_dists=False, alpha=0.2, sum_agg=True), **kw})
+    with pytest.raises(TypeError, match="float32"):
+        fwd(xs=d["xs"].double(), xf=d["xf"].double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(u2m=torch.cat([d["u2m"], d["u2m"]], dim=-1)[..., :25])
+    with pytest.raises(ValueError, match="exceeds the 13 available senders"):
+        fwd(k=13, self_loops=False)
+    idx = kk.knn_select_reference(d["xs"], d["xf"], 5, True)
+    with pytest.raises(ValueError, match="alpha"):
+        kk.knn_edge_aggregate_bwd(d["u1"], d["u2m"], idx, None, None, d["hidden"], d["g"], 0.0,
+                                  True)
+    with pytest.raises(ValueError, match="contiguous"):
+        kk.knn_edge_aggregate_bwd(d["u1"], d["u2m"], idx.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), None, None, d["hidden"], d["g"], 0.2, True)
+
+
+KNN150 = {"model": "mpgan", "num_hits": 150, "fully_connected": False, "num_knn": 20}
+
+
+def test_knn_generator_kernel_path_matches_its_plain_versions(dev):
+    """The 150-particle knn-20 generator on the card against the same path
+    through the kernels' plain versions on the CPU: same keys, same neighbours."""
+    cfg = build_mpgan_generator(from_args_dict(KNN150))
+    g = MPGenerator(cfg, torch.Generator().manual_seed(0))
+    noise = torch.randn(4, 150, 32, generator=torch.Generator().manual_seed(1)) * 0.2
+    labels = torch.tensor([[1.0], [0.4], [0.1], [0.02]])
+    with torch.inference_mode():
+        g.cfg = dataclasses.replace(cfg, use_kernels=True)
+        y_cpu = g(noise, labels)
+        g.cfg = cfg
+        mk.reset_launch_counts()
+        y_card = g.to(dev)(noise.to(dev), labels.to(dev))
+    assert mk.launch_counts["knn_fused_layer"] == 2
+    torch.testing.assert_close(y_card.cpu(), y_cpu, **TOL)
+    assert torch.equal(y_card.cpu()[..., -1], y_cpu[..., -1])
+
+
+def test_knn_discriminator_backward_launches_k6(dev):
+    """D in train mode: K5 emitting idx, then K6 with the weight contractions;
+    with D's parameters frozen (the G step), K6 without them."""
+    d = MPDiscriminator(build_mpgan_discriminator(from_args_dict(KNN150)),
+                        torch.Generator().manual_seed(0), device=dev)
+    x = torch.randn(4, 150, 4, device=dev) * 0.3
+    x[..., -1] = (torch.rand(4, 150, device=dev) > 0.3).float() - 0.5
+    x.requires_grad_()
+    for frozen, name in ((False, "knn_edge_aggregate_bwd"),
+                         (True, "knn_edge_aggregate_bwd_no_wgrads")):
+        d.requires_grad_(not frozen)
+        mk.reset_launch_counts()
+        out = d(x, None, train=True, rng=GeneratorKeys(torch.Generator().manual_seed(1)))
+        out.sum().backward()
+        torch.cuda.synchronize()
+        assert mk.launch_counts["knn_fused_layer_train"] == 2
+        assert mk.launch_counts[name] == 2
+        assert sum(mk.launch_counts.values()) == 4
+        assert torch.isfinite(x.grad).all()

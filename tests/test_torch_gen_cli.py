@@ -90,6 +90,39 @@ def test_reference_pt_loads_equally_in_jax_and_port(tiny_card):
     np.testing.assert_array_equal(yt[..., -1], np.asarray(yj)[..., -1])
 
 
+KNN_CARD = dict(CARD, fully_connected=False, num_knn=4, pos_diffs=True, deltar=True)
+
+
+def test_knn_reference_pt_loads_equally_in_jax_and_port_and_runs_through_gen(tmp_path):
+    """A knn generator (fe layer 1 one column wider for the distance feature):
+    its reference ``.pt`` gives the same jets in both packages, and ``gen``
+    samples from it."""
+    args = tconfig.from_args_dict(KNN_CARD)
+    tcfg = tconfig.build_mpgan_generator(args)
+    g0 = MPGenerator(tcfg, torch.Generator().manual_seed(2))
+    assert g0.mp_layers[0].fe.net[0].module.weight_bar.shape[1] == 2 * 8 + 1
+    pt = tmp_path / "G.pt"
+    torch.save(mp_generator_to_reference_sd(g0), pt)
+    jcfg = jconfig.build_mpgan_generator(jconfig.from_args_dict(KNN_CARD))
+    params, state = mp_generator_from_torch(load_torch_state_dict(str(pt)), jcfg)
+    g = MPGenerator(tcfg)
+    g.load_state_dict(load_reference_state_dict(str(pt)), strict=True)
+
+    rng = np.random.RandomState(0)
+    noise = (rng.randn(5, 12, 8) * 0.2).astype(np.float32)
+    labels = (rng.randint(6, 13, size=5) / 12)[:, None].astype(np.float32)
+    yj, _ = mp_generator_apply(jcfg, params, state, jnp.asarray(noise), jnp.asarray(labels))
+    with torch.inference_mode():
+        yt = g(torch.from_numpy(noise), torch.from_numpy(labels)).numpy()
+    np.testing.assert_allclose(yt, np.asarray(yj), rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(yt[..., -1], np.asarray(yj)[..., -1])
+
+    card = tmp_path / "card.txt"
+    card.write_text(repr(args.to_dict()))
+    jets = _run(card, pt, tmp_path / "knn.npy")
+    assert jets.shape == (10, 12, 3) and np.isfinite(jets).all()
+
+
 def test_generate_is_one_batch_of_generate_multi_batch(tiny_card):
     _, _, g = tiny_card
     spec = noise_spec("mpgan", {"latent_node_size": 8}, 12)

@@ -222,6 +222,12 @@ def test_edge_feature_checks_raise_like_jax(mp_args):
     ({"fully_connected": False}, {"train": True}, "knn"),
 ])
 def test_unported_paths_raise(mp_args, kw, match):
+    """No path of the layer is left unported: the knn layer, once refused with
+    ``NotImplementedError``, runs (``tests/test_torch_knn.py`` holds it against
+    JAX). What it still refuses is a cloud with fewer senders than ``num_knn``
+    (default 20), as the JAX package's search does."""
     _, _, _, layer = _layers(4, [8], [8], 4, **mp_args)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         tmp.mp_layer_apply(layer, torch.zeros(1, 6, 4), **kw)
+    y = tmp.mp_layer_apply(layer, torch.zeros(1, 20, 4), **kw)
+    assert y.shape == (1, 20, 4) and torch.isfinite(y).all()

@@ -212,8 +212,53 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, flags, match):
 
 
 def test_trainer_knn_layer_is_refused_at_the_first_step(tmp_path):
+    """The default ``--num-knn 10`` on an 8-particle cloud: more neighbours
+    than senders, refused by the layer (the knn layer itself is ported, see
+    the knn run below)."""
     args = targs_cli.parse_cli(["--name", "k", "--dir-path", str(tmp_path), *TINY,
                                 "--no-fully-connected", "--num-epochs", "1"])
     train, valid = _datasets(args)
-    with pytest.raises(NotImplementedError, match="knn"):
+    with pytest.raises(ValueError, match="knn"):
         Trainer(args, train, valid, device="cpu").train()
+
+
+@pytest.mark.parametrize("extra", [[], ["--pos-diffs", "--deltar", "--no-self-loops"]])
+def test_train_cli_tiny_knn_run_trains_and_resumes(tmp_path, extra):
+    argv = ["--device", "cpu", "--name", "knn", "--dir-path", str(tmp_path), *TINY,
+            "--no-fully-connected", "--num-knn", "3", *extra]
+    t1 = ttrain_cli.main(argv + ["--num-epochs", "2", "--save-epochs", "2"])
+    assert all(not c.fully_connected and c.num_knn == 3 for c in t1.state.d.cfg.layers)
+    assert np.isfinite(t1.losses["G"]).all() and len(t1.losses["w1m"]) == 1
+    t2 = ttrain_cli.main(argv + ["--num-epochs", "3", "--save-epochs", "2"])
+    assert t2.start_epoch == 2 and len(t2.losses["G"]) == 3
+    assert np.isfinite(t2.losses["G"]).all() and np.isfinite(t2.losses["D"]).all()
+    np.testing.assert_array_equal(t1.losses["G"], t2.losses["G"][:2])
+
+
+KNN_CARD = dict(CARD, fully_connected=False, num_knn=3, pos_diffs=True, deltar=True)
+
+
+def test_knn_checkpoint_moves_between_the_packages(tmp_path):
+    """A knn-20-style G and D (fe layer 1 one column wider under ``pos_diffs``):
+    the port's checkpoint loads in JAX, and a JAX checkpoint resumes in the port."""
+    trainer = _trainer(tmp_path, dict(KNN_CARD, num_epochs=1, save_epochs=1))
+    assert trainer.state.d.mp_layers[1].fe.net[0].module.weight_bar.shape[1] == 2 * 8 + 1
+    trainer.train()
+    template = _jax_state(KNN_CARD)
+    loaded = jckpt.load_train_state(tckpt.checkpoint_path(trainer.models_dir, 1), template)
+    st = trainer.state
+    ref = (jax_leaves(st.g, True) + jax_leaves(st.g, False)
+           + jax_leaves(st.d, True) + jax_leaves(st.d, False))
+    for a, b in zip(jax.tree.leaves(loaded), ref):
+        np.testing.assert_array_equal(np.asarray(a), b.detach().numpy())
+
+    jstate = _jax_state(dict(KNN_CARD, name="jk"), seed=5)
+    models = tmp_path / "jk" / "models"
+    models.mkdir(parents=True)
+    jckpt.save_train_state(jckpt.checkpoint_path(models, 1), jstate)
+    resumed = _trainer(tmp_path, dict(KNN_CARD, name="jk", num_epochs=2, save_epochs=2))
+    assert resumed.start_epoch == 1
+    for a, b in zip(tckpt.train_state_leaves(resumed.state)[:-1], jax.tree.leaves(jstate)[:-1]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    resumed.train()
+    assert np.isfinite(resumed.losses["D"]).all() and len(resumed.losses["G"]) == 1

@@ -47,6 +47,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 NARROW = {"model": "mpgan", "num_hits": 10, "hidden_node_size": 8, "fe": [12, 16], "fn": [16]}
+# the 150-particle knn-20 mode at small size: knn layers, self loops, no distance feature
+KNN = dict(NARROW, fully_connected=False, num_knn=4)
 
 
 def _np(tree):
@@ -90,8 +92,27 @@ def test_discriminator_matches_jax(train, use_pallas, extra):
     np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), **FWD_TOL)
 
 
-def test_discriminator_config_pins_gp_configs_to_the_plain_path():
-    card = dict(NARROW, gp=10.0, use_pallas=True)
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("extra", [{}, {"pos_diffs": True, "deltar": True, "self_loops": False}])
+def test_knn_discriminator_matches_jax(train, use_pallas, extra):
+    card = dict(KNN, **extra)
+    jcfg, params, state, d = _disc_pair(card)
+    assert not d.cfg.layers[0].fully_connected and d.cfg.layers[0].num_knn == 4
+    data, labels = _batch(card, 4)
+    key = jax.random.PRNGKey(5)
+    yj, _ = mp_discriminator_apply(dataclasses.replace(jcfg, use_pallas=use_pallas), params, state,
+                                   jnp.asarray(data), jnp.asarray(labels), train=train,
+                                   rng=key if train else None)
+    d.cfg = dataclasses.replace(d.cfg, use_kernels=use_pallas)
+    yt = d(torch.from_numpy(data), torch.from_numpy(labels), train=train,
+           rng=JaxKeys(key) if train else None)
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), **FWD_TOL)
+
+
+@pytest.mark.parametrize("card", [NARROW, KNN], ids=["dense", "knn"])
+def test_discriminator_config_pins_gp_configs_to_the_plain_path(card):
+    card = dict(card, gp=10.0, use_pallas=True)
     assert tconfig.build_mpgan_discriminator(tconfig.from_args_dict(card)).use_kernels is False
     assert jconfig.build_mpgan_discriminator(jconfig.from_args_dict(card)).use_pallas is False
 
@@ -145,8 +166,19 @@ def _compare_update(t_params, j_old, j_new, j_grads, lr):
 
 @pytest.mark.parametrize("use_pallas", [True, False])
 def test_d_step_and_g_step_match_jax(use_pallas):
-    (gcfg, dcfg, spec, jstate, d_step, g_step), (tstate, tspec) = _step_pair(NARROW, use_pallas)
-    data, labels = _batch(NARROW, 4)
+    _check_steps_match_jax(NARROW, use_pallas)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_knn_d_step_and_g_step_match_jax(use_pallas):
+    """One D+G step of a knn MPGAN: with ``use_pallas`` the JAX side runs K5
+    and K6 in interpret mode, the port their plain versions."""
+    _check_steps_match_jax(KNN, use_pallas)
+
+
+def _check_steps_match_jax(card, use_pallas):
+    (gcfg, dcfg, spec, jstate, d_step, g_step), (tstate, tspec) = _step_pair(card, use_pallas)
+    data, labels = _batch(card, 4)
     jd, jl = jnp.asarray(data), jnp.asarray(labels)
     td, tl = torch.from_numpy(data), torch.from_numpy(labels)
 
