@@ -70,11 +70,42 @@ Phases, each printed as it finishes:
     B=512, train B=160) and K6 (B=160, with and without weight gradients)
     beside their plain versions.
 
+16. the fused GAPT generator kernel (K9) against its plain version at the
+    default width (N=30 E=64, 4 heads, 4 layers): masked B=1024, unmasked, an odd
+    B=37, and N=150 B=128; rtol = atol = 1e-4, the mask column bit-identical;
+17. the GAPT generation path: 50,000 default GAPT jets through the ``gen`` CLI
+    from a ``.pt`` written here (random weights from a seed), the K9 launch
+    count equal to the number of batches; 8,192 jets through
+    ``generate_multi_batch`` at B=1024 on the kernel route and on the plain
+    route, the two held against each other;
+18. one GAPT D step and one G step at B=16 on the card against the same step on
+    the CPU from the same state, batch, noise and dropout keys (D dropout 0.5 on
+    the kernel route): 1e-4 on losses and gradients;
+19. the GAPT train path: ``mpgan_tpu_torch.cli.train --model gapt`` at its
+    default batch (512) on synthetic jets, 2 epochs, a resume that restores the
+    state exactly, a 3rd epoch, and the K9 launch count equal to the prediction
+    (one per D step, for its fake batch, and one per evaluation batch);
+20. GAPT timings (CUDA events, best of 3): generation at B=1024 and B=4096 in
+    jets/s, kernel route and plain route in turns; the D+G step at B=512; K9
+    beside its bound; ``F.scaled_dot_product_attention`` on the same
+    ``[B, H, N, hd]`` as a yardstick of the attention stage alone (the port never
+    calls it); a ``torch.profiler`` breakdown of three GAPT steps;
+21. the split knn route at B=160 N=150 k=20 (published widths): K7's ``idx``
+    equal to K5's and to the plain version's in every row, its distances within
+    1e-4; K8 against its plain version and against K5 on the same inputs (bit
+    for bit, reported), eval and dropout 0.5; K8 -> K6 gradients through the
+    autograd Function against the plain backward; then, with
+    ``MPGAN_TPU_KNN_KERNEL=3``, 1,024 knn-20 jets through ``generate_multi_batch``
+    at B=512 and D+G steps at B=128 (counters reset before, read after: K7, K8
+    and K6 must have launched, K5 not), timed beside route 4, and a
+    ``torch.profiler`` breakdown of the route-4 knn-20 step.
+
 Every kernel's entry in the JSON line carries its bound: the larger of its
 FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
 read once, outputs written once) over 3.35 TB/s, at the shape its ``ms`` was
 taken at. ``library_ms`` is null: no single PyTorch call computes any of these
-functions.
+functions (a search is a distance product and a top-k, the aggregates and the
+GAPT generator are chains of products).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -101,13 +132,18 @@ REPLACES = {
     "edge_aggregate_fn": "mpgan_tpu/ops/mp_pallas.py:965",
     "edge_aggregate_bwd": "mpgan_tpu/ops/mp_pallas.py:709",
     "knn_fused_layer": "mpgan_tpu/ops/knn_pallas.py:2023",
-    "knn_edge_aggregate_bwd": "mpgan_tpu/ops/knn_pallas.py:1549",
+    "knn_edge_aggregate_bwd": "mpgan_tpu/ops/knn_pallas.py:1549 (also :686 and :1079)",
+    "knn_search": "mpgan_tpu/ops/knn_pallas.py:126 (knn_select) and :259 (_select_nm_impl)",
+    "knn_edge_aggregate": "mpgan_tpu/ops/knn_pallas.py:623 (_fwd_impl), :1016 (_fwd_impl_v2) "
+                          "and :1480 (_fwd_impl_v3)",
+    "gapt_g_fused": "mpgan_tpu/ops/gapt_pallas.py:236",
 }
 K1 = "mpgan_tpu/ops/mp_pallas.py:80 (_dropmul, K1, a device function inside the kernel)"
 STEP_GFLOP = 679.0  # one flagship D+G step at B=256, N=30 (PERF.md)
 FE = [96, 160, 192]  # the published fe widths
 FN = [224, 256, 256]  # fn's input [agg | x] and hidden widths; the output width varies
 KNN150 = {**FLAGSHIP, "num_hits": 150, "fully_connected": False, "num_knn": 20}
+GAPT = {"model": "gapt", "jets": "g", "num_hits": 30}
 MAX_DIFFERING_SHARE = 0.01  # receiver rows whose neighbours may differ at near-ties
 # a knn step on the card against the CPU: the two round a layer's inputs otherwise, so a
 # few of the step's ~20,000 receiver rows swap two near-tied neighbours and with them
@@ -256,15 +292,15 @@ def train_kernel_checks(mk, dev):
 
 
 def make_state(args, device, seed=0):
-    """A flagship TrainState: weights drawn from a seeded CPU generator, then moved."""
-    from mpgan_tpu_torch.models.mpgan import MPDiscriminator, MPGenerator
-    from mpgan_tpu_torch.training.config import build_mpgan_discriminator, build_mpgan_generator
+    """A TrainState of the args' model: weights drawn from a seeded CPU generator, then moved."""
+    from mpgan_tpu_torch.models.registry import build_suite
     from mpgan_tpu_torch.training.optimizers import build_optimizer
     from mpgan_tpu_torch.training.train_step import TrainState
 
+    suite = build_suite(args)
     gen = torch.Generator().manual_seed(seed)
-    g = MPGenerator(build_mpgan_generator(args), gen, device=device)
-    d = MPDiscriminator(build_mpgan_discriminator(args), gen, device=device)
+    g = suite.generator(gen, device=device)
+    d = suite.discriminator(gen, device=device)
     return TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), args.lr_gen),
                       build_optimizer(args.optimizer, d.parameters(), args.lr_disc), gen)
 
@@ -275,11 +311,10 @@ def use_kernels(state, flag):
 
 
 def step_fn(state, args, data, labels):
-    from mpgan_tpu_torch.training.sampling import noise_spec
+    from mpgan_tpu_torch.models.registry import build_suite
     from mpgan_tpu_torch.training.train_step import StepConfig, d_step, g_step
 
-    spec = noise_spec("mpgan", {"latent_node_size": args.latent_node_size}, args.num_hits,
-                      args.sd)
+    spec = build_suite(args).noise
     cfg = StepConfig(loss=args.loss)
 
     def step():
@@ -387,6 +422,43 @@ def _leaves(state):
     return out
 
 
+def profile_steps(step, card, phase, **kv):
+    """Device-time breakdown of three steps: kernel rows only. CUDA activity
+    alone, since tracing every host op slows a host-bound step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # host issue time: the host's wall time to enqueue three steps after a sync
+    # (an upper bound: a full launch queue makes the host wait for the device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    host_issue_ms = (time.perf_counter() - t0) * 1e3 / 3
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s.record()
+        for _ in range(3):
+            step()
+        e.record()
+        torch.cuda.synchronize()
+    window_ms = s.elapsed_time(e) / 3  # the profiled steps' own wall time
+    rows = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt > 0 and ev.self_cpu_time_total == 0:
+            rows.append((dt / 1e3 / 3, ev.count // 3, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(phase, card=card, profiled_step_ms=window_ms, device_ms_per_step=busy,
+        idle_share=1 - busy / window_ms, host_issue_ms=host_issue_ms,
+        kernels_per_step=sum(r[1] for r in rows),
+        top=[{"name": k[:90], "ms": t, "share": t / busy, "calls": c} for t, c, k in rows[:14]],
+        **kv)
+
+
 def train_timings(mk, dev, from_args_dict, card):
     """Phase 10: the D+G step, K3 and K2-train against their plain versions; a profile."""
     args = from_args_dict(FLAGSHIP)
@@ -433,39 +505,7 @@ def train_timings(mk, dev, from_args_dict, card):
         **{k: {"shape": "B=256 N=30" if k.endswith("_30") else "B=32 N=150", "ms": v[0],
                "plain_ms": v[1]} for k, v in times.items()})
 
-    # device-time breakdown of three kernel-path steps: kernel rows only. CUDA
-    # activity alone, since tracing every host op slows the host-bound step
-    from torch.profiler import ProfilerActivity, profile
-
-    # host issue time: the host's wall time to enqueue three steps after a sync
-    # (an upper bound: a full launch queue makes the host wait for the device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        step()
-    host_issue_ms = (time.perf_counter() - t0) * 1e3 / 3
-    torch.cuda.synchronize()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        s.record()
-        for _ in range(3):
-            step()
-        e.record()
-        torch.cuda.synchronize()
-    window_ms = s.elapsed_time(e) / 3  # the profiled steps' own wall time
-    rows = []
-    for ev in prof.key_averages():
-        dt = getattr(ev, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(ev, "self_cuda_time_total", 0.0)
-        if dt > 0 and ev.self_cpu_time_total == 0:
-            rows.append((dt / 1e3 / 3, ev.count // 3, ev.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    log("train_step_profile", card=card, profiled_step_ms=window_ms, device_ms_per_step=busy,
-        idle_share=1 - busy / window_ms, host_issue_ms=host_issue_ms,
-        kernels_per_step=sum(r[1] for r in rows),
-        top=[{"name": k[:90], "ms": t, "share": t / busy, "calls": c} for t, c, k in rows[:14]])
+    profile_steps(step, card, "train_step_profile")
     return ms, times
 
 
@@ -725,6 +765,8 @@ def knn_timings(kk, dev, from_args_dict, card):
             ms[which] = min(ms[which], best_ms(run(which == "kernel"), inner=2))
     log("train_step_time", card=card, batch=128, n=150, knn=20, kernel_ms=ms["kernel"],
         plain_ms=ms["plain"])
+    use_kernels(st, True)
+    profile_steps(step, card, "knn_train_step_profile", batch=128, n=150, knn=20)
     del st, step
     torch.cuda.empty_cache()
 
@@ -767,6 +809,458 @@ def knn_timings(kk, dev, from_args_dict, card):
     return ms, times
 
 
+def gapt_flops(b, n, e, layers, feat):
+    """FLOP of the GAPT generator forward: per layer the qkv, out and ff
+    projections and the two attention products, then the final FC."""
+    per_layer = 2 * n * e * 3 * e + 4 * n * n * e + 2 * (2 * n * e * e)
+    return b * (layers * per_layer + 2 * n * e * feat)
+
+
+def gapt_kernel_inputs(dev, g, b, masked, seed):
+    cfg = g.cfg
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, cfg.num_particles, cfg.embed_dim, generator=gen, device=dev) * 0.2
+    mask = None
+    if masked:
+        counts = torch.randint(1, cfg.num_particles + 1, (b,), generator=gen, device=dev)
+        counts[0] = cfg.num_particles
+        mask = (torch.arange(cfg.num_particles, device=dev)[None, :]
+                < counts[:, None]).float()[..., None]
+    return x, mask
+
+
+def gapt_kernel_checks(gk, dev, from_args_dict):
+    """Phase 16: K9 against its plain version."""
+    from mpgan_tpu_torch.models.registry import build_suite
+
+    worst = 0.0
+    for n, b, masked in ((30, 1024, True), (30, 1024, False), (30, 37, True), (150, 128, True)):
+        g = build_suite(from_args_dict({**GAPT, "num_hits": n})).generator(
+            torch.Generator().manual_seed(n), device=dev)
+        x, mask = gapt_kernel_inputs(dev, g, b, masked, seed=b)
+        w = g.fused_weights()
+        with torch.no_grad():
+            out = gk.gapt_g_fused(x, mask, w, g.cfg.num_heads, 0.2)
+            torch.cuda.synchronize()
+            ref = gk.gapt_g_fused_reference(x, mask, w, g.cfg.num_heads, 0.2)
+        abs_err, rel_err, bad = errors(out, ref)
+        mask_equal = (not masked) or torch.equal(out[..., -1], ref[..., -1])
+        log("gapt_kernel_check", kernel="gapt_g_fused", b=b, n=n, e=g.cfg.embed_dim,
+            heads=g.cfg.num_heads, layers=g.cfg.sab_layers, masked=masked, max_abs_err=abs_err,
+            max_rel_err=rel_err, out_of_tol=bad, mask_column_bit_identical=mask_equal)
+        if bad or not mask_equal or out.shape != ref.shape or not torch.isfinite(out).all():
+            raise SystemExit(f"gapt_g_fused disagrees with its plain version at b={b} n={n} "
+                             f"masked={masked}")
+        worst = max(worst, abs_err)
+    return worst
+
+
+def gapt_generation(mk, gen_cli, dev, card, from_args_dict):
+    """Phase 17: 50,000 default GAPT jets through the gen CLI, and
+    ``generate_multi_batch`` on both routes."""
+    from mpgan_tpu_torch.data.jetnet import JetNetDataset
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training.sampling import generate_multi_batch
+    from mpgan_tpu_torch.utils.weights import gapt_generator_to_reference_sd
+
+    args = from_args_dict(GAPT)
+    suite = build_suite(args)
+    g_cpu = suite.generator(torch.Generator().manual_seed(5))
+    batch, total = 4096, 50000
+    mk.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "card.txt").write_text(repr(args.to_dict()))
+        torch.save(gapt_generator_to_reference_sd(g_cpu), tmp / "G.pt")
+        t0 = time.perf_counter()
+        gen_cli.main(["--g-args", str(tmp / "card.txt"), "--g-state", str(tmp / "G.pt"),
+                      "--output-file", str(tmp / "gen.npy"), "--device", "cuda", "--seed", "0",
+                      "--num-samples", str(total), "--batch-size", str(batch)])
+        wall = time.perf_counter() - t0
+        jets = np.load(tmp / "gen.npy")
+    launches = dict(mk.launch_counts)
+    ds = JetNetDataset("g", num_particles=30, split="valid")
+    labels = ds.jet_data[np.random.default_rng(0).choice(len(ds), size=total)]
+    counts = (labels[:, -1].astype(np.float32) * 30).astype(np.int32)
+    if jets.shape != (total, 30, 3) or not np.isfinite(jets).all():
+        raise SystemExit(f"GAPT gen output {jets.shape} is not finite ({total}, 30, 3)")
+    if not np.array_equal(np.any(jets != 0, axis=-1).sum(axis=1), counts) \
+            or (jets[:, :, 2] < 0).any():
+        raise SystemExit("GAPT gen output: masked particles not zero or negative pT")
+    batches = -(-total // batch)
+    log("main_path_gapt_gen", jets=list(jets.shape), wall_s=wall, batch=batch,
+        batches=batches, launches=launches)
+    if launches["gapt_g_fused"] != batches or sum(launches.values()) != batches:
+        raise SystemExit(f"GAPT generation launched K9 {launches['gapt_g_fused']} times over "
+                         f"{batches} batches (all launches: {launches})")
+
+    # generate_multi_batch at B=1024 on both routes, from the same noise
+    g = suite.generator(torch.Generator().manual_seed(5), device=dev)
+    lab = labels[:8192]
+    outs = {}
+    for route, flag in (("kernel", None), ("plain", False)):
+        g.cfg = dataclasses.replace(g.cfg, use_kernels=flag)
+        mk.reset_launch_counts()
+        outs[route] = generate_multi_batch(g, suite.noise,
+                                           torch.Generator(device=dev).manual_seed(1), 8192,
+                                           1024, labels=lab)
+        outs[route + "_launches"] = mk.launch_counts["gapt_g_fused"]
+    g.cfg = dataclasses.replace(g.cfg, use_kernels=None)
+    yk, yp = torch.from_numpy(outs["kernel"]), torch.from_numpy(outs["plain"])
+    abs_err, _, bad = errors(yk, yp)
+    log("gapt_generator_check", jets=list(yk.shape), batch=1024, max_abs_err=abs_err,
+        out_of_tol=bad, kernel_route_launches=outs["kernel_launches"],
+        plain_route_launches=outs["plain_launches"])
+    if bad or not torch.equal(yk[..., -1], yp[..., -1]) or yk.shape != (8192, 30, 4):
+        raise SystemExit("GAPT generator: kernel route disagrees with the plain route")
+    if outs["kernel_launches"] != 8 or outs["plain_launches"] != 0:
+        raise SystemExit("GAPT generate_multi_batch: K9 launch counts are not 8 and 0")
+    if not np.array_equal((outs["kernel"][..., -1] + 0.5).sum(1),
+                          (lab[:, -1].astype(np.float32) * 30).astype(np.int32)):
+        raise SystemExit("GAPT mask counts disagree with the labels")
+    return launches["gapt_g_fused"] + outs["kernel_launches"]
+
+
+def gapt_train_path(mk, train_cli, tmp):
+    """Phase 19: the train CLI on default GAPT at batch 512: 2 epochs, a resume
+    that restores the state, a 3rd epoch; K9 launches as predicted."""
+    argv = ["--device", "cuda", "--name", "gapt", "--model", "gapt", "--jets", "g",
+            "--dir-path", str(tmp), "--num-samples", "10000", "--eval-tot-samples", "2000",
+            "--w1-num-samples", "1000", "--save-model-epochs", "1", "--save-epochs", "2"]
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    t1 = train_cli.main(argv + ["--num-epochs", "2"])
+    wall = time.perf_counter() - t0
+    models = tmp / "gapt" / "models"
+    files = sorted(p.name for p in models.iterdir())
+    before = [t.detach().cpu().clone() for t in _leaves(t1.state)]
+    rng_before = t1.state.generator.get_state()
+    t2 = train_cli.main(argv + ["--num-epochs", "2"])  # resume, no epoch to run
+    after = [t.detach().cpu() for t in _leaves(t2.state)]
+    restored = (t2.start_epoch == 2 and len(before) == len(after)
+                and all(torch.equal(a, b) for a, b in zip(before, after))
+                and torch.equal(t2.state.generator.get_state(), rng_before))
+    t3 = train_cli.main(argv + ["--num-epochs", "3"])
+    counts = dict(mk.launch_counts)
+    batch = t1.args.batch_size
+    steps = 3 * (len(t1.train_dataset) // batch)
+    eval_batches = -(-min(t1.args.eval_tot_samples, len(t1.valid_dataset)) // batch)
+    # the D step's fake batch comes from G in eval mode: one K9 launch a step; the
+    # evaluation at epoch 2 generates eval_batches batches; G in train mode and D
+    # take the plain path
+    predicted = steps + eval_batches
+    losses = {k: t3.losses[k] for k in ("Dr", "Df", "D", "G")}
+    finite = all(np.isfinite(v).all() for v in losses.values()) and \
+        all(np.isfinite(np.asarray(t3.losses[k])).all() for k in ("w1p", "w1m"))
+    log("main_path_train_gapt", wall_s_2_epochs=wall, batch=batch, steps=steps,
+        eval_batches=eval_batches, checkpoints=files, resumed_from=t2.start_epoch,
+        state_restored=restored, epochs=len(t3.losses["G"]), losses=losses,
+        w1m=t3.losses["w1m"], launches=counts, predicted_gapt_g_fused=predicted)
+    if batch != 512 or type(t1.state.g).__name__ != "GAPTGenerator" \
+            or type(t1.state.d).__name__ != "GAPTDiscriminator":
+        raise SystemExit("GAPT train CLI did not build the default GAPT at batch 512")
+    if files != ["state_1.npz", "state_2.npz"] or not (models / "state_3.npz").exists() \
+            or not restored:
+        raise SystemExit(f"GAPT train CLI: checkpoints {files}, state restored: {restored}")
+    if not finite or len(t3.losses["G"]) != 3 or t3.losses["G"][:2] != t1.losses["G"]:
+        raise SystemExit(f"GAPT train CLI losses not finite or not resumed: {losses}")
+    if counts["gapt_g_fused"] != predicted or sum(counts.values()) != predicted:
+        raise SystemExit(f"GAPT train path launched {counts}, predicted gapt_g_fused "
+                         f"{predicted} and nothing else")
+    return counts["gapt_g_fused"]
+
+
+def gapt_timings(gk, dev, from_args_dict, card):
+    """Phase 20: GAPT generation and step times, K9 beside its bound."""
+    import torch.nn.functional as F
+
+    from mpgan_tpu_torch.models.registry import build_suite
+
+    args = from_args_dict(GAPT)
+    suite = build_suite(args)
+    g = suite.generator(torch.Generator().manual_seed(5), device=dev)
+    cfg = g.cfg
+    rates = {}
+    for b in (1024, 4096):
+        noise = torch.randn(b, 30, cfg.embed_dim, device=dev) * 0.2
+        lab = torch.as_tensor(
+            (np.random.default_rng(b).integers(1, 31, size=(b, 1)) / 30).astype(np.float32),
+            device=dev)
+
+        def run(flag):
+            def f():
+                g.cfg = dataclasses.replace(cfg, use_kernels=flag)
+                with torch.inference_mode():
+                    g(noise, lab)
+            return f
+
+        ms = {"kernel": float("inf"), "plain": float("inf")}
+        for order in (("plain", "kernel"), ("kernel", "plain")):
+            for which in order:
+                ms[which] = min(ms[which], best_ms(run(None if which == "kernel" else False)))
+        rates[b] = ms
+        log("generation_rate", card=card, model="gapt", n=30, batch=b, kernel_ms=ms["kernel"],
+            plain_ms=ms["plain"], kernel_jets_per_s=b / ms["kernel"] * 1e3,
+            plain_jets_per_s=b / ms["plain"] * 1e3)
+    g.cfg = cfg
+
+    # K9 alone at the main path's shapes, beside its plain version and its bound
+    times = {}
+    w = g.fused_weights()
+    for b in (1024, 4096):
+        x, mask = gapt_kernel_inputs(dev, g, b, True, seed=b + 1)
+        with torch.no_grad():
+            out = gk.gapt_g_fused(x, mask, w, cfg.num_heads, 0.2)
+            times[b] = dict(
+                shape=f"B={b} N=30 E=64 H=4 L=4 masked",
+                ms=best_ms(lambda: gk.gapt_g_fused(x, mask, w, cfg.num_heads, 0.2)),
+                plain_ms=best_ms(lambda: gk.gapt_g_fused_reference(x, mask, w, cfg.num_heads,
+                                                                   0.2)),
+                **bound(gapt_flops(b, 30, cfg.embed_dim, cfg.sab_layers, cfg.feat_size),
+                        nbytes(x, mask, out, *w)))
+        # the attention stage alone through the library, as a yardstick: the port never calls it
+        hd = cfg.embed_dim // cfg.num_heads
+        q, k, v = (torch.randn(b, cfg.num_heads, 30, hd, device=dev) for _ in range(3))
+        times[b]["sdpa_attention_stage_ms_per_layer"] = best_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v))
+    g150 = build_suite(from_args_dict({**GAPT, "num_hits": 150})).generator(
+        torch.Generator().manual_seed(6), device=dev)
+    x, mask = gapt_kernel_inputs(dev, g150, 512, True, seed=3)
+    w150 = g150.fused_weights()
+    with torch.no_grad():
+        out = gk.gapt_g_fused(x, mask, w150, 4, 0.2)
+        times[150] = dict(
+            shape="B=512 N=150 E=64 H=4 L=4 masked",
+            ms=best_ms(lambda: gk.gapt_g_fused(x, mask, w150, 4, 0.2), inner=1),
+            plain_ms=best_ms(lambda: gk.gapt_g_fused_reference(x, mask, w150, 4, 0.2), inner=1),
+            **bound(gapt_flops(512, 150, 64, 4, 3), nbytes(x, mask, out, *w150)))
+    log("gapt_kernel_times", card=card, **{f"b{k}" if k != 150 else "n150": v
+                                          for k, v in times.items()})
+    del x, mask, out, g150
+
+    # the D+G step at the default batch
+    data, labels = (t.to(dev) for t in real_batch(512))
+    st = make_state(args, dev)
+    step = step_fn(st, args, data, labels)
+
+    def run_step(flag):
+        def f():
+            use_kernels(st, flag)
+            step()
+        return f
+
+    step_ms = {"kernel": float("inf"), "plain": float("inf")}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for which in order:
+            step_ms[which] = min(step_ms[which],
+                                 best_ms(run_step(None if which == "kernel" else False), inner=2))
+    use_kernels(st, None)
+    log("train_step_time", card=card, model="gapt", batch=512, n=30,
+        kernel_ms=step_ms["kernel"], plain_ms=step_ms["plain"])
+    profile_steps(step, card, "gapt_train_step_profile", batch=512, n=30)
+    return rates, times, step_ms
+
+
+def set_knn_route(kernel=None, select=None):
+    """Set or clear the two variables the knn layer reads at call time."""
+    import os
+
+    for name, value in (("MPGAN_TPU_KNN_KERNEL", kernel), ("MPGAN_TPU_KNN_SELECT", select)):
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
+
+
+def knn_split_checks(kk, dev):
+    """Phase 21, first half: K7 and K8 against their plain versions and K5, and
+    K8 -> K6 gradients against the plain backward, at the published widths."""
+    b, n, c, k = 160, 150, 32, 20
+    d = knn_inputs(dev, b, n, c, FE, k, seed=21)
+    err = {"knn_search": 0.0, "knn_edge_aggregate": 0.0}
+    for self_loops, pos_diffs, sum_agg in ((True, False, True), (False, True, False)):
+        w_d = d["w_d"] if pos_diffs else None
+        idx, dists = kk.knn_search(d["xs"], d["xf"], k, self_loops, pos_diffs)
+        idx_ref, dists_ref = kk.knn_search_reference(d["xs"], d["xf"], k, self_loops, pos_diffs)
+        _, idx5, dists5 = kk.knn_fused_layer(d["xs"], d["xf"], d["u1"], d["u2m"], w_d,
+                                             d["hidden"], k, self_loops, pos_diffs, 0.2, sum_agg,
+                                             0.0, 0, True)
+        torch.cuda.synchronize()
+        rows_plain = int((idx != idx_ref).any(dim=-1).sum())
+        rows_k5 = int((idx != idx5).any(dim=-1).sum())
+        dist_err, dist_bad, dists_equal_k5 = 0.0, 0, True
+        if pos_diffs:
+            live = torch.gather(d["mask"][:, None, :, 0].expand(-1, n, -1), 2, idx.long()) > 0
+            dist_err, _, dist_bad = errors(dists[live], dists_ref[live])
+            dists_equal_k5 = torch.equal(dists, dists5)
+        log("knn_split_check", kernel="knn_search", b=b, n=n, k=k, self_loops=self_loops,
+            want_dists=pos_diffs, rows_differing_from_plain=rows_plain,
+            rows_differing_from_k5=rows_k5, max_abs_err_dists=dist_err,
+            dists_out_of_tol=dist_bad, dists_bit_identical_to_k5=dists_equal_k5)
+        if rows_plain or rows_k5 or dist_bad or not dists_equal_k5:
+            raise SystemExit(f"knn_search disagrees at self_loops={self_loops} "
+                             f"dists={pos_diffs}")
+        err["knn_search"] = max(err["knn_search"], dist_err)
+        for p in (0.0, 0.5):
+            agg = (d["u1"], d["u2m"], idx, dists, w_d, d["hidden"], 0.2, sum_agg, p, 123457)
+            out = kk.knn_edge_aggregate(*agg)
+            ref = kk.knn_edge_aggregate_reference(*agg)
+            out5 = kk.knn_fused_layer(d["xs"], d["xf"], d["u1"], d["u2m"], w_d, d["hidden"], k,
+                                      self_loops, pos_diffs, 0.2, sum_agg, p, 123457)[0]
+            torch.cuda.synchronize()
+            abs_err, _, bad = errors(out, ref)
+            same = torch.equal(out, out5)
+            log("knn_split_check", kernel="knn_edge_aggregate", b=b, n=n, k=k, dropout=p,
+                sum_agg=sum_agg, pos_diffs=pos_diffs, max_abs_err=abs_err, out_of_tol=bad,
+                bit_identical_to_k5=same)
+            if bad or not same:
+                raise SystemExit(f"knn_edge_aggregate disagrees at p={p} sum={sum_agg} "
+                                 f"dists={pos_diffs}")
+            err["knn_edge_aggregate"] = max(err["knn_edge_aggregate"], abs_err)
+
+            # K8 -> K6 through the Function against autograd through the plain chain
+            def grads(kernel):
+                ins = [d[key].clone().requires_grad_() for key in ("u1", "u2m")]
+                wd = None if w_d is None else w_d.clone().requires_grad_()
+                dd = None if dists is None else dists.clone().requires_grad_()
+                hidden = [t.clone().requires_grad_() for t in d["hidden"]]
+                if kernel:
+                    o = kk.KnnEdgeAggregate.apply(*ins, idx, dd, wd, 0.2, sum_agg, p, 123457,
+                                                  *hidden)
+                else:
+                    o = kk.knn_edge_aggregate_reference(*ins, idx, dd, wd, hidden, 0.2, sum_agg,
+                                                        p, 123457)
+                (o * d["g"]).sum().backward()
+                return [t.grad for t in ins] + ([dd.grad] if dd is not None else []), \
+                    [t.grad for t in hidden] + ([wd.grad] if wd is not None else [])
+
+            (kin, kw), (pin, pw) = grads(True), grads(False)
+            torch.cuda.synchronize()
+            real = d["mask"] > 0
+            # u2m's mask column of a masked sender sums activations at the scale of its
+            # pushed-away distance: held to the weight gradients' bound, as in phase 11
+            in_errs = [errors(kin[0], pin[0]), errors(kin[1][..., :-1], pin[1][..., :-1]),
+                       errors(kin[1][..., -1:][real], pin[1][..., -1:][real])]
+            if pos_diffs:
+                in_errs.append(errors(kin[2], pin[2]))
+            werrs = [wgrad_err(a, r) for a, r in zip(kw, pw)]
+            werrs.append(wgrad_err(kin[1][..., -1:][~real], pin[1][..., -1:][~real]))
+            bad = sum(e[2] for e in in_errs) + sum(not ok for _, ok in werrs)
+            log("knn_split_check", kernel="knn_edge_aggregate -> knn_edge_aggregate_bwd",
+                dropout=p, sum_agg=sum_agg, pos_diffs=pos_diffs,
+                max_abs_err_du1_du2_dmask_ddists=[e[0] for e in in_errs],
+                max_abs_err_wgrads=[e for e, _ in werrs], failures=bad)
+            if bad:
+                raise SystemExit(f"K8 -> K6 gradients disagree at p={p} dists={pos_diffs}")
+    return err
+
+
+def knn_split_route(kk, mk, dev, from_args_dict, card):
+    """Phase 21, second half: the knn-20 model generates and trains on route 3
+    (K7 -> K8 -> K6); times beside route 4; kernel times and bounds."""
+    from mpgan_tpu_torch.data.jetnet import JetNetDataset
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training.sampling import generate_multi_batch
+
+    args = from_args_dict(KNN150)
+    suite = build_suite(args)
+    g = suite.generator(torch.Generator().manual_seed(3), device=dev)
+    ds = JetNetDataset("g", num_particles=150, split="valid")
+    lab = ds.jet_data[np.random.default_rng(0).choice(len(ds), size=1024)]
+    data, labels = (t.to(dev) for t in real_batch(128, 150))
+    st = make_state(args, dev)
+    step = step_fn(st, args, data, labels)
+    try:
+        set_knn_route("3")
+        mk.reset_launch_counts()
+        out3 = generate_multi_batch(g, suite.noise, torch.Generator(device=dev).manual_seed(1),
+                                    1024, 512, labels=lab)
+        parts = step()
+        parts = {k: v.item() for k, v in step().items()}
+        torch.cuda.synchronize()
+        launches = dict(mk.launch_counts)
+        set_knn_route()
+        out4 = generate_multi_batch(g, suite.noise, torch.Generator(device=dev).manual_seed(1),
+                                    1024, 512, labels=lab)
+        # 2 generation batches x 2 layers, and per D+G step 10 forwards x ... as phase 14 counts:
+        # 8 layer forwards with a gradient and 2 without, 6 K6 with and 2 without weight gradients
+        predicted = {"knn_search": 4 + 2 * 10, "knn_edge_aggregate": 4 + 2 * 10,
+                     "knn_edge_aggregate_bwd": 2 * 6, "knn_edge_aggregate_bwd_no_wgrads": 2 * 2}
+        same = np.array_equal(out3, out4)
+        log("main_path_knn_route3", jets=list(out3.shape), steps=2, step_losses=parts,
+            launches=launches, predicted=predicted, generation_bit_identical_to_route4=same)
+        if out3.shape != (1024, 150, 4) or not np.isfinite(out3).all() or not same:
+            raise SystemExit("knn route 3 generation is not finite or differs from route 4")
+        if not all(np.isfinite(v) for v in parts.values()):
+            raise SystemExit(f"knn route 3 step losses not finite: {parts}")
+        if {k: v for k, v in launches.items() if v} != predicted:
+            raise SystemExit(f"knn route 3 launched {launches}, predicted {predicted}")
+
+        noise = torch.randn(512, 150, 32, device=dev) * 0.2
+        glab = torch.as_tensor(lab[:512], device=dev)
+
+        def gen_on(route):
+            def f():
+                set_knn_route(route)
+                with torch.inference_mode():
+                    g(noise, glab)
+            return f
+
+        def step_on(route):
+            def f():
+                set_knn_route(route)
+                step()
+            return f
+
+        gen_ms = {"3": float("inf"), "4": float("inf")}
+        step_ms = {"3": float("inf"), "4": float("inf")}
+        for order in (("4", "3"), ("3", "4")):
+            for route in order:
+                gen_ms[route] = min(gen_ms[route], best_ms(gen_on(route)))
+                step_ms[route] = min(step_ms[route], best_ms(step_on(route), inner=2))
+        log("knn_route_times", card=card, n=150, knn=20, generation_batch=512,
+            generation_ms_route3=gen_ms["3"], generation_ms_route4=gen_ms["4"],
+            jets_per_s_route3=512 / gen_ms["3"] * 1e3, jets_per_s_route4=512 / gen_ms["4"] * 1e3,
+            step_batch=128, step_ms_route3=step_ms["3"], step_ms_route4=step_ms["4"])
+    finally:
+        set_knn_route()
+    del st, step, g
+    torch.cuda.empty_cache()
+
+    times = {}
+    for b, name in ((512, "eval"), (160, "train")):
+        d = knn_inputs(dev, b, 150, 32, FE, 20, seed=b)
+        p = (0.0, 0) if name == "eval" else (0.5, 5)
+        idx, _ = kk.knn_search(d["xs"], d["xf"], 20, True)
+        times[f"search_{name}"] = dict(
+            shape=f"B={b} N=150 C=32 k=20",
+            ms=best_ms(lambda: kk.knn_search(d["xs"], d["xf"], 20, True)),
+            plain_ms=best_ms(lambda: kk.knn_search_reference(d["xs"], d["xf"], 20, True),
+                             inner=1),
+            **bound(2 * b * 150 * 150 * 33, nbytes(d["xs"], d["xf"], idx)))
+        agg = (d["u1"], d["u2m"], idx, None, None, d["hidden"], 0.2, True, *p)
+        out = kk.knn_edge_aggregate(*agg)
+        times[f"aggregate_{name}"] = dict(
+            shape=f"B={b} N=150 k=20" + (" eval" if name == "eval" else " dropout 0.5"),
+            ms=best_ms(lambda: kk.knn_edge_aggregate(*agg), inner=1),
+            plain_ms=best_ms(lambda: kk.knn_edge_aggregate_reference(*agg), inner=1),
+            **bound(2 * b * 150 * 20 * macs(FE),
+                    nbytes(d["u1"], d["u2m"], idx, *d["hidden"], out)))
+        del d, idx, out, agg
+        torch.cuda.empty_cache()
+    # with the distances, as the search writes them at B=160
+    d = knn_inputs(dev, 160, 150, 32, FE, 20, seed=7)
+    idx, dists = kk.knn_search(d["xs"], d["xf"], 20, True, True)
+    times["search_dists"] = dict(
+        shape="B=160 N=150 C=32 k=20 with distances",
+        ms=best_ms(lambda: kk.knn_search(d["xs"], d["xf"], 20, True, True)),
+        plain_ms=best_ms(lambda: kk.knn_search_reference(d["xs"], d["xf"], 20, True, True),
+                         inner=1),
+        **bound(2 * 160 * 150 * (150 * 33 + 20 * 3 * 32), nbytes(d["xs"], d["xf"], idx, dists)))
+    log("knn_split_kernel_times", card=card, **times)
+    return launches, times
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -776,6 +1270,7 @@ def main() -> None:
     from mpgan_tpu_torch.data.jetnet import JetNetDataset
     from mpgan_tpu_torch.models.mpgan import MPGenerator
     from mpgan_tpu_torch.ops import _build
+    from mpgan_tpu_torch.ops import gapt_kernels as gk
     from mpgan_tpu_torch.ops import knn_kernels as kk
     from mpgan_tpu_torch.ops import mp_kernels as mk
     from mpgan_tpu_torch.training.config import build_mpgan_generator, from_args_dict
@@ -948,6 +1443,18 @@ def main() -> None:
         knn_train_launches = knn_train_path(mk, train_cli, pathlib.Path(tmp))
     knn_step_ms, ktimes = knn_timings(kk, dev, from_args_dict, card)
 
+    # 16-20. GAPT
+    gapt_err = gapt_kernel_checks(gk, dev, from_args_dict)
+    gapt_gen_launches = gapt_generation(mk, gen, dev, card, from_args_dict)
+    step_check(dev, from_args_dict, card=GAPT, batch=16, phase="gapt_step_check")
+    with tempfile.TemporaryDirectory() as tmp:
+        gapt_train_launches = gapt_train_path(mk, train_cli, pathlib.Path(tmp))
+    gapt_rates, gtimes, gapt_step_ms = gapt_timings(gk, dev, from_args_dict, card)
+
+    # 21. the split knn route
+    split_err = knn_split_checks(kk, dev)
+    split_launches, stimes = knn_split_route(kk, mk, dev, from_args_dict, card)
+
     fwd_src = "mpgan_tpu_torch/csrc/edge_aggregate.cu"
     kernels = [
         {"name": "edge_aggregate", "route": "cuda", "source": fwd_src,
@@ -986,15 +1493,49 @@ def main() -> None:
          "source": "mpgan_tpu_torch/csrc/knn_edge_bwd.cu",
          "replaces": REPLACES["knn_edge_aggregate_bwd"], "includes": K1,
          "launches": knn_train_launches["knn_edge_aggregate_bwd"]
-         + knn_train_launches["knn_edge_aggregate_bwd_no_wgrads"],
+         + knn_train_launches["knn_edge_aggregate_bwd_no_wgrads"]
+         + split_launches["knn_edge_aggregate_bwd"]
+         + split_launches["knn_edge_aggregate_bwd_no_wgrads"],
          "max_abs_err": knn_err["knn_edge_aggregate_bwd"], **ktimes["bwd"],
          "ms_no_wgrads": ktimes["bwd_no_wgrads"]["ms"],
          "plain_ms_no_wgrads": ktimes["bwd_no_wgrads"]["plain_ms"],
          "bound_ms_no_wgrads": ktimes["bwd_no_wgrads"]["bound_ms"]},
+        {"name": "knn_search", "route": "cuda", "source": "mpgan_tpu_torch/csrc/knn_search.cu",
+         "replaces": REPLACES["knn_search"], "launches": split_launches["knn_search"],
+         "max_abs_err": split_err["knn_search"], **stimes["search_eval"],
+         "train_ms": stimes["search_train"]["ms"],
+         "train_plain_ms": stimes["search_train"]["plain_ms"],
+         "train_shape": stimes["search_train"]["shape"],
+         "train_bound_ms": stimes["search_train"]["bound_ms"],
+         "dists_ms": stimes["search_dists"]["ms"],
+         "dists_plain_ms": stimes["search_dists"]["plain_ms"],
+         "dists_shape": stimes["search_dists"]["shape"],
+         "dists_bound_ms": stimes["search_dists"]["bound_ms"]},
+        {"name": "knn_edge_aggregate", "route": "cuda",
+         "source": "mpgan_tpu_torch/csrc/knn_edge_aggregate.cu",
+         "replaces": REPLACES["knn_edge_aggregate"], "includes": K1,
+         "launches": split_launches["knn_edge_aggregate"],
+         "max_abs_err": split_err["knn_edge_aggregate"], **stimes["aggregate_eval"],
+         "train_ms": stimes["aggregate_train"]["ms"],
+         "train_plain_ms": stimes["aggregate_train"]["plain_ms"],
+         "train_shape": stimes["aggregate_train"]["shape"],
+         "train_bound_ms": stimes["aggregate_train"]["bound_ms"]},
+        {"name": "gapt_g_fused", "route": "cuda", "source": "mpgan_tpu_torch/csrc/gapt_fused.cu",
+         "replaces": REPLACES["gapt_g_fused"],
+         "launches": gapt_gen_launches + gapt_train_launches, "max_abs_err": gapt_err,
+         **{k: v for k, v in gtimes[1024].items() if not k.startswith("sdpa")},
+         "ms_b4096": gtimes[4096]["ms"], "plain_ms_b4096": gtimes[4096]["plain_ms"],
+         "bound_ms_b4096": gtimes[4096]["bound_ms"],
+         "ms_n150": gtimes[150]["ms"], "plain_ms_n150": gtimes[150]["plain_ms"],
+         "bound_ms_n150": gtimes[150]["bound_ms"], "shape_n150": gtimes[150]["shape"]},
     ]
     log("knn_train_step", batch=128, kernel_ms=knn_step_ms["kernel"],
         plain_ms=knn_step_ms["plain"])
     log("train_step", kernel_ms=step_ms["kernel"], plain_ms=step_ms["plain"])
+    log("gapt_train_step", batch=512, kernel_ms=gapt_step_ms["kernel"],
+        plain_ms=gapt_step_ms["plain"],
+        jets_per_s_b1024=1024 / gapt_rates[1024]["kernel"] * 1e3,
+        jets_per_s_b4096=4096 / gapt_rates[4096]["kernel"] * 1e3)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

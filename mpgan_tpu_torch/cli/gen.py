@@ -1,6 +1,6 @@
 """Inference from a trained generator (reference gen.py:85-145;
-``mpgan_tpu/cli/gen.py``): load a model card and a reference ``G_*.pt`` state
-dict, sample jets on ``--device``, unnormalize with the per-jet-type feature
+``mpgan_tpu/cli/gen.py``): load a model card (MPGAN or GAPT) and a reference
+``G_*.pt`` state dict, sample jets on ``--device``, unnormalize with the per-jet-type feature
 maxima (gen.py:10-17, 127-143), zero masked particles, clamp pT and save ``.npy``.
 
     python -m mpgan_tpu_torch.cli.gen --g-args card.txt --g-state G.pt \\
@@ -17,9 +17,9 @@ import torch
 
 from ..data.jetnet import JetNetDataset
 from ..data.normalize import FPND_FEATURE_MAXES
-from ..models.mpgan import MPGenerator
-from ..training.config import build_mpgan_generator, from_args_txt
-from ..training.sampling import generate_multi_batch, noise_spec
+from ..models.registry import build_suite
+from ..training.config import from_args_txt
+from ..training.sampling import generate_multi_batch
 from ..utils.weights import load_reference_state_dict
 
 
@@ -43,27 +43,22 @@ def main(argv: list[str] | None = None) -> None:
 
     device = _device(ns.device)
     args = from_args_txt(ns.g_args)
-    if args.model != "mpgan":
-        raise SystemExit(f"model {args.model!r} is not ported yet (ROADMAP.md Queue 1)")
+    try:
+        suite = build_suite(args)
+    except NotImplementedError as err:
+        raise SystemExit(str(err))
     if ns.g_state.endswith(".npz"):
         raise SystemExit(
             f"{ns.g_state}: gen reads a reference G .pt; generating from a TrainState .npz "
             "(training/checkpoint.py) comes later, ROADMAP.md Queue 1 item 5"
         )
 
-    g_cfg = build_mpgan_generator(args)
-    g = MPGenerator(g_cfg, device=device).eval()
+    g = suite.generator(device=device).eval()
     g.load_state_dict(load_reference_state_dict(ns.g_state), strict=True)
-    spec = noise_spec(
-        "mpgan",
-        {"lfc": args.lfc, "lfc_latent_size": args.lfc_latent_size,
-         "mask_learn_sep": args.mask_learn_sep,
-         "latent_node_size": args.latent_node_size or args.hidden_node_size},
-        args.num_hits, args.sd,
-    )
+    spec = suite.noise
 
     labels = None
-    if args.get("mask_c"):
+    if args.get("mask_c") or args.get("gapt_mask"):
         # conditioning multiplicities from real data if available, else synthetic
         # (gen.py:100-107)
         ds = JetNetDataset(

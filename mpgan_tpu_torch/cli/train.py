@@ -1,6 +1,7 @@
 """Jet GAN training entry point (``mpgan_tpu/cli/train.py``; train.py:27-97).
 
     python -m mpgan_tpu_torch.cli.train --name run1 --model mpgan --jets g
+    python -m mpgan_tpu_torch.cli.train --name gapt1 --model gapt --jets g
 
 The flags are the reference's (``cli/args.py``); ``--device`` (default
 ``cuda``, an error without a GPU) picks the torch device and is not part of

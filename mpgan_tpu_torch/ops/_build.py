@@ -24,8 +24,9 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_ext"
-SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu", "knn_fused.cu", "knn_edge_bwd.cu")
-HEADERS = ("edge_common.cuh", "edge_bwd_common.cuh")
+SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu", "knn_fused.cu", "knn_edge_bwd.cu",
+           "knn_search.cu", "knn_edge_aggregate.cu", "gapt_fused.cu")
+HEADERS = ("edge_common.cuh", "edge_bwd_common.cuh", "knn_stages.cuh")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -130,6 +131,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, i, i, i, ctypes.c_uint, f, i, p,
     ]
     lib.mpgan_knn_edge_aggregate_bwd.restype = i
+    lib.mpgan_knn_search.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.mpgan_knn_search.restype = i
+    lib.mpgan_knn_edge_aggregate.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, i, parr, parr, iarr, f, i, i, i, ctypes.c_uint, f, p,
+    ]
+    lib.mpgan_knn_edge_aggregate.restype = i
+    lib.mpgan_gapt_fused_plan.argtypes = [i, i, i, i, iarr, ctypes.POINTER(ctypes.c_longlong)]
+    lib.mpgan_gapt_fused_plan.restype = i
+    lib.mpgan_gapt_fused.argtypes = [p] * 12 + [i] * 6 + [f, p]
+    lib.mpgan_gapt_fused.restype = i
     lib.mpgan_cuda_error_string.argtypes = [i]
     lib.mpgan_cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,0 +1,174 @@
+"""The fused GAPT generator forward: plain PyTorch version and CUDA wrapper.
+
+Counterpart of ``mpgan_tpu/ops/gapt_pallas.py``: ``gapt_g_fused`` (K9,
+``csrc/gapt_fused.cu``) runs the whole eval-mode generator in one kernel. For
+``x [B, N, E]`` and an optional ``mask [B, N, 1]`` (1 real, 0 padded), per layer::
+
+    qkv  = x @ in_w.T + in_b                                  one product, [B, N, 3E]
+    s_h  = q_h @ k_h.T / sqrt(hd) + (mask_j - 1) * 1e30       per head h
+    x    = x + concat_h(softmax(s_h) @ v_h) @ out_w.T + out_b
+    x    = x + leaky(x @ ff_w.T + ff_b, alpha)
+
+then ``tanh(x @ fc_w.T + fc_b)`` and, with a mask, ``mask - 0.5`` as the last
+column. ``exp(-1e30 - max)`` underflows to exactly 0, which equals the model
+path's ``-inf``; every jet holds at least one real particle. Padded receivers
+are computed like any row.
+
+What bounds it on an H100: 5.9 MFLOP a jet at the default width (N = 30, E = 64,
+4 layers, 4 heads) against 9 KB of noise and output a jet, so the FP32 FMA rate.
+The kernel keeps a jet's activations in shared memory across all layers and
+reads the weights, which arrive transposed and stacked over layers
+(:func:`pack_gapt_weights`), through L1/L2; the source note has the rest.
+
+The TPU kernel packs ``128 // N`` jets into one block-diagonal attention and
+needs a batch divisible by that block; neither is carried over, so the gate
+(:func:`fused_gapt_eligible`) has no batch condition. The rest of the gate is
+the JAX package's: generator, eval, no ISAB, no layer norm, no extra FC layers,
+no batch or spectral norm, ``E % H == 0``, ``N <= 512``.
+
+The kernel is eval only and has no backward, as in the JAX package: the wrapper
+raises when gradients are enabled and an input requires one. It runs the plain
+version for tensors on the CPU and the kernel for tensors on a CUDA device;
+anything else raises. Launches are counted in ``mp_kernels.launch_counts``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple, Sequence
+
+import torch
+
+from . import _build
+from .mp_kernels import _check_cuda_args, _on_cpu, launch_counts
+
+_NEG = 1e30
+MAX_PARTICLES = 512
+
+
+def fused_gapt_eligible(cfg, train: bool) -> bool:
+    """Whether ``gapt_g_fused`` computes this config's forward
+    (``gapt_pallas.fused_gapt_eligible`` without its batch condition)."""
+    la = dict(cfg.linear_args)
+    if not cfg.is_generator or train:
+        return False
+    if cfg.use_isab or cfg.layer_norm:
+        return False
+    if len(cfg.sab_fc_layers) != 0 or len(cfg.final_fc_layers) != 0:
+        return False
+    if la.get("batch_norm") or la.get("spectral_norm"):
+        return False
+    if cfg.embed_dim % cfg.num_heads != 0:
+        return False
+    return cfg.num_particles <= MAX_PARTICLES
+
+
+class GaptWeights(NamedTuple):
+    """The generator's weights as the kernel reads them: ``[in, out]``, stacked
+    over the ``L`` layers, contiguous."""
+
+    in_wt: torch.Tensor   # [L, E, 3E]
+    in_b: torch.Tensor    # [L, 3E]
+    out_wt: torch.Tensor  # [L, E, E]
+    out_b: torch.Tensor   # [L, E]
+    ff_wt: torch.Tensor   # [L, E, E]
+    ff_b: torch.Tensor    # [L, E]
+    fc_wt: torch.Tensor   # [E, F]
+    fc_b: torch.Tensor    # [F]
+
+
+def pack_gapt_weights(layers: Sequence[Sequence[torch.Tensor]], fc_w: torch.Tensor,
+                      fc_b: torch.Tensor) -> GaptWeights:
+    """Stack per-layer ``(in_w [3E, E], in_b, out_w [E, E], out_b, ff_w [E, E],
+    ff_b)`` (weights ``[out, in]``) and the final ``fc_w [F, E]``, ``fc_b``."""
+    e = fc_w.shape[1]
+    cols = list(zip(*layers)) if layers else [()] * 6
+    shapes = ((e, 3 * e), (3 * e,), (e, e), (e,), (e, e), (e,))
+
+    def stack(ts, shape, transpose):
+        if not ts:
+            return fc_w.new_zeros((0,) + shape)
+        return torch.stack([t.t() if transpose else t for t in ts]).contiguous()
+
+    packed = [stack(ts, shape, i % 2 == 0) for i, (ts, shape) in enumerate(zip(cols, shapes))]
+    return GaptWeights(*packed, fc_w.t().contiguous(), fc_b.contiguous())
+
+
+def gapt_g_fused_reference(x: torch.Tensor, mask: torch.Tensor | None, w: GaptWeights,
+                           num_heads: int, alpha: float) -> torch.Tensor:
+    """Plain PyTorch version of K9 (``gapt_pallas._kernel``'s arithmetic)."""
+    b, n, e = x.shape
+    hd = e // num_heads
+    bias = None if mask is None else ((mask[:, :, 0] - 1.0) * _NEG)[:, None, None, :]
+    inv_sqrt_hd = 1.0 / math.sqrt(hd)
+    for layer in range(w.in_wt.shape[0]):
+        qkv = torch.matmul(x, w.in_wt[layer]) + w.in_b[layer]
+        q, k, v = (t.reshape(b, n, num_heads, hd).transpose(1, 2) for t in qkv.split(e, dim=-1))
+        sc = torch.matmul(q, k.transpose(-1, -2)) * inv_sqrt_hd
+        if bias is not None:
+            sc = sc + bias
+        p = torch.exp(sc - sc.max(dim=-1, keepdim=True).values)
+        p = p / p.sum(dim=-1, keepdim=True)
+        attn = torch.matmul(p, v).transpose(1, 2).reshape(b, n, e)
+        x = x + torch.matmul(attn, w.out_wt[layer]) + w.out_b[layer]
+        ff = torch.matmul(x, w.ff_wt[layer]) + w.ff_b[layer]
+        x = x + torch.where(ff >= 0, ff, alpha * ff)
+    y = torch.tanh(torch.matmul(x, w.fc_wt) + w.fc_b)
+    return y if mask is None else torch.cat([y, mask - 0.5], dim=2)
+
+
+def _check_shapes(name: str, x, mask, w: GaptWeights, num_heads: int) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x {tuple(x.shape)} must be [B, N, E]")
+    b, n, e = x.shape
+    if e % num_heads or num_heads < 1:
+        raise ValueError(f"{name}: embed_dim {e} is not divisible by {num_heads} heads")
+    if not 1 <= n <= MAX_PARTICLES:
+        raise ValueError(f"{name}: {n} particles exceed the kernel cap {MAX_PARTICLES}")
+    if mask is not None and mask.shape != (b, n, 1):
+        raise ValueError(f"{name}: mask {tuple(mask.shape)} must be [{b}, {n}, 1]")
+    layers = w.in_wt.shape[0]
+    want = ((layers, e, 3 * e), (layers, 3 * e), (layers, e, e), (layers, e), (layers, e, e),
+            (layers, e))
+    for field, t, shape in zip(w._fields, w, want):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {field} {tuple(t.shape)} must be {shape}")
+    if w.fc_wt.dim() != 2 or w.fc_wt.shape[0] != e or w.fc_b.shape != (w.fc_wt.shape[1],):
+        raise ValueError(f"{name}: fc_wt {tuple(w.fc_wt.shape)}, fc_b {tuple(w.fc_b.shape)} "
+                         f"must be [{e}, F], [F]")
+
+
+def gapt_g_fused(x: torch.Tensor, mask: torch.Tensor | None, w: GaptWeights, num_heads: int,
+                 alpha: float) -> torch.Tensor:
+    """K9: the plain version on the CPU, the CUDA kernel on a GPU. Returns
+    ``[B, N, F (+1 with a mask)]``. Eval only: raises where a gradient is asked for."""
+    name = "gapt_g_fused"
+    tensors = (x, *w) if mask is None else (x, mask, *w)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is eval only and has no backward: call it under "
+                           "torch.no_grad(), or take the model's plain path")
+    _check_shapes(name, x, mask, w, num_heads)
+    if _on_cpu(*tensors):
+        return gapt_g_fused_reference(x, mask, w, num_heads, alpha)
+    _check_cuda_args(name, {"x": x, **({} if mask is None else {"mask": mask}),
+                            **dict(zip(w._fields, w))}, (w.in_wt, w.out_wt, w.ff_wt))
+    b, n, e = x.shape
+    feat = w.fc_wt.shape[1]
+    out = torch.empty((b, n, feat + (mask is not None)), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    grid, scratch_floats = ctypes.c_int(), ctypes.c_longlong()
+    _build.check(lib.mpgan_gapt_fused_plan(b, n, e, num_heads, ctypes.byref(grid),
+                                           ctypes.byref(scratch_floats)), name)
+    scratch = torch.empty((scratch_floats.value,), dtype=torch.float32, device=x.device) \
+        if scratch_floats.value else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(x.device):
+        code = lib.mpgan_gapt_fused(
+            x.data_ptr(), ptr(mask), out.data_ptr(), *(t.data_ptr() for t in w), ptr(scratch),
+            b, n, e, num_heads, w.in_wt.shape[0], feat, float(alpha),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, name)
+    launch_counts[name] += 1
+    return out

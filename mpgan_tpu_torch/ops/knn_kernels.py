@@ -1,8 +1,9 @@
-"""Fused knn message-passing edge kernels: plain PyTorch versions and CUDA wrappers.
+"""knn message-passing edge kernels: plain PyTorch versions and CUDA wrappers.
 
-Counterpart of ``mpgan_tpu/ops/knn_pallas.py`` (its fully fused generation,
-``_fused_kernel_v4`` forward and ``_bwd_kernel_v3`` backward), as
-:mod:`.mp_kernels` is of ``mp_pallas.py``:
+Counterpart of ``mpgan_tpu/ops/knn_pallas.py``, as :mod:`.mp_kernels` is of
+``mp_pallas.py``: its fully fused generation (``_fused_kernel_v4`` forward,
+``_bwd_kernel_v3`` backward) and its older split one, a search kernel followed
+by an aggregate kernel fed with ``idx``:
 
 - ``knn_fused_layer`` (K5, ``csrc/knn_fused.cu``): per jet, the neighbour
   search, the sender gather, the edge MLP and the masked aggregation over the
@@ -34,6 +35,17 @@ Counterpart of ``mpgan_tpu/ops/knn_pallas.py`` (its fully fused generation,
 - :class:`KnnFusedLayer`: the autograd ``Function`` of K5 and K6. The selection
   is detached and the distances are differentiable, as in the JAX package: the
   ``ddists -> dxs, dxf`` step is plain torch.
+- ``knn_search`` (K7, ``csrc/knn_search.cu``): K5's search stage alone, ``idx``
+  and, with ``want_dists``, the selected edges' exact distances. Replaces
+  ``knn_select`` and ``knn_select_nm``; the latter's neighbour-major
+  ``[B, k*NP8, 1]`` output is a TPU layout, here both stay ``[B, N, k]``.
+  :class:`KnnSearch` carries the distances' gradient (plain torch).
+- ``knn_edge_aggregate`` (K8, ``csrc/knn_edge_aggregate.cu``): K5's chain stage
+  from a given ``idx`` (and ``dists``). Replaces the forwards of the three older
+  aggregate generations (``_fwd_impl``, ``_fwd_impl_v2``, ``_fwd_impl_v3``): one
+  function with one dropout mask in three TPU row layouts. :class:`KnnEdgeAggregate`
+  pairs it with K6, which is also those generations' backward.
+  :func:`knn_aggregate_split` chains K7, K8 (and K6).
 
 The neighbour sets of two implementations may differ only at near-ties:
 sums taken in another order move a ``d`` by an ulp, and a key sits on a
@@ -255,20 +267,25 @@ def knn_edge_aggregate_bwd_reference(u1, u2m, idx, dists, w_d, hidden_flat, g, a
 # ---------------------------------------------------------------------------
 
 
-def _check_knn_shapes(name, xs, xf, u1, u2m, w_d, pairs, k, self_loops, want_dists):
+def _check_search_shapes(name, xs, xf, k, self_loops):
     if xs.dim() != 3 or xf.shape != xs.shape:
         raise ValueError(f"{name}: xs {tuple(xs.shape)} and xf {tuple(xf.shape)} must be [B, N, C]")
-    b, n, c = xs.shape
+    n, c = xs.shape[1:]
     if not 1 <= c <= MAX_WIDTH:
         raise ValueError(f"{name}: {c} selection features exceed the kernel cap {MAX_WIDTH}")
-    if u1.dim() != 3 or u1.shape[:2] != (b, n):
-        raise ValueError(f"{name}: u1 {tuple(u1.shape)} must be [{b}, {n}, H1]")
-    _check_u2m(name, u1, u2m, w_d, want_dists)
     if k < 1 or k + (0 if self_loops else 1) > n:
         raise ValueError(
             f"{name}: k={k} (+{0 if self_loops else 1} dropped self) exceeds the {n} "
             "available senders"
         )
+
+
+def _check_knn_shapes(name, xs, xf, u1, u2m, w_d, pairs, k, self_loops, want_dists):
+    _check_search_shapes(name, xs, xf, k, self_loops)
+    if u1.dim() != 3 or u1.shape[:2] != xs.shape[:2]:
+        raise ValueError(f"{name}: u1 {tuple(u1.shape)} must be "
+                         f"[{xs.shape[0]}, {xs.shape[1]}, H1]")
+    _check_u2m(name, u1, u2m, w_d, want_dists)
     return _chain_dims(name, "hidden", [u1.shape[2]], pairs)
 
 
@@ -400,6 +417,96 @@ def knn_edge_aggregate_bwd(u1, u2m, idx, dists, w_d, hidden_flat, g, alpha: floa
     return du1, du2, dmask, ddists, dw_d, dhidden
 
 
+def knn_search_reference(xs, xf, k: int, self_loops: bool, want_dists: bool = False):
+    """Plain PyTorch version of K7: ``(idx, dists)``, ``dists`` None unless
+    ``want_dists``."""
+    idx = knn_select_reference(xs, xf, k, self_loops)
+    return idx, (_edge_dists(xs, xf, idx)[0] if want_dists else None)
+
+
+def knn_search(xs, xf, k: int, self_loops: bool, want_dists: bool = False):
+    """K7: the plain version on the CPU, the CUDA kernel on a GPU. Returns
+    ``(idx int32 [B, N, k], dists [B, N, k] or None)``. No gradient flows
+    through this call; see :class:`KnnSearch`."""
+    name = "knn_search"
+    _check_search_shapes(name, xs, xf, k, self_loops)
+    if _on_cpu(xs, xf):
+        return knn_search_reference(xs, xf, k, self_loops, want_dists)
+    _check_cuda_args(name, {"xs": xs, "xf": xf}, ())
+    b_sz, n, c = xs.shape
+    idx = torch.empty((b_sz, n, k), dtype=torch.int32, device=xs.device)
+    dists = torch.empty((b_sz, n, k), dtype=torch.float32, device=xs.device) \
+        if want_dists else None
+    lib = _build.library()
+    with torch.cuda.device(xs.device):
+        code = lib.mpgan_knn_search(
+            xs.data_ptr(), xf.data_ptr(), idx.data_ptr(),
+            None if dists is None else dists.data_ptr(), b_sz, n, c, k, int(bool(self_loops)),
+            int(bool(want_dists)), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, name)
+    launch_counts[name] += 1
+    return idx, dists
+
+
+def knn_edge_aggregate_reference(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float,
+                                 sum_agg: bool, dropout_p: float = 0.0, seed: int = 0):
+    """Plain PyTorch version of K8: the masked aggregate of the fe chain over
+    the edges ``idx`` names."""
+    _, acts, _, smask = _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p, seed)
+    agg = (acts[-1] * smask).sum(dim=2)
+    return agg if sum_agg else agg / idx.shape[2]
+
+
+def knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float, sum_agg: bool,
+                       dropout_p: float = 0.0, seed: int = 0):
+    """K8: the plain version on the CPU, the CUDA kernel on a GPU. ``idx`` is
+    int32 ``[B, N, k]`` with entries in ``[0, N)``; ``dists`` and ``w_d`` are
+    both given or both None."""
+    hidden_flat = tuple(hidden_flat)
+    name = "knn_edge_aggregate"
+    _check_dropout(name, dropout_p, seed)
+    want_dists = dists is not None
+    w_d = w_d if want_dists else None
+    extra = (dists, w_d) if want_dists else ()
+    if u1.dim() != 3:
+        raise ValueError(f"{name}: u1 {tuple(u1.shape)} must be [B, N, H1]")
+    _check_u2m(name, u1, u2m, w_d, want_dists)
+    b_sz, n, h1 = u1.shape
+    if idx.dim() != 3 or idx.shape[:2] != (b_sz, n) or idx.dtype != torch.int32:
+        raise ValueError(f"{name}: idx must be int32 [{b_sz}, {n}, k], got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    if want_dists and dists.shape != idx.shape:
+        raise ValueError(f"{name}: dists {tuple(dists.shape)} must be {tuple(idx.shape)}")
+    pairs = _pairs(hidden_flat)
+    dims = _chain_dims(name, "hidden", [h1], pairs)
+    if _on_cpu(u1, u2m, idx, *extra, *hidden_flat):
+        return knn_edge_aggregate_reference(u1, u2m, idx, dists, w_d, hidden_flat, alpha,
+                                            sum_agg, dropout_p, seed)
+    if not idx.is_contiguous():
+        raise ValueError(f"{name}: idx must be contiguous")
+    _check_cuda_args(name, {"u1": u1, "u2m": u2m,
+                            **({"dists": dists, "w_d": w_d} if want_dists else {}),
+                            **{f"hidden[{i}]": t for i, t in enumerate(hidden_flat)}},
+                     hidden_flat[::2])
+    out = torch.empty((b_sz, n, dims[-1]), dtype=torch.float32, device=u1.device)
+    lib = _build.library()
+    w, bias = _chain_args(pairs)
+    dim_arr = (ctypes.c_int * len(dims))(*dims)
+    thr, mult = dropout_threshold_mult(dropout_p) if dropout_p > 0 else (0, 1.0)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(u1.device):
+        code = lib.mpgan_knn_edge_aggregate(
+            u1.data_ptr(), u2m.data_ptr(), idx.data_ptr(), ptr(dists), ptr(w_d), out.data_ptr(),
+            b_sz, n, h1, idx.shape[2], len(pairs), w, bias, dim_arr, float(alpha),
+            int(bool(sum_agg)), int(dropout_p > 0), int(seed), thr, mult,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, name)
+    launch_counts[name] += 1
+    return out
+
+
 def _dists_backward(xs, xf, idx, dists, ddists):
     """``ddists -> (dxs, dxf)`` through ``dist = |xf[idx] - xs + 1e-12|`` with
     the selection held fixed (``knn_pallas.py:2063-2079``)."""
@@ -464,3 +571,76 @@ def knn_aggregate(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool, w
                                    sum_agg, dropout_p, seed, *hidden_flat)
     return knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k, self_loops, want_dists, alpha,
                            sum_agg, dropout_p, seed)[0]
+
+
+class KnnSearch(torch.autograd.Function):
+    """K7 with the distances' gradient (``knn_select_nm``'s custom VJP):
+    ``KnnSearch.apply(xs, xf, k, self_loops) -> (idx, dists)``. ``idx`` carries
+    no gradient; ``dists`` backpropagates into ``xs`` and ``xf`` through the norm
+    with the selection held fixed, in plain torch."""
+
+    @staticmethod
+    def forward(ctx, xs, xf, k, self_loops):
+        idx, dists = knn_search(xs, xf, k, self_loops, True)
+        ctx.save_for_backward(xs, xf, idx, dists)
+        ctx.mark_non_differentiable(idx)
+        return idx, dists
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, _g_idx, ddists):
+        xs, xf, idx, dists = ctx.saved_tensors
+        dxs, dxf = _dists_backward(xs, xf, idx, dists, ddists)
+        return dxs, dxf, None, None
+
+
+class KnnEdgeAggregate(torch.autograd.Function):
+    """K8 forward, K6 backward (the custom VJPs of ``knn_edge_aggregate``,
+    ``_v2`` and ``_v3``): ``KnnEdgeAggregate.apply(u1, u2m, idx, dists, w_d,
+    alpha, sum_agg, dropout_p, seed, *hidden_flat)``; ``dists`` and ``w_d`` are
+    None without the distance feature. Once differentiable."""
+
+    @staticmethod
+    def forward(ctx, u1, u2m, idx, dists, w_d, alpha, sum_agg, dropout_p, seed, *hidden_flat):
+        agg = knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha, sum_agg,
+                                 dropout_p, seed)
+        ctx.save_for_backward(u1, u2m, idx, dists, w_d, *hidden_flat)
+        ctx.cfg = (alpha, sum_agg, dropout_p, seed)
+        return agg
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        u1, u2m, idx, dists, w_d, *hidden_flat = ctx.saved_tensors
+        alpha, sum_agg, dropout_p, seed = ctx.cfg
+        need_wgrads = ctx.needs_input_grad[4] or any(ctx.needs_input_grad[9:])
+        du1, du2, dmask, ddists, dw_d, dhidden = knn_edge_aggregate_bwd(
+            u1, u2m, idx, dists, w_d, hidden_flat, g.contiguous(), alpha, sum_agg, dropout_p,
+            seed, need_wgrads,
+        )
+        if not need_wgrads:
+            dw_d, dhidden = None, (None,) * len(hidden_flat)
+        return (du1, torch.cat([du2, dmask], dim=-1), None, ddists, dw_d,
+                None, None, None, None, *dhidden)
+
+
+def knn_aggregate_split(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
+                        want_dists: bool, alpha: float, sum_agg: bool, dropout_p: float = 0.0,
+                        seed: int = 0, idx: torch.Tensor | None = None,
+                        dists: torch.Tensor | None = None):
+    """The knn edge stage as two kernels: K7 searches, K8 aggregates (K6 is its
+    backward). With ``idx`` (and ``dists`` under ``want_dists``) given, a search
+    made elsewhere feeds K8."""
+    if idx is None:
+        if want_dists and torch.is_grad_enabled() and (xs.requires_grad or xf.requires_grad):
+            idx, dists = KnnSearch.apply(xs, xf, k, self_loops)
+        else:
+            idx, dists = knn_search(xs.detach(), xf.detach(), k, self_loops, want_dists)
+    dists = dists if want_dists else None
+    w_d = w_d if want_dists else None
+    tensors = [t for t in (u1, u2m, dists, w_d, *hidden_flat) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return KnnEdgeAggregate.apply(u1, u2m, idx, dists, w_d, alpha, sum_agg, dropout_p, seed,
+                                      *hidden_flat)
+    return knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha, sum_agg, dropout_p,
+                              seed)

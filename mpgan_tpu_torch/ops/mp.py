@@ -20,7 +20,13 @@ Two paths compute it:
   train mode always — the JAX package's default gate (``ops/mp.py:347-355``).
   knn (:mod:`.knn_kernels`): one kernel searches, gathers, runs the chain and
   aggregates (K5, backward K6), then fn in torch — the JAX package's fully
-  fused kernel generation (``ops/mp.py:453-477``), the only one carried over.
+  fused kernel generation (``ops/mp.py:453-477``) and the default. Its older
+  split generations (``ops/mp.py:479-545``) are the split route here: a search
+  kernel (K7) and an aggregate kernel fed with ``idx`` (K8, backward K6),
+  chosen as in the JAX package by ``MPGAN_TPU_KNN_KERNEL`` (``4``, the
+  default, or ``3``, ``2``, ``1``: on this card the three older generations are
+  one kernel pair) and ``MPGAN_TPU_KNN_SELECT=0`` (the plain torch search
+  feeds K8). Both variables are read at call time.
 
 Train-mode dropout keys follow the JAX key paths (see :mod:`.keys`): the plain
 path splits ``rng`` into fe and fn keys, each MLP into one key per layer; the
@@ -41,12 +47,13 @@ Conditioning labels are broadcast per batch element, fixing the reference's
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import torch
 from torch import nn
 
-from .knn_kernels import knn_aggregate
+from .knn_kernels import knn_aggregate, knn_aggregate_split
 from .linear import MLP, MLPConfig, layer_weight_and_bias
 from .mp_kernels import EdgeAggregate, edge_aggregate_fn
 
@@ -310,12 +317,30 @@ def _edge_dropout(cfg: MPLayerConfig, train: bool, rng) -> tuple[float, int]:
     return dropout_p, rng.edge_seed()
 
 
+def knn_route() -> tuple[str, bool]:
+    """The knn kernel generation and whether a kernel searches, from
+    ``MPGAN_TPU_KNN_KERNEL`` (default ``4``) and ``MPGAN_TPU_KNN_SELECT``
+    (``0``: the plain torch search), as ``mpgan_tpu/ops/mp.py:439-442`` reads
+    them: without the search kernel the fused generation gives way to ``3``."""
+    version = os.environ.get("MPGAN_TPU_KNN_KERNEL", "4")
+    if version not in ("4", "3", "2", "1"):
+        raise ValueError(f"MPGAN_TPU_KNN_KERNEL={version!r}: expected 4, 3, 2 or 1")
+    select_kernel = os.environ.get("MPGAN_TPU_KNN_SELECT", "1") != "0"
+    if not select_kernel and version == "4":
+        version = "3"
+    return version, select_kernel
+
+
 def _mp_layer_apply_fused_knn(layer: MPLayer, x, mask, labels, num_jet_particles, train, rng,
                               update_sn):
     """Kernel path of the knn layer: decomposed fe layer 1, then K5 (search +
-    gather + fe chain + aggregate over the neighbours, K6 backward) followed by
-    fn in torch."""
+    gather + fe chain + aggregate over the neighbours, K6 backward) or, on the
+    split route, K7 (search) and K8 (the rest, K6 backward), followed by fn in
+    torch. The JAX package's generation ``1`` runs fe's first layer inside its
+    kernel on raw pair rows; here it is the same decomposition in torch, and
+    autograd carries its gradient to ``x``."""
     cfg = layer.cfg
+    version, select_kernel = knn_route()
     weights = _fe_weights_sn(layer, update_sn)
     dropout_p, seed = _edge_dropout(cfg, train, rng)
     m = mask if mask is not None else torch.ones(x.shape[:2] + (1,), dtype=x.dtype, device=x.device)
@@ -323,12 +348,18 @@ def _mp_layer_apply_fused_knn(layer: MPLayer, x, mask, labels, num_jet_particles
                                          extract_wd=cfg.pos_diffs)
     u2m = torch.cat([u2, m.to(x.dtype)], dim=-1)
     hidden_flat = tuple(p for w, b in weights[1:] for p in (w.t().contiguous(), b))
-    agg = knn_aggregate(
+    search = {}
+    if not select_kernel:
+        idx, knn_dists = _knn_search(cfg, x, mask)
+        search = {"idx": idx.to(torch.int32).contiguous(),
+                  "dists": knn_dists[..., 0].contiguous() if cfg.pos_diffs else None}
+    aggregate = knn_aggregate if version == "4" else knn_aggregate_split
+    agg = aggregate(
         _select_columns(cfg, x).contiguous(),
         _select_columns(cfg, _push_masked(x, mask)).contiguous(),
         u1.contiguous(), u2m, None if w_d is None else w_d.contiguous(), hidden_flat,
         cfg.num_knn, cfg.self_loops, cfg.pos_diffs, cfg.fe.leaky_relu_alpha, cfg.sum_agg,
-        dropout_p, seed,
+        dropout_p, seed, **search,
     )
     h = torch.cat([agg, x], dim=-1)
     h = _append_cond(cfg, h, labels, num_jet_particles)

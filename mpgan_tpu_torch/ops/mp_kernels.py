@@ -59,6 +59,9 @@ launch_counts = {
     "knn_fused_layer_train": 0,     # K5 emitting idx (and dists) for the backward
     "knn_edge_aggregate_bwd": 0,    # K6 with weight gradients
     "knn_edge_aggregate_bwd_no_wgrads": 0,  # K6 without them
+    "knn_search": 0,                # K7
+    "knn_edge_aggregate": 0,        # K8
+    "gapt_g_fused": 0,              # K9
 }
 
 

@@ -7,9 +7,10 @@ that doubles as the model-card format for the shipped ``trained_models``. This
 module defines the same defaults (setup_training.py:76-715), applies the same
 defaulting cascade (process_args, setup_training.py:747-1040) and builds the
 generator and discriminator configs the way ``setup_mpgan`` does
-(setup_training.py:1195-1347). The card's ``use_pallas`` key selects the
-port's kernel path (``use_kernels``). The GAPT config comes with GAPT
-(ROADMAP.md Queue 1 item 10).
+(setup_training.py:1195-1347), and GAPT's (``build_gapt``). The card's
+``use_pallas`` key selects the MPGAN kernel path (``use_kernels``); as in the
+JAX package it is not wired into the GAPT config, whose ``use_kernels`` stays
+at its default (the fused generator kernel for CUDA tensors).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import ast
 import math
 from typing import Any
 
+from ..models.gapt import GAPTConfig
 from ..models.mpgan import MaskConfig, MPDiscriminatorConfig, MPGeneratorConfig
 
 
@@ -413,4 +415,23 @@ def build_mpgan_discriminator(args: Args) -> MPDiscriminatorConfig:
         mp_args_first_layer={"clabels": clabels_fl, "all_ef": False},
         linear_args=_linear_args(args, gen=False),
         use_kernels=use_kernels,
+    )
+
+
+def build_gapt(args: Args, gen: bool) -> GAPTConfig:
+    return GAPTConfig(
+        num_particles=args.num_hits,
+        feat_size=args.node_feat_size,
+        is_generator=gen,
+        sab_layers=args.sab_layers_gen if gen else args.sab_layers_disc,
+        num_heads=args.num_heads,
+        embed_dim=args.gapt_embed_dim,
+        sab_fc_layers=tuple(args.sab_fc_layers),
+        layer_norm=args.layer_norm_gen if gen else args.layer_norm_disc,
+        dropout_p=args.gen_dropout if gen else args.disc_dropout,
+        final_fc_layers=tuple(args.final_fc_layers_gen if gen else args.final_fc_layers_disc),
+        use_mask=args.gapt_mask,
+        use_isab=args.use_isab,
+        num_isab_nodes=args.num_isab_nodes,
+        linear_args=tuple(_linear_args(args, gen).items()),
     )

@@ -9,7 +9,8 @@ runs the epoch as one ``lax.scan`` program, a TPU dispatch device; a CUDA-graph
 epoch is later work, ROADMAP.md Queue 1 item 7.)
 
 Refused at start with ``NotImplementedError`` (not ported yet, see
-ROADMAP.md): models other than MPGAN, ``--efp``, ``--fpd``, ``--fpnd``,
+ROADMAP.md): models other than MPGAN and GAPT, a mixed generator/discriminator
+pair, ``--efp``, ``--fpd``, ``--fpnd``,
 ``--cov-mmd``, augmentation, bf16 training, a device mesh or multi-GPU,
 ``--profile``, ``--debug``, ``--debug-nans`` and delayed masking. Plots are
 skipped with one log line.
@@ -28,11 +29,11 @@ import torch
 from ..data.jetnet import gen_jet_corrections
 from ..data.loader import BatchLoader
 from ..evaluation.w1 import w1m, w1p
-from ..models.mpgan import MPDiscriminator, MPGenerator
+from ..models.registry import build_suite, check_ported
 from . import checkpoint as ckpt
-from .config import Args, build_mpgan_discriminator, build_mpgan_generator
+from .config import Args
 from .optimizers import build_optimizer
-from .sampling import generate_multi_batch, noise_spec
+from .sampling import generate_multi_batch
 from .train_step import StepConfig, TrainState, d_step, g_step
 
 logger = logging.getLogger(__name__)
@@ -53,11 +54,7 @@ _REFUSED_FLAGS = {
 
 def check_supported(args: Args) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if args.model != "mpgan" or args.get("model_D", "mpgan") != "mpgan":
-        raise NotImplementedError(
-            f"model {args.model!r} / discriminator {args.get('model_D')!r}: only MPGAN is "
-            "ported, the other models come later (ROADMAP.md Queue 1 items 10-11)"
-        )
+    check_ported(args.model, args.get("model_D") or args.model)
     for key, what in _REFUSED_FLAGS.items():
         if args.get(key):
             raise NotImplementedError(f"--{key.replace('_', '-')}: {what} is not ported yet")
@@ -108,18 +105,12 @@ class Trainer:
             label_noise=args.label_noise,
             augment=bool(args.aug_t or args.aug_f or args.aug_r90 or args.aug_s),
         )
-        g_cfg = build_mpgan_generator(args)
-        self.spec = noise_spec(
-            "mpgan",
-            {"lfc": args.lfc, "lfc_latent_size": args.lfc_latent_size,
-             "mask_learn_sep": args.mask_learn_sep,
-             "latent_node_size": args.latent_node_size or args.hidden_node_size},
-            args.num_hits, args.sd,
-        )
+        suite = build_suite(args)
+        self.spec = suite.noise
         # one CPU generator: model init first, then every draw of every step
         rng = torch.Generator().manual_seed(int(args.seed))
-        g = MPGenerator(g_cfg, rng, device=self.device)
-        d = MPDiscriminator(build_mpgan_discriminator(args), rng, device=self.device)
+        g = suite.generator(rng, device=self.device)
+        d = suite.discriminator(rng, device=self.device)
         opt = lambda m, lr: build_optimizer(  # noqa: E731
             args.optimizer, m.parameters(), lr, beta1=args.beta1, beta2=args.beta2)
         self.state = TrainState(g, d, opt(g, args.lr_gen), opt(d, args.lr_disc), rng)

@@ -1,7 +1,7 @@
 """Noise sampling and jet generation (``mpgan_tpu/training/sampling.py``, train.py:100-282).
 
-The MPGAN noise shape follows ``get_gen_noise`` (train.py:116-141); the other
-model families come with their ports. All randomness comes from an explicit
+The MPGAN and GAPT noise shapes follow ``get_gen_noise`` (train.py:116-141);
+the other model families come with their ports. All randomness comes from an explicit
 ``torch.Generator`` on the device the noise is drawn on. Generation runs in
 eval mode under ``torch.inference_mode()`` and leaves the spectral-norm
 vectors where they were (``update_sn=False``), as the JAX package discards
@@ -34,8 +34,11 @@ class NoiseSpec:
 
 def noise_spec(model: str, model_args: dict[str, Any], num_particles: int,
                noise_std: float = 0.2) -> NoiseSpec:
-    """Mirror of get_gen_noise's shape logic (train.py:116-141) for MPGAN:
-    ``[N(+1 if mask_learn_sep), latent_node_size]`` or ``[lfc_latent_size]``."""
+    """Mirror of get_gen_noise's shape logic (train.py:116-141). MPGAN:
+    ``[N(+1 if mask_learn_sep), latent_node_size]`` or ``[lfc_latent_size]``;
+    GAPT: ``[N, embed_dim]``."""
+    if model == "gapt":
+        return NoiseSpec((num_particles, model_args["embed_dim"]), noise_std)
     if model != "mpgan":
         raise ValueError(f"noise for model {model!r} is not ported yet (ROADMAP.md Queue 1)")
     if model_args.get("lfc"):

@@ -19,11 +19,24 @@ reference / port key                                JAX params / state
 ``lfc_layer.weight``, ``lfc_layer.bias``            ``lfc.w``, ``lfc.b``
 ==================================================  ==================================
 
+GAPT (``sabs.{i}.mab.``, with ISAB ``sabs.{i}.mab0.`` / ``mab1.`` and
+``sabs.{i}.I``; the discriminator's ``pma.mab.`` and ``pma.S``; the LinearNets
+``final_fc.``, ``input_embedding.`` and each MAB's ``ff.`` as above):
+
+==================================================  ==================================
+``attention.in_proj_weight``, ``.in_proj_bias``     ``attention.in_proj_w``, ``.in_proj_b``
+``attention.out_proj.weight``, ``.out_proj.bias``   ``attention.out_w``, ``.out_b``
+``norm1.weight``, ``norm1.bias`` (and ``norm2``)    ``norm1.scale``, ``norm1.bias``
+==================================================  ==================================
+
 :func:`jax_leaves` lists a module's tensors in the order ``jax.tree.flatten``
 visits the JAX params (or mutable state) pytree: dict keys sorted (``bn``
 before ``layers``, ``b`` before ``w``, ``bias`` before ``scale``, ``fmg`` and
-``lfc`` before ``mp_layers``, ``fnd`` before ``mp_layers``), ``None`` entries
-skipped. The checkpoint layout shared with the JAX package rests on it.
+``lfc`` before ``mp_layers``, ``fnd`` before ``mp_layers``; GAPT: ``final_fc``,
+``input_embedding``, ``pma/{S, mab}``, ``sabs/[i]/mab/{attention/{in_proj_b,
+in_proj_w, out_b, out_w}, ff, norm1, norm2}``, with ISAB ``I``, ``mab0``,
+``mab1``), ``None`` entries skipped. The checkpoint layout shared with the JAX
+package rests on it.
 """
 
 from __future__ import annotations
@@ -33,12 +46,14 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..models.gapt import SAB, GAPTConfig, GAPTDiscriminator, GAPTGenerator
 from ..models.mpgan import (
     MPDiscriminator,
     MPDiscriminatorConfig,
     MPGenerator,
     MPGeneratorConfig,
 )
+from ..ops.attention import MAB
 from ..ops.linear import MLP, MLPConfig, SNLinear
 
 
@@ -123,6 +138,67 @@ def mp_discriminator_from_jax(
     return d
 
 
+def _mab_sd_from_jax(prefix: str, cfg: GAPTConfig, params: Mapping,
+                     state: Mapping) -> dict[str, torch.Tensor]:
+    att = params["attention"]
+    sd = _tensors({
+        prefix + "attention.in_proj_weight": np.asarray(att["in_proj_w"], np.float32),
+        prefix + "attention.in_proj_bias": np.asarray(att["in_proj_b"], np.float32),
+        prefix + "attention.out_proj.weight": np.asarray(att["out_w"], np.float32),
+        prefix + "attention.out_proj.bias": np.asarray(att["out_b"], np.float32),
+    })
+    mab_cfg = cfg.mab_cfg()
+    sd.update(mlp_sd_from_jax(prefix + "ff.", mab_cfg.ff, params["ff"], state["ff"]))
+    if mab_cfg.layer_norm:
+        for name in ("norm1", "norm2"):
+            sd.update(_tensors({
+                f"{prefix}{name}.weight": np.asarray(params[name]["scale"], np.float32),
+                f"{prefix}{name}.bias": np.asarray(params[name]["bias"], np.float32),
+            }))
+    return sd
+
+
+def gapt_sd_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
+                     cfg: GAPTConfig) -> dict[str, torch.Tensor]:
+    """JAX GAPT generator or discriminator pytrees (numpy leaves) as a
+    reference-layout state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for i in range(cfg.sab_layers):
+        p, s = params["sabs"][i], state["sabs"][i]
+        if cfg.use_isab:
+            sd.update(_tensors({f"sabs.{i}.I": np.asarray(p["I"], np.float32)}))
+            sd.update(_mab_sd_from_jax(f"sabs.{i}.mab0.", cfg, p["mab0"], s["mab0"]))
+            sd.update(_mab_sd_from_jax(f"sabs.{i}.mab1.", cfg, p["mab1"], s["mab1"]))
+        else:
+            sd.update(_mab_sd_from_jax(f"sabs.{i}.mab.", cfg, p["mab"], s["mab"]))
+    sd.update(mlp_sd_from_jax("final_fc.", cfg.final_fc_cfg(), params["final_fc"],
+                              state["final_fc"]))
+    if not cfg.is_generator:
+        sd.update(mlp_sd_from_jax("input_embedding.", cfg.embed_cfg(),
+                                  params["input_embedding"], state["input_embedding"]))
+        sd.update(_tensors({"pma.S": np.asarray(params["pma"]["S"], np.float32)}))
+        sd.update(_mab_sd_from_jax("pma.mab.", cfg, params["pma"]["mab"], state["pma"]))
+    return sd
+
+
+def gapt_generator_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
+                            cfg: GAPTConfig, device: torch.device | str = "cpu"
+                            ) -> GAPTGenerator:
+    """A :class:`GAPTGenerator` holding the weights of JAX ``(params, state)`` pytrees."""
+    g = GAPTGenerator(cfg, device=device)
+    g.load_state_dict(gapt_sd_from_jax(params, state, cfg), strict=True)
+    return g
+
+
+def gapt_discriminator_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
+                                cfg: GAPTConfig, device: torch.device | str = "cpu"
+                                ) -> GAPTDiscriminator:
+    """A :class:`GAPTDiscriminator` holding the weights of JAX ``(params, state)`` pytrees."""
+    d = GAPTDiscriminator(cfg, device=device)
+    d.load_state_dict(gapt_sd_from_jax(params, state, cfg), strict=True)
+    return d
+
+
 def _mlp_leaves(mlp: MLP, params: bool) -> list[torch.Tensor]:
     cfg = mlp.cfg
     out: list[torch.Tensor] = []
@@ -142,9 +218,39 @@ def _mlp_leaves(mlp: MLP, params: bool) -> list[torch.Tensor]:
     return out
 
 
-def jax_leaves(model: MPGenerator | MPDiscriminator, params: bool) -> list[torch.Tensor]:
+def _mab_leaves(mab: MAB, params: bool) -> list[torch.Tensor]:
+    out: list[torch.Tensor] = []
+    if params:
+        att = mab.attention
+        out += [att.in_proj_bias, att.in_proj_weight, att.out_proj.bias, att.out_proj.weight]
+    out += _mlp_leaves(mab.ff, params)
+    if params and mab.cfg.layer_norm:
+        out += [mab.norm1.bias, mab.norm1.weight, mab.norm2.bias, mab.norm2.weight]
+    return out
+
+
+def _sab_leaves(sab: SAB, params: bool) -> list[torch.Tensor]:
+    if not sab.cfg.use_isab:
+        return _mab_leaves(sab.mab, params)
+    return ([sab.I] if params else []) + _mab_leaves(sab.mab0, params) \
+        + _mab_leaves(sab.mab1, params)
+
+
+def _gapt_leaves(model: GAPTGenerator | GAPTDiscriminator, params: bool) -> list[torch.Tensor]:
+    out = _mlp_leaves(model.final_fc, params)
+    if isinstance(model, GAPTDiscriminator):
+        out += _mlp_leaves(model.input_embedding, params)
+        out += ([model.pma.S] if params else []) + _mab_leaves(model.pma.mab, params)
+    for sab in model.sabs:
+        out += _sab_leaves(sab, params)
+    return out
+
+
+def jax_leaves(model: torch.nn.Module, params: bool) -> list[torch.Tensor]:
     """The module's parameters (``params=True``) or mutable state (BN running
     statistics, SN ``u``) in the JAX pytree's flatten order."""
+    if isinstance(model, (GAPTGenerator, GAPTDiscriminator)):
+        return _gapt_leaves(model, params)
     out: list[torch.Tensor] = []
     if isinstance(model, MPDiscriminator):
         if model.cfg.fnd_cfg is not None:
@@ -176,6 +282,12 @@ def load_reference_state_dict(path: str) -> dict[str, torch.Tensor]:
     if not isinstance(sd, Mapping):
         raise ValueError(f"{path}: expected a state dict, got {type(sd).__name__}")
     return dict(sd)
+
+
+def gapt_generator_to_reference_sd(module: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """A GAPT generator's or discriminator's weights as a reference-layout state
+    dict on the CPU (``torch.save``-able): the module's own keys."""
+    return mp_generator_to_reference_sd(module)
 
 
 def mp_generator_to_reference_sd(module: torch.nn.Module) -> dict[str, torch.Tensor]:

@@ -443,3 +443,175 @@ def test_knn_discriminator_backward_launches_k6(dev):
         assert mk.launch_counts[name] == 2
         assert sum(mk.launch_counts.values()) == 4
         assert torch.isfinite(x.grad).all()
+
+
+# ---------------------------------------------------------------------------
+# the split knn route: K7 (search) and K8 (aggregate from idx)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("self_loops,want_dists", [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("b,n,c,widths,k", KNN_SHAPES)
+def test_knn_search_kernel_matches_plain_and_k5(dev, b, n, c, widths, k, self_loops, want_dists):
+    d = _knn_inputs(dev, b, n, c, widths, k, seed=n + 2)
+    before = mk.launch_counts["knn_search"]
+    idx, dists = kk.knn_search(d["xs"], d["xf"], k, self_loops, want_dists)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["knn_search"] == before + 1
+    idx_ref, dists_ref = kk.knn_search_reference(d["xs"], d["xf"], k, self_loops, want_dists)
+    assert torch.equal(idx, idx_ref)
+    _, idx5, dists5 = kk.knn_fused_layer(d["xs"], d["xf"], d["u1"], d["u2m"],
+                                         d["w_d"] if want_dists else None, d["hidden"], k,
+                                         self_loops, want_dists, 0.2, True, 0.0, 0, True)
+    assert torch.equal(idx, idx5)
+    if want_dists:
+        assert torch.equal(dists, dists5)
+        live = torch.gather(d["mask"][:, None, :, 0].expand(-1, n, -1), 2, idx.long()) > 0
+        torch.testing.assert_close(dists[live], dists_ref[live], **TOL)
+    else:
+        assert dists is None
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.5])
+@pytest.mark.parametrize("sum_agg,want_dists", [(True, False), (False, True)])
+@pytest.mark.parametrize("b,n,c,widths,k", KNN_SHAPES)
+def test_knn_edge_aggregate_kernel_matches_plain_and_k5(dev, b, n, c, widths, k, sum_agg,
+                                                        want_dists, dropout_p):
+    d = _knn_inputs(dev, b, n, c, widths, k, seed=n + 3)
+    w_d = d["w_d"] if want_dists else None
+    out5, idx, dists = kk.knn_fused_layer(d["xs"], d["xf"], d["u1"], d["u2m"], w_d, d["hidden"],
+                                          k, True, want_dists, 0.2, sum_agg, dropout_p, 777, True)
+    before = mk.launch_counts["knn_edge_aggregate"]
+    out = kk.knn_edge_aggregate(d["u1"], d["u2m"], idx, dists, w_d, d["hidden"], 0.2, sum_agg,
+                                dropout_p, 777)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["knn_edge_aggregate"] == before + 1
+    ref = kk.knn_edge_aggregate_reference(d["u1"], d["u2m"], idx, dists, w_d, d["hidden"], 0.2,
+                                          sum_agg, dropout_p, 777)
+    torch.testing.assert_close(out, ref, **TOL)
+    assert torch.equal(out, out5)  # the fused layer's chain stage, from its own idx
+
+
+def test_knn_split_function_grads_match_the_fused_functions(dev):
+    """K7 -> K8 -> K6 through their Functions against K5 -> K6: the same
+    kernels' stages, so the same gradients (the distance scatter's
+    ``index_add_`` sums in no fixed order, hence a tolerance on xs and xf)."""
+    d = _knn_inputs(dev, 4, 150, 32, [96, 160, 192], 20, seed=9)
+
+    def grads(fn):
+        ins = [d[key].clone().requires_grad_() for key in ("xs", "xf", "u1", "u2m", "w_d")]
+        hidden = [t.clone().requires_grad_() for t in d["hidden"]]
+        out = fn(*ins, hidden, 20, True, True, 0.2, True, 0.5, 99)
+        (out * d["g"]).sum().backward()
+        return out.detach(), [t.grad for t in ins], [t.grad for t in hidden]
+
+    mk.reset_launch_counts()
+    (of, fin, fw), (os_, sin, sw) = grads(kk.knn_aggregate), grads(kk.knn_aggregate_split)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["knn_search"] == 1 and mk.launch_counts["knn_edge_aggregate"] == 1
+    assert mk.launch_counts["knn_edge_aggregate_bwd"] == 2
+    assert torch.equal(of, os_)
+    for x, y in zip(fin[2:] + fw, sin[2:] + sw):
+        assert torch.equal(x, y)
+    for x, y in zip(fin[:2], sin[:2]):
+        scale = y.abs().clamp_min(1.0)
+        torch.testing.assert_close(x / scale, y / scale, **TOL)
+
+
+def test_knn_layer_routes_on_the_card(dev, monkeypatch):
+    """The knn layer on routes 3 and select-0 against route 4 on the card."""
+    from mpgan_tpu_torch.ops import mp
+
+    cfg = build_mpgan_generator(from_args_dict(KNN150))
+    g = MPGenerator(cfg, torch.Generator().manual_seed(0), device=dev)
+    noise = torch.randn(4, 150, 32, generator=torch.Generator().manual_seed(1)).to(dev) * 0.2
+    labels = torch.tensor([[1.0], [0.4], [0.1], [0.02]], device=dev)
+    outs = {}
+    for name, env in (("4", {}), ("3", {"MPGAN_TPU_KNN_KERNEL": "3"}),
+                      ("select0", {"MPGAN_TPU_KNN_SELECT": "0"})):
+        for key in ("MPGAN_TPU_KNN_KERNEL", "MPGAN_TPU_KNN_SELECT"):
+            monkeypatch.delenv(key, raising=False)
+        for key, value in env.items():
+            monkeypatch.setenv(key, value)
+        mk.reset_launch_counts()
+        with torch.inference_mode():
+            outs[name] = g(noise, labels)
+        torch.cuda.synchronize()
+        want = {"4": {"knn_fused_layer": 2}, "3": {"knn_search": 2, "knn_edge_aggregate": 2},
+                "select0": {"knn_edge_aggregate": 2}}[name]
+        assert {k: v for k, v in mk.launch_counts.items() if v} == want
+    assert mp.knn_route() == ("3", False)
+    assert torch.equal(outs["3"], outs["4"])
+    assert torch.equal(outs["select0"][..., -1], outs["4"][..., -1])
+    # the plain search ranks exact distances: a near-tie may swap a neighbour
+    close = torch.isclose(outs["select0"], outs["4"], **TOL).float().mean().item()
+    assert close > 0.8
+
+
+# ---------------------------------------------------------------------------
+# K9: the fused GAPT generator
+# ---------------------------------------------------------------------------
+
+
+def _gapt(dev, n, e, heads, layers, masked, seed=0):
+    from mpgan_tpu_torch.models.gapt import GAPTConfig, GAPTGenerator
+
+    cfg = GAPTConfig(num_particles=n, feat_size=3, is_generator=True, sab_layers=layers,
+                     num_heads=heads, embed_dim=e, use_mask=masked)
+    return GAPTGenerator(cfg, torch.Generator().manual_seed(seed), device=dev)
+
+
+@pytest.mark.parametrize("n,e,heads,layers,masked,b", [
+    (30, 64, 4, 4, True, 256),    # the default generator
+    (30, 64, 4, 4, False, 64),
+    (30, 64, 4, 4, True, 37),     # an odd batch
+    (150, 64, 4, 4, True, 16),    # the 150-particle size
+    (25, 32, 2, 2, True, 10),
+    (100, 32, 4, 1, True, 3),
+    (9, 10, 5, 2, True, 5),       # widths that are no multiple of 4: the scalar path
+    (300, 64, 4, 2, True, 3),     # qkv in device scratch
+    (512, 64, 4, 1, True, 2),     # the gate's cap
+    (40, 48, 2, 2, True, 4),      # head width 24 does not divide a warp
+])
+def test_gapt_fused_kernel_matches_plain(dev, n, e, heads, layers, masked, b):
+    from mpgan_tpu_torch.ops import gapt_kernels as gk
+
+    g = _gapt(dev, n, e, heads, layers, masked)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(b, n, e, generator=gen, device=dev)
+    mask = None
+    if masked:
+        counts = torch.randint(1, n + 1, (b,), generator=gen, device=dev)
+        counts[0] = n
+        mask = (torch.arange(n, device=dev)[None, :] < counts[:, None]).float()[..., None]
+    w = g.fused_weights()
+    before = mk.launch_counts["gapt_g_fused"]
+    with torch.no_grad():
+        out = gk.gapt_g_fused(x, mask, w, heads, 0.2)
+        torch.cuda.synchronize()
+        ref = gk.gapt_g_fused_reference(x, mask, w, heads, 0.2)
+    assert mk.launch_counts["gapt_g_fused"] == before + 1
+    torch.testing.assert_close(out, ref, **TOL)
+    if masked:
+        assert torch.equal(out[..., -1], ref[..., -1])
+
+
+def test_gapt_generator_kernel_route_matches_plain_route(dev):
+    g = _gapt(dev, 30, 64, 4, 4, True)
+    noise = torch.randn(33, 30, 64, device=dev) * 0.2
+    labels = torch.rand(33, 1, device=dev) * 0.9 + 0.1
+    mk.reset_launch_counts()
+    with torch.inference_mode():
+        y_k = g(noise, labels)
+        g.cfg = dataclasses.replace(g.cfg, use_kernels=False)
+        y_p = g(noise, labels)
+    assert mk.launch_counts["gapt_g_fused"] == 1
+    torch.testing.assert_close(y_k, y_p, **TOL)
+    assert torch.equal(y_k[..., -1], y_p[..., -1])
+    # with gradients enabled the default route is the plain path; the wrapper itself raises
+    g.cfg = dataclasses.replace(g.cfg, use_kernels=None)
+    y = g(noise, labels)
+    assert y.requires_grad and mk.launch_counts["gapt_g_fused"] == 1
+    from mpgan_tpu_torch.ops import gapt_kernels as gk
+    with pytest.raises(RuntimeError, match="eval only"):
+        gk.gapt_g_fused(noise.requires_grad_(), None, g.fused_weights(), 4, 0.2)

@@ -201,7 +201,8 @@ def test_train_cli_refuses_cuda_without_a_gpu(tmp_path):
 @pytest.mark.parametrize("flags,match", [
     (["--efp"], "efp"), (["--fpd"], "fpd"), (["--fpnd", "--num-hits", "30"], "fpnd"), (["--cov-mmd"], "cov-mmd"),
     (["--aug-t"], "augment"), (["--compute-dtype", "bfloat16"], "bf16"),
-    (["--mesh-shape", "4"], "mesh"), (["--model", "gapt"], "gapt"),
+    (["--mesh-shape", "4"], "mesh"), (["--model", "gapt", "--model-D", "mpgan"], "gapt"),
+    (["--model", "rgan"], "rgan"),
 ])
 def test_trainer_refuses_what_is_not_ported(tmp_path, flags, match):
     args = targs_cli.parse_cli(["--name", "r", "--dir-path", str(tmp_path), *TINY, *flags])
