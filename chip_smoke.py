@@ -22,7 +22,9 @@ Phases, each printed as it finishes:
    dropout, at N=30 B=256 and N=150 B=16, sum and mean, random masks. du1, du2,
    dmask and the forward within rtol = atol = 1e-4; the weight gradients, which
    sum every pair row, within 1e-4 of max(1, max|ref|). One dropout element that
-   differs breaks these bounds;
+   differs breaks these bounds. K3 is launched twice on equal inputs, with and
+   without weight gradients, and the two results compared bit for bit (its
+   persistent grid walks a static schedule and every sum has a fixed order);
 8. one flagship-width D+G step on the card against the same step on the CPU
    (the kernels' plain versions), B=16, from the same state, batch, noise and
    dropout keys: losses and every gradient agree. Again on the card's plain
@@ -34,9 +36,10 @@ Phases, each printed as it finishes:
    without weight gradients and K4 must all have launched;
 10. the D+G step at B=256 N=30, kernel path and plain path in turns (CUDA
     events, best of 3), with TFLOP/s against the 679 GFLOP the flagship step
-    needs; K3 and K2-train against their plain versions; the host's time to
-    issue a step; a ``torch.profiler`` breakdown of three kernel-path steps,
-    its idle share taken against those steps' own wall time;
+    needs; K3 (with and without weight gradients, at B=256 N=30 and B=32 N=150)
+    and K2-train beside their plain versions; the host's time to issue a step;
+    a ``torch.profiler`` breakdown of three kernel-path steps, its idle share
+    taken against those steps' own wall time;
 11. the knn kernels against their plain versions at B=160 N=150 k=20 (published
     widths) and at a small ragged shape (N=13 k=5): K5 eval and with dropout
     0.5, with and without self loops, sum and mean, with and without the
@@ -103,9 +106,10 @@ Phases, each printed as it finishes:
 Every kernel's entry in the JSON line carries its bound: the larger of its
 FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
 read once, outputs written once) over 3.35 TB/s, at the shape its ``ms`` was
-taken at. ``library_ms`` is null: no single PyTorch call computes any of these
-functions (a search is a distance product and a top-k, the aggregates and the
-GAPT generator are chains of products).
+taken at. Every time in that line was measured in this run. ``library_ms`` is
+null: no single PyTorch call computes any of these functions (a search is a
+distance product and a top-k, the aggregates and the GAPT generator are chains
+of products).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -269,9 +273,13 @@ def train_kernel_checks(mk, dev):
                 for need in (True, False):
                     out = mk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2, sum_agg, p, 777,
                                                 need)
+                    again = mk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2, sum_agg, p, 777,
+                                                  need)
                     ref = mk.edge_aggregate_bwd_reference(u1, u2, mask, hidden, g, 0.2, sum_agg,
                                                           p, 777, need)
                     torch.cuda.synchronize()
+                    repeat = all(torch.equal(x, y) for x, y in zip((*out[:3], *out[3]),
+                                                                   (*again[:3], *again[3])))
                     errs = [errors(o, r) for o, r in zip(out[:3], ref[:3])]
                     werrs = [wgrad_err(o, r) for o, r in zip(out[3], ref[3])]
                     bad = sum(e[2] for e in errs) + sum(not ok for _, ok in werrs)
@@ -281,8 +289,9 @@ def train_kernel_checks(mk, dev):
                     log("train_kernel_check", kernel="edge_aggregate_bwd", dropout=p,
                         wgrads=need, b=b, n=n, sum_agg=sum_agg,
                         max_abs_err_du1_du2_dmask=[e[0] for e in errs],
-                        max_abs_err_wgrads=[e for e, _ in werrs], failures=bad)
-                    if bad:
+                        max_abs_err_wgrads=[e for e, _ in werrs], failures=bad,
+                        two_runs_bit_identical=repeat)
+                    if bad or not repeat:
                         raise SystemExit(f"edge_aggregate_bwd disagrees at b={b} n={n} "
                                          f"p={p} wgrads={need} sum={sum_agg}")
                     max_err["edge_aggregate_bwd"] = max(max_err["edge_aggregate_bwd"], err)
@@ -501,9 +510,12 @@ def train_timings(mk, dev, from_args_dict, card):
                     inner=1))
         del u1, u2, mask, hidden, g
         torch.cuda.empty_cache()
+    bounds = {f"bwd{w}_{n}": dense_bwd_bound(b, n, wgrads=not w)["bound_ms"]
+              for b, n in ((256, 30), (32, 150)) for w in ("", "_no_wgrads")}
     log("train_kernel_times", card=card,
         **{k: {"shape": "B=256 N=30" if k.endswith("_30") else "B=32 N=150", "ms": v[0],
-               "plain_ms": v[1]} for k, v in times.items()})
+               "plain_ms": v[1], **({"bound_ms": bounds[k]} if k in bounds else {})}
+           for k, v in times.items()})
 
     profile_steps(step, card, "train_step_profile")
     return ms, times
@@ -1479,8 +1491,15 @@ def main() -> None:
          "max_abs_err": train_err["edge_aggregate_bwd"],
          "ms": ttimes["bwd_30"][0], "plain_ms": ttimes["bwd_30"][1], **dense_bwd_bound(256, 30),
          "shape": "B=256 N=30 dropout 0.5 with weight gradients",
+         "ms_no_wgrads": ttimes["bwd_no_wgrads_30"][0],
+         "plain_ms_no_wgrads": ttimes["bwd_no_wgrads_30"][1],
+         "bound_ms_no_wgrads": dense_bwd_bound(256, 30, wgrads=False)["bound_ms"],
+         "shape_150": "B=32 N=150 dropout 0.5",
          "ms_150": ttimes["bwd_150"][0], "plain_ms_150": ttimes["bwd_150"][1],
-         "bound_ms_150": dense_bwd_bound(32, 150)["bound_ms"]},
+         "bound_ms_150": dense_bwd_bound(32, 150)["bound_ms"],
+         "ms_150_no_wgrads": ttimes["bwd_no_wgrads_150"][0],
+         "plain_ms_150_no_wgrads": ttimes["bwd_no_wgrads_150"][1],
+         "bound_ms_150_no_wgrads": dense_bwd_bound(32, 150, wgrads=False)["bound_ms"]},
         {"name": "knn_fused_layer", "route": "cuda",
          "source": "mpgan_tpu_torch/csrc/knn_fused.cu", "replaces": REPLACES["knn_fused_layer"],
          "includes": K1,

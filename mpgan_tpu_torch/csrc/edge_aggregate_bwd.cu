@@ -12,267 +12,176 @@
 // (last to first) dz = da * mult * dleaky(z), da_prev = dz W^T.
 //
 // What bounds it: per pair row it does three times the forward's FMAs (the
-// recompute, dW and da), so like K2 it is bound by FP32 FMA issue and shared-
-// memory operand loads. The design:
-//   - the same CTA shape as K2: a CTA owns a group of up to 32 receivers of one
-//     jet and walks it in passes of ti receivers x jc senders. A pass recomputes
-//     the chain into shared memory, keeping every layer's activation a_l (after
-//     dropout), then backprops through two ping-pong gradient buffers. At the
-//     flagship widths a 64-row pass holds (96 + 160 + 192) activations and
-//     (192 + 160) gradients per row: 218 KB of the 227 KB an SM offers. The
-//     launcher sizes the pass from the shapes;
-//   - the activation derivative is read off the stored activation instead of a
-//     stored pre-activation: with 0 < alpha, a = leaky(z) * mult has the sign of
-//     z where mult != 0, so mult * dleaky(z) = (a < 0 ? alpha : 1) * mult, and
-//     mult is K1's hash, recomputed (cheap next to the matmuls). The wrapper
-//     refuses alpha <= 0;
-//   - sums across CTAs are deterministic: du1 rows belong to one CTA and are
-//     accumulated in place; du2, dmask and the weight gradients go to per-CTA
-//     partial buffers in device memory (first pass writes, later passes add,
-//     each address always by the same thread, so in pass order), which a
-//     second kernel reduces in a fixed order. Repeated runs are bit-identical.
-//     The adds are fire-and-forget atomicAdds: waiting for the old partial
-//     values cost more than the weight-gradient arithmetic (PERF.md);
-//   - with need_wgrads = 0 (the G step differentiating through D) the weight
-//     contractions are skipped and the caller's zero-filled gradients stay zero;
-//   - da = dz W^T reads W^T ([out, in], prepared by the caller) through the same
-//     register-tiled dense layer as the forward.
+// recompute, dW and da), so it is bound by FP32 FMA issue and shared-memory
+// operand loads. The recompute-and-backprop pass, its shared-memory plan, the
+// products and the contractions are edge_bwd_common.cuh's (shared with K6, the
+// knn backward); this file adds what is dense:
+//   - an item of the persistent grid's schedule is a block of ti receivers of one
+//     jet; the CTA walks the jet's senders in chunks of jc (a pass is ti x jc
+//     pair rows: 4 x 30 = 120 of 128 at N = 30, 5 x 25 = 125 at N = 150);
+//   - du1 rows belong to one item and are accumulated in place over its chunks;
+//   - du2 and dmask sum over the receivers, so over the items of a jet: each CTA
+//     that touches a jet owns one slab [n, h1 + 1] (column h1: dmask) of that
+//     jet's `slots`; its first item of the jet writes the slab (every item covers
+//     every sender), later items add, each address always by the same thread. A
+//     second kernel sums a jet's slabs in slot order;
+//   - the weight gradients go to one partial slab a CTA, reduced over the CTAs
+//     in order. With need_wgrads = 0 (the G step differentiating through D) the
+//     contractions are skipped and the caller's zero gradients stay zero.
+// Every sum has a fixed order, so repeated launches agree bit for bit.
 
 #include "edge_bwd_common.cuh"
 
 namespace {
 
-struct BwdPlan {
-  int group, ti, jc, ldr;
-  int d0, d1;  // widths of the two gradient buffers
-};
-
-// grid = (batch, number of receiver groups). Shared memory: the activations
-// a_0..a_L ([dim_l x ldr] each), then the gradient buffers D0 [d0 x ldr] and
-// D1 [d1 x ldr]. `fe_t` holds W^T for each hidden layer.
-template <bool kDrop>
+// grid = the plan's CTAs. `pk` holds the packed weights. sender_part
+// [batch, slots, n, h1 + 1]; w_part [grid, ws.slab_floats].
 __global__ void __launch_bounds__(kThreads, 1)
     edge_aggregate_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
                               const float* __restrict__ mask, const float* __restrict__ g,
-                              float* __restrict__ du1, float* __restrict__ du2_part,
-                              float* __restrict__ dmask_part, float* __restrict__ w_part,
-                              int n, int h1, BwdPlan p, Chain fe, Chain fe_t, float alpha,
-                              int sum_agg, Drop drop, int need_wgrads, int w_total) {
-  extern __shared__ float4 smem4[];
-  float* acts[kMaxLayers + 1];
-  float* cur = reinterpret_cast<float*>(smem4);
-  for (int l = 0; l <= fe.n; ++l) {
-    acts[l] = cur;
-    cur += fe.dim[l] * p.ldr;
-  }
-  float* grad0 = cur;
-  float* grad1 = cur + p.d0 * p.ldr;
+                              float* __restrict__ du1, float* __restrict__ sender_part,
+                              float* __restrict__ w_part, int n, int h1, BwdPlan p, Chain fe,
+                              Packed pk, float alpha, int sum_agg, int drop_on, Drop drop,
+                              int need_wgrads, WSlab ws) {
+  const PassBuffers s = carve(p, fe.n);
+  const int h_out = fe.dim[fe.n], ns = drop.ns;
+  const long long t_begin = range_start(blockIdx.x, p.items, gridDim.x);
+  const long long t_end = range_start(blockIdx.x + 1, p.items, gridDim.x);
+  PassInputs in;
+  in.w_d = nullptr;
+  in.alpha = alpha;
+  in.denom = sum_agg ? 1.f : (float)n;
+  in.drop_on = drop_on != 0;
+  in.drop = drop;
+  in.need_wgrads = need_wgrads;
+  in.wp = w_part + (size_t)blockIdx.x * ws.slab_floats;
+  in.ws = &ws;
+  in.first = true;
+  PhaseClock clock;
+  MPGAN_PHASE_START(clock);
 
-  const int b = blockIdx.x, grp = blockIdx.y, n_grp = gridDim.y;
-  const int g0 = grp * p.group;
-  const int g_eff = min(p.group, n - g0);
-  const int L = fe.n, h_out = fe.dim[L];
-  const float* u1b = u1 + (size_t)b * n * h1;
-  const float* u2b = u2 + (size_t)b * n * h1;
-  const float* mb = mask + (size_t)b * n;
-  const float* gb = g + (size_t)b * n * h_out;
-  const float denom = sum_agg ? 1.f : (float)n;
-  float* du2p = du2_part + ((size_t)b * n_grp + grp) * n * h1;
-  float* dmaskp = dmask_part + ((size_t)b * n_grp + grp) * n;
-  float* wp = w_part + ((size_t)b * n_grp + grp) * w_total;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int ib = 0; ib < g_eff; ib += p.ti) {
-    const int ti_eff = min(p.ti, g_eff - ib);
-    const int rows = round_up(ti_eff * p.jc, kRowBlock);
+  for (long long t = t_begin; t < t_end; ++t) {
+    const int b = (int)(t / p.blocks), i0 = (int)(t - (long long)b * p.blocks) * p.ti;
+    const int ti_eff = min(p.ti, n - i0);
+    // the CTA's first item of this jet writes the jet's slab, later ones add
+    const bool first_of_jet = t == t_begin || i0 == 0;
+    const int slot = blockIdx.x - item_owner((long long)b * p.blocks, p.items, gridDim.x);
+    float* sp = sender_part + ((size_t)b * p.slots + slot) * n * (h1 + 1);
+    const float* mb = mask + (size_t)b * n;
+    in.u1 = u1 + (size_t)b * n * h1;
+    in.u2 = u2 + (size_t)b * n * h1;
+    in.g = g + (size_t)b * n * h_out;
     for (int j0 = 0; j0 < n; j0 += p.jc) {
       const int jc_eff = min(p.jc, n - j0);
-      const bool first = ib == 0 && j0 == 0;
-      if (kDrop) drop.base = (unsigned)(b * n + g0 + ib) * (unsigned)drop.ns + (unsigned)j0;
-      __syncthreads();  // the previous pass has finished reading the buffers
-      // recompute: layer 1 (decomposed), then the hidden layers, keeping every a_l
-      for (int t = threadIdx.x; t < rows * h1; t += kThreads) {
-        const int r = t / h1, h = t - (t / h1) * h1;
-        const int ii = r / p.jc, jj = r - (r / p.jc) * p.jc;
-        float v = 0.f;
-        if (ii < ti_eff && jj < jc_eff) {
-          v = leaky(u1b[(size_t)(g0 + ib + ii) * h1 + h] + u2b[(size_t)(j0 + jj) * h1 + h],
-                    alpha);
-          if (kDrop) v *= dropmul(drop, pair_id(drop, r), (unsigned)h, 0u);
-        }
-        acts[0][h * p.ldr + r] = v;
+      __syncthreads();  // the previous pass's tail has read the row arrays
+      for (int r = threadIdx.x; r < p.rows; r += kThreads) {
+        const int ii = r / p.jc, jj = r - ii * p.jc;
+        const bool real = ii < ti_eff && jj < jc_eff;
+        smi(s.row.u1)[r] = real ? (i0 + ii) * h1 : -1;
+        smi(s.row.u2)[r] = real ? (j0 + jj) * h1 : 0;
+        smi(s.row.g)[r] = real ? (i0 + ii) * h_out : 0;
+        smf(s.row.m)[r] = real ? mb[j0 + jj] / in.denom : 0.f;
+        smu(s.row.id)[r] = (unsigned)(b * n + i0 + ii) * (unsigned)ns + (unsigned)(j0 + jj);
+        smf(s.row.dist)[r] = 0.f;
       }
-      for (int l = 0; l < L; ++l) {
-        __syncthreads();
-        dense_layer<kDrop>(acts[l], p.ldr, acts[l + 1], p.ldr, rows, fe.dim[l], fe.dim[l + 1],
-                           fe.w[l], nullptr, fe.dim[l], fe.b[l], true, alpha, drop,
-                           (unsigned)(l + 1));
-      }
-      // da_L = g[i] * mask[j] / denom, zero on padded rows
-      for (int t = threadIdx.x; t < rows * h_out; t += kThreads) {
-        const int r = t / h_out, h = t - (t / h_out) * h_out;
-        const int ii = r / p.jc, jj = r - (r / p.jc) * p.jc;
-        float v = 0.f;
-        if (ii < ti_eff && jj < jc_eff)
-          v = gb[(size_t)(g0 + ib + ii) * h_out + h] / denom * mb[j0 + jj];
-        grad0[h * p.ldr + r] = v;
-      }
-      __syncthreads();
-      // dmask partial: one warp per sender
-      for (int jj = warp; jj < jc_eff; jj += kWarps) {
-        float acc = 0.f;
-        for (int q = lane; q < ti_eff * h_out; q += 32) {
-          const int ii = q / h_out, h = q - (q / h_out) * h_out;
-          acc += gb[(size_t)(g0 + ib + ii) * h_out + h] / denom *
-                 acts[L][h * p.ldr + ii * p.jc + jj];
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-        if (lane == 0) accumulate_to(dmaskp + j0 + jj, acc, ib == 0);
-      }
-      // back through the layers: dz_l = da_l * mult_l * dleaky(z_l) in place
-      float* gcur = grad0;
-      float* gnext = grad1;
-      for (int l = L;; --l) {
-        const int M = fe.dim[l];
-        for (int t = threadIdx.x; t < M * rows; t += kThreads) {
-          const int h = t / rows, r = t - (t / rows) * rows;
-          const float a = acts[l][h * p.ldr + r];
-          float f = a < 0.f ? alpha : 1.f;
-          if (kDrop) f *= dropmul(drop, pair_id(drop, r), (unsigned)h, (unsigned)l);
-          gcur[h * p.ldr + r] *= f;
-        }
-        __syncthreads();
-        if (l == 0) break;
-        const int K = fe.dim[l - 1];
-        if (need_wgrads) {
-          int off = 0;
-          for (int k = 0; k < l - 1; ++k) off += fe.dim[k] * fe.dim[k + 1] + fe.dim[k + 1];
-          weight_grad(acts[l - 1], gcur, p.ldr, rows, K, M, wp + off, wp + off + K * M, first);
-        }
-        // da_{l-1} = dz_l W^T
-        dense_layer<false>(gcur, p.ldr, gnext, p.ldr, rows, M, K, fe_t.w[l - 1], nullptr, M,
-                           nullptr, false, alpha, drop, 0u);
-        __syncthreads();
-        float* tmp = gcur;
-        gcur = gnext;
-        gnext = tmp;
-      }
-      // gcur holds dz_1 [h1 x rows]: du1 rows are this CTA's own, du2 goes to the partials
-      for (int t = threadIdx.x; t < ti_eff * h1; t += kThreads) {
-        const int ii = t / h1, h = t - (t / h1) * h1;
-        const float* col = gcur + h * p.ldr + ii * p.jc;
+      const float* dz = smf(bwd_pass(s, p, fe, pk, in, clock));
+      in.first = false;
+      // dz_0 [h1 x rows]: du1 rows are this item's own, du2 and dmask go to the slab
+      for (int q = threadIdx.x; q < ti_eff * h1; q += kThreads) {
+        const int ii = q / h1, h = q - ii * h1;
+        const float* col = dz + h * p.ldr + ii * p.jc;
         float acc = 0.f;
         for (int jj = 0; jj < jc_eff; ++jj) acc += col[jj];
-        accumulate_to(du1 + ((size_t)b * n + g0 + ib + ii) * h1 + h, acc, j0 == 0);
+        accumulate_to(du1 + ((size_t)b * n + i0 + ii) * h1 + h, acc, j0 == 0);
       }
-      for (int t = threadIdx.x; t < jc_eff * h1; t += kThreads) {
-        const int jj = t / h1, h = t - (t / h1) * h1;
-        const float* col = gcur + h * p.ldr + jj;
+      for (int q = threadIdx.x; q < jc_eff * (h1 + 1); q += kThreads) {
+        const int jj = q / (h1 + 1), h = q - jj * (h1 + 1);
+        const float* col = (h < h1 ? dz + h * p.ldr : smf(s.row.dsm)) + jj;
         float acc = 0.f;
         for (int ii = 0; ii < ti_eff; ++ii) acc += col[ii * p.jc];
-        accumulate_to(du2p + (size_t)(j0 + jj) * h1 + h, acc, ib == 0);
+        accumulate_to(sp + (size_t)(j0 + jj) * (h1 + 1) + h, acc, first_of_jet);
       }
+      MPGAN_PHASE(clock, kPhaseTail);
     }
   }
-}
-
-// The pass shape and buffer widths; shrinks the pass until the shared memory fits.
-// Returns the bytes, or 0.
-size_t make_bwd_plan(int n, const Chain& fe, BwdPlan& p) {
-  p.group = group_size(n);
-  int act_w = 0;
-  for (int l = 0; l <= fe.n; ++l) act_w += fe.dim[l];
-  // da of layer l lives in buffer (L - l) % 2
-  p.d0 = p.d1 = 0;
-  for (int l = 0; l <= fe.n; ++l) {
-    int& w = ((fe.n - l) % 2 == 0) ? p.d0 : p.d1;
-    w = fe.dim[l] > w ? fe.dim[l] : w;
-  }
-  for (int max_rows = kMaxPassRows; max_rows >= kRowBlock; max_rows -= kRowBlock) {
-    choose_pass(n, p.group, max_rows, p.ti, p.jc);
-    p.ldr = round_up(p.ti * p.jc, kRowBlock) + 4;
-    const size_t bytes = (size_t)(act_w + p.d0 + p.d1) * p.ldr * sizeof(float);
-    if (bytes <= (size_t)kMaxSmemBytes) return bytes;
-  }
-  return 0;
+  finish_bulk();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Receiver groups per jet (grid.y of K2, K3 and K4): sizes the partial buffers.
-int mpgan_edge_aggregate_groups(int n) { return n < 1 ? 0 : num_groups(n); }
+// Floats of the packed-weight scratch that the backward kernels (K3 and K6) need
+// for a chain of these widths at passes of `rows` pair rows; -1 on bad arguments.
+long long mpgan_edge_bwd_packed_floats(int n_hidden, const int* hidden_dims, int rows) {
+  Chain fe;
+  const void* none[kMaxLayers] = {};
+  if (!fill_chain(fe, n_hidden, none, none, hidden_dims)) return -1;
+  if (rows != 32 && rows != 64 && rows != 128) return -1;
+  PackJobs jobs;
+  return plan_pack(jobs, fe, 8 * (kWarps / (rows / 32)));
+}
 
-// K3. hidden_w / hidden_wt / hidden_b: per hidden layer W [in, out], W^T [out, in], b.
-// dhidden: 2 * n_hidden outputs (dW_l [in, out], db_l), left untouched without
-// need_wgrads. Partials: du2_part [batch, groups, n, h1], dmask_part [batch, groups, n],
-// w_part [batch * groups, sum_l (in_l * out_l + out_l)] (unused without need_wgrads).
+// Floats of one CTA's weight-gradient slab (dW tile-major, db, `n_extra` more).
+int mpgan_edge_bwd_wslab_floats(int n_hidden, const int* hidden_dims, int n_extra) {
+  Chain fe;
+  const void* none[kMaxLayers] = {};
+  if (!fill_chain(fe, n_hidden, none, none, hidden_dims) || n_extra < 0) return -1;
+  return make_wslab(fe, n_extra).slab_floats;
+}
+
+#ifdef MPGAN_PHASE_CLOCKS
+// Clocks summed per phase (edge_bwd_common.cuh: Phase) since the last reset.
+int mpgan_edge_aggregate_bwd_phase_clocks(unsigned long long* out, int reset) {
+  return read_phase_clocks(out, reset);
+}
+#endif
+
+// K3. hidden_w / hidden_b: per hidden layer W [in, out] and b. packed: scratch for
+// the packed weights (mpgan_edge_bwd_packed_floats floats).
+// wgrads: the weight gradients, flat [sum_l (in_l * out_l + out_l)] in layer order
+// (dW_l then db_l), left untouched without need_wgrads. The pass shape (ti x jc
+// pair rows in buffers of `rows`), the grid and the slots per jet are the
+// caller's plan. Partials: sender_part [batch, slots, n, h1 + 1]; w_part [grid,
+// mpgan_edge_bwd_wslab_floats] (unused without need_wgrads).
 int mpgan_edge_aggregate_bwd(const float* u1, const float* u2, const float* mask, const float* g,
-                             float* du1, float* du2, float* dmask, void* const* dhidden,
-                             float* du2_part, float* dmask_part, float* w_part, int batch, int n,
-                             int h1, int n_hidden, const void* const* hidden_w,
-                             const void* const* hidden_wt, const void* const* hidden_b,
+                             float* du1, float* du2, float* dmask, float* wgrads,
+                             float* sender_part, float* w_part, int batch, int n, int h1,
+                             int n_hidden, const void* const* hidden_w,
+                             float* packed, const void* const* hidden_b,
                              const int* hidden_dims, float alpha, int sum_agg, int dropout,
-                             int seed, unsigned thr, float mult, int need_wgrads, void* stream) {
-  Chain fe, fe_t;
+                             int seed, unsigned thr, float mult, int need_wgrads, int ti, int jc,
+                             int rows, int grid, int slots, void* stream) {
+  Chain fe;
   if (batch < 1 || n < 1 || h1 < 1 || h1 > kMaxWidth || !(alpha > 0.f) || seed < 0)
     return (int)cudaErrorInvalidValue;
   if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || fe.dim[0] != h1)
     return (int)cudaErrorInvalidValue;
-  fe_t = fe;
-  for (int l = 0; l < n_hidden; ++l) fe_t.w[l] = static_cast<const float*>(hidden_wt[l]);
   BwdPlan p;
-  const size_t smem = make_bwd_plan(n, fe, p);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
+  if (!make_plan(p, fe, batch, n, n, ti, jc, rows, grid, slots, false))
+    return (int)cudaErrorInvalidValue;
   Drop drop{};
   drop.seed_key = (unsigned)seed * 0xC2B2AE3Du;
   drop.thr = thr;
   drop.mult = mult;
   drop.jc = p.jc;
   drop.ns = round_up(n, 8);
-  int w_total = 0;
-  for (int l = 0; l < n_hidden; ++l) w_total += fe.dim[l] * fe.dim[l + 1] + fe.dim[l + 1];
-  const int groups = num_groups(n);
+  const WSlab ws = make_wslab(fe, 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(batch, groups);
-  cudaError_t err;
-  if (dropout) {
-    err = cudaFuncSetAttribute(edge_aggregate_bwd_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    edge_aggregate_bwd_kernel<true><<<grid, kThreads, smem, st>>>(
-        u1, u2, mask, g, du1, du2_part, dmask_part, w_part, n, h1, p, fe, fe_t, alpha, sum_agg,
-        drop, need_wgrads, w_total);
-  } else {
-    err = cudaFuncSetAttribute(edge_aggregate_bwd_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    edge_aggregate_bwd_kernel<false><<<grid, kThreads, smem, st>>>(
-        u1, u2, mask, g, du1, du2_part, dmask_part, w_part, n, h1, p, fe, fe_t, alpha, sum_agg,
-        drop, need_wgrads, w_total);
-  }
-  int code = (int)cudaGetLastError();
+  Packed pk;
+  int code = launch_pack(fe, p.col_threads, packed, pk, st);
   if (code != 0) return code;
-  // second pass: the partials, summed in a fixed order
-  code = launch_reduce(du2_part, du2, batch, groups, (long long)n * h1, (long long)n * h1,
-                       (long long)groups * n * h1, st);
+  cudaError_t err = cudaFuncSetAttribute(edge_aggregate_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  edge_aggregate_bwd_kernel<<<grid, kThreads, p.smem, st>>>(
+      u1, u2, mask, g, du1, sender_part, w_part, n, h1, p, fe, pk, alpha, sum_agg, dropout,
+      drop, need_wgrads, ws);
+  code = (int)cudaGetLastError();
   if (code != 0) return code;
-  code = launch_reduce(dmask_part, dmask, batch, groups, n, n, (long long)groups * n, st);
-  if (code != 0 || !need_wgrads) return code;
-  long long off = 0;
-  for (int l = 0; l < n_hidden; ++l) {
-    const long long km = (long long)fe.dim[l] * fe.dim[l + 1], m = fe.dim[l + 1];
-    code = launch_reduce(w_part + off, static_cast<float*>(dhidden[2 * l]), 1, batch * groups,
-                         km, w_total, 0, st);
-    if (code != 0) return code;
-    code = launch_reduce(w_part + off + km, static_cast<float*>(dhidden[2 * l + 1]), 1,
-                         batch * groups, m, w_total, 0, st);
-    if (code != 0) return code;
-    off += km + m;
-  }
-  return 0;
+  return launch_reductions(sender_part, du2, dmask, batch, n, h1, p, grid, w_part,
+                           need_wgrads ? wgrads : nullptr, ws, st);
 }
 
 }  // extern "C"

@@ -1,15 +1,247 @@
-// Pieces shared by the backward kernels (edge_aggregate_bwd.cu: K3;
-// knn_edge_bwd.cu: K6): per-CTA partial sums that a thread owns, the weight
-// gradient contraction over a pass, and the fixed-order reduction of the
-// partials across CTAs.
+// The recompute-and-backprop core shared by the backward kernels
+// (edge_aggregate_bwd.cu: K3; knn_edge_bwd.cu: K6), for Hopper (sm_90a), FP32 on
+// CUDA cores.
+//
+// Both kernels walk "pair rows": (receiver, sender) pairs for K3, (receiver,
+// neighbour rank) edges for K6. A pass takes up to 128 rows through the edge
+// chain and back. The kernel describes a pass's rows in small per-row arrays in
+// shared memory (where the row's u1, u2 and g rows start, its mask / denom, its
+// dropout id, its distance); the core does the rest and leaves dz_0, the
+// gradient of the decomposed first layer's pre-activation, in shared memory for
+// the kernel's own reductions and scatters.
+//
+// The pass. Activations are stored transposed ([width x ldr], ldr = rows + 4) so
+// that a thread reads 8 rows of one feature as two 128-bit loads. Only what a
+// later product reads is kept:
+//   - a_0 = dropout(leaky(u1[i] + u2[j] (+ dist * w_d))) is built, used by the
+//     first hidden layer and dropped; it is rebuilt (it is cheap) into the
+//     buffer that dz_L has left when the backward reaches layer 1;
+//   - a_1 .. a_{L-1} are kept; the last layer's activation a_L is never stored:
+//     its product's epilogue forms dz_L = g[i] * mask[j] / denom * f'(a_L)
+//     directly, and the row's sum_h g[i, h] * a_L[h] (dmask) on the way;
+//   - going back, dW_l = a_{l-1}^T dz_l reads a_{l-1} first; then the product
+//     da_{l-1} = dz_l W_l^T writes dz_{l-1} = da_{l-1} * f'(a_{l-1}) over a_{l-1}
+//     in its epilogue (each thread reads exactly the elements it replaces).
+//   At the published widths (96 -> 160 -> 192) the live set peaks at a_1 + dz_2 =
+//   352 floats a row: a 128-row pass in 186 KB, where keeping every activation
+//   and two gradient buffers (800 floats a row) allowed 64 rows.
+//   - the derivative is read off the stored activation, so alpha must be > 0: a
+//     kept element has the sign of its pre-activation; a dropped one is stored as
+//     -0.0f (a zero to every product, told apart by its bits), so K1's hash is
+//     computed once per activation and never in the backward sweep.
+//
+// The products. All 512 threads cover a product's whole [rows x M] output in one
+// round: the 16 warps form a (rows / 32) x (512 / rows) grid, a warp holds 4 row
+// groups of 8 rows by 8 column threads, and a thread owns 8 rows by TN =
+// ceil(M / column threads) columns (5, 6, 5 and 3 at the published widths with
+// 128 rows: every thread busy on 160 and 192 columns). Its columns are laid out
+// as 128-bit, 64-bit and 32-bit groups so that a k-step costs two loads of the
+// activations and at most three of the weights. The weights come through shared
+// memory: k-slabs of W are copied with cp.async into two buffers, the next slab
+// in flight while the current one is used, one barrier a slab.
+//
+// The contractions (dW) keep the warp-tile form: a warp owns a 32 x 32 tile of
+// dW (15 tiles for 96 x 160, 30 for 160 x 192, on 16 warps), walks the pass's
+// rows with 128-bit loads of both operands and sends the tile to the CTA's
+// partial slab in device memory as two bulk copies out of shared memory (the
+// first pass stores, later passes add at the L2; a tile always comes from the
+// same warp, which waits for its last pass's copies, so the sum is in pass
+// order).
+//
+// The grid is persistent: `grid` CTAs (at most one an SM) each walk a contiguous
+// range of the launch's items (receiver blocks of jets), computed from the
+// indices alone, so the assignment, the partial slabs (one a CTA for the
+// weights; one per (jet, CTA that touches it) for the senders) and every order
+// of summation are the same on every run. The slabs are reduced in a fixed order
+// by the small kernels at the end of this file.
+//
+// With -DMPGAN_PHASE_CLOCKS the kernels sum clock64() per phase of a pass
+// (thread 0 of each CTA) into a device array that a C entry point reads; the
+// build without the flag carries none of it.
 #pragma once
+
+#include <cuda_pipeline.h>
 
 #include "edge_common.cuh"
 
 namespace {
 
-// dst = v on a CTA's first pass, dst += v after. Each such address is owned by
-// one thread on every pass, so the adds land in pass order and the sum is the
+constexpr int kSlabFloats = 4096;  // floats in each of the two weight k-slab buffers
+constexpr int kRowArrays = 10;     // per-row arrays of a pass (RowArrays)
+
+enum Phase {
+  kPhaseRows = 0,   // per-row arrays, a_0
+  kPhaseFwd,        // hidden layers but the last
+  kPhaseLast,       // last layer with dz_L and dmask in its epilogue
+  kPhaseWgrad,      // dW contractions and the partial adds
+  kPhaseDa,         // da products with dz in their epilogue
+  kPhaseRebuild,    // a_0 again
+  kPhaseTail,       // the kernel's own reductions and scatters
+  kPhaseProdWait,   // inside the products: waiting for a slab and its barrier
+  kPhaseProdLoop,   // inside the products: the k loop
+  kPhaseProdEpi,    // inside the products: the epilogue
+  kPhaseCount
+};
+
+#ifdef MPGAN_PHASE_CLOCKS
+__device__ unsigned long long g_phase_clocks[kPhaseCount];
+struct PhaseClock {
+  long long last;
+};
+__device__ __forceinline__ void phase_start(PhaseClock& c) { c.last = clock64(); }
+__device__ __forceinline__ void phase_stamp(PhaseClock& c, int phase) {
+  __syncthreads();  // the phase is over for every warp, not only for the one that stamps
+  if (threadIdx.x == 0) {
+    const long long now = clock64();
+    atomicAdd(&g_phase_clocks[phase], (unsigned long long)(now - c.last));
+    c.last = now;
+  }
+}
+#define MPGAN_PHASE_START(clock) phase_start(clock)
+#define MPGAN_PHASE(clock, phase) phase_stamp(clock, phase)
+#define MPGAN_SUBPHASE(phase)                                                        \
+  __syncthreads();                                                                   \
+  if (threadIdx.x == 0) {                                                            \
+    const long long now_ = clock64();                                                \
+    atomicAdd(&g_phase_clocks[phase], (unsigned long long)(now_ - sub_last_));       \
+    sub_last_ = now_;                                                                \
+  }
+#define MPGAN_SUBPHASE_START() long long sub_last_ = clock64()
+int read_phase_clocks(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));
+  if (err == cudaSuccess && reset) {
+    unsigned long long zeros[kPhaseCount] = {};
+    err = cudaMemcpyToSymbol(g_phase_clocks, zeros, sizeof(zeros));
+  }
+  return (int)err;
+}
+#else
+struct PhaseClock {};
+#define MPGAN_PHASE_START(clock)
+#define MPGAN_PHASE(clock, phase)
+#define MPGAN_SUBPHASE(phase)
+#define MPGAN_SUBPHASE_START()
+#endif
+
+// What the launcher decides about a launch. The pass shape, the grid and the
+// slot count come from the caller (the wrappers plan them, so that the planning
+// is tested where there is no card); the launcher lays out the shared memory.
+struct BwdPlan {
+  int ti, jc;       // receivers x senders (knn: neighbour ranks) of a pass
+  int rows;         // pair rows of the pass buffers: 32, 64 or 128
+  int ldr;          // their row stride, rows + 4
+  int row_warps;    // rows / 32
+  int col_threads;  // column threads of a product: 8 * (kWarps / row_warps)
+  int blocks;       // receiver blocks (items) per jet
+  int slots;        // sender slabs per jet
+  long long items;  // batch * blocks
+  int off_act[kMaxLayers];  // a_l (l < L), floats from the start of shared memory
+  int off_x;        // dz_L, and a_0 when L >= 2
+  int off_slab, off_part, off_rows;
+  int sender_stride;  // floats a sender's row takes in the sender slabs
+  int off_stage;      // knn: [rows x sender_stride] staging for the scatter, or -1
+  size_t smem;
+};
+
+// The pass buffers are named by their offset (in floats) from the start of the
+// dynamic shared memory, and turned into pointers where they are used: a pointer
+// that the compiler can trace to the shared array is read with shared-memory
+// loads, one that went through a struct or a call with generic loads, which are
+// slower.
+__device__ __forceinline__ float* smf(int off) {
+  extern __shared__ float4 smem4[];
+  return reinterpret_cast<float*>(smem4) + off;
+}
+__device__ __forceinline__ int* smi(int off) { return reinterpret_cast<int*>(smf(off)); }
+__device__ __forceinline__ unsigned* smu(int off) {
+  return reinterpret_cast<unsigned*>(smf(off));
+}
+
+// Per-row arrays of a pass, each [ldr] (offsets; smi / smu / smf).
+struct RowArrays {
+  int u1;      // int: offset of the receiver's row in u1, -1 on a padded row
+  int u2;      // int: offset of the sender's row in u2 (or u2m)
+  int g;       // int: offset of the receiver's row in g
+  int id;      // unsigned: K1's id of the row
+  int m;       // float: mask[sender] / denom, 0 on a padded row
+  int dist;    // float: the edge's distance (knn with distances)
+  int dsm;     // float, out: sum_h g[i, h] / denom * a_L[h]
+  int sender;  // int, knn: the sender, -1 on a padded row
+  int own;     // int, knn: which of the scatter's owners takes the row
+  int first;   // int, knn: the pass's first row with the same sender, -1 padded
+};
+
+struct PassBuffers {
+  int act[kMaxLayers];
+  int x;
+  int slab;
+  int part;  // [col warps x ldr] partial row sums of the last layer's epilogue
+  RowArrays row;
+};
+
+__device__ __forceinline__ PassBuffers carve(const BwdPlan& p, int n_layers) {
+  PassBuffers s;
+  for (int l = 0; l < max(n_layers, 1); ++l) s.act[l] = p.off_act[l];
+  s.x = p.off_x;
+  s.slab = p.off_slab;
+  s.part = p.off_part;
+  const int r = p.off_rows;
+  s.row.u1 = r;
+  s.row.u2 = r + p.ldr;
+  s.row.g = r + 2 * p.ldr;
+  s.row.id = r + 3 * p.ldr;
+  s.row.m = r + 4 * p.ldr;
+  s.row.dist = r + 5 * p.ldr;
+  s.row.dsm = r + 6 * p.ldr;
+  s.row.sender = r + 7 * p.ldr;
+  s.row.own = r + 8 * p.ldr;
+  s.row.first = r + 9 * p.ldr;
+  return s;
+}
+
+// Fills the layout of `p` from its pass shape; false where the shape is not one
+// the core runs or the shared memory does not fit.
+bool layout_plan(BwdPlan& p, const Chain& fe) {
+  if (p.rows != 32 && p.rows != 64 && p.rows != 128) return false;
+  if (p.ti < 1 || p.jc < 1 || p.ti * p.jc > p.rows) return false;
+  p.ldr = p.rows + 4;
+  p.row_warps = p.rows / 32;
+  p.col_threads = 8 * (kWarps / p.row_warps);
+  const int L = fe.n;
+  int width = 0;
+  if (L >= 2) {
+    p.off_x = 0;
+    p.off_act[0] = 0;
+    width = fe.dim[0] > fe.dim[L] ? fe.dim[0] : fe.dim[L];
+    for (int l = 1; l < L; ++l) {
+      p.off_act[l] = width * p.ldr;
+      width += fe.dim[l];
+    }
+  } else {
+    p.off_act[0] = 0;
+    p.off_x = fe.dim[0] * p.ldr;
+    width = fe.dim[0] + (L == 1 ? fe.dim[1] : 0);
+  }
+  p.off_slab = width * p.ldr;
+  p.off_part = p.off_slab + 2 * kSlabFloats;
+  p.off_rows = p.off_part + (kWarps / p.row_warps) * p.ldr;
+  p.smem = (size_t)(p.off_rows + kRowArrays * p.ldr) * sizeof(float);
+  return p.smem <= (size_t)kMaxSmemBytes;
+}
+
+// The static schedule: CTA c of `grid` walks items [c * items / grid,
+// (c + 1) * items / grid); item t belongs to CTA ((t + 1) * grid - 1) / items.
+__host__ __device__ __forceinline__ long long range_start(long long c, long long items,
+                                                          long long grid) {
+  return c * items / grid;
+}
+
+__host__ __device__ __forceinline__ int item_owner(long long t, long long items, long long grid) {
+  return (int)(((t + 1) * grid - 1) / items);
+}
+
+// dst = v on a CTA's first visit, dst += v after. Each such address is owned by
+// one thread on every visit, so the adds land in visit order and the sum is the
 // same, bit for bit, as a read-modify-write; atomicAdd with its result unused is
 // a fire-and-forget reduction, so the thread does not wait for the old value.
 __device__ __forceinline__ void accumulate_to(float* dst, float v, bool first) {
@@ -19,21 +251,345 @@ __device__ __forceinline__ void accumulate_to(float* dst, float v, bool first) {
     atomicAdd(dst, v);
 }
 
-// dW[K x M] (+)= A^T D over `rows` rows, A [K x lda] and D [M x lda] stored
-// transposed in shared memory; `first` overwrites instead of adding. A warp owns
-// a 32 (k) x 32 (m) tile; lane l takes rows k = k0 + (l >> 3) + 4i (i < 8) and
-// columns m = m0 + (l & 7) + 8j (j < 4), so the 8 lanes of a quarter warp read 8
-// neighbouring rows of D (lda = 4 mod 32 puts them in distinct banks) and one
-// row of A (a broadcast). It walks the pair rows 4 at a time with 128-bit loads,
-// not unrolled: unrolling twice spilled registers and ran slower (PERF.md).
-__device__ void weight_grad(const float* __restrict__ A, const float* __restrict__ D, int lda,
-                            int rows, int K, int M, float* __restrict__ dW,
-                            float* __restrict__ db, bool first) {
+// ---------------------------------------------------------------------------
+// The products
+// ---------------------------------------------------------------------------
+
+// A thread's columns are ct, ct + CT, ct + 2 CT, ...: for a fixed j the 8 column
+// threads of a quarter warp hold 8 neighbouring columns, so the epilogue's
+// 128-bit stores of 8 rows fall into distinct banks (ldr = 4 mod 32) and its
+// loads of the bias and of g are coalesced. The weights are packed to match
+// (pack_weights): row k holds, for every column thread, its TN values as
+// 128-bit groups first, then a 64-bit group, then single values, each group laid
+// over all column threads, so that a k-step costs at most three loads of them.
+__device__ __forceinline__ int tile_col(int j, int ct, int CT) { return ct + CT * j; }
+
+// Position of (column thread ct, j) in a packed row of TN * CT floats.
+__host__ __device__ __forceinline__ int packed_pos(int tn, int j, int ct, int CT) {
+  const int n4 = tn / 4, n2 = (tn % 4) / 2;
+  if (j < 4 * n4) return (j / 4) * 4 * CT + 4 * ct + (j % 4);
+  if (j < 4 * n4 + 2 * n2) return 4 * n4 * CT + 2 * ct + (j - 4 * n4);
+  return (4 * n4 + 2 * n2) * CT + ct;
+}
+
+template <int TN>
+__device__ __forceinline__ void load_w(const float* __restrict__ wrow, int ct, int CT,
+                                       float (&w)[TN]) {
+  constexpr int n4 = TN / 4, n2 = (TN % 4) / 2;
+#pragma unroll
+  for (int q = 0; q < n4; ++q) {
+    const float4 v = *reinterpret_cast<const float4*>(wrow + q * 4 * CT + 4 * ct);
+    w[4 * q] = v.x, w[4 * q + 1] = v.y, w[4 * q + 2] = v.z, w[4 * q + 3] = v.w;
+  }
+  if constexpr (n2 > 0) {
+    const float2 v = *reinterpret_cast<const float2*>(wrow + 4 * n4 * CT + 2 * ct);
+    w[4 * n4] = v.x, w[4 * n4 + 1] = v.y;
+  }
+  if constexpr (TN % 2 == 1) w[TN - 1] = wrow[(4 * n4 + 2 * n2) * CT + ct];
+}
+
+// Starts the copy of `floats` packed weights (whole rows, a multiple of 4) into
+// a slab buffer.
+__device__ __forceinline__ void stage_slab(float* __restrict__ dst, const float* __restrict__ src,
+                                           int floats) {
+  for (int t = threadIdx.x * 4; t < floats; t += kThreads * 4)
+    __pipeline_memcpy_async(dst + t, src + t, 16);
+  __pipeline_commit();
+}
+
+enum EpilogueKind {
+  kEpiHidden = 0,  // C = dropout(leaky(acc + bias))
+  kEpiLast,        // C = dz_L from the last layer's activation; row sums to `part`
+  kEpiBack         // C = acc * f'(C), in place
+};
+
+struct Epilogue {
+  int kind;
+  int C;              // [M x ldr] (offset)
+  const float* bias;  // kEpiHidden, kEpiLast
+  float alpha;
+  bool drop_on;
+  Drop drop;
+  unsigned salt;
+  const float* g;     // kEpiLast: the jet's g rows
+  int part;           // kEpiLast (offset)
+  RowArrays row;
+};
+
+// The multiplier of the derivative read off a stored activation.
+__device__ __forceinline__ float dact(float a, float alpha, bool drop_on, float mult) {
+  if (drop_on && __float_as_uint(a) == 0x80000000u) return 0.f;
+  return (a < 0.f ? alpha : 1.f) * (drop_on ? mult : 1.f);
+}
+
+// Activation after dropout as it is stored: kept -> leaky * mult (never -0.0f),
+// dropped -> -0.0f.
+__device__ __forceinline__ float drop_store(float v, const Drop& d, unsigned id, unsigned col,
+                                            unsigned salt) {
+  return dropmul(d, id, col, salt) != 0.f ? fmaf(v, d.mult, 0.f) : -0.f;
+}
+
+// One product over the pass: acc = A [rows x K] @ W [K x M], then the epilogue.
+// A is transposed in shared memory (A[k * ldr + r]); W is the packed copy of the
+// weights in device memory (rows of TN * CT floats). Starts
+// with a barrier (the previous phase's writes are visible, its reads of the slab
+// buffers done) and ends without one.
+template <int TN, bool kDrop>
+__device__ __noinline__ void product_tn(int a_off, int K, const float* __restrict__ W, int M,
+                                        int slab_off, const BwdPlan& p, const Epilogue& e_in) {
+  // a copy of its own: through the reference every field would be read again
+  // after each store to shared memory, which it might alias
+  const Epilogue e = e_in;
+  const float* A = smf(a_off);
+  float* slab = smf(slab_off);
+  float* C = smf(e.C);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nkb = (K + kRowBlock - 1) / kRowBlock, nmb = (M + kColBlock - 1) / kColBlock;
+  const int CT = p.col_threads, ldr = p.ldr;
+  const int r0 = (warp % p.row_warps) * 32 + (lane >> 3) * 8;
+  const int wc = warp / p.row_warps;
+  const int ct = wc * 8 + (lane & 7);
+  const int ldw = TN * CT;
+  const int ks = min(K, kSlabFloats / ldw);
+  const int n_slab = (K + ks - 1) / ks;
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  MPGAN_SUBPHASE_START();
+  __syncthreads();
+  stage_slab(slab, W, ks * ldw);
+  for (int s = 0; s < n_slab; ++s) {
+    const int k0 = s * ks, ks_eff = min(ks, K - k0);
+    __pipeline_wait_prior(0);
+    __syncthreads();  // slab s has landed for everyone; the other buffer is free
+    if (s + 1 < n_slab)
+      stage_slab(slab + ((s + 1) & 1) * kSlabFloats, W + (size_t)(k0 + ks) * ldw,
+                 min(ks, K - k0 - ks) * ldw);
+    MPGAN_SUBPHASE(kPhaseProdWait);
+    const float* wrow = slab + (s & 1) * kSlabFloats;
+    const float* ap = A + (size_t)k0 * ldr + r0;
+#pragma unroll 4
+    for (int kk = 0; kk < ks_eff; ++kk, ap += ldr, wrow += ldw) {
+      const float4 a0 = *reinterpret_cast<const float4*>(ap);
+      const float4 a1 = *reinterpret_cast<const float4*>(ap + 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float w[TN];
+      load_w<TN>(wrow, ct, CT, w);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+    MPGAN_SUBPHASE(kPhaseProdLoop);
+  }
+
+  if (e.kind == kEpiBack) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = tile_col(j, ct, CT);
+      if (c >= M) continue;
+      float4* dst = reinterpret_cast<float4*>(C + (size_t)c * ldr + r0);
+      const float4 p0 = dst[0], p1 = dst[1];
+      const float a[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = acc[i][j] * dact(a[i], e.alpha, kDrop, e.drop.mult);
+      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+    MPGAN_SUBPHASE(kPhaseProdEpi);
+    return;
+  }
+
+  unsigned ids[8];
+  if (kDrop) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ids[i] = smu(e.row.id)[r0 + i];
+  }
+  if (e.kind == kEpiHidden) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = tile_col(j, ct, CT);
+      if (c >= M) continue;
+      const float bc = __ldg(e.bias + c);
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        v[i] = leaky(acc[i][j] + bc, e.alpha);
+        if (kDrop) v[i] = drop_store(v[i], e.drop, ids[i], (unsigned)c, e.salt);
+      }
+      float4* dst = reinterpret_cast<float4*>(C + (size_t)c * ldr + r0);
+      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+    MPGAN_SUBPHASE(kPhaseProdEpi);
+    return;
+  }
+
+  // kEpiLast
+  float gm[8], dsum[8];
+  int go[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    gm[i] = smf(e.row.m)[r0 + i];
+    go[i] = max(smi(e.row.g)[r0 + i], 0);
+    dsum[i] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int c = tile_col(j, ct, CT);
+    if (c >= M) continue;
+    const float bc = __ldg(e.bias + c);
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float a = leaky(acc[i][j] + bc, e.alpha);
+      if (kDrop) a = drop_store(a, e.drop, ids[i], (unsigned)c, e.salt);
+      const float gv = __ldg(e.g + go[i] + c);
+      dsum[i] = fmaf(gv, a, dsum[i]);
+      v[i] = gv * gm[i] * dact(a, e.alpha, kDrop, e.drop.mult);
+    }
+    float4* dst = reinterpret_cast<float4*>(C + (size_t)c * ldr + r0);
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], o);
+  }
+  if ((lane & 7) == 0) {
+    float4* dst = reinterpret_cast<float4*>(smf(e.part) + wc * ldr + r0);
+    dst[0] = make_float4(dsum[0], dsum[1], dsum[2], dsum[3]);
+    dst[1] = make_float4(dsum[4], dsum[5], dsum[6], dsum[7]);
+  }
+  MPGAN_SUBPHASE(kPhaseProdEpi);
+}
+
+__device__ void product(int A, int K, const float* W, int M, int slab, const BwdPlan& p,
+                        const Epilogue& e) {
+  const int tn = (M + p.col_threads - 1) / p.col_threads;
+#define MPGAN_PRODUCT_CASE(TN)                                   \
+  case TN:                                                       \
+    if (e.drop_on)                                               \
+      product_tn<TN, true>(A, K, W, M, slab, p, e);              \
+    else                                                         \
+      product_tn<TN, false>(A, K, W, M, slab, p, e);             \
+    break;
+  switch (tn) {
+    MPGAN_PRODUCT_CASE(1)
+    MPGAN_PRODUCT_CASE(2)
+    MPGAN_PRODUCT_CASE(3)
+    MPGAN_PRODUCT_CASE(4)
+    MPGAN_PRODUCT_CASE(5)
+    MPGAN_PRODUCT_CASE(6)
+    MPGAN_PRODUCT_CASE(7)
+    MPGAN_PRODUCT_CASE(8)
+  }
+#undef MPGAN_PRODUCT_CASE
+}
+
+// Where a CTA's weight-gradient partials live in its slab, and where the sums go
+// in the flat gradient buffer ([dW_0, db_0, dW_1, db_1, ..., extra]). dW_l is
+// kept tile-major: a warp's 32 (k) x 32 (m) tile is two blocks of 512 floats,
+// each lane's 16 values of a block together: the layout of the staging buffer
+// that weight_grad copies out in bulk.
+constexpr int kTileK = 32, kTileM = 32, kTileFloats = kTileK * kTileM;
+constexpr int kTileParts = 2, kPartFloats = kTileFloats / kTileParts;  // 2 KB blocks
+
+struct WSlab {
+  int n;
+  int K[kMaxLayers], M[kMaxLayers];
+  int tiles[kMaxLayers];  // slab offset of layer l's tiles
+  int db[kMaxLayers];     // slab offset of db_l
+  int flat[kMaxLayers];   // flat offset of dW_l (db_l follows it)
+  int extra, extra_flat, n_extra;  // knn: dw_d
+  int slab_floats, flat_floats;
+};
+
+WSlab make_wslab(const Chain& fe, int n_extra) {
+  WSlab ws{};
+  ws.n = fe.n;
+  int slab = 0, flat = 0;
+  for (int l = 0; l < fe.n; ++l) {
+    const int K = fe.dim[l], M = fe.dim[l + 1];
+    ws.K[l] = K;
+    ws.M[l] = M;
+    ws.tiles[l] = slab;
+    slab += ((K + kTileK - 1) / kTileK) * ((M + kTileM - 1) / kTileM) * kTileFloats;
+    ws.db[l] = slab;
+    slab += (M + 3) / 4 * 4;
+    ws.flat[l] = flat;
+    flat += K * M + M;
+  }
+  ws.extra = slab;
+  ws.extra_flat = flat;
+  ws.n_extra = n_extra;
+  ws.slab_floats = slab + (n_extra + 3) / 4 * 4;
+  ws.flat_floats = flat + n_extra;
+  return ws;
+}
+
+// Hopper's bulk asynchronous copies between shared and device memory, here from a
+// staging buffer in shared memory into the CTA's partial tiles: a plain store
+// on the first pass, an element-wise float add (done at the L2) after. The copy
+// engine moves the bytes; the issuing thread goes on and later waits for its
+// group. `bytes` is a multiple of 16, both addresses 16-byte aligned.
+__device__ __forceinline__ void bulk_to_global(float* dst, const float* staged, int bytes,
+                                               bool add) {
+  const unsigned src = (unsigned)__cvta_generic_to_shared(staged);
+  const size_t out = __cvta_generic_to_global(dst);
+  if (add)
+    asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;"
+                 ::"l"(out), "r"(src), "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                 ::"l"(out), "r"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// The thread's bulk copies have read their shared-memory source.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// The thread's bulk copies are complete.
+__device__ __forceinline__ void bulk_wait_done() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// Orders the thread's ordinary writes to shared memory before bulk copies read them.
+__device__ __forceinline__ void fence_for_bulk() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// dW[K x M] (+)= A^T D over `rows` rows, A [K x lda] and D [M x lda] stored
+// transposed in shared memory; `first` overwrites the CTA's partial instead of
+// adding to it. A warp owns a 32 (k) x 32 (m) tile; lane l takes rows k = k0 +
+// (l >> 3) + 4i (i < 8) and columns m = m0 + (l & 7) + 8j (j < 4): the 8 lanes of a
+// quarter warp read 8 neighbouring rows of D (lda = 4 mod 32 puts them in
+// distinct banks) and one row of A (a broadcast). It walks the pair rows 4 at a
+// time with 128-bit loads (wider tiles, 32 x 48 and 32 x 64 with 64-bit loads,
+// were slower: PERF.md). The tile's sums go to the CTA's partial through the
+// warp's 2 KB of the (idle) weight slab buffers, half a tile at a time, as one
+// bulk reduction each: 46,080 atomicAdds a pass cost as much as the
+// contraction's arithmetic, the L2 adds a 2 KB block in one request. Within a
+// pass the warp only waits until a block has left the buffer; it waits for its
+// blocks to be complete before the next pass adds to the same tiles, so the sums
+// to one tile are in pass order.
+__device__ __noinline__ void weight_grad(int a_off, int d_off_, int lda, int rows, int K, int M,
+                                         float* __restrict__ tiles, float* __restrict__ db,
+                                         int slab_off, bool first) {
+  const float* A = smf(a_off);
+  const float* D = smf(d_off_);
+  float* stage = smf(slab_off) + (threadIdx.x >> 5) * kPartFloats;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nkb = (K + kTileK - 1) / kTileK, nmb = (M + kTileM - 1) / kTileM;
+  // the last pass's blocks are complete, so this pass's blocks to the same tiles
+  // follow them (a wait that finds them long done)
+  if (lane == 0) bulk_wait_done();
   for (int wb = warp; wb < nkb * nmb; wb += kWarps) {
-    const int k0 = (wb / nmb) * kRowBlock + (lane >> 3);
-    const int m0 = (wb % nmb) * kColBlock + (lane & 7);
+    const int k0 = (wb / nmb) * kTileK + (lane >> 3);
+    const int m0 = (wb % nmb) * kTileM + (lane & 7);
     int a_off[8], d_off[4];
 #pragma unroll
     for (int i = 0; i < 8; ++i) a_off[i] = min(k0 + 4 * i, K - 1) * lda;
@@ -61,49 +617,373 @@ __device__ void weight_grad(const float* __restrict__ A, const float* __restrict
           acc[i][j] = fmaf(a[i].w, d[j].w, acc[i][j]);
         }
     }
+    // values beyond K or M land in the tile's padding, which nobody reads
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int k = k0 + 4 * i;
+    for (int part = 0; part < kTileParts; ++part) {
+      // the block before this one has left the buffer
+      if (lane == 0) bulk_wait_read();
+      __syncwarp();
+      float4* out = reinterpret_cast<float4*>(stage + lane * 16);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = m0 + 8 * j;
-        if (k < K && m < M) accumulate_to(dW + (size_t)k * M + m, acc[i][j], first);
+      for (int q = 0; q < 4; ++q) {
+        const int i = part * 4 + q;
+        out[q] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       }
+      fence_for_bulk();
+      __syncwarp();
+      if (lane == 0)
+        bulk_to_global(tiles + ((size_t)wb * kTileParts + part) * kPartFloats, stage,
+                       kPartFloats * (int)sizeof(float), !first);
     }
   }
+  // the slab buffers go back to the products
+  if (lane == 0) bulk_wait_read();
   for (int m = threadIdx.x; m < M; m += kThreads) {
-    const float* col = D + (size_t)m * lda;
+    const float4* col = reinterpret_cast<const float4*>(D + (size_t)m * lda);
     float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += col[r];
+    for (int r = 0; r < rows / 4; ++r) {
+      const float4 v = col[r];
+      s += v.x, s += v.y, s += v.z, s += v.w;
+    }
     accumulate_to(db + m, s, first);
   }
 }
 
-// out[o, k] = sum_q in[o * outer_stride + q * part_stride + k] for q in [0, parts),
-// summed in order q = 0, 1, ... (deterministic).
-__global__ void reduce_parts(const float* __restrict__ in, float* __restrict__ out, int outer,
-                             int parts, long long inner, long long part_stride,
-                             long long outer_stride) {
-  const long long total = (long long)outer * inner;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += (long long)gridDim.x * blockDim.x) {
-    const long long o = t / inner, k = t - (t / inner) * inner;
-    const float* src = in + o * outer_stride + k;
-    float s = 0.f;
-    for (int q = 0; q < parts; ++q) s += src[q * part_stride];
-    out[t] = s;
+// ---------------------------------------------------------------------------
+// The packed weights
+// ---------------------------------------------------------------------------
+
+// Per hidden layer l (W_l [K x M]): fwd[l] feeds a_l = a_{l-1} W_l (K rows of
+// TN(M) * CT floats), bwd[l] feeds da_{l-1} = dz_l W_l^T (M rows of TN(K) * CT).
+struct Packed {
+  const float* fwd[kMaxLayers];
+  const float* bwd[kMaxLayers];
+};
+
+struct PackJobs {
+  const float* w[kMaxLayers];
+  int k[kMaxLayers], m[kMaxLayers];
+  long long fwd[kMaxLayers], bwd[kMaxLayers];  // offsets into the packed buffer
+  int n, col_threads;
+};
+
+__host__ __device__ __forceinline__ int tile_width(int m, int col_threads) {
+  return (m + col_threads - 1) / col_threads;
+}
+
+// Floats of the packed buffer, and the jobs' offsets.
+long long plan_pack(PackJobs& jobs, const Chain& fe, int col_threads) {
+  long long off = 0;
+  jobs.n = fe.n;
+  jobs.col_threads = col_threads;
+  for (int l = 0; l < fe.n; ++l) {
+    jobs.w[l] = fe.w[l];
+    jobs.k[l] = fe.dim[l];
+    jobs.m[l] = fe.dim[l + 1];
+    jobs.fwd[l] = off;
+    off += (long long)jobs.k[l] * tile_width(jobs.m[l], col_threads) * col_threads;
+    jobs.bwd[l] = off;
+    off += (long long)jobs.m[l] * tile_width(jobs.k[l], col_threads) * col_threads;
+  }
+  return off;
+}
+
+// out[row][packed_pos(j, ct)] = in(row, ct + CT * j), zero beyond the matrix.
+__global__ void pack_weights(PackJobs jobs, float* __restrict__ packed) {
+  const int CT = jobs.col_threads;
+  for (int job = 0; job < 2 * jobs.n; ++job) {
+    const int l = job >> 1;
+    const bool back = job & 1;
+    const int rows = back ? jobs.m[l] : jobs.k[l], cols = back ? jobs.k[l] : jobs.m[l];
+    const int tn = tile_width(cols, CT), ldw = tn * CT;
+    float* out = packed + (back ? jobs.bwd[l] : jobs.fwd[l]);
+    const float* w = jobs.w[l];
+    for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < rows * ldw;
+         t += gridDim.x * blockDim.x) {
+      const int row = t / ldw, q = t - row * ldw, j = q / CT, ct = q - j * CT;
+      const int c = ct + CT * j;
+      float v = 0.f;
+      if (c < cols) v = back ? w[(size_t)c * jobs.m[l] + row] : w[(size_t)row * jobs.m[l] + c];
+      out[(size_t)row * ldw + packed_pos(tn, j, ct, CT)] = v;
+    }
   }
 }
 
-int launch_reduce(const float* in, float* out, int outer, int parts, long long inner,
-                  long long part_stride, long long outer_stride, cudaStream_t stream) {
-  const long long total = (long long)outer * inner;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  reduce_parts<<<(int)(blocks < 4096 ? blocks : 4096), threads, 0, stream>>>(
-      in, out, outer, parts, inner, part_stride, outer_stride);
+// Packs the chain's weights into `packed` (plan_pack's size) on `stream`.
+int launch_pack(const Chain& fe, int col_threads, float* packed, Packed& pk,
+                cudaStream_t stream) {
+  PackJobs jobs;
+  plan_pack(jobs, fe, col_threads);
+  for (int l = 0; l < fe.n; ++l) {
+    pk.fwd[l] = packed + jobs.fwd[l];
+    pk.bwd[l] = packed + jobs.bwd[l];
+  }
+  if (fe.n == 0) return 0;
+  pack_weights<<<64, 256, 0, stream>>>(jobs, packed);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The pass
+// ---------------------------------------------------------------------------
+
+// What a pass reads besides its row arrays.
+struct PassInputs {
+  const float* u1;   // the jet's receiver rows
+  const float* u2;   // the jet's sender rows (K6: [u2 | mask] rows)
+  const float* g;    // the jet's g rows
+  const float* w_d;  // knn with distances, else null
+  float alpha, denom;
+  bool drop_on;
+  Drop drop;
+  int need_wgrads;
+  float* wp;         // the CTA's weight partials (laid out by `ws`)
+  const WSlab* ws;
+  bool first;        // the CTA's first pass
+};
+
+// a_0 [h1 x rows] from the row arrays; a padded row is zero. A warp takes a row at
+// a time, its lanes the features, so the loads of u1 and u2 are coalesced.
+__device__ __noinline__ void build_a0(int dst_off, const BwdPlan& p, const RowArrays& row_in,
+                                      const PassInputs& in_ref, int h1) {
+  const PassInputs in = in_ref;  // copies: see product_tn
+  const RowArrays row = row_in;
+  const int rows = p.rows, ldr = p.ldr;
+  float* dst = smf(dst_off);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* __restrict__ u1 = in.u1;
+  const float* __restrict__ u2 = in.u2;
+  // eight rows at a time (all of a warp's at 128 rows), their loads issued
+  // together: a row's operands may come from device memory, and a warp that took
+  // its rows one by one would wait for each in turn
+  constexpr int kTogether = 8;
+  for (int r0 = warp; r0 < rows; r0 += kWarps * kTogether) {
+    int o1[kTogether], o2[kTogether];
+    unsigned id[kTogether];
+    float dist[kTogether];
+#pragma unroll
+    for (int q = 0; q < kTogether; ++q) {
+      const int r = min(r0 + q * kWarps, rows - 1);
+      o1[q] = r0 + q * kWarps < rows ? smi(row.u1)[r] : -2;
+      o2[q] = smi(row.u2)[r];
+      id[q] = smu(row.id)[r];
+      dist[q] = smf(row.dist)[r];
+    }
+    for (int h = lane; h < h1; h += 32) {
+      float z[kTogether];
+#pragma unroll
+      for (int q = 0; q < kTogether; ++q)
+        z[q] = o1[q] >= 0 ? __ldg(u1 + o1[q] + h) + __ldg(u2 + o2[q] + h) : 0.f;
+      const float wd = in.w_d != nullptr ? __ldg(in.w_d + h) : 0.f;
+#pragma unroll
+      for (int q = 0; q < kTogether; ++q) {
+        if (o1[q] == -2) continue;  // beyond the pass
+        float v = 0.f;
+        if (o1[q] >= 0) {
+          // rounded as the plain version rounds it, product and sum apart: a
+          // pre-activation on the other side of zero takes the other slope
+          if (in.w_d != nullptr) z[q] = __fadd_rn(z[q], __fmul_rn(dist[q], wd));
+          v = leaky(z[q], in.alpha);
+          if (in.drop_on) v = drop_store(v, in.drop, id[q], (unsigned)h, 0u);
+        }
+        dst[h * ldr + r0 + q * kWarps] = v;
+      }
+    }
+  }
+}
+
+// One pass through the chain and back. The row arrays are filled (no barrier
+// needed before the call). Returns the offset of dz_0 [dim[0] x ldr], complete
+// and visible to every thread, with row.dsm filled.
+__device__ int bwd_pass(const PassBuffers& s, const BwdPlan& p, const Chain& fe,
+                           const Packed& pk, const PassInputs& in, PhaseClock& clock) {
+  const int L = fe.n, h1 = fe.dim[0];
+  Epilogue e;
+  e.alpha = in.alpha;
+  e.drop_on = in.drop_on;
+  e.drop = in.drop;
+  e.g = in.g;
+  e.part = s.part;
+  e.row = s.row;
+  __syncthreads();  // the row arrays are visible; the previous pass is done with the buffers
+  build_a0(s.act[0], p, s.row, in, h1);
+  MPGAN_PHASE(clock, kPhaseRows);
+  if (L == 0) {
+    // no hidden layer: dz_0 and dmask straight from a_0, a warp per row
+    __syncthreads();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < p.rows; r += kWarps) {
+      const float gm = smf(s.row.m)[r];
+      const float* gi = in.g + max(smi(s.row.g)[r], 0);
+      float* a0 = smf(s.act[0]);
+      float acc = 0.f;
+      for (int h = lane; h < h1; h += 32) {
+        const float a = a0[h * p.ldr + r];
+        const float gv = __ldg(gi + h);
+        acc = fmaf(gv, a, acc);
+        a0[h * p.ldr + r] = gv * gm * dact(a, in.alpha, in.drop_on, in.drop.mult);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (lane == 0) smf(s.row.dsm)[r] = acc / in.denom;
+    }
+    __syncthreads();
+    MPGAN_PHASE(clock, kPhaseLast);
+    return s.act[0];
+  }
+  for (int l = 1; l < L; ++l) {
+    e.kind = kEpiHidden;
+    e.C = s.act[l];
+    e.bias = fe.b[l - 1];
+    e.salt = (unsigned)l;
+    product(s.act[l - 1], fe.dim[l - 1], pk.fwd[l - 1], fe.dim[l], s.slab, p, e);
+  }
+  MPGAN_PHASE(clock, kPhaseFwd);
+  e.kind = kEpiLast;
+  e.C = s.x;
+  e.bias = fe.b[L - 1];
+  e.salt = (unsigned)L;
+  product(s.act[L - 1], fe.dim[L - 1], pk.fwd[L - 1], fe.dim[L], s.slab, p, e);
+  __syncthreads();
+  for (int r = threadIdx.x; r < p.rows; r += kThreads) {
+    float acc = 0.f;
+    for (int q = 0; q < kWarps / p.row_warps; ++q) acc += smf(s.part)[q * p.ldr + r];
+    smf(s.row.dsm)[r] = acc / in.denom;
+  }
+  MPGAN_PHASE(clock, kPhaseLast);
+  int dz = s.x;
+  for (int l = L; l >= 1; --l) {
+    const int K = fe.dim[l - 1], M = fe.dim[l];
+    if (l == 1 && L >= 2) {
+      // dz_L's buffer is free: a_0 again, for dW_1 and the derivative
+      __syncthreads();
+      build_a0(s.act[0], p, s.row, in, h1);
+      MPGAN_PHASE(clock, kPhaseRebuild);
+    }
+    if (in.need_wgrads) {
+      __syncthreads();
+      weight_grad(s.act[l - 1], dz, p.ldr, p.rows, K, M, in.wp + in.ws->tiles[l - 1],
+                  in.wp + in.ws->db[l - 1], s.slab, in.first);
+      MPGAN_PHASE(clock, kPhaseWgrad);
+    }
+    e.kind = kEpiBack;
+    e.C = s.act[l - 1];
+    product(dz, M, pk.bwd[l - 1], K, s.slab, p, e);
+    dz = s.act[l - 1];
+    MPGAN_PHASE(clock, kPhaseDa);
+  }
+  __syncthreads();
+  return dz;
+}
+
+// Before a kernel ends: the thread's bulk copies have landed.
+__device__ __forceinline__ void finish_bulk() { bulk_wait_done(); }
+
+// ---------------------------------------------------------------------------
+// The fixed-order reductions of the partial slabs
+// ---------------------------------------------------------------------------
+
+// The sender slabs: part [batch, slots, n, stride] (column h1: dmask; columns
+// beyond it padding) summed over
+// the slots that the schedule gave jet b (the CTAs from the owner of its first
+// item to the owner of its last), in slot order, into du2 [batch, n, h1] and
+// dmask [batch, n].
+__global__ void reduce_sender_slabs(const float* __restrict__ part, float* __restrict__ du2,
+                                    float* __restrict__ dmask, int batch, int n, int h1,
+                                    int stride, int slots, int blocks, long long items,
+                                    int grid) {
+  const long long inner = (long long)n * stride, total = batch * inner;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
+       t += (long long)gridDim.x * blockDim.x) {
+    const long long b = t / inner, k = t - b * inner;
+    const int used = item_owner((b + 1) * blocks - 1, items, grid) -
+                     item_owner(b * blocks, items, grid) + 1;
+    const float* src = part + b * slots * inner + k;
+    float s = 0.f;
+    for (int q = 0; q < used; ++q) s += src[q * inner];
+    const long long row = k / stride;
+    const int c = (int)(k - row * stride);
+    if (c < h1)
+      du2[(b * n + row) * h1 + c] = s;
+    else if (c == h1)
+      dmask[b * n + row] = s;
+  }
+}
+
+int blocks_for(long long total, int threads) {
+  const long long blocks = (total + threads - 1) / threads;
+  return (int)(blocks < 4096 ? blocks : 4096);
+}
+
+// The weight gradients: flat[w] = sum over the CTAs' slabs, in CTA order, of the
+// element that holds w (tile-major for dW_l, plain for db_l and the extra).
+__global__ void reduce_wgrads(const float* __restrict__ w_part, float* __restrict__ flat, int grid,
+                              WSlab ws) {
+  for (int w = blockIdx.x * blockDim.x + threadIdx.x; w < ws.flat_floats;
+       w += gridDim.x * blockDim.x) {
+    int at = ws.extra + (w - ws.extra_flat);
+    for (int l = 0; l < ws.n; ++l) {
+      const int e = w - ws.flat[l], K = ws.K[l], M = ws.M[l];
+      if (e < 0 || e >= K * M + M) continue;
+      if (e >= K * M) {
+        at = ws.db[l] + e - K * M;
+      } else {
+        const int k = e / M, m = e - k * M;
+        const int nmb = (M + kTileM - 1) / kTileM;
+        const int tile = (k / kTileK) * nmb + m / kTileM;
+        const int kk = k % kTileK, mm = m % kTileM;
+        const int lane = (kk % 4) * 8 + mm % 8;
+        // blocks of 512 by row group i / 4: lane's 16 values, (i % 4, j)
+        const int i = kk / 4, j = mm / 8;
+        at = ws.tiles[l] + (tile * kTileParts + i / 4) * kPartFloats + lane * 16 + (i % 4) * 4 + j;
+      }
+      break;
+    }
+    float s = 0.f;
+    for (int q = 0; q < grid; ++q) s += w_part[(size_t)q * ws.slab_floats + at];
+    flat[w] = s;
+  }
+}
+
+// Both reductions after a backward kernel; `wgrads` [ws.flat_floats] may be null.
+int launch_reductions(const float* sender_part, float* du2, float* dmask, int batch, int n,
+                      int h1, const BwdPlan& p, int grid, const float* w_part, float* wgrads,
+                      const WSlab& ws, cudaStream_t stream) {
+  const int threads = 256;
+  const long long total = (long long)batch * n * p.sender_stride;
+  reduce_sender_slabs<<<blocks_for(total, threads), threads, 0, stream>>>(
+      sender_part, du2, dmask, batch, n, h1, p.sender_stride, p.slots, p.blocks, p.items, grid);
+  int code = (int)cudaGetLastError();
+  if (code != 0 || wgrads == nullptr || ws.flat_floats == 0) return code;
+  reduce_wgrads<<<blocks_for(ws.flat_floats, threads), threads, 0, stream>>>(w_part, wgrads, grid,
+                                                                             ws);
+  return (int)cudaGetLastError();
+}
+
+// Checks what the caller planned and fills the rest of the plan.
+bool make_plan(BwdPlan& p, const Chain& fe, int batch, int n_recv, int n_send, int ti, int jc,
+               int rows, int grid, int slots, bool stage_scatter) {
+  p = BwdPlan{};
+  p.ti = ti;
+  p.jc = jc;
+  p.rows = rows;
+  if (!layout_plan(p, fe) || ti > n_recv || jc > n_send) return false;
+  // the scatter is staged in the buffer that dz_1 leaves behind, where one exists
+  // and holds a sender row (padded to 16 bytes) for every pass row
+  p.sender_stride = stage_scatter ? round_up(fe.dim[0] + 1, 4) : fe.dim[0] + 1;
+  p.off_stage = -1;
+  if (stage_scatter && fe.n >= 1 && p.rows * p.sender_stride <= fe.dim[1] * p.ldr)
+    p.off_stage = fe.n >= 2 ? p.off_act[1] : p.off_x;
+  p.blocks = (n_recv + ti - 1) / ti;
+  p.items = (long long)batch * p.blocks;
+  p.slots = slots;
+  if (grid < 1 || grid > p.items) return false;
+  // every jet's CTAs must find a slot
+  for (long long b = 0; b < batch; ++b)
+    if (item_owner((b + 1) * p.blocks - 1, p.items, grid) -
+            item_owner(b * p.blocks, p.items, grid) >= slots)
+      return false;
+  return true;
 }
 
 }  // namespace

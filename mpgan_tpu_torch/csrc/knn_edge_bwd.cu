@@ -14,321 +14,280 @@
 // layer (last to first) dz = da * mult * dleaky(z), da_prev = dz W^T.
 //
 // What bounds it: per edge row it does three times the forward chain's FMAs (the
-// recompute, dW and da), so like K3 it is bound by FP32 FMA issue and shared-
-// memory operand loads. The design:
-//   - the same CTA shape as K5: a CTA owns a group of up to 32 receivers of one
-//     jet and walks its edges in passes of ti receivers x kc ranks. A pass gathers
-//     its rows' senders from idx, recomputes the chain into shared memory keeping
-//     every layer's activation, then backprops through two ping-pong gradient
-//     buffers, exactly as K3 does (the derivative is read off the stored
-//     activation, so the wrapper refuses alpha <= 0; layer 1's dist * w_d term is
-//     rounded as the plain version rounds it, product and sum apart, because a
-//     pre-activation that lands on the other side of zero takes the other slope
-//     and moves that edge's whole gradient). At the published widths a
-//     64-row pass holds (96 + 160 + 192) activations and (192 + 160) gradients per
-//     row, 218 KB; the launcher sizes the pass from the shapes;
-//   - du1 and ddists rows belong to one CTA and are written in place;
-//   - the scatter into the senders is deterministic. The group's du2 [n, h1] does
-//     not fit in shared memory beside the pass, so du2 and dmask go to per-CTA
-//     partial slabs in device memory, zeroed by the caller. Within a CTA the
-//     column h of every sender row is added by one thread (thread h), walking the
-//     pass's rows in order, pass after pass; dmask by one other thread. Adds to
-//     one address from one thread land in program order, so each partial is the
-//     same sum, bit for bit, on every run, and the adds are fire-and-forget
-//     atomicAdds that nobody waits for. A second kernel reduces the slabs over the
-//     groups in a fixed order;
-//   - the weight gradients (and dw_d) cross jets: per-CTA partials, first pass
-//     writes and later passes add, reduced in a fixed order, as in K3. With
-//     need_wgrads = 0 (the G step differentiating through D) the contractions are
-//     skipped and the caller's zero-filled gradients stay zero.
+// recompute, dW and da), so it is bound by FP32 FMA issue and shared-memory
+// operand loads. The recompute-and-backprop pass, its shared-memory plan, the
+// products and the contractions are edge_bwd_common.cuh's (shared with K3, the
+// dense backward); layer 1's dist * w_d term is rounded there as the plain
+// version rounds it. This file adds what is knn:
+//   - an item of the persistent grid's schedule is a block of ti receivers of one
+//     jet; a pass is ti receivers x kc neighbour ranks (6 x 20 = 120 edge rows of
+//     128 at k = 20), its rows' senders gathered from idx;
+//   - du1 and ddists rows belong to one item and are written in place;
+//   - the scatter into the senders is deterministic. Each CTA that touches a jet
+//     owns one slab [n, h1 + 1] (column h1: dmask) of that jet's `slots` and
+//     zeroes it itself on its first item of the jet, so the caller fills nothing.
+//     A pass's rows that share a sender are first summed in shared memory: a warp
+//     per row finds the first row with its sender by ballots, thread
+//     h + (h1 + 1) * (first mod Q), Q = 512 / (h1 + 1), owns column h of that
+//     row's staging line and adds the later rows to it in row order, so the
+//     whole CTA works and each staged sum has one fixed order. Then one bulk
+//     reduction (cp.reduce.async.bulk) a sender adds its line to the slab:
+//     within a pass no two adds meet at one address in device memory, and a
+//     pass's reductions are complete before the next pass issues its own, so a
+//     slab is the same sum, bit for bit, on every run. This is the path at the
+//     published widths. Only where the plan finds no room for the staging buffer
+//     (off_stage < 0: wide chains) the owner thread of (h, j mod Q) walks the
+//     pass's rows in order and adds those of its senders to the slab with
+//     fire-and-forget atomicAdds, which from one thread to one address land in
+//     program order. A second kernel sums a jet's slabs in slot order;
+//   - the weight gradients (and dw_d) go to one partial slab a CTA, reduced over
+//     the CTAs in order. With need_wgrads = 0 (the G step differentiating through
+//     D) the contractions are skipped and the caller's zero gradients stay zero.
 
 #include "edge_bwd_common.cuh"
 
 namespace {
 
-struct KnnBwdPlan {
-  int group, ti, kc, ldr;
-  int d0, d1;  // widths of the two gradient buffers
-};
-
-// grid = (batch, number of receiver groups). Shared memory: the activations
-// a_0..a_L ([dim_l x ldr] each), the gradient buffers D0 [d0 x ldr] and D1
-// [d1 x ldr], then per pass row: the sender (-1 on padded rows), its mask, the
-// edge's distance, and dsmask. `fe_t` holds W^T for each hidden layer.
-template <bool kDrop>
+// grid = the plan's CTAs. `pk` holds the packed weights. sender_part
+// [batch, slots, n, h1 + 1]; w_part [grid, ws.slab_floats], dw_d's partial last.
 __global__ void __launch_bounds__(kThreads, 1)
     knn_edge_bwd_kernel(const float* __restrict__ u1, const float* __restrict__ u2m,
                         const int* __restrict__ idx, const float* __restrict__ dists,
                         const float* __restrict__ w_d, const float* __restrict__ g,
                         float* __restrict__ du1, float* __restrict__ ddists,
-                        float* __restrict__ du2_part, float* __restrict__ dmask_part,
-                        float* __restrict__ w_part, int n, int h1, int k, KnnBwdPlan p, Chain fe,
-                        Chain fe_t, float alpha, int sum_agg, Drop drop, int need_wgrads,
-                        int w_total) {
-  extern __shared__ float4 smem4[];
-  float* acts[kMaxLayers + 1];
-  float* cur = reinterpret_cast<float*>(smem4);
-  for (int l = 0; l <= fe.n; ++l) {
-    acts[l] = cur;
-    cur += fe.dim[l] * p.ldr;
-  }
-  float* grad0 = cur;
-  float* grad1 = cur + p.d0 * p.ldr;
-  float* smask = grad1 + p.d1 * p.ldr;  // [ldr]
-  float* rdist = smask + p.ldr;         // [ldr]
-  float* dsm = rdist + p.ldr;           // [ldr]
-  int* rowj = reinterpret_cast<int*>(dsm + p.ldr);  // [ldr]
-
-  const int b = blockIdx.x, grp = blockIdx.y, n_grp = gridDim.y;
-  const int g0 = grp * p.group;
-  const int g_eff = min(p.group, n - g0);
-  const int L = fe.n, h_out = fe.dim[L];
+                        float* __restrict__ sender_part, float* __restrict__ w_part, int n,
+                        int h1, int k, BwdPlan p, Chain fe, Packed pk, float alpha, int sum_agg,
+                        int drop_on, Drop drop, int need_wgrads, WSlab ws) {
+  const PassBuffers s = carve(p, fe.n);
+  const int h_out = fe.dim[fe.n], hs = h1 + 1;
   const bool want_dists = dists != nullptr;
-  const float* u1b = u1 + (size_t)b * n * h1;
-  const float* u2mb = u2m + (size_t)b * n * (h1 + 1);
-  const float* gb = g + (size_t)b * n * h_out;
-  const float denom = sum_agg ? 1.f : (float)k;
-  float* du2p = du2_part + ((size_t)b * n_grp + grp) * n * h1;
-  float* dmaskp = dmask_part + ((size_t)b * n_grp + grp) * n;
-  float* wp = w_part + ((size_t)b * n_grp + grp) * w_total;
+  const long long t_begin = range_start(blockIdx.x, p.items, gridDim.x);
+  const long long t_end = range_start(blockIdx.x + 1, p.items, gridDim.x);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the scatter's owner grid: thread (my_h, my_own) adds column my_h of the rows
+  // whose sender (staged: whose first row with that sender) is my_own mod n_own
+  const int hr = p.sender_stride;
+  const int n_own = kThreads / hr;
+  const int my_own = threadIdx.x / hr, my_h = threadIdx.x - my_own * hr;
+  const bool staged = p.off_stage >= 0;
+  PassInputs in;
+  in.w_d = want_dists ? w_d : nullptr;
+  in.alpha = alpha;
+  in.denom = sum_agg ? 1.f : (float)k;
+  in.drop_on = drop_on != 0;
+  in.drop = drop;
+  in.need_wgrads = need_wgrads;
+  in.wp = w_part + (size_t)blockIdx.x * ws.slab_floats;
+  in.ws = &ws;
+  in.first = true;
+  PhaseClock clock;
+  MPGAN_PHASE_START(clock);
 
-  for (int ib = 0; ib < g_eff; ib += p.ti) {
-    const int ti_eff = min(p.ti, g_eff - ib);
-    const int rows = round_up(ti_eff * p.kc, kRowBlock);
-    for (int s0 = 0; s0 < k; s0 += p.kc) {
-      const int kc_eff = min(p.kc, k - s0);
-      const bool first = ib == 0 && s0 == 0;
-      if (kDrop) drop.base = (unsigned)(b * n + g0 + ib) * (unsigned)k + (unsigned)s0;
-      __syncthreads();  // the previous pass has finished reading the buffers
-      for (int r = threadIdx.x; r < rows; r += kThreads) {
-        const int ii = r / p.kc, ss = r - (r / p.kc) * p.kc;
+  for (long long t = t_begin; t < t_end; ++t) {
+    const int b = (int)(t / p.blocks), i0 = (int)(t - (long long)b * p.blocks) * p.ti;
+    const int ti_eff = min(p.ti, n - i0);
+    const int slot = blockIdx.x - item_owner((long long)b * p.blocks, p.items, gridDim.x);
+    float* sp = sender_part + ((size_t)b * p.slots + slot) * n * hr;
+    const float* u2mb = u2m + (size_t)b * n * hs;
+    in.u1 = u1 + (size_t)b * n * h1;
+    in.u2 = u2mb;
+    in.g = g + (size_t)b * n * h_out;
+    if (t == t_begin || i0 == 0) {
+      // the CTA's first item of this jet: its slab starts at zero. The barriers
+      // of the pass order these stores before the scatter's adds
+      for (int q = threadIdx.x; q < n * hr; q += kThreads) sp[q] = 0.f;
+      __threadfence();
+      asm volatile("fence.proxy.async;" ::: "memory");  // before bulk reductions add to it
+    }
+    for (int s0 = 0; s0 < k; s0 += p.jc) {
+      const int kc_eff = min(p.jc, k - s0);
+      bulk_wait_read();  // the previous pass's scatter has left its staging buffer
+      __syncthreads();   // and its tail has read the row arrays
+      for (int r = threadIdx.x; r < p.rows; r += kThreads) {
+        const int ii = r / p.jc, ss = r - ii * p.jc;
+        const bool real = ii < ti_eff && ss < kc_eff;
         int j = -1;
         float m = 0.f, dist = 0.f;
-        if (ii < ti_eff && ss < kc_eff) {
-          const size_t e = ((size_t)b * n + g0 + ib + ii) * k + s0 + ss;
-          j = idx[e];
-          m = u2mb[(size_t)j * (h1 + 1) + h1];
+        if (real) {
+          const size_t e = ((size_t)b * n + i0 + ii) * k + s0 + ss;
+          j = min(max(idx[e], 0), n - 1);
+          m = u2mb[(size_t)j * hs + h1] / in.denom;
           if (want_dists) dist = dists[e];
         }
-        rowj[r] = j;
-        smask[r] = m;
-        rdist[r] = dist;
+        smi(s.row.sender)[r] = j;
+        smi(s.row.own)[r] = real ? j % n_own : -1;
+        smi(s.row.first)[r] = -1;
+        smi(s.row.u1)[r] = real ? (i0 + ii) * h1 : -1;
+        smi(s.row.u2)[r] = real ? j * hs : 0;
+        smi(s.row.g)[r] = real ? (i0 + ii) * h_out : 0;
+        smf(s.row.m)[r] = m;
+        smf(s.row.dist)[r] = dist;
+        smu(s.row.id)[r] = (unsigned)(b * n + i0 + ii) * (unsigned)k + (unsigned)(s0 + ss);
       }
-      __syncthreads();
-      // recompute: layer 1 (decomposed), then the hidden layers, keeping every a_l
-      for (int t = threadIdx.x; t < rows * h1; t += kThreads) {
-        const int r = t / h1, h = t - (t / h1) * h1;
-        const int j = rowj[r];
-        float v = 0.f;
-        if (j >= 0) {
-          float z = u1b[(size_t)(g0 + ib + r / p.kc) * h1 + h] + u2mb[(size_t)j * (h1 + 1) + h];
-          if (want_dists) z = __fadd_rn(z, __fmul_rn(rdist[r], __ldg(w_d + h)));
-          v = leaky(z, alpha);
-          if (kDrop) v *= dropmul(drop, pair_id(drop, r), (unsigned)h, 0u);
-        }
-        acts[0][h * p.ldr + r] = v;
-      }
-      for (int l = 0; l < L; ++l) {
-        __syncthreads();
-        dense_layer<kDrop>(acts[l], p.ldr, acts[l + 1], p.ldr, rows, fe.dim[l], fe.dim[l + 1],
-                           fe.w[l], nullptr, fe.dim[l], fe.b[l], true, alpha, drop,
-                           (unsigned)(l + 1));
-      }
-      // da_L = g[i] * mask[sender] / denom, zero on padded rows
-      for (int t = threadIdx.x; t < rows * h_out; t += kThreads) {
-        const int r = t / h_out, h = t - (t / h_out) * h_out;
-        float v = 0.f;
-        if (rowj[r] >= 0) v = gb[(size_t)(g0 + ib + r / p.kc) * h_out + h] / denom * smask[r];
-        grad0[h * p.ldr + r] = v;
-      }
-      __syncthreads();
-      // dsmask of each edge: one warp per row
-      for (int r = warp; r < rows; r += kWarps) {
-        if (rowj[r] < 0) continue;
-        const float* gi = gb + (size_t)(g0 + ib + r / p.kc) * h_out;
-        float acc = 0.f;
-        for (int h = lane; h < h_out; h += 32) acc += gi[h] / denom * acts[L][h * p.ldr + r];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-        if (lane == 0) dsm[r] = acc;
-      }
-      // back through the layers: dz_l = da_l * mult_l * dleaky(z_l) in place
-      float* gcur = grad0;
-      float* gnext = grad1;
-      for (int l = L;; --l) {
-        const int M = fe.dim[l];
-        for (int t = threadIdx.x; t < M * rows; t += kThreads) {
-          const int h = t / rows, r = t - (t / rows) * rows;
-          const float a = acts[l][h * p.ldr + r];
-          float f = a < 0.f ? alpha : 1.f;
-          if (kDrop) f *= dropmul(drop, pair_id(drop, r), (unsigned)h, (unsigned)l);
-          gcur[h * p.ldr + r] *= f;
+      const float* dz = smf(bwd_pass(s, p, fe, pk, in, clock));
+      // dz_0 [h1 x rows]. The sender scatter first, so that its adds are in
+      // flight while the CTA reduces its own rows
+      const float* col = my_h < h1 ? dz + my_h * p.ldr : smf(s.row.dsm);
+      if (staged) {
+        // rows that share a sender are summed in shared memory, in row order, into
+        // the first of them; then one bulk reduction a sender adds the sum to the
+        // slab. Nothing meets at one address in device memory within a pass, and
+        // the passes follow each other: every thread's earlier reductions are
+        // complete before the barrier that precedes the new ones
+        float* stage = smf(p.off_stage);
+        bulk_wait_done();
+        // a warp per row: the first row with the row's sender, by ballots over the
+        // rows before it
+        const int chunks = p.rows / 32;
+        unsigned* masks = smu(s.part);  // [n_own x chunks]: the rows of each owner
+        for (int r = warp; r < p.rows; r += kWarps) {
+          const int mine = smi(s.row.sender)[r];
+          int f = -1;
+          if (mine >= 0) {
+            f = r;
+            for (int q0 = 0; q0 < r; q0 += 32) {
+              const int q = q0 + lane;
+              const unsigned hit =
+                  __ballot_sync(0xffffffffu, q < r && smi(s.row.sender)[q] == mine);
+              if (hit) {
+                f = q0 + __ffs(hit) - 1;
+                break;
+              }
+            }
+          }
+          if (lane == 0) {
+            smi(s.row.first)[r] = f;
+            smi(s.row.own)[r] = f >= 0 ? f % n_own : -1;
+          }
         }
         __syncthreads();
-        if (l == 0) break;
-        const int K = fe.dim[l - 1];
-        if (need_wgrads) {
-          int off = 0;
-          for (int q = 0; q < l - 1; ++q) off += fe.dim[q] * fe.dim[q + 1] + fe.dim[q + 1];
-          weight_grad(acts[l - 1], gcur, p.ldr, rows, K, M, wp + off, wp + off + K * M, first);
+        for (int w = warp; w < n_own * chunks; w += kWarps) {
+          const int q = w / chunks, c = w - q * chunks;
+          const unsigned m = __ballot_sync(0xffffffffu, smi(s.row.own)[c * 32 + lane] == q);
+          if (lane == 0) masks[w] = m;
         }
-        // da_{l-1} = dz_l W^T
-        dense_layer<false>(gcur, p.ldr, gnext, p.ldr, rows, M, K, fe_t.w[l - 1], nullptr, M,
-                           nullptr, false, alpha, drop, 0u);
         __syncthreads();
-        float* tmp = gcur;
-        gcur = gnext;
-        gnext = tmp;
+        if (my_own < n_own) {
+          for (int c = 0; c < chunks; ++c) {
+            unsigned m = masks[my_own * chunks + c];
+            while (m) {
+              const int r = c * 32 + __ffs(m) - 1;
+              m &= m - 1;
+              const int f = smi(s.row.first)[r];
+              const float v = my_h <= h1 ? col[r] : 0.f;
+              float* at = stage + f * hr + my_h;
+              *at = f == r ? v : *at + v;
+            }
+          }
+        }
+        fence_for_bulk();
+        __syncthreads();
+        for (int r = threadIdx.x; r < p.rows; r += kThreads)
+          if (smi(s.row.first)[r] == r)
+            bulk_to_global(sp + (size_t)smi(s.row.sender)[r] * hr, stage + r * hr,
+                           hr * (int)sizeof(float), true);
+      } else if (my_own < n_own && my_h <= h1) {
+        // no buffer to stage in: column my_h of sender j is added by one thread,
+        // walking the rows in order (fire-and-forget atomicAdds)
+        for (int r = 0; r < p.rows; ++r)
+          if (smi(s.row.own)[r] == my_own)
+            atomicAdd(sp + (size_t)smi(s.row.sender)[r] * hr + my_h, col[r]);
       }
-      // gcur holds dz_1 [h1 x rows]. The sender scatter first (threads 0..h1), so
-      // its adds are in flight while the others reduce the CTA's own rows.
-      if (threadIdx.x < h1) {
-        const float* col = gcur + threadIdx.x * p.ldr;
-        for (int r = 0; r < rows; ++r) {
-          const int j = rowj[r];
-          if (j >= 0) atomicAdd(du2p + (size_t)j * h1 + threadIdx.x, col[r]);
-        }
-        if (need_wgrads && want_dists) {
-          float s = 0.f;
-          for (int r = 0; r < rows; ++r) s = fmaf(rdist[r], col[r], s);
-          accumulate_to(wp + w_total - h1 + threadIdx.x, s, first);
-        }
-      } else if (threadIdx.x == h1) {
-        for (int r = 0; r < rows; ++r) {
-          const int j = rowj[r];
-          if (j >= 0) atomicAdd(dmaskp + j, dsm[r]);
-        }
-      }
-      for (int t = threadIdx.x; t < ti_eff * h1; t += kThreads) {
-        const int ii = t / h1, h = t - (t / h1) * h1;
-        const float* col = gcur + h * p.ldr + ii * p.kc;
+      for (int q = threadIdx.x; q < ti_eff * h1; q += kThreads) {
+        const int ii = q / h1, h = q - ii * h1;
+        const float* col = dz + h * p.ldr + ii * p.jc;
         float acc = 0.f;
         for (int ss = 0; ss < kc_eff; ++ss) acc += col[ss];
-        accumulate_to(du1 + ((size_t)b * n + g0 + ib + ii) * h1 + h, acc, s0 == 0);
+        accumulate_to(du1 + ((size_t)b * n + i0 + ii) * h1 + h, acc, s0 == 0);
       }
       if (want_dists) {
-        for (int r = warp; r < rows; r += kWarps) {
-          if (rowj[r] < 0) continue;
+        for (int r = warp; r < p.rows; r += kWarps) {
+          if (smi(s.row.sender)[r] < 0) continue;
           float acc = 0.f;
-          for (int h = lane; h < h1; h += 32) acc = fmaf(gcur[h * p.ldr + r], __ldg(w_d + h), acc);
+          for (int h = lane; h < h1; h += 32) acc = fmaf(dz[h * p.ldr + r], __ldg(w_d + h), acc);
 #pragma unroll
           for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
           if (lane == 0) {
-            const int ii = r / p.kc, ss = r - (r / p.kc) * p.kc;
-            ddists[((size_t)b * n + g0 + ib + ii) * k + s0 + ss] = acc;
+            const int ii = r / p.jc, ss = r - ii * p.jc;
+            ddists[((size_t)b * n + i0 + ii) * k + s0 + ss] = acc;
           }
         }
+        if (need_wgrads && threadIdx.x < h1) {
+          const float* col = dz + threadIdx.x * p.ldr;
+          float acc = 0.f;
+          for (int r = 0; r < p.rows; ++r) acc = fmaf(smf(s.row.dist)[r], col[r], acc);
+          accumulate_to(in.wp + ws.extra + threadIdx.x, acc, in.first);
+        }
       }
+      in.first = false;
+      MPGAN_PHASE(clock, kPhaseTail);
     }
   }
-}
-
-// The pass shape and buffer widths; shrinks the pass until the shared memory fits.
-// Returns the bytes, or 0.
-size_t make_knn_bwd_plan(int n, int k, const Chain& fe, KnnBwdPlan& p) {
-  p.group = group_size(n);
-  int act_w = 0;
-  for (int l = 0; l <= fe.n; ++l) act_w += fe.dim[l];
-  // da of layer l lives in buffer (L - l) % 2
-  p.d0 = p.d1 = 0;
-  for (int l = 0; l <= fe.n; ++l) {
-    int& w = ((fe.n - l) % 2 == 0) ? p.d0 : p.d1;
-    w = fe.dim[l] > w ? fe.dim[l] : w;
-  }
-  for (int max_rows = kMaxPassRows; max_rows >= kRowBlock; max_rows -= kRowBlock) {
-    choose_pass(k, p.group, max_rows, p.ti, p.kc);
-    p.ldr = round_up(p.ti * p.kc, kRowBlock) + 4;
-    const size_t bytes = (size_t)(act_w + p.d0 + p.d1 + 4) * p.ldr * sizeof(float);
-    if (bytes <= (size_t)kMaxSmemBytes) return bytes;
-  }
-  return 0;
+  finish_bulk();
 }
 
 }  // namespace
 
 extern "C" {
 
+#ifdef MPGAN_PHASE_CLOCKS
+// Clocks summed per phase (edge_bwd_common.cuh: Phase) since the last reset.
+int mpgan_knn_edge_aggregate_bwd_phase_clocks(unsigned long long* out, int reset) {
+  return read_phase_clocks(out, reset);
+}
+#endif
+
 // K6. idx int32 [batch, n, k]; dists [batch, n, k] and w_d [h1], or both null
-// (then ddists and dw_d are not touched). hidden_w / hidden_wt / hidden_b: per
-// hidden layer W [in, out], W^T [out, in], b. dhidden: 2 * n_hidden outputs
-// (dW_l [in, out], db_l), left untouched, like dw_d, without need_wgrads.
-// Partials: du2_part [batch, groups, n, h1] and dmask_part [batch, groups, n],
-// both zeroed by the caller; w_part [batch * groups, sum_l (in_l * out_l + out_l)
-// (+ h1 with dists)] (unused without need_wgrads). `groups` is
-// mpgan_edge_aggregate_groups(n).
+// (then ddists is not touched). hidden_w / hidden_b: per hidden layer W [in, out]
+// and b; packed: scratch for the packed weights (mpgan_edge_bwd_packed_floats
+// floats). wgrads: the weight gradients, flat [sum_l (in_l *
+// out_l + out_l) (+ h1 with dists: dw_d, last)] in layer order (dW_l then db_l),
+// left untouched without need_wgrads. The pass shape (ti receivers x kc ranks in
+// buffers of `rows`), the grid and the slots per jet are the caller's plan.
+// Partials: sender_part [batch, slots, n, h1 + 1] (not initialised by the
+// caller); w_part [grid, mpgan_edge_bwd_wslab_floats] (unused without need_wgrads).
 int mpgan_knn_edge_aggregate_bwd(const float* u1, const float* u2m, const int* idx,
                                  const float* dists, const float* w_d, const float* g,
                                  float* du1, float* du2, float* dmask, float* ddists,
-                                 float* dw_d, void* const* dhidden, float* du2_part,
-                                 float* dmask_part, float* w_part, int batch, int n, int h1,
-                                 int k, int n_hidden, const void* const* hidden_w,
-                                 const void* const* hidden_wt, const void* const* hidden_b,
-                                 const int* hidden_dims, float alpha, int sum_agg, int dropout,
-                                 int seed, unsigned thr, float mult, int need_wgrads,
-                                 void* stream) {
-  Chain fe, fe_t;
+                                 float* wgrads, float* sender_part, float* w_part, int batch,
+                                 int n, int h1, int k, int n_hidden,
+                                 const void* const* hidden_w, float* packed,
+                                 const void* const* hidden_b, const int* hidden_dims,
+                                 float alpha, int sum_agg, int dropout, int seed, unsigned thr,
+                                 float mult, int need_wgrads, int ti, int kc, int rows, int grid,
+                                 int slots, void* stream) {
+  Chain fe;
   if (batch < 1 || n < 1 || h1 < 1 || h1 > kMaxWidth || k < 1 || k > n || !(alpha > 0.f) ||
       seed < 0)
     return (int)cudaErrorInvalidValue;
   const bool want_dists = dists != nullptr;
-  if (want_dists && (w_d == nullptr || ddists == nullptr || dw_d == nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (want_dists && (w_d == nullptr || ddists == nullptr)) return (int)cudaErrorInvalidValue;
   if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || fe.dim[0] != h1)
     return (int)cudaErrorInvalidValue;
-  fe_t = fe;
-  for (int l = 0; l < n_hidden; ++l) fe_t.w[l] = static_cast<const float*>(hidden_wt[l]);
-  KnnBwdPlan p;
-  const size_t smem = make_knn_bwd_plan(n, k, fe, p);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
+  BwdPlan p;
+  if (!make_plan(p, fe, batch, n, k, ti, kc, rows, grid, slots, true))
+    return (int)cudaErrorInvalidValue;
   Drop drop{};
   drop.seed_key = (unsigned)seed * 0xC2B2AE3Du;
   drop.thr = thr;
   drop.mult = mult;
-  drop.jc = p.kc;
+  drop.jc = p.jc;
   drop.ns = k;
-  int w_total = want_dists ? h1 : 0;
-  for (int l = 0; l < n_hidden; ++l) w_total += fe.dim[l] * fe.dim[l + 1] + fe.dim[l + 1];
-  const int groups = num_groups(n);
+  const WSlab ws = make_wslab(fe, want_dists ? h1 : 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(batch, groups);
-  cudaError_t err;
-  if (dropout) {
-    err = cudaFuncSetAttribute(knn_edge_bwd_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    knn_edge_bwd_kernel<true><<<grid, kThreads, smem, st>>>(
-        u1, u2m, idx, dists, w_d, g, du1, ddists, du2_part, dmask_part, w_part, n, h1, k, p, fe,
-        fe_t, alpha, sum_agg, drop, need_wgrads, w_total);
-  } else {
-    err = cudaFuncSetAttribute(knn_edge_bwd_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    knn_edge_bwd_kernel<false><<<grid, kThreads, smem, st>>>(
-        u1, u2m, idx, dists, w_d, g, du1, ddists, du2_part, dmask_part, w_part, n, h1, k, p, fe,
-        fe_t, alpha, sum_agg, drop, need_wgrads, w_total);
-  }
-  int code = (int)cudaGetLastError();
+  Packed pk;
+  int code = launch_pack(fe, p.col_threads, packed, pk, st);
   if (code != 0) return code;
-  // second pass: the partials, summed in a fixed order
-  code = launch_reduce(du2_part, du2, batch, groups, (long long)n * h1, (long long)n * h1,
-                       (long long)groups * n * h1, st);
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_edge_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  knn_edge_bwd_kernel<<<grid, kThreads, p.smem, st>>>(
+      u1, u2m, idx, dists, w_d, g, du1, ddists, sender_part, w_part, n, h1, k, p, fe, pk,
+      alpha, sum_agg, dropout, drop, need_wgrads, ws);
+  code = (int)cudaGetLastError();
   if (code != 0) return code;
-  code = launch_reduce(dmask_part, dmask, batch, groups, n, n, (long long)groups * n, st);
-  if (code != 0 || !need_wgrads) return code;
-  long long off = 0;
-  for (int l = 0; l < n_hidden; ++l) {
-    const long long km = (long long)fe.dim[l] * fe.dim[l + 1], m = fe.dim[l + 1];
-    code = launch_reduce(w_part + off, static_cast<float*>(dhidden[2 * l]), 1, batch * groups,
-                         km, w_total, 0, st);
-    if (code != 0) return code;
-    code = launch_reduce(w_part + off + km, static_cast<float*>(dhidden[2 * l + 1]), 1,
-                         batch * groups, m, w_total, 0, st);
-    if (code != 0) return code;
-    off += km + m;
-  }
-  if (want_dists) code = launch_reduce(w_part + off, dw_d, 1, batch * groups, h1, w_total, 0, st);
-  return code;
+  return launch_reductions(sender_part, du2, dmask, batch, n, h1, p, grid, w_part,
+                           need_wgrads ? wgrads : nullptr, ws, st);
 }
 
 }  // extern "C"

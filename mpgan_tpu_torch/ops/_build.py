@@ -35,6 +35,7 @@ _LIB_NAME = "libmpgan_kernels.so"
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_lib_defines: tuple = ()
 build_info: dict = {}
 
 
@@ -52,18 +53,20 @@ def find_nvcc() -> str:
     )
 
 
-def _source_hash() -> str:
+def _source_hash(flags) -> str:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def build() -> pathlib.Path:
-    """Compile the kernels unless a library for these sources exists; returns its path."""
-    out_dir = BUILD_ROOT / _source_hash()
+def build(defines=()) -> pathlib.Path:
+    """Compile the kernels unless a library for these sources exists; returns its
+    path. ``defines`` are preprocessor names (``-D``) that select a build of their own."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    out_dir = BUILD_ROOT / _source_hash(flags)
     lib_path = out_dir / _LIB_NAME
     if lib_path.is_file():
         build_info.update(path=str(lib_path), seconds=0.0, cached=True)
@@ -75,7 +78,7 @@ def build() -> pathlib.Path:
     t0 = time.perf_counter()
     try:
         objs = [tmp_dir / (pathlib.Path(src).stem + ".o") for src in SOURCES]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        cmds = [[nvcc, *flags, "-c", "-o", str(obj), str(CSRC / src)]
                 for src, obj in zip(SOURCES, objs)]
         cmds.append([nvcc, *NVCC_FLAGS[:4], "-shared", "-o", str(tmp_dir / _LIB_NAME),
                      *map(str, objs)])
@@ -110,25 +113,27 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, i, i, i, i, parr, parr, iarr, f, i, i, ctypes.c_uint, f, p,
     ]
     lib.mpgan_edge_aggregate_train.restype = i
-    lib.mpgan_edge_aggregate_groups.argtypes = [i]
-    lib.mpgan_edge_aggregate_groups.restype = i
     lib.mpgan_edge_aggregate_bwd.argtypes = [
-        p, p, p, p, p, p, p, parr, p, p, p, i, i, i, i, parr, parr, parr, iarr,
-        f, i, i, i, ctypes.c_uint, f, i, p,
+        p, p, p, p, p, p, p, p, p, p, i, i, i, i, parr, p, parr, iarr,
+        f, i, i, i, ctypes.c_uint, f, i, i, i, i, i, i, p,
     ]
     lib.mpgan_edge_aggregate_bwd.restype = i
     lib.mpgan_edge_aggregate_fn.argtypes = [
         p, p, p, p, p, i, i, i, i, i, parr, parr, iarr, i, parr, p, parr, iarr, f, i, f, i, p,
     ]
     lib.mpgan_edge_aggregate_fn.restype = i
+    lib.mpgan_edge_bwd_packed_floats.argtypes = [i, iarr, i]
+    lib.mpgan_edge_bwd_packed_floats.restype = ctypes.c_longlong
+    lib.mpgan_edge_bwd_wslab_floats.argtypes = [i, iarr, i]
+    lib.mpgan_edge_bwd_wslab_floats.restype = i
     lib.mpgan_knn_fused_layer.argtypes = [
         p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, parr, parr, iarr, f, i, i, i,
         ctypes.c_uint, f, p,
     ]
     lib.mpgan_knn_fused_layer.restype = i
     lib.mpgan_knn_edge_aggregate_bwd.argtypes = [
-        p, p, p, p, p, p, p, p, p, p, p, parr, p, p, p, i, i, i, i, i, parr, parr, parr, iarr,
-        f, i, i, i, ctypes.c_uint, f, i, p,
+        p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, parr, p, parr, iarr,
+        f, i, i, i, ctypes.c_uint, f, i, i, i, i, i, i, p,
     ]
     lib.mpgan_knn_edge_aggregate_bwd.restype = i
     lib.mpgan_knn_search.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
@@ -145,14 +150,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mpgan_cuda_error_string.restype = ctypes.c_char_p
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    global _lib
+def library(defines=None) -> ctypes.CDLL:
+    """The loaded kernel library, built on first call. A process holds one build:
+    ``defines`` (see ``build``) are given on the call that loads it, before any
+    wrapper has run, and a later call that names others raises."""
+    global _lib, _lib_defines
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            _lib_defines = tuple(defines or ())
+            lib = ctypes.CDLL(str(build(_lib_defines)))
             _declare(lib)
             _lib = lib
+        elif defines is not None and tuple(defines) != _lib_defines:
+            raise RuntimeError(f"the kernel library is already loaded with defines "
+                               f"{_lib_defines}, not {tuple(defines)}")
         return _lib
 
 

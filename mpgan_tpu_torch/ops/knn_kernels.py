@@ -73,9 +73,14 @@ from .mp_kernels import (
     _check_dropout,
     _dleaky,
     _dropmul,
+    _flat_wgrads,
     _leaky,
     _on_cpu,
     _pairs,
+    _sm_count,
+    bwd_packed_floats,
+    bwd_wslab_floats,
+    bwd_plan,
     launch_counts,
 )
 
@@ -374,43 +379,45 @@ def knn_edge_aggregate_bwd(u1, u2m, idx, dists, w_d, hidden_flat, g, alpha: floa
         raise ValueError(f"{name}: the kernel needs leaky_relu_alpha > 0, got {alpha}")
     if not idx.is_contiguous():
         raise ValueError(f"{name}: idx must be contiguous")
-    # the kernel reads W^T for da = dz @ W^T: [out, in] copies of the hidden weights
-    w_t = tuple(w.t().contiguous() for w, _ in pairs)
     _check_cuda_args(name, {"u1": u1, "u2m": u2m, "g": g,
                             **({"dists": dists, "w_d": w_d} if want_dists else {}),
                             **{f"hidden[{i}]": t for i, t in enumerate(hidden_flat)}},
-                     hidden_flat[::2] + w_t)
+                     hidden_flat[::2])
     dev = u1.device
     f32 = dict(dtype=torch.float32, device=dev)
     du1 = torch.empty_like(u1)
     du2 = torch.empty((b_sz, n, h1), **f32)
     dmask = torch.empty((b_sz, n, 1), **f32)
     ddists = torch.empty((b_sz, n, k), **f32) if want_dists else None
-    dw_d = torch.zeros((h1,), **f32) if want_dists else None
-    dhidden = tuple(torch.zeros_like(t) for t in hidden_flat)
+    w_total = sum(t.numel() for t in hidden_flat) + (h1 if want_dists else 0)
+    # the kernel's second pass writes every weight gradient; without them they are zeros
+    flat = torch.empty((w_total,), **f32) if need_wgrads else torch.zeros((w_total,), **f32)
+    dhidden, dw_d = _flat_wgrads(flat, hidden_flat, h1 if want_dists else 0)
+    if not want_dists:
+        dw_d = None
+    plan = bwd_plan(b_sz, n, k, dims, _sm_count(dev))
+    # partial sums, reduced in a second pass in a fixed order: a slab per (jet, CTA
+    # that touches it) for du2 and dmask, which the kernel zeroes itself (which rows
+    # a CTA adds to depends on idx), and one per CTA for the weights
+    sender_part = torch.empty((b_sz, plan.slots, n, (h1 + 4) // 4 * 4), **f32)
+    w_part = torch.empty((plan.grid, bwd_wslab_floats(dims, h1 if want_dists else 0))
+                         if need_wgrads and w_total else (1,), **f32)
+    # the kernel's own copy of the weights, W and W^T laid out for its products
+    packed = torch.empty((max(bwd_packed_floats(dims, plan.rows), 1),), **f32)
     lib = _build.library()
-    n_groups = lib.mpgan_edge_aggregate_groups(n)
-    n_cta = b_sz * n_groups
-    w_total = sum(a * c + c for a, c in zip(dims[:-1], dims[1:])) + (h1 if want_dists else 0)
-    # per-CTA partial sums, reduced in a second pass in a fixed order; the
-    # sender partials start at zero, since which rows a CTA adds to depends on idx
-    du2_part = torch.zeros((b_sz, n_groups, n, h1), **f32)
-    dmask_part = torch.zeros((b_sz, n_groups, n), **f32)
-    w_part = torch.empty((n_cta, w_total) if need_wgrads and w_total else (1,), **f32)
     w, bias = _chain_args(pairs)
-    wt_arr = (ctypes.c_void_p * max(len(pairs), 1))(*[t.data_ptr() for t in w_t])
-    dw_arr = (ctypes.c_void_p * max(len(hidden_flat), 1))(*[t.data_ptr() for t in dhidden])
     dim_arr = (ctypes.c_int * len(dims))(*dims)
     thr, mult = dropout_threshold_mult(dropout_p) if dropout_p > 0 else (0, 1.0)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         code = lib.mpgan_knn_edge_aggregate_bwd(
             u1.data_ptr(), u2m.data_ptr(), idx.data_ptr(), ptr(dists), ptr(w_d), g.data_ptr(),
-            du1.data_ptr(), du2.data_ptr(), dmask.data_ptr(), ptr(ddists), ptr(dw_d), dw_arr,
-            du2_part.data_ptr(), dmask_part.data_ptr(), w_part.data_ptr(),
-            b_sz, n, h1, k, len(pairs), w, wt_arr, bias, dim_arr, float(alpha),
+            du1.data_ptr(), du2.data_ptr(), dmask.data_ptr(), ptr(ddists), flat.data_ptr(),
+            sender_part.data_ptr(), w_part.data_ptr(),
+            b_sz, n, h1, k, len(pairs), w, packed.data_ptr(), bias, dim_arr, float(alpha),
             int(bool(sum_agg)), int(dropout_p > 0), int(seed), thr, mult,
-            int(bool(need_wgrads)), torch.cuda.current_stream().cuda_stream,
+            int(bool(need_wgrads)), plan.ti, plan.jc, plan.rows, plan.grid, plan.slots,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, name)
     launch_counts[name] += 1

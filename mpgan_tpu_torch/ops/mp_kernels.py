@@ -38,6 +38,8 @@ kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Sequence
 
 import torch
@@ -293,6 +295,136 @@ def edge_aggregate(u1, u2, mask, hidden_flat, alpha: float, sum_agg: bool,
     return out
 
 
+# The backward kernels' plan (csrc/edge_bwd_common.cuh), made here so that it is
+# tested where there is no card; the launchers check it and lay out the buffers.
+BWD_THREADS = 512
+BWD_SLAB_FLOATS = 4096  # each of the two weight k-slab buffers
+BWD_ROW_ARRAYS = 10
+MAX_SMEM_BYTES = 227 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """One launch of K3 or K6: a pass is ``ti`` receivers x ``jc`` senders (knn:
+    neighbour ranks) in buffers of ``rows`` pair rows; an item is a block of
+    ``ti`` receivers of a jet (``blocks`` a jet); ``grid`` CTAs each walk a
+    contiguous range of the ``items``; a jet's sender gradients are summed over
+    ``slots`` slabs, one per CTA that touches the jet."""
+    ti: int
+    jc: int
+    rows: int
+    blocks: int
+    items: int
+    grid: int
+    slots: int
+    smem_bytes: int
+
+    def item_range(self, cta: int) -> tuple[int, int]:
+        return cta * self.items // self.grid, (cta + 1) * self.items // self.grid
+
+    def item_owner(self, item: int) -> int:
+        return ((item + 1) * self.grid - 1) // self.items
+
+    def slabs_of_jet(self, b: int) -> int:
+        """How many CTAs touch jet ``b``: the slabs its reduction sums."""
+        return (self.item_owner((b + 1) * self.blocks - 1)
+                - self.item_owner(b * self.blocks) + 1)
+
+
+def bwd_smem_bytes(dims: Sequence[int], rows: int) -> int:
+    """Shared memory of a pass of ``rows`` pair rows through the chain ``dims``:
+    a_1..a_{L-1}, one buffer for a_0 and dz_L in turn (two with a single hidden
+    layer), the weight slabs, the last layer's partial row sums and the per-row
+    arrays."""
+    n_layers = len(dims) - 1
+    if n_layers >= 2:
+        width = max(dims[0], dims[-1]) + sum(dims[1:-1])
+    else:
+        width = sum(dims)
+    ldr = rows + 4
+    col_warps = (BWD_THREADS // 32) // (rows // 32)
+    return 4 * (width * ldr + 2 * BWD_SLAB_FLOATS + (col_warps + BWD_ROW_ARRAYS) * ldr)
+
+
+def bwd_packed_floats(dims: Sequence[int], rows: int) -> int:
+    """Floats of the packed copy of the chain's weights that a launch makes: per
+    hidden layer W and W^T, each row padded to a whole number of columns for
+    every column thread of the products."""
+    col_threads = 8 * ((BWD_THREADS // 32) // (rows // 32))
+    tn = lambda m: -(-m // col_threads)  # noqa: E731
+    return sum((k * tn(m) + m * tn(k)) * col_threads for k, m in zip(dims[:-1], dims[1:]))
+
+
+def bwd_wslab_floats(dims: Sequence[int], n_extra: int = 0) -> int:
+    """Floats of one CTA's weight-gradient partials: per hidden layer dW in tiles
+    of 32 x 32 (padded) and db (padded to 4), then ``n_extra`` (knn: dw_d)."""
+    pad4 = lambda v: -(-v // 4) * 4  # noqa: E731
+    return sum(-(-k // 32) * -(-m // 32) * 1024 + pad4(m)
+               for k, m in zip(dims[:-1], dims[1:])) + pad4(n_extra)
+
+
+def _pass_cost(dims: Sequence[int], rows: int) -> int:
+    """FMAs a thread issues in one pass: every product gives a thread 8 rows by
+    ceil(M / column threads) columns; the contractions share K x M x rows."""
+    col_threads = 8 * ((BWD_THREADS // 32) // (rows // 32))
+    tn = lambda m: -(-m // col_threads)  # noqa: E731
+    cost = sum(8 * (tn(m) * k + tn(k) * m) + rows * k * m // BWD_THREADS
+               for k, m in zip(dims[:-1], dims[1:]))
+    return max(cost, 1)
+
+
+def bwd_plan(batch: int, n_recv: int, n_send: int, dims: Sequence[int], sms: int) -> BwdPlan:
+    """Plan a backward launch over ``batch`` jets of ``n_recv`` receivers with
+    ``n_send`` senders (knn: ``k`` ranks) each, on a card with ``sms`` SMs. The
+    pass is the one that gives the busiest CTA the least arithmetic among those
+    that fit in shared memory (ties: longer sender chunks, then more receivers).
+    A step launches the same few shapes over and over: the search runs once a shape."""
+    return _bwd_plan(batch, n_recv, n_send, tuple(dims), sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(batch: int, n_recv: int, n_send: int, dims: tuple, sms: int) -> BwdPlan:
+    best = None
+    for rows in (128, 64, 32):
+        smem = bwd_smem_bytes(dims, rows)
+        if smem > MAX_SMEM_BYTES:
+            continue
+        per_pass = _pass_cost(dims, rows)
+        for jc in range(1, min(n_send, rows) + 1):
+            ti = min(n_recv, rows // jc)
+            # the busiest CTA's passes: its items, each walking the sender chunks
+            items = batch * -(-n_recv // ti)
+            cost = -(-items // min(sms, items)) * -(-n_send // jc) * per_pass
+            key = (cost, -jc, -ti)
+            if best is None or key < best[0]:
+                best = (key, ti, jc, rows, smem)
+    if best is None:
+        raise ValueError(f"layer widths {list(dims)} do not fit the backward kernel's "
+                         f"shared memory ({MAX_SMEM_BYTES} bytes) even at 32 pair rows")
+    _, ti, jc, rows, smem = best
+    blocks = -(-n_recv // ti)
+    items = batch * blocks
+    grid = max(1, min(sms, items))
+    per_cta = items // grid  # the shortest range
+    slots = min(blocks, -(-(blocks - 1) // per_cta) + 1)
+    return BwdPlan(ti, jc, rows, blocks, items, grid, slots, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _flat_wgrads(flat: torch.Tensor, hidden_flat, extra: int = 0):
+    """Views of the flat weight-gradient buffer, one per hidden tensor, and the
+    trailing ``extra`` elements."""
+    out, off = [], 0
+    for t in hidden_flat:
+        out.append(flat[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+    return tuple(out), flat[off:off + extra]
+
+
 def edge_aggregate_bwd(u1, u2, mask, hidden_flat, g, alpha: float, sum_agg: bool,
                        dropout_p: float = 0.0, seed: int = 0, need_wgrads: bool = True):
     """K3: the plain backward on the CPU, the CUDA kernel on a GPU. Returns
@@ -311,38 +443,39 @@ def edge_aggregate_bwd(u1, u2, mask, hidden_flat, g, alpha: float, sum_agg: bool
     b_sz, n, h1 = u1.shape
     if g.shape != (b_sz, n, dims[-1]):
         raise ValueError(f"{name}: g {tuple(g.shape)} must be {(b_sz, n, dims[-1])}")
-    # the kernel reads W^T for da = dz @ W^T: [out, in] copies of the hidden weights
-    w_t = tuple(w.t().contiguous() for w, _ in pairs)
     _check_cuda_args(name, {"u1": u1, "u2": u2, "mask": mask, "g": g,
                             **{f"hidden[{i}]": t for i, t in enumerate(hidden_flat)}},
-                     hidden_flat[::2] + w_t)
+                     hidden_flat[::2])
     dev = u1.device
+    f32 = dict(dtype=torch.float32, device=dev)
     du1 = torch.empty_like(u1)
     du2 = torch.empty_like(u2)
     dmask = torch.empty_like(mask)
-    dhidden = tuple(torch.zeros_like(t) for t in hidden_flat)
+    w_total = sum(t.numel() for t in hidden_flat)
+    # the kernel's second pass writes every weight gradient; without them they are zeros
+    flat = torch.empty((w_total,), **f32) if need_wgrads else torch.zeros((w_total,), **f32)
+    dhidden, _ = _flat_wgrads(flat, hidden_flat)
+    plan = bwd_plan(b_sz, n, n, dims, _sm_count(dev))
+    # partial sums, reduced in a second pass in a fixed order: a slab per (jet, CTA
+    # that touches it) for du2 and dmask, one per CTA for the weights
+    sender_part = torch.empty((b_sz, plan.slots, n, h1 + 1), **f32)
+    w_part = torch.empty((plan.grid, bwd_wslab_floats(dims)) if need_wgrads and w_total
+                         else (1,), **f32)
+    # the kernel's own copy of the weights, W and W^T laid out for its products
+    packed = torch.empty((max(bwd_packed_floats(dims, plan.rows), 1),), **f32)
     lib = _build.library()
-    n_groups = lib.mpgan_edge_aggregate_groups(n)
-    n_cta = b_sz * n_groups
-    w_total = sum(a * c + c for a, c in zip(dims[:-1], dims[1:]))
-    # per-CTA partial sums, reduced in a second pass in a fixed order
-    du2_part = torch.empty((b_sz, n_groups, n, h1), dtype=torch.float32, device=dev)
-    dmask_part = torch.empty((b_sz, n_groups, n), dtype=torch.float32, device=dev)
-    w_part = torch.empty((n_cta, w_total) if need_wgrads and pairs else (1,),
-                         dtype=torch.float32, device=dev)
     w, b = _chain_args(pairs)
-    wt_arr = (ctypes.c_void_p * max(len(pairs), 1))(*[t.data_ptr() for t in w_t])
-    dw_arr = (ctypes.c_void_p * max(len(hidden_flat), 1))(*[t.data_ptr() for t in dhidden])
     dim_arr = (ctypes.c_int * len(dims))(*dims)
     thr, mult = dropout_threshold_mult(dropout_p) if dropout_p > 0 else (0, 1.0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mpgan_edge_aggregate_bwd(
             u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), g.data_ptr(),
-            du1.data_ptr(), du2.data_ptr(), dmask.data_ptr(), dw_arr,
-            du2_part.data_ptr(), dmask_part.data_ptr(), w_part.data_ptr(),
-            b_sz, n, h1, len(pairs), w, wt_arr, b, dim_arr, float(alpha), int(bool(sum_agg)),
-            int(dropout_p > 0), int(seed), thr, mult, int(bool(need_wgrads)), stream,
+            du1.data_ptr(), du2.data_ptr(), dmask.data_ptr(), flat.data_ptr(),
+            sender_part.data_ptr(), w_part.data_ptr(),
+            b_sz, n, h1, len(pairs), w, packed.data_ptr(), b, dim_arr, float(alpha),
+            int(bool(sum_agg)), int(dropout_p > 0), int(seed), thr, mult, int(bool(need_wgrads)),
+            plan.ti, plan.jc, plan.rows, plan.grid, plan.slots, stream,
         )
     _build.check(code, name)
     launch_counts[name] += 1

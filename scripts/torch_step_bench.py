@@ -1,0 +1,58 @@
+#!/usr/bin/env python
+"""Time the port's D+G train steps that run the backward kernels, kernel path only.
+
+    python scripts/torch_step_bench.py [--root CHECKOUT] [--label NAME] [--reps N]
+
+For a machine with a CUDA card. Flagship step at B=256 N=30 and knn-20 step at
+B=128 N=150, published widths, random weights from a seed, built and timed with
+``chip_smoke.py``'s helpers: CUDA events, best of ``--reps`` timings of two
+steps each; then a ``torch.profiler`` window of three steps for the device time
+a step, the idle share and the backward kernels' rows. One JSON object a line.
+
+``--root`` names the checkout whose ``chip_smoke.py`` and ``mpgan_tpu_torch``
+are used (default: the one that holds this script), and ``--label`` goes into
+every line, so that two checkouts run in turns on one card can be told apart.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+
+import torch
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[1]))
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_step_bench: no CUDA device available")
+    sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
+    import chip_smoke as cs
+    from mpgan_tpu_torch.training.config import from_args_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    for name, model, batch, n in (("flagship", cs.FLAGSHIP, 256, 30), ("knn20", cs.KNN150, 128, 150)):
+        margs = from_args_dict(model)
+        data, labels = (t.to(dev) for t in cs.real_batch(batch, n))
+        state = cs.make_state(margs, dev)
+        cs.use_kernels(state, True)
+        step = cs.step_fn(state, margs, data, labels)
+        ms = cs.best_ms(step, reps=args.reps, inner=2)
+        print(json.dumps({"label": args.label, "card": card, "step": name, "batch": batch, "n": n,
+                          "kernel_path_ms": ms}), flush=True)
+        cs.profile_steps(step, card, f"{args.label}_{name}_step_profile", batch=batch, n=n)
+        del state, step
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -215,6 +215,53 @@ def test_edge_aggregate_bwd_kernel_is_deterministic(dev):
         assert torch.equal(x, y)
 
 
+# pass shapes of the persistent backward kernels: batches that leave the last
+# round of the grid ragged, a chain wide enough to force a shorter pass, widths
+# that are no multiple of 4
+BWD_PASS_SHAPES = [
+    (1, 30, [96, 160, 192]), (33, 30, [96, 160, 192]), (160, 30, [96, 160, 192]),
+    (1, 150, [96, 160, 192]), (5, 150, [96, 160, 192]),
+    (3, 30, [250, 255, 256, 249, 200]),  # four wide layers: a 32-row pass
+    (2, 21, [30, 50, 7]), (2, 40, [13, 9, 11, 5]),
+]
+
+
+@pytest.mark.parametrize("need_wgrads", [True, False])
+@pytest.mark.parametrize("dropout_p,sum_agg", [(0.0, True), (0.5, False), (0.5, True)])
+@pytest.mark.parametrize("b,n,widths", BWD_PASS_SHAPES)
+def test_edge_aggregate_bwd_pass_shapes_match_plain_twice(dev, need_wgrads, dropout_p, sum_agg, b,
+                                                          n, widths):
+    """K3 against its plain version at every pass shape, and two launches bit for bit."""
+    u1, u2, mask, hidden, g = _chain(dev, b, n, widths, seed=n + b)
+    args = (u1, u2, mask, hidden, g, 0.2, sum_agg, dropout_p, 515, need_wgrads)
+    out = mk.edge_aggregate_bwd(*args)
+    again = mk.edge_aggregate_bwd(*args)
+    torch.cuda.synchronize()
+    ref = mk.edge_aggregate_bwd_reference(*args)
+    for o, r in zip(out[:3], ref[:3]):
+        torch.testing.assert_close(o, r, **TOL)
+    for o, r in zip(out[3], ref[3]):
+        _assert_wgrad_close(o, r)
+        if not need_wgrads:
+            assert not o.any()
+    for x, y in zip(out[:3] + out[3], again[:3] + again[3]):
+        assert torch.equal(x, y)
+
+
+def test_backward_plans_on_the_card_equal_the_launchers(dev):
+    """The wrappers' sizes of the packed weights and of the weight partials are the
+    launchers' own."""
+    lib = _build.library()
+    for dims in ([96, 160, 192], [30, 50, 7], [250, 255, 256, 249, 200], [96]):
+        arr = (ctypes.c_int * len(dims))(*dims)
+        for rows in (32, 64, 128):
+            assert lib.mpgan_edge_bwd_packed_floats(len(dims) - 1, arr, rows) == \
+                mk.bwd_packed_floats(dims, rows)
+        for extra in (0, dims[0]):
+            assert lib.mpgan_edge_bwd_wslab_floats(len(dims) - 1, arr, extra) == \
+                mk.bwd_wslab_floats(dims, extra)
+
+
 def test_edge_aggregate_function_grads_match_plain_on_the_card(dev):
     u1, u2, mask, hidden, g = _chain(dev, 8, 30, [96, 160, 192], seed=5)
 
@@ -350,6 +397,47 @@ def test_knn_edge_aggregate_bwd_kernel_matches_plain(dev, b, n, c, widths, k, su
         if not need_wgrads:
             assert not o.any()
     # the sender scatter and the sums across CTAs are in a fixed order
+    flat = lambda res: [t for t in (*res[:5], *res[5]) if t is not None]  # noqa: E731
+    for x, y in zip(flat(out), flat(again)):
+        assert torch.equal(x, y)
+
+
+KNN_BWD_PASS_SHAPES = [
+    (1, 150, [96, 160, 192], 20), (33, 150, [96, 160, 192], 20), (160, 150, [96, 160, 192], 20),
+    (7, 30, [96, 160, 192], 20),
+    (3, 30, [250, 255, 256, 249, 200], 20),  # four wide layers: a 32-row pass, no staging
+    (2, 21, [30, 50, 7], 13), (2, 40, [13, 9, 11, 5], 40),
+]
+
+
+@pytest.mark.parametrize("need_wgrads", [True, False])
+@pytest.mark.parametrize("dropout_p,sum_agg,want_dists", [
+    (0.0, True, False), (0.5, False, True), (0.5, True, False)])
+@pytest.mark.parametrize("b,n,widths,k", KNN_BWD_PASS_SHAPES)
+def test_knn_edge_aggregate_bwd_pass_shapes_match_plain_twice(dev, b, n, widths, k, need_wgrads,
+                                                              dropout_p, sum_agg, want_dists):
+    """K6 against its plain version at every pass shape, from neighbour lists that
+    repeat senders within a receiver's row (the split route takes any idx), and
+    two launches bit for bit."""
+    d = _knn_inputs(dev, b, n, 4, widths, k, seed=n + b)
+    gen = torch.Generator(device=dev).manual_seed(b)
+    idx = torch.randint(0, n, (b, n, k), generator=gen, device=dev, dtype=torch.int32)
+    dists = torch.rand(b, n, k, generator=gen, device=dev) if want_dists else None
+    args = (d["u1"], d["u2m"], idx, dists, d["w_d"] if want_dists else None, d["hidden"], d["g"],
+            0.2, sum_agg, dropout_p, 616, need_wgrads)
+    out = kk.knn_edge_aggregate_bwd(*args)
+    again = kk.knn_edge_aggregate_bwd(*args)
+    torch.cuda.synchronize()
+    ref = kk.knn_edge_aggregate_bwd_reference(*args)
+    for o, r in zip(out[:3], ref[:3]):
+        torch.testing.assert_close(o, r, **TOL)
+    if want_dists:
+        torch.testing.assert_close(out[3], ref[3], **TOL)
+        _assert_wgrad_close(out[4], ref[4])
+    for o, r in zip(out[5], ref[5]):
+        _assert_wgrad_close(o, r)
+        if not need_wgrads:
+            assert not o.any()
     flat = lambda res: [t for t in (*res[:5], *res[5]) if t is not None]  # noqa: E731
     for x, y in zip(flat(out), flat(again)):
         assert torch.equal(x, y)
@@ -615,3 +703,27 @@ def test_gapt_generator_kernel_route_matches_plain_route(dev):
     from mpgan_tpu_torch.ops import gapt_kernels as gk
     with pytest.raises(RuntimeError, match="eval only"):
         gk.gapt_g_fused(noise.requires_grad_(), None, g.fused_weights(), 4, 0.2)
+
+
+def test_backward_kernels_build_and_run_with_phase_clocks(dev):
+    """The ``-DMPGAN_PHASE_CLOCKS`` build of K3 and K6 (a process holds one build,
+    so a process of its own): it compiles, agrees with the plain versions, and
+    every timed shape reports clocks in the phases of a pass."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    script = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "torch_bwd_bench.py"
+    run = subprocess.run([sys.executable, str(script), "--phases", "--reps", "1"],
+                         capture_output=True, text=True, timeout=900)
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
+    rows = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
+    timed = [r for r in rows if "kernel" in r]
+    assert len(timed) == 6 and rows[0]["phases"] is True
+    for r in timed:
+        shares = r["phase_shares"]
+        assert r["within_tol"] and r["two_runs_bit_identical"], r
+        assert shares["in_products_loop"] > 0 and shares["tail"] > 0, r
+        assert (shares["wgrad"] > 0) == r["wgrads"], r
+        assert abs(sum(list(shares.values())[:7]) - 1.0) < 1e-2, r

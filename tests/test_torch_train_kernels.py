@@ -218,3 +218,83 @@ def test_dense_layer_train_matches_jax(use_pallas, sum_agg):
                                        np.asarray(jgp[part]["layers"][k]["w"]), **BWD_TOL)
             np.testing.assert_allclose(lin.bias.grad.numpy(),
                                        np.asarray(jgp[part]["layers"][k]["b"]), **BWD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' plan (pass shape, static schedule, slab sizes)
+# ---------------------------------------------------------------------------
+
+FE = [96, 160, 192]
+PLAN_CASES = [
+    # batch, receivers, senders (knn: k), widths
+    (256, 30, 30, FE), (33, 30, 30, FE), (1, 30, 30, FE), (32, 150, 150, FE), (16, 150, 150, FE),
+    (160, 150, 20, FE), (128, 150, 20, FE), (1, 150, 20, FE), (8, 150, 20, FE),
+    (3, 13, 5, [24, 16, 12]), (2, 70, 33, [30, 50, 7]), (2, 9, 3, [96]), (4, 30, 30, [96, 64]),
+    (3, 30, 30, [250, 255, 256, 249, 200]), (2, 40, 40, [13, 9, 11, 5]),
+]
+
+
+@pytest.mark.parametrize("batch,n_recv,n_send,dims", PLAN_CASES)
+def test_bwd_plan_fits_and_covers_every_item_once(batch, n_recv, n_send, dims):
+    plan = tmk.bwd_plan(batch, n_recv, n_send, dims, 132)
+    assert plan.rows in (32, 64, 128) and 1 <= plan.ti * plan.jc <= plan.rows
+    assert plan.ti <= n_recv and plan.jc <= n_send
+    assert plan.smem_bytes == tmk.bwd_smem_bytes(dims, plan.rows) <= tmk.MAX_SMEM_BYTES
+    assert plan.blocks == -(-n_recv // plan.ti) and plan.items == batch * plan.blocks
+    assert 1 <= plan.grid <= min(132, plan.items)
+    # the ranges tile [0, items) in CTA order, none empty, sizes within one of each other
+    ranges = [plan.item_range(c) for c in range(plan.grid)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.items
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [hi - lo for lo, hi in ranges]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    # the owner of an item, as the kernels and the reduction compute it
+    for c, (lo, hi) in enumerate(ranges):
+        assert plan.item_owner(lo) == c and plan.item_owner(hi - 1) == c
+    # every CTA that touches a jet finds a slab
+    for b in range(batch):
+        touching = {plan.item_owner(t) for t in range(b * plan.blocks, (b + 1) * plan.blocks)}
+        assert len(touching) == plan.slabs_of_jet(b) <= plan.slots
+        assert touching == set(range(min(touching), max(touching) + 1))
+
+
+@pytest.mark.parametrize("batch,n_recv,n_send,ti,jc", [
+    (256, 30, 30, 4, 30),      # flagship: 120 of 128 pair rows
+    (32, 150, 150, 5, 25),     # 150 particles dense: 125 of 128
+    (160, 150, 20, 6, 20),     # 150 particles knn-20: 120 of 128
+])
+def test_bwd_plan_at_the_published_widths(batch, n_recv, n_send, ti, jc):
+    plan = tmk.bwd_plan(batch, n_recv, n_send, FE, 132)
+    assert (plan.ti, plan.jc, plan.rows, plan.grid) == (ti, jc, 128, 132)
+    # a_1 + dz_2 = 352 floats a row, the weight slabs, the row arrays: under 227 KB
+    assert plan.smem_bytes == 4 * (352 * 132 + 2 * 4096 + (4 + 10) * 132)
+
+
+def test_bwd_plan_shrinks_the_pass_for_wide_chains_and_refuses_what_cannot_fit():
+    assert tmk.bwd_plan(4, 30, 30, [250, 255, 256, 249, 200], 132).rows == 32
+    assert tmk.bwd_smem_bytes([256, 256, 256], 128) > tmk.MAX_SMEM_BYTES
+    assert tmk.bwd_smem_bytes([256, 256, 256], 64) <= tmk.MAX_SMEM_BYTES
+    assert tmk.bwd_plan(256, 30, 30, [256, 256, 256], 132).rows in (32, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        tmk.bwd_plan(4, 30, 30, [256] * 9, 132)
+
+
+def test_bwd_plan_balances_the_last_round():
+    # 150 particles dense at B=32: 960 items of 6 passes on 132 SMs, the busiest CTA 48 passes
+    plan = tmk.bwd_plan(32, 150, 150, FE, 132)
+    busiest = max(hi - lo for lo, hi in map(plan.item_range, range(plan.grid)))
+    assert busiest * -(-150 // plan.jc) == 48
+    # knn-20 at B=160: 4,000 items on 132 SMs, 31 passes where 30.3 is the mean
+    plan = tmk.bwd_plan(160, 150, 20, FE, 132)
+    assert max(hi - lo for lo, hi in map(plan.item_range, range(plan.grid))) == 31
+
+
+@pytest.mark.parametrize("dims,rows,packed,wslab", [
+    (FE, 128, (96 * 5 + 160 * 3 + 160 * 6 + 192 * 5) * 32, 3 * 5 * 1024 + 160 + 5 * 6 * 1024 + 192),
+    ([30, 50, 7], 32, (30 * 1 + 50 * 1 + 50 * 1 + 7 * 1) * 128, 2 * 1024 + 52 + 2 * 1024 + 8),
+    ([96], 128, 0, 0),
+])
+def test_bwd_scratch_sizes(dims, rows, packed, wslab):
+    assert tmk.bwd_packed_floats(dims, rows) == packed
+    assert tmk.bwd_wslab_floats(dims) == wslab
+    assert tmk.bwd_wslab_floats(dims, 5) == wslab + 8
