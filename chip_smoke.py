@@ -8,23 +8,31 @@ Phases, each printed as it finishes:
 2. build the CUDA kernels from ``mpgan_tpu_torch/csrc`` (seconds taken);
 3. each kernel against its plain PyTorch version at flagship widths
    (N=30 B=256 and N=150 B=16; sum and mean; random masks), TF32 off,
-   failing above rtol = atol = 1e-4;
+   failing above rtol = atol = 1e-4; K2 also on the 150-particle ``--fe 128 256``
+   chain at B=16 N=150. K2 and K4 are launched twice on equal inputs and the two
+   results compared bit for bit (every sum in their persistent grid has a fixed
+   order);
 4. the main path: a flagship 30-particle gluon card and a random generator in
    the reference ``.pt`` layout, 50,000 jets through ``mpgan_tpu_torch.cli.gen``;
 5. 150-particle dense generation through ``generate_multi_batch`` at B=512;
    launch counters are reset before phase 4 and read after phase 5, and every
    kernel must have launched;
-6. the generator's kernel path against its plain path on a small batch, then
-   jets/s of both (CUDA events, best of 3 after warm-up) and each kernel's time
-   beside its plain version's;
+6. the generator's kernel path against its plain path at the sampler's batch
+   (30p B=4096, 150p B=512: the shapes whose plans give a CTA several items),
+   rtol = atol = 1e-4 and the mask column equal, then jets/s of both (CUDA
+   events, best of 3 after warm-up) and the kernel launches a generated batch;
+   K4 at B=4096 N=30 and K2 at B=512 N=150 against their plain versions and
+   launched twice (bit for bit), then each one's time beside its plain
+   version's;
 7. the train kernels against their plain versions: K2 with dropout p = 0.5
    (K1 inside) and K3 with and without weight gradients, with and without
    dropout, at N=30 B=256 and N=150 B=16, sum and mean, random masks. du1, du2,
    dmask and the forward within rtol = atol = 1e-4; the weight gradients, which
    sum every pair row, within 1e-4 of max(1, max|ref|). One dropout element that
-   differs breaks these bounds. K3 is launched twice on equal inputs, with and
-   without weight gradients, and the two results compared bit for bit (its
-   persistent grid walks a static schedule and every sum has a fixed order);
+   differs breaks these bounds. K2 and K3 are launched twice on equal inputs, K3
+   with and without weight gradients, and the two results compared bit for bit
+   (their persistent grids walk a static schedule and every sum has a fixed
+   order);
 8. one flagship-width D+G step on the card against the same step on the CPU
    (the kernels' plain versions), B=16, from the same state, batch, noise and
    dropout keys: losses and every gradient agree. Again on the card's plain
@@ -39,7 +47,8 @@ Phases, each printed as it finishes:
     needs; K3 (with and without weight gradients, at B=256 N=30 and B=32 N=150)
     and K2-train beside their plain versions; the host's time to issue a step;
     a ``torch.profiler`` breakdown of three kernel-path steps, its idle share
-    taken against those steps' own wall time;
+    taken against those steps' own wall time, its kernel launches a step beside
+    the parent tree's count (for the record: PERF.md);
 11. the knn kernels against their plain versions at B=160 N=150 k=20 (published
     widths) and at a small ragged shape (N=13 k=5): K5 eval and with dropout
     0.5, with and without self loops, sum and mean, with and without the
@@ -144,6 +153,9 @@ REPLACES = {
 }
 K1 = "mpgan_tpu/ops/mp_pallas.py:80 (_dropmul, K1, a device function inside the kernel)"
 STEP_GFLOP = 679.0  # one flagship D+G step at B=256, N=30 (PERF.md)
+# kernels a profiled flagship D+G step launched before the forward kernels ran on the
+# backward's products (PERF.md, section 5): printed beside this run's count, not checked
+PARENT_STEP_LAUNCHES = 955
 FE = [96, 160, 192]  # the published fe widths
 FN = [224, 256, 256]  # fn's input [agg | x] and hidden widths; the output width varies
 KNN150 = {**FLAGSHIP, "num_hits": 150, "fully_connected": False, "num_knn": 20}
@@ -207,18 +219,19 @@ def card_line() -> str:
     return out[0]
 
 
-def kernel_inputs(dev, b, n, fn_out, seed):
+def kernel_inputs(dev, b, n, fn_out, seed, fe=FE):
     g = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
-    fe = [96, 160, 192]
     hidden = []
     for a, c in zip(fe[:-1], fe[1:]):
         hidden += [r(a, c, scale=a ** -0.5), r(c, scale=0.1)]
-    fn = (r(192, 256, scale=224 ** -0.5), r(32, 256, scale=224 ** -0.5), r(256, scale=0.1),
-          r(256, 256, scale=1 / 16), r(256, scale=0.1), r(256, fn_out, scale=1 / 16),
-          r(fn_out, scale=0.1))
+    h_out = fe[-1]
+    fn = (r(h_out, 256, scale=(h_out + 32) ** -0.5), r(32, 256, scale=(h_out + 32) ** -0.5),
+          r(256, scale=0.1), r(256, 256, scale=1 / 16), r(256, scale=0.1),
+          r(256, fn_out, scale=1 / 16), r(fn_out, scale=0.1))
     mask = (torch.rand(b, n, 1, generator=g, device=dev) > 0.3).float()
-    return r(b, n, 96, scale=0.5), r(b, n, 96, scale=0.5), mask, tuple(hidden), r(b, n, 32), fn
+    return (r(b, n, fe[0], scale=0.5), r(b, n, fe[0], scale=0.5), mask, tuple(hidden),
+            r(b, n, 32), fn)
 
 
 def errors(out, ref):
@@ -252,8 +265,9 @@ def best_ms(fn, reps=3, inner=3):
     return best
 
 
-def train_kernel_checks(mk, dev):
-    """Phase 7: K2 with dropout and K3 against their plain versions."""
+def train_kernel_checks(mk, dev, identical):
+    """Phase 7: K2 with dropout and K3 against their plain versions; each
+    rerun's bit-identity is and-ed into ``identical``."""
     max_err = {"edge_aggregate": 0.0, "edge_aggregate_bwd": 0.0}
     for b, n in ((256, 30), (16, 150)):
         for sum_agg in (True, False):
@@ -261,12 +275,16 @@ def train_kernel_checks(mk, dev):
             g = torch.randn(b, n, 192, generator=torch.Generator(device=dev).manual_seed(n),
                             device=dev)
             out = mk.edge_aggregate(u1, u2, mask, hidden, 0.2, sum_agg, 0.5, 123457)
+            again = mk.edge_aggregate(u1, u2, mask, hidden, 0.2, sum_agg, 0.5, 123457)
             ref = mk.edge_aggregate_reference(u1, u2, mask, hidden, 0.2, sum_agg, 0.5, 123457)
             torch.cuda.synchronize()
             abs_err, _, bad = errors(out, ref)
+            repeat = torch.equal(out, again)
+            identical["edge_aggregate"] &= repeat
             log("train_kernel_check", kernel="edge_aggregate", dropout=0.5, b=b, n=n,
-                sum_agg=sum_agg, max_abs_err=abs_err, out_of_tol=bad)
-            if bad:
+                sum_agg=sum_agg, max_abs_err=abs_err, out_of_tol=bad,
+                two_runs_bit_identical=repeat)
+            if bad or not repeat:
                 raise SystemExit(f"edge_aggregate (train) disagrees at b={b} n={n}")
             max_err["edge_aggregate"] = max(max_err["edge_aggregate"], abs_err)
             for p in (0.0, 0.5):
@@ -280,6 +298,7 @@ def train_kernel_checks(mk, dev):
                     torch.cuda.synchronize()
                     repeat = all(torch.equal(x, y) for x, y in zip((*out[:3], *out[3]),
                                                                    (*again[:3], *again[3])))
+                    identical["edge_aggregate_bwd"] &= repeat
                     errs = [errors(o, r) for o, r in zip(out[:3], ref[:3])]
                     werrs = [wgrad_err(o, r) for o, r in zip(out[3], ref[3])]
                     bad = sum(e[2] for e in errs) + sum(not ok for _, ok in werrs)
@@ -517,7 +536,7 @@ def train_timings(mk, dev, from_args_dict, card):
                "plain_ms": v[1], **({"bound_ms": bounds[k]} if k in bounds else {})}
            for k, v in times.items()})
 
-    profile_steps(step, card, "train_step_profile")
+    profile_steps(step, card, "train_step_profile", parent_kernels_per_step=PARENT_STEP_LAUNCHES)
     return ms, times
 
 
@@ -1310,33 +1329,37 @@ def main() -> None:
     log("build", seconds=time.perf_counter() - t0, cached=_build.build_info.get("cached"),
         library=_build.build_info.get("path"), ptxas=ptxas)
 
-    # 3. kernels against their plain versions
-    max_err = {"edge_aggregate": 0.0, "edge_aggregate_fn": 0.0}
-    for b, n in ((256, 30), (16, 150)):
+    # 3. kernels against their plain versions, each launched twice
+    max_err = {"edge_aggregate": 0.0, "edge_aggregate_fn": 0.0, "edge_aggregate_fe128_256": 0.0}
+    # bit-identity of every rerun of a kernel in this run (a mismatch also stops it)
+    identical = {"edge_aggregate": True, "edge_aggregate_fn": True, "edge_aggregate_bwd": True}
+    shapes = [(b, n, fn_out, FE) for b, n in ((256, 30), (16, 150)) for fn_out in (32, 3)]
+    shapes.append((16, 150, 3, [128, 256]))  # the 150-particle --fe 128 256 chain
+    for b, n, fn_out, fe in shapes:
         for sum_agg in (True, False):
-            for fn_out in (32, 3):
-                u1, u2, mask, hidden, x, fn = kernel_inputs(dev, b, n, fn_out, seed=n + fn_out)
-                checks = {
-                    "edge_aggregate": (
-                        mk.edge_aggregate(u1, u2, mask, hidden, 0.2, sum_agg),
-                        mk.edge_aggregate_reference(u1, u2, mask, hidden, 0.2, sum_agg),
-                    ),
-                    "edge_aggregate_fn": (
-                        mk.edge_aggregate_fn(u1, u2, mask, hidden, x, fn, 0.2, sum_agg, 0.2, True),
-                        mk.edge_aggregate_fn_reference(u1, u2, mask, hidden, x, fn, 0.2,
-                                                       sum_agg, 0.2, True),
-                    ),
-                }
-                torch.cuda.synchronize()
-                for name, (out, ref) in checks.items():
-                    abs_err, rel_err, bad = errors(out, ref)
-                    log("kernel_check", kernel=name, b=b, n=n, sum_agg=sum_agg, fn_out=fn_out,
-                        max_abs_err=abs_err, max_rel_err=rel_err, out_of_tol=bad)
-                    if bad:
-                        raise SystemExit(f"{name} disagrees with its plain version at "
-                                         f"b={b} n={n} sum={sum_agg}: {bad} elements beyond "
-                                         f"rtol=atol={TOL}")
-                    max_err[name] = max(max_err[name], abs_err)
+            u1, u2, mask, hidden, x, fn = kernel_inputs(dev, b, n, fn_out, seed=n + fn_out, fe=fe)
+            k2 = lambda: mk.edge_aggregate(u1, u2, mask, hidden, 0.2, sum_agg)  # noqa: E731
+            k4 = lambda: mk.edge_aggregate_fn(u1, u2, mask, hidden, x, fn, 0.2,  # noqa: E731
+                                              sum_agg, 0.2, True)
+            checks = {"edge_aggregate": (k2(), k2(), mk.edge_aggregate_reference(
+                u1, u2, mask, hidden, 0.2, sum_agg))}
+            if fe == FE:
+                checks["edge_aggregate_fn"] = (k4(), k4(), mk.edge_aggregate_fn_reference(
+                    u1, u2, mask, hidden, x, fn, 0.2, sum_agg, 0.2, True))
+            torch.cuda.synchronize()
+            for name, (out, again, ref) in checks.items():
+                abs_err, rel_err, bad = errors(out, ref)
+                repeat = torch.equal(out, again)
+                identical[name] &= repeat
+                log("kernel_check", kernel=name, fe=fe, b=b, n=n, sum_agg=sum_agg, fn_out=fn_out,
+                    max_abs_err=abs_err, max_rel_err=rel_err, out_of_tol=bad,
+                    two_runs_bit_identical=repeat)
+                if bad or not repeat:
+                    raise SystemExit(f"{name} disagrees with its plain version or itself at "
+                                     f"b={b} n={n} fe={fe} sum={sum_agg}: {bad} elements beyond "
+                                     f"rtol=atol={TOL}, bit-identical rerun {repeat}")
+                key = "edge_aggregate_fe128_256" if fe != FE else name
+                max_err[key] = max(max_err[key], abs_err)
 
     # 4. main path: 50,000 flagship jets through the gen CLI
     mk.reset_launch_counts()
@@ -1385,7 +1408,8 @@ def main() -> None:
         if launches[name] == 0:
             raise SystemExit(f"kernel {name} never launched on the generation path")
 
-    # 6. kernel path against plain path, then timings (kernel and plain in turns)
+    # 6. kernel path against plain path at the sampler's batch, then timings (kernel and
+    # plain in turns)
     timings = {}
     for n, b, g in ((30, 4096, g30.to(dev)), (150, 512, g150)):
         noise = torch.randn(b, n, 32, generator=torch.Generator(device=dev).manual_seed(2),
@@ -1397,14 +1421,17 @@ def main() -> None:
         kernel_cfg = g.cfg
         plain_cfg = dataclasses.replace(kernel_cfg, use_kernels=False)
         with torch.inference_mode():
-            y_k = g(noise[:8], lab[:8])
+            y_k = g(noise, lab)
             g.cfg = plain_cfg
-            y_p = g(noise[:8], lab[:8])
+            y_p = g(noise, lab)
             g.cfg = kernel_cfg
         abs_err, rel_err, bad = errors(y_k, y_p)
-        if bad or not torch.equal(y_k[..., -1], y_p[..., -1]):
-            raise SystemExit(f"{n}p generator: kernel path disagrees with plain path")
-        log("generator_check", n=n, max_abs_err=abs_err, max_rel_err=rel_err)
+        mask_equal = torch.equal(y_k[..., -1], y_p[..., -1])
+        log("generator_check", n=n, batch=b, max_abs_err=abs_err, max_rel_err=rel_err,
+            out_of_tol=bad, mask_column_equal=mask_equal)
+        if bad or not mask_equal:
+            raise SystemExit(f"{n}p generator at B={b}: kernel path disagrees with plain path")
+        del y_k, y_p
 
         def run(cfg):
             def f():
@@ -1420,27 +1447,51 @@ def main() -> None:
                                                        else plain_cfg)))
         g.cfg = kernel_cfg
         timings[n] = ms
+        mk.reset_launch_counts()
+        run(kernel_cfg)()
         log("generation_rate", card=card, n=n, batch=b,
             kernel_ms=ms["kernel"], plain_ms=ms["plain"],
-            kernel_jets_per_s=b / ms["kernel"] * 1e3, plain_jets_per_s=b / ms["plain"] * 1e3)
+            kernel_jets_per_s=b / ms["kernel"] * 1e3, plain_jets_per_s=b / ms["plain"] * 1e3,
+            launches_per_batch={k: v for k, v in mk.launch_counts.items() if v})
 
-    # per-kernel times at the main path's shapes
+    # K4 and K2 at the main path's shapes: against their plain versions, twice bit for
+    # bit, then timed
+    def main_shape(name, b, n, kernel, plain, inner):
+        out, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        abs_err, rel_err, bad = errors(out, ref)
+        repeat = torch.equal(out, again)
+        identical[name] &= repeat
+        log("kernel_check", kernel=name, b=b, n=n, sum_agg=True, max_abs_err=abs_err,
+            max_rel_err=rel_err, out_of_tol=bad, two_runs_bit_identical=repeat)
+        if bad or not repeat:
+            raise SystemExit(f"{name} disagrees with its plain version or itself at b={b} n={n}: "
+                             f"{bad} elements beyond rtol=atol={TOL}, bit-identical rerun {repeat}")
+        max_err[name] = max(max_err[name], abs_err)
+        del out, again, ref
+        return best_ms(kernel, inner=inner), best_ms(plain, inner=inner)
+
     u1, u2, mask, hidden, x, fn = kernel_inputs(dev, 4096, 30, 3, seed=7)
-    k4 = (best_ms(lambda: mk.edge_aggregate_fn(u1, u2, mask, hidden, x, fn, 0.2, True, 0.2,
-                                               True)),
-          best_ms(lambda: mk.edge_aggregate_fn_reference(u1, u2, mask, hidden, x, fn, 0.2, True,
-                                                         0.2, True)))
+    k4 = main_shape(
+        "edge_aggregate_fn", 4096, 30,
+        lambda: mk.edge_aggregate_fn(u1, u2, mask, hidden, x, fn, 0.2, True, 0.2, True),
+        lambda: mk.edge_aggregate_fn_reference(u1, u2, mask, hidden, x, fn, 0.2, True, 0.2, True),
+        inner=3)
     del u1, u2, mask, hidden, x, fn
     torch.cuda.empty_cache()
     u1, u2, mask, hidden, _, _ = kernel_inputs(dev, 512, 150, 3, seed=8)
-    k2 = (best_ms(lambda: mk.edge_aggregate(u1, u2, mask, hidden, 0.2, True), inner=1),
-          best_ms(lambda: mk.edge_aggregate_reference(u1, u2, mask, hidden, 0.2, True), inner=1))
+    k2 = main_shape(
+        "edge_aggregate", 512, 150,
+        lambda: mk.edge_aggregate(u1, u2, mask, hidden, 0.2, True),
+        lambda: mk.edge_aggregate_reference(u1, u2, mask, hidden, 0.2, True), inner=1)
+    del u1, u2, mask, hidden
+    torch.cuda.empty_cache()
     log("kernel_times", card=card,
         edge_aggregate={"shape": "B=512 N=150", "ms": k2[0], "plain_ms": k2[1]},
         edge_aggregate_fn={"shape": "B=4096 N=30", "ms": k4[0], "plain_ms": k4[1]})
 
     # 7-10. training
-    train_err = train_kernel_checks(mk, dev)
+    train_err = train_kernel_checks(mk, dev, identical)
     step_check(dev, from_args_dict)
     with tempfile.TemporaryDirectory() as tmp:
         train_launches = main_train_path(mk, train_cli, pathlib.Path(tmp))
@@ -1474,6 +1525,8 @@ def main() -> None:
          "launches": launches["edge_aggregate"] + train_launches["edge_aggregate"]
          + train_launches["edge_aggregate_train"],
          "max_abs_err": max(max_err["edge_aggregate"], train_err["edge_aggregate"]),
+         "max_abs_err_fe128_256": max_err["edge_aggregate_fe128_256"],
+         "two_runs_bit_identical": identical["edge_aggregate"],
          "ms": k2[0], "plain_ms": k2[1], **dense_fwd_bound(512, 150), "shape": "B=512 N=150 eval",
          "train_ms": ttimes["train_fwd_30"][0], "train_plain_ms": ttimes["train_fwd_30"][1],
          "train_shape": "B=256 N=30 dropout 0.5",
@@ -1481,7 +1534,9 @@ def main() -> None:
         {"name": "edge_aggregate_fn", "route": "cuda", "source": fwd_src,
          "replaces": REPLACES["edge_aggregate_fn"],
          "launches": launches["edge_aggregate_fn"] + train_launches["edge_aggregate_fn"],
-         "max_abs_err": max_err["edge_aggregate_fn"], "ms": k4[0], "plain_ms": k4[1],
+         "max_abs_err": max_err["edge_aggregate_fn"],
+         "two_runs_bit_identical": identical["edge_aggregate_fn"],
+         "ms": k4[0], "plain_ms": k4[1],
          **dense_fwd_bound(4096, 30, 3), "shape": "B=4096 N=30"},
         {"name": "edge_aggregate_bwd", "route": "cuda",
          "source": "mpgan_tpu_torch/csrc/edge_aggregate_bwd.cu",
@@ -1489,6 +1544,7 @@ def main() -> None:
          "launches": train_launches["edge_aggregate_bwd"]
          + train_launches["edge_aggregate_bwd_no_wgrads"],
          "max_abs_err": train_err["edge_aggregate_bwd"],
+         "two_runs_bit_identical": identical["edge_aggregate_bwd"],
          "ms": ttimes["bwd_30"][0], "plain_ms": ttimes["bwd_30"][1], **dense_bwd_bound(256, 30),
          "shape": "B=256 N=30 dropout 0.5 with weight gradients",
          "ms_no_wgrads": ttimes["bwd_no_wgrads_30"][0],

@@ -50,7 +50,7 @@ def main(argv: list[str] | None = None) -> None:
     if ns.g_state.endswith(".npz"):
         raise SystemExit(
             f"{ns.g_state}: gen reads a reference G .pt; generating from a TrainState .npz "
-            "(training/checkpoint.py) comes later, ROADMAP.md Queue 1 item 5"
+            "(training/checkpoint.py) comes later, ROADMAP.md Queue 1, evaluation"
         )
 
     g = suite.generator(device=device).eval()

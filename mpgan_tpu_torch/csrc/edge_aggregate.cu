@@ -4,8 +4,7 @@
 //   - K2 forward: edge_aggregate (_fwd_kernel_jets / _fwd_kernel), with K1, the
 //     in-kernel dropout hash (_dropmul), in train mode,
 //   - K4: edge_aggregate_fn (_fwd_kernel_jets_fn / _fwd_kernel_fn / _fn_tail).
-// The backward, K3, is in edge_aggregate_bwd.cu; the shared pieces are in
-// edge_common.cuh.
+// The backward, K3, is edge_aggregate_bwd.cu.
 //
 // For every jet b and receiver i
 //   agg[b, i] = sum_j mask[b, j] * chain(leaky(u1[b, i] + u2[b, j]))    (/ n for mean)
@@ -17,242 +16,504 @@
 //
 // What bounds it: the N^2 edge chain is ~166 MFLOP per 30-particle jet and
 // ~4.1 GFLOP per 150-particle jet at the flagship widths, against ~1 KB of input
-// per particle, so the kernel is bound by FP32 FMA issue if its operand loads keep
-// up. The design:
-//   - every edge activation stays in shared memory (never in device memory, like
-//     the VMEM-resident TPU kernel). A CTA owns a group of up to 32 receivers of
-//     one jet; it walks them in sub-blocks of `ti` and the senders in chunks of
-//     `jc`, so each pass sends ti * jc pair rows through all fe layers in two
-//     ping-pong buffers and reduces them into the group's aggregate in shared
-//     memory. Nothing crosses CTAs: no atomics, no second pass;
-//   - activations are stored transposed, act[feature][row], so a thread's 8 rows
-//     at one k are two 128-bit shared loads; its 4 weight columns are one 128-bit
-//     load through L1. A warp is 4 row groups x 8 column groups (a 32 x 32 tile),
-//     so per k step it issues 3 load wavefronts for 32 FMAs per thread. The
-//     k loop is unrolled 16 deep and a CTA runs 16 warps, so enough loads are in
-//     flight to cover their latency (a sweep of warps and unroll depth on the H100
-//     is in PERF.md);
-//   - K4 runs fn on the whole group's rows at once;
-//   - train mode (kDrop) multiplies each activation by K1's multiplier after
-//     layer 1's LeakyReLU (salt 0) and after hidden layer k (salt k), keyed on
-//     the global pair id, so K3 replays the same masks. The eval instantiation
-//     has no hash code in it;
+// per particle, so the kernel is bound by FP32 FMA issue. The design:
+//   - the pass and its products are edge_products.cuh's, the backward's own: a
+//     pass is ti receivers x jc senders in a buffer of 32, 64 or 128 pair rows
+//     (5 x 25 = 125 at N = 150, 4 x 30 = 120 at N = 30), all 512 threads hold full
+//     8 x TN register tiles of every product, and the weights come in k-slabs
+//     through shared memory, 128-bit cp.async copies of a packed copy, the next
+//     product's first slab in flight during the current product's last;
+//   - the packed copy is made by the kernel itself: its CTAs pack the fe (and
+//     K4's fn) weights into the caller's scratch, a share each, then meet at a
+//     grid-wide barrier (a cooperative launch: at most one CTA an SM, all
+//     resident), so no launch of its own and no cache keyed on the weights;
+//   - a product writes its output over its input (the barrier before its
+//     epilogue allows it), so a pass keeps one buffer as wide as the widest of
+//     a_0 .. a_{L-1}; the last layer's activation is never stored: its epilogue
+//     multiplies by mask[j] and sums each receiver's rows (a thread's 8 rows meet
+//     at most two receivers: a receiver takes rs = max(jc, 8) rows) into partials
+//     in the pass buffer it has just read, and one ordered add a (receiver,
+//     column) makes the pass's share of the aggregate. No a_L buffer, no sweep
+//     over it;
+//   - the grid is persistent, a CTA an SM, each walking a contiguous range of
+//     items. An item is `span` consecutive receivers of the batch's flat
+//     receiver list (b * n + i), taken ti at a time, each over the senders of its
+//     own jet in chunks of jc; a block may hold two jets' receivers, so none is
+//     cut short at a jet's end. K2: span = ti. K4: span is a multiple of ti of at
+//     most `rows` receivers (104 at N = 30 on 132 SMs, for the balance of the
+//     grid's last round), whose aggregates are kept transposed in shared memory;
+//     fn then runs on the item's [agg | x]
+//     rows at once (TN = 8 for its 256-wide layers on 128 rows), each layer in
+//     place (fn is row-wise, so an item needs no whole jets);
+//   - train mode multiplies each activation by K1's multiplier after layer 1's
+//     LeakyReLU (salt 0) and after hidden layer k (salt k), keyed on the global
+//     pair id (b * n + i) * ns + j, ns = ceil(n / 8) * 8, so K3 replays the same
+//     masks; a dropped element is stored as -0.0f;
+//   - every sum has a fixed order (no atomics), so two launches on equal inputs
+//     are bit-identical;
 //   - no tensor cores and no TF32, so results hold FP32 parity with the plain
-//     version. There is no sender padding: the TPU's pad to 8 senders is a
-//     sublane device.
+//     version.
+// The pass shape, the weight slabs' size, the items and the grid are planned by
+// the caller (mp_kernels.fwd_plan, CPU-tested); the launcher checks them and lays
+// out the shared memory.
 
-#include "edge_common.cuh"
+#include <cooperative_groups.h>
+
+#include "edge_products.cuh"
 
 namespace {
 
-// grid = (batch, number of receiver groups); dynamic shared memory holds the two
-// ping-pong buffers and the group's aggregate [group, h_out].
-template <bool kFuseFn, bool kDrop>
+constexpr int kFwdRowArrays = 4;  // u1, u2, id, m
+constexpr int kFwdJobs = 2 * kMaxLayers;  // fe layers, then fn's
+
+// What a product needs of its layer, kept in shared memory: the loops then read
+// no kernel parameter at a computed index (which would copy the chains to local
+// memory).
+struct LayerTab {
+  const float* w;  // the packed weights
+  const float* b;  // the bias
+  int k, m;
+};
+constexpr int kTabFloats = kFwdJobs * (int)(sizeof(LayerTab) / sizeof(float));
+
+struct FwdPlan : PassShape {
+  int ti, jc;      // receivers x senders of a pass
+  int rs;          // pass rows a receiver takes: jc, at least 8
+  int span;        // receivers an item holds: K2 ti, K4 a multiple of ti, at most rows
+  long long items;
+  int off_act;     // the pass buffer, a_0 .. a_{L-1} each written over the last
+  int off_agg;     // K2: the item's aggregate [ti x h_out]; K4: agg^T [h_out x ldr] at 0,
+                   // where fn then runs in place on [agg | x]^T
+  int off_slab;    // the two weight slabs
+  int off_part;    // the last layer's partial sums [2][rows / 8][h_out]: the pass buffer
+                   // where it is large enough, else a region of their own
+  int off_rows;    // the per-row arrays
+  int off_tab;     // the layer table (LayerTab), fe layers then fn's
+  size_t smem;
+  long long pk_off[kFwdJobs + 1];  // packed weights: fe layers, then fn's (floats)
+};
+
+// The widest of a_0 .. a_{L-1}: the pass buffer's width.
+int pass_width(const Chain& fe) {
+  int w = fe.dim[0];
+  for (int l = 1; l < fe.n; ++l) w = fe.dim[l] > w ? fe.dim[l] : w;
+  return w;
+}
+
+// Lays out the shared memory of a pass shape and slab size that the caller
+// planned (mp_kernels.fwd_plan), and the packed weights; false where the shape is
+// not one the kernel runs or the memory does not fit.
+bool fwd_layout(FwdPlan& p, const Chain& fe, const Chain* fn) {
+  const int slab = p.slab_floats;
+  if (!set_shape(p, p.rows) || p.ti < 1 || p.jc < 1) return false;
+  // at least the products' least slab, and 16-byte aligned for the second buffer
+  if (slab < kSlabFloats || slab % 4 != 0) return false;
+  p.slab_floats = slab;
+  p.rs = p.jc > 8 ? p.jc : 8;
+  if (p.ti * p.rs > p.rows) return false;
+  const int h_out = fe.dim[fe.n], width = pass_width(fe);
+  p.pk_off[0] = 0;
+  const int jobs = fe.n + (fn != nullptr ? fn->n : 0);
+  for (int l = 0; l < jobs; ++l) {
+    const Chain& c = l < fe.n ? fe : *fn;
+    const int li = l < fe.n ? l : l - fe.n;
+    p.pk_off[l + 1] = p.pk_off[l] + (long long)c.dim[li] *
+                                        round_up(c.dim[li + 1], p.col_threads);
+  }
+  int act;
+  if (fn != nullptr) {
+    int fn_width = h_out + width;
+    for (int l = 0; l <= fn->n; ++l) fn_width = fn->dim[l] > fn_width ? fn->dim[l] : fn_width;
+    p.off_agg = 0;
+    p.off_act = h_out * p.ldr;
+    act = fn_width * p.ldr;
+  } else {
+    p.off_act = 0;
+    p.off_agg = width * p.ldr;
+    act = p.off_agg + round_up(p.ti * h_out, 4);
+  }
+  const int part = 2 * (p.rows / 8) * h_out;
+  const bool own_part = part > width * p.ldr;
+  const int rest = act + kFwdRowArrays * p.ldr + kTabFloats + (own_part ? part : 0);
+  p.off_slab = act;
+  p.off_rows = p.off_slab + 2 * p.slab_floats;
+  p.off_tab = p.off_rows + kFwdRowArrays * p.ldr;  // a multiple of 4 floats
+  p.off_part = own_part ? p.off_tab + kTabFloats : p.off_act;
+  p.smem = (size_t)(rest + 2 * p.slab_floats) * sizeof(float);
+  return p.smem <= (size_t)kMaxSmemBytes;
+}
+
+// This CTA's share of the packed weights: layer l in packed_elem's order; fn's
+// first layer takes its rows k >= k0_split from w0_lo. The grid's CTAs take every
+// gridDim-th element.
+__device__ void pack_share(float* __restrict__ packed, const FwdPlan& p, const Chain& fe,
+                           const Chain& fn, int jobs) {
+  int l = 0;
+  for (long long t = (long long)blockIdx.x * kThreads + threadIdx.x; t < p.pk_off[jobs];
+       t += (long long)gridDim.x * kThreads) {
+    while (t >= p.pk_off[l + 1]) ++l;
+    const Chain& c = l < fe.n ? fe : fn;
+    const int li = l < fe.n ? l : l - fe.n, M = c.dim[li + 1];
+    const PackedElem e = packed_elem(t - p.pk_off[l], M, p.col_threads);
+    const int split = li == 0 && l >= fe.n ? c.k0_split : c.dim[li];
+    const float* w = e.row < split ? c.w[li] + (size_t)e.row * M
+                                   : c.w0_lo + (size_t)(e.row - split) * M;
+    packed[p.pk_off[l] + e.at] = e.col < M ? w[e.col] : 0.f;
+  }
+}
+
+// The forward's products (C may be A) along the chain of weight slabs: `chain`
+// holds the buffer and state of this product's first slab on entry and of the
+// next one's on return; `next` (null: none) is the next product's packed weights,
+// K_next x M_next.
+__device__ void product_fwd(int A, int K, const float* W, int M, const PassShape& p,
+                            const Epilogue& e, int slab, SlabChain& chain, const float* next,
+                            int K_next, int M_next) {
+  chain.next = next;
+  chain.next_floats =
+      next != nullptr ? first_slab_floats(K_next, M_next, p.col_threads, p.slab_floats) : 0;
+  chain.buf = product_at<true>(A, K, W, M, slab, p, e, chain);
+  chain.staged = next != nullptr;
+}
+
+// Adds a pass's share s of receiver ii's aggregate at column c. K2 keeps the item's
+// aggregate in shared memory and stores it, divided by `denom`, on the last chunk
+// of senders; K4 keeps it transposed for fn.
+template <bool kFuseFn>
+__device__ __forceinline__ void add_share(const FwdPlan& p, float s, int ii, int c, int h_out,
+                                          int blk, bool first, bool last, float denom,
+                                          float* __restrict__ out_row) {
+  if (kFuseFn) {
+    float* a = smf(p.off_agg) + (size_t)c * p.ldr + blk + ii;
+    *a = first ? s : *a + s;
+  } else {
+    float* a = smf(p.off_agg) + ii * h_out + c;
+    const float v = first ? s : *a + s;
+    if (last)
+      out_row[c] = v / denom;
+    else
+      *a = v;
+  }
+}
+
+// a_0 [h1 x rows] from the row arrays, as build_a0 makes it (no distance
+// feature), laid out for the transposed store: a warp takes 4 rows by 8 features
+// at a time, so its 32 stores fall into 32 banks (ldr = 4 mod 32: row r and
+// feature h sit in bank 4h + r) where a warp of 32 features of one row hit 4;
+// its loads read 32 bytes of each of 4 rows. Twelve features of a lane's row
+// are loaded together (24 loads in flight), so a pass waits for device memory
+// once every 96 features.
+__device__ __noinline__ void build_a0_fwd(int dst_off, const PassShape& p, const RowArrays& row_in,
+                                          const PassInputs& in_ref, int h1) {
+  const PassInputs in = in_ref;  // copies: see product_tn
+  const RowArrays row = row_in;
+  const int ldr = p.ldr;
+  float* dst = smf(dst_off);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hl = lane & 7, rl = lane >> 3;
+  const float* __restrict__ u1 = in.u1;
+  const float* __restrict__ u2 = in.u2;
+  constexpr int kH = 12;
+  for (int rg = warp; rg < p.rows / 4; rg += kWarps) {
+    const int r = 4 * rg + rl;
+    const int o1 = smi(row.u1)[r], o2 = smi(row.u2)[r];
+    const unsigned id = smu(row.id)[r];
+    for (int h0 = hl; h0 < h1; h0 += 8 * kH) {
+      float z[kH];
+#pragma unroll
+      for (int k = 0; k < kH; ++k) {
+        const int h = h0 + 8 * k;
+        z[k] = o1 >= 0 && h < h1 ? __ldg(u1 + o1 + h) + __ldg(u2 + o2 + h) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kH; ++k) {
+        const int h = h0 + 8 * k;
+        if (h >= h1) break;
+        float v = 0.f;
+        if (o1 >= 0) {
+          v = leaky(z[k], in.alpha);
+          if (in.drop_on) v = drop_store(v, in.drop, id, (unsigned)h, 0u);
+        }
+        dst[h * ldr + r] = v;
+      }
+    }
+  }
+}
+
+// grid = the plan's CTAs; dynamic shared memory as fwd_layout lays it out.
+template <bool kFuseFn>
 __global__ void __launch_bounds__(kThreads, 1)
     edge_aggregate_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
                           const float* __restrict__ mask, const float* __restrict__ x,
-                          float* __restrict__ out, int n, int h1, int feat, Plan p, Chain fe,
-                          Chain fn, float alpha, float fn_alpha, int sum_agg, Drop drop) {
-  extern __shared__ float4 smem4[];
-  float* buf0 = reinterpret_cast<float*>(smem4);
-  float* buf1 = buf0 + p.buf0;
-  float* agg = buf1 + p.buf1;  // [group, h_out]
-
-  const int b = blockIdx.x;
-  const int g0 = blockIdx.y * p.group;
-  const int g_eff = min(p.group, n - g0);
-  const int h_out = fe.dim[fe.n];
-  const float* u1b = u1 + ((size_t)b * n + g0) * h1;
-  const float* u2b = u2 + (size_t)b * n * h1;
-  const float* mb = mask + (size_t)b * n;
-
-  for (int t = threadIdx.x; t < g_eff * h_out; t += kThreads) agg[t] = 0.f;
-
-  for (int ib = 0; ib < g_eff; ib += p.ti) {
-    const int ti_eff = min(p.ti, g_eff - ib);
-    const int rows = round_up(ti_eff * p.jc, kRowBlock);
-    for (int j0 = 0; j0 < n; j0 += p.jc) {
-      const int jc_eff = min(p.jc, n - j0);
-      if (kDrop) drop.base = (unsigned)(b * n + g0 + ib) * (unsigned)drop.ns + (unsigned)j0;
-      __syncthreads();  // the previous pass's reduction has finished reading the buffers
-      // layer 1, decomposed; row r = (receiver ii, sender jj); h fastest for coalesced reads
-      for (int t = threadIdx.x; t < rows * h1; t += kThreads) {
-        const int r = t / h1, h = t - (t / h1) * h1;
-        const int ii = r / p.jc, jj = r - (r / p.jc) * p.jc;
-        float v = 0.f;
-        if (ii < ti_eff && jj < jc_eff) {
-          v = leaky(u1b[(size_t)(ib + ii) * h1 + h] + u2b[(size_t)(j0 + jj) * h1 + h], alpha);
-          if (kDrop) v *= dropmul(drop, pair_id(drop, r), (unsigned)h, 0u);
-        }
-        buf0[h * p.ldr + r] = v;
-      }
-      float* src = buf0;
-      float* dst = buf1;
-      for (int l = 0; l < fe.n; ++l) {
-        __syncthreads();
-        const int K = fe.dim[l], M = fe.dim[l + 1];
-        dense_layer<kDrop>(src, p.ldr, dst, p.ldr, rows, K, M, fe.w[l], nullptr, K, fe.b[l], true,
-                           alpha, drop, (unsigned)(l + 1));
-        float* tmp = src;
-        src = dst;
-        dst = tmp;
-      }
-      __syncthreads();
-      // masked sum over this pass's senders
-      for (int t = threadIdx.x; t < ti_eff * h_out; t += kThreads) {
-        const int ii = t / h_out, h = t - (t / h_out) * h_out;
-        const float* col = src + h * p.ldr + ii * p.jc;
-        float acc = 0.f;
-        for (int jj = 0; jj < jc_eff; ++jj) acc = fmaf(__ldg(mb + j0 + jj), col[jj], acc);
-        agg[(ib + ii) * h_out + h] += acc;
-      }
-    }
+                          float* __restrict__ out, float* __restrict__ packed, int batch, int n,
+                          int feat, FwdPlan p, Chain fe, Chain fn, float alpha, float fn_alpha,
+                          int sum_agg, int drop_on, Drop drop) {
+  const int L = fe.n, h1 = fe.dim[0], h_out = fe.dim[L], ns = round_up(n, 8);
+  const int n_fn = kFuseFn ? fn.n : 0;
+  pack_share(packed, p, fe, fn, L + n_fn);
+  LayerTab* tab = reinterpret_cast<LayerTab*>(smf(p.off_tab));
+  if (threadIdx.x < L + n_fn) {
+    const int l = threadIdx.x, li = l < L ? l : l - L;
+    const Chain& c = l < L ? fe : fn;
+    tab[l] = LayerTab{packed + p.pk_off[l], c.b[li], c.dim[li], c.dim[li + 1]};
   }
-  __syncthreads();
+  cooperative_groups::this_grid().sync();  // the packed weights and the table are complete
+  const int total = batch * n;  // receivers of the launch
   const float denom = sum_agg ? 1.f : (float)n;  // the mean divides by the true n
+  RowArrays row{};
+  row.u1 = p.off_rows;
+  row.u2 = p.off_rows + p.ldr;
+  row.id = p.off_rows + 2 * p.ldr;
+  row.m = p.off_rows + 3 * p.ldr;
+  PassInputs in{};
+  in.u1 = u1;
+  in.u2 = u2;
+  in.w_d = nullptr;
+  in.alpha = alpha;
+  in.drop_on = drop_on != 0;
+  in.drop = drop;
+  Epilogue e{};
+  e.alpha = alpha;
+  e.drop_on = drop_on != 0;
+  e.drop = drop;
+  e.part = p.off_part;
+  e.rs = p.rs;
+  SlabChain chain{};
+  e.row = row;
+  const int groups = p.rows / 8;
+  PhaseClock clock;
+  MPGAN_PHASE_START(clock);
 
-  if (!kFuseFn) {
-    for (int t = threadIdx.x; t < g_eff * h_out; t += kThreads) {
-      const int r = t / h_out, h = t - (t / h_out) * h_out;
-      out[((size_t)b * n + g0 + r) * h_out + h] = agg[t] / denom;
+  const long long t_end = range_start(blockIdx.x + 1, p.items, gridDim.x);
+  for (long long t = range_start(blockIdx.x, p.items, gridDim.x); t < t_end; ++t) {
+    // the item's first receiver in the flat list, and how many it holds
+    const int q_base = (int)t * p.span, n_recv = min(p.span, total - q_base);
+    for (int blk = 0; blk < n_recv; blk += p.ti) {
+      const int ti_eff = min(p.ti, n_recv - blk);
+      for (int j0 = 0; j0 < n; j0 += p.jc) {
+        const int jc_eff = min(p.jc, n - j0);
+        for (int r = threadIdx.x; r < p.rows; r += kThreads) {
+          const int ii = r / p.rs, jj = r - ii * p.rs;
+          const bool real = ii < ti_eff && jj < jc_eff;
+          const int q = q_base + blk + ii, sender = (q / n) * n + j0 + jj;
+          smi(row.u1)[r] = real ? q * h1 : -1;
+          smi(row.u2)[r] = real ? sender * h1 : 0;
+          smu(row.id)[r] = (unsigned)q * (unsigned)ns + (unsigned)(j0 + jj);
+          smf(row.m)[r] = real ? __ldg(mask + sender) : 0.f;
+        }
+        __syncthreads();  // the row arrays are visible; the last pass is done with the buffer
+        build_a0_fwd(p.off_act, p, row, in, h1);
+        MPGAN_PHASE(clock, kPhaseRows);
+        const bool first = j0 == 0, last = j0 + p.jc >= n;
+        float* out_blk = out + (size_t)(q_base + blk) * h_out;
+        if (L == 0) {
+          // no hidden layer: the masked sum of a_0 itself, in row order
+          __syncthreads();
+          for (int q = threadIdx.x; q < ti_eff * h_out; q += kThreads) {
+            const int ii = q / h_out, c = q - ii * h_out;
+            const float* col = smf(p.off_act) + (size_t)c * p.ldr + ii * p.rs;
+            const float* m = smf(row.m) + ii * p.rs;
+            float s = 0.f;
+            for (int jj = 0; jj < jc_eff; ++jj) s = fmaf(m[jj], col[jj], s);
+            add_share<kFuseFn>(p, s, ii, c, h_out, blk, first, last, denom,
+                               out_blk + (size_t)ii * h_out);
+          }
+          MPGAN_PHASE(clock, kPhaseLast);
+          continue;
+        }
+        e.kind = kEpiHidden;
+        e.C = p.off_act;
+        for (int l = 0; l + 1 < L; ++l) {
+          const LayerTab a = tab[l], b = tab[l + 1];
+          e.bias = a.b;
+          e.salt = (unsigned)(l + 1);
+          product_fwd(p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k, b.m);
+        }
+        MPGAN_PHASE(clock, kPhaseFwd);
+        // the product after the last layer's: fe's first again (this item's next
+        // pass, or the next item's first), else fn's first (K4), else none
+        const bool more = !last || blk + p.ti < n_recv;
+        const int nxt = more || (!kFuseFn && t + 1 < t_end) ? 0 : (kFuseFn ? L : -1);
+        const LayerTab a = tab[L - 1], b = nxt < 0 ? LayerTab{} : tab[nxt];
+        e.kind = kEpiAgg;
+        e.bias = a.b;
+        e.salt = (unsigned)L;
+        product_fwd(p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k, b.m);
+        __syncthreads();  // the partials are complete
+        MPGAN_PHASE(clock, kPhaseLast);
+        // receiver ii's rows [ii * rs, ii * rs + jc_eff) lie in the 8-row groups
+        // g0 .. g1; a group that starts inside them holds ii as its head, the one
+        // before as its tail
+        const float* part = smf(p.off_part);
+        for (int q = threadIdx.x; q < ti_eff * h_out; q += kThreads) {
+          const int ii = q / h_out, c = q - ii * h_out;
+          const int r_begin = ii * p.rs, g1 = (r_begin + jc_eff - 1) / 8;
+          float s = 0.f;
+          for (int g = r_begin / 8; g <= g1; ++g)
+            s += part[((8 * g >= r_begin ? 0 : groups) + g) * h_out + c];
+          add_share<kFuseFn>(p, s, ii, c, h_out, blk, first, last, denom,
+                             out_blk + (size_t)ii * h_out);
+        }
+        MPGAN_PHASE(clock, kPhaseTail);
+      }
     }
-    return;
-  }
+    if (!kFuseFn) continue;
 
-  // node MLP on the group's receivers; input row = [agg | x], stored transposed
-  const int fn_rows = round_up(g_eff, kRowBlock);
-  const int k_in = h_out + feat;
-  for (int t = threadIdx.x; t < fn_rows * k_in; t += kThreads) {
-    const int r = t / k_in, c = t - (t / k_in) * k_in;
-    float v = 0.f;
-    if (r < g_eff)
-      v = c < h_out ? agg[r * h_out + c] / denom
-                    : x[((size_t)b * n + g0 + r) * feat + (c - h_out)];
-    buf0[c * p.ldf + r] = v;
-  }
-  float* src = buf0;
-  float* dst = buf1;
-  for (int l = 0; l < fn.n; ++l) {
+    // K4: fn on the item's receivers, input rows [agg / denom | x] transposed,
+    // padded rows zero
     __syncthreads();
-    const int K = fn.dim[l], M = fn.dim[l + 1];
-    const bool act = l < fn.n - 1 || fn.act_last;
-    dense_layer<false>(src, p.ldf, dst, p.ldf, fn_rows, K, M, fn.w[l],
-                       l == 0 ? fn.w0_lo : nullptr, l == 0 ? fn.k0_split : K, fn.b[l], act,
-                       fn_alpha, drop, 0u);
-    float* tmp = src;
-    src = dst;
-    dst = tmp;
-  }
-  __syncthreads();
-  const int f_out = fn.dim[fn.n];
-  for (int t = threadIdx.x; t < g_eff * f_out; t += kThreads) {
-    const int r = t / f_out, c = t - (t / f_out) * f_out;
-    out[((size_t)b * n + g0 + r) * f_out + c] = src[c * p.ldf + r];
-  }
-}
-
-// Widest layer a chain keeps in each ping-pong buffer (even and odd positions).
-void chain_widths(const Chain& c, int& even, int& odd) {
-  for (int l = 0; l <= c.n; ++l) {
-    int& w = (l % 2 == 0) ? even : odd;
-    w = c.dim[l] > w ? c.dim[l] : w;
-  }
-}
-
-// Choose the receiver group, the pass shape (fewest padded rows) and the buffer
-// sizes; shrink the pass until the shared memory fits. Returns the bytes, or 0.
-size_t make_plan(int n, const Chain& fe, const Chain* fn, Plan& p) {
-  p.group = group_size(n);
-  p.ldf = round_up(p.group, kRowBlock) + 4;
-  const int h_out = fe.dim[fe.n];
-  for (int max_rows = kMaxPassRows; max_rows >= kRowBlock; max_rows -= kRowBlock) {
-    choose_pass(n, p.group, max_rows, p.ti, p.jc);
-    // stride = rows + 4 floats: 16-byte aligned rows, and column walks spread over banks
-    p.ldr = round_up(p.ti * p.jc, kRowBlock) + 4;
-    int fe_even = 0, fe_odd = 0;
-    chain_widths(fe, fe_even, fe_odd);
-    p.buf0 = fe_even * p.ldr;
-    p.buf1 = fe_odd * p.ldr;
-    if (fn != nullptr) {
-      int fn_even = 0, fn_odd = 0;
-      chain_widths(*fn, fn_even, fn_odd);
-      p.buf0 = fn_even * p.ldf > p.buf0 ? fn_even * p.ldf : p.buf0;
-      p.buf1 = fn_odd * p.ldf > p.buf1 ? fn_odd * p.ldf : p.buf1;
+    float* f = smf(0);
+    for (int q = threadIdx.x; q < h_out * p.rows; q += kThreads) {
+      const int c = q / p.rows, r = q - c * p.rows;
+      float* a = f + (size_t)c * p.ldr + r;
+      *a = r < n_recv ? *a / denom : 0.f;
     }
-    const size_t bytes = (size_t)(p.buf0 + p.buf1 + p.group * h_out) * sizeof(float);
-    if (bytes <= (size_t)kMaxSmemBytes) return bytes;
+    for (int q = threadIdx.x; q < p.rows * feat; q += kThreads) {
+      const int r = q / feat, c = q - r * feat;
+      f[(size_t)(h_out + c) * p.ldr + r] = r < n_recv ? __ldg(x + (size_t)(q_base + r) * feat + c)
+                                                      : 0.f;
+    }
+    Epilogue efn{};
+    efn.kind = kEpiHidden;
+    efn.C = 0;
+    for (int l = 0; l < n_fn; ++l) {
+      // next: fn's next layer, or the next item's first fe product
+      const int nxt = l + 1 < n_fn ? L + l + 1 : (t + 1 < t_end && L > 0 ? 0 : -1);
+      const LayerTab a = tab[L + l], b = nxt < 0 ? LayerTab{} : tab[nxt];
+      efn.bias = a.b;
+      efn.alpha = (l + 1 < n_fn || fn.act_last) ? fn_alpha : 1.f;  // slope 1: linear
+      product_fwd(0, a.k, a.w, a.m, p, efn, p.off_slab, chain, b.w, b.k, b.m);
+    }
+    __syncthreads();
+    const int f_out = tab[L + n_fn - 1].m;
+    for (int q = threadIdx.x; q < n_recv * f_out; q += kThreads) {
+      const int r = q / f_out, c = q - r * f_out;
+      out[(size_t)(q_base + r) * f_out + c] = f[(size_t)c * p.ldr + r];
+    }
+    // the next item's first pass overwrites these rows after its first barrier
+    MPGAN_PHASE(clock, kPhaseTail);
   }
-  return 0;
 }
 
-template <bool kFuseFn, bool kDrop>
+// Checks the caller's plan, lays out the shared memory and launches.
+template <bool kFuseFn>
 int launch(const float* u1, const float* u2, const float* mask, const float* x, float* out,
-           int batch, int n, int h1, int feat, const Chain& fe, const Chain& fn, float alpha,
-           float fn_alpha, int sum_agg, Drop drop, void* stream) {
-  if (batch < 1 || n < 1 || h1 < 1 || h1 > kMaxWidth) return (int)cudaErrorInvalidValue;
-  Plan p;
-  const size_t smem = make_plan(n, fe, kFuseFn ? &fn : nullptr, p);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(edge_aggregate_kernel<kFuseFn, kDrop>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           float* packed, int batch, int n, int h1, int feat, const Chain& fe, const Chain& fn,
+           float alpha,
+           float fn_alpha, int sum_agg, int drop_on, Drop drop, int ti, int jc, int rows,
+           int span, int grid, int slab_floats, void* stream) {
+  if (batch < 1 || n < 1 || h1 < 1 || h1 > kMaxWidth || fe.dim[0] != h1)
+    return (int)cudaErrorInvalidValue;
+  // offsets into u1 and u2 are ints
+  if ((long long)batch * n * (h1 > fe.dim[fe.n] ? h1 : fe.dim[fe.n]) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  FwdPlan p{};
+  p.rows = rows;
+  p.ti = ti;
+  p.jc = jc;
+  p.span = kFuseFn ? span : ti;
+  p.slab_floats = slab_floats;
+  if (!fwd_layout(p, fe, kFuseFn ? &fn : nullptr) || jc > n) return (int)cudaErrorInvalidValue;
+  if (p.span < ti || p.span > rows || p.span % ti != 0) return (int)cudaErrorInvalidValue;
+  p.items = ((long long)batch * n + p.span - 1) / p.span;
+  if (grid < 1 || grid > p.items) return (int)cudaErrorInvalidValue;
+  const void* kernel = reinterpret_cast<const void*>(edge_aggregate_kernel<kFuseFn>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)p.smem);
   if (err != cudaSuccess) return (int)err;
-  drop.jc = p.jc;
-  drop.ns = round_up(n, 8);
-  const dim3 grid(batch, (n + p.group - 1) / p.group);
-  edge_aggregate_kernel<kFuseFn, kDrop>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          u1, u2, mask, x, out, n, h1, feat, p, fe, fn, alpha, fn_alpha, sum_agg, drop);
-  return (int)cudaGetLastError();
+  Chain fn_arg = fn;
+  void* args[] = {&u1, &u2, &mask, &x, &out, &packed, &batch, &n, &feat, &p, const_cast<Chain*>(&fe),
+                  &fn_arg, &alpha, &fn_alpha, &sum_agg, &drop_on, &drop};
+  // cooperative: the CTAs meet at a grid-wide barrier after packing the weights
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, p.smem,
+                                    static_cast<cudaStream_t>(stream));
+  return (int)err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// K2 forward. hidden_dims has n_hidden + 1 entries, hidden_dims[0] == h1.
-// Returns a cudaError_t code (0 on success); the launch is asynchronous on `stream`.
-int mpgan_edge_aggregate(const float* u1, const float* u2, const float* mask, float* out,
-                         int batch, int n, int h1, int n_hidden, const void* const* hidden_w,
-                         const void* const* hidden_b, const int* hidden_dims, float alpha,
-                         int sum_agg, void* stream) {
+// Sizes of a forward launch (K2 with n_fn = 0, else K4) at passes of `rows` pair
+// rows and `ti` receivers with weight slabs of `slab_floats`: sizes[0] the shared
+// memory (bytes), sizes[1] the packed weights' scratch (floats). Returns -1 where
+// the kernel does not run the shape. Only the card tests call it, to hold
+// mp_kernels.fwd_smem_bytes and fwd_packed_floats to the launcher's layout.
+int mpgan_edge_fwd_sizes(int n_hidden, const int* hidden_dims, int n_fn, const int* fn_dims,
+                         int rows, int ti, int slab_floats, long long* sizes) {
   Chain fe, fn;
-  if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || fe.dim[0] != h1)
+  const void* none[kMaxLayers] = {};
+  if (!fill_chain(fe, n_hidden, none, none, hidden_dims)) return -1;
+  if (n_fn > 0 && !fill_chain(fn, n_fn, none, none, fn_dims)) return -1;
+  FwdPlan p{};
+  p.rows = rows;
+  p.ti = ti;
+  p.jc = 1;
+  p.slab_floats = slab_floats;
+  if (!fwd_layout(p, fe, n_fn > 0 ? &fn : nullptr)) return -1;
+  sizes[0] = (long long)p.smem;
+  sizes[1] = p.pk_off[fe.n + (n_fn > 0 ? fn.n : 0)];
+  return 0;
+}
+
+#ifdef MPGAN_PHASE_CLOCKS
+// Clocks summed per phase (edge_products.cuh: Phase) since the last reset.
+int mpgan_edge_aggregate_phase_clocks(unsigned long long* out, int reset) {
+  return read_phase_clocks(out, reset);
+}
+#endif
+
+// K2 forward. hidden_dims has n_hidden + 1 entries, hidden_dims[0] == h1. The pass
+// (ti receivers x jc senders in buffers of `rows`), the grid and the weight slabs'
+// size are the caller's plan; `packed` is scratch for the packed weights
+// (mp_kernels.fwd_packed_floats). Returns a
+// cudaError_t code (0 on success); the launch is asynchronous on `stream`.
+int mpgan_edge_aggregate(const float* u1, const float* u2, const float* mask, float* out,
+                         float* packed, int batch, int n, int h1, int n_hidden,
+                         const void* const* hidden_w,
+                         const void* const* hidden_b, const int* hidden_dims, float alpha,
+                         int sum_agg, int ti, int jc, int rows, int grid, int slab_floats,
+                         void* stream) {
+  Chain fe, fn{};
+  if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims))
     return (int)cudaErrorInvalidValue;
-  fn = Chain{};
-  return launch<false, false>(u1, u2, mask, nullptr, out, batch, n, h1, 0, fe, fn, alpha, 0.f,
-                              sum_agg, Drop{}, stream);
+  return launch<false>(u1, u2, mask, nullptr, out, packed, batch, n, h1, 0, fe, fn, alpha, 0.f,
+                       sum_agg, 0, Drop{}, ti, jc, rows, ti, grid, slab_floats, stream);
 }
 
 // K2 forward in train mode, with K1 dropout: seed in [0, 2^31), keep threshold
 // `thr` and multiplier `mult` as computed on the host (see Drop).
 int mpgan_edge_aggregate_train(const float* u1, const float* u2, const float* mask, float* out,
-                               int batch, int n, int h1, int n_hidden,
+                               float* packed, int batch, int n, int h1, int n_hidden,
                                const void* const* hidden_w, const void* const* hidden_b,
                                const int* hidden_dims, float alpha, int sum_agg, int seed,
-                               unsigned thr, float mult, void* stream) {
-  Chain fe, fn;
-  if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || fe.dim[0] != h1 || seed < 0)
+                               unsigned thr, float mult, int ti, int jc, int rows, int grid,
+                               int slab_floats, void* stream) {
+  Chain fe, fn{};
+  if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || seed < 0)
     return (int)cudaErrorInvalidValue;
-  fn = Chain{};
   Drop drop{};
   drop.seed_key = (unsigned)seed * 0xC2B2AE3Du;
   drop.thr = thr;
   drop.mult = mult;
-  return launch<false, true>(u1, u2, mask, nullptr, out, batch, n, h1, 0, fe, fn, alpha, 0.f,
-                             sum_agg, drop, stream);
+  return launch<false>(u1, u2, mask, nullptr, out, packed, batch, n, h1, 0, fe, fn, alpha, 0.f,
+                       sum_agg, 1, drop, ti, jc, rows, ti, grid, slab_floats, stream);
 }
 
 // K4. fn_w[0] is fn's first-layer weight rows for agg ([h_out, dims[1]]), fn_w0_lo its rows
-// for x ([feat, dims[1]]); fn_dims has n_fn + 1 entries, fn_dims[0] == h_out + feat.
+// for x ([feat, dims[1]]); fn_dims has n_fn + 1 entries, fn_dims[0] == h_out + feat. An
+// item is `span` consecutive receivers (a multiple of ti, at most rows).
 int mpgan_edge_aggregate_fn(const float* u1, const float* u2, const float* mask, const float* x,
-                            float* out, int batch, int n, int h1, int feat, int n_hidden,
+                            float* out, float* packed, int batch, int n, int h1, int feat,
+                            int n_hidden,
                             const void* const* hidden_w, const void* const* hidden_b,
                             const int* hidden_dims, int n_fn, const void* const* fn_w,
                             const void* fn_w0_lo, const void* const* fn_b, const int* fn_dims,
-                            float alpha, int sum_agg, float fn_alpha, int fn_act_last,
+                            float alpha, int sum_agg, float fn_alpha, int fn_act_last, int ti,
+                            int jc, int rows, int span, int grid, int slab_floats,
                             void* stream) {
   Chain fe, fn;
-  if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || fe.dim[0] != h1)
+  if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims))
     return (int)cudaErrorInvalidValue;
   if (n_fn < 1 || !fill_chain(fn, n_fn, fn_w, fn_b, fn_dims)) return (int)cudaErrorInvalidValue;
   const int h_out = fe.dim[fe.n];
@@ -260,8 +521,8 @@ int mpgan_edge_aggregate_fn(const float* u1, const float* u2, const float* mask,
   fn.w0_lo = static_cast<const float*>(fn_w0_lo);
   fn.k0_split = h_out;
   fn.act_last = fn_act_last;
-  return launch<true, false>(u1, u2, mask, x, out, batch, n, h1, feat, fe, fn, alpha, fn_alpha,
-                             sum_agg, Drop{}, stream);
+  return launch<true>(u1, u2, mask, x, out, packed, batch, n, h1, feat, fe, fn, alpha, fn_alpha,
+                      sum_agg, 0, Drop{}, ti, jc, rows, span, grid, slab_floats, stream);
 }
 
 const char* mpgan_cuda_error_string(int code) {

@@ -1,8 +1,10 @@
 // Pieces shared by the edge kernels (dense: edge_aggregate.cu, K2 and K4, and
-// edge_aggregate_bwd.cu, K3; knn: knn_fused.cu, K5, and knn_edge_bwd.cu, K6):
-// layer-chain descriptions, the pass planner, the
-// FP32 register-tiled dense layer over activations stored transposed in shared
-// memory, and K1, the dropout hash of mpgan_tpu/ops/mp_pallas.py::_dropmul.
+// edge_aggregate_bwd.cu, K3; knn: knn_stages.cuh, K5, K7 and K8, and
+// knn_edge_bwd.cu, K6): layer-chain descriptions, K1 (the dropout hash of
+// mpgan_tpu/ops/mp_pallas.py::_dropmul), and for the knn forward stages the pass
+// planner and the FP32 register-tiled dense layer over activations stored
+// transposed in shared memory (the dense kernels run edge_products.cuh's
+// products instead).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,16 +29,6 @@ struct Chain {
   const float* w0_lo;          // layer 0 rows k >= k0_split (fn: the x rows); else unused
   int k0_split;                // layer 0 rows read from w[0]
   int act_last;                // last layer has an activation
-};
-
-struct Plan {
-  int group;  // receivers per CTA
-  int ti;     // receivers per pass
-  int jc;     // senders per pass
-  int ldr;    // row stride of the pass buffers (floats)
-  int ldf;    // row stride of the fn buffers
-  int buf0;   // floats in each ping-pong buffer
-  int buf1;
 };
 
 // K1: the dropout hash of one element. A pass row r is the pair (receiver

@@ -4,7 +4,7 @@ the native versions of ``jetnet.evaluation.w1p / w1m`` called at train.py:543-59
 Protocol: ``num_batches`` random batches of ``num_eval_samples`` jets from
 each of the real and generated sets, the 1-D W1 distance per batch pair, and
 the mean and standard deviation over batches. ``w1efp`` comes with the EFP
-port (ROADMAP.md Queue 1 item 8).
+port (ROADMAP.md Queue 1, evaluation).
 """
 
 from __future__ import annotations

@@ -11,10 +11,11 @@ points name no model family.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
+from ..ops.masking import mask_manual
 from ..training import config as cfg_mod
 from ..training.sampling import NoiseSpec, noise_spec
 from .gapt import GAPTDiscriminator, GAPTGenerator
@@ -32,6 +33,9 @@ class ModelSuite:
     g_cls: type
     d_cls: type
     noise: NoiseSpec
+    # applied to G's output in the D and G steps, the evaluation and sampling
+    # (``--mask-manual``: the pT-cutoff mask column)
+    post_gen: Callable[[torch.Tensor], torch.Tensor] | None = None
 
     def generator(self, rng: torch.Generator | None = None,
                   device: torch.device | str = "cpu") -> torch.nn.Module:
@@ -59,12 +63,12 @@ def check_ported(model: str, model_d: str) -> None:
     if model not in PORTED or model_d not in PORTED:
         raise NotImplementedError(
             f"model {model!r} / discriminator {model_d!r}: only MPGAN and GAPT are ported, "
-            "the other models come later (ROADMAP.md Queue 1 item 11)"
+            "the other models come later (ROADMAP.md Queue 1, the other models)"
         )
     if model != model_d:
         raise NotImplementedError(
             f"model {model!r} with discriminator {model_d!r}: mixed generator/discriminator "
-            "pairs are not ported yet (ROADMAP.md Queue 1 item 10)"
+            "pairs are not ported yet (ROADMAP.md Queue 1, train-step leftovers)"
         )
 
 
@@ -79,4 +83,10 @@ def build_suite(args: cfg_mod.Args) -> ModelSuite:
     else:
         g_cfg, g_cls = cfg_mod.build_gapt(args, gen=True), GAPTGenerator
         d_cfg, d_cls = cfg_mod.build_gapt(args, gen=False), GAPTDiscriminator
-    return ModelSuite(model, model_d, g_cfg, d_cfg, g_cls, d_cls, spec)
+    post_gen = None
+    if args.get("mask_manual"):
+        def post_gen(gen_data):
+            # pT cutoff 0 (the reference's placeholder, setup_training.py:1495)
+            return mask_manual(gen_data, 0.0, mask_exp=args.mask_exp,
+                               mask_real_only=args.mask_real_only)
+    return ModelSuite(model, model_d, g_cfg, d_cfg, g_cls, d_cls, spec, post_gen)

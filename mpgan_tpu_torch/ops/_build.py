@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_ext"
 SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu", "knn_fused.cu", "knn_edge_bwd.cu",
            "knn_search.cu", "knn_edge_aggregate.cu", "gapt_fused.cu")
-HEADERS = ("edge_common.cuh", "edge_bwd_common.cuh", "knn_stages.cuh")
+HEADERS = ("edge_common.cuh", "edge_products.cuh", "edge_bwd_common.cuh", "knn_stages.cuh")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -106,11 +106,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     parr, iarr = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
     lib.mpgan_edge_aggregate.argtypes = [
-        p, p, p, p, i, i, i, i, parr, parr, iarr, f, i, p,
+        p, p, p, p, p, i, i, i, i, parr, parr, iarr, f, i, i, i, i, i, i, p,
     ]
     lib.mpgan_edge_aggregate.restype = i
     lib.mpgan_edge_aggregate_train.argtypes = [
-        p, p, p, p, i, i, i, i, parr, parr, iarr, f, i, i, ctypes.c_uint, f, p,
+        p, p, p, p, p, i, i, i, i, parr, parr, iarr, f, i, i, ctypes.c_uint, f, i, i, i, i, i, p,
     ]
     lib.mpgan_edge_aggregate_train.restype = i
     lib.mpgan_edge_aggregate_bwd.argtypes = [
@@ -119,9 +119,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.mpgan_edge_aggregate_bwd.restype = i
     lib.mpgan_edge_aggregate_fn.argtypes = [
-        p, p, p, p, p, i, i, i, i, i, parr, parr, iarr, i, parr, p, parr, iarr, f, i, f, i, p,
+        p, p, p, p, p, p, i, i, i, i, i, parr, parr, iarr, i, parr, p, parr, iarr, f, i, f, i,
+        i, i, i, i, i, i, p,
     ]
     lib.mpgan_edge_aggregate_fn.restype = i
+    lib.mpgan_edge_fwd_sizes.argtypes = [
+        i, iarr, i, iarr, i, i, i, ctypes.POINTER(ctypes.c_longlong),
+    ]
+    lib.mpgan_edge_fwd_sizes.restype = i
     lib.mpgan_edge_bwd_packed_floats.argtypes = [i, iarr, i]
     lib.mpgan_edge_bwd_packed_floats.restype = ctypes.c_longlong
     lib.mpgan_edge_bwd_wslab_floats.argtypes = [i, iarr, i]

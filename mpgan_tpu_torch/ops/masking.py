@@ -29,3 +29,22 @@ def mask_from_counts(x_sort_feature: torch.Tensor, num_jet_particles: torch.Tens
 def split_mask(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Discriminator-side mask recovery: ``(features, last feature + 0.5)``."""
     return x[:, :, :-1], x[:, :, -1:] + 0.5
+
+
+def mask_manual(gen_data: torch.Tensor, pt_cutoff: float, *, mask_exp: bool = False,
+                mask_real_only: bool = False) -> torch.Tensor:
+    """Post-generation pT-cutoff mask (mpgan/mask_utils.py:5-24): appends a
+    ``mask - 0.5`` feature, binary (pT > cutoff), decaying exponentially below
+    the cutoff with ``mask_exp``, or all ones with ``mask_real_only``."""
+    if mask_real_only:
+        mask = torch.ones(gen_data.shape[:2] + (1,), dtype=gen_data.dtype,
+                          device=gen_data.device) - 0.5
+    elif mask_exp:
+        pts = gen_data[:, :, 2:3]
+        upper = (pts > pt_cutoff).to(gen_data.dtype)
+        lower = 1.0 - upper
+        exp = torch.exp((pts - pt_cutoff) / abs(pt_cutoff))
+        mask = upper + lower * exp - 0.5
+    else:
+        mask = (gen_data[:, :, 2:3] > pt_cutoff).to(gen_data.dtype) - 0.5
+    return torch.cat([gen_data, mask], dim=2)

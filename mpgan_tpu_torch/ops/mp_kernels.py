@@ -1,8 +1,9 @@
 """Dense message-passing edge kernels: plain PyTorch versions and CUDA wrappers.
 
 Counterpart of ``mpgan_tpu/ops/mp_pallas.py``. Each function has a plain
-version and a wrapper around a hand-written Hopper kernel
-(``csrc/edge_aggregate.cu``):
+version and a wrapper around a hand-written Hopper kernel (the forward
+``csrc/edge_aggregate.cu`` and the backward ``csrc/edge_aggregate_bwd.cu``, both
+on the pass and products of ``csrc/edge_products.cuh``):
 
 - ``edge_aggregate`` (K2 forward): ``agg[b, i] = sum_j mask[b, j] *
   chain(leaky(u1[b, i] + u2[b, j]))``, divided by ``n`` for the mean, where
@@ -29,8 +30,10 @@ ceil(n/8)*8`` (the TPU kernel's sender padding, kept in the ids though nothing
 is padded here); the knn kernels of :mod:`.knn_kernels` use ``b*n*k + i*k + s``
 with the unpadded ``n`` and the neighbour's extraction rank ``s``.
 
-A wrapper runs the plain version for tensors on the CPU, and the kernel for
-tensors on a CUDA device; anything else raises. ``launch_counts`` counts kernel
+The launches are planned here (:func:`fwd_plan`, :func:`bwd_plan`: the pass
+shape, the items of the persistent grid, the grid), so that the planning is
+tested where there is no card. A wrapper runs the plain version for tensors on
+the CPU, and the kernel for tensors on a CUDA device; anything else raises. ``launch_counts`` counts kernel
 launches (the knn kernels' too), so a run can show that it went through the
 kernels.
 """
@@ -273,22 +276,27 @@ def edge_aggregate(u1, u2, mask, hidden_flat, alpha: float, sum_agg: bool,
                      hidden_flat[::2])
     b_sz, n, h1 = u1.shape
     out = torch.empty((b_sz, n, dims[-1]), dtype=torch.float32, device=u1.device)
+    plan = fwd_plan(b_sz, n, dims, _sm_count(u1.device))
+    # the kernel's own copy of the weights, laid out for its products
+    packed = torch.empty((max(fwd_packed_floats(dims, plan.rows), 1),), dtype=torch.float32,
+                         device=u1.device)
     lib = _build.library()
     w, b = _chain_args(pairs)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(u1.device):
         stream = torch.cuda.current_stream().cuda_stream
+        shape = (plan.ti, plan.jc, plan.rows, plan.grid, plan.slab_floats, stream)
+        ptrs = (u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), out.data_ptr(), packed.data_ptr())
         if dropout_p > 0:
             thr, mult = dropout_threshold_mult(dropout_p)
             code = lib.mpgan_edge_aggregate_train(
-                u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                b_sz, n, h1, len(pairs), w, b, dim_arr, float(alpha), int(bool(sum_agg)),
-                int(seed), thr, mult, stream,
+                *ptrs, b_sz, n, h1, len(pairs), w, b, dim_arr, float(alpha), int(bool(sum_agg)),
+                int(seed), thr, mult, *shape,
             )
         else:
             code = lib.mpgan_edge_aggregate(
-                u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                b_sz, n, h1, len(pairs), w, b, dim_arr, float(alpha), int(bool(sum_agg)), stream,
+                *ptrs, b_sz, n, h1, len(pairs), w, b, dim_arr, float(alpha), int(bool(sum_agg)),
+                *shape,
             )
     _build.check(code, name)
     launch_counts[name] += 1
@@ -408,6 +416,142 @@ def _bwd_plan(batch: int, n_recv: int, n_send: int, dims: tuple, sms: int) -> Bw
     per_cta = items // grid  # the shortest range
     slots = min(blocks, -(-(blocks - 1) // per_cta) + 1)
     return BwdPlan(ti, jc, rows, blocks, items, grid, slots, smem)
+
+
+FWD_ROW_ARRAYS = 4  # u1, u2, id, mask
+FWD_TAB_FLOATS = 2 * MAX_LAYERS * 6  # the kernel's layer table: 16 entries of 24 bytes
+FWD_SLAB_FLOATS = (16384, 12288, 8192)  # weight slab sizes the forward tries before the least
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """One launch of K2 or K4: a pass is ``ti`` receivers x ``jc`` senders in
+    buffers of ``rows`` pair rows, a receiver taking ``rs = max(jc, 8)`` of them.
+    An item is ``span`` consecutive receivers of the batch's flat receiver list
+    ``b * n + i`` (K2: ``ti``; K4: a multiple of ``ti``, at most ``rows``, whose
+    rows fn then takes at once), walked ``ti`` at a time over the senders of each
+    receiver's own jet in chunks of ``jc``; ``grid`` CTAs each walk a contiguous
+    range of the ``items``. The two weight slab buffers hold ``slab_floats``
+    each."""
+    ti: int
+    jc: int
+    rows: int
+    span: int
+    items: int
+    grid: int
+    smem_bytes: int
+    slab_floats: int
+
+    @property
+    def rs(self) -> int:
+        return max(self.jc, 8)
+
+    def item_range(self, cta: int) -> tuple[int, int]:
+        return cta * self.items // self.grid, (cta + 1) * self.items // self.grid
+
+    def item_receivers(self, item: int, batch: int, n: int) -> range:
+        """The flat receivers ``b * n + i`` of an item."""
+        return range(item * self.span, min((item + 1) * self.span, batch * n))
+
+
+def _fwd_rest_floats(dims: Sequence[int], rows: int, ti: int,
+                     fn_dims: Sequence[int] | None) -> int:
+    """Shared memory of a forward pass but its weight slabs, in floats: one
+    buffer as wide as the widest of a_0 .. a_{L-1} (the products write over their
+    input, and the last layer's partial sums go there when it is large enough,
+    else to a region of their own), K2's aggregate of ``ti`` receivers or K4's
+    transposed ``[agg | x]`` rows that fn then runs on in place, the row arrays
+    and a table of the layers."""
+    ldr = rows + 4
+    width = max(dims[:-1]) if len(dims) > 1 else dims[0]
+    if fn_dims:
+        act = max([dims[-1] + width, *fn_dims]) * ldr
+    else:
+        act = width * ldr + -(-ti * dims[-1] // 4) * 4
+    part = 2 * (rows // 8) * dims[-1]
+    return act + FWD_ROW_ARRAYS * ldr + FWD_TAB_FLOATS + (part if part > width * ldr else 0)
+
+
+def fwd_slab_floats(dims: Sequence[int], rows: int, ti: int,
+                    fn_dims: Sequence[int] | None = None) -> int:
+    """Floats of each of a forward pass's two weight slab buffers: the largest
+    size that fits beside the rest (fewer barriers a product), else the least.
+    The launcher takes it from the plan and checks that it fits."""
+    rest = _fwd_rest_floats(dims, rows, ti, fn_dims)
+    return next((c for c in FWD_SLAB_FLOATS if 4 * (rest + 2 * c) <= MAX_SMEM_BYTES),
+                BWD_SLAB_FLOATS)
+
+
+def fwd_smem_bytes(dims: Sequence[int], rows: int, ti: int,
+                   fn_dims: Sequence[int] | None = None) -> int:
+    """Shared memory of a forward pass of ``rows`` pair rows through the chain
+    ``dims``: the rest (``_fwd_rest_floats``) and two weight slabs of
+    ``fwd_slab_floats``."""
+    return 4 * (_fwd_rest_floats(dims, rows, ti, fn_dims)
+                + 2 * fwd_slab_floats(dims, rows, ti, fn_dims))
+
+
+def fwd_packed_floats(dims: Sequence[int], rows: int, fn_dims: Sequence[int] | None = None) -> int:
+    """Floats of the copy of the weights that a forward launch packs for its
+    products: per fe (and fn) layer, K rows of M padded to the column threads."""
+    col_threads = 8 * ((BWD_THREADS // 32) // (rows // 32))
+    layers = list(zip(dims[:-1], dims[1:])) + list(zip((fn_dims or [])[:-1], (fn_dims or [])[1:]))
+    return sum(k * -(-m // col_threads) * col_threads for k, m in layers)
+
+
+def _product_cost(dims: Sequence[int], rows: int) -> int:
+    """Instructions a thread issues in the k loops of a chain's products over one
+    pass: a k-step of a product with TN = ceil(M / column threads) columns is 8 x
+    TN FMAs, two loads of the activations and one a weight group (128-bit, 64-bit,
+    single), so narrow tiles cost more a FLOP."""
+    col_threads = 8 * ((BWD_THREADS // 32) // (rows // 32))
+
+    def step(m: int) -> int:
+        tn = -(-m // col_threads)
+        return 8 * tn + 2 + tn // 4 + (tn % 4) // 2 + tn % 2
+    return sum(k * step(m) for k, m in zip(dims[:-1], dims[1:]))
+
+
+def fwd_plan(batch: int, n: int, dims: Sequence[int], sms: int,
+             fn_dims: Sequence[int] | None = None) -> FwdPlan:
+    """Plan a forward launch over ``batch`` jets of ``n`` particles through the
+    fe chain ``dims`` (K2), and with ``fn_dims`` the node MLP after it (K4), on a
+    card with ``sms`` SMs: the pass, the receivers of an item and the grid that
+    give the busiest CTA the least arithmetic among those that fit in shared
+    memory (ties: longer sender chunks, then more receivers a pass, then longer
+    items). Memoised per shape."""
+    return _fwd_plan(batch, n, tuple(dims), sms, tuple(fn_dims) if fn_dims else None)
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(batch: int, n: int, dims: tuple, sms: int, fn_dims: tuple | None) -> FwdPlan:
+    best = None
+    for rows in (128, 64, 32):
+        per_pass = _product_cost(dims, rows) + rows * dims[0] // BWD_THREADS  # + a_0
+        fn_cost = _product_cost(fn_dims, rows) if fn_dims else 0
+        for jc in range(1, min(n, rows) + 1):
+            rs = max(jc, 8)
+            if rs > rows:
+                continue
+            ti = min(rows // rs, batch * n)
+            smem = fwd_smem_bytes(dims, rows, ti, fn_dims)
+            if smem > MAX_SMEM_BYTES:
+                continue
+            per_block = -(-n // jc) * per_pass
+            # K4: an item of k blocks, fn once on its rows
+            blocks = range(1, rows // ti + 1) if fn_dims else (1,)
+            for k in blocks:
+                items = -(-batch * n // (k * ti))
+                grid = min(sms, items)
+                key = (-(-items // grid) * (k * per_block + fn_cost), -jc, -ti, -k)
+                if best is None or key < best[0]:
+                    best = (key, FwdPlan(ti, jc, rows, k * ti, items, grid, smem,
+                                         fwd_slab_floats(dims, rows, ti, fn_dims)))
+    if best is None:
+        raise ValueError(f"layer widths {list(dims)} (fn {list(fn_dims or [])}) at n={n} do not "
+                         f"fit the forward kernel's shared memory ({MAX_SMEM_BYTES} bytes) "
+                         "even at 32 pair rows")
+    return best[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -540,6 +684,9 @@ def edge_aggregate_fn(
                             **{f"fn[{i}]": t for i, t in enumerate(fn_flat)}},
                      hidden_flat[::2] + (w_top, w_bot) + fn_flat[3::2])
     out = torch.empty((b_sz, n, fn_dims[-1]), dtype=torch.float32, device=u1.device)
+    plan = fwd_plan(b_sz, n, dims, _sm_count(u1.device), fn_dims)
+    packed = torch.empty((fwd_packed_floats(dims, plan.rows, fn_dims),), dtype=torch.float32,
+                         device=u1.device)
     lib = _build.library()
     w, b = _chain_args(pairs)
     fw, fb = _chain_args(fn_pairs)
@@ -549,9 +696,10 @@ def edge_aggregate_fn(
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mpgan_edge_aggregate_fn(
             u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), x.data_ptr(), out.data_ptr(),
-            b_sz, n, h1, feat, len(pairs), w, b, dim_arr,
+            packed.data_ptr(), b_sz, n, h1, feat, len(pairs), w, b, dim_arr,
             len(fn_pairs), fw, w_bot.data_ptr(), fb, fn_dim_arr,
-            float(alpha), int(bool(sum_agg)), float(fn_alpha), int(not fn_final_linear), stream,
+            float(alpha), int(bool(sum_agg)), float(fn_alpha), int(not fn_final_linear),
+            plan.ti, plan.jc, plan.rows, plan.span, plan.grid, plan.slab_floats, stream,
         )
     _build.check(code, name)
     launch_counts[name] += 1

@@ -6,7 +6,7 @@ The epoch is a host loop over batches: the training set is staged on the
 device once, each epoch's shuffled order goes over as one index array, and the
 loss sums stay on the device with one host sync per epoch. (The JAX package
 runs the epoch as one ``lax.scan`` program, a TPU dispatch device; a CUDA-graph
-epoch is later work, ROADMAP.md Queue 1 item 7.)
+epoch is later work, ROADMAP.md Queue 1, CUDA-graph step.)
 
 Refused at start with ``NotImplementedError`` (not ported yet, see
 ROADMAP.md): models other than MPGAN and GAPT, a mixed generator/discriminator
@@ -39,16 +39,16 @@ from .train_step import StepConfig, TrainState, d_step, g_step
 logger = logging.getLogger(__name__)
 
 _REFUSED_FLAGS = {
-    "efp": "EFP and w1efp (ROADMAP.md Queue 1 item 8)",
-    "fpd": "FPD (ROADMAP.md Queue 1 item 8)",
-    "fpnd": "FPND (ROADMAP.md Queue 1 item 11)",
-    "cov_mmd": "coverage/MMD (ROADMAP.md Queue 1 item 8)",
-    "mesh_shape": "multi-device training (ROADMAP.md Queue 1 item 11)",
-    "multi_gpu": "multi-device training (ROADMAP.md Queue 1 item 11)",
-    "profile": "the profiled first epoch (ROADMAP.md Queue 1 item 7)",
-    "debug": "the D-output debug log (ROADMAP.md Queue 1 item 7)",
-    "debug_nans": "the NaN debugger (ROADMAP.md Queue 1 item 7)",
-    "mask_epoch": "delayed masking (ROADMAP.md Queue 1 item 11)",
+    "efp": "EFP and w1efp (ROADMAP.md Queue 1, evaluation)",
+    "fpd": "FPD (ROADMAP.md Queue 1, evaluation)",
+    "fpnd": "FPND (ROADMAP.md Queue 1, FPND)",
+    "cov_mmd": "coverage/MMD (ROADMAP.md Queue 1, evaluation)",
+    "mesh_shape": "multi-device training (ROADMAP.md Queue 1, multi-device)",
+    "multi_gpu": "multi-device training (ROADMAP.md Queue 1, multi-device)",
+    "profile": "the profiled first epoch (ROADMAP.md Queue 1, loop leftovers)",
+    "debug": "the D-output debug log (ROADMAP.md Queue 1, loop leftovers)",
+    "debug_nans": "the NaN debugger (ROADMAP.md Queue 1, loop leftovers)",
+    "mask_epoch": "delayed masking (ROADMAP.md Queue 1, loop leftovers)",
 }
 
 
@@ -60,7 +60,7 @@ def check_supported(args: Args) -> None:
             raise NotImplementedError(f"--{key.replace('_', '-')}: {what} is not ported yet")
     if args.get("compute_dtype", "float32") != "float32":
         raise NotImplementedError(
-            "--compute-dtype bfloat16: bf16 training is not ported yet (ROADMAP.md Queue 1 item 6)"
+            "--compute-dtype bfloat16: bf16 training is not ported yet (ROADMAP.md Queue 1, train-step leftovers)"
         )
 
 
@@ -107,6 +107,7 @@ class Trainer:
         )
         suite = build_suite(args)
         self.spec = suite.noise
+        self.post_gen = suite.post_gen  # --mask-manual
         # one CPU generator: model init first, then every draw of every step
         rng = torch.Generator().manual_seed(int(args.seed))
         g = suite.generator(rng, device=self.device)
@@ -161,10 +162,12 @@ class Trainer:
             labels = labels_all[idx] if labels_all is not None else None
             # the num_critic / num_gen interleave (train.py:841-878)
             if args.num_critic > 1 or batch_ndx == 0 or (batch_ndx - 1) % args.num_gen == 0:
-                for k, v in d_step(self.state, self.step_cfg, self.spec, data, labels).items():
+                for k, v in d_step(self.state, self.step_cfg, self.spec, data, labels,
+                                   post_gen=self.post_gen).items():
                     sums[k] += v
             if args.num_critic == 1 or (batch_ndx - 1) % args.num_critic == 0:
-                sums["G"] += g_step(self.state, self.step_cfg, self.spec, data, labels)["G"]
+                sums["G"] += g_step(self.state, self.step_cfg, self.spec, data, labels,
+                                    post_gen=self.post_gen)["G"]
             if args.get("break_zero") and batch_ndx == 0:
                 break
             if args.get("bottleneck") and batch_ndx == 10:
@@ -195,7 +198,7 @@ class Trainer:
         labels = ds.jet_data[sel] if self.use_labels else None
         gen_norm = generate_multi_batch(
             self.state.g, self.spec, torch.Generator(device=self.device).manual_seed(epoch),
-            n_eval, args.batch_size, labels=labels,
+            n_eval, args.batch_size, labels=labels, post_fn=self.post_gen,
         )
         gen_jets, _ = _corrected(ds.particle_normalisation(gen_norm, inverse=True),
                                  self.use_labels, zero_mask_particles=self.use_labels,
@@ -210,7 +213,7 @@ class Trainer:
         self.losses["w1m"].append([w1mm, w1ms])
         ckpt.save_losses(self.losses, self.losses_dir)
         logger.info(f"epoch {epoch}: w1p {w1pm} w1m {w1mm:.6f}; plots are not ported yet "
-                    "(ROADMAP.md Queue 1 item 11)")
+                    "(ROADMAP.md Queue 1, loop leftovers)")
 
     # -- full run (train.py:889-985) -----------------------------------------
 

@@ -11,7 +11,7 @@ the advanced state there.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -71,14 +71,16 @@ def generate_multi_batch(
     batch_size: int,
     labels: np.ndarray | None = None,
     mesh=None,
+    post_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> np.ndarray:
     """Batched generation (train.py:226-282): fixed-size batches, the last one
-    over-generated and truncated. Outputs stay on the device and reach the host
-    in one copy at the end. Sharding over several devices (``mesh``) comes with
-    DDP."""
+    over-generated and truncated. ``post_fn`` is applied to each batch's
+    output (the ``--mask-manual`` hook). Outputs stay on the device and reach
+    the host in one copy at the end. Sharding over several devices (``mesh``)
+    comes with DDP."""
     if mesh is not None:
         raise NotImplementedError(
-            "multi-device generation comes with DDP, ROADMAP.md Queue 1 item 11"
+            "multi-device generation comes with DDP, ROADMAP.md Queue 1, multi-device"
         )
     device = _device_of(g)
     num_batches = (num_samples + batch_size - 1) // batch_size
@@ -93,7 +95,7 @@ def generate_multi_batch(
             batch_labels = None
             if labels_all is not None:
                 batch_labels = labels_all[i * batch_size : (i + 1) * batch_size]
-            outs.append(g(spec.sample(generator, batch_size, device), batch_labels,
-                          update_sn=False))
+            out = g(spec.sample(generator, batch_size, device), batch_labels, update_sn=False)
+            outs.append(out if post_fn is None else post_fn(out))
         out = torch.cat(outs, dim=0)[:num_samples]
     return out.cpu().numpy()

@@ -24,13 +24,13 @@ CPU ``torch.Generator``, in a fixed order. A test can pass the draws instead
 
 Not ported here (each raises ``NotImplementedError``): augmentation,
 bf16 training, the batched real+fake D pass and data-parallel steps
-(ROADMAP.md Queue 1 items 6 and 11).
+(ROADMAP.md Queue 1, train-step leftovers and multi-device).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -62,8 +62,8 @@ class StepConfig:
         refused = [k for k in ("augment", "bf16", "batched_d") if getattr(self, k)]
         if refused:
             raise NotImplementedError(
-                f"{', '.join(refused)} in the train step: not ported yet, ROADMAP.md Queue 1 "
-                "item 6"
+                f"{', '.join(refused)} in the train step: not ported yet, ROADMAP.md Queue 1, "
+                "train-step leftovers"
             )
 
 
@@ -117,15 +117,21 @@ def draw_g(state: TrainState, spec: NoiseSpec, batch_size: int, device) -> GDraw
     return GDraws(to_device(spec.sample(state.generator, batch_size, "cpu"), device), keys, keys)
 
 
+PostGen = Callable[[torch.Tensor], torch.Tensor]
+
+
 def d_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor,
-           labels: torch.Tensor | None = None, draws: DDraws | None = None
-           ) -> dict[str, torch.Tensor]:
-    """One D update; returns the loss parts ``{Dr, Df, D(, gp)}`` as device scalars."""
+           labels: torch.Tensor | None = None, draws: DDraws | None = None,
+           post_gen: PostGen | None = None) -> dict[str, torch.Tensor]:
+    """One D update; returns the loss parts ``{Dr, Df, D(, gp)}`` as device scalars.
+    ``post_gen`` is applied to G's output (the ``--mask-manual`` hook, train.py:208-210)."""
     draws = draws if draws is not None else draw_d(state, cfg, spec, data)
     g, d = state.g, state.d
     with torch.no_grad():
         # fresh fake batch, G in eval mode with spectral norm advancing (train.py:421,428)
         fake = g(draws.noise, labels, train=False)
+        if post_gen is not None:
+            fake = post_gen(fake)
     real_out = d(data, labels, train=True, rng=draws.real)  # unaugmented (train.py:425)
     fake_out = d(fake, labels, train=True, rng=draws.fake)
     total, parts = d_loss(cfg.loss, real_out, fake_out, draws.targets)
@@ -141,13 +147,16 @@ def d_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
 
 
 def g_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor,
-           labels: torch.Tensor | None = None, draws: GDraws | None = None
-           ) -> dict[str, torch.Tensor]:
-    """One G update (``data`` only sets the batch size, train.py:497); returns ``{G}``."""
+           labels: torch.Tensor | None = None, draws: GDraws | None = None,
+           post_gen: PostGen | None = None) -> dict[str, torch.Tensor]:
+    """One G update (``data`` only sets the batch size, train.py:497); returns ``{G}``.
+    ``post_gen`` as in :func:`d_step`."""
     batch_size = labels.shape[0] if labels is not None else data.shape[0]
     draws = draws if draws is not None else draw_g(state, spec, batch_size, data.device)
     g, d = state.g, state.d
     fake = g(draws.noise, labels, train=True, rng=draws.g)
+    if post_gen is not None:
+        fake = post_gen(fake)
     # D in train mode; only its input gradient is used, so its parameters stay
     # out of the graph and the edge kernel's backward skips the weight contractions
     flags = [p.requires_grad for p in d.parameters()]

@@ -123,9 +123,12 @@ def test_refused_launch_raises(dev):
     out = torch.empty(2, 30, 192, device=dev)
     w, b = mk._chain_args(mk._pairs(hidden))
     dims = (ctypes.c_int * 3)(95, 160, 192)  # first width disagrees with u1's 96
+    plan = mk.fwd_plan(2, 30, [96, 160, 192], mk._sm_count(dev))
+    packed = torch.empty(mk.fwd_packed_floats([96, 160, 192], plan.rows), device=dev)
     code = _build.library().mpgan_edge_aggregate(
-        u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), out.data_ptr(), 2, 30, 96, 2, w, b, dims,
-        0.2, 1, torch.cuda.current_stream().cuda_stream,
+        u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), out.data_ptr(), packed.data_ptr(), 2, 30,
+        96, 2, w, b, dims, 0.2, 1, plan.ti, plan.jc, plan.rows, plan.grid, plan.slab_floats,
+        torch.cuda.current_stream().cuda_stream,
     )
     assert code != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
@@ -145,6 +148,108 @@ def test_generator_kernel_path_matches_plain_path(dev, num_hits):
         y_plain = g(noise, labels)
     torch.testing.assert_close(y_kernel, y_plain, **TOL)
     assert torch.equal(y_kernel[..., -1], y_plain[..., -1])
+
+
+def test_150p_fe128_256_generator_kernel_path_matches_plain_path(dev):
+    """The 150-particle dense ``--fe 128 256`` config: K2 on a one-hidden-layer
+    chain, 128 -> 256."""
+    cfg = build_mpgan_generator(from_args_dict({"model": "mpgan", "num_hits": 150,
+                                                "fe": [128, 256]}))
+    g = MPGenerator(cfg, torch.Generator().manual_seed(0), device=dev)
+    noise = torch.randn(4, 150, 32, generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev) * 0.2
+    labels = torch.full((4, 1), 0.7, device=dev)
+    mk.reset_launch_counts()
+    with torch.inference_mode():
+        y_kernel = g(noise, labels)
+        assert mk.launch_counts["edge_aggregate"] == 2
+        g.cfg = dataclasses.replace(cfg, use_kernels=False)
+        y_plain = g(noise, labels)
+    torch.testing.assert_close(y_kernel, y_plain, **TOL)
+
+
+# pass shapes of the persistent forward kernels: single jets and batches that
+# leave fewer items than SMs or a ragged last round, the --fe 128 256 chain, a
+# chain wide enough for a shorter pass, odd widths, one and no hidden layer
+FWD_PASS_SHAPES = [
+    (1, 30, [96, 160, 192]), (33, 30, [96, 160, 192]), (1, 150, [96, 160, 192]),
+    (33, 150, [96, 160, 192]), (1, 150, [128, 256]), (4, 150, [128, 256]),
+    (33, 150, [128, 256]), (3, 30, [250, 255, 256, 249, 200]), (2, 21, [30, 50, 7]),
+    (2, 40, [13, 9, 11, 5]), (2, 33, [24, 16]), (2, 5, [96]),
+]
+
+
+@pytest.mark.parametrize("dropout_p,sum_agg", [(0.0, True), (0.5, False), (0.5, True)])
+@pytest.mark.parametrize("b,n,widths", FWD_PASS_SHAPES)
+def test_edge_aggregate_pass_shapes_match_plain_twice(dev, dropout_p, sum_agg, b, n, widths):
+    """K2 (eval and with dropout) against its plain version at every pass shape,
+    and two launches bit for bit (every sum has a fixed order)."""
+    u1, u2, mask, hidden, _ = _chain(dev, b, n, widths, seed=n + b)
+    args = (u1, u2, mask, hidden, 0.2, sum_agg, dropout_p, 8080)
+    name = "edge_aggregate_train" if dropout_p > 0 else "edge_aggregate"
+    before = mk.launch_counts[name]
+    out = mk.edge_aggregate(*args)
+    again = mk.edge_aggregate(*args)
+    torch.cuda.synchronize()
+    assert mk.launch_counts[name] == before + 2
+    torch.testing.assert_close(out, mk.edge_aggregate_reference(*args), **TOL)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("sum_agg,final_linear", [(True, True), (False, False)])
+@pytest.mark.parametrize("b,n,fe,feat,fn", [
+    (1, 30, [96, 160, 192], 32, [256, 256, 3]),    # one jet: one item on one SM
+    (33, 30, [96, 160, 192], 32, [256, 256, 32]),  # fewer items than SMs
+    (601, 30, [96, 160, 192], 32, [256, 256, 3]),  # 4-jet items, a ragged last item and round
+    (5, 64, [96, 160, 192], 32, [64, 5]),          # the gate's largest N: one jet an item
+    (33, 13, [30, 50, 7], 6, [13, 3]),             # odd widths
+    (2, 45, [64, 256, 224], 32, [256, 8]),         # wide: a 64-row pass
+    (3, 5, [96], 16, [20]),                         # no hidden layer
+])
+def test_edge_aggregate_fn_pass_shapes_match_plain_twice(dev, sum_agg, final_linear, b, n, fe,
+                                                         feat, fn):
+    """K4 against its plain version at every pass shape, and two launches bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(n + b)
+    r = lambda *s, scale=0.3: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
+    hidden = tuple(t for a, c in zip(fe[:-1], fe[1:]) for t in (r(a, c, scale=a ** -0.5), r(c)))
+    full = [fe[-1] + feat] + fn
+    fn_flat = [r(fe[-1], fn[0], scale=full[0] ** -0.5), r(feat, fn[0], scale=full[0] ** -0.5),
+               r(fn[0])]
+    for a, c in zip(fn[:-1], fn[1:]):
+        fn_flat += [r(a, c, scale=a ** -0.5), r(c)]
+    u1, u2, x = r(b, n, fe[0], scale=0.5), r(b, n, fe[0], scale=0.5), r(b, n, feat)
+    mask = (torch.rand(b, n, 1, generator=g, device=dev) > 0.3).float()
+    args = (u1, u2, mask, hidden, x, tuple(fn_flat), 0.2, sum_agg, 0.1, final_linear)
+    before = mk.launch_counts["edge_aggregate_fn"]
+    out = mk.edge_aggregate_fn(*args)
+    again = mk.edge_aggregate_fn(*args)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["edge_aggregate_fn"] == before + 2
+    torch.testing.assert_close(out, mk.edge_aggregate_fn_reference(*args), **TOL)
+    assert torch.equal(out, again)
+
+
+def test_forward_plans_on_the_card_equal_the_launchers(dev):
+    """The wrappers' shared-memory and packed-weight sizes of the forward launches,
+    at the slab size the plan passes, are the launcher's own."""
+    lib = _build.library()
+    arr = lambda d: (ctypes.c_int * len(d))(*d)  # noqa: E731
+    for dims, fn_dims in (([96, 160, 192], None), ([96, 160, 192], [224, 256, 256, 3]),
+                          ([128, 256], None), ([30, 50, 7], [13, 13, 3]), ([96], [112, 20]),
+                          ([64, 256, 224], [256, 256, 8]), ([8, 256], None)):
+        for rows in (32, 64, 128):
+            ti = rows // 8
+            sizes = (ctypes.c_longlong * 2)()
+            code = lib.mpgan_edge_fwd_sizes(len(dims) - 1, arr(dims),
+                                            len(fn_dims) - 1 if fn_dims else 0,
+                                            arr(fn_dims or [0]), rows, ti,
+                                            mk.fwd_slab_floats(dims, rows, ti, fn_dims), sizes)
+            smem = mk.fwd_smem_bytes(dims, rows, ti, fn_dims)
+            if smem > mk.MAX_SMEM_BYTES:
+                assert code == -1
+                continue
+            assert code == 0 and sizes[0] == smem
+            assert sizes[1] == mk.fwd_packed_floats(dims, rows, fn_dims)
 
 
 # ---------------------------------------------------------------------------

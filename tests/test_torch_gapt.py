@@ -230,7 +230,7 @@ def test_registry_builds_mpgan_and_refuses_the_rest():
     assert isinstance(suite.generator(), MPGenerator)
     assert isinstance(suite.discriminator(), MPDiscriminator)
     assert suite.noise.shape == (8, 8)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, the other models"):
         tregistry.build_suite(tconfig.from_args_dict({"model": "rgan"}))
     with pytest.raises(NotImplementedError, match="mixed"):
         tregistry.build_suite(tconfig.from_args_dict({"model": "gapt", "model_D": "mpgan"}))

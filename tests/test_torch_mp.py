@@ -231,3 +231,119 @@ def test_unported_paths_raise(mp_args, kw, match):
         tmp.mp_layer_apply(layer, torch.zeros(1, 6, 4), **kw)
     y = tmp.mp_layer_apply(layer, torch.zeros(1, 20, 4), **kw)
     assert y.shape == (1, 20, 4) and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_dense_150p_fe128_256_layer_matches_jax(use_pallas):
+    """The 150-particle dense ``--fe 128 256`` config's layer (one hidden fe layer,
+    128 -> 256; N > 64, so K2 + fn in torch on the kernel path), eval."""
+    layers = _layers(8, [128, 256], [32], 8, sum_agg=False)
+    yt, yj = _apply_both(*layers, 150, True, use_pallas=use_pallas)
+    assert yt.shape == (2, 150, 8)
+    np.testing.assert_allclose(yt, yj, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the forward kernels' plan (csrc/edge_aggregate.cu checks it on the card)
+# ---------------------------------------------------------------------------
+
+FE = [96, 160, 192]
+FN30 = [224, 256, 256, 3]  # fn of the flagship generator's last layer: [agg | x] -> 3
+
+
+@pytest.mark.parametrize("batch,n,dims,fn_dims,want", [
+    (512, 150, FE, None, (5, 25, 128)),       # 150p dense generation: 125 of 128 rows
+    (256, 30, FE, None, (4, 30, 128)),        # the flagship D's K2 in training
+    (4096, 30, FE, FN30, (4, 30, 128)),       # 30p generation: 120 of 128 rows
+    (4096, 30, FE, [224, 256, 256, 32], (4, 30, 128)),
+    (512, 150, [128, 256], None, (5, 25, 128)),  # the --fe 128 256 config
+])
+def test_forward_plans_at_the_published_widths(batch, n, dims, fn_dims, want):
+    plan = tmk.fwd_plan(batch, n, dims, 132, fn_dims)
+    assert (plan.ti, plan.jc, plan.rows) == want
+    if fn_dims:
+        # fn takes all of an item's rows at once: TN = 8 on its 256-wide layers
+        assert plan.span % plan.ti == 0 and 96 <= plan.span <= 128
+    else:
+        assert plan.span == plan.ti
+    assert plan.grid == 132 and plan.smem_bytes <= tmk.MAX_SMEM_BYTES
+
+
+FWD_SHAPES = [
+    (1, 30, FE, None), (33, 30, FE, None), (256, 30, FE, None), (1, 150, FE, None),
+    (33, 150, FE, None), (16, 150, [128, 256], None), (3, 13, FE, None), (2, 5, [96], None),
+    (2, 70, [24, 16], None), (3, 30, [250, 255, 256, 249, 200], None),
+    (1, 30, FE, FN30), (33, 30, FE, FN30), (4096, 30, FE, FN30), (7, 64, FE, [224, 64, 5]),
+    (4, 150, FE, FN30),
+    (2, 45, [64, 256, 224], [256, 256, 8]), (2, 5, [96], [112, 20]), (2, 33, [30, 50, 7], [13, 3]),
+]
+
+
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("batch,n,dims,fn_dims", FWD_SHAPES)
+def test_forward_plan_covers_every_receiver_once(batch, n, dims, fn_dims, sms):
+    plan = tmk.fwd_plan(batch, n, dims, sms, fn_dims)
+    assert 1 <= plan.grid <= min(sms, plan.items)
+    assert plan.rows in (32, 64, 128) and plan.ti * plan.rs <= plan.rows and plan.jc <= n
+    assert plan.smem_bytes == tmk.fwd_smem_bytes(dims, plan.rows, plan.ti, fn_dims)
+    assert plan.smem_bytes <= tmk.MAX_SMEM_BYTES
+    # the slabs the launcher lays out: the plan's, 16-byte aligned, at least the least
+    assert plan.slab_floats == tmk.fwd_slab_floats(dims, plan.rows, plan.ti, fn_dims)
+    assert plan.slab_floats % 4 == 0 and plan.slab_floats >= tmk.BWD_SLAB_FLOATS
+    if fn_dims:
+        # K4: whole blocks of ti an item, fn on all of their rows at once
+        assert plan.span % plan.ti == 0 and plan.span <= plan.rows
+    else:
+        assert plan.span == plan.ti
+    # the CTAs' ranges cut the items into contiguous pieces, the items the receivers
+    ranges = [plan.item_range(c) for c in range(plan.grid)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.items
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(lo < hi for lo, hi in ranges)
+    seen = np.zeros(batch * n, np.int64)
+    for item in range(plan.items):
+        recv = plan.item_receivers(item, batch, n)
+        assert len(recv) > 0
+        seen[recv.start:recv.stop] += 1
+    assert (seen == 1).all()
+
+
+def test_forward_plan_is_memoised_and_shrinks_the_pass_for_wide_chains():
+    assert tmk.fwd_plan(256, 30, FE, 132) is tmk.fwd_plan(256, 30, [96, 160, 192], 132)
+    # K4 keeps agg^T beside the pass buffer: 512 floats a row do not fit in 128 rows
+    plan = tmk.fwd_plan(4096, 30, [256, 256, 256, 256], 132, [256, 256, 3])
+    assert plan.rows < 128 and plan.smem_bytes <= tmk.MAX_SMEM_BYTES
+    assert tmk.fwd_smem_bytes([256, 256, 256, 256], 128, 4, [256, 256, 3]) > tmk.MAX_SMEM_BYTES
+
+
+def test_forward_shared_memory_by_hand():
+    tab = 96  # the layer table
+    # K2 at 128 rows: a_1 (160 wide) over a_0, the 5 x 192 aggregate, 4 row arrays and
+    # two slabs of 16384 floats
+    assert tmk.fwd_smem_bytes(FE, 128, 5) == 4 * (160 * 132 + 960 + 4 * 132 + tab + 2 * 16384)
+    # K4: agg^T (192) beside the pass buffer (160): 352 rows, wider than fn's 256; the
+    # least slabs
+    assert tmk.fwd_smem_bytes(FE, 128, 4, FN30) == 4 * (352 * 132 + 4 * 132 + tab + 2 * 4096)
+    # no hidden layer: the buffer holds a_0
+    assert tmk.fwd_smem_bytes([96], 32, 4) == 4 * (96 * 36 + 384 + 4 * 36 + tab + 2 * 16384)
+    # a pass buffer too narrow for the last layer's partial sums [2][16][256]: their own region
+    assert tmk.fwd_smem_bytes([8, 256], 128, 5) == 4 * (8 * 132 + 1280 + 4 * 132 + tab + 8192
+                                                        + 2 * 16384)
+    # between: 12288 when 16384 does not fit, 8192 when 12288 does not
+    assert tmk.fwd_smem_bytes([96, 192, 192], 128, 5) == 4 * (192 * 132 + 960 + 4 * 132 + tab
+                                                              + 2 * 12288)
+    assert tmk.fwd_smem_bytes([96, 256, 256], 128, 5) == 4 * (256 * 132 + 1280 + 4 * 132 + tab
+                                                              + 2 * 8192)
+    # the slab sizes the plans pass to the launcher
+    assert tmk.fwd_slab_floats(FE, 128, 5) == 16384
+    assert tmk.fwd_slab_floats(FE, 128, 4, FN30) == 4096
+    assert tmk.fwd_slab_floats([96, 192, 192], 128, 5) == 12288
+
+
+def test_forward_packed_weights_by_hand():
+    # K, then M padded to the column threads (32 at 128 rows, 128 at 32)
+    assert tmk.fwd_packed_floats(FE, 128) == 96 * 160 + 160 * 192
+    assert tmk.fwd_packed_floats(FE, 128, FN30) == 96 * 160 + 160 * 192 + 224 * 256 + 256 * 256 \
+        + 256 * 32
+    assert tmk.fwd_packed_floats([30, 50, 7], 32) == 30 * 128 + 50 * 128
+    assert tmk.fwd_packed_floats([96], 128) == 0

@@ -191,6 +191,19 @@ def test_train_cli_tiny_run_writes_the_run_directory_and_resumes(tmp_path):
     np.testing.assert_array_equal(t1.losses["G"], t2.losses["G"][:2])
 
 
+def test_train_cli_tiny_mask_manual_run_trains(tmp_path):
+    """``--mask-manual --no-mask-c`` once failed at the first D call (G's 3
+    features against D's masked input); the hook now appends the pT-cutoff mask
+    in both steps and in the evaluation."""
+    argv = ["--device", "cpu", "--name", "mm", "--dir-path", str(tmp_path), *TINY,
+            "--mask-manual", "--no-mask-c", "--num-epochs", "1", "--save-epochs", "1"]
+    t = ttrain_cli.main(argv)
+    assert t.post_gen is not None and not t.args.mask_c
+    assert (tmp_path / "mm" / "models" / "state_1.npz").exists()
+    assert np.isfinite(t.losses["G"]).all() and np.isfinite(t.losses["D"]).all()
+    assert len(t.losses["w1m"]) == 1 and np.isfinite(t.losses["w1m"]).all()
+
+
 def test_train_cli_refuses_cuda_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -25,12 +25,14 @@ from mpgan_tpu.models.mpgan import (
     mp_generator_apply,
     mp_generator_init,
 )
+from mpgan_tpu.models import registry as jregistry
 from mpgan_tpu.training import config as jconfig
 from mpgan_tpu.training import losses as jlosses
 from mpgan_tpu.training import optimizers as jopt
 from mpgan_tpu.training import sampling as jsampling
 from mpgan_tpu.training import train_step as jts
 from mpgan_tpu_torch.data.jetnet import JetNetDataset
+from mpgan_tpu_torch.models import registry as tregistry
 from mpgan_tpu_torch.training import config as tconfig
 from mpgan_tpu_torch.training import optimizers as topt
 from mpgan_tpu_torch.training import sampling as tsampling
@@ -128,7 +130,7 @@ def test_step_config_refuses_what_is_not_ported():
 # ---------------------------------------------------------------------------
 
 
-def _step_pair(card, use_pallas):
+def _step_pair(card, use_pallas, post_gen=None):
     card = dict(card, use_pallas=use_pallas)
     jargs = jconfig.from_args_dict(card)
     targs = tconfig.from_args_dict(card)
@@ -141,7 +143,7 @@ def _step_pair(card, use_pallas):
                                   mp_discriminator_init, gcfg, dcfg, g_opt, d_opt)
     d_step, g_step = jts.make_train_steps(
         step_cfg=jts.StepConfig(), g_apply=mp_generator_apply, d_apply=mp_discriminator_apply,
-        g_cfg=gcfg, d_cfg=dcfg, spec=spec, g_opt=g_opt, d_opt=d_opt)
+        g_cfg=gcfg, d_cfg=dcfg, spec=spec, g_opt=g_opt, d_opt=d_opt, post_gen=post_gen)
     g = mp_generator_from_jax(_np(jstate.g_params), _np(jstate.g_state),
                               tconfig.build_mpgan_generator(targs))
     d = mp_discriminator_from_jax(_np(jstate.d_params), _np(jstate.d_state),
@@ -154,13 +156,18 @@ def _step_pair(card, use_pallas):
     return (gcfg, dcfg, spec, jstate, d_step, g_step), (tstate, tspec)
 
 
-def _compare_update(t_params, j_old, j_new, j_grads, lr):
+def _compare_update(t_params, j_old, j_new, j_grads, lr, zero_grads_stay=False):
+    """``zero_grads_stay``: a tensor whose JAX gradient is exactly zero may stay
+    unchanged (and then must, in both packages)."""
     for t, old, new, g in zip(t_params, jax.tree.leaves(j_old), jax.tree.leaves(j_new),
                               jax.tree.leaves(j_grads)):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **BWD_TOL)
         clear = np.abs(np.asarray(g)) > 1e-3
         np.testing.assert_allclose(t.detach().numpy()[clear], np.asarray(new)[clear],
                                    rtol=0, atol=lr)
+        if zero_grads_stay and not np.asarray(g).any():
+            np.testing.assert_array_equal(t.detach().numpy(), np.asarray(old))
+            continue
         assert not np.array_equal(np.asarray(new), np.asarray(old))
 
 
@@ -176,8 +183,12 @@ def test_knn_d_step_and_g_step_match_jax(use_pallas):
     _check_steps_match_jax(KNN, use_pallas)
 
 
-def _check_steps_match_jax(card, use_pallas):
-    (gcfg, dcfg, spec, jstate, d_step, g_step), (tstate, tspec) = _step_pair(card, use_pallas)
+def _check_steps_match_jax(card, use_pallas, post_gens=(None, None)):
+    """``post_gens``: the JAX and the port's hook on G's output (``--mask-manual``)."""
+    jpost, tpost = post_gens
+    keep = lambda x: x  # noqa: E731
+    (gcfg, dcfg, spec, jstate, d_step, g_step), (tstate, tspec) = _step_pair(card, use_pallas,
+                                                                             jpost)
     data, labels = _batch(card, 4)
     jd, jl = jnp.asarray(data), jnp.asarray(labels)
     td, tl = torch.from_numpy(data), torch.from_numpy(labels)
@@ -188,6 +199,7 @@ def _check_steps_match_jax(card, use_pallas):
 
     def d_loss_fn(d_params):
         fake, _ = mp_generator_apply(gcfg, jstate.g_params, jstate.g_state, noise, jl)
+        fake = (jpost or keep)(fake)
         r, s1 = mp_discriminator_apply(dcfg, d_params, jstate.d_state, jd, jl, train=True,
                                        rng=k_real)
         f, _ = mp_discriminator_apply(dcfg, d_params, s1, fake, jl, train=True, rng=k_fake)
@@ -196,7 +208,7 @@ def _check_steps_match_jax(card, use_pallas):
     jgrads = jax.grad(d_loss_fn)(jstate.d_params)
     jstate1, jparts = d_step(jstate, jd, jl)
     tparts = tts.d_step(tstate, tts.StepConfig(), tspec, td, tl, draws=tts.DDraws(
-        torch.from_numpy(np.array(noise)), JaxKeys(k_real), JaxKeys(k_fake)))
+        torch.from_numpy(np.array(noise)), JaxKeys(k_real), JaxKeys(k_fake)), post_gen=tpost)
     for k in ("Dr", "Df", "D"):
         np.testing.assert_allclose(tparts[k].numpy(), np.asarray(jparts[k]), **FWD_TOL)
     _compare_update(jax_leaves(tstate.d, True), jstate.d_params, jstate1.d_params, jgrads,
@@ -209,6 +221,7 @@ def _check_steps_match_jax(card, use_pallas):
     def g_loss_fn(g_params):
         fake, _ = mp_generator_apply(gcfg, g_params, jstate1.g_state, noise, jl, train=True,
                                      rng=k_g)
+        fake = (jpost or keep)(fake)
         out, _ = mp_discriminator_apply(dcfg, jstate1.d_params, jstate1.d_state, fake, jl,
                                         train=True, rng=k_d)
         return jlosses.g_loss("ls", out)
@@ -216,12 +229,27 @@ def _check_steps_match_jax(card, use_pallas):
     jgrads = jax.grad(g_loss_fn)(jstate1.g_params)
     jstate2, jmetrics = g_step(jstate1, jd, jl)
     tmetrics = tts.g_step(tstate, tts.StepConfig(), tspec, td, tl, draws=tts.GDraws(
-        torch.from_numpy(np.array(noise)), JaxKeys(k_g), JaxKeys(k_d)))
+        torch.from_numpy(np.array(noise)), JaxKeys(k_g), JaxKeys(k_d)), post_gen=tpost)
     np.testing.assert_allclose(tmetrics["G"].numpy(), np.asarray(jmetrics["G"]), **FWD_TOL)
     _compare_update(jax_leaves(tstate.g, True), jstate1.g_params, jstate2.g_params, jgrads,
-                    1e-6)
+                    1e-6, zero_grads_stay=jpost is not None)
     # D's parameters took no gradient in the G step and are trainable again
     assert all(p.requires_grad for p in tstate.d.parameters())
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("flags", [{}, {"mask_real_only": True}], ids=["cutoff", "real_only"])
+def test_mask_manual_d_step_and_g_step_match_jax(use_pallas, flags):
+    """``--mask-manual --no-mask-c``: G emits 3 features, the hook appends the
+    mask that D reads (both registries build it), in both steps. With the pT
+    cutoff 0 an untrained G's particles all fall below it, D masks every one of
+    them, and G's gradient is zero in both packages; ``--mask-real-only`` keeps
+    them and G learns."""
+    card = dict(NARROW, mask_manual=True, mask_c=False, **flags)
+    jpost = jregistry.build_suite(jconfig.from_args_dict(card)).post_gen
+    tpost = tregistry.build_suite(tconfig.from_args_dict(card)).post_gen
+    assert jpost is not None and tpost is not None
+    _check_steps_match_jax(card, use_pallas, (jpost, tpost))
 
 
 def test_steps_draw_everything_from_the_state_generator():
