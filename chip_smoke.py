@@ -57,19 +57,31 @@ Phases, each printed as it finishes:
     compared exactly under the near-tie rule (a differing receiver row must
     have its swapped keys within one bucket step, and at most 1% of the rows may
     differ; the kernel builds the plain version's keys bit for bit, so 0 are
-    expected) and the outputs on the agreeing rows, same tolerances as above;
+    expected) and the outputs on the agreeing rows, same tolerances as above.
+    Then K5 at the main path's shapes, B=512 eval (generation: a CTA walks about
+    97 items over 4 jets and searches each) and B=160 with dropout 0.5 writing
+    ``idx`` (training), the same way, each launched twice bit for bit, and K8
+    on K5's ``idx`` equal to K5 bit for bit at both;
 12. the 150-particle knn-20 generation path: 2,048 jets through
     ``generate_multi_batch`` at B=512 and through the ``gen`` CLI (counters
     reset before, read after), shape, finiteness and mask counts; 8 jets on
     the card against the same path through the plain versions on the CPU
-    (same keys, so rtol = atol = 1e-4), and against the plain path, whose
-    exact-distance search may pick another k-th neighbour at a bucket tie
-    (mask column equal, share of values beyond tolerance logged and at most
-    20%); jets/s of both paths in turns;
+    (same keys, so rtol = atol = 1e-4); the sampler's batch, 512 jets, against
+    the plain path, whose exact-distance search may pick another k-th
+    neighbour at a bucket tie (mask column equal, share of values beyond
+    tolerance logged and at most 1%); jets/s of both paths in turns;
 13. one knn-20 D+G step at B=8 N=150 on the card against the CPU, kernel path
     with dropout 0.5 and plain path with dropout 0. The two round a layer's
-    inputs otherwise, so a near-tie may pick another neighbour in a few rows:
-    losses within 2e-3, gradients within 5e-2 of max(1, max|ref|);
+    inputs otherwise, so a near-tie may pick another neighbour in a few rows,
+    and an untrained G's particles lie close enough that one swap in G moves D's
+    inputs and its neighbours in many more. The kernel path therefore holds
+    every K5 call's neighbours in the step to the plain search run on the same
+    inputs copied to the CPU (near-tie rule, at most 1% of rows differing; 0
+    expected), then runs the CPU's knn layer calls on the card's neighbours
+    (the rows where the CPU's own search on its own inputs picks others are
+    logged), and losses and gradients agree within rtol = atol = 1e-4
+    (gradients: of max(1, max|ref|)). The plain path: losses within 2e-3,
+    gradients within 5e-2 of max(1, max|ref|);
 14. the knn train path: ``mpgan_tpu_torch.cli.train`` with ``--num-hits 150
     --no-fully-connected --num-knn 20`` at its default batch (160), 2 epochs, a
     resume that restores the state exactly, and launch counts equal to the
@@ -79,8 +91,9 @@ Phases, each printed as it finishes:
     step) and 2 K5 without ``idx`` (the D step's fake batch), plus 2 per
     evaluation batch;
 15. the knn D+G step at B=128 N=150, kernel and plain path in turns; K5 (eval
-    B=512, train B=160) and K6 (B=160, with and without weight gradients)
-    beside their plain versions.
+    B=512, train B=160, each output first held against its plain version as in
+    phase 11) and K6 (B=160, with and without weight gradients) beside their
+    plain versions.
 
 16. the fused GAPT generator kernel (K9) against its plain version at the
     default width (N=30 E=64, 4 heads, 4 layers): masked B=1024, unmasked, an odd
@@ -127,6 +140,7 @@ before those lines, as does a machine without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -161,11 +175,17 @@ FN = [224, 256, 256]  # fn's input [agg | x] and hidden widths; the output width
 KNN150 = {**FLAGSHIP, "num_hits": 150, "fully_connected": False, "num_knn": 20}
 GAPT = {"model": "gapt", "jets": "g", "num_hits": 30}
 MAX_DIFFERING_SHARE = 0.01  # receiver rows whose neighbours may differ at near-ties
-# a knn step on the card against the CPU: the two round a layer's inputs otherwise, so a
-# few of the step's ~20,000 receiver rows swap two near-tied neighbours and with them
-# their dropout masks (an untrained G's particles lie close: one row in seven of its
-# batch has two selected keys within a bucket step). The bounds catch a wrong path; bit
-# for bit the kernels are held to their plain versions on equal inputs in phase 11
+# phase 12: share of the knn generator's values at B=512 that may lie beyond rtol = atol
+# = 1e-4 of the plain path, whose exact-distance search breaks bucket ties otherwise
+# (sound runs read 0.023%, PERF.md)
+MAX_PLAIN_PATH_SHARE = 0.01
+# a knn step on the card against the CPU on the plain path: the two round a layer's
+# inputs otherwise, so a few of the step's ~20,000 receiver rows swap two near-tied
+# neighbours and with them their dropout masks (an untrained G's particles lie close:
+# one row in seven of its batch has two selected keys within a bucket step). The bounds
+# catch a wrong path; on the kernel path K5's neighbours are held to the plain search
+# on equal inputs and the rest of the step to 1e-4 (CardNeighbours), and the kernels
+# bit for bit to their plain versions in phase 11
 NEAR_TIE_LOSS_TOL = 2e-3
 NEAR_TIE_GRAD_TOL = 5e-2
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet)
@@ -359,14 +379,79 @@ def real_batch(b, n=30):
     return torch.as_tensor(ds.particle_data[:b]), torch.as_tensor(ds.jet_data[:b])
 
 
+class CardNeighbours:
+    """Phase 13's kernel path: every knn layer call's neighbours on the card (K5's
+    ``idx``), and the CPU's calls, in the same order, run on them, so that a tie
+    the two devices break otherwise does not move the rest of the step.
+
+    On the card, each call's ``idx`` is first held to the plain search run on
+    the same inputs copied to the CPU (``card`` counts: the keys are built bit
+    for bit on both, so no row is expected to differ; the phase fails where a
+    row differs beyond a near-tie or more than ``MAX_DIFFERING_SHARE`` of them
+    differ). On the CPU, counts the rows where the CPU's own search on its own
+    inputs picks other neighbours, and those of them whose swapped keys lie
+    more than a bucket step apart on the CPU's keys (``cpu`` counts, logged
+    only: with inputs that differ by rounding, a distance that cancels to near
+    zero differs by more than a bucket step)."""
+
+    def __init__(self, kk):
+        self.kk, self.card = kk, []
+        self.counts = {side: {"rows": 0, "differing": 0, "far": 0} for side in ("card", "cpu")}
+
+    def count(self, side, idx, xs, xf, k, self_loops, mask):
+        kk = self.kk
+        agree, differing, far = kk.compare_neighbours(
+            idx, self.select(xs, xf, k, self_loops), kk.knn_keys(xs, xf), mask)
+        c = self.counts[side]
+        c["rows"] += agree.numel()
+        c["differing"] += differing
+        c["far"] += far
+
+    def card_search_ok(self) -> bool:
+        c = self.counts["card"]
+        return c["far"] == 0 and c["differing"] <= MAX_DIFFERING_SHARE * c["rows"]
+
+    def __enter__(self):
+        kk = self.kk
+        self.fused, self.select = kk.knn_fused_layer, kk.knn_select_reference
+
+        def fused(xs, xf, u1, u2m, w_d, hidden_flat, k, self_loops, want_dists, alpha, sum_agg,
+                  dropout_p=0.0, seed=0, emit_idx=False):
+            a = (xs, xf, u1, u2m, w_d, hidden_flat, k, self_loops, want_dists, alpha, sum_agg,
+                 dropout_p, seed)
+            if xs.is_cuda:
+                out = self.fused(*a, emit_idx)
+                idx = out[1] if emit_idx else self.fused(*a, True)[1]
+                self.count("card", idx.cpu(), xs.detach().cpu(), xf.detach().cpu(), k,
+                           self_loops, u2m.detach()[..., -1:].cpu())
+                self.card.append(idx)
+                return out
+            theirs = self.card.pop(0).cpu()
+            self.count("cpu", theirs, xs, xf, k, self_loops, u2m[..., -1:])
+            kk.knn_select_reference = lambda *_: theirs
+            try:
+                return self.fused(*a, emit_idx)
+            finally:
+                kk.knn_select_reference = self.select
+
+        kk.knn_fused_layer = fused
+        return self
+
+    def __exit__(self, *exc):
+        self.kk.knn_fused_layer, self.kk.knn_select_reference = self.fused, self.select
+
+
 def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
-               cpu_plain_kernels=True, loss_tol=TOL, grad_tol=TOL):
+               cpu_plain_kernels=True, loss_tol=TOL, grad_tol=TOL, knn=None):
     """Phases 8 and 13: a D+G step at the published widths on the card against the
     CPU. The kernel path runs with dropout 0.5 against the kernels' plain
-    versions on the CPU. The card's plain path runs with dropout 0: against the
-    CPU's kernel path for the dense layer (one function, two paths), against the
-    CPU's plain path for the knn layer (``cpu_plain_kernels=False``: its two
-    paths search differently)."""
+    versions on the CPU, within rtol = atol = 1e-4; with ``knn`` (the knn kernels'
+    module) every K5 call's neighbours are held to the plain search on the same
+    inputs, and every knn layer call on the CPU runs on the card's neighbours
+    (:class:`CardNeighbours`). The card's plain path runs with dropout 0, within
+    ``loss_tol`` and ``grad_tol``: against the CPU's kernel path for the dense
+    layer (one function, two paths), against the CPU's plain path for the knn
+    layer (``cpu_plain_kernels=False``: its two paths search differently)."""
     from mpgan_tpu_torch.utils.weights import jax_leaves
 
     data, labels = real_batch(batch, card["num_hits"])
@@ -374,25 +459,42 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
     for path, dropout in (("kernel", 0.5), ("plain", 0.0)):
         args = from_args_dict({**card, "disc_dropout": dropout})
         res = {}
-        for side, device, kernels in (("card", dev, path == "kernel"),
-                                      ("cpu", torch.device("cpu"),
-                                       path == "kernel" or cpu_plain_kernels)):
-            st = make_state(args, device)
-            use_kernels(st, kernels)
-            parts = step_fn(st, args, data.to(device), labels.to(device))()
-            grads = [p.grad for p in jax_leaves(st.d, True) + jax_leaves(st.g, True)]
-            res[side] = ({k: v.item() for k, v in parts.items()},
-                         [gr.detach().cpu() for gr in grads])
+        held = CardNeighbours(knn) if knn is not None and path == "kernel" else None
+        with held if held is not None else contextlib.nullcontext():
+            for side, device, kernels in (("card", dev, path == "kernel"),
+                                          ("cpu", torch.device("cpu"),
+                                           path == "kernel" or cpu_plain_kernels)):
+                st = make_state(args, device)
+                use_kernels(st, kernels)
+                parts = step_fn(st, args, data.to(device), labels.to(device))()
+                grads = [p.grad for p in jax_leaves(st.d, True) + jax_leaves(st.g, True)]
+                res[side] = ({k: v.item() for k, v in parts.items()},
+                             [gr.detach().cpu() for gr in grads])
+        if held is not None:
+            card_c, cpu_c = held.counts["card"], held.counts["cpu"]
+            log(phase, path=path, knn_calls_held=len(held.card) == 0, rows=card_c["rows"],
+                card_search_vs_plain_on_its_inputs_rows_differing=card_c["differing"],
+                of_them_beyond_a_bucket_step=card_c["far"],
+                max_differing_share=MAX_DIFFERING_SHARE,
+                cpu_search_on_cpu_inputs_rows_differing=cpu_c["differing"],
+                cpu_of_them_beyond_a_bucket_step=cpu_c["far"])
+            if held.card:
+                raise SystemExit(f"{phase}: {len(held.card)} knn calls on the card had no "
+                                 "counterpart on the CPU")
+            if not held.card_search_ok():
+                raise SystemExit(f"{phase}: K5's neighbours in the step disagree with the plain "
+                                 f"search on the same inputs: {card_c}")
+        ltol, gtol = (TOL, TOL) if path == "kernel" else (loss_tol, grad_tol)
         (lc, gc), (lp, gp) = res["card"], res["cpu"]
         loss_err = max(abs(lc[k] - lp[k]) / max(1.0, abs(lp[k])) for k in lp)
-        grad_err = [wgrad_err(a, b, grad_tol) for a, b in zip(gc, gp)]
+        grad_err = [wgrad_err(a, b, gtol) for a, b in zip(gc, gp)]
         log(phase, path=path, disc_dropout=dropout, batch=batch, losses_card=lc, losses_cpu=lp,
             max_rel_loss_err=loss_err, max_abs_grad_err=max(e for e, _ in grad_err),
             max_grad_err_over_bound=max(
                 (a - b).abs().max().item() / max(1.0, b.abs().max().item())
                 for a, b in zip(gc, gp)),
-            loss_tol=loss_tol, grad_tol=grad_tol, tensors=len(grad_err))
-        if loss_err > loss_tol or not all(ok for _, ok in grad_err):
+            loss_tol=ltol, grad_tol=gtol, tensors=len(grad_err))
+        if loss_err > ltol or not all(ok for _, ok in grad_err):
             raise SystemExit(f"{phase}: D+G step on the card ({path} path) disagrees with the CPU")
         worst[path] = loss_err
     return worst
@@ -556,6 +658,53 @@ def knn_inputs(dev, b, n, c, widths, k, seed):
                 hidden=hidden, g=r(b, n, widths[-1]), mask=mask)
 
 
+def check_k5(kk, d, fwd, out, idx, what):
+    """K5's output and ``idx`` against its plain version on the same inputs: the
+    neighbours under the near-tie rule, the agreeing rows' outputs within
+    rtol = atol = 1e-4. Returns the log fields; raises where they disagree."""
+    ref, idx_ref, _ = kk.knn_fused_layer_reference(*fwd, emit_idx=True)
+    agree, differing, far = kk.compare_neighbours(idx, idx_ref, kk.knn_keys(d["xs"], d["xf"]),
+                                                  d["mask"])
+    abs_err, _, bad = errors(out[agree], ref[agree])
+    fields = dict(rows_differing=differing, rows_not_near_ties=far, max_abs_err=abs_err,
+                  out_of_tol=bad)
+    if bad or far or differing > MAX_DIFFERING_SHARE * agree.numel():
+        raise SystemExit(f"knn_fused_layer disagrees with its plain version at {what}: {fields}")
+    return fields
+
+
+def knn_main_shape_checks(kk, dev, identical):
+    """Phase 11 at the main path's shapes: K5 at B=512 eval and at B=160 with
+    dropout 0.5 writing ``idx`` against its plain version and launched twice bit
+    for bit; K8 on K5's ``idx`` equal to K5 bit for bit."""
+    worst = 0.0
+    for b, p, emit in ((512, 0.0, False), (160, 0.5, True)):
+        d = knn_inputs(dev, b, 150, 32, FE, 20, seed=b + 1)
+        fwd = (d["xs"], d["xf"], d["u1"], d["u2m"], None, d["hidden"], 20, True, False, 0.2,
+               True, p, 123457)
+        out = kk.knn_fused_layer(*fwd, emit)[0]
+        again = kk.knn_fused_layer(*fwd, emit)[0]
+        out_idx, idx, _ = kk.knn_fused_layer(*fwd, True)
+        out8 = kk.knn_edge_aggregate(d["u1"], d["u2m"], idx, None, None, d["hidden"], 0.2, True,
+                                     p, 123457)
+        torch.cuda.synchronize()
+        repeat = torch.equal(out, again) and torch.equal(out, out_idx)
+        k8_same = torch.equal(out8, out)
+        identical["knn_fused_layer"] &= repeat
+        identical["knn_edge_aggregate"] &= k8_same
+        what = f"B={b} N=150 k=20 dropout {p}" + (", idx written" if emit else "")
+        fields = check_k5(kk, d, fwd, out, idx, what)
+        log("knn_kernel_check", kernel="knn_fused_layer", shape=what, **fields,
+            two_runs_bit_identical=repeat, knn_edge_aggregate_bit_identical=k8_same)
+        if not repeat or not k8_same:
+            raise SystemExit(f"knn_fused_layer at {what}: bit-identical rerun {repeat}, "
+                             f"K8 on its idx bit-identical {k8_same}")
+        worst = max(worst, fields["max_abs_err"])
+        del d, out, again, out_idx, idx, out8
+        torch.cuda.empty_cache()
+    return worst
+
+
 def knn_kernel_checks(kk, mk, dev):
     """Phase 11: K5 and K6 against their plain versions."""
     max_err = {"knn_fused_layer": 0.0, "knn_edge_aggregate_bwd": 0.0}
@@ -682,27 +831,29 @@ def knn_generation(mk, gen_cli, dev, card):
     if launches["knn_fused_layer"] != 2 * 4 * 2:  # 2 layers, 4 batches, both entry points
         raise SystemExit(f"knn generation launched K5 {launches['knn_fused_layer']} times, not 16")
 
-    # 8 jets: against the same path through the plain versions (CPU), and the plain path
+    # 8 jets against the same path through the plain versions (CPU); the sampler's batch
+    # against the plain path
     noise = torch.randn(512, 150, 32, generator=torch.Generator(device=dev).manual_seed(2),
                         device=dev) * 0.2
     labels = torch.as_tensor(lab[:512], device=dev)
     kernel_cfg, plain_cfg = cfg, dataclasses.replace(cfg, use_kernels=False)
     g_cpu.cfg = dataclasses.replace(cfg, use_kernels=True)
     with torch.inference_mode():
-        y_k = g(noise[:8], labels[:8])
+        y_k = g(noise, labels)
         y_ref = g_cpu(noise[:8].cpu(), labels[:8].cpu()).to(dev)
         g.cfg = plain_cfg
-        y_p = g(noise[:8], labels[:8])
+        y_p = g(noise, labels)
         g.cfg = kernel_cfg
-    abs_err, rel_err, bad = errors(y_k, y_ref)
+    abs_err, rel_err, bad = errors(y_k[:8], y_ref)
     p_err, _, p_bad = errors(y_k, y_p)
     share = p_bad / y_p.numel()
-    log("knn_generator_check", n=150, jets=8, max_abs_err_vs_plain_versions=abs_err,
-        out_of_tol_vs_plain_versions=bad, max_abs_err_vs_plain_path=p_err,
-        share_beyond_tol_vs_plain_path=share)
-    if bad or not torch.equal(y_k[..., -1], y_ref[..., -1]):
+    log("knn_generator_check", n=150, jets_vs_plain_versions=8,
+        max_abs_err_vs_plain_versions=abs_err, out_of_tol_vs_plain_versions=bad,
+        jets_vs_plain_path=512, max_abs_err_vs_plain_path=p_err,
+        share_beyond_tol_vs_plain_path=share, max_share=MAX_PLAIN_PATH_SHARE)
+    if bad or not torch.equal(y_k[:8, :, -1], y_ref[..., -1]):
         raise SystemExit("150p knn generator: kernel path disagrees with its plain versions")
-    if share > 0.2 or not torch.equal(y_k[..., -1], y_p[..., -1]):
+    if share > MAX_PLAIN_PATH_SHARE or not torch.equal(y_k[..., -1], y_p[..., -1]):
         raise SystemExit("150p knn generator: kernel path too far from the plain path")
 
     def run(c):
@@ -805,6 +956,9 @@ def knn_timings(kk, dev, from_args_dict, card):
     d = knn_inputs(dev, 512, 150, 32, FE, 20, seed=8)
     fwd = (d["xs"], d["xf"], d["u1"], d["u2m"], None, d["hidden"], 20, True, False, 0.2, True)
     out = kk.knn_fused_layer(*fwd)[0]
+    log("knn_kernel_check", kernel="knn_fused_layer", stage="timings",
+        **check_k5(kk, d, fwd, out, kk.knn_fused_layer(*fwd, emit_idx=True)[1],
+                   "B=512 eval, timed"))
     times["eval"] = dict(
         shape="B=512 N=150 k=20 eval",
         ms=best_ms(lambda: kk.knn_fused_layer(*fwd), inner=1),
@@ -817,6 +971,8 @@ def knn_timings(kk, dev, from_args_dict, card):
     fwd = (d["xs"], d["xf"], d["u1"], d["u2m"], None, d["hidden"], 20, True, False, 0.2, True,
            0.5, 5)
     out, idx, _ = kk.knn_fused_layer(*fwd, True)
+    log("knn_kernel_check", kernel="knn_fused_layer", stage="timings",
+        **check_k5(kk, d, fwd, out, idx, "B=160 dropout 0.5 with idx, timed"))
     rows = 160 * 150 * 20
     times["train"] = dict(
         shape="B=160 N=150 k=20 dropout 0.5, idx written",
@@ -1332,7 +1488,8 @@ def main() -> None:
     # 3. kernels against their plain versions, each launched twice
     max_err = {"edge_aggregate": 0.0, "edge_aggregate_fn": 0.0, "edge_aggregate_fe128_256": 0.0}
     # bit-identity of every rerun of a kernel in this run (a mismatch also stops it)
-    identical = {"edge_aggregate": True, "edge_aggregate_fn": True, "edge_aggregate_bwd": True}
+    identical = {"edge_aggregate": True, "edge_aggregate_fn": True, "edge_aggregate_bwd": True,
+                 "knn_fused_layer": True, "knn_edge_aggregate": True}
     shapes = [(b, n, fn_out, FE) for b, n in ((256, 30), (16, 150)) for fn_out in (32, 3)]
     shapes.append((16, 150, 3, [128, 256]))  # the 150-particle --fe 128 256 chain
     for b, n, fn_out, fe in shapes:
@@ -1499,9 +1656,12 @@ def main() -> None:
 
     # 11-15. the 150-particle knn-20 path
     knn_err = knn_kernel_checks(kk, mk, dev)
+    knn_err["knn_fused_layer"] = max(knn_err["knn_fused_layer"],
+                                     knn_main_shape_checks(kk, dev, identical))
     knn_gen_launches = knn_generation(mk, gen, dev, card)
     step_check(dev, from_args_dict, card=KNN150, batch=8, phase="knn_step_check",
-               cpu_plain_kernels=False, loss_tol=NEAR_TIE_LOSS_TOL, grad_tol=NEAR_TIE_GRAD_TOL)
+               cpu_plain_kernels=False, loss_tol=NEAR_TIE_LOSS_TOL, grad_tol=NEAR_TIE_GRAD_TOL,
+               knn=kk)
     with tempfile.TemporaryDirectory() as tmp:
         knn_train_launches = knn_train_path(mk, train_cli, pathlib.Path(tmp))
     knn_step_ms, ktimes = knn_timings(kk, dev, from_args_dict, card)
@@ -1561,7 +1721,8 @@ def main() -> None:
          "includes": K1,
          "launches": knn_gen_launches["knn_fused_layer"] + knn_train_launches["knn_fused_layer"]
          + knn_train_launches["knn_fused_layer_train"],
-         "max_abs_err": knn_err["knn_fused_layer"], **ktimes["eval"],
+         "max_abs_err": knn_err["knn_fused_layer"],
+         "two_runs_bit_identical": identical["knn_fused_layer"], **ktimes["eval"],
          "train_ms": ktimes["train"]["ms"], "train_plain_ms": ktimes["train"]["plain_ms"],
          "train_shape": ktimes["train"]["shape"], "train_bound_ms": ktimes["train"]["bound_ms"]},
         {"name": "knn_edge_aggregate_bwd", "route": "cuda",
@@ -1590,7 +1751,9 @@ def main() -> None:
          "source": "mpgan_tpu_torch/csrc/knn_edge_aggregate.cu",
          "replaces": REPLACES["knn_edge_aggregate"], "includes": K1,
          "launches": split_launches["knn_edge_aggregate"],
-         "max_abs_err": split_err["knn_edge_aggregate"], **stimes["aggregate_eval"],
+         "max_abs_err": split_err["knn_edge_aggregate"],
+         "bit_identical_to_knn_fused_layer": identical["knn_edge_aggregate"],
+         **stimes["aggregate_eval"],
          "train_ms": stimes["aggregate_train"]["ms"],
          "train_plain_ms": stimes["aggregate_train"]["plain_ms"],
          "train_shape": stimes["aggregate_train"]["shape"],

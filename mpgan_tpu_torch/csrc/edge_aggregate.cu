@@ -17,8 +17,10 @@
 // What bounds it: the N^2 edge chain is ~166 MFLOP per 30-particle jet and
 // ~4.1 GFLOP per 150-particle jet at the flagship widths, against ~1 KB of input
 // per particle, so the kernel is bound by FP32 FMA issue. The design:
-//   - the pass and its products are edge_products.cuh's, the backward's own: a
-//     pass is ti receivers x jc senders in a buffer of 32, 64 or 128 pair rows
+//   - the pass is edge_fwd_common.cuh's fwd_pass, which the knn forward (K5, K8)
+//     runs too, on edge_products.cuh's products, the backward's own: this file
+//     adds the dense rows (receiver x sender) and K4's node MLP. A pass is ti
+//     receivers x jc senders in a buffer of 32, 64 or 128 pair rows
 //     (5 x 25 = 125 at N = 150, 4 x 30 = 120 at N = 30), all 512 threads hold full
 //     8 x TN register tiles of every product, and the weights come in k-slabs
 //     through shared memory, 128-bit cp.async copies of a packed copy, the next
@@ -57,188 +59,9 @@
 // the caller (mp_kernels.fwd_plan, CPU-tested); the launcher checks them and lays
 // out the shared memory.
 
-#include <cooperative_groups.h>
-
-#include "edge_products.cuh"
+#include "edge_fwd_common.cuh"
 
 namespace {
-
-constexpr int kFwdRowArrays = 4;  // u1, u2, id, m
-constexpr int kFwdJobs = 2 * kMaxLayers;  // fe layers, then fn's
-
-// What a product needs of its layer, kept in shared memory: the loops then read
-// no kernel parameter at a computed index (which would copy the chains to local
-// memory).
-struct LayerTab {
-  const float* w;  // the packed weights
-  const float* b;  // the bias
-  int k, m;
-};
-constexpr int kTabFloats = kFwdJobs * (int)(sizeof(LayerTab) / sizeof(float));
-
-struct FwdPlan : PassShape {
-  int ti, jc;      // receivers x senders of a pass
-  int rs;          // pass rows a receiver takes: jc, at least 8
-  int span;        // receivers an item holds: K2 ti, K4 a multiple of ti, at most rows
-  long long items;
-  int off_act;     // the pass buffer, a_0 .. a_{L-1} each written over the last
-  int off_agg;     // K2: the item's aggregate [ti x h_out]; K4: agg^T [h_out x ldr] at 0,
-                   // where fn then runs in place on [agg | x]^T
-  int off_slab;    // the two weight slabs
-  int off_part;    // the last layer's partial sums [2][rows / 8][h_out]: the pass buffer
-                   // where it is large enough, else a region of their own
-  int off_rows;    // the per-row arrays
-  int off_tab;     // the layer table (LayerTab), fe layers then fn's
-  size_t smem;
-  long long pk_off[kFwdJobs + 1];  // packed weights: fe layers, then fn's (floats)
-};
-
-// The widest of a_0 .. a_{L-1}: the pass buffer's width.
-int pass_width(const Chain& fe) {
-  int w = fe.dim[0];
-  for (int l = 1; l < fe.n; ++l) w = fe.dim[l] > w ? fe.dim[l] : w;
-  return w;
-}
-
-// Lays out the shared memory of a pass shape and slab size that the caller
-// planned (mp_kernels.fwd_plan), and the packed weights; false where the shape is
-// not one the kernel runs or the memory does not fit.
-bool fwd_layout(FwdPlan& p, const Chain& fe, const Chain* fn) {
-  const int slab = p.slab_floats;
-  if (!set_shape(p, p.rows) || p.ti < 1 || p.jc < 1) return false;
-  // at least the products' least slab, and 16-byte aligned for the second buffer
-  if (slab < kSlabFloats || slab % 4 != 0) return false;
-  p.slab_floats = slab;
-  p.rs = p.jc > 8 ? p.jc : 8;
-  if (p.ti * p.rs > p.rows) return false;
-  const int h_out = fe.dim[fe.n], width = pass_width(fe);
-  p.pk_off[0] = 0;
-  const int jobs = fe.n + (fn != nullptr ? fn->n : 0);
-  for (int l = 0; l < jobs; ++l) {
-    const Chain& c = l < fe.n ? fe : *fn;
-    const int li = l < fe.n ? l : l - fe.n;
-    p.pk_off[l + 1] = p.pk_off[l] + (long long)c.dim[li] *
-                                        round_up(c.dim[li + 1], p.col_threads);
-  }
-  int act;
-  if (fn != nullptr) {
-    int fn_width = h_out + width;
-    for (int l = 0; l <= fn->n; ++l) fn_width = fn->dim[l] > fn_width ? fn->dim[l] : fn_width;
-    p.off_agg = 0;
-    p.off_act = h_out * p.ldr;
-    act = fn_width * p.ldr;
-  } else {
-    p.off_act = 0;
-    p.off_agg = width * p.ldr;
-    act = p.off_agg + round_up(p.ti * h_out, 4);
-  }
-  const int part = 2 * (p.rows / 8) * h_out;
-  const bool own_part = part > width * p.ldr;
-  const int rest = act + kFwdRowArrays * p.ldr + kTabFloats + (own_part ? part : 0);
-  p.off_slab = act;
-  p.off_rows = p.off_slab + 2 * p.slab_floats;
-  p.off_tab = p.off_rows + kFwdRowArrays * p.ldr;  // a multiple of 4 floats
-  p.off_part = own_part ? p.off_tab + kTabFloats : p.off_act;
-  p.smem = (size_t)(rest + 2 * p.slab_floats) * sizeof(float);
-  return p.smem <= (size_t)kMaxSmemBytes;
-}
-
-// This CTA's share of the packed weights: layer l in packed_elem's order; fn's
-// first layer takes its rows k >= k0_split from w0_lo. The grid's CTAs take every
-// gridDim-th element.
-__device__ void pack_share(float* __restrict__ packed, const FwdPlan& p, const Chain& fe,
-                           const Chain& fn, int jobs) {
-  int l = 0;
-  for (long long t = (long long)blockIdx.x * kThreads + threadIdx.x; t < p.pk_off[jobs];
-       t += (long long)gridDim.x * kThreads) {
-    while (t >= p.pk_off[l + 1]) ++l;
-    const Chain& c = l < fe.n ? fe : fn;
-    const int li = l < fe.n ? l : l - fe.n, M = c.dim[li + 1];
-    const PackedElem e = packed_elem(t - p.pk_off[l], M, p.col_threads);
-    const int split = li == 0 && l >= fe.n ? c.k0_split : c.dim[li];
-    const float* w = e.row < split ? c.w[li] + (size_t)e.row * M
-                                   : c.w0_lo + (size_t)(e.row - split) * M;
-    packed[p.pk_off[l] + e.at] = e.col < M ? w[e.col] : 0.f;
-  }
-}
-
-// The forward's products (C may be A) along the chain of weight slabs: `chain`
-// holds the buffer and state of this product's first slab on entry and of the
-// next one's on return; `next` (null: none) is the next product's packed weights,
-// K_next x M_next.
-__device__ void product_fwd(int A, int K, const float* W, int M, const PassShape& p,
-                            const Epilogue& e, int slab, SlabChain& chain, const float* next,
-                            int K_next, int M_next) {
-  chain.next = next;
-  chain.next_floats =
-      next != nullptr ? first_slab_floats(K_next, M_next, p.col_threads, p.slab_floats) : 0;
-  chain.buf = product_at<true>(A, K, W, M, slab, p, e, chain);
-  chain.staged = next != nullptr;
-}
-
-// Adds a pass's share s of receiver ii's aggregate at column c. K2 keeps the item's
-// aggregate in shared memory and stores it, divided by `denom`, on the last chunk
-// of senders; K4 keeps it transposed for fn.
-template <bool kFuseFn>
-__device__ __forceinline__ void add_share(const FwdPlan& p, float s, int ii, int c, int h_out,
-                                          int blk, bool first, bool last, float denom,
-                                          float* __restrict__ out_row) {
-  if (kFuseFn) {
-    float* a = smf(p.off_agg) + (size_t)c * p.ldr + blk + ii;
-    *a = first ? s : *a + s;
-  } else {
-    float* a = smf(p.off_agg) + ii * h_out + c;
-    const float v = first ? s : *a + s;
-    if (last)
-      out_row[c] = v / denom;
-    else
-      *a = v;
-  }
-}
-
-// a_0 [h1 x rows] from the row arrays, as build_a0 makes it (no distance
-// feature), laid out for the transposed store: a warp takes 4 rows by 8 features
-// at a time, so its 32 stores fall into 32 banks (ldr = 4 mod 32: row r and
-// feature h sit in bank 4h + r) where a warp of 32 features of one row hit 4;
-// its loads read 32 bytes of each of 4 rows. Twelve features of a lane's row
-// are loaded together (24 loads in flight), so a pass waits for device memory
-// once every 96 features.
-__device__ __noinline__ void build_a0_fwd(int dst_off, const PassShape& p, const RowArrays& row_in,
-                                          const PassInputs& in_ref, int h1) {
-  const PassInputs in = in_ref;  // copies: see product_tn
-  const RowArrays row = row_in;
-  const int ldr = p.ldr;
-  float* dst = smf(dst_off);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int hl = lane & 7, rl = lane >> 3;
-  const float* __restrict__ u1 = in.u1;
-  const float* __restrict__ u2 = in.u2;
-  constexpr int kH = 12;
-  for (int rg = warp; rg < p.rows / 4; rg += kWarps) {
-    const int r = 4 * rg + rl;
-    const int o1 = smi(row.u1)[r], o2 = smi(row.u2)[r];
-    const unsigned id = smu(row.id)[r];
-    for (int h0 = hl; h0 < h1; h0 += 8 * kH) {
-      float z[kH];
-#pragma unroll
-      for (int k = 0; k < kH; ++k) {
-        const int h = h0 + 8 * k;
-        z[k] = o1 >= 0 && h < h1 ? __ldg(u1 + o1 + h) + __ldg(u2 + o2 + h) : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < kH; ++k) {
-        const int h = h0 + 8 * k;
-        if (h >= h1) break;
-        float v = 0.f;
-        if (o1 >= 0) {
-          v = leaky(z[k], in.alpha);
-          if (in.drop_on) v = drop_store(v, in.drop, id, (unsigned)h, 0u);
-        }
-        dst[h * ldr + r] = v;
-      }
-    }
-  }
-}
 
 // grid = the plan's CTAs; dynamic shared memory as fwd_layout lays it out.
 template <bool kFuseFn>
@@ -250,21 +73,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                           int sum_agg, int drop_on, Drop drop) {
   const int L = fe.n, h1 = fe.dim[0], h_out = fe.dim[L], ns = round_up(n, 8);
   const int n_fn = kFuseFn ? fn.n : 0;
-  pack_share(packed, p, fe, fn, L + n_fn);
-  LayerTab* tab = reinterpret_cast<LayerTab*>(smf(p.off_tab));
-  if (threadIdx.x < L + n_fn) {
-    const int l = threadIdx.x, li = l < L ? l : l - L;
-    const Chain& c = l < L ? fe : fn;
-    tab[l] = LayerTab{packed + p.pk_off[l], c.b[li], c.dim[li], c.dim[li + 1]};
-  }
-  cooperative_groups::this_grid().sync();  // the packed weights and the table are complete
+  const LayerTab* tab = fwd_setup(packed, p, fe, fn, L + n_fn);
   const int total = batch * n;  // receivers of the launch
   const float denom = sum_agg ? 1.f : (float)n;  // the mean divides by the true n
-  RowArrays row{};
-  row.u1 = p.off_rows;
-  row.u2 = p.off_rows + p.ldr;
-  row.id = p.off_rows + 2 * p.ldr;
-  row.m = p.off_rows + 3 * p.ldr;
+  const RowArrays row = fwd_rows(p);
   PassInputs in{};
   in.u1 = u1;
   in.u2 = u2;
@@ -272,15 +84,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   in.alpha = alpha;
   in.drop_on = drop_on != 0;
   in.drop = drop;
-  Epilogue e{};
-  e.alpha = alpha;
-  e.drop_on = drop_on != 0;
-  e.drop = drop;
-  e.part = p.off_part;
-  e.rs = p.rs;
+  Epilogue e = fwd_epilogue(p, row, alpha, drop_on != 0, drop);
   SlabChain chain{};
-  e.row = row;
-  const int groups = p.rows / 8;
   PhaseClock clock;
   MPGAN_PHASE_START(clock);
 
@@ -292,6 +97,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int ti_eff = min(p.ti, n_recv - blk);
       for (int j0 = 0; j0 < n; j0 += p.jc) {
         const int jc_eff = min(p.jc, n - j0);
+        // dense rows: receiver q = q_base + blk + ii of the flat list x sender j0 + jj
+        // of its jet
         for (int r = threadIdx.x; r < p.rows; r += kThreads) {
           const int ii = r / p.rs, jj = r - ii * p.rs;
           const bool real = ii < ti_eff && jj < jc_eff;
@@ -301,60 +108,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           smu(row.id)[r] = (unsigned)q * (unsigned)ns + (unsigned)(j0 + jj);
           smf(row.m)[r] = real ? __ldg(mask + sender) : 0.f;
         }
-        __syncthreads();  // the row arrays are visible; the last pass is done with the buffer
-        build_a0_fwd(p.off_act, p, row, in, h1);
-        MPGAN_PHASE(clock, kPhaseRows);
         const bool first = j0 == 0, last = j0 + p.jc >= n;
-        float* out_blk = out + (size_t)(q_base + blk) * h_out;
-        if (L == 0) {
-          // no hidden layer: the masked sum of a_0 itself, in row order
-          __syncthreads();
-          for (int q = threadIdx.x; q < ti_eff * h_out; q += kThreads) {
-            const int ii = q / h_out, c = q - ii * h_out;
-            const float* col = smf(p.off_act) + (size_t)c * p.ldr + ii * p.rs;
-            const float* m = smf(row.m) + ii * p.rs;
-            float s = 0.f;
-            for (int jj = 0; jj < jc_eff; ++jj) s = fmaf(m[jj], col[jj], s);
-            add_share<kFuseFn>(p, s, ii, c, h_out, blk, first, last, denom,
-                               out_blk + (size_t)ii * h_out);
-          }
-          MPGAN_PHASE(clock, kPhaseLast);
-          continue;
-        }
-        e.kind = kEpiHidden;
-        e.C = p.off_act;
-        for (int l = 0; l + 1 < L; ++l) {
-          const LayerTab a = tab[l], b = tab[l + 1];
-          e.bias = a.b;
-          e.salt = (unsigned)(l + 1);
-          product_fwd(p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k, b.m);
-        }
-        MPGAN_PHASE(clock, kPhaseFwd);
         // the product after the last layer's: fe's first again (this item's next
         // pass, or the next item's first), else fn's first (K4), else none
         const bool more = !last || blk + p.ti < n_recv;
         const int nxt = more || (!kFuseFn && t + 1 < t_end) ? 0 : (kFuseFn ? L : -1);
-        const LayerTab a = tab[L - 1], b = nxt < 0 ? LayerTab{} : tab[nxt];
-        e.kind = kEpiAgg;
-        e.bias = a.b;
-        e.salt = (unsigned)L;
-        product_fwd(p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k, b.m);
-        __syncthreads();  // the partials are complete
-        MPGAN_PHASE(clock, kPhaseLast);
-        // receiver ii's rows [ii * rs, ii * rs + jc_eff) lie in the 8-row groups
-        // g0 .. g1; a group that starts inside them holds ii as its head, the one
-        // before as its tail
-        const float* part = smf(p.off_part);
-        for (int q = threadIdx.x; q < ti_eff * h_out; q += kThreads) {
-          const int ii = q / h_out, c = q - ii * h_out;
-          const int r_begin = ii * p.rs, g1 = (r_begin + jc_eff - 1) / 8;
-          float s = 0.f;
-          for (int g = r_begin / 8; g <= g1; ++g)
-            s += part[((8 * g >= r_begin ? 0 : groups) + g) * h_out + c];
-          add_share<kFuseFn>(p, s, ii, c, h_out, blk, first, last, denom,
-                             out_blk + (size_t)ii * h_out);
-        }
-        MPGAN_PHASE(clock, kPhaseTail);
+        fwd_pass<kFuseFn>(p, tab, L, h1, h_out, row, in, e, chain, ti_eff, jc_eff, blk, first,
+                          last, nxt, denom, out + (size_t)(q_base + blk) * h_out, clock);
       }
     }
     if (!kFuseFn) continue;
@@ -412,6 +172,7 @@ int launch(const float* u1, const float* u2, const float* mask, const float* x, 
   p.ti = ti;
   p.jc = jc;
   p.span = kFuseFn ? span : ti;
+  p.row_arrays = 4;
   p.slab_floats = slab_floats;
   if (!fwd_layout(p, fe, kFuseFn ? &fn : nullptr) || jc > n) return (int)cudaErrorInvalidValue;
   if (p.span < ti || p.span > rows || p.span % ti != 0) return (int)cudaErrorInvalidValue;
@@ -449,6 +210,7 @@ int mpgan_edge_fwd_sizes(int n_hidden, const int* hidden_dims, int n_fn, const i
   p.rows = rows;
   p.ti = ti;
   p.jc = 1;
+  p.row_arrays = 4;
   p.slab_floats = slab_floats;
   if (!fwd_layout(p, fe, n_fn > 0 ? &fn : nullptr)) return -1;
   sizes[0] = (long long)p.smem;

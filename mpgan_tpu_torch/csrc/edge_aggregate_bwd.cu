@@ -164,7 +164,6 @@ int mpgan_edge_aggregate_bwd(const float* u1, const float* u2, const float* mask
   drop.seed_key = (unsigned)seed * 0xC2B2AE3Du;
   drop.thr = thr;
   drop.mult = mult;
-  drop.jc = p.jc;
   drop.ns = round_up(n, 8);
   const WSlab ws = make_wslab(fe, 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,7 +1,10 @@
 // The pieces of a pass of pair rows through the fe chain that the forward and
 // the backward edge kernels share, for Hopper (sm_90a), FP32 on CUDA cores: the
-// forward (edge_aggregate.cu: K2, K4) and the backward (edge_bwd_common.cuh's
-// recompute-and-backprop pass: K3, K6).
+// forward pass (edge_fwd_common.cuh: K2 and K4 in edge_aggregate.cu, K5 and K8 on
+// knn_stages.cuh) and the backward's recompute-and-backprop pass
+// (edge_bwd_common.cuh: K3, K6). What bounds them all is the products' k loops,
+// 8 x TN FMAs a k-step with operands from shared memory: about 43 of the 67
+// TFLOP/s of FP32 the card's data sheet gives (scripts/torch_fma_peak.cu).
 //
 // A pass takes up to 128 "pair rows" ((receiver, sender) pairs, or (receiver,
 // neighbour rank) edges) through the chain. The kernel describes the rows in
@@ -56,6 +59,7 @@ enum Phase {
   kPhaseProdWait,   // inside the products: waiting for a slab and its barrier
   kPhaseProdLoop,   // inside the products: the k loop
   kPhaseProdEpi,    // inside the products: the epilogue
+  kPhaseSearch,     // K5: the neighbour search (knn_stages.cuh)
   kPhaseCount
 };
 

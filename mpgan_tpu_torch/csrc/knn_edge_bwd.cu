@@ -271,8 +271,6 @@ int mpgan_knn_edge_aggregate_bwd(const float* u1, const float* u2m, const int* i
   drop.seed_key = (unsigned)seed * 0xC2B2AE3Du;
   drop.thr = thr;
   drop.mult = mult;
-  drop.jc = p.jc;
-  drop.ns = k;
   const WSlab ws = make_wslab(fe, want_dists ? h1 : 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   Packed pk;

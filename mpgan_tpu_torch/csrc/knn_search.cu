@@ -17,23 +17,25 @@
 // receiver's n keys in shared memory, against 8 bytes per selected edge written:
 // at n = 150, c = 32, k = 20 about 1.5 MFLOP and 24 KB per jet. Both roofline terms
 // are microseconds at any batch this model runs, so what shows is launch latency
-// and the serial extraction passes of each warp. The design is the fused layer's: a
-// CTA per group of up to 32 receivers of a jet, the jet's senders transposed in
-// shared memory, a warp per receiver.
+// and the serial extraction passes of each warp, which takes two receivers side by
+// side to hide them. A CTA takes a group of up to 32 receivers of a jet; the jet's
+// senders are transposed in shared memory (knn_stages.cuh: knn_search_stage).
 
 #include "knn_stages.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads, 1)
+// grid = (batch, receiver groups); dynamic shared memory: the search's scratch,
+// then the group's neighbours and distances [group, k]. Two CTAs an SM (at most 64
+// registers a thread), so that one CTA's staging and barriers overlap the other's
+// extractions.
+__global__ void __launch_bounds__(kThreads, 2)
     knn_search_kernel(const float* __restrict__ xs, const float* __restrict__ xf,
                       int* __restrict__ idx_out, float* __restrict__ dists_out, int n, int c,
-                      int k, int self_loops, int want_dists, int key_bits, KnnPlan p) {
-  extern __shared__ float4 smem4[];
-  const KnnSmem sm = knn_smem(reinterpret_cast<float*>(smem4), p, 0, k, false);
-  const int g0 = blockIdx.y * p.group;
-  knn_search_stage(xs, xf, idx_out, dists_out, blockIdx.x, g0, min(p.group, n - g0), n, c, k,
-                   self_loops, want_dists, key_bits, p, sm.work, sm.sel, sm.seld);
+                      int k, int self_loops, int want_dists, int key_bits, int group) {
+  const int g0 = blockIdx.y * group, sel_off = round_up(search_floats(n, c), 4);
+  knn_search_stage(xs, xf, idx_out, dists_out, blockIdx.x, g0, min(group, n - g0), n, c, k,
+                   self_loops, want_dists, key_bits, 0, sel_off, sel_off + group * k);
 }
 
 }  // namespace
@@ -49,15 +51,17 @@ int mpgan_knn_search(const float* xs, const float* xf, int* idx_out, float* dist
     return (int)cudaErrorInvalidValue;
   if (k < 1 || k + (self_loops ? 0 : 1) > n || (want_dists && dists_out == nullptr))
     return (int)cudaErrorInvalidValue;
-  KnnPlan p;
-  const size_t smem = make_knn_plan(n, c, k, Chain{}, true, false, p);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const int group = group_size(n);
+  const long long floats = round_up(search_floats(n, c), 4) + 2LL * group * k;
+  if (floats * (long long)sizeof(float) > (long long)kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(knn_search_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(batch, (n + p.group - 1) / p.group);
+  const dim3 grid(batch, (n + group - 1) / group);
   knn_search_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xs, xf, idx_out, dists_out, n, c, k, self_loops, want_dists, knn_key_bits(n), p);
+      xs, xf, idx_out, dists_out, n, c, k, self_loops, want_dists, knn_key_bits(n), group);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
-// The two stages of the knn message-passing edge kernels, shared by the fused
-// layer (knn_fused.cu, K5), the search alone (knn_search.cu, K7) and the
-// aggregate from a given idx (knn_edge_aggregate.cu, K8): one source for each
-// stage, so the three kernels build the same keys, pick the same neighbours and
-// run the same chain bit for bit.
+// The knn message-passing edge kernels' shared source, for Hopper (sm_90a), FP32
+// on CUDA cores: the neighbour search, which the fused layer (knn_fused.cu, K5)
+// and the search alone (knn_search.cu, K7) run, and the knn forward kernel, which
+// K5 (with the search) and the aggregate from a given idx (knn_edge_aggregate.cu,
+// K8, without it) launch. One source each, so K5 and K7 build the same keys and
+// pick the same neighbours, and K5 and K8 run the same chain bit for bit.
 //
 //   search: d[i, j]   = (-2 xs[i] | 1) . (xf[j] | |xf[j]|^2) + |xs[i]|^2      (full FP32)
 //                       summed term by term in column order, every product and sum
@@ -15,250 +16,44 @@
 //   chain:  z1[i, s]  = u1[i] + u2m[idx[i, s], :h1] (+ dist[i, s] * w_d)
 //           agg[i]    = sum_s u2m[idx[i, s], h1] * chain(leaky(z1[i, s]))   (/ k for mean)
 //
-// A CTA owns a group of up to 32 receivers of one jet. The stages talk through
-// the group's neighbours `sel` and distances `seld` [group, k] in shared memory.
+// The forward kernel is the dense forward's pass (edge_fwd_common.cuh: fwd_pass,
+// the one K2 and K4 run) fed with knn rows: a pass is ti receivers x kc neighbour
+// ranks (6 x 20 = 120 of 128 rows at k = 20), row (ii, s) taking the sender
+// sel[i0 + ii, s]. The grid is persistent, a CTA an SM, each walking a contiguous
+// range of items, an item a block of ti receivers of one jet (K6's schedule). What
+// bounds it is the chain's FP32 FMA issue, 2 k (sum of in * out) FLOP a receiver
+// (92 KFLOP an edge at the published widths), against ~1 KB of input a particle.
+//
+// K5 searches once a (CTA, jet): for the receivers of the jet that its item range
+// holds (at most the plan's sspan at a time), into sel and seld [sspan, k] in
+// shared memory. The search's scratch (xf^T with the norms, the warps' key rows)
+// lives in the pass buffer, which holds no live pass between items; the weight
+// slab that the last pass prefetched for the next one lies outside it, so the
+// copy may stay in flight while the search runs. K8 reads each row's sender from
+// idx (clamped to [0, n), so a wrong idx cannot read outside the jet) and its
+// distance from dists.
 #pragma once
 
 #include <climits>
 
-#include "edge_common.cuh"
+#include "edge_fwd_common.cuh"
 
 namespace {
 
-struct KnnPlan {
-  int group;  // receivers per CTA
-  int ti;     // receivers per pass
-  int kc;     // neighbour ranks per pass
-  int ldr;    // row stride of the pass buffers (floats)
-  int buf0;   // floats in the first ping-pong buffer
-  int ldn;    // sender stride of the search arrays
-  int work;   // floats in the region the search arrays and the pass buffers share
-};
+constexpr int kMaxGroup = 32;    // K7: receivers a CTA
+constexpr int kSearchRecv = 2;   // receivers a warp takes through the search at once
 
-// The dynamic shared memory of a knn kernel: the shared region (search: xf^T
-// [c + 1, ldn] and the warps' key rows [kWarps, ldn]; chain: the two ping-pong
-// buffers), then the group's aggregate [group, h_out], the pass rows' sender masks
-// [ldr] (both empty without a chain), and the group's distances and neighbours
-// [group, k].
-struct KnnSmem {
-  float* work;
-  float* agg;
-  float* smask;
-  float* seld;
-  int* sel;
-};
-
-__device__ __forceinline__ KnnSmem knn_smem(float* base, const KnnPlan& p, int h_out, int k,
-                                            bool chain) {
-  KnnSmem s;
-  s.work = base;
-  s.agg = base + p.work;
-  s.smask = s.agg + (chain ? p.group * h_out : 0);
-  s.seld = s.smask + (chain ? p.ldr : 0);
-  s.sel = reinterpret_cast<int*>(s.seld + p.group * k);
-  return s;
+// Floats of the search's scratch: xf^T with the norms [c + 1, ldn] and the warps'
+// key rows [kWarps * kSearchRecv, ldn], ldn = n rounded up to 32.
+__host__ __device__ __forceinline__ int search_floats(int n, int c) {
+  return (c + 1 + kWarps * kSearchRecv) * round_up(n, 32);
 }
 
-// The search for receivers g0 .. g0 + g_eff of jet b: the jet's senders are staged
-// transposed in shared memory with their squared norms, then a warp per receiver
-// computes the n keys into its own row of shared memory and extracts the minimum
-// k times (lane-strided minimum, __reduce_min_sync, the winner's key set to
-// INT_MAX). Keys are unique, so a pass removes exactly one sender, and ties inside
-// a truncation bucket break by index, as in the TPU kernels. Fills sel (and seld
-// with want_dists) and, where the pointers are not null, idx_out and dists_out.
-// The caller synchronizes the CTA before it reads sel or reuses `work`.
-__device__ void knn_search_stage(const float* __restrict__ xs, const float* __restrict__ xf,
-                                 int* __restrict__ idx_out, float* __restrict__ dists_out, int b,
-                                 int g0, int g_eff, int n, int c, int k, int self_loops,
-                                 int want_dists, int key_bits, const KnnPlan& p, float* work,
-                                 int* sel, float* seld) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* xfb = xf + (size_t)b * n * c;
-  float* xft = work;                                         // [c + 1, ldn]
-  int* keys = reinterpret_cast<int*>(work + (c + 1) * p.ldn);  // [kWarps, ldn]
-  for (int t = threadIdx.x; t < n * c; t += kThreads) {
-    const int j = t / c, cc = t - (t / c) * c;
-    xft[cc * p.ldn + j] = xfb[t];
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    float s = __fmul_rn(xft[j], xft[j]);
-    for (int cc = 1; cc < c; ++cc) {
-      const float v = xft[cc * p.ldn + j];
-      s = __fadd_rn(s, __fmul_rn(v, v));
-    }
-    xft[c * p.ldn + j] = s;
-  }
-  __syncthreads();
-  const int low = (1 << key_bits) - 1;
-  const int start = self_loops ? 0 : 1;
-  int* wkeys = keys + warp * p.ldn;
-  for (int ii = warp; ii < g_eff; ii += kWarps) {
-    const float* xsi = xs + ((size_t)b * n + g0 + ii) * c;
-    float sq1 = __fmul_rn(__ldg(xsi), __ldg(xsi));
-    for (int cc = 1; cc < c; ++cc) {
-      const float v = __ldg(xsi + cc);
-      sq1 = __fadd_rn(sq1, __fmul_rn(v, v));
-    }
-    for (int j = lane; j < n; j += 32) {
-      float d = __fmul_rn(-2.f * __ldg(xsi), xft[j]);
-      for (int cc = 1; cc < c; ++cc)
-        d = __fadd_rn(d, __fmul_rn(-2.f * __ldg(xsi + cc), xft[cc * p.ldn + j]));
-      d = __fadd_rn(__fadd_rn(d, xft[c * p.ldn + j]), sq1);
-      d = d > 0.f ? d : 0.f;
-      wkeys[j] = (__float_as_int(d) & ~low) | j;
-    }
-    __syncwarp();
-    for (int s = 0; s < k + start; ++s) {
-      int m = INT_MAX;
-      for (int j = lane; j < n; j += 32) m = min(m, wkeys[j]);
-      m = __reduce_min_sync(0xffffffffu, m);
-      if (lane == 0) {
-        wkeys[m & low] = INT_MAX;
-        if (s >= start) sel[ii * k + s - start] = m & low;
-      }
-      __syncwarp();
-    }
-    for (int s = lane; s < k; s += 32) {
-      const int j = sel[ii * k + s];
-      const size_t e = ((size_t)b * n + g0 + ii) * k + s;
-      if (idx_out != nullptr) idx_out[e] = j;
-      if (want_dists) {
-        // the exact distance of the selected edge: |xf[j] - xs[i] + 1e-12|
-        float sum = 0.f;
-        for (int cc = 0; cc < c; ++cc) {
-          const float diff = xft[cc * p.ldn + j] - __ldg(xsi + cc) + 1e-12f;
-          sum = fmaf(diff, diff, sum);
-        }
-        const float dist = sqrtf(sum);
-        seld[ii * k + s] = dist;
-        if (dists_out != nullptr) dists_out[e] = dist;
-      }
-    }
-  }
-}
-
-// The chain over the selected edges of receivers g0 .. g0 + g_eff of jet b, in
-// passes of ti receivers x kc ranks (ti * kc <= 128 pair rows) through the
-// transposed ping-pong buffers and register-tiled dense layer of the dense
-// kernels, and a masked sum over each receiver's ranks into the group's aggregate
-// in shared memory, written to out at the end. In train mode every activation is
-// multiplied by K1's multiplier, keyed on the pair id b*n*k + i*k + s. Its first
-// __syncthreads orders it after whatever filled sel and seld.
-template <bool kDrop>
-__device__ void knn_chain_stage(const float* __restrict__ u1, const float* __restrict__ u2m,
-                                const float* __restrict__ w_d, float* __restrict__ out, int b,
-                                int g0, int g_eff, int n, int h1, int k, int want_dists,
-                                const KnnPlan& p, const Chain& fe, float alpha, int sum_agg,
-                                Drop drop, const KnnSmem& sm) {
-  const int h_out = fe.dim[fe.n];
-  float* buf0 = sm.work;
-  float* buf1 = sm.work + p.buf0;
-  float* agg = sm.agg;
-  float* smask = sm.smask;
-  const float* seld = sm.seld;
-  const int* sel = sm.sel;
-  const float* u1b = u1 + ((size_t)b * n + g0) * h1;
-  const float* u2mb = u2m + (size_t)b * n * (h1 + 1);
-  for (int t = threadIdx.x; t < g_eff * h_out; t += kThreads) agg[t] = 0.f;
-
-  for (int ib = 0; ib < g_eff; ib += p.ti) {
-    const int ti_eff = min(p.ti, g_eff - ib);
-    const int rows = round_up(ti_eff * p.kc, kRowBlock);
-    for (int s0 = 0; s0 < k; s0 += p.kc) {
-      const int kc_eff = min(p.kc, k - s0);
-      if (kDrop) drop.base = (unsigned)(b * n + g0 + ib) * (unsigned)k + (unsigned)s0;
-      __syncthreads();  // sel and seld are filled, or the previous pass's reduction has finished
-      for (int r = threadIdx.x; r < rows; r += kThreads) {
-        const int ii = r / p.kc, ss = r - (r / p.kc) * p.kc;
-        float m = 0.f;
-        if (ii < ti_eff && ss < kc_eff)
-          m = u2mb[(size_t)sel[(ib + ii) * k + s0 + ss] * (h1 + 1) + h1];
-        smask[r] = m;
-      }
-      // layer 1, decomposed; row r = (receiver ii, rank ss); h fastest for coalesced reads
-      for (int t = threadIdx.x; t < rows * h1; t += kThreads) {
-        const int r = t / h1, h = t - (t / h1) * h1;
-        const int ii = r / p.kc, ss = r - (r / p.kc) * p.kc;
-        float v = 0.f;
-        if (ii < ti_eff && ss < kc_eff) {
-          const int e = (ib + ii) * k + s0 + ss;
-          float z = u1b[(size_t)(ib + ii) * h1 + h] + u2mb[(size_t)sel[e] * (h1 + 1) + h];
-          // product and sum rounded apart, as the plain version's z + dist * w_d: K6's
-          // recompute and the plain backward then see the same bits (see knn_edge_bwd.cu)
-          if (want_dists) z = __fadd_rn(z, __fmul_rn(seld[e], __ldg(w_d + h)));
-          v = leaky(z, alpha);
-          if (kDrop) v *= dropmul(drop, pair_id(drop, r), (unsigned)h, 0u);
-        }
-        buf0[h * p.ldr + r] = v;
-      }
-      float* src = buf0;
-      float* dst = buf1;
-      for (int l = 0; l < fe.n; ++l) {
-        __syncthreads();
-        const int K = fe.dim[l], M = fe.dim[l + 1];
-        dense_layer<kDrop>(src, p.ldr, dst, p.ldr, rows, K, M, fe.w[l], nullptr, K, fe.b[l], true,
-                           alpha, drop, (unsigned)(l + 1));
-        float* tmp = src;
-        src = dst;
-        dst = tmp;
-      }
-      __syncthreads();
-      // masked sum over this pass's ranks
-      for (int t = threadIdx.x; t < ti_eff * h_out; t += kThreads) {
-        const int ii = t / h_out, h = t - (t / h_out) * h_out;
-        const float* col = src + h * p.ldr + ii * p.kc;
-        const float* mk = smask + ii * p.kc;
-        float acc = 0.f;
-        for (int ss = 0; ss < kc_eff; ++ss) acc = fmaf(mk[ss], col[ss], acc);
-        agg[(ib + ii) * h_out + h] += acc;
-      }
-    }
-  }
-  __syncthreads();
-  const float denom = sum_agg ? 1.f : (float)k;
-  for (int t = threadIdx.x; t < g_eff * h_out; t += kThreads) {
-    const int r = t / h_out, h = t - (t / h_out) * h_out;
-    out[((size_t)b * n + g0 + r) * h_out + h] = agg[t] / denom;
-  }
-}
-
-// Choose the receiver group, the pass shape (fewest padded rows) and the buffer
-// sizes for a kernel that runs the search, the chain or both; shrink the pass
-// until the shared memory fits. Returns the bytes, or 0.
-size_t make_knn_plan(int n, int c, int k, const Chain& fe, bool search, bool chain, KnnPlan& p) {
-  p = KnnPlan{};
-  p.group = group_size(n);
-  p.ldn = round_up(n, 32);
-  const long long search_floats = search ? (long long)(c + 1 + kWarps) * p.ldn : 0;
-  const long long tail = 2LL * p.group * k;
-  if (!chain) {
-    p.work = round_up((int)search_floats, 4);
-    const long long floats = p.work + tail;
-    return floats * (long long)sizeof(float) <= (long long)kMaxSmemBytes
-               ? (size_t)floats * sizeof(float) : 0;
-  }
-  const int h_out = fe.dim[fe.n];
-  int even = 0, odd = 0;
-  for (int l = 0; l <= fe.n; ++l) {
-    int& w = (l % 2 == 0) ? even : odd;
-    w = fe.dim[l] > w ? fe.dim[l] : w;
-  }
-  for (int max_rows = kMaxPassRows; max_rows >= kRowBlock; max_rows -= kRowBlock) {
-    choose_pass(k, p.group, max_rows, p.ti, p.kc);
-    // stride = rows + 4 floats: 16-byte aligned rows, and column walks spread over banks
-    p.ldr = round_up(p.ti * p.kc, kRowBlock) + 4;
-    p.buf0 = even * p.ldr;
-    const long long chain_floats = (long long)(even + odd) * p.ldr;
-    const long long work =
-        round_up((int)(chain_floats > search_floats ? chain_floats : search_floats), 4);
-    const long long floats = work + (long long)p.group * h_out + p.ldr + tail;
-    if (floats * (long long)sizeof(float) <= (long long)kMaxSmemBytes) {
-      p.work = (int)work;
-      return (size_t)floats * sizeof(float);
-    }
-  }
-  return 0;
+// K7: receivers a CTA, the jet's receivers split evenly into groups of at most
+// kMaxGroup.
+int group_size(int n) {
+  const int n_groups = (n + kMaxGroup - 1) / kMaxGroup;
+  return (n + n_groups - 1) / n_groups;
 }
 
 int knn_key_bits(int n) {
@@ -267,17 +62,275 @@ int knn_key_bits(int n) {
   return bits;
 }
 
-// The K1 parameters of a knn launch; `dropout` 0 leaves them unused.
-Drop knn_drop(int dropout, int seed, unsigned thr, float mult, const KnnPlan& p, int k) {
+// The search for receivers g0 .. g0 + g_eff of jet b, its scratch at work_off: the
+// jet's senders are staged transposed with their squared norms, then a warp takes
+// kSearchRecv receivers at a time: it computes their n keys into its own rows and
+// extracts their minima side by side, k times (lane-strided minimum,
+// __reduce_min_sync, the winner's key set to INT_MAX), so one receiver's latency
+// hides the other's. Keys are unique, so a pass removes exactly one sender, and
+// ties inside a truncation bucket break by index, as in the TPU kernels. Fills
+// sel [g_eff, k] (and seld with want_dists) and, where the pointers are not null,
+// idx_out and dists_out. The caller synchronizes the CTA before it reads sel or
+// reuses the scratch.
+__device__ void knn_search_stage(const float* __restrict__ xs, const float* __restrict__ xf,
+                                 int* __restrict__ idx_out, float* __restrict__ dists_out, int b,
+                                 int g0, int g_eff, int n, int c, int k, int self_loops,
+                                 int want_dists, int key_bits, int work_off, int sel_off,
+                                 int seld_off) {
+  constexpr int R = kSearchRecv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ldn = round_up(n, 32);
+  const float* xfb = xf + (size_t)b * n * c;
+  float* xft = smf(work_off);                       // [c + 1, ldn]
+  int* keys = smi(work_off + (c + 1) * ldn);        // [kWarps * R, ldn]
+  int* sel = smi(sel_off);
+  float* seld = smf(seld_off);
+  for (int t = threadIdx.x; t < n * c; t += kThreads) {
+    const int j = t / c, cc = t - j * c;
+    xft[cc * ldn + j] = xfb[t];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    float s = __fmul_rn(xft[j], xft[j]);
+    for (int cc = 1; cc < c; ++cc) {
+      const float v = xft[cc * ldn + j];
+      s = __fadd_rn(s, __fmul_rn(v, v));
+    }
+    xft[c * ldn + j] = s;
+  }
+  __syncthreads();
+  const int low = (1 << key_bits) - 1;
+  const int start = self_loops ? 0 : 1;
+  for (int base = warp * R; base < g_eff; base += kWarps * R) {
+    const float* xsi[R];
+    int* wkeys[R];
+    float sq1[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      // a slot past the group recomputes the group's last receiver into its own key
+      // row; nothing is extracted from it
+      xsi[q] = xs + ((size_t)b * n + g0 + min(base + q, g_eff - 1)) * c;
+      wkeys[q] = keys + (warp * R + q) * ldn;
+      sq1[q] = __fmul_rn(__ldg(xsi[q]), __ldg(xsi[q]));
+    }
+    for (int cc = 1; cc < c; ++cc) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const float v = __ldg(xsi[q] + cc);
+        sq1[q] = __fadd_rn(sq1[q], __fmul_rn(v, v));
+      }
+    }
+    for (int j = lane; j < n; j += 32) {
+      float d[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) d[q] = __fmul_rn(-2.f * __ldg(xsi[q]), xft[j]);
+      for (int cc = 1; cc < c; ++cc) {
+        const float x = xft[cc * ldn + j];
+#pragma unroll
+        for (int q = 0; q < R; ++q) d[q] = __fadd_rn(d[q], __fmul_rn(-2.f * __ldg(xsi[q] + cc), x));
+      }
+      const float sq2 = xft[c * ldn + j];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        float v = __fadd_rn(__fadd_rn(d[q], sq2), sq1[q]);
+        v = v > 0.f ? v : 0.f;
+        wkeys[q][j] = (__float_as_int(v) & ~low) | j;
+      }
+    }
+    __syncwarp();
+    for (int s = 0; s < k + start; ++s) {
+      int m[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) m[q] = INT_MAX;
+      for (int j = lane; j < n; j += 32) {
+#pragma unroll
+        for (int q = 0; q < R; ++q) m[q] = min(m[q], wkeys[q][j]);
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) m[q] = __reduce_min_sync(0xffffffffu, m[q]);
+      if (lane == 0) {
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          if (base + q >= g_eff) continue;
+          wkeys[q][m[q] & low] = INT_MAX;
+          if (s >= start) sel[(base + q) * k + s - start] = m[q] & low;
+        }
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int ii = base + q;
+      if (ii >= g_eff) break;
+      for (int s = lane; s < k; s += 32) {
+        const int j = sel[ii * k + s];
+        const size_t e = ((size_t)b * n + g0 + ii) * k + s;
+        if (idx_out != nullptr) idx_out[e] = j;
+        if (want_dists) {
+          // the exact distance of the selected edge: |xf[j] - xs[i] + 1e-12|
+          float sum = 0.f;
+          for (int cc = 0; cc < c; ++cc) {
+            const float diff = xft[cc * ldn + j] - __ldg(xsi[q] + cc) + 1e-12f;
+            sum = fmaf(diff, diff, sum);
+          }
+          const float dist = sqrtf(sum);
+          seld[ii * k + s] = dist;
+          if (dists_out != nullptr) dists_out[e] = dist;
+        }
+      }
+    }
+  }
+}
+
+// What a knn forward launch reads and writes besides the chain.
+struct KnnArgs {
+  const float* xs;  // K5: the receivers' and the senders' selection features [B, n, c]
+  const float* xf;
+  const int* idx;   // K8: the neighbours [B, n, k] and their distances (or null)
+  const float* dists;
+  const float* u1;   // [B, n, h1]
+  const float* u2m;  // [B, n, h1 + 1]: [u2 | mask]
+  const float* w_d;  // [h1], read with want_dists
+  float* out;        // [B, n, h_out]
+  int* idx_out;      // K5: idx and dists for a backward, or null
+  float* dists_out;
+  float* packed;     // scratch for the packed weights
+  int batch, n, c, h1, k, self_loops, want_dists, key_bits, sum_agg;
+  int blocks;        // items a jet: ceil(n / ti)
+  int sspan;         // K5: receivers a search covers at most
+  int off_sel, off_seld;  // K5: sel and seld [sspan, k]
+};
+
+// grid = the plan's CTAs, cooperative; dynamic shared memory as knn_fwd_layout lays it
+// out. kSearch: K5, else K8.
+template <bool kSearch>
+__global__ void __launch_bounds__(kThreads, 1)
+    knn_fwd_kernel(KnnArgs a, FwdPlan p, Chain fe, float alpha, int drop_on, Drop drop) {
+  const int L = fe.n, h1 = a.h1, hs = a.h1 + 1, h_out = fe.dim[L], n = a.n, k = a.k;
+  const LayerTab* tab = fwd_setup(a.packed, p, fe, fe, L);
+  const float denom = a.sum_agg ? 1.f : (float)k;  // the mean divides by k
+  const RowArrays row = fwd_rows(p);
+  PassInputs in{};
+  in.u1 = a.u1;
+  in.u2 = a.u2m;
+  in.w_d = a.want_dists ? a.w_d : nullptr;
+  in.alpha = alpha;
+  in.drop_on = drop_on != 0;
+  in.drop = drop;
+  Epilogue e = fwd_epilogue(p, row, alpha, drop_on != 0, drop);
+  SlabChain chain{};
+  PhaseClock clock;
+  MPGAN_PHASE_START(clock);
+  int seg_b = -1, seg_lo = 0, seg_hi = 0;  // K5: the jet and receivers that sel holds
+
+  const long long t_end = range_start(blockIdx.x + 1, p.items, gridDim.x);
+  for (long long t = range_start(blockIdx.x, p.items, gridDim.x); t < t_end; ++t) {
+    const int b = (int)(t / a.blocks), i0 = (int)(t - (long long)b * a.blocks) * p.ti;
+    const int ti_eff = min(p.ti, n - i0);
+    if constexpr (kSearch) {
+      if (b != seg_b || i0 >= seg_hi) {
+        // the receivers of jet b that this CTA's range holds from i0 on, at most sspan
+        const long long t_jet = min(t_end, (long long)(b + 1) * a.blocks);
+        seg_b = b;
+        seg_lo = i0;
+        seg_hi = min(min(n, i0 + a.sspan), (int)(t_jet - (long long)b * a.blocks) * p.ti);
+        __syncthreads();  // the last pass's tail is done with the region the search overwrites
+        knn_search_stage(a.xs, a.xf, a.idx_out, a.dists_out, b, seg_lo, seg_hi - seg_lo, n, a.c,
+                         k, a.self_loops, a.want_dists, a.key_bits, 0, a.off_sel, a.off_seld);
+        __syncthreads();  // sel and seld are complete
+        MPGAN_PHASE(clock, kPhaseSearch);
+      }
+    }
+    for (int s0 = 0; s0 < k; s0 += p.jc) {
+      const int kc_eff = min(p.jc, k - s0);
+      // knn rows: receiver i0 + ii x neighbour rank s0 + ss
+      for (int r = threadIdx.x; r < p.rows; r += kThreads) {
+        const int ii = r / p.rs, ss = r - ii * p.rs;
+        const bool real = ii < ti_eff && ss < kc_eff;
+        const int q = b * n + i0 + ii, s = s0 + ss;
+        int j = 0;
+        float dist = 0.f;
+        if (real) {
+          if constexpr (kSearch) {
+            const int at = (i0 + ii - seg_lo) * k + s;
+            j = smi(a.off_sel)[at];
+            if (a.want_dists) dist = smf(a.off_seld)[at];
+          } else {
+            const size_t at = (size_t)q * k + s;
+            j = min(max(__ldg(a.idx + at), 0), n - 1);
+            if (a.want_dists) dist = __ldg(a.dists + at);
+          }
+        }
+        const int sender = b * n + j;
+        smi(row.u1)[r] = real ? q * h1 : -1;
+        smi(row.u2)[r] = sender * hs;
+        smu(row.id)[r] = (unsigned)q * (unsigned)k + (unsigned)s;
+        smf(row.m)[r] = real ? __ldg(a.u2m + (size_t)sender * hs + h1) : 0.f;
+        smf(row.dist)[r] = dist;
+      }
+      const bool first = s0 == 0, last = s0 + p.jc >= k;
+      // the last product starts fe's first slab of this CTA's next pass
+      const int nxt = !last || t + 1 < t_end ? 0 : -1;
+      fwd_pass<false>(p, tab, L, h1, h_out, row, in, e, chain, ti_eff, kc_eff, 0, first, last,
+                      nxt, denom, a.out + (size_t)(b * n + i0) * h_out, clock);
+    }
+  }
+}
+
+// Checks a knn forward plan (ti receivers x kc ranks in buffers of `rows`, slabs of
+// slab_floats; K5: searches of at most sspan receivers) and lays out the shared
+// memory: the pass with the distance row array, for K5 the search's scratch inside
+// [0, off_slab) and sel, seld [sspan, k] after the rest. False where the kernel does
+// not run the plan or it does not fit.
+bool knn_fwd_layout(FwdPlan& p, KnnArgs& a, const Chain& fe, bool search) {
+  p.row_arrays = 5;
+  p.span = p.ti;
+  if (p.ti < 1 || p.ti > a.n || p.jc < 1 || p.jc > a.k) return false;
+  if (search && (a.sspan < p.ti || a.sspan > a.n || (a.sspan != a.n && a.sspan % p.ti != 0)))
+    return false;
+  const int nk = search ? a.sspan * a.k : 0;
+  if (!fwd_layout(p, fe, nullptr, search ? search_floats(a.n, a.c) : 0, 2 * nk)) return false;
+  a.off_sel = p.off_extra;
+  a.off_seld = p.off_extra + nk;
+  a.blocks = (a.n + p.ti - 1) / p.ti;
+  p.items = (long long)a.batch * a.blocks;
+  return true;
+}
+
+// Checks the caller's plan, lays out the shared memory and launches K5 (kSearch)
+// or K8. With `dropout`, K1 runs with seed in [0, 2^31), keep threshold `thr` and
+// multiplier `mult` as computed on the host (see Drop).
+template <bool kSearch>
+int launch_knn_fwd(KnnArgs a, const Chain& fe, float alpha, int dropout, int seed, unsigned thr,
+                   float mult, int ti, int kc, int rows, int grid, int slab_floats,
+                   void* stream) {
+  // offsets into u1, u2m and out are ints
+  const int widest = a.h1 + 1 > fe.dim[fe.n] ? a.h1 + 1 : fe.dim[fe.n];
+  if ((long long)a.batch * a.n * widest >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  FwdPlan p{};
+  p.rows = rows;
+  p.ti = ti;
+  p.jc = kc;
+  p.slab_floats = slab_floats;
+  if (!knn_fwd_layout(p, a, fe, kSearch) || grid < 1 || grid > p.items)
+    return (int)cudaErrorInvalidValue;
   Drop drop{};
   if (dropout) {
     drop.seed_key = (unsigned)seed * 0xC2B2AE3Du;
     drop.thr = thr;
     drop.mult = mult;
   }
-  drop.jc = p.kc;
-  drop.ns = k;
-  return drop;
+  a.key_bits = knn_key_bits(a.n);
+  const void* kernel = reinterpret_cast<const void*>(knn_fwd_kernel<kSearch>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  int drop_on = dropout != 0;
+  void* args[] = {&a, &p, const_cast<Chain*>(&fe), &alpha, &drop_on, &drop};
+  // cooperative: the CTAs meet at a grid-wide barrier after packing the weights
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, p.smem,
+                                    static_cast<cudaStream_t>(stream));
+  return (int)err;
 }
 
 }  // namespace

@@ -26,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_ext"
 SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu", "knn_fused.cu", "knn_edge_bwd.cu",
            "knn_search.cu", "knn_edge_aggregate.cu", "gapt_fused.cu")
-HEADERS = ("edge_common.cuh", "edge_products.cuh", "edge_bwd_common.cuh", "knn_stages.cuh")
+HEADERS = ("edge_common.cuh", "edge_products.cuh", "edge_fwd_common.cuh", "edge_bwd_common.cuh",
+           "knn_stages.cuh")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -132,8 +133,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mpgan_edge_bwd_wslab_floats.argtypes = [i, iarr, i]
     lib.mpgan_edge_bwd_wslab_floats.restype = i
     lib.mpgan_knn_fused_layer.argtypes = [
-        p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, parr, parr, iarr, f, i, i, i,
-        ctypes.c_uint, f, p,
+        p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, parr, parr, iarr, f, i, i, i,
+        ctypes.c_uint, f, i, i, i, i, i, i, p,
     ]
     lib.mpgan_knn_fused_layer.restype = i
     lib.mpgan_knn_edge_aggregate_bwd.argtypes = [
@@ -144,9 +145,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mpgan_knn_search.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.mpgan_knn_search.restype = i
     lib.mpgan_knn_edge_aggregate.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, parr, parr, iarr, f, i, i, i, ctypes.c_uint, f, p,
+        p, p, p, p, p, p, p, i, i, i, i, i, parr, parr, iarr, f, i, i, i, ctypes.c_uint, f,
+        i, i, i, i, i, p,
     ]
     lib.mpgan_knn_edge_aggregate.restype = i
+    lib.mpgan_knn_fwd_sizes.argtypes = [i, iarr] + [i] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.mpgan_knn_fwd_sizes.restype = i
     lib.mpgan_gapt_fused_plan.argtypes = [i, i, i, i, iarr, ctypes.POINTER(ctypes.c_longlong)]
     lib.mpgan_gapt_fused_plan.restype = i
     lib.mpgan_gapt_fused.argtypes = [p] * 12 + [i] * 6 + [f, p]

@@ -7,7 +7,8 @@ by an aggregate kernel fed with ``idx``:
 
 - ``knn_fused_layer`` (K5, ``csrc/knn_fused.cu``): per jet, the neighbour
   search, the sender gather, the edge MLP and the masked aggregation over the
-  ``k`` neighbours in one kernel::
+  ``k`` neighbours in one kernel (the search is K7's, the chain the forward
+  pass of K2 and K4)::
 
       d[i, j]   = (-2 xs[i] | 1) . (xf[j] | |xf[j]|^2) + |xs[i]|^2
       key[i, j] = bits(max(d, 0)) & ~(2^bits - 1) | j,   bits = max(8, bitlen(n - 1))
@@ -40,8 +41,8 @@ by an aggregate kernel fed with ``idx``:
   ``knn_select`` and ``knn_select_nm``; the latter's neighbour-major
   ``[B, k*NP8, 1]`` output is a TPU layout, here both stay ``[B, N, k]``.
   :class:`KnnSearch` carries the distances' gradient (plain torch).
-- ``knn_edge_aggregate`` (K8, ``csrc/knn_edge_aggregate.cu``): K5's chain stage
-  from a given ``idx`` (and ``dists``). Replaces the forwards of the three older
+- ``knn_edge_aggregate`` (K8, ``csrc/knn_edge_aggregate.cu``): K5 without the
+  search, from a given ``idx`` (and ``dists``). Replaces the forwards of the three older
   aggregate generations (``_fwd_impl``, ``_fwd_impl_v2``, ``_fwd_impl_v3``): one
   function with one dropout mask in three TPU row layouts. :class:`KnnEdgeAggregate`
   pairs it with K6, which is also those generations' backward.
@@ -52,20 +53,31 @@ sums taken in another order move a ``d`` by an ulp, and a key sits on a
 bucket edge once in a while. :func:`compare_neighbours` counts such rows and
 checks that the swapped senders' keys are within one bucket step.
 
-A wrapper runs the plain version for tensors on the CPU, and the kernel for
-tensors on a CUDA device; anything else raises. Launches are counted in
+K5 and K8 run on a persistent grid whose launch is planned here
+(:func:`knn_fwd_plan`: the pass, the items, the grid, K5's search span, the
+weight slabs), so that the planning is tested where there is no card. A wrapper
+runs the plain version for tensors on the CPU, and the kernel for tensors on a
+CUDA device; anything else raises. Launches are counted in
 ``mp_kernels.launch_counts``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+from typing import Sequence
+
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
 from .linear import _M32, dropout_threshold_mult
 from .mp_kernels import (
+    BWD_SLAB_FLOATS,
+    BWD_THREADS,
+    FWD_SLAB_FLOATS,
+    MAX_SMEM_BYTES,
     MAX_WIDTH,
     _chain_args,
     _chain_dims,
@@ -74,13 +86,16 @@ from .mp_kernels import (
     _dleaky,
     _dropmul,
     _flat_wgrads,
+    _fwd_rest_floats,
     _leaky,
     _on_cpu,
     _pairs,
+    _product_cost,
     _sm_count,
     bwd_packed_floats,
     bwd_wslab_floats,
     bwd_plan,
+    fwd_packed_floats,
     launch_counts,
 )
 
@@ -268,6 +283,136 @@ def knn_edge_aggregate_bwd_reference(u1, u2m, idx, dists, w_d, hidden_flat, g, a
 
 
 # ---------------------------------------------------------------------------
+# The forward kernels' plan (csrc/knn_stages.cuh checks it on the card)
+# ---------------------------------------------------------------------------
+
+KNN_ROW_ARRAYS = 5  # u1, u2, id, mask and the edge's distance
+SEARCH_RECEIVERS = 2  # receivers a warp takes through the search at once
+
+
+def knn_search_floats(n: int, c: int) -> int:
+    """Floats of the search's scratch: ``xf^T`` with the norms ``[c + 1, ldn]``
+    and 16 warps' key rows for ``SEARCH_RECEIVERS`` receivers each, ``ldn`` = n
+    rounded up to 32."""
+    return (c + 1 + (BWD_THREADS // 32) * SEARCH_RECEIVERS) * (-(-n // 32) * 32)
+
+
+def _knn_rest_floats(dims, rows, ti, n, c, k, sspan, search) -> int:
+    """A knn forward pass's shared memory but its weight slabs: the dense
+    forward's with the distance row array, K5's search scratch inside the region
+    before the slabs, and its neighbours and distances ``[sspan, k]`` after the rest."""
+    return (_fwd_rest_floats(dims, rows, ti, None, KNN_ROW_ARRAYS,
+                             knn_search_floats(n, c) if search else 0)
+            + (2 * sspan * k if search else 0))
+
+
+def knn_fwd_slab_floats(dims: Sequence[int], rows: int, ti: int, n: int, c: int, k: int,
+                        sspan: int, search: bool) -> int:
+    """Floats of each of the two weight slab buffers: the largest size that fits
+    beside the rest, else the least."""
+    rest = _knn_rest_floats(dims, rows, ti, n, c, k, sspan, search)
+    return next((s for s in FWD_SLAB_FLOATS if 4 * (rest + 2 * s) <= MAX_SMEM_BYTES),
+                BWD_SLAB_FLOATS)
+
+
+def knn_fwd_smem_bytes(dims: Sequence[int], rows: int, ti: int, n: int, c: int, k: int,
+                       sspan: int, search: bool) -> int:
+    """Shared memory of a K5 (``search``) or K8 launch at a pass of ``rows`` rows
+    and ``ti`` receivers, searches of at most ``sspan`` receivers."""
+    return 4 * (_knn_rest_floats(dims, rows, ti, n, c, k, sspan, search)
+                + 2 * knn_fwd_slab_floats(dims, rows, ti, n, c, k, sspan, search))
+
+
+@dataclasses.dataclass(frozen=True)
+class KnnFwdPlan:
+    """One launch of K5 or K8: a pass is ``ti`` receivers x ``kc`` neighbour
+    ranks in buffers of ``rows`` pair rows, a receiver taking ``rs = max(kc, 8)``
+    of them; an item is a block of ``ti`` receivers of one jet (``blocks`` a jet),
+    walked over the ranks in chunks of ``kc``; ``grid`` CTAs each walk a
+    contiguous range of the ``items``. K5 searches the receivers of a jet that a
+    CTA's range holds, at most ``sspan`` at a time (0: K8, no search). The two
+    weight slab buffers hold ``slab_floats`` each."""
+    ti: int
+    kc: int
+    rows: int
+    blocks: int
+    items: int
+    grid: int
+    sspan: int
+    slab_floats: int
+    smem_bytes: int
+
+    @property
+    def rs(self) -> int:
+        return max(self.kc, 8)
+
+    def item_range(self, cta: int) -> tuple[int, int]:
+        return cta * self.items // self.grid, (cta + 1) * self.items // self.grid
+
+    def item_receivers(self, item: int, n: int) -> tuple[int, range]:
+        """The jet of an item and its receivers in that jet."""
+        b, blk = divmod(item, self.blocks)
+        return b, range(blk * self.ti, min((blk + 1) * self.ti, n))
+
+    def pass_rows(self, item: int, s0: int, n: int, k: int) -> list[tuple[int, int, int, int, int]]:
+        """The real rows of an item's pass over the ranks from ``s0``, as the
+        kernel fills them: ``(row, jet, receiver, rank, K1 id mod 2**32)``."""
+        b, recv = self.item_receivers(item, n)
+        kc_eff = min(self.kc, k - s0)
+        out = []
+        for r in range(self.rows):
+            ii, ss = divmod(r, self.rs)
+            if ii < len(recv) and ss < kc_eff:
+                i, s = recv.start + ii, s0 + ss
+                out.append((r, b, i, s, ((b * n + i) * k + s) & _M32))
+        return out
+
+
+def knn_fwd_plan(batch: int, n: int, c: int, k: int, dims: Sequence[int], sms: int,
+                 search: bool = True) -> KnnFwdPlan:
+    """Plan a K5 (``search``) or K8 launch over ``batch`` jets of ``n``
+    particles with ``c`` selection features (unused without the search), ``k``
+    neighbours and the fe chain ``dims``, on a card with ``sms`` SMs: the pass
+    that gives the busiest CTA the least arithmetic among those that fit in
+    shared memory (ties: longer rank chunks, then more receivers a pass), and
+    K5's search over a whole jet where its neighbours fit, else over as many
+    blocks as do. Memoised per shape."""
+    return _knn_fwd_plan(batch, n, c, k, tuple(dims), sms, bool(search))
+
+
+@functools.lru_cache(maxsize=256)
+def _knn_fwd_plan(batch: int, n: int, c: int, k: int, dims: tuple, sms: int,
+                  search: bool) -> KnnFwdPlan:
+    best = None
+    for rows in (128, 64, 32):
+        per_pass = _product_cost(dims, rows) + rows * dims[0] // BWD_THREADS  # + a_0
+        for kc in range(1, min(k, rows) + 1):
+            rs = max(kc, 8)
+            if rs > rows:
+                continue
+            ti = min(rows // rs, n)
+            blocks = -(-n // ti)
+            spans = [n] + [m * ti for m in range(blocks - 1, 0, -1)] if search else [0]
+            fits = [s for s in spans
+                    if knn_fwd_smem_bytes(dims, rows, ti, n, c, k, s, search) <= MAX_SMEM_BYTES]
+            if not fits:
+                continue
+            sspan = fits[0]
+            items = batch * blocks
+            grid = min(sms, items)
+            key = (-(-items // grid) * -(-k // kc) * per_pass, -kc, -ti)
+            if best is None or key < best[0]:
+                best = (key, KnnFwdPlan(
+                    ti, kc, rows, blocks, items, grid, sspan,
+                    knn_fwd_slab_floats(dims, rows, ti, n, c, k, sspan, search),
+                    knn_fwd_smem_bytes(dims, rows, ti, n, c, k, sspan, search)))
+    if best is None:
+        raise ValueError(f"layer widths {list(dims)} at n={n} k={k} c={c} do not fit the knn "
+                         f"forward kernel's shared memory ({MAX_SMEM_BYTES} bytes)")
+    return best[1]
+
+
+# ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
@@ -328,6 +473,10 @@ def knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
     idx = torch.empty((b_sz, n, k), dtype=torch.int32, device=dev) if emit_idx else None
     dists = torch.empty((b_sz, n, k), dtype=torch.float32, device=dev) \
         if emit_idx and want_dists else None
+    plan = knn_fwd_plan(b_sz, n, c, k, dims, _sm_count(dev))
+    # the kernel's own copy of the weights, laid out for its products
+    packed = torch.empty((max(fwd_packed_floats(dims, plan.rows), 1),), dtype=torch.float32,
+                         device=dev)
     lib = _build.library()
     w, bias = _chain_args(pairs)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
@@ -336,9 +485,10 @@ def knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
     with torch.cuda.device(dev):
         code = lib.mpgan_knn_fused_layer(
             xs.data_ptr(), xf.data_ptr(), u1.data_ptr(), u2m.data_ptr(), ptr(w_d),
-            out.data_ptr(), ptr(idx), ptr(dists), b_sz, n, c, dims[0], k,
+            out.data_ptr(), ptr(idx), ptr(dists), packed.data_ptr(), b_sz, n, c, dims[0], k,
             int(bool(self_loops)), int(bool(want_dists)), len(pairs), w, bias, dim_arr,
             float(alpha), int(bool(sum_agg)), int(dropout_p > 0), int(seed), thr, mult,
+            plan.ti, plan.kc, plan.rows, plan.sspan, plan.grid, plan.slab_floats,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, name)
@@ -497,6 +647,10 @@ def knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float, sum_
                             **{f"hidden[{i}]": t for i, t in enumerate(hidden_flat)}},
                      hidden_flat[::2])
     out = torch.empty((b_sz, n, dims[-1]), dtype=torch.float32, device=u1.device)
+    k = idx.shape[2]
+    plan = knn_fwd_plan(b_sz, n, 0, k, dims, _sm_count(u1.device), search=False)
+    packed = torch.empty((max(fwd_packed_floats(dims, plan.rows), 1),), dtype=torch.float32,
+                         device=u1.device)
     lib = _build.library()
     w, bias = _chain_args(pairs)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
@@ -505,8 +659,9 @@ def knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float, sum_
     with torch.cuda.device(u1.device):
         code = lib.mpgan_knn_edge_aggregate(
             u1.data_ptr(), u2m.data_ptr(), idx.data_ptr(), ptr(dists), ptr(w_d), out.data_ptr(),
-            b_sz, n, h1, idx.shape[2], len(pairs), w, bias, dim_arr, float(alpha),
+            packed.data_ptr(), b_sz, n, h1, k, len(pairs), w, bias, dim_arr, float(alpha),
             int(bool(sum_agg)), int(dropout_p > 0), int(seed), thr, mult,
+            plan.ti, plan.kc, plan.rows, plan.grid, plan.slab_floats,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, name)

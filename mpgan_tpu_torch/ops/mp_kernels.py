@@ -455,21 +455,24 @@ class FwdPlan:
 
 
 def _fwd_rest_floats(dims: Sequence[int], rows: int, ti: int,
-                     fn_dims: Sequence[int] | None) -> int:
+                     fn_dims: Sequence[int] | None, row_arrays: int = FWD_ROW_ARRAYS,
+                     min_act: int = 0) -> int:
     """Shared memory of a forward pass but its weight slabs, in floats: one
     buffer as wide as the widest of a_0 .. a_{L-1} (the products write over their
     input, and the last layer's partial sums go there when it is large enough,
-    else to a region of their own), K2's aggregate of ``ti`` receivers or K4's
-    transposed ``[agg | x]`` rows that fn then runs on in place, the row arrays
-    and a table of the layers."""
+    else to a region of their own), K2's (and the knn kernels') aggregate of
+    ``ti`` receivers or K4's transposed ``[agg | x]`` rows that fn then runs on in
+    place, the region before the slabs at least ``min_act`` floats (K5: the
+    search's scratch), the row arrays and a table of the layers."""
     ldr = rows + 4
     width = max(dims[:-1]) if len(dims) > 1 else dims[0]
     if fn_dims:
         act = max([dims[-1] + width, *fn_dims]) * ldr
     else:
         act = width * ldr + -(-ti * dims[-1] // 4) * 4
+    act = max(act, -(-min_act // 4) * 4)
     part = 2 * (rows // 8) * dims[-1]
-    return act + FWD_ROW_ARRAYS * ldr + FWD_TAB_FLOATS + (part if part > width * ldr else 0)
+    return act + row_arrays * ldr + FWD_TAB_FLOATS + (part if part > width * ldr else 0)
 
 
 def fwd_slab_floats(dims: Sequence[int], rows: int, ti: int,

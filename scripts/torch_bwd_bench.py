@@ -32,7 +32,7 @@ import torch
 
 TOL = 1e-4
 PHASES = ("rows_a0", "fwd_hidden", "fwd_last", "wgrad", "da", "rebuild_a0", "tail",
-          "in_products_wait", "in_products_loop", "in_products_epilogue")
+          "in_products_wait", "in_products_loop", "in_products_epilogue", "search")
 
 
 def flat(res):
@@ -58,7 +58,7 @@ def phase_shares(build, fn_name):
     buf = (ctypes.c_ulonglong * len(PHASES))()
     torch.cuda.synchronize()
     build.check(fn(buf, 1), fn_name)
-    total = max(sum(buf[:7]), 1)  # the last three split the products' time again
+    total = max(sum(buf[:7]) + buf[10], 1)  # 7-9 split the products' time again
     return {name: round(v / total, 4) for name, v in zip(PHASES, buf)}
 
 

@@ -682,7 +682,67 @@ def test_knn_edge_aggregate_kernel_matches_plain_and_k5(dev, b, n, c, widths, k,
     ref = kk.knn_edge_aggregate_reference(d["u1"], d["u2m"], idx, dists, w_d, d["hidden"], 0.2,
                                           sum_agg, dropout_p, 777)
     torch.testing.assert_close(out, ref, **TOL)
-    assert torch.equal(out, out5)  # the fused layer's chain stage, from its own idx
+    assert torch.equal(out, out5)  # the fused layer without its search, on its own idx
+
+
+# pass shapes of the persistent knn forward kernels: item ranges that cross jets so a
+# CTA searches several (B=601), rs = 8 (k = 5), odd widths with the ranks over several
+# passes, and searches shorter than a jet (k = 149: the neighbours of 150 do not fit)
+KNN_FWD_PASS_SHAPES = [
+    (601, 150, 32, [96, 160, 192], 20), (37, 13, 8, [24, 16, 12], 5),
+    (3, 160, 5, [30, 50, 7], 140), (4, 150, 32, [96, 160, 192], 149),
+]
+
+
+@pytest.mark.parametrize("dropout_p,sum_agg,self_loops,want_dists", [
+    (0.0, True, True, False), (0.5, False, False, True), (0.5, True, True, True),
+    (0.0, False, False, False)])
+@pytest.mark.parametrize("b,n,c,widths,k", KNN_FWD_PASS_SHAPES)
+def test_knn_forward_pass_shapes_match_plain_twice(dev, b, n, c, widths, k, dropout_p, sum_agg,
+                                                   self_loops, want_dists):
+    """K5 against its plain version at every pass shape, two launches bit for bit,
+    K7's idx equal to K5's, and K8 on K5's idx equal to K5 bit for bit (one
+    forward pass, two row sources)."""
+    d = _knn_inputs(dev, b, n, c, widths, k, seed=b + n)
+    w_d = d["w_d"] if want_dists else None
+    args = (d["xs"], d["xf"], d["u1"], d["u2m"], w_d, d["hidden"], k, self_loops, want_dists, 0.2,
+            sum_agg, dropout_p, 2024)
+    before = dict(mk.launch_counts)
+    out, idx, dists = kk.knn_fused_layer(*args, True)
+    again, idx_again, dists_again = kk.knn_fused_layer(*args, True)
+    out_eval = kk.knn_fused_layer(*args)[0]
+    idx7, dists7 = kk.knn_search(d["xs"], d["xf"], k, self_loops, want_dists)
+    agg = (d["u1"], d["u2m"], idx, dists, w_d, d["hidden"], 0.2, sum_agg, dropout_p, 2024)
+    out8, out8_again = kk.knn_edge_aggregate(*agg), kk.knn_edge_aggregate(*agg)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["knn_fused_layer_train"] == before["knn_fused_layer_train"] + 2
+    assert mk.launch_counts["knn_edge_aggregate"] == before["knn_edge_aggregate"] + 2
+    ref, idx_ref, dists_ref = kk.knn_fused_layer_reference(*args, True)
+    assert torch.equal(idx, idx_ref) and torch.equal(idx7, idx)
+    torch.testing.assert_close(out, ref, **TOL)
+    for x in (again, out_eval, out8, out8_again):
+        assert torch.equal(x, out)
+    assert torch.equal(idx_again, idx)
+    if want_dists:
+        assert torch.equal(dists_again, dists) and torch.equal(dists7, dists)
+        live = torch.gather(d["mask"][:, None, :, 0].expand(-1, n, -1), 2, idx.long()) > 0
+        torch.testing.assert_close(dists[live], dists_ref[live], **TOL)
+    torch.testing.assert_close(out8, kk.knn_edge_aggregate_reference(*agg), **TOL)
+
+
+def test_knn_forward_plans_on_the_card_equal_the_launchers(dev):
+    """knn_fwd_plan's shared memory is the launcher's own layout, K5 and K8."""
+    lib = _build.library()
+    for b, n, c, widths, k in KNN_SHAPES + KNN_FWD_PASS_SHAPES + [
+            (160, 150, 32, [128, 256], 20), (2, 30, 4, [250, 255, 256, 249, 200], 20)]:
+        for search in (True, False):
+            plan = kk.knn_fwd_plan(b, n, c, k, widths, torch.cuda.get_device_properties(
+                dev).multi_processor_count, search)
+            smem = ctypes.c_longlong()
+            code = lib.mpgan_knn_fwd_sizes(len(widths) - 1, (ctypes.c_int * len(widths))(*widths),
+                                           b, n, c, k, int(search), plan.rows, plan.ti, plan.kc,
+                                           plan.sspan, plan.slab_floats, ctypes.byref(smem))
+            assert code == 0 and smem.value == plan.smem_bytes
 
 
 def test_knn_split_function_grads_match_the_fused_functions(dev):
@@ -832,3 +892,29 @@ def test_backward_kernels_build_and_run_with_phase_clocks(dev):
         assert shares["in_products_loop"] > 0 and shares["tail"] > 0, r
         assert (shares["wgrad"] > 0) == r["wgrads"], r
         assert abs(sum(list(shares.values())[:7]) - 1.0) < 1e-2, r
+
+
+def test_knn_forward_kernels_build_and_run_with_phase_clocks(dev):
+    """The ``-DMPGAN_PHASE_CLOCKS`` build of K5 and K8 (a process of its own): the
+    knn bench compiles, its kernels agree with their plain versions, and K5's
+    and K8's clocks fall into the phases of a pass, K5's search among them."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    script = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "torch_knn_bench.py"
+    run = subprocess.run([sys.executable, str(script), "--phases", "--reps", "1"],
+                         capture_output=True, text=True, timeout=900)
+    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
+    rows = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
+    timed = [r for r in rows if "kernel" in r]
+    assert len(timed) == 6 and rows[0]["phases"] is True
+    for r in timed:
+        assert r["agrees"] and r["two_runs_bit_identical"], r
+        if r["kernel"] == "knn_search":
+            continue
+        shares = r["phase_shares"]
+        assert shares["in_products_loop"] > 0 and shares["tail"] > 0, r
+        assert (shares["search"] > 0) == (r["kernel"] == "knn_fused_layer"), r
+        assert abs(sum(list(shares.values())[:4]) + shares["search"] - 1.0) < 1e-2, r
