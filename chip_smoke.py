@@ -96,8 +96,10 @@ Phases, each printed as it finishes:
     plain versions.
 
 16. the fused GAPT generator kernel (K9) against its plain version at the
-    default width (N=30 E=64, 4 heads, 4 layers): masked B=1024, unmasked, an odd
-    B=37, and N=150 B=128; rtol = atol = 1e-4, the mask column bit-identical;
+    default width (N=30 E=64, 4 heads, 4 layers): masked B=1024, unmasked, masked
+    B=37 and unmasked B=1023 (batches that end in a short item of fewer than the
+    4 jets an item holds), and N=150 B=128; rtol = atol = 1e-4, the mask column
+    bit-identical, and a second launch equal bit for bit;
 17. the GAPT generation path: 50,000 default GAPT jets through the ``gen`` CLI
     from a ``.pt`` written here (random weights from a seed), the K9 launch
     count equal to the number of batches; 8,192 jets through
@@ -1017,29 +1019,38 @@ def gapt_kernel_inputs(dev, g, b, masked, seed):
 
 
 def gapt_kernel_checks(gk, dev, from_args_dict):
-    """Phase 16: K9 against its plain version."""
+    """Phase 16: K9 against its plain version, and a rerun bit for bit, at the shapes that
+    are timed and that the main paths launch (B=4096 walks several items a CTA)."""
     from mpgan_tpu_torch.models.registry import build_suite
 
-    worst = 0.0
-    for n, b, masked in ((30, 1024, True), (30, 1024, False), (30, 37, True), (150, 128, True)):
+    worst, identical = 0.0, True
+    for n, b, masked in ((30, 1024, True), (30, 1024, False), (30, 37, True), (30, 1023, False),
+                         (30, 4096, True), (150, 128, True), (150, 512, True)):
         g = build_suite(from_args_dict({**GAPT, "num_hits": n})).generator(
             torch.Generator().manual_seed(n), device=dev)
         x, mask = gapt_kernel_inputs(dev, g, b, masked, seed=b)
         w = g.fused_weights()
+        plan = gk.gapt_plan(b, n, g.cfg.embed_dim, g.cfg.num_heads,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)
         with torch.no_grad():
             out = gk.gapt_g_fused(x, mask, w, g.cfg.num_heads, 0.2)
+            again = gk.gapt_g_fused(x, mask, w, g.cfg.num_heads, 0.2)
             torch.cuda.synchronize()
             ref = gk.gapt_g_fused_reference(x, mask, w, g.cfg.num_heads, 0.2)
         abs_err, rel_err, bad = errors(out, ref)
         mask_equal = (not masked) or torch.equal(out[..., -1], ref[..., -1])
+        same = torch.equal(out, again)
         log("gapt_kernel_check", kernel="gapt_g_fused", b=b, n=n, e=g.cfg.embed_dim,
-            heads=g.cfg.num_heads, layers=g.cfg.sab_layers, masked=masked, max_abs_err=abs_err,
-            max_rel_err=rel_err, out_of_tol=bad, mask_column_bit_identical=mask_equal)
-        if bad or not mask_equal or out.shape != ref.shape or not torch.isfinite(out).all():
-            raise SystemExit(f"gapt_g_fused disagrees with its plain version at b={b} n={n} "
-                             f"masked={masked}")
+            heads=g.cfg.num_heads, layers=g.cfg.sab_layers, masked=masked,
+            jets_an_item=plan.jets, items=plan.items, max_abs_err=abs_err, max_rel_err=rel_err,
+            out_of_tol=bad, mask_column_bit_identical=mask_equal, two_runs_bit_identical=same)
+        if bad or not mask_equal or not same or out.shape != ref.shape \
+                or not torch.isfinite(out).all():
+            raise SystemExit(f"gapt_g_fused disagrees with its plain version or with its rerun "
+                             f"at b={b} n={n} masked={masked}")
         worst = max(worst, abs_err)
-    return worst
+        identical &= same
+    return worst, identical
 
 
 def gapt_generation(mk, gen_cli, dev, card, from_args_dict):
@@ -1667,7 +1678,7 @@ def main() -> None:
     knn_step_ms, ktimes = knn_timings(kk, dev, from_args_dict, card)
 
     # 16-20. GAPT
-    gapt_err = gapt_kernel_checks(gk, dev, from_args_dict)
+    gapt_err, identical["gapt_g_fused"] = gapt_kernel_checks(gk, dev, from_args_dict)
     gapt_gen_launches = gapt_generation(mk, gen, dev, card, from_args_dict)
     step_check(dev, from_args_dict, card=GAPT, batch=16, phase="gapt_step_check")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1761,6 +1772,7 @@ def main() -> None:
         {"name": "gapt_g_fused", "route": "cuda", "source": "mpgan_tpu_torch/csrc/gapt_fused.cu",
          "replaces": REPLACES["gapt_g_fused"],
          "launches": gapt_gen_launches + gapt_train_launches, "max_abs_err": gapt_err,
+         "two_runs_bit_identical": identical["gapt_g_fused"],
          **{k: v for k, v in gtimes[1024].items() if not k.startswith("sdpa")},
          "ms_b4096": gtimes[4096]["ms"], "plain_ms_b4096": gtimes[4096]["plain_ms"],
          "bound_ms_b4096": gtimes[4096]["bound_ms"],

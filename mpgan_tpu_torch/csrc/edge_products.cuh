@@ -59,7 +59,11 @@ enum Phase {
   kPhaseProdWait,   // inside the products: waiting for a slab and its barrier
   kPhaseProdLoop,   // inside the products: the k loop
   kPhaseProdEpi,    // inside the products: the epilogue
-  kPhaseSearch,     // K5: the neighbour search (knn_stages.cuh)
+  kPhaseSearch,     // K5: the neighbour search (knn_stages.cuh); K7: the whole kernel
+  kPhaseSearchStage,   // the search's staging of the senders (thread 0, after its barrier)
+  kPhaseSearchKeys,    // warp clocks: the keys (and, where they are one loop, the selection)
+  kPhaseSearchSelect,  // warp clocks: the selection that follows the keys
+  kPhaseSearchOut,     // warp clocks: idx, dists and the neighbour arrays
   kPhaseCount
 };
 

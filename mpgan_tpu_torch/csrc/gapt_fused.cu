@@ -19,45 +19,95 @@
 // What bounds it: 2 * N * E * 5E FLOP of projections and 4 * N^2 * E of attention a
 // layer (5.9 MFLOP a jet at N = 30, E = 64, L = 4) against N * (E + F + 2) * 4 bytes of
 // input and output a jet: the FP32 FMA rate, by a factor of about 30 over the bytes.
-// The design:
-//   - the TPU kernel's jet-head packing (G = 128 / N jets in one block-diagonal
-//     [G N, G N] attention, for its 128 x 128 matrix unit, and a batch divisible by
-//     the block) is not carried over: a CTA owns one jet, any batch size runs, and
-//     each head's attention is its own N x N problem;
-//   - the jet's x [N, E] and qkv [N, 3E] stay in shared memory across all layers
-//     (N * (4E + 8) * 4 bytes: 31 KB at N = 30, 155 KB at N = 150, E = 64), so several
-//     jets share an SM at N = 30. The attention output overwrites the q columns of
-//     its own row (only that row's warp reads them), the FF output goes through the
-//     k columns. Where a jet does not fit (N > 206 at E = 64) qkv, and then x, live in
-//     a per-CTA scratch in device memory (L2 resident) and the CTAs stride over the
-//     jets: the same code through another pointer, so the whole gate N <= 512 runs;
-//   - the weights (80 KB a layer at E = 64) do not fit beside the activations. They
-//     arrive transposed ([in, out], stacked over layers) and are read through
-//     L1/L2 with 16-byte loads, neighbouring threads on neighbouring columns; a
-//     thread holds a 4 x 4 output tile, so 4 k-steps cost 4 weight loads and 4
-//     broadcast activation loads for 64 FMAs (2 x 4 tiles up to 32 particles, where
-//     4 x 4 would leave half the threads without a tile);
-//   - 256 threads a CTA up to 32 particles (several CTAs an SM), 1024 where a jet
-//     takes most of an SM's shared memory, 512 where qkv lives in device memory: on
-//     an H100 at 700 W, N = 150 B = 512 ran in 8.6 ms with 256 threads, 5.3 with 512
-//     and 4.3 with 1024; N = 30 B = 1024 in 0.84 ms with 4 x 4 tiles and 0.74 with 2 x 4;
-//   - attention: a warp per (query row, head). Each lane holds the scores of its
-//     senders j = lane, lane + 32, ... in registers (up to 16 at N = 512: no [N, N]
-//     buffer), max and sum go through warp shuffles, the normalized weights through
-//     a per-warp row of shared memory, and the weighted sum over v splits the lanes
-//     into (sender part, column) so v is read along its rows;
+//
+// The item path (gapt_item_kernel), for every size its plan admits (N <= 160 at
+// E = 64: every published size):
+//   - an item is G = max(1, 128 / ns) jets, ns = N rounded up to 4, their rows
+//     stacked (4 jets = 128 rows at N = 30, one jet of 160 rows at N = 150); a
+//     persistent grid of at most one CTA an SM walks a contiguous range of items
+//     computed from the indices alone (edge_products.cuh: range_start), so there
+//     is no partial wave, and a jet's arithmetic does not depend on its item:
+//     reruns, and a jet in any batch, give the same bits. Rows of jets past the
+//     batch and past N are zeros, computed and never stored;
+//   - activations are stored transposed in shared memory, x [E x ldr] and qkv
+//     [3E x ldr], ldr = rows + 4, for the whole item and all layers;
+//   - the four projections are products of the edge kernels' form (8 x TN
+//     register tiles of 512 threads, operands from shared memory, weight k-slabs
+//     copied by cp.async into two buffers, the next slab in flight, the next
+//     product's first slab started during the current one's last, across the
+//     attention and into the next item). The weights are read as the wrapper
+//     gets them ([in, out], rows contiguous), once an item and layer instead of
+//     once a jet. edge_products.cuh's product_tn is not used itself: its
+//     epilogues sum or scatter pair rows, these store qkv, add to x and take the
+//     FF's LeakyReLU, and its passes have 32, 64 or 128 rows where N = 150 needs
+//     160;
+//   - attention: a warp takes one (jet, head, 32 query rows) problem, a lane one
+//     query row. Every lane reads the same senders' k and v (a 128-bit broadcast
+//     of 4 senders from the transposed qkv), keeps its 32 scores in registers and
+//     runs the softmax online over chunks of 32 senders (running max and sum), so
+//     no shuffle, no [N, N] buffer and a bounded register count; the output
+//     overwrites the row's own q columns;
 //   - expf and tanhf, no fast-math forms, no tensor cores and no TF32: the result
 //     holds 1e-4 against the plain PyTorch version.
-
-#include <cuda_runtime.h>
+// The per-jet path (gapt_jet_kernel, the first design) runs the sizes the item plan
+// refuses: E not a multiple of 4, hd > 32, or rows whose products would need
+// more than 8 columns a thread (N > 160 at E = 64). A CTA owns one jet, reads the
+// weights through L1/L2, and a warp takes a (row, head) pair of the attention;
+// where a jet does not fit in shared memory, qkv and then x live in a per-CTA
+// device scratch.
 
 #include <cfloat>
 
+#include "edge_products.cuh"
+
 namespace {
 
-constexpr int kMaxSmemBytes = 227 * 1024;
 constexpr int kScratchCtas = 132 * 4;  // CTAs of a launch whose jets live in device memory
 constexpr float kNeg = 1e30f;
+
+// With -DMPGAN_PHASE_CLOCKS the kernel sums clock64() per phase into a device
+// array that mpgan_gapt_fused_phase_clocks reads: CTA phases (thread 0 after a
+// barrier) and, inside the attention, each warp's own time in its two stages
+// (lane 0), which split the attention phase. The build without the flag
+// carries none of it.
+enum GaptPhase {
+  kGaptQkv = 0,   // the qkv projection
+  kGaptOut,       // the attention's out projection (and its residual)
+  kGaptFf,        // the feed-forward projection (and its residual)
+  kGaptFc,        // the final FC, tanh and the stores
+  kGaptAttn,      // the attention
+  kGaptTail,      // loading a jet (or an item) and what no other phase holds
+  kGaptWait,      // inside the projections: waiting for a weight slab
+  kGaptScoreW,    // warp clocks: scores and softmax
+  kGaptSumW,      // warp clocks: the weighted sum over v
+  kGaptPhases
+};
+#ifdef MPGAN_PHASE_CLOCKS
+__device__ unsigned long long g_gapt_clocks[kGaptPhases];
+#define GAPT_CLOCK_START() long long gclk_ = clock64()
+#define GAPT_STAMP(ph)                                                              \
+  do {                                                                              \
+    __syncthreads();                                                                \
+    if (threadIdx.x == 0) {                                                         \
+      const long long now_ = clock64();                                             \
+      atomicAdd(&g_gapt_clocks[ph], (unsigned long long)(now_ - gclk_));            \
+      gclk_ = now_;                                                                 \
+    }                                                                               \
+  } while (0)
+#define GAPT_WARP_START() long long wclk_ = clock64()
+#define GAPT_WARP_STAMP(ph)                                                         \
+  do {                                                                              \
+    const long long now_ = clock64();                                               \
+    if ((threadIdx.x & 31) == 0)                                                    \
+      atomicAdd(&g_gapt_clocks[ph], (unsigned long long)(now_ - wclk_));            \
+    wclk_ = now_;                                                                   \
+  } while (0)
+#else
+#define GAPT_CLOCK_START()
+#define GAPT_STAMP(ph)
+#define GAPT_WARP_START()
+#define GAPT_WARP_STAMP(ph)
+#endif
 
 struct Weights {
   const float* in_wt;   // [L, E, 3E]
@@ -153,6 +203,7 @@ __device__ void attention(float* qkv, int ldq, int n, int e, int heads,
   const int parts = 32 / dl;
   constexpr int kWarps = kThreads / 32;
   float* p = pbuf + warp * ldp;
+  GAPT_WARP_START();
   for (int pair = warp; pair < n * heads; pair += kWarps) {
     const int h = pair / n, i = pair - (pair / n) * n;
     const float* q = qkv + (size_t)i * ldq + h * hd;
@@ -202,6 +253,7 @@ __device__ void attention(float* qkv, int ldq, int n, int e, int heads,
       if (j < n) p[j] = s[jj] / sum;
     }
     __syncwarp();
+    GAPT_WARP_STAMP(kGaptScoreW);
     float* o = qkv + (size_t)i * ldq + h * hd;  // over the row's own q columns
     for (int d0 = 0; d0 < hd; d0 += dl) {
       const int d = d0 + lane % dl;
@@ -212,15 +264,16 @@ __device__ void attention(float* qkv, int ldq, int n, int e, int heads,
       if (lane < dl && d < hd) o[d] = acc;
     }
     __syncwarp();  // p is reused by the warp's next pair
+    GAPT_WARP_STAMP(kGaptSumW);
   }
 }
 
-// grid.x CTAs stride over the jets. Dynamic shared memory: x [n, ldx] and qkv
+// The per-jet path. grid.x CTAs stride over the jets. Dynamic shared memory: x [n, ldx] and qkv
 // [n, ldq] unless they live in `scratch` (x_global / qkv_global), then the warps'
 // softmax rows [kThreads / 32, ldp].
 template <int kMaxJ, int kThreads, int kRT>
 __global__ void __launch_bounds__(kThreads)
-    gapt_fused_kernel(const float* __restrict__ x_in, const float* __restrict__ mask,
+    gapt_jet_kernel(const float* __restrict__ x_in, const float* __restrict__ mask,
                       float* __restrict__ out, Weights w, float* __restrict__ scratch, int batch,
                       int n, int e, int heads, int layers, int feat, float alpha, int x_global,
                       int qkv_global) {
@@ -235,6 +288,7 @@ __global__ void __launch_bounds__(kThreads)
   float* pbuf = smem + (x_global ? 0 : (size_t)n * ldx) + (qkv_global ? 0 : (size_t)n * ldq);
   const bool vec = (e & 3) == 0;
   const int fdim = feat + (mask != nullptr ? 1 : 0);
+  GAPT_CLOCK_START();
 
   for (int b = blockIdx.x; b < batch; b += gridDim.x) {
     const float* xb = x_in + (size_t)b * n * e;
@@ -244,6 +298,7 @@ __global__ void __launch_bounds__(kThreads)
       x[(size_t)i * ldx + (t - i * e)] = xb[t];
     }
     __syncthreads();
+    GAPT_STAMP(kGaptTail);
     for (int l = 0; l < layers; ++l) {
       const float* in_wt = w.in_wt + (size_t)l * e * 3 * e;
       const float* out_wt = w.out_wt + (size_t)l * e * e;
@@ -256,14 +311,17 @@ __global__ void __launch_bounds__(kThreads)
       else
         dense<kStore, false, kRT, kThreads>(x, ldx, n, e, in_wt, 3 * e, in_b, qkv, ldq, 0.f);
       __syncthreads();
+      GAPT_STAMP(kGaptQkv);
       attention<kMaxJ, kThreads>(qkv, ldq, n, e, heads, mb, pbuf, ldp);
       __syncthreads();
+      GAPT_STAMP(kGaptAttn);
       // x += attn . out_w^T + out_b; attn sits in the q columns
       if (vec)
         dense<kAccumulate, true, kRT, kThreads>(qkv, ldq, n, e, out_wt, e, out_b, x, ldx, 0.f);
       else
         dense<kAccumulate, false, kRT, kThreads>(qkv, ldq, n, e, out_wt, e, out_b, x, ldx, 0.f);
       __syncthreads();
+      GAPT_STAMP(kGaptOut);
       // x += leaky(x . ff_w^T + ff_b), through the k columns
       if (vec)
         dense<kLeaky, true, kRT, kThreads>(x, ldx, n, e, ff_wt, e, ff_b, qkv + e, ldq, alpha);
@@ -275,12 +333,14 @@ __global__ void __launch_bounds__(kThreads)
         x[(size_t)i * ldx + c] += qkv[(size_t)i * ldq + e + c];
       }
       __syncthreads();
+      GAPT_STAMP(kGaptFf);
     }
     float* ob = out + (size_t)b * n * fdim;
     dense<kTanh, false, kRT, kThreads>(x, ldx, n, e, w.fc_wt, feat, w.fc_b, ob, fdim, 0.f);
     if (mb != nullptr)
       for (int i = threadIdx.x; i < n; i += kThreads) ob[(size_t)i * fdim + feat] = mb[i] - 0.5f;
     __syncthreads();  // the next jet overwrites x
+    GAPT_STAMP(kGaptFc);
   }
 }
 
@@ -307,17 +367,454 @@ Placement place(int n, int e) {
 }
 
 template <int kMaxJ, int kThreads, int kRT>
-int launch(const float* x, const float* mask, float* out, const Weights& w, float* scratch,
+int launch_jet(const float* x, const float* mask, float* out, const Weights& w, float* scratch,
            int batch, int n, int e, int heads, int layers, int feat, float alpha,
            const Placement& pl, int grid, void* stream) {
   cudaError_t err =
-      cudaFuncSetAttribute(gapt_fused_kernel<kMaxJ, kThreads, kRT>,
+      cudaFuncSetAttribute(gapt_jet_kernel<kMaxJ, kThreads, kRT>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (err != cudaSuccess) return (int)err;
-  gapt_fused_kernel<kMaxJ, kThreads, kRT>
+  gapt_jet_kernel<kMaxJ, kThreads, kRT>
       <<<grid, kThreads, pl.smem, static_cast<cudaStream_t>(stream)>>>(
           x, mask, out, w, scratch, batch, n, e, heads, layers, feat, alpha, pl.x_global,
           pl.qkv_global);
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// The item path
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxTn = 8;        // columns of a thread's product tile, at most
+constexpr int kMaxHd = 32;       // head width the attention's registers hold, at most
+constexpr int kChunk = 32;       // senders of an online-softmax chunk
+
+// An item's layout and its products' thread grid. Offsets in floats.
+struct ItemShape {
+  int ns;         // a jet's row stride: n rounded up to 4
+  int jets;       // jets an item
+  int rows;       // the item's rows: jets * ns rounded up to 32
+  int ldr;        // rows + 4
+  int row_warps;  // rows / 32
+  int ct;         // column threads of a product: 8 * (16 / row_warps)
+  int slab;       // floats in each of the two weight slab buffers
+  int off_qkv, off_mb, off_slab;
+  size_t smem;
+};
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Rows of a product's k-slab: the slab's capacity in rows of M, evened out over the
+// slabs that K takes.
+__host__ __device__ __forceinline__ int slab_rows(int K, int M, int slab) {
+  const int most = slab / M;
+  return cdiv(K, cdiv(K, most));
+}
+
+// Fills the layout for `jets` jets of n particles in `rows` rows with slabs of
+// `slab` floats; false where the item path does not run it.
+bool item_shape(ItemShape& s, int n, int e, int heads, int jets, int rows, int slab) {
+  s.ns = round_up(n, 4);
+  s.jets = jets;
+  s.rows = rows;
+  if (e % 4 != 0 || e / heads > kMaxHd || jets < 1 || rows % 32 != 0 || rows > 512 ||
+      jets * s.ns > rows || rows - jets * s.ns >= 32)
+    return false;
+  s.ldr = rows + 4;
+  s.row_warps = rows / 32;
+  s.ct = 8 * (kWarps / s.row_warps);
+  s.slab = slab;
+  if (cdiv(3 * e, s.ct) > kMaxTn || slab % 4 != 0 || slab < 12 * e) return false;
+  s.off_qkv = e * s.ldr;
+  s.off_mb = 4 * e * s.ldr;
+  s.off_slab = s.off_mb + s.ldr;
+  s.smem = (size_t)(s.off_slab + 2 * slab) * sizeof(float);
+  return s.smem <= (size_t)kMaxSmemBytes;
+}
+
+enum ProductEpilogue {
+  kEpiStoreT = 0,  // C[c][r] = acc + bias[c]
+  kEpiAddT,        // C[c][r] += acc + bias[c]
+  kEpiLeakyAddT    // C[c][r] += leaky(acc + bias[c])
+};
+
+// The next product's first slab, to start during this product's last one.
+struct NextSlab {
+  const float* w;
+  int floats;
+};
+
+__device__ __forceinline__ NextSlab first_slab(const float* w, int K, int M, int slab) {
+  return NextSlab{w, slab_rows(K, M, slab) * M};
+}
+
+// The column of a thread's tile column j (of TN) on CT column threads: the first
+// 4 * (TN / 4) as groups of 4 neighbouring columns, then a pair, then one, each
+// group laid over all column threads, so that a k-step reads a thread's weights
+// from a row-major slab with a 128-bit load a group of 4 and at most one 64-bit
+// and one 32-bit load (edge_products.cuh packs its weights into that order; here
+// the columns follow it).
+template <int TN>
+__device__ __forceinline__ int group_col(int j, int ct, int CT) {
+  constexpr int n4 = TN / 4, n2 = (TN % 4) / 2;
+  if (j < 4 * n4) return 4 * ((j / 4) * CT + ct) + j % 4;
+  if (j < 4 * n4 + 2 * n2) return 4 * n4 * CT + 2 * ct + (j - 4 * n4);
+  return (4 * n4 + 2 * n2) * CT + ct;
+}
+
+// acc = A [rows x K] . W [K x M] over the item's rows, then the epilogue into C;
+// A and C transposed in shared memory ([K x ldr], [M x ldr]), W row-major in
+// device memory, copied k-slab by k-slab into the two slab buffers. A thread
+// holds 8 rows x TN columns: the warps form (rows / 32) x (16 / that) row and
+// column groups, 4 row groups of 8 rows by 8 column threads a warp. `buf` holds
+// (staged) or is to hold this product's first slab; `next`, if its w is not null,
+// is started during the last slab. Returns the buffer of the slab after the last.
+// The first slab's barrier makes the previous phase's writes visible; with
+// in_place every thread's k loop ends before the epilogue, so C may be A. Ends
+// without a barrier.
+template <int TN>
+__device__ __noinline__ int item_product(ItemShape sh, int a_off, int K,
+                                         const float* __restrict__ W, int M,
+                                         const float* __restrict__ bias, int c_off, int mode,
+                                         float alpha, int buf, bool staged, NextSlab next,
+                                         bool in_place) {
+  constexpr int n4 = TN / 4, n2 = (TN % 4) / 2, n1 = TN % 2;
+  const float* A = smf(a_off);
+  float* C = smf(c_off);
+  float* slabs = smf(sh.off_slab);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = sh.row_warps, CT = sh.ct, ldr = sh.ldr;
+  const bool active = warp < rw * (kWarps / rw);
+  const int r0 = (warp % rw) * 32 + (lane >> 3) * 8;
+  const int ct = (warp / rw) * 8 + (lane & 7);
+  const int ks = slab_rows(K, M, sh.slab), n_slab = cdiv(K, ks);
+  // each group's offset in a slab row; a group past M reads column 0 instead (its
+  // values are never stored)
+  int o4[n4 > 0 ? n4 : 1], o2 = 0, o1 = 0;
+#pragma unroll
+  for (int q = 0; q < n4; ++q) {
+    const int c = group_col<TN>(4 * q, ct, CT);
+    o4[q] = c + 3 < M ? c : 0;
+  }
+  if (n2) {
+    const int c = group_col<TN>(4 * n4, ct, CT);
+    o2 = c + 1 < M ? c : 0;
+  }
+  if (n1) {
+    const int c = group_col<TN>(TN - 1, ct, CT);
+    o1 = c < M ? c : 0;
+  }
+  float acc[8][TN], bc[TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < TN; ++j) bc[j] = __ldg(bias + min(group_col<TN>(j, ct, CT), M - 1));
+
+  if (!staged) {
+    __syncthreads();  // the previous phase is done with the slab buffers
+    stage_slab(slabs + buf * sh.slab, W, ks * M);
+  }
+  for (int s = 0; s < n_slab; ++s) {
+    const int k0 = s * ks, ks_eff = min(ks, K - k0);
+#ifdef MPGAN_PHASE_CLOCKS
+    const long long t_wait = clock64();
+#endif
+    __pipeline_wait_prior(0);
+    __syncthreads();  // slab s has landed for everyone; the other buffer is free
+#ifdef MPGAN_PHASE_CLOCKS
+    if (threadIdx.x == 0)
+      atomicAdd(&g_gapt_clocks[kGaptWait], (unsigned long long)(clock64() - t_wait));
+#endif
+    float* other = slabs + ((buf + s + 1) & 1) * sh.slab;
+    if (s + 1 < n_slab)
+      stage_slab(other, W + (size_t)(k0 + ks) * M, min(ks, K - k0 - ks) * M);
+    else if (next.w != nullptr)
+      stage_slab(other, next.w, next.floats);
+    if (active) {
+      const float* wrow = slabs + ((buf + s) & 1) * sh.slab;
+      const float* ap = A + (size_t)k0 * ldr + r0;
+#pragma unroll 4
+      for (int kk = 0; kk < ks_eff; ++kk, ap += ldr, wrow += M) {
+        const float4 a0 = *reinterpret_cast<const float4*>(ap);
+        const float4 a1 = *reinterpret_cast<const float4*>(ap + 4);
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        float w[TN];
+#pragma unroll
+        for (int q = 0; q < n4; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(wrow + o4[q]);
+          w[4 * q] = v.x, w[4 * q + 1] = v.y, w[4 * q + 2] = v.z, w[4 * q + 3] = v.w;
+        }
+        if constexpr (n2 > 0) {
+          const float2 v = *reinterpret_cast<const float2*>(wrow + o2);
+          w[4 * n4] = v.x, w[4 * n4 + 1] = v.y;
+        }
+        if constexpr (n1 > 0) w[TN - 1] = wrow[o1];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+      }
+    }
+  }
+  if (in_place) __syncthreads();  // every thread is done with A, which C overwrites
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = group_col<TN>(j, ct, CT);
+      if (c >= M) continue;
+#pragma unroll
+      for (int i0 = 0; i0 < 8; i0 += 4) {
+        float4* dst = reinterpret_cast<float4*>(C + (size_t)c * ldr + r0 + i0);
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = acc[i0 + i][j] + bc[j];
+        if (mode != kEpiStoreT) {
+          const float4 p = *dst;
+          const float old[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            v[i] = old[i] + (mode == kEpiLeakyAddT ? leaky(v[i], alpha) : v[i]);
+        }
+        *dst = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+  return (buf + n_slab) & 1;
+}
+
+// The product at the tile width its M needs on this item's rows (8 rows a thread;
+// 4 x 4 tiles for the 64-wide projections read less of shared memory a FMA than
+// 8 x 2, but ran slower on an H100, and a split-TF32 tensor-core form of the
+// products was no faster: PERF.md).
+__device__ int item_product_at(ItemShape sh, int a_off, int K, const float* W, int M,
+                               const float* bias, int c_off, int mode, float alpha, int buf,
+                               bool staged, NextSlab next) {
+  const bool in_place = a_off == c_off;
+#define MPGAN_ITEM_PRODUCT_CASE(TN)                                                            \
+  case TN:                                                                                     \
+    return item_product<TN>(sh, a_off, K, W, M, bias, c_off, mode, alpha, buf, staged, next,    \
+                               in_place);
+  switch (cdiv(M, sh.ct)) {
+    MPGAN_ITEM_PRODUCT_CASE(1)
+    MPGAN_ITEM_PRODUCT_CASE(2)
+    MPGAN_ITEM_PRODUCT_CASE(3)
+    MPGAN_ITEM_PRODUCT_CASE(4)
+    MPGAN_ITEM_PRODUCT_CASE(5)
+    MPGAN_ITEM_PRODUCT_CASE(6)
+    MPGAN_ITEM_PRODUCT_CASE(7)
+    MPGAN_ITEM_PRODUCT_CASE(8)
+  }
+#undef MPGAN_ITEM_PRODUCT_CASE
+  return buf;
+}
+
+// One chunk of up to kChunk senders (c0 ...) for a lane's query row `ir`: its
+// scores, the online softmax's running max m and sum l, and the weighted sum
+// over v into acc. kExact: hd == kHd; kFull: the chunk holds kChunk senders, all
+// inside the jet's rows. Fixed loop lengths let the compiler interleave the
+// independent chains (a score per sender, a sum per column).
+template <int kHd, bool kExact, bool kFull>
+__device__ __forceinline__ void attend_chunk(const float* __restrict__ q,
+                                             const float* __restrict__ kt,
+                                             const float* __restrict__ vt,
+                                             const float* __restrict__ mb, int ldr, int ir, int c0,
+                                             int groups, int n, int hd, float scale, float& m,
+                                             float& l, float (&acc)[kHd]) {
+  GAPT_WARP_START();
+  float sc[kChunk];
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) sc[j] = 0.f;
+#pragma unroll
+  for (int d = 0; d < kHd; ++d) {
+    if (!kExact && d >= hd) break;
+    const float qd = q[(size_t)d * ldr + ir];
+    const float* kr = kt + (size_t)d * ldr + c0;
+#pragma unroll
+    for (int q4 = 0; q4 < kChunk / 4; ++q4) {
+      if (!kFull && q4 >= groups) break;
+      const float4 k4 = *reinterpret_cast<const float4*>(kr + 4 * q4);
+      sc[4 * q4] = fmaf(qd, k4.x, sc[4 * q4]);
+      sc[4 * q4 + 1] = fmaf(qd, k4.y, sc[4 * q4 + 1]);
+      sc[4 * q4 + 2] = fmaf(qd, k4.z, sc[4 * q4 + 2]);
+      sc[4 * q4 + 3] = fmaf(qd, k4.w, sc[4 * q4 + 3]);
+    }
+  }
+  float cm = -FLT_MAX;
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) {
+    if (c0 + j < n) {
+      sc[j] = sc[j] * scale + mb[c0 + j];
+      cm = fmaxf(cm, sc[j]);
+    }
+  }
+  const float mn = fmaxf(m, cm), corr = expf(m - mn);
+  m = mn;
+  l *= corr;
+#pragma unroll
+  for (int d = 0; d < kHd; ++d) acc[d] *= corr;
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) {
+    sc[j] = c0 + j < n ? expf(sc[j] - m) : 0.f;
+    l += sc[j];
+  }
+  GAPT_WARP_STAMP(kGaptScoreW);
+#pragma unroll
+  for (int q4 = 0; q4 < kChunk / 4; ++q4) {
+    if (!kFull && q4 >= groups) break;
+#pragma unroll
+    for (int d = 0; d < kHd; ++d) {
+      if (!kExact && d >= hd) break;
+      const float4 v4 = *reinterpret_cast<const float4*>(vt + (size_t)d * ldr + c0 + 4 * q4);
+      float a = fmaf(sc[4 * q4], v4.x, acc[d]);
+      a = fmaf(sc[4 * q4 + 1], v4.y, a);
+      a = fmaf(sc[4 * q4 + 2], v4.z, a);
+      acc[d] = fmaf(sc[4 * q4 + 3], v4.w, a);
+    }
+  }
+  GAPT_WARP_STAMP(kGaptSumW);
+}
+
+// Every (jet, head, 32 query rows) problem of the item: a warp a problem, a lane a
+// query row. Scores of a chunk of 32 senders sit in the lane's registers, 4
+// senders a 128-bit load that every lane shares; the softmax runs online over the
+// chunks and the weighted sum accumulates in registers (kHd >= hd columns; kExact:
+// hd == kHd). The output overwrites the row's own q columns, which no other lane
+// reads.
+template <int kHd, bool kExact>
+__device__ __noinline__ void item_attention(ItemShape sh, int n, int e, int heads) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hd = e / heads, ldr = sh.ldr, ns = sh.ns;
+  const int qchunks = cdiv(n, 32);
+  const float scale = 1.f / sqrtf((float)hd);
+  for (int prob = warp; prob < sh.jets * heads * qchunks; prob += kWarps) {
+    const int qc = prob % qchunks, h = (prob / qchunks) % heads, g = prob / (qchunks * heads);
+    const int row0 = g * ns, i = qc * 32 + lane;
+    const int ir = row0 + min(i, n - 1);
+    float* q = smf(sh.off_qkv) + (size_t)h * hd * ldr;
+    const float* kt = smf(sh.off_qkv) + (size_t)(e + h * hd) * ldr + row0;
+    const float* vt = smf(sh.off_qkv) + (size_t)(2 * e + h * hd) * ldr + row0;
+    const float* mb = smf(sh.off_mb) + row0;
+    float acc[kHd];
+#pragma unroll
+    for (int d = 0; d < kHd; ++d) acc[d] = 0.f;
+    float m = -FLT_MAX, l = 0.f;
+    for (int c0 = 0; c0 < ns; c0 += kChunk) {
+      const int groups = min(kChunk, ns - c0) / 4;  // of 4 senders, all inside the jet's rows
+      if (groups == kChunk / 4)
+        attend_chunk<kHd, kExact, true>(q, kt, vt, mb, ldr, ir, c0, groups, n, hd, scale, m, l,
+                                        acc);
+      else
+        attend_chunk<kHd, kExact, false>(q, kt, vt, mb, ldr, ir, c0, groups, n, hd, scale, m, l,
+                                         acc);
+    }
+    if (i < n) {
+#pragma unroll
+      for (int d = 0; d < kHd; ++d) {
+        if (!kExact && d >= hd) break;
+        q[(size_t)d * ldr + row0 + i] = acc[d] / l;
+      }
+    }
+  }
+}
+
+// The item path. grid CTAs (at most one an SM) each walk the contiguous range of
+// items range_start gives. Dynamic shared memory as item_shape lays it out.
+__global__ void __launch_bounds__(kThreads, 1)
+    gapt_item_kernel(const float* __restrict__ x_in, const float* __restrict__ mask,
+                     float* __restrict__ out, Weights w, ItemShape sh, int batch, int n, int e,
+                     int heads, int layers, int feat, float alpha) {
+  const int ldr = sh.ldr, fdim = feat + (mask != nullptr ? 1 : 0);
+  const long long items = cdiv(batch, sh.jets);
+  const long long t_end = range_start(blockIdx.x + 1, items, gridDim.x);
+  float* x = smf(0);
+  float* mb = smf(sh.off_mb);
+  const int M3 = 3 * e;
+  int buf = 0;
+  bool staged = false;
+  GAPT_CLOCK_START();
+  for (long long t = range_start(blockIdx.x, items, gridDim.x); t < t_end; ++t) {
+    const long long b0 = t * sh.jets;
+    // x^T and the senders' mask bias; rows past N or past the batch are zeros
+    for (int q = threadIdx.x; q < sh.rows * e; q += kThreads) {
+      const int r = q / e, c = q - r * e, g = r / sh.ns, i = r - g * sh.ns;
+      const long long b = b0 + g;
+      const bool real = g < sh.jets && i < n && b < batch;
+      x[(size_t)c * ldr + r] = real ? __ldg(x_in + ((size_t)b * n + i) * e + c) : 0.f;
+    }
+    for (int r = threadIdx.x; r < sh.rows; r += kThreads) {
+      const int g = r / sh.ns, i = r - g * sh.ns;
+      const long long b = b0 + g;
+      const bool real = g < sh.jets && i < n && b < batch;
+      mb[r] = real && mask != nullptr ? (__ldg(mask + (size_t)b * n + i) - 1.f) * kNeg : 0.f;
+    }
+    GAPT_STAMP(kGaptTail);
+    for (int l = 0; l < layers; ++l) {
+      const float* in_wt = w.in_wt + (size_t)l * e * M3;
+      const float* out_wt = w.out_wt + (size_t)l * e * e;
+      const float* ff_wt = w.ff_wt + (size_t)l * e * e;
+      // after the last layer's FF, the next item's first qkv slab, if there is one
+      const bool more = l + 1 < layers || t + 1 < t_end;
+      const NextSlab after_ff = more ? first_slab(l + 1 < layers ? in_wt + (size_t)e * M3 : w.in_wt,
+                                                  e, M3, sh.slab)
+                                     : NextSlab{nullptr, 0};
+      buf = item_product_at(sh, 0, e, in_wt, M3, w.in_b + (size_t)l * M3, sh.off_qkv, kEpiStoreT,
+                            0.f, buf, staged, first_slab(out_wt, e, e, sh.slab));
+      GAPT_STAMP(kGaptQkv);
+      __syncthreads();  // qkv is complete
+      switch (e / heads) {
+        case 16: item_attention<16, true>(sh, n, e, heads); break;
+        case kMaxHd: item_attention<kMaxHd, true>(sh, n, e, heads); break;
+        default:
+          if (e / heads < 16)
+            item_attention<16, false>(sh, n, e, heads);
+          else
+            item_attention<kMaxHd, false>(sh, n, e, heads);
+      }
+      GAPT_STAMP(kGaptAttn);
+      // x += attn . out_w^T + out_b; attn sits in the q columns
+      buf = item_product_at(sh, sh.off_qkv, e, out_wt, e, w.out_b + (size_t)l * e, 0, kEpiAddT,
+                            0.f, buf, true, first_slab(ff_wt, e, e, sh.slab));
+      GAPT_STAMP(kGaptOut);
+      buf = item_product_at(sh, 0, e, ff_wt, e, w.ff_b + (size_t)l * e, 0, kEpiLeakyAddT, alpha,
+                            buf, true, after_ff);
+      GAPT_STAMP(kGaptFf);
+      staged = more;
+    }
+    __syncthreads();  // x is final
+    // y = tanh(x . fc_w^T + fc_b) and the mask column, for the real rows
+    for (int q = threadIdx.x; q < sh.jets * n * fdim; q += kThreads) {
+      const int g = q / (n * fdim), rem = q - g * n * fdim, i = rem / fdim, f = rem - i * fdim;
+      const long long b = b0 + g;
+      if (b >= batch) continue;
+      const int r = g * sh.ns + i;
+      float v;
+      if (f < feat) {
+        float a = 0.f;
+        for (int k = 0; k < e; ++k)
+          a = fmaf(x[(size_t)k * ldr + r], __ldg(w.fc_wt + (size_t)k * feat + f), a);
+        v = tanhf(a + __ldg(w.fc_b + f));
+      } else {
+        v = __ldg(mask + (size_t)b * n + i) - 0.5f;
+      }
+      out[((size_t)b * n + i) * fdim + f] = v;
+    }
+    __syncthreads();  // the next item overwrites x
+    GAPT_STAMP(kGaptFc);
+  }
+}
+
+int launch_items(const float* x, const float* mask, float* out, const Weights& w,
+                 const ItemShape& sh, int batch, int n, int e, int heads, int layers, int feat,
+                 float alpha, int grid, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(gapt_item_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)sh.smem);
+  if (err != cudaSuccess) return (int)err;
+  gapt_item_kernel<<<grid, kThreads, sh.smem, static_cast<cudaStream_t>(stream)>>>(
+      x, mask, out, w, sh, batch, n, e, heads, layers, feat, alpha);
   return (int)cudaGetLastError();
 }
 
@@ -329,8 +826,8 @@ bool valid(int batch, int n, int e, int heads) {
 
 extern "C" {
 
-// The CTAs a launch uses and the floats of device scratch it needs (0 when a jet's
-// activations fit in shared memory). Returns 0, or cudaErrorInvalidValue.
+// The per-jet path: the CTAs a launch uses and the floats of device scratch it
+// needs (0 when a jet's activations fit in shared memory). Returns 0, or cudaErrorInvalidValue.
 int mpgan_gapt_fused_plan(int batch, int n, int e, int heads, int* grid,
                           long long* scratch_floats) {
   if (!valid(batch, n, e, heads)) return (int)cudaErrorInvalidValue;
@@ -341,27 +838,66 @@ int mpgan_gapt_fused_plan(int batch, int n, int e, int heads, int* grid,
   return 0;
 }
 
+// Shared memory (bytes) of an item-path launch for `jets` jets of n particles in
+// `rows` rows with slabs of `slab_floats`, into *smem; -1 where the item path does
+// not run it. Only the card tests call it, to hold gapt_kernels.gapt_plan to the
+// launcher's layout.
+int mpgan_gapt_item_smem(int n, int e, int heads, int jets, int rows, int slab_floats,
+                         long long* smem) {
+  ItemShape sh;
+  if (n < 1 || n > 512 || heads < 1 || e % heads != 0 ||
+      !item_shape(sh, n, e, heads, jets, rows, slab_floats))
+    return -1;
+  *smem = (long long)sh.smem;
+  return 0;
+}
+
 // K9. x [batch, n, e]; mask [batch, n] (1 real, 0 padded) or null; out [batch, n,
-// feat + (mask ? 1 : 0)]; weights transposed and stacked over layers as in Weights;
-// scratch as mpgan_gapt_fused_plan sizes it (may be null when 0). Returns a
-// cudaError_t code (0 on success); the launch is asynchronous on `stream`.
+// feat + (mask ? 1 : 0)]; weights transposed and stacked over layers as in Weights.
+// With jets > 0 the item path runs the caller's plan (gapt_kernels.gapt_plan: jets
+// an item, its rows, the grid, the slabs' floats), which is checked here; with
+// jets == 0 the per-jet path, its scratch as mpgan_gapt_fused_plan sizes it (may be
+// null when 0). Returns a cudaError_t code (0 on success); the launch is
+// asynchronous on `stream`.
 int mpgan_gapt_fused(const float* x, const float* mask, float* out, const float* in_wt,
                      const float* in_b, const float* out_wt, const float* out_b,
                      const float* ff_wt, const float* ff_b, const float* fc_wt,
                      const float* fc_b, float* scratch, int batch, int n, int e, int heads,
-                     int layers, int feat, float alpha, void* stream) {
+                     int layers, int feat, float alpha, int jets, int rows, int grid_items,
+                     int slab_floats, void* stream) {
   if (!valid(batch, n, e, heads) || layers < 0 || feat < 1) return (int)cudaErrorInvalidValue;
+  const Weights w{in_wt, in_b, out_wt, out_b, ff_wt, ff_b, fc_wt, fc_b};
+  if (jets > 0) {
+    ItemShape sh;
+    if (!item_shape(sh, n, e, heads, jets, rows, slab_floats) || grid_items < 1 ||
+        grid_items > cdiv(batch, jets))
+      return (int)cudaErrorInvalidValue;
+    return launch_items(x, mask, out, w, sh, batch, n, e, heads, layers, feat, alpha,
+                        grid_items, stream);
+  }
   const Placement pl = place(n, e);
   int grid;
   long long scratch_floats;
   mpgan_gapt_fused_plan(batch, n, e, heads, &grid, &scratch_floats);
   if (scratch_floats > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const Weights w{in_wt, in_b, out_wt, out_b, ff_wt, ff_b, fc_wt, fc_b};
   // scores a lane, threads (cta_threads) and rows of a thread's output tile: small
   // jets take 2 x 4 tiles, which fill the 256 threads evenly (240 tiles of the
   // out and ff products at n = 30 against 128 of 4 x 4)
-  auto* fn = n <= 32 ? launch<1, 256, 2> : n <= 160 ? launch<5, 1024, 4> : launch<16, 512, 4>;
+  auto* fn = n <= 32 ? launch_jet<1, 256, 2>
+                     : n <= 160 ? launch_jet<5, 1024, 4> : launch_jet<16, 512, 4>;
   return fn(x, mask, out, w, scratch, batch, n, e, heads, layers, feat, alpha, pl, grid, stream);
 }
+
+#ifdef MPGAN_PHASE_CLOCKS
+// Clocks summed per phase (GaptPhase) since the last reset.
+int mpgan_gapt_fused_phase_clocks(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_gapt_clocks, sizeof(g_gapt_clocks));
+  if (err == cudaSuccess && reset) {
+    unsigned long long zeros[kGaptPhases] = {};
+    err = cudaMemcpyToSymbol(g_gapt_clocks, zeros, sizeof(zeros));
+  }
+  return (int)err;
+}
+#endif
 
 }  // extern "C"

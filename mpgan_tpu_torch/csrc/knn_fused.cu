@@ -7,8 +7,8 @@
 // For every jet b and receiver i
 //   d[i, j]   = (-2 xs[i] | 1) . (xf[j] | |xf[j]|^2) + |xs[i]|^2          (full FP32)
 //   key[i, j] = bits(max(d, 0)) & ~(2^bits - 1) | j,   bits = max(8, bitlen(n - 1))
-//   idx[i, s] = sender of the s-th smallest key (k + 1 extractions, the first
-//               dropped, without self loops)
+//   idx[i, s] = sender of the s-th smallest key (the first of k + 1 dropped
+//               without self loops)
 //   z1[i, s]  = u1[i] + u2m[idx[i, s], :h1] (+ |xf[idx[i, s]] - xs[i] + 1e-12| * w_d)
 //   agg[i]    = sum_s u2m[idx[i, s], h1] * chain(leaky(z1[i, s]))         (/ k for mean)
 // where `chain` is the fe MLP's hidden layers (LeakyReLU after each) and u2m's
@@ -24,8 +24,8 @@
 // bounds it: the chain, 2 * k * (sum of in * out) FLOP a receiver (277 MFLOP a
 // 150-particle jet at the published widths, k = 20) against ~1 KB of input a
 // particle, so the FP32 FMA issue of the pass's products; the search is under 1%
-// of that arithmetic, but k + 1 serial extractions a receiver, so the warps take
-// two receivers at a time. The TPU kernel's layout devices are not carried over:
+// of that arithmetic (a receiver's threads keep its k + 1 smallest keys sorted in
+// registers). The TPU kernel's layout devices are not carried over:
 // its one-hot gather matmul is an indexed read of u2m rows (a jet's operands sit
 // in L2), its receiver padding and neighbour-major residual columns a plain
 // [B, N, k] idx, its tree sum a fixed-order loop. No tensor cores and no TF32: the

@@ -13,29 +13,31 @@
 // that machine a transpose before its aggregate kernel); here idx and dists stay
 // [B, N, k], the layout every consumer on this card reads.
 //
-// What bounds it: 2 * (c + 1) FLOP per (receiver, sender) pair and k passes over a
-// receiver's n keys in shared memory, against 8 bytes per selected edge written:
-// at n = 150, c = 32, k = 20 about 1.5 MFLOP and 24 KB per jet. Both roofline terms
-// are microseconds at any batch this model runs, so what shows is launch latency
-// and the serial extraction passes of each warp, which takes two receivers side by
-// side to hide them. A CTA takes a group of up to 32 receivers of a jet; the jet's
-// senders are transposed in shared memory (knn_stages.cuh: knn_search_stage).
+// What bounds it: 2 * (c + 1) FLOP per (receiver, sender) pair against 8 bytes per
+// selected edge written: at n = 150, c = 32, k = 20 about 1.5 MFLOP and 24 KB per
+// jet, microseconds at any batch this model runs. Its keys are not products the
+// FMA units can fuse (every product and sum is rounded on its own, for equal
+// keys), and keeping the k + 1 smallest takes 2 (k + 1) integer min/max a key, so
+// what shows is the instruction issue of those: about 66 rounded operations and
+// 42 min/max a pair. A CTA takes one jet (receivers in groups of at most one a
+// thread): the jet's senders are staged once, transposed, and each receiver's
+// threads keep their sorted lists in registers (knn_stages.cuh: knn_search_stage).
 
 #include "knn_stages.cuh"
 
 namespace {
 
-// grid = (batch, receiver groups); dynamic shared memory: the search's scratch,
-// then the group's neighbours and distances [group, k]. Two CTAs an SM (at most 64
-// registers a thread), so that one CTA's staging and barriers overlap the other's
-// extractions.
-__global__ void __launch_bounds__(kThreads, 2)
+// grid = (batch, receiver groups); dynamic shared memory: the search's scratch.
+__global__ void __launch_bounds__(kThreads, 1)
     knn_search_kernel(const float* __restrict__ xs, const float* __restrict__ xf,
                       int* __restrict__ idx_out, float* __restrict__ dists_out, int n, int c,
                       int k, int self_loops, int want_dists, int key_bits, int group) {
-  const int g0 = blockIdx.y * group, sel_off = round_up(search_floats(n, c), 4);
+  const int g0 = blockIdx.y * group;
+  PhaseClock clock;
+  MPGAN_PHASE_START(clock);
   knn_search_stage(xs, xf, idx_out, dists_out, blockIdx.x, g0, min(group, n - g0), n, c, k,
-                   self_loops, want_dists, key_bits, 0, sel_off, sel_off + group * k);
+                   self_loops, want_dists, key_bits, 0, -1, -1);
+  MPGAN_PHASE(clock, kPhaseSearch);
 }
 
 }  // namespace
@@ -52,7 +54,7 @@ int mpgan_knn_search(const float* xs, const float* xf, int* idx_out, float* dist
   if (k < 1 || k + (self_loops ? 0 : 1) > n || (want_dists && dists_out == nullptr))
     return (int)cudaErrorInvalidValue;
   const int group = group_size(n);
-  const long long floats = round_up(search_floats(n, c), 4) + 2LL * group * k;
+  const long long floats = search_floats(n, c);
   if (floats * (long long)sizeof(float) > (long long)kMaxSmemBytes)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)floats * sizeof(float);
@@ -64,5 +66,12 @@ int mpgan_knn_search(const float* xs, const float* xf, int* idx_out, float* dist
       xs, xf, idx_out, dists_out, n, c, k, self_loops, want_dists, knn_key_bits(n), group);
   return (int)cudaGetLastError();
 }
+
+#ifdef MPGAN_PHASE_CLOCKS
+// Clocks summed per phase (edge_products.cuh: Phase) since the last reset.
+int mpgan_knn_search_phase_clocks(unsigned long long* out, int reset) {
+  return read_phase_clocks(out, reset);
+}
+#endif
 
 }  // extern "C"

@@ -10,8 +10,8 @@
 //                       rounded on its own (__fmul_rn, __fadd_rn: no contraction into
 //                       FMAs), so the keys equal the plain PyTorch version's bit for bit
 //           key[i, j] = bits(max(d, 0)) & ~(2^bits - 1) | j,   bits = max(8, bitlen(n - 1))
-//           idx[i, s] = sender of the s-th smallest key (k + 1 extractions, the first
-//                       dropped, without self loops)
+//           idx[i, s] = sender of the s-th smallest key (the first of k + 1 dropped
+//                       without self loops), from a list kept sorted in registers
 //           dist[i, s] = |xf[idx[i, s]] - xs[i] + 1e-12|                  (with want_dists)
 //   chain:  z1[i, s]  = u1[i] + u2m[idx[i, s], :h1] (+ dist[i, s] * w_d)
 //           agg[i]    = sum_s u2m[idx[i, s], h1] * chain(leaky(z1[i, s]))   (/ k for mean)
@@ -26,10 +26,11 @@
 //
 // K5 searches once a (CTA, jet): for the receivers of the jet that its item range
 // holds (at most the plan's sspan at a time), into sel and seld [sspan, k] in
-// shared memory. The search's scratch (xf^T with the norms, the warps' key rows)
-// lives in the pass buffer, which holds no live pass between items; the weight
-// slab that the last pass prefetched for the next one lies outside it, so the
-// copy may stay in flight while the search runs. K8 reads each row's sender from
+// shared memory. The search's scratch (xf^T with the norms, the lists its thread
+// groups hand on; the lists themselves live in registers) lives in the pass
+// buffer, which holds no live pass between items; the weight slab that the last
+// pass prefetched for the next one lies outside it, so the copy may stay in
+// flight while the search runs. K8 reads each row's sender from
 // idx (clamped to [0, n), so a wrong idx cannot read outside the jet) and its
 // distance from dists.
 #pragma once
@@ -40,21 +41,71 @@
 
 namespace {
 
-constexpr int kMaxGroup = 32;    // K7: receivers a CTA
-constexpr int kSearchRecv = 2;   // receivers a warp takes through the search at once
+constexpr int kSearchList = 21;     // keys a thread keeps sorted: k = 20 and the dropped self
+constexpr int kSearchRegCols = 32;  // receiver columns held in registers; wider rows come from L1
 
-// Floats of the search's scratch: xf^T with the norms [c + 1, ldn] and the warps'
-// key rows [kWarps * kSearchRecv, ldn], ldn = n rounded up to 32.
+// The row stride of the search's xf^T: n rounded up to 4 (senders are read 4 at
+// a time), and to an odd number of 4-float groups, so that the staging's
+// transposing stores of a warp fall into 8 banks rather than fewer.
+__host__ __device__ __forceinline__ int search_ldn(int n) {
+  const int ldn = round_up(n, 4);
+  return (ldn / 4) % 2 == 0 ? ldn + 4 : ldn;
+}
+
+// Rows of the search's xf^T: c rounded up to 4, 8, 16 or 32, the columns past c
+// zeros, so that the key loops have a fixed length (adding the zero products
+// leaves every key as it was); c itself past kSearchRegCols.
+__host__ __device__ __forceinline__ int search_cols(int c) {
+  return c <= 4 ? 4 : c <= 8 ? 8 : c <= 16 ? 16 : c <= kSearchRegCols ? kSearchRegCols : c;
+}
+
+// The search's threads form `parts` groups of `part_threads` (whole warps): a
+// thread of group p takes the receiver of its place in the group and the p-th
+// share of the senders, so that every lane of a warp reads the same senders. As
+// many groups as fit, at most 4 (1 where there are more receivers than threads,
+// which then take them in turns).
+__host__ __device__ __forceinline__ int search_part_threads(int receivers) {
+  return receivers >= kThreads ? kThreads : round_up(receivers, 32);
+}
+__host__ __device__ __forceinline__ int search_parts(int receivers) {
+  const int p = kThreads / search_part_threads(receivers);
+  return p < 4 ? p : 4;
+}
+
+// Ints of the lists that groups 1 .. parts - 1 hand to group 0: (parts - 1) *
+// part_threads is at most 3 * 128 for any number of receivers.
+constexpr int kSearchMergeInts = 3 * 128 * kSearchList;
+
+// Floats of the search's scratch: xf^T and the norms, [search_cols(c) + 1,
+// search_ldn(n)], then the lists of the merge.
 __host__ __device__ __forceinline__ int search_floats(int n, int c) {
-  return (c + 1 + kWarps * kSearchRecv) * round_up(n, 32);
+  return (search_cols(c) + 1) * search_ldn(n) + kSearchMergeInts;
 }
 
 // K7: receivers a CTA, the jet's receivers split evenly into groups of at most
-// kMaxGroup.
+// one a thread.
 int group_size(int n) {
-  const int n_groups = (n + kMaxGroup - 1) / kMaxGroup;
+  const int n_groups = (n + kThreads - 1) / kThreads;
   return (n + n_groups - 1) / n_groups;
 }
+
+#ifdef MPGAN_PHASE_CLOCKS
+#define SEARCH_CLOCK_START() long long sclk_ = clock64()
+#define SEARCH_STAGE_STAMP()                                                        \
+  if (threadIdx.x == 0)                                                             \
+    atomicAdd(&g_phase_clocks[kPhaseSearchStage], (unsigned long long)(clock64() - sclk_))
+#define SEARCH_WARP_STAMP(ph)                                                       \
+  do {                                                                              \
+    const long long now_ = clock64();                                               \
+    if ((threadIdx.x & 31) == 0)                                                    \
+      atomicAdd(&g_phase_clocks[ph], (unsigned long long)(now_ - sclk_));           \
+    sclk_ = now_;                                                                   \
+  } while (0)
+#else
+#define SEARCH_CLOCK_START()
+#define SEARCH_STAGE_STAMP()
+#define SEARCH_WARP_STAMP(ph)
+#endif
 
 int knn_key_bits(int n) {
   int bits = 8;
@@ -62,124 +113,240 @@ int knn_key_bits(int n) {
   return bits;
 }
 
-// The search for receivers g0 .. g0 + g_eff of jet b, its scratch at work_off: the
-// jet's senders are staged transposed with their squared norms, then a warp takes
-// kSearchRecv receivers at a time: it computes their n keys into its own rows and
-// extracts their minima side by side, k times (lane-strided minimum,
-// __reduce_min_sync, the winner's key set to INT_MAX), so one receiver's latency
-// hides the other's. Keys are unique, so a pass removes exactly one sender, and
-// ties inside a truncation bucket break by index, as in the TPU kernels. Fills
-// sel [g_eff, k] (and seld with want_dists) and, where the pointers are not null,
-// idx_out and dists_out. The caller synchronizes the CTA before it reads sel or
-// reuses the scratch.
-__device__ void knn_search_stage(const float* __restrict__ xs, const float* __restrict__ xf,
-                                 int* __restrict__ idx_out, float* __restrict__ dists_out, int b,
-                                 int g0, int g_eff, int n, int c, int k, int self_loops,
-                                 int want_dists, int key_bits, int work_off, int sel_off,
-                                 int seld_off) {
-  constexpr int R = kSearchRecv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ldn = round_up(n, 32);
+// Inserts v into a list of kSearchList keys kept ascending (INT_MAX where
+// empty), dropping the largest. Every entry's new value depends on the old ones
+// only, so the 2 * kSearchList min/max have no chain between them.
+__device__ __forceinline__ void list_insert(int (&list)[kSearchList], int v) {
+#pragma unroll
+  for (int s = kSearchList - 1; s > 0; --s) list[s] = min(list[s], max(list[s - 1], v));
+  list[0] = min(list[0], v);
+}
+
+// The keys of one thread's senders (groups of 4 senders part, part + T, ... of
+// the jet's xf^T [cols + 1, ldn]) for one receiver, those above `prev` inserted
+// into `list`. kC > 0: the receiver's row, pre-scaled by -2 and zero-padded to
+// kC = cols columns, is xr (registers), and the loops have a fixed length;
+// kC == 0: any width, the row read from L1.
+template <int kC>
+__device__ __forceinline__ void search_keys(int (&list)[kSearchList], const float* __restrict__ xft,
+                                            const float (&xr)[kC > 0 ? kC : 1],
+                                            const float* __restrict__ xsi, float sq1, int n,
+                                            int ldn, int cols, int low, int part, int T, int prev) {
+  const int groups = ldn / 4, q4 = ldn / 4;  // float4s a row of xf^T
+  for (int g = part; g < groups; g += T) {
+    const float4* col = reinterpret_cast<const float4*>(xft) + g;
+    // the plain version's order: products and sums rounded one by one, column by
+    // column, then + |xf[j]|^2, then + |xs[i]|^2; four senders, four chains
+    float4 x4 = col[0];
+    const float a0 = kC > 0 ? xr[0] : -2.f * __ldg(xsi);
+    float d0 = __fmul_rn(a0, x4.x), d1 = __fmul_rn(a0, x4.y), d2 = __fmul_rn(a0, x4.z),
+          d3 = __fmul_rn(a0, x4.w);
+    if constexpr (kC > 0) {
+#pragma unroll
+      for (int cc = 1; cc < kC; ++cc) {
+        x4 = col[cc * q4];
+        d0 = __fadd_rn(d0, __fmul_rn(xr[cc], x4.x));
+        d1 = __fadd_rn(d1, __fmul_rn(xr[cc], x4.y));
+        d2 = __fadd_rn(d2, __fmul_rn(xr[cc], x4.z));
+        d3 = __fadd_rn(d3, __fmul_rn(xr[cc], x4.w));
+      }
+    } else {
+      for (int cc = 1; cc < cols; ++cc) {
+        const float a = -2.f * __ldg(xsi + cc);
+        x4 = col[cc * q4];
+        d0 = __fadd_rn(d0, __fmul_rn(a, x4.x));
+        d1 = __fadd_rn(d1, __fmul_rn(a, x4.y));
+        d2 = __fadd_rn(d2, __fmul_rn(a, x4.z));
+        d3 = __fadd_rn(d3, __fmul_rn(a, x4.w));
+      }
+    }
+    const float4 sq2 = col[cols * q4];
+    const float dv[4] = {__fadd_rn(__fadd_rn(d0, sq2.x), sq1),
+                         __fadd_rn(__fadd_rn(d1, sq2.y), sq1),
+                         __fadd_rn(__fadd_rn(d2, sq2.z), sq1),
+                         __fadd_rn(__fadd_rn(d3, sq2.w), sq1)};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = 4 * g + q;
+      const float v = dv[q] > 0.f ? dv[q] : 0.f;
+      const int key = (__float_as_int(v) & ~low) | j;
+      list_insert(list, j < n && key > prev ? key : INT_MAX);
+    }
+  }
+}
+
+// The receivers of a search after the staging (see knn_search_stage), their rows
+// as search_keys<kC> reads them; `merge` holds the lists of the merge.
+template <int kC>
+__device__ __forceinline__ void search_receivers(const float* __restrict__ xs,
+                                                 const float* __restrict__ xf,
+                                                 const float* __restrict__ xft, int* merge,
+                                                 int* __restrict__ idx_out,
+                                                 float* __restrict__ dists_out, int b, int g0,
+                                                 int g_eff, int n, int c, int cols, int ldn, int k,
+                                                 int start, int want_dists, int low, int sel_off,
+                                                 int seld_off) {
+  const int per = search_part_threads(g_eff), T = search_parts(g_eff);
+  const int part = threadIdx.x / per, place = threadIdx.x - part * per;
+  SEARCH_CLOCK_START();
+  for (int rb = 0; rb < g_eff; rb += per) {
+    // a warp without a receiver, or past the groups, computes nothing; a thread
+    // past the receivers in a warp with one recomputes the last, and writes nothing
+    const bool busy = part < T && rb + (place & ~31) < g_eff;
+    const bool live = busy && rb + place < g_eff;
+    const int ii = min(rb + place, g_eff - 1);
+    const float* xsi = xs + ((size_t)b * n + g0 + ii) * c;
+    float xr[kC > 0 ? kC : 1];
+    float sq1 = 0.f;
+    if (busy) {
+      sq1 = __fmul_rn(__ldg(xsi), __ldg(xsi));
+      if constexpr (kC > 0) {
+#pragma unroll
+        for (int cc = 0; cc < kC; ++cc) xr[cc] = cc < c ? __ldg(xsi + cc) : 0.f;
+#pragma unroll
+        for (int cc = 1; cc < kC; ++cc)
+          if (cc < c) sq1 = __fadd_rn(sq1, __fmul_rn(xr[cc], xr[cc]));
+#pragma unroll
+        for (int cc = 0; cc < kC; ++cc) xr[cc] *= -2.f;  // exact
+      } else {
+        for (int cc = 1; cc < c; ++cc) {
+          const float v = __ldg(xsi + cc);
+          sq1 = __fadd_rn(sq1, __fmul_rn(v, v));
+        }
+      }
+    }
+    int prev = -1;  // the last round's largest key; keys are >= 0
+    for (int r0 = 0; r0 < k + start; r0 += kSearchList) {
+      int list[kSearchList];
+#pragma unroll
+      for (int s = 0; s < kSearchList; ++s) list[s] = INT_MAX;
+      if (busy) search_keys<kC>(list, xft, xr, xsi, sq1, n, ldn, cols, low, part, T, prev);
+      SEARCH_WARP_STAMP(kPhaseSearchKeys);
+      if (T > 1) {
+        // groups 1 .. T - 1 hand their lists to group 0, which merges them (with T >
+        // 1 all receivers fit in one round of the groups, so rb takes one value)
+        if (busy && part > 0) {
+#pragma unroll
+          for (int s = 0; s < kSearchList; ++s)
+            merge[((part - 1) * kSearchList + s) * per + place] = list[s];
+        }
+        __syncthreads();
+        if (busy && part == 0) {
+          for (int q = 1; q < T; ++q) {
+#pragma unroll
+            for (int s = 0; s < kSearchList; ++s)
+              list_insert(list, merge[((q - 1) * kSearchList + s) * per + place]);
+          }
+        }
+      }
+      if (T > 1 && k + start > kSearchList) {
+        __syncthreads();  // the lists are read; group 0 hands on the round's largest key
+        if (part == 0) merge[place] = list[kSearchList - 1];
+        __syncthreads();
+        if (part < T) prev = merge[place];
+        __syncthreads();  // merge is free for the next round
+      } else {
+        prev = list[kSearchList - 1];
+      }
+      SEARCH_WARP_STAMP(kPhaseSearchSelect);
+      if (live && part == 0) {
+        // the neighbours first, then (the list no longer live) their distances
+#pragma unroll
+        for (int s = 0; s < kSearchList; ++s) {
+          const int q = r0 + s;
+          if (q < start || q >= k + start) continue;
+          const int j = list[s] & low, rank = q - start;
+          if (sel_off >= 0) smi(sel_off)[ii * k + rank] = j;
+          if (idx_out != nullptr) idx_out[((size_t)b * n + g0 + ii) * k + rank] = j;
+        }
+        if (want_dists) {
+          for (int q = max(r0, start); q < min(r0 + kSearchList, k + start); ++q) {
+            const int rank = q - start;
+            const size_t e = ((size_t)b * n + g0 + ii) * k + rank;
+            const int j = sel_off >= 0 ? smi(sel_off)[ii * k + rank] : idx_out[e];
+            // the exact distance of the selected edge: |xf[j] - xs[i] + 1e-12|; xf's
+            // row is read from L1 (one line at c = 32), not from xf^T, where the
+            // lanes' senders would meet in few banks
+            const float* xfj = xf + ((size_t)b * n + j) * c;
+            float sum = 0.f;
+            if constexpr (kC > 0) {
+#pragma unroll
+              for (int cc = 0; cc < kC; ++cc) {
+                if (cc < c) {
+                  const float diff = __ldg(xfj + cc) - xr[cc] * -0.5f + 1e-12f;
+                  sum = fmaf(diff, diff, sum);
+                }
+              }
+            } else {
+              for (int cc = 0; cc < c; ++cc) {
+                const float diff = __ldg(xfj + cc) - __ldg(xsi + cc) + 1e-12f;
+                sum = fmaf(diff, diff, sum);
+              }
+            }
+            const float dist = sqrtf(sum);
+            if (seld_off >= 0) smf(seld_off)[ii * k + rank] = dist;
+            if (dists_out != nullptr) dists_out[e] = dist;
+          }
+        }
+      }
+      SEARCH_WARP_STAMP(kPhaseSearchOut);
+    }
+  }
+}
+
+// The search for receivers g0 .. g0 + g_eff of jet b, its scratch at work_off, run
+// by every thread of the CTA: the jet's senders are staged transposed with their
+// squared norms (rows past c zeros, search_cols), then each receiver takes a
+// thread in each of T = search_parts(g_eff) groups of whole warps, each thread
+// computing the keys of a 1 / T share of the senders (every lane of a warp reads
+// the same 4 senders with one 128-bit load) and keeping the kSearchList smallest
+// sorted in registers; group 0 merges the others' lists through shared memory.
+// Keys are unique, so the ascending list is what k + 1 extractions give, and
+// ties inside a truncation bucket break by index, as in the TPU kernels. Where
+// k + 1 exceeds kSearchList, further rounds take the smallest keys above the last
+// round's largest. Fills sel [g_eff, k] (sel_off >= 0) and seld with want_dists,
+// and idx_out and dists_out where they are not null. The caller synchronizes the
+// CTA before it reads sel or reuses the scratch.
+__device__ __noinline__ void knn_search_stage(const float* __restrict__ xs,
+                                              const float* __restrict__ xf,
+                                              int* __restrict__ idx_out,
+                                              float* __restrict__ dists_out, int b, int g0,
+                                              int g_eff, int n, int c, int k, int self_loops,
+                                              int want_dists, int key_bits, int work_off,
+                                              int sel_off, int seld_off) {
+  const int ldn = search_ldn(n), cols = search_cols(c);
   const float* xfb = xf + (size_t)b * n * c;
-  float* xft = smf(work_off);                       // [c + 1, ldn]
-  int* keys = smi(work_off + (c + 1) * ldn);        // [kWarps * R, ldn]
-  int* sel = smi(sel_off);
-  float* seld = smf(seld_off);
-  for (int t = threadIdx.x; t < n * c; t += kThreads) {
-    const int j = t / c, cc = t - j * c;
-    xft[cc * ldn + j] = xfb[t];
+  float* xft = smf(work_off);  // [cols + 1, ldn]
+  SEARCH_CLOCK_START();
+  for (int t = threadIdx.x; t < ldn * cols; t += kThreads) {
+    // coalesced reads of xf; the padded senders and columns are zeros
+    const int j = t / cols, cc = t - j * cols;
+    xft[cc * ldn + j] = j < n && cc < c ? __ldg(xfb + (size_t)j * c + cc) : 0.f;
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < n; j += kThreads) {
+  for (int j = threadIdx.x; j < ldn; j += kThreads) {
     float s = __fmul_rn(xft[j], xft[j]);
     for (int cc = 1; cc < c; ++cc) {
       const float v = xft[cc * ldn + j];
       s = __fadd_rn(s, __fmul_rn(v, v));
     }
-    xft[c * ldn + j] = s;
+    xft[cols * ldn + j] = s;
   }
   __syncthreads();
-  const int low = (1 << key_bits) - 1;
-  const int start = self_loops ? 0 : 1;
-  for (int base = warp * R; base < g_eff; base += kWarps * R) {
-    const float* xsi[R];
-    int* wkeys[R];
-    float sq1[R];
-#pragma unroll
-    for (int q = 0; q < R; ++q) {
-      // a slot past the group recomputes the group's last receiver into its own key
-      // row; nothing is extracted from it
-      xsi[q] = xs + ((size_t)b * n + g0 + min(base + q, g_eff - 1)) * c;
-      wkeys[q] = keys + (warp * R + q) * ldn;
-      sq1[q] = __fmul_rn(__ldg(xsi[q]), __ldg(xsi[q]));
-    }
-    for (int cc = 1; cc < c; ++cc) {
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        const float v = __ldg(xsi[q] + cc);
-        sq1[q] = __fadd_rn(sq1[q], __fmul_rn(v, v));
-      }
-    }
-    for (int j = lane; j < n; j += 32) {
-      float d[R];
-#pragma unroll
-      for (int q = 0; q < R; ++q) d[q] = __fmul_rn(-2.f * __ldg(xsi[q]), xft[j]);
-      for (int cc = 1; cc < c; ++cc) {
-        const float x = xft[cc * ldn + j];
-#pragma unroll
-        for (int q = 0; q < R; ++q) d[q] = __fadd_rn(d[q], __fmul_rn(-2.f * __ldg(xsi[q] + cc), x));
-      }
-      const float sq2 = xft[c * ldn + j];
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        float v = __fadd_rn(__fadd_rn(d[q], sq2), sq1[q]);
-        v = v > 0.f ? v : 0.f;
-        wkeys[q][j] = (__float_as_int(v) & ~low) | j;
-      }
-    }
-    __syncwarp();
-    for (int s = 0; s < k + start; ++s) {
-      int m[R];
-#pragma unroll
-      for (int q = 0; q < R; ++q) m[q] = INT_MAX;
-      for (int j = lane; j < n; j += 32) {
-#pragma unroll
-        for (int q = 0; q < R; ++q) m[q] = min(m[q], wkeys[q][j]);
-      }
-#pragma unroll
-      for (int q = 0; q < R; ++q) m[q] = __reduce_min_sync(0xffffffffu, m[q]);
-      if (lane == 0) {
-#pragma unroll
-        for (int q = 0; q < R; ++q) {
-          if (base + q >= g_eff) continue;
-          wkeys[q][m[q] & low] = INT_MAX;
-          if (s >= start) sel[(base + q) * k + s - start] = m[q] & low;
-        }
-      }
-      __syncwarp();
-    }
-#pragma unroll
-    for (int q = 0; q < R; ++q) {
-      const int ii = base + q;
-      if (ii >= g_eff) break;
-      for (int s = lane; s < k; s += 32) {
-        const int j = sel[ii * k + s];
-        const size_t e = ((size_t)b * n + g0 + ii) * k + s;
-        if (idx_out != nullptr) idx_out[e] = j;
-        if (want_dists) {
-          // the exact distance of the selected edge: |xf[j] - xs[i] + 1e-12|
-          float sum = 0.f;
-          for (int cc = 0; cc < c; ++cc) {
-            const float diff = xft[cc * ldn + j] - __ldg(xsi[q] + cc) + 1e-12f;
-            sum = fmaf(diff, diff, sum);
-          }
-          const float dist = sqrtf(sum);
-          seld[ii * k + s] = dist;
-          if (dists_out != nullptr) dists_out[e] = dist;
-        }
-      }
-    }
+  SEARCH_STAGE_STAMP();
+  const int low = (1 << key_bits) - 1, start = self_loops ? 0 : 1;
+  int* merge = smi(work_off + (cols + 1) * ldn);
+#define MPGAN_SEARCH_RECEIVERS(KC)                                                               \
+  search_receivers<KC>(xs, xf, xft, merge, idx_out, dists_out, b, g0, g_eff, n, c, cols, ldn, k, \
+                       start, want_dists, low, sel_off, seld_off)
+  switch (cols) {
+    case 4: MPGAN_SEARCH_RECEIVERS(4); break;
+    case 8: MPGAN_SEARCH_RECEIVERS(8); break;
+    case 16: MPGAN_SEARCH_RECEIVERS(16); break;
+    case kSearchRegCols: MPGAN_SEARCH_RECEIVERS(kSearchRegCols); break;
+    default: MPGAN_SEARCH_RECEIVERS(0);
   }
+#undef MPGAN_SEARCH_RECEIVERS
 }
 
 // What a knn forward launch reads and writes besides the chain.

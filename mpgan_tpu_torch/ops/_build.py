@@ -153,8 +153,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mpgan_knn_fwd_sizes.restype = i
     lib.mpgan_gapt_fused_plan.argtypes = [i, i, i, i, iarr, ctypes.POINTER(ctypes.c_longlong)]
     lib.mpgan_gapt_fused_plan.restype = i
-    lib.mpgan_gapt_fused.argtypes = [p] * 12 + [i] * 6 + [f, p]
+    lib.mpgan_gapt_fused.argtypes = [p] * 12 + [i] * 6 + [f] + [i] * 4 + [p]
     lib.mpgan_gapt_fused.restype = i
+    lib.mpgan_gapt_item_smem.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.mpgan_gapt_item_smem.restype = i
     lib.mpgan_cuda_error_string.argtypes = [i]
     lib.mpgan_cuda_error_string.restype = ctypes.c_char_p
 

@@ -16,15 +16,23 @@ are computed like any row.
 
 What bounds it on an H100: 5.9 MFLOP a jet at the default width (N = 30, E = 64,
 4 layers, 4 heads) against 9 KB of noise and output a jet, so the FP32 FMA rate.
-The kernel keeps a jet's activations in shared memory across all layers and
-reads the weights, which arrive transposed and stacked over layers
-(:func:`pack_gapt_weights`), through L1/L2; the source note has the rest.
+The kernel's item path stacks the rows of ``G = max(1, 128 // ns)`` jets into
+an item (``ns`` = N rounded up to 4: 4 jets of 32 rows at N = 30), keeps the
+item's activations transposed in shared memory across all layers, copies each
+layer's weights (transposed and stacked over layers, :func:`pack_gapt_weights`)
+in k-slabs into shared memory once an item, and walks the items on a
+persistent grid of at most one CTA an SM; its launch is planned here
+(:func:`gapt_plan`), so that the planning is tested where there is no card.
+Sizes the item path does not take (``E % 4 != 0``, a head wider than 32, or
+items whose products need more than 8 columns a thread: N > 160 at E = 64) run
+the per-jet path, one jet a CTA. The source note has the rest.
 
 The TPU kernel packs ``128 // N`` jets into one block-diagonal attention and
-needs a batch divisible by that block; neither is carried over, so the gate
-(:func:`fused_gapt_eligible`) has no batch condition. The rest of the gate is
-the JAX package's: generator, eval, no ISAB, no layer norm, no extra FC layers,
-no batch or spectral norm, ``E % H == 0``, ``N <= 512``.
+needs a batch divisible by that block; here an item's jets share the
+projections but each keeps its own attention, and the last item may be short,
+so the gate (:func:`fused_gapt_eligible`) has no batch condition. The rest of
+the gate is the JAX package's: generator, eval, no ISAB, no layer norm, no
+extra FC layers, no batch or spectral norm, ``E % H == 0``, ``N <= 512``.
 
 The kernel is eval only and has no backward, as in the JAX package: the wrapper
 raises when gradients are enabled and an input requires one. It runs the plain
@@ -35,16 +43,22 @@ anything else raises. Launches are counted in ``mp_kernels.launch_counts``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import NamedTuple, Sequence
 
 import torch
 
 from . import _build
-from .mp_kernels import _check_cuda_args, _on_cpu, launch_counts
+from .mp_kernels import MAX_SMEM_BYTES, _check_cuda_args, _on_cpu, _sm_count, launch_counts
 
 _NEG = 1e30
 MAX_PARTICLES = 512
+ITEM_ROWS = 128    # rows an item fills with whole jets (one jet at least)
+ITEM_THREADS = 512
+MAX_TILE_COLS = 8  # columns of a thread's product tile, at most
+MAX_HEAD_DIM = 32  # head width the attention's registers hold, at most
 
 
 def fused_gapt_eligible(cfg, train: bool) -> bool:
@@ -118,6 +132,62 @@ def gapt_g_fused_reference(x: torch.Tensor, mask: torch.Tensor | None, w: GaptWe
     return y if mask is None else torch.cat([y, mask - 0.5], dim=2)
 
 
+@dataclasses.dataclass(frozen=True)
+class GaptPlan:
+    """One K9 launch. On the item path (``jets`` > 0) an item is ``jets`` jets,
+    each ``ns`` rows apart (N rounded up to 4), in buffers of ``rows`` rows (a
+    multiple of 32); ``grid`` CTAs each walk a contiguous range of the ``items``;
+    the two weight slab buffers hold ``slab_floats`` each. ``jets == 0``: the
+    per-jet path (one jet a CTA, its launch sized by the kernel)."""
+    jets: int
+    ns: int
+    rows: int
+    items: int
+    grid: int
+    slab_floats: int
+    smem_bytes: int
+
+    def item_range(self, cta: int) -> tuple[int, int]:
+        return cta * self.items // self.grid, (cta + 1) * self.items // self.grid
+
+    def item_jets(self, item: int, batch: int) -> range:
+        """The jets an item computes and stores (the last item may hold fewer)."""
+        return range(item * self.jets, min((item + 1) * self.jets, batch))
+
+
+def item_smem_floats(e: int, rows: int, slab_floats: int) -> int:
+    """Shared memory of an item in floats: x^T ``[E, ldr]``, qkv^T ``[3E, ldr]``,
+    the senders' mask bias ``[ldr]`` (``ldr = rows + 4``) and two weight slabs."""
+    ldr = rows + 4
+    return 4 * e * ldr + ldr + 2 * slab_floats
+
+
+def gapt_plan(batch: int, n: int, e: int, num_heads: int, sms: int) -> GaptPlan:
+    """Plan a K9 launch over ``batch`` jets of ``n`` particles, embedding ``e``
+    and ``num_heads`` heads, on a card with ``sms`` SMs: the item path where it
+    takes the size, with the largest slabs that fit (at most one layer's qkv
+    weights), else the per-jet path. Memoised per shape."""
+    return _gapt_plan(batch, n, e, num_heads, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _gapt_plan(batch: int, n: int, e: int, num_heads: int, sms: int) -> GaptPlan:
+    ns = -(-n // 4) * 4
+    jets = max(1, ITEM_ROWS // ns)
+    rows = -(-(jets * ns) // 32) * 32
+    row_warps = rows // 32
+    col_threads = 8 * ((ITEM_THREADS // 32) // row_warps)
+    rest = item_smem_floats(e, rows, 0)
+    slab = min(3 * e * e, (MAX_SMEM_BYTES // 4 - rest) // 2 // 4 * 4)
+    fits = (e % 4 == 0 and e // num_heads <= MAX_HEAD_DIM
+            and -(-3 * e // col_threads) <= MAX_TILE_COLS and slab >= 12 * e)
+    if not fits:
+        return GaptPlan(0, ns, 0, 0, 0, 0, 0)
+    items = -(-batch // jets)
+    return GaptPlan(jets, ns, rows, items, min(sms, items), slab,
+                    4 * item_smem_floats(e, rows, slab))
+
+
 def _check_shapes(name: str, x, mask, w: GaptWeights, num_heads: int) -> None:
     if x.dim() != 3:
         raise ValueError(f"{name}: x {tuple(x.shape)} must be [B, N, E]")
@@ -157,17 +227,20 @@ def gapt_g_fused(x: torch.Tensor, mask: torch.Tensor | None, w: GaptWeights, num
     feat = w.fc_wt.shape[1]
     out = torch.empty((b, n, feat + (mask is not None)), dtype=torch.float32, device=x.device)
     lib = _build.library()
-    grid, scratch_floats = ctypes.c_int(), ctypes.c_longlong()
-    _build.check(lib.mpgan_gapt_fused_plan(b, n, e, num_heads, ctypes.byref(grid),
-                                           ctypes.byref(scratch_floats)), name)
-    scratch = torch.empty((scratch_floats.value,), dtype=torch.float32, device=x.device) \
-        if scratch_floats.value else None
+    plan = gapt_plan(b, n, e, num_heads, _sm_count(x.device))
+    scratch = None
+    if not plan.jets:
+        grid, scratch_floats = ctypes.c_int(), ctypes.c_longlong()
+        _build.check(lib.mpgan_gapt_fused_plan(b, n, e, num_heads, ctypes.byref(grid),
+                                               ctypes.byref(scratch_floats)), name)
+        if scratch_floats.value:
+            scratch = torch.empty((scratch_floats.value,), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
         code = lib.mpgan_gapt_fused(
             x.data_ptr(), ptr(mask), out.data_ptr(), *(t.data_ptr() for t in w), ptr(scratch),
-            b, n, e, num_heads, w.in_wt.shape[0], feat, float(alpha),
-            torch.cuda.current_stream().cuda_stream,
+            b, n, e, num_heads, w.in_wt.shape[0], feat, float(alpha), plan.jets, plan.rows,
+            plan.grid, plan.slab_floats, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, name)
     launch_counts[name] += 1

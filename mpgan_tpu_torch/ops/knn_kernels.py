@@ -287,14 +287,31 @@ def knn_edge_aggregate_bwd_reference(u1, u2m, idx, dists, w_d, hidden_flat, g, a
 # ---------------------------------------------------------------------------
 
 KNN_ROW_ARRAYS = 5  # u1, u2, id, mask and the edge's distance
-SEARCH_RECEIVERS = 2  # receivers a warp takes through the search at once
+
+
+def search_ldn(n: int) -> int:
+    """Row stride of the search's ``xf^T``: n rounded up to 4, then to an odd
+    number of 4-float groups (``knn_stages.cuh: search_ldn``)."""
+    ldn = -(-n // 4) * 4
+    return ldn + 4 if (ldn // 4) % 2 == 0 else ldn
+
+
+def search_cols(c: int) -> int:
+    """Rows of the search's ``xf^T``: ``c`` rounded up to 4, 8, 16 or 32 (zero
+    columns, so that the key loops have a fixed length), ``c`` itself past 32
+    (``knn_stages.cuh: search_cols``)."""
+    return next((w for w in (4, 8, 16, 32) if c <= w), c)
+
+
+SEARCH_LIST = 21  # keys a search thread keeps sorted in registers
+SEARCH_MERGE_INTS = 3 * 128 * SEARCH_LIST  # lists handed between thread groups, at most
 
 
 def knn_search_floats(n: int, c: int) -> int:
-    """Floats of the search's scratch: ``xf^T`` with the norms ``[c + 1, ldn]``
-    and 16 warps' key rows for ``SEARCH_RECEIVERS`` receivers each, ``ldn`` = n
-    rounded up to 32."""
-    return (c + 1 + (BWD_THREADS // 32) * SEARCH_RECEIVERS) * (-(-n // 32) * 32)
+    """Floats of the search's scratch: ``xf^T`` and the norms,
+    ``[search_cols(c) + 1, search_ldn(n)]``, then the lists that the threads of
+    a receiver hand to one another (the lists themselves live in registers)."""
+    return (search_cols(c) + 1) * search_ldn(n) + SEARCH_MERGE_INTS
 
 
 def _knn_rest_floats(dims, rows, ti, n, c, k, sspan, search) -> int:

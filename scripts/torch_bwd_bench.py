@@ -33,6 +33,7 @@ import torch
 TOL = 1e-4
 PHASES = ("rows_a0", "fwd_hidden", "fwd_last", "wgrad", "da", "rebuild_a0", "tail",
           "in_products_wait", "in_products_loop", "in_products_epilogue", "search")
+CLOCK_SLOTS = 15  # edge_products.cuh: kPhaseCount; slots 11-14 split the knn search
 
 
 def flat(res):
@@ -55,7 +56,7 @@ def phase_shares(build, fn_name):
     fn = getattr(build.library(), fn_name)
     fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
     fn.restype = ctypes.c_int
-    buf = (ctypes.c_ulonglong * len(PHASES))()
+    buf = (ctypes.c_ulonglong * CLOCK_SLOTS)()  # edge_products.cuh: kPhaseCount
     torch.cuda.synchronize()
     build.check(fn(buf, 1), fn_name)
     total = max(sum(buf[:7]) + buf[10], 1)  # 7-9 split the products' time again

@@ -12,15 +12,19 @@ published widths (fe [96, 160, 192], fn [256, 256]):
   training);
 - K4 at B=4096 N=30 (30p generation) and at B=256 N=30 (G in the flagship D+G
   step);
-- K9, the fused GAPT generator, at B=1024 N=30 masked (GAPT generation), as a
-  control beside the dense kernels (not with ``--phases``: it has no phase clocks);
-- the generator forward of 30p (B=4096) and 150p dense (B=512) jets, in jets/s,
+- K9, the fused GAPT generator, at B=1024 and B=4096 N=30 masked (GAPT
+  generation) and at N=150 B=512, with ``--phases`` its share of clocks per
+  phase (projections, attention split into scores with softmax and the
+  weighted sum by the warps' own clocks, the weight waits inside the
+  projections, the tail);
+- the generator forward of 30p (B=4096) and 150p dense (B=512) jets, and of
+  GAPT jets (B=1024, B=4096), in jets/s,
 
 on inputs drawn as ``chip_smoke.py`` draws them and with its timer (CUDA
 events, one call a timing, best of ``--reps`` after a warm-up). Each kernel is
 first held against its plain version (on the first 16 jets where the plain
-version of the whole batch would take gigabytes) and launched twice for equal
-bits. One JSON object a line.
+version of the whole batch would take gigabytes; K9 on the timed launch's own
+output over the whole batch) and launched twice for equal bits. One JSON object a line.
 
 ``--root`` names the checkout whose ``chip_smoke.py`` and ``mpgan_tpu_torch``
 are used (default: the one that holds this script), and ``--label`` goes into
@@ -43,11 +47,15 @@ import json
 import pathlib
 import sys
 
+import numpy as np
 import torch
 
 TOL = 1e-4
 PHASES = ("rows_a0", "fwd_hidden", "fwd_last", "unused_wgrad", "unused_da", "unused_rebuild",
           "tail", "in_products_wait", "in_products_loop", "in_products_epilogue", "search")
+CLOCK_SLOTS = 15  # edge_products.cuh: kPhaseCount; slots 11-14 split the search
+GAPT_PHASES = ("qkv", "out", "ff", "fc", "attention", "tail")  # gapt_fused.cu: GaptPhase
+GAPT_SLOTS = 9
 CHECK_JETS = 16
 
 
@@ -67,17 +75,48 @@ def inputs(dev, b, n, seed, fe, fn_out=3):
     return (r(b, n, fe[0], scale=0.5), r(b, n, fe[0], scale=0.5), mask, hidden, r(b, n, 32), fn)
 
 
-def phase_shares(build, fn_name="mpgan_edge_aggregate_phase_clocks"):
-    """Shares of a launch's pass clocks per phase since the last read (which resets
-    them), from the kernel library's entry ``fn_name``."""
+def read_clocks(build, fn_name, slots):
+    """The clocks summed per phase since the last read, which resets them."""
     fn = getattr(build.library(), fn_name)
     fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
     fn.restype = ctypes.c_int
-    buf = (ctypes.c_ulonglong * len(PHASES))()
+    buf = (ctypes.c_ulonglong * slots)()
     torch.cuda.synchronize()
     build.check(fn(buf, 1), fn_name)
+    return list(buf)
+
+
+def phase_shares(build, fn_name="mpgan_edge_aggregate_phase_clocks"):
+    """Shares of a launch's pass clocks per phase since the last read (which resets
+    them), from the kernel library's entry ``fn_name``. Where a search ran, also
+    ``search_split``: the search's own clocks split into the staging of the
+    senders (thread 0) and the rest, which the warps' own clocks split into keys,
+    selection and outputs."""
+    buf = read_clocks(build, fn_name, CLOCK_SLOTS)
     total = max(sum(buf[:7]) + buf[10], 1)  # 7-9 split the products' time again
-    return {name: round(v / total, 4) for name, v in zip(PHASES, buf) if not name.startswith("un")}
+    out = {name: round(v / total, 4) for name, v in zip(PHASES, buf) if not name.startswith("un")}
+    if buf[10]:
+        stage = min(buf[11] / buf[10], 1.0)
+        warp = max(sum(buf[12:15]), 1)
+        out["search_split"] = {"stage": round(stage, 4), **{
+            name: round((1 - stage) * v / warp, 4)
+            for name, v in zip(("keys", "select", "out"), buf[12:15])}}
+    return out
+
+
+def gapt_phase_shares(build):
+    """K9's shares of its CTAs' clocks per phase since the last read (which resets
+    them); the attention is split into scores with softmax and the weighted sum
+    by the warps' own clocks, and ``weight_waits`` is the share of the clocks
+    that the projections spent waiting for a weight slab."""
+    buf = read_clocks(build, "mpgan_gapt_fused_phase_clocks", GAPT_SLOTS)
+    total = max(sum(buf[:6]), 1)
+    out = {name: round(v / total, 4) for name, v in zip(GAPT_PHASES, buf)}
+    warp = max(buf[7] + buf[8], 1)
+    out["attention_scores_softmax"] = round(buf[4] / total * buf[7] / warp, 4)
+    out["attention_weighted_sum"] = round(buf[4] / total * buf[8] / warp, 4)
+    out["weight_waits"] = round(buf[6] / total, 4)
+    return out
 
 
 def main(argv=None):
@@ -109,15 +148,18 @@ def main(argv=None):
     print(json.dumps({"label": args.label, "card": card, "phases": args.phases,
                       "build_s": _build.build_info.get("seconds"), "ptxas": regs}), flush=True)
 
-    def report(kernel, shape, call, check, bound_ms, plain):
+    def report(kernel, shape, call, check, bound_ms, plain, shares=phase_shares):
+        """``check`` gives (kernel output, plain output) on a part of the batch, or the
+        plain output alone, which is then held against the timed call's own output."""
         res, again = call(), call()
-        out, ref = check()
+        checked = check()
+        out, ref = (res, checked) if isinstance(checked, torch.Tensor) else checked
         torch.cuda.synchronize()
         same = torch.equal(res, again)
         err = ((out - ref).abs() / (TOL + TOL * ref.abs())).max().item()  # > 1: beyond rtol=atol
         del res, again, out, ref
         if args.phases:
-            phase_shares(_build)  # drop the clocks of the launches above
+            shares(_build)  # drop the clocks of the launches above
         row = {"label": args.label, "kernel": kernel, "shape": shape,
                "ms": cs.best_ms(call, reps=args.reps, inner=1), "bound_ms": bound_ms,
                "err_over_tol": err, "two_runs_bit_identical": same}
@@ -125,7 +167,7 @@ def main(argv=None):
             row["plain_ms"] = cs.best_ms(plain, reps=3, inner=1)
             torch.cuda.empty_cache()
         if args.phases:
-            row["phase_shares"] = phase_shares(_build)
+            row["phase_shares"] = shares(_build)
         print(json.dumps(row), flush=True)
         if err > 1 or not same:
             raise SystemExit(f"torch_fwd_bench: {kernel} at {shape}: error {err} x tol, "
@@ -157,22 +199,41 @@ def main(argv=None):
         del u1, u2, mask, hidden, x, fn, a
         torch.cuda.empty_cache()
 
-    if not args.phases:
-        g = build_suite(from_args_dict(cs.GAPT)).generator(torch.Generator().manual_seed(30),
-                                                            device=dev)
-        x, mask = cs.gapt_kernel_inputs(dev, g, 1024, True, seed=1025)
+    gens = {}
+    for n, b in ((30, 1024), (30, 4096), (150, 512)):
+        if n not in gens:
+            gens[n] = build_suite(from_args_dict({**cs.GAPT, "num_hits": n})).generator(
+                torch.Generator().manual_seed(30 if n == 30 else 6), device=dev)
+        g = gens[n]
+        x, mask = cs.gapt_kernel_inputs(dev, g, b, True, seed=b + 1)
         w, heads = g.fused_weights(), g.cfg.num_heads
         with torch.no_grad():
             out = gk.gapt_g_fused(x, mask, w, heads, 0.2)
-            flops = cs.gapt_flops(1024, 30, g.cfg.embed_dim, g.cfg.sab_layers, g.cfg.feat_size)
-            report("gapt_g_fused", "B=1024 N=30 E=64 H=4 L=4 masked",
+            flops = cs.gapt_flops(b, n, g.cfg.embed_dim, g.cfg.sab_layers, g.cfg.feat_size)
+            report("gapt_g_fused", f"B={b} N={n} E=64 H=4 L=4 masked",
                    lambda: gk.gapt_g_fused(x, mask, w, heads, 0.2),
-                   lambda: (gk.gapt_g_fused(x, mask, w, heads, 0.2),
-                            gk.gapt_g_fused_reference(x, mask, w, heads, 0.2)),
+                   lambda: gk.gapt_g_fused_reference(x, mask, w, heads, 0.2),
                    cs.bound(flops, cs.nbytes(x, mask, out, *w))["bound_ms"],
-                   lambda: gk.gapt_g_fused_reference(x, mask, w, heads, 0.2))
-        del g, x, mask, w, out
+                   lambda: gk.gapt_g_fused_reference(x, mask, w, heads, 0.2), gapt_phase_shares)
+        del x, mask, w, out
         torch.cuda.empty_cache()
+    if not args.phases:
+        g = gens[30]
+        for b in (1024, 4096):
+            noise = torch.randn(b, 30, g.cfg.embed_dim,
+                                generator=torch.Generator(device=dev).manual_seed(b),
+                                device=dev) * 0.2
+            lab = torch.as_tensor((np.random.default_rng(b).integers(1, 31, size=(b, 1)) / 30)
+                                  .astype(np.float32), device=dev)
+
+            def gen():
+                with torch.inference_mode():
+                    g(noise, lab)
+            ms = cs.best_ms(gen, reps=args.reps, inner=1)
+            print(json.dumps({"label": args.label, "generation": "gapt 30p", "batch": b, "ms": ms,
+                              "jets_per_s": b / ms * 1e3}), flush=True)
+    del gens, g
+    torch.cuda.empty_cache()
 
     for n, b in ((30, 4096), (150, 512)):
         g = MPGenerator(build_mpgan_generator(from_args_dict({**cs.FLAGSHIP, "num_hits": n})),

@@ -11,7 +11,8 @@ published widths (fe [96, 160, 192], N=150, k=20, C=32):
   B=160 (D and G in a step of the train CLI) and eval without ``idx`` at B=160
   (the D step's fake batch);
 - K8 eval at B=512 and with dropout 0.5 at B=160, from K5's ``idx``;
-- K7 at B=512;
+- K7 at B=512 (generation on route 3) and at B=160, with and without the
+  distances (the train CLI's batch);
 - the knn-20 generator forward at B=512 in jets/s, on route 4 (K5) and route 3
   (``MPGAN_TPU_KNN_KERNEL=3``: K7 then K8),
 
@@ -30,9 +31,10 @@ every line, so that two checkouts run in turns on one card can be told apart.
 
 With ``--phases`` the kernels are built with ``-DMPGAN_PHASE_CLOCKS`` (a build of
 its own) and K5's and K8's rows are followed by the share of their clocks that
-each phase took (K5's search included), summed over the CTAs' first threads.
-The stamps cost time: read the shares from such a run and the milliseconds from
-a run without the flag.
+each phase took (K5's search included), summed over the CTAs' first threads;
+K5's and K7's rows also split the search's clocks into staging, keys, selection
+and outputs (``search_split``). The stamps cost time: read the shares from such
+a run and the milliseconds from a run without the flag.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ import torch
 TOL = 1e-4
 N, C, K = 150, 32, 20
 CLOCKS = {"knn_fused_layer": "mpgan_knn_fused_layer_phase_clocks",
-          "knn_edge_aggregate": "mpgan_knn_edge_aggregate_phase_clocks"}
+          "knn_edge_aggregate": "mpgan_knn_edge_aggregate_phase_clocks",
+          "knn_search": "mpgan_knn_search_phase_clocks"}
 
 
 def main(argv=None):
@@ -144,14 +147,25 @@ def main(argv=None):
                lambda: (kk.knn_edge_aggregate(*agg),), check,
                cs.bound(rows(b), cs.nbytes(d["u1"], d["u2m"], idx, *d["hidden"], out5)),
                lambda: kk.knn_edge_aggregate_reference(*agg))
-    d, idx5, _ = idx_of[(512, 0.0)]
+    for b, want in ((512, False), (160, False), (160, True)):
+        d, idx5, _ = idx_of[(b, 0.0)]
 
-    def search_check(res):
-        same = torch.equal(res[0], idx5)
-        return same, {"idx_equal_to_k5": same}
-    report("knn_search", "B=512 N=150 C=32 k=20", lambda: kk.knn_search(d["xs"], d["xf"], K, True),
-           search_check, cs.bound(search_flops(512), cs.nbytes(d["xs"], d["xf"], idx5)),
-           lambda: kk.knn_search_reference(d["xs"], d["xf"], K, True))
+        def search_check(res, d=d, idx5=idx5, want=want):
+            same = torch.equal(res[0], idx5)
+            note = {"idx_equal_to_k5": same}
+            if want:
+                _, dref = kk.knn_search_reference(d["xs"], d["xf"], K, True, True)
+                live = torch.gather(d["mask"][:, None, :, 0].expand(-1, N, -1), 2,
+                                    res[0].long()) > 0
+                err = ((res[1] - dref).abs() / (TOL + TOL * dref.abs()))[live].max().item()
+                note["dists_err_over_tol"] = err
+                same = same and err <= 1
+            return same, note
+        moved = cs.nbytes(d["xs"], d["xf"], idx5) + (4 * idx5.numel() if want else 0)
+        report("knn_search", f"B={b} N=150 C=32 k=20" + (" with distances" if want else ""),
+               lambda d=d, want=want: kk.knn_search(d["xs"], d["xf"], K, True, want),
+               search_check, cs.bound(search_flops(b), moved),
+               lambda d=d, want=want: kk.knn_search_reference(d["xs"], d["xf"], K, True, want))
     del idx_of, d, idx5
     torch.cuda.empty_cache()
 

@@ -3,8 +3,9 @@
 
     python scripts/torch_step_bench.py [--root CHECKOUT] [--label NAME] [--reps N]
 
-For a machine with a CUDA card. Flagship step at B=256 N=30 and knn-20 step at
-B=128 N=150, published widths, random weights from a seed, built and timed with
+For a machine with a CUDA card. Flagship step at B=256 N=30, knn-20 step at
+B=128 N=150 and GAPT step at B=512 N=30 (K9 for the D step's fake batch),
+published widths, random weights from a seed, built and timed with
 ``chip_smoke.py``'s helpers: CUDA events, best of ``--reps`` timings of two
 steps each; then a ``torch.profiler`` window of three steps for the device time
 a step, the idle share and the backward kernels' rows. One JSON object a line.
@@ -40,7 +41,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = cs.card_line()
-    for name, model, batch, n in (("flagship", cs.FLAGSHIP, 256, 30), ("knn20", cs.KNN150, 128, 150)):
+    for name, model, batch, n in (("flagship", cs.FLAGSHIP, 256, 30),
+                                  ("knn20", cs.KNN150, 128, 150), ("gapt", cs.GAPT, 512, 30)):
         margs = from_args_dict(model)
         data, labels = (t.to(dev) for t in cs.real_batch(batch, n))
         state = cs.make_state(margs, dev)

@@ -665,6 +665,38 @@ def test_knn_search_kernel_matches_plain_and_k5(dev, b, n, c, widths, k, self_lo
         assert dists is None
 
 
+TIE_SHAPES = [
+    (3, 45, 32, [24, 16, 12], 20),  # k + 1 = 21 keys: the register list's cap; n % 32 != 0
+    (2, 45, 8, [24, 16, 12], 21),   # above the cap: a second round of the search
+    (2, 70, 3, [30, 50, 7], 33),
+    (2, 37, 40, [24, 16, 12], 24),  # rows wider than the registers hold, two rounds
+    (4, 150, 32, [96, 160, 192], 20),
+]
+
+
+@pytest.mark.parametrize("self_loops", [True, False])
+@pytest.mark.parametrize("b,n,c,widths,k", TIE_SHAPES)
+def test_knn_searches_break_exact_ties_alike(dev, b, n, c, widths, k, self_loops):
+    """Duplicated particles give keys equal up to the index bits: K7's idx, K5's
+    and the plain search's are equal bit for bit, and K8 on K5's idx equals K5."""
+    d = _knn_inputs(dev, b, n, c, widths, k, seed=n + c)
+    xs = d["xs"].clone()
+    xs[:, 1::2] = xs[:, 0:2 * (n // 2):2]  # particle 2m + 1 repeats particle 2m
+    xf = ((1 - 1e4) * d["mask"] + 1e4) * xs
+    idx7, _ = kk.knn_search(xs, xf, k, self_loops, False)
+    out5, idx5, _ = kk.knn_fused_layer(xs, xf, d["u1"], d["u2m"], None, d["hidden"], k,
+                                       self_loops, False, 0.2, True, 0.0, 0, True)
+    out8 = kk.knn_edge_aggregate(d["u1"], d["u2m"], idx5, None, None, d["hidden"], 0.2, True,
+                                 0.0, 0)
+    torch.cuda.synchronize()
+    idx_ref, _ = kk.knn_search_reference(xs, xf, k, self_loops)
+    keys = kk.knn_keys(xs, xf)
+    assert int(((keys >> kk.key_bits(n))[:, :, 0::2][:, :, :n // 2]
+                == (keys >> kk.key_bits(n))[:, :, 1::2]).sum()) > 0  # the ties are there
+    assert torch.equal(idx7, idx_ref) and torch.equal(idx5, idx_ref)
+    assert torch.equal(out8, out5)
+
+
 @pytest.mark.parametrize("dropout_p", [0.0, 0.5])
 @pytest.mark.parametrize("sum_agg,want_dists", [(True, False), (False, True)])
 @pytest.mark.parametrize("b,n,c,widths,k", KNN_SHAPES)
@@ -849,6 +881,64 @@ def test_gapt_fused_kernel_matches_plain(dev, n, e, heads, layers, masked, b):
         assert torch.equal(out[..., -1], ref[..., -1])
 
 
+def _gapt_inputs(dev, b, n, e, masked, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, n, e, generator=gen, device=dev)
+    mask = None
+    if masked:
+        counts = torch.randint(1, n + 1, (b,), generator=gen, device=dev)
+        counts[0] = n
+        mask = (torch.arange(n, device=dev)[None, :] < counts[:, None]).float()[..., None]
+    return x, mask
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("b", [1, 3, 37, 1023, 4097])
+def test_gapt_fused_kernel_short_items_match_plain_and_rerun(dev, b, masked):
+    """Batches that are no multiple of the 4 jets an item holds at N = 30: the last
+    item is short, its missing jets are computed as zeros and never stored; a
+    rerun gives the same bits, and a jet's bits do not depend on its item."""
+    from mpgan_tpu_torch.ops import gapt_kernels as gk
+
+    g = _gapt(dev, 30, 64, 4, 4, masked)
+    x, mask = _gapt_inputs(dev, b, 30, 64, masked, seed=b)
+    w = g.fused_weights()
+    assert gk.gapt_plan(b, 30, 64, 4, mk._sm_count(x.device)).jets == 4
+    with torch.no_grad():
+        out = gk.gapt_g_fused(x, mask, w, 4, 0.2)
+        again = gk.gapt_g_fused(x, mask, w, 4, 0.2)
+        m = min(b, 5)
+        first = gk.gapt_g_fused(x[:m], None if mask is None else mask[:m], w, 4, 0.2)
+        torch.cuda.synchronize()
+        ref = gk.gapt_g_fused_reference(x, mask, w, 4, 0.2)
+    torch.testing.assert_close(out, ref, **TOL)
+    assert torch.equal(out, again) and torch.equal(first, out[:m])
+    if masked:
+        assert torch.equal(out[..., -1], ref[..., -1])
+
+
+def test_gapt_plans_on_the_card_equal_the_launcher(dev):
+    """gapt_kernels.gapt_plan against the kernel's own layout check: the item
+    path's shared memory where the plan takes it, a refusal where it leaves the
+    size to the per-jet path."""
+    from mpgan_tpu_torch.ops import gapt_kernels as gk
+
+    lib = _build.library()
+    for n, e, heads in ((30, 64, 4), (150, 64, 4), (25, 32, 2), (100, 32, 4), (40, 48, 2),
+                        (1, 64, 4), (9, 10, 5), (64, 64, 1), (161, 64, 4), (300, 64, 4)):
+        plan = gk.gapt_plan(64, n, e, heads, 132)
+        smem = ctypes.c_longlong(-1)
+        if plan.jets:
+            assert lib.mpgan_gapt_item_smem(n, e, heads, plan.jets, plan.rows,
+                                            plan.slab_floats, ctypes.byref(smem)) == 0
+            assert smem.value == plan.smem_bytes, (n, e, heads)
+        else:
+            jets = max(1, 128 // plan.ns)
+            rows = -(-(jets * plan.ns) // 32) * 32
+            assert lib.mpgan_gapt_item_smem(n, e, heads, jets, rows, 12 * e,
+                                            ctypes.byref(smem)) == -1, (n, e, heads)
+
+
 def test_gapt_generator_kernel_route_matches_plain_route(dev):
     g = _gapt(dev, 30, 64, 4, 4, True)
     noise = torch.randn(33, 30, 64, device=dev) * 0.2
@@ -895,9 +985,10 @@ def test_backward_kernels_build_and_run_with_phase_clocks(dev):
 
 
 def test_knn_forward_kernels_build_and_run_with_phase_clocks(dev):
-    """The ``-DMPGAN_PHASE_CLOCKS`` build of K5 and K8 (a process of its own): the
-    knn bench compiles, its kernels agree with their plain versions, and K5's
-    and K8's clocks fall into the phases of a pass, K5's search among them."""
+    """The ``-DMPGAN_PHASE_CLOCKS`` build of K5, K8 and K7 (a process of its own):
+    the knn bench compiles, its kernels agree with their plain versions, K5's
+    and K8's clocks fall into the phases of a pass, K5's search among them, and
+    K5's and K7's searches split into staging, keys, selection and outputs."""
     import json
     import pathlib
     import subprocess
@@ -909,9 +1000,13 @@ def test_knn_forward_kernels_build_and_run_with_phase_clocks(dev):
     assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
     rows = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
     timed = [r for r in rows if "kernel" in r]
-    assert len(timed) == 6 and rows[0]["phases"] is True
+    assert len(timed) == 8 and rows[0]["phases"] is True
     for r in timed:
         assert r["agrees"] and r["two_runs_bit_identical"], r
+        if r["kernel"] != "knn_edge_aggregate":
+            split = r["phase_shares"]["search_split"]
+            assert split["stage"] > 0 and split["keys"] > 0, r
+            assert abs(sum(split.values()) - 1.0) < 1e-2, r
         if r["kernel"] == "knn_search":
             continue
         shares = r["phase_shares"]

@@ -1,10 +1,13 @@
-"""The knn forward kernels' launch plan (``knn_kernels.knn_fwd_plan``), on the CPU.
+"""The knn forward kernels' launch plan (``knn_kernels.knn_fwd_plan``) and the
+fused GAPT generator's item plan (``gapt_kernels.gapt_plan``), on the CPU.
 
 K5 and K8 (``csrc/knn_stages.cuh``) take their pass shape, items, grid, K5's
-search span and weight slab size from this plan and only check it on the card,
-so what the kernels' schedule must hold is tested here: every receiver in one
-item of one jet, every (receiver, rank) edge in one pass row with K1's knn id,
-every receiver searched once, and the shared memory within the card's 227 KB.
+search span and weight slab size from their plan, K9 (``csrc/gapt_fused.cu``)
+its jets an item, rows, grid and slab size from its own, and the kernels only
+check them on the card, so what the schedules must hold is tested here: every
+receiver in one item of one jet, every (receiver, rank) edge in one pass row
+with K1's knn id, every receiver searched once, every GAPT jet in one item with
+only the last item short, and the shared memory within the card's 227 KB.
 """
 
 import numpy as np
@@ -155,11 +158,93 @@ def test_knn_shared_memory_by_hand():
     # K8: no neighbours, slabs of 16384
     assert kk.knn_fwd_smem_bytes(FE, 128, 6, 150, 32, 20, 0, False) == 4 * (
         160 * 132 + 6 * 192 + 5 * 132 + tab + 2 * 16384)
-    # the search's scratch: xf^T with norms (33 rows) and 16 warps x 2 key rows of 160
-    assert kk.knn_search_floats(150, 32) == (33 + 32) * 160
+    # the search's scratch: xf^T with norms, 33 rows of 156 (150 rounded up to 4, then to
+    # an odd number of 4-float groups), and the 21-key lists that up to 3 x 128 threads
+    # hand to the receivers' first threads (the lists live in registers)
+    merge = 3 * 128 * 21
+    assert kk.knn_search_floats(150, 32) == 33 * 156 + merge
+    assert kk.knn_search_floats(30, 32) == 33 * 36 + merge
+    assert kk.knn_search_floats(13, 8) == 9 * 20 + merge
+    # narrower rows are padded to 4, 8 or 16 columns, wider ones than 32 kept as they are
+    assert kk.knn_search_floats(70, 3) == 5 * 76 + merge
+    assert kk.knn_search_floats(37, 40) == 41 * 44 + merge
     # a search scratch wider than the pass buffer widens the region before the slabs
     wide = kk.knn_search_floats(300, 64)
     assert wide > 96 * 36 + 32
     assert kk.knn_fwd_smem_bytes([96], 32, 4, 300, 64, 3, 300, True) == 4 * (
         wide + 5 * 36 + tab + 2 * 300 * 3 + 2 * kk.knn_fwd_slab_floats([96], 32, 4, 300, 64, 3,
                                                                        300, True))
+
+
+# ---------------------------------------------------------------------------
+# K9's item plan (gapt_kernels.gapt_plan; csrc/gapt_fused.cu checks it on the card)
+# ---------------------------------------------------------------------------
+
+
+def test_gapt_plan_at_the_published_sizes():
+    from mpgan_tpu_torch.ops import gapt_kernels as gk
+
+    # 30 particles: 4 jets of 32 rows an item, 256 items at the sampler's batch
+    p = gk.gapt_plan(1024, 30, 64, 4, 132)
+    assert (p.jets, p.ns, p.rows, p.items, p.grid) == (4, 32, 128, 256, 132)
+    assert gk.gapt_plan(4096, 30, 64, 4, 132).items == 1024
+    # 150 particles: one jet of 152 rows in 160
+    p150 = gk.gapt_plan(512, 150, 64, 4, 132)
+    assert (p150.jets, p150.ns, p150.rows, p150.items, p150.grid) == (1, 152, 160, 512, 132)
+    for plan in (p, p150):
+        assert plan.smem_bytes <= mk.MAX_SMEM_BYTES and plan.slab_floats % 4 == 0
+        # the qkv weights [64 x 192] arrive in two slabs of 32 rows, out and ff in one
+        assert plan.slab_floats // 192 in range(32, 64) and plan.slab_floats >= 64 * 64
+
+
+def test_gapt_item_shared_memory_by_hand():
+    from mpgan_tpu_torch.ops import gapt_kernels as gk
+
+    # x^T and qkv^T [4 x 64 rows of 132], the mask bias row and two slabs
+    p = gk.gapt_plan(1024, 30, 64, 4, 132)
+    assert p.smem_bytes == 4 * (4 * 64 * 132 + 132 + 2 * p.slab_floats)
+    # the slabs take what is left (227 KB in all), at most one layer's qkv weights
+    assert p.slab_floats == (mk.MAX_SMEM_BYTES // 4 - (4 * 64 * 132 + 132)) // 2 // 4 * 4
+    assert gk.gapt_plan(8, 25, 32, 2, 132).slab_floats == 3 * 32 * 32
+
+
+@pytest.mark.parametrize("n,e,heads", [
+    (9, 10, 5),     # a width that is no multiple of 4
+    (64, 64, 1),    # a head wider than the attention's registers
+    (161, 64, 4),   # 164 rows in 192: 12 columns a thread in the qkv product
+    (300, 64, 4),
+    (512, 64, 4),   # the gate's cap
+])
+def test_gapt_plan_leaves_what_the_item_path_does_not_take_to_the_per_jet_path(n, e, heads):
+    from mpgan_tpu_torch.ops import gapt_kernels as gk
+
+    assert gk.gapt_plan(5, n, e, heads, 132).jets == 0
+
+
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("batch,n,e,heads", [
+    (1, 30, 64, 4), (3, 30, 64, 4), (37, 30, 64, 4), (1023, 30, 64, 4), (4097, 30, 64, 4),
+    (1024, 30, 64, 4), (512, 150, 64, 4), (10, 25, 32, 2), (3, 100, 32, 4), (4, 40, 48, 2),
+    (5, 1, 64, 4), (2, 256, 32, 4),
+])
+def test_gapt_plan_covers_every_jet_once(batch, n, e, heads, sms):
+    from mpgan_tpu_torch.ops import gapt_kernels as gk
+
+    plan = gk.gapt_plan(batch, n, e, heads, sms)
+    assert plan.jets >= 1 and plan.ns == -(-n // 4) * 4 and plan.ns % 4 == 0
+    # whole jets in an item, at most 128 rows of them unless one jet is wider
+    assert plan.jets * plan.ns <= max(128, plan.ns) and plan.jets == max(1, 128 // plan.ns)
+    assert plan.rows % 32 == 0 and 0 <= plan.rows - plan.jets * plan.ns < 32
+    assert plan.items == -(-batch // plan.jets) and 1 <= plan.grid <= min(sms, plan.items)
+    assert plan.smem_bytes <= mk.MAX_SMEM_BYTES and plan.slab_floats >= 12 * e
+    ranges = [plan.item_range(cta) for cta in range(plan.grid)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.items
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(ranges, ranges[1:]))
+    seen = np.zeros(batch, np.int64)
+    for item in range(plan.items):
+        jets = plan.item_jets(item, batch)
+        assert 1 <= len(jets) <= plan.jets
+        # only the last item may be short
+        assert len(jets) == plan.jets or item == plan.items - 1
+        seen[jets.start:jets.stop] += 1
+    assert (seen == 1).all()
