@@ -38,10 +38,13 @@ Phases, each printed as it finishes:
    dropout keys: losses and every gradient agree. Again on the card's plain
    path with dropout 0 (the plain path draws other masks than the kernels);
 9. the main train path: ``mpgan_tpu_torch.cli.train`` with the flagship card
-   on synthetic jets, 2 epochs (checkpoints each epoch, evaluation at epoch 2),
-   then a resume that restores the state exactly, then a 3rd epoch. Launch
-   counters are reset before and read after; K2 with dropout, K3 with and
-   without weight gradients and K4 must all have launched;
+   and ``--efp --fpd --cov-mmd`` on synthetic jets, 2 epochs (checkpoints each
+   epoch, evaluation at epoch 2: finite w1efp, FPD and coverage/MMD, and the
+   real-EFP cache), then a resume that restores the state exactly, then a 3rd
+   epoch. Launch counters are reset before and read after; K2 with dropout, K3
+   with and without weight gradients and K4 must all have launched. Then
+   ``mpgan_tpu_torch.cli.gen`` samples 2,000 jets from the run's
+   ``state_2.npz`` (counters reset before, read after: K4 must launch);
 10. the D+G step at B=256 N=30, kernel path and plain path in turns (CUDA
     events, best of 3), with TFLOP/s against the 679 GFLOP the flagship step
     needs; K3 (with and without weight gradients, at B=256 N=30 and B=32 N=150)
@@ -125,7 +128,19 @@ Phases, each printed as it finishes:
     ``MPGAN_TPU_KNN_KERNEL=3``, 1,024 knn-20 jets through ``generate_multi_batch``
     at B=512 and D+G steps at B=128 (counters reset before, read after: K7, K8
     and K6 must have launched, K5 not), timed beside route 4, and a
-    ``torch.profiler`` breakdown of the route-4 knn-20 step.
+    ``torch.profiler`` breakdown of the route-4 knn-20 step;
+22. evaluation at the loop's size: ``Trainer.eval_save_plot`` with ``--efp --fpd
+    --cov-mmd`` on 50,000 generated jets against 50,000 synthetic real jets,
+    for the flagship 30p (K4) and the 150p dense generator (K2), twice each (the
+    first computes the real-EFP cache), each part timed: generation, w1p and
+    w1m (host), the FPD's EFPs (FP32 on the card), w1efp, FPD on the host,
+    coverage/MMD (float64 on the card). Counters reset before, read after: K4,
+    then K2, must launch. Checks, each raising: generated jets and metrics finite; the card's real
+    EFPs within rtol 2e-3, atol 1e-9 of the float64 path on 2,000 (30p) and 256
+    (150p) jets; the EFPs' peak memory under (plan squares + 2) x chunk x N^2 x
+    4 bytes (``efp_plan_squares``), coverage/MMD's under four float64 tensors
+    of the Sinkhorn cost's size; at 30p the first batch's EMD on the card
+    within 1e-9 of the same function on the CPU.
 
 Every kernel's entry in the JSON line carries its bound: the larger of its
 FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
@@ -502,14 +517,20 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
     return worst
 
 
-def main_train_path(mk, train_cli, tmp, device="cuda"):
-    """Phase 9: the train CLI for 2 epochs, a resume that restores the state, a 3rd epoch."""
+def main_train_path(mk, train_cli, gen_cli, tmp, device="cuda"):
+    """Phase 9: the train CLI with the evaluation's metrics for 2 epochs, a resume
+    that restores the state, a 3rd epoch; then ``gen`` from the epoch-2 checkpoint."""
+    from mpgan_tpu_torch.training import loop
+
     argv = ["--device", device, "--name", "smoke", "--model", "mpgan", "--jets", "g",
             "--dir-path", str(tmp), "--num-samples", "10000", "--eval-tot-samples", "2000",
-            "--w1-num-samples", "1000", "--save-model-epochs", "1", "--save-epochs", "2"]
+            "--w1-num-samples", "1000", "--save-model-epochs", "1", "--save-epochs", "2",
+            "--efp", "--fpd", "--cov-mmd"]
     mk.reset_launch_counts()
+    eval_parts, eval_calls = {}, {}
     t0 = time.perf_counter()
-    t1 = train_cli.main(argv + ["--num-epochs", "2"])
+    with timed_parts(loop, EVAL_PARTS, eval_parts, eval_calls):
+        t1 = train_cli.main(argv + ["--num-epochs", "2"])
     wall = time.perf_counter() - t0
     models = tmp / "smoke" / "models"
     files = sorted(p.name for p in models.iterdir())
@@ -524,13 +545,18 @@ def main_train_path(mk, train_cli, tmp, device="cuda"):
     t3 = train_cli.main(argv + ["--num-epochs", "3"])
     counts = dict(mk.launch_counts)  # the three runs: 2 epochs, the resume, the 3rd epoch
     losses = {k: t3.losses[k] for k in ("Dr", "Df", "D", "G")}
+    metrics = {k: t3.losses[k] for k in ("w1p", "w1m", "w1efp", "fpd", "cov_mmd")}
     finite = all(np.isfinite(v).all() for v in losses.values()) and \
-        all(np.isfinite(np.asarray(t3.losses[k])).all() for k in ("w1p", "w1m"))
-    log("main_path_train", wall_s_2_epochs=wall, checkpoints=files,
+        all(len(v) == 1 and np.isfinite(np.asarray(v)).all() for v in metrics.values())
+    cache = tmp / "smoke" / "real_efps_d4all_g.npy"
+    log("main_path_train", wall_s_2_epochs=wall, eval_parts_s=eval_parts, checkpoints=files,
         resumed_from=t_resume.start_epoch, state_restored=restored,
-        epochs=len(t3.losses["G"]), losses=losses, w1m=t3.losses["w1m"], launches=counts)
+        epochs=len(t3.losses["G"]), losses=losses, metrics=metrics,
+        real_efp_cache=cache.exists(), best_epoch=t3.best_epoch, launches=counts)
     if files != ["state_1.npz", "state_2.npz"] or not (models / "state_3.npz").exists():
         raise SystemExit(f"train CLI checkpoints missing: {files}")
+    if not cache.exists() or np.load(cache).shape != (2000, 35):
+        raise SystemExit(f"train CLI: no real-EFP cache {cache.name} of 2000 x 35")
     if not restored:
         raise SystemExit("resume did not restore the saved train state")
     if not finite or len(t3.losses["G"]) != 3 or t3.losses["G"][:2] != t1.losses["G"]:
@@ -539,6 +565,22 @@ def main_train_path(mk, train_cli, tmp, device="cuda"):
                  "edge_aggregate_fn"):
         if counts[name] == 0:
             raise SystemExit(f"kernel {name} never launched on the train path")
+
+    # gen from the run's own TrainState checkpoint
+    mk.reset_launch_counts()
+    out = tmp / "gen_npz.npy"
+    gen_cli.main(["--g-args", str(tmp / "smoke" / "smoke_args.txt"),
+                  "--g-state", str(models / "state_2.npz"), "--output-file", str(out),
+                  "--device", device, "--num-samples", "2000"])
+    gen_counts = dict(mk.launch_counts)
+    jets = np.load(out)
+    log("main_path_gen_npz", jets=list(jets.shape), finite=bool(np.isfinite(jets).all()),
+        launches={k: v for k, v in gen_counts.items() if v})
+    if jets.shape != (2000, 30, 3) or not np.isfinite(jets).all():
+        raise SystemExit(f"gen from state_2.npz: {jets.shape} not finite (2000, 30, 3)")
+    if gen_counts["edge_aggregate_fn"] == 0:
+        raise SystemExit("gen from state_2.npz never launched edge_aggregate_fn")
+    counts["edge_aggregate_fn"] += gen_counts["edge_aggregate_fn"]
     return counts
 
 
@@ -1459,6 +1501,154 @@ def knn_split_route(kk, mk, dev, from_args_dict, card):
     return launches, times
 
 
+EVAL_JETS = 50000  # the loop's evaluation size (eval_tot_samples' default)
+EVAL_F64_ROWS = {30: 2000, 150: 256}  # real jets whose card EFPs are held to float64
+EVAL_PARTS = ("generate_multi_batch", "w1p", "w1m", "efps", "w1efp", "fpd", "cov_mmd")
+
+
+def efp_plan_squares() -> int:
+    """The most ``[chunk, N, N]`` tensors ``efps`` holds at once over the 20
+    primes' plans: theta, the factors its plan made so far and the step's
+    result (``evaluation/efp.py::_run_plan``; theta's places in the list are one
+    tensor); at least 2, theta and the temporary that builds it."""
+    from mpgan_tpu_torch.evaluation.efp import contraction_plan, efp_multigraphs
+
+    peak = 2
+    for graph in efp_multigraphs(4):
+        # per factor in the plan's list: a square the plan made (not theta, not z)
+        made = [False] * (len(graph) + len({v for e in graph for v in e}))
+        for i, j, spec in contraction_plan(graph):
+            square = len(spec.split("->")[1]) == 3
+            peak = max(peak, 1 + sum(made) + square)
+            for k in sorted((i, j), reverse=True):
+                made.pop(k)
+            made.append(square)
+    return peak
+
+
+@contextlib.contextmanager
+def timed_parts(module, names, times, calls):
+    """Wrap the functions ``names`` of ``module``: each call's wall time (the
+    device synchronised before and after) adds to ``times[name]``, and its
+    arguments, result and peak device memory above what was allocated before it
+    go to ``calls[name]``."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def inner(*args, **kw):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            calls.setdefault(name, []).append((args, kw, out, peak))
+            return out
+        return inner
+
+    for name, fn in saved.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def evaluation(mk, dev, card, tmp):
+    """Phase 22: ``Trainer.eval_save_plot`` at the loop's size (50,000 jets
+    against 50,000 synthetic real jets, ``--efp --fpd --cov-mmd``) for the flagship
+    30p and the 150p dense generator, twice each (the first computes the real
+    side's EFP cache), timed by part; then the checks on what the parts were
+    given and returned."""
+    from mpgan_tpu_torch.data.jetnet import JetNetDataset
+    from mpgan_tpu_torch.evaluation import efp
+    from mpgan_tpu_torch.evaluation.cov_mmd import _pairwise_emd
+    from mpgan_tpu_torch.training import loop
+    from mpgan_tpu_torch.training.config import from_args_dict
+
+    squares = efp_plan_squares()
+    launches = {}
+    for n, kernel in ((30, "edge_aggregate_fn"), (150, "edge_aggregate")):
+        args = from_args_dict({**FLAGSHIP, "num_hits": n, "name": f"eval{n}",
+                               "dir_path": str(tmp), "efp": True, "fpd": True, "cov_mmd": True})
+        valid = JetNetDataset(
+            "g", num_particles=n, split="valid", split_fraction=(0.0, 1.0),
+            synthetic_num_jets=EVAL_JETS, mask_feature=args.get("mask", False),
+            num_particles_label=bool(args.clabels or args.get("mask_c")))
+        trainer = loop.Trainer(args, valid_dataset=valid, device=dev)
+        mk.reset_launch_counts()
+        runs = []
+        for epoch in (1, 2):
+            times, calls = {}, {}
+            with timed_parts(loop, EVAL_PARTS, times, calls):
+                t0 = time.perf_counter()
+                trainer.eval_save_plot(epoch)
+                torch.cuda.synchronize()
+                times["total"] = time.perf_counter() - t0
+            times["other"] = times["total"] - sum(times[k] for k in EVAL_PARTS)
+            runs.append((times, calls))
+        launches[kernel] = mk.launch_counts[kernel]
+        if launches[kernel] == 0:
+            raise SystemExit(f"evaluation at {n}p never launched {kernel}")
+
+        calls = runs[0][1]
+        (real,), real_kw, real_efps, _ = calls["efps"][0]
+        gen_norm = calls["generate_multi_batch"][0][2]
+        metrics = {k: trainer.losses[k] for k in ("w1efp", "fpd", "cov_mmd")}
+        if gen_norm.shape != (EVAL_JETS, n, 4) or not np.isfinite(gen_norm).all():
+            raise SystemExit(f"evaluation at {n}p: generated {gen_norm.shape}, not finite")
+        if not all(len(v) == 2 and np.isfinite(np.asarray(v)).all() for v in metrics.values()):
+            raise SystemExit(f"evaluation at {n}p: metrics not finite: {metrics}")
+        if len(real) * n * n <= efp.DEVICE_THRESHOLD["cuda"] or real_efps.shape != (EVAL_JETS, 35):
+            raise SystemExit(f"evaluation at {n}p: the real EFPs did not take the device path")
+        # the card's FP32 EFPs against the float64 path (the JAX package's bar)
+        rows = EVAL_F64_ROWS[n]
+        ref = efp.efps(real[:rows], select="d<=4-all", use_device=False)
+        got = real_efps[:rows]
+        efp_rel = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-300)))
+        efp_bad = int((np.abs(got - ref) > 1e-9 + 2e-3 * np.abs(ref)).sum())
+        # peak memory of the FP32 EFP calls against the plan's squares
+        efp_peak = max(peak for _, kw, _, peak in calls["efps"] if kw.get("use_device") is None)
+        # + 2: a copy einsum may make of an operand, and one of slack
+        efp_bound = (squares + 2) * min(4096, EVAL_JETS) * n * n * 4
+        f64_rows = [len(a[0]) for r in runs for a, kw, _, _ in r[1]["efps"]
+                    if kw.get("use_device") is False]
+        # the Sinkhorn EMD: three float64 tensors of the cost's size at once, one of slack
+        (cov_real, cov_gen), cov_kw, _, cov_peak = calls["cov_mmd"][0]
+        cov_n = cov_kw["num_eval_samples"]
+        cov_bound = 4 * 8 * cov_n * cov_n * (n + 1) ** 2
+        emd_rel = None
+        if n == 30:
+            # the first batch cov_mmd drew, on the card and on the CPU
+            rng = np.random.default_rng(42)
+            ri = rng.choice(len(cov_real), size=cov_n, replace=False)
+            gi = rng.choice(len(cov_gen), size=cov_n, replace=False)
+            pair = (cov_gen[gi][:, :, :3], cov_real[ri][:, :, :3])
+            on_card = _pairwise_emd(*pair, device=dev)
+            on_cpu = _pairwise_emd(*pair, device="cpu")
+            emd_rel = float(np.max(np.abs(on_card - on_cpu) / np.abs(on_cpu)))
+        log("evaluation", card=card, n=n, jets=EVAL_JETS, batch=args.batch_size,
+            seconds=[r[0] for r in runs], metrics=metrics, launches=launches[kernel],
+            efp_rel_err_f64=efp_rel, efp_rows_beyond_tol=efp_bad, efp_rows_checked=rows,
+            efp_peak_bytes=efp_peak, efp_bound_bytes=efp_bound, plan_squares=squares,
+            gen_rows_recomputed_f64=f64_rows, cov_mmd_peak_bytes=cov_peak,
+            cov_mmd_bound_bytes=cov_bound, emd_rel_err_cpu=emd_rel)
+        if efp_bad:
+            raise SystemExit(f"evaluation at {n}p: {efp_bad} EFP values of the card beyond "
+                             "rtol 2e-3, atol 1e-9 of the float64 path")
+        if efp_peak > efp_bound or cov_peak > cov_bound:
+            raise SystemExit(f"evaluation at {n}p: peak memory {efp_peak} (EFPs), {cov_peak} "
+                             f"(cov_mmd) above the bounds {efp_bound}, {cov_bound}")
+        if emd_rel is not None and emd_rel > 1e-9:
+            raise SystemExit(f"evaluation: the card's EMD is {emd_rel} from the CPU's")
+        del trainer, runs, calls
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -1662,7 +1852,7 @@ def main() -> None:
     train_err = train_kernel_checks(mk, dev, identical)
     step_check(dev, from_args_dict)
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches = main_train_path(mk, train_cli, pathlib.Path(tmp))
+        train_launches = main_train_path(mk, train_cli, gen, pathlib.Path(tmp))
     step_ms, ttimes = train_timings(mk, dev, from_args_dict, card)
 
     # 11-15. the 150-particle knn-20 path
@@ -1689,12 +1879,16 @@ def main() -> None:
     split_err = knn_split_checks(kk, dev)
     split_launches, stimes = knn_split_route(kk, mk, dev, from_args_dict, card)
 
+    # 22. evaluation at the loop's size
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_launches = evaluation(mk, dev, card, pathlib.Path(tmp))
+
     fwd_src = "mpgan_tpu_torch/csrc/edge_aggregate.cu"
     kernels = [
         {"name": "edge_aggregate", "route": "cuda", "source": fwd_src,
          "replaces": REPLACES["edge_aggregate"], "includes": K1,
          "launches": launches["edge_aggregate"] + train_launches["edge_aggregate"]
-         + train_launches["edge_aggregate_train"],
+         + train_launches["edge_aggregate_train"] + eval_launches["edge_aggregate"],
          "max_abs_err": max(max_err["edge_aggregate"], train_err["edge_aggregate"]),
          "max_abs_err_fe128_256": max_err["edge_aggregate_fe128_256"],
          "two_runs_bit_identical": identical["edge_aggregate"],
@@ -1704,7 +1898,8 @@ def main() -> None:
          "train_bound_ms": dense_fwd_bound(256, 30)["bound_ms"]},
         {"name": "edge_aggregate_fn", "route": "cuda", "source": fwd_src,
          "replaces": REPLACES["edge_aggregate_fn"],
-         "launches": launches["edge_aggregate_fn"] + train_launches["edge_aggregate_fn"],
+         "launches": launches["edge_aggregate_fn"] + train_launches["edge_aggregate_fn"]
+         + eval_launches["edge_aggregate_fn"],
          "max_abs_err": max_err["edge_aggregate_fn"],
          "two_runs_bit_identical": identical["edge_aggregate_fn"],
          "ms": k4[0], "plain_ms": k4[1],

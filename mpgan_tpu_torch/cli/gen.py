@@ -1,10 +1,14 @@
 """Inference from a trained generator (reference gen.py:85-145;
-``mpgan_tpu/cli/gen.py``): load a model card (MPGAN or GAPT) and a reference
-``G_*.pt`` state dict, sample jets on ``--device``, unnormalize with the per-jet-type feature
-maxima (gen.py:10-17, 127-143), zero masked particles, clamp pT and save ``.npy``.
+``mpgan_tpu/cli/gen.py``): load a model card (MPGAN or GAPT) and the generator's
+weights, from a reference ``G_*.pt`` state dict or from a TrainState
+``state_*.npz`` written by either package's training loop, sample jets on
+``--device``, unnormalize with the per-jet-type feature maxima (gen.py:10-17,
+127-143), zero masked particles, clamp pT and save ``.npy``.
 
     python -m mpgan_tpu_torch.cli.gen --g-args card.txt --g-state G.pt \\
         --num-samples 50000 --output-file gen_jets.npy --device cuda
+    python -m mpgan_tpu_torch.cli.gen --g-args run/run_args.txt \\
+        --g-state run/state_best_epoch.npz
 """
 
 from __future__ import annotations
@@ -18,8 +22,11 @@ import torch
 from ..data.jetnet import JetNetDataset
 from ..data.normalize import FPND_FEATURE_MAXES
 from ..models.registry import build_suite
-from ..training.config import from_args_txt
+from ..training import checkpoint as ckpt
+from ..training.config import Args, from_args_txt
+from ..training.optimizers import build_optimizer
 from ..training.sampling import generate_multi_batch
+from ..training.train_step import TrainState
 from ..utils.weights import load_reference_state_dict
 
 
@@ -30,10 +37,22 @@ def _device(name: str) -> torch.device:
     return device
 
 
+def _train_state_generator(args: Args, suite, path: str, device: torch.device):
+    """G from a TrainState checkpoint: a template state of the card's models and
+    optimizer takes the file's leaves (``training/checkpoint.py``)."""
+    g, d = suite.generator(device=device), suite.discriminator(device=device)
+    state = TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), 1e-4),
+                       build_optimizer(args.optimizer, d.parameters(), 1e-4),
+                       torch.Generator())
+    ckpt.load_train_state(path, state)
+    return state.g
+
+
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--g-args", type=str, required=True, help="model card (args.txt)")
-    parser.add_argument("--g-state", type=str, required=True, help="reference G .pt state dict")
+    parser.add_argument("--g-state", type=str, required=True,
+                        help="reference G .pt state dict or TrainState .npz checkpoint")
     parser.add_argument("--num-samples", type=int, default=50000)
     parser.add_argument("--batch-size", type=int, default=256)
     parser.add_argument("--output-file", type=str, default="./gen_jets.npy")
@@ -48,13 +67,11 @@ def main(argv: list[str] | None = None) -> None:
     except NotImplementedError as err:
         raise SystemExit(str(err))
     if ns.g_state.endswith(".npz"):
-        raise SystemExit(
-            f"{ns.g_state}: gen reads a reference G .pt; generating from a TrainState .npz "
-            "(training/checkpoint.py) comes later, ROADMAP.md Queue 1, evaluation"
-        )
-
-    g = suite.generator(device=device).eval()
-    g.load_state_dict(load_reference_state_dict(ns.g_state), strict=True)
+        g = _train_state_generator(args, suite, ns.g_state, device)
+    else:
+        g = suite.generator(device=device)
+        g.load_state_dict(load_reference_state_dict(ns.g_state), strict=True)
+    g.eval()
     spec = suite.noise
 
     labels = None

@@ -1,16 +1,18 @@
-"""Wasserstein-1 metrics ``w1p`` and ``w1m`` (numpy; ``mpgan_tpu/evaluation/w1.py``,
-the native versions of ``jetnet.evaluation.w1p / w1m`` called at train.py:543-593).
+"""Wasserstein-1 metrics ``w1p``, ``w1m`` and ``w1efp`` (numpy;
+``mpgan_tpu/evaluation/w1.py``, the native versions of
+``jetnet.evaluation.w1p / w1m / w1efp`` called at train.py:543-593).
 
 Protocol: ``num_batches`` random batches of ``num_eval_samples`` jets from
 each of the real and generated sets, the 1-D W1 distance per batch pair, and
-the mean and standard deviation over batches. ``w1efp`` comes with the EFP
-port (ROADMAP.md Queue 1, evaluation).
+the mean and standard deviation over batches.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .efp import efps
 from .jet_features import jet_features
 
 
@@ -72,3 +74,27 @@ def w1m(real_jets: np.ndarray, gen_jets: np.ndarray, num_eval_samples: int = 100
         )
     ])
     return (scores.mean(), scores.std()) if return_std else scores.mean()
+
+
+def w1efp(real_jets: np.ndarray, gen_jets: np.ndarray, num_eval_samples: int = 10000,
+          num_batches: int = 5, average_over_efps: bool = False, return_std: bool = True,
+          seed: int = 42, efp_select: str = "n4d4", device: torch.device | str = "cuda"):
+    """W1 between the EFP distributions; by default jetnet's set, the 5 prime
+    EFPs with 4 vertices and 4 edges. The EFPs are computed by :func:`efps` on
+    ``device``."""
+    real_efps = efps(real_jets, select=efp_select, device=device)
+    gen_efps = efps(gen_jets, select=efp_select, device=device)
+    num_efps = real_efps.shape[1]
+    rng = np.random.default_rng(seed)
+    num_batches = max(num_batches, 1)
+    scores = np.zeros((num_batches, num_efps))
+    for b, (ri, gi) in enumerate(zip(
+        _batches(len(real_efps), num_eval_samples, num_batches, rng),
+        _batches(len(gen_efps), num_eval_samples, num_batches, rng),
+    )):
+        for f in range(num_efps):
+            scores[b, f] = wasserstein1d(real_efps[ri, f], gen_efps[gi, f])
+    means, stds = scores.mean(axis=0), scores.std(axis=0)
+    if average_over_efps:
+        means, stds = means.mean(), stds.mean()
+    return (means, stds) if return_std else means

@@ -27,6 +27,7 @@ from __future__ import annotations
 import os
 import pathlib
 import re
+import shutil
 
 import numpy as np
 import torch
@@ -131,6 +132,19 @@ def save_train_state(path: str | pathlib.Path, state: TrainState) -> None:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+def copy_checkpoint(src: str | pathlib.Path, dst: str | pathlib.Path) -> None:
+    """Copy a saved checkpoint, atomically. A second ``save_train_state`` of an
+    unchanged state would not write the same file: it draws new rng words and
+    reseeds the generator, so a run that saved twice would not continue the
+    stream that a resume from the first file continues."""
+    dst = pathlib.Path(dst)
+    tmp = dst.with_name(dst.name + ".tmp")
+    shutil.copyfile(src, tmp)
+    with open(tmp, "rb+") as f:
+        os.fsync(f.fileno())
+    os.replace(tmp, dst)
 
 
 def load_train_state(path: str | pathlib.Path, state: TrainState) -> None:

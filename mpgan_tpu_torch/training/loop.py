@@ -1,6 +1,8 @@
 """Training orchestration (``mpgan_tpu/training/loop.py``; train.py:686-985):
-the run directory, resume, the epoch loop with the D/G interleave, and the
-periodic checkpoint and evaluation.
+the run directory, resume, the epoch loop with the D/G interleave, the
+periodic checkpoint and evaluation (W1 of particle features and jet mass;
+with ``--efp``, ``--fpd`` and ``--cov-mmd`` also w1efp, FPD and coverage/MMD
+on the trainer's device), and the best epoch by FPD.
 
 The epoch is a host loop over batches: the training set is staged on the
 device once, each epoch's shuffled order goes over as one index array, and the
@@ -10,8 +12,7 @@ epoch is later work, ROADMAP.md Queue 1, CUDA-graph step.)
 
 Refused at start with ``NotImplementedError`` (not ported yet, see
 ROADMAP.md): models other than MPGAN and GAPT, a mixed generator/discriminator
-pair, ``--efp``, ``--fpd``, ``--fpnd``,
-``--cov-mmd``, augmentation, bf16 training, a device mesh or multi-GPU,
+pair, ``--fpnd``, augmentation, bf16 training, a device mesh or multi-GPU,
 ``--profile``, ``--debug``, ``--debug-nans`` and delayed masking. Plots are
 skipped with one log line.
 """
@@ -28,7 +29,7 @@ import torch
 
 from ..data.jetnet import gen_jet_corrections
 from ..data.loader import BatchLoader
-from ..evaluation.w1 import w1m, w1p
+from ..evaluation import cov_mmd, efps, fpd, w1efp, w1m, w1p
 from ..models.registry import build_suite, check_ported
 from . import checkpoint as ckpt
 from .config import Args
@@ -39,10 +40,7 @@ from .train_step import StepConfig, TrainState, d_step, g_step
 logger = logging.getLogger(__name__)
 
 _REFUSED_FLAGS = {
-    "efp": "EFP and w1efp (ROADMAP.md Queue 1, evaluation)",
-    "fpd": "FPD (ROADMAP.md Queue 1, evaluation)",
     "fpnd": "FPND (ROADMAP.md Queue 1, FPND)",
-    "cov_mmd": "coverage/MMD (ROADMAP.md Queue 1, evaluation)",
     "mesh_shape": "multi-device training (ROADMAP.md Queue 1, multi-device)",
     "multi_gpu": "multi-device training (ROADMAP.md Queue 1, multi-device)",
     "profile": "the profiled first epoch (ROADMAP.md Queue 1, loop leftovers)",
@@ -121,8 +119,9 @@ class Trainer:
             logger.info(f"resumed from epoch {self.start_epoch}")
 
         self.d_loss_keys = ["Dr", "Df", "D"] + (["gp"] if args.gp else [])
-        self.eval_keys = ["w1p", "w1m"]
-        self.multi_value_keys = ["w1p", "w1m"]
+        self.eval_keys = ["w1p", "w1m"] + [key for flag, key in (
+            ("efp", "w1efp"), ("fpd", "fpd"), ("cov_mmd", "cov_mmd")) if args.get(flag)]
+        self.multi_value_keys = ["w1p", "w1m", "w1efp", "fpd", "cov_mmd"]
         keys = self.d_loss_keys + ["G"] + self.eval_keys
         if self.start_epoch:
             self.losses = ckpt.load_losses(self.losses_dir, keys, self.eval_keys,
@@ -130,6 +129,13 @@ class Trainer:
                                            args.save_epochs)
         else:
             self.losses = {k: [] for k in keys}
+        # [[epoch, FPD + std], ...], from the reference's sentinel; a resume
+        # keeps it, so a worse model never overwrites state_best_epoch.npz
+        # (setup_training.py:1588-1596)
+        self.best_epoch = [[0, 10.0]]
+        best_file = self.out_dir / "best_epoch.txt"
+        if self.start_epoch > 0 and best_file.exists():
+            self.best_epoch = np.atleast_2d(np.loadtxt(best_file)).tolist()
         self._staged = None
         self._staged_loader = None
 
@@ -185,7 +191,8 @@ class Trainer:
 
     def eval_save_plot(self, epoch: int) -> None:
         args = self.args
-        ckpt.save_train_state(ckpt.checkpoint_path(self.models_dir, epoch), self.state)
+        state_path = ckpt.checkpoint_path(self.models_dir, epoch)
+        ckpt.save_train_state(state_path, self.state)
 
         ds = self.valid_dataset
         n_eval = min(args.eval_tot_samples, len(ds))
@@ -200,9 +207,9 @@ class Trainer:
             self.state.g, self.spec, torch.Generator(device=self.device).manual_seed(epoch),
             n_eval, args.batch_size, labels=labels, post_fn=self.post_gen,
         )
-        gen_jets, _ = _corrected(ds.particle_normalisation(gen_norm, inverse=True),
-                                 self.use_labels, zero_mask_particles=self.use_labels,
-                                 zero_neg_pt=False)
+        gen_jets, gen_mask = _corrected(ds.particle_normalisation(gen_norm, inverse=True),
+                                        self.use_labels, zero_mask_particles=self.use_labels,
+                                        zero_neg_pt=False)
 
         num_w1 = (args.w1_num_samples[0] if isinstance(args.w1_num_samples, list)
                   else args.w1_num_samples)
@@ -211,9 +218,59 @@ class Trainer:
         self.losses["w1p"].append(np.concatenate([w1pm, w1ps]).tolist())
         w1mm, w1ms = w1m(real_jets, gen_jets, num_eval_samples=num_w1, num_batches=num_batches)
         self.losses["w1m"].append([w1mm, w1ms])
+        if "w1efp" in self.eval_keys:
+            w1em, w1es = w1efp(real_jets, gen_jets, num_eval_samples=num_w1,
+                               num_batches=num_batches, device=self.device)
+            self.losses["w1efp"].append(np.concatenate([w1em, w1es]).tolist())
+        if "cov_mmd" in self.eval_keys:
+            cov, mmd = cov_mmd(real_jets, gen_jets,
+                               num_eval_samples=min(args.cov_mmd_num_samples, n_eval),
+                               num_batches=args.cov_mmd_num_batches, device=self.device)
+            self.losses["cov_mmd"].append([cov, mmd])
+        if "fpd" in self.eval_keys:
+            real_efps = self._cached_real_efps(real_jets)
+            gen_efps = efps(gen_jets, select="d<=4-all", device=self.device)
+            bad = ~np.isfinite(gen_efps).all(axis=1)
+            if bad.any():
+                # an early generator's negative-pT jets overflow the FP32 path;
+                # the reference's float64 keeps them huge but finite, so those
+                # rows alone are recomputed that way (train.py:744-757)
+                gen_efps[bad] = efps(gen_jets[bad], select="d<=4-all", use_device=False)
+            self.losses["fpd"].append(list(fpd(
+                real_jets, gen_jets, real_efps=real_efps, gen_efps=gen_efps,
+                min_samples=min(5000, n_eval // 2), max_samples=min(20000, n_eval))))
         ckpt.save_losses(self.losses, self.losses_dir)
-        logger.info(f"epoch {epoch}: w1p {w1pm} w1m {w1mm:.6f}; plots are not ported yet "
+        metrics = " ".join(f"{k} {np.asarray(self.losses[k][-1]).tolist()}"
+                           for k in self.eval_keys)
+        logger.info(f"epoch {epoch}: {metrics}; plots are not ported yet "
                     "(ROADMAP.md Queue 1, loop leftovers)")
+
+        # the best epoch by FPD + std (train.py:794-809)
+        if "fpd" in self.eval_keys and epoch > 0:
+            score = sum(self.losses["fpd"][-1])
+            if score < self.best_epoch[-1][1]:
+                self.best_epoch.append([epoch, score])
+                np.savetxt(self.out_dir / "best_epoch.txt", np.asarray(self.best_epoch))
+                np.save(self.out_dir / "best_epoch_gen_jets.npy", gen_jets)
+                if gen_mask is not None:
+                    np.save(self.out_dir / "best_epoch_gen_mask.npy", gen_mask)
+                (self.out_dir / "best_epoch_losses.txt").write_text(
+                    str({key: vals[-1] for key, vals in self.losses.items() if vals}))
+                # the state saved above: the evaluation changed nothing in it
+                ckpt.copy_checkpoint(state_path, self.out_dir / "state_best_epoch.npz")
+
+    def _cached_real_efps(self, real_jets: np.ndarray) -> np.ndarray:
+        """The real side's EFPs, cached in the run directory (train.py:744-757)
+        under the JAX package's name; a shuffled evaluation has its own file."""
+        mode = f"_shuf{self.args.seed}" if self.args.get("eval_shuffle") else ""
+        cache = self.out_dir / f"real_efps_d4all_{self.args.jets}{mode}.npy"
+        if cache.exists():
+            arr = np.load(cache)
+            if len(arr) == len(real_jets):
+                return arr
+        arr = efps(real_jets, select="d<=4-all", device=self.device)
+        np.save(cache, arr)
+        return arr
 
     # -- full run (train.py:889-985) -----------------------------------------
 

@@ -1,4 +1,5 @@
-"""The PyTorch port's ``gen`` entry point on the CPU, and the package's import boundary."""
+"""The PyTorch port's ``gen`` entry point on the CPU (from a reference ``.pt`` and from
+either package's TrainState ``.npz``), and the package's import boundary."""
 
 import subprocess
 import sys
@@ -8,15 +9,24 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 
+from mpgan_tpu.models import registry as jregistry
 from mpgan_tpu.models.mpgan import mp_generator_apply
+from mpgan_tpu.training import checkpoint as jckpt
 from mpgan_tpu.training import config as jconfig
+from mpgan_tpu.training import optimizers as jopt
+from mpgan_tpu.training import train_step as jts
 from mpgan_tpu.utils.torch_import import load_torch_state_dict, mp_generator_from_torch
 from mpgan_tpu_torch.cli import gen
 from mpgan_tpu_torch.data.normalize import FPND_FEATURE_MAXES
 from mpgan_tpu_torch.models.mpgan import MPGenerator
+from mpgan_tpu_torch.models.registry import build_suite
+from mpgan_tpu_torch.training import checkpoint as tckpt
 from mpgan_tpu_torch.training import config as tconfig
+from mpgan_tpu_torch.training.optimizers import build_optimizer
+from mpgan_tpu_torch.training.train_step import TrainState
 from mpgan_tpu_torch.training.sampling import generate, generate_multi_batch, noise_spec
 from mpgan_tpu_torch.utils.weights import (
     load_reference_state_dict,
@@ -144,11 +154,54 @@ def test_gen_cli_refuses_cuda_without_a_gpu(tiny_card, tmp_path):
     assert not (tmp_path / "x.npy").exists()
 
 
-def test_gen_cli_refuses_npz_checkpoints(tiny_card, tmp_path):
-    card, _, _ = tiny_card
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        gen.main(["--g-args", str(card), "--g-state", str(tmp_path / "state.npz"),
-                  "--device", "cpu"])
+GAPT_CARD = {"model": "gapt", "num_hits": 9, "gapt_embed_dim": 8, "num_heads": 2,
+             "sab_layers_gen": 2, "sab_layers_disc": 1, "sab_fc_layers": [12],
+             "final_fc_layers_gen": [6], "final_fc_layers_disc": [6], "gapt_mask": True}
+
+
+@pytest.mark.parametrize("card", [dict(CARD, batch_norm_gen=True), GAPT_CARD],
+                         ids=["mpgan", "gapt"])
+def test_jax_train_state_npz_loads_in_the_port(card, tmp_path):
+    """A ``state_*.npz`` written by the JAX package's ``save_train_state`` gives
+    the port's ``gen`` the JAX generator: equal outputs on the same noise."""
+    jargs = jconfig.from_args_dict(card)
+    jsuite = jregistry.build_suite(jargs)
+    opt = jopt.build_optimizer(jargs.optimizer, 1e-4)
+    jstate = jts.init_train_state(jax.random.PRNGKey(3), jsuite.g_init, jsuite.d_init,
+                                  jsuite.g_cfg, jsuite.d_cfg, opt, opt)
+    path = tmp_path / "state_best_epoch.npz"
+    jckpt.save_train_state(path, jstate)
+
+    args = tconfig.from_args_dict(card)
+    g = gen._train_state_generator(args, build_suite(args), str(path), torch.device("cpu"))
+    n, feat = args.num_hits, jsuite.noise.shape[-1]
+    rng = np.random.RandomState(0)
+    noise = (rng.randn(5, n, feat) * 0.2).astype(np.float32)
+    labels = (rng.randint(n // 2, n + 1, size=5) / n)[:, None].astype(np.float32)
+    yj, _ = jsuite.g_apply(jsuite.g_cfg, jstate.g_params, jstate.g_state, jnp.asarray(noise),
+                           jnp.asarray(labels))
+    with torch.inference_mode():
+        yt = g.eval()(torch.from_numpy(noise), torch.from_numpy(labels)).numpy()
+    np.testing.assert_allclose(yt, np.asarray(yj), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(yt[..., -1], np.asarray(yj)[..., -1])
+
+
+def test_gen_cli_samples_from_a_port_written_npz(tiny_card, tmp_path):
+    """``gen --g-state state_N.npz`` writes the jets that the same generator's
+    ``.pt`` gives, bit for bit."""
+    card, pt, g = tiny_card
+    args = tconfig.from_args_txt(str(card))
+    suite = build_suite(args)
+    d = suite.discriminator(torch.Generator().manual_seed(2))
+    state = TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), 1e-4),
+                       build_optimizer(args.optimizer, d.parameters(), 1e-4),
+                       torch.Generator().manual_seed(0))
+    npz = tmp_path / "state_7.npz"
+    tckpt.save_train_state(npz, state)
+    from_npz = _run(card, npz, tmp_path / "npz.npy", "--seed", "5")
+    from_pt = _run(card, pt, tmp_path / "pt.npy", "--seed", "5")
+    assert from_npz.shape == (10, 12, 3) and np.isfinite(from_npz).all()
+    np.testing.assert_array_equal(from_npz, from_pt)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

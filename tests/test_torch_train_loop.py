@@ -5,6 +5,8 @@
 - ``BatchLoader`` gives the same batches; the same argv gives the same Args;
 - ``w1p``/``w1m`` and ``gen_jet_corrections`` agree with the JAX package;
 - a tiny ``cli.train`` run on the CPU writes its run directory and resumes;
+- ``--efp --fpd --cov-mmd`` write their metrics and the real-EFP cache, and
+  the best epoch by FPD is kept and survives a resume;
 - the refusals of what is not ported yet.
 """
 
@@ -18,6 +20,7 @@ import jax
 from mpgan_tpu.cli import args as jargs_cli
 from mpgan_tpu.data import jetnet as jjetnet
 from mpgan_tpu.data.loader import BatchLoader as JBatchLoader
+from mpgan_tpu.evaluation import efp as jefp
 from mpgan_tpu.evaluation import w1 as jw1
 from mpgan_tpu.models.mpgan import mp_discriminator_init, mp_generator_init
 from mpgan_tpu.training import checkpoint as jckpt
@@ -31,6 +34,7 @@ from mpgan_tpu_torch.data.loader import BatchLoader as TBatchLoader
 from mpgan_tpu_torch.evaluation import w1 as tw1
 from mpgan_tpu_torch.training import checkpoint as tckpt
 from mpgan_tpu_torch.training import config as tconfig
+from mpgan_tpu_torch.training import loop as tloop
 from mpgan_tpu_torch.training.loop import Trainer
 from mpgan_tpu_torch.utils.weights import jax_leaves
 
@@ -212,7 +216,7 @@ def test_train_cli_refuses_cuda_without_a_gpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--efp"], "efp"), (["--fpd"], "fpd"), (["--fpnd", "--num-hits", "30"], "fpnd"), (["--cov-mmd"], "cov-mmd"),
+    (["--fpnd", "--num-hits", "30"], "fpnd"),
     (["--aug-t"], "augment"), (["--compute-dtype", "bfloat16"], "bf16"),
     (["--mesh-shape", "4"], "mesh"), (["--model", "gapt", "--model-D", "mpgan"], "gapt"),
     (["--model", "rgan"], "rgan"),
@@ -276,3 +280,93 @@ def test_knn_checkpoint_moves_between_the_packages(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     resumed.train()
     assert np.isfinite(resumed.losses["D"]).all() and len(resumed.losses["G"]) == 1
+
+
+EVAL = ["--efp", "--fpd", "--cov-mmd", "--cov-mmd-num-samples", "16", "--cov-mmd-num-batches",
+        "2"]
+
+
+def test_train_cli_tiny_run_with_evaluation_writes_its_metrics(tmp_path):
+    """``--efp --fpd --cov-mmd``: w1efp, FPD and coverage/MMD at each
+    evaluation, and the real side's EFPs cached as JAX computes them."""
+    argv = ["--device", "cpu", "--name", "ev", "--dir-path", str(tmp_path), *TINY, *EVAL,
+            "--num-epochs", "2", "--save-epochs", "1"]
+    t = ttrain_cli.main(argv)
+    run = tmp_path / "ev"
+    assert t.eval_keys == ["w1p", "w1m", "w1efp", "fpd", "cov_mmd"]
+    assert {p.name for p in (run / "losses").iterdir()} >= {"w1efp.txt", "fpd.txt",
+                                                             "cov_mmd.txt"}
+    assert np.loadtxt(run / "losses" / "w1efp.txt").shape == (2, 10)
+    for key in ("fpd", "cov_mmd"):
+        vals = np.loadtxt(run / "losses" / f"{key}.txt")
+        assert vals.shape == (2, 2) and np.isfinite(vals).all()
+    assert 0 < t.losses["cov_mmd"][-1][0] <= 1
+    cache = run / "real_efps_d4all_g.npy"
+    ds = t.valid_dataset
+    real, _ = tjetnet.gen_jet_corrections(
+        ds.particle_normalisation(ds.particle_data[:64], inverse=True),
+        ret_mask_separate=True, zero_mask_particles=False, zero_neg_pt=False)
+    np.testing.assert_allclose(np.load(cache), jefp.efps(real, "d<=4-all", use_jax=False),
+                               rtol=1e-10)
+    # a resume reloads the metric histories, truncated to its epoch
+    t2 = ttrain_cli.main(argv[:-4] + ["--num-epochs", "3", "--save-epochs", "1"])
+    assert t2.start_epoch == 2 and len(t2.losses["fpd"]) == 3
+    assert t2.losses["fpd"][:2] == t.losses["fpd"]
+
+
+def test_nonfinite_fp32_efp_rows_are_recomputed_in_float64(tmp_path, monkeypatch):
+    calls = []
+    efps = tloop.efps
+
+    def fp32_overflow(jets, select="d<=4", use_device=None, **kw):
+        calls.append((len(jets), use_device))
+        out = efps(jets, select=select, use_device=use_device, **kw)
+        if len(calls) == 2:  # the generated side (the real side's cache comes first)
+            out[3] = np.inf  # what an overflowing FP32 row reads
+        return out
+
+    monkeypatch.setattr(tloop, "efps", fp32_overflow)
+    args = targs_cli.parse_cli(["--name", "nf", "--dir-path", str(tmp_path), *TINY, "--fpd"])
+    train, valid = _datasets(args)
+    t = Trainer(args, train, valid, device="cpu")
+    t.eval_save_plot(1)
+    n_eval = min(64, len(valid))
+    assert calls == [(n_eval, None), (n_eval, None), (1, False)]
+    assert np.isfinite(t.losses["fpd"][-1]).all()
+
+
+BEST_FILES = ["best_epoch.txt", "best_epoch_gen_jets.npy", "best_epoch_gen_mask.npy",
+              "best_epoch_losses.txt", "state_best_epoch.npz"]
+
+
+def test_best_epoch_by_fpd_is_kept_and_survives_a_resume(tmp_path, monkeypatch):
+    """A stand-in FPD below the reference's 10.0 sentinel writes the best
+    epoch's five files; a worse one later leaves them; a resume restores the
+    record, and ``state_best_epoch.npz`` is the best epoch's state."""
+    scores = iter([(4.0, 0.5), (6.0, 0.5), (9.0, 0.5), (1.0, 0.25)])
+    monkeypatch.setattr(tloop, "fpd", lambda *a, **kw: next(scores))
+    argv = ["--device", "cpu", "--name", "be", "--dir-path", str(tmp_path), *TINY, "--fpd",
+            "--save-epochs", "1"]
+    t1 = ttrain_cli.main(argv + ["--num-epochs", "2"])
+    run = tmp_path / "be"
+    assert all((run / f).exists() for f in BEST_FILES)
+    assert t1.best_epoch == [[0, 10.0], [1, 4.5]]
+    np.testing.assert_array_equal(np.loadtxt(run / "best_epoch.txt"), [[0, 10.0], [1, 4.5]])
+    # the epoch's own checkpoint, rng words included: a second save would have
+    # reseeded the training generator
+    best = np.load(run / "state_best_epoch.npz")
+    epoch1 = np.load(run / "models" / "state_1.npz")
+    assert best.files == epoch1.files
+    assert all(np.array_equal(best[k], epoch1[k]) for k in best.files)
+    n_eval = min(64, len(t1.valid_dataset))
+    assert np.load(run / "best_epoch_gen_jets.npy").shape == (n_eval, 8, 3)
+    assert "'fpd': [4.0, 0.5]" in (run / "best_epoch_losses.txt").read_text()
+
+    t2 = ttrain_cli.main(argv + ["--num-epochs", "4"])
+    assert t2.start_epoch == 2
+    assert t2.best_epoch == [[0, 10.0], [1, 4.5], [4, 1.25]]
+    np.testing.assert_array_equal(np.loadtxt(run / "best_epoch.txt"), t2.best_epoch)
+    # the run trained on from the epoch-4 checkpoint's generator state
+    words = np.load(run / "models" / "state_4.npz")[f"leaf_{len(best.files) - 1}"]
+    want = torch.Generator().manual_seed(tckpt._words_seed(words)).get_state()
+    assert torch.equal(t2.state.generator.get_state(), want)
