@@ -140,7 +140,22 @@ Phases, each printed as it finishes:
     (150p) jets; the EFPs' peak memory under (plan squares + 2) x chunk x N^2 x
     4 bytes (``efp_plan_squares``), coverage/MMD's under four float64 tensors
     of the Sinkhorn cost's size; at 30p the first batch's EMD on the card
-    within 1e-9 of the same function on the CPU.
+    within 1e-9 of the same function on the CPU;
+23. the model zoo: each of the 13 other families of the reference's
+    ``trained_models/`` (fc, fcmp, fcpnet, graphcnn, graphcnnmp, graphcnnpnet,
+    mpfc, mplfc, mppnet, pcgan, treeganfc, treeganmp, treeganpnet) and the
+    legacy pair ``old_mpgan``/``old_mpgan`` through the train CLI on synthetic
+    gluon jets, with its presets and the reference's default widths at 30
+    particles: one epoch of 7 batches with a checkpoint and the evaluation, then
+    2,000 jets through the gen CLI from its ``state_1.npz`` (PCGAN's G_inv and
+    G_pc are seeded random weights written here). Checks, each raising: finite
+    losses, W1 and jets of the expected shape; the legacy generator's kernel
+    path against its plain path at B=4096 (mpfc as trained, the mplfc card with
+    its masks; rtol = atol = 1e-4, mask column equal); one mplfc D+G step on
+    the card against the CPU as in phase 8; counters reset before, read after:
+    K4, K2 with dropout and K3 with and without weight gradients launched.
+    Each family's D+G step at its batch and generation rate at B=4096 (CUDA
+    events, best of 3) are printed beside the card's name and power limit.
 
 Every kernel's entry in the JSON line carries its bound: the larger of its
 FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
@@ -1649,6 +1664,173 @@ def evaluation(mk, dev, card, tmp):
     return launches
 
 
+# phase 23: every generator/discriminator family of the reference's trained_models/ but
+# mp (phases 4-10): (model, model_D, extra flags); the legacy families take the MPGAN
+# learning rates (their presets set none) and MPGAN's widths
+LEGACY_LR = ["--lr-disc", "3e-5", "--lr-gen", "1e-5"]
+ZOO = {
+    "fc": ("rgan", "rgan", []),
+    "fcmp": ("rgan", "mpgan", []),
+    "fcpnet": ("rgan", "pointnet", []),
+    "graphcnn": ("graphcnngan", "rgan", []),
+    "graphcnnmp": ("graphcnngan", "mpgan", []),
+    "graphcnnpnet": ("graphcnngan", "pointnet", []),
+    "mpfc": ("old_mpgan", "rgan", ["--lfc", *LEGACY_LR]),
+    # --mask-c: the args processing clears it for old_mpgan, as the reference's does
+    "mplfc": ("old_mpgan", "mpgan", ["--lfc", "--mask-c", *LEGACY_LR]),
+    "mppnet": ("mpgan", "pointnet", []),
+    "pcgan": ("pcgan", "pcgan", []),
+    "treeganfc": ("treegan", "rgan", []),
+    "treeganmp": ("treegan", "mpgan", []),
+    "treeganpnet": ("treegan", "pointnet", []),
+    "old_mpgan": ("old_mpgan", "old_mpgan", LEGACY_LR),
+}
+ZOO_BATCHES = 7  # batches an epoch: 7 D steps and, at num_critic 5, 2 G steps
+# the shipped mplfc card: the legacy generator with lfc and its masks (mask_c), MPGAN's D
+MPLFC_CARD = {"model": "old_mpgan", "model_D": "mpgan", "jets": "g", "num_hits": 30,
+              "lfc": True, "lr_disc": 3e-5, "lr_gen": 1e-5}
+
+
+def legacy_card(from_args_dict):
+    """``from_args_dict`` for the mplfc card: its mask flags set after the processing."""
+    def build(d):
+        args = from_args_dict(d)
+        args.mask = args.mask_c = True
+        return args
+    return build
+
+
+def zoo_timings(t, dev):
+    """A trained family's D+G step at its batch and its generation rate at B=4096
+    (CUDA events, best of 3); the point decoder is part of PCGAN's generation."""
+    from mpgan_tpu_torch.training.train_step import d_step, epoch_kwargs, g_step
+
+    st, b = t.state, t.args.batch_size
+    data_all, labels_all = t._stage(t._staged_loader)
+    data = data_all[:b]
+    labels = labels_all[:b] if labels_all is not None else None
+
+    def step():
+        d_step(st, t.step_cfg, t.spec, data, labels, post_gen=t.post_gen,
+               encode_real=t.suite.encode_real, epoch=t.model_epoch)
+        g_step(st, t.step_cfg, t.spec, data, labels, post_gen=t.post_gen, epoch=t.model_epoch)
+
+    gb = 4096
+    gen = torch.Generator(device=dev).manual_seed(3)
+    noise = t.spec.sample(gen, gb, dev)
+    points = t.spec.sample_points(gen, gb, dev)
+    glabels = None
+    if labels_all is not None:
+        glabels = labels_all[torch.arange(gb, device=dev) % len(labels_all)]
+
+    def generate():
+        with torch.inference_mode():
+            out = st.g(noise, glabels, update_sn=False, **epoch_kwargs(st.g, t.model_epoch))
+            if t.eval_post_fn is not None:
+                out = t.eval_post_fn(out, points)
+        return out
+
+    return best_ms(step, inner=1), best_ms(generate, inner=1), gb
+
+
+def model_zoo(mk, train_cli, gen_cli, dev, card, from_args_dict, tmp):
+    """Phase 23: the model zoo. Each family of ``ZOO`` through the train CLI on
+    synthetic gluon jets with its presets and the reference's default widths
+    (30 particles; TreeGAN rounds to 32), one epoch of ``ZOO_BATCHES`` batches
+    with a checkpoint and the evaluation, then 2,000 jets through the gen CLI
+    from its ``state_1.npz``; PCGAN's G_inv and G_pc are seeded random weights
+    written here. The legacy generator's kernel path against its plain path at
+    B=4096 (mpfc as trained, and the mplfc card with its masks), one mplfc D+G
+    step on the card against the CPU, and each family's step time and
+    generation rate. Counters reset before, read after: K4, K2 with dropout and
+    K3 with and without weight gradients must have launched."""
+    from mpgan_tpu_torch.cli.args import parse_cli
+    from mpgan_tpu_torch.models.ext.pcgan import GInv, GPc
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.models.ext import pcgan_config
+
+    weights = tmp / "pcgan_weights"
+    weights.mkdir()
+    pc_cfg = pcgan_config(from_args_dict({"model": "pcgan", "jets": "g"}))
+    torch.save(GInv(pc_cfg, torch.Generator().manual_seed(21)).state_dict(),
+               weights / "pcgan_G_inv_g.pt")
+    torch.save(GPc(pc_cfg, torch.Generator().manual_seed(22)).state_dict(),
+               weights / "pcgan_G_pc_g.pt")
+
+    mk.reset_launch_counts()
+    results, trainers = {}, {}
+    for fam, (model, model_d, extra) in ZOO.items():
+        argv = ["--device", str(dev), "--name", fam, "--model", model, "--model-D", model_d,
+                "--jets", "g", "--dir-path", str(tmp), "--eval-tot-samples", "2000",
+                "--w1-num-samples", "1000", "--num-epochs", "1", "--save-epochs", "1",
+                "--pcgan-weights-dir", str(weights), *extra]
+        args = parse_cli(argv[2:])
+        batch = args.batch_size
+        # ZOO_BATCHES training batches (70% of the jets), at least the evaluation's 2,000
+        args.num_samples = max(-(-ZOO_BATCHES * batch * 10 // 7) + 10, 3000)
+        # one epoch: the rGAN-D presets set 1000 or 2000 over the command line
+        args.num_epochs = 1
+        t0 = time.perf_counter()
+        t = train_cli.run(args, dev)
+        wall = time.perf_counter() - t0
+        losses = {k: t.losses[k][-1] for k in t.d_loss_keys + ["G"]}
+        state = tmp / fam / "models" / "state_1.npz"
+        out = tmp / f"{fam}_gen.npy"
+        gen_cli.main(["--g-args", str(tmp / fam / f"{fam}_args.txt"), "--g-state", str(state),
+                      "--output-file", str(out), "--device", str(dev), "--num-samples", "2000",
+                      "--batch-size", "1000"])
+        jets = np.load(out)
+        ok = (np.isfinite(list(losses.values())).all() and state.exists()
+              and jets.shape == (2000, t.args.num_hits, 3) and np.isfinite(jets).all()
+              and np.isfinite(np.asarray(t.losses["w1m"])).all())
+        step_ms, gen_ms, gb = zoo_timings(t, dev)
+        results[fam] = {"g": type(t.state.g).__name__, "d": type(t.state.d).__name__,
+                        "batch": batch, "num_hits": t.args.num_hits, "loss": t.args.loss,
+                        "gp": t.args.gp, "num_critic": t.args.num_critic,
+                        "mask_c": bool(t.args.mask_c), "losses": losses,
+                        "w1m": t.losses["w1m"][-1], "jets": list(jets.shape), "wall_s": wall,
+                        "step_ms": step_ms, "gen_batch": gb, "gen_ms": gen_ms,
+                        "jets_per_s": gb / gen_ms * 1e3}
+        log("zoo_family", card=card, family=fam, model=model, model_D=model_d, **results[fam])
+        if not ok:
+            raise SystemExit(f"zoo {fam}: losses, checkpoint or generated jets not as expected")
+        trainers[fam] = t
+
+    # the legacy generator: kernel path against plain path at the sampler's batch
+    mplfc_args = legacy_card(from_args_dict)(MPLFC_CARD)
+    mplfc_g = build_suite(mplfc_args).generator(torch.Generator().manual_seed(4), device=dev)
+    lab = torch.as_tensor((np.random.default_rng(2).integers(1, 31, size=(4096, 1)) / 30)
+                          .astype(np.float32), device=dev)
+    for name, g, labels in (("mpfc", trainers["mpfc"].state.g, None), ("mplfc", mplfc_g, lab)):
+        noise = torch.randn(4096, 128, generator=torch.Generator(device=dev).manual_seed(5),
+                            device=dev) * 0.2
+        kernel_cfg = g.cfg
+        with torch.inference_mode():
+            y_k = g(noise, labels, update_sn=False)
+            g.cfg = dataclasses.replace(kernel_cfg, use_kernels=False)
+            y_p = g(noise, labels, update_sn=False)
+            g.cfg = kernel_cfg
+        abs_err, rel_err, bad = errors(y_k, y_p)
+        mask_equal = labels is None or torch.equal(y_k[..., -1], y_p[..., -1])
+        log("zoo_generator_check", family=name, batch=4096, features=y_k.shape[-1],
+            max_abs_err=abs_err, max_rel_err=rel_err, out_of_tol=bad,
+            mask_column_equal=mask_equal)
+        if bad or not mask_equal or y_k.shape[-1] != (4 if labels is not None else 3):
+            raise SystemExit(f"zoo {name}: the legacy generator's kernel path disagrees with "
+                             "its plain path")
+
+    step_check(dev, legacy_card(from_args_dict), card=MPLFC_CARD, batch=16,
+               phase="zoo_step_check")
+    counts = dict(mk.launch_counts)
+    log("zoo_launches", launches=counts)
+    for name in ("edge_aggregate_fn", "edge_aggregate_train", "edge_aggregate_bwd",
+                 "edge_aggregate_bwd_no_wgrads"):
+        if counts[name] == 0:
+            raise SystemExit(f"zoo: kernel {name} never launched on the model zoo's paths")
+    return counts, results
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -1883,12 +2065,18 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         eval_launches = evaluation(mk, dev, card, pathlib.Path(tmp))
 
+    # 23. the model zoo
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo_launches, zoo = model_zoo(mk, train_cli, gen, dev, card, from_args_dict,
+                                      pathlib.Path(tmp))
+
     fwd_src = "mpgan_tpu_torch/csrc/edge_aggregate.cu"
     kernels = [
         {"name": "edge_aggregate", "route": "cuda", "source": fwd_src,
          "replaces": REPLACES["edge_aggregate"], "includes": K1,
          "launches": launches["edge_aggregate"] + train_launches["edge_aggregate"]
-         + train_launches["edge_aggregate_train"] + eval_launches["edge_aggregate"],
+         + train_launches["edge_aggregate_train"] + eval_launches["edge_aggregate"]
+         + zoo_launches["edge_aggregate"] + zoo_launches["edge_aggregate_train"],
          "max_abs_err": max(max_err["edge_aggregate"], train_err["edge_aggregate"]),
          "max_abs_err_fe128_256": max_err["edge_aggregate_fe128_256"],
          "two_runs_bit_identical": identical["edge_aggregate"],
@@ -1899,7 +2087,7 @@ def main() -> None:
         {"name": "edge_aggregate_fn", "route": "cuda", "source": fwd_src,
          "replaces": REPLACES["edge_aggregate_fn"],
          "launches": launches["edge_aggregate_fn"] + train_launches["edge_aggregate_fn"]
-         + eval_launches["edge_aggregate_fn"],
+         + eval_launches["edge_aggregate_fn"] + zoo_launches["edge_aggregate_fn"],
          "max_abs_err": max_err["edge_aggregate_fn"],
          "two_runs_bit_identical": identical["edge_aggregate_fn"],
          "ms": k4[0], "plain_ms": k4[1],
@@ -1908,7 +2096,8 @@ def main() -> None:
          "source": "mpgan_tpu_torch/csrc/edge_aggregate_bwd.cu",
          "replaces": REPLACES["edge_aggregate_bwd"], "includes": K1,
          "launches": train_launches["edge_aggregate_bwd"]
-         + train_launches["edge_aggregate_bwd_no_wgrads"],
+         + train_launches["edge_aggregate_bwd_no_wgrads"] + zoo_launches["edge_aggregate_bwd"]
+         + zoo_launches["edge_aggregate_bwd_no_wgrads"],
          "max_abs_err": train_err["edge_aggregate_bwd"],
          "two_runs_bit_identical": identical["edge_aggregate_bwd"],
          "ms": ttimes["bwd_30"][0], "plain_ms": ttimes["bwd_30"][1], **dense_bwd_bound(256, 30),
@@ -1977,6 +2166,9 @@ def main() -> None:
     log("knn_train_step", batch=128, kernel_ms=knn_step_ms["kernel"],
         plain_ms=knn_step_ms["plain"])
     log("train_step", kernel_ms=step_ms["kernel"], plain_ms=step_ms["plain"])
+    log("zoo", card=card, step_ms={k: v["step_ms"] for k, v in zoo.items()},
+        jets_per_s={k: v["jets_per_s"] for k, v in zoo.items()},
+        zoo_launches={k: v for k, v in zoo_launches.items() if v})
     log("gapt_train_step", batch=512, kernel_ms=gapt_step_ms["kernel"],
         plain_ms=gapt_step_ms["plain"],
         jets_per_s_b1024=1024 / gapt_rates[1024]["kernel"] * 1e3,

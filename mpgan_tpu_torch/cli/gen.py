@@ -1,9 +1,11 @@
 """Inference from a trained generator (reference gen.py:85-145;
-``mpgan_tpu/cli/gen.py``): load a model card (MPGAN or GAPT) and the generator's
-weights, from a reference ``G_*.pt`` state dict or from a TrainState
-``state_*.npz`` written by either package's training loop, sample jets on
-``--device``, unnormalize with the per-jet-type feature maxima (gen.py:10-17,
-127-143), zero masked particles, clamp pT and save ``.npy``.
+``mpgan_tpu/cli/gen.py``): load a model card and the generator's weights, from
+a TrainState ``state_*.npz`` written by either package's training loop (any
+model family) or, for MPGAN and GAPT, from a reference ``G_*.pt`` state dict;
+sample jets on ``--device``, unnormalize with the per-jet-type feature maxima
+(gen.py:10-17, 127-143), zero masked particles, clamp pT and save ``.npy``.
+A PCGAN card's latents are decoded by the ``G_pc`` in the card's
+``pcgan_weights_dir`` (the JAX ``gen`` does not decode them, and fails there).
 
     python -m mpgan_tpu_torch.cli.gen --g-args card.txt --g-state G.pt \\
         --num-samples 50000 --output-file gen_jets.npy --device cuda
@@ -21,7 +23,7 @@ import torch
 
 from ..data.jetnet import JetNetDataset
 from ..data.normalize import FPND_FEATURE_MAXES
-from ..models.registry import build_suite
+from ..models.registry import build_suite, pcgan_weight_path
 from ..training import checkpoint as ckpt
 from ..training.config import Args, from_args_txt
 from ..training.optimizers import build_optimizer
@@ -62,12 +64,15 @@ def main(argv: list[str] | None = None) -> None:
 
     device = _device(ns.device)
     args = from_args_txt(ns.g_args)
-    try:
-        suite = build_suite(args)
-    except NotImplementedError as err:
-        raise SystemExit(str(err))
+    weights_dir = args.get("pcgan_weights_dir") or None
+    suite = build_suite(args, pcgan_weights_dir=weights_dir)
+    if suite.model == "pcgan" and suite.decode_eval is None:
+        raise SystemExit(f"pcgan: {pcgan_weight_path(args, weights_dir, 'pc')} not found "
+                         "(pcgan_weights_dir in the card)")
     if ns.g_state.endswith(".npz"):
         g = _train_state_generator(args, suite, ns.g_state, device)
+    elif args.model not in ("mpgan", "gapt"):
+        raise SystemExit(f"torch import not supported for model {args.model!r}")
     else:
         g = suite.generator(device=device)
         g.load_state_dict(load_reference_state_dict(ns.g_state), strict=True)
@@ -87,7 +92,8 @@ def main(argv: list[str] | None = None) -> None:
 
     generator = torch.Generator(device=device).manual_seed(ns.seed)
     gen_jets = generate_multi_batch(
-        g, spec, generator, ns.num_samples, ns.batch_size, labels=labels
+        g, spec, generator, ns.num_samples, ns.batch_size, labels=labels,
+        post_fn=suite.decode_eval,
     ).astype(np.float64)
 
     # unnormalize (gen.py:127-133)

@@ -2,11 +2,19 @@
 
     python -m mpgan_tpu_torch.cli.train --name run1 --model mpgan --jets g
     python -m mpgan_tpu_torch.cli.train --name gapt1 --model gapt --jets g
+    python -m mpgan_tpu_torch.cli.train --name fcpnet1 --model rgan --model-D pointnet
+    python -m mpgan_tpu_torch.cli.train --name pcgan1 --model pcgan \
+        --pcgan-weights-dir <dir with pcgan_G_inv_g.pt and pcgan_G_pc_g.pt>
 
 The flags are the reference's (``cli/args.py``); ``--device`` (default
 ``cuda``, an error without a GPU) picks the torch device and is not part of
 the args card. Without JetNet HDF5 files under ``--datasets-path`` the run
 trains on synthetic jets (``data/jetnet.py``), ``--num-samples`` of them.
+Any generator/discriminator pair of the registry trains; the external
+families' presets (``training/config.py``) set the optimizer, the loss, the
+batch and, with an rGAN discriminator, the epoch count, over the command line,
+as the reference's do. :func:`run` trains from processed args, for a caller
+that changes them after the processing.
 """
 
 from __future__ import annotations
@@ -41,8 +49,6 @@ def _reload_args_on_resume(args):
 
 
 def main(argv: list[str] | None = None):
-    from ..data.jetnet import JetNetDataset
-    from ..training.loop import Trainer
     from .args import parse_cli
 
     pre = argparse.ArgumentParser(add_help=False)
@@ -58,7 +64,15 @@ def main(argv: list[str] | None = None):
         else logging.StreamHandler(sys.stdout)
     logging.basicConfig(handlers=[handler], level=level, force=True,
                         format="%(asctime)s %(message)s")
-    args = _reload_args_on_resume(args)
+    return run(_reload_args_on_resume(args), device)
+
+
+def run(args, device: torch.device | str = "cuda"):
+    """Train from processed ``args`` (``cli.args.parse_cli``) on ``device``: the
+    datasets (JetNet HDF5 files, else synthetic jets) and the ``Trainer``.
+    Returns the trainer."""
+    from ..data.jetnet import JetNetDataset
+    from ..training.loop import Trainer
 
     data_kwargs = dict(
         jet_type=args.jets,

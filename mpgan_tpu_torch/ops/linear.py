@@ -143,6 +143,18 @@ def linear_init(
         bias.uniform_(-bound, bound, generator=generator)
 
 
+def make_linear(in_dim: int, out_dim: int, generator: torch.Generator | None = None,
+                bias: bool = True) -> nn.Linear:
+    """An ``nn.Linear`` drawn as :func:`linear_init` draws it (weight, then bias)."""
+    lin = nn.Linear(in_dim, out_dim, bias=bias)
+    bound = 1.0 / math.sqrt(in_dim) if in_dim > 0 else 0.0
+    with torch.no_grad():
+        lin.weight.uniform_(-bound, bound, generator=generator)
+        if bias:
+            lin.bias.uniform_(-bound, bound, generator=generator)
+    return lin
+
+
 class _SNParams(nn.Module):
     """Parameters of a spectral-norm wrapped Linear, under the reference's names."""
 
@@ -224,14 +236,14 @@ class MLP(nn.Module):
             if cfg.layer_has_activation(i):
                 x = torch.where(x >= 0, x, cfg.leaky_relu_alpha * x)
                 if cfg.batch_norm:
-                    x = _batch_norm(x, self.bn[bn_idx], train)
+                    x = batch_norm(x, self.bn[bn_idx], train)
                     bn_idx += 1
             if dropout:
                 x = hash_dropout(x, cfg.dropout_p, drop_keys[i].words())
         return x
 
 
-def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool) -> torch.Tensor:
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool) -> torch.Tensor:
     """BatchNorm over every axis but the last: running statistics in eval;
     in train, biased batch statistics, and the running statistics move by
     momentum 0.1 toward the batch mean and the unbiased batch variance."""

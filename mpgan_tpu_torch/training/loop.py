@@ -2,7 +2,8 @@
 the run directory, resume, the epoch loop with the D/G interleave, the
 periodic checkpoint and evaluation (W1 of particle features and jet mass;
 with ``--efp``, ``--fpd`` and ``--cov-mmd`` also w1efp, FPD and coverage/MMD
-on the trainer's device), and the best epoch by FPD.
+on the trainer's device), and the best epoch by FPD. Any generator and
+discriminator pair of the registry trains here.
 
 The epoch is a host loop over batches: the training set is staged on the
 device once, each epoch's shuffled order goes over as one index array, and the
@@ -10,10 +11,18 @@ loss sums stay on the device with one host sync per epoch. (The JAX package
 runs the epoch as one ``lax.scan`` program, a TPU dispatch device; a CUDA-graph
 epoch is later work, ROADMAP.md Queue 1, CUDA-graph step.)
 
+The legacy MPGAN's delayed masking (``--mask-epoch``, old_model.py:268-269)
+reads the 0-based model epoch, as the JAX loop passes it (its train steps are
+rebuilt when a threshold is crossed; here the epoch is simply passed): epoch
+``e`` trains with model epoch ``e - 1``, and the evaluation after it generates
+with the same. PCGAN (``--pcgan-weights-dir``) trains on the real batches
+encoded by the pre-trained ``G_inv`` and decodes its evaluation latents with
+``G_pc``; without ``G_inv`` the trainer refuses to start, without ``G_pc`` the
+evaluation raises, each naming the missing file.
+
 Refused at start with ``NotImplementedError`` (not ported yet, see
-ROADMAP.md): models other than MPGAN and GAPT, a mixed generator/discriminator
-pair, ``--fpnd``, augmentation, bf16 training, a device mesh or multi-GPU,
-``--profile``, ``--debug``, ``--debug-nans`` and delayed masking. Plots are
+ROADMAP.md): ``--fpnd``, augmentation, bf16 training, a device mesh or
+multi-GPU, ``--profile``, ``--debug`` and ``--debug-nans``. Plots are
 skipped with one log line.
 """
 
@@ -30,12 +39,12 @@ import torch
 from ..data.jetnet import gen_jet_corrections
 from ..data.loader import BatchLoader
 from ..evaluation import cov_mmd, efps, fpd, w1efp, w1m, w1p
-from ..models.registry import build_suite, check_ported
+from ..models.registry import build_suite, pcgan_weight_path
 from . import checkpoint as ckpt
 from .config import Args
 from .optimizers import build_optimizer
 from .sampling import generate_multi_batch
-from .train_step import StepConfig, TrainState, d_step, g_step
+from .train_step import StepConfig, TrainState, d_step, epoch_kwargs, g_step
 
 logger = logging.getLogger(__name__)
 
@@ -46,13 +55,11 @@ _REFUSED_FLAGS = {
     "profile": "the profiled first epoch (ROADMAP.md Queue 1, loop leftovers)",
     "debug": "the D-output debug log (ROADMAP.md Queue 1, loop leftovers)",
     "debug_nans": "the NaN debugger (ROADMAP.md Queue 1, loop leftovers)",
-    "mask_epoch": "delayed masking (ROADMAP.md Queue 1, loop leftovers)",
 }
 
 
 def check_supported(args: Args) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    check_ported(args.model, args.get("model_D") or args.model)
     for key, what in _REFUSED_FLAGS.items():
         if args.get(key):
             raise NotImplementedError(f"--{key.replace('_', '-')}: {what} is not ported yet")
@@ -103,9 +110,23 @@ class Trainer:
             label_noise=args.label_noise,
             augment=bool(args.aug_t or args.aug_f or args.aug_r90 or args.aug_s),
         )
-        suite = build_suite(args)
+        self.pcgan_weights_dir = args.get("pcgan_weights_dir") or None
+        suite = build_suite(args, pcgan_weights_dir=self.pcgan_weights_dir)
+        if suite.model == "pcgan" and suite.encode_real is None:
+            raise FileNotFoundError(
+                "pcgan trains on G_inv's latents: "
+                f"{pcgan_weight_path(args, self.pcgan_weights_dir, 'inv')} not found "
+                "(--pcgan-weights-dir)")
+        self.suite = suite
         self.spec = suite.noise
         self.post_gen = suite.post_gen  # --mask-manual
+        # the evaluation's hook on generated batches: PCGAN's point decoder, or
+        # the --mask-manual column
+        self.eval_post_fn = suite.decode_eval
+        if self.eval_post_fn is None and suite.post_gen is not None:
+            self.eval_post_fn = lambda out, point_noise: suite.post_gen(out)
+        # the 0-based model epoch the legacy MPGAN's --mask-epoch compares against
+        self.model_epoch = self.start_epoch
         # one CPU generator: model init first, then every draw of every step
         rng = torch.Generator().manual_seed(int(args.seed))
         g = suite.generator(rng, device=self.device)
@@ -158,6 +179,7 @@ class Trainer:
                 f"training dataset ({loader.n} samples) is smaller than the batch size "
                 f"({loader.batch_size}): no full batch to train on"
             )
+        self.model_epoch = epoch - 1
         data_all, labels_all = self._stage(loader)
         order = torch.as_tensor(loader.epoch_batch_indices(), device=self.device)
         num_batches = len(loader)
@@ -169,11 +191,12 @@ class Trainer:
             # the num_critic / num_gen interleave (train.py:841-878)
             if args.num_critic > 1 or batch_ndx == 0 or (batch_ndx - 1) % args.num_gen == 0:
                 for k, v in d_step(self.state, self.step_cfg, self.spec, data, labels,
-                                   post_gen=self.post_gen).items():
+                                   post_gen=self.post_gen, encode_real=self.suite.encode_real,
+                                   epoch=self.model_epoch).items():
                     sums[k] += v
             if args.num_critic == 1 or (batch_ndx - 1) % args.num_critic == 0:
                 sums["G"] += g_step(self.state, self.step_cfg, self.spec, data, labels,
-                                    post_gen=self.post_gen)["G"]
+                                    post_gen=self.post_gen, epoch=self.model_epoch)["G"]
             if args.get("break_zero") and batch_ndx == 0:
                 break
             if args.get("bottleneck") and batch_ndx == 10:
@@ -194,6 +217,11 @@ class Trainer:
         state_path = ckpt.checkpoint_path(self.models_dir, epoch)
         ckpt.save_train_state(state_path, self.state)
 
+        if self.suite.model == "pcgan" and self.suite.decode_eval is None:
+            raise FileNotFoundError(
+                "the pcgan evaluation decodes latents with G_pc: "
+                f"{pcgan_weight_path(args, self.pcgan_weights_dir, 'pc')} not found "
+                "(--pcgan-weights-dir)")
         ds = self.valid_dataset
         n_eval = min(args.eval_tot_samples, len(ds))
         if args.get("eval_shuffle"):
@@ -205,7 +233,8 @@ class Trainer:
         labels = ds.jet_data[sel] if self.use_labels else None
         gen_norm = generate_multi_batch(
             self.state.g, self.spec, torch.Generator(device=self.device).manual_seed(epoch),
-            n_eval, args.batch_size, labels=labels, post_fn=self.post_gen,
+            n_eval, args.batch_size, labels=labels, post_fn=self.eval_post_fn,
+            **epoch_kwargs(self.state.g, self.model_epoch),
         )
         gen_jets, gen_mask = _corrected(ds.particle_normalisation(gen_norm, inverse=True),
                                         self.use_labels, zero_mask_particles=self.use_labels,

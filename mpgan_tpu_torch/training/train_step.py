@@ -17,6 +17,11 @@ parameters have ``requires_grad`` off for that pass, so the edge kernel's
 backward (K3) runs without its weight contractions: the counterpart of the
 JAX package's ``skip_weight_grads``.
 
+With ``encode_real`` (PCGAN's pre-trained encoder) the D step maps the real
+batch into the training representation before D sees it (the JAX package's
+``train_step.py:185-186``), without gradients. A model with ``reads_epoch``
+(the legacy MPGAN) takes the model epoch, ``epoch=``, in both steps.
+
 Every random draw of a step (noise, smoothed targets, the GP weight, the
 dropout key words and in-kernel seeds) comes from ``TrainState.generator``, a
 CPU ``torch.Generator``, in a fixed order. A test can pass the draws instead
@@ -120,24 +125,35 @@ def draw_g(state: TrainState, spec: NoiseSpec, batch_size: int, device) -> GDraw
 PostGen = Callable[[torch.Tensor], torch.Tensor]
 
 
+def epoch_kwargs(module: torch.nn.Module, epoch: int) -> dict[str, int]:
+    """``{"epoch": epoch}`` for a module that reads the model epoch, else ``{}``."""
+    return {"epoch": epoch} if getattr(module, "reads_epoch", False) else {}
+
+
 def d_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor,
            labels: torch.Tensor | None = None, draws: DDraws | None = None,
-           post_gen: PostGen | None = None) -> dict[str, torch.Tensor]:
+           post_gen: PostGen | None = None, encode_real: PostGen | None = None,
+           epoch: int = 0) -> dict[str, torch.Tensor]:
     """One D update; returns the loss parts ``{Dr, Df, D(, gp)}`` as device scalars.
-    ``post_gen`` is applied to G's output (the ``--mask-manual`` hook, train.py:208-210)."""
+    ``post_gen`` is applied to G's output (the ``--mask-manual`` hook, train.py:208-210),
+    ``encode_real`` to the real batch."""
+    if encode_real is not None:
+        with torch.no_grad():
+            data = encode_real(data)
     draws = draws if draws is not None else draw_d(state, cfg, spec, data)
     g, d = state.g, state.d
+    g_kw, d_kw = epoch_kwargs(g, epoch), epoch_kwargs(d, epoch)
     with torch.no_grad():
         # fresh fake batch, G in eval mode with spectral norm advancing (train.py:421,428)
-        fake = g(draws.noise, labels, train=False)
+        fake = g(draws.noise, labels, train=False, **g_kw)
         if post_gen is not None:
             fake = post_gen(fake)
-    real_out = d(data, labels, train=True, rng=draws.real)  # unaugmented (train.py:425)
-    fake_out = d(fake, labels, train=True, rng=draws.fake)
+    real_out = d(data, labels, train=True, rng=draws.real, **d_kw)  # unaugmented (train.py:425)
+    fake_out = d(fake, labels, train=True, rng=draws.fake, **d_kw)
     total, parts = d_loss(cfg.loss, real_out, fake_out, draws.targets)
     if cfg.gp_lambda:
-        gp = gradient_penalty(lambda x: d(x, labels, train=True, rng=draws.gp), draws.gp_alpha,
-                              data, fake, cfg.gp_lambda)
+        gp = gradient_penalty(lambda x: d(x, labels, train=True, rng=draws.gp, **d_kw),
+                              draws.gp_alpha, data, fake, cfg.gp_lambda)
         parts = dict(parts, gp=gp)
         total = total + gp
     state.d_opt.zero_grad(set_to_none=True)
@@ -148,13 +164,13 @@ def d_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
 
 def g_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor,
            labels: torch.Tensor | None = None, draws: GDraws | None = None,
-           post_gen: PostGen | None = None) -> dict[str, torch.Tensor]:
+           post_gen: PostGen | None = None, epoch: int = 0) -> dict[str, torch.Tensor]:
     """One G update (``data`` only sets the batch size, train.py:497); returns ``{G}``.
-    ``post_gen`` as in :func:`d_step`."""
+    ``post_gen`` and ``epoch`` as in :func:`d_step`."""
     batch_size = labels.shape[0] if labels is not None else data.shape[0]
     draws = draws if draws is not None else draw_g(state, spec, batch_size, data.device)
     g, d = state.g, state.d
-    fake = g(draws.noise, labels, train=True, rng=draws.g)
+    fake = g(draws.noise, labels, train=True, rng=draws.g, **epoch_kwargs(g, epoch))
     if post_gen is not None:
         fake = post_gen(fake)
     # D in train mode; only its input gradient is used, so its parameters stay
@@ -162,7 +178,7 @@ def g_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
     flags = [p.requires_grad for p in d.parameters()]
     d.requires_grad_(False)
     try:
-        fake_out = d(fake, labels, train=True, rng=draws.d)
+        fake_out = d(fake, labels, train=True, rng=draws.d, **epoch_kwargs(d, epoch))
     finally:
         for p, flag in zip(d.parameters(), flags):
             p.requires_grad_(flag)

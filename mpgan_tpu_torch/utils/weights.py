@@ -36,7 +36,25 @@ before ``layers``, ``b`` before ``w``, ``bias`` before ``scale``, ``fmg`` and
 ``input_embedding``, ``pma/{S, mab}``, ``sabs/[i]/mab/{attention/{in_proj_b,
 in_proj_w, out_b, out_w}, ff, norm1, norm2}``, with ISAB ``I``, ``mab0``,
 ``mab1``), ``None`` entries skipped. The checkpoint layout shared with the JAX
-package rests on it.
+package rests on it. The other families, params then state:
+
+================  =================================================================
+rGAN G, PCGAN     ``layers[i]/{b, w}``
+rGAN D            ``fc[i]/{b, w}``, then ``sfc[i]/{b, w}``
+PointNet D        ``fc[i]/{b, w}``, then ``pointfc[i]/{b, w}``
+TreeGAN G         per depth ``bias, w_branch, w_loop1, w_loop2, w_root[i]``
+GraphCNN G        ``bn[i]/{bias, scale}``, ``convs[i]/{edge, root}/{b, w}``,
+                  ``dense/{b, w}``; state ``bn[i]/{mean, var}``
+legacy MPGAN      ``fmg``, ``fnd``, ``lfc/{b, w}``, ``mp_layers[i]/{fe, fn}``
+================  =================================================================
+
+:func:`load_jax_trees` copies any family's JAX ``(params, state)`` pytrees
+(numpy leaves, flattened here in the same order, no JAX needed) into a module.
+:func:`reference_state_dict` and :func:`generator_from_reference` write and
+read the reference's ``.pt`` layout of every generator family
+(``mpgan_tpu/utils/torch_import.py``); most modules carry it as their own
+``state_dict``, GraphCNN (``layers.{i}.root`` is ``[in, out]``) and the legacy
+MPGAN (``fe.{i}.{j}``, ``fn.{i}.{j}``, ``fnd.{j}``, ``fmg.{j}``) are mapped.
 """
 
 from __future__ import annotations
@@ -46,7 +64,15 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+import re
+
+from ..models.ext.graphcnn import GraphCNNGenerator
+from ..models.ext.pcgan import LatentDiscriminator, LatentGenerator
+from ..models.ext.pointnet import PointNetMixDiscriminator
+from ..models.ext.rgan import RGANDiscriminator, RGANGenerator, linear_layers
+from ..models.ext.treegan import TreeGANGenerator
 from ..models.gapt import SAB, GAPTConfig, GAPTDiscriminator, GAPTGenerator
+from ..models.old_mpgan import OldMPGAN
 from ..models.mpgan import (
     MPDiscriminator,
     MPDiscriminatorConfig,
@@ -246,11 +272,53 @@ def _gapt_leaves(model: GAPTGenerator | GAPTDiscriminator, params: bool) -> list
     return out
 
 
+def _linear_leaves(layers, params: bool) -> list[torch.Tensor]:
+    return [t for lin in layers for t in (lin.bias, lin.weight)] if params else []
+
+
+def _ext_leaves(model: torch.nn.Module, params: bool) -> list[torch.Tensor] | None:
+    """The external families' leaves, None for another module."""
+    if isinstance(model, (RGANGenerator, LatentGenerator, LatentDiscriminator)):
+        return _linear_leaves(linear_layers(model.model), params)
+    if isinstance(model, RGANDiscriminator):
+        return _linear_leaves(model.fc, params) + _linear_leaves(model.sfc, params)
+    if isinstance(model, PointNetMixDiscriminator):
+        return _linear_leaves(model.fc, params) + _linear_leaves(model.pointfc, params)
+    if isinstance(model, TreeGANGenerator):
+        if not params:
+            return []
+        return [t for layer in model.gcn for t in (
+            layer.bias, layer.W_branch, layer.W_loop[0].weight, layer.W_loop[1].weight,
+            *(lin.weight for lin in layer.W_root))]
+    if isinstance(model, GraphCNNGenerator):
+        if not params:
+            return [t for bn in model.bn_layers for t in (bn.running_mean, bn.running_var)]
+        out = [t for bn in model.bn_layers for t in (bn.bias, bn.weight)]
+        out += [t for conv in model.layers for t in (
+            conv.nn.bias, conv.nn.weight, conv.root.bias, conv.root.weight)]
+        return out + [model.dense.bias, model.dense.weight]
+    if isinstance(model, OldMPGAN):
+        out = []
+        if model.cfg.fmg_cfg is not None:
+            out += _mlp_leaves(model.fmg, params)
+        if model.cfg.fnd_cfg is not None:
+            out += _mlp_leaves(model.fnd, params)
+        if model.cfg.lfc and params:
+            out += [model.lfc.bias, model.lfc.weight]
+        for layer in model.mp_layers:
+            out += _mlp_leaves(layer.fe, params) + _mlp_leaves(layer.fn, params)
+        return out
+    return None
+
+
 def jax_leaves(model: torch.nn.Module, params: bool) -> list[torch.Tensor]:
     """The module's parameters (``params=True``) or mutable state (BN running
     statistics, SN ``u``) in the JAX pytree's flatten order."""
     if isinstance(model, (GAPTGenerator, GAPTDiscriminator)):
         return _gapt_leaves(model, params)
+    ext = _ext_leaves(model, params)
+    if ext is not None:
+        return ext
     out: list[torch.Tensor] = []
     if isinstance(model, MPDiscriminator):
         if model.cfg.fnd_cfg is not None:
@@ -263,6 +331,114 @@ def jax_leaves(model: torch.nn.Module, params: bool) -> list[torch.Tensor]:
     for layer in model.mp_layers:
         out += _mlp_leaves(layer.fe, params) + _mlp_leaves(layer.fn, params)
     return out
+
+
+def tree_leaves(tree: Any) -> list[np.ndarray]:
+    """The leaves of a nested dict / list / tuple in ``jax.tree.leaves`` order:
+    dict keys sorted, ``None`` skipped."""
+    if tree is None:
+        return []
+    if isinstance(tree, Mapping):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [np.asarray(tree)]
+
+
+def load_jax_trees(model: torch.nn.Module, params: Any, state: Any) -> torch.nn.Module:
+    """Copy JAX ``(params, state)`` pytrees (numpy leaves) into ``model`` in place,
+    through :func:`jax_leaves`; shapes must agree. Returns ``model``."""
+    with torch.no_grad():
+        for tree, is_params in ((params, True), (state, False)):
+            leaves, ours = tree_leaves(tree), jax_leaves(model, is_params)
+            if len(leaves) != len(ours):
+                raise ValueError(f"{type(model).__name__}: {len(leaves)} JAX leaves, "
+                                 f"{len(ours)} in the module")
+            for t, leaf in zip(ours, leaves):
+                if tuple(leaf.shape) != tuple(t.shape):
+                    raise ValueError(f"leaf shape {leaf.shape} != {tuple(t.shape)}")
+                t.copy_(torch.from_numpy(np.array(leaf, np.float32)))
+    refresh_sn_v(model)
+    return model
+
+
+# the legacy MPGAN's reference keys against the module's (old_model.py)
+_OLD_KEYS = ((r"^mp_layers\.(\d+)\.(fe|fn)\.net\.", r"\2.\1."), (r"^(fnd|fmg)\.net\.", r"\1."))
+_OLD_KEYS_BACK = ((r"^(fe|fn)\.(\d+)\.", r"mp_layers.\2.\1.net."), (r"^(fnd|fmg)\.", r"\1.net."))
+
+
+def _rename(sd: Mapping[str, torch.Tensor], rules) -> dict[str, torch.Tensor]:
+    out = {}
+    for k, v in sd.items():
+        for pat, rep in rules:
+            k, n = re.subn(pat, rep, k)
+            if n:
+                break
+        out[k] = v
+    return out
+
+
+def reference_state_dict(model: str, module: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """A generator's weights in the reference's ``G_*.pt`` layout, on the CPU
+    (``torch.save``-able): what ``mpgan_tpu.utils.torch_import.generator_from_torch``
+    reads for ``model``."""
+    sd = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+    if model == "old_mpgan":
+        return _rename(sd, _OLD_KEYS)
+    if model == "graphcnngan":
+        out = {}
+        for k, v in sd.items():
+            if k.endswith(".root.weight"):
+                out[k[: -len(".weight")]] = v.t().contiguous()
+            elif k.endswith(".root.bias"):
+                out[k[: -len(".root.bias")] + ".bias"] = v
+            elif k.startswith("bn_layers."):
+                i, rest = k[len("bn_layers."):].split(".", 1)
+                out[f"bn_layers.{i}.module.{rest}"] = v
+            else:
+                out[k] = v
+        return out
+    return sd
+
+
+def _module_sd(model: str, sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """:func:`reference_state_dict`'s inverse."""
+    if model == "old_mpgan":
+        if any(k.startswith("mp_layers.") for k in sd):
+            raise ValueError(
+                "this old_mpgan state dict is in the modern MPGAN layout (mp_layers.*, as the "
+                "shipped mplfc checkpoints): load it with the card's model set to mpgan")
+        return _rename(sd, _OLD_KEYS_BACK)
+    if model == "graphcnngan":
+        out = {}
+        for k, v in sd.items():
+            parts = k.split(".")
+            if k.startswith("layers.") and parts[2] == "root":
+                out[f"layers.{parts[1]}.root.weight"] = v.t().contiguous()
+            elif k.startswith("layers.") and parts[2] == "bias":
+                out[f"layers.{parts[1]}.root.bias"] = v
+            elif k.startswith("bn_layers."):
+                out[k.replace(".module.", ".", 1)] = v
+            else:
+                out[k] = v
+        return out
+    return dict(sd)
+
+
+def generator_from_reference(model: str, sd: Mapping[str, torch.Tensor], cfg: Any,
+                             g_cls: type, device: torch.device | str = "cpu"
+                             ) -> torch.nn.Module:
+    """A ``g_cls(cfg)`` generator holding a reference-layout state dict (the
+    counterpart of ``generator_from_torch``). Spectral-norm ``weight_v`` and BN
+    ``num_batches_tracked`` may be missing; any other missing or unexpected key
+    raises."""
+    g = g_cls(cfg)
+    missing, unexpected = g.load_state_dict(_module_sd(model, sd), strict=False)
+    missing = [k for k in missing if not k.endswith(("weight_v", "num_batches_tracked"))]
+    if missing or unexpected:
+        raise KeyError(f"{model} state dict: missing {missing}, unexpected {unexpected}")
+    refresh_sn_v(g)
+    return g.to(device)
 
 
 def refresh_sn_v(model: torch.nn.Module) -> None:

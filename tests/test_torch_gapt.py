@@ -223,6 +223,9 @@ def test_build_gapt_and_registry_match_jax(card):
 
 
 def test_registry_builds_mpgan_and_refuses_the_rest():
+    """The registry builds MPGAN's pair and, since the model zoo is ported, every
+    generator and discriminator family the JAX registry builds, in any pair:
+    the module classes, and a generator whose output has the noise spec's batch."""
     from mpgan_tpu_torch.models.mpgan import MPDiscriminator, MPGenerator
 
     suite = tregistry.build_suite(tconfig.from_args_dict(
@@ -230,10 +233,21 @@ def test_registry_builds_mpgan_and_refuses_the_rest():
     assert isinstance(suite.generator(), MPGenerator)
     assert isinstance(suite.discriminator(), MPDiscriminator)
     assert suite.noise.shape == (8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, the other models"):
-        tregistry.build_suite(tconfig.from_args_dict({"model": "rgan"}))
-    with pytest.raises(NotImplementedError, match="mixed"):
-        tregistry.build_suite(tconfig.from_args_dict({"model": "gapt", "model_D": "mpgan"}))
+    small = {"num_hits": 8, "hidden_node_size": 8, "fe": [8], "fn": [8], "rgang_fc": [8],
+             "pointnetd_pointfc": [8], "pointnetd_fc": [8], "graphcnng_layers": [4],
+             "treegang_features": [8, 3], "treegang_degrees": [8], "gapt_embed_dim": 8,
+             "num_heads": 2, "pcgan_z1_dim": 8, "pcgan_d_dim": 8}
+    for model in ("rgan", "graphcnngan", "treegan", "pcgan", "old_mpgan", "mpgan", "gapt"):
+        for model_d in ("rgan", "pointnet", "pcgan", "old_mpgan", "mpgan", "gapt"):
+            # GraphCNN's preset searches 20 neighbours
+            n = 24 if model == "graphcnngan" else 8
+            suite = tregistry.build_suite(tconfig.from_args_dict(
+                dict(small, model=model, model_D=model_d, num_hits=n)))
+            assert (suite.model, suite.model_d) == (model, model_d)
+            g, d = suite.generator(), suite.discriminator()
+            assert isinstance(g, torch.nn.Module) and isinstance(d, torch.nn.Module)
+            noise = suite.noise.sample(torch.Generator().manual_seed(0), 2, "cpu")
+            assert g(noise, torch.full((2, 1), 0.5)).shape[0] == 2
 
 
 @pytest.mark.parametrize("card", CARDS)

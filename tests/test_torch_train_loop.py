@@ -218,8 +218,7 @@ def test_train_cli_refuses_cuda_without_a_gpu(tmp_path):
 @pytest.mark.parametrize("flags,match", [
     (["--fpnd", "--num-hits", "30"], "fpnd"),
     (["--aug-t"], "augment"), (["--compute-dtype", "bfloat16"], "bf16"),
-    (["--mesh-shape", "4"], "mesh"), (["--model", "gapt", "--model-D", "mpgan"], "gapt"),
-    (["--model", "rgan"], "rgan"),
+    (["--mesh-shape", "4"], "mesh"),
 ])
 def test_trainer_refuses_what_is_not_ported(tmp_path, flags, match):
     args = targs_cli.parse_cli(["--name", "r", "--dir-path", str(tmp_path), *TINY, *flags])
