@@ -155,7 +155,30 @@ Phases, each printed as it finishes:
     the card against the CPU as in phase 8; counters reset before, read after:
     K4, K2 with dropout and K3 with and without weight gradients launched.
     Each family's D+G step at its batch and generation rate at B=4096 (CUDA
-    events, best of 3) are printed beside the card's name and power limit.
+    events, best of 3) are printed beside the card's name and power limit;
+24. FPND at the loop's size: the flagship 30p generator (K4) makes 50,000 jets,
+    scored against 50,000 synthetic real jets on the seeded random ParticleNet
+    trunk, activations on the card and moments on the host timed apart, with
+    the peak device memory. Checks, each raising: the card's activations of
+    2,000 jets a side against the CPU path's at rtol = atol = 1e-4, at most 1%
+    of the jets beyond it (a block 2-3 search in the learned features may swap
+    two near-tied neighbours where the card rounds otherwise); the FPND of
+    those jets on the card within 1e-3 relative of the CPU's;
+25. the flagship train CLI with ``--aug-t --aug-f --aug-r90 --aug-s --fpnd
+    --profile --debug`` on synthetic jets, one epoch of 10 batches and its
+    evaluation: finite losses and FPND, the three ``--debug`` blocks logged, the
+    profile's trace naming K2, K3 and K4 (counters reset before, read after:
+    each launched); an augmented flagship D+G step (dropout 0.5) on the card
+    against the CPU as in phase 8; one D+G step under ``--debug-nans``, clean,
+    then raising ``FloatingPointError`` with a NaN weight in G;
+26. ``cli.train_mnist`` on the card: one epoch of the synthetic clouds (62
+    batches) at N = 100 and at N = 75 on the reference's dense MPGAN defaults
+    (batch 32; G on K2, N > 64; D on K2 with dropout 0.5 and K3), FID by a
+    MoNet written from a seed on 256 clouds (timed apart), the cloud raster
+    where matplotlib is installed, each step's time; K2 (eval) at B = 32, N = 75
+    and 100 against its plain version and rerun bit for bit, then phase 7's
+    checks of K2 with dropout and K3 at those shapes, and each kernel's time
+    beside its bound and its plain version's.
 
 Every kernel's entry in the JSON line carries its bound: the larger of its
 FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
@@ -175,6 +198,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import pathlib
 import subprocess
 import sys
@@ -317,12 +341,31 @@ def best_ms(fn, reps=3, inner=3):
     return best
 
 
-def train_kernel_checks(mk, dev, identical):
-    """Phase 7: K2 with dropout and K3 against their plain versions; each
-    rerun's bit-identity is and-ed into ``identical``."""
+def main_shape(identical, max_err, name, b, n, kernel, plain, inner):
+    """A kernel at a path's shape (sum aggregation) against its plain version and
+    rerun bit for bit (and-ed into ``identical``, its error max-ed into
+    ``max_err``), then both timed; returns (kernel ms, plain ms)."""
+    out, again, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    abs_err, rel_err, bad = errors(out, ref)
+    repeat = torch.equal(out, again)
+    identical[name] &= repeat
+    log("kernel_check", kernel=name, b=b, n=n, sum_agg=True, max_abs_err=abs_err,
+        max_rel_err=rel_err, out_of_tol=bad, two_runs_bit_identical=repeat)
+    if bad or not repeat:
+        raise SystemExit(f"{name} disagrees with its plain version or itself at b={b} n={n}: "
+                         f"{bad} elements beyond rtol=atol={TOL}, bit-identical rerun {repeat}")
+    max_err[name] = max(max_err[name], abs_err)
+    del out, again, ref
+    return best_ms(kernel, inner=inner), best_ms(plain, inner=inner)
+
+
+def train_kernel_checks(mk, dev, identical, shapes=((256, 30), (16, 150)), sums=(True, False)):
+    """Phase 7 (and 26 at the MNIST shapes): K2 with dropout and K3 against their
+    plain versions; each rerun's bit-identity is and-ed into ``identical``."""
     max_err = {"edge_aggregate": 0.0, "edge_aggregate_bwd": 0.0}
-    for b, n in ((256, 30), (16, 150)):
-        for sum_agg in (True, False):
+    for b, n in shapes:
+        for sum_agg in sums:
             u1, u2, mask, hidden, _, _ = kernel_inputs(dev, b, n, 3, seed=11 + n)
             g = torch.randn(b, n, 192, generator=torch.Generator(device=dev).manual_seed(n),
                             device=dev)
@@ -392,10 +435,10 @@ def use_kernels(state, flag):
 
 def step_fn(state, args, data, labels):
     from mpgan_tpu_torch.models.registry import build_suite
-    from mpgan_tpu_torch.training.train_step import StepConfig, d_step, g_step
+    from mpgan_tpu_torch.training.train_step import d_step, g_step, step_config
 
     spec = build_suite(args).noise
-    cfg = StepConfig(loss=args.loss)
+    cfg = step_config(args)  # the loop's: loss, GP, targets, --aug-*
 
     def step():
         parts = d_step(state, cfg, spec, data, labels)
@@ -648,6 +691,37 @@ def profile_steps(step, card, phase, **kv):
         **kv)
 
 
+def train_kernel_times(mk, dev, shapes, inner=1) -> dict:
+    """K3 with and without weight gradients and K2 with dropout 0.5 at each (B, N)
+    of ``shapes``, kernel and plain version timed (``inner`` kernel calls a
+    timing): ``{n: {kind: {shape, ms, plain_ms, bound_ms, ...}}}`` (phases 10 and
+    26; below a millisecond one call a timing also times the launch's host gap)."""
+    times = {}
+    for b, n in shapes:
+        u1, u2, mask, hidden, _, _ = kernel_inputs(dev, b, n, 3, seed=b + n)
+        g = torch.randn(b, n, 192, generator=torch.Generator(device=dev).manual_seed(b + n),
+                        device=dev)
+        jobs = {
+            "bwd": (lambda: mk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2, True, 0.5, 5),
+                    lambda: mk.edge_aggregate_bwd_reference(u1, u2, mask, hidden, g, 0.2, True,
+                                                            0.5, 5), dense_bwd_bound(b, n)),
+            "bwd_no_wgrads": (
+                lambda: mk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2, True, 0.5, 5, False),
+                lambda: mk.edge_aggregate_bwd_reference(u1, u2, mask, hidden, g, 0.2, True, 0.5,
+                                                        5, False),
+                dense_bwd_bound(b, n, wgrads=False)),
+            "train_fwd": (lambda: mk.edge_aggregate(u1, u2, mask, hidden, 0.2, True, 0.5, 5),
+                          lambda: mk.edge_aggregate_reference(u1, u2, mask, hidden, 0.2, True,
+                                                              0.5, 5), dense_fwd_bound(b, n)),
+        }
+        times[n] = {k: {"shape": f"B={b} N={n}", "ms": best_ms(kf, inner=inner),
+                        "plain_ms": best_ms(pf, inner=1), **bd}
+                    for k, (kf, pf, bd) in jobs.items()}
+        del u1, u2, mask, hidden, g
+        torch.cuda.empty_cache()
+    return times
+
+
 def train_timings(mk, dev, from_args_dict, card):
     """Phase 10: the D+G step, K3 and K2-train against their plain versions; a profile."""
     args = from_args_dict(FLAGSHIP)
@@ -670,32 +744,9 @@ def train_timings(mk, dev, from_args_dict, card):
         plain_ms=ms["plain"], kernel_tflops=STEP_GFLOP / ms["kernel"],
         plain_tflops=STEP_GFLOP / ms["plain"])
 
-    times = {}
-    for b, n in ((256, 30), (32, 150)):
-        u1, u2, mask, hidden, _, _ = kernel_inputs(dev, b, n, 3, seed=b)
-        g = torch.randn(b, n, 192, device=dev)
-        times[f"bwd_{n}"] = (
-            best_ms(lambda: mk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2, True, 0.5, 5),
-                    inner=1),
-            best_ms(lambda: mk.edge_aggregate_bwd_reference(u1, u2, mask, hidden, g, 0.2, True,
-                                                            0.5, 5), inner=1))
-        times[f"bwd_no_wgrads_{n}"] = (
-            best_ms(lambda: mk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2, True, 0.5, 5,
-                                                  False), inner=1),
-            best_ms(lambda: mk.edge_aggregate_bwd_reference(u1, u2, mask, hidden, g, 0.2, True,
-                                                            0.5, 5, False), inner=1))
-        times[f"train_fwd_{n}"] = (
-            best_ms(lambda: mk.edge_aggregate(u1, u2, mask, hidden, 0.2, True, 0.5, 5), inner=1),
-            best_ms(lambda: mk.edge_aggregate_reference(u1, u2, mask, hidden, 0.2, True, 0.5, 5),
-                    inner=1))
-        del u1, u2, mask, hidden, g
-        torch.cuda.empty_cache()
-    bounds = {f"bwd{w}_{n}": dense_bwd_bound(b, n, wgrads=not w)["bound_ms"]
-              for b, n in ((256, 30), (32, 150)) for w in ("", "_no_wgrads")}
+    times = train_kernel_times(mk, dev, ((256, 30), (32, 150)))
     log("train_kernel_times", card=card,
-        **{k: {"shape": "B=256 N=30" if k.endswith("_30") else "B=32 N=150", "ms": v[0],
-               "plain_ms": v[1], **({"bound_ms": bounds[k]} if k in bounds else {})}
-           for k, v in times.items()})
+        **{f"{k}_{n}": v for n, by_kind in times.items() for k, v in by_kind.items()})
 
     profile_steps(step, card, "train_step_profile", parent_kernels_per_step=PARENT_STEP_LAUNCHES)
     return ms, times
@@ -1830,6 +1881,303 @@ def model_zoo(mk, train_cli, gen_cli, dev, card, from_args_dict, tmp):
     return counts, results
 
 
+# phases 24-26: FPND at the loop's size, the train CLI with every flag, train_mnist
+FPND_JETS = 50000  # the protocol's jets a side (train.py:549-555)
+FPND_CPU_JETS = 2000  # jets a side whose activations the CPU path recomputes
+FPND_TOL = 1e-4  # rtol = atol on activations: FP32 on both, products in another order
+# jets whose activations may lie beyond FPND_TOL: a block 2-3 neighbour search in the
+# learned features can swap two near-tied neighbours when the card rounds otherwise
+MAX_FPND_SWAP_SHARE = 0.01
+FPND_REL_TOL = 1e-3  # the card's FPND against the CPU's on the same jets
+AUG_FLAGS = ["--aug-t", "--aug-f", "--aug-r90", "--aug-s"]
+MNIST_SHAPES = ((32, 75), (32, 100))  # (batch, particles) of the MNIST defaults' D and G
+# clouds the MoNet scores on the host an evaluation (its Python graclus loop makes a
+# cloud cost the host tens of milliseconds, PERF.md)
+MNIST_FID_JETS = 256
+
+
+def fpnd_flops(n=30) -> int:
+    """FLOPs of the ParticleNet trunk for one jet: the edge MLPs on n * k edges and the
+    shortcuts on n particles (products only)."""
+    from mpgan_tpu_torch.evaluation.fpnd import CONV_WIDTHS, INPUT_DIMS, K
+
+    flops, cin = 0, INPUT_DIMS
+    for block in CONV_WIDTHS:
+        flops += 2 * n * K * macs([2 * cin, *block]) + 2 * n * cin * block[-1]
+        cin = block[-1]
+    return flops
+
+
+def corrected(ds, norm):
+    from mpgan_tpu_torch.data.jetnet import gen_jet_corrections
+
+    return gen_jet_corrections(ds.particle_normalisation(norm, inverse=True),
+                               ret_mask_separate=True, zero_mask_particles=True,
+                               zero_neg_pt=False)[0]
+
+
+def fpnd_phase(mk, dev, card, from_args_dict):
+    """Phase 24: FPND at the loop's size. The flagship 30p generator (K4) makes
+    50,000 jets, scored against 50,000 synthetic real jets on the random trunk:
+    activations on the card and moments on the host, timed apart; the card's
+    activations of 2,000 jets a side against the CPU path's, and the FPND of
+    those 2,000 a side on the card against the CPU's."""
+    from mpgan_tpu_torch.data.jetnet import JetNetDataset
+    from mpgan_tpu_torch.evaluation import fpnd as F
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training.sampling import generate_multi_batch
+
+    args = from_args_dict(FLAGSHIP)
+    suite = build_suite(args)
+    g = suite.generator(torch.Generator().manual_seed(0), device=dev)
+    ds = JetNetDataset("g", num_particles=30, split="valid", split_fraction=(0.0, 1.0),
+                       synthetic_num_jets=FPND_JETS, mask_feature=True, num_particles_label=True)
+    real = corrected(ds, ds.particle_data)
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen_norm = generate_multi_batch(g, suite.noise, torch.Generator(device=dev).manual_seed(1),
+                                    FPND_JETS, args.batch_size, labels=ds.jet_data)
+    gen_s = time.perf_counter() - t0
+    launches = mk.launch_counts["edge_aggregate_fn"]
+    gen = corrected(ds, gen_norm)
+    if gen.shape != (FPND_JETS, 30, 3) or not np.isfinite(gen).all() or launches == 0:
+        raise SystemExit(f"fpnd: generated {gen.shape}, finite {np.isfinite(gen).all()}, "
+                         f"K4 launches {launches}")
+
+    params = F.particlenet_init()
+    F.activations(params, real[:256], device=dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a_real = F.activations(params, real, device=dev)
+    a_gen = F.activations(params, gen, device=dev)
+    act_s = time.perf_counter() - t0  # ends in the host copy, so synchronised
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    score = F.frechet_from_activations(a_real, a_gen)
+    host_s = time.perf_counter() - t0
+
+    m = FPND_CPU_JETS
+    t0 = time.perf_counter()
+    c_real = F.activations(params, real[:m], device="cpu")
+    c_gen = F.activations(params, gen[:m], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card_acts = np.concatenate([a_real[:m], a_gen[:m]])
+    cpu_acts = np.concatenate([c_real, c_gen])
+    err = np.abs(card_acts - cpu_acts)
+    beyond = (err > FPND_TOL + FPND_TOL * np.abs(cpu_acts)).any(axis=1)
+    sub_card = F.frechet_from_activations(a_real[:m], a_gen[:m])
+    sub_cpu = F.frechet_from_activations(c_real, c_gen)
+    rel = abs(sub_card - sub_cpu) / abs(sub_cpu)
+    flops = fpnd_flops() * 2 * FPND_JETS
+    log("fpnd", card=card, jets_a_side=FPND_JETS, fpnd=score, generation_s=gen_s,
+        k4_launches=launches, activations_s=act_s, host_moments_s=host_s,
+        activation_tflop=flops / 1e12, activation_tflops=flops / act_s / 1e12,
+        peak_device_bytes=peak, cpu_jets_a_side=m, cpu_activations_s=cpu_s,
+        act_max_abs_err=float(err.max()), jets_beyond_tol=int(beyond.sum()),
+        jets_beyond_tol_share=float(beyond.mean()), max_share=MAX_FPND_SWAP_SHARE,
+        fpnd_card_on_cpu_jets=sub_card, fpnd_cpu=sub_cpu, fpnd_rel_err=rel,
+        fpnd_rel_tol=FPND_REL_TOL)
+    if not np.isfinite(score) or score <= 0:
+        raise SystemExit(f"fpnd: {score} at the loop's size")
+    if beyond.mean() > MAX_FPND_SWAP_SHARE or rel > FPND_REL_TOL:
+        raise SystemExit(f"fpnd: the card's activations ({beyond.sum()} jets beyond {FPND_TOL}) "
+                         f"or FPND ({rel} relative) disagree with the CPU's")
+    return launches
+
+
+def trace_kernels(trace: pathlib.Path) -> dict[str, int]:
+    """Kernel events in a Chrome trace by port kernel: K2 (``edge_aggregate_kernel``
+    without the node MLP), K4 (with it) and K3 (``edge_aggregate_bwd_kernel``)."""
+    import re
+
+    counts = {"edge_aggregate": 0, "edge_aggregate_fn": 0, "edge_aggregate_bwd": 0}
+    for ev in json.loads(trace.read_text())["traceEvents"]:
+        name = ev.get("name", "")
+        if ev.get("cat") != "kernel" or "edge_aggregate" not in name:
+            continue
+        if "edge_aggregate_bwd_kernel" in name:
+            counts["edge_aggregate_bwd"] += 1
+        elif "edge_aggregate_kernel" in name:
+            fused = re.search(r"edge_aggregate_kernel<\s*(true|\(bool\)1|1)\s*>", name)
+            counts["edge_aggregate_fn" if fused else "edge_aggregate"] += 1
+    return counts
+
+
+class LogRecords(logging.Handler):
+    """The records of the port's loggers while the context is open (INFO and up)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records, self.root_level = [], None
+
+    def __enter__(self):
+        root = logging.getLogger()
+        self.root_level = root.level
+        root.setLevel(logging.INFO)
+        root.addHandler(self)
+        return self
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+    def __exit__(self, *exc):
+        root = logging.getLogger()
+        root.removeHandler(self)
+        root.setLevel(self.root_level)
+
+
+def train_cli_all_flags(mk, train_cli, dev, card, from_args_dict, tmp):
+    """Phase 25: the flagship train CLI with ``--aug-* --fpnd --profile --debug``,
+    one epoch of 10 batches and its evaluation; the augmented flagship D+G step
+    against the CPU; one step under ``--debug-nans``, clean and with a NaN weight."""
+    from mpgan_tpu_torch.cli.args import parse_cli
+    from mpgan_tpu_torch.data.loader import BatchLoader
+    from mpgan_tpu_torch.training.loop import Trainer
+
+    argv = ["--name", "all", "--model", "mpgan", "--jets", "g", "--dir-path", str(tmp),
+            "--num-samples", "4000", "--eval-tot-samples", "1200", "--w1-num-samples", "600",
+            "--num-epochs", "1", "--save-epochs", "1", "--fpnd", "--profile", "--debug",
+            *AUG_FLAGS]
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with LogRecords() as logs:
+        t = train_cli.run(parse_cli(argv), dev)
+    wall = time.perf_counter() - t0
+    counts = dict(mk.launch_counts)
+    profile = tmp / "all" / "profile"
+    traced = trace_kernels(profile / "epoch_1_trace.json")
+    text = "\n".join(logs.records)
+    debug = {k: text.count(k) for k in ("D real output", "G output", "D fake output")}
+    losses = {k: t.losses[k] for k in ("Dr", "Df", "D", "G", "fpnd")}
+    log("train_all_flags", card=card, wall_s=wall, batch=t.args.batch_size,
+        aug=dataclasses.asdict(t.step_cfg.augment), losses=losses, debug_blocks=debug,
+        trace_kernels=traced, profile_files=sorted(p.name for p in profile.iterdir()),
+        random_trunk_warned="random ParticleNet trunk" in text, launches=counts)
+    if not all(np.isfinite(v).all() and len(v) == 1 for v in losses.values()):
+        raise SystemExit(f"train CLI with every flag: losses or FPND not finite: {losses}")
+    if any(v != 1 for v in debug.values()) or not all(traced.values()):
+        raise SystemExit(f"train CLI with every flag: debug blocks {debug}, traced {traced}")
+    for name in ("edge_aggregate_train", "edge_aggregate_bwd", "edge_aggregate_bwd_no_wgrads",
+                 "edge_aggregate_fn"):
+        if counts[name] == 0:
+            raise SystemExit(f"kernel {name} never launched on the all-flags train path")
+
+    aug_card = {**FLAGSHIP, "aug_t": True, "aug_f": True, "aug_r90": True, "aug_s": True,
+                "aug_prob": 0.5}
+    step_check(dev, from_args_dict, card=aug_card, batch=16, phase="aug_step_check")
+
+    # --debug-nans: one D+G step (--break-zero), clean, then with a NaN weight in G
+    mk.reset_launch_counts()
+    args = parse_cli(["--name", "nans", "--dir-path", str(tmp), "--num-samples", "2000",
+                      "--debug-nans", "--break-zero"])
+    from mpgan_tpu_torch.data.jetnet import JetNetDataset
+
+    ds = JetNetDataset("g", num_particles=30, split="train", synthetic_num_jets=2000,
+                       mask_feature=True, num_particles_label=True)
+    nt = Trainer(args, ds, device=dev)
+    loader = BatchLoader(ds.particle_data, ds.jet_data, batch_size=args.batch_size,
+                         shuffle=True, seed=args.seed)
+    nt.train_epoch(1, loader)
+    clean = nt.losses["G"][-1]
+    with torch.no_grad():
+        next(nt.state.g.parameters()).fill_(float("nan"))
+    try:
+        nt.train_epoch(2, loader)
+        raised = None
+    except FloatingPointError as exc:
+        raised = str(exc)
+    log("debug_nans", clean_step_g_loss=clean, raised=raised,
+        launches={k: v for k, v in mk.launch_counts.items() if v})
+    if not np.isfinite(clean) or raised is None:
+        raise SystemExit(f"--debug-nans: clean step {clean}, NaN weight raised {raised}")
+    return {k: counts[k] + mk.launch_counts[k] for k in counts}
+
+
+def write_mnist_resources(path: pathlib.Path, num_hits: int, seed: int = 0) -> None:
+    """A random MoNet classifier in the ``C_sm_nh_*_state_dict.pt`` schema and
+    real-side moments for all digits, from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=g, dtype=torch.float64) * scale  # noqa
+    widths, kernels, sd = (1, 32, 64, 64), 25, {}
+    for i, (cin, cout) in enumerate(zip(widths[:-1], widths[1:]), 1):
+        sd[f"conv{i}.g"] = r(cin, kernels * cout, scale=cin ** -0.5)
+        sd[f"conv{i}.mu"] = torch.rand(kernels, 2, generator=g, dtype=torch.float64)
+        sd[f"conv{i}.sigma"] = 0.1 + torch.rand(kernels, 2, generator=g, dtype=torch.float64)
+        sd[f"conv{i}.root"] = r(cin, cout, scale=cin ** -0.5)
+        sd[f"conv{i}.bias"] = r(cout, scale=0.1)
+    sd["fc1.weight"], sd["fc1.bias"] = r(128, widths[-1], scale=0.125), r(128, scale=0.1)
+    torch.save(sd, path / f"C_sm_nh_{num_hits}_state_dict.pt")
+    a = np.random.default_rng(seed).normal(size=(512, 128))
+    np.savetxt(path / f"all_nums_sm_2_nh_{num_hits}_mu2.txt", a.mean(axis=0))
+    np.savetxt(path / f"all_nums_sm_2_nh_{num_hits}_sigma2.txt", np.cov(a, rowvar=False))
+
+
+def mnist_phase(mk, dev, card, identical, tmp):
+    """Phase 26: ``cli.train_mnist`` on the card, one epoch of the synthetic
+    clouds at N = 100 and N = 75 on the reference's dense MPGAN defaults (batch
+    32; G on K2, N > 64; D on K2 with dropout 0.5 and K3), FID on resources
+    written from a seed; K2 (eval, p = 0.5) and K3 at B = 32, N = 75 and 100
+    against their plain versions, rerun bit for bit, and timed."""
+    import importlib.util
+
+    from mpgan_tpu_torch.cli import train_mnist
+    from mpgan_tpu_torch.training import mnist_loop
+
+    res = tmp / "mnist_resources"
+    res.mkdir()
+    mk.reset_launch_counts()
+    runs = {}
+    for n in (100, 75):
+        write_mnist_resources(res, n)
+        argv = ["--device", str(dev), "--name", f"mnist{n}", "--dir-path", str(tmp),
+                "--num-hits", str(n), "--num-epochs", "1", "--save-epochs", "1",
+                "--fid-eval-samples", str(MNIST_FID_JETS), "--mnist-eval-resources", str(res)]
+        parts, calls = {}, {}
+        t0 = time.perf_counter()
+        with timed_parts(mnist_loop, ("generate_multi_batch", "get_fid"), parts, calls):
+            t = train_mnist.main(argv)
+        wall = time.perf_counter() - t0
+        b = t.args.batch_size
+        data = torch.as_tensor(t.train_dataset.particle_data[:b], device=dev)
+        step_ms = best_ms(step_fn(t.state, t.args, data, None), inner=1)
+        run_dir = tmp / f"mnist{n}"
+        runs[n] = {"batch": b, "batches": len(t.train_dataset) // b, "wall_s": wall,
+                   "fid_clouds": MNIST_FID_JETS, "eval_parts_s": parts, "step_ms": step_ms,
+                   "losses": {k: t.losses[k] for k in ("D", "G")}, "fid": t.losses["fid"],
+                   "state": (run_dir / "models" / "state_1.npz").exists(),
+                   "raster": (run_dir / "figs" / "1_clouds.pdf").exists()}
+        if (b != 32 or not runs[n]["state"] or not np.isfinite(t.losses["G"]).all()
+                or len(t.losses["fid"]) != 1 or not np.isfinite(t.losses["fid"]).all()):
+            raise SystemExit(f"train_mnist at N={n}: {runs[n]}")
+        if importlib.util.find_spec("matplotlib") is not None and not runs[n]["raster"]:
+            raise SystemExit(f"train_mnist at N={n}: no cloud raster with matplotlib present")
+    counts = dict(mk.launch_counts)
+    log("train_mnist", card=card, runs=runs, launches={k: v for k, v in counts.items() if v})
+    for name in ("edge_aggregate", "edge_aggregate_train", "edge_aggregate_bwd",
+                 "edge_aggregate_bwd_no_wgrads"):
+        if counts[name] == 0:
+            raise SystemExit(f"kernel {name} never launched on the train_mnist path")
+
+    # the kernels at the MNIST shapes: K2 eval (the main path's check), then K2 p = 0.5
+    # and K3 (phase 7's checks), all timed (phase 10's)
+    err = {"edge_aggregate": 0.0}
+    times = train_kernel_times(mk, dev, MNIST_SHAPES, inner=3)
+    for b, n in MNIST_SHAPES:
+        u1, u2, mask, hidden, _, _ = kernel_inputs(dev, b, n, 3, seed=n)
+        ms, plain_ms = main_shape(
+            identical, err, "edge_aggregate", b, n,
+            lambda: mk.edge_aggregate(u1, u2, mask, hidden, 0.2, True),
+            lambda: mk.edge_aggregate_reference(u1, u2, mask, hidden, 0.2, True), inner=3)
+        times[n]["eval"] = {"shape": f"B={b} N={n}", "ms": ms, "plain_ms": plain_ms,
+                            **dense_fwd_bound(b, n)}
+        del u1, u2, mask, hidden
+        torch.cuda.empty_cache()
+    train_err = train_kernel_checks(mk, dev, identical, shapes=MNIST_SHAPES, sums=(True,))
+    err.update({k: max(v, err.get(k, 0.0)) for k, v in train_err.items()})
+    log("mnist_kernel_times", card=card, **{f"n{n}": v for n, v in times.items()})
+    return counts, err, times, runs
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1996,24 +2344,9 @@ def main() -> None:
 
     # K4 and K2 at the main path's shapes: against their plain versions, twice bit for
     # bit, then timed
-    def main_shape(name, b, n, kernel, plain, inner):
-        out, again, ref = kernel(), kernel(), plain()
-        torch.cuda.synchronize()
-        abs_err, rel_err, bad = errors(out, ref)
-        repeat = torch.equal(out, again)
-        identical[name] &= repeat
-        log("kernel_check", kernel=name, b=b, n=n, sum_agg=True, max_abs_err=abs_err,
-            max_rel_err=rel_err, out_of_tol=bad, two_runs_bit_identical=repeat)
-        if bad or not repeat:
-            raise SystemExit(f"{name} disagrees with its plain version or itself at b={b} n={n}: "
-                             f"{bad} elements beyond rtol=atol={TOL}, bit-identical rerun {repeat}")
-        max_err[name] = max(max_err[name], abs_err)
-        del out, again, ref
-        return best_ms(kernel, inner=inner), best_ms(plain, inner=inner)
-
     u1, u2, mask, hidden, x, fn = kernel_inputs(dev, 4096, 30, 3, seed=7)
     k4 = main_shape(
-        "edge_aggregate_fn", 4096, 30,
+        identical, max_err, "edge_aggregate_fn", 4096, 30,
         lambda: mk.edge_aggregate_fn(u1, u2, mask, hidden, x, fn, 0.2, True, 0.2, True),
         lambda: mk.edge_aggregate_fn_reference(u1, u2, mask, hidden, x, fn, 0.2, True, 0.2, True),
         inner=3)
@@ -2021,7 +2354,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     u1, u2, mask, hidden, _, _ = kernel_inputs(dev, 512, 150, 3, seed=8)
     k2 = main_shape(
-        "edge_aggregate", 512, 150,
+        identical, max_err, "edge_aggregate", 512, 150,
         lambda: mk.edge_aggregate(u1, u2, mask, hidden, 0.2, True),
         lambda: mk.edge_aggregate_reference(u1, u2, mask, hidden, 0.2, True), inner=1)
     del u1, u2, mask, hidden
@@ -2070,24 +2403,41 @@ def main() -> None:
         zoo_launches, zoo = model_zoo(mk, train_cli, gen, dev, card, from_args_dict,
                                       pathlib.Path(tmp))
 
+    # 24. FPND at the loop's size
+    fpnd_launches = fpnd_phase(mk, dev, card, from_args_dict)
+    # 25. the flagship train CLI with every flag of this slice
+    with tempfile.TemporaryDirectory() as tmp:
+        all_launches = train_cli_all_flags(mk, train_cli, dev, card, from_args_dict,
+                                           pathlib.Path(tmp))
+    # 26. train_mnist
+    with tempfile.TemporaryDirectory() as tmp:
+        mnist_launches, mnist_err, mnist_times, mnist_runs = mnist_phase(
+            mk, dev, card, identical, pathlib.Path(tmp))
+    later = [zoo_launches, all_launches, mnist_launches]  # phases 23, 25, 26
+
     fwd_src = "mpgan_tpu_torch/csrc/edge_aggregate.cu"
     kernels = [
         {"name": "edge_aggregate", "route": "cuda", "source": fwd_src,
          "replaces": REPLACES["edge_aggregate"], "includes": K1,
          "launches": launches["edge_aggregate"] + train_launches["edge_aggregate"]
          + train_launches["edge_aggregate_train"] + eval_launches["edge_aggregate"]
-         + zoo_launches["edge_aggregate"] + zoo_launches["edge_aggregate_train"],
-         "max_abs_err": max(max_err["edge_aggregate"], train_err["edge_aggregate"]),
+         + sum(c["edge_aggregate"] + c["edge_aggregate_train"] for c in later),
+         "max_abs_err": max(max_err["edge_aggregate"], train_err["edge_aggregate"],
+                            mnist_err["edge_aggregate"]),
          "max_abs_err_fe128_256": max_err["edge_aggregate_fe128_256"],
          "two_runs_bit_identical": identical["edge_aggregate"],
          "ms": k2[0], "plain_ms": k2[1], **dense_fwd_bound(512, 150), "shape": "B=512 N=150 eval",
-         "train_ms": ttimes["train_fwd_30"][0], "train_plain_ms": ttimes["train_fwd_30"][1],
+         "train_ms": ttimes[30]["train_fwd"]["ms"],
+         "train_plain_ms": ttimes[30]["train_fwd"]["plain_ms"],
          "train_shape": "B=256 N=30 dropout 0.5",
-         "train_bound_ms": dense_fwd_bound(256, 30)["bound_ms"]},
+         "train_bound_ms": ttimes[30]["train_fwd"]["bound_ms"],
+         "mnist": {f"n{n}": {k: v[k] for k in ("eval", "train_fwd")}
+                   for n, v in mnist_times.items()}},
         {"name": "edge_aggregate_fn", "route": "cuda", "source": fwd_src,
          "replaces": REPLACES["edge_aggregate_fn"],
          "launches": launches["edge_aggregate_fn"] + train_launches["edge_aggregate_fn"]
-         + eval_launches["edge_aggregate_fn"] + zoo_launches["edge_aggregate_fn"],
+         + eval_launches["edge_aggregate_fn"] + fpnd_launches
+         + sum(c["edge_aggregate_fn"] for c in later),
          "max_abs_err": max_err["edge_aggregate_fn"],
          "two_runs_bit_identical": identical["edge_aggregate_fn"],
          "ms": k4[0], "plain_ms": k4[1],
@@ -2096,21 +2446,23 @@ def main() -> None:
          "source": "mpgan_tpu_torch/csrc/edge_aggregate_bwd.cu",
          "replaces": REPLACES["edge_aggregate_bwd"], "includes": K1,
          "launches": train_launches["edge_aggregate_bwd"]
-         + train_launches["edge_aggregate_bwd_no_wgrads"] + zoo_launches["edge_aggregate_bwd"]
-         + zoo_launches["edge_aggregate_bwd_no_wgrads"],
-         "max_abs_err": train_err["edge_aggregate_bwd"],
+         + train_launches["edge_aggregate_bwd_no_wgrads"]
+         + sum(c["edge_aggregate_bwd"] + c["edge_aggregate_bwd_no_wgrads"] for c in later),
+         "max_abs_err": max(train_err["edge_aggregate_bwd"], mnist_err["edge_aggregate_bwd"]),
          "two_runs_bit_identical": identical["edge_aggregate_bwd"],
-         "ms": ttimes["bwd_30"][0], "plain_ms": ttimes["bwd_30"][1], **dense_bwd_bound(256, 30),
+         **{k: v for k, v in ttimes[30]["bwd"].items() if k != "shape"},
          "shape": "B=256 N=30 dropout 0.5 with weight gradients",
-         "ms_no_wgrads": ttimes["bwd_no_wgrads_30"][0],
-         "plain_ms_no_wgrads": ttimes["bwd_no_wgrads_30"][1],
-         "bound_ms_no_wgrads": dense_bwd_bound(256, 30, wgrads=False)["bound_ms"],
+         "ms_no_wgrads": ttimes[30]["bwd_no_wgrads"]["ms"],
+         "plain_ms_no_wgrads": ttimes[30]["bwd_no_wgrads"]["plain_ms"],
+         "bound_ms_no_wgrads": ttimes[30]["bwd_no_wgrads"]["bound_ms"],
          "shape_150": "B=32 N=150 dropout 0.5",
-         "ms_150": ttimes["bwd_150"][0], "plain_ms_150": ttimes["bwd_150"][1],
-         "bound_ms_150": dense_bwd_bound(32, 150)["bound_ms"],
-         "ms_150_no_wgrads": ttimes["bwd_no_wgrads_150"][0],
-         "plain_ms_150_no_wgrads": ttimes["bwd_no_wgrads_150"][1],
-         "bound_ms_150_no_wgrads": dense_bwd_bound(32, 150, wgrads=False)["bound_ms"]},
+         "ms_150": ttimes[150]["bwd"]["ms"], "plain_ms_150": ttimes[150]["bwd"]["plain_ms"],
+         "bound_ms_150": ttimes[150]["bwd"]["bound_ms"],
+         "ms_150_no_wgrads": ttimes[150]["bwd_no_wgrads"]["ms"],
+         "plain_ms_150_no_wgrads": ttimes[150]["bwd_no_wgrads"]["plain_ms"],
+         "bound_ms_150_no_wgrads": ttimes[150]["bwd_no_wgrads"]["bound_ms"],
+         "mnist": {f"n{n}": {k: v[k] for k in ("bwd", "bwd_no_wgrads")}
+                   for n, v in mnist_times.items()}},
         {"name": "knn_fused_layer", "route": "cuda",
          "source": "mpgan_tpu_torch/csrc/knn_fused.cu", "replaces": REPLACES["knn_fused_layer"],
          "includes": K1,
@@ -2169,6 +2521,9 @@ def main() -> None:
     log("zoo", card=card, step_ms={k: v["step_ms"] for k, v in zoo.items()},
         jets_per_s={k: v["jets_per_s"] for k, v in zoo.items()},
         zoo_launches={k: v for k, v in zoo_launches.items() if v})
+    log("train_mnist_step", card=card,
+        step_ms={n: r["step_ms"] for n, r in mnist_runs.items()},
+        epoch_wall_s={n: r["wall_s"] for n, r in mnist_runs.items()})
     log("gapt_train_step", batch=512, kernel_ms=gapt_step_ms["kernel"],
         plain_ms=gapt_step_ms["plain"],
         jets_per_s_b1024=1024 / gapt_rates[1024]["kernel"] * 1e3,

@@ -1,1 +1,1 @@
-"""Command-line entry points (gen)."""
+"""Command-line entry points: gen, train and train_mnist."""

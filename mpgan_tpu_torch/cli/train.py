@@ -15,6 +15,15 @@ families' presets (``training/config.py``) set the optimizer, the loss, the
 batch and, with an rGAN discriminator, the epoch count, over the command line,
 as the reference's do. :func:`run` trains from processed args, for a caller
 that changes them after the processing.
+
+``--fpnd`` (30-particle g, t and q jets) scores with jetnet's ParticleNet
+from ``<datasets_path>/pnet_state_dict.pt`` when that file is there, else with
+a random trunk from a ``torch.Generator`` seeded 42, with a warning: such a
+score is self-consistent across a run but differs from the JAX package's
+random-trunk FPND and is not comparable to published values. ``--aug-*``,
+``--profile``, ``--debug`` and ``--debug-nans`` run as in the JAX package
+(``training/loop.py``). Not ported yet, and refused: bf16 training, the
+batched real+fake D pass and multi-device training (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from __future__ import annotations
 import argparse
 import logging
 import pathlib
+import pickle
 import sys
 
 import torch
@@ -48,23 +58,51 @@ def _reload_args_on_resume(args):
     return from_args_dict(loaded, apply_processing=False)
 
 
-def main(argv: list[str] | None = None):
-    from .args import parse_cli
-
+def parse_device(argv: list[str] | None) -> tuple[torch.device, list[str]]:
+    """The ``--device`` pre-flag (default ``cuda``, an error without a GPU) and
+    the rest of ``argv``."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     ns, rest = pre.parse_known_args(argv)
     device = torch.device(ns.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {ns.device}: no CUDA device is available")
+    return device, rest
 
+
+def main(argv: list[str] | None = None):
+    from ..utils.logging_utils import init_logging
+    from .args import parse_cli
+
+    device, rest = parse_device(argv)
     args = parse_cli(rest)
-    level = getattr(logging, str(args.log).upper(), logging.INFO)
-    handler = logging.FileHandler(args.log_file) if args.log_file not in ("", "stdout") \
-        else logging.StreamHandler(sys.stdout)
-    logging.basicConfig(handlers=[handler], level=level, force=True,
-                        format="%(asctime)s %(message)s")
+    init_logging(args.log, args.log_file)  # before the card reload, in the reference's order
     return run(_reload_args_on_resume(args), device)
+
+
+def fpnd_hook(args, device: torch.device | str):
+    """The trainer's FPND hook for ``--fpnd``, or None: the trunk of
+    ``<datasets_path>/pnet_state_dict.pt`` when present, else the seeded random
+    trunk. A weights file that fails to load is logged and leaves FPND out, as
+    in the JAX package; nothing else is caught."""
+    from ..evaluation.fpnd import make_fpnd_fn
+    from ..utils.weights import load_particlenet
+
+    if not args.get("fpnd"):
+        return None
+    path = pathlib.Path(args.datasets_path or ".") / "pnet_state_dict.pt"
+    if not (args.datasets_path and path.exists()):
+        logging.warning(
+            "FPND: no pnet_state_dict.pt under --datasets-path, so a random ParticleNet trunk "
+            "(torch.Generator seed 42) scores the jets: self-consistent across this run, but "
+            "not the JAX package's random trunk and not comparable to published FPND values")
+        return make_fpnd_fn(None, device)
+    try:
+        params = load_particlenet(str(path))
+    except (OSError, EOFError, KeyError, ValueError, RuntimeError, pickle.UnpicklingError) as exc:
+        logging.warning(f"FPND unavailable: {path} failed to load: {exc}")
+        return None
+    return make_fpnd_fn(params, device)
 
 
 def run(args, device: torch.device | str = "cuda"):
@@ -86,7 +124,8 @@ def run(args, device: torch.device | str = "cuda"):
     train_ds = JetNetDataset(**data_kwargs, split="train")
     valid_ds = JetNetDataset(**data_kwargs, split="valid")
     logging.info(f"data loaded: train {len(train_ds)}, valid {len(valid_ds)}")
-    trainer = Trainer(args, train_dataset=train_ds, valid_dataset=valid_ds, device=device)
+    trainer = Trainer(args, train_dataset=train_ds, valid_dataset=valid_ds, device=device,
+                      fpnd_fn=fpnd_hook(args, device))
     trainer.train()
     return trainer
 

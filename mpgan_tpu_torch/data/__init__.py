@@ -1,1 +1,1 @@
-"""JetNet data layer (numpy)."""
+"""Data layers (numpy): JetNet jets and sparsified-MNIST clouds."""

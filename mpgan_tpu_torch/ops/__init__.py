@@ -1,1 +1,1 @@
-"""Tensor ops: MLP, spectral norm, masking, dense message passing and its CUDA kernels."""
+"""Tensor ops: MLP, spectral norm, masking, augmentation, message passing and its CUDA kernels."""

@@ -1,9 +1,11 @@
 """Training orchestration (``mpgan_tpu/training/loop.py``; train.py:686-985):
 the run directory, resume, the epoch loop with the D/G interleave, the
-periodic checkpoint and evaluation (W1 of particle features and jet mass;
-with ``--efp``, ``--fpd`` and ``--cov-mmd`` also w1efp, FPD and coverage/MMD
-on the trainer's device), and the best epoch by FPD. Any generator and
-discriminator pair of the registry trains here.
+periodic checkpoint, evaluation and plots (W1 of particle features and jet
+mass; with ``--efp``, ``--fpnd``, ``--fpd`` and ``--cov-mmd`` also w1efp,
+FPND, FPD and coverage/MMD on the trainer's device; the JAX loop's figures
+where matplotlib is installed), and the best epoch by FPD. Any generator and
+discriminator pair of the registry trains here, with ``--aug-*``
+augmentation (``training/train_step.py``).
 
 The epoch is a host loop over batches: the training set is staged on the
 device once, each epoch's shuffled order goes over as one index array, and the
@@ -20,10 +22,24 @@ encoded by the pre-trained ``G_inv`` and decodes its evaluation latents with
 ``G_pc``; without ``G_inv`` the trainer refuses to start, without ``G_pc`` the
 evaluation raises, each naming the missing file.
 
+Debugging (the JAX loop's flags):
+
+- ``--profile`` runs the first epoch under ``torch.profiler`` (host and, on a
+  GPU, device activity) and writes its Chrome trace and ``key_averages()``
+  table under ``<out_dir>/profile/``, where the JAX loop writes its trace;
+- ``--debug`` logs D(real) on the epoch's last batch, G's first samples from
+  fixed noise (``torch.Generator`` seed 0) and D on them, after every epoch;
+- ``--debug-nans`` is the counterpart of ``jax_debug_nans``: it raises
+  ``FloatingPointError`` at the first NaN. A forward hook on every submodule
+  of G and D (a device sync a module) names the first module whose output
+  holds a NaN, in the training steps, ``--debug`` and the evaluation alike;
+  the epoch's steps run under ``torch.autograd.detect_anomaly(check_nan=True)``,
+  whose error on a NaN made in the backward is raised again as
+  ``FloatingPointError`` naming the backward function.
+
 Refused at start with ``NotImplementedError`` (not ported yet, see
-ROADMAP.md): ``--fpnd``, augmentation, bf16 training, a device mesh or
-multi-GPU, ``--profile``, ``--debug`` and ``--debug-nans``. Plots are
-skipped with one log line.
+ROADMAP.md): bf16 training (``--compute-dtype bfloat16``) and a device mesh
+or multi-GPU; the batched real+fake D pass is no flag of the loop.
 """
 
 from __future__ import annotations
@@ -31,7 +47,7 @@ from __future__ import annotations
 import logging
 import pathlib
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -40,21 +56,18 @@ from ..data.jetnet import gen_jet_corrections
 from ..data.loader import BatchLoader
 from ..evaluation import cov_mmd, efps, fpd, w1efp, w1m, w1p
 from ..models.registry import build_suite, pcgan_weight_path
+from ..utils import plotting
 from . import checkpoint as ckpt
 from .config import Args
 from .optimizers import build_optimizer
 from .sampling import generate_multi_batch
-from .train_step import StepConfig, TrainState, d_step, epoch_kwargs, g_step
+from .train_step import TrainState, d_step, epoch_kwargs, g_step, step_config, to_device
 
 logger = logging.getLogger(__name__)
 
 _REFUSED_FLAGS = {
-    "fpnd": "FPND (ROADMAP.md Queue 1, FPND)",
     "mesh_shape": "multi-device training (ROADMAP.md Queue 1, multi-device)",
     "multi_gpu": "multi-device training (ROADMAP.md Queue 1, multi-device)",
-    "profile": "the profiled first epoch (ROADMAP.md Queue 1, loop leftovers)",
-    "debug": "the D-output debug log (ROADMAP.md Queue 1, loop leftovers)",
-    "debug_nans": "the NaN debugger (ROADMAP.md Queue 1, loop leftovers)",
 }
 
 
@@ -75,14 +88,28 @@ def _corrected(unnorm: np.ndarray, use_mask: bool, **kwargs):
     return gen_jet_corrections(unnorm, ret_mask_separate=False, **kwargs), None
 
 
+def _nan_check_hook(name: str):
+    def hook(module, inputs, output):
+        outs = output if isinstance(output, (tuple, list)) else (output,)
+        if any(isinstance(o, torch.Tensor) and torch.isnan(o).any() for o in outs):
+            raise FloatingPointError(f"--debug-nans: NaN in the output of {name} "
+                                     f"({type(module).__name__})")
+    return hook
+
+
 class Trainer:
     def __init__(self, args: Args, train_dataset: Any = None, valid_dataset: Any = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 fpnd_fn: Callable[..., float] | None = None):
+        """``fpnd_fn(gen_jets, jet_type, real_jets)`` computes FPND
+        (``evaluation.fpnd.make_fpnd_fn``); ``--fpnd`` without it adds no FPND,
+        as in the JAX loop."""
         check_supported(args)
         self.args = args
         self.device = torch.device(device)
         self.train_dataset = train_dataset
         self.valid_dataset = valid_dataset
+        self.fpnd_fn = fpnd_fn
 
         # directory scaffolding and the name-collision guard (setup_training.py:1086-1110)
         self.out_dir = pathlib.Path(args.dir_path or "outputs") / args.name
@@ -105,11 +132,7 @@ class Trainer:
 
         # the reference's eval-time use_mask gate (train.py:703), quirk included
         self.use_labels = bool(args.get("mask_c") or args.clabels or args.get("gapt_mask"))
-        self.step_cfg = StepConfig(
-            loss=args.loss, gp_lambda=args.gp, label_smoothing=args.label_smoothing,
-            label_noise=args.label_noise,
-            augment=bool(args.aug_t or args.aug_f or args.aug_r90 or args.aug_s),
-        )
+        self.step_cfg = step_config(args)
         self.pcgan_weights_dir = args.get("pcgan_weights_dir") or None
         suite = build_suite(args, pcgan_weights_dir=self.pcgan_weights_dir)
         if suite.model == "pcgan" and suite.encode_real is None:
@@ -138,10 +161,16 @@ class Trainer:
             ckpt.load_train_state(ckpt.checkpoint_path(self.models_dir, self.start_epoch),
                                   self.state)
             logger.info(f"resumed from epoch {self.start_epoch}")
+        if args.get("debug_nans"):
+            for module, label in ((g, "G"), (d, "D")):
+                for name, sub in module.named_modules():
+                    sub.register_forward_hook(_nan_check_hook(f"{label}.{name}" if name
+                                                              else label))
 
         self.d_loss_keys = ["Dr", "Df", "D"] + (["gp"] if args.gp else [])
         self.eval_keys = ["w1p", "w1m"] + [key for flag, key in (
-            ("efp", "w1efp"), ("fpd", "fpd"), ("cov_mmd", "cov_mmd")) if args.get(flag)]
+            ("efp", "w1efp"), ("fpnd", "fpnd"), ("fpd", "fpd"), ("cov_mmd", "cov_mmd"))
+            if args.get(flag) and (key != "fpnd" or fpnd_fn is not None)]
         self.multi_value_keys = ["w1p", "w1m", "w1efp", "fpd", "cov_mmd"]
         keys = self.d_loss_keys + ["G"] + self.eval_keys
         if self.start_epoch:
@@ -159,6 +188,7 @@ class Trainer:
             self.best_epoch = np.atleast_2d(np.loadtxt(best_file)).tolist()
         self._staged = None
         self._staged_loader = None
+        self._no_plots_logged = False
 
     # -- one epoch (train.py:812-886) ----------------------------------------
 
@@ -184,6 +214,32 @@ class Trainer:
         order = torch.as_tensor(loader.epoch_batch_indices(), device=self.device)
         num_batches = len(loader)
         sums = {k: torch.zeros((), device=self.device) for k in self.d_loss_keys + ["G"]}
+        steps = (data_all, labels_all, order, num_batches, sums)
+        if args.get("debug_nans"):
+            try:
+                with torch.autograd.detect_anomaly(check_nan=True):
+                    data, labels = self._epoch_steps(*steps)
+            except RuntimeError as err:  # anomaly mode's NaN in the backward
+                if "returned nan values" not in str(err):
+                    raise
+                raise FloatingPointError(f"--debug-nans: {err}") from err
+        else:
+            data, labels = self._epoch_steps(*steps)
+        epoch_loss = dict(zip(sums, torch.stack(list(sums.values())).tolist()))  # one sync
+        bad = [k for k, v in epoch_loss.items() if not np.isfinite(v)]
+        if bad:
+            logger.warning(f"non-finite epoch losses at epoch {epoch}: {bad}")
+        if args.get("debug"):
+            self._log_d_outputs(data, labels)
+        for key in self.d_loss_keys:
+            self.losses[key].append(epoch_loss[key] / (num_batches / args.num_gen))
+        self.losses["G"].append(epoch_loss["G"] / (num_batches / args.num_critic))
+        return epoch_loss
+
+    def _epoch_steps(self, data_all, labels_all, order, num_batches, sums):
+        """The epoch's D and G steps, their losses added to ``sums``; returns the
+        last batch."""
+        args = self.args
         for batch_ndx in range(num_batches):
             idx = order[batch_ndx]
             data = data_all[idx]
@@ -201,14 +257,28 @@ class Trainer:
                 break
             if args.get("bottleneck") and batch_ndx == 10:
                 break
-        epoch_loss = dict(zip(sums, torch.stack(list(sums.values())).tolist()))  # one sync
-        bad = [k for k, v in epoch_loss.items() if not np.isfinite(v)]
-        if bad:
-            logger.warning(f"non-finite epoch losses at epoch {epoch}: {bad}")
-        for key in self.d_loss_keys:
-            self.losses[key].append(epoch_loss[key] / (num_batches / args.num_gen))
-        self.losses["G"].append(epoch_loss["G"] / (num_batches / args.num_critic))
-        return epoch_loss
+        return data, labels
+
+    def _log_d_outputs(self, data: torch.Tensor, labels: torch.Tensor | None):
+        """``--debug``: D(real) on ``data``, G's samples from fixed noise
+        (``torch.Generator`` seed 0) and D on them, D and G in eval mode with
+        their spectral-norm vectors left alone (train.py:413-447); returns the
+        three tensors."""
+        g, d, suite = self.state.g, self.state.d, self.suite
+        g_kw, d_kw = epoch_kwargs(g, self.model_epoch), epoch_kwargs(d, self.model_epoch)
+        with torch.no_grad():
+            if suite.encode_real is not None:
+                data = suite.encode_real(data)
+            real_out = d(data, labels, update_sn=False, **d_kw)
+            noise = self.spec.sample(torch.Generator().manual_seed(0), data.shape[0], "cpu")
+            fake = g(to_device(noise, self.device), labels, update_sn=False, **g_kw)
+            if self.post_gen is not None:
+                fake = self.post_gen(fake)
+            fake_out = d(fake, labels, update_sn=False, **d_kw)
+        logger.info(f"D real output: \n {real_out[:10].cpu().numpy()}")
+        logger.info(f"G output: \n {fake[:2, :10].cpu().numpy()}")
+        logger.info(f"D fake output: \n {fake_out[:10].cpu().numpy()}")
+        return real_out, fake, fake_out
 
     # -- checkpoint + evaluation (train.py:686-809) ---------------------------
 
@@ -228,8 +298,9 @@ class Trainer:
             sel = np.sort(np.random.default_rng(args.seed).permutation(len(ds))[:n_eval])
         else:
             sel = slice(None, n_eval)
-        real_jets, _ = _corrected(ds.particle_normalisation(ds.particle_data[sel], inverse=True),
-                                  self.use_labels, zero_mask_particles=False, zero_neg_pt=False)
+        real_jets, real_mask = _corrected(
+            ds.particle_normalisation(ds.particle_data[sel], inverse=True), self.use_labels,
+            zero_mask_particles=False, zero_neg_pt=False)
         labels = ds.jet_data[sel] if self.use_labels else None
         gen_norm = generate_multi_batch(
             self.state.g, self.spec, torch.Generator(device=self.device).manual_seed(epoch),
@@ -251,11 +322,14 @@ class Trainer:
             w1em, w1es = w1efp(real_jets, gen_jets, num_eval_samples=num_w1,
                                num_batches=num_batches, device=self.device)
             self.losses["w1efp"].append(np.concatenate([w1em, w1es]).tolist())
+        if "fpnd" in self.eval_keys:
+            self.losses["fpnd"].append(float(self.fpnd_fn(gen_jets, args.jets, real_jets)))
         if "cov_mmd" in self.eval_keys:
             cov, mmd = cov_mmd(real_jets, gen_jets,
                                num_eval_samples=min(args.cov_mmd_num_samples, n_eval),
                                num_batches=args.cov_mmd_num_batches, device=self.device)
             self.losses["cov_mmd"].append([cov, mmd])
+        real_efps = gen_efps = None
         if "fpd" in self.eval_keys:
             real_efps = self._cached_real_efps(real_jets)
             gen_efps = efps(gen_jets, select="d<=4-all", device=self.device)
@@ -271,8 +345,9 @@ class Trainer:
         ckpt.save_losses(self.losses, self.losses_dir)
         metrics = " ".join(f"{k} {np.asarray(self.losses[k][-1]).tolist()}"
                            for k in self.eval_keys)
-        logger.info(f"epoch {epoch}: {metrics}; plots are not ported yet "
-                    "(ROADMAP.md Queue 1, loop leftovers)")
+        logger.info(f"epoch {epoch}: {metrics}")
+        self._plot(lambda: self._plot_eval(epoch, real_jets, gen_jets, real_mask, gen_mask,
+                                           real_efps, gen_efps))
 
         # the best epoch by FPD + std (train.py:794-809)
         if "fpd" in self.eval_keys and epoch > 0:
@@ -287,6 +362,32 @@ class Trainer:
                     str({key: vals[-1] for key, vals in self.losses.items() if vals}))
                 # the state saved above: the evaluation changed nothing in it
                 ckpt.copy_checkpoint(state_path, self.out_dir / "state_best_epoch.npz")
+
+    def _plot(self, plots: Callable[[], None]) -> None:
+        """Run ``plots``; plotting never stops training (the JAX loop's rule).
+        Without matplotlib, one log line and no figure."""
+        try:
+            plots()
+        except ImportError as exc:
+            if not self._no_plots_logged:
+                logger.warning(f"no figures are written: {exc}")
+                self._no_plots_logged = True
+        except Exception:
+            logger.exception("plotting failed")
+
+    def _plot_eval(self, epoch, real_jets, gen_jets, real_mask, gen_mask, real_efps, gen_efps):
+        """The JAX loop's figures (``mpgan_tpu/training/loop.py:622-635``)."""
+        args = self.args
+        plotting.plot_part_feats_jet_mass(args.jets, real_jets, gen_jets, real_mask, gen_mask,
+                                          f"{epoch}pm", str(self.figs_dir),
+                                          num_particles=args.num_hits, losses=self.losses)
+        if len(self.losses["G"]) > 1:
+            plotting.plot_losses(self.losses, args.loss, str(epoch), str(self.losses_dir))
+        if len(self.losses["w1m"]) > 1:
+            plotting.plot_eval(self.losses, epoch, args.save_epochs, f"{epoch}_eval",
+                               str(self.losses_dir))
+        if real_efps is not None:
+            plotting.plot_efps(args.jets, real_efps, gen_efps, f"{epoch}efp", str(self.figs_dir))
 
     def _cached_real_efps(self, real_jets: np.ndarray) -> np.ndarray:
         """The real side's EFPs, cached in the run directory (train.py:744-757)
@@ -315,7 +416,10 @@ class Trainer:
         for i in range(self.start_epoch, args.num_epochs):
             epoch = i + 1
             t0 = time.time()
-            self.train_epoch(epoch, loader)
+            if args.get("profile") and i == self.start_epoch:
+                self._profiled_epoch(epoch, loader)
+            else:
+                self.train_epoch(epoch, loader)
             logger.info(
                 f"epoch {epoch}: "
                 + " ".join(f"{k}={self.losses[k][-1]:.4f}" for k in self.d_loss_keys + ["G"])
@@ -326,3 +430,24 @@ class Trainer:
             elif epoch % args.save_model_epochs == 0:
                 ckpt.save_train_state(ckpt.checkpoint_path(self.models_dir, epoch), self.state)
                 ckpt.save_losses(self.losses, self.losses_dir)
+
+    def _profiled_epoch(self, epoch: int, loader: BatchLoader) -> None:
+        """``--profile``: the epoch under ``torch.profiler`` (host, and the
+        device on a GPU); its Chrome trace and ``key_averages()`` table go to
+        ``<out_dir>/profile/`` (the JAX loop traces its first epoch there)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        out = self.out_dir / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        with profile(activities=activities) as prof:
+            self.train_epoch(epoch, loader)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        prof.export_chrome_trace(str(out / f"epoch_{epoch}_trace.json"))
+        sort = "self_cuda_time_total" if self.device.type == "cuda" else "self_cpu_time_total"
+        (out / f"epoch_{epoch}_key_averages.txt").write_text(
+            prof.key_averages().table(sort_by=sort, row_limit=60))
+        logger.info(f"profile of epoch {epoch} written to {out}")

@@ -8,7 +8,12 @@ Kept from the reference, as the JAX package keeps them:
 - during the G step the discriminator stays in train mode (the reference never
   calls ``D.eval()`` in ``train_G``), so D's dropout is on and its
   spectral-norm vectors advance;
-- the real pass runs on unaugmented data (train.py:425);
+- with augmentation (``--aug-*``, each transform mixed in with probability
+  ``aug_prob``) the real pass runs on unaugmented data (train.py:425), the
+  fake pass on augmented fakes, the gradient penalty interpolates between the
+  augmented real and the augmented fake batch, and the G step augments G's
+  output before D (train.py:439-442, 509-511); ``--adaptive-prob`` is
+  ignored, as in the JAX package;
 - with ``gp_lambda`` the WGAN-GP penalty differentiates through a third D
   forward on interpolated samples (a double backward).
 
@@ -23,13 +28,14 @@ batch into the training representation before D sees it (the JAX package's
 (the legacy MPGAN) takes the model epoch, ``epoch=``, in both steps.
 
 Every random draw of a step (noise, smoothed targets, the GP weight, the
-dropout key words and in-kernel seeds) comes from ``TrainState.generator``, a
+augmentation's uniforms and normals, the dropout key words and in-kernel
+seeds) comes from ``TrainState.generator``, a
 CPU ``torch.Generator``, in a fixed order. A test can pass the draws instead
 (``DDraws``/``GDraws``), for example the JAX package's own.
 
-Not ported here (each raises ``NotImplementedError``): augmentation,
-bf16 training, the batched real+fake D pass and data-parallel steps
-(ROADMAP.md Queue 1, train-step leftovers and multi-device).
+Not ported here (each raises ``NotImplementedError``): bf16 training, the
+batched real+fake D pass and data-parallel steps (ROADMAP.md Queue 1,
+train-step leftovers and multi-device).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..ops.augment import AugmentConfig, AugmentDraws, augment, draw_augment
 from ..ops.keys import GeneratorKeys
 from .losses import d_loss, d_targets, g_loss, gp_alpha, gradient_penalty
 from .sampling import NoiseSpec
@@ -59,12 +66,13 @@ class StepConfig:
     gp_lambda: float = 0.0
     label_smoothing: bool = False
     label_noise: float = 0.0
-    augment: bool = False
+    augment: AugmentConfig | None = None
+    aug_prob: float = 1.0
     bf16: bool = False
     batched_d: bool = False
 
     def __post_init__(self):
-        refused = [k for k in ("augment", "bf16", "batched_d") if getattr(self, k)]
+        refused = [k for k in ("bf16", "batched_d") if getattr(self, k)]
         if refused:
             raise NotImplementedError(
                 f"{', '.join(refused)} in the train step: not ported yet, ROADMAP.md Queue 1, "
@@ -72,11 +80,25 @@ class StepConfig:
             )
 
 
+def step_config(args: Any) -> StepConfig:
+    """The step config of processed args (the loss, the GP, the targets' noise,
+    ``--aug-*`` and ``aug_prob``; ``augment`` None where no transform is on), as
+    the training loop builds it."""
+    augment = AugmentConfig(aug_t=args.aug_t, aug_f=args.aug_f, aug_r90=args.aug_r90,
+                            aug_s=args.aug_s, translate_ratio=args.translate_ratio,
+                            scale_sd=args.scale_sd)
+    return StepConfig(
+        loss=args.loss, gp_lambda=args.gp, label_smoothing=args.label_smoothing,
+        label_noise=args.label_noise, augment=augment if augment.any else None,
+        aug_prob=args.aug_prob,
+    )
+
+
 @dataclasses.dataclass
 class DDraws:
     """The draws of one D step: G's noise, the dropout keys of the real and the
-    fake pass, the loss targets (None: plain 1 and 0), and the GP's keys and
-    interpolation weight."""
+    fake pass, the loss targets (None: plain 1 and 0), the GP's keys and
+    interpolation weight, and the augmentation's of the real and the fake batch."""
 
     noise: torch.Tensor
     real: Any
@@ -84,15 +106,19 @@ class DDraws:
     targets: tuple[torch.Tensor, torch.Tensor] | None = None
     gp: Any = None
     gp_alpha: torch.Tensor | None = None
+    aug_real: AugmentDraws | None = None
+    aug_fake: AugmentDraws | None = None
 
 
 @dataclasses.dataclass
 class GDraws:
-    """The draws of one G step: the noise and the dropout keys of G and of D."""
+    """The draws of one G step: the noise, the dropout keys of G and of D, and
+    the augmentation's of G's output."""
 
     noise: torch.Tensor
     g: Any
     d: Any
+    aug: AugmentDraws | None = None
 
 
 def to_device(t: torch.Tensor, device) -> torch.Tensor:
@@ -113,13 +139,27 @@ def draw_d(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
         targets = tuple(to_device(t, data.device)
                         for t in d_targets(gen, b, cfg.label_smoothing, cfg.label_noise))
     alpha = to_device(gp_alpha(gen, data), data.device) if cfg.gp_lambda else None
+    aug_real = aug_fake = None
+    if cfg.augment is not None:
+        aug_real, aug_fake = (draw_augment(cfg.augment, gen, b).map(
+            lambda t: to_device(t, data.device)) for _ in range(2))
     keys = GeneratorKeys(gen)
-    return DDraws(noise, keys, keys, targets, keys, alpha)
+    return DDraws(noise, keys, keys, targets, keys, alpha, aug_real, aug_fake)
 
 
-def draw_g(state: TrainState, spec: NoiseSpec, batch_size: int, device) -> GDraws:
-    keys = GeneratorKeys(state.generator)
-    return GDraws(to_device(spec.sample(state.generator, batch_size, "cpu"), device), keys, keys)
+def draw_g(state: TrainState, cfg: StepConfig, spec: NoiseSpec, batch_size: int,
+           device) -> GDraws:
+    gen = state.generator
+    noise = to_device(spec.sample(gen, batch_size, "cpu"), device)
+    aug = None
+    if cfg.augment is not None:
+        aug = draw_augment(cfg.augment, gen, batch_size).map(lambda t: to_device(t, device))
+    keys = GeneratorKeys(gen)
+    return GDraws(noise, keys, keys, aug)
+
+
+def _maybe_aug(cfg: StepConfig, x: torch.Tensor, draws: AugmentDraws | None) -> torch.Tensor:
+    return x if cfg.augment is None else augment(cfg.augment, x, cfg.aug_prob, draws)
 
 
 PostGen = Callable[[torch.Tensor], torch.Tensor]
@@ -148,12 +188,14 @@ def d_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
         fake = g(draws.noise, labels, train=False, **g_kw)
         if post_gen is not None:
             fake = post_gen(fake)
+        fake = _maybe_aug(cfg, fake, draws.aug_fake)
     real_out = d(data, labels, train=True, rng=draws.real, **d_kw)  # unaugmented (train.py:425)
     fake_out = d(fake, labels, train=True, rng=draws.fake, **d_kw)
     total, parts = d_loss(cfg.loss, real_out, fake_out, draws.targets)
     if cfg.gp_lambda:
         gp = gradient_penalty(lambda x: d(x, labels, train=True, rng=draws.gp, **d_kw),
-                              draws.gp_alpha, data, fake, cfg.gp_lambda)
+                              draws.gp_alpha, _maybe_aug(cfg, data, draws.aug_real), fake,
+                              cfg.gp_lambda)
         parts = dict(parts, gp=gp)
         total = total + gp
     state.d_opt.zero_grad(set_to_none=True)
@@ -168,11 +210,12 @@ def g_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
     """One G update (``data`` only sets the batch size, train.py:497); returns ``{G}``.
     ``post_gen`` and ``epoch`` as in :func:`d_step`."""
     batch_size = labels.shape[0] if labels is not None else data.shape[0]
-    draws = draws if draws is not None else draw_g(state, spec, batch_size, data.device)
+    draws = draws if draws is not None else draw_g(state, cfg, spec, batch_size, data.device)
     g, d = state.g, state.d
     fake = g(draws.noise, labels, train=True, rng=draws.g, **epoch_kwargs(g, epoch))
     if post_gen is not None:
         fake = post_gen(fake)
+    fake = _maybe_aug(cfg, fake, draws.aug)
     # D in train mode; only its input gradient is used, so its parameters stay
     # out of the graph and the edge kernel's backward skips the weight contractions
     flags = [p.requires_grad for p in d.parameters()]

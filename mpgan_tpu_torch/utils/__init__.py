@@ -1,1 +1,1 @@
-"""Weight import and export."""
+"""Weight import and export, training figures and logging setup."""

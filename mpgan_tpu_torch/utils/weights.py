@@ -470,3 +470,49 @@ def mp_generator_to_reference_sd(module: torch.nn.Module) -> dict[str, torch.Ten
     """A generator's or discriminator's weights as a reference-layout state dict
     on the CPU (``torch.save``-able)."""
     return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+
+
+def particlenet_from_jax(params: Any) -> dict[str, Any]:
+    """The JAX package's ``particlenet_init`` tree (numpy leaves) as the port's
+    FPND trunk: the same tree with float32 tensors for leaves."""
+    from ..evaluation.fpnd import params_to
+
+    return params_to(params, "cpu")
+
+
+_PNET_PROBE = "edge_convs.0.convs.0.weight"
+
+
+def load_particlenet(path: str) -> dict[str, Any]:
+    """Read a jetnet ``pnet_state_dict.pt`` (tensors only, ``weights_only``)
+    into the FPND trunk, in the key schema of the JAX package's
+    ``load_particlenet`` (``mpgan_tpu/evaluation/fpnd.py:141-200``): the input
+    ``bn_fts.*``, per block ``edge_convs.{i}.convs.{j}.weight`` (1x1 Conv2d,
+    ``[out, in, 1, 1]``) with ``bns.{j}.*``, the shortcut ``sc.weight`` and
+    ``sc_bn.*``. A file without them raises ``KeyError`` listing the keys found."""
+    from ..evaluation.fpnd import CONV_WIDTHS
+
+    sd = load_reference_state_dict(path)
+    if _PNET_PROBE not in sd:
+        raise KeyError(
+            f"state dict at {path} does not match the expected ParticleNet "
+            f"schema (missing '{_PNET_PROBE}'). Found keys: "
+            f"{sorted(sd.keys())[:20]}... Expected weaver-style keys: "
+            "bn_fts.*, edge_convs.{i}.convs.{j}.weight, edge_convs.{i}."
+            "bns.{j}.*, edge_convs.{i}.sc.weight, edge_convs.{i}.sc_bn.*"
+        )
+
+    def bn(prefix: str, out: str = "") -> dict[str, torch.Tensor]:
+        return {out + "scale": sd[f"{prefix}.weight"], out + "bias": sd[f"{prefix}.bias"],
+                out + "mean": sd[f"{prefix}.running_mean"],
+                out + "var": sd[f"{prefix}.running_var"]}
+
+    params: dict[str, Any] = {"input_bn": bn("bn_fts"), "edge_convs": []}
+    for bi, widths in enumerate(CONV_WIDTHS):
+        base = f"edge_convs.{bi}"
+        convs = [{"w": sd[f"{base}.convs.{wi}.weight"].reshape(w, -1),
+                  **bn(f"{base}.bns.{wi}", "bn_")} for wi, w in enumerate(widths)]
+        shortcut = {"w": sd[f"{base}.sc.weight"].reshape(widths[-1], -1),
+                    **bn(f"{base}.sc_bn", "bn_")}
+        params["edge_convs"].append({"convs": convs, "shortcut": shortcut})
+    return params

@@ -7,7 +7,7 @@
 - a tiny ``cli.train`` run on the CPU writes its run directory and resumes;
 - ``--efp --fpd --cov-mmd`` write their metrics and the real-EFP cache, and
   the best epoch by FPD is kept and survives a resume;
-- the refusals of what is not ported yet.
+- the refusals of what is not ported yet, and that ``--fpnd`` and ``--aug-t`` build.
 """
 
 import numpy as np
@@ -32,6 +32,7 @@ from mpgan_tpu_torch.cli import train as ttrain_cli
 from mpgan_tpu_torch.data import jetnet as tjetnet
 from mpgan_tpu_torch.data.loader import BatchLoader as TBatchLoader
 from mpgan_tpu_torch.evaluation import w1 as tw1
+from mpgan_tpu_torch.evaluation.fpnd import make_fpnd_fn
 from mpgan_tpu_torch.training import checkpoint as tckpt
 from mpgan_tpu_torch.training import config as tconfig
 from mpgan_tpu_torch.training import loop as tloop
@@ -216,13 +217,23 @@ def test_train_cli_refuses_cuda_without_a_gpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--fpnd", "--num-hits", "30"], "fpnd"),
-    (["--aug-t"], "augment"), (["--compute-dtype", "bfloat16"], "bf16"),
-    (["--mesh-shape", "4"], "mesh"),
+    pytest.param(["--fpnd", "--num-hits", "30"], None, id="flags0-fpnd"),
+    pytest.param(["--aug-t"], None, id="flags1-augment"),
+    pytest.param(["--compute-dtype", "bfloat16"], "bf16", id="flags2-bf16"),
+    pytest.param(["--mesh-shape", "4"], "mesh", id="flags3-mesh"),
 ])
 def test_trainer_refuses_what_is_not_ported(tmp_path, flags, match):
+    """bf16 training and a device mesh are refused; ``--fpnd`` and ``--aug-t``
+    (``match`` None), refused until they were ported, now build and are wired."""
     args = targs_cli.parse_cli(["--name", "r", "--dir-path", str(tmp_path), *TINY, *flags])
     train, valid = _datasets(args)
+    if match is None:
+        t = Trainer(args, train, valid, device="cpu", fpnd_fn=make_fpnd_fn(None, "cpu"))
+        if args.fpnd:
+            assert t.eval_keys == ["w1p", "w1m", "fpnd"]
+        else:
+            assert t.step_cfg.augment.aug_t and not t.step_cfg.augment.aug_f
+        return
     with pytest.raises(NotImplementedError, match=match) as err:
         Trainer(args, train, valid, device="cpu")
     assert "ROADMAP" in str(err.value)

@@ -33,6 +33,7 @@ from mpgan_tpu.training import sampling as jsampling
 from mpgan_tpu.training import train_step as jts
 from mpgan_tpu_torch.data.jetnet import JetNetDataset
 from mpgan_tpu_torch.models import registry as tregistry
+from mpgan_tpu_torch.ops.augment import AugmentConfig
 from mpgan_tpu_torch.training import config as tconfig
 from mpgan_tpu_torch.training import optimizers as topt
 from mpgan_tpu_torch.training import sampling as tsampling
@@ -120,9 +121,11 @@ def test_discriminator_config_pins_gp_configs_to_the_plain_path(card):
 
 
 def test_step_config_refuses_what_is_not_ported():
-    for flag in ("augment", "bf16", "batched_d"):
+    for flag in ("bf16", "batched_d"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tts.StepConfig(**{flag: True})
+    # augmentation is ported (tests/test_torch_augment.py)
+    assert tts.StepConfig(augment=AugmentConfig(aug_t=True)).augment.aug_t
 
 
 # ---------------------------------------------------------------------------
