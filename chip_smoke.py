@@ -178,7 +178,26 @@ Phases, each printed as it finishes:
     where matplotlib is installed, each step's time; K2 (eval) at B = 32, N = 75
     and 100 against its plain version and rerun bit for bit, then phase 7's
     checks of K2 with dropout and K3 at those shapes, and each kernel's time
-    beside its bound and its plain version's.
+    beside its bound and its plain version's;
+27. the CUDA graphs (``--epoch-scan``; phases 9, 14, 19, 25 and 26 above already
+    train on them, their launch counts through the graphs' replay accounting):
+    seven training paths (flagship B=256, knn-20 B=128 on routes 4 and 3, GAPT
+    B=512, MNIST N=100 B=32, the fcmp pair with WGAN-GP and num_critic 5 on D
+    and G graphs, the legacy pair on mplfc's masks crossing ``--mask-epoch
+    1``), each an epoch of 5 batches (12 at num_critic 5, so that G captures)
+    through ``Trainer.train_epoch`` on the eager loop and on the graphs from one
+    seed: parameters, BN statistics, SN vectors,
+    optimizer state, losses and the generator bit for bit (or within 1e-6
+    relative, logged), the same kernel launches, the captures and replays
+    counted; then each path's step time in turns (eager, graph, graph, eager),
+    the host's time to issue a step with the device drained, a profile's
+    device time and the peak device memory of both. The flagship through
+    ``cli.train`` for two epochs with ``--epoch-scan`` and with
+    ``--no-epoch-scan``: equal losses. The samplers (30p B=4096, 150p dense
+    B=512 and B=32, knn-20 B=512, GAPT B=1024 and B=4096), three batches each:
+    the graph's jets equal the eager loop's bit for bit with the same
+    launches; jets/s of both in turns over 8 batches (the host's copy
+    included) and peak memory.
 
 Every kernel's entry in the JSON line carries its bound: the larger of its
 FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
@@ -2179,6 +2198,310 @@ def mnist_phase(mk, dev, card, identical, tmp):
     return counts, err, times, runs
 
 
+# phase 27: the static-buffer steps and the sampler as CUDA graphs against the eager loop
+GRAPH_STEPS = 5  # batches an epoch in phase 27's runs
+# with num_critic 5 the G step runs at batches 1, 6 and 11: its third call captures
+GRAPH_STEPS_CRITIC5 = 12
+GRAPH_RATE_BATCHES = 8  # batches a sampler timing, the host's copy of the jets included
+GRAPH_TURNS = ("eager", "graph", "graph", "eager")
+
+
+def graph_paths(from_args_dict):
+    """Phase 27's training paths: name -> (processed args, knn route)."""
+    from mpgan_tpu_torch.cli.args import parse_cli
+
+    def card(d, batch=None):
+        args = from_args_dict(d)
+        if batch:
+            args.batch_size = batch
+        return args
+
+    mnist = parse_cli(["--num-hits", "100"])  # cli.train_mnist's processing
+    mnist.mask = mnist.mask_c = mnist.gapt_mask = False
+    mnist.dataset = "mnist"
+    return {
+        "flagship": (card(FLAGSHIP, 256), None),
+        "knn20": (card(KNN150, 128), None),
+        "knn20_route3": (card(KNN150, 128), "3"),
+        "gapt": (card(GAPT, 512), None),
+        "mnist100": (mnist, None),
+        # an external pair with its presets: WGAN-GP, num_critic 5, Adam (D and G graphs)
+        "fcmp_wgan_gp": (card({"model": "rgan", "model_D": "mpgan", "jets": "g",
+                               "num_hits": 30}), None),
+        # the legacy pair with mplfc's masks from model epoch 1 (the MPGAN D of mplfc
+        # reads a mask column from the start): the second epoch captures again
+        "legacy_mask_epoch": (legacy_card(from_args_dict)(
+            {**MPLFC_CARD, "model_D": "old_mpgan", "mask_epoch": 1}), None),
+    }
+
+
+def graph_data(args, n_jets):
+    """``n_jets`` training jets (or MNIST clouds) for ``args`` and their labels."""
+    if args.get("dataset") == "mnist":
+        from mpgan_tpu_torch.data.mnist import MNISTGraphDataset
+
+        ds = MNISTGraphDataset(None, args.num_hits, train=True, synthetic_num_samples=n_jets)
+        return np.asarray(ds.X, np.float32)[:n_jets], None
+    from mpgan_tpu_torch.data.jetnet import JetNetDataset
+
+    # the train CLI's dataset flags (cli/train.py)
+    ds = JetNetDataset("g", num_particles=args.num_hits, synthetic_num_jets=2 * n_jets,
+                       mask_feature=args.get("mask", False),
+                       num_particles_label=bool(args.clabels or args.get("mask_c")
+                                                or args.get("gapt_mask")))
+    return ds.particle_data[:n_jets], None if ds.jet_data is None else ds.jet_data[:n_jets]
+
+
+def graph_trainer(args, dev, tmp, name, scan):
+    from mpgan_tpu_torch.training.config import from_args_dict
+    from mpgan_tpu_torch.training.loop import Trainer
+
+    a = from_args_dict(args.to_dict(), apply_processing=False)
+    a.name, a.dir_path, a.epoch_scan, a.load_model = name, str(tmp), scan, False
+    a.override_load_check = True
+    return Trainer(a, device=dev)
+
+
+def state_diff(a, b) -> tuple[bool, float]:
+    """Whether two TrainStates are bit-identical (parameters, BN statistics, SN
+    vectors, optimizer state and step counts, the generator), and the largest
+    relative difference of their tensors."""
+    ta, tb = _leaves(a), _leaves(b)
+    for sa, sb in ((a.g_opt, b.g_opt), (a.d_opt, b.d_opt)):
+        ta += [st["step"].reshape(1).float() for st in sa.state.values() if "step" in st]
+        tb += [st["step"].reshape(1).float() for st in sb.state.values() if "step" in st]
+    same = len(ta) == len(tb) and torch.equal(a.generator.get_state(), b.generator.get_state())
+    rel = 0.0
+    for x, y in zip(ta, tb):
+        same = same and torch.equal(x, y)
+        if x.numel() and not torch.equal(x, y):
+            rel = max(rel, ((x - y).abs() / y.abs().clamp_min(1e-30)).max().item())
+    return same, rel
+
+
+def timed_epoch(t, epoch, loader) -> float:
+    """One epoch's wall time, ms a step (the epoch ends in its one sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.train_epoch(epoch, loader)
+    return (time.perf_counter() - t0) * 1e3 / len(loader)
+
+
+def issue_epoch(t, epoch, loader) -> float:
+    """The host's time to issue a step, ms: one epoch with the device drained
+    before each step call (the graphs' ``StepGraphs.step``, the eager loop's
+    ``d_step``/``g_step``), each call timed until it returns."""
+    from mpgan_tpu_torch.training import loop
+
+    spent = [0.0]
+
+    def timed(fn):
+        def inner(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[0] += time.perf_counter() - t0
+            return out
+        return inner
+
+    saved = (t.graphs.step, loop.d_step, loop.g_step)
+    t.graphs.step, loop.d_step, loop.g_step = (timed(f) for f in saved)
+    try:
+        t.train_epoch(epoch, loader)
+    finally:
+        del t.graphs.step
+        loop.d_step, loop.g_step = saved[1:]
+    return spent[0] * 1e3 / len(loader)
+
+
+def epoch_profile(t, epoch, loader) -> dict:
+    """Device time a step from ``torch.profiler`` (CUDA activity only) over one
+    epoch, with the epoch's wall time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t.train_epoch(epoch, loader)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = kernels = 0
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt > 0 and ev.self_cpu_time_total == 0:
+            busy += dt / 1e3
+            kernels += ev.count
+    steps = len(loader)
+    return {"device_ms": busy / steps, "wall_ms": wall / steps, "kernels_per_step": kernels / steps,
+            "idle_share": 1 - busy / wall if wall else None}
+
+
+def graph_step_paths(mk, dev, card, from_args_dict, tmp):
+    """Phase 27, training: every path's epoch of GRAPH_STEPS batches on the eager
+    loop and on the graphs from one seed, bit for bit; launches, peak memory,
+    and step times in turns."""
+    from mpgan_tpu_torch.data.loader import BatchLoader
+
+    results = {}
+    for name, (args, route) in graph_paths(from_args_dict).items():
+        set_knn_route(route)
+        try:
+            b = args.batch_size
+            steps = GRAPH_STEPS if args.num_critic == 1 else GRAPH_STEPS_CRITIC5
+            data, labels = graph_data(args, steps * b)
+            epochs = 2 if name == "legacy_mask_epoch" else 1
+            runs = {}
+            for scan in (False, True):
+                t = graph_trainer(args, dev, tmp, f"{name}_{int(scan)}", scan)
+                loader = BatchLoader(data, labels if t.use_labels else None, batch_size=b,
+                                     shuffle=True, seed=args.seed)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                mk.reset_launch_counts()
+                for e in range(1, epochs + 1):
+                    t.train_epoch(e, loader)
+                torch.cuda.synchronize()
+                runs[scan] = {"trainer": t, "loader": loader,
+                              "launches": {k: v for k, v in mk.launch_counts.items() if v},
+                              "peak_mb": (torch.cuda.max_memory_allocated() - base) / 2**20}
+            eager, graph = runs[False], runs[True]
+            te, tg = eager["trainer"], graph["trainer"]
+            same, rel = state_diff(te.state, tg.state)
+            keys = te.d_loss_keys + ["G"]
+            losses_same = all(te.losses[k] == tg.losses[k] for k in keys)
+            kinds = sorted(tg.graphs.steps)
+            res = {"batch": b, "epochs": epochs, "kinds": kinds,
+                   "captures": tg.graphs.captures, "replays": tg.graphs.replays,
+                   "state_bit_identical": same, "max_rel_diff": rel,
+                   "losses_equal": losses_same,
+                   "losses": {k: tg.losses[k] for k in keys},
+                   "launches_eager": eager["launches"], "launches_graph": graph["launches"],
+                   "peak_mb_eager": eager["peak_mb"], "peak_mb_graph": graph["peak_mb"]}
+            if not same and rel > 1e-6:
+                log("graph_step", card=card, path=name, **res)
+                raise SystemExit(f"{name}: the graph steps' state differs from the eager "
+                                 f"loop's by {rel} relative")
+            # (the external pair reaches no hand-written kernel: rGAN G, WGAN-GP's plain D)
+            if eager["launches"] != graph["launches"] or (not eager["launches"]
+                                                          and name != "fcmp_wgan_gp"):
+                raise SystemExit(f"{name}: kernel launches eager {eager['launches']} != graph "
+                                 f"{graph['launches']}")
+            if not tg.graphs.replays or tg.graphs.captures != epochs * len(kinds):
+                raise SystemExit(f"{name}: {tg.graphs.captures} captures, "
+                                 f"{tg.graphs.replays} replays")
+            # step times in turns, on the captured graphs; then a profile of each
+            ms = {"eager": [], "graph": []}
+            epoch = epochs
+            for which in GRAPH_TURNS:
+                epoch += 1
+                ms[which].append(timed_epoch(runs[which == "graph"]["trainer"], epoch,
+                                             runs[which == "graph"]["loader"]))
+            for which, r in (("eager", eager), ("graph", graph)):
+                res[f"wall_ms_{which}"] = ms[which]
+                res[f"issue_ms_{which}"] = issue_epoch(r["trainer"], epoch + 1, r["loader"])
+                res[f"profile_{which}"] = epoch_profile(r["trainer"], epoch + 2, r["loader"])
+                epoch += 2
+            res["replays"] = tg.graphs.replays
+            log("graph_step", card=card, path=name, **res)
+            results[name] = res
+        finally:
+            set_knn_route()
+            runs = te = tg = None
+            torch.cuda.empty_cache()
+    return results
+
+
+def graph_cli(train_cli, dev, tmp):
+    """Phase 27: the flagship through ``cli.train``, two epochs with --epoch-scan
+    and two with --no-epoch-scan from one seed: equal losses."""
+    losses = {}
+    for flag in ("--epoch-scan", "--no-epoch-scan"):
+        argv = ["--device", str(dev), "--name", f"cli{flag}", "--model", "mpgan", "--jets", "g",
+                "--dir-path", str(tmp), "--num-samples", "4000", "--num-epochs", "2",
+                "--save-epochs", "100", "--save-model-epochs", "100", flag]
+        t = train_cli.main(argv)
+        losses[flag] = {k: t.losses[k] for k in ("Dr", "Df", "D", "G")}
+        if flag == "--epoch-scan" and not t.graphs.replays:
+            raise SystemExit("cli.train --epoch-scan replayed no graph")
+    equal = losses["--epoch-scan"] == losses["--no-epoch-scan"]
+    log("graph_cli", losses=losses, equal=equal)
+    if not equal:
+        raise SystemExit("cli.train: --epoch-scan and --no-epoch-scan losses differ")
+
+
+def graph_samplers(mk, dev, card, from_args_dict):
+    """Phase 27: each sampler shape's graph against the eager loop, jets bit for
+    bit, launches equal; jets/s of both in turns, and peak memory."""
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training.sampling import drop_samplers, generate_multi_batch
+
+    shapes = (("30p", FLAGSHIP, 4096), ("150p_dense", {**FLAGSHIP, "num_hits": 150}, 512),
+              ("150p_dense", {**FLAGSHIP, "num_hits": 150}, 32), ("knn20", KNN150, 512),
+              ("gapt", GAPT, 1024), ("gapt", GAPT, 4096))
+    out = {}
+    for name, card_d, b in shapes:
+        args = from_args_dict(card_d)
+        suite = build_suite(args)
+        g = suite.generator(torch.Generator().manual_seed(6), device=dev)
+        n_jets = 3 * b  # the third batch replays a captured graph
+        _, labels = real_batch(GRAPH_RATE_BATCHES * b, args.num_hits)
+        labels = labels.numpy()
+
+        def run(static, n=n_jets):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            jets = generate_multi_batch(g, suite.noise, torch.Generator(device=dev).manual_seed(2),
+                                        n, b, labels=labels[:n], static=static)
+            return jets, time.perf_counter() - t0
+
+        res = {}
+        for static in (False, True):
+            drop_samplers(g)
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            mk.reset_launch_counts()
+            res[static] = run(static)[0]
+            res[f"launches_{static}"] = {k: v for k, v in mk.launch_counts.items() if v}
+            res[f"peak_mb_{static}"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        same = np.array_equal(res[False], res[True])
+        rate = {"eager": [], "graph": []}
+        n_rate = GRAPH_RATE_BATCHES * b
+        for which in GRAPH_TURNS:
+            rate[which].append(n_rate / run(which == "graph", n_rate)[1])
+        row = {"batch": b, "jets": n_jets, "rate_jets": n_rate, "bit_identical": same,
+               "launches_eager": res["launches_False"], "launches_graph": res["launches_True"],
+               "jets_per_s_eager": rate["eager"], "jets_per_s_graph": rate["graph"],
+               "peak_mb_eager": res["peak_mb_False"], "peak_mb_graph": res["peak_mb_True"]}
+        log("graph_sampler", card=card, path=name, **row)
+        if not same or res["launches_False"] != res["launches_True"]:
+            raise SystemExit(f"sampler {name} B={b}: graph jets differ from the eager loop's "
+                             "or launched other kernels")
+        out[f"{name}_b{b}"] = row
+        drop_samplers(g)
+        del g
+        torch.cuda.empty_cache()
+    return out
+
+
+def graph_phase(mk, train_cli, dev, card, from_args_dict, tmp):
+    """Phase 27: the training paths, the CLI and the samplers on CUDA graphs."""
+    t0 = time.perf_counter()
+    steps = graph_step_paths(mk, dev, card, from_args_dict, tmp)
+    graph_cli(train_cli, dev, tmp)
+    samplers = graph_samplers(mk, dev, card, from_args_dict)
+    log("graphs", card=card, seconds=time.perf_counter() - t0,
+        step_ms={k: {"eager": min(v["wall_ms_eager"]), "graph": min(v["wall_ms_graph"])}
+                 for k, v in steps.items()},
+        jets_per_s={k: {"eager": max(v["jets_per_s_eager"]), "graph": max(v["jets_per_s_graph"])}
+                    for k, v in samplers.items()})
+    return steps, samplers
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -2414,6 +2737,9 @@ def main() -> None:
         mnist_launches, mnist_err, mnist_times, mnist_runs = mnist_phase(
             mk, dev, card, identical, pathlib.Path(tmp))
     later = [zoo_launches, all_launches, mnist_launches]  # phases 23, 25, 26
+    # 27. the static-buffer steps and the samplers as CUDA graphs
+    with tempfile.TemporaryDirectory() as tmp:
+        graph_phase(mk, train_cli, dev, card, from_args_dict, pathlib.Path(tmp))
 
     fwd_src = "mpgan_tpu_torch/csrc/edge_aggregate.cu"
     kernels = [

@@ -6,6 +6,8 @@ sample jets on ``--device``, unnormalize with the per-jet-type feature maxima
 (gen.py:10-17, 127-143), zero masked particles, clamp pT and save ``.npy``.
 A PCGAN card's latents are decoded by the ``G_pc`` in the card's
 ``pcgan_weights_dir`` (the JAX ``gen`` does not decode them, and fails there).
+On a GPU every batch after the first replays one captured CUDA graph of G's
+forward (``training/sampling.py``).
 
     python -m mpgan_tpu_torch.cli.gen --g-args card.txt --g-state G.pt \\
         --num-samples 50000 --output-file gen_jets.npy --device cuda

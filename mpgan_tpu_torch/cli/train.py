@@ -16,6 +16,13 @@ batch and, with an rGAN discriminator, the epoch count, over the command line,
 as the reference's do. :func:`run` trains from processed args, for a caller
 that changes them after the processing.
 
+``--epoch-scan`` (the default) trains each epoch on the static-buffer steps:
+on a GPU one captured CUDA graph of the D+G step replayed a batch (separate D
+and G graphs for ``--num-critic``/``--num-gen`` above 1), on the CPU the same
+steps run uncaptured; ``--no-epoch-scan``, ``--break-zero``, ``--bottleneck``
+and ``--debug-nans`` run the eager loop. Both give the same parameters and
+losses from one seed (``training/loop.py``).
+
 ``--fpnd`` (30-particle g, t and q jets) scores with jetnet's ParticleNet
 from ``<datasets_path>/pnet_state_dict.pt`` when that file is there, else with
 a random trunk from a ``torch.Generator`` seeded 42, with a warning: such a

@@ -70,7 +70,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const float* __restrict__ mask, const float* __restrict__ x,
                           float* __restrict__ out, float* __restrict__ packed, int batch, int n,
                           int feat, FwdPlan p, Chain fe, Chain fn, float alpha, float fn_alpha,
-                          int sum_agg, int drop_on, Drop drop) {
+                          int sum_agg, int drop_on, Drop drop,
+                          const int* __restrict__ seed) {
+  drop = drop_load(drop, seed, drop_on != 0);
   const int L = fe.n, h1 = fe.dim[0], h_out = fe.dim[L], ns = round_up(n, 8);
   const int n_fn = kFuseFn ? fn.n : 0;
   const LayerTab* tab = fwd_setup(packed, p, fe, fn, L + n_fn);
@@ -159,9 +161,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <bool kFuseFn>
 int launch(const float* u1, const float* u2, const float* mask, const float* x, float* out,
            float* packed, int batch, int n, int h1, int feat, const Chain& fe, const Chain& fn,
-           float alpha,
-           float fn_alpha, int sum_agg, int drop_on, Drop drop, int ti, int jc, int rows,
-           int span, int grid, int slab_floats, void* stream) {
+           float alpha, float fn_alpha, int sum_agg, int drop_on, Drop drop, const int* seed,
+           int ti, int jc, int rows, int span, int grid, int slab_floats, void* stream) {
   if (batch < 1 || n < 1 || h1 < 1 || h1 > kMaxWidth || fe.dim[0] != h1)
     return (int)cudaErrorInvalidValue;
   // offsets into u1 and u2 are ints
@@ -184,7 +185,7 @@ int launch(const float* u1, const float* u2, const float* mask, const float* x, 
   if (err != cudaSuccess) return (int)err;
   Chain fn_arg = fn;
   void* args[] = {&u1, &u2, &mask, &x, &out, &packed, &batch, &n, &feat, &p, const_cast<Chain*>(&fe),
-                  &fn_arg, &alpha, &fn_alpha, &sum_agg, &drop_on, &drop};
+                  &fn_arg, &alpha, &fn_alpha, &sum_agg, &drop_on, &drop, &seed};
   // cooperative: the CTAs meet at a grid-wide barrier after packing the weights
   err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, p.smem,
                                     static_cast<cudaStream_t>(stream));
@@ -240,26 +241,26 @@ int mpgan_edge_aggregate(const float* u1, const float* u2, const float* mask, fl
   if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims))
     return (int)cudaErrorInvalidValue;
   return launch<false>(u1, u2, mask, nullptr, out, packed, batch, n, h1, 0, fe, fn, alpha, 0.f,
-                       sum_agg, 0, Drop{}, ti, jc, rows, ti, grid, slab_floats, stream);
+                       sum_agg, 0, Drop{}, nullptr, ti, jc, rows, ti, grid, slab_floats, stream);
 }
 
-// K2 forward in train mode, with K1 dropout: seed in [0, 2^31), keep threshold
-// `thr` and multiplier `mult` as computed on the host (see Drop).
+// K2 forward in train mode, with K1 dropout: `seed` points to one int in device
+// memory, in [0, 2^31); keep threshold `thr` and multiplier `mult` as computed on
+// the host (see Drop).
 int mpgan_edge_aggregate_train(const float* u1, const float* u2, const float* mask, float* out,
                                float* packed, int batch, int n, int h1, int n_hidden,
                                const void* const* hidden_w, const void* const* hidden_b,
-                               const int* hidden_dims, float alpha, int sum_agg, int seed,
-                               unsigned thr, float mult, int ti, int jc, int rows, int grid,
-                               int slab_floats, void* stream) {
+                               const int* hidden_dims, float alpha, int sum_agg,
+                               const int* seed, unsigned thr, float mult, int ti, int jc,
+                               int rows, int grid, int slab_floats, void* stream) {
   Chain fe, fn{};
-  if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || seed < 0)
+  if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || seed == nullptr)
     return (int)cudaErrorInvalidValue;
   Drop drop{};
-  drop.seed_key = (unsigned)seed * 0xC2B2AE3Du;
   drop.thr = thr;
   drop.mult = mult;
   return launch<false>(u1, u2, mask, nullptr, out, packed, batch, n, h1, 0, fe, fn, alpha, 0.f,
-                       sum_agg, 1, drop, ti, jc, rows, ti, grid, slab_floats, stream);
+                       sum_agg, 1, drop, seed, ti, jc, rows, ti, grid, slab_floats, stream);
 }
 
 // K4. fn_w[0] is fn's first-layer weight rows for agg ([h_out, dims[1]]), fn_w0_lo its rows
@@ -284,7 +285,7 @@ int mpgan_edge_aggregate_fn(const float* u1, const float* u2, const float* mask,
   fn.k0_split = h_out;
   fn.act_last = fn_act_last;
   return launch<true>(u1, u2, mask, x, out, packed, batch, n, h1, feat, fe, fn, alpha, fn_alpha,
-                      sum_agg, 0, Drop{}, ti, jc, rows, span, grid, slab_floats, stream);
+                      sum_agg, 0, Drop{}, nullptr, ti, jc, rows, span, grid, slab_floats, stream);
 }
 
 const char* mpgan_cuda_error_string(int code) {

@@ -42,7 +42,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                               float* __restrict__ du1, float* __restrict__ sender_part,
                               float* __restrict__ w_part, int n, int h1, BwdPlan p, Chain fe,
                               Packed pk, float alpha, int sum_agg, int drop_on, Drop drop,
+                              const int* __restrict__ seed,
                               int need_wgrads, WSlab ws) {
+  drop = drop_load(drop, seed, drop_on != 0);
   const PassBuffers s = carve(p, fe.n);
   const int h_out = fe.dim[fe.n], ns = drop.ns;
   const long long t_begin = range_start(blockIdx.x, p.items, gridDim.x);
@@ -150,10 +152,12 @@ int mpgan_edge_aggregate_bwd(const float* u1, const float* u2, const float* mask
                              int n_hidden, const void* const* hidden_w,
                              float* packed, const void* const* hidden_b,
                              const int* hidden_dims, float alpha, int sum_agg, int dropout,
-                             int seed, unsigned thr, float mult, int need_wgrads, int ti, int jc,
+                             const int* seed, unsigned thr, float mult, int need_wgrads,
+                             int ti, int jc,
                              int rows, int grid, int slots, void* stream) {
   Chain fe;
-  if (batch < 1 || n < 1 || h1 < 1 || h1 > kMaxWidth || !(alpha > 0.f) || seed < 0)
+  if (batch < 1 || n < 1 || h1 < 1 || h1 > kMaxWidth || !(alpha > 0.f) ||
+      (dropout && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || fe.dim[0] != h1)
     return (int)cudaErrorInvalidValue;
@@ -161,7 +165,6 @@ int mpgan_edge_aggregate_bwd(const float* u1, const float* u2, const float* mask
   if (!make_plan(p, fe, batch, n, n, ti, jc, rows, grid, slots, false))
     return (int)cudaErrorInvalidValue;
   Drop drop{};
-  drop.seed_key = (unsigned)seed * 0xC2B2AE3Du;
   drop.thr = thr;
   drop.mult = mult;
   drop.ns = round_up(n, 8);
@@ -176,7 +179,7 @@ int mpgan_edge_aggregate_bwd(const float* u1, const float* u2, const float* mask
   if (err != cudaSuccess) return (int)err;
   edge_aggregate_bwd_kernel<<<grid, kThreads, p.smem, st>>>(
       u1, u2, mask, g, du1, sender_part, w_part, n, h1, p, fe, pk, alpha, sum_agg, dropout,
-      drop, need_wgrads, ws);
+      drop, seed, need_wgrads, ws);
   code = (int)cudaGetLastError();
   if (code != 0) return code;
   return launch_reductions(sender_part, du2, dmask, batch, n, h1, p, grid, w_part,

@@ -28,13 +28,23 @@ struct Chain {
 // Dense kernels: (b*n + i)*ns + j with ns = ceil(n / 8) * 8, the TPU kernel's
 // padded sender count (the ids keep it, so masks agree bit for bit with the JAX
 // package). knn kernels: (b*n + i)*k + s, s the neighbour's extraction rank
-// (knn_pallas._v3_ids_at).
+// (knn_pallas._v3_ids_at). The seed is read from device memory, as the TPU kernel
+// reads seed_ref[0]: a kernel takes a pointer to it beside its Drop and keys the
+// Drop at its start (drop_load), so a launch captured in a CUDA graph hashes, at
+// each replay, the seed that the buffer holds then.
 struct Drop {
-  unsigned seed_key;  // seed * 0xC2B2AE3D
+  unsigned seed_key;  // seed * 0xC2B2AE3D, set by drop_load
   unsigned thr;       // keep iff hash >= thr; thr = min(int(p * 2^32), 2^32 - 1)
   float mult;         // float32(1 / (1 - p))
   int ns;             // dense: the sender count the ids are laid out on
 };
+
+// `d` keyed on the seed `seed` points to in device memory, in [0, 2^31) (checked
+// by the caller), with dropout on.
+__device__ __forceinline__ Drop drop_load(Drop d, const int* seed, bool on) {
+  if (on) d.seed_key = (unsigned)__ldg(seed) * 0xC2B2AE3Du;
+  return d;
+}
 
 __device__ __forceinline__ float dropmul(const Drop& d, unsigned id, unsigned col, unsigned salt) {
   unsigned h = id * 0x9E3779B1u + d.seed_key + salt * 0x27D4EB2Fu + col * 0x85EBCA77u;

@@ -31,18 +31,19 @@ extern "C" {
 // packed: scratch for the packed weights (mp_kernels.fwd_packed_floats).
 // hidden_dims has n_hidden + 1 entries, hidden_dims[0] == h1. The pass, the grid
 // and the weight slabs' size are the caller's plan (knn_kernels.knn_fwd_plan with
-// search off). With `dropout`, K1 runs with seed in [0, 2^31), keep threshold
-// `thr` and multiplier `mult` as computed on the host (see Drop). Returns a
+// search off). With `dropout`, K1 runs with the seed `seed` points to in device
+// memory, keep threshold `thr` and multiplier `mult` as computed on the host (see
+// Drop). Returns a
 // cudaError_t code (0 on success); the launch is asynchronous on `stream`.
 int mpgan_knn_edge_aggregate(const float* u1, const float* u2m, const int* idx,
                              const float* dists, const float* w_d, float* out, float* packed,
                              int batch, int n, int h1, int k, int n_hidden,
                              const void* const* hidden_w, const void* const* hidden_b,
                              const int* hidden_dims, float alpha, int sum_agg, int dropout,
-                             int seed, unsigned thr, float mult, int ti, int kc, int rows,
-                             int grid, int slab_floats, void* stream) {
+                             const int* seed, unsigned thr, float mult, int ti, int kc,
+                             int rows, int grid, int slab_floats, void* stream) {
   Chain fe;
-  if (batch < 1 || n < 1 || n > (1 << 22) || h1 < 1 || h1 > kMaxWidth || k < 1 || seed < 0 ||
+  if (batch < 1 || n < 1 || n > (1 << 22) || h1 < 1 || h1 > kMaxWidth || k < 1 ||
       idx == nullptr || (dists == nullptr) != (w_d == nullptr))
     return (int)cudaErrorInvalidValue;
   if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || fe.dim[0] != h1)

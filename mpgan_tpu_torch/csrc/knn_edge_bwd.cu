@@ -57,7 +57,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                         float* __restrict__ du1, float* __restrict__ ddists,
                         float* __restrict__ sender_part, float* __restrict__ w_part, int n,
                         int h1, int k, BwdPlan p, Chain fe, Packed pk, float alpha, int sum_agg,
-                        int drop_on, Drop drop, int need_wgrads, WSlab ws) {
+                        int drop_on, Drop drop, const int* __restrict__ seed, int need_wgrads,
+                        WSlab ws) {
+  drop = drop_load(drop, seed, drop_on != 0);
   const PassBuffers s = carve(p, fe.n);
   const int h_out = fe.dim[fe.n], hs = h1 + 1;
   const bool want_dists = dists != nullptr;
@@ -253,12 +255,13 @@ int mpgan_knn_edge_aggregate_bwd(const float* u1, const float* u2m, const int* i
                                  int n, int h1, int k, int n_hidden,
                                  const void* const* hidden_w, float* packed,
                                  const void* const* hidden_b, const int* hidden_dims,
-                                 float alpha, int sum_agg, int dropout, int seed, unsigned thr,
+                                 float alpha, int sum_agg, int dropout, const int* seed,
+                                 unsigned thr,
                                  float mult, int need_wgrads, int ti, int kc, int rows, int grid,
                                  int slots, void* stream) {
   Chain fe;
   if (batch < 1 || n < 1 || h1 < 1 || h1 > kMaxWidth || k < 1 || k > n || !(alpha > 0.f) ||
-      seed < 0)
+      (dropout && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool want_dists = dists != nullptr;
   if (want_dists && (w_d == nullptr || ddists == nullptr)) return (int)cudaErrorInvalidValue;
@@ -268,7 +271,6 @@ int mpgan_knn_edge_aggregate_bwd(const float* u1, const float* u2m, const int* i
   if (!make_plan(p, fe, batch, n, k, ti, kc, rows, grid, slots, true))
     return (int)cudaErrorInvalidValue;
   Drop drop{};
-  drop.seed_key = (unsigned)seed * 0xC2B2AE3Du;
   drop.thr = thr;
   drop.mult = mult;
   const WSlab ws = make_wslab(fe, want_dists ? h1 : 0);
@@ -281,7 +283,7 @@ int mpgan_knn_edge_aggregate_bwd(const float* u1, const float* u2m, const int* i
   if (err != cudaSuccess) return (int)err;
   knn_edge_bwd_kernel<<<grid, kThreads, p.smem, st>>>(
       u1, u2m, idx, dists, w_d, g, du1, ddists, sender_part, w_part, n, h1, k, p, fe, pk,
-      alpha, sum_agg, dropout, drop, need_wgrads, ws);
+      alpha, sum_agg, dropout, drop, seed, need_wgrads, ws);
   code = (int)cudaGetLastError();
   if (code != 0) return code;
   return launch_reductions(sender_part, du2, dmask, batch, n, h1, p, grid, w_part,

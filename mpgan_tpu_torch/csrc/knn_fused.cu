@@ -49,12 +49,11 @@ int mpgan_knn_fused_layer(const float* xs, const float* xf, const float* u1, con
                           float* packed, int batch, int n, int c, int h1, int k, int self_loops,
                           int want_dists, int n_hidden, const void* const* hidden_w,
                           const void* const* hidden_b, const int* hidden_dims, float alpha,
-                          int sum_agg, int dropout, int seed, unsigned thr, float mult, int ti,
-                          int kc, int rows, int sspan, int grid, int slab_floats,
+                          int sum_agg, int dropout, const int* seed, unsigned thr, float mult,
+                          int ti, int kc, int rows, int sspan, int grid, int slab_floats,
                           void* stream) {
   Chain fe;
-  if (batch < 1 || n < 1 || n > (1 << 22) || c < 1 || c > kMaxWidth || h1 < 1 || h1 > kMaxWidth ||
-      seed < 0)
+  if (batch < 1 || n < 1 || n > (1 << 22) || c < 1 || c > kMaxWidth || h1 < 1 || h1 > kMaxWidth)
     return (int)cudaErrorInvalidValue;
   if (k < 1 || k + (self_loops ? 0 : 1) > n || (want_dists && w_d == nullptr))
     return (int)cudaErrorInvalidValue;

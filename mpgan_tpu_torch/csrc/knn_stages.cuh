@@ -372,7 +372,9 @@ struct KnnArgs {
 // out. kSearch: K5, else K8.
 template <bool kSearch>
 __global__ void __launch_bounds__(kThreads, 1)
-    knn_fwd_kernel(KnnArgs a, FwdPlan p, Chain fe, float alpha, int drop_on, Drop drop) {
+    knn_fwd_kernel(KnnArgs a, FwdPlan p, Chain fe, float alpha, int drop_on, Drop drop,
+                   const int* __restrict__ seed) {
+  drop = drop_load(drop, seed, drop_on != 0);
   const int L = fe.n, h1 = a.h1, hs = a.h1 + 1, h_out = fe.dim[L], n = a.n, k = a.k;
   const LayerTab* tab = fwd_setup(a.packed, p, fe, fe, L);
   const float denom = a.sum_agg ? 1.f : (float)k;  // the mean divides by k
@@ -465,10 +467,12 @@ bool knn_fwd_layout(FwdPlan& p, KnnArgs& a, const Chain& fe, bool search) {
 }
 
 // Checks the caller's plan, lays out the shared memory and launches K5 (kSearch)
-// or K8. With `dropout`, K1 runs with seed in [0, 2^31), keep threshold `thr` and
-// multiplier `mult` as computed on the host (see Drop).
+// or K8. With `dropout`, K1 runs with the seed `seed` points to in device memory (in
+// [0, 2^31)), keep threshold `thr` and multiplier `mult` as computed on the host (see
+// Drop).
 template <bool kSearch>
-int launch_knn_fwd(KnnArgs a, const Chain& fe, float alpha, int dropout, int seed, unsigned thr,
+int launch_knn_fwd(KnnArgs a, const Chain& fe, float alpha, int dropout, const int* seed,
+                   unsigned thr,
                    float mult, int ti, int kc, int rows, int grid, int slab_floats,
                    void* stream) {
   // offsets into u1, u2m and out are ints
@@ -481,9 +485,9 @@ int launch_knn_fwd(KnnArgs a, const Chain& fe, float alpha, int dropout, int see
   p.slab_floats = slab_floats;
   if (!knn_fwd_layout(p, a, fe, kSearch) || grid < 1 || grid > p.items)
     return (int)cudaErrorInvalidValue;
+  if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
   Drop drop{};
   if (dropout) {
-    drop.seed_key = (unsigned)seed * 0xC2B2AE3Du;
     drop.thr = thr;
     drop.mult = mult;
   }
@@ -493,7 +497,7 @@ int launch_knn_fwd(KnnArgs a, const Chain& fe, float alpha, int dropout, int see
                                          (int)p.smem);
   if (err != cudaSuccess) return (int)err;
   int drop_on = dropout != 0;
-  void* args[] = {&a, &p, const_cast<Chain*>(&fe), &alpha, &drop_on, &drop};
+  void* args[] = {&a, &p, const_cast<Chain*>(&fe), &alpha, &drop_on, &drop, &seed};
   // cooperative: the CTAs meet at a grid-wide barrier after packing the weights
   err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, p.smem,
                                     static_cast<cudaStream_t>(stream));

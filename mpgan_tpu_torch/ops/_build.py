@@ -111,12 +111,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.mpgan_edge_aggregate.restype = i
     lib.mpgan_edge_aggregate_train.argtypes = [
-        p, p, p, p, p, i, i, i, i, parr, parr, iarr, f, i, i, ctypes.c_uint, f, i, i, i, i, i, p,
+        p, p, p, p, p, i, i, i, i, parr, parr, iarr, f, i, p, ctypes.c_uint, f, i, i, i, i, i, p,
     ]
     lib.mpgan_edge_aggregate_train.restype = i
     lib.mpgan_edge_aggregate_bwd.argtypes = [
         p, p, p, p, p, p, p, p, p, p, i, i, i, i, parr, p, parr, iarr,
-        f, i, i, i, ctypes.c_uint, f, i, i, i, i, i, i, p,
+        f, i, i, p, ctypes.c_uint, f, i, i, i, i, i, i, p,
     ]
     lib.mpgan_edge_aggregate_bwd.restype = i
     lib.mpgan_edge_aggregate_fn.argtypes = [
@@ -133,19 +133,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mpgan_edge_bwd_wslab_floats.argtypes = [i, iarr, i]
     lib.mpgan_edge_bwd_wslab_floats.restype = i
     lib.mpgan_knn_fused_layer.argtypes = [
-        p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, parr, parr, iarr, f, i, i, i,
+        p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, parr, parr, iarr, f, i, i, p,
         ctypes.c_uint, f, i, i, i, i, i, i, p,
     ]
     lib.mpgan_knn_fused_layer.restype = i
     lib.mpgan_knn_edge_aggregate_bwd.argtypes = [
         p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, parr, p, parr, iarr,
-        f, i, i, i, ctypes.c_uint, f, i, i, i, i, i, i, p,
+        f, i, i, p, ctypes.c_uint, f, i, i, i, i, i, i, p,
     ]
     lib.mpgan_knn_edge_aggregate_bwd.restype = i
     lib.mpgan_knn_search.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.mpgan_knn_search.restype = i
     lib.mpgan_knn_edge_aggregate.argtypes = [
-        p, p, p, p, p, p, p, i, i, i, i, i, parr, parr, iarr, f, i, i, i, ctypes.c_uint, f,
+        p, p, p, p, p, p, p, i, i, i, i, i, parr, parr, iarr, f, i, i, p, ctypes.c_uint, f,
         i, i, i, i, i, p,
     ]
     lib.mpgan_knn_edge_aggregate.restype = i

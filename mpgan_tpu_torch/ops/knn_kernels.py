@@ -97,6 +97,7 @@ from .mp_kernels import (
     bwd_plan,
     fwd_packed_floats,
     launch_counts,
+    seed_arg,
 )
 
 
@@ -224,7 +225,7 @@ def _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p, seed):
 
 def knn_fused_layer_reference(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
                               want_dists: bool, alpha: float, sum_agg: bool,
-                              dropout_p: float = 0.0, seed: int = 0, emit_idx: bool = False):
+                              dropout_p: float = 0.0, seed=0, emit_idx: bool = False):
     """Plain PyTorch version of K5 (``knn_pallas._fused_kernel_v4``). Returns
     ``(agg, idx, dists)``; ``idx`` and ``dists`` are None unless ``emit_idx``
     (and ``want_dists``)."""
@@ -238,7 +239,7 @@ def knn_fused_layer_reference(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_lo
 
 
 def knn_edge_aggregate_bwd_reference(u1, u2m, idx, dists, w_d, hidden_flat, g, alpha: float,
-                                     sum_agg: bool, dropout_p: float = 0.0, seed: int = 0,
+                                     sum_agg: bool, dropout_p: float = 0.0, seed=0,
                                      need_wgrads: bool = True):
     """Plain PyTorch version of K6 (``knn_pallas._bwd_kernel_v3``). Returns
     ``(du1, du2, dmask, ddists, dw_d, dhidden_flat)``; ``ddists``/``dw_d`` are
@@ -467,7 +468,7 @@ def _check_u2m(name, u1, u2m, w_d, want_dists):
 
 def knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
                     want_dists: bool, alpha: float, sum_agg: bool, dropout_p: float = 0.0,
-                    seed: int = 0, emit_idx: bool = False):
+                    seed=0, emit_idx: bool = False):
     """K5: the plain version on the CPU, the CUDA kernel on a GPU. Returns
     ``(agg, idx, dists)`` like :func:`knn_fused_layer_reference`."""
     hidden_flat = tuple(hidden_flat)
@@ -499,12 +500,14 @@ def knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
     dim_arr = (ctypes.c_int * len(dims))(*dims)
     thr, mult = dropout_threshold_mult(dropout_p) if dropout_p > 0 else (0, 1.0)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    seed_t = seed_arg(name, seed, dev) if dropout_p > 0 else None
+    seed_ptr = ptr(seed_t)
     with torch.cuda.device(dev):
         code = lib.mpgan_knn_fused_layer(
             xs.data_ptr(), xf.data_ptr(), u1.data_ptr(), u2m.data_ptr(), ptr(w_d),
             out.data_ptr(), ptr(idx), ptr(dists), packed.data_ptr(), b_sz, n, c, dims[0], k,
             int(bool(self_loops)), int(bool(want_dists)), len(pairs), w, bias, dim_arr,
-            float(alpha), int(bool(sum_agg)), int(dropout_p > 0), int(seed), thr, mult,
+            float(alpha), int(bool(sum_agg)), int(dropout_p > 0), seed_ptr, thr, mult,
             plan.ti, plan.kc, plan.rows, plan.sspan, plan.grid, plan.slab_floats,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -514,7 +517,7 @@ def knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
 
 
 def knn_edge_aggregate_bwd(u1, u2m, idx, dists, w_d, hidden_flat, g, alpha: float,
-                           sum_agg: bool, dropout_p: float = 0.0, seed: int = 0,
+                           sum_agg: bool, dropout_p: float = 0.0, seed=0,
                            need_wgrads: bool = True):
     """K6: the plain backward on the CPU, the CUDA kernel on a GPU. Returns
     ``(du1, du2, dmask, ddists, dw_d, dhidden_flat)``."""
@@ -576,13 +579,15 @@ def knn_edge_aggregate_bwd(u1, u2m, idx, dists, w_d, hidden_flat, g, alpha: floa
     dim_arr = (ctypes.c_int * len(dims))(*dims)
     thr, mult = dropout_threshold_mult(dropout_p) if dropout_p > 0 else (0, 1.0)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    seed_t = seed_arg(name, seed, dev) if dropout_p > 0 else None
+    seed_ptr = ptr(seed_t)
     with torch.cuda.device(dev):
         code = lib.mpgan_knn_edge_aggregate_bwd(
             u1.data_ptr(), u2m.data_ptr(), idx.data_ptr(), ptr(dists), ptr(w_d), g.data_ptr(),
             du1.data_ptr(), du2.data_ptr(), dmask.data_ptr(), ptr(ddists), flat.data_ptr(),
             sender_part.data_ptr(), w_part.data_ptr(),
             b_sz, n, h1, k, len(pairs), w, packed.data_ptr(), bias, dim_arr, float(alpha),
-            int(bool(sum_agg)), int(dropout_p > 0), int(seed), thr, mult,
+            int(bool(sum_agg)), int(dropout_p > 0), seed_ptr, thr, mult,
             int(bool(need_wgrads)), plan.ti, plan.jc, plan.rows, plan.grid, plan.slots,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -624,7 +629,7 @@ def knn_search(xs, xf, k: int, self_loops: bool, want_dists: bool = False):
 
 
 def knn_edge_aggregate_reference(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float,
-                                 sum_agg: bool, dropout_p: float = 0.0, seed: int = 0):
+                                 sum_agg: bool, dropout_p: float = 0.0, seed=0):
     """Plain PyTorch version of K8: the masked aggregate of the fe chain over
     the edges ``idx`` names."""
     _, acts, _, smask = _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p, seed)
@@ -633,7 +638,7 @@ def knn_edge_aggregate_reference(u1, u2m, idx, dists, w_d, hidden_flat, alpha: f
 
 
 def knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float, sum_agg: bool,
-                       dropout_p: float = 0.0, seed: int = 0):
+                       dropout_p: float = 0.0, seed=0):
     """K8: the plain version on the CPU, the CUDA kernel on a GPU. ``idx`` is
     int32 ``[B, N, k]`` with entries in ``[0, N)``; ``dists`` and ``w_d`` are
     both given or both None."""
@@ -673,11 +678,13 @@ def knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float, sum_
     dim_arr = (ctypes.c_int * len(dims))(*dims)
     thr, mult = dropout_threshold_mult(dropout_p) if dropout_p > 0 else (0, 1.0)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    seed_t = seed_arg(name, seed, u1.device) if dropout_p > 0 else None
+    seed_ptr = ptr(seed_t)
     with torch.cuda.device(u1.device):
         code = lib.mpgan_knn_edge_aggregate(
             u1.data_ptr(), u2m.data_ptr(), idx.data_ptr(), ptr(dists), ptr(w_d), out.data_ptr(),
             packed.data_ptr(), b_sz, n, h1, k, len(pairs), w, bias, dim_arr, float(alpha),
-            int(bool(sum_agg)), int(dropout_p > 0), int(seed), thr, mult,
+            int(bool(sum_agg)), int(dropout_p > 0), seed_ptr, thr, mult,
             plan.ti, plan.kc, plan.rows, plan.grid, plan.slab_floats,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -741,7 +748,7 @@ class KnnFusedLayer(torch.autograd.Function):
 
 
 def knn_aggregate(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool, want_dists: bool,
-                  alpha: float, sum_agg: bool, dropout_p: float = 0.0, seed: int = 0):
+                  alpha: float, sum_agg: bool, dropout_p: float = 0.0, seed=0):
     """The knn edge stage for a layer: :class:`KnnFusedLayer` when some tensor
     needs a gradient, else K5 alone, which then writes no ``idx``/``dists``."""
     tensors = [t for t in (xs, xf, u1, u2m, w_d, *hidden_flat) if t is not None]
@@ -805,7 +812,7 @@ class KnnEdgeAggregate(torch.autograd.Function):
 
 def knn_aggregate_split(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
                         want_dists: bool, alpha: float, sum_agg: bool, dropout_p: float = 0.0,
-                        seed: int = 0, idx: torch.Tensor | None = None,
+                        seed=0, idx: torch.Tensor | None = None,
                         dists: torch.Tensor | None = None):
     """The knn edge stage as two kernels: K7 searches, K8 aggregates (K6 is its
     backward). With ``idx`` (and ``dists`` under ``want_dists``) given, a search

@@ -77,18 +77,26 @@ def _hash_keys(rows: int, cols: int, device: str) -> tuple[torch.Tensor, torch.T
     return r, c
 
 
-def hash_dropout(x: torch.Tensor, p: float, words: tuple[int, int]) -> torch.Tensor:
+def hash_seed(words: tuple[int, int]) -> int:
+    """``hash_dropout``'s seed ``w0 * 0xC2B2AE3D + w1 * 0x27D4EB2F`` from the two
+    key words, as int32 bits."""
+    w0, w1 = (int(w) & _M32 for w in words)
+    return _i32(w0 * 0xC2B2AE3D + w1 * 0x27D4EB2F)
+
+
+def hash_dropout(x: torch.Tensor, p: float, words) -> torch.Tensor:
     """Torch-semantics dropout (keep with probability ``1-p``, scale by
     ``1/(1-p)``) from the outer-sum hash of ``mpgan_tpu.ops.linear.hash_dropout``:
     row key ``row * 0x9E3779B1 + seed`` with ``seed = w0 * 0xC2B2AE3D +
     w1 * 0x27D4EB2F`` from the two key words, column key ``col * 0x85EBCA77``.
-    The same two words give the JAX package's mask bit for bit.
+    The same two words give the JAX package's mask bit for bit. ``words`` is
+    the pair of key words, or a one-element int32 tensor that holds their
+    :func:`hash_seed` (a key slot, see :mod:`.keys`).
 
     It runs on the main train path (every fn and fnd layer of D), so it is
     written for few kernel launches: int32 arithmetic and cached row and
     column keys."""
-    w0, w1 = (int(w) & _M32 for w in words)
-    seed = _i32(w0 * 0xC2B2AE3D + w1 * 0x27D4EB2F)
+    seed = words if isinstance(words, torch.Tensor) else hash_seed(words)
     cols = x.shape[-1]
     rkey, ckey = _hash_keys(x.numel() // cols, cols, str(x.device))
     return x * hash_mult((rkey + seed) + ckey, p, x.dtype).reshape(x.shape)

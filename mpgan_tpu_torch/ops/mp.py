@@ -307,8 +307,9 @@ def _mp_layer_apply_fused(layer: MPLayer, x, mask, labels, num_jet_particles, tr
     return layer.fn(h, train=train, rng=rng, update_sn=update_sn)
 
 
-def _edge_dropout(cfg: MPLayerConfig, train: bool, rng) -> tuple[float, int]:
-    """The in-kernel dropout rate and seed of a kernel-path layer."""
+def _edge_dropout(cfg: MPLayerConfig, train: bool, rng) -> tuple[float, Any]:
+    """The in-kernel dropout rate and seed of a kernel-path layer: an int, or a
+    key slot's one-element int32 tensor (see :mod:`.keys`)."""
     dropout_p = cfg.fe.dropout_p if train else 0.0
     if dropout_p <= 0:
         return 0.0, 0

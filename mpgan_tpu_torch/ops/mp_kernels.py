@@ -25,7 +25,11 @@ on the pass and products of ``csrc/edge_products.cuh``):
 
 K1 (``mp_pallas._dropmul``) keys each element on a global pair id, the feature
 column, the layer salt (0 for layer 1, k for hidden layer k) and an integer
-seed. The dense kernels' ids are ``b*n*ns + i*ns + j`` with ``ns =
+seed. The kernels read the seed from device memory, as the TPU kernel reads
+``seed_ref[0]``, so a launch captured in a CUDA graph draws fresh masks from
+whatever seed its buffer holds at a replay: every function that takes a
+``seed`` takes a one-element int32 tensor (a key slot, :class:`.keys.KeySlots`)
+or a Python int in ``[0, 2**31)``, and both give the same masks. The dense kernels' ids are ``b*n*ns + i*ns + j`` with ``ns =
 ceil(n/8)*8`` (the TPU kernel's sender padding, kept in the ids though nothing
 is padded here); the knn kernels of :mod:`.knn_kernels` use ``b*n*k + i*k + s``
 with the unpadded ``n`` and the neighbour's extraction rank ``s``.
@@ -35,7 +39,9 @@ shape, the items of the persistent grid, the grid), so that the planning is
 tested where there is no card. A wrapper runs the plain version for tensors on
 the CPU, and the kernel for tensors on a CUDA device; anything else raises. ``launch_counts`` counts kernel
 launches (the knn kernels' too), so a run can show that it went through the
-kernels.
+kernels. A launch inside a CUDA-graph capture runs nothing: :class:`CountedGraph`
+takes the counts its capture added back and adds them again at every replay, so
+the counts stay the launches that ran.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Sequence
+import weakref
+from typing import Any, Callable, Sequence
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -75,6 +82,71 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
+class CountedGraph:
+    """``body`` captured once into a CUDA graph (``torch.cuda.CUDAGraph``, in
+    the memory ``pool`` when given), with replay accounting for
+    ``launch_counts``: the launches the capture counted are taken back (nothing
+    ran) and kept in ``launches``, and every :meth:`replay` adds them. ``out``
+    is what ``body`` returned. A capture error raises.
+
+    ``graph`` may be another object with ``capture()`` (a context manager) and
+    ``replay()``, so the accounting is tested where there is no card."""
+
+    def __init__(self, body: Callable[[], Any], pool=None, graph=None):
+        self.graph = graph if graph is not None else torch.cuda.CUDAGraph()
+        self.pool = pool
+        before = dict(launch_counts)
+        if isinstance(self.graph, torch.cuda.CUDAGraph):
+            capture = torch.cuda.graph(self.graph, pool=pool)
+        else:
+            capture = self.graph.capture()
+        try:
+            with capture:
+                self.out = body()
+        finally:
+            self.launches = {k: launch_counts[k] - before[k] for k in launch_counts
+                             if launch_counts[k] != before[k]}
+            launch_counts.update(before)
+        _LIVE_GRAPHS.add(self)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, v in self.launches.items():
+            launch_counts[k] += v
+
+
+def warm_up(fn: Callable[[], Any], device: torch.device) -> Any:
+    """``fn()`` on a side stream ordered after the current one and before its
+    next work: the run torch.cuda.graphs asks for before a capture. A tensor
+    it returns is marked as used by the current stream."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = fn()
+    main.wait_stream(side)
+    if isinstance(out, torch.Tensor):
+        out.record_stream(main)
+    return out
+
+
+_GRAPH_POOL = None
+_LIVE_GRAPHS: "weakref.WeakSet[CountedGraph]" = weakref.WeakSet()
+
+
+def graph_pool():
+    """The memory pool that the port's live CUDA graphs share
+    (``torch.cuda.graph_pool_handle()``): the train steps' and the samplers'.
+    A graph's replay is followed by its consumer before another graph runs, so
+    their temporaries may share memory. Once no graph of the pool is alive the
+    allocator releases the pool (when the tensors made in it are gone too) and
+    does not take its handle again: the next capture gets a new one."""
+    global _GRAPH_POOL
+    if _GRAPH_POOL is None or not any(g.pool == _GRAPH_POOL for g in _LIVE_GRAPHS):
+        _GRAPH_POOL = torch.cuda.graph_pool_handle()
+    return _GRAPH_POOL
+
+
 def _leaky(x: torch.Tensor, alpha: float) -> torch.Tensor:
     return torch.where(x >= 0, x, alpha * x)
 
@@ -101,13 +173,22 @@ def pair_ids(b: int, n: int, device) -> torch.Tensor:
     return (((ids + 2**31) & _M32) - 2**31).to(torch.int32)[..., None]
 
 
-def _dropmul(ids: torch.Tensor, cols: int, p: float, seed: int, salt: int) -> torch.Tensor:
+def _seed_key(seed, salt: int):
+    """K1's key ``seed * 0xC2B2AE3D + salt * 0x27D4EB2F`` as int32 bits: an int
+    for an int seed, a one-element int32 tensor for a seed tensor (int32
+    arithmetic wraps like uint32, so both give the same bits)."""
+    if isinstance(seed, torch.Tensor):
+        return seed * _i32(0xC2B2AE3D) + _i32(salt * 0x27D4EB2F)
+    return _i32(seed * 0xC2B2AE3D + salt * 0x27D4EB2F)
+
+
+def _dropmul(ids: torch.Tensor, cols: int, p: float, seed, salt: int) -> torch.Tensor:
     """K1 (``mp_pallas._dropmul``): the float32 dropout multiplier for pair ids
     ``ids`` (``[..., 1]``, from :func:`pair_ids`) and columns ``0..cols-1``;
-    shape ``ids.shape[:-1] + (cols,)``."""
-    key = _i32(seed * 0xC2B2AE3D + salt * 0x27D4EB2F)
+    shape ``ids.shape[:-1] + (cols,)``. ``seed``: an int or a one-element int32
+    tensor."""
     _, ckey = _hash_keys(1, cols, str(ids.device))
-    return hash_mult(ids * _i32(0x9E3779B1) + key + ckey, p, torch.float32)
+    return hash_mult(ids * _i32(0x9E3779B1) + _seed_key(seed, salt) + ckey, p, torch.float32)
 
 
 def _chain_recompute(u1, u2, hidden_flat, alpha, dropout_p, seed):
@@ -253,15 +334,35 @@ def _check_edge_shapes(name, u1, u2, mask, pairs):
     return _chain_dims(name, "hidden", [u1.shape[2]], pairs)
 
 
-def _check_dropout(name: str, dropout_p: float, seed: int) -> None:
+def _check_dropout(name: str, dropout_p: float, seed) -> None:
+    """The rate, and an int seed's range; a seed tensor's value is checked where
+    it is filled (``KeySlots.fill``), since reading it here would wait for the
+    device."""
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"{name}: dropout_p {dropout_p} outside [0, 1)")
-    if dropout_p > 0 and not 0 <= int(seed) < 2**31:
+    if dropout_p <= 0:
+        return
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int32 or seed.numel() != 1:
+            raise TypeError(f"{name}: a seed tensor must hold one int32, got {seed.dtype} "
+                            f"{tuple(seed.shape)}")
+    elif not 0 <= int(seed) < 2**31:
         raise ValueError(f"{name}: dropout seed {seed} outside [0, 2**31)")
 
 
+def seed_arg(name: str, seed, device: torch.device) -> torch.Tensor:
+    """The seed as the one-element int32 tensor on ``device`` that a kernel
+    reads: a seed tensor as it is, an int written there by a fill (no host
+    copy, so the host does not wait)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.device != device:
+            raise ValueError(f"{name}: seed on {seed.device}, the inputs on {device}")
+        return seed.contiguous()
+    return torch.full((1,), int(seed), dtype=torch.int32, device=device)
+
+
 def edge_aggregate(u1, u2, mask, hidden_flat, alpha: float, sum_agg: bool,
-                   dropout_p: float = 0.0, seed: int = 0):
+                   dropout_p: float = 0.0, seed=0):
     """K2 forward: the plain version on the CPU, the CUDA kernel on a GPU."""
     hidden_flat = tuple(hidden_flat)
     name = "edge_aggregate_train" if dropout_p > 0 else "edge_aggregate"
@@ -289,9 +390,10 @@ def edge_aggregate(u1, u2, mask, hidden_flat, alpha: float, sum_agg: bool,
         ptrs = (u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), out.data_ptr(), packed.data_ptr())
         if dropout_p > 0:
             thr, mult = dropout_threshold_mult(dropout_p)
+            seed_t = seed_arg(name, seed, u1.device)
             code = lib.mpgan_edge_aggregate_train(
                 *ptrs, b_sz, n, h1, len(pairs), w, b, dim_arr, float(alpha), int(bool(sum_agg)),
-                int(seed), thr, mult, *shape,
+                seed_t.data_ptr(), thr, mult, *shape,
             )
         else:
             code = lib.mpgan_edge_aggregate(
@@ -573,7 +675,7 @@ def _flat_wgrads(flat: torch.Tensor, hidden_flat, extra: int = 0):
 
 
 def edge_aggregate_bwd(u1, u2, mask, hidden_flat, g, alpha: float, sum_agg: bool,
-                       dropout_p: float = 0.0, seed: int = 0, need_wgrads: bool = True):
+                       dropout_p: float = 0.0, seed=0, need_wgrads: bool = True):
     """K3: the plain backward on the CPU, the CUDA kernel on a GPU. Returns
     ``(du1, du2, dmask, dhidden_flat)``."""
     hidden_flat = tuple(hidden_flat)
@@ -614,6 +716,7 @@ def edge_aggregate_bwd(u1, u2, mask, hidden_flat, g, alpha: float, sum_agg: bool
     w, b = _chain_args(pairs)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
     thr, mult = dropout_threshold_mult(dropout_p) if dropout_p > 0 else (0, 1.0)
+    seed_t = seed_arg(name, seed, dev) if dropout_p > 0 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mpgan_edge_aggregate_bwd(
@@ -621,7 +724,8 @@ def edge_aggregate_bwd(u1, u2, mask, hidden_flat, g, alpha: float, sum_agg: bool
             du1.data_ptr(), du2.data_ptr(), dmask.data_ptr(), flat.data_ptr(),
             sender_part.data_ptr(), w_part.data_ptr(),
             b_sz, n, h1, len(pairs), w, packed.data_ptr(), b, dim_arr, float(alpha),
-            int(bool(sum_agg)), int(dropout_p > 0), int(seed), thr, mult, int(bool(need_wgrads)),
+            int(bool(sum_agg)), int(dropout_p > 0), None if seed_t is None else seed_t.data_ptr(),
+            thr, mult, int(bool(need_wgrads)),
             plan.ti, plan.jc, plan.rows, plan.grid, plan.slots, stream,
         )
     _build.check(code, name)
@@ -633,7 +737,7 @@ class EdgeAggregate(torch.autograd.Function):
     """K2 forward, K3 backward (``mp_pallas.edge_aggregate``'s custom VJP).
 
     ``EdgeAggregate.apply(u1, u2, mask, alpha, sum_agg, dropout_p, seed,
-    *hidden_flat)``. The backward launches K3 with the weight contractions only
+    *hidden_flat)``, ``seed`` an int or a one-element int32 tensor. The backward launches K3 with the weight contractions only
     when a hidden weight or bias needs a gradient, so a D pass whose parameters
     have ``requires_grad`` off (the G step) skips them. It is once
     differentiable: the GP double backward raises (GP configs run D on the

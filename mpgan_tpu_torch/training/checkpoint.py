@@ -34,7 +34,7 @@ import torch
 
 from ..utils.weights import jax_leaves, refresh_sn_v
 from .optimizers import state_names
-from .train_step import TrainState
+from .train_step import TrainState, drop_graphs
 
 
 def _words_seed(words: np.ndarray) -> int:
@@ -91,15 +91,21 @@ def _load_opt(opt: torch.optim.Optimizer, params: list[torch.Tensor], leaves: li
         for k, p in enumerate(params):
             per_param[k][name] = torch.as_tensor(np.asarray(leaves[pos], np.float32)).to(p.device)
             pos += 1
+    capturable = opt.defaults.get("capturable", False)
     for p, st in zip(params, per_param):
-        # torch keeps a step counter per parameter; only Adam's is part of the state
-        st["step"] = torch.tensor(step if step is not None else 0.0)
+        # torch keeps a step counter per parameter; only Adam's is part of the state.
+        # A capturable optimizer keeps it on the parameter's device
+        st["step"] = torch.tensor(step if step is not None else 0.0,
+                                  device=p.device if capturable else None)
         opt.state[p] = st
     return pos
 
 
 def load_train_state_leaves(state: TrainState, leaves: list) -> None:
-    """Copy JAX-layout leaves into ``state`` (models, optimizers, rng) in place."""
+    """Copy JAX-layout leaves into ``state`` (models, optimizers, rng) in place.
+    The optimizer state is new tensors, so the static steps and samplers made
+    for ``state`` are dropped (``train_step.drop_graphs``)."""
+    drop_graphs(state)
     g_params, d_params = jax_leaves(state.g, True), jax_leaves(state.d, True)
     tensors = (g_params + jax_leaves(state.g, params=False)
                + d_params + jax_leaves(state.d, params=False))

@@ -7,17 +7,25 @@ where matplotlib is installed), and the best epoch by FPD. Any generator and
 discriminator pair of the registry trains here, with ``--aug-*``
 augmentation (``training/train_step.py``).
 
-The epoch is a host loop over batches: the training set is staged on the
-device once, each epoch's shuffled order goes over as one index array, and the
-loss sums stay on the device with one host sync per epoch. (The JAX package
-runs the epoch as one ``lax.scan`` program, a TPU dispatch device; a CUDA-graph
-epoch is later work, ROADMAP.md Queue 1, CUDA-graph step.)
+The training set is staged on the device once and the loss sums stay on the
+device, with one host sync per epoch. With ``--epoch-scan`` (the default, as
+in the JAX loop, whose ``_can_scan_epoch`` gate this reads: not with
+``--break-zero`` or ``--bottleneck``, and here not with ``--debug-nans``,
+whose hooks sync on every module) the epoch runs the static-buffer steps of
+:class:`.train_step.StepGraphs`: one D+G step a batch when ``num_critic =
+num_gen = 1`` (the JAX loop's ``dg_step``), else D and G steps in the
+``num_critic``/``num_gen`` interleave. On a GPU each is a CUDA graph replayed a
+batch (the counterpart of the JAX epoch's one ``lax.scan`` dispatch), on the
+CPU the same bodies run as they are; both give the eager loop's parameters and
+losses. ``--no-epoch-scan`` runs the eager loop: each batch's shuffled
+indices from one index array on the device, ``d_step``/``g_step`` per batch.
 
 The legacy MPGAN's delayed masking (``--mask-epoch``, old_model.py:268-269)
-reads the 0-based model epoch, as the JAX loop passes it (its train steps are
-rebuilt when a threshold is crossed; here the epoch is simply passed): epoch
-``e`` trains with model epoch ``e - 1``, and the evaluation after it generates
-with the same. PCGAN (``--pcgan-weights-dir``) trains on the real batches
+reads the 0-based model epoch, as the JAX loop passes it: epoch ``e`` trains
+with model epoch ``e - 1``, and the evaluation after it generates with the
+same. The static steps and the kept sampler take the phase, the largest
+threshold crossed (JAX's ``_epoch_phase``), so their graphs are captured again
+when a threshold is crossed, where the JAX loop rebuilds its steps. PCGAN (``--pcgan-weights-dir``) trains on the real batches
 encoded by the pre-trained ``G_inv`` and decodes its evaluation latents with
 ``G_pc``; without ``G_inv`` the trainer refuses to start, without ``G_pc`` the
 evaluation raises, each naming the missing file.
@@ -61,7 +69,15 @@ from . import checkpoint as ckpt
 from .config import Args
 from .optimizers import build_optimizer
 from .sampling import generate_multi_batch
-from .train_step import TrainState, d_step, epoch_kwargs, g_step, step_config, to_device
+from .train_step import (
+    StepGraphs,
+    TrainState,
+    d_step,
+    epoch_kwargs,
+    g_step,
+    step_config,
+    to_device,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -189,6 +205,13 @@ class Trainer:
         self._staged = None
         self._staged_loader = None
         self._no_plots_logged = False
+        # --mask-epoch thresholds of the modules that read the model epoch
+        self._mask_thresholds = sorted({int(m.cfg.mask_epoch) for m in (g, d)
+                                        if getattr(m, "reads_epoch", False)})
+        self.graphs = StepGraphs(self.state, self.step_cfg, self.spec, self.d_loss_keys + ["G"],
+                                 self.device, post_gen=self.post_gen,
+                                 encode_real=suite.encode_real,
+                                 capture=self.device.type == "cuda")
 
     # -- one epoch (train.py:812-886) ----------------------------------------
 
@@ -202,6 +225,20 @@ class Trainer:
             self._staged, self._staged_loader = (data, labels), loader
         return self._staged
 
+    def _epoch_phase(self, model_epoch: int) -> int:
+        """The largest ``--mask-epoch`` threshold crossed by ``model_epoch`` (0
+        before any): ``phase >= t`` exactly when ``model_epoch >= t`` for every
+        threshold ``t`` (the JAX loop's ``_epoch_phase``)."""
+        return max([0] + [t for t in self._mask_thresholds if t <= model_epoch])
+
+    def can_scan_epoch(self, loader: BatchLoader) -> bool:
+        """Whether the epoch runs the static-buffer steps (the JAX loop's
+        ``_can_scan_epoch``, and not under ``--debug-nans``)."""
+        args = self.args
+        return bool(args.get("epoch_scan", True) and loader.drop_remainder
+                    and not args.get("break_zero") and not args.get("bottleneck")
+                    and not args.get("debug_nans"))
+
     def train_epoch(self, epoch: int, loader: BatchLoader) -> dict[str, float]:
         args = self.args
         if len(loader) == 0:
@@ -211,8 +248,15 @@ class Trainer:
             )
         self.model_epoch = epoch - 1
         data_all, labels_all = self._stage(loader)
-        order = torch.as_tensor(loader.epoch_batch_indices(), device=self.device)
         num_batches = len(loader)
+        if self.can_scan_epoch(loader):
+            sums = self.graphs.sums
+            for v in sums.values():
+                v.zero_()
+            data, labels = self._static_epoch_steps(data_all, labels_all,
+                                                    loader.epoch_batch_indices())
+            return self._end_epoch(epoch, sums, num_batches, data, labels)
+        order = torch.as_tensor(loader.epoch_batch_indices(), device=self.device)
         sums = {k: torch.zeros((), device=self.device) for k in self.d_loss_keys + ["G"]}
         steps = (data_all, labels_all, order, num_batches, sums)
         if args.get("debug_nans"):
@@ -225,6 +269,10 @@ class Trainer:
                 raise FloatingPointError(f"--debug-nans: {err}") from err
         else:
             data, labels = self._epoch_steps(*steps)
+        return self._end_epoch(epoch, sums, num_batches, data, labels)
+
+    def _end_epoch(self, epoch, sums, num_batches, data, labels) -> dict[str, float]:
+        args = self.args
         epoch_loss = dict(zip(sums, torch.stack(list(sums.values())).tolist()))  # one sync
         bad = [k for k, v in epoch_loss.items() if not np.isfinite(v)]
         if bad:
@@ -258,6 +306,24 @@ class Trainer:
             if args.get("bottleneck") and batch_ndx == 10:
                 break
         return data, labels
+
+    def _static_epoch_steps(self, data_all, labels_all, order: np.ndarray):
+        """The epoch on :class:`StepGraphs`: one D+G step a batch with ``num_critic
+        = num_gen = 1``, else the eager loop's interleave of D and G steps;
+        returns the last batch."""
+        args = self.args
+        phase = self._epoch_phase(self.model_epoch)
+        fused = args.num_critic == 1 and args.num_gen == 1
+        for batch_ndx, idx in enumerate(order):
+            if fused:
+                self.graphs.step("dg", data_all, labels_all, idx, phase)
+                continue
+            if args.num_critic > 1 or batch_ndx == 0 or (batch_ndx - 1) % args.num_gen == 0:
+                self.graphs.step("d", data_all, labels_all, idx, phase)
+            if args.num_critic == 1 or (batch_ndx - 1) % args.num_critic == 0:
+                self.graphs.step("g", data_all, labels_all, idx, phase)
+        last = torch.as_tensor(order[-1], device=self.device)
+        return data_all[last], None if labels_all is None else labels_all[last]
 
     def _log_d_outputs(self, data: torch.Tensor, labels: torch.Tensor | None):
         """``--debug``: D(real) on ``data``, G's samples from fixed noise
@@ -305,7 +371,7 @@ class Trainer:
         gen_norm = generate_multi_batch(
             self.state.g, self.spec, torch.Generator(device=self.device).manual_seed(epoch),
             n_eval, args.batch_size, labels=labels, post_fn=self.eval_post_fn,
-            **epoch_kwargs(self.state.g, self.model_epoch),
+            **epoch_kwargs(self.state.g, self._epoch_phase(self.model_epoch)),
         )
         gen_jets, gen_mask = _corrected(ds.particle_normalisation(gen_norm, inverse=True),
                                         self.use_labels, zero_mask_particles=self.use_labels,

@@ -13,6 +13,12 @@ The per-parameter state (``square_avg``; ``exp_avg``/``exp_avg_sq`` and
 ``step``; ``square_avg``/``acc_delta``) maps one to one onto the JAX states'
 leaves (``RMSPropState.sq_avg``, ``AdamState(count, mu, nu)``,
 ``AdadeltaState(sq_avg, acc_delta)``): see ``training/checkpoint.py``.
+
+On a GPU each is built with ``capturable=True`` (its step counter on the
+device, no host sync in ``step()``), so that a CUDA graph can capture the
+update; the eager loop on the GPU takes the same optimizers, so the two give
+the same parameters. Capturable Adam folds its bias corrections otherwise
+than the default, so its updates differ from a CPU run's in the last bits.
 """
 
 from __future__ import annotations
@@ -32,15 +38,17 @@ def build_optimizer(
     weight_decay: float = 5e-4,
 ) -> torch.optim.Optimizer:
     """Optimizer factory mirroring setup_training.optimizers
-    (setup_training.py:1511-1523; the Adam branch always uses wd=5e-4)."""
+    (setup_training.py:1511-1523; the Adam branch always uses wd=5e-4),
+    capturable where the parameters lie on a GPU."""
     params = list(params)
+    capturable = bool(params) and params[0].is_cuda
     if name == "rmsprop":
-        return torch.optim.RMSprop(params, lr=lr, alpha=0.99, eps=1e-8)
+        return torch.optim.RMSprop(params, lr=lr, alpha=0.99, eps=1e-8, capturable=capturable)
     if name == "adadelta":
-        return torch.optim.Adadelta(params, lr=lr, rho=0.9, eps=1e-6)
+        return torch.optim.Adadelta(params, lr=lr, rho=0.9, eps=1e-6, capturable=capturable)
     if name in ("adam", "None"):
         return torch.optim.Adam(params, lr=lr, betas=(beta1, beta2), eps=1e-8,
-                                weight_decay=weight_decay)
+                                weight_decay=weight_decay, capturable=capturable)
     raise ValueError(f"unknown optimizer {name!r}")
 
 

@@ -15,15 +15,24 @@ All randomness comes from an explicit
 eval mode under ``torch.inference_mode()`` and leaves the spectral-norm
 vectors where they were (``update_sn=False``), as the JAX package discards
 the advanced state there.
+
+``generate_multi_batch`` runs G's forward on static buffers, one batch at a
+time; on a GPU it captures that forward into a CUDA graph and replays it a
+batch, and keeps the graph for later calls (the counterpart of the JAX
+sampler's one-dispatch ``lax.scan`` and its ``_SAMPLER_CACHE``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from ..ops.mp import knn_route
+from ..ops.mp_kernels import CountedGraph, graph_pool, warm_up
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +98,73 @@ def generate(
         return g(spec.sample(generator, num_samples, _device_of(g)), labels, update_sn=False)
 
 
+def route_key(*modules: torch.nn.Module) -> tuple:
+    """What a captured forward of ``modules`` depends on besides its inputs
+    and the values of its weights: each module's config (``use_kernels``
+    among it), the knn kernel route, which the layers read from the
+    environment at call time, and where the parameters and buffers lie (a
+    graph reads them in place; ``.to()`` or an assigning load moves them)."""
+    return (tuple(repr(getattr(m, "cfg", None)) for m in modules) + knn_route()
+            + tuple(t.data_ptr() for m in modules for t in (*m.parameters(), *m.buffers())))
+
+
+PostFn = Callable[[torch.Tensor, torch.Tensor | None], torch.Tensor]
+
+# kept samplers: generator module -> {key: _StaticSampler}
+_SAMPLERS: "weakref.WeakKeyDictionary[torch.nn.Module, dict]" = weakref.WeakKeyDictionary()
+
+
+def drop_samplers(g: torch.nn.Module) -> None:
+    """Forget the samplers (and their CUDA graphs) kept for ``g``."""
+    _SAMPLERS.pop(g, None)
+
+
+class _StaticSampler:
+    """G's forward on one batch on static buffers: the noise, PCGAN's point
+    noise and the labels are written into them before each run. On a GPU the
+    first run is ordinary, on a side stream, and the second captures the
+    forward into a CUDA graph that every later run replays; on the CPU every
+    run is ordinary."""
+
+    def __init__(self, g, spec: NoiseSpec, batch_size: int, labels: torch.Tensor | None,
+                 post_fn: PostFn | None, g_kwargs: dict, device: torch.device):
+        self.device, self.spec = device, spec
+        self.noise = torch.empty((batch_size,) + spec.shape, device=device)
+        self.points = None
+        if post_fn is not None and spec.point_shape is not None:
+            self.points = torch.empty((batch_size,) + spec.point_shape, device=device)
+        self.labels = None if labels is None else torch.empty(
+            (batch_size,) + tuple(labels.shape[1:]), dtype=labels.dtype, device=device)
+        self.capture = device.type == "cuda"
+        self.graph: CountedGraph | None = None
+        self.runs = 0
+        g_ref = weakref.ref(g)  # the cache is keyed on g: no reference back to it
+
+        def forward():
+            out = g_ref()(self.noise * spec.std, self.labels, update_sn=False, **g_kwargs)
+            return out if post_fn is None else post_fn(out, self.points)
+        self._forward = forward
+
+    def __call__(self, generator: torch.Generator, labels: torch.Tensor | None) -> torch.Tensor:
+        # the eager loop's draws, in its order: the noise, then the point noise
+        torch.randn(self.noise.shape, generator=generator, device=self.device, out=self.noise)
+        if self.points is not None:
+            torch.randn(self.points.shape, generator=generator, device=self.device,
+                        out=self.points)
+        if self.labels is not None:
+            self.labels.copy_(labels)
+        self.runs += 1
+        if not self.capture:
+            return self._forward()
+        if self.graph is None and self.runs == 1:
+            return warm_up(self._forward, self.device)
+        if self.graph is None:
+            self.graph = CountedGraph(self._forward, pool=graph_pool())
+            self._forward = None
+        self.graph.replay()
+        return self.graph.out
+
+
 def generate_multi_batch(
     g: torch.nn.Module,
     spec: NoiseSpec,
@@ -97,7 +173,8 @@ def generate_multi_batch(
     batch_size: int,
     labels: np.ndarray | None = None,
     mesh=None,
-    post_fn: Callable[[torch.Tensor, torch.Tensor | None], torch.Tensor] | None = None,
+    post_fn: PostFn | None = None,
+    static: bool = True,
     **g_kwargs: Any,
 ) -> np.ndarray:
     """Batched generation (train.py:226-282): fixed-size batches, the last one
@@ -107,7 +184,15 @@ def generate_multi_batch(
     ``point_shape`` and ``post_fn`` is given, else None. ``g_kwargs`` go to
     every generator call (``epoch=`` for the legacy model). Outputs stay on
     the device and reach the host in one copy at the end. Sharding over
-    several devices (``mesh``) comes with DDP."""
+    several devices (``mesh``) comes with DDP.
+
+    With ``static`` (the default) each batch runs on a kept
+    :class:`_StaticSampler` (a CUDA graph's replay on a GPU), keyed as the JAX
+    package keys its samplers: the generator, the batch size, ``post_fn``,
+    the labels' shape or none, ``g_kwargs``, and the route (:func:`route_key`).
+    The weights are read in place, so a kept graph follows training; a load
+    drops it (:func:`drop_samplers`). ``static=False`` runs the eager loop, the
+    reference the static path is held to bit for bit."""
     if mesh is not None:
         raise NotImplementedError(
             "multi-device generation comes with DDP, ROADMAP.md Queue 1, multi-device"
@@ -119,6 +204,9 @@ def generate_multi_batch(
         labels = np.asarray(labels)[:num_samples]
         pad = np.repeat(labels[-1:], num_batches * batch_size - len(labels), axis=0)
         labels_all = torch.as_tensor(np.concatenate([labels, pad], axis=0), device=device)
+    if static:
+        return _generate_static(g, spec, generator, num_samples, batch_size, labels_all,
+                                post_fn, g_kwargs, num_batches, device)
     outs = []
     with torch.inference_mode():
         for i in range(num_batches):
@@ -132,3 +220,24 @@ def generate_multi_batch(
             outs.append(out)
         out = torch.cat(outs, dim=0)[:num_samples]
     return out.cpu().numpy()
+
+
+def _generate_static(g, spec, generator, num_samples, batch_size, labels_all, post_fn,
+                     g_kwargs, num_batches, device) -> np.ndarray:
+    label_key = None if labels_all is None else (tuple(labels_all.shape[1:]), labels_all.dtype)
+    key = (spec, batch_size, post_fn, label_key, tuple(sorted(g_kwargs.items())), route_key(g))
+    with torch.inference_mode():
+        kept = _SAMPLERS.setdefault(g, {})
+        if key not in kept:
+            kept[key] = _StaticSampler(g, spec, batch_size, labels_all, post_fn, g_kwargs,
+                                       device)
+        sampler = kept[key]
+        outs = None
+        for i in range(num_batches):
+            rows = slice(i * batch_size, (i + 1) * batch_size)
+            out = sampler(generator, None if labels_all is None else labels_all[rows])
+            if outs is None:
+                outs = torch.empty((num_batches * batch_size,) + tuple(out.shape[1:]),
+                                   dtype=out.dtype, device=out.device)
+            outs[rows].copy_(out)
+        return outs[:num_samples].cpu().numpy()

@@ -33,6 +33,13 @@ seeds) comes from ``TrainState.generator``, a
 CPU ``torch.Generator``, in a fixed order. A test can pass the draws instead
 (``DDraws``/``GDraws``), for example the JAX package's own.
 
+:class:`StaticStep` takes the same steps on static buffers, so that a CUDA
+graph can replay them (the counterpart of the JAX epoch's ``lax.scan`` body
+and its fused ``dg_step``): the host draws what the eager step draws, in its
+order, the dropout keys included (:class:`..ops.keys.KeySlots`), and copies
+them into the buffers before each run. :class:`StepGraphs` keeps the epoch
+loop's static steps.
+
 Not ported here (each raises ``NotImplementedError``): bf16 training, the
 batched real+fake D pass and data-parallel steps (ROADMAP.md Queue 1,
 train-step leftovers and multi-device).
@@ -41,14 +48,21 @@ train-step leftovers and multi-device).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+import logging
+import math
+import weakref
+from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 from ..ops.augment import AugmentConfig, AugmentDraws, augment, draw_augment
-from ..ops.keys import GeneratorKeys
+from ..ops.keys import GeneratorKeys, KeySlots
+from ..ops.mp_kernels import CountedGraph, graph_pool, warm_up
 from .losses import d_loss, d_targets, g_loss, gp_alpha, gradient_penalty
-from .sampling import NoiseSpec
+from .sampling import NoiseSpec, drop_samplers, route_key
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -130,32 +144,63 @@ def to_device(t: torch.Tensor, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def draw_d(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor) -> DDraws:
-    gen = state.generator
-    b = data.shape[0]
-    noise = to_device(spec.sample(gen, b, "cpu"), data.device)
+# the fields of a step's draws that hold tensors, and those that hold keys
+DRAW_TENSORS = {DDraws: ("noise", "targets", "gp_alpha", "aug_real", "aug_fake"),
+                GDraws: ("noise", "aug")}
+DRAW_KEYS = {DDraws: ("real", "fake", "gp"), GDraws: ("g", "d")}
+
+
+def map_draws(fn: Callable[[torch.Tensor], torch.Tensor], draws):
+    """``draws`` (a ``DDraws`` or ``GDraws``) with ``fn`` applied to every tensor,
+    field by field in ``DRAW_TENSORS`` order."""
+    def tree(obj):
+        if obj is None:
+            return None
+        if isinstance(obj, torch.Tensor):
+            return fn(obj)
+        if isinstance(obj, AugmentDraws):
+            return obj.map(fn)
+        return tuple(tree(o) for o in obj)
+    return dataclasses.replace(draws, **{f: tree(getattr(draws, f))
+                                         for f in DRAW_TENSORS[type(draws)]})
+
+
+def host_draw_d(gen: torch.Generator, cfg: StepConfig, spec: NoiseSpec,
+                like: torch.Tensor) -> DDraws:
+    """The draws of a D step on the host, for a real batch shaped like ``like``
+    (the GP weight takes its shape and dtype), with ``GeneratorKeys`` for the
+    dropout keys."""
+    b = like.shape[0]
+    noise = spec.sample(gen, b, "cpu")
     targets = None
     if cfg.loss in ("og", "ls") and (cfg.label_smoothing or cfg.label_noise):
-        targets = tuple(to_device(t, data.device)
-                        for t in d_targets(gen, b, cfg.label_smoothing, cfg.label_noise))
-    alpha = to_device(gp_alpha(gen, data), data.device) if cfg.gp_lambda else None
+        targets = d_targets(gen, b, cfg.label_smoothing, cfg.label_noise)
+    alpha = gp_alpha(gen, like) if cfg.gp_lambda else None
     aug_real = aug_fake = None
     if cfg.augment is not None:
-        aug_real, aug_fake = (draw_augment(cfg.augment, gen, b).map(
-            lambda t: to_device(t, data.device)) for _ in range(2))
+        aug_real, aug_fake = (draw_augment(cfg.augment, gen, b) for _ in range(2))
     keys = GeneratorKeys(gen)
     return DDraws(noise, keys, keys, targets, keys, alpha, aug_real, aug_fake)
 
 
-def draw_g(state: TrainState, cfg: StepConfig, spec: NoiseSpec, batch_size: int,
-           device) -> GDraws:
-    gen = state.generator
-    noise = to_device(spec.sample(gen, batch_size, "cpu"), device)
-    aug = None
-    if cfg.augment is not None:
-        aug = draw_augment(cfg.augment, gen, batch_size).map(lambda t: to_device(t, device))
+def host_draw_g(gen: torch.Generator, cfg: StepConfig, spec: NoiseSpec,
+                batch_size: int) -> GDraws:
+    """The draws of a G step on the host, with ``GeneratorKeys``."""
+    noise = spec.sample(gen, batch_size, "cpu")
+    aug = draw_augment(cfg.augment, gen, batch_size) if cfg.augment is not None else None
     keys = GeneratorKeys(gen)
     return GDraws(noise, keys, keys, aug)
+
+
+def draw_d(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor) -> DDraws:
+    return map_draws(lambda t: to_device(t, data.device),
+                     host_draw_d(state.generator, cfg, spec, data))
+
+
+def draw_g(state: TrainState, cfg: StepConfig, spec: NoiseSpec, batch_size: int,
+           device) -> GDraws:
+    return map_draws(lambda t: to_device(t, device),
+                     host_draw_g(state.generator, cfg, spec, batch_size))
 
 
 def _maybe_aug(cfg: StepConfig, x: torch.Tensor, draws: AugmentDraws | None) -> torch.Tensor:
@@ -171,15 +216,19 @@ def epoch_kwargs(module: torch.nn.Module, epoch: int) -> dict[str, int]:
 
 
 def d_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor,
-           labels: torch.Tensor | None = None, draws: DDraws | None = None,
+           labels: torch.Tensor | None = None,
+           draws: DDraws | Callable[[torch.Tensor], DDraws] | None = None,
            post_gen: PostGen | None = None, encode_real: PostGen | None = None,
            epoch: int = 0) -> dict[str, torch.Tensor]:
     """One D update; returns the loss parts ``{Dr, Df, D(, gp)}`` as device scalars.
     ``post_gen`` is applied to G's output (the ``--mask-manual`` hook, train.py:208-210),
-    ``encode_real`` to the real batch."""
+    ``encode_real`` to the real batch. ``draws`` may be a function of the
+    (encoded) real batch that returns them."""
     if encode_real is not None:
         with torch.no_grad():
             data = encode_real(data)
+    if callable(draws):  # made from the (encoded) real batch
+        draws = draws(data)
     draws = draws if draws is not None else draw_d(state, cfg, spec, data)
     g, d = state.g, state.d
     g_kw, d_kw = epoch_kwargs(g, epoch), epoch_kwargs(d, epoch)
@@ -230,3 +279,221 @@ def g_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
     loss.backward()
     state.g_opt.step()
     return {"G": loss.detach()}
+
+
+# ---------------------------------------------------------------------------
+# the static-buffer step and its CUDA graph
+# ---------------------------------------------------------------------------
+
+
+class StaticStep:
+    """A D step, a G step or both on one batch (``kind`` "d", "g" or "dg", the
+    JAX loop's ``dg_step``) on static buffers. Each call takes one step on the
+    batch ``data_all[idx]`` (``labels_all`` likewise) and adds its loss parts to
+    ``sums``, device scalars:
+
+    - the first call records: an ordinary step (:func:`d_step`, :func:`g_step`)
+      whose dropout keys :class:`KeySlots` logs as they are drawn; it fixes the
+      layout of the static buffer;
+    - every later call draws on the host what the eager step draws, in its
+      order (per part: noise, targets, GP weight, augmentation, then the logged
+      keys) into one fresh pinned tensor, with the batch's indices in front, and
+      one non-blocking copy moves it into the static buffer, where the step's
+      body reads its inputs. The body runs as it is (the CPU), or, with
+      ``capture``, runs once on a side stream (torch.cuda.graphs' warm-up
+      rule), is captured at the next call into a CUDA graph
+      (:class:`CountedGraph`, in :func:`graph_pool`) and replayed from then on.
+
+    A call gives the eager step's parameters, optimizer state, loss parts and
+    generator state. ``draws``, one per part, replaces the generator's draws
+    (host tensors and keys objects, e.g. a test's JAX-replay keys)."""
+
+    def __init__(self, kind: str, state: TrainState, cfg: StepConfig, spec: NoiseSpec,
+                 data_all: torch.Tensor, labels_all: torch.Tensor | None,
+                 sums: dict[str, torch.Tensor], post_gen: PostGen | None = None,
+                 encode_real: PostGen | None = None, epoch: int = 0, capture: bool = False):
+        if kind not in ("d", "g", "dg"):
+            raise ValueError(f"step kind {kind!r}: expected d, g or dg")
+        self.kind, self.state, self.cfg, self.spec = kind, state, cfg, spec
+        self.data_all, self.labels_all, self.sums = data_all, labels_all, sums
+        self.post_gen, self.encode_real, self.epoch = post_gen, encode_real, epoch
+        self.capture = capture
+        self.device = data_all.device
+        self.slots = [KeySlots(self.device) for _ in kind]
+        self.calls = 0
+        self.graph: CountedGraph | None = None
+        self._templates: list = [None] * len(kind)
+        self._like: tuple | None = None  # the (encoded) real batch's shape and dtype
+
+    def __call__(self, idx, draws: Sequence | None = None) -> None:
+        idx = torch.as_tensor(np.asarray(idx), dtype=torch.int32)
+        if self.calls == 0:
+            self._record(idx, draws)
+        else:
+            self.buffer.copy_(self._fill(idx, draws), non_blocking=True)
+            if self.graph is not None:
+                self.graph.replay()
+            elif not self.capture:
+                self._body()
+            elif self.calls == 1:
+                warm_up(self._body, self.device)
+            else:
+                self.graph = CountedGraph(self._body, pool=graph_pool())
+                self.graph.replay()
+                logger.info(f"captured the {self.kind} step (batch {idx.shape[0]}) in a CUDA "
+                            f"graph, replayed from its next batch on; hand-written kernel "
+                            f"launches a replay: {self.graph.launches}")
+        self.calls += 1
+
+    def _batch(self, idx: torch.Tensor):
+        labels = None if self.labels_all is None else self.labels_all.index_select(0, idx)
+        return self.data_all.index_select(0, idx), labels
+
+    def _run(self, part: str, data, labels, draws) -> None:
+        st, cfg, spec = self.state, self.cfg, self.spec
+        if part == "d":
+            out = d_step(st, cfg, spec, data, labels, draws=draws, post_gen=self.post_gen,
+                         encode_real=self.encode_real, epoch=self.epoch)
+        else:
+            out = g_step(st, cfg, spec, data, labels, draws=draws, post_gen=self.post_gen,
+                         epoch=self.epoch)
+        for k, v in out.items():
+            self.sums[k].add_(v)
+
+    def _host_draws(self, i: int, like: torch.Tensor, b: int, draws: Sequence | None):
+        if draws is not None and draws[i] is not None:
+            return draws[i]
+        gen = self.state.generator
+        if self.kind[i] == "d":
+            return host_draw_d(gen, self.cfg, self.spec, like)
+        return host_draw_g(gen, self.cfg, self.spec, b)
+
+    def _with_slots(self, i: int, host):
+        return dataclasses.replace(host, **{f: self.slots[i].root(f)
+                                            for f in DRAW_KEYS[type(host)]})
+
+    def _record(self, idx: torch.Tensor, draws: Sequence | None) -> None:
+        data, labels = self._batch(to_device(idx, self.device))
+        b = idx.shape[0]
+        for i, part in enumerate(self.kind):
+            sources: dict = {}
+
+            def made(like, i=i, sources=sources):
+                host = self._host_draws(i, like, b, draws)
+                self._templates[i] = host
+                if like is not None:
+                    self._like = (tuple(like.shape), like.dtype)
+                sources.update({f: getattr(host, f) for f in DRAW_KEYS[type(host)]})
+                return self._with_slots(i, map_draws(lambda t: to_device(t, self.device), host))
+
+            with self.slots[i].recording(sources):
+                self._run(part, data, labels, made if part == "d" else made(None))
+        self._layout(b)
+
+    def _layout(self, b: int) -> None:
+        """Carve the static buffer: the batch's indices, then per part its
+        tensors' leaves (float32) and its key slots."""
+        off, self._parts, static = b, [], []
+        for i, host in enumerate(self._templates):
+            leaves: list[torch.Tensor] = []
+            map_draws(lambda t: leaves.append(t) or t, host)
+            if any(t.dtype != torch.float32 for t in leaves):
+                raise TypeError("static step: every draw must be float32")
+            shapes = [tuple(t.shape) for t in leaves]
+            keys_off = off + sum(math.prod(sh) for sh in shapes)
+            self._parts.append((off, shapes, keys_off))
+            off = keys_off + len(self.slots[i].log)
+        self.buffer = torch.empty(off, dtype=torch.int32, device=self.device)
+        self.idx = self.buffer[:b]
+        for i, (off, shapes, keys_off) in enumerate(self._parts):
+            views = []
+            for sh in shapes:
+                views.append(self.buffer[off:off + math.prod(sh)].view(torch.float32).view(sh))
+                off += math.prod(sh)
+            it = iter(views)
+            static.append(self._with_slots(i, map_draws(lambda t: next(it), self._templates[i])))
+            self.slots[i].buffer = self.buffer[keys_off:keys_off + len(self.slots[i].log)]
+        self._static = static
+
+    def _fill(self, idx: torch.Tensor, draws: Sequence | None) -> torch.Tensor:
+        host = torch.empty(self.buffer.numel(), dtype=torch.int32,
+                           pin_memory=self.device.type == "cuda")
+        b = idx.shape[0]
+        host[:b].copy_(idx)
+        like = None if self._like is None else torch.empty(self._like[0], dtype=self._like[1],
+                                                           device="meta")
+        for i, (off, shapes, keys_off) in enumerate(self._parts):
+            d = self._host_draws(i, like, b, draws)
+            leaves: list[torch.Tensor] = []
+            map_draws(lambda t: leaves.append(t) or t, d)
+            if [tuple(t.shape) for t in leaves] != shapes:
+                raise ValueError("static step: the draws' shapes differ from the recorded step's")
+            for t in leaves:
+                host[off:off + t.numel()].view(torch.float32).copy_(t.reshape(-1))
+                off += t.numel()
+            self.slots[i].fill({f: getattr(d, f) for f in DRAW_KEYS[type(d)]},
+                               host[keys_off:keys_off + len(self.slots[i].log)])
+        return host
+
+    def _body(self) -> None:
+        data, labels = self._batch(self.idx)
+        for i, part in enumerate(self.kind):
+            with self.slots[i].serving():
+                self._run(part, data, labels, self._static[i])
+
+
+_LIVE_STEP_GRAPHS: "weakref.WeakSet[StepGraphs]" = weakref.WeakSet()
+
+
+class StepGraphs:
+    """The epoch loop's static steps (:class:`StaticStep`), one per kind, with
+    the loss sums they add to. They hold for one staged dataset, batch size,
+    model phase (the legacy model's ``--mask-epoch``) and kernel route; a step
+    on any other drops them (and their graphs) and records anew. ``capture``:
+    replay CUDA graphs (all in :func:`graph_pool`), else run the bodies as they
+    are (the CPU). ``captures`` and ``replays`` count the graphs' captures and
+    the steps that replayed one."""
+
+    def __init__(self, state: TrainState, cfg: StepConfig, spec: NoiseSpec,
+                 loss_keys: Sequence[str], device, post_gen: PostGen | None = None,
+                 encode_real: PostGen | None = None, capture: bool = False):
+        self.state, self.cfg, self.spec = state, cfg, spec
+        self.post_gen, self.encode_real = post_gen, encode_real
+        self.capture = capture
+        self.sums = {k: torch.zeros((), device=device) for k in loss_keys}
+        self.steps: dict[str, StaticStep] = {}
+        self.captures = self.replays = 0
+        self._key = None
+        _LIVE_STEP_GRAPHS.add(self)
+
+    def step(self, kind: str, data_all: torch.Tensor, labels_all: torch.Tensor | None,
+             idx, epoch: int = 0) -> None:
+        key = (id(data_all), id(labels_all), len(idx), epoch,
+               route_key(self.state.g, self.state.d))
+        if key != self._key:
+            self.drop()
+            self._key = key
+        if kind not in self.steps:
+            self.steps[kind] = StaticStep(
+                kind, self.state, self.cfg, self.spec, data_all, labels_all, self.sums,
+                post_gen=self.post_gen, encode_real=self.encode_real, epoch=epoch,
+                capture=self.capture)
+        step = self.steps[kind]
+        captured = step.graph is not None
+        step(idx)
+        if step.graph is not None:
+            self.replays += 1
+            self.captures += not captured
+
+    def drop(self) -> None:
+        self.steps.clear()
+        self._key = None
+
+
+def drop_graphs(state: TrainState) -> None:
+    """Drop every static step and sampler made for ``state`` (a load replaces
+    the optimizer state that their graphs read)."""
+    for graphs in list(_LIVE_STEP_GRAPHS):
+        if graphs.state is state:
+            graphs.drop()
+    drop_samplers(state.g)
