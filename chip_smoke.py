@@ -197,12 +197,28 @@ Phases, each printed as it finishes:
     B=512 and B=32, knn-20 B=512, GAPT B=1024 and B=4096), three batches each:
     the graph's jets equal the eager loop's bit for bit with the same
     launches; jets/s of both in turns over 8 batches (the host's copy
-    included) and peak memory.
+    included) and peak memory;
+28. bf16 training (``--compute-dtype bfloat16``): K2 (eval and dropout 0.5),
+    K3 (with and without weight gradients) and K4 in their bf16 modes against
+    their bf16 plain versions at B=256 N=30 and (K2, K3) B=32 N=150, each
+    launched twice bit for bit, within rtol = atol = 1e-2 (K3's gradients
+    within 1e-2 of max(1, max|ref|)), then timed beside their FP32 modes (in
+    turns), their plain versions and their bounds; a flagship bf16 D+G step at
+    B=256 against the float32 step from the same weights and draws (losses
+    within 5%, every master tensor float32, only the bf16 kernels launched, a
+    ``torch.profiler`` trace naming them); the bf16 epoch on the CUDA graph
+    against the eager loop bit for bit, and the bf16 and float32 graph steps in
+    turns with a profile of each; 3 epochs of ``cli.train --compute-dtype
+    bfloat16`` with a resume and the predicted bf16 launches (the evaluation
+    stays float32); bf16 with knn-20 and with GAPT refused; one ``batched_d``
+    D step of the GAPT pair against the CPU at 1e-4.
 
 Every kernel's entry in the JSON line carries its bound: the larger of its
 FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
 read once, outputs written once) over 3.35 TB/s, at the shape its ``ms`` was
-taken at. Every time in that line was measured in this run. ``library_ms`` is
+taken at. The bf16 modes (``bf16`` inside the K2, K3 and K4 entries) count
+their tensor-core products at 989 TFLOP/s (dense bf16), K3's backward and K4's
+fn first layer at 67, and their bytes at bf16 sizes. Every time in that line was measured in this run. ``library_ms`` is
 null: no single PyTorch call computes any of these functions (a search is a
 distance product and a top-k, the aggregates and the GAPT generator are chains
 of products).
@@ -264,6 +280,7 @@ MAX_PLAIN_PATH_SHARE = 0.01
 NEAR_TIE_LOSS_TOL = 2e-3
 NEAR_TIE_GRAD_TOL = 5e-2
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet)
+PEAK_BF16 = 989e12  # FLOP/s, H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
 PEAK_HBM = 3.35e12  # bytes/s
 
 
@@ -2018,7 +2035,7 @@ def trace_kernels(trace: pathlib.Path) -> dict[str, int]:
         if "edge_aggregate_bwd_kernel" in name:
             counts["edge_aggregate_bwd"] += 1
         elif "edge_aggregate_kernel" in name:
-            fused = re.search(r"edge_aggregate_kernel<\s*(true|\(bool\)1|1)\s*>", name)
+            fused = re.search(r"edge_aggregate_kernel<\s*(true|\(bool\)1|1)\s*[,>]", name)
             counts["edge_aggregate_fn" if fused else "edge_aggregate"] += 1
     return counts
 
@@ -2502,6 +2519,340 @@ def graph_phase(mk, train_cli, dev, card, from_args_dict, tmp):
     return steps, samplers
 
 
+# phase 28: bf16 mixed-precision training (--compute-dtype bfloat16, StepConfig.bf16)
+# One bf16 rounding is 2^-8: the kernels and their plain versions sum each hidden
+# product in another order before an activation is rounded for the next product.
+# Gradients on the scale of their largest: a pre-activation within rounding of zero
+# takes the other LeakyReLU slope in one of the two (more often in bf16).
+BF16_TOL = 1e-2
+BF16_STEP_LOSS_TOL = 0.05  # bf16 losses against float32's (tests/test_training.py:454-455)
+BF16_FP32_KINDS = ("edge_aggregate", "edge_aggregate_train", "edge_aggregate_bwd",
+                   "edge_aggregate_bwd_no_wgrads")
+BF16_KINDS = tuple(f"{k}_bf16" for k in BF16_FP32_KINDS) + ("edge_aggregate_fn_bf16",)
+BF16_SOURCES = {"edge_aggregate": "mpgan_tpu_torch/csrc/edge_aggregate_bf16.cu",
+                "edge_aggregate_fn": "mpgan_tpu_torch/csrc/edge_aggregate_bf16.cu",
+                "edge_aggregate_bwd": "mpgan_tpu_torch/csrc/edge_aggregate_bwd_bf16.cu"}
+
+
+def bf16_bound(b, n, kind, wgrads=True) -> dict:
+    """Bound of a bf16-mode kernel at the published widths: the forward and
+    recompute products over the dense bf16 tensor cores' rate, plus (K3) the
+    backward's FP32 products and (K4) fn's first layer over the FP32 rate, or
+    the bytes at their bf16 sizes, whichever is larger."""
+    hidden = macs(FE) + sum(FE[1:])
+    chain = 2 * b * n * n * macs(FE)
+    f32_flops = 0
+    if kind == "bwd":
+        elems = (2 * b * n * FE[0] + b * n) * 2 + b * n * FE[-1] + hidden * (2 if wgrads else 1)
+        f32_flops = (2 if wgrads else 1) * chain
+        bf16_flops = chain
+    else:
+        out = FE[-1] if kind == "fwd" else 3
+        elems = 2 * b * n * FE[0] + b * n + hidden + b * n * out
+        bf16_flops = chain
+        if kind == "fn":
+            fn = FN + [3]
+            elems += b * n * 32 + macs(fn) + sum(fn[1:])
+            f32_flops = 2 * b * n * FN[0] * FN[1]
+            bf16_flops += 2 * b * n * macs(fn[1:])
+    ops = (bf16_flops / PEAK_BF16 + f32_flops / PEAK_FP32) * 1e3
+    mem = 2 * elems / PEAK_HBM * 1e3
+    return {"bound_ms": max(ops, mem), "bound_by": "operations" if ops >= mem else "bytes",
+            "library_ms": None}
+
+
+def to_bf16(*ts):
+    return tuple(t.to(torch.bfloat16) for t in ts)
+
+
+def bf16_err(out, ref, scaled):
+    """Max abs error, and the count beyond BF16_TOL (``scaled``: against
+    BF16_TOL * max(1, max|ref|))."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    if scaled:
+        bound = BF16_TOL * max(1.0, r.abs().max().item())
+        return err.max().item(), int((err > bound).sum().item())
+    return err.max().item(), int((err > BF16_TOL + BF16_TOL * r.abs()).sum().item())
+
+
+def bf16_kernel_checks(mk, dev):
+    """K2 (eval, dropout 0.5), K3 (with and without weight gradients) and K4 in
+    bf16 against their bf16 plain versions at the flagship's shapes (B=256 N=30)
+    and 150p dense (B=32 N=150, K2 and K3), each launched twice bit for bit;
+    then each one's time beside its FP32 mode's (in turns), its plain version's
+    and its bound."""
+    worst = {k: 0.0 for k in ("edge_aggregate", "edge_aggregate_fn", "edge_aggregate_bwd")}
+    identical = dict.fromkeys(worst, True)
+    times = {}
+    for b, n in ((256, 30), (32, 150)):
+        u1, u2, mask, hidden, x, fn = kernel_inputs(dev, b, n, 3, seed=28 + n)
+        g = torch.randn(b, n, 192, generator=torch.Generator(device=dev).manual_seed(n),
+                        device=dev)
+        f32 = (u1, u2, mask, hidden, x, fn, g)
+        u1, u2, mask, x, g = to_bf16(u1, u2, mask, x, g)
+        hidden, fn = to_bf16(*hidden), to_bf16(*fn)
+        jobs = {
+            "k2_eval": ("edge_aggregate", lambda h: (mk.edge_aggregate, mk.edge_aggregate_reference,
+                        (*h[:4], 0.2, True)), False, "fwd"),
+            "k2_train": ("edge_aggregate", lambda h: (mk.edge_aggregate,
+                         mk.edge_aggregate_reference, (*h[:4], 0.2, False, 0.5, 2828)), False,
+                         "fwd"),
+            "k3": ("edge_aggregate_bwd", lambda h: (
+                mk.edge_aggregate_bwd, mk.edge_aggregate_bwd_reference,
+                (*h[:4], h[6], 0.2, True, 0.5, 2828, True)), True, "bwd"),
+            "k3_no_wgrads": ("edge_aggregate_bwd", lambda h: (
+                mk.edge_aggregate_bwd, mk.edge_aggregate_bwd_reference,
+                (*h[:4], h[6], 0.2, False, 0.0, 0, False)), True, "bwd"),
+        }
+        if n <= 64:
+            jobs["k4"] = ("edge_aggregate_fn", lambda h: (
+                mk.edge_aggregate_fn, mk.edge_aggregate_fn_reference,
+                (*h[:4], h[4], h[5], 0.2, True, 0.2, True)), False, "fn")
+        bf = (u1, u2, mask, hidden, x, fn, g)
+        for job, (name, make, scaled, kind) in jobs.items():
+            kernel, plain, a = make(bf)
+            out, again, ref = kernel(*a), kernel(*a), plain(*a)
+            torch.cuda.synchronize()
+            if name == "edge_aggregate_bwd":
+                pairs = list(zip((*out[:3], *out[3]), (*ref[:3], *ref[3])))
+                repeat = all(torch.equal(p, q) for p, q in zip((*out[:3], *out[3]),
+                                                              (*again[:3], *again[3])))
+                if not a[-1]:
+                    repeat = repeat and not any(t.any().item() for t in out[3])
+            else:
+                pairs, repeat = [(out, ref)], torch.equal(out, again)
+            errs = [bf16_err(o, r, scaled) for o, r in pairs]
+            dtypes_ok = all(o.dtype == torch.bfloat16 for o, _ in pairs)
+            err, bad = max(e for e, _ in errs), sum(c for _, c in errs)
+            identical[name] &= repeat
+            log("bf16_kernel_check", kernel=name, job=job, b=b, n=n, max_abs_err=err,
+                out_of_tol=bad, tol=BF16_TOL, scaled_to_max=scaled,
+                two_runs_bit_identical=repeat, outputs_bf16=dtypes_ok)
+            if bad or not repeat or not dtypes_ok:
+                raise SystemExit(f"bf16 {name} ({job}) disagrees with its plain version or "
+                                 f"itself at b={b} n={n}: {bad} beyond {BF16_TOL}, rerun "
+                                 f"bit-identical {repeat}")
+            worst[name] = max(worst[name], err)
+            del out, again, ref
+            # timings: the bf16 mode and the FP32 mode in turns, the plain version once
+            _, _, a32 = make(f32)
+            ms = {"bf16": float("inf"), "fp32": float("inf")}
+            for which in ("fp32", "bf16", "bf16", "fp32"):
+                ms[which] = min(ms[which], best_ms(lambda: kernel(*(a if which == "bf16"
+                                                                   else a32)), inner=2))
+            plain_ms = best_ms(lambda: plain(*a), reps=2, inner=1)
+            wg = job != "k3_no_wgrads"
+            times[f"{job}_n{n}"] = {"shape": f"B={b} N={n}", "ms": ms["bf16"],
+                                    "fp32_ms": ms["fp32"], "plain_ms": plain_ms,
+                                    **bf16_bound(b, n, kind, wg)}
+        del u1, u2, mask, hidden, x, fn, g, f32, bf
+        torch.cuda.empty_cache()
+    return worst, identical, times
+
+
+def trace_names(prof) -> list[str]:
+    return [ev.key for ev in prof.key_averages()
+            if (getattr(ev, "self_device_time_total", None)
+                or getattr(ev, "self_cuda_time_total", 0.0)) > 0]
+
+
+def bf16_step_check(mk, dev, card, from_args_dict):
+    """A flagship bf16 D+G step at B=256 from the same weights and draws as a
+    float32 one: losses within 5%, every master tensor float32, only bf16 edge
+    kernels launched; a torch.profiler trace of bf16 steps names K2, K3 and K4's
+    bf16 kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    data, labels = (t.to(dev) for t in real_batch(256))
+    res = {}
+    for name, extra in (("f32", {}), ("bf16", {"compute_dtype": "bfloat16"})):
+        args = from_args_dict({**FLAGSHIP, **extra})
+        st = make_state(args, dev)
+        step = step_fn(st, args, data, labels)
+        mk.reset_launch_counts()
+        parts = {k: v.item() for k, v in step().items()}
+        res[name] = (parts, {k: v for k, v in mk.launch_counts.items() if v}, st, step)
+    (l32, c32, _, _), (l16, c16, st16, step16) = res["f32"], res["bf16"]
+    rel = max(abs(l16[k] - l32[k]) / abs(l32[k]) for k in l32)
+    leaves_f32 = all(t.dtype == torch.float32 for t in _leaves(st16))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step16()
+        torch.cuda.synchronize()
+    names = trace_names(prof)
+    named = {what: [k for k in names if pat in k and "bfloat16" in k]
+             for what, pat in (("K2", "edge_aggregate_kernel<false"),
+                               ("K4", "edge_aggregate_kernel<true"),
+                               ("K3", "edge_aggregate_bwd_kernel<"))}
+    log("bf16_step_check", card=card, batch=256, losses_f32=l32, losses_bf16=l16,
+        max_rel_loss_diff=rel, tol=BF16_STEP_LOSS_TOL, master_state_float32=leaves_f32,
+        launches_f32=c32, launches_bf16=c16, trace_kernels={k: v[:1] for k, v in named.items()})
+    if rel > BF16_STEP_LOSS_TOL or not leaves_f32:
+        raise SystemExit(f"bf16 step: losses {l16} against float32 {l32}, master float32 "
+                         f"{leaves_f32}")
+    if set(c16) != {"edge_aggregate_bf16", "edge_aggregate_train_bf16",
+                    "edge_aggregate_fn_bf16", "edge_aggregate_bwd_bf16",
+                    "edge_aggregate_bwd_no_wgrads_bf16"} or any(k.endswith("_bf16") for k in c32):
+        raise SystemExit(f"bf16 step launched {c16}, the float32 step {c32}")
+    if not all(named.values()):
+        raise SystemExit(f"the bf16 step's trace names no bf16 kernel for "
+                         f"{[k for k, v in named.items() if not v]}: {names[:20]}")
+    return c16
+
+
+def bf16_graph_and_timing(mk, dev, card, from_args_dict, tmp):
+    """The flagship bf16 epoch (GRAPH_STEPS batches of 256) on the eager loop and
+    on the captured graph from one seed, bit for bit; then the bf16 and the
+    float32 graph steps in turns (float32, bf16, bf16, float32) and a profile of
+    each: wall, device time, idle share."""
+    from mpgan_tpu_torch.data.loader import BatchLoader
+
+    a32 = from_args_dict(FLAGSHIP)
+    a16 = from_args_dict({**FLAGSHIP, "compute_dtype": "bfloat16"})
+    a32.batch_size = a16.batch_size = b = 256
+    data, labels = graph_data(a16, GRAPH_STEPS * b)
+    runs = {}
+    for name, args, scan in (("bf16_eager", a16, False), ("bf16_graph", a16, True),
+                             ("f32_graph", a32, True)):
+        t = graph_trainer(args, dev, tmp, name, scan)
+        loader = BatchLoader(data, labels, batch_size=b, shuffle=True, seed=args.seed)
+        mk.reset_launch_counts()
+        t.train_epoch(1, loader)
+        torch.cuda.synchronize()
+        runs[name] = (t, loader, {k: v for k, v in mk.launch_counts.items() if v})
+    (te, _, ce), (tg, _, cg) = runs["bf16_eager"], runs["bf16_graph"]
+    same, rel = state_diff(te.state, tg.state)
+    losses_same = all(te.losses[k] == tg.losses[k] for k in ("Dr", "Df", "D", "G"))
+    if not same or not losses_same or ce != cg or not tg.graphs.replays:
+        raise SystemExit(f"bf16 graph step differs from the eager one: state {same} ({rel}), "
+                         f"losses {losses_same}, launches {ce} vs {cg}")
+    ms = {"f32_graph": [], "bf16_graph": []}
+    epoch = 1
+    for which in ("f32_graph", "bf16_graph", "bf16_graph", "f32_graph"):
+        epoch += 1
+        t, loader, _ = runs[which]
+        ms[which].append(timed_epoch(t, epoch, loader))
+    prof = {}
+    for which in ("f32_graph", "bf16_graph"):
+        t, loader, _ = runs[which]
+        prof[which] = epoch_profile(t, epoch + 1, loader)
+    log("bf16_graph_step", card=card, batch=b, steps=GRAPH_STEPS, state_bit_identical=same,
+        losses_equal=losses_same, replays=tg.graphs.replays, launches=cg,
+        wall_ms_f32=ms["f32_graph"], wall_ms_bf16=ms["bf16_graph"],
+        profile_f32=prof["f32_graph"], profile_bf16=prof["bf16_graph"])
+    return {"wall_ms_f32": min(ms["f32_graph"]), "wall_ms_bf16": min(ms["bf16_graph"]),
+            "profile_f32": prof["f32_graph"], "profile_bf16": prof["bf16_graph"]}
+
+
+def bf16_cli(mk, train_cli, tmp):
+    """``cli.train --compute-dtype bfloat16`` on the flagship: 2 epochs, a resume
+    that restores the state exactly, a 3rd epoch; the bf16 launches equal the
+    prediction and no float32 training kernel launches (the evaluation
+    generates in float32, through K4)."""
+    argv = ["--device", "cuda", "--name", "bf16", "--model", "mpgan", "--jets", "g",
+            "--dir-path", str(tmp), "--num-samples", "5000", "--eval-tot-samples", "1000",
+            "--w1-num-samples", "500", "--save-model-epochs", "1", "--save-epochs", "2",
+            "--compute-dtype", "bfloat16"]
+    mk.reset_launch_counts()
+    t1 = train_cli.main(argv + ["--num-epochs", "2"])
+    before = [t.detach().cpu().clone() for t in _leaves(t1.state)]
+    t2 = train_cli.main(argv + ["--num-epochs", "2"])  # resume, no epoch to run
+    after = [t.detach().cpu() for t in _leaves(t2.state)]
+    restored = (t2.start_epoch == 2 and len(before) == len(after)
+                and all(torch.equal(a, c) for a, c in zip(before, after)))
+    t3 = train_cli.main(argv + ["--num-epochs", "3"])
+    counts = dict(mk.launch_counts)
+    steps = 3 * (len(t1.train_dataset) // t1.args.batch_size)
+    # per D+G step: the D step's G (eval) runs K4 in its 2 layers; D on real and fake
+    # K2 with dropout and K3 with weight gradients, 2 layers each; the G step's G K2
+    # without dropout (gen_dropout 0) and K3 with weight gradients, its D K2 with
+    # dropout and K3 without them
+    predicted = {"edge_aggregate_fn_bf16": 2 * steps, "edge_aggregate_train_bf16": 6 * steps,
+                 "edge_aggregate_bf16": 2 * steps, "edge_aggregate_bwd_bf16": 6 * steps,
+                 "edge_aggregate_bwd_no_wgrads_bf16": 2 * steps}
+    npz = np.load(tmp / "bf16" / "models" / "state_3.npz")
+    ckpt_f32 = all(npz[k].dtype == np.float32 for k in npz.files if npz[k].dtype.kind in "fV")
+    losses = {k: t3.losses[k] for k in ("Dr", "Df", "D", "G")}
+    finite = all(np.isfinite(v).all() for v in losses.values())
+    log("bf16_cli", steps=steps, resumed_from=t2.start_epoch, state_restored=restored,
+        epochs=len(t3.losses["G"]), losses=losses, w1m=t3.losses["w1m"],
+        checkpoint_float32=ckpt_f32, launches={k: v for k, v in counts.items() if v},
+        predicted=predicted)
+    if not restored or not finite or len(t3.losses["G"]) != 3 or not ckpt_f32:
+        raise SystemExit(f"bf16 train CLI: restored {restored}, losses {losses}, float32 "
+                         f"checkpoint {ckpt_f32}")
+    for name, want in predicted.items():
+        if counts[name] != want:
+            raise SystemExit(f"bf16 train CLI launched {name} {counts[name]} times, "
+                             f"predicted {want}")
+    if any(counts[k] for k in BF16_FP32_KINDS) or not counts["edge_aggregate_fn"]:
+        raise SystemExit(f"bf16 train CLI: float32 training kernels launched, or the "
+                         f"float32 evaluation did not: {counts}")
+    return counts
+
+
+def bf16_refusals(train_cli, tmp):
+    """``--compute-dtype bfloat16`` with a knn-20 model and with GAPT refuses."""
+    for name, flags in (("knn20", ["--num-hits", "150", "--no-fully-connected",
+                                   "--num-knn", "20"]),
+                        ("gapt", ["--model", "gapt"])):
+        argv = ["--device", "cuda", "--name", f"bf16_{name}", "--jets", "g", "--dir-path",
+                str(tmp), "--num-samples", "500", "--num-epochs", "1",
+                "--compute-dtype", "bfloat16", *flags]
+        if "--model" not in flags:
+            argv += ["--model", "mpgan"]
+        try:
+            train_cli.main(argv)
+        except NotImplementedError as err:
+            ok = "bf16 knn and GAPT kernels" in str(err)
+            log("bf16_refusal", path=name, refused=True, message=str(err))
+            if not ok:
+                raise SystemExit(f"bf16 {name}: refused without naming the ROADMAP item: {err}")
+            continue
+        raise SystemExit(f"bf16 {name}: trained instead of refusing")
+
+
+def batched_d_check(dev, from_args_dict):
+    """One batched_d D step of the GAPT pair on the card against the CPU, from
+    the same state and draws: losses and D's gradients within 1e-4."""
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training.train_step import d_step, step_config
+    from mpgan_tpu_torch.utils.weights import jax_leaves
+
+    args = from_args_dict(GAPT)
+    data, labels = real_batch(16)
+    cfg = dataclasses.replace(step_config(args), batched_d=True)
+    res = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        st = make_state(args, device)
+        parts = d_step(st, cfg, build_suite(args).noise, data.to(device), labels.to(device))
+        res[side] = ({k: v.item() for k, v in parts.items()},
+                     [p.grad.detach().cpu() for p in jax_leaves(st.d, True) if p.grad is not None])
+    (lc, gc), (lp, gp) = res["card"], res["cpu"]
+    loss_err = max(abs(lc[k] - lp[k]) / max(1.0, abs(lp[k])) for k in lp)
+    grad_err = [wgrad_err(a, c) for a, c in zip(gc, gp)]
+    log("batched_d_check", pair="gapt", batch=16, losses_card=lc, losses_cpu=lp,
+        max_rel_loss_err=loss_err, max_abs_grad_err=max(e for e, _ in grad_err),
+        tensors=len(grad_err), tol=TOL)
+    if loss_err > TOL or len(gc) != len(gp) or not all(ok for _, ok in grad_err):
+        raise SystemExit("batched_d: the GAPT D step on the card disagrees with the CPU")
+
+
+def bf16_phase(mk, train_cli, dev, card, from_args_dict, tmp):
+    """Phase 28: bf16 training on the card."""
+    t0 = time.perf_counter()
+    worst, identical, times = bf16_kernel_checks(mk, dev)
+    step_launches = bf16_step_check(mk, dev, card, from_args_dict)
+    steps = bf16_graph_and_timing(mk, dev, card, from_args_dict, tmp)
+    cli_launches = bf16_cli(mk, train_cli, tmp)
+    bf16_refusals(train_cli, tmp)
+    batched_d_check(dev, from_args_dict)
+    log("bf16", card=card, seconds=time.perf_counter() - t0, step=steps, kernel_times=times)
+    launches = {k: step_launches.get(k, 0) + cli_launches[k] for k in BF16_KINDS}
+    return worst, identical, times, launches, steps
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -2740,6 +3091,22 @@ def main() -> None:
     # 27. the static-buffer steps and the samplers as CUDA graphs
     with tempfile.TemporaryDirectory() as tmp:
         graph_phase(mk, train_cli, dev, card, from_args_dict, pathlib.Path(tmp))
+    # 28. bf16 training
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16_worst, bf16_identical, bf16_times, bf16_launches, bf16_steps = bf16_phase(
+            mk, train_cli, dev, card, from_args_dict, pathlib.Path(tmp))
+
+    def bf16_row(name, jobs):
+        """The bf16 mode inside a kernel's row: its launches in phase 28, worst
+        error, reruns, and per timed job its ms, FP32-mode ms, plain ms and bound."""
+        kinds = {"edge_aggregate": ("edge_aggregate_bf16", "edge_aggregate_train_bf16"),
+                 "edge_aggregate_fn": ("edge_aggregate_fn_bf16",),
+                 "edge_aggregate_bwd": ("edge_aggregate_bwd_bf16",
+                                        "edge_aggregate_bwd_no_wgrads_bf16")}[name]
+        return {"source": BF16_SOURCES[name], "launches": sum(bf16_launches[k] for k in kinds),
+                "max_abs_err": bf16_worst[name], "tol": BF16_TOL,
+                "two_runs_bit_identical": bf16_identical[name],
+                **{job: bf16_times[job] for job in jobs}}
 
     fwd_src = "mpgan_tpu_torch/csrc/edge_aggregate.cu"
     kernels = [
@@ -2747,7 +3114,8 @@ def main() -> None:
          "replaces": REPLACES["edge_aggregate"], "includes": K1,
          "launches": launches["edge_aggregate"] + train_launches["edge_aggregate"]
          + train_launches["edge_aggregate_train"] + eval_launches["edge_aggregate"]
-         + sum(c["edge_aggregate"] + c["edge_aggregate_train"] for c in later),
+         + sum(c["edge_aggregate"] + c["edge_aggregate_train"] for c in later)
+         + bf16_launches["edge_aggregate_bf16"] + bf16_launches["edge_aggregate_train_bf16"],
          "max_abs_err": max(max_err["edge_aggregate"], train_err["edge_aggregate"],
                             mnist_err["edge_aggregate"]),
          "max_abs_err_fe128_256": max_err["edge_aggregate_fe128_256"],
@@ -2758,22 +3126,27 @@ def main() -> None:
          "train_shape": "B=256 N=30 dropout 0.5",
          "train_bound_ms": ttimes[30]["train_fwd"]["bound_ms"],
          "mnist": {f"n{n}": {k: v[k] for k in ("eval", "train_fwd")}
-                   for n, v in mnist_times.items()}},
+                   for n, v in mnist_times.items()},
+         "bf16": bf16_row("edge_aggregate", ("k2_train_n30", "k2_eval_n30", "k2_train_n150",
+                                             "k2_eval_n150"))},
         {"name": "edge_aggregate_fn", "route": "cuda", "source": fwd_src,
          "replaces": REPLACES["edge_aggregate_fn"],
          "launches": launches["edge_aggregate_fn"] + train_launches["edge_aggregate_fn"]
          + eval_launches["edge_aggregate_fn"] + fpnd_launches
-         + sum(c["edge_aggregate_fn"] for c in later),
+         + sum(c["edge_aggregate_fn"] for c in later) + bf16_launches["edge_aggregate_fn_bf16"],
          "max_abs_err": max_err["edge_aggregate_fn"],
          "two_runs_bit_identical": identical["edge_aggregate_fn"],
          "ms": k4[0], "plain_ms": k4[1],
-         **dense_fwd_bound(4096, 30, 3), "shape": "B=4096 N=30"},
+         **dense_fwd_bound(4096, 30, 3), "shape": "B=4096 N=30",
+         "bf16": bf16_row("edge_aggregate_fn", ("k4_n30",))},
         {"name": "edge_aggregate_bwd", "route": "cuda",
          "source": "mpgan_tpu_torch/csrc/edge_aggregate_bwd.cu",
          "replaces": REPLACES["edge_aggregate_bwd"], "includes": K1,
          "launches": train_launches["edge_aggregate_bwd"]
          + train_launches["edge_aggregate_bwd_no_wgrads"]
-         + sum(c["edge_aggregate_bwd"] + c["edge_aggregate_bwd_no_wgrads"] for c in later),
+         + sum(c["edge_aggregate_bwd"] + c["edge_aggregate_bwd_no_wgrads"] for c in later)
+         + bf16_launches["edge_aggregate_bwd_bf16"]
+         + bf16_launches["edge_aggregate_bwd_no_wgrads_bf16"],
          "max_abs_err": max(train_err["edge_aggregate_bwd"], mnist_err["edge_aggregate_bwd"]),
          "two_runs_bit_identical": identical["edge_aggregate_bwd"],
          **{k: v for k, v in ttimes[30]["bwd"].items() if k != "shape"},
@@ -2788,7 +3161,9 @@ def main() -> None:
          "plain_ms_150_no_wgrads": ttimes[150]["bwd_no_wgrads"]["plain_ms"],
          "bound_ms_150_no_wgrads": ttimes[150]["bwd_no_wgrads"]["bound_ms"],
          "mnist": {f"n{n}": {k: v[k] for k in ("bwd", "bwd_no_wgrads")}
-                   for n, v in mnist_times.items()}},
+                   for n, v in mnist_times.items()},
+         "bf16": bf16_row("edge_aggregate_bwd", ("k3_n30", "k3_no_wgrads_n30", "k3_n150",
+                                                 "k3_no_wgrads_n150"))},
         {"name": "knn_fused_layer", "route": "cuda",
          "source": "mpgan_tpu_torch/csrc/knn_fused.cu", "replaces": REPLACES["knn_fused_layer"],
          "includes": K1,
@@ -2844,6 +3219,12 @@ def main() -> None:
     log("knn_train_step", batch=128, kernel_ms=knn_step_ms["kernel"],
         plain_ms=knn_step_ms["plain"])
     log("train_step", kernel_ms=step_ms["kernel"], plain_ms=step_ms["plain"])
+    log("bf16_train_step", card=card, batch=256, graph_wall_ms_f32=bf16_steps["wall_ms_f32"],
+        graph_wall_ms_bf16=bf16_steps["wall_ms_bf16"],
+        device_ms_f32=bf16_steps["profile_f32"]["device_ms"],
+        device_ms_bf16=bf16_steps["profile_bf16"]["device_ms"],
+        idle_f32=bf16_steps["profile_f32"]["idle_share"],
+        idle_bf16=bf16_steps["profile_bf16"]["idle_share"])
     log("zoo", card=card, step_ms={k: v["step_ms"] for k, v in zoo.items()},
         jets_per_s={k: v["jets_per_s"] for k, v in zoo.items()},
         zoo_launches={k: v for k, v in zoo_launches.items() if v})

@@ -59,140 +59,7 @@
 // the caller (mp_kernels.fwd_plan, CPU-tested); the launcher checks them and lays
 // out the shared memory.
 
-#include "edge_fwd_common.cuh"
-
-namespace {
-
-// grid = the plan's CTAs; dynamic shared memory as fwd_layout lays it out.
-template <bool kFuseFn>
-__global__ void __launch_bounds__(kThreads, 1)
-    edge_aggregate_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
-                          const float* __restrict__ mask, const float* __restrict__ x,
-                          float* __restrict__ out, float* __restrict__ packed, int batch, int n,
-                          int feat, FwdPlan p, Chain fe, Chain fn, float alpha, float fn_alpha,
-                          int sum_agg, int drop_on, Drop drop,
-                          const int* __restrict__ seed) {
-  drop = drop_load(drop, seed, drop_on != 0);
-  const int L = fe.n, h1 = fe.dim[0], h_out = fe.dim[L], ns = round_up(n, 8);
-  const int n_fn = kFuseFn ? fn.n : 0;
-  const LayerTab* tab = fwd_setup(packed, p, fe, fn, L + n_fn);
-  const int total = batch * n;  // receivers of the launch
-  const float denom = sum_agg ? 1.f : (float)n;  // the mean divides by the true n
-  const RowArrays row = fwd_rows(p);
-  PassInputs in{};
-  in.u1 = u1;
-  in.u2 = u2;
-  in.w_d = nullptr;
-  in.alpha = alpha;
-  in.drop_on = drop_on != 0;
-  in.drop = drop;
-  Epilogue e = fwd_epilogue(p, row, alpha, drop_on != 0, drop);
-  SlabChain chain{};
-  PhaseClock clock;
-  MPGAN_PHASE_START(clock);
-
-  const long long t_end = range_start(blockIdx.x + 1, p.items, gridDim.x);
-  for (long long t = range_start(blockIdx.x, p.items, gridDim.x); t < t_end; ++t) {
-    // the item's first receiver in the flat list, and how many it holds
-    const int q_base = (int)t * p.span, n_recv = min(p.span, total - q_base);
-    for (int blk = 0; blk < n_recv; blk += p.ti) {
-      const int ti_eff = min(p.ti, n_recv - blk);
-      for (int j0 = 0; j0 < n; j0 += p.jc) {
-        const int jc_eff = min(p.jc, n - j0);
-        // dense rows: receiver q = q_base + blk + ii of the flat list x sender j0 + jj
-        // of its jet
-        for (int r = threadIdx.x; r < p.rows; r += kThreads) {
-          const int ii = r / p.rs, jj = r - ii * p.rs;
-          const bool real = ii < ti_eff && jj < jc_eff;
-          const int q = q_base + blk + ii, sender = (q / n) * n + j0 + jj;
-          smi(row.u1)[r] = real ? q * h1 : -1;
-          smi(row.u2)[r] = real ? sender * h1 : 0;
-          smu(row.id)[r] = (unsigned)q * (unsigned)ns + (unsigned)(j0 + jj);
-          smf(row.m)[r] = real ? __ldg(mask + sender) : 0.f;
-        }
-        const bool first = j0 == 0, last = j0 + p.jc >= n;
-        // the product after the last layer's: fe's first again (this item's next
-        // pass, or the next item's first), else fn's first (K4), else none
-        const bool more = !last || blk + p.ti < n_recv;
-        const int nxt = more || (!kFuseFn && t + 1 < t_end) ? 0 : (kFuseFn ? L : -1);
-        fwd_pass<kFuseFn>(p, tab, L, h1, h_out, row, in, e, chain, ti_eff, jc_eff, blk, first,
-                          last, nxt, denom, out + (size_t)(q_base + blk) * h_out, clock);
-      }
-    }
-    if (!kFuseFn) continue;
-
-    // K4: fn on the item's receivers, input rows [agg / denom | x] transposed,
-    // padded rows zero
-    __syncthreads();
-    float* f = smf(0);
-    for (int q = threadIdx.x; q < h_out * p.rows; q += kThreads) {
-      const int c = q / p.rows, r = q - c * p.rows;
-      float* a = f + (size_t)c * p.ldr + r;
-      *a = r < n_recv ? *a / denom : 0.f;
-    }
-    for (int q = threadIdx.x; q < p.rows * feat; q += kThreads) {
-      const int r = q / feat, c = q - r * feat;
-      f[(size_t)(h_out + c) * p.ldr + r] = r < n_recv ? __ldg(x + (size_t)(q_base + r) * feat + c)
-                                                      : 0.f;
-    }
-    Epilogue efn{};
-    efn.kind = kEpiHidden;
-    efn.C = 0;
-    for (int l = 0; l < n_fn; ++l) {
-      // next: fn's next layer, or the next item's first fe product
-      const int nxt = l + 1 < n_fn ? L + l + 1 : (t + 1 < t_end && L > 0 ? 0 : -1);
-      const LayerTab a = tab[L + l], b = nxt < 0 ? LayerTab{} : tab[nxt];
-      efn.bias = a.b;
-      efn.alpha = (l + 1 < n_fn || fn.act_last) ? fn_alpha : 1.f;  // slope 1: linear
-      product_fwd(0, a.k, a.w, a.m, p, efn, p.off_slab, chain, b.w, b.k, b.m);
-    }
-    __syncthreads();
-    const int f_out = tab[L + n_fn - 1].m;
-    for (int q = threadIdx.x; q < n_recv * f_out; q += kThreads) {
-      const int r = q / f_out, c = q - r * f_out;
-      out[(size_t)(q_base + r) * f_out + c] = f[(size_t)c * p.ldr + r];
-    }
-    // the next item's first pass overwrites these rows after its first barrier
-    MPGAN_PHASE(clock, kPhaseTail);
-  }
-}
-
-// Checks the caller's plan, lays out the shared memory and launches.
-template <bool kFuseFn>
-int launch(const float* u1, const float* u2, const float* mask, const float* x, float* out,
-           float* packed, int batch, int n, int h1, int feat, const Chain& fe, const Chain& fn,
-           float alpha, float fn_alpha, int sum_agg, int drop_on, Drop drop, const int* seed,
-           int ti, int jc, int rows, int span, int grid, int slab_floats, void* stream) {
-  if (batch < 1 || n < 1 || h1 < 1 || h1 > kMaxWidth || fe.dim[0] != h1)
-    return (int)cudaErrorInvalidValue;
-  // offsets into u1 and u2 are ints
-  if ((long long)batch * n * (h1 > fe.dim[fe.n] ? h1 : fe.dim[fe.n]) >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  FwdPlan p{};
-  p.rows = rows;
-  p.ti = ti;
-  p.jc = jc;
-  p.span = kFuseFn ? span : ti;
-  p.row_arrays = 4;
-  p.slab_floats = slab_floats;
-  if (!fwd_layout(p, fe, kFuseFn ? &fn : nullptr) || jc > n) return (int)cudaErrorInvalidValue;
-  if (p.span < ti || p.span > rows || p.span % ti != 0) return (int)cudaErrorInvalidValue;
-  p.items = ((long long)batch * n + p.span - 1) / p.span;
-  if (grid < 1 || grid > p.items) return (int)cudaErrorInvalidValue;
-  const void* kernel = reinterpret_cast<const void*>(edge_aggregate_kernel<kFuseFn>);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)p.smem);
-  if (err != cudaSuccess) return (int)err;
-  Chain fn_arg = fn;
-  void* args[] = {&u1, &u2, &mask, &x, &out, &packed, &batch, &n, &feat, &p, const_cast<Chain*>(&fe),
-                  &fn_arg, &alpha, &fn_alpha, &sum_agg, &drop_on, &drop, &seed};
-  // cooperative: the CTAs meet at a grid-wide barrier after packing the weights
-  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, p.smem,
-                                    static_cast<cudaStream_t>(stream));
-  return (int)err;
-}
-
-}  // namespace
+#include "edge_aggregate.cuh"
 
 extern "C" {
 
@@ -240,8 +107,9 @@ int mpgan_edge_aggregate(const float* u1, const float* u2, const float* mask, fl
   Chain fe, fn{};
   if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims))
     return (int)cudaErrorInvalidValue;
-  return launch<false>(u1, u2, mask, nullptr, out, packed, batch, n, h1, 0, fe, fn, alpha, 0.f,
-                       sum_agg, 0, Drop{}, nullptr, ti, jc, rows, ti, grid, slab_floats, stream);
+  return launch<false, float>(u1, u2, mask, nullptr, out, packed, batch, n, h1, 0, fe, fn, alpha,
+                              0.f, sum_agg, 0, Drop{}, nullptr, ti, jc, rows, ti, grid,
+                              slab_floats, stream);
 }
 
 // K2 forward in train mode, with K1 dropout: `seed` points to one int in device
@@ -259,8 +127,9 @@ int mpgan_edge_aggregate_train(const float* u1, const float* u2, const float* ma
   Drop drop{};
   drop.thr = thr;
   drop.mult = mult;
-  return launch<false>(u1, u2, mask, nullptr, out, packed, batch, n, h1, 0, fe, fn, alpha, 0.f,
-                       sum_agg, 1, drop, seed, ti, jc, rows, ti, grid, slab_floats, stream);
+  return launch<false, float>(u1, u2, mask, nullptr, out, packed, batch, n, h1, 0, fe, fn, alpha,
+                              0.f, sum_agg, 1, drop, seed, ti, jc, rows, ti, grid, slab_floats,
+                              stream);
 }
 
 // K4. fn_w[0] is fn's first-layer weight rows for agg ([h_out, dims[1]]), fn_w0_lo its rows
@@ -284,8 +153,9 @@ int mpgan_edge_aggregate_fn(const float* u1, const float* u2, const float* mask,
   fn.w0_lo = static_cast<const float*>(fn_w0_lo);
   fn.k0_split = h_out;
   fn.act_last = fn_act_last;
-  return launch<true>(u1, u2, mask, x, out, packed, batch, n, h1, feat, fe, fn, alpha, fn_alpha,
-                      sum_agg, 0, Drop{}, nullptr, ti, jc, rows, span, grid, slab_floats, stream);
+  return launch<true, float>(u1, u2, mask, x, out, packed, batch, n, h1, feat, fe, fn, alpha,
+                             fn_alpha, sum_agg, 0, Drop{}, nullptr, ti, jc, rows, span, grid,
+                             slab_floats, stream);
 }
 
 const char* mpgan_cuda_error_string(int code) {

@@ -1,0 +1,127 @@
+// Backward of the dense message-passing edge aggregate for Hopper (sm_90a) in the
+// bf16 mode: K3 with bf16 inputs and weights, with and without weight gradients.
+//
+// Replaces K3 of mpgan_tpu/ops/mp_pallas.py (_bwd_kernel_jets / _bwd_kernel)
+// called with bf16 refs, as StepConfig.bf16 calls it through edge_aggregate's
+// custom VJP. What it computes, and where it rounds (the plain version in
+// mp_kernels.py holds the same): the recompute is K2's in the bf16 mode (hidden
+// products on bf16-rounded activations, float32 accumulation), g is taken as
+// float32 (/ n for the mean), and the backward runs in float32: dW = a_{l-1}^T
+// dz with the unrounded activation, da = dz @ f32(W). du1, du2 and dmask are
+// summed in float32 and rounded to bf16 once; the weight gradients are summed in
+// float32 and returned as float32, which the caller rounds to the weights'
+// dtype (mp_pallas._edge_aggregate_bwd does the same). The TPU kernel's
+// receiver mode adds each receiver block's du2 into its bf16 output; summing in
+// float32 and rounding once differs from that by at most one rounding.
+//
+// The kernel is the FP32 one (edge_aggregate_bwd.cuh on edge_bwd_common.cuh:
+// the planner's pass, the persistent grid, a_0's rebuild, K1 stored as -0.0f,
+// the tile contractions and the fixed-order reductions) instantiated for bf16
+// elements. Its recompute runs on the bf16 stage (edge_products_bf16.cuh,
+// tensor cores), its da products and dW contractions on the FP32 ones. A launch
+// of its own first packs the weights: the recompute's in the bf16 fragment
+// order, W^T for da as float32 values in the FP32 order, the biases as float32.
+//
+// What bounds it on this card: the backward's two FP32 contractions per layer
+// (dW and da, 2 x 85 MFLOP a 30-particle jet at the flagship's widths, over 67
+// TFLOP/s) as before; the bf16 recompute takes a third of the FP32 kernel's
+// FMAs off the CUDA cores. Every sum has a fixed order: two launches on equal
+// inputs are bit-identical.
+
+#include "edge_aggregate_bwd.cuh"
+#include "edge_products_bf16.cuh"
+
+namespace {
+
+// Offsets (floats) of the bf16 mode's packed scratch of a backward launch: per
+// layer the recompute's bf16 copy, the float32 W^T and the float32 bias.
+struct BwdPackBf16 {
+  long long fwd[kMaxLayers], bwd[kMaxLayers], b[kMaxLayers], total;
+};
+
+BwdPackBf16 bwd_pack_bf16(const Chain& fe, int col_threads) {
+  BwdPackBf16 o{};
+  long long off = 0;
+  for (int l = 0; l < fe.n; ++l) {
+    const int K = fe.dim[l], M = fe.dim[l + 1];
+    o.fwd[l] = off;
+    off += bf16_packed_floats(K, M);
+    o.bwd[l] = off;
+    off += (long long)M * round_up(K, col_threads);
+    o.b[l] = off;
+    off += round_up(M, 4);
+  }
+  o.total = off;
+  return o;
+}
+
+template <typename T>
+__global__ void pack_weights_bf16(Chain fe, BwdPackBf16 o, int col_threads,
+                                  float* __restrict__ packed) {
+  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (int l = 0; l < fe.n; ++l) {
+    pack_layer_bf16<T>(packed + o.fwd[l], packed + o.b[l], fe, l, false, true, col_threads,
+                       start, stride);
+    pack_layer_bf16<T>(packed + o.bwd[l], nullptr, fe, l, true, false, col_threads, start,
+                       stride);
+  }
+}
+
+template <typename T>
+int launch_pack_bf16(Chain& fe, int col_threads, float* packed, long long packed_floats,
+                     Packed& pk, cudaStream_t stream) {
+  const BwdPackBf16 o = bwd_pack_bf16(fe, col_threads);
+  if (o.total > packed_floats) return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < fe.n; ++l) {
+    pk.fwd[l] = packed + o.fwd[l];
+    pk.bwd[l] = packed + o.bwd[l];
+  }
+  if (fe.n == 0) return 0;
+  pack_weights_bf16<T><<<64, 256, 0, stream>>>(fe, o, col_threads, packed);
+  // the kernel reads the float32 biases (the packer has read the bf16 ones)
+  for (int l = 0; l < fe.n; ++l) fe.b[l] = packed + o.b[l];
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+__device__ int product_recompute(int A, int K, const float* W, int M, int slab,
+                                 const PassShape& p, const Epilogue& e) {
+  return product_bf16_at<false>(A, K, W, M, slab, p, e, SlabChain{});
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of the bf16 mode's packed scratch for a backward launch at passes of
+// `rows` pair rows; -1 on bad arguments. Only the card tests call it, to hold
+// mp_kernels.bwd_packed_floats_bf16 to the launcher.
+long long mpgan_edge_bwd_packed_floats_bf16(int n_hidden, const int* hidden_dims, int rows) {
+  Chain fe;
+  const void* none[kMaxLayers] = {};
+  if (!fill_chain(fe, n_hidden, none, none, hidden_dims)) return -1;
+  if (rows != 32 && rows != 64 && rows != 128) return -1;
+  return bwd_pack_bf16(fe, 8 * (kWarps / (rows / 32))).total;
+}
+
+// K3 in the bf16 mode. Arguments as mpgan_edge_aggregate_bwd's, with bf16 u1,
+// u2, mask, g, hidden weights and biases, du2 and dmask; du1 is float32 scratch
+// [batch, n, h1] (the caller rounds it), wgrads float32; `packed` holds
+// `packed_floats` floats.
+int mpgan_edge_aggregate_bwd_bf16(const bf16* u1, const bf16* u2, const bf16* mask,
+                                  const bf16* g, float* du1, bf16* du2, bf16* dmask,
+                                  float* wgrads, float* sender_part, float* w_part, int batch,
+                                  int n, int h1, int n_hidden, const void* const* hidden_w,
+                                  float* packed, long long packed_floats,
+                                  const void* const* hidden_b, const int* hidden_dims,
+                                  float alpha, int sum_agg, int dropout, const int* seed,
+                                  unsigned thr, float mult, int need_wgrads, int ti, int jc,
+                                  int rows, int grid, int slots, void* stream) {
+  return launch_bwd<bf16>(u1, u2, mask, g, du1, du2, dmask, wgrads, sender_part, w_part, batch,
+                          n, h1, n_hidden, hidden_w, packed, packed_floats, hidden_b,
+                          hidden_dims, alpha, sum_agg, dropout, seed, thr, mult, need_wgrads, ti,
+                          jc, rows, grid, slots, stream);
+}
+
+}  // extern "C"

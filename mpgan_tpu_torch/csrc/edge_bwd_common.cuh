@@ -48,9 +48,17 @@
 // on every run.
 #pragma once
 
+#include <type_traits>
+
 #include "edge_products.cuh"
 
 namespace {
+
+// The bf16 stage's recompute products (edge_products_bf16.cuh, included by the
+// bf16 kernel only).
+template <typename T>
+__device__ int product_recompute(int A, int K, const float* W, int M, int slab,
+                                 const PassShape& p, const Epilogue& e);
 
 constexpr int kRowArrays = 10;     // per-row arrays of a pass (RowArrays)
 
@@ -310,9 +318,14 @@ __device__ __noinline__ void weight_grad(int a_off, int d_off_, int lda, int row
 
 // One pass through the chain and back. The row arrays are filled (no barrier
 // needed before the call). Returns the offset of dz_0 [dim[0] x ldr], complete
-// and visible to every thread, with row.dsm filled.
+// and visible to every thread, with row.dsm filled. T: the element type of u1,
+// u2 and g; bf16 (the bf16 mode) runs the recompute's products on the bf16 stage
+// (pk.fwd its packed bf16 copy, fe.b float32 biases) and the backward's on the
+// FP32 stage (pk.bwd the float32 values of the bf16 weights).
+template <typename T = float>
 __device__ int bwd_pass(const PassBuffers& s, const BwdPlan& p, const Chain& fe,
                            const Packed& pk, const PassInputs& in, PhaseClock& clock) {
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
   const int L = fe.n, h1 = fe.dim[0];
   Epilogue e;
   e.alpha = in.alpha;
@@ -322,7 +335,7 @@ __device__ int bwd_pass(const PassBuffers& s, const BwdPlan& p, const Chain& fe,
   e.part = s.part;
   e.row = s.row;
   __syncthreads();  // the row arrays are visible; the previous pass is done with the buffers
-  build_a0(s.act[0], p, s.row, in, h1);
+  build_a0<T>(s.act[0], p, s.row, in, h1);
   MPGAN_PHASE(clock, kPhaseRows);
   if (L == 0) {
     // no hidden layer: dz_0 and dmask straight from a_0, a warp per row
@@ -330,12 +343,12 @@ __device__ int bwd_pass(const PassBuffers& s, const BwdPlan& p, const Chain& fe,
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     for (int r = warp; r < p.rows; r += kWarps) {
       const float gm = smf(s.row.m)[r];
-      const float* gi = in.g + max(smi(s.row.g)[r], 0);
+      const T* gi = rows_as<T>(in.g) + max(smi(s.row.g)[r], 0);
       float* a0 = smf(s.act[0]);
       float acc = 0.f;
       for (int h = lane; h < h1; h += 32) {
         const float a = a0[h * p.ldr + r];
-        const float gv = __ldg(gi + h);
+        const float gv = ld_elem(gi + h);
         acc = fmaf(gv, a, acc);
         a0[h * p.ldr + r] = gv * gm * dact(a, in.alpha, in.drop_on, in.drop.mult);
       }
@@ -352,18 +365,27 @@ __device__ int bwd_pass(const PassBuffers& s, const BwdPlan& p, const Chain& fe,
     e.C = s.act[l];
     e.bias = fe.b[l - 1];
     e.salt = (unsigned)l;
-    product(s.act[l - 1], fe.dim[l - 1], pk.fwd[l - 1], fe.dim[l], s.slab, p, e);
+    if constexpr (kBf16)
+      product_recompute<T>(s.act[l - 1], fe.dim[l - 1], pk.fwd[l - 1], fe.dim[l], s.slab, p, e);
+    else
+      product(s.act[l - 1], fe.dim[l - 1], pk.fwd[l - 1], fe.dim[l], s.slab, p, e);
   }
   MPGAN_PHASE(clock, kPhaseFwd);
   e.kind = kEpiLast;
   e.C = s.x;
   e.bias = fe.b[L - 1];
   e.salt = (unsigned)L;
-  product(s.act[L - 1], fe.dim[L - 1], pk.fwd[L - 1], fe.dim[L], s.slab, p, e);
+  if constexpr (kBf16)
+    product_recompute<T>(s.act[L - 1], fe.dim[L - 1], pk.fwd[L - 1], fe.dim[L], s.slab, p, e);
+  else
+    product(s.act[L - 1], fe.dim[L - 1], pk.fwd[L - 1], fe.dim[L], s.slab, p, e);
   __syncthreads();
+  // the partial row sums, one per warp column group of the last product (the count
+  // stays in the loop's condition: hoisted, it changes the FP32 kernel's spills)
   for (int r = threadIdx.x; r < p.rows; r += kThreads) {
     float acc = 0.f;
-    for (int q = 0; q < kWarps / p.row_warps; ++q) acc += smf(s.part)[q * p.ldr + r];
+    for (int q = 0; q < (kBf16 ? kWarps / (p.rows / 16) : kWarps / p.row_warps); ++q)
+      acc += smf(s.part)[q * p.ldr + r];
     smf(s.row.dsm)[r] = acc / in.denom;
   }
   MPGAN_PHASE(clock, kPhaseLast);
@@ -373,7 +395,7 @@ __device__ int bwd_pass(const PassBuffers& s, const BwdPlan& p, const Chain& fe,
     if (l == 1 && L >= 2) {
       // dz_L's buffer is free: a_0 again, for dW_1 and the derivative
       __syncthreads();
-      build_a0(s.act[0], p, s.row, in, h1);
+      build_a0<T>(s.act[0], p, s.row, in, h1);
       MPGAN_PHASE(clock, kPhaseRebuild);
     }
     if (in.need_wgrads) {
@@ -403,9 +425,10 @@ __device__ __forceinline__ void finish_bulk() { bulk_wait_done(); }
 // beyond it padding) summed over
 // the slots that the schedule gave jet b (the CTAs from the owner of its first
 // item to the owner of its last), in slot order, into du2 [batch, n, h1] and
-// dmask [batch, n].
-__global__ void reduce_sender_slabs(const float* __restrict__ part, float* __restrict__ du2,
-                                    float* __restrict__ dmask, int batch, int n, int h1,
+// dmask [batch, n], as T (bf16 in the bf16 mode: rounded once, from the float32 sums).
+template <typename T>
+__global__ void reduce_sender_slabs(const float* __restrict__ part, T* __restrict__ du2,
+                                    T* __restrict__ dmask, int batch, int n, int h1,
                                     int stride, int slots, int blocks, long long items,
                                     int grid) {
   const long long inner = (long long)n * stride, total = batch * inner;
@@ -420,9 +443,9 @@ __global__ void reduce_sender_slabs(const float* __restrict__ part, float* __res
     const long long row = k / stride;
     const int c = (int)(k - row * stride);
     if (c < h1)
-      du2[(b * n + row) * h1 + c] = s;
+      st_elem(du2 + (b * n + row) * h1 + c, s);
     else if (c == h1)
-      dmask[b * n + row] = s;
+      st_elem(dmask + b * n + row, s);
   }
 }
 
@@ -462,7 +485,8 @@ __global__ void reduce_wgrads(const float* __restrict__ w_part, float* __restric
 }
 
 // Both reductions after a backward kernel; `wgrads` [ws.flat_floats] may be null.
-int launch_reductions(const float* sender_part, float* du2, float* dmask, int batch, int n,
+template <typename T>
+int launch_reductions(const float* sender_part, T* du2, T* dmask, int batch, int n,
                       int h1, const BwdPlan& p, int grid, const float* w_part, float* wgrads,
                       const WSlab& ws, cudaStream_t stream) {
   const int threads = 256;

@@ -4,6 +4,7 @@
 // mpgan_tpu/ops/mp_pallas.py::_dropmul.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -52,6 +53,23 @@ __device__ __forceinline__ float dropmul(const Drop& d, unsigned id, unsigned co
   h *= 0x85EBCA6Bu;
   h ^= h >> 15;
   return h >= d.thr ? d.mult : 0.f;
+}
+
+// Element loads and stores of the dense kernels' inputs and outputs: float32 in
+// the FP32 mode, bf16 in the bf16 mode (converted to and from float32 here).
+using bf16 = __nv_bfloat16;
+__device__ __forceinline__ float ld_elem(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_elem(const bf16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void st_elem(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_elem(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// The pass structs keep their row pointers as float*; in the bf16 mode they
+// point to bf16 rows and are read through this cast, with element offsets.
+template <typename T>
+__device__ __forceinline__ const T* rows_as(const float* p) {
+  return reinterpret_cast<const T*>(p);
 }
 
 __device__ __forceinline__ float leaky(float v, float alpha) { return v >= 0.f ? v : alpha * v; }

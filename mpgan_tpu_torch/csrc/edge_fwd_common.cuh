@@ -28,9 +28,18 @@
 
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "edge_products.cuh"
 
 namespace {
+
+// The bf16 stage (edge_products_bf16.cuh, included by the bf16 kernels only).
+template <typename T>
+__device__ void product_fwd_mixed(bool f32, int A, int K, const float* W, int M,
+                                  const PassShape& p, const Epilogue& e, int slab,
+                                  SlabChain& chain, const float* next, int K_next, int M_next,
+                                  bool next_f32);
 
 constexpr int kFwdJobs = 2 * kMaxLayers;  // fe layers, then fn's (K4)
 
@@ -181,11 +190,12 @@ __device__ void product_fwd(int A, int K, const float* W, int M, const PassShape
 
 // Adds a pass's share s of receiver ii's aggregate at column c. K2 and the knn
 // kernels keep the item's aggregate in shared memory and store it, divided by
-// `denom`, on the last chunk of senders (ranks); K4 keeps it transposed for fn.
-template <bool kFuseFn>
+// `denom`, on the last chunk of senders (ranks), as T; K4 keeps it transposed
+// for fn.
+template <bool kFuseFn, typename T = float>
 __device__ __forceinline__ void add_share(const FwdPlan& p, float s, int ii, int c, int h_out,
                                           int blk, bool first, bool last, float denom,
-                                          float* __restrict__ out_row) {
+                                          T* __restrict__ out_row) {
   if (kFuseFn) {
     float* a = smf(p.off_agg) + (size_t)c * p.ldr + blk + ii;
     *a = first ? s : *a + s;
@@ -193,7 +203,7 @@ __device__ __forceinline__ void add_share(const FwdPlan& p, float s, int ii, int
     float* a = smf(p.off_agg) + ii * h_out + c;
     const float v = first ? s : *a + s;
     if (last)
-      out_row[c] = v / denom;
+      st_elem(out_row + c, v / denom);
     else
       *a = v;
   }
@@ -208,7 +218,8 @@ __device__ __forceinline__ void add_share(const FwdPlan& p, float s, int ii, int
 // adds dist * w_d, product and sum rounded apart as the plain version rounds
 // them: K6's recompute (build_a0) and the plain backward then see the same bits
 // of z1, and a pre-activation within rounding of zero keeps its LeakyReLU slope.
-template <bool kDist>
+// T: the element type of u1 and u2 (the bf16 mode adds their float32 values).
+template <bool kDist, typename T = float>
 __device__ __noinline__ void build_a0_fwd(int dst_off, const PassShape& p, const RowArrays& row_in,
                                           const PassInputs& in_ref, int h1) {
   const PassInputs in = in_ref;  // copies: see product_tn
@@ -217,8 +228,8 @@ __device__ __noinline__ void build_a0_fwd(int dst_off, const PassShape& p, const
   float* dst = smf(dst_off);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int hl = lane & 7, rl = lane >> 3;
-  const float* __restrict__ u1 = in.u1;
-  const float* __restrict__ u2 = in.u2;
+  const T* __restrict__ u1 = rows_as<T>(in.u1);
+  const T* __restrict__ u2 = rows_as<T>(in.u2);
   const float* __restrict__ w_d = in.w_d;
   constexpr int kH = 12;
   for (int rg = warp; rg < p.rows / 4; rg += kWarps) {
@@ -231,7 +242,7 @@ __device__ __noinline__ void build_a0_fwd(int dst_off, const PassShape& p, const
 #pragma unroll
       for (int k = 0; k < kH; ++k) {
         const int h = h0 + 8 * k;
-        z[k] = o1 >= 0 && h < h1 ? __ldg(u1 + o1 + h) + __ldg(u2 + o2 + h) : 0.f;
+        z[k] = o1 >= 0 && h < h1 ? ld_elem(u1 + o1 + h) + ld_elem(u2 + o2 + h) : 0.f;
       }
 #pragma unroll
       for (int k = 0; k < kH; ++k) {
@@ -258,17 +269,21 @@ __device__ __noinline__ void build_a0_fwd(int dst_off, const PassShape& p, const
 // the barrier after the row arrays' stores. It ends with its tail reading the
 // partials and the aggregate: the caller's next stores into the row arrays may
 // follow without a barrier, a store into the pass buffer or the aggregate not.
-template <bool kFuseFn>
+// T: the element type of u1, u2 and out_blk; bf16 (the bf16 mode, dense only)
+// runs the products on the bf16 stage, but K4's fn first layer (table entry L,
+// float32 operands) on the FP32 one.
+template <bool kFuseFn, typename T = float>
 __device__ __forceinline__ void fwd_pass(const FwdPlan& p, const LayerTab* tab, int L, int h1,
                                          int h_out, const RowArrays& row, const PassInputs& in,
                                          Epilogue& e, SlabChain& chain, int ti_eff, int jc_eff,
                                          int blk, bool first, bool last, int nxt, float denom,
-                                         float* __restrict__ out_blk, PhaseClock& clock) {
+                                         T* __restrict__ out_blk, PhaseClock& clock) {
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
   __syncthreads();  // the row arrays are visible; the last pass is done with the buffer
   if (in.w_d != nullptr)
-    build_a0_fwd<true>(p.off_act, p, row, in, h1);
+    build_a0_fwd<true, T>(p.off_act, p, row, in, h1);
   else
-    build_a0_fwd<false>(p.off_act, p, row, in, h1);
+    build_a0_fwd<false, T>(p.off_act, p, row, in, h1);
   MPGAN_PHASE(clock, kPhaseRows);
   if (L == 0) {
     // no hidden layer: the masked sum of a_0 itself, in row order
@@ -279,8 +294,8 @@ __device__ __forceinline__ void fwd_pass(const FwdPlan& p, const LayerTab* tab, 
       const float* m = smf(row.m) + ii * p.rs;
       float s = 0.f;
       for (int jj = 0; jj < jc_eff; ++jj) s = fmaf(m[jj], col[jj], s);
-      add_share<kFuseFn>(p, s, ii, c, h_out, blk, first, last, denom,
-                         out_blk + (size_t)ii * h_out);
+      add_share<kFuseFn, T>(p, s, ii, c, h_out, blk, first, last, denom,
+                            out_blk + (size_t)ii * h_out);
     }
     __syncthreads();  // the next pass's row arrays overwrite the masks read here
     MPGAN_PHASE(clock, kPhaseLast);
@@ -292,14 +307,22 @@ __device__ __forceinline__ void fwd_pass(const FwdPlan& p, const LayerTab* tab, 
     const LayerTab a = tab[l], b = tab[l + 1];
     e.bias = a.b;
     e.salt = (unsigned)(l + 1);
-    product_fwd(p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k, b.m);
+    if constexpr (kBf16)
+      product_fwd_mixed<T>(false, p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k,
+                           b.m, false);
+    else
+      product_fwd(p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k, b.m);
   }
   MPGAN_PHASE(clock, kPhaseFwd);
   const LayerTab a = tab[L - 1], b = nxt < 0 ? LayerTab{} : tab[nxt];
   e.kind = kEpiAgg;
   e.bias = a.b;
   e.salt = (unsigned)L;
-  product_fwd(p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k, b.m);
+  if constexpr (kBf16)
+    product_fwd_mixed<T>(false, p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k,
+                         b.m, kFuseFn && nxt == L);
+  else
+    product_fwd(p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k, b.m);
   __syncthreads();  // the partials are complete
   MPGAN_PHASE(clock, kPhaseLast);
   // receiver ii's rows [ii * rs, ii * rs + jc_eff) lie in the 8-row groups g0 ..
@@ -313,8 +336,8 @@ __device__ __forceinline__ void fwd_pass(const FwdPlan& p, const LayerTab* tab, 
     float s = 0.f;
     for (int g = r_begin / 8; g <= g1; ++g)
       s += part[((8 * g >= r_begin ? 0 : groups) + g) * h_out + c];
-    add_share<kFuseFn>(p, s, ii, c, h_out, blk, first, last, denom,
-                       out_blk + (size_t)ii * h_out);
+    add_share<kFuseFn, T>(p, s, ii, c, h_out, blk, first, last, denom,
+                          out_blk + (size_t)ii * h_out);
   }
   MPGAN_PHASE(clock, kPhaseTail);
 }

@@ -580,7 +580,9 @@ struct PassInputs {
 };
 
 // a_0 [h1 x rows] from the row arrays; a padded row is zero. A warp takes a row at
-// a time, its lanes the features, so the loads of u1 and u2 are coalesced.
+// a time, its lanes the features, so the loads of u1 and u2 are coalesced. T: the
+// element type of u1 and u2 (the bf16 mode adds their float32 values).
+template <typename T = float>
 __device__ __noinline__ void build_a0(int dst_off, const PassShape& p, const RowArrays& row_in,
                                       const PassInputs& in_ref, int h1) {
   const PassInputs in = in_ref;  // copies: see product_tn
@@ -588,8 +590,8 @@ __device__ __noinline__ void build_a0(int dst_off, const PassShape& p, const Row
   const int rows = p.rows, ldr = p.ldr;
   float* dst = smf(dst_off);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* __restrict__ u1 = in.u1;
-  const float* __restrict__ u2 = in.u2;
+  const T* __restrict__ u1 = rows_as<T>(in.u1);
+  const T* __restrict__ u2 = rows_as<T>(in.u2);
   // eight rows at a time (all of a warp's at 128 rows), their loads issued
   // together: a row's operands may come from device memory, and a warp that took
   // its rows one by one would wait for each in turn
@@ -610,7 +612,7 @@ __device__ __noinline__ void build_a0(int dst_off, const PassShape& p, const Row
       float z[kTogether];
 #pragma unroll
       for (int q = 0; q < kTogether; ++q)
-        z[q] = o1[q] >= 0 ? __ldg(u1 + o1[q] + h) + __ldg(u2 + o2[q] + h) : 0.f;
+        z[q] = o1[q] >= 0 ? ld_elem(u1 + o1[q] + h) + ld_elem(u2 + o2[q] + h) : 0.f;
       const float wd = in.w_d != nullptr ? __ldg(in.w_d + h) : 0.f;
 #pragma unroll
       for (int q = 0; q < kTogether; ++q) {

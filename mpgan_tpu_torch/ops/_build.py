@@ -24,10 +24,12 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_ext"
-SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu", "knn_fused.cu", "knn_edge_bwd.cu",
-           "knn_search.cu", "knn_edge_aggregate.cu", "gapt_fused.cu")
-HEADERS = ("edge_common.cuh", "edge_products.cuh", "edge_fwd_common.cuh", "edge_bwd_common.cuh",
-           "knn_stages.cuh")
+SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu", "edge_aggregate_bf16.cu",
+           "edge_aggregate_bwd_bf16.cu", "knn_fused.cu", "knn_edge_bwd.cu", "knn_search.cu",
+           "knn_edge_aggregate.cu", "gapt_fused.cu")
+HEADERS = ("edge_common.cuh", "edge_products.cuh", "edge_products_bf16.cuh",
+           "edge_fwd_common.cuh", "edge_bwd_common.cuh", "edge_aggregate.cuh",
+           "edge_aggregate_bwd.cuh", "knn_stages.cuh")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -124,6 +126,26 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i, i, p,
     ]
     lib.mpgan_edge_aggregate_fn.restype = i
+    ll = ctypes.c_longlong
+    lib.mpgan_edge_aggregate_bf16.argtypes = [
+        p, p, p, p, p, ll, i, i, i, i, parr, parr, iarr, f, i, i, p, ctypes.c_uint, f,
+        i, i, i, i, i, p,
+    ]
+    lib.mpgan_edge_aggregate_bf16.restype = i
+    lib.mpgan_edge_aggregate_fn_bf16.argtypes = [
+        p, p, p, p, p, p, ll, i, i, i, i, i, parr, parr, iarr, i, parr, p, parr, iarr, f, i, f,
+        i, i, i, i, i, i, i, p,
+    ]
+    lib.mpgan_edge_aggregate_fn_bf16.restype = i
+    lib.mpgan_edge_aggregate_bwd_bf16.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, i, i, i, i, parr, p, ll, parr, iarr,
+        f, i, i, p, ctypes.c_uint, f, i, i, i, i, i, i, p,
+    ]
+    lib.mpgan_edge_aggregate_bwd_bf16.restype = i
+    lib.mpgan_edge_fwd_packed_floats_bf16.argtypes = [i, iarr, i, iarr, i]
+    lib.mpgan_edge_fwd_packed_floats_bf16.restype = ll
+    lib.mpgan_edge_bwd_packed_floats_bf16.argtypes = [i, iarr, i]
+    lib.mpgan_edge_bwd_packed_floats_bf16.restype = ll
     lib.mpgan_edge_fwd_sizes.argtypes = [
         i, iarr, i, iarr, i, i, i, ctypes.POINTER(ctypes.c_longlong),
     ]

@@ -34,6 +34,15 @@ ceil(n/8)*8`` (the TPU kernel's sender padding, kept in the ids though nothing
 is padded here); the knn kernels of :mod:`.knn_kernels` use ``b*n*k + i*k + s``
 with the unpadded ``n`` and the neighbour's extraction rank ``s``.
 
+Each takes all-float32 tensors, or all-bf16 ones for the bf16 mode
+(``StepConfig.bf16``; the Pallas kernels called with bf16 refs): the hidden
+products on bf16-rounded activations and bf16 weights with float32
+accumulation, everything around them in float32, the outputs rounded to bf16
+once (K3: its backward's products in float32, the weight gradients summed in
+float32 and rounded to bf16). On the card the bf16 mode has kernels of its own
+(``csrc/edge_aggregate_bf16.cu``, ``edge_aggregate_bwd_bf16.cu``: the products
+on tensor cores) and launch counts of its own (``*_bf16``).
+
 The launches are planned here (:func:`fwd_plan`, :func:`bwd_plan`: the pass
 shape, the items of the persistent grid, the grid), so that the planning is
 tested where there is no card. A wrapper runs the plain version for tensors on
@@ -74,6 +83,12 @@ launch_counts = {
     "knn_search": 0,                # K7
     "knn_edge_aggregate": 0,        # K8
     "gapt_g_fused": 0,              # K9
+    # the bf16 mode (bf16 inputs and weights, StepConfig.bf16) of K2, K4 and K3
+    "edge_aggregate_bf16": 0,
+    "edge_aggregate_train_bf16": 0,
+    "edge_aggregate_fn_bf16": 0,
+    "edge_aggregate_bwd_bf16": 0,
+    "edge_aggregate_bwd_no_wgrads_bf16": 0,
 }
 
 
@@ -191,17 +206,43 @@ def _dropmul(ids: torch.Tensor, cols: int, p: float, seed, salt: int) -> torch.T
     return hash_mult(ids * _i32(0x9E3779B1) + _seed_key(seed, salt) + ckey, p, torch.float32)
 
 
+def _is_bf16(*tensors: torch.Tensor) -> bool:
+    """True for all-bfloat16 tensors (the bf16 mode), False for all-float32;
+    raises on anything else or a mix."""
+    dtypes = {t.dtype for t in tensors}
+    if dtypes == {torch.bfloat16}:
+        return True
+    if dtypes == {torch.float32}:
+        return False
+    raise TypeError(f"the edge kernels take all-float32 or all-bfloat16 tensors, got "
+                    f"{sorted(map(str, dtypes))}")
+
+
+def _bf16_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 and held in float32: the operand the bf16 mode
+    feeds a product. Products of bf16 values are exact in float32, so a float32
+    matmul of such operands is the bf16 product with float32 accumulation."""
+    return t.to(torch.bfloat16).float()
+
+
 def _chain_recompute(u1, u2, hidden_flat, alpha, dropout_p, seed):
     """Pre-activations ``z_l``, activations ``a_l`` (after dropout) and the
-    dropout multipliers of every layer of the edge chain, ``[B, N, N, H_l]``."""
+    dropout multipliers of every layer of the edge chain, ``[B, N, N, H_l]``.
+    bf16 inputs (the bf16 mode, ``mp_pallas._split_mlp_chain``): everything is
+    float32 but each hidden product's operand, rounded to bf16 (the stored
+    activations are not)."""
     pairs = _pairs(hidden_flat)
+    bf16 = u1.dtype == torch.bfloat16
+    if bf16:
+        u1, u2 = u1.float(), u2.float()
+        pairs = [(w.float(), b.float()) for w, b in pairs]
     ids = pair_ids(u1.shape[0], u1.shape[1], u1.device) if dropout_p > 0 else None
     zs, acts, mults = [], [], []
     z = u1[:, :, None, :] + u2[:, None, :, :]
     for salt in range(len(pairs) + 1):
         if salt:
             w, b = pairs[salt - 1]
-            z = torch.matmul(acts[-1], w) + b
+            z = torch.matmul(_bf16_operand(acts[-1]) if bf16 else acts[-1], w) + b
         a = _leaky(z, alpha)
         m = _dropmul(ids, z.shape[-1], dropout_p, seed, salt) if dropout_p > 0 else None
         zs.append(z)
@@ -210,10 +251,23 @@ def _chain_recompute(u1, u2, hidden_flat, alpha, dropout_p, seed):
     return zs, acts, mults
 
 
+def _edge_aggregate_f32(u1, u2, mask, hidden_flat, alpha, sum_agg, dropout_p, seed):
+    """The K2 aggregate in float32 (bf16 inputs: the bf16 mode's, unrounded)."""
+    _, acts, _ = _chain_recompute(u1, u2, hidden_flat, alpha, dropout_p, seed)
+    a = acts[-1] * mask.float()[:, None, :, :]
+    return a.sum(dim=2) if sum_agg else a.sum(dim=2) / u1.shape[1]
+
+
 def edge_aggregate_reference(u1, u2, mask, hidden_flat, alpha: float, sum_agg: bool,
                              dropout_p: float = 0.0, seed: int = 0):
     """Plain PyTorch version of the K2 forward (``mp_pallas.edge_aggregate_reference``,
-    plus the in-kernel dropout of ``_fwd_kernel``)."""
+    plus the in-kernel dropout of ``_fwd_kernel``). bf16 inputs select the bf16
+    mode (``_fwd_kernel`` on bf16 refs): the chain as :func:`_chain_recompute`
+    rounds it, the masked sum and the mean in float32, the output rounded to
+    bf16 once."""
+    if _is_bf16(u1, u2, mask, *hidden_flat):
+        agg = _edge_aggregate_f32(u1, u2, mask, hidden_flat, alpha, sum_agg, dropout_p, seed)
+        return agg.to(torch.bfloat16)
     _, acts, _ = _chain_recompute(u1, u2, hidden_flat, alpha, dropout_p, seed)
     a = acts[-1] * mask[:, None, :, :]
     return a.sum(dim=2) if sum_agg else a.mean(dim=2)
@@ -224,9 +278,19 @@ def edge_aggregate_bwd_reference(u1, u2, mask, hidden_flat, g, alpha: float, sum
                                  need_wgrads: bool = True):
     """Plain PyTorch version of K3 (``mp_pallas._bwd_kernel``): recompute the
     chain, replay the dropout masks, backprop. Returns ``(du1, du2, dmask,
-    dhidden_flat)``; the hidden gradients are zeros without ``need_wgrads``."""
+    dhidden_flat)``; the hidden gradients are zeros without ``need_wgrads``.
+    bf16 inputs select the bf16 mode: the recompute rounds as the forward's,
+    the backward runs in float32 (dW on the unrounded activations, da on the
+    float32 values of the bf16 weights), du1, du2 and dmask are rounded to
+    bf16 once, the weight gradients summed in float32 and then rounded to the
+    weights' dtype (``mp_pallas._edge_aggregate_bwd``)."""
+    bf16 = _is_bf16(u1, u2, mask, g, *hidden_flat)
+    out_dtype = u1.dtype
     pairs = _pairs(hidden_flat)
     zs, acts, mults = _chain_recompute(u1, u2, hidden_flat, alpha, dropout_p, seed)
+    if bf16:
+        g, mask = g.float(), mask.float()
+        pairs = [(w.float(), b.float()) for w, b in pairs]
     if not sum_agg:
         g = g / u1.shape[1]
     dmask = (acts[-1] * g[:, :, None, :]).sum(dim=(1, 3))[..., None]
@@ -241,15 +305,25 @@ def edge_aggregate_bwd_reference(u1, u2, mask, hidden_flat, g, alpha: float, sum
         w = pairs[layer - 1][0]
         if need_wgrads:
             a_in = acts[layer - 1]
-            dhidden[2 * (layer - 1)] = torch.matmul(
-                a_in.reshape(-1, a_in.shape[-1]).t(), dz.reshape(-1, dz.shape[-1]))
-            dhidden[2 * (layer - 1) + 1] = dz.sum(dim=(0, 1, 2))
+            dw = torch.matmul(a_in.reshape(-1, a_in.shape[-1]).t(), dz.reshape(-1, dz.shape[-1]))
+            db = dz.sum(dim=(0, 1, 2))
+            dhidden[2 * (layer - 1)] = dw.to(out_dtype)
+            dhidden[2 * (layer - 1) + 1] = db.to(out_dtype)
         da = torch.matmul(dz, w.t())
-    return dz.sum(dim=2), dz.sum(dim=1), dmask, tuple(dhidden)
+    du1, du2 = dz.sum(dim=2), dz.sum(dim=1)
+    if bf16:
+        du1, du2, dmask = (t.to(out_dtype) for t in (du1, du2, dmask))
+    return du1, du2, dmask, tuple(dhidden)
 
 
-def _fn_chain(agg, x, fn_flat, fn_alpha: float, fn_final_linear: bool):
+def _fn_chain(agg, x, fn_flat, fn_alpha: float, fn_final_linear: bool, bf16: bool = False):
+    """fn on ``[agg | x]`` with its first layer split. ``bf16``: float32 ``agg``
+    and bf16 ``x`` and weights (``mp_pallas._fn_tail``): the first layer takes
+    float32 operands, later layers bf16-rounded ones, every sum float32."""
     num_layers = (len(fn_flat) - 3) // 2 + 1
+    if bf16:
+        x = x.float()
+        fn_flat = [t.float() for t in fn_flat]
 
     def act(i: int) -> bool:
         return i != num_layers - 1 or not fn_final_linear
@@ -258,10 +332,10 @@ def _fn_chain(agg, x, fn_flat, fn_alpha: float, fn_final_linear: bool):
     if act(0):
         z = _leaky(z, fn_alpha)
     for layer, (w, b) in enumerate(_pairs(fn_flat[3:])):
-        z = torch.matmul(z, w) + b
+        z = torch.matmul(_bf16_operand(z) if bf16 else z, w) + b
         if act(layer + 1):
             z = _leaky(z, fn_alpha)
-    return z
+    return z.to(torch.bfloat16) if bf16 else z
 
 
 def edge_aggregate_fn_reference(
@@ -269,7 +343,12 @@ def edge_aggregate_fn_reference(
     fn_alpha: float, fn_final_linear: bool,
 ):
     """Plain PyTorch version of K4: the K2 aggregate, then fn on ``[agg | x]``
-    with its first layer decomposed (``mp_pallas._edge_fn_composed``)."""
+    with its first layer decomposed (``mp_pallas._edge_fn_composed``). bf16
+    inputs select the bf16 mode (``_fwd_kernel_jets_fn``): the aggregate stays
+    float32 into fn (see :func:`_fn_chain`), the output is rounded to bf16."""
+    if _is_bf16(u1, u2, mask, x, *hidden_flat, *fn_flat):
+        agg = _edge_aggregate_f32(u1, u2, mask, hidden_flat, alpha, sum_agg, 0.0, 0)
+        return _fn_chain(agg, x, fn_flat, fn_alpha, fn_final_linear, bf16=True)
     agg = edge_aggregate_reference(u1, u2, mask, hidden_flat, alpha, sum_agg)
     return _fn_chain(agg, x, fn_flat, fn_alpha, fn_final_linear)
 
@@ -292,10 +371,10 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def _check_cuda_args(name: str, tensors: dict[str, torch.Tensor],
-                     weights: Sequence[torch.Tensor]) -> None:
+                     weights: Sequence[torch.Tensor], dtype: torch.dtype = torch.float32) -> None:
     for k, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {k} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {k} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
     # the kernels read 4 weight columns as one 128-bit load
@@ -363,9 +442,12 @@ def seed_arg(name: str, seed, device: torch.device) -> torch.Tensor:
 
 def edge_aggregate(u1, u2, mask, hidden_flat, alpha: float, sum_agg: bool,
                    dropout_p: float = 0.0, seed=0):
-    """K2 forward: the plain version on the CPU, the CUDA kernel on a GPU."""
+    """K2 forward: the plain version on the CPU, the CUDA kernel on a GPU; all
+    inputs float32, or all bf16 for the bf16 mode (its own kernel and count)."""
     hidden_flat = tuple(hidden_flat)
-    name = "edge_aggregate_train" if dropout_p > 0 else "edge_aggregate"
+    bf16 = _is_bf16(u1, u2, mask, *hidden_flat)
+    name = ("edge_aggregate_train" if dropout_p > 0 else "edge_aggregate") + \
+        ("_bf16" if bf16 else "")
     _check_dropout(name, dropout_p, seed)
     if _on_cpu(u1, u2, mask, *hidden_flat):
         return edge_aggregate_reference(u1, u2, mask, hidden_flat, alpha, sum_agg,
@@ -374,13 +456,13 @@ def edge_aggregate(u1, u2, mask, hidden_flat, alpha: float, sum_agg: bool,
     dims = _check_edge_shapes(name, u1, u2, mask, pairs)
     _check_cuda_args(name, {"u1": u1, "u2": u2, "mask": mask,
                             **{f"hidden[{i}]": t for i, t in enumerate(hidden_flat)}},
-                     hidden_flat[::2])
+                     hidden_flat[::2], u1.dtype)
     b_sz, n, h1 = u1.shape
-    out = torch.empty((b_sz, n, dims[-1]), dtype=torch.float32, device=u1.device)
+    out = torch.empty((b_sz, n, dims[-1]), dtype=u1.dtype, device=u1.device)
     plan = fwd_plan(b_sz, n, dims, _sm_count(u1.device))
     # the kernel's own copy of the weights, laid out for its products
-    packed = torch.empty((max(fwd_packed_floats(dims, plan.rows), 1),), dtype=torch.float32,
-                         device=u1.device)
+    packed_floats = (fwd_packed_floats_bf16 if bf16 else fwd_packed_floats)(dims, plan.rows)
+    packed = torch.empty((max(packed_floats, 1),), dtype=torch.float32, device=u1.device)
     lib = _build.library()
     w, b = _chain_args(pairs)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
@@ -388,7 +470,15 @@ def edge_aggregate(u1, u2, mask, hidden_flat, alpha: float, sum_agg: bool,
         stream = torch.cuda.current_stream().cuda_stream
         shape = (plan.ti, plan.jc, plan.rows, plan.grid, plan.slab_floats, stream)
         ptrs = (u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), out.data_ptr(), packed.data_ptr())
-        if dropout_p > 0:
+        if bf16:
+            thr, mult = dropout_threshold_mult(dropout_p) if dropout_p > 0 else (0, 1.0)
+            seed_t = seed_arg(name, seed, u1.device) if dropout_p > 0 else None
+            code = lib.mpgan_edge_aggregate_bf16(
+                *ptrs, packed_floats, b_sz, n, h1, len(pairs), w, b, dim_arr, float(alpha),
+                int(bool(sum_agg)), int(dropout_p > 0),
+                None if seed_t is None else seed_t.data_ptr(), thr, mult, *shape,
+            )
+        elif dropout_p > 0:
             thr, mult = dropout_threshold_mult(dropout_p)
             seed_t = seed_arg(name, seed, u1.device)
             code = lib.mpgan_edge_aggregate_train(
@@ -596,6 +686,34 @@ def fwd_smem_bytes(dims: Sequence[int], rows: int, ti: int,
                 + 2 * fwd_slab_floats(dims, rows, ti, fn_dims))
 
 
+def _ceil(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def fwd_packed_floats_bf16(dims: Sequence[int], rows: int,
+                           fn_dims: Sequence[int] | None = None) -> int:
+    """Floats of the copy of the weights that a bf16-mode forward launch packs
+    (``edge_aggregate_bf16.cu``: fwd_pack_bf16): per fe (and fn) layer a bf16
+    copy in fragment order, K padded to 16 and M to 8, two values a float; K4's
+    fn first layer in the FP32 stage's order; then every bias as float32,
+    padded to 4."""
+    col_threads = 8 * ((BWD_THREADS // 32) // (rows // 32))
+    layers = list(zip(dims[:-1], dims[1:])) + list(zip((fn_dims or [])[:-1], (fn_dims or [])[1:]))
+    f32_layer = len(dims) - 1 if fn_dims else -1
+    weights = sum(k * _ceil(m, col_threads) if i == f32_layer else _ceil(k, 16) * _ceil(m, 8) // 2
+                  for i, (k, m) in enumerate(layers))
+    return weights + sum(_ceil(m, 4) for _, m in layers)
+
+
+def bwd_packed_floats_bf16(dims: Sequence[int], rows: int) -> int:
+    """Floats of the copy of the weights that a bf16-mode backward launch packs
+    (``edge_aggregate_bwd_bf16.cu``): per hidden layer the recompute's bf16 copy
+    in fragment order, W^T as float32 values for da, and the bias as float32."""
+    col_threads = 8 * ((BWD_THREADS // 32) // (rows // 32))
+    return sum(_ceil(k, 16) * _ceil(m, 8) // 2 + m * _ceil(k, col_threads) + _ceil(m, 4)
+               for k, m in zip(dims[:-1], dims[1:]))
+
+
 def fwd_packed_floats(dims: Sequence[int], rows: int, fn_dims: Sequence[int] | None = None) -> int:
     """Floats of the copy of the weights that a forward launch packs for its
     products: per fe (and fn) layer, K rows of M padded to the column threads."""
@@ -677,9 +795,13 @@ def _flat_wgrads(flat: torch.Tensor, hidden_flat, extra: int = 0):
 def edge_aggregate_bwd(u1, u2, mask, hidden_flat, g, alpha: float, sum_agg: bool,
                        dropout_p: float = 0.0, seed=0, need_wgrads: bool = True):
     """K3: the plain backward on the CPU, the CUDA kernel on a GPU. Returns
-    ``(du1, du2, dmask, dhidden_flat)``."""
+    ``(du1, du2, dmask, dhidden_flat)``, in the inputs' dtype: all float32, or
+    all bf16 for the bf16 mode (its own kernel and count; the weight gradients
+    summed in float32, then rounded to bf16)."""
     hidden_flat = tuple(hidden_flat)
-    name = "edge_aggregate_bwd" if need_wgrads else "edge_aggregate_bwd_no_wgrads"
+    bf16 = _is_bf16(u1, u2, mask, g, *hidden_flat)
+    name = ("edge_aggregate_bwd" if need_wgrads else "edge_aggregate_bwd_no_wgrads") + \
+        ("_bf16" if bf16 else "")
     _check_dropout(name, dropout_p, seed)
     if _on_cpu(u1, u2, mask, g, *hidden_flat):
         return edge_aggregate_bwd_reference(u1, u2, mask, hidden_flat, g, alpha, sum_agg,
@@ -694,10 +816,11 @@ def edge_aggregate_bwd(u1, u2, mask, hidden_flat, g, alpha: float, sum_agg: bool
         raise ValueError(f"{name}: g {tuple(g.shape)} must be {(b_sz, n, dims[-1])}")
     _check_cuda_args(name, {"u1": u1, "u2": u2, "mask": mask, "g": g,
                             **{f"hidden[{i}]": t for i, t in enumerate(hidden_flat)}},
-                     hidden_flat[::2])
+                     hidden_flat[::2], u1.dtype)
     dev = u1.device
     f32 = dict(dtype=torch.float32, device=dev)
-    du1 = torch.empty_like(u1)
+    # bf16: du1 is summed in float32 over the sender chunks, then rounded here
+    du1 = torch.empty(u1.shape, **f32) if bf16 else torch.empty_like(u1)
     du2 = torch.empty_like(u2)
     dmask = torch.empty_like(mask)
     w_total = sum(t.numel() for t in hidden_flat)
@@ -711,7 +834,8 @@ def edge_aggregate_bwd(u1, u2, mask, hidden_flat, g, alpha: float, sum_agg: bool
     w_part = torch.empty((plan.grid, bwd_wslab_floats(dims)) if need_wgrads and w_total
                          else (1,), **f32)
     # the kernel's own copy of the weights, W and W^T laid out for its products
-    packed = torch.empty((max(bwd_packed_floats(dims, plan.rows), 1),), **f32)
+    packed_floats = (bwd_packed_floats_bf16 if bf16 else bwd_packed_floats)(dims, plan.rows)
+    packed = torch.empty((max(packed_floats, 1),), **f32)
     lib = _build.library()
     w, b = _chain_args(pairs)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
@@ -719,17 +843,22 @@ def edge_aggregate_bwd(u1, u2, mask, hidden_flat, g, alpha: float, sum_agg: bool
     seed_t = seed_arg(name, seed, dev) if dropout_p > 0 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mpgan_edge_aggregate_bwd(
-            u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), g.data_ptr(),
-            du1.data_ptr(), du2.data_ptr(), dmask.data_ptr(), flat.data_ptr(),
-            sender_part.data_ptr(), w_part.data_ptr(),
-            b_sz, n, h1, len(pairs), w, packed.data_ptr(), b, dim_arr, float(alpha),
-            int(bool(sum_agg)), int(dropout_p > 0), None if seed_t is None else seed_t.data_ptr(),
-            thr, mult, int(bool(need_wgrads)),
-            plan.ti, plan.jc, plan.rows, plan.grid, plan.slots, stream,
-        )
+        ptrs = (u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                du1.data_ptr(), du2.data_ptr(), dmask.data_ptr(), flat.data_ptr(),
+                sender_part.data_ptr(), w_part.data_ptr(), b_sz, n, h1, len(pairs), w,
+                packed.data_ptr())
+        rest = (b, dim_arr, float(alpha), int(bool(sum_agg)), int(dropout_p > 0),
+                None if seed_t is None else seed_t.data_ptr(), thr, mult, int(bool(need_wgrads)),
+                plan.ti, plan.jc, plan.rows, plan.grid, plan.slots, stream)
+        if bf16:
+            code = lib.mpgan_edge_aggregate_bwd_bf16(*ptrs, packed_floats, *rest)
+        else:
+            code = lib.mpgan_edge_aggregate_bwd(*ptrs, *rest)
     _build.check(code, name)
     launch_counts[name] += 1
+    if bf16:
+        du1 = du1.to(torch.bfloat16)
+        dhidden = tuple(t.to(torch.bfloat16) for t in dhidden)
     return du1, du2, dmask, dhidden
 
 
@@ -768,13 +897,15 @@ def edge_aggregate_fn(
     u1, u2, mask, hidden_flat, x, fn_flat, alpha: float, sum_agg: bool,
     fn_alpha: float, fn_final_linear: bool,
 ):
-    """K4: the plain version on the CPU, the CUDA kernel on a GPU."""
+    """K4: the plain version on the CPU, the CUDA kernel on a GPU; all inputs
+    float32, or all bf16 for the bf16 mode (its own kernel and count)."""
     hidden_flat, fn_flat = tuple(hidden_flat), tuple(fn_flat)
+    bf16 = _is_bf16(u1, u2, mask, x, *hidden_flat, *fn_flat)
     if _on_cpu(u1, u2, mask, x, *hidden_flat, *fn_flat):
         return edge_aggregate_fn_reference(
             u1, u2, mask, hidden_flat, x, fn_flat, alpha, sum_agg, fn_alpha, fn_final_linear
         )
-    name = "edge_aggregate_fn"
+    name = "edge_aggregate_fn" + ("_bf16" if bf16 else "")
     pairs = _pairs(hidden_flat)
     dims = _check_edge_shapes(name, u1, u2, mask, pairs)
     b_sz, n, h1 = u1.shape
@@ -789,11 +920,12 @@ def edge_aggregate_fn(
     _check_cuda_args(name, {"u1": u1, "u2": u2, "mask": mask, "x": x,
                             **{f"hidden[{i}]": t for i, t in enumerate(hidden_flat)},
                             **{f"fn[{i}]": t for i, t in enumerate(fn_flat)}},
-                     hidden_flat[::2] + (w_top, w_bot) + fn_flat[3::2])
-    out = torch.empty((b_sz, n, fn_dims[-1]), dtype=torch.float32, device=u1.device)
+                     hidden_flat[::2] + (w_top, w_bot) + fn_flat[3::2], u1.dtype)
+    out = torch.empty((b_sz, n, fn_dims[-1]), dtype=u1.dtype, device=u1.device)
     plan = fwd_plan(b_sz, n, dims, _sm_count(u1.device), fn_dims)
-    packed = torch.empty((fwd_packed_floats(dims, plan.rows, fn_dims),), dtype=torch.float32,
-                         device=u1.device)
+    packed_floats = (fwd_packed_floats_bf16 if bf16 else fwd_packed_floats)(dims, plan.rows,
+                                                                             fn_dims)
+    packed = torch.empty((packed_floats,), dtype=torch.float32, device=u1.device)
     lib = _build.library()
     w, b = _chain_args(pairs)
     fw, fb = _chain_args(fn_pairs)
@@ -801,13 +933,16 @@ def edge_aggregate_fn(
     fn_dim_arr = (ctypes.c_int * len(fn_dims))(*fn_dims)
     with torch.cuda.device(u1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mpgan_edge_aggregate_fn(
-            u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), x.data_ptr(), out.data_ptr(),
-            packed.data_ptr(), b_sz, n, h1, feat, len(pairs), w, b, dim_arr,
-            len(fn_pairs), fw, w_bot.data_ptr(), fb, fn_dim_arr,
-            float(alpha), int(bool(sum_agg)), float(fn_alpha), int(not fn_final_linear),
-            plan.ti, plan.jc, plan.rows, plan.span, plan.grid, plan.slab_floats, stream,
-        )
+        ptrs = (u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), x.data_ptr(), out.data_ptr(),
+                packed.data_ptr())
+        rest = (b_sz, n, h1, feat, len(pairs), w, b, dim_arr,
+                len(fn_pairs), fw, w_bot.data_ptr(), fb, fn_dim_arr,
+                float(alpha), int(bool(sum_agg)), float(fn_alpha), int(not fn_final_linear),
+                plan.ti, plan.jc, plan.rows, plan.span, plan.grid, plan.slab_floats, stream)
+        if bf16:
+            code = lib.mpgan_edge_aggregate_fn_bf16(*ptrs, packed_floats, *rest)
+        else:
+            code = lib.mpgan_edge_aggregate_fn(*ptrs, *rest)
     _build.check(code, name)
     launch_counts[name] += 1
     return out

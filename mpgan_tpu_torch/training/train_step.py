@@ -40,9 +40,25 @@ order, the dropout keys included (:class:`..ops.keys.KeySlots`), and copies
 them into the buffers before each run. :class:`StepGraphs` keeps the epoch
 loop's static steps.
 
-Not ported here (each raises ``NotImplementedError``): bf16 training, the
-batched real+fake D pass and data-parallel steps (ROADMAP.md Queue 1,
-train-step leftovers and multi-device).
+Mixed precision (``StepConfig.bf16``, ``--compute-dtype bfloat16``; the JAX
+package's ``train_step.py:148-166``): every G and D apply of the step runs on
+bf16 copies of the parameters, buffers and float inputs (noise, data) through
+``torch.func.functional_call``; the casts are differentiable, so the gradients
+land on the float32 parameters. The output comes back as float32, and the
+buffers' new values (BN running statistics, SN vectors) are copied back into
+the float32 buffers, so they pass through bf16 every step, as the JAX state
+does. Labels pass as they are. Losses, the GP, augmentation, ``post_gen`` and
+the optimizers stay float32; the draws and the dropout keys are the float32
+step's. On the card the dense edge layers then run the bf16 modes of K2, K3
+and K4.
+
+``StepConfig.batched_d`` runs the D step's real and fake passes as one pass over
+``[real | fake]`` (2B rows) with the real pass's keys, labels concatenated and
+the output split at B (``train_step.py:199-214``): legal only where D's output
+per jet does not depend on the batch and D keeps no state across passes (no BN,
+no SN), as the JAX package documents. The loop keeps it off, as the JAX loop does.
+
+Not ported here: data-parallel steps (ROADMAP.md Queue 1, multi-device).
 """
 
 from __future__ import annotations
@@ -82,29 +98,22 @@ class StepConfig:
     label_noise: float = 0.0
     augment: AugmentConfig | None = None
     aug_prob: float = 1.0
-    bf16: bool = False
-    batched_d: bool = False
-
-    def __post_init__(self):
-        refused = [k for k in ("bf16", "batched_d") if getattr(self, k)]
-        if refused:
-            raise NotImplementedError(
-                f"{', '.join(refused)} in the train step: not ported yet, ROADMAP.md Queue 1, "
-                "train-step leftovers"
-            )
+    bf16: bool = False  # --compute-dtype bfloat16: bf16 applies, float32 master state
+    batched_d: bool = False  # one D pass over [real | fake]
 
 
 def step_config(args: Any) -> StepConfig:
     """The step config of processed args (the loss, the GP, the targets' noise,
-    ``--aug-*`` and ``aug_prob``; ``augment`` None where no transform is on), as
-    the training loop builds it."""
+    ``--aug-*`` and ``aug_prob``; ``augment`` None where no transform is on;
+    ``bf16`` from ``--compute-dtype``), as the training loop builds it;
+    ``batched_d`` stays off."""
     augment = AugmentConfig(aug_t=args.aug_t, aug_f=args.aug_f, aug_r90=args.aug_r90,
                             aug_s=args.aug_s, translate_ratio=args.translate_ratio,
                             scale_sd=args.scale_sd)
     return StepConfig(
         loss=args.loss, gp_lambda=args.gp, label_smoothing=args.label_smoothing,
         label_noise=args.label_noise, augment=augment if augment.any else None,
-        aug_prob=args.aug_prob,
+        aug_prob=args.aug_prob, bf16=getattr(args, "compute_dtype", "float32") == "bfloat16",
     )
 
 
@@ -203,6 +212,32 @@ def draw_g(state: TrainState, cfg: StepConfig, spec: NoiseSpec, batch_size: int,
                      host_draw_g(state.generator, cfg, spec, batch_size))
 
 
+def bf16_apply(module: torch.nn.Module, x: torch.Tensor, labels: torch.Tensor | None,
+               **kwargs) -> torch.Tensor:
+    """``module(x, labels, **kwargs)`` in bf16: on bf16 copies of its parameters
+    (differentiable casts) and floating buffers, with ``x`` cast to bf16; returns
+    the output as float32 and copies the buffers' new values back into the
+    float32 buffers (in-place updates such as BN's running statistics land on
+    the copies)."""
+    bf16 = torch.bfloat16
+    tensors = {name: p.to(bf16) for name, p in module.named_parameters()}
+    buffers = {name: b for name, b in module.named_buffers() if b.is_floating_point()}
+    copies = {name: b.to(bf16) for name, b in buffers.items()}
+    out = torch.func.functional_call(module, {**tensors, **copies}, (x.to(bf16), labels), kwargs)
+    with torch.no_grad():
+        for name, b in buffers.items():
+            b.copy_(copies[name])
+    return out.float()
+
+
+def _apply(cfg: StepConfig, module: torch.nn.Module, x: torch.Tensor,
+           labels: torch.Tensor | None, **kwargs) -> torch.Tensor:
+    """An apply of G or D in the step: :func:`bf16_apply` with ``cfg.bf16``."""
+    if cfg.bf16:
+        return bf16_apply(module, x, labels, **kwargs)
+    return module(x, labels, **kwargs)
+
+
 def _maybe_aug(cfg: StepConfig, x: torch.Tensor, draws: AugmentDraws | None) -> torch.Tensor:
     return x if cfg.augment is None else augment(cfg.augment, x, cfg.aug_prob, draws)
 
@@ -234,15 +269,25 @@ def d_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
     g_kw, d_kw = epoch_kwargs(g, epoch), epoch_kwargs(d, epoch)
     with torch.no_grad():
         # fresh fake batch, G in eval mode with spectral norm advancing (train.py:421,428)
-        fake = g(draws.noise, labels, train=False, **g_kw)
+        fake = _apply(cfg, g, draws.noise, labels, train=False, **g_kw)
         if post_gen is not None:
             fake = post_gen(fake)
         fake = _maybe_aug(cfg, fake, draws.aug_fake)
-    real_out = d(data, labels, train=True, rng=draws.real, **d_kw)  # unaugmented (train.py:425)
-    fake_out = d(fake, labels, train=True, rng=draws.fake, **d_kw)
+    if cfg.batched_d:
+        # one pass over [real | fake] with the real pass's keys (the real rows unaugmented)
+        b = data.shape[0]
+        both = torch.cat([data, fake], dim=0)
+        labels2 = None if labels is None else torch.cat([labels, labels], dim=0)
+        out = _apply(cfg, d, both, labels2, train=True, rng=draws.real, **d_kw)
+        real_out, fake_out = out[:b], out[b:]
+    else:
+        # real pass on unaugmented data (train.py:425)
+        real_out = _apply(cfg, d, data, labels, train=True, rng=draws.real, **d_kw)
+        fake_out = _apply(cfg, d, fake, labels, train=True, rng=draws.fake, **d_kw)
     total, parts = d_loss(cfg.loss, real_out, fake_out, draws.targets)
     if cfg.gp_lambda:
-        gp = gradient_penalty(lambda x: d(x, labels, train=True, rng=draws.gp, **d_kw),
+        gp = gradient_penalty(lambda x: _apply(cfg, d, x, labels, train=True, rng=draws.gp,
+                                               **d_kw),
                               draws.gp_alpha, _maybe_aug(cfg, data, draws.aug_real), fake,
                               cfg.gp_lambda)
         parts = dict(parts, gp=gp)
@@ -261,7 +306,7 @@ def g_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
     batch_size = labels.shape[0] if labels is not None else data.shape[0]
     draws = draws if draws is not None else draw_g(state, cfg, spec, batch_size, data.device)
     g, d = state.g, state.d
-    fake = g(draws.noise, labels, train=True, rng=draws.g, **epoch_kwargs(g, epoch))
+    fake = _apply(cfg, g, draws.noise, labels, train=True, rng=draws.g, **epoch_kwargs(g, epoch))
     if post_gen is not None:
         fake = post_gen(fake)
     fake = _maybe_aug(cfg, fake, draws.aug)
@@ -270,7 +315,8 @@ def g_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
     flags = [p.requires_grad for p in d.parameters()]
     d.requires_grad_(False)
     try:
-        fake_out = d(fake, labels, train=True, rng=draws.d, **epoch_kwargs(d, epoch))
+        fake_out = _apply(cfg, d, fake, labels, train=True, rng=draws.d,
+                          **epoch_kwargs(d, epoch))
     finally:
         for p, flag in zip(d.parameters(), flags):
             p.requires_grad_(flag)

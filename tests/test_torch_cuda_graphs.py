@@ -9,7 +9,8 @@ them on a GPU machine with
   seed tensor changed gives the new seed's;
 - ``CountedGraph`` replays add the captured launches to ``launch_counts``;
 - the static-buffer D+G step captured and replayed equals the eager loop bit
-  for bit (parameters, optimizer state, buffers, losses, generator), and the
+  for bit (parameters, optimizer state, buffers, losses, generator; in float32
+  and in bf16, ``--compute-dtype bfloat16``), and the
   sampler's graph equals the eager sampler's jets bit for bit.
 """
 
@@ -105,7 +106,8 @@ def _state(args, dev):
 
 
 @pytest.mark.parametrize("card", [CARD, {**CARD, "num_hits": 150, "fully_connected": False,
-                                          "num_knn": 20}], ids=["flagship", "knn20"])
+                                          "num_knn": 20}, {**CARD, "compute_dtype": "bfloat16"}],
+                         ids=["flagship", "knn20", "flagship_bf16"])
 def test_graph_steps_equal_the_eager_steps(dev, card):
     args = from_args_dict(card)
     b, steps = 32, 5

@@ -406,6 +406,170 @@ def test_discriminator_without_weight_grads_launches_k3_without_them(dev):
 
 
 # ---------------------------------------------------------------------------
+# the bf16 mode (StepConfig.bf16): K2, K3 and K4 on bf16 inputs and weights
+# ---------------------------------------------------------------------------
+
+# One bf16 rounding is 2^-8 of a value. The kernels and their plain versions
+# sum each hidden product in another order before an activation is rounded to
+# bf16 for the next product, and round the outputs once: rtol = atol = 1e-2.
+# Gradients (and K4's outputs, sums of 256 rounded inputs) as a whole: a
+# relative L2 error within BF16_REL_L2 and no element beyond BF16_MAX_SHARE of
+# the largest. An activation that the two accumulate a hair apart rounds to
+# neighbouring bf16 values, and a pre-activation within rounding of zero takes
+# the other LeakyReLU slope; the backward carries both through every layer. The
+# plain version itself, with its hidden pre-activations perturbed by 1e-6 to
+# 1e-5 relative (the size of an accumulation-order difference), moves by up to
+# 1.8% in L2 and 3.1% of the largest element at these shapes; a wrong slope,
+# column or row moves the whole tensor.
+BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+BF16_REL_L2 = 3e-2
+BF16_MAX_SHARE = 0.1
+BF16_SHAPES = [
+    (256, 30, [96, 160, 192]), (32, 150, [96, 160, 192]), (33, 13, [20, 13, 12]),
+    (3, 30, [250, 255, 256, 249, 200]), (2, 40, [13, 9, 11, 5]), (2, 5, [96]),
+]
+
+
+def _bf16(*ts):
+    return tuple(t.to(torch.bfloat16) for t in ts)
+
+
+def _assert_bf16_close(out, ref, scaled=False):
+    assert out.dtype == ref.dtype == torch.bfloat16
+    if not scaled:
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        return
+    o, r = out.float(), ref.float()
+    rel_l2 = ((o - r).norm() / r.norm().clamp_min(1e-30)).item()
+    share = ((o - r).abs().max() / max(1.0, r.abs().max().item())).item()
+    assert rel_l2 <= BF16_REL_L2 and share <= BF16_MAX_SHARE, (rel_l2, share)
+
+
+def _fp32_counts():
+    return {k: v for k, v in mk.launch_counts.items() if not k.endswith("_bf16")}
+
+
+@pytest.mark.parametrize("dropout_p,sum_agg", [(0.0, True), (0.5, False)])
+@pytest.mark.parametrize("b,n,widths", BF16_SHAPES)
+def test_edge_aggregate_bf16_matches_plain_twice(dev, dropout_p, sum_agg, b, n, widths):
+    """K2's bf16 mode against its plain version, counted apart from the FP32
+    mode, and two launches bit for bit."""
+    u1, u2, mask, hidden, _ = _chain(dev, b, n, widths, seed=n + b)
+    args = (*_bf16(u1, u2, mask), _bf16(*hidden), 0.2, sum_agg, dropout_p, 8080)
+    name = ("edge_aggregate_train" if dropout_p > 0 else "edge_aggregate") + "_bf16"
+    before, fp32 = mk.launch_counts[name], _fp32_counts()
+    out = mk.edge_aggregate(*args)
+    again = mk.edge_aggregate(*args)
+    torch.cuda.synchronize()
+    assert mk.launch_counts[name] == before + 2 and _fp32_counts() == fp32
+    _assert_bf16_close(out, mk.edge_aggregate_reference(*args))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("need_wgrads", [True, False])
+@pytest.mark.parametrize("dropout_p,sum_agg", [(0.0, True), (0.5, False)])
+@pytest.mark.parametrize("b,n,widths", BF16_SHAPES)
+def test_edge_aggregate_bwd_bf16_matches_plain_twice(dev, need_wgrads, dropout_p, sum_agg, b, n,
+                                                     widths):
+    """K3's bf16 mode against its plain version (bf16 gradients, weight
+    gradients rounded to bf16 from float32 sums), and two launches bit for bit."""
+    u1, u2, mask, hidden, g = _chain(dev, b, n, widths, seed=n + b)
+    args = (*_bf16(u1, u2, mask), _bf16(*hidden), *_bf16(g), 0.2, sum_agg, dropout_p, 515,
+            need_wgrads)
+    name = ("edge_aggregate_bwd" if need_wgrads else "edge_aggregate_bwd_no_wgrads") + "_bf16"
+    before = mk.launch_counts[name]
+    out = mk.edge_aggregate_bwd(*args)
+    again = mk.edge_aggregate_bwd(*args)
+    torch.cuda.synchronize()
+    assert mk.launch_counts[name] == before + 2
+    ref = mk.edge_aggregate_bwd_reference(*args)
+    for o, r in zip(out[:3] + out[3], ref[:3] + ref[3]):
+        _assert_bf16_close(o, r, scaled=True)
+    if not need_wgrads:
+        assert not any(o.any() for o in out[3])
+    for x, y in zip(out[:3] + out[3], again[:3] + again[3]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("sum_agg,final_linear", [(True, True), (False, False)])
+@pytest.mark.parametrize("b,n,fe,feat,fn", [
+    (256, 30, [96, 160, 192], 32, [256, 256, 3]),  # the flagship G's last layer
+    (601, 30, [96, 160, 192], 32, [256, 256, 32]),
+    (33, 13, [30, 50, 7], 6, [13, 3]),             # odd widths
+    (2, 45, [64, 256, 224], 32, [256, 8]),         # wide: a 64-row pass
+    (3, 5, [96], 16, [20]),                         # no hidden layer
+])
+def test_edge_aggregate_fn_bf16_matches_plain_twice(dev, sum_agg, final_linear, b, n, fe, feat,
+                                                    fn):
+    """K4's bf16 mode against its plain version (fn's first layer on float32
+    operands), and two launches bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(n + b)
+    r = lambda *s, scale=0.3: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
+    hidden = tuple(t for a, c in zip(fe[:-1], fe[1:]) for t in (r(a, c, scale=a ** -0.5), r(c)))
+    full = [fe[-1] + feat] + fn
+    fn_flat = [r(fe[-1], fn[0], scale=full[0] ** -0.5), r(feat, fn[0], scale=full[0] ** -0.5),
+               r(fn[0])]
+    for a, c in zip(fn[:-1], fn[1:]):
+        fn_flat += [r(a, c, scale=a ** -0.5), r(c)]
+    mask = (torch.rand(b, n, 1, generator=g, device=dev) > 0.3).float()
+    u1, u2, x = _bf16(r(b, n, fe[0], scale=0.5), r(b, n, fe[0], scale=0.5), r(b, n, feat))
+    args = (u1, u2, *_bf16(mask), _bf16(*hidden), x, _bf16(*fn_flat), 0.2, sum_agg, 0.1,
+            final_linear)
+    before = mk.launch_counts["edge_aggregate_fn_bf16"]
+    out = mk.edge_aggregate_fn(*args)
+    again = mk.edge_aggregate_fn(*args)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["edge_aggregate_fn_bf16"] == before + 2
+    # fn's outputs sum 256 bf16-rounded inputs: an input one rounding apart moves
+    # an output by 2^-8 of the terms, not of the output (which may cancel)
+    _assert_bf16_close(out, mk.edge_aggregate_fn_reference(*args), scaled=True)
+    assert torch.equal(out, again)
+
+
+def test_bf16_packed_sizes_on_the_card_equal_the_launchers(dev):
+    """The wrappers' sizes of the bf16 mode's packed weights are the launchers' own."""
+    lib = _build.library()
+    arr = lambda d: (ctypes.c_int * len(d))(*d)  # noqa: E731
+    for dims, fn_dims in (([96, 160, 192], None), ([96, 160, 192], [224, 256, 256, 3]),
+                          ([30, 50, 7], [13, 13, 3]), ([96], [112, 20]),
+                          ([250, 255, 256, 249, 200], None)):
+        for rows in (32, 64, 128):
+            assert lib.mpgan_edge_fwd_packed_floats_bf16(
+                len(dims) - 1, arr(dims), len(fn_dims) - 1 if fn_dims else 0,
+                arr(fn_dims or [0]), rows) == mk.fwd_packed_floats_bf16(dims, rows, fn_dims)
+            assert lib.mpgan_edge_bwd_packed_floats_bf16(len(dims) - 1, arr(dims), rows) == \
+                mk.bwd_packed_floats_bf16(dims, rows)
+
+
+def test_bf16_function_grads_match_plain_and_take_the_weights_dtype(dev):
+    """EdgeAggregate in the bf16 mode: K2 forward, K3 backward, gradients bf16
+    (the weights' dtype, as the JAX package's VJP returns them)."""
+    u1, u2, mask, hidden, g = _chain(dev, 8, 30, [96, 160, 192], seed=5)
+    g = g.to(torch.bfloat16)
+
+    def grads(fn):
+        ins = [t.to(torch.bfloat16).requires_grad_() for t in (u1, u2, mask, *hidden)]
+        (fn(*ins).float() * g.float()).sum().backward()
+        return [t.grad for t in ins]
+
+    mk.reset_launch_counts()
+    k = grads(lambda a, b, m, *h: mk.EdgeAggregate.apply(a, b, m, 0.2, True, 0.5, 99, *h))
+    assert mk.launch_counts["edge_aggregate_train_bf16"] == 1
+    assert mk.launch_counts["edge_aggregate_bwd_bf16"] == 1
+    p = grads(lambda a, b, m, *h: mk.edge_aggregate_reference(a, b, m, h, 0.2, True, 0.5, 99))
+    for x, y in zip(k, p):
+        _assert_bf16_close(x, y, scaled=True)
+
+
+def test_wrappers_refuse_mixed_dtypes(dev):
+    u1, u2, mask, hidden, g = _chain(dev, 2, 13, [20, 13, 12], seed=1)
+    with pytest.raises(TypeError, match="float32 or all-bfloat16"):
+        mk.edge_aggregate(u1.to(torch.bfloat16), u2, mask, hidden, 0.2, True)
+    with pytest.raises(TypeError, match="float32 or all-bfloat16"):
+        mk.edge_aggregate_bwd(*_bf16(u1, u2, mask), hidden, g, 0.2, True)
+
+
+# ---------------------------------------------------------------------------
 # the knn layer: K5 (search + gather + chain + aggregate) and K6 (its backward)
 # ---------------------------------------------------------------------------
 

@@ -321,6 +321,9 @@ STATIC_CASES = {
                                  "optimizer": "adam"}, "d,g"),
     "knn_dg": (KNN, {}, "dg"),
     "gapt_dg": (GAPT, {"optimizer": "adadelta"}, "dg"),
+    # bf16 applies (StepConfig.bf16), with spectral norm in D: its vectors pass
+    # through bf16 and back into the float32 buffers every step
+    "bf16_dg": (NARROW, {"compute_dtype": "bfloat16", "spectral_norm_disc": True}, "dg"),
 }
 
 

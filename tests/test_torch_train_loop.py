@@ -219,12 +219,14 @@ def test_train_cli_refuses_cuda_without_a_gpu(tmp_path):
 @pytest.mark.parametrize("flags,match", [
     pytest.param(["--fpnd", "--num-hits", "30"], None, id="flags0-fpnd"),
     pytest.param(["--aug-t"], None, id="flags1-augment"),
-    pytest.param(["--compute-dtype", "bfloat16"], "bf16", id="flags2-bf16"),
+    pytest.param(["--compute-dtype", "bfloat16", "--no-fully-connected", "--num-knn", "3"],
+                 "bf16 knn and GAPT kernels", id="flags2-bf16"),
     pytest.param(["--mesh-shape", "4"], "mesh", id="flags3-mesh"),
 ])
 def test_trainer_refuses_what_is_not_ported(tmp_path, flags, match):
-    """bf16 training and a device mesh are refused; ``--fpnd`` and ``--aug-t``
-    (``match`` None), refused until they were ported, now build and are wired."""
+    """bf16 training of a knn layer and a device mesh are refused; ``--fpnd``
+    and ``--aug-t`` (``match`` None), refused until they were ported, now build
+    and are wired (bf16 of the dense path too: tests/test_torch_bf16.py)."""
     args = targs_cli.parse_cli(["--name", "r", "--dir-path", str(tmp_path), *TINY, *flags])
     train, valid = _datasets(args)
     if match is None:

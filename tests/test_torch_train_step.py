@@ -38,6 +38,7 @@ from mpgan_tpu_torch.training import config as tconfig
 from mpgan_tpu_torch.training import optimizers as topt
 from mpgan_tpu_torch.training import sampling as tsampling
 from mpgan_tpu_torch.training import train_step as tts
+from mpgan_tpu_torch.training.loop import check_supported
 from mpgan_tpu_torch.utils.weights import (
     jax_leaves,
     mp_discriminator_from_jax,
@@ -121,9 +122,15 @@ def test_discriminator_config_pins_gp_configs_to_the_plain_path(card):
 
 
 def test_step_config_refuses_what_is_not_ported():
-    for flag in ("bf16", "batched_d"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tts.StepConfig(**{flag: True})
+    """bf16 and the batched D pass are ported (tests/test_torch_bf16.py); bf16
+    on a path that reaches the knn or GAPT kernels is refused before a step is
+    built."""
+    assert tts.StepConfig(bf16=True, batched_d=True).bf16
+    for card in (KNN, {"model": "gapt", "num_hits": 10}):
+        args = tconfig.from_args_dict(dict(card, compute_dtype="bfloat16"))
+        assert tts.step_config(args).bf16
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, bf16 knn and GAPT"):
+            check_supported(args)
     # augmentation is ported (tests/test_torch_augment.py)
     assert tts.StepConfig(augment=AugmentConfig(aug_t=True)).augment.aug_t
 
