@@ -210,15 +210,37 @@ Phases, each printed as it finishes:
     against the eager loop bit for bit, and the bf16 and float32 graph steps in
     turns with a profile of each; 3 epochs of ``cli.train --compute-dtype
     bfloat16`` with a resume and the predicted bf16 launches (the evaluation
-    stays float32); bf16 with knn-20 and with GAPT refused; one ``batched_d``
-    D step of the GAPT pair against the CPU at 1e-4.
+    stays float32); one ``batched_d`` D step of the GAPT pair against the CPU
+    at 1e-4.
+29. bf16 training on the knn-20 and GAPT paths: K5 (eval; dropout 0.5 with
+    ``idx``; with and without distances), K7 (with and without distances), K8
+    and K6 (with and without weight gradients) in their bf16 modes against
+    their bf16 plain versions at knn-20's widths (B=160 N=150 k=20) and at a
+    ragged N=13 k=5, and K9 on bf16 inputs at B=1024 and B=4096, each within
+    rtol = atol = 1e-2 (K6's gradients held as a whole: relative L2 within
+    3e-2, no element beyond 0.1 of max(1, max|ref|), as the card tests hold
+    bf16 gradients) and launched twice bit for bit (K7 equal to K5's search, K8 on its ``idx`` to
+    K5's output, K9 to the FP32 launch on the widened inputs), then timed
+    beside its FP32 mode in turns, its plain version and its bound; the bf16
+    knn-20 D+G step at B=128 on routes 4 and 3 and the GAPT one at B=512
+    against the float32 step from the same weights and draws (losses within
+    5%, every master tensor float32, only the bf16 kernels launched, in the
+    counts a step predicts, a ``torch.profiler`` trace naming them), each bf16
+    epoch on the CUDA graph against the eager loop bit for bit, and the bf16
+    and float32 graph steps in turns with a profile of each; ``cli.train
+    --compute-dtype bfloat16`` on knn-20 (routes 4 and 3) and GAPT, 2 epochs
+    and a resume, with the counts set to 0 before each run and the predicted
+    bf16 launches read after (every bf16 kernel of the path launched).
 
 Every kernel's entry in the JSON line carries its bound: the larger of its
 FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
 read once, outputs written once) over 3.35 TB/s, at the shape its ``ms`` was
 taken at. The bf16 modes (``bf16`` inside the K2, K3 and K4 entries) count
 their tensor-core products at 989 TFLOP/s (dense bf16), K3's backward and K4's
-fn first layer at 67, and their bytes at bf16 sizes. Every time in that line was measured in this run. ``library_ms`` is
+fn first layer at 67, and their bytes at bf16 sizes; so do the bf16 modes
+inside the K5-K8 entries (K6's backward and K5's and K7's distances at 67, the
+bytes of the tensors at their real sizes), and K9's bf16 mode counts its
+float32 body at 67 and its bf16 inputs and output. Every time in that line was measured in this run. ``library_ms`` is
 null: no single PyTorch call computes any of these functions (a search is a
 distance product and a top-k, the aggregates and the GAPT generator are chains
 of products).
@@ -2792,27 +2814,6 @@ def bf16_cli(mk, train_cli, tmp):
     return counts
 
 
-def bf16_refusals(train_cli, tmp):
-    """``--compute-dtype bfloat16`` with a knn-20 model and with GAPT refuses."""
-    for name, flags in (("knn20", ["--num-hits", "150", "--no-fully-connected",
-                                   "--num-knn", "20"]),
-                        ("gapt", ["--model", "gapt"])):
-        argv = ["--device", "cuda", "--name", f"bf16_{name}", "--jets", "g", "--dir-path",
-                str(tmp), "--num-samples", "500", "--num-epochs", "1",
-                "--compute-dtype", "bfloat16", *flags]
-        if "--model" not in flags:
-            argv += ["--model", "mpgan"]
-        try:
-            train_cli.main(argv)
-        except NotImplementedError as err:
-            ok = "bf16 knn and GAPT kernels" in str(err)
-            log("bf16_refusal", path=name, refused=True, message=str(err))
-            if not ok:
-                raise SystemExit(f"bf16 {name}: refused without naming the ROADMAP item: {err}")
-            continue
-        raise SystemExit(f"bf16 {name}: trained instead of refusing")
-
-
 def batched_d_check(dev, from_args_dict):
     """One batched_d D step of the GAPT pair on the card against the CPU, from
     the same state and draws: losses and D's gradients within 1e-4."""
@@ -2846,10 +2847,513 @@ def bf16_phase(mk, train_cli, dev, card, from_args_dict, tmp):
     step_launches = bf16_step_check(mk, dev, card, from_args_dict)
     steps = bf16_graph_and_timing(mk, dev, card, from_args_dict, tmp)
     cli_launches = bf16_cli(mk, train_cli, tmp)
-    bf16_refusals(train_cli, tmp)
     batched_d_check(dev, from_args_dict)
     log("bf16", card=card, seconds=time.perf_counter() - t0, step=steps, kernel_times=times)
     launches = {k: step_launches.get(k, 0) + cli_launches[k] for k in BF16_KINDS}
+    return worst, identical, times, launches, steps
+
+
+# ---------------------------------------------------------------------------
+# phase 29: bf16 training on the knn-20 and GAPT paths (K5-K9 in their bf16 modes)
+# ---------------------------------------------------------------------------
+
+# K6's gradients are held as a whole, as the card tests hold bf16 gradients:
+# a bf16 rounding boundary crossed a hair apart, or a LeakyReLU slope flipped near
+# zero, moves one edge's whole gradient row, and a sender's du2 sums only its few
+# edges (the plain version perturbed by 1e-6 relative moves its gradients by up to
+# 3% of the largest, PERF.md); the element count beyond 1e-2 of max(1, max|ref|)
+# is logged beside
+BF16_REL_L2 = 3e-2
+BF16_MAX_SHARE = 0.1
+BF16_KNN_SOURCES = {"knn_fused_layer": "mpgan_tpu_torch/csrc/knn_fused_bf16.cu",
+                    "knn_edge_aggregate": "mpgan_tpu_torch/csrc/knn_fused_bf16.cu",
+                    "knn_search": "mpgan_tpu_torch/csrc/knn_search.cu",
+                    "knn_edge_aggregate_bwd": "mpgan_tpu_torch/csrc/knn_edge_bwd_bf16.cu",
+                    "gapt_g_fused": "mpgan_tpu_torch/csrc/gapt_fused.cu"}
+# the bf16 launch counts of each kernel's row in the kernels line
+BF16_KNN_KINDS = {"knn_fused_layer": ("knn_fused_layer_bf16", "knn_fused_layer_train_bf16"),
+                  "knn_edge_aggregate_bwd": ("knn_edge_aggregate_bwd_bf16",
+                                             "knn_edge_aggregate_bwd_no_wgrads_bf16"),
+                  "knn_search": ("knn_search_bf16",),
+                  "knn_edge_aggregate": ("knn_edge_aggregate_bf16",),
+                  "gapt_g_fused": ("gapt_g_fused_bf16",)}
+# a D+G step's bf16 launches (phase 14's count: the D step's real and fake passes and
+# the G step's G and D emit idx, 2 layers each; K6 with weight gradients for D twice
+# and G once, without for D in the G step; the D step's fake batch without idx; route 3:
+# a K7 and a K8 a layer call; GAPT: K9 for the D step's fake batch)
+BF16_STEP_LAUNCHES = {
+    "knn20": {"knn_fused_layer_train_bf16": 8, "knn_fused_layer_bf16": 2,
+              "knn_edge_aggregate_bwd_bf16": 6, "knn_edge_aggregate_bwd_no_wgrads_bf16": 2},
+    "knn20_route3": {"knn_search_bf16": 10, "knn_edge_aggregate_bf16": 10,
+                     "knn_edge_aggregate_bwd_bf16": 6, "knn_edge_aggregate_bwd_no_wgrads_bf16": 2},
+    "gapt": {"gapt_g_fused_bf16": 1},
+}
+BF16_STEP_PATHS = {"knn20": (KNN150, None, 128), "knn20_route3": (KNN150, "3", 128),
+                   "gapt": (GAPT, None, 512)}
+# the kernels a bf16 step's profiler trace must name: (label, name pattern, bf16 in name)
+BF16_TRACE = {"knn20": (("K5", "knn_fwd_kernel<true", True), ("K6", "knn_edge_bwd_kernel<", True)),
+              "knn20_route3": (("K7", "knn_search_kernel<", True),
+                               ("K8", "knn_fwd_kernel<false", True),
+                               ("K6", "knn_edge_bwd_kernel<", True)),
+              "gapt": (("K9", "gapt_item_kernel", False),)}
+
+
+def bf16_knn_bound(b, n, c, k, kind, moved, wgrads=True) -> dict:
+    """Bound of a knn kernel's bf16 mode at the published widths: the fe chain's
+    products (forward, K6's recompute) over the dense bf16 tensor cores' rate,
+    the search's distances (2 (c + 1) FLOP a pair) and K6's backward products
+    over the FP32 rate, or ``moved`` bytes (the tensors at their real sizes),
+    whichever is larger."""
+    chain = 2 * b * n * k * macs(FE)
+    search = 2 * b * n * n * (c + 1)
+    bf16_flops, f32_flops = {"k5": (chain, search), "k7": (0, search), "k8": (chain, 0),
+                             "k6": (chain, (2 if wgrads else 1) * chain)}[kind]
+    ops = (bf16_flops / PEAK_BF16 + f32_flops / PEAK_FP32) * 1e3
+    mem = moved / PEAK_HBM * 1e3
+    return {"bound_ms": max(ops, mem), "bound_by": "operations" if ops >= mem else "bytes",
+            "library_ms": None}
+
+
+def bf16_whole(out, ref) -> tuple[float, float, bool]:
+    """Relative L2 error, largest error over max(1, max|ref|), and whether both
+    are within BF16_REL_L2 and BF16_MAX_SHARE."""
+    o, r = out.float(), ref.float()
+    if not o.numel():
+        return 0.0, 0.0, True
+    rel = ((o - r).norm() / r.norm().clamp_min(1e-30)).item()
+    share = (o - r).abs().max().item() / max(1.0, r.abs().max().item())
+    return rel, share, rel <= BF16_REL_L2 and share <= BF16_MAX_SHARE
+
+
+def knn_bf16(d):
+    """The knn operands rounded to bf16 (the mask stays float32 for the checks)."""
+    out = {k: v.to(torch.bfloat16) if k in ("xs", "xf", "u1", "u2m", "w_d", "g") else v
+           for k, v in d.items()}
+    out["hidden"] = to_bf16(*d["hidden"])
+    return out
+
+
+def bf16_turns(kernel, a16, a32, plain, inner=1):
+    """The bf16 mode and the FP32 mode of one wrapper in turns (fp32, bf16, bf16,
+    fp32), best of each, and the bf16 plain version once."""
+    ms = {"bf16": float("inf"), "fp32": float("inf")}
+    for which in ("fp32", "bf16", "bf16", "fp32"):
+        a = a16 if which == "bf16" else a32
+        ms[which] = min(ms[which], best_ms(lambda: kernel(*a), inner=inner))
+    return {"ms": ms["bf16"], "fp32_ms": ms["fp32"],
+            "plain_ms": best_ms(lambda: plain(*a16), reps=2, inner=1)}
+
+
+def bf16_knn_kernel_checks(kk, dev):
+    """K5 (eval; dropout 0.5 with idx; with and without distances), K7 (with and
+    without distances), K8 and K6 (with and without weight gradients) in their
+    bf16 modes against their bf16 plain versions at knn-20's widths (B=160
+    N=150 C=32 k=20) and a ragged N=13 k=5, each launched twice bit for bit
+    (K7 equal to K5's search, K8 on its idx to K5's output); then each timed
+    beside its FP32 mode in turns, its plain version and its bound at B=160."""
+    names = ("knn_fused_layer", "knn_search", "knn_edge_aggregate", "knn_edge_aggregate_bwd")
+    worst, identical = dict.fromkeys(names, 0.0), dict.fromkeys(names, True)
+    for b, n, c, widths, k in ((160, 150, 32, FE, 20), (3, 13, 8, [24, 16, 12], 5)):
+        d = knn_bf16(knn_inputs(dev, b, n, c, widths, k, seed=290 + n))
+        keys = kk.knn_keys(d["xs"].float(), d["xf"].float())
+        real = d["mask"] > 0
+        for self_loops, sum_agg, dists_on, p in ((True, True, False, 0.0),
+                                                 (False, False, True, 0.5),
+                                                 (True, False, True, 0.0),
+                                                 (False, True, False, 0.5)):
+            w_d = d["w_d"] if dists_on else None
+            fwd = (d["xs"], d["xf"], d["u1"], d["u2m"], w_d, d["hidden"], k, self_loops,
+                   dists_on, 0.2, sum_agg, p, 292929)
+            out, idx, dists = kk.knn_fused_layer(*fwd, True)
+            again = kk.knn_fused_layer(*fwd, True)
+            out_eval = kk.knn_fused_layer(*fwd)[0]
+            idx7, dists7 = kk.knn_search(d["xs"], d["xf"], k, self_loops, dists_on)
+            again7 = kk.knn_search(d["xs"], d["xf"], k, self_loops, dists_on)
+            agg = (d["u1"], d["u2m"], idx, dists, w_d, d["hidden"], 0.2, sum_agg, p, 292929)
+            out8, again8 = kk.knn_edge_aggregate(*agg), kk.knn_edge_aggregate(*agg)
+            ref, idx_ref, dists_ref = kk.knn_fused_layer_reference(*fwd, True)
+            ref8 = kk.knn_edge_aggregate_reference(*agg)
+            torch.cuda.synchronize()
+            agree, differing, far = kk.compare_neighbours(idx, idx_ref, keys, d["mask"])
+            err5, bad5 = bf16_err(out[agree], ref[agree], False)
+            err8, bad8 = bf16_err(out8, ref8, False)
+            bad7 = 0
+            if dists_on:
+                live = torch.gather(d["mask"][:, None, :, 0].expand(-1, n, -1), 2,
+                                    idx_ref.long()) > 0
+                live &= agree[..., None]
+                bad7 = errors(dists[live], dists_ref[live])[2]
+            repeat5 = (torch.equal(out, again[0]) and torch.equal(idx, again[1])
+                       and torch.equal(out, out_eval))
+            repeat7 = torch.equal(idx7, again7[0]) and torch.equal(idx7, idx)
+            if dists_on:
+                repeat7 = repeat7 and torch.equal(dists7, dists) and torch.equal(dists7, again7[1])
+            repeat8 = torch.equal(out8, again8) and torch.equal(out8, out)
+            dtypes_ok = (out.dtype == out8.dtype == torch.bfloat16 and idx.dtype == torch.int32
+                         and (dists is None or dists.dtype == torch.float32))
+            for name, rep in (("knn_fused_layer", repeat5), ("knn_search", repeat7),
+                              ("knn_edge_aggregate", repeat8)):
+                identical[name] &= rep
+            log("bf16_knn_kernel_check", b=b, n=n, k=k, dropout=p, self_loops=self_loops,
+                sum_agg=sum_agg, dists=dists_on, rows_differing=differing, rows_not_near_ties=far,
+                k5_max_abs_err=err5, k5_out_of_tol=bad5, k8_max_abs_err=err8, k8_out_of_tol=bad8,
+                dists_out_of_tol=bad7, k5_rerun_bit_identical=repeat5,
+                k7_rerun_and_k5_search_bit_identical=repeat7,
+                k8_rerun_and_k5_output_bit_identical=repeat8, dtypes_ok=dtypes_ok, tol=BF16_TOL)
+            if (bad5 or bad8 or bad7 or far or differing > MAX_DIFFERING_SHARE * agree.numel()
+                    or not (repeat5 and repeat7 and repeat8 and dtypes_ok)):
+                raise SystemExit(f"bf16 K5/K7/K8 disagree at b={b} n={n} p={p} "
+                                 f"dists={dists_on}: see the log line above")
+            worst["knn_fused_layer"] = max(worst["knn_fused_layer"], err5)
+            worst["knn_edge_aggregate"] = max(worst["knn_edge_aggregate"], err8)
+            for need in (True, False):
+                bwd = (d["u1"], d["u2m"], idx_ref, dists_ref, w_d, d["hidden"], d["g"], 0.2,
+                       sum_agg, p, 292929, need)
+                res, rerun = kk.knn_edge_aggregate_bwd(*bwd), kk.knn_edge_aggregate_bwd(*bwd)
+                rref = kk.knn_edge_aggregate_bwd_reference(*bwd)
+                torch.cuda.synchronize()
+                flat = lambda t: [x for x in (*t[:5], *t[5]) if x is not None]  # noqa: E731
+                repeat = all(torch.equal(x, y) for x, y in zip(flat(res), flat(rerun)))
+                pairs = {"du1": (res[0], rref[0]), "du2": (res[1], rref[1]),
+                         "dmask": (res[2][real], rref[2][real]),
+                         "dmask_masked_senders": (res[2][~real], rref[2][~real])}
+                if dists_on:
+                    pairs["ddists"] = (res[3], rref[3])
+                if need:
+                    pairs.update({f"dhidden{i}": (o, r) for i, (o, r) in
+                                  enumerate(zip(res[5], rref[5]))})
+                    if dists_on:
+                        pairs["dw_d"] = (res[4], rref[4])
+                errs = {name: bf16_err(o, r, True) if o.numel() else (0.0, 0)
+                        for name, (o, r) in pairs.items()}
+                wholes = {name: bf16_whole(o, r) for name, (o, r) in pairs.items()}
+                zeros = need or not any(t.any().item() for t in (*res[5], res[4])
+                                        if t is not None)
+                dtypes_ok = (all(t.dtype == torch.bfloat16 for t in (*res[:3], *res[5]))
+                             and (res[3] is None or res[3].dtype == torch.float32))
+                err = max(e for e, _ in errs.values())
+                bad = sum(not ok for *_, ok in wholes.values())
+                identical["knn_edge_aggregate_bwd"] &= repeat
+                log("bf16_knn_kernel_check", kernel="knn_edge_aggregate_bwd", b=b, n=n, k=k,
+                    dropout=p, wgrads=need, sum_agg=sum_agg, dists=dists_on,
+                    rel_l2_and_share={name: w[:2] for name, w in wholes.items()},
+                    rel_l2_tol=BF16_REL_L2, max_share_tol=BF16_MAX_SHARE, failures=bad,
+                    max_abs_err={name: e for name, (e, _) in errs.items()},
+                    beyond_1e2_of_max={name: c for name, (_, c) in errs.items()},
+                    ref_max={name: r.float().abs().max().item() if r.numel() else 0.0
+                             for name, (_, r) in pairs.items()},
+                    zeros_without_wgrads=zeros, two_runs_bit_identical=repeat,
+                    dtypes_ok=dtypes_ok)
+                if bad or not repeat or not zeros or not dtypes_ok:
+                    raise SystemExit(f"bf16 K6 disagrees at b={b} n={n} p={p} wgrads={need} "
+                                     f"dists={dists_on}")
+                worst["knn_edge_aggregate_bwd"] = max(worst["knn_edge_aggregate_bwd"], err)
+                del res, rerun, rref
+            del out, again, out_eval, idx7, again7, out8, again8, ref, ref8
+        del d, keys
+        torch.cuda.empty_cache()
+
+    # the timings at B=160: bf16 and FP32 in turns, the plain version, the bound
+    times = {}
+    b, n, c, k = 160, 150, 32, 20
+    d32 = knn_inputs(dev, b, n, c, FE, k, seed=299)
+    d = knn_bf16(d32)
+    for job, p, emit, dists_on in (("k5_eval", 0.0, False, False), ("k5_train", 0.5, True, False),
+                                   ("k5_train_dists", 0.5, True, True)):
+        def fwd(x):
+            return (x["xs"], x["xf"], x["u1"], x["u2m"], x["w_d"] if dists_on else None,
+                    x["hidden"], k, True, dists_on, 0.2, True, p, 5, emit)
+        out = kk.knn_fused_layer(*fwd(d))
+        times[job] = dict(shape=f"B={b} N={n} C={c} k={k} dropout {p}"
+                          + (", idx written" if emit else "") + (", dists" if dists_on else ""),
+                          **bf16_turns(kk.knn_fused_layer, fwd(d), fwd(d32),
+                                       kk.knn_fused_layer_reference),
+                          **bf16_knn_bound(b, n, c, k, "k5", nbytes(
+                              d["xs"], d["xf"], d["u1"], d["u2m"], *d["hidden"],
+                              d["w_d"] if dists_on else None, *out)))
+        del out
+    for job, dists_on in (("k7", False), ("k7_dists", True)):
+        idx, dists = kk.knn_search(d["xs"], d["xf"], k, True, dists_on)
+        times[job] = dict(shape=f"B={b} N={n} C={c} k={k}" + (" with distances" if dists_on
+                                                                 else ""),
+                          **bf16_turns(kk.knn_search, (d["xs"], d["xf"], k, True, dists_on),
+                                       (d32["xs"], d32["xf"], k, True, dists_on),
+                                       kk.knn_search_reference, inner=3),
+                          **bf16_knn_bound(b, n, c, k, "k7",
+                                           nbytes(d["xs"], d["xf"], idx, dists)))
+    idx, _ = kk.knn_search(d["xs"], d["xf"], k, True)
+    out = kk.knn_edge_aggregate(d["u1"], d["u2m"], idx, None, None, d["hidden"], 0.2, True, 0.5, 5)
+    times["k8"] = dict(shape=f"B={b} N={n} k={k} dropout 0.5",
+                       **bf16_turns(kk.knn_edge_aggregate,
+                                    (d["u1"], d["u2m"], idx, None, None, d["hidden"], 0.2, True,
+                                     0.5, 5),
+                                    (d32["u1"], d32["u2m"], idx, None, None, d32["hidden"], 0.2,
+                                     True, 0.5, 5), kk.knn_edge_aggregate_reference),
+                       **bf16_knn_bound(b, n, c, k, "k8", nbytes(d["u1"], d["u2m"], idx,
+                                                                 *d["hidden"], out)))
+    for need in (True, False):
+        def bwd(x):
+            return (x["u1"], x["u2m"], idx, None, None, x["hidden"], x["g"], 0.2, True, 0.5, 5,
+                    need)
+        res = kk.knn_edge_aggregate_bwd(*bwd(d))
+        grads = (*res[:3], *(res[5] if need else ()))
+        times["k6" if need else "k6_no_wgrads"] = dict(
+            shape=f"B={b} N={n} k={k} dropout 0.5, " + ("with" if need else "without")
+            + " weight gradients",
+            **bf16_turns(kk.knn_edge_aggregate_bwd, bwd(d), bwd(d32),
+                         kk.knn_edge_aggregate_bwd_reference),
+            **bf16_knn_bound(b, n, c, k, "k6", nbytes(d["u1"], d["u2m"], idx, d["g"],
+                                                      *d["hidden"], *grads), need))
+        del res, grads
+    del d, d32, idx, out
+    torch.cuda.empty_cache()
+    return worst, identical, times
+
+
+def bf16_gapt_kernel_checks(gk, dev, from_args_dict):
+    """K9 on bf16 inputs at B=1024 and B=4096 (N=30, E=64, H=4, 4 layers): against
+    its bf16 plain version at 1e-2, twice bit for bit, equal to the FP32 launch
+    on the widened inputs rounded; timed beside the FP32 mode in turns, the
+    plain version and the bound (the float32 body's FLOPs, the bf16 bytes)."""
+    from mpgan_tpu_torch.models.registry import build_suite
+
+    args = from_args_dict(GAPT)
+    g = build_suite(args).generator(torch.Generator().manual_seed(29), device=dev)
+    w32 = g.fused_weights()
+    w16 = gk.GaptWeights(*to_bf16(*w32))
+    worst, identical, times = 0.0, True, {}
+    for b in (1024, 4096):
+        x, mask = gapt_kernel_inputs(dev, g, b, True, seed=b + 29)
+        x16, m16 = to_bf16(x, mask)
+        with torch.no_grad():
+            out, again = gk.gapt_g_fused(x16, m16, w16, 4, 0.2), gk.gapt_g_fused(x16, m16, w16,
+                                                                                   4, 0.2)
+            wide = gk.gapt_g_fused(x16.float(), m16.float(),
+                                   gk.GaptWeights(*(t.float() for t in w16)), 4, 0.2)
+            ref = gk.gapt_g_fused_reference(x16, m16, w16, 4, 0.2)
+            torch.cuda.synchronize()
+            err, bad = bf16_err(out, ref, False)
+            repeat = torch.equal(out, again) and torch.equal(out, wide.bfloat16())
+            identical &= repeat
+            log("bf16_gapt_kernel_check", b=b, n=30, max_abs_err=err, out_of_tol=bad,
+                tol=BF16_TOL, two_runs_bit_identical_and_equal_to_widened_fp32=repeat,
+                output_bf16=out.dtype == torch.bfloat16)
+            if bad or not repeat or out.dtype != torch.bfloat16:
+                raise SystemExit(f"bf16 K9 disagrees at B={b}: {bad} beyond {BF16_TOL}, "
+                                 f"bit-identical {repeat}")
+            worst = max(worst, err)
+            times[f"b{b}"] = dict(
+                shape=f"B={b} N=30 E=64 H=4 L=4 masked",
+                **bf16_turns(gk.gapt_g_fused, (x16, m16, w16, 4, 0.2), (x, mask, w32, 4, 0.2),
+                             gk.gapt_g_fused_reference, inner=3),
+                **bound(gapt_flops(b, 30, 64, 4, 3), nbytes(x16, m16, out, *w16)))
+        del x, mask, x16, m16, out, again, wide, ref
+    torch.cuda.empty_cache()
+    return worst, identical, times
+
+
+def bf16_trace_named(step, path) -> dict:
+    """The kernels of BF16_TRACE[path] that a torch.profiler trace of two steps names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+    names = trace_names(prof)
+    return {label: [k[:80] for k in names if pat in k and (not bf16 or "bfloat16" in k)][:1]
+            for label, pat, bf16 in BF16_TRACE[path]}
+
+
+def steps_from_one_state(args, dev, data, labels):
+    """A D step and a G step, each on its own TrainState made from the same
+    seed (weights, optimizer and draws as the loop's first step): the loss parts
+    of both, and the G step's state. The G step's losses then come from the same
+    D as the D step's, not from D after its first RMSprop update, which is a
+    step of 10 lr along the sign of each gradient: where a gradient is near
+    zero its bf16 sign may differ, and knn-20's D, so moved, answers a G step
+    with other losses (on an H100 at B=128 one D+G step gave D-step losses
+    within 0.6% of float32's but the G loss after it 0.133 against 0.556;
+    PERF.md, section 6)."""
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training.train_step import d_step, g_step, step_config
+
+    spec, cfg = build_suite(args).noise, step_config(args)
+    st_d, st_g = make_state(args, dev), make_state(args, dev)
+    parts = d_step(st_d, cfg, spec, data, labels)
+    parts.update(g_step(st_g, cfg, spec, data, labels))
+    return {k: v.item() for k, v in parts.items()}, st_g
+
+
+def bf16_knn_gapt_steps(mk, dev, card, from_args_dict, tmp):
+    """The knn-20 (routes 4 and 3, B=128) and GAPT (B=512) bf16 D and G steps,
+    each from the float32 steps' state and draws (losses within 5%, every
+    master tensor float32, only the bf16 kernels launched, in the counts a step
+    predicts, a profiler trace of D+G steps naming them); the bf16 epoch on the
+    CUDA graph against the eager loop bit for bit; the bf16 and float32 graph
+    steps in turns (float32, bf16, bf16, float32) and a profile of each."""
+    from mpgan_tpu_torch.data.loader import BatchLoader
+
+    out = {}
+    try:
+        for path, (pcard, route, b) in BF16_STEP_PATHS.items():
+            set_knn_route(route)
+            n = pcard["num_hits"]
+            data, labels = (t.to(dev) for t in real_batch(b, n))
+            res = {}
+            for name, extra in (("f32", {}), ("bf16", {"compute_dtype": "bfloat16"})):
+                args = from_args_dict({**pcard, **extra})
+                mk.reset_launch_counts()
+                parts, st = steps_from_one_state(args, dev, data, labels)
+                res[name] = (parts, {k: v for k, v in mk.launch_counts.items() if v}, st, args)
+            (l32, c32, _, _), (l16, c16, st16, a16) = res["f32"], res["bf16"]
+            rel = max(abs(l16[k] - l32[k]) / abs(l32[k]) for k in l32)
+            leaves_f32 = all(t.dtype == torch.float32 for t in _leaves(st16))
+            named = bf16_trace_named(step_fn(st16, a16, data, labels), path)
+            del res, st16
+            torch.cuda.empty_cache()
+            # the epoch: eager and graph bit for bit, then float32 and bf16 graphs in turns
+            a32 = from_args_dict(pcard)
+            a16 = from_args_dict({**pcard, "compute_dtype": "bfloat16"})
+            a32.batch_size = a16.batch_size = b
+            edata, elabels = graph_data(a16, GRAPH_STEPS * b)
+            runs = {}
+            for name, args, scan in (("bf16_eager", a16, False), ("bf16_graph", a16, True),
+                                     ("f32_graph", a32, True)):
+                t = graph_trainer(args, dev, tmp, f"{path}_{name}", scan)
+                loader = BatchLoader(edata, elabels, batch_size=b, shuffle=True, seed=args.seed)
+                mk.reset_launch_counts()
+                t.train_epoch(1, loader)
+                torch.cuda.synchronize()
+                runs[name] = (t, loader, {k: v for k, v in mk.launch_counts.items() if v})
+            (te, _, ce), (tg, _, cg) = runs["bf16_eager"], runs["bf16_graph"]
+            same, state_rel = state_diff(te.state, tg.state)
+            losses_same = all(te.losses[k] == tg.losses[k] for k in ("Dr", "Df", "D", "G"))
+            ms = {"f32_graph": [], "bf16_graph": []}
+            epoch = 1
+            for which in ("f32_graph", "bf16_graph", "bf16_graph", "f32_graph"):
+                epoch += 1
+                t, loader, _ = runs[which]
+                ms[which].append(timed_epoch(t, epoch, loader))
+            prof = {}
+            for which in ("f32_graph", "bf16_graph"):
+                t, loader, _ = runs[which]
+                prof[which] = epoch_profile(t, epoch + 1, loader)
+            predicted = BF16_STEP_LAUNCHES[path]
+            epoch_predicted = {k: v * GRAPH_STEPS for k, v in predicted.items()}
+            log("bf16_knn_gapt_step", card=card, path=path, batch=b, losses_f32=l32,
+                losses_bf16=l16, max_rel_loss_diff=rel, tol=BF16_STEP_LOSS_TOL,
+                master_state_float32=leaves_f32, launches_f32=c32, launches_bf16=c16,
+                predicted_bf16=predicted, trace_kernels=named, graph_state_bit_identical=same,
+                graph_max_rel_diff=state_rel, graph_losses_equal=losses_same,
+                replays=tg.graphs.replays, epoch_launches_eager=ce, epoch_launches_graph=cg,
+                wall_ms_f32=ms["f32_graph"], wall_ms_bf16=ms["bf16_graph"],
+                profile_f32=prof["f32_graph"], profile_bf16=prof["bf16_graph"])
+            if rel > BF16_STEP_LOSS_TOL or not leaves_f32:
+                raise SystemExit(f"bf16 {path} step: losses {l16} against float32 {l32}, "
+                                 f"master float32 {leaves_f32}")
+            if c16 != predicted or any(k.endswith("_bf16") for k in c32):
+                raise SystemExit(f"bf16 {path} step launched {c16}, predicted {predicted}; the "
+                                 f"float32 step {c32}")
+            if not all(named.values()):
+                raise SystemExit(f"bf16 {path} step's trace names none of "
+                                 f"{[k for k, v in named.items() if not v]}")
+            if (not same or not losses_same or ce != cg or ce != epoch_predicted
+                    or not tg.graphs.replays):
+                raise SystemExit(f"bf16 {path} graph epoch differs from the eager one: state "
+                                 f"{same} ({state_rel}), losses {losses_same}, launches {ce} vs "
+                                 f"{cg}, predicted {epoch_predicted}")
+            out[path] = {"wall_ms_f32": min(ms["f32_graph"]), "wall_ms_bf16": min(ms["bf16_graph"]),
+                         "profile_f32": prof["f32_graph"], "profile_bf16": prof["bf16_graph"],
+                         "max_rel_loss_diff": rel}
+            del runs, te, tg
+            torch.cuda.empty_cache()
+    finally:
+        set_knn_route()
+    return out
+
+
+def bf16_knn_gapt_cli(mk, train_cli, tmp):
+    """``cli.train --compute-dtype bfloat16`` on knn-20 (route 4, and route 3 as
+    the split route's main path) at its default batch 160 and on GAPT at 512: 2
+    epochs, then a resume that restores the state exactly; the launch counts
+    are set to 0 before each run and read after: the bf16 launches equal the
+    prediction, every bf16 kernel of the path launched, no FP32 training
+    kernel did (the evaluation generates in float32)."""
+    runs = {
+        "knn20": (["--model", "mpgan", "--num-hits", "150", "--no-fully-connected",
+                   "--num-knn", "20", "--num-samples", "3200", "--eval-tot-samples", "640",
+                   "--w1-num-samples", "320"], None),
+        "knn20_route3": (["--model", "mpgan", "--num-hits", "150", "--no-fully-connected",
+                          "--num-knn", "20", "--num-samples", "3200", "--eval-tot-samples", "640",
+                          "--w1-num-samples", "320"], "3"),
+        "gapt": (["--model", "gapt", "--num-samples", "10000", "--eval-tot-samples", "2000",
+                  "--w1-num-samples", "1000"], None),
+    }
+    counts_all = {}
+    try:
+        for path, (flags, route) in runs.items():
+            set_knn_route(route)
+            argv = ["--device", "cuda", "--name", f"bf16_{path}", "--jets", "g", "--dir-path",
+                    str(tmp), "--save-model-epochs", "1", "--save-epochs", "2",
+                    "--compute-dtype", "bfloat16", "--num-epochs", "2", *flags]
+            mk.reset_launch_counts()
+            t1 = train_cli.main(argv)
+            counts = dict(mk.launch_counts)
+            before = [t.detach().cpu().clone() for t in _leaves(t1.state)]
+            rng_before = t1.state.generator.get_state()
+            t2 = train_cli.main(argv)  # resume, no epoch to run
+            after = [t.detach().cpu() for t in _leaves(t2.state)]
+            restored = (t2.start_epoch == 2 and len(before) == len(after)
+                        and all(torch.equal(a, c) for a, c in zip(before, after))
+                        and torch.equal(t2.state.generator.get_state(), rng_before))
+            batch = t1.args.batch_size
+            steps = 2 * (len(t1.train_dataset) // batch)
+            eval_batches = -(-min(t1.args.eval_tot_samples, len(t1.valid_dataset)) // batch)
+            predicted = {k: v * steps for k, v in BF16_STEP_LAUNCHES[path].items()}
+            # the float32 evaluation at epoch 2: G's 2 knn layers a batch, or K9
+            predicted.update({"knn20": {"knn_fused_layer": 2 * eval_batches},
+                              "knn20_route3": {"knn_search": 2 * eval_batches,
+                                               "knn_edge_aggregate": 2 * eval_batches},
+                              "gapt": {"gapt_g_fused": eval_batches}}[path])
+            launched = {k: v for k, v in counts.items() if v}
+            losses = {k: t1.losses[k] for k in ("Dr", "Df", "D", "G")}
+            finite = all(np.isfinite(v).all() for v in losses.values())
+            npz = np.load(tmp / f"bf16_{path}" / "models" / "state_2.npz")
+            ckpt_f32 = all(npz[k].dtype == np.float32 for k in npz.files
+                           if npz[k].dtype.kind in "fV")
+            log("bf16_main_path_train", path=path, batch=batch, steps=steps,
+                eval_batches=eval_batches, resumed_from=t2.start_epoch, state_restored=restored,
+                losses=losses, w1m=t1.losses["w1m"], checkpoint_float32=ckpt_f32,
+                launches=launched, predicted=predicted)
+            if not restored or not finite or len(t1.losses["G"]) != 2 or not ckpt_f32:
+                raise SystemExit(f"bf16 {path} train CLI: restored {restored}, losses {losses}, "
+                                 f"float32 checkpoint {ckpt_f32}")
+            if launched != predicted:
+                raise SystemExit(f"bf16 {path} train CLI launched {launched}, predicted "
+                                 f"{predicted}")
+            counts_all[path] = counts
+    finally:
+        set_knn_route()
+    return counts_all
+
+
+def bf16_knn_gapt_phase(kk, gk, mk, train_cli, dev, card, from_args_dict, tmp):
+    """Phase 29: bf16 training on the knn-20 and GAPT paths."""
+    t0 = time.perf_counter()
+    worst, identical, times = bf16_knn_kernel_checks(kk, dev)
+    worst["gapt_g_fused"], identical["gapt_g_fused"], gtimes = bf16_gapt_kernel_checks(
+        gk, dev, from_args_dict)
+    times.update(gtimes)
+    steps = bf16_knn_gapt_steps(mk, dev, card, from_args_dict, tmp)
+    cli = bf16_knn_gapt_cli(mk, train_cli, tmp)
+    launches = {kind: sum(c.get(kind, 0) for c in cli.values())
+                for kinds in BF16_KNN_KINDS.values() for kind in kinds}
+    never = [k for k, v in launches.items() if not v]
+    log("bf16_knn_gapt", card=card, seconds=time.perf_counter() - t0, steps=steps,
+        kernel_times=times, main_path_launches=launches)
+    if never:
+        raise SystemExit(f"phase 29's main paths never launched {never}")
     return worst, identical, times, launches, steps
 
 
@@ -3095,6 +3599,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         bf16_worst, bf16_identical, bf16_times, bf16_launches, bf16_steps = bf16_phase(
             mk, train_cli, dev, card, from_args_dict, pathlib.Path(tmp))
+    # 29. bf16 training on the knn-20 and GAPT paths
+    with tempfile.TemporaryDirectory() as tmp:
+        kb_worst, kb_identical, kb_times, kb_launches, kb_steps = bf16_knn_gapt_phase(
+            kk, gk, mk, train_cli, dev, card, from_args_dict, pathlib.Path(tmp))
 
     def bf16_row(name, jobs):
         """The bf16 mode inside a kernel's row: its launches in phase 28, worst
@@ -3107,6 +3615,19 @@ def main() -> None:
                 "max_abs_err": bf16_worst[name], "tol": BF16_TOL,
                 "two_runs_bit_identical": bf16_identical[name],
                 **{job: bf16_times[job] for job in jobs}}
+
+    def bf16_knn_row(name, jobs):
+        """The bf16 mode inside a K5-K9 row: its launches on phase 29's main
+        paths, worst error, reruns, and per timed job its ms, FP32-mode ms,
+        plain ms and bound."""
+        return {"source": BF16_KNN_SOURCES[name],
+                "launches": sum(kb_launches[k] for k in BF16_KNN_KINDS[name]),
+                "max_abs_err": kb_worst[name], "tol": BF16_TOL,
+                "two_runs_bit_identical": kb_identical[name],
+                **{job: kb_times[job] for job in jobs}}
+
+    def bf16_knn_launches(name):
+        return sum(kb_launches[k] for k in BF16_KNN_KINDS[name])
 
     fwd_src = "mpgan_tpu_torch/csrc/edge_aggregate.cu"
     kernels = [
@@ -3168,24 +3689,28 @@ def main() -> None:
          "source": "mpgan_tpu_torch/csrc/knn_fused.cu", "replaces": REPLACES["knn_fused_layer"],
          "includes": K1,
          "launches": knn_gen_launches["knn_fused_layer"] + knn_train_launches["knn_fused_layer"]
-         + knn_train_launches["knn_fused_layer_train"],
+         + knn_train_launches["knn_fused_layer_train"] + bf16_knn_launches("knn_fused_layer"),
          "max_abs_err": knn_err["knn_fused_layer"],
          "two_runs_bit_identical": identical["knn_fused_layer"], **ktimes["eval"],
          "train_ms": ktimes["train"]["ms"], "train_plain_ms": ktimes["train"]["plain_ms"],
-         "train_shape": ktimes["train"]["shape"], "train_bound_ms": ktimes["train"]["bound_ms"]},
+         "train_shape": ktimes["train"]["shape"], "train_bound_ms": ktimes["train"]["bound_ms"],
+         "bf16": bf16_knn_row("knn_fused_layer", ("k5_eval", "k5_train", "k5_train_dists"))},
         {"name": "knn_edge_aggregate_bwd", "route": "cuda",
          "source": "mpgan_tpu_torch/csrc/knn_edge_bwd.cu",
          "replaces": REPLACES["knn_edge_aggregate_bwd"], "includes": K1,
          "launches": knn_train_launches["knn_edge_aggregate_bwd"]
          + knn_train_launches["knn_edge_aggregate_bwd_no_wgrads"]
          + split_launches["knn_edge_aggregate_bwd"]
-         + split_launches["knn_edge_aggregate_bwd_no_wgrads"],
+         + split_launches["knn_edge_aggregate_bwd_no_wgrads"]
+         + bf16_knn_launches("knn_edge_aggregate_bwd"),
          "max_abs_err": knn_err["knn_edge_aggregate_bwd"], **ktimes["bwd"],
          "ms_no_wgrads": ktimes["bwd_no_wgrads"]["ms"],
          "plain_ms_no_wgrads": ktimes["bwd_no_wgrads"]["plain_ms"],
-         "bound_ms_no_wgrads": ktimes["bwd_no_wgrads"]["bound_ms"]},
+         "bound_ms_no_wgrads": ktimes["bwd_no_wgrads"]["bound_ms"],
+         "bf16": bf16_knn_row("knn_edge_aggregate_bwd", ("k6", "k6_no_wgrads"))},
         {"name": "knn_search", "route": "cuda", "source": "mpgan_tpu_torch/csrc/knn_search.cu",
-         "replaces": REPLACES["knn_search"], "launches": split_launches["knn_search"],
+         "replaces": REPLACES["knn_search"],
+         "launches": split_launches["knn_search"] + bf16_knn_launches("knn_search"),
          "max_abs_err": split_err["knn_search"], **stimes["search_eval"],
          "train_ms": stimes["search_train"]["ms"],
          "train_plain_ms": stimes["search_train"]["plain_ms"],
@@ -3194,27 +3719,32 @@ def main() -> None:
          "dists_ms": stimes["search_dists"]["ms"],
          "dists_plain_ms": stimes["search_dists"]["plain_ms"],
          "dists_shape": stimes["search_dists"]["shape"],
-         "dists_bound_ms": stimes["search_dists"]["bound_ms"]},
+         "dists_bound_ms": stimes["search_dists"]["bound_ms"],
+         "bf16": bf16_knn_row("knn_search", ("k7", "k7_dists"))},
         {"name": "knn_edge_aggregate", "route": "cuda",
          "source": "mpgan_tpu_torch/csrc/knn_edge_aggregate.cu",
          "replaces": REPLACES["knn_edge_aggregate"], "includes": K1,
-         "launches": split_launches["knn_edge_aggregate"],
+         "launches": split_launches["knn_edge_aggregate"]
+         + bf16_knn_launches("knn_edge_aggregate"),
          "max_abs_err": split_err["knn_edge_aggregate"],
          "bit_identical_to_knn_fused_layer": identical["knn_edge_aggregate"],
          **stimes["aggregate_eval"],
          "train_ms": stimes["aggregate_train"]["ms"],
          "train_plain_ms": stimes["aggregate_train"]["plain_ms"],
          "train_shape": stimes["aggregate_train"]["shape"],
-         "train_bound_ms": stimes["aggregate_train"]["bound_ms"]},
+         "train_bound_ms": stimes["aggregate_train"]["bound_ms"],
+         "bf16": bf16_knn_row("knn_edge_aggregate", ("k8",))},
         {"name": "gapt_g_fused", "route": "cuda", "source": "mpgan_tpu_torch/csrc/gapt_fused.cu",
          "replaces": REPLACES["gapt_g_fused"],
-         "launches": gapt_gen_launches + gapt_train_launches, "max_abs_err": gapt_err,
+         "launches": gapt_gen_launches + gapt_train_launches + bf16_knn_launches("gapt_g_fused"),
+         "max_abs_err": gapt_err,
          "two_runs_bit_identical": identical["gapt_g_fused"],
          **{k: v for k, v in gtimes[1024].items() if not k.startswith("sdpa")},
          "ms_b4096": gtimes[4096]["ms"], "plain_ms_b4096": gtimes[4096]["plain_ms"],
          "bound_ms_b4096": gtimes[4096]["bound_ms"],
          "ms_n150": gtimes[150]["ms"], "plain_ms_n150": gtimes[150]["plain_ms"],
-         "bound_ms_n150": gtimes[150]["bound_ms"], "shape_n150": gtimes[150]["shape"]},
+         "bound_ms_n150": gtimes[150]["bound_ms"], "shape_n150": gtimes[150]["shape"],
+         "bf16": bf16_knn_row("gapt_g_fused", ("b1024", "b4096"))},
     ]
     log("knn_train_step", batch=128, kernel_ms=knn_step_ms["kernel"],
         plain_ms=knn_step_ms["plain"])
@@ -3225,6 +3755,11 @@ def main() -> None:
         device_ms_bf16=bf16_steps["profile_bf16"]["device_ms"],
         idle_f32=bf16_steps["profile_f32"]["idle_share"],
         idle_bf16=bf16_steps["profile_bf16"]["idle_share"])
+    for path, st in kb_steps.items():
+        log("bf16_train_step", card=card, path=path, graph_wall_ms_f32=st["wall_ms_f32"],
+            graph_wall_ms_bf16=st["wall_ms_bf16"], device_ms_f32=st["profile_f32"]["device_ms"],
+            device_ms_bf16=st["profile_bf16"]["device_ms"],
+            idle_f32=st["profile_f32"]["idle_share"], idle_bf16=st["profile_bf16"]["idle_share"])
     log("zoo", card=card, step_ms={k: v["step_ms"] for k, v in zoo.items()},
         jets_per_s={k: v["jets_per_s"] for k, v in zoo.items()},
         zoo_launches={k: v for k, v in zoo_launches.items() if v})

@@ -30,9 +30,9 @@ score is self-consistent across a run but differs from the JAX package's
 random-trunk FPND and is not comparable to published values. ``--aug-*``,
 ``--profile``, ``--debug`` and ``--debug-nans`` run as in the JAX package
 (``training/loop.py``). ``--compute-dtype bfloat16`` trains in bf16 on
-float32 master weights (``training/train_step.py``), on every path but the knn
-and GAPT kernels', which it refuses. Not ported yet, and refused: the knn and
-GAPT paths in bf16 and multi-device training (ROADMAP.md Queue 1).
+float32 master weights (``training/train_step.py``), on every path, the knn
+and GAPT kernels' included. Not ported yet, and refused: multi-device training
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations

@@ -8,12 +8,6 @@
 
 namespace {
 
-// The bf16 stage's setup (edge_aggregate_bf16.cu).
-template <typename T>
-__device__ const LayerTab* fwd_setup_bf16(float* __restrict__ packed, const FwdPlan& p,
-                                          const Chain& fe, const Chain& fn, int jobs,
-                                          int f32_layer);
-
 // grid = the plan's CTAs; dynamic shared memory as fwd_layout lays it out. T: the
 // element type of the inputs and the output (float, or bf16 for the bf16 mode,
 // whose packed copy holds bf16 weights for the bf16 stage, fn's first layer as

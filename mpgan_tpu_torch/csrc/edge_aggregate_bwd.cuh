@@ -8,13 +8,6 @@
 
 namespace {
 
-// The bf16 mode's packer (edge_aggregate_bwd_bf16.cu): the recompute's weights in
-// the bf16 fragment order, the backward's as float32 values in the FP32 order,
-// the biases as float32, to which it points fe.b.
-template <typename T>
-int launch_pack_bf16(Chain& fe, int col_threads, float* packed, long long packed_floats,
-                     Packed& pk, cudaStream_t stream);
-
 // grid = the plan's CTAs. `pk` holds the packed weights. sender_part
 // [batch, slots, n, h1 + 1]; w_part [grid, ws.slab_floats]. T: the element type
 // of u1, u2, mask and g (float, or bf16 in the bf16 mode); du1 is float32.

@@ -60,6 +60,13 @@ template <typename T>
 __device__ int product_recompute(int A, int K, const float* W, int M, int slab,
                                  const PassShape& p, const Epilogue& e);
 
+// The bf16 mode's packer (edge_bwd_bf16.cuh): the recompute's weights in the bf16
+// fragment order, the backward's as float32 values in the FP32 order, the biases
+// as float32, to which it points fe.b.
+template <typename T>
+int launch_pack_bf16(Chain& fe, int col_threads, float* packed, long long packed_floats,
+                     Packed& pk, cudaStream_t stream);
+
 constexpr int kRowArrays = 10;     // per-row arrays of a pass (RowArrays)
 
 // What the launcher decides about a launch. The pass shape, the grid and the

@@ -55,11 +55,15 @@ __device__ __forceinline__ float dropmul(const Drop& d, unsigned id, unsigned co
   return h >= d.thr ? d.mult : 0.f;
 }
 
-// Element loads and stores of the dense kernels' inputs and outputs: float32 in
-// the FP32 mode, bf16 in the bf16 mode (converted to and from float32 here).
+// Element loads and stores of the edge kernels' inputs and outputs: float32 in
+// the FP32 mode, bf16 in the bf16 mode (converted to and from float32 here). A
+// bf16 element is read by a plain load, not cuda_bf16's __ldg: that is inline
+// assembly without side effects, which the compiler may issue ahead of the
+// guard that keeps a read in bounds (w_d is null without distances; a padded
+// row's offset is negative).
 using bf16 = __nv_bfloat16;
 __device__ __forceinline__ float ld_elem(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld_elem(const bf16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float ld_elem(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void st_elem(float* p, float v) { *p = v; }

@@ -72,6 +72,12 @@ struct FwdPlan : PassShape {
   long long pk_off[kFwdJobs + 1];  // packed weights: fe layers, then fn's (floats)
 };
 
+// The bf16 stage's setup (edge_fwd_bf16.cuh, included by the bf16 kernels only).
+template <typename T>
+__device__ const LayerTab* fwd_setup_bf16(float* __restrict__ packed, const FwdPlan& p,
+                                          const Chain& fe, const Chain& fn, int jobs,
+                                          int f32_layer);
+
 // The widest of a_0 .. a_{L-1}: the pass buffer's width.
 int pass_width(const Chain& fe) {
   int w = fe.dim[0];
@@ -218,7 +224,7 @@ __device__ __forceinline__ void add_share(const FwdPlan& p, float s, int ii, int
 // adds dist * w_d, product and sum rounded apart as the plain version rounds
 // them: K6's recompute (build_a0) and the plain backward then see the same bits
 // of z1, and a pre-activation within rounding of zero keeps its LeakyReLU slope.
-// T: the element type of u1 and u2 (the bf16 mode adds their float32 values).
+// T: the element type of u1, u2 and w_d (the bf16 mode adds their float32 values).
 template <bool kDist, typename T = float>
 __device__ __noinline__ void build_a0_fwd(int dst_off, const PassShape& p, const RowArrays& row_in,
                                           const PassInputs& in_ref, int h1) {
@@ -230,7 +236,7 @@ __device__ __noinline__ void build_a0_fwd(int dst_off, const PassShape& p, const
   const int hl = lane & 7, rl = lane >> 3;
   const T* __restrict__ u1 = rows_as<T>(in.u1);
   const T* __restrict__ u2 = rows_as<T>(in.u2);
-  const float* __restrict__ w_d = in.w_d;
+  const T* __restrict__ w_d = rows_as<T>(in.w_d);
   constexpr int kH = 12;
   for (int rg = warp; rg < p.rows / 4; rg += kWarps) {
     const int r = 4 * rg + rl;
@@ -250,7 +256,7 @@ __device__ __noinline__ void build_a0_fwd(int dst_off, const PassShape& p, const
         if (h >= h1) break;
         float v = 0.f;
         if (o1 >= 0) {
-          if (kDist) z[k] = __fadd_rn(z[k], __fmul_rn(dist, __ldg(w_d + h)));
+          if (kDist) z[k] = __fadd_rn(z[k], __fmul_rn(dist, ld_elem(w_d + h)));
           v = leaky(z[k], in.alpha);
           if (in.drop_on) v = drop_store(v, in.drop, id, (unsigned)h, 0u);
         }
@@ -269,9 +275,9 @@ __device__ __noinline__ void build_a0_fwd(int dst_off, const PassShape& p, const
 // the barrier after the row arrays' stores. It ends with its tail reading the
 // partials and the aggregate: the caller's next stores into the row arrays may
 // follow without a barrier, a store into the pass buffer or the aggregate not.
-// T: the element type of u1, u2 and out_blk; bf16 (the bf16 mode, dense only)
-// runs the products on the bf16 stage, but K4's fn first layer (table entry L,
-// float32 operands) on the FP32 one.
+// T: the element type of u1, u2 (knn: u2m), w_d and out_blk; bf16 (the bf16
+// mode) runs the products on the bf16 stage, but K4's fn first layer (table
+// entry L, float32 operands) on the FP32 one.
 template <bool kFuseFn, typename T = float>
 __device__ __forceinline__ void fwd_pass(const FwdPlan& p, const LayerTab* tab, int L, int h1,
                                          int h_out, const RowArrays& row, const PassInputs& in,

@@ -581,7 +581,7 @@ struct PassInputs {
 
 // a_0 [h1 x rows] from the row arrays; a padded row is zero. A warp takes a row at
 // a time, its lanes the features, so the loads of u1 and u2 are coalesced. T: the
-// element type of u1 and u2 (the bf16 mode adds their float32 values).
+// element type of u1, u2 and w_d (the bf16 mode adds their float32 values).
 template <typename T = float>
 __device__ __noinline__ void build_a0(int dst_off, const PassShape& p, const RowArrays& row_in,
                                       const PassInputs& in_ref, int h1) {
@@ -613,7 +613,7 @@ __device__ __noinline__ void build_a0(int dst_off, const PassShape& p, const Row
 #pragma unroll
       for (int q = 0; q < kTogether; ++q)
         z[q] = o1[q] >= 0 ? ld_elem(u1 + o1[q] + h) + ld_elem(u2 + o2[q] + h) : 0.f;
-      const float wd = in.w_d != nullptr ? __ldg(in.w_d + h) : 0.f;
+      const float wd = in.w_d != nullptr ? ld_elem(rows_as<T>(in.w_d) + h) : 0.f;
 #pragma unroll
       for (int q = 0; q < kTogether; ++q) {
         if (o1[q] == -2) continue;  // beyond the pass

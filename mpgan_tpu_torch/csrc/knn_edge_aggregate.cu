@@ -62,8 +62,8 @@ int mpgan_knn_edge_aggregate(const float* u1, const float* u2m, const int* idx,
   a.k = k;
   a.want_dists = dists != nullptr;
   a.sum_agg = sum_agg;
-  return launch_knn_fwd<false>(a, fe, alpha, dropout, seed, thr, mult, ti, kc, rows, grid,
-                               slab_floats, stream);
+  return launch_knn_fwd<false, float>(a, fe, alpha, dropout, seed, thr, mult, ti, kc, rows,
+                                      grid, slab_floats, stream);
 }
 
 #ifdef MPGAN_PHASE_CLOCKS

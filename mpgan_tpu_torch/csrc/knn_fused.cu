@@ -78,8 +78,8 @@ int mpgan_knn_fused_layer(const float* xs, const float* xf, const float* u1, con
   a.want_dists = want_dists;
   a.sum_agg = sum_agg;
   a.sspan = sspan;
-  return launch_knn_fwd<true>(a, fe, alpha, dropout, seed, thr, mult, ti, kc, rows, grid,
-                              slab_floats, stream);
+  return launch_knn_fwd<true, float>(a, fe, alpha, dropout, seed, thr, mult, ti, kc, rows,
+                                     grid, slab_floats, stream);
 }
 
 // Shared memory (bytes) of a knn forward launch (K5 with search, else K8) at the

@@ -22,22 +22,51 @@
 // 42 min/max a pair. A CTA takes one jet (receivers in groups of at most one a
 // thread): the jet's senders are staged once, transposed, and each receiver's
 // threads keep their sorted lists in registers (knn_stages.cuh: knn_search_stage).
+//
+// The bf16 mode (mpgan_knn_search_bf16: knn_select / knn_select_nm called with
+// bf16 x, as StepConfig.bf16 calls them on the split route) is the same kernel
+// on bf16 xs and xf, which the staging and the receivers' rows widen to float32
+// as they read them (knn_pallas.py:58-59): the keys, idx and the float32
+// distances are those of the inputs' float32 values.
 
 #include "knn_stages.cuh"
 
 namespace {
 
-// grid = (batch, receiver groups); dynamic shared memory: the search's scratch.
+// grid = (batch, receiver groups); dynamic shared memory: the search's scratch. T:
+// the element type of xs and xf (float, or bf16 in the bf16 mode).
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-    knn_search_kernel(const float* __restrict__ xs, const float* __restrict__ xf,
+    knn_search_kernel(const T* __restrict__ xs, const T* __restrict__ xf,
                       int* __restrict__ idx_out, float* __restrict__ dists_out, int n, int c,
                       int k, int self_loops, int want_dists, int key_bits, int group) {
   const int g0 = blockIdx.y * group;
   PhaseClock clock;
   MPGAN_PHASE_START(clock);
-  knn_search_stage(xs, xf, idx_out, dists_out, blockIdx.x, g0, min(group, n - g0), n, c, k,
-                   self_loops, want_dists, key_bits, 0, -1, -1);
+  knn_search_stage<T>(xs, xf, idx_out, dists_out, blockIdx.x, g0, min(group, n - g0), n, c, k,
+                      self_loops, want_dists, key_bits, 0, -1, -1);
   MPGAN_PHASE(clock, kPhaseSearch);
+}
+
+template <typename T>
+int launch_search(const T* xs, const T* xf, int* idx_out, float* dists_out, int batch, int n,
+                  int c, int k, int self_loops, int want_dists, void* stream) {
+  if (batch < 1 || n < 1 || n > (1 << 22) || c < 1 || c > kMaxWidth || idx_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (k < 1 || k + (self_loops ? 0 : 1) > n || (want_dists && dists_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int group = group_size(n);
+  const long long floats = search_floats(n, c);
+  if (floats * (long long)sizeof(float) > (long long)kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)floats * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(knn_search_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(batch, (n + group - 1) / group);
+  knn_search_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xs, xf, idx_out, dists_out, n, c, k, self_loops, want_dists, knn_key_bits(n), group);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -49,22 +78,17 @@ extern "C" {
 // asynchronous on `stream`.
 int mpgan_knn_search(const float* xs, const float* xf, int* idx_out, float* dists_out, int batch,
                      int n, int c, int k, int self_loops, int want_dists, void* stream) {
-  if (batch < 1 || n < 1 || n > (1 << 22) || c < 1 || c > kMaxWidth || idx_out == nullptr)
-    return (int)cudaErrorInvalidValue;
-  if (k < 1 || k + (self_loops ? 0 : 1) > n || (want_dists && dists_out == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int group = group_size(n);
-  const long long floats = search_floats(n, c);
-  if (floats * (long long)sizeof(float) > (long long)kMaxSmemBytes)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)floats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(knn_search_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(batch, (n + group - 1) / group);
-  knn_search_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xs, xf, idx_out, dists_out, n, c, k, self_loops, want_dists, knn_key_bits(n), group);
-  return (int)cudaGetLastError();
+  return launch_search<float>(xs, xf, idx_out, dists_out, batch, n, c, k, self_loops, want_dists,
+                              stream);
+}
+
+// K7 in the bf16 mode: xs, xf bf16 [batch, n, c]; idx_out int32 and dists_out float32
+// as mpgan_knn_search's.
+int mpgan_knn_search_bf16(const bf16* xs, const bf16* xf, int* idx_out, float* dists_out,
+                          int batch, int n, int c, int k, int self_loops, int want_dists,
+                          void* stream) {
+  return launch_search<bf16>(xs, xf, idx_out, dists_out, batch, n, c, k, self_loops, want_dists,
+                             stream);
 }
 
 #ifdef MPGAN_PHASE_CLOCKS

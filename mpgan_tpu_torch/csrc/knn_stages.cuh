@@ -33,6 +33,15 @@
 // flight while the search runs. K8 reads each row's sender from
 // idx (clamped to [0, n), so a wrong idx cannot read outside the jet) and its
 // distance from dists.
+//
+// The bf16 mode (knn_fused_bf16.cu: K5 and K8; knn_search.cu's bf16 entry: K7)
+// instantiates the same search and kernel for bf16 xs, xf, u1, u2m, w_d and out:
+// the search widens xs and xf to float32 as it stages and reads them, so the
+// keys, idx and the float32 dists are those of their float32 values, as in
+// knn_pallas._fused_kernel_v4; a_0 adds the float32 values of u1, u2 and dist *
+// w_d; the hidden products run on the bf16 stage (edge_products_bf16.cuh: bf16
+// operands, float32 accumulation); the masked sum and the mean stay float32
+// and the output is rounded once.
 #pragma once
 
 #include <climits>
@@ -122,23 +131,25 @@ __device__ __forceinline__ void list_insert(int (&list)[kSearchList], int v) {
   list[0] = min(list[0], v);
 }
 
-// The keys of one thread's senders (groups of 4 senders part, part + T, ... of
+// The keys of one thread's senders (groups of 4 senders part, part + parts, ... of
 // the jet's xf^T [cols + 1, ldn]) for one receiver, those above `prev` inserted
 // into `list`. kC > 0: the receiver's row, pre-scaled by -2 and zero-padded to
 // kC = cols columns, is xr (registers), and the loops have a fixed length;
-// kC == 0: any width, the row read from L1.
-template <int kC>
+// kC == 0: any width, the row read from L1. T: the element type of the row
+// (bf16 in the bf16 mode, widened to float32 as it is read).
+template <int kC, typename T>
 __device__ __forceinline__ void search_keys(int (&list)[kSearchList], const float* __restrict__ xft,
                                             const float (&xr)[kC > 0 ? kC : 1],
-                                            const float* __restrict__ xsi, float sq1, int n,
-                                            int ldn, int cols, int low, int part, int T, int prev) {
+                                            const T* __restrict__ xsi, float sq1, int n,
+                                            int ldn, int cols, int low, int part, int parts,
+                                            int prev) {
   const int groups = ldn / 4, q4 = ldn / 4;  // float4s a row of xf^T
-  for (int g = part; g < groups; g += T) {
+  for (int g = part; g < groups; g += parts) {
     const float4* col = reinterpret_cast<const float4*>(xft) + g;
     // the plain version's order: products and sums rounded one by one, column by
     // column, then + |xf[j]|^2, then + |xs[i]|^2; four senders, four chains
     float4 x4 = col[0];
-    const float a0 = kC > 0 ? xr[0] : -2.f * __ldg(xsi);
+    const float a0 = kC > 0 ? xr[0] : -2.f * ld_elem(xsi);
     float d0 = __fmul_rn(a0, x4.x), d1 = __fmul_rn(a0, x4.y), d2 = __fmul_rn(a0, x4.z),
           d3 = __fmul_rn(a0, x4.w);
     if constexpr (kC > 0) {
@@ -152,7 +163,7 @@ __device__ __forceinline__ void search_keys(int (&list)[kSearchList], const floa
       }
     } else {
       for (int cc = 1; cc < cols; ++cc) {
-        const float a = -2.f * __ldg(xsi + cc);
+        const float a = -2.f * ld_elem(xsi + cc);
         x4 = col[cc * q4];
         d0 = __fadd_rn(d0, __fmul_rn(a, x4.x));
         d1 = __fadd_rn(d1, __fmul_rn(a, x4.y));
@@ -176,33 +187,34 @@ __device__ __forceinline__ void search_keys(int (&list)[kSearchList], const floa
 }
 
 // The receivers of a search after the staging (see knn_search_stage), their rows
-// as search_keys<kC> reads them; `merge` holds the lists of the merge.
-template <int kC>
-__device__ __forceinline__ void search_receivers(const float* __restrict__ xs,
-                                                 const float* __restrict__ xf,
+// as search_keys<kC> reads them; `merge` holds the lists of the merge. T: the
+// element type of xs and xf.
+template <int kC, typename T>
+__device__ __forceinline__ void search_receivers(const T* __restrict__ xs,
+                                                 const T* __restrict__ xf,
                                                  const float* __restrict__ xft, int* merge,
                                                  int* __restrict__ idx_out,
                                                  float* __restrict__ dists_out, int b, int g0,
                                                  int g_eff, int n, int c, int cols, int ldn, int k,
                                                  int start, int want_dists, int low, int sel_off,
                                                  int seld_off) {
-  const int per = search_part_threads(g_eff), T = search_parts(g_eff);
+  const int per = search_part_threads(g_eff), parts = search_parts(g_eff);
   const int part = threadIdx.x / per, place = threadIdx.x - part * per;
   SEARCH_CLOCK_START();
   for (int rb = 0; rb < g_eff; rb += per) {
     // a warp without a receiver, or past the groups, computes nothing; a thread
     // past the receivers in a warp with one recomputes the last, and writes nothing
-    const bool busy = part < T && rb + (place & ~31) < g_eff;
+    const bool busy = part < parts && rb + (place & ~31) < g_eff;
     const bool live = busy && rb + place < g_eff;
     const int ii = min(rb + place, g_eff - 1);
-    const float* xsi = xs + ((size_t)b * n + g0 + ii) * c;
+    const T* xsi = xs + ((size_t)b * n + g0 + ii) * c;
     float xr[kC > 0 ? kC : 1];
     float sq1 = 0.f;
     if (busy) {
-      sq1 = __fmul_rn(__ldg(xsi), __ldg(xsi));
+      sq1 = __fmul_rn(ld_elem(xsi), ld_elem(xsi));
       if constexpr (kC > 0) {
 #pragma unroll
-        for (int cc = 0; cc < kC; ++cc) xr[cc] = cc < c ? __ldg(xsi + cc) : 0.f;
+        for (int cc = 0; cc < kC; ++cc) xr[cc] = cc < c ? ld_elem(xsi + cc) : 0.f;
 #pragma unroll
         for (int cc = 1; cc < kC; ++cc)
           if (cc < c) sq1 = __fadd_rn(sq1, __fmul_rn(xr[cc], xr[cc]));
@@ -210,7 +222,7 @@ __device__ __forceinline__ void search_receivers(const float* __restrict__ xs,
         for (int cc = 0; cc < kC; ++cc) xr[cc] *= -2.f;  // exact
       } else {
         for (int cc = 1; cc < c; ++cc) {
-          const float v = __ldg(xsi + cc);
+          const float v = ld_elem(xsi + cc);
           sq1 = __fadd_rn(sq1, __fmul_rn(v, v));
         }
       }
@@ -220,10 +232,10 @@ __device__ __forceinline__ void search_receivers(const float* __restrict__ xs,
       int list[kSearchList];
 #pragma unroll
       for (int s = 0; s < kSearchList; ++s) list[s] = INT_MAX;
-      if (busy) search_keys<kC>(list, xft, xr, xsi, sq1, n, ldn, cols, low, part, T, prev);
+      if (busy) search_keys<kC>(list, xft, xr, xsi, sq1, n, ldn, cols, low, part, parts, prev);
       SEARCH_WARP_STAMP(kPhaseSearchKeys);
-      if (T > 1) {
-        // groups 1 .. T - 1 hand their lists to group 0, which merges them (with T >
+      if (parts > 1) {
+        // groups 1 .. parts - 1 hand their lists to group 0, which merges them (with parts >
         // 1 all receivers fit in one round of the groups, so rb takes one value)
         if (busy && part > 0) {
 #pragma unroll
@@ -232,18 +244,18 @@ __device__ __forceinline__ void search_receivers(const float* __restrict__ xs,
         }
         __syncthreads();
         if (busy && part == 0) {
-          for (int q = 1; q < T; ++q) {
+          for (int q = 1; q < parts; ++q) {
 #pragma unroll
             for (int s = 0; s < kSearchList; ++s)
               list_insert(list, merge[((q - 1) * kSearchList + s) * per + place]);
           }
         }
       }
-      if (T > 1 && k + start > kSearchList) {
+      if (parts > 1 && k + start > kSearchList) {
         __syncthreads();  // the lists are read; group 0 hands on the round's largest key
         if (part == 0) merge[place] = list[kSearchList - 1];
         __syncthreads();
-        if (part < T) prev = merge[place];
+        if (part < parts) prev = merge[place];
         __syncthreads();  // merge is free for the next round
       } else {
         prev = list[kSearchList - 1];
@@ -267,19 +279,19 @@ __device__ __forceinline__ void search_receivers(const float* __restrict__ xs,
             // the exact distance of the selected edge: |xf[j] - xs[i] + 1e-12|; xf's
             // row is read from L1 (one line at c = 32), not from xf^T, where the
             // lanes' senders would meet in few banks
-            const float* xfj = xf + ((size_t)b * n + j) * c;
+            const T* xfj = xf + ((size_t)b * n + j) * c;
             float sum = 0.f;
             if constexpr (kC > 0) {
 #pragma unroll
               for (int cc = 0; cc < kC; ++cc) {
                 if (cc < c) {
-                  const float diff = __ldg(xfj + cc) - xr[cc] * -0.5f + 1e-12f;
+                  const float diff = ld_elem(xfj + cc) - xr[cc] * -0.5f + 1e-12f;
                   sum = fmaf(diff, diff, sum);
                 }
               }
             } else {
               for (int cc = 0; cc < c; ++cc) {
-                const float diff = __ldg(xfj + cc) - __ldg(xsi + cc) + 1e-12f;
+                const float diff = ld_elem(xfj + cc) - ld_elem(xsi + cc) + 1e-12f;
                 sum = fmaf(diff, diff, sum);
               }
             }
@@ -297,8 +309,8 @@ __device__ __forceinline__ void search_receivers(const float* __restrict__ xs,
 // The search for receivers g0 .. g0 + g_eff of jet b, its scratch at work_off, run
 // by every thread of the CTA: the jet's senders are staged transposed with their
 // squared norms (rows past c zeros, search_cols), then each receiver takes a
-// thread in each of T = search_parts(g_eff) groups of whole warps, each thread
-// computing the keys of a 1 / T share of the senders (every lane of a warp reads
+// thread in each of search_parts(g_eff) groups of whole warps, each thread
+// computing the keys of its group's share of the senders (every lane of a warp reads
 // the same 4 senders with one 128-bit load) and keeping the kSearchList smallest
 // sorted in registers; group 0 merges the others' lists through shared memory.
 // Keys are unique, so the ascending list is what k + 1 extractions give, and
@@ -306,22 +318,25 @@ __device__ __forceinline__ void search_receivers(const float* __restrict__ xs,
 // k + 1 exceeds kSearchList, further rounds take the smallest keys above the last
 // round's largest. Fills sel [g_eff, k] (sel_off >= 0) and seld with want_dists,
 // and idx_out and dists_out where they are not null. The caller synchronizes the
-// CTA before it reads sel or reuses the scratch.
-__device__ __noinline__ void knn_search_stage(const float* __restrict__ xs,
-                                              const float* __restrict__ xf,
+// CTA before it reads sel or reuses the scratch. T: the element type of xs and xf
+// (bf16 in the bf16 mode: the staging and the receivers' rows widen them to
+// float32, so the keys and the distances are those of their float32 values).
+template <typename T>
+__device__ __noinline__ void knn_search_stage(const T* __restrict__ xs,
+                                              const T* __restrict__ xf,
                                               int* __restrict__ idx_out,
                                               float* __restrict__ dists_out, int b, int g0,
                                               int g_eff, int n, int c, int k, int self_loops,
                                               int want_dists, int key_bits, int work_off,
                                               int sel_off, int seld_off) {
   const int ldn = search_ldn(n), cols = search_cols(c);
-  const float* xfb = xf + (size_t)b * n * c;
+  const T* xfb = xf + (size_t)b * n * c;
   float* xft = smf(work_off);  // [cols + 1, ldn]
   SEARCH_CLOCK_START();
   for (int t = threadIdx.x; t < ldn * cols; t += kThreads) {
     // coalesced reads of xf; the padded senders and columns are zeros
     const int j = t / cols, cc = t - j * cols;
-    xft[cc * ldn + j] = j < n && cc < c ? __ldg(xfb + (size_t)j * c + cc) : 0.f;
+    xft[cc * ldn + j] = j < n && cc < c ? ld_elem(xfb + (size_t)j * c + cc) : 0.f;
   }
   __syncthreads();
   for (int j = threadIdx.x; j < ldn; j += kThreads) {
@@ -337,7 +352,7 @@ __device__ __noinline__ void knn_search_stage(const float* __restrict__ xs,
   const int low = (1 << key_bits) - 1, start = self_loops ? 0 : 1;
   int* merge = smi(work_off + (cols + 1) * ldn);
 #define MPGAN_SEARCH_RECEIVERS(KC)                                                               \
-  search_receivers<KC>(xs, xf, xft, merge, idx_out, dists_out, b, g0, g_eff, n, c, cols, ldn, k, \
+  search_receivers<KC, T>(xs, xf, xft, merge, idx_out, dists_out, b, g0, g_eff, n, c, cols, ldn, k, \
                        start, want_dists, low, sel_off, seld_off)
   switch (cols) {
     case 4: MPGAN_SEARCH_RECEIVERS(4); break;
@@ -349,7 +364,10 @@ __device__ __noinline__ void knn_search_stage(const float* __restrict__ xs,
 #undef MPGAN_SEARCH_RECEIVERS
 }
 
-// What a knn forward launch reads and writes besides the chain.
+// What a knn forward launch reads and writes besides the chain. xs, xf, u1, u2m,
+// w_d and out hold the kernel's element type (float32, or bf16 in the bf16 mode,
+// read through rows_as); idx, dists and the outputs idx_out, dists_out are int32
+// and float32 in both modes.
 struct KnnArgs {
   const float* xs;  // K5: the receivers' and the senders' selection features [B, n, c]
   const float* xf;
@@ -369,14 +387,21 @@ struct KnnArgs {
 };
 
 // grid = the plan's CTAs, cooperative; dynamic shared memory as knn_fwd_layout lays it
-// out. kSearch: K5, else K8.
-template <bool kSearch>
+// out. kSearch: K5, else K8. T: the element type (float, or bf16 for the bf16 mode,
+// whose packed copy holds bf16 weights for the bf16 stage and every bias as
+// float32: edge_fwd_bf16.cuh).
+template <bool kSearch, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     knn_fwd_kernel(KnnArgs a, FwdPlan p, Chain fe, float alpha, int drop_on, Drop drop,
                    const int* __restrict__ seed) {
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
   drop = drop_load(drop, seed, drop_on != 0);
   const int L = fe.n, h1 = a.h1, hs = a.h1 + 1, h_out = fe.dim[L], n = a.n, k = a.k;
-  const LayerTab* tab = fwd_setup(a.packed, p, fe, fe, L);
+  const LayerTab* tab;
+  if constexpr (kBf16)
+    tab = fwd_setup_bf16<T>(a.packed, p, fe, fe, L, -1);
+  else
+    tab = fwd_setup(a.packed, p, fe, fe, L);
   const float denom = a.sum_agg ? 1.f : (float)k;  // the mean divides by k
   const RowArrays row = fwd_rows(p);
   PassInputs in{};
@@ -404,8 +429,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         seg_lo = i0;
         seg_hi = min(min(n, i0 + a.sspan), (int)(t_jet - (long long)b * a.blocks) * p.ti);
         __syncthreads();  // the last pass's tail is done with the region the search overwrites
-        knn_search_stage(a.xs, a.xf, a.idx_out, a.dists_out, b, seg_lo, seg_hi - seg_lo, n, a.c,
-                         k, a.self_loops, a.want_dists, a.key_bits, 0, a.off_sel, a.off_seld);
+        knn_search_stage<T>(rows_as<T>(a.xs), rows_as<T>(a.xf), a.idx_out, a.dists_out, b,
+                            seg_lo, seg_hi - seg_lo, n, a.c, k, a.self_loops, a.want_dists,
+                            a.key_bits, 0, a.off_sel, a.off_seld);
         __syncthreads();  // sel and seld are complete
         MPGAN_PHASE(clock, kPhaseSearch);
       }
@@ -434,14 +460,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         smi(row.u1)[r] = real ? q * h1 : -1;
         smi(row.u2)[r] = sender * hs;
         smu(row.id)[r] = (unsigned)q * (unsigned)k + (unsigned)s;
-        smf(row.m)[r] = real ? __ldg(a.u2m + (size_t)sender * hs + h1) : 0.f;
+        smf(row.m)[r] = real ? ld_elem(rows_as<T>(a.u2m) + (size_t)sender * hs + h1) : 0.f;
         smf(row.dist)[r] = dist;
       }
       const bool first = s0 == 0, last = s0 + p.jc >= k;
       // the last product starts fe's first slab of this CTA's next pass
       const int nxt = !last || t + 1 < t_end ? 0 : -1;
-      fwd_pass<false>(p, tab, L, h1, h_out, row, in, e, chain, ti_eff, kc_eff, 0, first, last,
-                      nxt, denom, a.out + (size_t)(b * n + i0) * h_out, clock);
+      T* out_blk = reinterpret_cast<T*>(a.out) + (size_t)(b * n + i0) * h_out;
+      fwd_pass<false, T>(p, tab, L, h1, h_out, row, in, e, chain, ti_eff, kc_eff, 0, first,
+                         last, nxt, denom, out_blk, clock);
     }
   }
 }
@@ -469,8 +496,8 @@ bool knn_fwd_layout(FwdPlan& p, KnnArgs& a, const Chain& fe, bool search) {
 // Checks the caller's plan, lays out the shared memory and launches K5 (kSearch)
 // or K8. With `dropout`, K1 runs with the seed `seed` points to in device memory (in
 // [0, 2^31)), keep threshold `thr` and multiplier `mult` as computed on the host (see
-// Drop).
-template <bool kSearch>
+// Drop). T: the element type (see knn_fwd_kernel).
+template <bool kSearch, typename T>
 int launch_knn_fwd(KnnArgs a, const Chain& fe, float alpha, int dropout, const int* seed,
                    unsigned thr,
                    float mult, int ti, int kc, int rows, int grid, int slab_floats,
@@ -492,7 +519,7 @@ int launch_knn_fwd(KnnArgs a, const Chain& fe, float alpha, int dropout, const i
     drop.mult = mult;
   }
   a.key_bits = knn_key_bits(a.n);
-  const void* kernel = reinterpret_cast<const void*>(knn_fwd_kernel<kSearch>);
+  const void* kernel = reinterpret_cast<const void*>(knn_fwd_kernel<kSearch, T>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)p.smem);
   if (err != cudaSuccess) return (int)err;

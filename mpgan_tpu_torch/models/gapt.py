@@ -147,7 +147,13 @@ class GAPTGenerator(nn.Module):
         self.to(device)
 
     def fused_weights(self) -> GaptWeights:
-        """The weights as K9 reads them, repacked only after a parameter changed."""
+        """The weights as K9 reads them. The module's own parameters are packed
+        again only after one changed (address or version). Packed on every call
+        are tensors that stand in for them (``torch.func.functional_call``, as
+        ``bf16_apply``'s bf16 copies: fresh tensors, whose address and version
+        may repeat with other values) and the parameters while a CUDA graph is
+        captured, so that each replay packs what the parameters then hold (an
+        update replayed in a graph changes no version)."""
         layers = []
         for sab in self.sabs:
             att, lin = sab.mab.attention, sab.mab.ff.net[0]
@@ -155,6 +161,10 @@ class GAPTGenerator(nn.Module):
                            att.out_proj.bias, lin.weight, lin.bias))
         fc = self.final_fc.net[0]
         flat = [t for layer in layers for t in layer] + [fc.weight, fc.bias]
+        capturing = flat[0].is_cuda and torch.cuda.is_current_stream_capturing()
+        if capturing or not all(isinstance(t, nn.Parameter) for t in flat):
+            with torch.no_grad():
+                return pack_gapt_weights(layers, fc.weight, fc.bias)
         stamp = tuple((t.data_ptr(), t._version) for t in flat)
         if self._packed is None or self._packed[0] != stamp:
             with torch.no_grad():

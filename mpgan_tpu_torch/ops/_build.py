@@ -26,10 +26,11 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_ext"
 SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu", "edge_aggregate_bf16.cu",
            "edge_aggregate_bwd_bf16.cu", "knn_fused.cu", "knn_edge_bwd.cu", "knn_search.cu",
-           "knn_edge_aggregate.cu", "gapt_fused.cu")
+           "knn_edge_aggregate.cu", "knn_fused_bf16.cu", "knn_edge_bwd_bf16.cu", "gapt_fused.cu")
 HEADERS = ("edge_common.cuh", "edge_products.cuh", "edge_products_bf16.cuh",
-           "edge_fwd_common.cuh", "edge_bwd_common.cuh", "edge_aggregate.cuh",
-           "edge_aggregate_bwd.cuh", "knn_stages.cuh")
+           "edge_fwd_common.cuh", "edge_fwd_bf16.cuh", "edge_bwd_common.cuh",
+           "edge_bwd_bf16.cuh", "edge_aggregate.cuh", "edge_aggregate_bwd.cuh",
+           "knn_stages.cuh", "knn_edge_bwd.cuh")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -171,6 +172,23 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i, p,
     ]
     lib.mpgan_knn_edge_aggregate.restype = i
+    lib.mpgan_knn_fused_layer_bf16.argtypes = [
+        p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, parr, parr, iarr, f, i, i, p,
+        ctypes.c_uint, f, i, i, i, i, i, i, p,
+    ]
+    lib.mpgan_knn_fused_layer_bf16.restype = i
+    lib.mpgan_knn_edge_aggregate_bwd_bf16.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, parr, p, ll, parr, iarr,
+        f, i, i, p, ctypes.c_uint, f, i, i, i, i, i, i, p,
+    ]
+    lib.mpgan_knn_edge_aggregate_bwd_bf16.restype = i
+    lib.mpgan_knn_search_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.mpgan_knn_search_bf16.restype = i
+    lib.mpgan_knn_edge_aggregate_bf16.argtypes = [
+        p, p, p, p, p, p, p, ll, i, i, i, i, i, parr, parr, iarr, f, i, i, p, ctypes.c_uint, f,
+        i, i, i, i, i, p,
+    ]
+    lib.mpgan_knn_edge_aggregate_bf16.restype = i
     lib.mpgan_knn_fwd_sizes.argtypes = [i, iarr] + [i] * 10 + [ctypes.POINTER(ctypes.c_longlong)]
     lib.mpgan_knn_fwd_sizes.restype = i
     lib.mpgan_gapt_fused_plan.argtypes = [i, i, i, i, iarr, ctypes.POINTER(ctypes.c_longlong)]

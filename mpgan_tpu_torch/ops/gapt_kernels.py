@@ -34,6 +34,13 @@ so the gate (:func:`fused_gapt_eligible`) has no batch condition. The rest of
 the gate is the JAX package's: generator, eval, no ISAB, no layer norm, no
 extra FC layers, no batch or spectral norm, ``E % H == 0``, ``N <= 512``.
 
+The bf16 mode (``StepConfig.bf16``: the D step's fake batch of a bf16 GAPT
+step) is the JAX wrapper's own: ``gapt_pallas.gapt_g_fused`` widens ``x``, the
+mask and every weight to float32 before its ``pallas_call`` (``:196-213``), runs
+the float32 body and rounds the output to ``x.dtype`` (``:251``). Here the
+wrapper widens bf16 inputs, runs K9 and rounds its output to bf16; such a launch
+is counted under ``gapt_g_fused_bf16``. A mix of dtypes raises.
+
 The kernel is eval only and has no backward, as in the JAX package: the wrapper
 raises when gradients are enabled and an input requires one. It runs the plain
 version for tensors on the CPU and the kernel for tensors on a CUDA device;
@@ -51,7 +58,14 @@ from typing import NamedTuple, Sequence
 import torch
 
 from . import _build
-from .mp_kernels import MAX_SMEM_BYTES, _check_cuda_args, _on_cpu, _sm_count, launch_counts
+from .mp_kernels import (
+    MAX_SMEM_BYTES,
+    _check_cuda_args,
+    _is_bf16,
+    _on_cpu,
+    _sm_count,
+    launch_counts,
+)
 
 _NEG = 1e30
 MAX_PARTICLES = 512
@@ -111,7 +125,12 @@ def pack_gapt_weights(layers: Sequence[Sequence[torch.Tensor]], fc_w: torch.Tens
 
 def gapt_g_fused_reference(x: torch.Tensor, mask: torch.Tensor | None, w: GaptWeights,
                            num_heads: int, alpha: float) -> torch.Tensor:
-    """Plain PyTorch version of K9 (``gapt_pallas._kernel``'s arithmetic)."""
+    """Plain PyTorch version of K9 (``gapt_pallas._kernel``'s arithmetic); bf16
+    inputs (the bf16 mode): the float32 body on their float32 values, the output
+    rounded to bf16."""
+    if _is_bf16(*_tensors(x, mask, w)):
+        x, mask, w = _widened(x, mask, w)
+        return gapt_g_fused_reference(x, mask, w, num_heads, alpha).to(torch.bfloat16)
     b, n, e = x.shape
     hd = e // num_heads
     bias = None if mask is None else ((mask[:, :, 0] - 1.0) * _NEG)[:, None, None, :]
@@ -209,18 +228,32 @@ def _check_shapes(name: str, x, mask, w: GaptWeights, num_heads: int) -> None:
                          f"must be [{e}, F], [F]")
 
 
+def _tensors(x, mask, w: GaptWeights) -> tuple:
+    return (x, *w) if mask is None else (x, mask, *w)
+
+
+def _widened(x, mask, w: GaptWeights):
+    """The float32 values of bf16 inputs (``gapt_pallas.py:196-213``)."""
+    return x.float(), None if mask is None else mask.float(), GaptWeights(*(t.float() for t in w))
+
+
 def gapt_g_fused(x: torch.Tensor, mask: torch.Tensor | None, w: GaptWeights, num_heads: int,
                  alpha: float) -> torch.Tensor:
     """K9: the plain version on the CPU, the CUDA kernel on a GPU. Returns
-    ``[B, N, F (+1 with a mask)]``. Eval only: raises where a gradient is asked for."""
-    name = "gapt_g_fused"
-    tensors = (x, *w) if mask is None else (x, mask, *w)
+    ``[B, N, F (+1 with a mask)]`` in the inputs' dtype: all float32, or all
+    bf16 for the bf16 mode (widened to K9's float32 body, the output rounded to
+    bf16; its own count). Eval only: raises where a gradient is asked for."""
+    tensors = _tensors(x, mask, w)
+    bf16 = _is_bf16(*tensors)
+    name = "gapt_g_fused" + ("_bf16" if bf16 else "")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} is eval only and has no backward: call it under "
                            "torch.no_grad(), or take the model's plain path")
     _check_shapes(name, x, mask, w, num_heads)
     if _on_cpu(*tensors):
         return gapt_g_fused_reference(x, mask, w, num_heads, alpha)
+    if bf16:
+        x, mask, w = _widened(x, mask, w)
     _check_cuda_args(name, {"x": x, **({} if mask is None else {"mask": mask}),
                             **dict(zip(w._fields, w))}, (w.in_wt, w.out_wt, w.ff_wt))
     b, n, e = x.shape
@@ -244,4 +277,4 @@ def gapt_g_fused(x: torch.Tensor, mask: torch.Tensor | None, w: GaptWeights, num
         )
     _build.check(code, name)
     launch_counts[name] += 1
-    return out
+    return out.to(torch.bfloat16) if bf16 else out

@@ -48,6 +48,20 @@ by an aggregate kernel fed with ``idx``:
   pairs it with K6, which is also those generations' backward.
   :func:`knn_aggregate_split` chains K7, K8 (and K6).
 
+Each takes all-float32 tensors, or all-bf16 ones for the bf16 mode
+(``StepConfig.bf16``; the Pallas kernels called with bf16 refs), ``idx`` int32
+and ``dists`` float32 in both: the search on the float32 values of ``xs`` and
+``xf`` (so the same keys, ``idx`` and float32 distances), ``z1`` and a_0 in
+float32 (``dist * f32(w_d)`` included), each hidden product on bf16-rounded
+activations and bf16 weights with float32 accumulation, the masked sum and the
+mean in float32 and the output rounded to bf16 once; K6's backward products in
+float32 on the weights' float32 values, its gradients rounded once to the
+primals' dtypes (``ddists`` float32, the distances' dtype). On the card the
+bf16 mode has kernels of its own (``csrc/knn_fused_bf16.cu`` for K5 and K8,
+``knn_edge_bwd_bf16.cu`` for K6, ``knn_search.cu``'s bf16 entry for K7: the
+hidden products on tensor cores) and launch counts of its own (``*_bf16``). A
+mix of dtypes raises.
+
 The neighbour sets of two implementations may differ only at near-ties:
 sums taken in another order move a ``d`` by an ulp, and a key sits on a
 bucket edge once in a while. :func:`compare_neighbours` counts such rows and
@@ -79,6 +93,7 @@ from .mp_kernels import (
     FWD_SLAB_FLOATS,
     MAX_SMEM_BYTES,
     MAX_WIDTH,
+    _bf16_operand,
     _chain_args,
     _chain_dims,
     _check_cuda_args,
@@ -87,15 +102,18 @@ from .mp_kernels import (
     _dropmul,
     _flat_wgrads,
     _fwd_rest_floats,
+    _is_bf16,
     _leaky,
     _on_cpu,
     _pairs,
     _product_cost,
     _sm_count,
     bwd_packed_floats,
+    bwd_packed_floats_bf16,
     bwd_wslab_floats,
     bwd_plan,
     fwd_packed_floats,
+    fwd_packed_floats_bf16,
     launch_counts,
     seed_arg,
 )
@@ -150,9 +168,10 @@ def knn_keys(xs: torch.Tensor, xf: torch.Tensor) -> torch.Tensor:
 
 def knn_select_reference(xs, xf, k: int, self_loops: bool) -> torch.Tensor:
     """int32 ``[B, N, k]`` neighbours in ascending key order: ``k`` (or ``k + 1``,
-    the first dropped) min-extractions of the packed keys."""
+    the first dropped) min-extractions of the packed keys (of the float32 values
+    of bf16 inputs)."""
     start = 0 if self_loops else 1
-    keys = knn_keys(xs, xf)
+    keys = knn_keys(xs.float(), xf.float())
     low = (1 << key_bits(xs.shape[1])) - 1
     smallest = torch.topk(keys, k + start, dim=-1, largest=False, sorted=True).values
     return (smallest[..., start:] & low).contiguous()
@@ -193,7 +212,7 @@ def _gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _edge_dists(xs, xf, idx):
     """``|xf[idx] - xs + 1e-12|`` on the selected edges, ``[B, N, k]``; also the
-    shifted differences."""
+    shifted differences. In the inputs' dtype: the forwards pass float32 values."""
     diffs = _gather_rows(xf, idx) - xs[:, :, None, :] + 1e-12
     return torch.sqrt((diffs * diffs).sum(dim=-1)), diffs
 
@@ -201,9 +220,16 @@ def _edge_dists(xs, xf, idx):
 def _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p, seed):
     """Pre-activations, activations (after dropout) and dropout multipliers of
     every layer on the selected edges ``[B, N, k, H_l]``, and the gathered
-    sender mask ``[B, N, k, 1]``."""
+    sender mask ``[B, N, k, 1]``. bf16 inputs (the bf16 mode,
+    ``knn_pallas._fused_kernel_v4``): everything is float32 but each hidden
+    product's operand, rounded to bf16 (as ``mp_kernels._chain_recompute``)."""
     h1 = u1.shape[-1]
     b, n, k = idx.shape
+    bf16 = u1.dtype == torch.bfloat16
+    if bf16:
+        u1, u2m = u1.float(), u2m.float()
+        w_d = None if w_d is None else w_d.float()
+        hidden_flat = [t.float() for t in hidden_flat]
     g2 = _gather_rows(u2m, idx)
     z = u1[:, :, None, :] + g2[..., :h1]
     if dists is not None:
@@ -214,7 +240,7 @@ def _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p, seed):
     for salt in range(len(pairs) + 1):
         if salt:
             w, bias = pairs[salt - 1]
-            z = torch.matmul(acts[-1], w) + bias
+            z = torch.matmul(_bf16_operand(acts[-1]) if bf16 else acts[-1], w) + bias
         a = _leaky(z, alpha)
         m = _dropmul(ids, z.shape[-1], dropout_p, seed, salt) if dropout_p > 0 else None
         zs.append(z)
@@ -223,18 +249,25 @@ def _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p, seed):
     return zs, acts, mults, g2[..., h1:]
 
 
+def _masked_agg(u1, u2m, idx, dists, w_d, hidden_flat, alpha, sum_agg, dropout_p, seed):
+    """The masked sum over the ``k`` edges (``/ k`` for the mean), in float32 for
+    bf16 inputs and then rounded to bf16 once (``knn_pallas.py:2004``)."""
+    _, acts, _, smask = _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p, seed)
+    agg = (acts[-1] * smask).sum(dim=2)
+    if not sum_agg:
+        agg = agg / idx.shape[2]
+    return agg.to(u1.dtype)
+
+
 def knn_fused_layer_reference(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
                               want_dists: bool, alpha: float, sum_agg: bool,
                               dropout_p: float = 0.0, seed=0, emit_idx: bool = False):
     """Plain PyTorch version of K5 (``knn_pallas._fused_kernel_v4``). Returns
-    ``(agg, idx, dists)``; ``idx`` and ``dists`` are None unless ``emit_idx``
-    (and ``want_dists``)."""
+    ``(agg, idx, dists)``; ``idx`` and ``dists`` (float32) are None unless
+    ``emit_idx`` (and ``want_dists``)."""
     idx = knn_select_reference(xs, xf, k, self_loops)
-    dists = _edge_dists(xs, xf, idx)[0] if want_dists else None
-    _, acts, _, smask = _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p, seed)
-    agg = (acts[-1] * smask).sum(dim=2)
-    if not sum_agg:
-        agg = agg / k
+    dists = _edge_dists(xs.float(), xf.float(), idx)[0] if want_dists else None
+    agg = _masked_agg(u1, u2m, idx, dists, w_d, hidden_flat, alpha, sum_agg, dropout_p, seed)
     return agg, (idx if emit_idx else None), (dists if emit_idx else None)
 
 
@@ -244,12 +277,22 @@ def knn_edge_aggregate_bwd_reference(u1, u2m, idx, dists, w_d, hidden_flat, g, a
     """Plain PyTorch version of K6 (``knn_pallas._bwd_kernel_v3``). Returns
     ``(du1, du2, dmask, ddists, dw_d, dhidden_flat)``; ``ddists``/``dw_d`` are
     None without ``dists``; the weight gradients are zeros without
-    ``need_wgrads``."""
+    ``need_wgrads``. bf16 inputs select the bf16 mode: the recompute rounds as
+    the forward's, the backward runs in float32 (dW on the unrounded
+    activations, da on the float32 values of the bf16 weights), and every
+    gradient is rounded once to its primal's dtype (``ddists`` stays float32,
+    the distances' dtype), as the JAX custom VJP casts them."""
     b, n, k = idx.shape
     h1 = u1.shape[-1]
-    pairs = _pairs(hidden_flat)
+    dtypes = (u1.dtype, u2m.dtype, None if w_d is None else w_d.dtype,
+              [t.dtype for t in hidden_flat])
     zs, acts, mults, smask = _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p,
                                         seed)
+    if u1.dtype == torch.bfloat16:
+        g = g.float()
+        w_d = None if w_d is None else w_d.float()
+        hidden_flat = [t.float() for t in hidden_flat]
+    pairs = _pairs(hidden_flat)
     if not sum_agg:
         g = g / k
     g_rows = g[:, :, None, :]
@@ -279,8 +322,10 @@ def knn_edge_aggregate_bwd_reference(u1, u2m, idx, dists, w_d, hidden_flat, g, a
         ddists = (dz * w_d).sum(dim=-1)
         dw_d = (dists[..., None] * dz).sum(dim=(0, 1, 2)) if need_wgrads \
             else torch.zeros_like(w_d)
-    return (dz.sum(dim=2), du2.reshape(b, n, h1), dmask.reshape(b, n, 1), ddists, dw_d,
-            tuple(dhidden))
+        dw_d = dw_d.to(dtypes[2])
+    return (dz.sum(dim=2).to(dtypes[0]), du2.reshape(b, n, h1).to(dtypes[1]),
+            dmask.reshape(b, n, 1).to(dtypes[1]), ddists, dw_d,
+            tuple(t.to(dt) for t, dt in zip(dhidden, dtypes[3])))
 
 
 # ---------------------------------------------------------------------------
@@ -466,16 +511,24 @@ def _check_u2m(name, u1, u2m, w_d, want_dists):
         raise ValueError(f"{name}: want_dists needs w_d of shape ({h1},)")
 
 
+def _check_dists_dtype(name, dists):
+    """The distances are float32 in both modes (``knn_pallas.py:2011``)."""
+    if dists is not None and dists.dtype != torch.float32:
+        raise TypeError(f"{name}: dists must be float32, got {dists.dtype}")
+
+
 def knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
                     want_dists: bool, alpha: float, sum_agg: bool, dropout_p: float = 0.0,
                     seed=0, emit_idx: bool = False):
     """K5: the plain version on the CPU, the CUDA kernel on a GPU. Returns
-    ``(agg, idx, dists)`` like :func:`knn_fused_layer_reference`."""
+    ``(agg, idx, dists)`` like :func:`knn_fused_layer_reference`; all inputs
+    float32, or all bf16 for the bf16 mode (its own kernel and count)."""
     hidden_flat = tuple(hidden_flat)
-    name = "knn_fused_layer_train" if emit_idx else "knn_fused_layer"
-    _check_dropout(name, dropout_p, seed)
     w_d = w_d if want_dists else None
     extra = () if w_d is None else (w_d,)
+    bf16 = _is_bf16(xs, xf, u1, u2m, *extra, *hidden_flat)
+    name = ("knn_fused_layer_train" if emit_idx else "knn_fused_layer") + ("_bf16" if bf16 else "")
+    _check_dropout(name, dropout_p, seed)
     pairs = _pairs(hidden_flat)
     dims = _check_knn_shapes(name, xs, xf, u1, u2m, w_d, pairs, k, self_loops, want_dists)
     if _on_cpu(xs, xf, u1, u2m, *extra, *hidden_flat):
@@ -484,17 +537,17 @@ def knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
     _check_cuda_args(name, {"xs": xs, "xf": xf, "u1": u1, "u2m": u2m,
                             **({} if w_d is None else {"w_d": w_d}),
                             **{f"hidden[{i}]": t for i, t in enumerate(hidden_flat)}},
-                     hidden_flat[::2])
+                     hidden_flat[::2], u1.dtype)
     b_sz, n, c = xs.shape
     dev = xs.device
-    out = torch.empty((b_sz, n, dims[-1]), dtype=torch.float32, device=dev)
+    out = torch.empty((b_sz, n, dims[-1]), dtype=u1.dtype, device=dev)
     idx = torch.empty((b_sz, n, k), dtype=torch.int32, device=dev) if emit_idx else None
     dists = torch.empty((b_sz, n, k), dtype=torch.float32, device=dev) \
         if emit_idx and want_dists else None
     plan = knn_fwd_plan(b_sz, n, c, k, dims, _sm_count(dev))
     # the kernel's own copy of the weights, laid out for its products
-    packed = torch.empty((max(fwd_packed_floats(dims, plan.rows), 1),), dtype=torch.float32,
-                         device=dev)
+    packed_floats = (fwd_packed_floats_bf16 if bf16 else fwd_packed_floats)(dims, plan.rows)
+    packed = torch.empty((max(packed_floats, 1),), dtype=torch.float32, device=dev)
     lib = _build.library()
     w, bias = _chain_args(pairs)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
@@ -503,14 +556,16 @@ def knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
     seed_t = seed_arg(name, seed, dev) if dropout_p > 0 else None
     seed_ptr = ptr(seed_t)
     with torch.cuda.device(dev):
-        code = lib.mpgan_knn_fused_layer(
-            xs.data_ptr(), xf.data_ptr(), u1.data_ptr(), u2m.data_ptr(), ptr(w_d),
-            out.data_ptr(), ptr(idx), ptr(dists), packed.data_ptr(), b_sz, n, c, dims[0], k,
-            int(bool(self_loops)), int(bool(want_dists)), len(pairs), w, bias, dim_arr,
-            float(alpha), int(bool(sum_agg)), int(dropout_p > 0), seed_ptr, thr, mult,
-            plan.ti, plan.kc, plan.rows, plan.sspan, plan.grid, plan.slab_floats,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        ptrs = (xs.data_ptr(), xf.data_ptr(), u1.data_ptr(), u2m.data_ptr(), ptr(w_d),
+                out.data_ptr(), ptr(idx), ptr(dists), packed.data_ptr())
+        rest = (b_sz, n, c, dims[0], k, int(bool(self_loops)), int(bool(want_dists)), len(pairs),
+                w, bias, dim_arr, float(alpha), int(bool(sum_agg)), int(dropout_p > 0), seed_ptr,
+                thr, mult, plan.ti, plan.kc, plan.rows, plan.sspan, plan.grid, plan.slab_floats,
+                torch.cuda.current_stream().cuda_stream)
+        if bf16:
+            code = lib.mpgan_knn_fused_layer_bf16(*ptrs, packed_floats, *rest)
+        else:
+            code = lib.mpgan_knn_fused_layer(*ptrs, *rest)
     _build.check(code, name)
     launch_counts[name] += 1
     return out, idx, dists
@@ -520,13 +575,18 @@ def knn_edge_aggregate_bwd(u1, u2m, idx, dists, w_d, hidden_flat, g, alpha: floa
                            sum_agg: bool, dropout_p: float = 0.0, seed=0,
                            need_wgrads: bool = True):
     """K6: the plain backward on the CPU, the CUDA kernel on a GPU. Returns
-    ``(du1, du2, dmask, ddists, dw_d, dhidden_flat)``."""
+    ``(du1, du2, dmask, ddists, dw_d, dhidden_flat)``; all inputs float32, or all
+    bf16 but ``dists`` for the bf16 mode (its own kernel and count; the
+    gradients summed in float32 and rounded once to the primals' dtypes)."""
     hidden_flat = tuple(hidden_flat)
-    name = "knn_edge_aggregate_bwd" if need_wgrads else "knn_edge_aggregate_bwd_no_wgrads"
-    _check_dropout(name, dropout_p, seed)
     want_dists = dists is not None
     w_d = w_d if want_dists else None
     extra = (dists, w_d) if want_dists else ()
+    bf16 = _is_bf16(u1, u2m, g, *(t for t in extra[1:] if t is not None), *hidden_flat)
+    name = ("knn_edge_aggregate_bwd" if need_wgrads else "knn_edge_aggregate_bwd_no_wgrads") + \
+        ("_bf16" if bf16 else "")
+    _check_dropout(name, dropout_p, seed)
+    _check_dists_dtype(name, dists)
     if u1.dim() != 3:
         raise ValueError(f"{name}: u1 {tuple(u1.shape)} must be [B, N, H1]")
     _check_u2m(name, u1, u2m, w_d, want_dists)
@@ -550,14 +610,17 @@ def knn_edge_aggregate_bwd(u1, u2m, idx, dists, w_d, hidden_flat, g, alpha: floa
     if not idx.is_contiguous():
         raise ValueError(f"{name}: idx must be contiguous")
     _check_cuda_args(name, {"u1": u1, "u2m": u2m, "g": g,
-                            **({"dists": dists, "w_d": w_d} if want_dists else {}),
+                            **({"w_d": w_d} if want_dists else {}),
                             **{f"hidden[{i}]": t for i, t in enumerate(hidden_flat)}},
-                     hidden_flat[::2])
+                     hidden_flat[::2], u1.dtype)
+    if want_dists:
+        _check_cuda_args(name, {"dists": dists}, ())
     dev = u1.device
     f32 = dict(dtype=torch.float32, device=dev)
-    du1 = torch.empty_like(u1)
-    du2 = torch.empty((b_sz, n, h1), **f32)
-    dmask = torch.empty((b_sz, n, 1), **f32)
+    # bf16: du1 is summed in float32 over the rank chunks, then rounded here
+    du1 = torch.empty(u1.shape, **f32)
+    du2 = torch.empty((b_sz, n, h1), dtype=u1.dtype, device=dev)
+    dmask = torch.empty((b_sz, n, 1), dtype=u1.dtype, device=dev)
     ddists = torch.empty((b_sz, n, k), **f32) if want_dists else None
     w_total = sum(t.numel() for t in hidden_flat) + (h1 if want_dists else 0)
     # the kernel's second pass writes every weight gradient; without them they are zeros
@@ -573,7 +636,8 @@ def knn_edge_aggregate_bwd(u1, u2m, idx, dists, w_d, hidden_flat, g, alpha: floa
     w_part = torch.empty((plan.grid, bwd_wslab_floats(dims, h1 if want_dists else 0))
                          if need_wgrads and w_total else (1,), **f32)
     # the kernel's own copy of the weights, W and W^T laid out for its products
-    packed = torch.empty((max(bwd_packed_floats(dims, plan.rows), 1),), **f32)
+    packed_floats = (bwd_packed_floats_bf16 if bf16 else bwd_packed_floats)(dims, plan.rows)
+    packed = torch.empty((max(packed_floats, 1),), **f32)
     lib = _build.library()
     w, bias = _chain_args(pairs)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
@@ -582,43 +646,52 @@ def knn_edge_aggregate_bwd(u1, u2m, idx, dists, w_d, hidden_flat, g, alpha: floa
     seed_t = seed_arg(name, seed, dev) if dropout_p > 0 else None
     seed_ptr = ptr(seed_t)
     with torch.cuda.device(dev):
-        code = lib.mpgan_knn_edge_aggregate_bwd(
-            u1.data_ptr(), u2m.data_ptr(), idx.data_ptr(), ptr(dists), ptr(w_d), g.data_ptr(),
-            du1.data_ptr(), du2.data_ptr(), dmask.data_ptr(), ptr(ddists), flat.data_ptr(),
-            sender_part.data_ptr(), w_part.data_ptr(),
-            b_sz, n, h1, k, len(pairs), w, packed.data_ptr(), bias, dim_arr, float(alpha),
-            int(bool(sum_agg)), int(dropout_p > 0), seed_ptr, thr, mult,
-            int(bool(need_wgrads)), plan.ti, plan.jc, plan.rows, plan.grid, plan.slots,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        ptrs = (u1.data_ptr(), u2m.data_ptr(), idx.data_ptr(), ptr(dists), ptr(w_d), g.data_ptr(),
+                du1.data_ptr(), du2.data_ptr(), dmask.data_ptr(), ptr(ddists), flat.data_ptr(),
+                sender_part.data_ptr(), w_part.data_ptr(), b_sz, n, h1, k, len(pairs), w,
+                packed.data_ptr())
+        rest = (bias, dim_arr, float(alpha), int(bool(sum_agg)), int(dropout_p > 0), seed_ptr,
+                thr, mult, int(bool(need_wgrads)), plan.ti, plan.jc, plan.rows, plan.grid,
+                plan.slots, torch.cuda.current_stream().cuda_stream)
+        if bf16:
+            code = lib.mpgan_knn_edge_aggregate_bwd_bf16(*ptrs, packed_floats, *rest)
+        else:
+            code = lib.mpgan_knn_edge_aggregate_bwd(*ptrs, *rest)
     _build.check(code, name)
     launch_counts[name] += 1
+    if bf16:
+        du1 = du1.to(torch.bfloat16)
+        dhidden = tuple(t.to(torch.bfloat16) for t in dhidden)
+        dw_d = None if dw_d is None else dw_d.to(torch.bfloat16)
     return du1, du2, dmask, ddists, dw_d, dhidden
 
 
 def knn_search_reference(xs, xf, k: int, self_loops: bool, want_dists: bool = False):
-    """Plain PyTorch version of K7: ``(idx, dists)``, ``dists`` None unless
-    ``want_dists``."""
+    """Plain PyTorch version of K7: ``(idx, dists)``, ``dists`` (float32, from
+    the inputs' float32 values) None unless ``want_dists``."""
     idx = knn_select_reference(xs, xf, k, self_loops)
-    return idx, (_edge_dists(xs, xf, idx)[0] if want_dists else None)
+    return idx, (_edge_dists(xs.float(), xf.float(), idx)[0] if want_dists else None)
 
 
 def knn_search(xs, xf, k: int, self_loops: bool, want_dists: bool = False):
     """K7: the plain version on the CPU, the CUDA kernel on a GPU. Returns
-    ``(idx int32 [B, N, k], dists [B, N, k] or None)``. No gradient flows
-    through this call; see :class:`KnnSearch`."""
-    name = "knn_search"
+    ``(idx int32 [B, N, k], dists float32 [B, N, k] or None)`` for float32 or
+    bf16 (the bf16 mode: its own kernel entry and count) ``xs`` and ``xf``. No
+    gradient flows through this call; see :class:`KnnSearch`."""
+    bf16 = _is_bf16(xs, xf)
+    name = "knn_search" + ("_bf16" if bf16 else "")
     _check_search_shapes(name, xs, xf, k, self_loops)
     if _on_cpu(xs, xf):
         return knn_search_reference(xs, xf, k, self_loops, want_dists)
-    _check_cuda_args(name, {"xs": xs, "xf": xf}, ())
+    _check_cuda_args(name, {"xs": xs, "xf": xf}, (), xs.dtype)
     b_sz, n, c = xs.shape
     idx = torch.empty((b_sz, n, k), dtype=torch.int32, device=xs.device)
     dists = torch.empty((b_sz, n, k), dtype=torch.float32, device=xs.device) \
         if want_dists else None
     lib = _build.library()
+    launcher = lib.mpgan_knn_search_bf16 if bf16 else lib.mpgan_knn_search
     with torch.cuda.device(xs.device):
-        code = lib.mpgan_knn_search(
+        code = launcher(
             xs.data_ptr(), xf.data_ptr(), idx.data_ptr(),
             None if dists is None else dists.data_ptr(), b_sz, n, c, k, int(bool(self_loops)),
             int(bool(want_dists)), torch.cuda.current_stream().cuda_stream,
@@ -632,22 +705,23 @@ def knn_edge_aggregate_reference(u1, u2m, idx, dists, w_d, hidden_flat, alpha: f
                                  sum_agg: bool, dropout_p: float = 0.0, seed=0):
     """Plain PyTorch version of K8: the masked aggregate of the fe chain over
     the edges ``idx`` names."""
-    _, acts, _, smask = _knn_chain(u1, u2m, idx, dists, w_d, hidden_flat, alpha, dropout_p, seed)
-    agg = (acts[-1] * smask).sum(dim=2)
-    return agg if sum_agg else agg / idx.shape[2]
+    return _masked_agg(u1, u2m, idx, dists, w_d, hidden_flat, alpha, sum_agg, dropout_p, seed)
 
 
 def knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float, sum_agg: bool,
                        dropout_p: float = 0.0, seed=0):
     """K8: the plain version on the CPU, the CUDA kernel on a GPU. ``idx`` is
-    int32 ``[B, N, k]`` with entries in ``[0, N)``; ``dists`` and ``w_d`` are
-    both given or both None."""
+    int32 ``[B, N, k]`` with entries in ``[0, N)``; ``dists`` (float32) and
+    ``w_d`` are both given or both None; the other inputs all float32, or all
+    bf16 for the bf16 mode (its own kernel and count)."""
     hidden_flat = tuple(hidden_flat)
-    name = "knn_edge_aggregate"
-    _check_dropout(name, dropout_p, seed)
     want_dists = dists is not None
     w_d = w_d if want_dists else None
     extra = (dists, w_d) if want_dists else ()
+    bf16 = _is_bf16(u1, u2m, *(t for t in extra[1:] if t is not None), *hidden_flat)
+    name = "knn_edge_aggregate" + ("_bf16" if bf16 else "")
+    _check_dropout(name, dropout_p, seed)
+    _check_dists_dtype(name, dists)
     if u1.dim() != 3:
         raise ValueError(f"{name}: u1 {tuple(u1.shape)} must be [B, N, H1]")
     _check_u2m(name, u1, u2m, w_d, want_dists)
@@ -665,14 +739,16 @@ def knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float, sum_
     if not idx.is_contiguous():
         raise ValueError(f"{name}: idx must be contiguous")
     _check_cuda_args(name, {"u1": u1, "u2m": u2m,
-                            **({"dists": dists, "w_d": w_d} if want_dists else {}),
+                            **({"w_d": w_d} if want_dists else {}),
                             **{f"hidden[{i}]": t for i, t in enumerate(hidden_flat)}},
-                     hidden_flat[::2])
-    out = torch.empty((b_sz, n, dims[-1]), dtype=torch.float32, device=u1.device)
+                     hidden_flat[::2], u1.dtype)
+    if want_dists:
+        _check_cuda_args(name, {"dists": dists}, ())
+    out = torch.empty((b_sz, n, dims[-1]), dtype=u1.dtype, device=u1.device)
     k = idx.shape[2]
     plan = knn_fwd_plan(b_sz, n, 0, k, dims, _sm_count(u1.device), search=False)
-    packed = torch.empty((max(fwd_packed_floats(dims, plan.rows), 1),), dtype=torch.float32,
-                         device=u1.device)
+    packed_floats = (fwd_packed_floats_bf16 if bf16 else fwd_packed_floats)(dims, plan.rows)
+    packed = torch.empty((max(packed_floats, 1),), dtype=torch.float32, device=u1.device)
     lib = _build.library()
     w, bias = _chain_args(pairs)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
@@ -681,13 +757,15 @@ def knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float, sum_
     seed_t = seed_arg(name, seed, u1.device) if dropout_p > 0 else None
     seed_ptr = ptr(seed_t)
     with torch.cuda.device(u1.device):
-        code = lib.mpgan_knn_edge_aggregate(
-            u1.data_ptr(), u2m.data_ptr(), idx.data_ptr(), ptr(dists), ptr(w_d), out.data_ptr(),
-            packed.data_ptr(), b_sz, n, h1, k, len(pairs), w, bias, dim_arr, float(alpha),
-            int(bool(sum_agg)), int(dropout_p > 0), seed_ptr, thr, mult,
-            plan.ti, plan.kc, plan.rows, plan.grid, plan.slab_floats,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        ptrs = (u1.data_ptr(), u2m.data_ptr(), idx.data_ptr(), ptr(dists), ptr(w_d),
+                out.data_ptr(), packed.data_ptr())
+        rest = (b_sz, n, h1, k, len(pairs), w, bias, dim_arr, float(alpha), int(bool(sum_agg)),
+                int(dropout_p > 0), seed_ptr, thr, mult, plan.ti, plan.kc, plan.rows, plan.grid,
+                plan.slab_floats, torch.cuda.current_stream().cuda_stream)
+        if bf16:
+            code = lib.mpgan_knn_edge_aggregate_bf16(*ptrs, packed_floats, *rest)
+        else:
+            code = lib.mpgan_knn_edge_aggregate(*ptrs, *rest)
     _build.check(code, name)
     launch_counts[name] += 1
     return out
@@ -695,14 +773,19 @@ def knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float, sum_
 
 def _dists_backward(xs, xf, idx, dists, ddists):
     """``ddists -> (dxs, dxf)`` through ``dist = |xf[idx] - xs + 1e-12|`` with
-    the selection held fixed (``knn_pallas.py:2063-2079``)."""
-    _, diffs = _edge_dists(xs, xf, idx)
+    the selection held fixed (``knn_pallas.py:2063-2079``). In ``xs.dtype``: for
+    bf16 inputs (the bf16 mode) the JAX VJP differentiates the norm in bf16,
+    on its own recomputed distances, with ``ddists`` cast to bf16; the sums into
+    the senders' rows are taken in float32 and rounded once."""
+    norms, diffs = _edge_dists(xs, xf, idx)
+    if xs.dtype != torch.float32:
+        dists, ddists = norms, ddists.to(xs.dtype)
     d_diffs = (ddists / dists)[..., None] * diffs  # [B, N, k, C]
     b, n, k = idx.shape
     flat = (idx.long() + torch.arange(b, device=idx.device)[:, None, None] * n).reshape(-1)
-    dxf = torch.zeros(b * n, xs.shape[-1], dtype=xs.dtype, device=xs.device)
-    dxf.index_add_(0, flat, d_diffs.reshape(b * n * k, -1))
-    return -d_diffs.sum(dim=2), dxf.reshape(xf.shape)
+    dxf = torch.zeros(b * n, xs.shape[-1], dtype=torch.float32, device=xs.device)
+    dxf.index_add_(0, flat, d_diffs.reshape(b * n * k, -1).float())
+    return -d_diffs.sum(dim=2), dxf.reshape(xf.shape).to(xs.dtype)
 
 
 class KnnFusedLayer(torch.autograd.Function):

@@ -339,7 +339,9 @@ def _mp_layer_apply_fused_knn(layer: MPLayer, x, mask, labels, num_jet_particles
     split route, K7 (search) and K8 (the rest, K6 backward), followed by fn in
     torch. The JAX package's generation ``1`` runs fe's first layer inside its
     kernel on raw pair rows; here it is the same decomposition in torch, and
-    autograd carries its gradient to ``x``."""
+    autograd carries its gradient to ``x``. bf16 ``x`` and weights (under
+    ``train_step.bf16_apply``) make bf16 ``xs``, ``xf``, ``u1``, ``u2m`` and
+    ``w_d``, as the JAX layer makes them, and select the kernels' bf16 modes."""
     cfg = layer.cfg
     version, select_kernel = knn_route()
     weights = _fe_weights_sn(layer, update_sn)
@@ -351,9 +353,10 @@ def _mp_layer_apply_fused_knn(layer: MPLayer, x, mask, labels, num_jet_particles
     hidden_flat = tuple(p for w, b in weights[1:] for p in (w.t().contiguous(), b))
     search = {}
     if not select_kernel:
+        # K8 reads float32 distances; in bf16 the JAX kernel widens them itself
         idx, knn_dists = _knn_search(cfg, x, mask)
         search = {"idx": idx.to(torch.int32).contiguous(),
-                  "dists": knn_dists[..., 0].contiguous() if cfg.pos_diffs else None}
+                  "dists": knn_dists[..., 0].float().contiguous() if cfg.pos_diffs else None}
     aggregate = knn_aggregate if version == "4" else knn_aggregate_split
     agg = aggregate(
         _select_columns(cfg, x).contiguous(),

@@ -89,6 +89,14 @@ launch_counts = {
     "edge_aggregate_fn_bf16": 0,
     "edge_aggregate_bwd_bf16": 0,
     "edge_aggregate_bwd_no_wgrads_bf16": 0,
+    # the bf16 mode of K5-K9 (K9: bf16 inputs widened to its float32 body)
+    "knn_fused_layer_bf16": 0,
+    "knn_fused_layer_train_bf16": 0,
+    "knn_edge_aggregate_bwd_bf16": 0,
+    "knn_edge_aggregate_bwd_no_wgrads_bf16": 0,
+    "knn_search_bf16": 0,
+    "knn_edge_aggregate_bf16": 0,
+    "gapt_g_fused_bf16": 0,
 }
 
 
@@ -214,7 +222,7 @@ def _is_bf16(*tensors: torch.Tensor) -> bool:
         return True
     if dtypes == {torch.float32}:
         return False
-    raise TypeError(f"the edge kernels take all-float32 or all-bfloat16 tensors, got "
+    raise TypeError(f"the kernels take all-float32 or all-bfloat16 tensors, got "
                     f"{sorted(map(str, dtypes))}")
 
 

@@ -48,14 +48,13 @@ Debugging (the JAX loop's flags):
 ``--compute-dtype bfloat16`` trains with bf16 applies on float32 master
 parameters, optimizer state and model state (``StepConfig.bf16``); the
 evaluation and the checkpoints stay float32, as in the JAX package, where the
-flag touches training only. It runs every family whose path reaches the dense
-edge kernels (K2, K3, K4, which have bf16 modes) or no kernel.
+flag touches training only. It runs every family: the dense and knn edge
+kernels (K2-K8) have bf16 modes, and K9 takes bf16 inputs as the JAX wrapper
+does.
 
 Refused at start with ``NotImplementedError`` (not ported yet, see
-ROADMAP.md): a device mesh or multi-GPU, and bf16 training of a path that
-reaches the knn or GAPT kernels (K5-K9: a ``--no-fully-connected`` MPGAN or
-legacy layer, GAPT on either side); the batched real+fake D pass is no flag of
-the loop.
+ROADMAP.md): a device mesh or multi-GPU; the batched real+fake D pass is no
+flag of the loop.
 """
 
 from __future__ import annotations
@@ -100,17 +99,6 @@ def check_supported(args: Args) -> None:
     for key, what in _REFUSED_FLAGS.items():
         if args.get(key):
             raise NotImplementedError(f"--{key.replace('_', '-')}: {what} is not ported yet")
-    if args.get("compute_dtype", "float32") == "bfloat16":
-        pair = (args.model, args.get("model_D") or {"mpgan": "mpgan", "pcgan": "pcgan",
-                                                     "gapt": "gapt"}.get(args.model, "rgan"))
-        knn = not args.get("fully_connected", True) and {"mpgan", "old_mpgan"} & set(pair)
-        for what, refused in (("a knn message-passing layer (--no-fully-connected)", knn),
-                              ("GAPT", "gapt" in pair)):
-            if refused:
-                raise NotImplementedError(
-                    f"--compute-dtype bfloat16 with {what}: the bf16 modes of the knn and GAPT "
-                    "kernels (K5-K9) are not ported yet (ROADMAP.md Queue 1, bf16 knn and GAPT "
-                    "kernels)")
 
 
 def _corrected(unnorm: np.ndarray, use_mask: bool, **kwargs):

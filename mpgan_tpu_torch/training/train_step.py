@@ -50,7 +50,8 @@ the float32 buffers, so they pass through bf16 every step, as the JAX state
 does. Labels pass as they are. Losses, the GP, augmentation, ``post_gen`` and
 the optimizers stay float32; the draws and the dropout keys are the float32
 step's. On the card the dense edge layers then run the bf16 modes of K2, K3
-and K4.
+and K4, the knn edge layers those of K5, K6, K7 and K8, and GAPT's D-step G
+forward (under ``no_grad``) K9 on bf16 inputs.
 
 ``StepConfig.batched_d`` runs the D step's real and fake passes as one pass over
 ``[real | fake]`` (2B rows) with the real pass's keys, labels concatenated and

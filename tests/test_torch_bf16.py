@@ -6,8 +6,9 @@ against the JAX package on the CPU.
   against the Pallas kernels called with bf16 refs (interpret mode), at widths
   that are no multiples of 16, sum and mean, within rtol = atol = 1e-2 (one
   bf16 rounding is 2^-8; the two sum in other orders before they round);
-- the refusals: bf16 with a knn layer or GAPT; a tiny bf16 run of the train
-  CLI with a resume.
+- bf16 with a knn layer or GAPT passes ``check_supported`` (its kernels:
+  ``tests/test_torch_bf16_knn.py``, ``tests/test_torch_bf16_gapt.py``); a tiny
+  bf16 run of the train CLI with a resume.
 
 The bf16 steps and the batched D pass: ``tests/test_torch_bf16_steps.py``.
 """
@@ -156,11 +157,18 @@ def test_wrappers_refuse_a_mix_of_dtypes():
     ["--model", "rgan", "--model-D", "gapt"],
 ], ids=["knn", "legacy_knn", "gapt", "gapt_d"])
 def test_bf16_refuses_the_knn_and_gapt_paths(tmp_path, flags):
+    """The knn and GAPT paths, refused in bf16 until their kernels' bf16 modes
+    were ported, now pass ``check_supported`` in bf16 as in float32; what bf16
+    still refuses with them is what every dtype refuses, multi-device
+    training (the bf16 steps: tests/test_torch_bf16_knn.py and
+    tests/test_torch_bf16_gapt.py)."""
     args = targs_cli.parse_cli(["--name", "r", "--dir-path", str(tmp_path), "--num-hits", "8",
                                 "--compute-dtype", "bfloat16", *flags])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, bf16 knn and GAPT kernels"):
+    check_supported(args)
+    args.multi_gpu = True
+    with pytest.raises(NotImplementedError, match="multi-device"):
         check_supported(args)
-    args.compute_dtype = "float32"
+    args.multi_gpu, args.compute_dtype = False, "float32"
     check_supported(args)
 
 

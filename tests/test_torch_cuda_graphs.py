@@ -10,8 +10,11 @@ them on a GPU machine with
 - ``CountedGraph`` replays add the captured launches to ``launch_counts``;
 - the static-buffer D+G step captured and replayed equals the eager loop bit
   for bit (parameters, optimizer state, buffers, losses, generator; in float32
-  and in bf16, ``--compute-dtype bfloat16``), and the
-  sampler's graph equals the eager sampler's jets bit for bit.
+  and in bf16, ``--compute-dtype bfloat16``, the knn-20 and GAPT steps too),
+  and the sampler's graph equals the eager sampler's jets bit for bit;
+- K9's packed weights follow the parameters through graph replays: a master
+  parameter changed between two replays of a captured GAPT forward (float32,
+  and bf16 through ``bf16_apply``) shows in the second replay's output.
 """
 
 import numpy as np
@@ -105,9 +108,14 @@ def _state(args, dev):
                                 build_optimizer(args.optimizer, d.parameters(), args.lr_disc), gen)
 
 
-@pytest.mark.parametrize("card", [CARD, {**CARD, "num_hits": 150, "fully_connected": False,
-                                          "num_knn": 20}, {**CARD, "compute_dtype": "bfloat16"}],
-                         ids=["flagship", "knn20", "flagship_bf16"])
+KNN20 = {**CARD, "num_hits": 150, "fully_connected": False, "num_knn": 20}
+GAPT = {"model": "gapt", "jets": "g", "num_hits": 30}
+
+
+@pytest.mark.parametrize("card", [CARD, KNN20, {**CARD, "compute_dtype": "bfloat16"},
+                                  {**KNN20, "compute_dtype": "bfloat16"},
+                                  {**GAPT, "compute_dtype": "bfloat16"}],
+                         ids=["flagship", "knn20", "flagship_bf16", "knn20_bf16", "gapt_bf16"])
 def test_graph_steps_equal_the_eager_steps(dev, card):
     args = from_args_dict(card)
     b, steps = 32, 5
@@ -150,3 +158,36 @@ def test_the_sampler_graph_equals_the_eager_sampler(dev):
     np.testing.assert_array_equal(*jets)
     # 4 batches a call: the graph's replays count as the eager loop's launches
     assert mk.launch_counts["edge_aggregate_fn"] == 2 * 2 * 4
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_gapt_fused_weights_follow_the_parameters_through_replays(dev, bf16):
+    """The D step's G forward (eval, no gradient: K9) captured in a graph, then a
+    master parameter changed in place between two replays, as an optimizer
+    step replayed in a graph changes it (no version bump): the replay equals a
+    fresh eager forward on the new parameters."""
+    args = from_args_dict(GAPT)
+    suite, state = _state(args, dev)
+    g = state.g
+    noise = torch.randn(64, 30, g.cfg.embed_dim, device=dev) * 0.2
+    labels = torch.rand(64, 1, device=dev) * 0.9 + 0.1
+
+    def forward():
+        with torch.no_grad():
+            return ts.bf16_apply(g, noise, labels) if bf16 else g(noise, labels)
+
+    forward()  # the packed float32 copy of the parameters is cached here
+    mk.reset_launch_counts()
+    graph = mk.CountedGraph(lambda: forward(), pool=mk.graph_pool())
+    graph.replay()
+    name = "gapt_g_fused_bf16" if bf16 else "gapt_g_fused"
+    assert graph.launches == {name: 1}
+    first = graph.out.clone()
+    torch.testing.assert_close(first, forward(), rtol=0, atol=0)
+    with torch.no_grad():
+        g.final_fc.net[0].bias.add_(0.5)  # in place, as a replayed optimizer step writes it
+        g.sabs[0].mab.attention.in_proj_weight.mul_(1.1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(graph.out, first)
+    assert torch.equal(graph.out, forward())

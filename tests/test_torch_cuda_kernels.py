@@ -998,6 +998,149 @@ def test_knn_layer_routes_on_the_card(dev, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the bf16 modes of K5-K8 (bf16 inputs and weights; idx int32, dists float32)
+# ---------------------------------------------------------------------------
+
+
+def _knn_bf16(d, keys=("xs", "xf", "u1", "u2m", "w_d", "g")):
+    """The operands rounded to bf16 (``hidden`` too); the mask as the bf16 u2m
+    holds it."""
+    out = dict(d, **{k: d[k].to(torch.bfloat16) for k in keys})
+    out["hidden"] = _bf16(*d["hidden"])
+    return out
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.5])
+@pytest.mark.parametrize("sum_agg,self_loops,want_dists", [(True, True, False),
+                                                           (False, False, True)])
+@pytest.mark.parametrize("b,n,c,widths,k", KNN_SHAPES)
+def test_knn_fused_layer_bf16_matches_plain_twice(dev, b, n, c, widths, k, sum_agg, self_loops,
+                                                  want_dists, dropout_p):
+    """K5's bf16 mode: the plain version's neighbours (the search widens the
+    bf16 inputs, so the keys are built bit for bit), its output within the bf16
+    tolerance, float32 distances, its own counts, two launches bit for bit."""
+    d = _knn_bf16(_knn_inputs(dev, b, n, c, widths, k, seed=n + 40))
+    args = (d["xs"], d["xf"], d["u1"], d["u2m"], d["w_d"] if want_dists else None, d["hidden"],
+            k, self_loops, want_dists, 0.2, sum_agg, dropout_p, 4242)
+    before, fp32 = dict(mk.launch_counts), _fp32_counts()
+    out, idx, dists = kk.knn_fused_layer(*args, True)
+    again = kk.knn_fused_layer(*args, True)
+    out_eval = kk.knn_fused_layer(*args)[0]
+    torch.cuda.synchronize()
+    assert mk.launch_counts["knn_fused_layer_train_bf16"] == before["knn_fused_layer_train_bf16"] + 2
+    assert mk.launch_counts["knn_fused_layer_bf16"] == before["knn_fused_layer_bf16"] + 1
+    assert _fp32_counts() == fp32
+    ref, idx_ref, dists_ref = kk.knn_fused_layer_reference(*args, True)
+    assert out.dtype == torch.bfloat16 and idx.dtype == torch.int32
+    assert torch.equal(idx, idx_ref) and torch.equal(out, out_eval)
+    assert torch.equal(out, again[0]) and torch.equal(idx, again[1])
+    _assert_bf16_close(out, ref)
+    if want_dists:
+        assert dists.dtype == torch.float32 and torch.equal(dists, again[2])
+        live = torch.gather(d["mask"][:, None, :, 0].expand(-1, n, -1), 2, idx.long()) > 0
+        torch.testing.assert_close(dists[live], dists_ref[live], **TOL)
+
+
+@pytest.mark.parametrize("self_loops,want_dists", [(True, False), (False, True)])
+@pytest.mark.parametrize("b,n,c,widths,k", KNN_SHAPES)
+def test_knn_search_and_aggregate_bf16_match_plain_and_k5(dev, b, n, c, widths, k, self_loops,
+                                                          want_dists):
+    """K7's bf16 mode gives the plain search's and K5's neighbours and float32
+    distances; K8's bf16 mode on them gives K5's output bit for bit and its
+    plain version's within the bf16 tolerance."""
+    d = _knn_bf16(_knn_inputs(dev, b, n, c, widths, k, seed=n + 41))
+    w_d = d["w_d"] if want_dists else None
+    fwd = (d["xs"], d["xf"], d["u1"], d["u2m"], w_d, d["hidden"], k, self_loops, want_dists, 0.2,
+           True, 0.5, 77)
+    before = dict(mk.launch_counts)
+    idx, dists = kk.knn_search(d["xs"], d["xf"], k, self_loops, want_dists)
+    out5, idx5, dists5 = kk.knn_fused_layer(*fwd, True)
+    out8 = kk.knn_edge_aggregate(d["u1"], d["u2m"], idx, dists, w_d, d["hidden"], 0.2, True, 0.5,
+                                 77)
+    torch.cuda.synchronize()
+    assert mk.launch_counts["knn_search_bf16"] == before["knn_search_bf16"] + 1
+    assert mk.launch_counts["knn_edge_aggregate_bf16"] == before["knn_edge_aggregate_bf16"] + 1
+    idx_ref, dists_ref = kk.knn_search_reference(d["xs"], d["xf"], k, self_loops, want_dists)
+    assert torch.equal(idx, idx_ref) and torch.equal(idx, idx5)
+    assert out8.dtype == torch.bfloat16 and torch.equal(out8, out5)
+    _assert_bf16_close(out8, kk.knn_edge_aggregate_reference(
+        d["u1"], d["u2m"], idx, dists, w_d, d["hidden"], 0.2, True, 0.5, 77))
+    if want_dists:
+        assert dists.dtype == torch.float32 and torch.equal(dists, dists5)
+        torch.testing.assert_close(dists, dists_ref, **TOL)
+
+
+@pytest.mark.parametrize("need_wgrads", [True, False])
+@pytest.mark.parametrize("dropout_p,sum_agg,want_dists", [(0.0, True, False), (0.5, False, True)])
+@pytest.mark.parametrize("b,n,c,widths,k", KNN_SHAPES)
+def test_knn_edge_aggregate_bwd_bf16_matches_plain_twice(dev, b, n, c, widths, k, dropout_p,
+                                                         sum_agg, want_dists, need_wgrads):
+    """K6's bf16 mode against its plain version, gradients as a whole, in the
+    primals' dtypes (ddists float32), zeros without weight gradients, two
+    launches bit for bit."""
+    d = _knn_bf16(_knn_inputs(dev, b, n, c, widths, k, seed=n + 42))
+    idx, dists = kk.knn_search(d["xs"], d["xf"], k, True, want_dists)
+    args = (d["u1"], d["u2m"], idx, dists, d["w_d"] if want_dists else None, d["hidden"], d["g"],
+            0.2, sum_agg, dropout_p, 99, need_wgrads)
+    name = "knn_edge_aggregate_bwd" + ("" if need_wgrads else "_no_wgrads") + "_bf16"
+    before, fp32 = mk.launch_counts[name], _fp32_counts()
+    res, again = kk.knn_edge_aggregate_bwd(*args), kk.knn_edge_aggregate_bwd(*args)
+    torch.cuda.synchronize()
+    assert mk.launch_counts[name] == before + 2 and _fp32_counts() == fp32
+    ref = kk.knn_edge_aggregate_bwd_reference(*args)
+    flat = lambda t: [x for x in (*t[:5], *t[5]) if x is not None]  # noqa: E731
+    assert all(torch.equal(x, y) for x, y in zip(flat(res), flat(again)))
+    real = d["mask"] > 0
+    _assert_bf16_close(res[0], ref[0], scaled=True)
+    _assert_bf16_close(res[1], ref[1], scaled=True)
+    _assert_bf16_close(res[2][real], ref[2][real], scaled=True)
+    if want_dists:
+        assert res[3].dtype == torch.float32
+        scale = max(1.0, ref[3].abs().max().item())
+        torch.testing.assert_close(res[3] / scale, ref[3] / scale, **BF16_TOL)
+    wpairs = list(zip(res[5], ref[5])) + ([(res[4], ref[4])] if want_dists else [])
+    for o, r in wpairs:
+        if need_wgrads:
+            _assert_bf16_close(o, r, scaled=True)
+        else:
+            assert o.dtype == torch.bfloat16 and not o.any()
+
+
+def test_knn_function_bf16_grads_match_the_cpu_and_take_the_primals_dtypes(dev):
+    """``KnnFusedLayer`` (K5 -> K6, the distance glue in bf16) on the card
+    against the same Function on the CPU (the plain versions): every gradient
+    bf16, held as a whole."""
+    d = _knn_bf16(_knn_inputs(dev, 4, 150, 3, [96, 160, 192], 20, seed=43))
+
+    def grads(device):
+        ins = [d[key].to(device).clone().requires_grad_() for key in ("xs", "xf", "u1", "u2m",
+                                                                      "w_d")]
+        hidden = [t.to(device).clone().requires_grad_() for t in d["hidden"]]
+        out = kk.knn_aggregate(*ins, hidden, 20, False, True, 0.2, True, 0.5, 5)
+        (out.float() * d["g"].to(device).float()).sum().backward()
+        return [t.grad for t in ins + hidden]
+
+    card, cpu = grads(dev), grads(torch.device("cpu"))
+    for x, y in zip(card, cpu):
+        assert x.dtype == torch.bfloat16
+        _assert_bf16_close(x.cpu(), y, scaled=True)
+
+
+def test_knn_wrappers_refuse_mixed_dtypes_on_the_card(dev):
+    d = _knn_inputs(dev, 2, 13, 8, [24, 16, 12], 5, seed=44)
+    b = _knn_bf16(d)
+    with pytest.raises(TypeError, match="all-float32 or all-bfloat16"):
+        kk.knn_fused_layer(b["xs"], b["xf"], d["u1"], b["u2m"], None, b["hidden"], 5, True,
+                           False, 0.2, True)
+    with pytest.raises(TypeError, match="all-float32 or all-bfloat16"):
+        kk.knn_search(b["xs"], d["xf"], 5, True)
+    idx, dists = kk.knn_search(b["xs"], b["xf"], 5, True, True)
+    with pytest.raises(TypeError, match="dists must be float32"):
+        kk.knn_edge_aggregate(b["u1"], b["u2m"], idx, dists.bfloat16(), b["w_d"], b["hidden"],
+                              0.2, True)
+
+
+# ---------------------------------------------------------------------------
 # K9: the fused GAPT generator
 # ---------------------------------------------------------------------------
 
@@ -1122,6 +1265,33 @@ def test_gapt_generator_kernel_route_matches_plain_route(dev):
     from mpgan_tpu_torch.ops import gapt_kernels as gk
     with pytest.raises(RuntimeError, match="eval only"):
         gk.gapt_g_fused(noise.requires_grad_(), None, g.fused_weights(), 4, 0.2)
+
+
+@pytest.mark.parametrize("b,masked", [(256, True), (37, False)])
+def test_gapt_fused_bf16_widens_runs_k9_and_rounds(dev, b, masked):
+    """K9 on bf16 inputs: the float32 kernel on their float32 values, counted
+    as ``gapt_g_fused_bf16``, the output rounded to bf16: equal to the FP32
+    launch on the widened inputs, rounded, and within the bf16 tolerance of
+    the plain version."""
+    from mpgan_tpu_torch.ops import gapt_kernels as gk
+
+    g = _gapt(dev, 30, 64, 4, 4, masked)
+    x, mask = _gapt_inputs(dev, b, 30, 64, masked, seed=b + 7)
+    w = gk.GaptWeights(*_bf16(*g.fused_weights()))
+    x16, m16 = x.bfloat16(), None if mask is None else mask.bfloat16()
+    before = dict(mk.launch_counts)
+    with torch.no_grad():
+        out = gk.gapt_g_fused(x16, m16, w, 4, 0.2)
+        wide = gk.gapt_g_fused(x16.float(), None if m16 is None else m16.float(),
+                               gk.GaptWeights(*(t.float() for t in w)), 4, 0.2)
+        torch.cuda.synchronize()
+        ref = gk.gapt_g_fused_reference(x16, m16, w, 4, 0.2)
+    assert mk.launch_counts["gapt_g_fused_bf16"] == before["gapt_g_fused_bf16"] + 1
+    assert mk.launch_counts["gapt_g_fused"] == before["gapt_g_fused"] + 1
+    assert out.dtype == torch.bfloat16 and torch.equal(out, wide.bfloat16())
+    _assert_bf16_close(out, ref)
+    with pytest.raises(TypeError, match="all-float32 or all-bfloat16"):
+        gk.gapt_g_fused(x, m16, w, 4, 0.2)
 
 
 def test_backward_kernels_build_and_run_with_phase_clocks(dev):

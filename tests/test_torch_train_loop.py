@@ -220,19 +220,21 @@ def test_train_cli_refuses_cuda_without_a_gpu(tmp_path):
     pytest.param(["--fpnd", "--num-hits", "30"], None, id="flags0-fpnd"),
     pytest.param(["--aug-t"], None, id="flags1-augment"),
     pytest.param(["--compute-dtype", "bfloat16", "--no-fully-connected", "--num-knn", "3"],
-                 "bf16 knn and GAPT kernels", id="flags2-bf16"),
+                 None, id="flags2-bf16"),
     pytest.param(["--mesh-shape", "4"], "mesh", id="flags3-mesh"),
 ])
 def test_trainer_refuses_what_is_not_ported(tmp_path, flags, match):
-    """bf16 training of a knn layer and a device mesh are refused; ``--fpnd``
-    and ``--aug-t`` (``match`` None), refused until they were ported, now build
-    and are wired (bf16 of the dense path too: tests/test_torch_bf16.py)."""
+    """A device mesh is refused; ``--fpnd``, ``--aug-t`` and bf16 training of a
+    knn layer (``match`` None), refused until they were ported, now build and
+    are wired (bf16: tests/test_torch_bf16.py, tests/test_torch_bf16_knn.py)."""
     args = targs_cli.parse_cli(["--name", "r", "--dir-path", str(tmp_path), *TINY, *flags])
     train, valid = _datasets(args)
     if match is None:
         t = Trainer(args, train, valid, device="cpu", fpnd_fn=make_fpnd_fn(None, "cpu"))
         if args.fpnd:
             assert t.eval_keys == ["w1p", "w1m", "fpnd"]
+        elif args.compute_dtype == "bfloat16":
+            assert t.step_cfg.bf16 and not t.args.fully_connected
         else:
             assert t.step_cfg.augment.aug_t and not t.step_cfg.augment.aug_f
         return
