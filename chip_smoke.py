@@ -202,8 +202,12 @@ Phases, each printed as it finishes:
     K3 (with and without weight gradients) and K4 in their bf16 modes against
     their bf16 plain versions at B=256 N=30 and (K2, K3) B=32 N=150, each
     launched twice bit for bit, within rtol = atol = 1e-2 (K3's gradients
-    within 1e-2 of max(1, max|ref|)), then timed beside their FP32 modes (in
-    turns), their plain versions and their bounds; a flagship bf16 D+G step at
+    within 1e-2 of max(1, max|ref|); K3's split-TF32 products held apart from
+    one TF32 product by the share of its bf16 gradients that differ from the
+    plain version's, at slope 1: at most 0.5%, where the plain version with one
+    TF32 product or a lo term of the split left out reads more), then timed
+    beside their FP32 modes (in turns), their plain versions and their bounds;
+    a flagship bf16 D+G step at
     B=256 against the float32 step from the same weights and draws (losses
     within 5%, every master tensor float32, only the bf16 kernels launched, a
     ``torch.profiler`` trace naming them); the bf16 epoch on the CUDA graph
@@ -219,7 +223,8 @@ Phases, each printed as it finishes:
     ragged N=13 k=5, and K9 on bf16 inputs at B=1024 and B=4096, each within
     rtol = atol = 1e-2 (K6's gradients held as a whole: relative L2 within
     3e-2, no element beyond 0.1 of max(1, max|ref|), as the card tests hold
-    bf16 gradients) and launched twice bit for bit (K7 equal to K5's search, K8 on its ``idx`` to
+    bf16 gradients; K6's split-TF32 products held as K3's in phase 28) and
+    launched twice bit for bit (K7 equal to K5's search, K8 on its ``idx`` to
     K5's output, K9 to the FP32 launch on the widened inputs), then timed
     beside its FP32 mode in turns, its plain version and its bound; the bf16
     knn-20 D+G step at B=128 on routes 4 and 3 and the GAPT one at B=512
@@ -236,10 +241,12 @@ Every kernel's entry in the JSON line carries its bound: the larger of its
 FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
 read once, outputs written once) over 3.35 TB/s, at the shape its ``ms`` was
 taken at. The bf16 modes (``bf16`` inside the K2, K3 and K4 entries) count
-their tensor-core products at 989 TFLOP/s (dense bf16), K3's backward and K4's
-fn first layer at 67, and their bytes at bf16 sizes; so do the bf16 modes
-inside the K5-K8 entries (K6's backward and K5's and K7's distances at 67, the
-bytes of the tensors at their real sizes), and K9's bf16 mode counts its
+their tensor-core products at 989 TFLOP/s (dense bf16), K3's backward products
+as split-TF32 at 495 (dense TF32: three TF32 products for dW, two for da,
+whose bf16 W TF32 holds exactly), K4's fn first layer at 67, and their bytes
+at bf16 sizes; so do the bf16 modes inside the K5-K8 entries (K6's backward
+products as K3's, K5's and K7's distances at 67, the bytes of the tensors at
+their real sizes), and K9's bf16 mode counts its
 float32 body at 67 and its bf16 inputs and output. Every time in that line was measured in this run. ``library_ms`` is
 null: no single PyTorch call computes any of these functions (a search is a
 distance product and a top-k, the aggregates and the GAPT generator are chains
@@ -261,6 +268,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -303,6 +311,7 @@ NEAR_TIE_LOSS_TOL = 2e-3
 NEAR_TIE_GRAD_TOL = 5e-2
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet)
 PEAK_BF16 = 989e12  # FLOP/s, H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
+PEAK_TF32 = 495e12  # FLOP/s, H100 SXM dense TF32 tensor cores (NVIDIA data sheet)
 PEAK_HBM = 3.35e12  # bytes/s
 
 
@@ -323,6 +332,15 @@ def dense_bwd_bound(b: int, n: int, wgrads: bool = True) -> dict:
     hidden = macs(FE) + sum(FE[1:])
     floats = (2 * b * n * FE[0] + b * n) * 2 + b * n * FE[-1] + hidden * (2 if wgrads else 1)
     return bound((3 if wgrads else 2) * 2 * b * n * n * macs(FE), 4 * floats)
+
+
+def split_tf32_flops(chain, wgrads) -> int:
+    """TF32 tensor-core FLOPs of the bf16 backward's float32 products at FP32
+    accuracy (split-TF32, the least this card can do them in; over PEAK_TF32):
+    dW = a^T dz takes three TF32 products (hi hi, hi lo, lo hi), da = dz W^T two,
+    its W being bf16 values that TF32 holds exactly (lo_W = 0). ``chain``: the
+    FLOPs of one product over the fe chain."""
+    return chain * (2 + (3 if wgrads else 0))
 
 
 def macs(widths) -> int:
@@ -2559,14 +2577,15 @@ BF16_SOURCES = {"edge_aggregate": "mpgan_tpu_torch/csrc/edge_aggregate_bf16.cu",
 def bf16_bound(b, n, kind, wgrads=True) -> dict:
     """Bound of a bf16-mode kernel at the published widths: the forward and
     recompute products over the dense bf16 tensor cores' rate, plus (K3) the
-    backward's FP32 products and (K4) fn's first layer over the FP32 rate, or
-    the bytes at their bf16 sizes, whichever is larger."""
+    backward's float32 products as split-TF32 (split_tf32_flops) and
+    (K4) fn's first layer over the FP32 rate, or the bytes at their bf16 sizes,
+    whichever is larger."""
     hidden = macs(FE) + sum(FE[1:])
     chain = 2 * b * n * n * macs(FE)
-    f32_flops = 0
+    f32_flops = tf32_flops = 0
     if kind == "bwd":
         elems = (2 * b * n * FE[0] + b * n) * 2 + b * n * FE[-1] + hidden * (2 if wgrads else 1)
-        f32_flops = (2 if wgrads else 1) * chain
+        tf32_flops = split_tf32_flops(chain, wgrads)
         bf16_flops = chain
     else:
         out = FE[-1] if kind == "fwd" else 3
@@ -2577,7 +2596,7 @@ def bf16_bound(b, n, kind, wgrads=True) -> dict:
             elems += b * n * 32 + macs(fn) + sum(fn[1:])
             f32_flops = 2 * b * n * FN[0] * FN[1]
             bf16_flops += 2 * b * n * macs(fn[1:])
-    ops = (bf16_flops / PEAK_BF16 + f32_flops / PEAK_FP32) * 1e3
+    ops = (bf16_flops / PEAK_BF16 + tf32_flops / PEAK_TF32 + f32_flops / PEAK_FP32) * 1e3
     mem = 2 * elems / PEAK_HBM * 1e3
     return {"bound_ms": max(ops, mem), "bound_by": "operations" if ops >= mem else "bytes",
             "library_ms": None}
@@ -2596,6 +2615,91 @@ def bf16_err(out, ref, scaled):
         bound = BF16_TOL * max(1.0, r.abs().max().item())
         return err.max().item(), int((err > bound).sum().item())
     return err.max().item(), int((err > BF16_TOL + BF16_TOL * r.abs()).sum().item())
+
+
+# K3's and K6's bf16 backward products as split-TF32. The bf16 rules hold any float32
+# product of TF32 accuracy or better, so this check reads the split itself: the share of
+# the bf16 gradients (du1 and du2: "dx"; the weight gradients: "dw") that differ from the
+# plain version's (float32 products), beside the same share of the plain version with its
+# products taken as one TF32 product (hi hi) or with one lo term of the split left out
+# (emulated on the card on float32 bits). The kernel reads at most SPLIT_MAX_DIFFERING,
+# each of those controls above it; the emulated split itself is logged beside. It runs on
+# the job's inputs with LeakyReLU's slope set to 1: at 0.2 a pre-activation within
+# rounding of zero takes the other slope in the kernel's recompute and moves a whole row
+# of dW, as often as one TF32 product's rounding does. da's lo_b is W's, zero for bf16
+# weights: dx is held against the controls that drop a lo term it has. The limit sits
+# between the readings of scripts/torch_split_tf32_shares.py (PERF.md §6, PR 15): at slope
+# 1 the kernel at most 0.16%, the held controls at least 1.5%.
+SPLIT_MAX_DIFFERING = 0.005
+SPLIT_CONTROLS = {"one_tf32_product": (), "without_lo_a": ("lo_b",),
+                  "without_lo_b": ("lo_a",), "split": ("lo_a", "lo_b")}
+SPLIT_CONTROLS_HELD = {"dx": ("one_tf32_product", "without_lo_a"),
+                       "dw": ("one_tf32_product", "without_lo_a", "without_lo_b")}
+
+
+def tf32_hi(x):
+    """float32 ``x`` rounded to TF32, to nearest with ties away (the kernels' split)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+class SplitProducts(types.ModuleType):
+    """``torch`` as a plain version's module sees it, with its float32 ``matmul``
+    taken as hi_a hi_b plus the split's ``terms`` ("lo_a": lo_a hi_b, "lo_b":
+    hi_a lo_b), each product exact in float32. The recompute's operands are bf16
+    values, whose lo is zero: its products come out as before."""
+
+    def __init__(self, terms):
+        super().__init__("torch")
+        self.terms = terms
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def matmul(self, a, b):
+        if a.dtype != torch.float32 or b.dtype != torch.float32:
+            return torch.matmul(a, b)
+        ah, bh = tf32_hi(a), tf32_hi(b)
+        out = torch.matmul(ah, bh)
+        if "lo_a" in self.terms:
+            out = out + torch.matmul(tf32_hi(a - ah), bh)
+        if "lo_b" in self.terms:
+            out = out + torch.matmul(ah, tf32_hi(b - bh))
+        return out
+
+
+def differing_share(outs, refs) -> float:
+    """Share of the elements of ``outs`` that differ from ``refs``'s."""
+    total = sum(o.numel() for o in outs)
+    return sum(int((o != r).sum().item()) for o, r in zip(outs, refs)) / max(total, 1)
+
+
+def split_tf32_check(kernel, plain, args, alpha_at, groups):
+    """The readings of :func:`split_tf32_shares` on ``args`` with the slope at
+    ``args[alpha_at]`` set to 1, and whether the kernel is within
+    SPLIT_MAX_DIFFERING and every held control above it."""
+    args = (*args[:alpha_at], 1.0, *args[alpha_at + 1:])
+    shares = split_tf32_shares(kernel(*args), plain, args, groups)
+    ok = all(s <= SPLIT_MAX_DIFFERING for s in shares["kernel"].values()) and all(
+        shares[c][g] > SPLIT_MAX_DIFFERING for g in shares["kernel"]
+        for c in SPLIT_CONTROLS_HELD[g])
+    return shares, ok
+
+
+def split_tf32_shares(out, plain, args, groups) -> dict:
+    """The kernel's bf16 gradients ``out`` against ``plain(*args)``, and the
+    controls (SPLIT_CONTROLS) against it, as shares of differing elements by
+    group (``groups(outputs)``: {"dx": [...], "dw": [...]})."""
+    mod = sys.modules[plain.__module__]
+    ref = groups(plain(*args))
+    shares = {"kernel": {g: differing_share(o, ref[g]) for g, o in groups(out).items()}}
+    for name, terms in SPLIT_CONTROLS.items():
+        mod.torch = SplitProducts(terms)
+        try:
+            ctl = groups(plain(*args))
+        finally:
+            mod.torch = torch
+        shares[name] = {g: differing_share(o, ref[g]) for g, o in ctl.items()}
+    return shares
 
 
 def bf16_kernel_checks(mk, dev):
@@ -2636,25 +2740,35 @@ def bf16_kernel_checks(mk, dev):
             kernel, plain, a = make(bf)
             out, again, ref = kernel(*a), kernel(*a), plain(*a)
             torch.cuda.synchronize()
+            split, split_ok = None, True
             if name == "edge_aggregate_bwd":
                 pairs = list(zip((*out[:3], *out[3]), (*ref[:3], *ref[3])))
                 repeat = all(torch.equal(p, q) for p, q in zip((*out[:3], *out[3]),
                                                               (*again[:3], *again[3])))
                 if not a[-1]:
                     repeat = repeat and not any(t.any().item() for t in out[3])
+                split, split_ok = split_tf32_check(
+                    kernel, plain, a, 5,
+                    lambda t, w=a[-1]: {"dx": t[:2], **({"dw": t[3]} if w else {})})
             else:
                 pairs, repeat = [(out, ref)], torch.equal(out, again)
             errs = [bf16_err(o, r, scaled) for o, r in pairs]
             dtypes_ok = all(o.dtype == torch.bfloat16 for o, _ in pairs)
             err, bad = max(e for e, _ in errs), sum(c for _, c in errs)
             identical[name] &= repeat
+            # each output's error beside what the rule allows it (scaled: BF16_TOL of
+            # max(1, max|ref|); else BF16_TOL + BF16_TOL |ref| at the worst element)
+            rule = [(e, BF16_TOL * max(1.0, r.float().abs().max().item()) if scaled else None)
+                    for (e, _), (_, r) in zip(errs, pairs)]
             log("bf16_kernel_check", kernel=name, job=job, b=b, n=n, max_abs_err=err,
                 out_of_tol=bad, tol=BF16_TOL, scaled_to_max=scaled,
-                two_runs_bit_identical=repeat, outputs_bf16=dtypes_ok)
-            if bad or not repeat or not dtypes_ok:
+                err_and_allowed_by_output=rule, two_runs_bit_identical=repeat,
+                outputs_bf16=dtypes_ok, split_tf32_differing_shares=split,
+                split_max_differing=SPLIT_MAX_DIFFERING)
+            if bad or not repeat or not dtypes_ok or not split_ok:
                 raise SystemExit(f"bf16 {name} ({job}) disagrees with its plain version or "
                                  f"itself at b={b} n={n}: {bad} beyond {BF16_TOL}, rerun "
-                                 f"bit-identical {repeat}")
+                                 f"bit-identical {repeat}, split-TF32 shares {split}")
             worst[name] = max(worst[name], err)
             del out, again, ref
             # timings: the bf16 mode and the FP32 mode in turns, the plain version once
@@ -2901,14 +3015,15 @@ BF16_TRACE = {"knn20": (("K5", "knn_fwd_kernel<true", True), ("K6", "knn_edge_bw
 def bf16_knn_bound(b, n, c, k, kind, moved, wgrads=True) -> dict:
     """Bound of a knn kernel's bf16 mode at the published widths: the fe chain's
     products (forward, K6's recompute) over the dense bf16 tensor cores' rate,
-    the search's distances (2 (c + 1) FLOP a pair) and K6's backward products
-    over the FP32 rate, or ``moved`` bytes (the tensors at their real sizes),
-    whichever is larger."""
+    the search's distances (2 (c + 1) FLOP a pair) over the FP32 rate and K6's
+    backward products as split-TF32 (split_tf32_flops), or ``moved``
+    bytes (the tensors at their real sizes), whichever is larger."""
     chain = 2 * b * n * k * macs(FE)
     search = 2 * b * n * n * (c + 1)
-    bf16_flops, f32_flops = {"k5": (chain, search), "k7": (0, search), "k8": (chain, 0),
-                             "k6": (chain, (2 if wgrads else 1) * chain)}[kind]
-    ops = (bf16_flops / PEAK_BF16 + f32_flops / PEAK_FP32) * 1e3
+    bf16_flops, f32_flops, tf32_flops = {
+        "k5": (chain, search, 0), "k7": (0, search, 0), "k8": (chain, 0, 0),
+        "k6": (chain, 0, split_tf32_flops(chain, wgrads))}[kind]
+    ops = (bf16_flops / PEAK_BF16 + f32_flops / PEAK_FP32 + tf32_flops / PEAK_TF32) * 1e3
     mem = moved / PEAK_HBM * 1e3
     return {"bound_ms": max(ops, mem), "bound_by": "operations" if ops >= mem else "bytes",
             "library_ms": None}
@@ -3024,6 +3139,9 @@ def bf16_knn_kernel_checks(kk, dev):
                                   enumerate(zip(res[5], rref[5]))})
                     if dists_on:
                         pairs["dw_d"] = (res[4], rref[4])
+                split, split_ok = split_tf32_check(
+                    kk.knn_edge_aggregate_bwd, kk.knn_edge_aggregate_bwd_reference, bwd, 7,
+                    lambda t: {"dx": t[:2], **({"dw": t[5]} if need else {})})
                 errs = {name: bf16_err(o, r, True) if o.numel() else (0.0, 0)
                         for name, (o, r) in pairs.items()}
                 wholes = {name: bf16_whole(o, r) for name, (o, r) in pairs.items()}
@@ -3043,8 +3161,9 @@ def bf16_knn_kernel_checks(kk, dev):
                     ref_max={name: r.float().abs().max().item() if r.numel() else 0.0
                              for name, (_, r) in pairs.items()},
                     zeros_without_wgrads=zeros, two_runs_bit_identical=repeat,
-                    dtypes_ok=dtypes_ok)
-                if bad or not repeat or not zeros or not dtypes_ok:
+                    dtypes_ok=dtypes_ok, split_tf32_differing_shares=split,
+                    split_max_differing=SPLIT_MAX_DIFFERING)
+                if bad or not repeat or not zeros or not dtypes_ok or not split_ok:
                     raise SystemExit(f"bf16 K6 disagrees at b={b} n={n} p={p} wgrads={need} "
                                      f"dists={dists_on}")
                 worst["knn_edge_aggregate_bwd"] = max(worst["knn_edge_aggregate_bwd"], err)

@@ -115,7 +115,7 @@ int launch_bwd(const T* u1, const T* u2, const T* mask, const T* g, float* du1, 
   if constexpr (std::is_same<T, float>::value)
     code = launch_pack(fe, p.col_threads, packed, pk, st);
   else
-    code = launch_pack_bf16<T>(fe, p.col_threads, packed, packed_floats, pk, st);
+    code = launch_pack_bf16<T>(fe, packed, packed_floats, pk, st);
   if (code != 0) return code;
   cudaError_t err = cudaFuncSetAttribute(edge_aggregate_bwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -16,32 +16,45 @@
 //
 // The kernel is the FP32 one (edge_aggregate_bwd.cuh on edge_bwd_common.cuh:
 // the planner's pass, the persistent grid, a_0's rebuild, K1 stored as -0.0f,
-// the tile contractions and the fixed-order reductions) instantiated for bf16
+// the tile layout of dW and the fixed-order reductions) instantiated for bf16
 // elements. Its recompute runs on the bf16 stage (edge_products_bf16.cuh,
-// tensor cores), its da products and dW contractions on the FP32 ones. A launch
-// of its own first packs the weights: the recompute's in the bf16 fragment
-// order, W^T for da as float32 values in the FP32 order, the biases as float32.
+// tensor cores), its da products and dW contractions on the split-TF32 stage
+// (edge_bwd_tf32x3.cuh, tensor cores: a float32 operand split in registers into
+// two TF32 parts, about 2^-21 of each product, float32 sums). A launch of its
+// own first packs the weights: the recompute's in the bf16 fragment order, W^T
+// for da in the TF32 fragment order (the float32 values of the bf16 weights,
+// exact in TF32), the biases as float32.
 //
-// What bounds it on this card: the backward's two FP32 contractions per layer
-// (dW and da, 2 x 85 MFLOP a 30-particle jet at the flagship's widths, over 67
-// TFLOP/s) as before; the bf16 recompute takes a third of the FP32 kernel's
-// FMAs off the CUDA cores. Every sum has a fixed order: two launches on equal
-// inputs are bit-identical.
+// What bounds it on this card: the backward's two products per layer (dW and
+// da, 2 x 85 MFLOP a 30-particle jet at the flagship's widths) at a third of the
+// dense TF32 tensor-core rate (495 TFLOP/s, three products a split product),
+// plus the recompute's 85 MFLOP at the bf16 rate: 0.28 ms at B=256 N=30. Around
+// the products the pass keeps the FP32 kernel's float32 a_0 build, K1's hash on
+// every activation, the epilogues in shared memory and the slab barriers, and
+// adds the splits (PERF.md: the phase shares). Every sum has a fixed order: two
+// launches on equal inputs are bit-identical.
 
 #include "edge_aggregate_bwd.cuh"
 #include "edge_bwd_bf16.cuh"
 
 extern "C" {
 
+#ifdef MPGAN_PHASE_CLOCKS
+// Clocks summed per phase (edge_bwd_common.cuh: Phase) since the last reset.
+int mpgan_edge_aggregate_bwd_bf16_phase_clocks(unsigned long long* out, int reset) {
+  return read_phase_clocks(out, reset);
+}
+#endif
+
 // Floats of the bf16 mode's packed scratch for a backward launch at passes of
-// `rows` pair rows; -1 on bad arguments. Only the card tests call it, to hold
+// `rows` pair rows (which do not change it); -1 on bad arguments. Only the card tests call it, to hold
 // mp_kernels.bwd_packed_floats_bf16 to the launcher.
 long long mpgan_edge_bwd_packed_floats_bf16(int n_hidden, const int* hidden_dims, int rows) {
   Chain fe;
   const void* none[kMaxLayers] = {};
   if (!fill_chain(fe, n_hidden, none, none, hidden_dims)) return -1;
   if (rows != 32 && rows != 64 && rows != 128) return -1;
-  return bwd_pack_bf16(fe, 8 * (kWarps / (rows / 32))).total;
+  return bwd_pack_bf16(fe).total;
 }
 
 // K3 in the bf16 mode. Arguments as mpgan_edge_aggregate_bwd's, with bf16 u1,

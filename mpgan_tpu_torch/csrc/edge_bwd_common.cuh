@@ -1,6 +1,6 @@
 // The recompute-and-backprop core shared by the backward kernels
 // (edge_aggregate_bwd.cu: K3; knn_edge_bwd.cu: K6), for Hopper (sm_90a), FP32 on
-// CUDA cores.
+// CUDA cores (the bf16 modes: see the hooks below).
 //
 // Both kernels walk "pair rows": (receiver, sender) pairs for K3, (receiver,
 // neighbour rank) edges for K6. A pass takes up to 128 rows through the edge
@@ -31,7 +31,10 @@
 //     computed once per activation and never in the backward sweep.
 //
 // The products, a_0, the packed weights, the persistent grid's schedule and the
-// phase clocks are edge_products.cuh's, shared with the forward (K2, K4).
+// phase clocks are edge_products.cuh's, shared with the forward (K2, K4). The
+// bf16 mode (edge_bwd_bf16.cuh) reaches the core through four hooks: its packer,
+// its recompute products (edge_products_bf16.cuh) and its two backward products,
+// da and dW, on the tensor cores as split-TF32 (edge_bwd_tf32x3.cuh).
 //
 // The contractions (dW) keep the warp-tile form: a warp owns a 32 x 32 tile of
 // dW (15 tiles for 96 x 160, 30 for 160 x 192, on 16 warps), walks the pass's
@@ -61,11 +64,20 @@ __device__ int product_recompute(int A, int K, const float* W, int M, int slab,
                                  const PassShape& p, const Epilogue& e);
 
 // The bf16 mode's packer (edge_bwd_bf16.cuh): the recompute's weights in the bf16
-// fragment order, the backward's as float32 values in the FP32 order, the biases
-// as float32, to which it points fe.b.
+// fragment order, W^T for da in the split-TF32 stage's fragment order, the
+// biases as float32, to which it points fe.b.
 template <typename T>
-int launch_pack_bf16(Chain& fe, int col_threads, float* packed, long long packed_floats,
-                     Packed& pk, cudaStream_t stream);
+int launch_pack_bf16(Chain& fe, float* packed, long long packed_floats, Packed& pk,
+                     cudaStream_t stream);
+
+// The bf16 mode's backward products (edge_bwd_tf32x3.cuh): da_{l-1} = dz_l W_l^T
+// with the kEpiBack epilogue, and dW_l = a_{l-1}^T dz_l as weight_grad takes it.
+template <typename T>
+__device__ void product_da_bf16(int A, int M, const float* W, int K, int slab,
+                                const PassShape& p, const Epilogue& e);
+template <typename T>
+__device__ void weight_grad_bf16(int a_off, int d_off, int lda, int rows, int K, int M,
+                                 float* tiles, float* db, int slab_off, bool first);
 
 constexpr int kRowArrays = 10;     // per-row arrays of a pass (RowArrays)
 
@@ -232,6 +244,20 @@ __device__ __forceinline__ void fence_for_bulk() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+// db[M] (+)= the column sums of D [M x lda] over `rows` rows, in row order.
+__device__ __forceinline__ void bias_grad(const float* D, int lda, int rows, int M,
+                                          float* __restrict__ db, bool first) {
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    const float4* col = reinterpret_cast<const float4*>(D + (size_t)m * lda);
+    float s = 0.f;
+    for (int r = 0; r < rows / 4; ++r) {
+      const float4 v = col[r];
+      s += v.x, s += v.y, s += v.z, s += v.w;
+    }
+    accumulate_to(db + m, s, first);
+  }
+}
+
 // dW[K x M] (+)= A^T D over `rows` rows, A [K x lda] and D [M x lda] stored
 // transposed in shared memory; `first` overwrites the CTA's partial instead of
 // adding to it. A warp owns a 32 (k) x 32 (m) tile; lane l takes rows k = k0 +
@@ -308,15 +334,7 @@ __device__ __noinline__ void weight_grad(int a_off, int d_off_, int lda, int row
   }
   // the slab buffers go back to the products
   if (lane == 0) bulk_wait_read();
-  for (int m = threadIdx.x; m < M; m += kThreads) {
-    const float4* col = reinterpret_cast<const float4*>(D + (size_t)m * lda);
-    float s = 0.f;
-    for (int r = 0; r < rows / 4; ++r) {
-      const float4 v = col[r];
-      s += v.x, s += v.y, s += v.z, s += v.w;
-    }
-    accumulate_to(db + m, s, first);
-  }
+  bias_grad(D, lda, rows, M, db, first);
 }
 
 // ---------------------------------------------------------------------------
@@ -327,8 +345,8 @@ __device__ __noinline__ void weight_grad(int a_off, int d_off_, int lda, int row
 // needed before the call). Returns the offset of dz_0 [dim[0] x ldr], complete
 // and visible to every thread, with row.dsm filled. T: the element type of u1,
 // u2 and g; bf16 (the bf16 mode) runs the recompute's products on the bf16 stage
-// (pk.fwd its packed bf16 copy, fe.b float32 biases) and the backward's on the
-// FP32 stage (pk.bwd the float32 values of the bf16 weights).
+// (pk.fwd its packed bf16 copy, fe.b float32 biases) and the backward's as
+// split-TF32 on the tensor cores (pk.bwd W^T in that stage's fragment order).
 template <typename T = float>
 __device__ int bwd_pass(const PassBuffers& s, const BwdPlan& p, const Chain& fe,
                            const Packed& pk, const PassInputs& in, PhaseClock& clock) {
@@ -407,13 +425,20 @@ __device__ int bwd_pass(const PassBuffers& s, const BwdPlan& p, const Chain& fe,
     }
     if (in.need_wgrads) {
       __syncthreads();
-      weight_grad(s.act[l - 1], dz, p.ldr, p.rows, K, M, in.wp + in.ws->tiles[l - 1],
-                  in.wp + in.ws->db[l - 1], s.slab, in.first);
+      if constexpr (kBf16)
+        weight_grad_bf16<T>(s.act[l - 1], dz, p.ldr, p.rows, K, M, in.wp + in.ws->tiles[l - 1],
+                            in.wp + in.ws->db[l - 1], s.slab, in.first);
+      else
+        weight_grad(s.act[l - 1], dz, p.ldr, p.rows, K, M, in.wp + in.ws->tiles[l - 1],
+                    in.wp + in.ws->db[l - 1], s.slab, in.first);
       MPGAN_PHASE(clock, kPhaseWgrad);
     }
     e.kind = kEpiBack;
     e.C = s.act[l - 1];
-    product(dz, M, pk.bwd[l - 1], K, s.slab, p, e);
+    if constexpr (kBf16)
+      product_da_bf16<T>(dz, M, pk.bwd[l - 1], K, s.slab, p, e);
+    else
+      product(dz, M, pk.bwd[l - 1], K, s.slab, p, e);
     dz = s.act[l - 1];
     MPGAN_PHASE(clock, kPhaseDa);
   }

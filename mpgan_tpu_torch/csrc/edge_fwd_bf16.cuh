@@ -48,8 +48,7 @@ __device__ const LayerTab* fwd_setup_bf16(float* __restrict__ packed, const FwdP
   const long long stride = (long long)gridDim.x * kThreads;
   for (int l = 0; l < jobs; ++l)
     pack_layer_bf16<T>(packed + o.w[l], packed + o.b[l], l < fe.n ? fe : fn,
-                       l < fe.n ? l : l - fe.n, l == f32_layer, true, p.col_threads, start,
-                       stride);
+                       l < fe.n ? l : l - fe.n, l == f32_layer, p.col_threads, start, stride);
   LayerTab* tab = reinterpret_cast<LayerTab*>(smf(p.off_tab));
   if (threadIdx.x < jobs) {
     const int l = threadIdx.x, li = l < fe.n ? l : l - fe.n;

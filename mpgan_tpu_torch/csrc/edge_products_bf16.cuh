@@ -331,26 +331,20 @@ __device__ __forceinline__ const T* bf16_row(const Chain& c, int li, int k, int 
 }
 
 // One layer's share of a packed copy made from bf16 weights: the bf16 fragment
-// order (bf16_elem), or with `f32` the FP32 stage's order (packed_elem, `fwd`) or
-// its transpose's (`!fwd`, K3's backward products) holding the float32 values of
-// the bf16 weights; its bias converted to float32 at `bias_out`. Element t of
-// every job is written by the thread with t = start (mod stride).
+// order (bf16_elem), or with `f32` the FP32 stage's order (packed_elem: K4's fn
+// first layer) holding the float32 values of the bf16 weights; its bias
+// converted to float32 at `bias_out`. Element t of every job is written by the
+// thread with t = start (mod stride).
 template <typename T>
 __device__ void pack_layer_bf16(float* __restrict__ out, float* __restrict__ bias_out,
-                                const Chain& c, int li, bool f32, bool fwd, int CT,
-                                long long start, long long stride) {
+                                const Chain& c, int li, bool f32, int CT, long long start,
+                                long long stride) {
   const int K = c.dim[li], M = c.dim[li + 1];
   if (f32) {
-    const int rows = fwd ? K : M, cols = fwd ? M : K;
-    const long long total = (long long)rows * round_up(cols, CT);
+    const long long total = (long long)K * round_up(M, CT);
     for (long long t = start; t < total; t += stride) {
-      const PackedElem pe = packed_elem(t, cols, CT);
-      float v = 0.f;
-      if (pe.col < cols) {
-        const int k = fwd ? pe.row : pe.col, m = fwd ? pe.col : pe.row;
-        v = __bfloat162float(bf16_row<T>(c, li, k, M)[m]);
-      }
-      out[pe.at] = v;
+      const PackedElem pe = packed_elem(t, M, CT);
+      out[pe.at] = pe.col < M ? __bfloat162float(bf16_row<T>(c, li, pe.row, M)[pe.col]) : 0.f;
     }
   } else {
     T* dst = reinterpret_cast<T*>(out);

@@ -228,7 +228,7 @@ int launch_knn_bwd(const T* u1, const T* u2m, const int* idx, const float* dists
   if constexpr (std::is_same<T, float>::value)
     code = launch_pack(fe, p.col_threads, packed, pk, st);
   else
-    code = launch_pack_bf16<T>(fe, p.col_threads, packed, packed_floats, pk, st);
+    code = launch_pack_bf16<T>(fe, packed, packed_floats, pk, st);
   if (code != 0) return code;
   cudaError_t err = cudaFuncSetAttribute(
       knn_edge_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);

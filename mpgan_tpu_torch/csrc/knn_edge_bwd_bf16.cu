@@ -19,24 +19,37 @@
 //
 // The kernel is the FP32 one (knn_edge_bwd.cuh on edge_bwd_common.cuh: the
 // planner's pass, the persistent grid, a_0's rebuild with layer 1's rounding,
-// K1 stored as -0.0f, the tile contractions, the deterministic sender scatter
+// K1 stored as -0.0f, the tile layout of dW, the deterministic sender scatter
 // through staged bulk reductions and the fixed-order reductions) instantiated
 // for bf16 elements. Its recompute runs on the bf16 stage (edge_products_bf16.cuh,
-// tensor cores), its da products and dW contractions on the FP32 ones. A launch
-// of its own first packs the weights (edge_bwd_bf16.cuh, K3's packer): the
-// recompute's in the bf16 fragment order, W^T for da as float32 values in the
-// FP32 order, the biases as float32.
+// tensor cores), its da products and dW contractions on the split-TF32 stage
+// (edge_bwd_tf32x3.cuh, tensor cores: a float32 operand split in registers into
+// two TF32 parts, about 2^-21 of each product, float32 sums). A launch of its
+// own first packs the weights (edge_bwd_bf16.cuh, K3's packer): the
+// recompute's in the bf16 fragment order, W^T for da in the TF32 fragment order
+// (the float32 values of the bf16 weights, exact in TF32), the biases as
+// float32.
 //
-// What bounds it on this card: the backward's two FP32 contractions per layer
-// (dW and da, 2 x 277 MFLOP a 150-particle jet at the knn-20 widths, over 67
-// TFLOP/s), as in the FP32 mode; the bf16 recompute takes a third of the FP32
-// kernel's FMAs off the CUDA cores. Every sum has a fixed order: two launches on
-// equal inputs are bit-identical.
+// What bounds it on this card: the backward's two products per layer (dW and
+// da, 2 x 277 MFLOP a 150-particle jet at the knn-20 widths) at a third of the
+// dense TF32 tensor-core rate (495 TFLOP/s, three products a split product),
+// plus the recompute's 277 MFLOP at the bf16 rate: 0.58 ms at B=160. Around the
+// products the pass keeps the FP32 kernel's float32 a_0 build, K1's hash, the
+// epilogues in shared memory, the slab barriers and the sender scatter, and
+// adds the splits (PERF.md: the phase shares). Every sum has a fixed order: two
+// launches on equal inputs are bit-identical.
 
 #include "edge_bwd_bf16.cuh"
 #include "knn_edge_bwd.cuh"
 
 extern "C" {
+
+#ifdef MPGAN_PHASE_CLOCKS
+// Clocks summed per phase (edge_bwd_common.cuh: Phase) since the last reset.
+int mpgan_knn_edge_aggregate_bwd_bf16_phase_clocks(unsigned long long* out, int reset) {
+  return read_phase_clocks(out, reset);
+}
+#endif
 
 // K6 in the bf16 mode. Arguments as mpgan_knn_edge_aggregate_bwd's, with bf16 u1,
 // u2m, w_d, g, hidden weights and biases, du2 and dmask; idx int32, dists and

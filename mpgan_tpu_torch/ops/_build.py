@@ -29,7 +29,8 @@ SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu", "edge_aggregate_bf16.cu
            "knn_edge_aggregate.cu", "knn_fused_bf16.cu", "knn_edge_bwd_bf16.cu", "gapt_fused.cu")
 HEADERS = ("edge_common.cuh", "edge_products.cuh", "edge_products_bf16.cuh",
            "edge_fwd_common.cuh", "edge_fwd_bf16.cuh", "edge_bwd_common.cuh",
-           "edge_bwd_bf16.cuh", "edge_aggregate.cuh", "edge_aggregate_bwd.cuh",
+           "edge_bwd_bf16.cuh", "edge_bwd_tf32x3.cuh", "edge_aggregate.cuh",
+           "edge_aggregate_bwd.cuh",
            "knn_stages.cuh", "knn_edge_bwd.cuh")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",

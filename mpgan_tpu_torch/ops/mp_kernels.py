@@ -715,10 +715,13 @@ def fwd_packed_floats_bf16(dims: Sequence[int], rows: int,
 
 def bwd_packed_floats_bf16(dims: Sequence[int], rows: int) -> int:
     """Floats of the copy of the weights that a bf16-mode backward launch packs
-    (``edge_aggregate_bwd_bf16.cu``): per hidden layer the recompute's bf16 copy
-    in fragment order, W^T as float32 values for da, and the bias as float32."""
-    col_threads = 8 * ((BWD_THREADS // 32) // (rows // 32))
-    return sum(_ceil(k, 16) * _ceil(m, 8) // 2 + m * _ceil(k, col_threads) + _ceil(m, 4)
+    (``edge_bwd_bf16.cuh``): per hidden layer ``[k x m]`` the recompute's bf16
+    copy in fragment order (k padded to 16, m to 8, two values a float), W^T
+    for the split-TF32 da product (``edge_bwd_tf32x3.cuh``: float32 values, exact
+    in TF32, so no lo slab; m padded to 8, k to 8) and the bias as float32
+    (padded to 4). ``rows``, the pass's pair rows, does not change it (the
+    FP32 mode's size, :func:`bwd_packed_floats`, takes the same arguments)."""
+    return sum(_ceil(k, 16) * _ceil(m, 8) // 2 + _ceil(m, 8) * _ceil(k, 8) + _ceil(m, 4)
                for k, m in zip(dims[:-1], dims[1:]))
 
 

@@ -194,7 +194,10 @@ def load_losses(losses_dir: str | pathlib.Path, keys: list[str], eval_keys: list
     losses: dict[str, list] = {}
     for key in keys:
         path = losses_dir / f"{key}.txt"
-        if not path.exists():
+        # an empty file is an empty history: a run stopped before its first
+        # evaluation epoch saves w1p.txt so. The JAX package reads it as [[]],
+        # and its next save_losses raises (ragged rows); the port resumes
+        if not path.exists() or not path.read_text().strip():
             losses[key] = []
             continue
         arr = np.loadtxt(path)

@@ -10,6 +10,13 @@ published widths, random weights from a seed, built and timed with
 steps each; then a ``torch.profiler`` window of three steps for the device time
 a step, the idle share and the backward kernels' rows. One JSON object a line.
 
+``--bf16`` times instead the bf16 steps (``--compute-dtype bfloat16``) as the
+training loop runs them, on CUDA graphs (``--epoch-scan``): the flagship at
+B=256 and knn-20 at B=128 on routes 4 and 3 (``MPGAN_TPU_KNN_KERNEL=3``), an
+epoch of ``chip_smoke.GRAPH_STEPS`` batches that captures, then wall ms a step
+(the best of ``--reps`` epochs) and a ``torch.profiler`` epoch: device ms a
+step, idle share and kernels a step (``chip_smoke.epoch_profile``).
+
 ``--root`` names the checkout whose ``chip_smoke.py`` and ``mpgan_tpu_torch``
 are used (default: the one that holds this script), and ``--label`` goes into
 every line, so that two checkouts run in turns on one card can be told apart.
@@ -21,6 +28,7 @@ import argparse
 import json
 import pathlib
 import sys
+import tempfile
 
 import torch
 
@@ -30,6 +38,7 @@ def main(argv=None):
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--bf16", action="store_true", help="time the bf16 graph steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_step_bench: no CUDA device available")
@@ -41,6 +50,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = cs.card_line()
+    if args.bf16:
+        return bf16_graph_steps(cs, from_args_dict, dev, card, args)
     for name, model, batch, n in (("flagship", cs.FLAGSHIP, 256, 30),
                                   ("knn20", cs.KNN150, 128, 150), ("gapt", cs.GAPT, 512, 30)):
         margs = from_args_dict(model)
@@ -54,6 +65,33 @@ def main(argv=None):
         cs.profile_steps(step, card, f"{args.label}_{name}_step_profile", batch=batch, n=n)
         del state, step
         torch.cuda.empty_cache()
+
+
+def bf16_graph_steps(cs, from_args_dict, dev, card, args):
+    from mpgan_tpu_torch.data.loader import BatchLoader
+
+    for name, model, batch, route in (("flagship", cs.FLAGSHIP, 256, None),
+                                      ("knn20", cs.KNN150, 128, None),
+                                      ("knn20_route3", cs.KNN150, 128, "3")):
+        cs.set_knn_route(route)
+        try:
+            margs = from_args_dict({**model, "compute_dtype": "bfloat16"})
+            margs.batch_size = batch
+            data, labels = cs.graph_data(margs, cs.GRAPH_STEPS * batch)
+            with tempfile.TemporaryDirectory() as tmp:
+                t = cs.graph_trainer(margs, dev, pathlib.Path(tmp), name, True)
+                loader = BatchLoader(data, labels, batch_size=batch, shuffle=True,
+                                     seed=margs.seed)
+                t.train_epoch(1, loader)  # captures
+                wall = [cs.timed_epoch(t, 2 + i, loader) for i in range(args.reps)]
+                prof = cs.epoch_profile(t, 2 + args.reps, loader)
+            print(json.dumps({"label": args.label, "card": card, "bf16_graph_step": name,
+                              "batch": batch, "wall_ms": min(wall), "wall_ms_all": wall,
+                              **prof}), flush=True)
+            del t
+            torch.cuda.empty_cache()
+        finally:
+            cs.set_knn_route()
 
 
 if __name__ == "__main__":

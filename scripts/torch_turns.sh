@@ -1,8 +1,12 @@
 #!/usr/bin/env bash
 # Time a parent checkout and this tree in turns on one card: P C C P P C C P, each
-# turn running the four benches (knn, step, fwd, bwd) with --reps as given.
+# turn running the benches (default the four: knn, step, fwd, bwd) with --reps as
+# given and the extra flags, if any, on every bench.
 #
-#   scripts/torch_turns.sh PARENT_DIR [OUT_DIR] [REPS]
+#   scripts/torch_turns.sh PARENT_DIR [OUT_DIR] [REPS] [BENCHES] [FLAGS]
+#
+# e.g. the bf16 backward kernels and bf16 graph steps:
+#   scripts/torch_turns.sh build/parent build/turns 10 "bwd step" --bf16
 #
 # PARENT_DIR holds the parent's chip_smoke.py and mpgan_tpu_torch, for example
 #   mkdir -p build/parent && git archive HEAD chip_smoke.py mpgan_tpu_torch scripts \
@@ -13,6 +17,8 @@ set -euo pipefail
 parent=$1
 out=${2:-chiprun_out}
 reps=${3:-10}
+benches=${4:-knn step fwd bwd}
+flags=${5:-}
 here=$(cd "$(dirname "$0")/.." && pwd)
 mkdir -p "$out"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -21,11 +27,12 @@ for side in parent change change parent parent change change parent; do
   turn=$((turn + 1))
   root=$here
   [ "$side" = parent ] && root=$(cd "$parent" && pwd)
-  for bench in knn step fwd bwd; do
+  for bench in $benches; do
     r=$reps
     [ "$bench" = step ] && r=4
+    # shellcheck disable=SC2086
     python "$here/scripts/torch_${bench}_bench.py" --root "$root" --label "$side" --reps "$r" \
-      2>>"$out/turns.err" | sed "s/^{/{\"turn\": $turn, /" | tee -a "$out/turns.jsonl"
+      $flags 2>>"$out/turns.err" | sed "s/^{/{\"turn\": $turn, /" | tee -a "$out/turns.jsonl"
   done
 done
 nvidia-smi --query-gpu=name,power.limit,clocks.sm --format=csv,noheader

@@ -10,6 +10,7 @@ weight gradients, which sum every pair row, within 1e-4 of max(1, max|ref|).
 
 import ctypes
 import dataclasses
+import types
 
 import pytest
 
@@ -489,6 +490,34 @@ def test_edge_aggregate_bwd_bf16_matches_plain_twice(dev, need_wgrads, dropout_p
         assert not any(o.any() for o in out[3])
     for x, y in zip(out[:3] + out[3], again[:3] + again[3]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("need_wgrads", [True, False])
+@pytest.mark.parametrize("b,n,widths", BWD_PASS_SHAPES)
+def test_edge_aggregate_bwd_bf16_pass_shapes_match_plain_twice(dev, need_wgrads, b, n, widths):
+    """K3's bf16 mode, its backward products as split-TF32 on the tensor cores,
+    at every pass shape (32-, 64- and 128-row passes, ragged grids, widths that
+    are no multiple of 8, so every tile count of the da product and clamped dW
+    tiles): within the bf16 rules of its plain version, two launches bit for
+    bit; the FP32 mode on the same values still within 1e-4 and bit for bit."""
+    u1, u2, mask, hidden, g = _chain(dev, b, n, widths, seed=n + b + 15)
+    a16 = (*_bf16(u1, u2, mask), _bf16(*hidden), *_bf16(g), 0.2, False, 0.5, 1515, need_wgrads)
+    out, again = mk.edge_aggregate_bwd(*a16), mk.edge_aggregate_bwd(*a16)
+    torch.cuda.synchronize()
+    ref = mk.edge_aggregate_bwd_reference(*a16)
+    for o, r in zip(out[:3] + out[3], ref[:3] + ref[3]):
+        _assert_bf16_close(o, r, scaled=True)
+    assert all(torch.equal(x, y) for x, y in zip(out[:3] + out[3], again[:3] + again[3]))
+    a32 = (*(t.float() for t in a16[:3]), tuple(t.float() for t in a16[3]), a16[4].float(),
+           *a16[5:])
+    out32, again32 = mk.edge_aggregate_bwd(*a32), mk.edge_aggregate_bwd(*a32)
+    torch.cuda.synchronize()
+    ref32 = mk.edge_aggregate_bwd_reference(*a32)
+    for o, r in zip(out32[:3], ref32[:3]):
+        torch.testing.assert_close(o, r, **TOL)
+    for o, r in zip(out32[3], ref32[3]):
+        _assert_wgrad_close(o, r)
+    assert all(torch.equal(x, y) for x, y in zip(out32[:3] + out32[3], again32[:3] + again32[3]))
 
 
 @pytest.mark.parametrize("sum_agg,final_linear", [(True, True), (False, False)])
@@ -1104,6 +1133,104 @@ def test_knn_edge_aggregate_bwd_bf16_matches_plain_twice(dev, b, n, c, widths, k
             _assert_bf16_close(o, r, scaled=True)
         else:
             assert o.dtype == torch.bfloat16 and not o.any()
+
+
+@pytest.mark.parametrize("need_wgrads", [True, False])
+def test_knn_edge_aggregate_bwd_bf16_main_shape_matches_plain_twice(dev, need_wgrads):
+    """K6's bf16 mode at the knn-20 step's shape (B=160 N=150 k=20, dropout
+    0.5), its backward products as split-TF32: gradients as a whole within the
+    bf16 rules, two launches bit for bit; the FP32 mode on the same values
+    within 1e-4 and bit for bit."""
+    d32 = _knn_inputs(dev, 160, 150, 32, [96, 160, 192], 20, seed=1515)
+    d = _knn_bf16(d32)
+    idx = kk.knn_search(d["xs"], d["xf"], 20, True)[0]
+    real = d["mask"] > 0
+    flat = lambda t: [y for y in (*t[:5], *t[5]) if y is not None]  # noqa: E731
+    for x, bf16 in ((d, True), (d32, False)):
+        args = (x["u1"], x["u2m"], idx, None, None, x["hidden"], x["g"], 0.2, True, 0.5, 15,
+                need_wgrads)
+        res, again = kk.knn_edge_aggregate_bwd(*args), kk.knn_edge_aggregate_bwd(*args)
+        torch.cuda.synchronize()
+        ref = kk.knn_edge_aggregate_bwd_reference(*args)
+        assert all(torch.equal(y, z) for y, z in zip(flat(res), flat(again)))
+        pairs = [(res[0], ref[0]), (res[1], ref[1]), (res[2][real], ref[2][real])]
+        if bf16:
+            for o, r in pairs + (list(zip(res[5], ref[5])) if need_wgrads else []):
+                _assert_bf16_close(o, r, scaled=True)
+        else:
+            for o, r in pairs:
+                torch.testing.assert_close(o, r, **TOL)
+            for o, r in zip(res[5], ref[5]):
+                _assert_wgrad_close(o, r)
+
+
+# The bf16 backward's products as split-TF32, told apart from one TF32 product: the
+# share of the bf16 gradients that differ from the plain version's, at LeakyReLU's slope
+# 1 (no kink: the gradients meet the recompute only in the products' operands). The
+# limit is chip_smoke.py's SPLIT_MAX_DIFFERING, set between its readings: the kernel at
+# most 0.16%, the plain version with one TF32 product or a lo term left out at least 1.5%.
+SPLIT_MAX_DIFFERING = 0.005
+
+
+def _tf32_hi(x):
+    """float32 ``x`` rounded to TF32, to nearest with ties away."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+class _OneTf32Product(types.ModuleType):
+    """``torch`` as a plain version's module sees it, its float32 products taken
+    as one TF32 product (hi hi, exact in float32, float32 sums)."""
+
+    def __init__(self):
+        super().__init__("torch")
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def matmul(self, a, b):
+        if a.dtype != torch.float32 or b.dtype != torch.float32:
+            return torch.matmul(a, b)
+        return torch.matmul(_tf32_hi(a), _tf32_hi(b))
+
+
+def _differing_share(outs, refs):
+    return sum(int((o != r).sum()) for o, r in zip(outs, refs)) / sum(o.numel() for o in outs)
+
+
+@pytest.mark.parametrize("need_wgrads", [True, False])
+@pytest.mark.parametrize("which", ["k3_n30", "k3_n150", "k6"])
+def test_bwd_bf16_split_tf32_differs_from_plain_where_one_tf32_product_would(
+        dev, monkeypatch, which, need_wgrads):
+    """K3's and K6's bf16 modes at the main paths' shapes, slope 1: at most
+    SPLIT_MAX_DIFFERING of du1 and du2, and of the weight gradients, differ from
+    the plain version's, where the plain version with one TF32 product differs
+    in more."""
+    if which == "k6":
+        d = _knn_bf16(_knn_inputs(dev, 160, 150, 32, [96, 160, 192], 20, seed=1516))
+        idx = kk.knn_search(d["xs"], d["xf"], 20, True)[0]
+        args = (d["u1"], d["u2m"], idx, None, None, d["hidden"], d["g"], 1.0, True, 0.5, 16,
+                need_wgrads)
+        kernel, plain, module, wgrads_at = (kk.knn_edge_aggregate_bwd,
+                                            kk.knn_edge_aggregate_bwd_reference, kk, 5)
+    else:
+        b, n = (256, 30) if which == "k3_n30" else (32, 150)
+        u1, u2, mask, hidden, g = _chain(dev, b, n, [96, 160, 192], seed=n + 16)
+        args = (*_bf16(u1, u2, mask), _bf16(*hidden), *_bf16(g), 1.0, True, 0.5, 1616,
+                need_wgrads)
+        kernel, plain, module, wgrads_at = (mk.edge_aggregate_bwd,
+                                            mk.edge_aggregate_bwd_reference, mk, 3)
+
+    def groups(t):
+        return [t[:2]] + ([t[wgrads_at]] if need_wgrads else [])
+
+    out = groups(kernel(*args))
+    torch.cuda.synchronize()
+    ref = groups(plain(*args))
+    with monkeypatch.context() as m:
+        m.setattr(module, "torch", _OneTf32Product())
+        one = groups(plain(*args))
+    for o, r, c in zip(out, ref, one):
+        assert _differing_share(o, r) <= SPLIT_MAX_DIFFERING < _differing_share(c, r)
 
 
 def test_knn_function_bf16_grads_match_the_cpu_and_take_the_primals_dtypes(dev):

@@ -196,6 +196,43 @@ def test_train_cli_tiny_run_writes_the_run_directory_and_resumes(tmp_path):
     np.testing.assert_array_equal(t1.losses["G"], t2.losses["G"][:2])
 
 
+def test_resume_before_the_first_evaluation_jax_raises_the_port_resumes(tmp_path):
+    """A run stopped before its first evaluation epoch leaves ``losses/w1p.txt``
+    empty. The JAX package reads that file back as ``[[]]`` and its next
+    ``save_losses`` raises; the port reads an empty history and saves on."""
+    losses = tmp_path / "losses"
+    keys, eval_keys, multi = ["D", "G", "w1p", "w1m"], ["w1p", "w1m"], ["w1p", "w1m"]
+    saved = {"D": [0.5], "G": [0.25], "w1p": [], "w1m": []}
+    jckpt.save_losses(saved, losses)
+    assert (losses / "w1p.txt").read_text() == ""
+    with pytest.warns(UserWarning, match="no data"):
+        jl = jckpt.load_losses(losses, keys, eval_keys, multi, 1, 2)
+    assert jl["w1p"] == [[]]
+    jl["w1p"].append([0.1, 0.01])
+    with pytest.raises(ValueError):
+        jckpt.save_losses(jl, losses)
+    tckpt.save_losses(saved, losses)
+    tl = tckpt.load_losses(losses, keys, eval_keys, multi, 1, 2)
+    assert tl == saved
+    tl["w1p"].append([0.1, 0.01])
+    tckpt.save_losses(tl, losses)
+    assert tckpt.load_losses(losses, keys, eval_keys, multi, 2, 2)["w1p"] == [[0.1, 0.01]]
+
+
+def test_train_cli_resumes_a_run_that_stopped_before_its_first_evaluation(tmp_path):
+    argv = ["--device", "cpu", "--name", "tiny", "--dir-path", str(tmp_path), *TINY,
+            "--save-epochs", "2"]
+    t1 = ttrain_cli.main(argv + ["--num-epochs", "1"])
+    losses = tmp_path / "tiny" / "losses"
+    assert t1.losses["w1p"] == [] and (losses / "w1p.txt").read_text() == ""
+    t2 = ttrain_cli.main(argv + ["--num-epochs", "2"])
+    assert t2.start_epoch == 1 and len(t2.losses["G"]) == 2
+    assert len(t2.losses["w1p"]) == len(t2.losses["w1m"]) == 1
+    assert np.loadtxt(losses / "w1p.txt").shape == (len(t2.losses["w1p"][0]),)
+    assert (tmp_path / "tiny" / "models" / "state_2.npz").exists()
+    np.testing.assert_array_equal(t1.losses["G"], t2.losses["G"][:1])
+
+
 def test_train_cli_tiny_mask_manual_run_trains(tmp_path):
     """``--mask-manual --no-mask-c`` once failed at the first D call (G's 3
     features against D's masked input); the hook now appends the pT-cutoff mask
