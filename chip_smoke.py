@@ -264,6 +264,7 @@ import dataclasses
 import json
 import logging
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -2793,6 +2794,12 @@ def trace_names(prof) -> list[str]:
                 or getattr(ev, "self_cuda_time_total", 0.0)) > 0]
 
 
+# The bf16 forward pass's kernel (csrc/edge_fwd_bf16_tiles.cuh) in a trace: named by its
+# width class and flags (dense K2, or knn K5 and K8), however the demangler spells them
+TILES_DENSE = r"bf16_tiles_kernel<\s*(\(int\))?\d+\s*,\s*(false|\(bool\)0|0)\s*,"
+TILES_KNN = r"bf16_tiles_kernel<\s*(\(int\))?\d+\s*,\s*(true|\(bool\)1|1)\s*,"
+
+
 def bf16_step_check(mk, dev, card, from_args_dict):
     """A flagship bf16 D+G step at B=256 from the same weights and draws as a
     float32 one: losses within 5%, every master tensor float32, only bf16 edge
@@ -2817,10 +2824,10 @@ def bf16_step_check(mk, dev, card, from_args_dict):
             step16()
         torch.cuda.synchronize()
     names = trace_names(prof)
-    named = {what: [k for k in names if pat in k and "bfloat16" in k]
-             for what, pat in (("K2", "edge_aggregate_kernel<false"),
-                               ("K4", "edge_aggregate_kernel<true"),
-                               ("K3", "edge_aggregate_bwd_kernel<"))}
+    named = {what: [k for k in names if re.search(pat, k) and (not bf16 or "bfloat16" in k)]
+             for what, pat, bf16 in (("K2", TILES_DENSE, False),
+                                     ("K4", "edge_aggregate_kernel<true", True),
+                                     ("K3", "edge_aggregate_bwd_kernel<", True))}
     log("bf16_step_check", card=card, batch=256, losses_f32=l32, losses_bf16=l16,
         max_rel_loss_diff=rel, tol=BF16_STEP_LOSS_TOL, master_state_float32=leaves_f32,
         launches_f32=c32, launches_bf16=c16, trace_kernels={k: v[:1] for k, v in named.items()})
@@ -3005,9 +3012,12 @@ BF16_STEP_LAUNCHES = {
 BF16_STEP_PATHS = {"knn20": (KNN150, None, 128), "knn20_route3": (KNN150, "3", 128),
                    "gapt": (GAPT, None, 512)}
 # the kernels a bf16 step's profiler trace must name: (label, name pattern, bf16 in name)
-BF16_TRACE = {"knn20": (("K5", "knn_fwd_kernel<true", True), ("K6", "knn_edge_bwd_kernel<", True)),
+# the kernels a bf16 step's trace names (a regular expression, and whether the name
+# holds bfloat16)
+BF16_TRACE = {"knn20": (("K5", TILES_KNN, False),
+                        ("K6", "knn_edge_bwd_kernel<", True)),
               "knn20_route3": (("K7", "knn_search_kernel<", True),
-                               ("K8", "knn_fwd_kernel<false", True),
+                               ("K8", TILES_KNN, False),
                                ("K6", "knn_edge_bwd_kernel<", True)),
               "gapt": (("K9", "gapt_item_kernel", False),)}
 
@@ -3280,8 +3290,8 @@ def bf16_trace_named(step, path) -> dict:
             step()
         torch.cuda.synchronize()
     names = trace_names(prof)
-    return {label: [k[:80] for k in names if pat in k and (not bf16 or "bfloat16" in k)][:1]
-            for label, pat, bf16 in BF16_TRACE[path]}
+    return {label: [k[:80] for k in names if re.search(pat, k) and (not bf16 or "bfloat16" in k)]
+            [:1] for label, pat, bf16 in BF16_TRACE[path]}
 
 
 def steps_from_one_state(args, dev, data, labels):

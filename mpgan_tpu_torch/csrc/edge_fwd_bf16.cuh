@@ -1,6 +1,7 @@
-// The bf16 mode's weight packing for the forward kernels that run on the bf16
-// stage: the dense forward (edge_aggregate_bf16.cu: K2, K4) and the knn forward
-// (knn_fused_bf16.cu: K5, K8). The kernel's own CTAs pack a bf16 copy of every
+// The bf16 mode's weight packing for the forward kernels: K4 on the bf16 stage
+// (edge_aggregate_bf16.cu) and the bf16 forward pass of K2, K5 and K8
+// (edge_fwd_bf16_tiles.cuh, which packs the same copy without an FP32 layer and keeps
+// it in shared memory). The kernel's own CTAs pack a bf16 copy of every
 // product's weights in fragment order (edge_products_bf16.cuh: bf16_elem), K4's
 // fn first layer as float32 values in the FP32 stage's order, and every bias as
 // float32, into the caller's scratch, then meet at a grid-wide barrier.

@@ -64,6 +64,15 @@ enum Phase {
   kPhaseSearchKeys,    // warp clocks: the keys (and, where they are one loop, the selection)
   kPhaseSearchSelect,  // warp clocks: the selection that follows the keys
   kPhaseSearchOut,     // warp clocks: idx, dists and the neighbour arrays
+  // the bf16 forward's warp tiles (edge_fwd_bf16_tiles.cuh), warp clocks (lane 0 of
+  // every warp), apart from the CTA clocks above
+  kPhaseTileWait,      // the weights' copy, the CTA barriers and a warp without an item
+  kPhaseTileRows,      // a tile's rows and a_0 built into the first product's fragments
+  kPhaseTileLoop,      // the mma.sync k loops
+  kPhaseTileEpi,       // the hidden layers' epilogues into the next product's fragments
+  kPhaseTileLast,      // the last layer's epilogue: mask, the 8-row group sums
+  kPhaseTileAgg,       // the receivers' ordered adds and the stores
+  kPhaseTileSearch,    // K5: the neighbour search
   kPhaseCount
 };
 

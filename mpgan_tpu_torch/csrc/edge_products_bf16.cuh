@@ -1,6 +1,8 @@
-// The bf16 mode's product stage for the dense edge kernels, for Hopper (sm_90a):
-// the hidden products of K2 and K4 (edge_aggregate_bf16.cu) and K3's recompute
-// (edge_aggregate_bwd_bf16.cu) on tensor cores.
+// The bf16 mode's product stage for the edge kernels' FP32 passes, for Hopper
+// (sm_90a): the hidden products of K4 (edge_aggregate_bf16.cu) and K3's and K6's
+// recompute (edge_aggregate_bwd_bf16.cu, knn_edge_bwd_bf16.cu) on tensor cores. K2,
+// K5 and K8 run the bf16 forward pass of edge_fwd_bf16_tiles.cuh on the same mma
+// and fragment order (bf16_elem, pack_bf16x2, mma_bf16).
 //
 // Replaces, in mpgan_tpu/ops/mp_pallas.py, the products of _split_mlp_chain and
 // _fn_tail when the kernels are called with bf16 refs (StepConfig.bf16): each
@@ -77,6 +79,19 @@ __host__ __device__ __forceinline__ Bf16Elem bf16_elem(long long t, int M) {
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// A bias of the epilogue. The forward's (kFwd: K4's bf16 products) lies in the copy
+// that the launch's own CTAs packed before their grid-wide barrier, so it is read
+// with a plain load, which that barrier orders after the packing, not through the
+// read-only cache, whose loads must not meet data the kernel writes; the backward's
+// recompute reads a copy packed by an earlier launch.
+template <bool kFwd>
+__device__ __forceinline__ float bias_at(const float* p) {
+  if constexpr (kFwd)
+    return *p;
+  else
+    return __ldg(p);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], uint2 b) {
@@ -178,7 +193,7 @@ __device__ __noinline__ int product_bf16(int a_off, int K, const float* __restri
       for (int d = 0; d < 2; ++d) {
         const int c = 8 * (cg + cgs * q) + 2 * t + d;
         if (c >= M) continue;
-        const float bc = __ldg(e.bias + c);
+        const float bc = bias_at<kFwd>(e.bias + c);
         float lo = leaky(acc[q][d] + bc, e.alpha), hi = leaky(acc[q][2 + d] + bc, e.alpha);
         if (kDrop) {
           lo = drop_store(lo, e.drop, id_lo, (unsigned)c, e.salt);
@@ -210,7 +225,7 @@ __device__ __noinline__ int product_bf16(int a_off, int K, const float* __restri
 #pragma unroll
       for (int d = 0; d < 2; ++d) {
         const int c = min(c0 + d, M - 1);
-        const float bc = __ldg(e.bias + c);
+        const float bc = bias_at<kFwd>(e.bias + c);
         float lo = leaky(acc[q][d] + bc, e.alpha), hi = leaky(acc[q][2 + d] + bc, e.alpha);
         if (kDrop) {
           lo = drop_store(lo, e.drop, id_lo, (unsigned)c, e.salt);

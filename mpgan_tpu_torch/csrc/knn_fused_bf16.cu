@@ -18,110 +18,131 @@
 //     neighbours in float32 (/ k for the mean), rounded to bf16 once (:2004).
 // idx is int32 and dists float32, as in the FP32 mode.
 //
-// The kernel is the FP32 one (knn_stages.cuh: the planner's pass, the persistent
-// grid, the search once a (CTA, jet), a_0's build with layer 1's rounding, K1 and
-// the fixed-order aggregate) instantiated for bf16 elements: the search widens
-// xs and xf as it stages them, the fe products run on the bf16 stage
-// (edge_products_bf16.cuh: mma.sync m16n8k16 on tensor cores, A rounded from the
-// float32 activations in registers, B from a bf16 copy packed in fragment order),
-// and the CTAs pack that copy and every bias as float32 before the grid-wide
-// barrier (edge_fwd_bf16.cuh, the dense bf16 forward's packer).
+// Both run the bf16 forward pass written for this card (edge_fwd_bf16_tiles.cuh):
+// the chain's bf16 weights resident in shared memory, a warp taking 16 pair rows
+// (receiver x neighbour rank) through the whole chain with the activations chained
+// in registers between the mma.sync products and no CTA barrier between them; K5's
+// CTAs run K7's search (knn_stages.cuh, widening xs and xf as it stages them) for the
+// jets of a chunk of their items before their warps take the chunk's items, K8 reads
+// idx (clamped to [0, n)) and dists. The plan is knn_kernels.bf16_tile_plan's.
 //
 // What bounds it on this card: at the published knn-20 widths the hidden
 // products are 2 x 20 x (96 x 160 + 160 x 192) = 1.8 MFLOP a receiver, 277
 // MFLOP a 150-particle jet, 0.28 us of the dense bf16 tensor cores' 989 TFLOP/s;
-// the rest of the pass (float32 a_0 from gathered rows, K1's hash on every
-// activation, the epilogues in shared memory, slab barriers) and the search's
-// integer work (about 42 min/max a key) stay what they are in the FP32 mode, and
-// are what a faster version would cut. Every sum has a fixed order: two launches
-// on equal inputs are bit-identical, and K8 on K5's idx gives K5's output bit for
-// bit.
+// around them a_0's gathered element loads, K1's hash on every activation, the last
+// layer's shuffles and the search's integer work (about 42 min/max a key; PERF.md:
+// the phase clocks). Every sum has a fixed order: two launches on equal inputs are
+// bit-identical, and K8 on K5's idx gives K5's output bit for bit.
 
-#include "edge_fwd_bf16.cuh"
-#include "knn_stages.cuh"
+#include "edge_fwd_bf16_tiles.cuh"
+
+namespace {
+
+// What K5 and K8 share of their launch: the chain, the rows' inputs, K1 and the plan.
+int launch_knn_tiles(TileArgs a, const bf16* u1, const bf16* u2m, const bf16* w_d, bf16* out,
+                     float* packed, long long packed_floats, int batch, int n, int h1, int k,
+                     int n_hidden, const void* const* hidden_w, const void* const* hidden_b,
+                     const int* hidden_dims, float alpha, int sum_agg, int dropout,
+                     const int* seed, unsigned thr, float mult, int width, int warps,
+                     int resident, int ti, int kc, int sspan_items, int grid, void* stream) {
+  Chain fe;
+  if (batch < 1 || n < 1 || n > (1 << 22) || h1 < 1 || h1 > kMaxWidth || k < 1 ||
+      !fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || fe.dim[0] != h1 ||
+      (dropout && seed == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // offsets into u1, u2m and out are ints
+  const int widest = h1 + 1 > fe.dim[fe.n] ? h1 + 1 : fe.dim[fe.n];
+  if ((long long)batch * n * widest >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (fwd_pack_bf16(fe, fe, fe.n, -1, 8).total > packed_floats) return (int)cudaErrorInvalidValue;
+  a.u1 = u1;
+  a.u2 = u2m;
+  a.w_d = w_d;
+  a.out = out;
+  a.packed = packed;
+  a.seed = seed;
+  a.batch = batch;
+  a.n = n;
+  a.h1 = h1;
+  a.k = k;
+  a.want_dists = w_d != nullptr;
+  a.alpha = alpha;
+  a.denom = sum_agg ? 1.f : (float)k;  // the mean divides by k
+  a.drop_on = dropout != 0;
+  a.drop.thr = thr;
+  a.drop.mult = mult;
+  TilePlan p{};
+  p.width = width;
+  p.warps = warps;
+  p.resident = resident;
+  p.ti = ti;
+  p.jc = kc;
+  p.sspan_items = sspan_items;
+  return launch_tiles<true>(a, fe, p, grid, stream);
+}
+
+}  // namespace
 
 extern "C" {
 
-// K5 in the bf16 mode. Arguments as mpgan_knn_fused_layer's, with bf16 xs, xf, u1,
-// u2m, w_d, the hidden weights and biases and out; idx_out int32 and dists_out
-// float32; `packed` holds `packed_floats` floats (mp_kernels.fwd_packed_floats_bf16).
+#ifdef MPGAN_PHASE_CLOCKS
+// Clocks summed per phase (edge_products.cuh: Phase) since the last reset: K5's and K8's
+// bf16 launches, which share this source's array.
+int mpgan_knn_fused_layer_bf16_phase_clocks(unsigned long long* out, int reset) {
+  return read_phase_clocks(out, reset);
+}
+#endif
+
+// K5 in the bf16 mode: bf16 xs, xf, u1, u2m, w_d (null without distances), the
+// hidden weights and biases and out; idx_out and dists_out (int32, float32; null:
+// not written); `packed` holds `packed_floats` floats (mp_kernels.fwd_packed_floats_bf16).
+// The plan (knn_kernels.bf16_tile_plan): the width class, the warps a CTA, whether
+// the weights are resident, ti receivers an item, kc ranks a chunk, sspan_items items a search covers
+// at most, grid CTAs. Returns a
+// cudaError_t code.
 int mpgan_knn_fused_layer_bf16(const bf16* xs, const bf16* xf, const bf16* u1, const bf16* u2m,
                                const bf16* w_d, bf16* out, int* idx_out, float* dists_out,
                                float* packed, long long packed_floats, int batch, int n, int c,
                                int h1, int k, int self_loops, int want_dists, int n_hidden,
                                const void* const* hidden_w, const void* const* hidden_b,
                                const int* hidden_dims, float alpha, int sum_agg, int dropout,
-                               const int* seed, unsigned thr, float mult, int ti, int kc,
-                               int rows, int sspan, int grid, int slab_floats, void* stream) {
-  Chain fe, fn{};
-  if (batch < 1 || n < 1 || n > (1 << 22) || c < 1 || c > kMaxWidth || h1 < 1 || h1 > kMaxWidth)
+                               const int* seed, unsigned thr, float mult, int width,
+                               int warps, int resident, int ti, int kc, int sspan_items,
+                               int grid, void* stream) {
+  if (xs == nullptr || xf == nullptr || c < 1 || c > kMaxWidth) return (int)cudaErrorInvalidValue;
+  if (k + (self_loops ? 0 : 1) > n || (want_dists && w_d == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (k < 1 || k + (self_loops ? 0 : 1) > n || (want_dists && w_d == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || fe.dim[0] != h1 ||
-      (rows != 32 && rows != 64 && rows != 128))
-    return (int)cudaErrorInvalidValue;
-  if (fwd_pack_bf16(fe, fn, fe.n, -1, col_threads_of(rows)).total > packed_floats)
-    return (int)cudaErrorInvalidValue;
-  KnnArgs a{};
-  a.xs = reinterpret_cast<const float*>(xs);
-  a.xf = reinterpret_cast<const float*>(xf);
-  a.u1 = reinterpret_cast<const float*>(u1);
-  a.u2m = reinterpret_cast<const float*>(u2m);
-  a.w_d = reinterpret_cast<const float*>(w_d);
-  a.out = reinterpret_cast<float*>(out);
+  TileArgs a{};
+  a.xs = xs;
+  a.xf = xf;
   a.idx_out = idx_out;
   a.dists_out = dists_out;
-  a.packed = packed;
-  a.batch = batch;
-  a.n = n;
   a.c = c;
-  a.h1 = h1;
-  a.k = k;
-  a.self_loops = self_loops;
-  a.want_dists = want_dists;
-  a.sum_agg = sum_agg;
-  a.sspan = sspan;
-  return launch_knn_fwd<true, bf16>(a, fe, alpha, dropout, seed, thr, mult, ti, kc, rows, grid,
-                                    slab_floats, stream);
+  a.self_loops = self_loops != 0;
+  a.key_bits = knn_key_bits(n);
+  return launch_knn_tiles(a, u1, u2m, want_dists ? w_d : nullptr, out, packed, packed_floats,
+                          batch, n, h1, k, n_hidden, hidden_w, hidden_b, hidden_dims, alpha,
+                          sum_agg, dropout, seed, thr, mult, width, warps, resident, ti, kc,
+                          sspan_items, grid, stream);
 }
 
-// K8 in the bf16 mode. Arguments as mpgan_knn_edge_aggregate's, with bf16 u1, u2m,
-// w_d, the hidden weights and biases and out; idx int32 and dists float32;
-// `packed` holds `packed_floats` floats.
+// K8 in the bf16 mode: bf16 u1, u2m, w_d, the hidden weights and biases and out; idx
+// int32 and dists float32 (null with w_d: no distances); the plan as K5's without the
+// search.
 int mpgan_knn_edge_aggregate_bf16(const bf16* u1, const bf16* u2m, const int* idx,
                                   const float* dists, const bf16* w_d, bf16* out, float* packed,
                                   long long packed_floats, int batch, int n, int h1, int k,
                                   int n_hidden, const void* const* hidden_w,
                                   const void* const* hidden_b, const int* hidden_dims,
                                   float alpha, int sum_agg, int dropout, const int* seed,
-                                  unsigned thr, float mult, int ti, int kc, int rows, int grid,
-                                  int slab_floats, void* stream) {
-  Chain fe, fn{};
-  if (batch < 1 || n < 1 || n > (1 << 22) || h1 < 1 || h1 > kMaxWidth || k < 1 ||
-      idx == nullptr || (dists == nullptr) != (w_d == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (!fill_chain(fe, n_hidden, hidden_w, hidden_b, hidden_dims) || fe.dim[0] != h1 ||
-      (rows != 32 && rows != 64 && rows != 128))
-    return (int)cudaErrorInvalidValue;
-  if (fwd_pack_bf16(fe, fn, fe.n, -1, col_threads_of(rows)).total > packed_floats)
-    return (int)cudaErrorInvalidValue;
-  KnnArgs a{};
+                                  unsigned thr, float mult, int width, int warps, int resident,
+                                  int ti, int kc, int grid, void* stream) {
+  if (idx == nullptr || (dists == nullptr) != (w_d == nullptr)) return (int)cudaErrorInvalidValue;
+  TileArgs a{};
   a.idx = idx;
   a.dists = dists;
-  a.u1 = reinterpret_cast<const float*>(u1);
-  a.u2m = reinterpret_cast<const float*>(u2m);
-  a.w_d = reinterpret_cast<const float*>(w_d);
-  a.out = reinterpret_cast<float*>(out);
-  a.packed = packed;
-  a.batch = batch;
-  a.n = n;
-  a.h1 = h1;
-  a.k = k;
-  a.want_dists = dists != nullptr;
-  a.sum_agg = sum_agg;
-  return launch_knn_fwd<false, bf16>(a, fe, alpha, dropout, seed, thr, mult, ti, kc, rows, grid,
-                                     slab_floats, stream);
+  return launch_knn_tiles(a, u1, u2m, w_d, out, packed, packed_floats, batch, n, h1, k, n_hidden,
+                          hidden_w, hidden_b, hidden_dims, alpha, sum_agg, dropout, seed, thr,
+                          mult, width, warps, resident, ti, kc, 0, grid, stream);
 }
 
 }  // extern "C"

@@ -34,14 +34,12 @@
 // idx (clamped to [0, n), so a wrong idx cannot read outside the jet) and its
 // distance from dists.
 //
-// The bf16 mode (knn_fused_bf16.cu: K5 and K8; knn_search.cu's bf16 entry: K7)
-// instantiates the same search and kernel for bf16 xs, xf, u1, u2m, w_d and out:
-// the search widens xs and xf to float32 as it stages and reads them, so the
-// keys, idx and the float32 dists are those of their float32 values, as in
-// knn_pallas._fused_kernel_v4; a_0 adds the float32 values of u1, u2 and dist *
-// w_d; the hidden products run on the bf16 stage (edge_products_bf16.cuh: bf16
-// operands, float32 accumulation); the masked sum and the mean stay float32
-// and the output is rounded once.
+// The bf16 mode instantiates the same search for bf16 xs and xf (knn_search.cu's
+// bf16 entry: K7; the bf16 forward pass's K5, edge_fwd_bf16_tiles.cuh, on fewer
+// threads): it widens them to float32 as it stages and reads them, so the keys,
+// idx and the float32 dists are those of their float32 values, as in
+// knn_pallas._fused_kernel_v4. The forward kernel below is the FP32 mode's; the
+// bf16 mode's K5 and K8 run the bf16 forward pass (knn_fused_bf16.cu).
 #pragma once
 
 #include <climits>
@@ -68,21 +66,23 @@ __host__ __device__ __forceinline__ int search_cols(int c) {
   return c <= 4 ? 4 : c <= 8 ? 8 : c <= 16 ? 16 : c <= kSearchRegCols ? kSearchRegCols : c;
 }
 
-// The search's threads form `parts` groups of `part_threads` (whole warps): a
-// thread of group p takes the receiver of its place in the group and the p-th
-// share of the senders, so that every lane of a warp reads the same senders. As
-// many groups as fit, at most 4 (1 where there are more receivers than threads,
-// which then take them in turns).
-__host__ __device__ __forceinline__ int search_part_threads(int receivers) {
-  return receivers >= kThreads ? kThreads : round_up(receivers, 32);
+// The search's threads (kThreads, or the bf16 forward's warps: `threads`) form
+// `parts` groups of `part_threads` (whole warps): a thread of group p takes the
+// receiver of its place in the group and the p-th share of the senders, so that
+// every lane of a warp reads the same senders. As many groups as fit, at most 4 (1
+// where there are more receivers than threads, which then take them in turns).
+__host__ __device__ __forceinline__ int search_part_threads(int receivers,
+                                                            int threads = kThreads) {
+  return receivers >= threads ? threads : round_up(receivers, 32);
 }
-__host__ __device__ __forceinline__ int search_parts(int receivers) {
-  const int p = kThreads / search_part_threads(receivers);
+__host__ __device__ __forceinline__ int search_parts(int receivers, int threads = kThreads) {
+  const int p = threads / search_part_threads(receivers, threads);
   return p < 4 ? p : 4;
 }
 
 // Ints of the lists that groups 1 .. parts - 1 hand to group 0: (parts - 1) *
-// part_threads is at most 3 * 128 for any number of receivers.
+// part_threads is at most 3 * 128 for any number of receivers and threads up to
+// kThreads.
 constexpr int kSearchMergeInts = 3 * 128 * kSearchList;
 
 // Floats of the search's scratch: xf^T and the norms, [search_cols(c) + 1,
@@ -188,8 +188,8 @@ __device__ __forceinline__ void search_keys(int (&list)[kSearchList], const floa
 
 // The receivers of a search after the staging (see knn_search_stage), their rows
 // as search_keys<kC> reads them; `merge` holds the lists of the merge. T: the
-// element type of xs and xf.
-template <int kC, typename T>
+// element type of xs and xf; kNT: the CTA's threads.
+template <int kC, typename T, int kNT>
 __device__ __forceinline__ void search_receivers(const T* __restrict__ xs,
                                                  const T* __restrict__ xf,
                                                  const float* __restrict__ xft, int* merge,
@@ -198,7 +198,7 @@ __device__ __forceinline__ void search_receivers(const T* __restrict__ xs,
                                                  int g_eff, int n, int c, int cols, int ldn, int k,
                                                  int start, int want_dists, int low, int sel_off,
                                                  int seld_off) {
-  const int per = search_part_threads(g_eff), parts = search_parts(g_eff);
+  const int per = search_part_threads(g_eff, kNT), parts = search_parts(g_eff, kNT);
   const int part = threadIdx.x / per, place = threadIdx.x - part * per;
   SEARCH_CLOCK_START();
   for (int rb = 0; rb < g_eff; rb += per) {
@@ -321,25 +321,26 @@ __device__ __forceinline__ void search_receivers(const T* __restrict__ xs,
 // CTA before it reads sel or reuses the scratch. T: the element type of xs and xf
 // (bf16 in the bf16 mode: the staging and the receivers' rows widen them to
 // float32, so the keys and the distances are those of their float32 values).
-template <typename T>
-__device__ __noinline__ void knn_search_stage(const T* __restrict__ xs,
-                                              const T* __restrict__ xf,
-                                              int* __restrict__ idx_out,
-                                              float* __restrict__ dists_out, int b, int g0,
-                                              int g_eff, int n, int c, int k, int self_loops,
-                                              int want_dists, int key_bits, int work_off,
-                                              int sel_off, int seld_off) {
+// kNT: the CTA's threads (kThreads; the bf16 forward's warp tiles run fewer).
+template <typename T, int kNT>
+__device__ __forceinline__ void search_stage_body(const T* __restrict__ xs,
+                                                  const T* __restrict__ xf,
+                                                  int* __restrict__ idx_out,
+                                                  float* __restrict__ dists_out, int b, int g0,
+                                                  int g_eff, int n, int c, int k,
+                                                  int self_loops, int want_dists, int key_bits,
+                                                  int work_off, int sel_off, int seld_off) {
   const int ldn = search_ldn(n), cols = search_cols(c);
   const T* xfb = xf + (size_t)b * n * c;
   float* xft = smf(work_off);  // [cols + 1, ldn]
   SEARCH_CLOCK_START();
-  for (int t = threadIdx.x; t < ldn * cols; t += kThreads) {
+  for (int t = threadIdx.x; t < ldn * cols; t += kNT) {
     // coalesced reads of xf; the padded senders and columns are zeros
     const int j = t / cols, cc = t - j * cols;
     xft[cc * ldn + j] = j < n && cc < c ? ld_elem(xfb + (size_t)j * c + cc) : 0.f;
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < ldn; j += kThreads) {
+  for (int j = threadIdx.x; j < ldn; j += kNT) {
     float s = __fmul_rn(xft[j], xft[j]);
     for (int cc = 1; cc < c; ++cc) {
       const float v = xft[cc * ldn + j];
@@ -352,8 +353,8 @@ __device__ __noinline__ void knn_search_stage(const T* __restrict__ xs,
   const int low = (1 << key_bits) - 1, start = self_loops ? 0 : 1;
   int* merge = smi(work_off + (cols + 1) * ldn);
 #define MPGAN_SEARCH_RECEIVERS(KC)                                                               \
-  search_receivers<KC, T>(xs, xf, xft, merge, idx_out, dists_out, b, g0, g_eff, n, c, cols, ldn, k, \
-                       start, want_dists, low, sel_off, seld_off)
+  search_receivers<KC, T, kNT>(xs, xf, xft, merge, idx_out, dists_out, b, g0, g_eff, n, c, cols, \
+                               ldn, k, start, want_dists, low, sel_off, seld_off)
   switch (cols) {
     case 4: MPGAN_SEARCH_RECEIVERS(4); break;
     case 8: MPGAN_SEARCH_RECEIVERS(8); break;
@@ -364,10 +365,36 @@ __device__ __noinline__ void knn_search_stage(const T* __restrict__ xs,
 #undef MPGAN_SEARCH_RECEIVERS
 }
 
+// The search on kThreads threads (K5 and K7 in both modes).
+template <typename T>
+__device__ __noinline__ void knn_search_stage(const T* __restrict__ xs,
+                                              const T* __restrict__ xf,
+                                              int* __restrict__ idx_out,
+                                              float* __restrict__ dists_out, int b, int g0,
+                                              int g_eff, int n, int c, int k, int self_loops,
+                                              int want_dists, int key_bits, int work_off,
+                                              int sel_off, int seld_off) {
+  search_stage_body<T, kThreads>(xs, xf, idx_out, dists_out, b, g0, g_eff, n, c, k, self_loops,
+                                 want_dists, key_bits, work_off, sel_off, seld_off);
+}
+
+// The same search on a CTA of kNT threads (the bf16 forward's K5,
+// edge_fwd_bf16_tiles.cuh).
+template <typename T, int kNT>
+__device__ __noinline__ void knn_search_stage_nt(const T* __restrict__ xs,
+                                                 const T* __restrict__ xf,
+                                                 int* __restrict__ idx_out,
+                                                 float* __restrict__ dists_out, int b, int g0,
+                                                 int g_eff, int n, int c, int k, int self_loops,
+                                                 int want_dists, int key_bits, int work_off,
+                                                 int sel_off, int seld_off) {
+  search_stage_body<T, kNT>(xs, xf, idx_out, dists_out, b, g0, g_eff, n, c, k, self_loops,
+                            want_dists, key_bits, work_off, sel_off, seld_off);
+}
+
 // What a knn forward launch reads and writes besides the chain. xs, xf, u1, u2m,
-// w_d and out hold the kernel's element type (float32, or bf16 in the bf16 mode,
-// read through rows_as); idx, dists and the outputs idx_out, dists_out are int32
-// and float32 in both modes.
+// w_d and out hold the kernel's element type (float32, read through rows_as); idx,
+// dists and the outputs idx_out, dists_out are int32 and float32.
 struct KnnArgs {
   const float* xs;  // K5: the receivers' and the senders' selection features [B, n, c]
   const float* xf;
@@ -387,21 +414,14 @@ struct KnnArgs {
 };
 
 // grid = the plan's CTAs, cooperative; dynamic shared memory as knn_fwd_layout lays it
-// out. kSearch: K5, else K8. T: the element type (float, or bf16 for the bf16 mode,
-// whose packed copy holds bf16 weights for the bf16 stage and every bias as
-// float32: edge_fwd_bf16.cuh).
+// out. kSearch: K5, else K8. T: the element type (float).
 template <bool kSearch, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     knn_fwd_kernel(KnnArgs a, FwdPlan p, Chain fe, float alpha, int drop_on, Drop drop,
                    const int* __restrict__ seed) {
-  constexpr bool kBf16 = !std::is_same<T, float>::value;
   drop = drop_load(drop, seed, drop_on != 0);
   const int L = fe.n, h1 = a.h1, hs = a.h1 + 1, h_out = fe.dim[L], n = a.n, k = a.k;
-  const LayerTab* tab;
-  if constexpr (kBf16)
-    tab = fwd_setup_bf16<T>(a.packed, p, fe, fe, L, -1);
-  else
-    tab = fwd_setup(a.packed, p, fe, fe, L);
+  const LayerTab* tab = fwd_setup(a.packed, p, fe, fe, L);
   const float denom = a.sum_agg ? 1.f : (float)k;  // the mean divides by k
   const RowArrays row = fwd_rows(p);
   PassInputs in{};

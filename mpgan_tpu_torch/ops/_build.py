@@ -28,7 +28,8 @@ SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu", "edge_aggregate_bf16.cu
            "edge_aggregate_bwd_bf16.cu", "knn_fused.cu", "knn_edge_bwd.cu", "knn_search.cu",
            "knn_edge_aggregate.cu", "knn_fused_bf16.cu", "knn_edge_bwd_bf16.cu", "gapt_fused.cu")
 HEADERS = ("edge_common.cuh", "edge_products.cuh", "edge_products_bf16.cuh",
-           "edge_fwd_common.cuh", "edge_fwd_bf16.cuh", "edge_bwd_common.cuh",
+           "edge_fwd_common.cuh", "edge_fwd_bf16.cuh", "edge_fwd_bf16_tiles.cuh",
+           "edge_bwd_common.cuh",
            "edge_bwd_bf16.cuh", "edge_bwd_tf32x3.cuh", "edge_aggregate.cuh",
            "edge_aggregate_bwd.cuh",
            "knn_stages.cuh", "knn_edge_bwd.cuh")
@@ -131,7 +132,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ll = ctypes.c_longlong
     lib.mpgan_edge_aggregate_bf16.argtypes = [
         p, p, p, p, p, ll, i, i, i, i, parr, parr, iarr, f, i, i, p, ctypes.c_uint, f,
-        i, i, i, i, i, p,
+        i, i, i, i, i, i, p,
     ]
     lib.mpgan_edge_aggregate_bf16.restype = i
     lib.mpgan_edge_aggregate_fn_bf16.argtypes = [
@@ -146,6 +147,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mpgan_edge_aggregate_bwd_bf16.restype = i
     lib.mpgan_edge_fwd_packed_floats_bf16.argtypes = [i, iarr, i, iarr, i]
     lib.mpgan_edge_fwd_packed_floats_bf16.restype = ll
+    lib.mpgan_bf16_tile_smem.argtypes = [i, iarr] + [i] * 11
+    lib.mpgan_bf16_tile_smem.restype = ll
     lib.mpgan_edge_bwd_packed_floats_bf16.argtypes = [i, iarr, i]
     lib.mpgan_edge_bwd_packed_floats_bf16.restype = ll
     lib.mpgan_edge_fwd_sizes.argtypes = [
@@ -175,7 +178,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mpgan_knn_edge_aggregate.restype = i
     lib.mpgan_knn_fused_layer_bf16.argtypes = [
         p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, parr, parr, iarr, f, i, i, p,
-        ctypes.c_uint, f, i, i, i, i, i, i, p,
+        ctypes.c_uint, f, i, i, i, i, i, i, i, p,
     ]
     lib.mpgan_knn_fused_layer_bf16.restype = i
     lib.mpgan_knn_edge_aggregate_bwd_bf16.argtypes = [
@@ -187,7 +190,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mpgan_knn_search_bf16.restype = i
     lib.mpgan_knn_edge_aggregate_bf16.argtypes = [
         p, p, p, p, p, p, p, ll, i, i, i, i, i, parr, parr, iarr, f, i, i, p, ctypes.c_uint, f,
-        i, i, i, i, i, p,
+        i, i, i, i, i, i, p,
     ]
     lib.mpgan_knn_edge_aggregate_bf16.restype = i
     lib.mpgan_knn_fwd_sizes.argtypes = [i, iarr] + [i] * 10 + [ctypes.POINTER(ctypes.c_longlong)]

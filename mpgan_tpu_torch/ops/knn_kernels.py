@@ -116,6 +116,7 @@ from .mp_kernels import (
     fwd_packed_floats_bf16,
     launch_counts,
     seed_arg,
+    tile_plan_core,
 )
 
 
@@ -475,6 +476,23 @@ def _knn_fwd_plan(batch: int, n: int, c: int, k: int, dims: tuple, sms: int,
     return best[1]
 
 
+def bf16_tile_plan(batch: int, n: int, c: int, k: int, dims: Sequence[int], sms: int,
+                   search: bool = True):
+    """Plan a K5 (``search``) or K8 launch in the bf16 mode, on the bf16 forward
+    pass (``mp_kernels.tile_plan_core``): the rank chunk from K8's FP32 plan
+    (:func:`knn_fwd_plan` without the search) for both, so that K8 on K5's
+    ``idx`` sums as K5 does; K5's search chunks hold as many of a CTA's items
+    as fit beside its scratch. Memoised per shape."""
+    return _bf16_tile_plan(batch, n, c, k, tuple(dims), sms, bool(search))
+
+
+@functools.lru_cache(maxsize=256)
+def _bf16_tile_plan(batch: int, n: int, c: int, k: int, dims: tuple, sms: int, search: bool):
+    fp32 = knn_fwd_plan(batch, n, 0, k, dims, sms, search=False)
+    return tile_plan_core(batch, n, dims, sms, fp32.ti, fp32.kc, knn_k=k,
+                          search_floats=knn_search_floats(n, c) if search else 0)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -544,9 +562,10 @@ def knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
     idx = torch.empty((b_sz, n, k), dtype=torch.int32, device=dev) if emit_idx else None
     dists = torch.empty((b_sz, n, k), dtype=torch.float32, device=dev) \
         if emit_idx and want_dists else None
-    plan = knn_fwd_plan(b_sz, n, c, k, dims, _sm_count(dev))
+    plan = (bf16_tile_plan if bf16 else knn_fwd_plan)(b_sz, n, c, k, dims, _sm_count(dev))
     # the kernel's own copy of the weights, laid out for its products
-    packed_floats = (fwd_packed_floats_bf16 if bf16 else fwd_packed_floats)(dims, plan.rows)
+    packed_floats = fwd_packed_floats_bf16(dims, 128) if bf16 else \
+        fwd_packed_floats(dims, plan.rows)
     packed = torch.empty((max(packed_floats, 1),), dtype=torch.float32, device=dev)
     lib = _build.library()
     w, bias = _chain_args(pairs)
@@ -560,12 +579,15 @@ def knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
                 out.data_ptr(), ptr(idx), ptr(dists), packed.data_ptr())
         rest = (b_sz, n, c, dims[0], k, int(bool(self_loops)), int(bool(want_dists)), len(pairs),
                 w, bias, dim_arr, float(alpha), int(bool(sum_agg)), int(dropout_p > 0), seed_ptr,
-                thr, mult, plan.ti, plan.kc, plan.rows, plan.sspan, plan.grid, plan.slab_floats,
-                torch.cuda.current_stream().cuda_stream)
+                thr, mult)
+        stream = torch.cuda.current_stream().cuda_stream
         if bf16:
-            code = lib.mpgan_knn_fused_layer_bf16(*ptrs, packed_floats, *rest)
+            code = lib.mpgan_knn_fused_layer_bf16(*ptrs, packed_floats, *rest, plan.width,
+                                                  plan.warps, int(plan.resident), plan.ti,
+                                                  plan.jc, plan.sspan_items, plan.grid, stream)
         else:
-            code = lib.mpgan_knn_fused_layer(*ptrs, *rest)
+            code = lib.mpgan_knn_fused_layer(*ptrs, *rest, plan.ti, plan.kc, plan.rows,
+                                             plan.sspan, plan.grid, plan.slab_floats, stream)
     _build.check(code, name)
     launch_counts[name] += 1
     return out, idx, dists
@@ -746,8 +768,10 @@ def knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float, sum_
         _check_cuda_args(name, {"dists": dists}, ())
     out = torch.empty((b_sz, n, dims[-1]), dtype=u1.dtype, device=u1.device)
     k = idx.shape[2]
-    plan = knn_fwd_plan(b_sz, n, 0, k, dims, _sm_count(u1.device), search=False)
-    packed_floats = (fwd_packed_floats_bf16 if bf16 else fwd_packed_floats)(dims, plan.rows)
+    plan = (bf16_tile_plan if bf16 else knn_fwd_plan)(b_sz, n, 0, k, dims, _sm_count(u1.device),
+                                                      search=False)
+    packed_floats = fwd_packed_floats_bf16(dims, 128) if bf16 else \
+        fwd_packed_floats(dims, plan.rows)
     packed = torch.empty((max(packed_floats, 1),), dtype=torch.float32, device=u1.device)
     lib = _build.library()
     w, bias = _chain_args(pairs)
@@ -760,12 +784,15 @@ def knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float, sum_
         ptrs = (u1.data_ptr(), u2m.data_ptr(), idx.data_ptr(), ptr(dists), ptr(w_d),
                 out.data_ptr(), packed.data_ptr())
         rest = (b_sz, n, h1, k, len(pairs), w, bias, dim_arr, float(alpha), int(bool(sum_agg)),
-                int(dropout_p > 0), seed_ptr, thr, mult, plan.ti, plan.kc, plan.rows, plan.grid,
-                plan.slab_floats, torch.cuda.current_stream().cuda_stream)
+                int(dropout_p > 0), seed_ptr, thr, mult)
+        stream = torch.cuda.current_stream().cuda_stream
         if bf16:
-            code = lib.mpgan_knn_edge_aggregate_bf16(*ptrs, packed_floats, *rest)
+            code = lib.mpgan_knn_edge_aggregate_bf16(*ptrs, packed_floats, *rest, plan.width,
+                                                     plan.warps, int(plan.resident), plan.ti,
+                                                     plan.jc, plan.grid, stream)
         else:
-            code = lib.mpgan_knn_edge_aggregate(*ptrs, *rest)
+            code = lib.mpgan_knn_edge_aggregate(*ptrs, *rest, plan.ti, plan.kc, plan.rows,
+                                                plan.grid, plan.slab_floats, stream)
     _build.check(code, name)
     launch_counts[name] += 1
     return out

@@ -44,8 +44,9 @@ float32 and rounded to bf16). On the card the bf16 mode has kernels of its own
 on tensor cores) and launch counts of its own (``*_bf16``).
 
 The launches are planned here (:func:`fwd_plan`, :func:`bwd_plan`: the pass
-shape, the items of the persistent grid, the grid), so that the planning is
-tested where there is no card. A wrapper runs the plain version for tensors on
+shape, the items of the persistent grid, the grid; :func:`bf16_tile_plan` for
+the bf16 mode's forward pass, ``csrc/edge_fwd_bf16_tiles.cuh``), so that the
+planning is tested where there is no card. A wrapper runs the plain version for tensors on
 the CPU, and the kernel for tensors on a CUDA device; anything else raises. ``launch_counts`` counts kernel
 launches (the knn kernels' too), so a run can show that it went through the
 kernels. A launch inside a CUDA-graph capture runs nothing: :class:`CountedGraph`
@@ -467,16 +468,19 @@ def edge_aggregate(u1, u2, mask, hidden_flat, alpha: float, sum_agg: bool,
                      hidden_flat[::2], u1.dtype)
     b_sz, n, h1 = u1.shape
     out = torch.empty((b_sz, n, dims[-1]), dtype=u1.dtype, device=u1.device)
-    plan = fwd_plan(b_sz, n, dims, _sm_count(u1.device))
+    if bf16:
+        plan16 = bf16_tile_plan(b_sz, n, dims, _sm_count(u1.device))
+    else:
+        plan = fwd_plan(b_sz, n, dims, _sm_count(u1.device))
     # the kernel's own copy of the weights, laid out for its products
-    packed_floats = (fwd_packed_floats_bf16 if bf16 else fwd_packed_floats)(dims, plan.rows)
+    packed_floats = fwd_packed_floats_bf16(dims, 128) if bf16 else \
+        fwd_packed_floats(dims, plan.rows)
     packed = torch.empty((max(packed_floats, 1),), dtype=torch.float32, device=u1.device)
     lib = _build.library()
     w, b = _chain_args(pairs)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(u1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        shape = (plan.ti, plan.jc, plan.rows, plan.grid, plan.slab_floats, stream)
         ptrs = (u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), out.data_ptr(), packed.data_ptr())
         if bf16:
             thr, mult = dropout_threshold_mult(dropout_p) if dropout_p > 0 else (0, 1.0)
@@ -484,9 +488,14 @@ def edge_aggregate(u1, u2, mask, hidden_flat, alpha: float, sum_agg: bool,
             code = lib.mpgan_edge_aggregate_bf16(
                 *ptrs, packed_floats, b_sz, n, h1, len(pairs), w, b, dim_arr, float(alpha),
                 int(bool(sum_agg)), int(dropout_p > 0),
-                None if seed_t is None else seed_t.data_ptr(), thr, mult, *shape,
+                None if seed_t is None else seed_t.data_ptr(), thr, mult, plan16.width,
+                plan16.warps, int(plan16.resident), plan16.ti, plan16.jc, plan16.grid, stream,
             )
-        elif dropout_p > 0:
+            _build.check(code, name)
+            launch_counts[name] += 1
+            return out
+        shape = (plan.ti, plan.jc, plan.rows, plan.grid, plan.slab_floats, stream)
+        if dropout_p > 0:
             thr, mult = dropout_threshold_mult(dropout_p)
             seed_t = seed_arg(name, seed, u1.device)
             code = lib.mpgan_edge_aggregate_train(
@@ -723,6 +732,172 @@ def bwd_packed_floats_bf16(dims: Sequence[int], rows: int) -> int:
     FP32 mode's size, :func:`bwd_packed_floats`, takes the same arguments)."""
     return sum(_ceil(k, 16) * _ceil(m, 8) // 2 + _ceil(m, 8) * _ceil(k, 8) + _ceil(m, 4)
                for k, m in zip(dims[:-1], dims[1:]))
+
+
+# The bf16 mode's forward pass (csrc/edge_fwd_bf16_tiles.cuh: K2 here, K5 and K8 in
+# knn_kernels): the chain's weights resident in shared memory, a warp taking 16 pair
+# rows through the chain; planned here, checked again by the launcher.
+TILE_CLASSES = (64, 128, 256)  # width classes the kernel is built for (tile_class)
+TILE_ROWS = 16
+TILE_MAX_ROWS = 256  # rows of an item, ti * rs
+TILE_RUN_FLOATS = 256  # a warp's running receiver sums (kTileRunFloats)
+
+
+def tile_warps(width: int) -> int:
+    """The most warps a CTA of the width class runs (``tile_warps``)."""
+    return 16 if width <= 128 else 12
+
+
+def tile_class(dims: Sequence[int]) -> int:
+    """The width class of a chain: the least class that holds every input of its
+    hidden layers (all but the last), whose A fragments stay in registers."""
+    if max(dims) > MAX_WIDTH:
+        raise ValueError(f"layer widths {list(dims)} exceed the kernel cap {MAX_WIDTH}")
+    widest = max(dims[:-2], default=0)
+    return next(w for w in TILE_CLASSES if widest <= w)
+
+
+@dataclasses.dataclass(frozen=True)
+class Bf16TilePlan:
+    """One launch of the bf16 forward pass: the kernel of width class ``width``
+    with ``warps`` warps a CTA; an item is ``ti`` receivers (K2: consecutive in
+    the batch's flat list ``b * n + i``; K5, K8: a block of one jet, ``blocks``
+    a jet), each taking ``rs = max(jc, 8)`` rows, walked over the senders
+    (ranks) in chunks of ``jc`` by one warp, 16 rows a tile. ``grid`` CTAs each
+    take a contiguous range of the ``items``, their warps in turn; K5's CTAs
+    search the jets of at most ``sspan_items`` of their items at a time. With
+    ``resident`` the weights sit in shared memory; a chain too wide for that
+    runs on the 256 class reading them from the packed copy in device memory.
+    ``warps`` is at most ``tile_warps(width)``, all of them for K5 (its search
+    runs on every thread)."""
+    width: int
+    warps: int
+    resident: bool
+    ti: int
+    jc: int
+    items: int
+    grid: int
+    blocks: int
+    sspan_items: int
+    smem_bytes: int
+
+    @property
+    def rs(self) -> int:
+        return max(self.jc, 8)
+
+    def item_range(self, cta: int) -> tuple[int, int]:
+        return cta * self.items // self.grid, (cta + 1) * self.items // self.grid
+
+    def tiles(self, ti_eff: int, jc_eff: int) -> int:
+        """16-row tiles of an item's chunk with ``ti_eff`` receivers and
+        ``jc_eff`` senders (ranks)."""
+        return -(-((ti_eff - 1) * self.rs + jc_eff) // TILE_ROWS)
+
+
+def bf16_tile_smem_bytes(dims: Sequence[int], senders: int, ti: int, jc: int, *,
+                         resident: bool = True, warps: int = 0, k: int = 0,
+                         sspan_items: int = 0, search_floats: int = 0) -> int:
+    """Shared memory of the bf16 forward pass (``tile_layout``): the resident copy
+    of the weights and biases (:func:`fwd_packed_floats_bf16`), the layer table and
+    the copy's mbarrier; K5 (``search_floats`` > 0, the search's scratch) its
+    neighbours and distances ``[sspan_items * ti, k]``; then the work region: each
+    of ``warps`` warps' tile region (its 16 rows' activations as A fragments, 16 x
+    the widest layer input in bf16;
+    its running receiver sums; the receivers' aggregates ``[ti x h_out]`` where a
+    receiver takes several chunks of ``jc`` of its ``senders``), and K5's search
+    scratch between chunks."""
+    packed = fwd_packed_floats_bf16(dims, 128) if resident else 0
+    sel = _ceil(sspan_items * ti * k, 4) if search_floats else 0
+    off_work = packed + 4 * MAX_LAYERS + 4 + 2 * sel
+    chunks = -(-senders // jc)
+    warps = warps or tile_warps(tile_class(dims) if resident else 256)
+    act = -(-max(dims[:-1], default=0) // 16) * 128
+    warp_floats = act + TILE_RUN_FLOATS + (_ceil(ti * dims[-1], 4) if chunks > 1 else 0)
+    work = max(warps * warp_floats, search_floats)
+    return 4 * (off_work + work)
+
+
+def tile_plan_core(batch: int, n: int, dims: Sequence[int], sms: int, fp32_ti: int,
+                   jc: int, *, knn_k: int = 0, search_floats: int = 0) -> Bf16TilePlan:
+    """The bf16 forward pass's plan given the FP32 plan's row order (its sender or
+    rank chunk ``jc`` and receivers a pass ``fp32_ti``): items of ``ti``
+    receivers where ``ti * rs`` is a multiple of 8 (every receiver's rows then fall
+    into 8-row groups as the FP32 plan's did, so the sums are the same), else the
+    FP32 plan's ``ti``; of those the one whose busiest warp takes the fewest tiles
+    (ties: fewer tiles in all, then more receivers an item). ``knn_k``: a knn
+    launch (items per jet over its ``knn_k`` ranks); ``search_floats`` > 0: K5,
+    whose search chunks then take as many of a CTA's items as fit. Where no
+    item size fits with the weights resident, the same without them."""
+    for resident in (True, False):
+        plan = _tile_plan(batch, n, dims, sms, fp32_ti, jc, knn_k, search_floats, resident)
+        if plan is not None:
+            return plan
+    raise ValueError(f"layer widths {list(dims)} at n={n} do not fit the bf16 forward "
+                     f"pass's shared memory ({MAX_SMEM_BYTES} bytes)")
+
+
+def _tile_plan(batch, n, dims, sms, fp32_ti, jc, knn_k, search_floats, resident):
+    width = tile_class(dims) if resident else 256
+    rs = max(jc, 8)
+    senders = knn_k or n
+    top = n if knn_k else batch * n
+    if fp32_ti * rs % 8 == 0:
+        cands = [t for t in range(1, min(TILE_MAX_ROWS // rs, top) + 1) if t * rs % 8 == 0]
+    else:
+        cands = [fp32_ti]
+    chunks = [min(jc, senders - j0) for j0 in range(0, senders, jc)]
+
+    def item_tiles(ti_eff: int) -> int:
+        return sum(-(-((ti_eff - 1) * rs + je) // TILE_ROWS) for je in chunks)
+
+    best = None
+    for ti in cands:
+        if knn_k:
+            blocks = -(-n // ti)
+            items = batch * blocks
+            total = batch * ((blocks - 1) * item_tiles(ti) + item_tiles(n - (blocks - 1) * ti))
+        else:
+            blocks = 0
+            items = -(-batch * n // ti)
+            total = (items - 1) * item_tiles(ti) + item_tiles(batch * n - (items - 1) * ti)
+        grid = min(sms, items)
+        per_cta = -(-items // grid)
+
+        def smem(warps: int, sspan: int) -> int:
+            return bf16_tile_smem_bytes(dims, senders, ti, jc, resident=resident, warps=warps,
+                                        k=knn_k, sspan_items=sspan, search_floats=search_floats)
+        if search_floats:
+            warps = tile_warps(width)
+            sspan = next((s for s in range(per_cta, 0, -1)
+                          if smem(warps, s) <= MAX_SMEM_BYTES), 0)
+            if not sspan:
+                continue
+            rounds = sum(-(-min(sspan, per_cta - i) // warps) for i in range(0, per_cta, sspan))
+        else:
+            sspan = 0
+            warps = next((w for w in range(tile_warps(width), 0, -1)
+                          if smem(w, 0) <= MAX_SMEM_BYTES), 0)
+            if not warps:
+                continue
+            rounds = -(-per_cta // warps)
+        key = (rounds * item_tiles(ti), total, -ti)
+        if best is None or key < best[0]:
+            best = (key, Bf16TilePlan(width, warps, resident, ti, jc, items, grid, blocks,
+                                      sspan, smem(warps, sspan)))
+    return None if best is None else best[1]
+
+
+def bf16_tile_plan(batch: int, n: int, dims: Sequence[int], sms: int) -> Bf16TilePlan:
+    """Plan K2's bf16 launch over ``batch`` jets of ``n`` particles through the
+    fe chain ``dims`` on a card with ``sms`` SMs (see :func:`tile_plan_core`; the
+    row order from :func:`fwd_plan`). Memoised per shape."""
+    return _bf16_tile_plan(batch, n, tuple(dims), sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _bf16_tile_plan(batch: int, n: int, dims: tuple, sms: int) -> Bf16TilePlan:
+    fp32 = fwd_plan(batch, n, dims, sms)
+    return tile_plan_core(batch, n, dims, sms, fp32.ti, fp32.jc)
 
 
 def fwd_packed_floats(dims: Sequence[int], rows: int, fn_dims: Sequence[int] | None = None) -> int:

@@ -16,13 +16,16 @@ this checkout's to a saved file, prints one JSON line (tensors compared, those
 not bit-identical, kernels whose ``ptxas`` lines differ) and exits 1 on any
 difference.
 
-The bf16 modes of K3 and K6 are run too, at B=256 N=30 and B=160 N=150 k=20
-(dropout 0.5, with and without weight gradients), and reported apart, not held
-to equal bits: each output's largest difference from the saved one over the
-saved one's largest element, and how many elements differ. Two trees that
-recompute alike and differ only in how they round the backward's float32
-products differ there by a bf16 rounding of a few elements at most (the
-LeakyReLU slopes are read off the same stored activations).
+The bf16 modes run too, on the inputs of ``chip_smoke.py`` phases 28-29 rounded
+to bf16. K3 and K6 (B=256 N=30, B=160 N=150 k=20, dropout 0.5, with and without
+weight gradients), K4 (B=256 N=30), K7 (B=160, with distances) and K9 (B=1024
+on bf16 inputs) are held to equal bits with the FP32 outputs. K2 (B=256 N=30 and
+B=32 N=150, eval and dropout 0.5), K5 (B=160 N=150 k=20 and N=13 k=5 in phase
+29's four configurations, ``idx`` and distances too) and K8 on K5's ``idx`` are
+reported apart (keys ``bf16_``): each output's largest difference from the
+saved one over the saved one's largest element, how many elements differ and
+how many there are, so that a change to their pass shows as bit for bit or as
+the size of its difference.
 """
 
 from __future__ import annotations
@@ -94,27 +97,55 @@ def outputs(cs, mk, kk, gk, dev, from_args_dict) -> dict[str, torch.Tensor]:
         keep(f"k6_{need}", kk.knn_edge_aggregate_bwd(d["u1"], d["u2m"], idx, dists, d["w_d"],
                                                      d["hidden"], d["g"], 0.2, False, 0.5, 1515,
                                                      need))
-    # the bf16 modes of K3 and K6, reported apart
-    u1, u2, mask, hidden, _, _ = cs.kernel_inputs(dev, 256, 30, 3, seed=1530)
-    g = torch.randn(256, 30, cs.FE[-1], device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(30))
-    u1, u2, mask, g = cs.to_bf16(u1, u2, mask, g)
-    for need in (True, False):
-        keep(f"bf16_k3_{need}", mk.edge_aggregate_bwd(u1, u2, mask, cs.to_bf16(*hidden), g, 0.2,
-                                                      False, 0.5, 1515, need))
+    # the bf16 modes: K3, K4, K6, K7 held to equal bits ("bf16held_"), K2 reported apart
+    for b, n in ((256, 30), (32, 150)):
+        u1, u2, mask, hidden, x, fn = cs.kernel_inputs(dev, b, n, 3, seed=28 + n)
+        g = torch.randn(b, n, cs.FE[-1], device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(n))
+        u1, u2, mask, x, g = cs.to_bf16(u1, u2, mask, x, g)
+        hidden, fn = cs.to_bf16(*hidden), cs.to_bf16(*fn)
+        keep(f"bf16_k2_eval_{n}", mk.edge_aggregate(u1, u2, mask, hidden, 0.2, True))
+        keep(f"bf16_k2_train_{n}", mk.edge_aggregate(u1, u2, mask, hidden, 0.2, False, 0.5,
+                                                     2828))
+        for need in (True, False):
+            keep(f"bf16held_k3_{n}_{need}", mk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2,
+                                                                  False, 0.5, 1515, need))
+        if n <= 64:
+            keep("bf16held_k4", mk.edge_aggregate_fn(u1, u2, mask, hidden, x, fn, 0.2, True,
+                                                     0.2, True))
+    for b, n, c, widths, k in ((160, 150, 32, cs.FE, 20), (3, 13, 8, [24, 16, 12], 5)):
+        d = cs.knn_bf16(cs.knn_inputs(dev, b, n, c, widths, k, seed=290 + n))
+        for self_loops, sum_agg, dists_on, p in ((True, True, False, 0.0),
+                                                 (False, False, True, 0.5),
+                                                 (True, False, True, 0.0),
+                                                 (False, True, False, 0.5)):
+            w_d = d["w_d"] if dists_on else None
+            tag = f"{n}_{self_loops}_{sum_agg}_{dists_on}_{p}"
+            out5, idx, dists = kk.knn_fused_layer(d["xs"], d["xf"], d["u1"], d["u2m"], w_d,
+                                                  d["hidden"], k, self_loops, dists_on, 0.2,
+                                                  sum_agg, p, 292929, True)
+            keep(f"bf16_k5_{tag}", (out5, idx, dists))
+            keep(f"bf16_k8_{tag}", kk.knn_edge_aggregate(d["u1"], d["u2m"], idx, dists, w_d,
+                                                         d["hidden"], 0.2, sum_agg, p, 292929))
+            if n == 150 and dists_on:
+                keep(f"bf16held_k7_{tag}", kk.knn_search(d["xs"], d["xf"], k, self_loops, True))
     d = cs.knn_bf16(cs.knn_inputs(dev, 160, 150, 32, cs.FE, 20, seed=1516))
     idx = kk.knn_search(d["xs"], d["xf"], 20, True)[0]
     for need in (True, False):
-        keep(f"bf16_k6_{need}", kk.knn_edge_aggregate_bwd(d["u1"], d["u2m"], idx, None, None,
-                                                          d["hidden"], d["g"], 0.2, True, 0.5,
-                                                          1515, need))
+        keep(f"bf16held_k6_{need}", kk.knn_edge_aggregate_bwd(d["u1"], d["u2m"], idx, None, None,
+                                                              d["hidden"], d["g"], 0.2, True, 0.5,
+                                                              1515, need))
     from mpgan_tpu_torch.models.registry import build_suite
 
     g = build_suite(from_args_dict(cs.GAPT)).generator(torch.Generator().manual_seed(15),
                                                         device=dev)
     x, mask = cs.gapt_kernel_inputs(dev, g, 64, True, seed=15)
     with torch.no_grad():
-        keep("k9", gk.gapt_g_fused(x, mask, g.fused_weights(), g.cfg.num_heads, 0.2))
+        w = g.fused_weights()
+        keep("k9", gk.gapt_g_fused(x, mask, w, g.cfg.num_heads, 0.2))
+        x, mask = cs.gapt_kernel_inputs(dev, g, 1024, True, seed=1053)
+        keep("bf16held_k9", gk.gapt_g_fused(*cs.to_bf16(x, mask), gk.GaptWeights(
+            *cs.to_bf16(*w)), g.cfg.num_heads, 0.2))
     torch.cuda.synchronize()
     return res
 
@@ -157,11 +188,13 @@ def main(argv=None):
             a, b = mine["outputs"][k].float(), t.float()
             bf16[k] = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item(),
                        int((a != b).sum().item()), b.numel()]
+    bf16_bits = all(v[1] == 0 for v in bf16.values())
     ptx = sorted(k for k in set(theirs["ptxas"]) | set(mine["ptxas"])
                  if theirs["ptxas"].get(k) != mine["ptxas"].get(k))
     print(json.dumps({"root": args.root, "against": args.against,
                       "tensors": len(theirs["outputs"]) - len(bf16), "not_bit_identical": differ,
-                      "bf16_backward_diff_over_max_n_differing_numel": bf16,
+                      "bf16_diff_over_max_n_differing_numel": bf16,
+                      "bf16_reported_bit_identical": bf16_bits,
                       "kernels": len(theirs["ptxas"]), "ptxas_differs": ptx,
                       "ptxas_lines_differing": {k: [theirs["ptxas"].get(k), mine["ptxas"].get(k)]
                                                 for k in ptx}}))

@@ -2,7 +2,7 @@
 """Time the port's dense forward kernels (K2, K4) and the generation they carry.
 
     python scripts/torch_fwd_bench.py [--root CHECKOUT] [--label NAME] [--phases] [--reps N]
-                                      [--plain]
+                                      [--plain] [--bf16]
 
 For a machine with a CUDA card. It times, at the main paths' shapes and
 published widths (fe [96, 160, 192], fn [256, 256]):
@@ -30,6 +30,12 @@ output over the whole batch) and launched twice for equal bits. One JSON object 
 are used (default: the one that holds this script), and ``--label`` goes into
 every line, so that two checkouts run in turns on one card can be told apart.
 
+``--bf16`` times the bf16 modes of K2 and K4 instead (the bf16 training steps'
+shapes: K2 with dropout 0.5 and eval at B=256 N=30, the flagship, and at B=32
+N=150, 150p dense; K4 at B=256 N=30), on the same inputs rounded to bf16, each
+held to its plain version within ``chip_smoke.BF16_TOL`` (rtol = atol) on the
+whole batch; no K9 or generation rows (both run in float32).
+
 With ``--plain`` every kernel row also gives its plain version's time on the
 whole batch (best of 3), ``plain_ms``.
 
@@ -53,7 +59,9 @@ import torch
 TOL = 1e-4
 PHASES = ("rows_a0", "fwd_hidden", "fwd_last", "unused_wgrad", "unused_da", "unused_rebuild",
           "tail", "in_products_wait", "in_products_loop", "in_products_epilogue", "search")
-CLOCK_SLOTS = 15  # edge_products.cuh: kPhaseCount; slots 11-14 split the search
+CLOCK_SLOTS = 22  # edge_products.cuh: kPhaseCount; slots 11-14 split the search
+TILE_PHASES = ("wait", "rows_a0", "mma_loops", "hidden_epilogues", "last_layer",
+               "receiver_adds", "search")  # slots 15-21: the bf16 forward's warp tiles
 GAPT_PHASES = ("qkv", "out", "ff", "fc", "attention", "tail")  # gapt_fused.cu: GaptPhase
 GAPT_SLOTS = 9
 CHECK_JETS = 16
@@ -93,6 +101,11 @@ def phase_shares(build, fn_name="mpgan_edge_aggregate_phase_clocks"):
     senders (thread 0) and the rest, which the warps' own clocks split into keys,
     selection and outputs."""
     buf = read_clocks(build, fn_name, CLOCK_SLOTS)
+    tile = buf[15:22]
+    if any(tile):
+        # the bf16 forward's warp tiles (edge_fwd_bf16_tiles.cuh): every warp's own
+        # clocks, so the shares are of the warps' time, waits included
+        return {name: round(v / sum(tile), 4) for name, v in zip(TILE_PHASES, tile)}
     total = max(sum(buf[:7]) + buf[10], 1)  # 7-9 split the products' time again
     out = {name: round(v / total, 4) for name, v in zip(PHASES, buf) if not name.startswith("un")}
     if buf[10]:
@@ -119,6 +132,30 @@ def gapt_phase_shares(build):
     return out
 
 
+def bf16_rows(cs, mk, dev, report, phases):
+    """The bf16 modes of K2 and K4 at the bf16 training steps' shapes."""
+    shares = (lambda build: phase_shares(build, "mpgan_edge_aggregate_bf16_phase_clocks")) \
+        if phases else phase_shares
+    for b, n in ((256, 30), (32, 150)):
+        u1, u2, mask, hidden, x, fn = inputs(dev, b, n, b + n, cs.FE)
+        u1, u2, mask, x = cs.to_bf16(u1, u2, mask, x)
+        hidden, fn = cs.to_bf16(*hidden), cs.to_bf16(*fn)
+        for p, tag in ((0.5, "p=0.5"), (0.0, "eval")):
+            a = (u1, u2, mask, hidden, 0.2, p == 0, p, 5)
+            report("edge_aggregate_bf16", f"B={b} N={n} {tag}", lambda: mk.edge_aggregate(*a),
+                   lambda: (mk.edge_aggregate(*a), mk.edge_aggregate_reference(*a)),
+                   cs.bf16_bound(b, n, "fwd")["bound_ms"],
+                   lambda: mk.edge_aggregate_reference(*a), shares)
+        if n <= 64:
+            a = (u1, u2, mask, hidden, x, fn, 0.2, True, 0.2, True)
+            report("edge_aggregate_fn_bf16", f"B={b} N={n}", lambda: mk.edge_aggregate_fn(*a),
+                   lambda: (mk.edge_aggregate_fn(*a), mk.edge_aggregate_fn_reference(*a)),
+                   cs.bf16_bound(b, n, "fn")["bound_ms"],
+                   lambda: mk.edge_aggregate_fn_reference(*a), shares)
+        del u1, u2, mask, hidden, x, fn, a
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[1]))
@@ -126,6 +163,7 @@ def main(argv=None):
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--bf16", action="store_true", help="time the bf16 modes of K2 and K4")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_fwd_bench: no CUDA device available")
@@ -146,7 +184,9 @@ def main(argv=None):
     regs = [" ".join(x.strip() for x in lines[i + 1:i + 3]) for i, line in enumerate(lines)
             if "Function properties" in line and "edge_aggregate_kernel" in line]
     print(json.dumps({"label": args.label, "card": card, "phases": args.phases,
-                      "build_s": _build.build_info.get("seconds"), "ptxas": regs}), flush=True)
+                      "bf16": args.bf16, "build_s": _build.build_info.get("seconds"),
+                      "ptxas": regs}), flush=True)
+    tol = cs.BF16_TOL if args.bf16 else TOL
 
     def report(kernel, shape, call, check, bound_ms, plain, shares=phase_shares):
         """``check`` gives (kernel output, plain output) on a part of the batch, or the
@@ -156,7 +196,8 @@ def main(argv=None):
         out, ref = (res, checked) if isinstance(checked, torch.Tensor) else checked
         torch.cuda.synchronize()
         same = torch.equal(res, again)
-        err = ((out - ref).abs() / (TOL + TOL * ref.abs())).max().item()  # > 1: beyond rtol=atol
+        out, ref = out.float(), ref.float()
+        err = ((out - ref).abs() / (tol + tol * ref.abs())).max().item()  # > 1: beyond rtol=atol
         del res, again, out, ref
         if args.phases:
             shares(_build)  # drop the clocks of the launches above
@@ -173,6 +214,9 @@ def main(argv=None):
             raise SystemExit(f"torch_fwd_bench: {kernel} at {shape}: error {err} x tol, "
                              f"bit-identical {same}")
 
+    if args.bf16:
+        bf16_rows(cs, mk, dev, report, args.phases)
+        return
     j = CHECK_JETS
     for fe, tag in ((cs.FE, ""), ([128, 256], " fe 128 256")):
         u1, u2, mask, hidden, _, _ = inputs(dev, 512, 150, 8, fe)

@@ -2,7 +2,7 @@
 """Time the port's knn forward kernels (K5, K8, K7) and the knn-20 generation they carry.
 
     python scripts/torch_knn_bench.py [--root CHECKOUT] [--label NAME] [--phases] [--reps N]
-                                      [--plain]
+                                      [--plain] [--bf16]
 
 For a machine with a CUDA card. It times, at the main paths' shapes and the
 published widths (fe [96, 160, 192], N=150, k=20, C=32):
@@ -23,6 +23,14 @@ first held against its plain version (K5: neighbours under the near-tie rule of
 1e-4; K8 bit for bit against K5 on K5's ``idx``; K7's ``idx`` equal to K5's) and
 launched twice for equal bits. One JSON object a line, with the bound (FLOPs
 over 67 TFLOP/s or bytes over 3.35 TB/s) and the share of the bound's rate.
+
+``--bf16`` times the bf16 modes of K5 and K8 instead, at the same shapes
+(K5 eval at B=512, with dropout 0.5 writing ``idx`` and eval at B=160; K8 at
+B=512 eval and B=160 with dropout 0.5, from K5's ``idx``), on the inputs
+rounded to bf16: K5's neighbours under the near-tie rule, its agreeing rows
+within ``chip_smoke.BF16_TOL`` (rtol = atol), K8 bit for bit against K5; no K7
+or generation rows (K7's bf16 entry is timed by ``chip_smoke.py`` phase 29;
+generation runs in float32).
 
 ``--root`` names the checkout whose ``chip_smoke.py`` and ``mpgan_tpu_torch``
 are used (default: the one that holds this script), and ``--label`` goes into
@@ -60,6 +68,7 @@ def main(argv=None):
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--bf16", action="store_true", help="time the bf16 modes of K5 and K8")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_knn_bench: no CUDA device available")
@@ -81,7 +90,12 @@ def main(argv=None):
     regs = [" ".join(x.strip() for x in lines[i + 1:i + 3]) for i, line in enumerate(lines)
             if "Function properties" in line and "knn" in line and "bwd" not in line]
     print(json.dumps({"label": args.label, "card": card, "phases": args.phases,
-                      "build_s": _build.build_info.get("seconds"), "ptxas": regs}), flush=True)
+                      "bf16": args.bf16, "build_s": _build.build_info.get("seconds"),
+                      "ptxas": regs}), flush=True)
+    tol = cs.BF16_TOL if args.bf16 else TOL
+    mode = "_bf16" if args.bf16 else ""
+    clock_fns = {k: "mpgan_knn_fused_layer_bf16_phase_clocks" for k in CLOCKS} \
+        if args.bf16 else CLOCKS
 
     def report(kernel, shape, call, check, bound, plain):
         """Check (``check`` returns whether the kernel agrees, and a note), two
@@ -91,11 +105,11 @@ def main(argv=None):
         ok, note = check(res)
         same = all(torch.equal(a, b) for a, b in zip(res, again) if a is not None)
         del res, again
-        clocks = CLOCKS.get(kernel) if args.phases else None
+        clocks = clock_fns.get(kernel) if args.phases else None
         if clocks:
             phase_shares(_build, clocks)  # drop the clocks of the launches above
         ms = cs.best_ms(call, reps=args.reps, inner=1)
-        row = {"label": args.label, "kernel": kernel, "shape": shape, "ms": ms,
+        row = {"label": args.label, "kernel": kernel + mode, "shape": shape, "ms": ms,
                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                "share_of_bound_rate": bound["bound_ms"] / ms, "agrees": ok, **note,
                "two_runs_bit_identical": same}
@@ -113,9 +127,11 @@ def main(argv=None):
             ref, idx_ref, _ = kk.knn_fused_layer_reference(*fwd, True)
             idx = res[1] if emit else kk.knn_fused_layer(*fwd, True)[1]
             agree, differing, far = kk.compare_neighbours(idx, idx_ref,
-                                                          kk.knn_keys(d["xs"], d["xf"]),
+                                                          kk.knn_keys(d["xs"].float(),
+                                                                      d["xf"].float()),
                                                           d["mask"])
-            err = ((res[0] - ref).abs() / (TOL + TOL * ref.abs()))[agree].max().item()
+            out, ref = res[0].float(), ref.float()
+            err = ((out - ref).abs() / (tol + tol * ref.abs()))[agree].max().item()
             ok = err <= 1 and far == 0 and differing <= 0.01 * agree.numel()
             return ok, {"err_over_tol": err, "rows_differing": differing}
         return check
@@ -126,6 +142,8 @@ def main(argv=None):
     for b, p, emit, tag in ((512, 0.0, False, "eval"), (160, 0.5, True, "p=0.5, idx written"),
                             (160, 0.0, False, "eval")):
         d = cs.knn_inputs(dev, b, N, C, cs.FE, K, seed=b)
+        if args.bf16:
+            d = cs.knn_bf16(d)
         fwd = (d["xs"], d["xf"], d["u1"], d["u2m"], None, d["hidden"], K, True, False, 0.2, True,
                p, 5)
         out, idx, _ = kk.knn_fused_layer(*fwd, True)
@@ -134,19 +152,25 @@ def main(argv=None):
                           idx if emit else None)
         report("knn_fused_layer", f"B={b} N=150 k=20 {tag}",
                lambda: kk.knn_fused_layer(*fwd, emit), k5_check(d, fwd, emit),
-               cs.bound(rows(b) + search_flops(b), moved),
+               cs.bf16_knn_bound(b, N, C, K, "k5", moved) if args.bf16
+               else cs.bound(rows(b) + search_flops(b), moved),
                lambda: kk.knn_fused_layer_reference(*fwd, emit))
         torch.cuda.empty_cache()
     for b, p, tag in ((512, 0.0, "eval"), (160, 0.5, "p=0.5")):
         d, idx, out5 = idx_of[(b, p)]
         agg = (d["u1"], d["u2m"], idx, None, None, d["hidden"], 0.2, True, p, 5)
 
+        moved8 = cs.nbytes(d["u1"], d["u2m"], idx, *d["hidden"], out5)
+
         def check(res, out5=out5):
             return torch.equal(res[0], out5), {"bit_identical_to_k5": torch.equal(res[0], out5)}
         report("knn_edge_aggregate", f"B={b} N=150 k=20 {tag}",
                lambda: (kk.knn_edge_aggregate(*agg),), check,
-               cs.bound(rows(b), cs.nbytes(d["u1"], d["u2m"], idx, *d["hidden"], out5)),
+               (cs.bf16_knn_bound(b, N, C, K, "k8", moved8) if args.bf16
+                else cs.bound(rows(b), moved8)),
                lambda: kk.knn_edge_aggregate_reference(*agg))
+    if args.bf16:
+        return
     for b, want in ((512, False), (160, False), (160, True)):
         d, idx5, _ = idx_of[(b, 0.0)]
 

@@ -570,6 +570,23 @@ def test_bf16_packed_sizes_on_the_card_equal_the_launchers(dev):
                 mk.bwd_packed_floats_bf16(dims, rows)
 
 
+def test_bf16_tile_plans_shared_memory_equal_the_launchers(dev):
+    """The bf16 forward pass's plans (K2's, K5's, K8's) lay out the shared memory
+    as the launcher does (mpgan_bf16_tile_smem), resident or not."""
+    lib = _build.library()
+    sms = mk._sm_count(dev)
+    arr = lambda d: (ctypes.c_int * len(d))(*d)  # noqa: E731
+    plans = [(dims, n, 0, 0, mk.bf16_tile_plan(b, n, dims, sms)) for b, n, dims in BF16_SHAPES]
+    for b, n, c, widths, k in KNN_SHAPES:
+        for search in (True, False):
+            plans.append((widths, n, c, k, kk.bf16_tile_plan(b, n, c, k, widths, sms, search)))
+    for dims, n, c, k, plan in plans:
+        search = plan.sspan_items > 0
+        assert lib.mpgan_bf16_tile_smem(
+            len(dims) - 1, arr(dims), k or n, n, c, k, int(search), plan.width, plan.warps,
+            int(plan.resident), plan.ti, plan.jc, plan.sspan_items) == plan.smem_bytes
+
+
 def test_bf16_function_grads_match_plain_and_take_the_weights_dtype(dev):
     """EdgeAggregate in the bf16 mode: K2 forward, K3 backward, gradients bf16
     (the weights' dtype, as the JAX package's VJP returns them)."""
