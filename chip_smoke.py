@@ -207,6 +207,9 @@ Phases, each printed as it finishes:
     plain version's, at slope 1: at most 0.5%, where the plain version with one
     TF32 product or a lo term of the split left out reads more), then timed
     beside their FP32 modes (in turns), their plain versions and their bounds;
+    K4's bf16 mode (on the tile pass, fn after a grid-wide barrier) equal bit for
+    bit to what the FP32 pass's bf16 mode gave on the seeded cases of
+    ``scripts/torch_k4_bf16_bits.py`` (``tests/data/k4_bf16_fp32_pass.npz``);
     a flagship bf16 D+G step at
     B=256 against the float32 step from the same weights and draws (losses
     within 5%, every master tensor float32, only the bf16 kernels launched, a
@@ -225,7 +228,10 @@ Phases, each printed as it finishes:
     3e-2, no element beyond 0.1 of max(1, max|ref|), as the card tests hold
     bf16 gradients; K6's split-TF32 products held as K3's in phase 28) and
     launched twice bit for bit (K7 equal to K5's search, K8 on its ``idx`` to
-    K5's output, K9 to the FP32 launch on the widened inputs), then timed
+    K5's output, K9 to the FP32 launch on the widened inputs; a bf16 K9 call, as
+    the bf16 GAPT step's D step makes it, is one K9 launch beside torch operators
+    that only allocate (no cast), on the item path and on the per-jet path at
+    N=300), then timed
     beside its FP32 mode in turns, its plain version and its bound; the bf16
     knn-20 D+G step at B=128 on routes 4 and 3 and the GAPT one at B=512
     against the float32 step from the same weights and draws (losses within
@@ -2785,7 +2791,61 @@ def bf16_kernel_checks(mk, dev):
                                     **bf16_bound(b, n, kind, wg)}
         del u1, u2, mask, hidden, x, fn, g, f32, bf
         torch.cuda.empty_cache()
+    identical["edge_aggregate_fn"] &= k4_fp32_pass_bits(mk, dev)
     return worst, identical, times
+
+
+def k4_fp32_pass_bits(mk, dev) -> bool:
+    """K4's bf16 mode on the seeded cases of ``scripts/torch_k4_bf16_bits.py`` against
+    the outputs the FP32 pass's bf16 mode gave (``tests/data/k4_bf16_fp32_pass.npz``),
+    bit for bit."""
+    import importlib.util
+
+    root = pathlib.Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location("torch_k4_bf16_bits",
+                                                  root / "scripts" / "torch_k4_bf16_bits.py")
+    kb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kb)
+    want = np.load(root / "tests" / "data" / "k4_bf16_fp32_pass.npz")
+    got = kb.outputs(mk, dev)
+    differing = {k: int((got[k] != want[k]).sum()) for k in want.files}
+    log("bf16_k4_fp32_pass_bits", cases=list(want.files), differing=differing)
+    if any(differing.values()) or sorted(got) != sorted(want.files):
+        raise SystemExit(f"bf16 K4 differs from the FP32 pass's bf16 mode: {differing}")
+    return True
+
+
+# The ATen operators that allocate and launch nothing
+ALLOCATIONS = ("aten.empty.memory_format", "aten.empty_strided.default")
+
+
+def torch_ops_of_call(call) -> list[str]:
+    """The ATen operators that one ``call`` runs (a ``TorchDispatchMode`` that
+    records them): a cast, or any other torch kernel, is one of them; a
+    kernel launched through ``ctypes`` is not."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as mode:
+        call()
+    return mode.ops
+
+
+def one_k9_launch(gk, call) -> dict:
+    """What one bf16 K9 ``call`` runs: its K9 launches (the wrapper's count) and
+    the torch operators beside them, which must only allocate (no cast)."""
+    before = gk.launch_counts["gapt_g_fused_bf16"]
+    ops = torch_ops_of_call(call)
+    return {"k9_launches": gk.launch_counts["gapt_g_fused_bf16"] - before,
+            "torch_ops": ops, "only_allocations": all(o in ALLOCATIONS for o in ops)}
 
 
 def trace_names(prof) -> list[str]:
@@ -2798,6 +2858,8 @@ def trace_names(prof) -> list[str]:
 # width class and flags (dense K2, or knn K5 and K8), however the demangler spells them
 TILES_DENSE = r"bf16_tiles_kernel<\s*(\(int\))?\d+\s*,\s*(false|\(bool\)0|0)\s*,"
 TILES_KNN = r"bf16_tiles_kernel<\s*(\(int\))?\d+\s*,\s*(true|\(bool\)1|1)\s*,"
+# K4's bf16 mode on the same pass, with fn on its receivers after a grid-wide barrier
+TILES_FN = r"bf16_tiles_fn_kernel<"
 
 
 def bf16_step_check(mk, dev, card, from_args_dict):
@@ -2826,7 +2888,7 @@ def bf16_step_check(mk, dev, card, from_args_dict):
     names = trace_names(prof)
     named = {what: [k for k in names if re.search(pat, k) and (not bf16 or "bfloat16" in k)]
              for what, pat, bf16 in (("K2", TILES_DENSE, False),
-                                     ("K4", "edge_aggregate_kernel<true", True),
+                                     ("K4", TILES_FN, False),
                                      ("K3", "edge_aggregate_bwd_kernel<", True))}
     log("bf16_step_check", card=card, batch=256, losses_f32=l32, losses_bf16=l16,
         max_rel_loss_diff=rel, tol=BF16_STEP_LOSS_TOL, master_state_float32=leaves_f32,
@@ -3019,7 +3081,7 @@ BF16_TRACE = {"knn20": (("K5", TILES_KNN, False),
               "knn20_route3": (("K7", "knn_search_kernel<", True),
                                ("K8", TILES_KNN, False),
                                ("K6", "knn_edge_bwd_kernel<", True)),
-              "gapt": (("K9", "gapt_item_kernel", False),)}
+              "gapt": (("K9", "gapt_item_kernel_bf16", False),)}
 
 
 def bf16_knn_bound(b, n, c, k, kind, moved, wgrads=True) -> dict:
@@ -3264,12 +3326,15 @@ def bf16_gapt_kernel_checks(gk, dev, from_args_dict):
             err, bad = bf16_err(out, ref, False)
             repeat = torch.equal(out, again) and torch.equal(out, wide.bfloat16())
             identical &= repeat
+            # the bf16 GAPT step's D step calls K9 so: one kernel, no cast around it
+            call = one_k9_launch(gk, lambda: gk.gapt_g_fused(x16, m16, w16, 4, 0.2))
+            one = call["k9_launches"] == 1 and call["only_allocations"]
             log("bf16_gapt_kernel_check", b=b, n=30, max_abs_err=err, out_of_tol=bad,
                 tol=BF16_TOL, two_runs_bit_identical_and_equal_to_widened_fp32=repeat,
-                output_bf16=out.dtype == torch.bfloat16)
-            if bad or not repeat or out.dtype != torch.bfloat16:
+                output_bf16=out.dtype == torch.bfloat16, a_call=call)
+            if bad or not repeat or out.dtype != torch.bfloat16 or not one:
                 raise SystemExit(f"bf16 K9 disagrees at B={b}: {bad} beyond {BF16_TOL}, "
-                                 f"bit-identical {repeat}")
+                                 f"bit-identical {repeat}, a call {call}")
             worst = max(worst, err)
             times[f"b{b}"] = dict(
                 shape=f"B={b} N=30 E=64 H=4 L=4 masked",
@@ -3277,6 +3342,29 @@ def bf16_gapt_kernel_checks(gk, dev, from_args_dict):
                              gk.gapt_g_fused_reference, inner=3),
                 **bound(gapt_flops(b, 30, 64, 4, 3), nbytes(x16, m16, out, *w16)))
         del x, mask, x16, m16, out, again, wide, ref
+    # the per-jet path (N=300: qkv in device scratch) on bf16 inputs
+    g300 = build_suite(from_args_dict({**GAPT, "num_hits": 300})).generator(
+        torch.Generator().manual_seed(300), device=dev)
+    x, mask = gapt_kernel_inputs(dev, g300, 8, True, seed=300)
+    x16, m16 = to_bf16(x, mask)
+    w300 = gk.GaptWeights(*to_bf16(*g300.fused_weights()))
+    with torch.no_grad():
+        out = gk.gapt_g_fused(x16, m16, w300, 4, 0.2)
+        wide = gk.gapt_g_fused(x16.float(), m16.float(),
+                               gk.GaptWeights(*(t.float() for t in w300)), 4, 0.2)
+        call = one_k9_launch(gk, lambda: gk.gapt_g_fused(x16, m16, w300, 4, 0.2))
+        err, bad = bf16_err(out, gk.gapt_g_fused_reference(x16, m16, w300, 4, 0.2), False)
+    same = torch.equal(out, wide.bfloat16())
+    one = call["k9_launches"] == 1 and call["only_allocations"]
+    log("bf16_gapt_kernel_check", b=8, n=300, max_abs_err=err, out_of_tol=bad, tol=BF16_TOL,
+        equal_to_widened_fp32=same, a_call=call, per_jet_path=gk.gapt_plan(
+            8, 300, 64, 4, torch.cuda.get_device_properties(dev).multi_processor_count).jets == 0)
+    if bad or not same or not one:
+        raise SystemExit(f"bf16 K9's per-jet path at N=300: {bad} beyond {BF16_TOL}, equal to "
+                         f"the widened FP32 launch {same}, a call {call}")
+    identical &= same
+    worst = max(worst, err)
+    del g300, x, mask, x16, m16, w300, out, wide
     torch.cuda.empty_cache()
     return worst, identical, times
 

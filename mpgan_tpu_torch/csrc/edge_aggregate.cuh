@@ -1,7 +1,6 @@
-// The dense forward kernel (K2, K4) and its launcher, for both modes: FP32
-// (edge_aggregate.cu) and bf16 (edge_aggregate_bf16.cu), each instantiated in its
-// own source so that the build compiles them in parallel. See edge_aggregate.cu
-// for what the kernel computes and how.
+// The dense forward kernel (K2, K4) of the FP32 mode and its launcher
+// (edge_aggregate.cu, which says what the kernel computes and how; the bf16 mode runs
+// edge_fwd_bf16_tiles.cuh).
 #pragma once
 
 #include "edge_fwd_common.cuh"
@@ -9,9 +8,7 @@
 namespace {
 
 // grid = the plan's CTAs; dynamic shared memory as fwd_layout lays it out. T: the
-// element type of the inputs and the output (float, or bf16 for the bf16 mode,
-// whose packed copy holds bf16 weights for the bf16 stage, fn's first layer as
-// float32 values and every bias as float32).
+// element type of the inputs and the output (float).
 template <bool kFuseFn, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     edge_aggregate_kernel(const T* __restrict__ u1, const T* __restrict__ u2,
@@ -23,12 +20,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   drop = drop_load(drop, seed, drop_on != 0);
   const int L = fe.n, h1 = fe.dim[0], h_out = fe.dim[L], ns = round_up(n, 8);
   const int n_fn = kFuseFn ? fn.n : 0;
-  constexpr bool kBf16 = !std::is_same<T, float>::value;
-  const LayerTab* tab;
-  if constexpr (kBf16)
-    tab = fwd_setup_bf16<T>(packed, p, fe, fn, L + n_fn, kFuseFn ? L : -1);
-  else
-    tab = fwd_setup(packed, p, fe, fn, L + n_fn);
+  const LayerTab* tab = fwd_setup(packed, p, fe, fn, L + n_fn);
   const int total = batch * n;  // receivers of the launch
   const float denom = sum_agg ? 1.f : (float)n;  // the mean divides by the true n
   const RowArrays row = fwd_rows(p);
@@ -98,11 +90,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const LayerTab a = tab[L + l], b = nxt < 0 ? LayerTab{} : tab[nxt];
       efn.bias = a.b;
       efn.alpha = (l + 1 < n_fn || fn.act_last) ? fn_alpha : 1.f;  // slope 1: linear
-      if constexpr (kBf16)  // fn's first layer takes float32 operands (mp_pallas._fn_tail)
-        product_fwd_mixed<T>(l == 0, 0, a.k, a.w, a.m, p, efn, p.off_slab, chain, b.w, b.k, b.m,
-                             false);
-      else
-        product_fwd(0, a.k, a.w, a.m, p, efn, p.off_slab, chain, b.w, b.k, b.m);
+      product_fwd(0, a.k, a.w, a.m, p, efn, p.off_slab, chain, b.w, b.k, b.m);
     }
     __syncthreads();
     const int f_out = tab[L + n_fn - 1].m;

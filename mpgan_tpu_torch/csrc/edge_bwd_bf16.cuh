@@ -41,7 +41,7 @@ __global__ void pack_weights_bf16(Chain fe, BwdPackBf16 o, float* __restrict__ p
   const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (int l = 0; l < fe.n; ++l) {
-    pack_layer_bf16<T>(packed + o.fwd[l], packed + o.b[l], fe, l, false, 0, start, stride);
+    pack_layer_bf16<T>(packed + o.fwd[l], packed + o.b[l], fe, l, start, stride);
     // W^T [M x K]: element (k, n) is W[n, k], as float32 (exact in TF32)
     const int K = fe.dim[l], M = fe.dim[l + 1];
     const T* w = rows_as<T>(fe.w[l]);
@@ -72,7 +72,7 @@ int launch_pack_bf16(Chain& fe, float* packed, long long packed_floats, Packed& 
 template <typename T>
 __device__ int product_recompute(int A, int K, const float* W, int M, int slab,
                                  const PassShape& p, const Epilogue& e) {
-  return product_bf16_at<false>(A, K, W, M, slab, p, e, SlabChain{});
+  return product_bf16_at(A, K, W, M, slab, p, e);
 }
 
 }  // namespace

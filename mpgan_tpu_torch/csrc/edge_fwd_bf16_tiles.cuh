@@ -1,22 +1,26 @@
 // The bf16 mode's forward pass for Hopper (sm_90a), written for this card: the
-// dense edge aggregate K2 (edge_aggregate_bf16.cu: mpgan_edge_aggregate_bf16) and
-// the knn edge forward, K5 with its search and K8 from a given idx
-// (knn_fused_bf16.cu).
+// dense edge aggregate K2 and K4, the aggregate with the node MLP fn after it
+// (edge_aggregate_bf16.cu), and the knn edge forward, K5 with its search and K8 from a
+// given idx (knn_fused_bf16.cu).
 //
 // Replaces, with bf16 refs (StepConfig.bf16), the TPU kernels
 //   - K2: mpgan_tpu/ops/mp_pallas.py:319 _edge_aggregate_fwd_impl (_fwd_kernel_jets,
 //     _fwd_kernel, _split_mlp_chain);
+//   - K4: mp_pallas.py:965 _edge_aggregate_fn_impl (_fwd_kernel_jets_fn, _fn_tail);
 //   - K5: mpgan_tpu/ops/knn_pallas.py:2023 _fused_impl_v4 (_fused_kernel_v4);
 //   - K8: knn_pallas.py:623, 1016, 1480 (_fwd_impl, _fwd_impl_v2, _fwd_impl_v3).
-// What they compute, and where they round, is what the FP32 pass computes in its bf16
-// mode (edge_fwd_common.cuh on edge_products_bf16.cuh, which K4 runs; the plain
-// versions mp_kernels._chain_recompute and knn_kernels._knn_chain are the rule): a_0 = leaky(f32(u1) + f32(u2) (+ dist *
-// f32(w_d), product and sum rounded apart)) times K1's multiplier, in float32; each
-// hidden layer bf16(a) @ W_bf16 with float32 accumulation, + f32(b), LeakyReLU, K1
-// with salt l + 1; the last layer unrounded, times the row's mask, summed over the
-// senders (ranks) in float32 (/ n or / k for the mean) and rounded to bf16 once.
+// What they compute, and where they round, is what the FP32 pass computed in its
+// bf16 mode (edge_fwd_common.cuh with mma.sync in its k loops; the plain versions
+// mp_kernels._chain_recompute, _fn_chain and knn_kernels._knn_chain are the rule):
+// a_0 = leaky(f32(u1) + f32(u2) (+ dist * f32(w_d), product and sum rounded apart))
+// times K1's multiplier, in float32; each hidden layer bf16(a) @ W_bf16 with float32
+// accumulation, + f32(b), LeakyReLU, K1 with salt l + 1; the last layer unrounded,
+// times the row's mask, summed over the senders (ranks) in float32 (/ n or / k for the
+// mean) and rounded to bf16 once. K4 keeps that aggregate unrounded in float32 for fn:
+// its first layer agg @ W_top + x @ W_bot + b on float32 operands (FMA chains), the
+// later ones on bf16-rounded inputs with float32 sums, the output rounded once.
 //
-// What holds that pass back: it is the FP32 pass with mma.sync in its k loops,
+// What held that pass back: it is the FP32 pass with mma.sync in its k loops,
 // one CTA of 16 warps an SM meeting at a barrier before every product, at every
 // weight slab and before every epilogue, its A fragments read as scalars from float32
 // activations in shared memory and every epilogue storing float32 there again (about
@@ -57,6 +61,17 @@
 // outputs equal that pass's in its bf16 mode bit for bit, two launches on equal inputs
 // are bit-identical (no atomics), and K8 on K5's idx gives K5's output.
 //
+// K4 runs this pass with its aggregates stored unrounded into fn's tiles of 16
+// receivers in device memory, then, after a second grid-wide barrier, fn (fn_phase):
+// fn's bf16 weights (224 x 256 + 256 x 256 + 256 x 32 at the flagship's, 256 KB) do
+// not fit beside fe's resident copy (93.6 KB) in a CTA's 227 KB, and fe's copy is no
+// longer needed, so the CTA copies fn's layers into its shared memory one at a time,
+// and slots of 4 warps take 16 receivers each (an m16 tile: the items' 8 receivers of
+// 30 rows would leave half of it empty); fn's first layer stays on CUDA cores, FMA
+// chains in the FP32 pass's k order (the aggregate's rows, then x's, then the bias),
+// and its later layers take the same mma.sync operands in the same order, so K4's
+// output equals the FP32 pass's bf16 mode's bit for bit.
+//
 // Warps meet only where they must: the grid-wide barrier and the copy at the start,
 // and in K5 the neighbour search (knn_stages.cuh, K7's search), which the
 // CTA runs together for the jets of a chunk of its items (at most sspan_items) into
@@ -67,16 +82,67 @@
 //
 // What bounds it on this card: the products are 2 x 30 x 30 x (96 x 160 + 160 x 192)
 // = 85 MFLOP a 30-particle jet at the published widths, 0.09 us of the dense bf16
-// tensor cores' 989 TFLOP/s. Around them a_0's element loads, K1's hash on every
-// activation and the epilogues are most of a tile's instructions, and the warps wait
-// on their latencies; with -DMPGAN_PHASE_CLOCKS every warp's clocks are summed per
-// phase (edge_products.cuh: kPhaseTile*).
+// tensor cores' 989 TFLOP/s (K4's fn first layer adds 2 x 30 x 224 x 256 = 3.4 MFLOP
+// a jet at the CUDA cores' 67 TFLOP/s, 0.05 us). Around them a_0's element loads,
+// K1's hash on every activation and the epilogues are most of a tile's instructions,
+// and the warps wait on their latencies; with -DMPGAN_PHASE_CLOCKS every warp's clocks
+// are summed per phase (edge_products.cuh: kPhaseTile*).
 #pragma once
 
-#include "edge_fwd_bf16.cuh"
+#include "edge_products_bf16.cuh"
 #include "knn_stages.cuh"
 
 namespace {
+
+// Offsets (floats) of the pass's packed copy: layer l's bf16 weights in fragment order
+// (bf16_elem) at w[l], then every bias as float32 at b[l]. The launch's own CTAs pack
+// it into the caller's scratch (tile_setup); the resident copy is all of it.
+struct FwdPackBf16 {
+  long long w[kMaxLayers], b[kMaxLayers], total;
+};
+
+__host__ __device__ inline FwdPackBf16 fwd_pack_bf16(const Chain& fe) {
+  FwdPackBf16 o{};
+  long long off = 0;
+  for (int l = 0; l < fe.n; ++l) {
+    o.w[l] = off;
+    off += bf16_packed_floats(fe.dim[l], fe.dim[l + 1]);
+  }
+  for (int l = 0; l < fe.n; ++l) {
+    o.b[l] = off;
+    off += round_up(fe.dim[l + 1], 4);
+  }
+  o.total = off;
+  return o;
+}
+
+// K4's node MLP fn in the packed copy, after the fe chain's (from `base`): its first
+// layer as bf16 rows [K x round_up(M, 64)] (the FP32 FMA chains of fn_first read two
+// neighbouring columns a lane), the later layers in fragment order (bf16_elem), then
+// its biases as float32.
+struct FnPackBf16 {
+  long long w[kMaxLayers], b[kMaxLayers], total;
+};
+
+__host__ __device__ inline long long fn_layer_floats(const Chain& fn, int l) {
+  const int K = fn.dim[l], M = fn.dim[l + 1];
+  return l == 0 ? (long long)K * round_up(M, 64) / 2 : bf16_packed_floats(K, M);
+}
+
+__host__ __device__ inline FnPackBf16 fn_pack_bf16(const Chain& fn, long long base) {
+  FnPackBf16 o{};
+  long long off = base;
+  for (int l = 0; l < fn.n; ++l) {
+    o.w[l] = off;
+    off += fn_layer_floats(fn, l);
+  }
+  for (int l = 0; l < fn.n; ++l) {
+    o.b[l] = off;
+    off += round_up(fn.dim[l + 1], 4);
+  }
+  o.total = off;
+  return o;
+}
 
 constexpr int kTileMaxRows = 256;         // rows of an item (ti * rs), at most 16 tiles
 constexpr int kTileTabFloats = 4 * kMaxLayers;
@@ -112,6 +178,12 @@ struct TilePlan {
                      // between chunks
   int act_floats;    // a warp's activations: the widest layer input in 16-column k steps
   int warp_floats;
+  // K4's second phase (fn_phase), its shared memory from 0: the staged layer's
+  // weights, its bias at fn_off_b, then fn_slots slots of fn_slot_floats (a 16-row
+  // tile's input rows, then its activations as A fragments at fn_x_floats), the
+  // staging's mbarrier at fn_off_bar
+  int fn_slots;      // fn tiles a CTA takes at a time, 4 warps each
+  int fn_off_b, fn_off_slots, fn_x_floats, fn_slot_floats, fn_off_bar;
   long long smem;    // bytes
 };
 
@@ -121,10 +193,15 @@ struct TileLayer {
   int w, b, k, m;
 };
 
-// What a launch reads and writes. dense (K2): u2 and mask; knn: u2 is u2m [B, n, h1 +
-// 1], w_d (with distances, else null), K5 xs, xf and the outputs idx_out, dists_out,
-// K8 idx and dists.
+// What a launch reads and writes. dense (K2, K4): u2 and mask; knn: u2 is u2m [B, n,
+// h1 + 1], w_d (with distances, else null), K5 xs, xf and the outputs idx_out,
+// dists_out, K8 idx and dists. K4: x [B, n, feat] and the receivers' float32
+// aggregates `aggs`, written in fn's tiles of 16 receivers ([tile][column][16]).
 struct TileArgs {
+  const bf16* x;
+  float* aggs;
+  int feat;
+  float fn_alpha;
   const bf16* u1;
   const bf16* u2;
   const bf16* mask;
@@ -159,15 +236,38 @@ __host__ __device__ inline int chain_widest_input(const Chain& fe, bool hidden) 
   return w;
 }
 
+// K4's second phase's shared memory (TilePlan: fn_*) for p.fn_slots slots; false where
+// the kernel does not run fn or the plan's warps cannot hold the slots.
+__host__ __device__ inline bool fn_layout(TilePlan& p, const Chain& fn) {
+  if (fn.n < 1 || p.fn_slots < 1 || 4 * p.fn_slots > p.warps || p.warps % 4 != 0) return false;
+  long long w = 0;
+  int m = 0, f = 0;
+  for (int l = 0; l < fn.n; ++l) {
+    w = fn_layer_floats(fn, l) > w ? fn_layer_floats(fn, l) : w;
+    m = fn.dim[l + 1] > m ? fn.dim[l + 1] : m;
+    if (l > 0) f = (fn.dim[l] + 15) / 16 * 128 > f ? (fn.dim[l] + 15) / 16 * 128 : f;
+  }
+  p.fn_off_b = (int)w;
+  p.fn_off_slots = p.fn_off_b + round_up(m, 4);
+  p.fn_x_floats = 16 * fn.dim[0] > f ? 16 * fn.dim[0] : f;
+  p.fn_slot_floats = p.fn_x_floats + f;
+  p.fn_off_bar = p.fn_off_slots + p.fn_slots * p.fn_slot_floats;
+  const long long smem = 4LL * (p.fn_off_bar + 4);
+  p.smem = smem > p.smem ? smem : p.smem;
+  return true;
+}
+
 // Checks a plan for the chain and lays out its shared memory: the resident copy (the
 // packed weights, then the biases: fwd_pack_bf16; none where the plan is not
-// resident), the layer table, the mbarrier, K5's neighbour arrays, the work region. A
-// chain whose copy does not fit runs on the 256 class, reading its weights from the
-// packed copy in device memory (through L2). `senders`: n (dense) or k (knn); `search`: K5
-// (n and c its jets' particles and features). False where the kernel does not run
-// the plan or it does not fit.
+// resident), the layer table (K4: fe's layers, then fn's), the mbarrier, K5's
+// neighbour arrays, the work region; K4's second phase (fn_layout) reuses all of it
+// after its grid-wide barrier. A chain whose copy does not fit runs on the 256 class,
+// reading its weights from the packed copy in device memory (through L2). `senders`: n
+// (dense) or k (knn); `search`: K5 (n and c its jets' particles and features); `fn`:
+// K4's node MLP. False where the kernel does not run the plan or it does not fit.
 __host__ __device__ inline bool tile_layout(TilePlan& p, const Chain& fe, int senders, int n,
-                                            int c, int k, bool search) {
+                                            int c, int k, bool search,
+                                            const Chain* fn = nullptr) {
   const int cls = tile_class(chain_widest_input(fe, true));
   if (fe.n < 0 || cls == 0 || p.width != (p.resident ? cls : 256) || p.warps < 1 ||
       p.warps > tile_warps(p.width) || (search && p.warps != tile_warps(p.width)))
@@ -176,10 +276,10 @@ __host__ __device__ inline bool tile_layout(TilePlan& p, const Chain& fe, int se
   p.rs = p.jc > 8 ? p.jc : 8;
   if (p.ti * p.rs > kTileMaxRows) return false;
   p.chunks = (senders + p.jc - 1) / p.jc;
-  const long long packed = fwd_pack_bf16(fe, fe, fe.n, -1, 8).total;
+  const long long packed = fwd_pack_bf16(fe).total;
   const int h_out = fe.dim[fe.n];
   p.off_tab = p.resident ? (int)packed : 0;
-  p.off_bar = p.off_tab + kTileTabFloats;
+  p.off_bar = p.off_tab + (fn != nullptr ? 2 : 1) * kTileTabFloats;
   const long long sel = search ? round_up(p.sspan_items * p.ti * k, 4) : 0;
   p.off_sel = p.off_bar + 4;
   p.off_seld = (int)(p.off_sel + sel);
@@ -189,6 +289,7 @@ __host__ __device__ inline bool tile_layout(TilePlan& p, const Chain& fe, int se
   long long work = (long long)p.warps * p.warp_floats;
   if (search && search_floats(n, c) > work) work = search_floats(n, c);
   p.smem = 4 * (p.off_work + work);
+  if (fn != nullptr && !fn_layout(p, *fn)) return false;
   return p.smem <= kMaxSmemBytes;
 }
 
@@ -213,54 +314,99 @@ __device__ __forceinline__ unsigned sm_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// The launch's start: the CTAs pack the bf16 copy and the biases into `packed` (a
-// share each, as the FP32 pass does: edge_fwd_bf16.cuh) and meet at the grid-wide
-// barrier; then each CTA copies the whole copy into its shared memory at 0 with bulk
-// asynchronous copies completing on an mbarrier, and every thread waits for it.
-__device__ void tile_setup(float* __restrict__ packed, const Chain& fe, const TilePlan& p) {
-  const FwdPackBf16 o = fwd_pack_bf16(fe, fe, fe.n, -1, 8);
-  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (int l = 0; l < fe.n; ++l)
-    pack_layer_bf16<bf16>(packed + o.w[l], packed + o.b[l], fe, l, false, 8, start, stride);
-  // the packing's stores, then the async proxy's reads of them
-  asm volatile("fence.proxy.async.global;" ::: "memory");
-  if (threadIdx.x < fe.n) {
-    const int l = threadIdx.x;
-    reinterpret_cast<TileLayer*>(smf(p.off_tab))[l] =
-        TileLayer{(int)o.w[l], (int)o.b[l], fe.dim[l], fe.dim[l + 1]};
+// Bulk asynchronous copies of `bytes` (a multiple of 16) from device memory at `src`
+// into shared memory at `dst`, completing on the mbarrier `bar`; the calling thread
+// has announced them on it (mbarrier.arrive.expect_tx).
+__device__ __forceinline__ void bulk_copy(unsigned dst, const float* src, unsigned bytes,
+                                          unsigned bar) {
+  const unsigned long long s = reinterpret_cast<unsigned long long>(src);
+  for (unsigned off = 0; off < bytes; off += kTileBulkBytes) {
+    const unsigned size = bytes - off < kTileBulkBytes ? bytes - off : kTileBulkBytes;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];" ::"r"(dst + off),
+        "l"(s + off), "r"(size), "r"(bar)
+        : "memory");
   }
-  const unsigned bar = sm_addr(smf(p.off_bar));
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(1) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  cooperative_groups::this_grid().sync();  // the packed copy is complete, the mbarrier set
-  if (!p.resident) return;
-  const unsigned bytes = (unsigned)(o.total * 4);
-  if (threadIdx.x == 0) {
-    asm volatile("fence.proxy.async.global;" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-                 : "memory");
-    const unsigned dst = sm_addr(smf(0));
-    const unsigned long long src = reinterpret_cast<unsigned long long>(packed);
-    for (unsigned off = 0; off < bytes; off += kTileBulkBytes) {
-      const unsigned size = bytes - off < kTileBulkBytes ? bytes - off : kTileBulkBytes;
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-          "[%3];" ::"r"(dst + off),
-          "l"(src + off), "r"(size), "r"(bar)
-          : "memory");
-    }
-  }
+}
+
+__device__ __forceinline__ void expect_bytes(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void init_barrier(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(1) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Every thread waits for the mbarrier's phase of parity `parity` to complete.
+__device__ __forceinline__ void wait_barrier(unsigned bar, unsigned parity) {
   unsigned done = 0;
   while (!done)
     asm volatile(
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
-        : "r"(bar), "r"(0u)
+        : "r"(bar), "r"(parity)
         : "memory");
+}
+
+// K4's fn: its first layer's bf16 rows [K x round_up(M, 64)] (fn_first reads lane l's
+// two columns 2l, 2l + 1 of each 64 as one 32-bit word), later layers in fragment
+// order, every bias as float32; element t of every job by the thread with t = start
+// (mod stride).
+__device__ void pack_fn(float* __restrict__ packed, const Chain& fn, const FnPackBf16& o,
+                        long long start, long long stride) {
+  const int K = fn.dim[0], M = fn.dim[1], mp = round_up(M, 64);
+  bf16* w0 = reinterpret_cast<bf16*>(packed + o.w[0]);
+  for (long long t = start; t < (long long)K * mp; t += stride) {
+    const int k = (int)(t / mp), col = (int)(t - (long long)k * mp);
+    w0[t] = col < M ? bf16_row<bf16>(fn, 0, k, M)[col] : __float2bfloat16_rn(0.f);
+  }
+  for (long long t = start; t < M; t += stride)
+    packed[o.b[0] + t] = __bfloat162float(rows_as<bf16>(fn.b[0])[t]);
+  for (int l = 1; l < fn.n; ++l)
+    pack_layer_bf16<bf16>(packed + o.w[l], packed + o.b[l], fn, l, start, stride);
+}
+
+// The launch's start: the CTAs pack the bf16 copy and the biases into `packed` (a
+// share each; K4 fn's too, after fe's) and meet at the grid-wide barrier; then each
+// CTA copies fe's copy into its shared memory at 0 with bulk asynchronous copies
+// completing on an mbarrier, and every thread waits for it.
+__device__ void tile_setup(float* __restrict__ packed, const Chain& fe, const TilePlan& p,
+                           const Chain* fn = nullptr) {
+  const FwdPackBf16 o = fwd_pack_bf16(fe);
+  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (int l = 0; l < fe.n; ++l)
+    pack_layer_bf16<bf16>(packed + o.w[l], packed + o.b[l], fe, l, start, stride);
+  TileLayer* tab = reinterpret_cast<TileLayer*>(smf(p.off_tab));
+  if (fn != nullptr) {
+    const FnPackBf16 f = fn_pack_bf16(*fn, o.total);
+    pack_fn(packed, *fn, f, start, stride);
+    if (threadIdx.x < fn->n) {
+      const int l = threadIdx.x;
+      tab[fe.n + l] = TileLayer{(int)f.w[l], (int)f.b[l], fn->dim[l], fn->dim[l + 1]};
+    }
+  }
+  // the packing's stores, then the async proxy's reads of them
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+  if (threadIdx.x < fe.n) {
+    const int l = threadIdx.x;
+    tab[l] = TileLayer{(int)o.w[l], (int)o.b[l], fe.dim[l], fe.dim[l + 1]};
+  }
+  const unsigned bar = sm_addr(smf(p.off_bar));
+  if (threadIdx.x == 0) init_barrier(bar);
+  cooperative_groups::this_grid().sync();  // the packed copy is complete, the mbarrier set
+  if (!p.resident) return;
+  if (threadIdx.x == 0) {
+    const unsigned bytes = (unsigned)(o.total * 4);
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    expect_bytes(bar, bytes);
+    bulk_copy(sm_addr(smf(0)), packed, bytes, bar);
+  }
+  wait_barrier(bar, 0u);
 }
 
 // An item's chunk of senders (ranks): its receivers q0 .. q0 + ti_eff (flat, b n + i),
@@ -369,21 +515,31 @@ __device__ __forceinline__ unsigned a0_pair(const TileArgs& a, const Drop& drop,
   return pack_bf16x2(v[0], v[1]);
 }
 
+// Receiver q's aggregate at column c: K2's output, rounded; K4's (kFn) unrounded into
+// its fn tile of 16 receivers.
+template <bool kFn>
+__device__ __forceinline__ void tile_store(const TileArgs& a, int q, int h_out, int c, float v) {
+  if constexpr (kFn)
+    a.aggs[((size_t)(q >> 4) * h_out + c) * 16 + (q & 15)] = v;
+  else
+    st_elem(a.out + (size_t)q * h_out + c, v);
+}
+
 // Adds receiver ii's share v of a chunk at column c, as add_share does: the warp's
-// running aggregate `agg` over several chunks, the output (/ denom, rounded) on the
+// running aggregate `agg` over several chunks, the aggregate (/ denom) stored on the
 // last.
+template <bool kFn>
 __device__ __forceinline__ void tile_emit(const TileArgs& a, const TilePlan& p,
                                           const TileItem& it, float* agg, int h_out, int ii,
                                           int c, float v) {
-  bf16* o = a.out + (size_t)(it.q0 + ii) * h_out + c;
   if (p.chunks == 1) {
-    st_elem(o, v / a.denom);
+    tile_store<kFn>(a, it.q0 + ii, h_out, c, v / a.denom);
     return;
   }
   float* s = agg + ii * h_out + c;
   const float w = it.first ? v : *s + v;
   if (it.last)
-    st_elem(o, w / a.denom);
+    tile_store<kFn>(a, it.q0 + ii, h_out, c, w / a.denom);
   else
     *s = w;
 }
@@ -408,17 +564,18 @@ __device__ __forceinline__ TileGroup tile_group(int G, const TilePlan& p, const 
   return x;
 }
 
+template <bool kFn>
 __device__ __forceinline__ void group_add(const TileArgs& a, const TilePlan& p,
                                           const TileItem& it, float* agg, int h_out,
                                           const TileGroup& x, int c, float head, float tail,
                                           float& run) {
   if (x.add_head) {
     run = x.new_head ? 0.f + head : run + head;
-    if (x.end_head) tile_emit(a, p, it, agg, h_out, x.head, c, run);
+    if (x.end_head) tile_emit<kFn>(a, p, it, agg, h_out, x.head, c, run);
   }
   if (x.add_tail) {
     run = 0.f + tail;
-    if (x.end_tail) tile_emit(a, p, it, agg, h_out, x.tail, c, run);
+    if (x.end_tail) tile_emit<kFn>(a, p, it, agg, h_out, x.tail, c, run);
   }
 }
 
@@ -570,7 +727,7 @@ __device__ __forceinline__ float halve(float x, float y, bool bit, int o) {
 // with the sums of n tile 8 cc + g alone (56 shuffles for 8 n tiles, not 192; each
 // sum is the same two operands added, so the bits are the butterfly's), and adds them
 // to its running receiver sums in group order.
-template <bool kRes>
+template <bool kRes, bool kFn>
 __device__ __forceinline__ void tile_last(const float* act, float* run, const TileLayer ly,
                                           const TileArgs& a, const Drop& drop,
                                           const TilePlan& p, const TileItem& it, float* agg,
@@ -632,8 +789,8 @@ __device__ __forceinline__ void tile_last(const float* act, float* run, const Ti
       if (j < ntiles && c < M) {
         float& r = run[64 * cc + 2 * lane + d];
         float v = r;
-        group_add(a, p, it, agg, M, x_lo, c, keep[4 * d], keep[4 * d + 1], v);
-        group_add(a, p, it, agg, M, x_hi, c, keep[4 * d + 2], keep[4 * d + 3], v);
+        group_add<kFn>(a, p, it, agg, M, x_lo, c, keep[4 * d], keep[4 * d + 1], v);
+        group_add<kFn>(a, p, it, agg, M, x_hi, c, keep[4 * d + 2], keep[4 * d + 3], v);
         r = v;
       }
     }
@@ -658,8 +815,8 @@ __device__ __forceinline__ void tile_a0(float* act, const TileArgs& a, const Dro
 
 // One item (ti receivers, every chunk of their senders or ranks) on one warp, in its
 // region `wr` (act_floats, kTileRunFloats, then the aggregates). `sel`: K5's
-// neighbour slots of the item (-1: none).
-template <int kW, bool kKnn, bool kRes>
+// neighbour slots of the item (-1: none). kFn: K4, the aggregates into a.aggs.
+template <int kW, bool kKnn, bool kRes, bool kFn = false>
 __device__ __forceinline__ void tile_item(const TileArgs& a, const Drop& drop, const TilePlan& p,
                                        const TileLayer* tab, int L, int h_out, long long t,
                                        int sel, float* wr, TileClock& clk) {
@@ -694,7 +851,7 @@ __device__ __forceinline__ void tile_item(const TileArgs& a, const Drop& drop, c
           const TileRow w = tile_row<kKnn>(a, p, it, ii * p.rs + jj);
           s = fmaf(w.m, a0_value(a, drop, w, c), s);
         }
-        tile_emit(a, p, it, agg, h_out, ii, c, s);
+        tile_emit<kFn>(a, p, it, agg, h_out, ii, c, s);
       }
       continue;
     }
@@ -706,7 +863,216 @@ __device__ __forceinline__ void tile_item(const TileArgs& a, const Drop& drop, c
       tile_stamp(clk, kPhaseTileRows);
       for (int l = 0; l + 1 < L; ++l)
         tile_hidden<kW, kRes>(act, tab[l], a, drop, lo.id, hi.id, (unsigned)(l + 1), clk);
-      tile_last<kRes>(act, run, tab[L - 1], a, drop, p, it, agg, rt, lo, hi, (unsigned)L, clk);
+      tile_last<kRes, kFn>(act, run, tab[L - 1], a, drop, p, it, agg, rt, lo, hi, (unsigned)L,
+                           clk);
+    }
+  }
+}
+
+// K4's second phase: fn on every receiver, 16 receivers a tile (its rows in the
+// aggregates' layout), a slot of 4 warps a tile, fn_slots tiles of a CTA at a time
+// (CTA c takes tiles c, c + grid, ...). Layer by layer the CTA stages the layer's
+// weights and bias into its shared memory with bulk copies (the whole CTA meets before
+// each: the last layer's reads are done, the slots' writes visible), then each slot's
+// warps take 64 of its output columns in turn. fn's first layer runs on CUDA cores
+// (fn_first), the later ones on mma.sync (fn_mma), as the FP32 pass ran them in K4's
+// bf16 mode, in the same k order: the outputs are that pass's bit for bit.
+
+// The tile's input rows [agg | x] as float32, k-major ([K][16]: a k step reads the 16
+// rows as four 128-bit broadcasts), rows past the batch zero; `gt`: the thread in the
+// slot's 128.
+__device__ __forceinline__ void fn_rows(float* X, const TileArgs& a, long long tile, int h_out,
+                                        int n_valid, int gt) {
+  const float4* src = reinterpret_cast<const float4*>(a.aggs + (size_t)tile * h_out * 16);
+  float4* dst = reinterpret_cast<float4*>(X);
+  for (int i = gt; i < h_out * 4; i += 128) {
+    // written by other CTAs of this launch: through L2, not the read-only cache
+    float4 v = __ldcg(src + i);
+    const int r = (i & 3) * 4;
+    if (r + 4 > n_valid) {
+      v.x = r < n_valid ? v.x : 0.f;
+      v.y = r + 1 < n_valid ? v.y : 0.f;
+      v.z = r + 2 < n_valid ? v.z : 0.f;
+      v.w = 0.f;
+    }
+    dst[i] = v;
+  }
+  for (int i = gt; i < a.feat * 16; i += 128) {
+    const int f = i >> 4, r = i & 15;
+    X[(h_out + f) * 16 + r] =
+        r < n_valid ? ld_elem(a.x + ((size_t)tile * 16 + r) * a.feat + f) : 0.f;
+  }
+}
+
+// fn's first layer on the tile: agg (float32) and x against the float32 values of the
+// bf16 weights, FMA chains in k order from 0.f (the FP32 stage's product_tn), + bias,
+// LeakyReLU (slope 1: linear). Each warp of the slot (part) takes 64 columns at a time,
+// a lane two neighbouring columns of all 16 rows. Hidden: written as the next
+// product's A fragments at y_off (columns past M zero); last: the output rows. The
+// slot's regions are named by their offsets (smf), so that they are read and written
+// with shared-memory instructions.
+__device__ __noinline__ void fn_first(int x_off, int y_off, const TileLayer ly, bool last,
+                                      float alpha, const TileArgs& a, const TilePlan& p,
+                                      long long tile, int n_valid, int part) {
+  const float* X = smf(x_off);
+  float* Y = smf(y_off);
+  const int lane = threadIdx.x & 31;
+  const int K = ly.k, M = ly.m, ldw = round_up(M, 64) / 2;
+  const unsigned* W = reinterpret_cast<const unsigned*>(smf(0));
+  const float* bias = smf(p.fn_off_b);
+  const int next_cols = (M + 15) / 16 * 16;
+#pragma unroll 1
+  for (int cc = part; 64 * cc < M; cc += 4) {
+    float acc[16][2];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
+    const unsigned* wp = W + 32 * cc + lane;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float4* ap = reinterpret_cast<const float4*>(X + 16 * k);
+      const float4 a0 = ap[0], a1 = ap[1], a2 = ap[2], a3 = ap[3];
+      const float av[16] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w,
+                            a2.x, a2.y, a2.z, a2.w, a3.x, a3.y, a3.z, a3.w};
+      const unsigned wv = wp[(size_t)k * ldw];
+      const float w0 = __uint_as_float(wv << 16), w1 = __uint_as_float(wv & 0xffff0000u);
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        acc[r][0] = fmaf(av[r], w0, acc[r][0]);
+        acc[r][1] = fmaf(av[r], w1, acc[r][1]);
+      }
+    }
+    const int c = 64 * cc + 2 * lane;
+    const float b0 = c < M ? bias[c] : 0.f, b1 = c + 1 < M ? bias[c + 1] : 0.f;
+    if (last) {
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        if (r >= n_valid) break;
+        bf16* o = a.out + ((size_t)tile * 16 + r) * M + c;
+        if (c < M) st_elem(o, leaky(acc[r][0] + b0, alpha));
+        if (c + 1 < M) st_elem(o + 1, leaky(acc[r][1] + b1, alpha));
+      }
+    } else if (c < next_cols) {
+      // (row r, columns c, c + 1): k step c / 16, lane 4 (r % 8) + (c % 8) / 2, register
+      // 2 ((c % 16) / 8) + r / 8
+      unsigned* y = reinterpret_cast<unsigned*>(Y) + (c >> 4) * 128 + 4 * ((c & 7) >> 1) +
+                    2 * ((c & 15) >> 3);
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const float v0 = c < M ? leaky(acc[r][0] + b0, alpha) : 0.f;
+        const float v1 = c + 1 < M ? leaky(acc[r][1] + b1, alpha) : 0.f;
+        y[16 * (r & 7) + (r >> 3)] = pack_bf16x2(v0, v1);
+      }
+    }
+  }
+}
+
+// A later fn layer on the tile: bf16 A fragments from `in` (the last layer's output)
+// times the staged fragments, float32 sums (mma.sync, k steps in order), + bias,
+// LeakyReLU (slope 1: linear); each warp of the slot takes 8 n tiles at a time.
+// Hidden: the next product's A fragments at out_off (columns past M zero); last: the
+// output rows.
+__device__ __noinline__ void fn_mma(int in_off, int out_off, const TileLayer ly, bool last,
+                                    float alpha, const TileArgs& a, const TilePlan& p,
+                                    long long tile, int n_valid, int part) {
+  const float* in = smf(in_off);
+  float* out_a = smf(out_off);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int steps = (ly.k + 15) / 16, ntiles = (ly.m + 7) / 8, M = ly.m;
+  const float* w = smf(0) + lane * 2;
+  const float* bias = smf(p.fn_off_b);
+#pragma unroll 1
+  for (int cc = part; 8 * cc < ntiles; cc += 4) {
+    float acc[8][4];
+    tile_products_act<true>(acc, in, w, steps, ntiles, cc);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int j = 8 * cc + q;
+      if (j >= ntiles) break;
+      float v[4];  // row g at columns c, c + 1, then row g + 8
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        const int c = 8 * j + 2 * t + d;
+        const float bc = c < M ? bias[c] : 0.f;
+        v[d] = c < M ? leaky(acc[q][d] + bc, alpha) : 0.f;
+        v[2 + d] = c < M ? leaky(acc[q][2 + d] + bc, alpha) : 0.f;
+      }
+      if (last) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = g + 8 * h;
+          if (r >= n_valid) continue;
+          bf16* o = a.out + ((size_t)tile * 16 + r) * M;
+#pragma unroll
+          for (int d = 0; d < 2; ++d)
+            if (8 * j + 2 * t + d < M) st_elem(o + 8 * j + 2 * t + d, v[2 * h + d]);
+        }
+      } else {
+        // n tile j is half j & 1 of the next product's k step j / 2
+        *reinterpret_cast<uint2*>(out_a + (j >> 1) * 128 + 4 * lane + 2 * (j & 1)) =
+            make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+      }
+    }
+    if (!last && (ntiles & 1) && 8 * cc + 8 >= ntiles)  // the last k step's second half
+      *reinterpret_cast<uint2*>(out_a + (ntiles >> 1) * 128 + 4 * lane + 2) = make_uint2(0u, 0u);
+  }
+}
+
+// The second phase, after the grid-wide barrier that ends the first: every receiver's
+// aggregate is in a.aggs. `tab`: fe's L layers, then fn's Lfn.
+__device__ void fn_phase(const TileArgs& a, const TilePlan& p, const TileLayer* tab, int L,
+                         int Lfn, bool act_last, int h_out, TileClock& clk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp >> 2, part = warp & 3;
+  // fn's layers, lane l holding layer l, read before the shared memory is reused
+  const TileLayer mine = lane < Lfn ? tab[L + lane] : TileLayer{};
+  if (threadIdx.x == 0)  // the first phase's mbarrier, whose memory the second reuses
+    asm volatile("mbarrier.inval.shared::cta.b64 [%0];" ::"r"(sm_addr(smf(p.off_bar)))
+                 : "memory");
+  __syncthreads();  // the first phase is done with the shared memory
+  const unsigned bar = sm_addr(smf(p.fn_off_bar));
+  if (threadIdx.x == 0) init_barrier(bar);
+  const long long total = (long long)a.batch * a.n, tiles = (total + 15) / 16;
+  const long long count = blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int rounds = (int)((count + p.fn_slots - 1) / p.fn_slots);
+  const int x_off = p.fn_off_slots + slot * p.fn_slot_floats, y_off = x_off + p.fn_x_floats;
+  unsigned parity = 0;
+  for (int round = 0; round < rounds; ++round) {
+    const long long i = (long long)round * p.fn_slots + slot;
+    const bool active = slot < p.fn_slots && i < count;
+    const long long tile = blockIdx.x + i * gridDim.x;
+    const int n_valid = active ? (int)min(16LL, total - tile * 16) : 0;
+    for (int l = 0; l < Lfn; ++l) {
+      const TileLayer ly{__shfl_sync(0xffffffffu, mine.w, l), __shfl_sync(0xffffffffu, mine.b, l),
+                         __shfl_sync(0xffffffffu, mine.k, l), __shfl_sync(0xffffffffu, mine.m, l)};
+      // every warp is done with the staged layer and the slots' last reads; the
+      // generic proxy's accesses, then the copies' writes
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        const unsigned wb = (unsigned)(4 * (l == 0 ? (long long)ly.k * round_up(ly.m, 64) / 2
+                                                   : bf16_packed_floats(ly.k, ly.m)));
+        const unsigned bb = (unsigned)(4 * round_up(ly.m, 4));
+        expect_bytes(bar, wb + bb);
+        bulk_copy(sm_addr(smf(0)), a.packed + ly.w, wb, bar);
+        bulk_copy(sm_addr(smf(p.fn_off_b)), a.packed + ly.b, bb, bar);
+      }
+      if (l == 0) {
+        if (active) fn_rows(smf(x_off), a, tile, h_out, n_valid, 32 * part + lane);
+        __syncthreads();  // the slots' rows are in place
+      }
+      wait_barrier(bar, parity);
+      parity ^= 1u;
+      tile_stamp(clk, kPhaseTileFnWait);
+      const bool last = l + 1 == Lfn;
+      const float alpha = !last || act_last ? a.fn_alpha : 1.f;
+      if (active) {
+        if (l == 0)
+          fn_first(x_off, y_off, ly, last, alpha, a, p, tile, n_valid, part);
+        else
+          fn_mma(l & 1 ? y_off : x_off, l & 1 ? x_off : y_off, ly, last, alpha, a, p, tile,
+                 n_valid, part);
+      }
+      tile_stamp(clk, l == 0 ? kPhaseTileFnFirst : kPhaseTileFnMma);
     }
   }
 }
@@ -760,12 +1126,37 @@ __global__ void __launch_bounds__(tile_warps(kW) * 32, 1)
   }
 }
 
-// Checks the caller's plan (width class, resident, ti, jc, sspan_items, grid), lays
-// out the shared memory and launches the kernel of the plan's width class.
+// K4 in the bf16 mode: the first phase is K2's launch (every receiver's aggregate,
+// unrounded, into a.aggs), the second fn on them after a grid-wide barrier
+// (fn_phase). Grid, warps and shared memory as bf16_tiles_kernel's.
+template <int kW, bool kRes>
+__global__ void __launch_bounds__(tile_warps(kW) * 32, 1)
+    bf16_tiles_fn_kernel(const TileArgs a, const Chain fe, const Chain fn, const TilePlan p) {
+  const Drop drop{};
+  TileClock clk;
+  tile_clock_start(clk);
+  tile_setup(a.packed, fe, p, &fn);
+  tile_stamp(clk, kPhaseTileWait);
+  const TileLayer* tab = reinterpret_cast<const TileLayer*>(smf(p.off_tab));
+  const int L = fe.n, h_out = fe.dim[L], warp = threadIdx.x >> 5;
+  float* wr = smf(p.off_work) + warp * p.warp_floats;
+  const long long t_hi = range_start(blockIdx.x + 1, p.items, gridDim.x);
+  for (long long t = range_start(blockIdx.x, p.items, gridDim.x) + warp; t < t_hi; t += p.warps)
+    tile_item<kW, false, kRes, true>(a, drop, p, tab, L, h_out, t, -1, wr, clk);
+  tile_stamp(clk, kPhaseTileWait);
+  cooperative_groups::this_grid().sync();  // every receiver's aggregate is in a.aggs
+  tile_stamp(clk, kPhaseTileFnWait);
+  fn_phase(a, p, tab, L, fn.n, fn.act_last != 0, h_out, clk);
+}
+
+// Checks the caller's plan (width class, resident, ti, jc, sspan_items, K4's fn_slots,
+// grid), lays out the shared memory and launches the kernel of the plan's width class
+// (K4: with `fn`).
 template <bool kKnn>
-int launch_tiles(TileArgs a, const Chain& fe, TilePlan p, int grid, void* stream) {
+int launch_tiles(TileArgs a, const Chain& fe, TilePlan p, int grid, void* stream,
+                 const Chain* fn = nullptr) {
   const bool search = kKnn && a.xs != nullptr;
-  if (!tile_layout(p, fe, kKnn ? a.k : a.n, a.n, a.c, a.k, search))
+  if ((kKnn && fn != nullptr) || !tile_layout(p, fe, kKnn ? a.k : a.n, a.n, a.c, a.k, search, fn))
     return (int)cudaErrorInvalidValue;
   p.blocks = kKnn ? (a.n + p.ti - 1) / p.ti : 0;
   p.items = kKnn ? (long long)a.batch * p.blocks : ((long long)a.batch * a.n + p.ti - 1) / p.ti;
@@ -775,11 +1166,20 @@ int launch_tiles(TileArgs a, const Chain& fe, TilePlan p, int grid, void* stream
       : p.width == 64   ? reinterpret_cast<const void*>(bf16_tiles_kernel<64, kKnn, true>)
       : p.width == 128  ? reinterpret_cast<const void*>(bf16_tiles_kernel<128, kKnn, true>)
                         : reinterpret_cast<const void*>(bf16_tiles_kernel<256, kKnn, true>);
+  if constexpr (!kKnn) {
+    if (fn != nullptr)
+      kernel = !p.resident      ? reinterpret_cast<const void*>(bf16_tiles_fn_kernel<256, false>)
+               : p.width == 64  ? reinterpret_cast<const void*>(bf16_tiles_fn_kernel<64, true>)
+               : p.width == 128 ? reinterpret_cast<const void*>(bf16_tiles_fn_kernel<128, true>)
+                                : reinterpret_cast<const void*>(bf16_tiles_fn_kernel<256, true>);
+  }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)p.smem);
   if (err != cudaSuccess) return (int)err;
-  Chain fe_arg = fe;
-  void* args[] = {&a, &fe_arg, &p};
+  Chain fe_arg = fe, fn_arg = fn != nullptr ? *fn : Chain{};
+  void* args_fn[] = {&a, &fe_arg, &fn_arg, &p};
+  void* args_fe[] = {&a, &fe_arg, &p};
+  void** args = fn != nullptr ? args_fn : args_fe;
   // cooperative: the CTAs meet at a grid-wide barrier after packing the weights
   err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(p.warps * 32), args, p.smem,
                                     static_cast<cudaStream_t>(stream));

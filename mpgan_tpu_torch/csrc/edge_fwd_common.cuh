@@ -28,18 +28,9 @@
 
 #include <cooperative_groups.h>
 
-#include <type_traits>
-
 #include "edge_products.cuh"
 
 namespace {
-
-// The bf16 stage (edge_products_bf16.cuh, included by the bf16 kernels only).
-template <typename T>
-__device__ void product_fwd_mixed(bool f32, int A, int K, const float* W, int M,
-                                  const PassShape& p, const Epilogue& e, int slab,
-                                  SlabChain& chain, const float* next, int K_next, int M_next,
-                                  bool next_f32);
 
 constexpr int kFwdJobs = 2 * kMaxLayers;  // fe layers, then fn's (K4)
 
@@ -71,12 +62,6 @@ struct FwdPlan : PassShape {
   size_t smem;
   long long pk_off[kFwdJobs + 1];  // packed weights: fe layers, then fn's (floats)
 };
-
-// The bf16 stage's setup (edge_fwd_bf16.cuh, included by the bf16 kernels only).
-template <typename T>
-__device__ const LayerTab* fwd_setup_bf16(float* __restrict__ packed, const FwdPlan& p,
-                                          const Chain& fe, const Chain& fn, int jobs,
-                                          int f32_layer);
 
 // The widest of a_0 .. a_{L-1}: the pass buffer's width.
 int pass_width(const Chain& fe) {
@@ -275,16 +260,14 @@ __device__ __noinline__ void build_a0_fwd(int dst_off, const PassShape& p, const
 // the barrier after the row arrays' stores. It ends with its tail reading the
 // partials and the aggregate: the caller's next stores into the row arrays may
 // follow without a barrier, a store into the pass buffer or the aggregate not.
-// T: the element type of u1, u2 (knn: u2m), w_d and out_blk; bf16 (the bf16
-// mode) runs the products on the bf16 stage, but K4's fn first layer (table
-// entry L, float32 operands) on the FP32 one.
+// T: the element type of u1, u2 (knn: u2m), w_d and out_blk (float: the bf16 modes
+// run the pass of edge_fwd_bf16_tiles.cuh).
 template <bool kFuseFn, typename T = float>
 __device__ __forceinline__ void fwd_pass(const FwdPlan& p, const LayerTab* tab, int L, int h1,
                                          int h_out, const RowArrays& row, const PassInputs& in,
                                          Epilogue& e, SlabChain& chain, int ti_eff, int jc_eff,
                                          int blk, bool first, bool last, int nxt, float denom,
                                          T* __restrict__ out_blk, PhaseClock& clock) {
-  constexpr bool kBf16 = !std::is_same<T, float>::value;
   __syncthreads();  // the row arrays are visible; the last pass is done with the buffer
   if (in.w_d != nullptr)
     build_a0_fwd<true, T>(p.off_act, p, row, in, h1);
@@ -313,22 +296,14 @@ __device__ __forceinline__ void fwd_pass(const FwdPlan& p, const LayerTab* tab, 
     const LayerTab a = tab[l], b = tab[l + 1];
     e.bias = a.b;
     e.salt = (unsigned)(l + 1);
-    if constexpr (kBf16)
-      product_fwd_mixed<T>(false, p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k,
-                           b.m, false);
-    else
-      product_fwd(p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k, b.m);
+    product_fwd(p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k, b.m);
   }
   MPGAN_PHASE(clock, kPhaseFwd);
   const LayerTab a = tab[L - 1], b = nxt < 0 ? LayerTab{} : tab[nxt];
   e.kind = kEpiAgg;
   e.bias = a.b;
   e.salt = (unsigned)L;
-  if constexpr (kBf16)
-    product_fwd_mixed<T>(false, p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k,
-                         b.m, kFuseFn && nxt == L);
-  else
-    product_fwd(p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k, b.m);
+  product_fwd(p.off_act, a.k, a.w, a.m, p, e, p.off_slab, chain, b.w, b.k, b.m);
   __syncthreads();  // the partials are complete
   MPGAN_PHASE(clock, kPhaseLast);
   // receiver ii's rows [ii * rs, ii * rs + jc_eff) lie in the 8-row groups g0 ..

@@ -73,6 +73,9 @@ enum Phase {
   kPhaseTileLast,      // the last layer's epilogue: mask, the 8-row group sums
   kPhaseTileAgg,       // the receivers' ordered adds and the stores
   kPhaseTileSearch,    // K5: the neighbour search
+  kPhaseTileFnWait,    // K4: the grid-wide barrier after the aggregates, fn's weight copies
+  kPhaseTileFnFirst,   // K4: fn's first layer (its rows, the FP32 FMA chains, the epilogue)
+  kPhaseTileFnMma,     // K4: fn's later layers (mma.sync and their epilogues)
   kPhaseCount
 };
 

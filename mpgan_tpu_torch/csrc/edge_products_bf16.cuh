@@ -1,15 +1,15 @@
-// The bf16 mode's product stage for the edge kernels' FP32 passes, for Hopper
-// (sm_90a): the hidden products of K4 (edge_aggregate_bf16.cu) and K3's and K6's
-// recompute (edge_aggregate_bwd_bf16.cu, knn_edge_bwd_bf16.cu) on tensor cores. K2,
-// K5 and K8 run the bf16 forward pass of edge_fwd_bf16_tiles.cuh on the same mma
-// and fragment order (bf16_elem, pack_bf16x2, mma_bf16).
+// The bf16 mode's product stage for the backward kernels' FP32 passes, for Hopper
+// (sm_90a): K3's and K6's recompute (edge_aggregate_bwd_bf16.cu, knn_edge_bwd_bf16.cu)
+// on tensor cores. K2, K4, K5 and K8 run the bf16 forward pass of
+// edge_fwd_bf16_tiles.cuh on the same mma and fragment order (bf16_elem, pack_bf16x2,
+// mma_bf16).
 //
-// Replaces, in mpgan_tpu/ops/mp_pallas.py, the products of _split_mlp_chain and
-// _fn_tail when the kernels are called with bf16 refs (StepConfig.bf16): each
-// hidden layer's input is rounded to bf16 and multiplied by the bf16 weights with
-// float32 accumulation. Everything around a product stays float32, as in the
-// Pallas kernel: the stored activations (K3's weight gradients read them
-// unrounded), the bias, LeakyReLU, K1's multiplier, the masked aggregate.
+// Replaces, in mpgan_tpu/ops/mp_pallas.py, the products of _split_mlp_chain when the
+// backward kernel is called with bf16 refs (StepConfig.bf16): each hidden layer's
+// input is rounded to bf16 and multiplied by the bf16 weights with float32
+// accumulation. Everything around a product stays float32, as in the Pallas kernel:
+// the stored activations (K3's weight gradients read them unrounded), the bias,
+// LeakyReLU, K1's multiplier.
 //
 // The stage: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32. A pass of
 // `rows` pair rows is cut into rows / 16 row tiles; the 16 warps form a (rows /
@@ -22,18 +22,16 @@
 // kernel feeds its product. B fragments come from a bf16 copy of W packed in
 // fragment order (bf16_elem below: per k step of 16 and n tile of 8, each lane's
 // four values together, one 64-bit load), staged in k slabs through the same two
-// shared-memory buffers and cp.async chain as the FP32 stage (edge_products.cuh).
+// shared-memory buffers by cp.async as the FP32 stage's (edge_products.cuh).
 // K and M are padded with zeros to multiples of 16 and 8 in the packed copy; A
 // reads beyond K are zero, so no padding reaches an accumulator.
 //
 // The epilogue works at the fragment's (row, column): lane (g, t) of row tile
 // rt holds rows rt * 16 + g and + 8, columns 8j + 2t and + 1. Hidden layers
 // store dropout(leaky(acc + b)) (a dropped element as -0.0f, as the FP32 stage
-// stores it: K3's backward reads the slope off it); the forward's last layer
-// multiplies by the row's mask and sums each 8-row group's head and tail
-// receiver over the group's 8 lanes (shuffles, a fixed order) into the FP32
-// stage's partials; K3's last layer forms dz_L = g * mask / denom * f'(a_L) and
-// each row's sum_h g * a_L over the row's 4 lanes, then per warp column group.
+// stores it: K3's backward reads the slope off it); K3's last layer forms
+// dz_L = g * mask / denom * f'(a_L) and each row's sum_h g * a_L over the row's 4
+// lanes, then per warp column group.
 //
 // What bounds it on this card: the flagship's hidden products are 2 x 30 x 30 x
 // (96 x 160 + 160 x 192) = 85 MFLOP a jet, which the dense bf16 tensor cores
@@ -56,12 +54,6 @@ __host__ __device__ __forceinline__ long long bf16_packed_floats(int K, int M) {
   return (long long)((K + 15) / 16) * bf16_step_floats(M);
 }
 
-// Floats of a bf16 product's first slab (cf. first_slab_floats).
-__host__ __device__ __forceinline__ int bf16_first_slab_floats(int K, int M, int slab_floats) {
-  const int step = bf16_step_floats(M), steps = (K + 15) / 16, ks = slab_floats / step;
-  return (steps < ks ? steps : ks) * step;
-}
-
 // Element t (in bf16 units) of the packed bf16 copy of a [K x M] matrix: row k
 // and column n of W, or padding (k >= K or n >= M, stored as zero). Per k step
 // s and n tile j, lane (g, t) = (lane / 4, lane % 4) holds W[16s + 2t + {0, 1},
@@ -81,19 +73,6 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// A bias of the epilogue. The forward's (kFwd: K4's bf16 products) lies in the copy
-// that the launch's own CTAs packed before their grid-wide barrier, so it is read
-// with a plain load, which that barrier orders after the packing, not through the
-// read-only cache, whose loads must not meet data the kernel writes; the backward's
-// recompute reads a copy packed by an earlier launch.
-template <bool kFwd>
-__device__ __forceinline__ float bias_at(const float* p) {
-  if constexpr (kFwd)
-    return *p;
-  else
-    return __ldg(p);
-}
-
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], uint2 b) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
@@ -105,14 +84,13 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
 __host__ __device__ __forceinline__ int bf16_col_groups(int rows) { return kWarps / (rows / 16); }
 
 // One bf16 product over the pass: acc = bf16(A) [rows x K] @ W [K x M], then the
-// epilogue (kEpiHidden, and kEpiAgg with kFwd or kEpiLast without). W is the
-// packed bf16 copy (in floats). Follows `chain` as product_tn does (kFwd) and
-// returns the buffer of the slab after its last. Starts with a barrier and ends
-// without one; waits for every warp's k loop before its epilogue, so C may be A.
-template <int NQ, bool kDrop, bool kFwd>
+// epilogue (kEpiHidden or kEpiLast). W is the packed bf16 copy (in floats), staged
+// slab by slab from the first buffer. Returns the buffer of the slab after its last.
+// Starts with a barrier and ends without one; waits for every warp's k loop before
+// its epilogue, so C may be A.
+template <int NQ, bool kDrop>
 __device__ __noinline__ int product_bf16(int a_off, int K, const float* __restrict__ W, int M,
-                                         int slab_off, const PassShape& p, const Epilogue& e_in,
-                                         SlabChain chain) {
+                                         int slab_off, const PassShape& p, const Epilogue& e_in) {
   const Epilogue e = e_in;  // a copy: see product_tn
   const float* A = smf(a_off);
   float* slab = smf(slab_off);
@@ -132,21 +110,18 @@ __device__ __noinline__ int product_bf16(int a_off, int K, const float* __restri
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[q][i] = 0.f;
 
-  const int b0 = kFwd ? chain.buf : 0;
   MPGAN_SUBPHASE_START();
   __syncthreads();
-  if (!(kFwd && chain.staged)) stage_slab(slab + b0 * p.slab_floats, W, ks * step);
+  stage_slab(slab, W, ks * step);
   for (int s = 0; s < n_slab; ++s) {
     const int s0 = s * ks, ks_eff = min(ks, steps - s0);
     __pipeline_wait_prior(0);
     __syncthreads();
-    float* other = slab + ((b0 + s + 1) & 1) * p.slab_floats;
+    float* other = slab + ((s + 1) & 1) * p.slab_floats;
     if (s + 1 < n_slab)
       stage_slab(other, W + (size_t)(s0 + ks) * step, min(ks, steps - s0 - ks) * step);
-    else if (kFwd && chain.next != nullptr)
-      stage_slab(other, chain.next, chain.next_floats);
     MPGAN_SUBPHASE(kPhaseProdWait);
-    const float* wst = slab + ((b0 + s) & 1) * p.slab_floats + lane * 2;
+    const float* wst = slab + (s & 1) * p.slab_floats + lane * 2;
     for (int kk = 0; kk < ks_eff; ++kk, wst += step) {
       const int kb = (s0 + kk) * 16 + 2 * t;
       float v[8];  // (k, k + 1) at rows lo, hi, then (k + 8, k + 9)
@@ -181,7 +156,7 @@ __device__ __noinline__ int product_bf16(int a_off, int K, const float* __restri
     }
     MPGAN_SUBPHASE(kPhaseProdLoop);
   }
-  const int after = (b0 + n_slab) & 1;
+  const int after = n_slab & 1;
   __syncthreads();  // every warp is done with A
 
   unsigned id_lo = 0, id_hi = 0;
@@ -193,7 +168,7 @@ __device__ __noinline__ int product_bf16(int a_off, int K, const float* __restri
       for (int d = 0; d < 2; ++d) {
         const int c = 8 * (cg + cgs * q) + 2 * t + d;
         if (c >= M) continue;
-        const float bc = bias_at<kFwd>(e.bias + c);
+        const float bc = __ldg(e.bias + c);
         float lo = leaky(acc[q][d] + bc, e.alpha), hi = leaky(acc[q][2 + d] + bc, e.alpha);
         if (kDrop) {
           lo = drop_store(lo, e.drop, id_lo, (unsigned)c, e.salt);
@@ -202,57 +177,6 @@ __device__ __noinline__ int product_bf16(int a_off, int K, const float* __restri
         C[(size_t)c * ldr + r_lo] = lo;
         C[(size_t)c * ldr + r_hi] = hi;
       }
-    MPGAN_SUBPHASE(kPhaseProdEpi);
-    return after;
-  }
-
-  if (kFwd) {
-    // kEpiAgg: rows lo and hi are row g of the 8-row groups G = 2 rt and 2 rt + 1;
-    // row g is the head receiver's when g < head (see product_tn). Each lane's
-    // masked activation goes to its group's head or tail sum, summed over the
-    // group's 8 lanes (xor 4, 8, 16: the same order on every run).
-    const int groups = p.rows / 8, G = 2 * rt;
-    const int head_lo = ((8 * G) / e.rs + 1) * e.rs - 8 * G;
-    const int head_hi = ((8 * G + 8) / e.rs + 1) * e.rs - 8 * G - 8;
-    const float m_lo = smf(e.row.m)[r_lo], m_hi = smf(e.row.m)[r_hi];
-    float* part = smf(e.part);
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int j = cg + cgs * q;
-      if (j >= ntiles) continue;  // the same for the whole warp, which then shuffles
-      const int c0 = 8 * j + 2 * t;
-      float s[8];  // per column d: head lo, tail lo, head hi, tail hi
-#pragma unroll
-      for (int d = 0; d < 2; ++d) {
-        const int c = min(c0 + d, M - 1);
-        const float bc = bias_at<kFwd>(e.bias + c);
-        float lo = leaky(acc[q][d] + bc, e.alpha), hi = leaky(acc[q][2 + d] + bc, e.alpha);
-        if (kDrop) {
-          lo = drop_store(lo, e.drop, id_lo, (unsigned)c, e.salt);
-          hi = drop_store(hi, e.drop, id_hi, (unsigned)c, e.salt);
-        }
-        lo *= m_lo, hi *= m_hi;
-        s[4 * d] = g < head_lo ? lo : 0.f;
-        s[4 * d + 1] = g < head_lo ? 0.f : lo;
-        s[4 * d + 2] = g < head_hi ? hi : 0.f;
-        s[4 * d + 3] = g < head_hi ? 0.f : hi;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
-      if (g == 0) {
-#pragma unroll
-        for (int d = 0; d < 2; ++d) {
-          const int c = c0 + d;
-          if (c >= M) continue;
-          part[G * M + c] = s[4 * d];
-          part[(groups + G) * M + c] = s[4 * d + 1];
-          part[(G + 1) * M + c] = s[4 * d + 2];
-          part[(groups + G + 1) * M + c] = s[4 * d + 3];
-        }
-      }
-    }
     MPGAN_SUBPHASE(kPhaseProdEpi);
     return after;
   }
@@ -295,15 +219,14 @@ __device__ __noinline__ int product_bf16(int a_off, int K, const float* __restri
 
 // The bf16 product at the n tiles a warp needs, NQ = ceil(ceil(M / 8) /
 // col_groups) rounded up to one of the instantiated counts.
-template <bool kFwd>
 __device__ int product_bf16_at(int A, int K, const float* W, int M, int slab, const PassShape& p,
-                               const Epilogue& e, SlabChain chain) {
+                               const Epilogue& e) {
   const int cgs = bf16_col_groups(p.rows);
   const int nq = ((M + 7) / 8 + cgs - 1) / cgs;
 #define MPGAN_BF16_CASE(NQ)                                                            \
   if (nq <= NQ)                                                                        \
-    return e.drop_on ? product_bf16<NQ, true, kFwd>(A, K, W, M, slab, p, e, chain)     \
-                     : product_bf16<NQ, false, kFwd>(A, K, W, M, slab, p, e, chain);
+    return e.drop_on ? product_bf16<NQ, true>(A, K, W, M, slab, p, e)                  \
+                     : product_bf16<NQ, false>(A, K, W, M, slab, p, e);
   MPGAN_BF16_CASE(1)
   MPGAN_BF16_CASE(2)
   MPGAN_BF16_CASE(3)
@@ -317,25 +240,6 @@ __device__ int product_bf16_at(int A, int K, const float* W, int M, int slab, co
   return 0;
 }
 
-// The forward's products in either stage along the chain of weight slabs (cf.
-// product_fwd): `f32` runs the FP32 stage (K4's fn first layer, float32
-// operands), else the bf16 stage; `next_f32` says which layout the next
-// product's first slab has.
-template <typename T>
-__device__ void product_fwd_mixed(bool f32, int A, int K, const float* W, int M,
-                                  const PassShape& p, const Epilogue& e, int slab,
-                                  SlabChain& chain, const float* next, int K_next, int M_next,
-                                  bool next_f32) {
-  chain.next = next;
-  chain.next_floats =
-      next == nullptr ? 0
-      : next_f32      ? first_slab_floats(K_next, M_next, p.col_threads, p.slab_floats)
-                      : bf16_first_slab_floats(K_next, M_next, p.slab_floats);
-  chain.buf = f32 ? product_at<true>(A, K, W, M, slab, p, e, chain)
-                  : product_bf16_at<true>(A, K, W, M, slab, p, e, chain);
-  chain.staged = next != nullptr;
-}
-
 // The bf16 weight source of a chain layer's row k (fn's first layer: rows k >=
 // k0_split from w0_lo).
 template <typename T>
@@ -345,29 +249,18 @@ __device__ __forceinline__ const T* bf16_row(const Chain& c, int li, int k, int 
                    : rows_as<T>(c.w0_lo) + (size_t)(k - split) * M;
 }
 
-// One layer's share of a packed copy made from bf16 weights: the bf16 fragment
-// order (bf16_elem), or with `f32` the FP32 stage's order (packed_elem: K4's fn
-// first layer) holding the float32 values of the bf16 weights; its bias
-// converted to float32 at `bias_out`. Element t of every job is written by the
-// thread with t = start (mod stride).
+// One layer's share of a packed copy made from bf16 weights, in the bf16 fragment
+// order (bf16_elem); its bias converted to float32 at `bias_out`. Element t of every
+// job is written by the thread with t = start (mod stride).
 template <typename T>
 __device__ void pack_layer_bf16(float* __restrict__ out, float* __restrict__ bias_out,
-                                const Chain& c, int li, bool f32, int CT, long long start,
-                                long long stride) {
+                                const Chain& c, int li, long long start, long long stride) {
   const int K = c.dim[li], M = c.dim[li + 1];
-  if (f32) {
-    const long long total = (long long)K * round_up(M, CT);
-    for (long long t = start; t < total; t += stride) {
-      const PackedElem pe = packed_elem(t, M, CT);
-      out[pe.at] = pe.col < M ? __bfloat162float(bf16_row<T>(c, li, pe.row, M)[pe.col]) : 0.f;
-    }
-  } else {
-    T* dst = reinterpret_cast<T*>(out);
-    const long long total = 2 * bf16_packed_floats(K, M);
-    for (long long t = start; t < total; t += stride) {
-      const Bf16Elem be = bf16_elem(t, M);
-      dst[t] = be.k < K && be.n < M ? bf16_row<T>(c, li, be.k, M)[be.n] : __float2bfloat16_rn(0.f);
-    }
+  T* dst = reinterpret_cast<T*>(out);
+  const long long total = 2 * bf16_packed_floats(K, M);
+  for (long long t = start; t < total; t += stride) {
+    const Bf16Elem be = bf16_elem(t, M);
+    dst[t] = be.k < K && be.n < M ? bf16_row<T>(c, li, be.k, M)[be.n] : __float2bfloat16_rn(0.f);
   }
   if (bias_out != nullptr)
     for (long long t = start; t < M; t += stride)

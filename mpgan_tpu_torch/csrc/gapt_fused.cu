@@ -55,8 +55,17 @@
 // weights through L1/L2, and a warp takes a (row, head) pair of the attention;
 // where a jet does not fit in shared memory, qkv and then x live in a per-CTA
 // device scratch.
+// The bf16 mode (mpgan_gapt_fused_bf16, the bf16 GAPT step's D-step generator) runs
+// the same body on bf16 tensors in kernels of its own (gapt_item_kernel_bf16,
+// gapt_jet_kernel_bf16): each element widened to float32 where it is read (the
+// item path's weight slabs land as bf16 in a slab's last third, 8 bytes a cp.async,
+// and are widened into its first two thirds once they have landed; the per-jet
+// path reads 4 weights as one 8-byte load), the output rounded to bf16 at its store.
+// No cast runs around the launch, and the output equals the FP32 launch's on the
+// widened inputs, rounded.
 
 #include <cfloat>
+#include <type_traits>
 
 #include "edge_products.cuh"
 
@@ -120,23 +129,56 @@ struct Weights {
   const float* fc_b;    // [F]
 };
 
+// The bf16 mode's (mpgan_gapt_fused_bf16): the same tensors in bf16. Its kernels run
+// the float32 body on their float32 values, widened where they are read: x and the
+// mask as they are staged into shared memory, the projections' weights in each slab
+// after its copy lands (item path) or at each 8-byte load of 4 (per-jet path), the
+// biases and the FC's weights at each load; the output rounded to bf16 once, at its
+// store. So its output is the FP32 kernel's on the widened inputs, rounded.
+struct WeightsBf16 {
+  const bf16* in_wt;
+  const bf16* in_b;
+  const bf16* out_wt;
+  const bf16* out_b;
+  const bf16* ff_wt;
+  const bf16* ff_b;
+  const bf16* fc_wt;
+  const bf16* fc_b;
+};
+
+// Four bf16 values (8 bytes) as float32.
+__device__ __forceinline__ float4 widen4(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+
+// Four neighbouring weights as float32 (16-byte aligned float, 8-byte aligned bf16).
+__device__ __forceinline__ float4 ld_w4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld_w4(const bf16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
+}
+
 enum Mode { kStore, kAccumulate, kLeaky, kTanh };
 
-template <int kMode>
-__device__ __forceinline__ void emit(float* c, float v, float alpha) {
-  if (kMode == kStore) *c = v;
-  if (kMode == kAccumulate) *c += v;
-  if (kMode == kLeaky) *c = v >= 0.f ? v : alpha * v;
-  if (kMode == kTanh) *c = tanhf(v);
+// C: shared memory or the device scratch (float), or the output (kTanh: float or bf16).
+template <int kMode, typename TC>
+__device__ __forceinline__ void emit(TC* c, float v, float alpha) {
+  if constexpr (kMode == kStore) st_elem(c, v);
+  if constexpr (kMode == kAccumulate) *c += v;
+  if constexpr (kMode == kLeaky) st_elem(c, v >= 0.f ? v : alpha * v);
+  if constexpr (kMode == kTanh) st_elem(c, tanhf(v));
 }
 
 // C[i, o] (mode) A[i, :] . Wt[:, o] + bias[o] for i < n, o < m; A [n, lda], Wt [k, m]
 // row-major, C [n, ldc]. A and C must not overlap. With kVec, k and m are multiples
-// of 4 and lda, the pointers of A and Wt are 16-byte aligned.
-template <int kMode, bool kVec, int kRT, int kThreads>
+// of 4 and lda, the pointers of A and Wt are 16-byte aligned (bf16 Wt: 8-byte).
+// TW: the weights' and biases' element type.
+template <int kMode, bool kVec, int kRT, int kThreads, typename TW, typename TC>
 __device__ void dense(const float* __restrict__ A, int lda, int n, int k,
-                      const float* __restrict__ Wt, int m, const float* __restrict__ bias,
-                      float* __restrict__ C, int ldc, float alpha) {
+                      const TW* __restrict__ Wt, int m, const TW* __restrict__ bias,
+                      TC* __restrict__ C, int ldc, float alpha) {
   if (kVec) {
     const int ncg = m >> 2, nrg = (n + kRT - 1) / kRT;
     for (int t = threadIdx.x; t < nrg * ncg; t += kThreads) {
@@ -149,7 +191,7 @@ __device__ void dense(const float* __restrict__ A, int lda, int n, int k,
       for (int r = 0; r < kRT; ++r)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-      const float* w_ptr = Wt + o;
+      const TW* w_ptr = Wt + o;
       for (int kk = 0; kk < k; kk += 4, w_ptr += 4 * (size_t)m) {
         float a[kRT][4];
 #pragma unroll
@@ -159,7 +201,7 @@ __device__ void dense(const float* __restrict__ A, int lda, int n, int k,
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const float4 w = __ldg(reinterpret_cast<const float4*>(w_ptr + (size_t)q * m));
+          const float4 w = ld_w4(w_ptr + (size_t)q * m);
 #pragma unroll
           for (int r = 0; r < kRT; ++r) {
             acc[r][0] = fmaf(a[r][q], w.x, acc[r][0]);
@@ -174,7 +216,7 @@ __device__ void dense(const float* __restrict__ A, int lda, int n, int k,
         if (i0 + r >= n) break;
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          emit<kMode>(C + (size_t)(i0 + r) * ldc + o + c, acc[r][c] + __ldg(bias + o + c), alpha);
+          emit<kMode>(C + (size_t)(i0 + r) * ldc + o + c, acc[r][c] + ld_elem(bias + o + c), alpha);
       }
     }
   } else {
@@ -182,8 +224,8 @@ __device__ void dense(const float* __restrict__ A, int lda, int n, int k,
       const int i = t / m, o = t - (t / m) * m;
       const float* a = A + (size_t)i * lda;
       float acc = 0.f;
-      for (int kk = 0; kk < k; ++kk) acc = fmaf(a[kk], __ldg(Wt + (size_t)kk * m + o), acc);
-      emit<kMode>(C + (size_t)i * ldc + o, acc + __ldg(bias + o), alpha);
+      for (int kk = 0; kk < k; ++kk) acc = fmaf(a[kk], ld_elem(Wt + (size_t)kk * m + o), acc);
+      emit<kMode>(C + (size_t)i * ldc + o, acc + ld_elem(bias + o), alpha);
     }
   }
 }
@@ -191,9 +233,9 @@ __device__ void dense(const float* __restrict__ A, int lda, int n, int k,
 // One head's attention for every query row: a warp per (row, head). Reads the q, k
 // and v columns of qkv [n, ldq] and writes the output over the row's own q columns.
 // kMaxJ * 32 >= n.
-template <int kMaxJ, int kThreads>
+template <int kMaxJ, int kThreads, typename T>
 __device__ void attention(float* qkv, int ldq, int n, int e, int heads,
-                          const float* __restrict__ mask, float* pbuf, int ldp) {
+                          const T* __restrict__ mask, float* pbuf, int ldp) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int hd = e / heads;
   const float inv_sqrt_hd = 1.f / sqrtf((float)hd);
@@ -231,7 +273,7 @@ __device__ void attention(float* qkv, int ldq, int n, int e, int heads,
           for (int d = 0; d < hd; ++d) acc = fmaf(q[d], kr[d], acc);
         }
         acc *= inv_sqrt_hd;
-        if (mask != nullptr) acc += (__ldg(mask + j) - 1.f) * kNeg;
+        if (mask != nullptr) acc += (ld_elem(mask + j) - 1.f) * kNeg;
         s[jj] = acc;
         mx = fmaxf(mx, acc);
       }
@@ -270,13 +312,14 @@ __device__ void attention(float* qkv, int ldq, int n, int e, int heads,
 
 // The per-jet path. grid.x CTAs stride over the jets. Dynamic shared memory: x [n, ldx] and qkv
 // [n, ldq] unless they live in `scratch` (x_global / qkv_global), then the warps'
-// softmax rows [kThreads / 32, ldp].
-template <int kMaxJ, int kThreads, int kRT>
-__global__ void __launch_bounds__(kThreads)
-    gapt_jet_kernel(const float* __restrict__ x_in, const float* __restrict__ mask,
-                      float* __restrict__ out, Weights w, float* __restrict__ scratch, int batch,
-                      int n, int e, int heads, int layers, int feat, float alpha, int x_global,
-                      int qkv_global) {
+// softmax rows [kThreads / 32, ldp]. T, W: float and Weights, or the bf16 mode's bf16
+// and WeightsBf16.
+template <int kMaxJ, int kThreads, int kRT, typename T, typename W>
+__device__ __forceinline__ void gapt_jet_body(const T* __restrict__ x_in,
+                                              const T* __restrict__ mask, T* __restrict__ out,
+                                              W w, float* __restrict__ scratch, int batch,
+                                              int n, int e, int heads, int layers, int feat,
+                                              float alpha, int x_global, int qkv_global) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ldx = e + 4, ldq = 3 * e + 4, ldp = (n + 31) / 32 * 32;
@@ -291,21 +334,21 @@ __global__ void __launch_bounds__(kThreads)
   GAPT_CLOCK_START();
 
   for (int b = blockIdx.x; b < batch; b += gridDim.x) {
-    const float* xb = x_in + (size_t)b * n * e;
-    const float* mb = mask != nullptr ? mask + (size_t)b * n : nullptr;
+    const T* xb = x_in + (size_t)b * n * e;
+    const T* mb = mask != nullptr ? mask + (size_t)b * n : nullptr;
     for (int t = threadIdx.x; t < n * e; t += kThreads) {
       const int i = t / e;
-      x[(size_t)i * ldx + (t - i * e)] = xb[t];
+      x[(size_t)i * ldx + (t - i * e)] = to_float(xb[t]);
     }
     __syncthreads();
     GAPT_STAMP(kGaptTail);
     for (int l = 0; l < layers; ++l) {
-      const float* in_wt = w.in_wt + (size_t)l * e * 3 * e;
-      const float* out_wt = w.out_wt + (size_t)l * e * e;
-      const float* ff_wt = w.ff_wt + (size_t)l * e * e;
-      const float* in_b = w.in_b + (size_t)l * 3 * e;
-      const float* out_b = w.out_b + (size_t)l * e;
-      const float* ff_b = w.ff_b + (size_t)l * e;
+      const T* in_wt = w.in_wt + (size_t)l * e * 3 * e;
+      const T* out_wt = w.out_wt + (size_t)l * e * e;
+      const T* ff_wt = w.ff_wt + (size_t)l * e * e;
+      const T* in_b = w.in_b + (size_t)l * 3 * e;
+      const T* out_b = w.out_b + (size_t)l * e;
+      const T* ff_b = w.ff_b + (size_t)l * e;
       if (vec)
         dense<kStore, true, kRT, kThreads>(x, ldx, n, e, in_wt, 3 * e, in_b, qkv, ldq, 0.f);
       else
@@ -335,13 +378,34 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
       GAPT_STAMP(kGaptFf);
     }
-    float* ob = out + (size_t)b * n * fdim;
+    T* ob = out + (size_t)b * n * fdim;
     dense<kTanh, false, kRT, kThreads>(x, ldx, n, e, w.fc_wt, feat, w.fc_b, ob, fdim, 0.f);
     if (mb != nullptr)
-      for (int i = threadIdx.x; i < n; i += kThreads) ob[(size_t)i * fdim + feat] = mb[i] - 0.5f;
+      for (int i = threadIdx.x; i < n; i += kThreads)
+        st_elem(ob + (size_t)i * fdim + feat, to_float(mb[i]) - 0.5f);
     __syncthreads();  // the next jet overwrites x
     GAPT_STAMP(kGaptFc);
   }
+}
+
+template <int kMaxJ, int kThreads, int kRT>
+__global__ void __launch_bounds__(kThreads)
+    gapt_jet_kernel(const float* __restrict__ x_in, const float* __restrict__ mask,
+                      float* __restrict__ out, Weights w, float* __restrict__ scratch, int batch,
+                      int n, int e, int heads, int layers, int feat, float alpha, int x_global,
+                      int qkv_global) {
+  gapt_jet_body<kMaxJ, kThreads, kRT>(x_in, mask, out, w, scratch, batch, n, e, heads, layers,
+                                      feat, alpha, x_global, qkv_global);
+}
+
+template <int kMaxJ, int kThreads, int kRT>
+__global__ void __launch_bounds__(kThreads)
+    gapt_jet_kernel_bf16(const bf16* __restrict__ x_in, const bf16* __restrict__ mask,
+                         bf16* __restrict__ out, WeightsBf16 w, float* __restrict__ scratch,
+                         int batch, int n, int e, int heads, int layers, int feat, float alpha,
+                         int x_global, int qkv_global) {
+  gapt_jet_body<kMaxJ, kThreads, kRT>(x_in, mask, out, w, scratch, batch, n, e, heads, layers,
+                                      feat, alpha, x_global, qkv_global);
 }
 
 struct Placement {
@@ -366,19 +430,22 @@ Placement place(int n, int e) {
   return {pbuf, 1, 1};
 }
 
-template <int kMaxJ, int kThreads, int kRT>
-int launch_jet(const float* x, const float* mask, float* out, const Weights& w, float* scratch,
-           int batch, int n, int e, int heads, int layers, int feat, float alpha,
-           const Placement& pl, int grid, void* stream) {
+template <int kMaxJ, int kThreads, int kRT, typename T, typename W>
+int launch_jet(const T* x, const T* mask, T* out, const W& w, float* scratch, int batch, int n,
+               int e, int heads, int layers, int feat, float alpha, const Placement& pl,
+               int grid, void* stream) {
+  auto* kernel = std::is_same<T, float>::value
+                     ? reinterpret_cast<const void*>(gapt_jet_kernel<kMaxJ, kThreads, kRT>)
+                     : reinterpret_cast<const void*>(gapt_jet_kernel_bf16<kMaxJ, kThreads, kRT>);
   cudaError_t err =
-      cudaFuncSetAttribute(gapt_jet_kernel<kMaxJ, kThreads, kRT>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (err != cudaSuccess) return (int)err;
-  gapt_jet_kernel<kMaxJ, kThreads, kRT>
-      <<<grid, kThreads, pl.smem, static_cast<cudaStream_t>(stream)>>>(
-          x, mask, out, w, scratch, batch, n, e, heads, layers, feat, alpha, pl.x_global,
-          pl.qkv_global);
-  return (int)cudaGetLastError();
+  void* args[] = {&x, &mask, &out, const_cast<W*>(&w), &scratch, &batch, &n, &e, &heads, &layers,
+                  &feat, &alpha, const_cast<int*>(&pl.x_global),
+                  const_cast<int*>(&pl.qkv_global)};
+  err = cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads), args, pl.smem,
+                         static_cast<cudaStream_t>(stream));
+  return (int)err;
 }
 
 
@@ -439,14 +506,50 @@ enum ProductEpilogue {
   kEpiLeakyAddT    // C[c][r] += leaky(acc + bias[c])
 };
 
-// The next product's first slab, to start during this product's last one.
+// The next product's first slab, to start during this product's last one: its weights
+// (float or bf16) and their count.
 struct NextSlab {
-  const float* w;
+  const void* w;
   int floats;
 };
 
-__device__ __forceinline__ NextSlab first_slab(const float* w, int K, int M, int slab) {
-  return NextSlab{w, slab_rows(K, M, slab) * M};
+// Floats of a slab buffer that hold widened weights: all of it (float weights), or
+// two thirds for bf16 weights, whose copy lands in the last third (half as many bytes)
+// and is widened into the first two after it lands.
+template <typename TW>
+__host__ __device__ __forceinline__ int slab_room(int slab) {
+  return std::is_same<TW, float>::value ? slab : 2 * slab / 3 / 8 * 8;
+}
+
+template <typename TW>
+__device__ __forceinline__ NextSlab first_slab(const TW* w, int K, int M, int slab) {
+  return NextSlab{w, slab_rows(K, M, slab_room<TW>(slab)) * M};
+}
+
+// Starts the copy of `n` weights (whole rows, a multiple of 4) into a slab buffer: float
+// weights as they are, bf16 ones (8 bytes a thread at a time) into the buffer's last
+// third, each thread's 4 values at t = 4 threadIdx.x (mod 4 kThreads).
+__device__ __forceinline__ void stage_weights(float* buf, int slab, const float* src, int n) {
+  stage_slab(buf, src, n);
+}
+__device__ __forceinline__ void stage_weights(float* buf, int slab, const bf16* src, int n) {
+  bf16* dst = reinterpret_cast<bf16*>(buf + slab_room<bf16>(slab));
+  for (int t = threadIdx.x * 4; t < n; t += kThreads * 4)
+    __pipeline_memcpy_async(dst + t, src + t, 8);
+  __pipeline_commit();
+}
+
+// The bf16 slab in `buf`'s last third widened into its first `n` floats, each thread
+// its own 4 values of stage_weights: its copies have landed once it has waited for
+// them, so the barrier after the wait, which the float slab needs anyway, is the only
+// one. Nothing for float weights.
+template <typename TW>
+__device__ __forceinline__ void widen_slab(float* buf, int slab, int n) {
+  if constexpr (!std::is_same<TW, float>::value) {
+    const bf16* src = reinterpret_cast<const bf16*>(buf + slab_room<bf16>(slab));
+    for (int t = threadIdx.x * 4; t < n; t += kThreads * 4)
+      *reinterpret_cast<float4*>(buf + t) = widen4(*reinterpret_cast<const uint2*>(src + t));
+  }
 }
 
 // The column of a thread's tile column j (of TN) on CT column threads: the first
@@ -473,12 +576,13 @@ __device__ __forceinline__ int group_col(int j, int ct, int CT) {
 // The first slab's barrier makes the previous phase's writes visible; with
 // in_place every thread's k loop ends before the epilogue, so C may be A. Ends
 // without a barrier.
-template <int TN>
-__device__ __noinline__ int item_product(ItemShape sh, int a_off, int K,
-                                         const float* __restrict__ W, int M,
-                                         const float* __restrict__ bias, int c_off, int mode,
-                                         float alpha, int buf, bool staged, NextSlab next,
-                                         bool in_place) {
+// TW: the weights' and bias's element type (bf16: each slab widened after it lands).
+template <int TN, typename TW>
+__device__ __forceinline__ int item_product_t(ItemShape sh, int a_off, int K,
+                                              const TW* __restrict__ W, int M,
+                                              const TW* __restrict__ bias, int c_off, int mode,
+                                              float alpha, int buf, bool staged, NextSlab next,
+                                              bool in_place) {
   constexpr int n4 = TN / 4, n2 = (TN % 4) / 2, n1 = TN % 2;
   const float* A = smf(a_off);
   float* C = smf(c_off);
@@ -488,7 +592,7 @@ __device__ __noinline__ int item_product(ItemShape sh, int a_off, int K,
   const bool active = warp < rw * (kWarps / rw);
   const int r0 = (warp % rw) * 32 + (lane >> 3) * 8;
   const int ct = (warp / rw) * 8 + (lane & 7);
-  const int ks = slab_rows(K, M, sh.slab), n_slab = cdiv(K, ks);
+  const int ks = slab_rows(K, M, slab_room<TW>(sh.slab)), n_slab = cdiv(K, ks);
   // each group's offset in a slab row; a group past M reads column 0 instead (its
   // values are never stored)
   int o4[n4 > 0 ? n4 : 1], o2 = 0, o1 = 0;
@@ -511,11 +615,11 @@ __device__ __noinline__ int item_product(ItemShape sh, int a_off, int K,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 #pragma unroll
-  for (int j = 0; j < TN; ++j) bc[j] = __ldg(bias + min(group_col<TN>(j, ct, CT), M - 1));
+  for (int j = 0; j < TN; ++j) bc[j] = ld_elem(bias + min(group_col<TN>(j, ct, CT), M - 1));
 
   if (!staged) {
     __syncthreads();  // the previous phase is done with the slab buffers
-    stage_slab(slabs + buf * sh.slab, W, ks * M);
+    stage_weights(slabs + buf * sh.slab, sh.slab, W, ks * M);
   }
   for (int s = 0; s < n_slab; ++s) {
     const int k0 = s * ks, ks_eff = min(ks, K - k0);
@@ -523,16 +627,17 @@ __device__ __noinline__ int item_product(ItemShape sh, int a_off, int K,
     const long long t_wait = clock64();
 #endif
     __pipeline_wait_prior(0);
-    __syncthreads();  // slab s has landed for everyone; the other buffer is free
+    widen_slab<TW>(slabs + ((buf + s) & 1) * sh.slab, sh.slab, ks_eff * M);
+    __syncthreads();  // slab s has landed (and is widened) for all; the other buffer is free
 #ifdef MPGAN_PHASE_CLOCKS
     if (threadIdx.x == 0)
       atomicAdd(&g_gapt_clocks[kGaptWait], (unsigned long long)(clock64() - t_wait));
 #endif
     float* other = slabs + ((buf + s + 1) & 1) * sh.slab;
     if (s + 1 < n_slab)
-      stage_slab(other, W + (size_t)(k0 + ks) * M, min(ks, K - k0 - ks) * M);
+      stage_weights(other, sh.slab, W + (size_t)(k0 + ks) * M, min(ks, K - k0 - ks) * M);
     else if (next.w != nullptr)
-      stage_slab(other, next.w, next.floats);
+      stage_weights(other, sh.slab, static_cast<const TW*>(next.w), next.floats);
     if (active) {
       const float* wrow = slabs + ((buf + s) & 1) * sh.slab;
       const float* ap = A + (size_t)k0 * ldr + r0;
@@ -585,18 +690,43 @@ __device__ __noinline__ int item_product(ItemShape sh, int a_off, int K,
   return (buf + n_slab) & 1;
 }
 
+template <int TN>
+__device__ __noinline__ int item_product(ItemShape sh, int a_off, int K,
+                                         const float* __restrict__ W, int M,
+                                         const float* __restrict__ bias, int c_off, int mode,
+                                         float alpha, int buf, bool staged, NextSlab next,
+                                         bool in_place) {
+  return item_product_t<TN>(sh, a_off, K, W, M, bias, c_off, mode, alpha, buf, staged, next,
+                            in_place);
+}
+
+template <int TN>
+__device__ __noinline__ int item_product_bf16(ItemShape sh, int a_off, int K,
+                                              const bf16* __restrict__ W, int M,
+                                              const bf16* __restrict__ bias, int c_off, int mode,
+                                              float alpha, int buf, bool staged, NextSlab next,
+                                              bool in_place) {
+  return item_product_t<TN>(sh, a_off, K, W, M, bias, c_off, mode, alpha, buf, staged, next,
+                            in_place);
+}
+
 // The product at the tile width its M needs on this item's rows (8 rows a thread;
 // 4 x 4 tiles for the 64-wide projections read less of shared memory a FMA than
 // 8 x 2, but ran slower on an H100, and a split-TF32 tensor-core form of the
 // products was no faster: PERF.md).
-__device__ int item_product_at(ItemShape sh, int a_off, int K, const float* W, int M,
-                               const float* bias, int c_off, int mode, float alpha, int buf,
+template <typename TW>
+__device__ int item_product_at(ItemShape sh, int a_off, int K, const TW* W, int M,
+                               const TW* bias, int c_off, int mode, float alpha, int buf,
                                bool staged, NextSlab next) {
   const bool in_place = a_off == c_off;
 #define MPGAN_ITEM_PRODUCT_CASE(TN)                                                            \
   case TN:                                                                                     \
-    return item_product<TN>(sh, a_off, K, W, M, bias, c_off, mode, alpha, buf, staged, next,    \
-                               in_place);
+    if constexpr (std::is_same<TW, float>::value)                                              \
+      return item_product<TN>(sh, a_off, K, W, M, bias, c_off, mode, alpha, buf, staged, next, \
+                              in_place);                                                       \
+    else                                                                                       \
+      return item_product_bf16<TN>(sh, a_off, K, W, M, bias, c_off, mode, alpha, buf, staged,  \
+                                   next, in_place);
   switch (cdiv(M, sh.ct)) {
     MPGAN_ITEM_PRODUCT_CASE(1)
     MPGAN_ITEM_PRODUCT_CASE(2)
@@ -684,7 +814,7 @@ __device__ __forceinline__ void attend_chunk(const float* __restrict__ q,
 // hd == kHd). The output overwrites the row's own q columns, which no other lane
 // reads.
 template <int kHd, bool kExact>
-__device__ __noinline__ void item_attention(ItemShape sh, int n, int e, int heads) {
+__device__ __forceinline__ void item_attention_t(ItemShape sh, int n, int e, int heads) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int hd = e / heads, ldr = sh.ldr, ns = sh.ns;
   const int qchunks = cdiv(n, 32);
@@ -720,12 +850,34 @@ __device__ __noinline__ void item_attention(ItemShape sh, int n, int e, int head
   }
 }
 
+// The attention as a function of its own, one for each mode's kernel (the bf16 one a
+// copy, so that the FP32 kernel's code stays as it was).
+template <int kHd, bool kExact>
+__device__ __noinline__ void item_attention(ItemShape sh, int n, int e, int heads) {
+  item_attention_t<kHd, kExact>(sh, n, e, heads);
+}
+
+template <int kHd, bool kExact>
+__device__ __noinline__ void item_attention_bf16(ItemShape sh, int n, int e, int heads) {
+  item_attention_t<kHd, kExact>(sh, n, e, heads);
+}
+
+template <int kHd, bool kExact, typename T>
+__device__ __forceinline__ void item_attention_of(ItemShape sh, int n, int e, int heads) {
+  if constexpr (std::is_same<T, float>::value)
+    item_attention<kHd, kExact>(sh, n, e, heads);
+  else
+    item_attention_bf16<kHd, kExact>(sh, n, e, heads);
+}
+
 // The item path. grid CTAs (at most one an SM) each walk the contiguous range of
-// items range_start gives. Dynamic shared memory as item_shape lays it out.
-__global__ void __launch_bounds__(kThreads, 1)
-    gapt_item_kernel(const float* __restrict__ x_in, const float* __restrict__ mask,
-                     float* __restrict__ out, Weights w, ItemShape sh, int batch, int n, int e,
-                     int heads, int layers, int feat, float alpha) {
+// items range_start gives. Dynamic shared memory as item_shape lays it out. T, W: float
+// and Weights, or the bf16 mode's bf16 and WeightsBf16.
+template <typename T, typename W>
+__device__ __forceinline__ void gapt_item_body(const T* __restrict__ x_in,
+                                               const T* __restrict__ mask, T* __restrict__ out,
+                                               W w, ItemShape sh, int batch, int n, int e,
+                                               int heads, int layers, int feat, float alpha) {
   const int ldr = sh.ldr, fdim = feat + (mask != nullptr ? 1 : 0);
   const long long items = cdiv(batch, sh.jets);
   const long long t_end = range_start(blockIdx.x + 1, items, gridDim.x);
@@ -742,19 +894,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int r = q / e, c = q - r * e, g = r / sh.ns, i = r - g * sh.ns;
       const long long b = b0 + g;
       const bool real = g < sh.jets && i < n && b < batch;
-      x[(size_t)c * ldr + r] = real ? __ldg(x_in + ((size_t)b * n + i) * e + c) : 0.f;
+      x[(size_t)c * ldr + r] = real ? ld_elem(x_in + ((size_t)b * n + i) * e + c) : 0.f;
     }
     for (int r = threadIdx.x; r < sh.rows; r += kThreads) {
       const int g = r / sh.ns, i = r - g * sh.ns;
       const long long b = b0 + g;
       const bool real = g < sh.jets && i < n && b < batch;
-      mb[r] = real && mask != nullptr ? (__ldg(mask + (size_t)b * n + i) - 1.f) * kNeg : 0.f;
+      mb[r] = real && mask != nullptr ? (ld_elem(mask + (size_t)b * n + i) - 1.f) * kNeg : 0.f;
     }
     GAPT_STAMP(kGaptTail);
     for (int l = 0; l < layers; ++l) {
-      const float* in_wt = w.in_wt + (size_t)l * e * M3;
-      const float* out_wt = w.out_wt + (size_t)l * e * e;
-      const float* ff_wt = w.ff_wt + (size_t)l * e * e;
+      const T* in_wt = w.in_wt + (size_t)l * e * M3;
+      const T* out_wt = w.out_wt + (size_t)l * e * e;
+      const T* ff_wt = w.ff_wt + (size_t)l * e * e;
       // after the last layer's FF, the next item's first qkv slab, if there is one
       const bool more = l + 1 < layers || t + 1 < t_end;
       const NextSlab after_ff = more ? first_slab(l + 1 < layers ? in_wt + (size_t)e * M3 : w.in_wt,
@@ -765,13 +917,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       GAPT_STAMP(kGaptQkv);
       __syncthreads();  // qkv is complete
       switch (e / heads) {
-        case 16: item_attention<16, true>(sh, n, e, heads); break;
-        case kMaxHd: item_attention<kMaxHd, true>(sh, n, e, heads); break;
+        case 16: item_attention_of<16, true, T>(sh, n, e, heads); break;
+        case kMaxHd: item_attention_of<kMaxHd, true, T>(sh, n, e, heads); break;
         default:
           if (e / heads < 16)
-            item_attention<16, false>(sh, n, e, heads);
+            item_attention_of<16, false, T>(sh, n, e, heads);
           else
-            item_attention<kMaxHd, false>(sh, n, e, heads);
+            item_attention_of<kMaxHd, false, T>(sh, n, e, heads);
       }
       GAPT_STAMP(kGaptAttn);
       // x += attn . out_w^T + out_b; attn sits in the q columns
@@ -794,32 +946,85 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (f < feat) {
         float a = 0.f;
         for (int k = 0; k < e; ++k)
-          a = fmaf(x[(size_t)k * ldr + r], __ldg(w.fc_wt + (size_t)k * feat + f), a);
-        v = tanhf(a + __ldg(w.fc_b + f));
+          a = fmaf(x[(size_t)k * ldr + r], ld_elem(w.fc_wt + (size_t)k * feat + f), a);
+        v = tanhf(a + ld_elem(w.fc_b + f));
       } else {
-        v = __ldg(mask + (size_t)b * n + i) - 0.5f;
+        v = ld_elem(mask + (size_t)b * n + i) - 0.5f;
       }
-      out[((size_t)b * n + i) * fdim + f] = v;
+      st_elem(out + ((size_t)b * n + i) * fdim + f, v);
     }
     __syncthreads();  // the next item overwrites x
     GAPT_STAMP(kGaptFc);
   }
 }
 
-int launch_items(const float* x, const float* mask, float* out, const Weights& w,
-                 const ItemShape& sh, int batch, int n, int e, int heads, int layers, int feat,
-                 float alpha, int grid, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(gapt_item_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)sh.smem);
+__global__ void __launch_bounds__(kThreads, 1)
+    gapt_item_kernel(const float* __restrict__ x_in, const float* __restrict__ mask,
+                     float* __restrict__ out, Weights w, ItemShape sh, int batch, int n, int e,
+                     int heads, int layers, int feat, float alpha) {
+  gapt_item_body(x_in, mask, out, w, sh, batch, n, e, heads, layers, feat, alpha);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    gapt_item_kernel_bf16(const bf16* __restrict__ x_in, const bf16* __restrict__ mask,
+                          bf16* __restrict__ out, WeightsBf16 w, ItemShape sh, int batch, int n,
+                          int e, int heads, int layers, int feat, float alpha) {
+  gapt_item_body(x_in, mask, out, w, sh, batch, n, e, heads, layers, feat, alpha);
+}
+
+template <typename T, typename W>
+int launch_items(const T* x, const T* mask, T* out, const W& w, const ItemShape& sh, int batch,
+                 int n, int e, int heads, int layers, int feat, float alpha, int grid,
+                 void* stream) {
+  const void* kernel = std::is_same<T, float>::value
+                           ? reinterpret_cast<const void*>(gapt_item_kernel)
+                           : reinterpret_cast<const void*>(gapt_item_kernel_bf16);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
   if (err != cudaSuccess) return (int)err;
-  gapt_item_kernel<<<grid, kThreads, sh.smem, static_cast<cudaStream_t>(stream)>>>(
-      x, mask, out, w, sh, batch, n, e, heads, layers, feat, alpha);
-  return (int)cudaGetLastError();
+  void* args[] = {&x, &mask, &out, const_cast<W*>(&w), const_cast<ItemShape*>(&sh), &batch, &n,
+                  &e, &heads, &layers, &feat, &alpha};
+  return (int)cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads), args, sh.smem,
+                               static_cast<cudaStream_t>(stream));
 }
 
 bool valid(int batch, int n, int e, int heads) {
   return batch >= 1 && n >= 1 && n <= 512 && e >= 1 && e <= 4096 && heads >= 1 && e % heads == 0;
+}
+
+int jet_plan(int batch, int n, int e, int* grid, long long* scratch_floats) {
+  const Placement pl = place(n, e);
+  *grid = pl.qkv_global ? (batch < kScratchCtas ? batch : kScratchCtas) : batch;
+  *scratch_floats =
+      (long long)*grid * n * ((pl.x_global ? e + 4 : 0) + (pl.qkv_global ? 3 * e + 4 : 0));
+  return 0;
+}
+
+// Both modes' launch (T, W: float and Weights, or bf16 and WeightsBf16).
+template <typename T, typename W>
+int launch(const T* x, const T* mask, T* out, const W& w, float* scratch, int batch, int n,
+           int e, int heads, int layers, int feat, float alpha, int jets, int rows,
+           int grid_items, int slab_floats, void* stream) {
+  if (!valid(batch, n, e, heads) || layers < 0 || feat < 1) return (int)cudaErrorInvalidValue;
+  if (jets > 0) {
+    ItemShape sh;
+    if (!item_shape(sh, n, e, heads, jets, rows, slab_floats) || grid_items < 1 ||
+        grid_items > cdiv(batch, jets))
+      return (int)cudaErrorInvalidValue;
+    return launch_items(x, mask, out, w, sh, batch, n, e, heads, layers, feat, alpha,
+                        grid_items, stream);
+  }
+  const Placement pl = place(n, e);
+  int grid;
+  long long scratch_floats;
+  jet_plan(batch, n, e, &grid, &scratch_floats);
+  if (scratch_floats > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  // scores a lane, threads (cta_threads) and rows of a thread's output tile: small
+  // jets take 2 x 4 tiles, which fill the 256 threads evenly (240 tiles of the
+  // out and ff products at n = 30 against 128 of 4 x 4)
+  auto* fn = n <= 32 ? launch_jet<1, 256, 2, T, W>
+                     : n <= 160 ? launch_jet<5, 1024, 4, T, W> : launch_jet<16, 512, 4, T, W>;
+  return fn(x, mask, out, w, scratch, batch, n, e, heads, layers, feat, alpha, pl, grid, stream);
 }
 
 }  // namespace
@@ -831,11 +1036,7 @@ extern "C" {
 int mpgan_gapt_fused_plan(int batch, int n, int e, int heads, int* grid,
                           long long* scratch_floats) {
   if (!valid(batch, n, e, heads)) return (int)cudaErrorInvalidValue;
-  const Placement pl = place(n, e);
-  *grid = pl.qkv_global ? (batch < kScratchCtas ? batch : kScratchCtas) : batch;
-  *scratch_floats =
-      (long long)*grid * n * ((pl.x_global ? e + 4 : 0) + (pl.qkv_global ? 3 * e + 4 : 0));
-  return 0;
+  return jet_plan(batch, n, e, grid, scratch_floats);
 }
 
 // Shared memory (bytes) of an item-path launch for `jets` jets of n particles in
@@ -865,27 +1066,26 @@ int mpgan_gapt_fused(const float* x, const float* mask, float* out, const float*
                      const float* fc_b, float* scratch, int batch, int n, int e, int heads,
                      int layers, int feat, float alpha, int jets, int rows, int grid_items,
                      int slab_floats, void* stream) {
-  if (!valid(batch, n, e, heads) || layers < 0 || feat < 1) return (int)cudaErrorInvalidValue;
-  const Weights w{in_wt, in_b, out_wt, out_b, ff_wt, ff_b, fc_wt, fc_b};
-  if (jets > 0) {
-    ItemShape sh;
-    if (!item_shape(sh, n, e, heads, jets, rows, slab_floats) || grid_items < 1 ||
-        grid_items > cdiv(batch, jets))
-      return (int)cudaErrorInvalidValue;
-    return launch_items(x, mask, out, w, sh, batch, n, e, heads, layers, feat, alpha,
-                        grid_items, stream);
-  }
-  const Placement pl = place(n, e);
-  int grid;
-  long long scratch_floats;
-  mpgan_gapt_fused_plan(batch, n, e, heads, &grid, &scratch_floats);
-  if (scratch_floats > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  // scores a lane, threads (cta_threads) and rows of a thread's output tile: small
-  // jets take 2 x 4 tiles, which fill the 256 threads evenly (240 tiles of the
-  // out and ff products at n = 30 against 128 of 4 x 4)
-  auto* fn = n <= 32 ? launch_jet<1, 256, 2>
-                     : n <= 160 ? launch_jet<5, 1024, 4> : launch_jet<16, 512, 4>;
-  return fn(x, mask, out, w, scratch, batch, n, e, heads, layers, feat, alpha, pl, grid, stream);
+  return launch(x, mask, out, Weights{in_wt, in_b, out_wt, out_b, ff_wt, ff_b, fc_wt, fc_b},
+                scratch, batch, n, e, heads, layers, feat, alpha, jets, rows, grid_items,
+                slab_floats, stream);
+}
+
+// K9 in the bf16 mode: the same arguments as bf16 tensors (x, the mask, every weight
+// and bias, out), the plan and the scratch as mpgan_gapt_fused's. The float32 body on
+// their float32 values, the output rounded to bf16 (round to nearest even): bit for
+// bit mpgan_gapt_fused on the widened inputs, its output rounded. Replaces, with the
+// FP32 path, gapt_pallas.gapt_g_fused called with bf16 x (its wrapper widens the
+// inputs before its pallas_call and rounds the output after).
+int mpgan_gapt_fused_bf16(const bf16* x, const bf16* mask, bf16* out, const bf16* in_wt,
+                          const bf16* in_b, const bf16* out_wt, const bf16* out_b,
+                          const bf16* ff_wt, const bf16* ff_b, const bf16* fc_wt,
+                          const bf16* fc_b, float* scratch, int batch, int n, int e, int heads,
+                          int layers, int feat, float alpha, int jets, int rows, int grid_items,
+                          int slab_floats, void* stream) {
+  return launch(x, mask, out, WeightsBf16{in_wt, in_b, out_wt, out_b, ff_wt, ff_b, fc_wt, fc_b},
+                scratch, batch, n, e, heads, layers, feat, alpha, jets, rows, grid_items,
+                slab_floats, stream);
 }
 
 #ifdef MPGAN_PHASE_CLOCKS

@@ -53,7 +53,7 @@ int launch_knn_tiles(TileArgs a, const bf16* u1, const bf16* u2m, const bf16* w_
   // offsets into u1, u2m and out are ints
   const int widest = h1 + 1 > fe.dim[fe.n] ? h1 + 1 : fe.dim[fe.n];
   if ((long long)batch * n * widest >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  if (fwd_pack_bf16(fe, fe, fe.n, -1, 8).total > packed_floats) return (int)cudaErrorInvalidValue;
+  if (fwd_pack_bf16(fe).total > packed_floats) return (int)cudaErrorInvalidValue;
   a.u1 = u1;
   a.u2 = u2m;
   a.w_d = w_d;

@@ -28,7 +28,7 @@ SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu", "edge_aggregate_bf16.cu
            "edge_aggregate_bwd_bf16.cu", "knn_fused.cu", "knn_edge_bwd.cu", "knn_search.cu",
            "knn_edge_aggregate.cu", "knn_fused_bf16.cu", "knn_edge_bwd_bf16.cu", "gapt_fused.cu")
 HEADERS = ("edge_common.cuh", "edge_products.cuh", "edge_products_bf16.cuh",
-           "edge_fwd_common.cuh", "edge_fwd_bf16.cuh", "edge_fwd_bf16_tiles.cuh",
+           "edge_fwd_common.cuh", "edge_fwd_bf16_tiles.cuh",
            "edge_bwd_common.cuh",
            "edge_bwd_bf16.cuh", "edge_bwd_tf32x3.cuh", "edge_aggregate.cuh",
            "edge_aggregate_bwd.cuh",
@@ -136,8 +136,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.mpgan_edge_aggregate_bf16.restype = i
     lib.mpgan_edge_aggregate_fn_bf16.argtypes = [
-        p, p, p, p, p, p, ll, i, i, i, i, i, parr, parr, iarr, i, parr, p, parr, iarr, f, i, f,
-        i, i, i, i, i, i, i, p,
+        p, p, p, p, p, p, ll, p, i, i, i, i, i, parr, parr, iarr, i, parr, p, parr, iarr, f, i, f,
+        i, i, i, i, i, i, i, i, p,
     ]
     lib.mpgan_edge_aggregate_fn_bf16.restype = i
     lib.mpgan_edge_aggregate_bwd_bf16.argtypes = [
@@ -145,9 +145,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, i, i, p, ctypes.c_uint, f, i, i, i, i, i, i, p,
     ]
     lib.mpgan_edge_aggregate_bwd_bf16.restype = i
-    lib.mpgan_edge_fwd_packed_floats_bf16.argtypes = [i, iarr, i, iarr, i]
+    lib.mpgan_edge_fwd_packed_floats_bf16.argtypes = [i, iarr, i, iarr]
     lib.mpgan_edge_fwd_packed_floats_bf16.restype = ll
-    lib.mpgan_bf16_tile_smem.argtypes = [i, iarr] + [i] * 11
+    lib.mpgan_bf16_tile_smem.argtypes = [i, iarr] + [i] * 11 + [i, iarr, i]
     lib.mpgan_bf16_tile_smem.restype = ll
     lib.mpgan_edge_bwd_packed_floats_bf16.argtypes = [i, iarr, i]
     lib.mpgan_edge_bwd_packed_floats_bf16.restype = ll
@@ -199,6 +199,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mpgan_gapt_fused_plan.restype = i
     lib.mpgan_gapt_fused.argtypes = [p] * 12 + [i] * 6 + [f] + [i] * 4 + [p]
     lib.mpgan_gapt_fused.restype = i
+    lib.mpgan_gapt_fused_bf16.argtypes = [p] * 12 + [i] * 6 + [f] + [i] * 4 + [p]
+    lib.mpgan_gapt_fused_bf16.restype = i
     lib.mpgan_gapt_item_smem.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
     lib.mpgan_gapt_item_smem.restype = i
     lib.mpgan_cuda_error_string.argtypes = [i]

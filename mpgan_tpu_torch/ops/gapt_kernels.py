@@ -37,9 +37,12 @@ extra FC layers, no batch or spectral norm, ``E % H == 0``, ``N <= 512``.
 The bf16 mode (``StepConfig.bf16``: the D step's fake batch of a bf16 GAPT
 step) is the JAX wrapper's own: ``gapt_pallas.gapt_g_fused`` widens ``x``, the
 mask and every weight to float32 before its ``pallas_call`` (``:196-213``), runs
-the float32 body and rounds the output to ``x.dtype`` (``:251``). Here the
-wrapper widens bf16 inputs, runs K9 and rounds its output to bf16; such a launch
-is counted under ``gapt_g_fused_bf16``. A mix of dtypes raises.
+the float32 body and rounds the output to ``x.dtype`` (``:251``). Here K9's bf16
+entry (``mpgan_gapt_fused_bf16``) reads the bf16 tensors, widens each element
+as it stages it, runs the same float32 body and rounds the output at its store,
+in one launch with no cast around it; its output is the FP32 launch's on the
+widened inputs, rounded. Such a launch is counted under ``gapt_g_fused_bf16``. A
+mix of dtypes raises.
 
 The kernel is eval only and has no backward, as in the JAX package: the wrapper
 raises when gradients are enabled and an input requires one. It runs the plain
@@ -233,7 +236,8 @@ def _tensors(x, mask, w: GaptWeights) -> tuple:
 
 
 def _widened(x, mask, w: GaptWeights):
-    """The float32 values of bf16 inputs (``gapt_pallas.py:196-213``)."""
+    """The float32 values of bf16 inputs (``gapt_pallas.py:196-213``), as the plain
+    version takes them."""
     return x.float(), None if mask is None else mask.float(), GaptWeights(*(t.float() for t in w))
 
 
@@ -241,8 +245,9 @@ def gapt_g_fused(x: torch.Tensor, mask: torch.Tensor | None, w: GaptWeights, num
                  alpha: float) -> torch.Tensor:
     """K9: the plain version on the CPU, the CUDA kernel on a GPU. Returns
     ``[B, N, F (+1 with a mask)]`` in the inputs' dtype: all float32, or all
-    bf16 for the bf16 mode (widened to K9's float32 body, the output rounded to
-    bf16; its own count). Eval only: raises where a gradient is asked for."""
+    bf16 for the bf16 mode (K9's bf16 entry: its float32 body on the widened
+    values, the output rounded to bf16; its own count). Eval only: raises where a
+    gradient is asked for."""
     tensors = _tensors(x, mask, w)
     bf16 = _is_bf16(*tensors)
     name = "gapt_g_fused" + ("_bf16" if bf16 else "")
@@ -252,13 +257,11 @@ def gapt_g_fused(x: torch.Tensor, mask: torch.Tensor | None, w: GaptWeights, num
     _check_shapes(name, x, mask, w, num_heads)
     if _on_cpu(*tensors):
         return gapt_g_fused_reference(x, mask, w, num_heads, alpha)
-    if bf16:
-        x, mask, w = _widened(x, mask, w)
     _check_cuda_args(name, {"x": x, **({} if mask is None else {"mask": mask}),
-                            **dict(zip(w._fields, w))}, (w.in_wt, w.out_wt, w.ff_wt))
+                            **dict(zip(w._fields, w))}, (w.in_wt, w.out_wt, w.ff_wt), x.dtype)
     b, n, e = x.shape
     feat = w.fc_wt.shape[1]
-    out = torch.empty((b, n, feat + (mask is not None)), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, n, feat + (mask is not None)), dtype=x.dtype, device=x.device)
     lib = _build.library()
     plan = gapt_plan(b, n, e, num_heads, _sm_count(x.device))
     scratch = None
@@ -270,11 +273,11 @@ def gapt_g_fused(x: torch.Tensor, mask: torch.Tensor | None, w: GaptWeights, num
             scratch = torch.empty((scratch_floats.value,), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
-        code = lib.mpgan_gapt_fused(
+        code = (lib.mpgan_gapt_fused_bf16 if bf16 else lib.mpgan_gapt_fused)(
             x.data_ptr(), ptr(mask), out.data_ptr(), *(t.data_ptr() for t in w), ptr(scratch),
             b, n, e, num_heads, w.in_wt.shape[0], feat, float(alpha), plan.jets, plan.rows,
             plan.grid, plan.slab_floats, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, name)
     launch_counts[name] += 1
-    return out.to(torch.bfloat16) if bf16 else out
+    return out

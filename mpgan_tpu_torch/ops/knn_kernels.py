@@ -564,7 +564,7 @@ def knn_fused_layer(xs, xf, u1, u2m, w_d, hidden_flat, k: int, self_loops: bool,
         if emit_idx and want_dists else None
     plan = (bf16_tile_plan if bf16 else knn_fwd_plan)(b_sz, n, c, k, dims, _sm_count(dev))
     # the kernel's own copy of the weights, laid out for its products
-    packed_floats = fwd_packed_floats_bf16(dims, 128) if bf16 else \
+    packed_floats = fwd_packed_floats_bf16(dims) if bf16 else \
         fwd_packed_floats(dims, plan.rows)
     packed = torch.empty((max(packed_floats, 1),), dtype=torch.float32, device=dev)
     lib = _build.library()
@@ -770,7 +770,7 @@ def knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden_flat, alpha: float, sum_
     k = idx.shape[2]
     plan = (bf16_tile_plan if bf16 else knn_fwd_plan)(b_sz, n, 0, k, dims, _sm_count(u1.device),
                                                       search=False)
-    packed_floats = fwd_packed_floats_bf16(dims, 128) if bf16 else \
+    packed_floats = fwd_packed_floats_bf16(dims) if bf16 else \
         fwd_packed_floats(dims, plan.rows)
     packed = torch.empty((max(packed_floats, 1),), dtype=torch.float32, device=u1.device)
     lib = _build.library()

@@ -473,8 +473,7 @@ def edge_aggregate(u1, u2, mask, hidden_flat, alpha: float, sum_agg: bool,
     else:
         plan = fwd_plan(b_sz, n, dims, _sm_count(u1.device))
     # the kernel's own copy of the weights, laid out for its products
-    packed_floats = fwd_packed_floats_bf16(dims, 128) if bf16 else \
-        fwd_packed_floats(dims, plan.rows)
+    packed_floats = fwd_packed_floats_bf16(dims) if bf16 else fwd_packed_floats(dims, plan.rows)
     packed = torch.empty((max(packed_floats, 1),), dtype=torch.float32, device=u1.device)
     lib = _build.library()
     w, b = _chain_args(pairs)
@@ -707,19 +706,26 @@ def _ceil(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def fwd_packed_floats_bf16(dims: Sequence[int], rows: int,
-                           fn_dims: Sequence[int] | None = None) -> int:
+def _fn_layer_floats(fn_dims: Sequence[int], layer: int) -> int:
+    """Floats of K4's fn layer in the packed copy (``fn_layer_floats``): the first
+    as bf16 rows with M padded to 64 (the FMA chains' columns), the later ones as
+    bf16 fragments."""
+    k, m = fn_dims[layer], fn_dims[layer + 1]
+    return k * _ceil(m, 64) // 2 if layer == 0 else _ceil(k, 16) * _ceil(m, 8) // 2
+
+
+def fwd_packed_floats_bf16(dims: Sequence[int], fn_dims: Sequence[int] | None = None) -> int:
     """Floats of the copy of the weights that a bf16-mode forward launch packs
-    (``edge_aggregate_bf16.cu``: fwd_pack_bf16): per fe (and fn) layer a bf16
-    copy in fragment order, K padded to 16 and M to 8, two values a float; K4's
-    fn first layer in the FP32 stage's order; then every bias as float32,
-    padded to 4."""
-    col_threads = 8 * ((BWD_THREADS // 32) // (rows // 32))
-    layers = list(zip(dims[:-1], dims[1:])) + list(zip((fn_dims or [])[:-1], (fn_dims or [])[1:]))
-    f32_layer = len(dims) - 1 if fn_dims else -1
-    weights = sum(k * _ceil(m, col_threads) if i == f32_layer else _ceil(k, 16) * _ceil(m, 8) // 2
-                  for i, (k, m) in enumerate(layers))
-    return weights + sum(_ceil(m, 4) for _, m in layers)
+    (``edge_fwd_bf16_tiles.cuh``: fwd_pack_bf16, and fn_pack_bf16 for K4): per fe
+    layer a bf16 copy in fragment order, K padded to 16 and M to 8, two values a
+    float, then every fe bias as float32, padded to 4; K4's fn after it, its
+    layers as :func:`_fn_layer_floats` gives, then its biases."""
+    fe = list(zip(dims[:-1], dims[1:]))
+    floats = sum(_ceil(k, 16) * _ceil(m, 8) // 2 + _ceil(m, 4) for k, m in fe)
+    if fn_dims:
+        floats += sum(_fn_layer_floats(fn_dims, i) + _ceil(m, 4)
+                      for i, m in enumerate(fn_dims[1:]))
+    return floats
 
 
 def bwd_packed_floats_bf16(dims: Sequence[int], rows: int) -> int:
@@ -741,6 +747,8 @@ TILE_CLASSES = (64, 128, 256)  # width classes the kernel is built for (tile_cla
 TILE_ROWS = 16
 TILE_MAX_ROWS = 256  # rows of an item, ti * rs
 TILE_RUN_FLOATS = 256  # a warp's running receiver sums (kTileRunFloats)
+FN_TILE_ROWS = 16  # K4: receivers of an fn tile
+FN_SLOT_WARPS = 4  # K4: warps of an fn tile
 
 
 def tile_warps(width: int) -> int:
@@ -760,7 +768,7 @@ def tile_class(dims: Sequence[int]) -> int:
 @dataclasses.dataclass(frozen=True)
 class Bf16TilePlan:
     """One launch of the bf16 forward pass: the kernel of width class ``width``
-    with ``warps`` warps a CTA; an item is ``ti`` receivers (K2: consecutive in
+    with ``warps`` warps a CTA; an item is ``ti`` receivers (K2, K4: consecutive in
     the batch's flat list ``b * n + i``; K5, K8: a block of one jet, ``blocks``
     a jet), each taking ``rs = max(jc, 8)`` rows, walked over the senders
     (ranks) in chunks of ``jc`` by one warp, 16 rows a tile. ``grid`` CTAs each
@@ -769,7 +777,9 @@ class Bf16TilePlan:
     ``resident`` the weights sit in shared memory; a chain too wide for that
     runs on the 256 class reading them from the packed copy in device memory.
     ``warps`` is at most ``tile_warps(width)``, all of them for K5 (its search
-    runs on every thread)."""
+    runs on every thread). K4 then runs fn on tiles of 16 receivers (every
+    receiver once, tile ``t`` on CTA ``t % grid``), ``fn_slots`` tiles of a CTA at
+    a time on 4 warps each (``warps`` a multiple of 4)."""
     width: int
     warps: int
     resident: bool
@@ -780,6 +790,7 @@ class Bf16TilePlan:
     blocks: int
     sspan_items: int
     smem_bytes: int
+    fn_slots: int = 0
 
     @property
     def rs(self) -> int:
@@ -794,31 +805,48 @@ class Bf16TilePlan:
         return -(-((ti_eff - 1) * self.rs + jc_eff) // TILE_ROWS)
 
 
+def fn_smem_bytes(fn_dims: Sequence[int], fn_slots: int) -> int:
+    """Shared memory of K4's second phase (``fn_layout``): the staged layer's
+    weights (the largest of :func:`_fn_layer_floats`) and bias, then ``fn_slots``
+    slots, each a tile's input rows ``[K x 16]`` float32 (or, when larger, the A
+    fragments of the widest input of a later layer), then A fragments of that
+    widest input (16 rows in bf16); then the staging's mbarrier."""
+    layers = len(fn_dims) - 1
+    weights = max(_fn_layer_floats(fn_dims, i) for i in range(layers))
+    frag = max((-(-k // 16) * 128 for k in fn_dims[1:-1]), default=0)
+    slot = max(16 * fn_dims[0], frag) + frag
+    return 4 * (weights + _ceil(max(fn_dims[1:]), 4) + fn_slots * slot + 4)
+
+
 def bf16_tile_smem_bytes(dims: Sequence[int], senders: int, ti: int, jc: int, *,
                          resident: bool = True, warps: int = 0, k: int = 0,
-                         sspan_items: int = 0, search_floats: int = 0) -> int:
+                         sspan_items: int = 0, search_floats: int = 0,
+                         fn_dims: Sequence[int] | None = None, fn_slots: int = 0) -> int:
     """Shared memory of the bf16 forward pass (``tile_layout``): the resident copy
-    of the weights and biases (:func:`fwd_packed_floats_bf16`), the layer table and
-    the copy's mbarrier; K5 (``search_floats`` > 0, the search's scratch) its
-    neighbours and distances ``[sspan_items * ti, k]``; then the work region: each
-    of ``warps`` warps' tile region (its 16 rows' activations as A fragments, 16 x
-    the widest layer input in bf16;
-    its running receiver sums; the receivers' aggregates ``[ti x h_out]`` where a
-    receiver takes several chunks of ``jc`` of its ``senders``), and K5's search
-    scratch between chunks."""
-    packed = fwd_packed_floats_bf16(dims, 128) if resident else 0
+    of the weights and biases (:func:`fwd_packed_floats_bf16`), the layer table (K4:
+    fe's and fn's) and the copy's mbarrier; K5 (``search_floats`` > 0, the search's
+    scratch) its neighbours and distances ``[sspan_items * ti, k]``; then the work
+    region: each of ``warps`` warps' tile region (its 16 rows' activations as A
+    fragments, 16 x the widest layer input in bf16; its running receiver sums; the
+    receivers' aggregates ``[ti x h_out]`` where a receiver takes several chunks of
+    ``jc`` of its ``senders``), and K5's search scratch between chunks. K4
+    (``fn_dims``): the larger of that and its second phase's
+    (:func:`fn_smem_bytes`), which reuses it all."""
+    packed = fwd_packed_floats_bf16(dims) if resident else 0
     sel = _ceil(sspan_items * ti * k, 4) if search_floats else 0
-    off_work = packed + 4 * MAX_LAYERS + 4 + 2 * sel
+    off_work = packed + 4 * MAX_LAYERS * (2 if fn_dims else 1) + 4 + 2 * sel
     chunks = -(-senders // jc)
     warps = warps or tile_warps(tile_class(dims) if resident else 256)
     act = -(-max(dims[:-1], default=0) // 16) * 128
     warp_floats = act + TILE_RUN_FLOATS + (_ceil(ti * dims[-1], 4) if chunks > 1 else 0)
     work = max(warps * warp_floats, search_floats)
-    return 4 * (off_work + work)
+    first = 4 * (off_work + work)
+    return max(first, fn_smem_bytes(fn_dims, fn_slots)) if fn_dims else first
 
 
 def tile_plan_core(batch: int, n: int, dims: Sequence[int], sms: int, fp32_ti: int,
-                   jc: int, *, knn_k: int = 0, search_floats: int = 0) -> Bf16TilePlan:
+                   jc: int, *, knn_k: int = 0, search_floats: int = 0,
+                   fn_dims: Sequence[int] | None = None) -> Bf16TilePlan:
     """The bf16 forward pass's plan given the FP32 plan's row order (its sender or
     rank chunk ``jc`` and receivers a pass ``fp32_ti``): items of ``ti``
     receivers where ``ti * rs`` is a multiple of 8 (every receiver's rows then fall
@@ -826,17 +854,20 @@ def tile_plan_core(batch: int, n: int, dims: Sequence[int], sms: int, fp32_ti: i
     FP32 plan's ``ti``; of those the one whose busiest warp takes the fewest tiles
     (ties: fewer tiles in all, then more receivers an item). ``knn_k``: a knn
     launch (items per jet over its ``knn_k`` ranks); ``search_floats`` > 0: K5,
-    whose search chunks then take as many of a CTA's items as fit. Where no
-    item size fits with the weights resident, the same without them."""
+    whose search chunks then take as many of a CTA's items as fit; ``fn_dims``: K4,
+    whose warps are a multiple of 4 and whose fn tiles take as many slots as fit.
+    Where no item size fits with the weights resident, the same without them."""
+    fn_dims = tuple(fn_dims) if fn_dims else None
     for resident in (True, False):
-        plan = _tile_plan(batch, n, dims, sms, fp32_ti, jc, knn_k, search_floats, resident)
+        plan = _tile_plan(batch, n, dims, sms, fp32_ti, jc, knn_k, search_floats, resident,
+                          fn_dims)
         if plan is not None:
             return plan
-    raise ValueError(f"layer widths {list(dims)} at n={n} do not fit the bf16 forward "
-                     f"pass's shared memory ({MAX_SMEM_BYTES} bytes)")
+    raise ValueError(f"layer widths {list(dims)} (fn {list(fn_dims or [])}) at n={n} do not fit "
+                     f"the bf16 forward pass's shared memory ({MAX_SMEM_BYTES} bytes)")
 
 
-def _tile_plan(batch, n, dims, sms, fp32_ti, jc, knn_k, search_floats, resident):
+def _tile_plan(batch, n, dims, sms, fp32_ti, jc, knn_k, search_floats, resident, fn_dims):
     width = tile_class(dims) if resident else 256
     rs = max(jc, 8)
     senders = knn_k or n
@@ -863,10 +894,22 @@ def _tile_plan(batch, n, dims, sms, fp32_ti, jc, knn_k, search_floats, resident)
         grid = min(sms, items)
         per_cta = -(-items // grid)
 
-        def smem(warps: int, sspan: int) -> int:
+        def smem(warps: int, sspan: int, slots: int = 0) -> int:
             return bf16_tile_smem_bytes(dims, senders, ti, jc, resident=resident, warps=warps,
-                                        k=knn_k, sspan_items=sspan, search_floats=search_floats)
-        if search_floats:
+                                        k=knn_k, sspan_items=sspan, search_floats=search_floats,
+                                        fn_dims=fn_dims, fn_slots=slots)
+        slots = 0
+        if fn_dims:
+            # the most warps (a multiple of 4) and then the most fn slots that fit
+            fits = [(w, s) for w in range(tile_warps(width) // FN_SLOT_WARPS * FN_SLOT_WARPS, 0,
+                                          -FN_SLOT_WARPS)
+                    for s in range(w // FN_SLOT_WARPS, 0, -1) if smem(w, 0, s) <= MAX_SMEM_BYTES]
+            if not fits:
+                continue
+            warps, slots = fits[0]
+            sspan = 0
+            rounds = -(-per_cta // warps)
+        elif search_floats:
             warps = tile_warps(width)
             sspan = next((s for s in range(per_cta, 0, -1)
                           if smem(warps, s) <= MAX_SMEM_BYTES), 0)
@@ -883,21 +926,26 @@ def _tile_plan(batch, n, dims, sms, fp32_ti, jc, knn_k, search_floats, resident)
         key = (rounds * item_tiles(ti), total, -ti)
         if best is None or key < best[0]:
             best = (key, Bf16TilePlan(width, warps, resident, ti, jc, items, grid, blocks,
-                                      sspan, smem(warps, sspan)))
+                                      sspan, smem(warps, sspan, slots), slots))
     return None if best is None else best[1]
 
 
-def bf16_tile_plan(batch: int, n: int, dims: Sequence[int], sms: int) -> Bf16TilePlan:
+def bf16_tile_plan(batch: int, n: int, dims: Sequence[int], sms: int,
+                   fn_dims: Sequence[int] | None = None) -> Bf16TilePlan:
     """Plan K2's bf16 launch over ``batch`` jets of ``n`` particles through the
-    fe chain ``dims`` on a card with ``sms`` SMs (see :func:`tile_plan_core`; the
-    row order from :func:`fwd_plan`). Memoised per shape."""
-    return _bf16_tile_plan(batch, n, tuple(dims), sms)
+    fe chain ``dims`` on a card with ``sms`` SMs, and with ``fn_dims`` K4's (see
+    :func:`tile_plan_core`; the row order from :func:`fwd_plan`, K4's from its
+    own, so that the aggregate's sums are the FP32 pass's). Memoised per shape."""
+    if fn_dims and max(fn_dims) > MAX_WIDTH:
+        raise ValueError(f"fn widths {list(fn_dims)} exceed the kernel cap {MAX_WIDTH}")
+    return _bf16_tile_plan(batch, n, tuple(dims), sms, tuple(fn_dims) if fn_dims else None)
 
 
 @functools.lru_cache(maxsize=256)
-def _bf16_tile_plan(batch: int, n: int, dims: tuple, sms: int) -> Bf16TilePlan:
-    fp32 = fwd_plan(batch, n, dims, sms)
-    return tile_plan_core(batch, n, dims, sms, fp32.ti, fp32.jc)
+def _bf16_tile_plan(batch: int, n: int, dims: tuple, sms: int,
+                    fn_dims: tuple | None) -> Bf16TilePlan:
+    fp32 = fwd_plan(batch, n, dims, sms, fn_dims)
+    return tile_plan_core(batch, n, dims, sms, fp32.ti, fp32.jc, fn_dims=fn_dims)
 
 
 def fwd_packed_floats(dims: Sequence[int], rows: int, fn_dims: Sequence[int] | None = None) -> int:
@@ -1108,10 +1156,6 @@ def edge_aggregate_fn(
                             **{f"fn[{i}]": t for i, t in enumerate(fn_flat)}},
                      hidden_flat[::2] + (w_top, w_bot) + fn_flat[3::2], u1.dtype)
     out = torch.empty((b_sz, n, fn_dims[-1]), dtype=u1.dtype, device=u1.device)
-    plan = fwd_plan(b_sz, n, dims, _sm_count(u1.device), fn_dims)
-    packed_floats = (fwd_packed_floats_bf16 if bf16 else fwd_packed_floats)(dims, plan.rows,
-                                                                             fn_dims)
-    packed = torch.empty((packed_floats,), dtype=torch.float32, device=u1.device)
     lib = _build.library()
     w, b = _chain_args(pairs)
     fw, fb = _chain_args(fn_pairs)
@@ -1119,16 +1163,29 @@ def edge_aggregate_fn(
     fn_dim_arr = (ctypes.c_int * len(fn_dims))(*fn_dims)
     with torch.cuda.device(u1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = (u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), x.data_ptr(), out.data_ptr(),
-                packed.data_ptr())
-        rest = (b_sz, n, h1, feat, len(pairs), w, b, dim_arr,
-                len(fn_pairs), fw, w_bot.data_ptr(), fb, fn_dim_arr,
-                float(alpha), int(bool(sum_agg)), float(fn_alpha), int(not fn_final_linear),
-                plan.ti, plan.jc, plan.rows, plan.span, plan.grid, plan.slab_floats, stream)
+        chains = (b_sz, n, h1, feat, len(pairs), w, b, dim_arr,
+                  len(fn_pairs), fw, w_bot.data_ptr(), fb, fn_dim_arr,
+                  float(alpha), int(bool(sum_agg)), float(fn_alpha), int(not fn_final_linear))
         if bf16:
-            code = lib.mpgan_edge_aggregate_fn_bf16(*ptrs, packed_floats, *rest)
+            plan16 = bf16_tile_plan(b_sz, n, dims, _sm_count(u1.device), fn_dims)
+            packed_floats = fwd_packed_floats_bf16(dims, fn_dims)
+            packed = torch.empty((packed_floats,), dtype=torch.float32, device=u1.device)
+            # the receivers' float32 aggregates, in fn's tiles of 16 receivers
+            aggs = torch.empty((-(-b_sz * n // FN_TILE_ROWS) * FN_TILE_ROWS * h_out,),
+                               dtype=torch.float32, device=u1.device)
+            code = lib.mpgan_edge_aggregate_fn_bf16(
+                u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), x.data_ptr(), out.data_ptr(),
+                packed.data_ptr(), packed_floats, aggs.data_ptr(), *chains, plan16.width,
+                plan16.warps, int(plan16.resident), plan16.ti, plan16.jc, plan16.fn_slots,
+                plan16.grid, stream)
         else:
-            code = lib.mpgan_edge_aggregate_fn(*ptrs, *rest)
+            plan = fwd_plan(b_sz, n, dims, _sm_count(u1.device), fn_dims)
+            packed = torch.empty((fwd_packed_floats(dims, plan.rows, fn_dims),),
+                                 dtype=torch.float32, device=u1.device)
+            code = lib.mpgan_edge_aggregate_fn(
+                u1.data_ptr(), u2.data_ptr(), mask.data_ptr(), x.data_ptr(), out.data_ptr(),
+                packed.data_ptr(), *chains, plan.ti, plan.jc, plan.rows, plan.span, plan.grid,
+                plan.slab_floats, stream)
     _build.check(code, name)
     launch_counts[name] += 1
     return out

@@ -39,7 +39,7 @@ import torch
 TOL = 1e-4
 PHASES = ("rows_a0", "fwd_hidden", "fwd_last", "wgrad", "da", "rebuild_a0", "tail",
           "in_products_wait", "in_products_loop", "in_products_epilogue", "search")
-CLOCK_SLOTS = 22  # edge_products.cuh: kPhaseCount; slots 11-14 split the knn search, 15-21
+CLOCK_SLOTS = 25  # edge_products.cuh: kPhaseCount; slots 11-14 split the knn search, 15-24
 # the bf16 forward's warp tiles
 
 

@@ -14,12 +14,15 @@ with ``idx`` and distances), K7 (with distances), K8 on K5's ``idx``, K9 at
 B=64. ``--save`` writes the outputs and the ``ptxas`` lines; ``--against`` holds
 this checkout's to a saved file, prints one JSON line (tensors compared, those
 not bit-identical, kernels whose ``ptxas`` lines differ) and exits 1 on any
-difference.
+difference. A kernel of an FP32 source that only this checkout has and whose name
+holds ``bf16`` (a bf16 entry beside the FP32 one, as K7's and K9's) is listed
+apart (``bf16_kernels_added``), not as a difference.
 
 The bf16 modes run too, on the inputs of ``chip_smoke.py`` phases 28-29 rounded
 to bf16. K3 and K6 (B=256 N=30, B=160 N=150 k=20, dropout 0.5, with and without
-weight gradients), K4 (B=256 N=30), K7 (B=160, with distances) and K9 (B=1024
-on bf16 inputs) are held to equal bits with the FP32 outputs. K2 (B=256 N=30 and
+weight gradients), K4 (B=256 N=30: its tile pass keeps the FP32 pass's sums and
+fn's k order), K7 (B=160, with distances) and K9 (B=1024 on bf16 inputs) are held
+to equal bits with the FP32 outputs. K2 (B=256 N=30 and
 B=32 N=150, eval and dropout 0.5), K5 (B=160 N=150 k=20 and N=13 k=5 in phase
 29's four configurations, ``idx`` and distances too) and K8 on K5's ``idx`` are
 reported apart (keys ``bf16_``): each output's largest difference from the
@@ -189,13 +192,15 @@ def main(argv=None):
             bf16[k] = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item(),
                        int((a != b).sum().item()), b.numel()]
     bf16_bits = all(v[1] == 0 for v in bf16.values())
+    added = sorted(k for k in mine["ptxas"] if k not in theirs["ptxas"] and "bf16" in k)
     ptx = sorted(k for k in set(theirs["ptxas"]) | set(mine["ptxas"])
-                 if theirs["ptxas"].get(k) != mine["ptxas"].get(k))
+                 if theirs["ptxas"].get(k) != mine["ptxas"].get(k) and k not in added)
     print(json.dumps({"root": args.root, "against": args.against,
                       "tensors": len(theirs["outputs"]) - len(bf16), "not_bit_identical": differ,
                       "bf16_diff_over_max_n_differing_numel": bf16,
                       "bf16_reported_bit_identical": bf16_bits,
                       "kernels": len(theirs["ptxas"]), "ptxas_differs": ptx,
+                      "bf16_kernels_added": added,
                       "ptxas_lines_differing": {k: [theirs["ptxas"].get(k), mine["ptxas"].get(k)]
                                                 for k in ptx}}))
     if differ or ptx:

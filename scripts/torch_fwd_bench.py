@@ -30,11 +30,15 @@ output over the whole batch) and launched twice for equal bits. One JSON object 
 are used (default: the one that holds this script), and ``--label`` goes into
 every line, so that two checkouts run in turns on one card can be told apart.
 
-``--bf16`` times the bf16 modes of K2 and K4 instead (the bf16 training steps'
-shapes: K2 with dropout 0.5 and eval at B=256 N=30, the flagship, and at B=32
-N=150, 150p dense; K4 at B=256 N=30), on the same inputs rounded to bf16, each
-held to its plain version within ``chip_smoke.BF16_TOL`` (rtol = atol) on the
-whole batch; no K9 or generation rows (both run in float32).
+``--bf16`` times the bf16 modes of K2, K4 and K9 instead (the bf16 training
+steps' shapes: K2 with dropout 0.5 and eval at B=256 N=30, the flagship, and at
+B=32 N=150, 150p dense; K4 at B=256 N=30, its fn output 3 as the flagship G's
+last MP layer; K9, the bf16 GAPT step's D-step generator, at B=1024 and B=4096
+N=30 masked), on the same inputs rounded to bf16, each held to its plain version
+within ``chip_smoke.BF16_TOL`` (rtol = atol) on the whole batch; no generation
+rows (generation runs in float32). With ``--phases`` K4's rows split its warps'
+clocks into K2's phases and its fn's (the grid-wide barrier and the weights'
+copies, the first layer's FMA chains, the mma.sync layers).
 
 With ``--plain`` every kernel row also gives its plain version's time on the
 whole batch (best of 3), ``plain_ms``.
@@ -59,9 +63,10 @@ import torch
 TOL = 1e-4
 PHASES = ("rows_a0", "fwd_hidden", "fwd_last", "unused_wgrad", "unused_da", "unused_rebuild",
           "tail", "in_products_wait", "in_products_loop", "in_products_epilogue", "search")
-CLOCK_SLOTS = 22  # edge_products.cuh: kPhaseCount; slots 11-14 split the search
+CLOCK_SLOTS = 25  # edge_products.cuh: kPhaseCount; slots 11-14 split the search
 TILE_PHASES = ("wait", "rows_a0", "mma_loops", "hidden_epilogues", "last_layer",
-               "receiver_adds", "search")  # slots 15-21: the bf16 forward's warp tiles
+               "receiver_adds", "search", "fn_wait", "fn_first_layer",
+               "fn_mma_layers")  # slots 15-24: the bf16 forward's warp tiles (22-24: K4's fn)
 GAPT_PHASES = ("qkv", "out", "ff", "fc", "attention", "tail")  # gapt_fused.cu: GaptPhase
 GAPT_SLOTS = 9
 CHECK_JETS = 16
@@ -101,7 +106,7 @@ def phase_shares(build, fn_name="mpgan_edge_aggregate_phase_clocks"):
     senders (thread 0) and the rest, which the warps' own clocks split into keys,
     selection and outputs."""
     buf = read_clocks(build, fn_name, CLOCK_SLOTS)
-    tile = buf[15:22]
+    tile = buf[15:25]
     if any(tile):
         # the bf16 forward's warp tiles (edge_fwd_bf16_tiles.cuh): every warp's own
         # clocks, so the shares are of the warps' time, waits included
@@ -132,8 +137,8 @@ def gapt_phase_shares(build):
     return out
 
 
-def bf16_rows(cs, mk, dev, report, phases):
-    """The bf16 modes of K2 and K4 at the bf16 training steps' shapes."""
+def bf16_rows(cs, mk, gk, dev, report, phases):
+    """The bf16 modes of K2, K4 and K9 at the bf16 training steps' shapes."""
     shares = (lambda build: phase_shares(build, "mpgan_edge_aggregate_bf16_phase_clocks")) \
         if phases else phase_shares
     for b, n in ((256, 30), (32, 150)):
@@ -154,6 +159,24 @@ def bf16_rows(cs, mk, dev, report, phases):
                    lambda: mk.edge_aggregate_fn_reference(*a), shares)
         del u1, u2, mask, hidden, x, fn, a
         torch.cuda.empty_cache()
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training.config import from_args_dict
+
+    g = build_suite(from_args_dict(cs.GAPT)).generator(torch.Generator().manual_seed(30),
+                                                       device=dev)
+    w = gk.GaptWeights(*cs.to_bf16(*g.fused_weights()))
+    for b in (1024, 4096):
+        x, mask = cs.to_bf16(*cs.gapt_kernel_inputs(dev, g, b, True, seed=b + 1))
+        a = (x, mask, w, g.cfg.num_heads, 0.2)
+        with torch.no_grad():
+            out = gk.gapt_g_fused(*a)
+            flops = cs.gapt_flops(b, 30, g.cfg.embed_dim, g.cfg.sab_layers, g.cfg.feat_size)
+            report("gapt_g_fused_bf16", f"B={b} N=30 E=64 H=4 L=4 masked",
+                   lambda: gk.gapt_g_fused(*a), lambda: gk.gapt_g_fused_reference(*a),
+                   cs.bound(flops, cs.nbytes(x, mask, out, *w))["bound_ms"],
+                   lambda: gk.gapt_g_fused_reference(*a), lambda build: None)
+        del x, mask, a, out
+        torch.cuda.empty_cache()
 
 
 def main(argv=None):
@@ -163,7 +186,7 @@ def main(argv=None):
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--plain", action="store_true")
-    ap.add_argument("--bf16", action="store_true", help="time the bf16 modes of K2 and K4")
+    ap.add_argument("--bf16", action="store_true", help="time the bf16 modes of K2, K4 and K9")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_fwd_bench: no CUDA device available")
@@ -215,7 +238,7 @@ def main(argv=None):
                              f"bit-identical {same}")
 
     if args.bf16:
-        bf16_rows(cs, mk, dev, report, args.phases)
+        bf16_rows(cs, mk, gk, dev, report, args.phases)
         return
     j = CHECK_JETS
     for fe, tag in ((cs.FE, ""), ([128, 256], " fe 128 256")):

@@ -12,10 +12,12 @@ a step, the idle share and the backward kernels' rows. One JSON object a line.
 
 ``--bf16`` times instead the bf16 steps (``--compute-dtype bfloat16``) as the
 training loop runs them, on CUDA graphs (``--epoch-scan``): the flagship at
-B=256 and knn-20 at B=128 on routes 4 and 3 (``MPGAN_TPU_KNN_KERNEL=3``), an
+B=256, knn-20 at B=128 on routes 4 and 3 (``MPGAN_TPU_KNN_KERNEL=3``) and GAPT at
+B=512 (K9 in its bf16 mode for the D step's fake batch), an
 epoch of ``chip_smoke.GRAPH_STEPS`` batches that captures, then wall ms a step
 (the best of ``--reps`` epochs) and a ``torch.profiler`` epoch: device ms a
-step, idle share and kernels a step (``chip_smoke.epoch_profile``).
+step, idle share and kernels a step (``chip_smoke.epoch_profile``); ``--paths``
+names some of them (flagship, knn20, knn20_route3, gapt).
 
 ``--root`` names the checkout whose ``chip_smoke.py`` and ``mpgan_tpu_torch``
 are used (default: the one that holds this script), and ``--label`` goes into
@@ -39,6 +41,8 @@ def main(argv=None):
     ap.add_argument("--label", default="tree")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--bf16", action="store_true", help="time the bf16 graph steps")
+    ap.add_argument("--paths", default="flagship,knn20,knn20_route3,gapt",
+                    help="the bf16 graph steps to time, comma-separated")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_step_bench: no CUDA device available")
@@ -72,7 +76,10 @@ def bf16_graph_steps(cs, from_args_dict, dev, card, args):
 
     for name, model, batch, route in (("flagship", cs.FLAGSHIP, 256, None),
                                       ("knn20", cs.KNN150, 128, None),
-                                      ("knn20_route3", cs.KNN150, 128, "3")):
+                                      ("knn20_route3", cs.KNN150, 128, "3"),
+                                      ("gapt", cs.GAPT, 512, None)):
+        if name not in args.paths.split(","):
+            continue
         cs.set_knn_route(route)
         try:
             margs = from_args_dict({**model, "compute_dtype": "bfloat16"})

@@ -118,20 +118,39 @@ def test_edge_aggregate_function_bf16_grads_match_jax(dropout_p):
         _close(t.grad, j, scaled=True)
 
 
+@pytest.mark.parametrize("fn_case", ["small", "flagship_fn_32", "flagship_fn_3"])
 @pytest.mark.parametrize("sum_agg,final_linear", [(True, True), (False, False)])
-def test_edge_aggregate_fn_bf16_reference_matches_pallas(sum_agg, final_linear):
+def test_edge_aggregate_fn_bf16_reference_matches_pallas(sum_agg, final_linear, fn_case):
     """K4: fn's first layer takes the float32 aggregate and f32(x) with the bf16
-    weights' values, later layers bf16-rounded inputs (``mp_pallas._fn_tail``)."""
-    u1, u2, mask, hidden, _ = _inputs(13)
+    weights' values, later layers bf16-rounded inputs (``mp_pallas._fn_tail``); at
+    widths that are no multiples of 16, and at the flagship's (fe [96, 160, 192], fn
+    [224, 256, 256] to the first MP layer's 32 and the last one's 3, as the bf16 D+G
+    step's G runs it), at B=2 N=8. At the flagship's widths fn sums 224 and 256
+    bf16-rounded inputs, so an input one rounding apart moves an output by 2^-8 of a
+    term, not of the output: held on the scale of the largest output, as the card
+    tests hold K4's bf16 mode."""
+    if fn_case == "small":
+        n, feat, fn_widths = 13, 5, (20, 7)
+        u1, u2, mask, hidden, _ = _inputs(n)
+    else:
+        n, feat = 8, 32
+        fn_widths = (256, 256, 32 if fn_case == "flagship_fn_32" else 3)
+        u1, u2, mask, hidden, _ = _inputs(n, widths=(96, 160, 192))
     rng = np.random.RandomState(5)
-    f = lambda *s: (rng.randn(*s) * 0.3).astype(np.float32)  # noqa: E731
-    x = f(2, 13, 5)
-    fn = (f(12, 20), f(5, 20), f(20), f(20, 7), f(7))
+    f = lambda *s, scale=0.3: (rng.randn(*s) * scale).astype(np.float32)  # noqa: E731
+    x = f(2, n, feat)
+    k = hidden[-1].shape[0] + feat
+    scale = 0.3 if fn_case == "small" else k ** -0.5
+    fn = [f(hidden[-1].shape[0], fn_widths[0], scale=scale), f(feat, fn_widths[0], scale=scale),
+          f(fn_widths[0])]
+    for a, c in zip(fn_widths[:-1], fn_widths[1:]):
+        fn += [f(a, c, scale=0.3 if fn_case == "small" else a ** -0.5), f(c)]
     j = jmpp.edge_aggregate_fn(_jb(u1), _jb(u2), _jb(mask), tuple(map(_jb, hidden)), _jb(x),
                                tuple(map(_jb, fn)), 0.2, sum_agg, 32, 0.1, final_linear)
     t = tmk.edge_aggregate_fn(_tb(u1), _tb(u2), _tb(mask), tuple(map(_tb, hidden)), _tb(x),
                               tuple(map(_tb, fn)), 0.2, sum_agg, 0.1, final_linear)
-    _close(t, j)
+    assert t.shape == (2, n, fn_widths[-1])
+    _close(t, j, scaled=fn_case != "small")
 
 
 def test_wrappers_refuse_a_mix_of_dtypes():

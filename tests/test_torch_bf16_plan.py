@@ -1,14 +1,16 @@
 """The bf16 forward pass's plans (``csrc/edge_fwd_bf16_tiles.cuh``) on the CPU.
 
-K2's, K5's and K8's bf16 launches run a pass in which a warp takes 16 pair rows
-through the whole chain, the weights resident in shared memory. Its plan
+K2's, K4's, K5's and K8's bf16 launches run a pass in which a warp takes 16 pair
+rows through the whole chain, the weights resident in shared memory; K4 then runs
+fn on tiles of 16 receivers after a grid-wide barrier. Its plan
 (``mp_kernels.bf16_tile_plan``, ``knn_kernels.bf16_tile_plan``) is made in
 Python; these tests walk it as the kernel does (CTAs' contiguous item ranges,
-the warps in turn, K5's search chunks, 16-row tiles) and hold it to what the
-kernel needs: every pair row once, each receiver's rows in the 8-row groups of
-the FP32 plan's row order (so the sums are the FP32 pass's), a receiver's
-group sums added in the FP32 pass's order, and the shared memory at the published
-widths as worked out by hand.
+the warps in turn, K5's search chunks, 16-row tiles, K4's fn tiles in rounds of
+its slots) and hold it to what the kernel needs: every pair row once, each
+receiver's rows in the 8-row groups of the FP32 plan's row order (so the sums are
+the FP32 pass's), a receiver's group sums added in the FP32 pass's order, every
+receiver in one fn tile, and the shared memory at the published widths as worked
+out by hand.
 """
 
 import numpy as np
@@ -215,7 +217,7 @@ def test_chains_at_kmaxwidth_take_column_chunks_or_the_packed_copy(dims, residen
     assert plan.width == (mk.tile_class(dims) if resident else 256)
     assert 1 <= plan.warps <= mk.tile_warps(plan.width)
     assert plan.smem_bytes <= mk.MAX_SMEM_BYTES
-    assert (mk.fwd_packed_floats_bf16(dims, 128) * 4 <= plan.smem_bytes) == resident
+    assert (mk.fwd_packed_floats_bf16(dims) * 4 <= plan.smem_bytes) == resident
 
 
 def test_width_classes_and_warps():
@@ -226,3 +228,86 @@ def test_width_classes_and_warps():
     assert [mk.tile_warps(w) for w in mk.TILE_CLASSES] == [16, 16, 12]
     with pytest.raises(ValueError):
         mk.tile_class([257])
+
+
+# (batch, n, fe, fn): K4's bf16 launches: the flagship G's two layers in the bf16 D+G
+# step (fn [224, 256, 256, 32] and [224, 256, 256, 3]) at B=256, the card tests' shapes
+# (a 601-jet batch, odd widths, a wide chain of 64-row passes, no hidden layer) and a
+# batch whose receivers end inside an fn tile
+K4 = [(256, 30, FE, [224, 256, 256, 32]), (256, 30, FE, [224, 256, 256, 3]),
+      (601, 30, FE, [224, 256, 256, 32]), (33, 13, [30, 50, 7], [13, 13, 3]),
+      (2, 45, [64, 256, 224], [256, 256, 8]), (3, 5, [96], [112, 20]),
+      (7, 30, FE, [224, 256, 256, 3])]
+
+
+@pytest.mark.parametrize("batch,n,fe,fn", K4)
+def test_k4_tile_rows_cover_every_pair_once_in_the_fp32_order(batch, n, fe, fn):
+    """K4's first phase is K2's pass on K4's FP32 row order (its own plan's sender
+    chunk and receivers a pass), so its float32 aggregates are that pass's."""
+    plan = mk.bf16_tile_plan(batch, n, fe, SMS, fn)
+    fp32 = mk.fwd_plan(batch, n, fe, SMS, fn)
+    assert plan.jc == fp32.jc and plan.rs == fp32.rs
+    assert plan.ti * plan.rs % 8 == 0 or plan.ti == fp32.ti
+    assert plan.items == -(-batch * n // plan.ti) and plan.grid == min(SMS, plan.items)
+    assert plan.warps % mk.FN_SLOT_WARPS == 0 and 1 <= plan.fn_slots <= plan.warps // 4
+    _check_rows(plan, batch, n, fp32.ti)
+
+
+@pytest.mark.parametrize("batch,n,fe,fn", K4)
+def test_k4_fn_tiles_take_every_receiver_once(batch, n, fe, fn):
+    """fn's tiles, walked as fn_phase walks them (CTA c's tiles c, c + grid, ... in
+    rounds of fn_slots slots), hold every receiver once; a CTA takes at most one
+    round more than another."""
+    plan = mk.bf16_tile_plan(batch, n, fe, SMS, fn)
+    total = batch * n
+    tiles = -(-total // mk.FN_TILE_ROWS)
+    seen, rounds = [], []
+    for cta in range(plan.grid):
+        count = (tiles - 1 - cta) // plan.grid + 1 if cta < tiles else 0
+        rounds.append(-(-count // plan.fn_slots))
+        for r in range(rounds[-1]):
+            for slot in range(plan.fn_slots):
+                i = r * plan.fn_slots + slot
+                if i < count:
+                    tile = cta + i * plan.grid
+                    seen.extend(range(16 * tile, min(16 * tile + 16, total)))
+    assert sorted(seen) == list(range(total))
+    assert max(rounds) - min(rounds) <= 1
+
+
+def test_k4_shared_memory_by_hand():
+    """K4's flagship launch (fe [96, 160, 192], fn [224, 256, 256, 3], B=256): the
+    first phase is K2's layout with a table of 16 layers (64 floats); the second
+    holds the largest staged layer (256 x 256 bf16 fragments: 32,768 floats; the
+    first layer's 224 rows of 256 bf16 are 28,672), a bias of 256, four slots of a
+    tile's rows (224 x 16 floats) and one layer's A fragments (256 columns of 16 rows
+    in bf16: 2,048 floats), and the mbarrier; the larger of the two, 217 KB, is the
+    launch's."""
+    plan = mk.bf16_tile_plan(256, 30, FE, SMS, [224, 256, 256, 3])
+    flagship = (96 * 160 + 160 * 192) // 2, 160 + 192
+    first = _smem_by_hand(*flagship, work=_warp_regions(16, 160)) + 4 * 32
+    second = 4 * (256 * 256 // 2 + 256 + 4 * (224 * 16 + 16 * 256 // 2) + 4)
+    assert (plan.resident, plan.warps, plan.fn_slots) == (True, 16, 4)
+    assert first < second == plan.smem_bytes == 222_224 <= mk.MAX_SMEM_BYTES
+    assert mk.fn_smem_bytes([224, 256, 256, 3], 4) == second
+    # fn's packed copy after fe's: the first layer's rows at M padded to 64, the
+    # later ones in fragments, then the biases
+    fn_floats = 224 * 256 // 2 + 256 * 256 // 2 + 256 * 8 // 2 + 256 + 256 + 4
+    assert mk.fwd_packed_floats_bf16(FE, [224, 256, 256, 3]) == sum(flagship) + fn_floats
+
+
+@pytest.mark.parametrize("batch,n,fe,fn", K4)
+def test_k4_takes_the_most_slots_that_fit(batch, n, fe, fn):
+    """The plan runs the most warps (a multiple of 4) whose first phase fits, then
+    the most fn slots whose second phase fits: one more slot does not."""
+    plan = mk.bf16_tile_plan(batch, n, fe, SMS, fn)
+    assert plan.smem_bytes <= mk.MAX_SMEM_BYTES
+    if plan.fn_slots < plan.warps // 4:
+        assert mk.fn_smem_bytes(fn, plan.fn_slots + 1) > mk.MAX_SMEM_BYTES
+
+
+def test_k4_refuses_fn_widths_past_the_cap():
+    """fn's layers share the kernels' width cap (kMaxWidth): a wider one is refused
+    where the plan is made, as fill_chain refuses it in the launcher."""
+    with pytest.raises(ValueError, match="exceed the kernel cap"):
+        mk.bf16_tile_plan(4, 30, FE, SMS, [224, 300, 3])

@@ -555,6 +555,43 @@ def test_edge_aggregate_fn_bf16_matches_plain_twice(dev, sum_agg, final_linear, 
     assert torch.equal(out, again)
 
 
+def _k4_bits():
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("torch_k4_bf16_bits",
+                                                  root / "scripts" / "torch_k4_bf16_bits.py")
+    kb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kb)
+    return kb, root / "tests" / "data" / "k4_bf16_fp32_pass.npz"
+
+
+def test_edge_aggregate_fn_bf16_equals_the_fp32_pass_bit_for_bit(dev):
+    """K4's bf16 mode on the tile pass (its aggregate as K2's, fn's first layer as
+    FMA chains in the FP32 pass's k order, the later layers on the same mma.sync
+    operands in the same order) equals what the FP32 pass's bf16 mode gave on the
+    same seeded inputs (``scripts/torch_k4_bf16_bits.py``'s cases: the flagship G's
+    two MP layers at the bf16 step's batch, odd widths, a wide chain, no hidden
+    layer), one launch a call, within the bf16 rules of the plain version and bit for
+    bit on a rerun."""
+    import numpy as np
+
+    kb, saved = _k4_bits()
+    want = np.load(saved)
+    assert sorted(want.files) == sorted(kb.CASES)
+    for name in kb.CASES:
+        args = kb.case_args(name, dev)
+        before = mk.launch_counts["edge_aggregate_fn_bf16"]
+        out = mk.edge_aggregate_fn(*args)
+        torch.cuda.synchronize()
+        assert mk.launch_counts["edge_aggregate_fn_bf16"] == before + 1
+        bits = out.view(torch.int16).cpu().numpy().view(np.uint16)
+        assert np.array_equal(bits, want[name]), (name, int((bits != want[name]).sum()))
+        assert torch.equal(out, mk.edge_aggregate_fn(*args))
+        _assert_bf16_close(out, mk.edge_aggregate_fn_reference(*args), scaled=True)
+
+
 def test_bf16_packed_sizes_on_the_card_equal_the_launchers(dev):
     """The wrappers' sizes of the bf16 mode's packed weights are the launchers' own."""
     lib = _build.library()
@@ -562,29 +599,36 @@ def test_bf16_packed_sizes_on_the_card_equal_the_launchers(dev):
     for dims, fn_dims in (([96, 160, 192], None), ([96, 160, 192], [224, 256, 256, 3]),
                           ([30, 50, 7], [13, 13, 3]), ([96], [112, 20]),
                           ([250, 255, 256, 249, 200], None)):
+        assert lib.mpgan_edge_fwd_packed_floats_bf16(
+            len(dims) - 1, arr(dims), len(fn_dims) - 1 if fn_dims else 0,
+            arr(fn_dims or [0])) == mk.fwd_packed_floats_bf16(dims, fn_dims)
         for rows in (32, 64, 128):
-            assert lib.mpgan_edge_fwd_packed_floats_bf16(
-                len(dims) - 1, arr(dims), len(fn_dims) - 1 if fn_dims else 0,
-                arr(fn_dims or [0]), rows) == mk.fwd_packed_floats_bf16(dims, rows, fn_dims)
             assert lib.mpgan_edge_bwd_packed_floats_bf16(len(dims) - 1, arr(dims), rows) == \
                 mk.bwd_packed_floats_bf16(dims, rows)
 
 
 def test_bf16_tile_plans_shared_memory_equal_the_launchers(dev):
-    """The bf16 forward pass's plans (K2's, K5's, K8's) lay out the shared memory
-    as the launcher does (mpgan_bf16_tile_smem), resident or not."""
+    """The bf16 forward pass's plans (K2's, K4's, K5's, K8's) lay out the shared
+    memory as the launcher does (mpgan_bf16_tile_smem), resident or not."""
     lib = _build.library()
     sms = mk._sm_count(dev)
     arr = lambda d: (ctypes.c_int * len(d))(*d)  # noqa: E731
-    plans = [(dims, n, 0, 0, mk.bf16_tile_plan(b, n, dims, sms)) for b, n, dims in BF16_SHAPES]
+    plans = [(dims, n, 0, 0, None, mk.bf16_tile_plan(b, n, dims, sms))
+             for b, n, dims in BF16_SHAPES]
+    for b, n, dims, fn in ((256, 30, [96, 160, 192], [224, 256, 256, 3]),
+                           (33, 13, [30, 50, 7], [13, 13, 3]), (2, 45, [64, 256, 224], [256, 8]),
+                           (3, 5, [96], [112, 20])):
+        plans.append((dims, n, 0, 0, fn, mk.bf16_tile_plan(b, n, dims, sms, fn)))
     for b, n, c, widths, k in KNN_SHAPES:
         for search in (True, False):
-            plans.append((widths, n, c, k, kk.bf16_tile_plan(b, n, c, k, widths, sms, search)))
-    for dims, n, c, k, plan in plans:
+            plans.append((widths, n, c, k, None,
+                          kk.bf16_tile_plan(b, n, c, k, widths, sms, search)))
+    for dims, n, c, k, fn, plan in plans:
         search = plan.sspan_items > 0
         assert lib.mpgan_bf16_tile_smem(
             len(dims) - 1, arr(dims), k or n, n, c, k, int(search), plan.width, plan.warps,
-            int(plan.resident), plan.ti, plan.jc, plan.sspan_items) == plan.smem_bytes
+            int(plan.resident), plan.ti, plan.jc, plan.sspan_items, len(fn) - 1 if fn else 0,
+            arr(fn or [0]), plan.fn_slots) == plan.smem_bytes
 
 
 def test_bf16_function_grads_match_plain_and_take_the_weights_dtype(dev):
@@ -1436,6 +1480,52 @@ def test_gapt_fused_bf16_widens_runs_k9_and_rounds(dev, b, masked):
     _assert_bf16_close(out, ref)
     with pytest.raises(TypeError, match="all-float32 or all-bfloat16"):
         gk.gapt_g_fused(x, m16, w, 4, 0.2)
+
+
+@pytest.mark.parametrize("b,n,e,heads,masked", [
+    (256, 30, 64, 4, True),   # the item path (the bf16 GAPT step's fake batch is 512)
+    (37, 30, 64, 4, False),   # items ending short
+    (3, 300, 64, 4, True),    # the per-jet path, qkv in device scratch
+    (5, 9, 10, 5, True),      # the per-jet path's scalar loads (E not a multiple of 4)
+])
+def test_gapt_fused_bf16_entry_is_one_kernel_on_both_paths(dev, b, n, e, heads, masked):
+    """K9's bf16 entry reads the bf16 tensors itself: a call launches K9 once (its
+    count) and runs no torch operator but allocations (a ``TorchDispatchMode``
+    records them; a cast is ``aten._to_copy``), on the item path and the per-jet
+    path; its output is the FP32 launch's on the widened inputs, rounded, twice
+    bit for bit."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from mpgan_tpu_torch.ops import gapt_kernels as gk
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    g = _gapt(dev, n, e, heads, 2, masked)
+    x, mask = _gapt_inputs(dev, b, n, e, masked, seed=b + n)
+    w = gk.GaptWeights(*_bf16(*g.fused_weights()))
+    x16, m16 = x.bfloat16(), None if mask is None else mask.bfloat16()
+    path = gk.gapt_plan(b, n, e, heads, mk._sm_count(dev)).jets > 0
+    assert path == (n == 30)
+    with torch.no_grad():
+        before = mk.launch_counts["gapt_g_fused_bf16"]
+        with Ops() as mode:
+            out = gk.gapt_g_fused(x16, m16, w, heads, 0.2)
+        assert mk.launch_counts["gapt_g_fused_bf16"] == before + 1
+        assert mode.ops and all(o in ("aten.empty.memory_format", "aten.empty_strided.default")
+                                for o in mode.ops), mode.ops
+        again = gk.gapt_g_fused(x16, m16, w, heads, 0.2)
+        wide = gk.gapt_g_fused(x16.float(), None if m16 is None else m16.float(),
+                               gk.GaptWeights(*(t.float() for t in w)), heads, 0.2)
+        torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    assert torch.equal(out, wide.bfloat16())
 
 
 def test_backward_kernels_build_and_run_with_phase_clocks(dev):
