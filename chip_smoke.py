@@ -242,6 +242,28 @@ Phases, each printed as it finishes:
     --compute-dtype bfloat16`` on knn-20 (routes 4 and 3) and GAPT, 2 epochs
     and a resume, with the counts set to 0 before each run and the predicted
     bf16 launches read after (every bf16 kernel of the path launched).
+30. multi-device (``parallel/mesh.py``). (a) An NCCL mesh of one rank on the
+    card: the flagship D+G step at B=256 (dropout 0.5), the bf16 flagship step,
+    the knn-20 step at B=128 and the GAPT step at B=512, each given the same
+    draws, equal bit for bit to the step without a mesh (an all-reduce over one
+    rank and a division by 1 are exact), with the reduce's bucket bytes; a
+    5-batch flagship epoch on the captured CUDA graph, the all-reduce inside
+    it, equal bit for bit to the eager mesh epoch; the graph step with and
+    without the mesh in turns, and the reduce's device ms from a profile;
+    ``cli.train --mesh-shape 1`` for 2 epochs and a resume for a third (counts
+    set to 0 before, read after: K2 with dropout, K3 with and without weight
+    gradients and K4 launched); ``cli.gen --mesh-shape 1``'s 50,000 jets equal
+    to ``--mesh-shape 0``'s. (b) A gloo mesh of two ranks sharing the card
+    (``make_mesh(devices=[cuda:0, cuda:0])``, two spawned processes): the
+    flagship D+G step at a global B=256 (128 a rank) on the kernel path
+    against the same 2-rank step on the CPU (the kernels' plain versions) from
+    the same state, shards and per-rank draws, losses and gradients within
+    phase 8's tolerances and the updated parameters where the gradient is clear
+    of zero within 1e-4, the parameters bit-identical across the ranks; the
+    2-rank sampler at B=4096 against one rank's within rtol = atol = 1e-4, the
+    mask column equal; the step's wall time (gloo stages through the host:
+    recorded, no target). Two NCCL ranks cannot share one card, so the
+    many-rank reduce is held to the JAX package on the CPU (tests).
 
 Every kernel's entry in the JSON line carries its bound: the larger of its
 FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
@@ -3574,6 +3596,325 @@ def bf16_knn_gapt_phase(kk, gk, mk, train_cli, dev, card, from_args_dict, tmp):
     return worst, identical, times, launches, steps
 
 
+# ---------------------------------------------------------------------------
+# 30. multi-device: the mesh (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+# phase 30 (a)'s mesh-of-one steps against the step without a mesh: card, batch
+MESH_STEPS = {"flagship": (FLAGSHIP, 256),
+              "flagship_bf16": ({**FLAGSHIP, "compute_dtype": "bfloat16"}, 256),
+              "knn20": (KNN150, 128), "gapt": (GAPT, 512)}
+MESH_TURNS = ("plain", "mesh", "mesh", "plain")
+
+
+def step_draws(args, data, seed):
+    """A D+G step's draws on ``data``'s device from a CPU generator seeded ``seed``:
+    the same values at every call (the dropout keys too, drawn as the step asks)."""
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training import train_step as tts
+
+    gen = torch.Generator().manual_seed(seed)
+    cfg, spec = tts.step_config(args), build_suite(args).noise
+    move = lambda t: t.to(data.device)  # noqa: E731
+    return (tts.map_draws(move, tts.host_draw_d(gen, cfg, spec, data)),
+            tts.map_draws(move, tts.host_draw_g(gen, cfg, spec, data.shape[0])))
+
+
+def drawn_step(state, args, data, labels, draws, mesh):
+    """One D step and one G step with the given draws, on ``mesh`` or none: the
+    loss parts."""
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training.train_step import d_step, g_step, step_config
+
+    cfg, spec = step_config(args), build_suite(args).noise
+    parts = d_step(state, cfg, spec, data, labels, draws=draws[0], mesh=mesh)
+    parts.update(g_step(state, cfg, spec, data, labels, draws=draws[1], mesh=mesh))
+    return parts
+
+
+def state_tensors(state):
+    return [t for m in (state.g, state.d) for t in (*m.parameters(), *m.buffers())]
+
+
+def mesh_of_one_steps(mesh, dev, from_args_dict):
+    """Phase 30 (a): each MESH_STEPS step on the mesh of one equals the step
+    without a mesh, given the same draws, bit for bit; the reduce's bytes a step."""
+    res = {}
+    for name, (card, batch) in MESH_STEPS.items():
+        args = from_args_dict(card)
+        data, labels = (t.to(dev) for t in real_batch(batch, card["num_hits"]))
+        out = {}
+        for which in ("plain", "mesh"):
+            st = make_state(args, dev)
+            parts = drawn_step(st, args, data, labels, step_draws(args, data, 5),
+                               mesh if which == "mesh" else None)
+            out[which] = ({k: v.item() for k, v in parts.items()}, state_tensors(st))
+        same = out["plain"][0] == out["mesh"][0] and all(
+            torch.equal(a, b) for a, b in zip(out["plain"][1], out["mesh"][1]))
+        res[name] = {"batch": batch, "bit_identical": same, "losses": out["mesh"][0],
+                     "bucket_bytes": mesh.bucket_bytes()}
+        if not same:
+            raise SystemExit(f"phase 30: the {name} step on a mesh of one differs from the step "
+                             "without a mesh")
+    return res
+
+
+def mesh_trainer(args, dev, tmp, name, scan, mesh):
+    from mpgan_tpu_torch.training.config import from_args_dict
+    from mpgan_tpu_torch.training.loop import Trainer
+
+    a = from_args_dict(args.to_dict(), apply_processing=False)
+    a.name, a.dir_path, a.epoch_scan, a.load_model = name, str(tmp), scan, False
+    a.override_load_check = True
+    return Trainer(a, device=dev, mesh=mesh)
+
+
+def mesh_graph_epochs(mesh, dev, from_args_dict, tmp, card):
+    """Phase 30 (a): a flagship epoch of GRAPH_STEPS batches on the captured graph
+    (the NCCL all-reduce inside it) against the eager mesh epoch, bit for bit;
+    then the graph step with and without the mesh in turns, and the reduce's
+    device time from a profile of a mesh epoch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpgan_tpu_torch.data.loader import BatchLoader
+    from mpgan_tpu_torch.parallel.mesh import pmean_
+
+    args = from_args_dict(FLAGSHIP)
+    args.batch_size = 256
+    data, labels = graph_data(args, GRAPH_STEPS * 256)
+    runs = {}
+    for name, scan, m in (("eager", False, mesh), ("mesh", True, mesh), ("plain", True, None)):
+        t = mesh_trainer(args, dev, tmp, f"mesh_epoch_{name}", scan, m)
+        loader = BatchLoader(data, labels if t.use_labels else None, batch_size=256,
+                             shuffle=True, seed=args.seed)
+        t.train_epoch(1, loader)
+        runs[name] = (t, loader)
+    (te, _), (tg, _) = runs["eager"], runs["mesh"]
+    same, rel = state_diff(te.state, tg.state)
+    keys = te.d_loss_keys + ["G"]
+    losses_same = all(te.losses[k] == tg.losses[k] for k in keys)
+    if not same or not losses_same or tg.graphs.captures != 1 or not tg.graphs.replays:
+        raise SystemExit(f"phase 30: the captured mesh epoch differs from the eager one (bit "
+                         f"for bit {same}, max rel {rel}, losses {losses_same}, captures "
+                         f"{tg.graphs.captures})")
+    ms = {"plain": [], "mesh": []}
+    epoch = 1
+    for which in MESH_TURNS:
+        epoch += 1
+        t, loader = runs[which]
+        ms[which].append(timed_epoch(t, epoch, loader))
+    t, loader = runs["mesh"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t.train_epoch(epoch + 1, loader)
+        torch.cuda.synchronize()
+    reduce_ms = busy = 0.0
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt > 0 and ev.self_cpu_time_total == 0:
+            busy += dt / 1e3
+            if "nccl" in ev.key.lower():
+                reduce_ms += dt / 1e3
+    steps = len(loader)
+    # the reduce alone, as the D step runs it: D's gradients and 3 loss parts
+    grads = [q.grad for q in t.state.d.parameters()] + [torch.zeros((), device=dev)] * 3
+    pmean_ms = best_ms(lambda: pmean_(grads, mesh, "timing"), inner=10)
+    res = {"batch": 256, "steps": steps, "bit_identical": same, "losses_equal": losses_same,
+           "pmean_d_ms": pmean_ms,
+           "captures": tg.graphs.captures, "replays": tg.graphs.replays,
+           "graph_step_ms_mesh": ms["mesh"], "graph_step_ms_plain": ms["plain"],
+           "nccl_device_ms_per_step": reduce_ms / steps, "device_ms_per_step": busy / steps,
+           "bucket_bytes": mesh.bucket_bytes()}
+    log("mesh_graph_epoch", card=card, **res)
+    return res
+
+
+def mesh_cli(mk, train_cli, gen_cli, mesh, tmp, card):
+    """Phase 30 (a): ``cli.train --mesh-shape 1`` for 2 epochs and a resume for a
+    third (counts set to 0 before, read after: K2 with dropout, K3 with and
+    without weight gradients and K4 launched), then ``cli.gen --mesh-shape 1``'s
+    50,000 jets against ``--mesh-shape 0``'s from the same seed, bit for bit."""
+    from mpgan_tpu_torch.models.mpgan import MPGenerator
+    from mpgan_tpu_torch.training.config import build_mpgan_generator, from_args_dict
+    from mpgan_tpu_torch.utils.weights import mp_generator_to_reference_sd
+
+    argv = ["--device", "cuda", "--name", "mesh", "--model", "mpgan", "--jets", "g",
+            "--dir-path", str(tmp), "--num-samples", "4000", "--eval-tot-samples", "2000",
+            "--w1-num-samples", "1000", "--save-model-epochs", "1", "--save-epochs", "2",
+            "--mesh-shape", "1"]
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    t1 = train_cli.main(argv + ["--num-epochs", "2"])
+    wall = time.perf_counter() - t0
+    t2 = train_cli.main(argv + ["--num-epochs", "3"])
+    counts = dict(mk.launch_counts)
+    losses = {k: t2.losses[k] for k in ("Dr", "Df", "D", "G")}
+    finite = all(np.isfinite(v).all() for v in losses.values())
+    log("mesh_train_cli", card=card, wall_s_2_epochs=wall, mesh=[t1.mesh.size, t1.mesh.backend],
+        resumed_from=t2.start_epoch, epochs=len(t2.losses["G"]), losses=losses,
+        w1m=t2.losses["w1m"], captures=t1.graphs.captures + t2.graphs.captures,
+        launches={k: v for k, v in counts.items() if v})
+    if (t1.mesh.size, t1.mesh.backend) != (mesh.size, mesh.backend) or t2.start_epoch != 2 \
+            or not finite or t2.losses["G"][:2] != t1.losses["G"] or not t1.graphs.captures:
+        raise SystemExit(f"cli.train --mesh-shape 1: mesh {t1.mesh}, resumed from "
+                         f"{t2.start_epoch}, losses {losses}, captures {t1.graphs.captures}")
+    for name in ("edge_aggregate_train", "edge_aggregate_bwd", "edge_aggregate_bwd_no_wgrads",
+                 "edge_aggregate_fn"):
+        if counts[name] == 0:
+            raise SystemExit(f"kernel {name} never launched on the mesh's train path")
+
+    args = from_args_dict(FLAGSHIP)
+    (tmp / "card.txt").write_text(repr(args.to_dict()))
+    g = MPGenerator(build_mpgan_generator(args), torch.Generator().manual_seed(0))
+    torch.save(mp_generator_to_reference_sd(g), tmp / "G.pt")
+    jets, walls = {}, {}
+    for shape in ("0", "1"):
+        out = tmp / f"gen_{shape}.npy"
+        t0 = time.perf_counter()
+        gen_cli.main(["--g-args", str(tmp / "card.txt"), "--g-state", str(tmp / "G.pt"),
+                      "--output-file", str(out), "--device", "cuda", "--seed", "0",
+                      "--num-samples", "50000", "--batch-size", "4096", "--mesh-shape", shape])
+        walls[shape] = time.perf_counter() - t0
+        jets[shape] = np.load(out)
+    equal = np.array_equal(jets["0"], jets["1"])
+    log("mesh_gen_cli", card=card, jets=list(jets["1"].shape), bit_identical=equal,
+        wall_s={f"mesh_shape_{k}": v for k, v in walls.items()})
+    if jets["1"].shape != (50000, 30, 3) or not np.isfinite(jets["1"]).all() or not equal:
+        raise SystemExit("cli.gen --mesh-shape 1 differs from --mesh-shape 0")
+    return counts
+
+
+def mesh_rank(p):
+    """Phase 30 (b), one rank of a gloo mesh of two ranks on one card: the
+    flagship D+G step at the global batch ``p["batch"]`` (this rank's half) on
+    the kernel path, then the same 2-rank step on the CPU (the kernels' plain
+    versions) from the same state, shard and per-rank draws; its wall time on
+    the card; and the 2-rank sampler. Returns what the parent compares."""
+    from mpgan_tpu_torch.parallel.mesh import make_mesh
+    from mpgan_tpu_torch.training.config import from_args_dict
+    from mpgan_tpu_torch.training.sampling import generate_multi_batch
+    from mpgan_tpu_torch.utils.weights import jax_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(devices=[dev, dev])
+    args = from_args_dict(FLAGSHIP)
+    data, labels = real_batch(p["batch"])
+    rows = mesh.rows(p["batch"])
+    data, labels = data[rows], labels[rows]
+    out = {"backend": mesh.backend, "rank": mesh.rank}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        st = make_state(args, device)
+        use_kernels(st, True)  # the CPU runs the kernels' plain versions: the same masks
+        x, lab = data.to(device), labels.to(device)
+        parts = drawn_step(st, args, x, lab, step_draws(args, x, 100 + mesh.rank), mesh)
+        params = jax_leaves(st.d, True) + jax_leaves(st.g, True)
+        out[side] = {"losses": {k: v.item() for k, v in parts.items()},
+                     "grads": [q.grad.detach().cpu() for q in params],
+                     "params": [q.detach().cpu() for q in params]}
+    # the step's wall time on the card (gloo stages its reduces through the host)
+    st = make_state(args, dev)
+    x, lab = data.to(dev), labels.to(dev)
+    walls = []
+    for i in range(4):
+        draws = step_draws(args, x, 200 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drawn_step(st, args, x, lab, draws, mesh)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["step_wall_ms"] = walls[1:]
+    g = make_state(args, dev).g
+    lab_all = p["sampler_labels"]
+    t0 = time.perf_counter()
+    jets = generate_multi_batch(g, p["spec"], torch.Generator(device=dev).manual_seed(7),
+                                len(lab_all), p["sampler_batch"], labels=lab_all, mesh=mesh)
+    out["sampler_wall_s"] = time.perf_counter() - t0
+    out["jets"] = jets
+    return out
+
+
+def mesh_two_ranks(dev, from_args_dict, card):
+    """Phase 30 (b): two ranks of gloo on one card (``make_mesh(devices=[cuda:0,
+    cuda:0])``). The 2-rank step on the card against the 2-rank step on the CPU
+    (losses and gradients within phase 8's rtol = atol = 1e-4, gradients of
+    max(1, max|ref|); the updated parameters where the gradient is clear of
+    zero, 1e-3, within 1e-4 too, RMSprop's first step being about 10 * lr *
+    sign(g)); the parameters bit-identical across the ranks; the 2-rank
+    sampler against one rank's at rtol = atol = 1e-4, the mask column equal."""
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.parallel.mesh import launch
+    from mpgan_tpu_torch.training.sampling import generate_multi_batch
+
+    args = from_args_dict(FLAGSHIP)
+    spec = build_suite(args).noise
+    lab = real_batch(8192)[1].numpy()
+    p = {"batch": 256, "spec": spec, "sampler_labels": lab, "sampler_batch": 4096}
+    t0 = time.perf_counter()
+    ranks = launch(mesh_rank, 2, "cuda", p)
+    wall = time.perf_counter() - t0
+    single = generate_multi_batch(make_state(args, dev).g, spec,
+                                  torch.Generator(device=dev).manual_seed(7), len(lab), 4096,
+                                  labels=lab)
+    res = {"seconds": wall, "backend": [r["backend"] for r in ranks],
+           "step_wall_ms": [r["step_wall_ms"] for r in ranks],
+           "sampler_wall_s": [r["sampler_wall_s"] for r in ranks]}
+    bad = []
+    for r in ranks:
+        c, h = r["card"], r["cpu"]
+        loss_err = max(abs(c["losses"][k] - h["losses"][k]) / max(1.0, abs(h["losses"][k]))
+                       for k in h["losses"])
+        grad_ok = all(ok for _, ok in (wgrad_err(a, b) for a, b in zip(c["grads"], h["grads"])))
+        param_err = max(((a - b).abs() * (g.abs() > 1e-3)).max().item()
+                        for a, b, g in zip(c["params"], h["params"], h["grads"]))
+        sampler_abs, _, sampler_bad = errors(torch.as_tensor(r["jets"]), torch.as_tensor(single))
+        mask_equal = np.array_equal(r["jets"][..., -1], single[..., -1])
+        res[f"rank{r['rank']}"] = {
+            "losses_card": c["losses"], "losses_cpu": h["losses"], "max_rel_loss_err": loss_err,
+            "grads_within_tol": grad_ok, "max_param_err_where_grad_clear": param_err,
+            "sampler_max_abs_err": sampler_abs, "sampler_out_of_tol": sampler_bad,
+            "sampler_mask_column_equal": mask_equal}
+        if loss_err > TOL or not grad_ok or param_err > TOL or sampler_bad or not mask_equal:
+            bad.append(r["rank"])
+    same = all(torch.equal(a, b) for side in ("card", "cpu")
+               for a, b in zip(ranks[0][side]["params"], ranks[1][side]["params"]))
+    res["params_bit_identical_across_ranks"] = same
+    log("mesh_two_ranks", card=card, **res)
+    if bad or not same or res["backend"] != ["gloo", "gloo"]:
+        raise SystemExit(f"phase 30: the 2-rank gloo step or sampler disagrees (ranks {bad}, "
+                         f"parameters equal across ranks {same})")
+    return res
+
+
+def mesh_phase(mk, train_cli, gen_cli, dev, card, from_args_dict, tmp):
+    """Phase 30: the mesh. (a) an NCCL mesh of one rank at full width: the steps
+    against no mesh, the captured epoch against the eager one, the CLIs; (b) a
+    gloo mesh of two ranks on the card against the same mesh on the CPU."""
+    from mpgan_tpu_torch.parallel.mesh import close, make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(1)
+    if mesh.backend != "nccl":
+        raise SystemExit(f"phase 30: a mesh of one card runs {mesh.backend}, not nccl")
+    steps = mesh_of_one_steps(mesh, dev, from_args_dict)
+    log("mesh_of_one_steps", card=card, steps=steps)
+    epochs = mesh_graph_epochs(mesh, dev, from_args_dict, tmp, card)
+    counts = mesh_cli(mk, train_cli, gen_cli, mesh, tmp, card)
+    torch.cuda.synchronize()
+    close()  # the NCCL world of one ends; phase (b)'s ranks make their own
+    log("mesh_of_one_closed", seconds=time.perf_counter() - t0)
+    two = mesh_two_ranks(dev, from_args_dict, card)
+    log("mesh", card=card, seconds=time.perf_counter() - t0,
+        graph_step_ms_mesh=min(epochs["graph_step_ms_mesh"]),
+        graph_step_ms_plain=min(epochs["graph_step_ms_plain"]),
+        nccl_device_ms_per_step=epochs["nccl_device_ms_per_step"],
+        pmean_d_ms=epochs["pmean_d_ms"],
+        bucket_bytes=epochs["bucket_bytes"], gloo_two_rank_step_wall_ms=two["step_wall_ms"])
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -3808,7 +4149,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         mnist_launches, mnist_err, mnist_times, mnist_runs = mnist_phase(
             mk, dev, card, identical, pathlib.Path(tmp))
-    later = [zoo_launches, all_launches, mnist_launches]  # phases 23, 25, 26
+    later = [zoo_launches, all_launches, mnist_launches]  # phases 23, 25, 26 (30 below)
     # 27. the static-buffer steps and the samplers as CUDA graphs
     with tempfile.TemporaryDirectory() as tmp:
         graph_phase(mk, train_cli, dev, card, from_args_dict, pathlib.Path(tmp))
@@ -3820,6 +4161,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         kb_worst, kb_identical, kb_times, kb_launches, kb_steps = bf16_knn_gapt_phase(
             kk, gk, mk, train_cli, dev, card, from_args_dict, pathlib.Path(tmp))
+    # 30. the mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_launches = mesh_phase(mk, train_cli, gen, dev, card, from_args_dict,
+                                   pathlib.Path(tmp))
+    later.append(mesh_launches)
 
     def bf16_row(name, jobs):
         """The bf16 mode inside a kernel's row: its launches in phase 28, worst

@@ -7,7 +7,9 @@ sample jets on ``--device``, unnormalize with the per-jet-type feature maxima
 A PCGAN card's latents are decoded by the ``G_pc`` in the card's
 ``pcgan_weights_dir`` (the JAX ``gen`` does not decode them, and fails there).
 On a GPU every batch after the first replays one captured CUDA graph of G's
-forward (``training/sampling.py``).
+forward (``training/sampling.py``). ``--mesh-shape M`` generates on ``M``
+ranks (``parallel/mesh.py``), each running G on its rows of every batch, with
+the single-device output; rank 0 saves it.
 
     python -m mpgan_tpu_torch.cli.gen --g-args card.txt --g-state G.pt \\
         --num-samples 50000 --output-file gen_jets.npy --device cuda
@@ -26,6 +28,7 @@ import torch
 from ..data.jetnet import JetNetDataset
 from ..data.normalize import FPND_FEATURE_MAXES
 from ..models.registry import build_suite, pcgan_weight_path
+from ..parallel.mesh import Mesh, launch, make_mesh
 from ..training import checkpoint as ckpt
 from ..training.config import Args, from_args_txt
 from ..training.optimizers import build_optimizer
@@ -62,9 +65,29 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--output-file", type=str, default="./gen_jets.npy")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda", help="torch device, e.g. cuda or cpu")
+    parser.add_argument(
+        "--mesh-shape", type=int, default=0,
+        help="shard generation over this many devices (0 = single device); "
+        "outputs equal the single device's (training/sampling.py)",
+    )
     ns = parser.parse_args(argv)
 
     device = _device(ns.device)
+    if not ns.mesh_shape:
+        return generate(ns, device)
+    if ns.batch_size % ns.mesh_shape:
+        raise SystemExit(
+            f"--batch-size {ns.batch_size} not divisible by --mesh-shape {ns.mesh_shape}")
+    launch(_generate_rank, ns.mesh_shape, device.type, ns, device.type)
+
+
+def _generate_rank(ns: argparse.Namespace, device_type: str) -> None:
+    mesh = make_mesh(ns.mesh_shape, device_type=device_type)
+    generate(ns, mesh.device, mesh)
+
+
+def generate(ns: argparse.Namespace, device: torch.device, mesh: Mesh | None = None) -> None:
+    """Generate, unnormalise and (on rank 0) save the jets ``ns`` asks for."""
     args = from_args_txt(ns.g_args)
     weights_dir = args.get("pcgan_weights_dir") or None
     suite = build_suite(args, pcgan_weights_dir=weights_dir)
@@ -94,9 +117,11 @@ def main(argv: list[str] | None = None) -> None:
 
     generator = torch.Generator(device=device).manual_seed(ns.seed)
     gen_jets = generate_multi_batch(
-        g, spec, generator, ns.num_samples, ns.batch_size, labels=labels,
+        g, spec, generator, ns.num_samples, ns.batch_size, labels=labels, mesh=mesh,
         post_fn=suite.decode_eval,
     ).astype(np.float64)
+    if mesh is not None and not mesh.is_main:
+        return
 
     # unnormalize (gen.py:127-133)
     maxes = FPND_FEATURE_MAXES.get(args.jets, FPND_FEATURE_MAXES["g"])

@@ -31,8 +31,16 @@ random-trunk FPND and is not comparable to published values. ``--aug-*``,
 ``--profile``, ``--debug`` and ``--debug-nans`` run as in the JAX package
 (``training/loop.py``). ``--compute-dtype bfloat16`` trains in bf16 on
 float32 master weights (``training/train_step.py``), on every path, the knn
-and GAPT kernels' included. Not ported yet, and refused: multi-device training
-(ROADMAP.md Queue 1).
+and GAPT kernels' included.
+
+``--mesh-shape M`` trains data-parallel on ``M`` ranks (``parallel/mesh.py``):
+rank ``r`` on ``cuda:r`` (NCCL), or on the CPU with ``--device cpu`` (gloo).
+Run alone, the command spawns the ranks itself; under ``torchrun
+--nproc-per-node M`` each process is one rank. Spawned ranks give :func:`main`
+their losses, a list in rank order, where one process returns its trainer.
+
+    python -m mpgan_tpu_torch.cli.train --name dp2 --mesh-shape 2
+    torchrun --nproc-per-node 2 -m mpgan_tpu_torch.cli.train --name dp2 --mesh-shape 2
 """
 
 from __future__ import annotations
@@ -86,7 +94,32 @@ def main(argv: list[str] | None = None):
     device, rest = parse_device(argv)
     args = parse_cli(rest)
     init_logging(args.log, args.log_file)  # before the card reload, in the reference's order
-    return run(_reload_args_on_resume(args), device)
+    return launch_run(run, _reload_args_on_resume(args), device)
+
+
+def launch_run(run_fn, args, device: torch.device):
+    """``run_fn(args, device)`` in this process (its trainer), or with
+    ``--mesh-shape`` above 1, outside a ``torchrun`` world, on every rank of
+    the mesh in spawned processes (``parallel.mesh.launch``): the ranks'
+    losses."""
+    from ..parallel.mesh import in_world, launch
+    from ..training.loop import check_supported, mesh_size
+
+    m = mesh_size(args)
+    if m <= 1 or in_world():
+        return run_fn(args, device)
+    check_supported(args)  # before any rank starts
+    return launch(_rank_losses, m, device.type, run_fn, args, device.type)
+
+
+def _rank_losses(run_fn, args, device_type: str) -> dict:
+    """One rank's run; rank 0 logs as configured, the others their warnings."""
+    from ..parallel.mesh import world_rank
+    from ..utils.logging_utils import init_logging
+
+    main_rank = world_rank() == 0
+    init_logging(args.log if main_rank else "WARNING", args.log_file if main_rank else "")
+    return run_fn(args, torch.device(device_type)).losses
 
 
 def fpnd_hook(args, device: torch.device | str):

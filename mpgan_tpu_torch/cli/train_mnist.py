@@ -9,7 +9,8 @@ The flags are ``cli.train``'s, with its ``--device`` pre-flag (default
 and the jets' default of 30 hits becomes 75; ``--num-hits`` picks the 75- or
 100-brightest-pixel variant. Without ``mnist_train.csv``/``mnist_test.csv``
 under ``--datasets-path`` the run trains on synthetic clouds drawn from a
-seed; without ``--mnist-eval-resources`` it computes no FID.
+seed; without ``--mnist-eval-resources`` it computes no FID. ``--mesh-shape M``
+trains on ``M`` ranks, as ``cli.train`` does.
 """
 
 from __future__ import annotations
@@ -19,11 +20,9 @@ import sys
 
 
 def main(argv: list[str] | None = None):
-    from ..data.mnist import MNISTGraphDataset
-    from ..training.mnist_loop import MNISTDatasetView, MNISTTrainer
     from ..utils.logging_utils import init_logging
     from .args import parse_cli
-    from .train import parse_device
+    from .train import launch_run, parse_device
 
     device, rest = parse_device(argv)
     args = parse_cli(rest)
@@ -35,6 +34,13 @@ def main(argv: list[str] | None = None):
     if args.num_hits == 30:  # the jets' default; MNIST uses 75 or 100 pixels
         args.num_hits = 75
     init_logging(args.log, args.log_file)
+    return launch_run(run, args, device)
+
+
+def run(args, device):
+    """Train on the MNIST clouds from processed ``args``; returns the trainer."""
+    from ..data.mnist import MNISTGraphDataset
+    from ..training.mnist_loop import MNISTDatasetView, MNISTTrainer
 
     data_dir = args.datasets_path or None
     train_ds = MNISTDatasetView(

@@ -52,9 +52,17 @@ flag touches training only. It runs every family: the dense and knn edge
 kernels (K2-K8) have bf16 modes, and K9 takes bf16 inputs as the JAX wrapper
 does.
 
-Refused at start with ``NotImplementedError`` (not ported yet, see
-ROADMAP.md): a device mesh or multi-GPU; the batched real+fake D pass is no
-flag of the loop.
+``--mesh-shape M`` trains data-parallel on a mesh of ``M`` ranks
+(``parallel/mesh.py``; the JAX loop's ``shard_map`` epoch): every rank stages
+the whole dataset, shuffles it alike and steps on its contiguous ``B/M`` rows
+of every global batch, the steps averaging gradients, losses and model state
+over the ranks; a batch that ``M`` does not divide is refused. Rank 0 writes
+the args card, checkpoints, losses, plots and the best epoch; the evaluation
+generates on the mesh and rank 0 scores it, its results then sent to every
+rank. On cards of their own (NCCL) the static steps capture their reduce in
+the CUDA graph; with gloo (the CPU, or ranks sharing a card) they run
+uncaptured. ``--multi-gpu`` is the config check alone, as in the JAX package.
+The batched real+fake D pass is no flag of the loop.
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ from ..data.jetnet import gen_jet_corrections
 from ..data.loader import BatchLoader
 from ..evaluation import cov_mmd, efps, fpd, w1efp, w1m, w1p
 from ..models.registry import build_suite, pcgan_weight_path
+from ..parallel.mesh import Mesh, broadcast_modules, make_mesh
 from ..utils import plotting
 from . import checkpoint as ckpt
 from .config import Args
@@ -88,17 +97,17 @@ from .train_step import (
 
 logger = logging.getLogger(__name__)
 
-_REFUSED_FLAGS = {
-    "mesh_shape": "multi-device training (ROADMAP.md Queue 1, multi-device)",
-    "multi_gpu": "multi-device training (ROADMAP.md Queue 1, multi-device)",
-}
+
+def mesh_size(args: Args) -> int:
+    """``--mesh-shape`` as a number of ranks (0: no mesh)."""
+    return int(args.get("mesh_shape") or 0)
 
 
 def check_supported(args: Args) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    for key, what in _REFUSED_FLAGS.items():
-        if args.get(key):
-            raise NotImplementedError(f"--{key.replace('_', '-')}: {what} is not ported yet")
+    """Raise ``ValueError`` for a ``--mesh-shape`` that does not divide the batch."""
+    m = mesh_size(args)
+    if m > 1 and args.batch_size % m:
+        raise ValueError(f"--batch-size {args.batch_size} is not divisible by --mesh-shape {m}")
 
 
 def _corrected(unnorm: np.ndarray, use_mask: bool, **kwargs):
@@ -119,13 +128,18 @@ def _nan_check_hook(name: str):
 class Trainer:
     def __init__(self, args: Args, train_dataset: Any = None, valid_dataset: Any = None,
                  device: torch.device | str = "cuda",
-                 fpnd_fn: Callable[..., float] | None = None):
+                 fpnd_fn: Callable[..., float] | None = None, mesh: Mesh | None = None):
         """``fpnd_fn(gen_jets, jet_type, real_jets)`` computes FPND
         (``evaluation.fpnd.make_fpnd_fn``); ``--fpnd`` without it adds no FPND,
-        as in the JAX loop."""
+        as in the JAX loop. ``mesh`` defaults to one of ``--mesh-shape`` ranks
+        on ``device``'s type; the trainer then runs on the rank's device."""
         check_supported(args)
         self.args = args
-        self.device = torch.device(device)
+        if mesh is None and mesh_size(args):
+            mesh = make_mesh(mesh_size(args), device_type=torch.device(device).type)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        self.device = torch.device(device) if mesh is None else mesh.device
         self.train_dataset = train_dataset
         self.valid_dataset = valid_dataset
         self.fpnd_fn = fpnd_fn
@@ -141,12 +155,14 @@ class Trainer:
                 "A model directory of this name already exists, either change the name or use "
                 "the --override-load-check flag"
             )
+        if mesh is not None:  # every rank has looked before any makes the directory
+            mesh.barrier()
         for d in (self.models_dir, self.losses_dir, self.figs_dir):
             d.mkdir(parents=True, exist_ok=True)
 
         # resume detection before the args card, which only a fresh run writes
         self.start_epoch = ckpt.latest_epoch(self.models_dir) if args.get("load_model", True) else 0
-        if self.start_epoch == 0:
+        if self.start_epoch == 0 and self.is_main:
             (self.out_dir / f"{args.name}_args.txt").write_text(str(args.to_dict()))
 
         # the reference's eval-time use_mask gate (train.py:703), quirk included
@@ -180,6 +196,8 @@ class Trainer:
             ckpt.load_train_state(ckpt.checkpoint_path(self.models_dir, self.start_epoch),
                                   self.state)
             logger.info(f"resumed from epoch {self.start_epoch}")
+        if mesh is not None:
+            broadcast_modules([g, d], mesh)
         if args.get("debug_nans"):
             for module, label in ((g, "G"), (d, "D")):
                 for name, sub in module.named_modules():
@@ -211,10 +229,18 @@ class Trainer:
         # --mask-epoch thresholds of the modules that read the model epoch
         self._mask_thresholds = sorted({int(m.cfg.mask_epoch) for m in (g, d)
                                         if getattr(m, "reads_epoch", False)})
+        capture = self.device.type == "cuda" and (mesh is None or mesh.backend == "nccl")
+        if self.device.type == "cuda" and not capture:
+            logger.info("the gloo reduce stages through the host and is not captured: the "
+                        "epoch's static steps run uncaptured")
         self.graphs = StepGraphs(self.state, self.step_cfg, self.spec, self.d_loss_keys + ["G"],
                                  self.device, post_gen=self.post_gen,
-                                 encode_real=suite.encode_real,
-                                 capture=self.device.type == "cuda")
+                                 encode_real=suite.encode_real, capture=capture, mesh=mesh)
+
+    def _batch_indices(self, loader: BatchLoader) -> np.ndarray:
+        """The epoch's ``[num_batches, B]`` indices, or this rank's ``B/M`` columns."""
+        order = loader.epoch_batch_indices()
+        return order if self.mesh is None else order[:, self.mesh.rows(order.shape[1])]
 
     # -- one epoch (train.py:812-886) ----------------------------------------
 
@@ -257,9 +283,9 @@ class Trainer:
             for v in sums.values():
                 v.zero_()
             data, labels = self._static_epoch_steps(data_all, labels_all,
-                                                    loader.epoch_batch_indices())
+                                                    self._batch_indices(loader))
             return self._end_epoch(epoch, sums, num_batches, data, labels)
-        order = torch.as_tensor(loader.epoch_batch_indices(), device=self.device)
+        order = torch.as_tensor(self._batch_indices(loader), device=self.device)
         sums = {k: torch.zeros((), device=self.device) for k in self.d_loss_keys + ["G"]}
         steps = (data_all, labels_all, order, num_batches, sums)
         if args.get("debug_nans"):
@@ -299,11 +325,12 @@ class Trainer:
             if args.num_critic > 1 or batch_ndx == 0 or (batch_ndx - 1) % args.num_gen == 0:
                 for k, v in d_step(self.state, self.step_cfg, self.spec, data, labels,
                                    post_gen=self.post_gen, encode_real=self.suite.encode_real,
-                                   epoch=self.model_epoch).items():
+                                   epoch=self.model_epoch, mesh=self.mesh).items():
                     sums[k] += v
             if args.num_critic == 1 or (batch_ndx - 1) % args.num_critic == 0:
                 sums["G"] += g_step(self.state, self.step_cfg, self.spec, data, labels,
-                                    post_gen=self.post_gen, epoch=self.model_epoch)["G"]
+                                    post_gen=self.post_gen, epoch=self.model_epoch,
+                                    mesh=self.mesh)["G"]
             if args.get("break_zero") and batch_ndx == 0:
                 break
             if args.get("bottleneck") and batch_ndx == 10:
@@ -352,9 +379,13 @@ class Trainer:
     # -- checkpoint + evaluation (train.py:686-809) ---------------------------
 
     def eval_save_plot(self, epoch: int) -> None:
+        """Save the state, generate the evaluation's jets and score them. On a
+        mesh every rank generates (``generate_multi_batch(mesh=)``), rank 0
+        saves and scores, and every rank takes rank 0's losses and best epoch."""
         args = self.args
         state_path = ckpt.checkpoint_path(self.models_dir, epoch)
-        ckpt.save_train_state(state_path, self.state)
+        if self.is_main:
+            ckpt.save_train_state(state_path, self.state)
 
         if self.suite.model == "pcgan" and self.suite.decode_eval is None:
             raise FileNotFoundError(
@@ -373,9 +404,23 @@ class Trainer:
         labels = ds.jet_data[sel] if self.use_labels else None
         gen_norm = generate_multi_batch(
             self.state.g, self.spec, torch.Generator(device=self.device).manual_seed(epoch),
-            n_eval, args.batch_size, labels=labels, post_fn=self.eval_post_fn,
+            n_eval, args.batch_size, labels=labels, mesh=self.mesh, post_fn=self.eval_post_fn,
             **epoch_kwargs(self.state.g, self._epoch_phase(self.model_epoch)),
         )
+        if self.is_main:
+            self._score(epoch, state_path, n_eval, real_jets, real_mask, gen_norm)
+        self._share_losses()
+
+    def _share_losses(self) -> None:
+        """On a mesh, rank 0's losses and best epoch on every rank."""
+        if self.mesh is not None:
+            self.losses, self.best_epoch = self.mesh.broadcast_object(
+                (self.losses, self.best_epoch))
+
+    def _score(self, epoch, state_path, n_eval, real_jets, real_mask, gen_norm) -> None:
+        """The evaluation's metrics of the generated jets, their files and
+        figures, and the best epoch."""
+        args, ds = self.args, self.valid_dataset
         gen_jets, gen_mask = _corrected(ds.particle_normalisation(gen_norm, inverse=True),
                                         self.use_labels, zero_mask_particles=self.use_labels,
                                         zero_neg_pt=False)
@@ -485,7 +530,7 @@ class Trainer:
         for i in range(self.start_epoch, args.num_epochs):
             epoch = i + 1
             t0 = time.time()
-            if args.get("profile") and i == self.start_epoch:
+            if args.get("profile") and i == self.start_epoch and self.is_main:
                 self._profiled_epoch(epoch, loader)
             else:
                 self.train_epoch(epoch, loader)
@@ -496,7 +541,7 @@ class Trainer:
             )
             if epoch % args.save_epochs == 0:
                 self.eval_save_plot(epoch)
-            elif epoch % args.save_model_epochs == 0:
+            elif epoch % args.save_model_epochs == 0 and self.is_main:
                 ckpt.save_train_state(ckpt.checkpoint_path(self.models_dir, epoch), self.state)
                 ckpt.save_losses(self.losses, self.losses_dir)
 

@@ -7,7 +7,9 @@ MNIST evaluation every ``save_epochs`` (train_mnist.py:612-693): clouds
 generated on the card, their FID by the MoNet classifier on the host
 (``evaluation/mnist_fid.py``) when ``--mnist-eval-resources`` names the
 shipped resources, the cloud raster and the FID curve, and the best epoch by
-FID instead of FPD.
+FID instead of FPD. On a mesh (``--mesh-shape``) the clouds are generated on
+every rank (``mpgan_tpu/training/mnist_loop.py:54-59``) and rank 0 saves,
+scores and plots, as in the jet loop.
 """
 
 from __future__ import annotations
@@ -53,12 +55,20 @@ class MNISTTrainer(Trainer):
     def eval_save_plot(self, epoch: int) -> None:
         args = self.args
         state_path = ckpt.checkpoint_path(self.models_dir, epoch)
-        ckpt.save_train_state(state_path, self.state)
+        if self.is_main:
+            ckpt.save_train_state(state_path, self.state)
 
         n_eval = args.get("fid_eval_samples", 8192)
         gen_clouds = generate_multi_batch(
             self.state.g, self.spec, torch.Generator(device=self.device).manual_seed(epoch),
-            n_eval, args.batch_size, **epoch_kwargs(self.state.g, self.model_epoch))
+            n_eval, args.batch_size, mesh=self.mesh,
+            **epoch_kwargs(self.state.g, self.model_epoch))
+        if self.is_main:
+            self._score_mnist(epoch, state_path, n_eval, gen_clouds)
+        self._share_losses()
+
+    def _score_mnist(self, epoch: int, state_path, n_eval: int, gen_clouds: np.ndarray) -> None:
+        args = self.args
 
         if self.resources_path is not None:
             fid = get_fid(gen_clouds, args.num_hits, args.mnist_num, self.resources_path,

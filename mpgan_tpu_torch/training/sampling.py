@@ -20,6 +20,9 @@ the advanced state there.
 time; on a GPU it captures that forward into a CUDA graph and replays it a
 batch, and keeps the graph for later calls (the counterpart of the JAX
 sampler's one-dispatch ``lax.scan`` and its ``_SAMPLER_CACHE``).
+On a mesh every rank draws each batch's whole noise and runs G on its own
+rows of it; the ranks' rows are gathered at the end, so the output is the
+single-device output (``mpgan_tpu/training/sampling.py:105-146``).
 """
 
 from __future__ import annotations
@@ -124,25 +127,28 @@ class _StaticSampler:
     noise and the labels are written into them before each run. On a GPU the
     first run is ordinary, on a side stream, and the second captures the
     forward into a CUDA graph that every later run replays; on the CPU every
-    run is ordinary."""
+    run is ordinary. The noise is the whole batch's, G runs on its ``rows``."""
 
     def __init__(self, g, spec: NoiseSpec, batch_size: int, labels: torch.Tensor | None,
-                 post_fn: PostFn | None, g_kwargs: dict, device: torch.device):
+                 post_fn: PostFn | None, g_kwargs: dict, device: torch.device,
+                 rows: slice = slice(None)):
         self.device, self.spec = device, spec
         self.noise = torch.empty((batch_size,) + spec.shape, device=device)
         self.points = None
         if post_fn is not None and spec.point_shape is not None:
             self.points = torch.empty((batch_size,) + spec.point_shape, device=device)
         self.labels = None if labels is None else torch.empty(
-            (batch_size,) + tuple(labels.shape[1:]), dtype=labels.dtype, device=device)
+            (len(range(batch_size)[rows]),) + tuple(labels.shape[1:]), dtype=labels.dtype,
+            device=device)
         self.capture = device.type == "cuda"
         self.graph: CountedGraph | None = None
         self.runs = 0
         g_ref = weakref.ref(g)  # the cache is keyed on g: no reference back to it
 
         def forward():
-            out = g_ref()(self.noise * spec.std, self.labels, update_sn=False, **g_kwargs)
-            return out if post_fn is None else post_fn(out, self.points)
+            out = g_ref()(self.noise[rows] * spec.std, self.labels, update_sn=False, **g_kwargs)
+            return out if post_fn is None else post_fn(
+                out, None if self.points is None else self.points[rows])
         self._forward = forward
 
     def __call__(self, generator: torch.Generator, labels: torch.Tensor | None) -> torch.Tensor:
@@ -183,8 +189,14 @@ def generate_multi_batch(
     ``point_noise`` is drawn after each batch's noise when ``spec`` has a
     ``point_shape`` and ``post_fn`` is given, else None. ``g_kwargs`` go to
     every generator call (``epoch=`` for the legacy model). Outputs stay on
-    the device and reach the host in one copy at the end. Sharding over
-    several devices (``mesh``) comes with DDP.
+    the device and reach the host in one copy at the end.
+
+    With ``mesh`` (a :class:`..parallel.mesh.Mesh`) every rank draws each
+    batch's noise (and point noise) whole from ``generator``, as one device
+    does, runs G on its ``batch_size / M`` rows and gets every rank's rows by
+    one ``all_gather`` at the end: the single-device output on every rank. A
+    batch size that ``M`` does not divide falls back to every rank generating
+    the whole batch (``mpgan_tpu/training/sampling.py:179-180``).
 
     With ``static`` (the default) each batch runs on a kept
     :class:`_StaticSampler` (a CUDA graph's replay on a GPU), keyed as the JAX
@@ -193,10 +205,9 @@ def generate_multi_batch(
     The weights are read in place, so a kept graph follows training; a load
     drops it (:func:`drop_samplers`). ``static=False`` runs the eager loop, the
     reference the static path is held to bit for bit."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device generation comes with DDP, ROADMAP.md Queue 1, multi-device"
-        )
+    if mesh is not None and batch_size % mesh.size:
+        mesh = None  # the batch does not split: every rank generates all of it
+    rows = slice(None) if mesh is None else mesh.rows(batch_size)
     device = _device_of(g)
     num_batches = (num_samples + batch_size - 1) // batch_size
     labels_all = None
@@ -205,39 +216,45 @@ def generate_multi_batch(
         pad = np.repeat(labels[-1:], num_batches * batch_size - len(labels), axis=0)
         labels_all = torch.as_tensor(np.concatenate([labels, pad], axis=0), device=device)
     if static:
-        return _generate_static(g, spec, generator, num_samples, batch_size, labels_all,
-                                post_fn, g_kwargs, num_batches, device)
-    outs = []
-    with torch.inference_mode():
-        for i in range(num_batches):
-            batch_labels = None
-            if labels_all is not None:
-                batch_labels = labels_all[i * batch_size : (i + 1) * batch_size]
-            out = g(spec.sample(generator, batch_size, device), batch_labels, update_sn=False,
-                    **g_kwargs)
-            if post_fn is not None:
-                out = post_fn(out, spec.sample_points(generator, batch_size, device))
-            outs.append(out)
-        out = torch.cat(outs, dim=0)[:num_samples]
-    return out.cpu().numpy()
+        outs = _generate_static(g, spec, generator, batch_size, labels_all, post_fn, g_kwargs,
+                                num_batches, device, rows)
+    else:
+        outs = []
+        with torch.inference_mode():
+            for i in range(num_batches):
+                batch_labels = None
+                if labels_all is not None:
+                    batch_labels = labels_all[i * batch_size : (i + 1) * batch_size][rows]
+                noise = spec.sample(generator, batch_size, device)
+                out = g(noise[rows], batch_labels, update_sn=False, **g_kwargs)
+                if post_fn is not None:
+                    points = spec.sample_points(generator, batch_size, device)
+                    out = post_fn(out, None if points is None else points[rows])
+                outs.append(out)
+        outs = torch.stack(outs)
+    if mesh is not None:  # [batches, B/M, ...] a rank -> [batches, B, ...]
+        outs = torch.cat(mesh.all_gather(outs), dim=1)
+    return outs.flatten(0, 1)[:num_samples].cpu().numpy()
 
 
-def _generate_static(g, spec, generator, num_samples, batch_size, labels_all, post_fn,
-                     g_kwargs, num_batches, device) -> np.ndarray:
+def _generate_static(g, spec, generator, batch_size, labels_all, post_fn, g_kwargs,
+                     num_batches, device, rows) -> torch.Tensor:
+    """Every batch's output rows ``rows``, ``[num_batches, rows, ...]``."""
     label_key = None if labels_all is None else (tuple(labels_all.shape[1:]), labels_all.dtype)
-    key = (spec, batch_size, post_fn, label_key, tuple(sorted(g_kwargs.items())), route_key(g))
+    key = (spec, batch_size, post_fn, label_key, tuple(sorted(g_kwargs.items())), route_key(g),
+           (rows.start, rows.stop))
     with torch.inference_mode():
         kept = _SAMPLERS.setdefault(g, {})
         if key not in kept:
             kept[key] = _StaticSampler(g, spec, batch_size, labels_all, post_fn, g_kwargs,
-                                       device)
+                                       device, rows)
         sampler = kept[key]
         outs = None
         for i in range(num_batches):
-            rows = slice(i * batch_size, (i + 1) * batch_size)
-            out = sampler(generator, None if labels_all is None else labels_all[rows])
+            batch = slice(i * batch_size, (i + 1) * batch_size)
+            out = sampler(generator, None if labels_all is None else labels_all[batch][rows])
             if outs is None:
-                outs = torch.empty((num_batches * batch_size,) + tuple(out.shape[1:]),
-                                   dtype=out.dtype, device=out.device)
-            outs[rows].copy_(out)
-        return outs[:num_samples].cpu().numpy()
+                outs = torch.empty((num_batches,) + tuple(out.shape), dtype=out.dtype,
+                                   device=out.device)
+            outs[i].copy_(out)
+        return outs

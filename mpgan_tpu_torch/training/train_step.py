@@ -59,7 +59,16 @@ the output split at B (``train_step.py:199-214``): legal only where D's output
 per jet does not depend on the batch and D keeps no state across passes (no BN,
 no SN), as the JAX package documents. The loop keeps it off, as the JAX loop does.
 
-Not ported here: data-parallel steps (ROADMAP.md Queue 1, multi-device).
+Data parallelism (``mesh=``, a :class:`..parallel.mesh.Mesh`; the JAX step
+built with ``pmean_axis`` under ``shard_map``): every rank takes the step on
+its rows of the global batch, and after the backward, before the optimizer's
+update, one :func:`..parallel.mesh.pmean_` averages over the ranks the stepped
+model's gradients, the loss parts and every floating buffer of both models
+(BN running statistics, SN vectors), as ``train_step.py:244-248, 287-291`` do,
+so that the parameters and optimizer states stay replicated. Each part of a
+step draws one word from the replicated generator and takes its draws from a
+generator seeded by that word and the rank (:func:`..parallel.mesh.fold_in`,
+JAX's ``_localize``); without a mesh no word is drawn.
 """
 
 from __future__ import annotations
@@ -76,6 +85,7 @@ import torch
 from ..ops.augment import AugmentConfig, AugmentDraws, augment, draw_augment
 from ..ops.keys import GeneratorKeys, KeySlots
 from ..ops.mp_kernels import CountedGraph, graph_pool, warm_up
+from ..parallel.mesh import Mesh, fold_in, pmean_
 from .losses import d_loss, d_targets, g_loss, gp_alpha, gradient_penalty
 from .sampling import NoiseSpec, drop_samplers, route_key
 
@@ -202,15 +212,32 @@ def host_draw_g(gen: torch.Generator, cfg: StepConfig, spec: NoiseSpec,
     return GDraws(noise, keys, keys, aug)
 
 
-def draw_d(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor) -> DDraws:
+def step_generator(state: TrainState, mesh: Mesh | None) -> torch.Generator:
+    """Where a step part's draws come from: the state's generator, or with a
+    mesh this rank's generator folded from it (one word drawn)."""
+    return state.generator if mesh is None else fold_in(state.generator, mesh)
+
+
+def draw_d(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor,
+           mesh: Mesh | None = None) -> DDraws:
     return map_draws(lambda t: to_device(t, data.device),
-                     host_draw_d(state.generator, cfg, spec, data))
+                     host_draw_d(step_generator(state, mesh), cfg, spec, data))
 
 
 def draw_g(state: TrainState, cfg: StepConfig, spec: NoiseSpec, batch_size: int,
-           device) -> GDraws:
+           device, mesh: Mesh | None = None) -> GDraws:
     return map_draws(lambda t: to_device(t, device),
-                     host_draw_g(state.generator, cfg, spec, batch_size))
+                     host_draw_g(step_generator(state, mesh), cfg, spec, batch_size))
+
+
+def reduce_step(mesh: Mesh | None, model: torch.nn.Module, losses: Sequence[torch.Tensor],
+                state: TrainState, name: str) -> None:
+    """With a mesh, the step's pmean before the update: ``model``'s gradients,
+    the detached ``losses`` and both models' floating buffers, in one bucket."""
+    if mesh is not None:
+        grads = [p.grad for p in model.parameters()]
+        buffers = [b for m in (state.g, state.d) for b in m.buffers() if b.is_floating_point()]
+        pmean_(grads + list(losses) + buffers, mesh, name)
 
 
 def bf16_apply(module: torch.nn.Module, x: torch.Tensor, labels: torch.Tensor | None,
@@ -255,17 +282,18 @@ def d_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
            labels: torch.Tensor | None = None,
            draws: DDraws | Callable[[torch.Tensor], DDraws] | None = None,
            post_gen: PostGen | None = None, encode_real: PostGen | None = None,
-           epoch: int = 0) -> dict[str, torch.Tensor]:
+           epoch: int = 0, mesh: Mesh | None = None) -> dict[str, torch.Tensor]:
     """One D update; returns the loss parts ``{Dr, Df, D(, gp)}`` as device scalars.
     ``post_gen`` is applied to G's output (the ``--mask-manual`` hook, train.py:208-210),
     ``encode_real`` to the real batch. ``draws`` may be a function of the
-    (encoded) real batch that returns them."""
+    (encoded) real batch that returns them. With ``mesh`` the gradients, the
+    loss parts and both models' buffers are averaged over the ranks."""
     if encode_real is not None:
         with torch.no_grad():
             data = encode_real(data)
     if callable(draws):  # made from the (encoded) real batch
         draws = draws(data)
-    draws = draws if draws is not None else draw_d(state, cfg, spec, data)
+    draws = draws if draws is not None else draw_d(state, cfg, spec, data, mesh)
     g, d = state.g, state.d
     g_kw, d_kw = epoch_kwargs(g, epoch), epoch_kwargs(d, epoch)
     with torch.no_grad():
@@ -295,17 +323,21 @@ def d_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
         total = total + gp
     state.d_opt.zero_grad(set_to_none=True)
     total.backward()
+    parts = {k: v.detach() for k, v in parts.items()}
+    reduce_step(mesh, d, list(parts.values()), state, "d")
     state.d_opt.step()
-    return {k: v.detach() for k, v in parts.items()}
+    return parts
 
 
 def g_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor,
            labels: torch.Tensor | None = None, draws: GDraws | None = None,
-           post_gen: PostGen | None = None, epoch: int = 0) -> dict[str, torch.Tensor]:
+           post_gen: PostGen | None = None, epoch: int = 0,
+           mesh: Mesh | None = None) -> dict[str, torch.Tensor]:
     """One G update (``data`` only sets the batch size, train.py:497); returns ``{G}``.
-    ``post_gen`` and ``epoch`` as in :func:`d_step`."""
+    ``post_gen``, ``epoch`` and ``mesh`` as in :func:`d_step`."""
     batch_size = labels.shape[0] if labels is not None else data.shape[0]
-    draws = draws if draws is not None else draw_g(state, cfg, spec, batch_size, data.device)
+    draws = draws if draws is not None else draw_g(state, cfg, spec, batch_size, data.device,
+                                                   mesh)
     g, d = state.g, state.d
     fake = _apply(cfg, g, draws.noise, labels, train=True, rng=draws.g, **epoch_kwargs(g, epoch))
     if post_gen is not None:
@@ -324,8 +356,10 @@ def g_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
     loss = g_loss(cfg.loss, fake_out)
     state.g_opt.zero_grad(set_to_none=True)
     loss.backward()
+    loss = loss.detach()
+    reduce_step(mesh, g, [loss], state, "g")
     state.g_opt.step()
-    return {"G": loss.detach()}
+    return {"G": loss}
 
 
 # ---------------------------------------------------------------------------
@@ -353,18 +387,21 @@ class StaticStep:
 
     A call gives the eager step's parameters, optimizer state, loss parts and
     generator state. ``draws``, one per part, replaces the generator's draws
-    (host tensors and keys objects, e.g. a test's JAX-replay keys)."""
+    (host tensors and keys objects, e.g. a test's JAX-replay keys). With
+    ``mesh`` the body holds the steps' reduces (a captured graph holds the
+    NCCL all-reduce) and ``idx`` is this rank's rows of the batch."""
 
     def __init__(self, kind: str, state: TrainState, cfg: StepConfig, spec: NoiseSpec,
                  data_all: torch.Tensor, labels_all: torch.Tensor | None,
                  sums: dict[str, torch.Tensor], post_gen: PostGen | None = None,
-                 encode_real: PostGen | None = None, epoch: int = 0, capture: bool = False):
+                 encode_real: PostGen | None = None, epoch: int = 0, capture: bool = False,
+                 mesh: Mesh | None = None):
         if kind not in ("d", "g", "dg"):
             raise ValueError(f"step kind {kind!r}: expected d, g or dg")
         self.kind, self.state, self.cfg, self.spec = kind, state, cfg, spec
         self.data_all, self.labels_all, self.sums = data_all, labels_all, sums
         self.post_gen, self.encode_real, self.epoch = post_gen, encode_real, epoch
-        self.capture = capture
+        self.capture, self.mesh = capture, mesh
         self.device = data_all.device
         self.slots = [KeySlots(self.device) for _ in kind]
         self.calls = 0
@@ -400,17 +437,17 @@ class StaticStep:
         st, cfg, spec = self.state, self.cfg, self.spec
         if part == "d":
             out = d_step(st, cfg, spec, data, labels, draws=draws, post_gen=self.post_gen,
-                         encode_real=self.encode_real, epoch=self.epoch)
+                         encode_real=self.encode_real, epoch=self.epoch, mesh=self.mesh)
         else:
             out = g_step(st, cfg, spec, data, labels, draws=draws, post_gen=self.post_gen,
-                         epoch=self.epoch)
+                         epoch=self.epoch, mesh=self.mesh)
         for k, v in out.items():
             self.sums[k].add_(v)
 
     def _host_draws(self, i: int, like: torch.Tensor, b: int, draws: Sequence | None):
         if draws is not None and draws[i] is not None:
             return draws[i]
-        gen = self.state.generator
+        gen = step_generator(self.state, self.mesh)
         if self.kind[i] == "d":
             return host_draw_d(gen, self.cfg, self.spec, like)
         return host_draw_g(gen, self.cfg, self.spec, b)
@@ -499,14 +536,15 @@ class StepGraphs:
     on any other drops them (and their graphs) and records anew. ``capture``:
     replay CUDA graphs (all in :func:`graph_pool`), else run the bodies as they
     are (the CPU). ``captures`` and ``replays`` count the graphs' captures and
-    the steps that replayed one."""
+    the steps that replayed one. ``mesh``: the steps reduce over its ranks."""
 
     def __init__(self, state: TrainState, cfg: StepConfig, spec: NoiseSpec,
                  loss_keys: Sequence[str], device, post_gen: PostGen | None = None,
-                 encode_real: PostGen | None = None, capture: bool = False):
+                 encode_real: PostGen | None = None, capture: bool = False,
+                 mesh: Mesh | None = None):
         self.state, self.cfg, self.spec = state, cfg, spec
         self.post_gen, self.encode_real = post_gen, encode_real
-        self.capture = capture
+        self.capture, self.mesh = capture, mesh
         self.sums = {k: torch.zeros((), device=device) for k in loss_keys}
         self.steps: dict[str, StaticStep] = {}
         self.captures = self.replays = 0
@@ -524,7 +562,7 @@ class StepGraphs:
             self.steps[kind] = StaticStep(
                 kind, self.state, self.cfg, self.spec, data_all, labels_all, self.sums,
                 post_gen=self.post_gen, encode_real=self.encode_real, epoch=epoch,
-                capture=self.capture)
+                capture=self.capture, mesh=self.mesh)
         step = self.steps[kind]
         captured = step.graph is not None
         step(idx)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test worker: the suite runs in parallel workers
 
 import jax
 import jax.numpy as jnp
@@ -177,17 +178,19 @@ def test_wrappers_refuse_a_mix_of_dtypes():
 ], ids=["knn", "legacy_knn", "gapt", "gapt_d"])
 def test_bf16_refuses_the_knn_and_gapt_paths(tmp_path, flags):
     """The knn and GAPT paths, refused in bf16 until their kernels' bf16 modes
-    were ported, now pass ``check_supported`` in bf16 as in float32; what bf16
-    still refuses with them is what every dtype refuses, multi-device
-    training (the bf16 steps: tests/test_torch_bf16_knn.py and
-    tests/test_torch_bf16_gapt.py)."""
+    were ported, now pass ``check_supported`` in bf16 as in float32, with
+    ``--multi-gpu`` and a mesh too; what bf16 refuses with them is what every
+    dtype refuses, a mesh that does not split the batch (the bf16 steps:
+    tests/test_torch_bf16_knn.py and tests/test_torch_bf16_gapt.py)."""
     args = targs_cli.parse_cli(["--name", "r", "--dir-path", str(tmp_path), "--num-hits", "8",
                                 "--compute-dtype", "bfloat16", *flags])
     check_supported(args)
-    args.multi_gpu = True
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    args.multi_gpu, args.mesh_shape = True, "2"
+    check_supported(args)
+    args.mesh_shape = str(args.batch_size + 1)
+    with pytest.raises(ValueError, match="not divisible by --mesh-shape"):
         check_supported(args)
-    args.multi_gpu, args.compute_dtype = False, "float32"
+    args.multi_gpu, args.mesh_shape, args.compute_dtype = False, None, "float32"
     check_supported(args)
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test worker: the suite runs in parallel workers
 
 from mpgan_tpu.evaluation import efp as jefp
 from mpgan_tpu.evaluation import w1 as jw1

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test worker: the suite runs in parallel workers
 
 from mpgan_tpu.data import mnist as jmnist
 from mpgan_tpu.evaluation import mnist_fid as jfid

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test worker: the suite runs in parallel workers
 
 from mpgan_tpu.data.jetnet import JetNetDataset as JJetNetDataset
 from mpgan_tpu.training import config as jconfig

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test worker: the suite runs in parallel workers
 
 import jax
 
@@ -258,12 +259,17 @@ def test_train_cli_refuses_cuda_without_a_gpu(tmp_path):
     pytest.param(["--aug-t"], None, id="flags1-augment"),
     pytest.param(["--compute-dtype", "bfloat16", "--no-fully-connected", "--num-knn", "3"],
                  None, id="flags2-bf16"),
-    pytest.param(["--mesh-shape", "4"], "mesh", id="flags3-mesh"),
+    pytest.param(["--mesh-shape", "1", "--num-epochs", "1", "--save-epochs", "1"], None,
+                 id="flags3-mesh"),
+    pytest.param(["--mesh-shape", "3"], "not divisible by --mesh-shape 3", id="flags4-mesh"),
 ])
 def test_trainer_refuses_what_is_not_ported(tmp_path, flags, match):
-    """A device mesh is refused; ``--fpnd``, ``--aug-t`` and bf16 training of a
-    knn layer (``match`` None), refused until they were ported, now build and
-    are wired (bf16: tests/test_torch_bf16.py, tests/test_torch_bf16_knn.py)."""
+    """``--fpnd``, ``--aug-t``, bf16 training of a knn layer and a device mesh
+    (``match`` None), refused until they were ported, now build and are wired
+    (bf16: tests/test_torch_bf16.py, tests/test_torch_bf16_knn.py; the mesh:
+    tests/test_torch_mesh.py, tests/test_torch_mesh_loop.py): a mesh of one
+    rank trains an epoch in this process. What is refused is a batch that the
+    mesh does not split."""
     args = targs_cli.parse_cli(["--name", "r", "--dir-path", str(tmp_path), *TINY, *flags])
     train, valid = _datasets(args)
     if match is None:
@@ -272,12 +278,17 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, flags, match):
             assert t.eval_keys == ["w1p", "w1m", "fpnd"]
         elif args.compute_dtype == "bfloat16":
             assert t.step_cfg.bf16 and not t.args.fully_connected
+        elif args.mesh_shape:
+            assert t.mesh.size == 1 and t.graphs.mesh is t.mesh and t.mesh.backend == "gloo"
+            t.train()
+            assert np.isfinite(t.losses["G"]).all() and len(t.losses["w1m"]) == 1
+            assert (tmp_path / "r" / "models" / "state_1.npz").exists()
         else:
             assert t.step_cfg.augment.aug_t and not t.step_cfg.augment.aug_f
         return
-    with pytest.raises(NotImplementedError, match=match) as err:
+    with pytest.raises(ValueError, match=match) as err:
         Trainer(args, train, valid, device="cpu")
-    assert "ROADMAP" in str(err.value)
+    assert "--batch-size 16" in str(err.value)
 
 
 def test_trainer_knn_layer_is_refused_at_the_first_step(tmp_path):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one thread a test worker: the suite runs in parallel workers
 
 import jax
 import jax.numpy as jnp
@@ -124,15 +125,21 @@ def test_discriminator_config_pins_gp_configs_to_the_plain_path(card):
 def test_step_config_refuses_what_is_not_ported():
     """bf16 and the batched D pass are ported (tests/test_torch_bf16.py), bf16
     on a path that reaches the knn or GAPT kernels too
-    (tests/test_torch_bf16_knn.py, tests/test_torch_bf16_gapt.py); multi-device
-    training is refused before a step is built."""
+    (tests/test_torch_bf16_knn.py, tests/test_torch_bf16_gapt.py), and
+    multi-device training (tests/test_torch_mesh.py): ``--multi-gpu`` is the
+    config check alone, as in the JAX package, and a mesh that does not split
+    the batch is refused before a step is built."""
     assert tts.StepConfig(bf16=True, batched_d=True).bf16
     for card in (KNN, {"model": "gapt", "num_hits": 10}):
         args = tconfig.from_args_dict(dict(card, compute_dtype="bfloat16"))
         assert tts.step_config(args).bf16
         check_supported(args)
         args.multi_gpu = True
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, multi-device"):
+        check_supported(args)
+        args.mesh_shape = "2"
+        check_supported(args)
+        args.mesh_shape = "3"
+        with pytest.raises(ValueError, match=f"--batch-size {args.batch_size} is not divisible"):
             check_supported(args)
     # augmentation is ported (tests/test_torch_augment.py)
     assert tts.StepConfig(augment=AugmentConfig(aug_t=True)).augment.aug_t
