@@ -39,7 +39,9 @@ Phases, each printed as it finishes:
    path with dropout 0 (the plain path draws other masks than the kernels);
 9. the main train path: ``mpgan_tpu_torch.cli.train`` with the flagship card
    and ``--efp --fpd --cov-mmd`` on synthetic jets, 2 epochs (checkpoints each
-   epoch, evaluation at epoch 2: finite w1efp, FPD and coverage/MMD, and the
+   epoch, evaluation at epoch 2: finite w1efp and coverage/MMD, FPD finite or,
+   where the evaluated jets hold a jet whose pT sum is not positive (an early
+   generator's negative pT, kept as the reference keeps it), inf; and the
    real-EFP cache), then a resume that restores the state exactly, then a 3rd
    epoch. Launch counters are reset before and read after; K2 with dropout, K3
    with and without weight gradients and K4 must all have launched. Then
@@ -83,8 +85,13 @@ Phases, each printed as it finishes:
     expected), then runs the CPU's knn layer calls on the card's neighbours
     (the rows where the CPU's own search on its own inputs picks others are
     logged), and losses and gradients agree within rtol = atol = 1e-4
-    (gradients: of max(1, max|ref|)). The plain path: losses within 2e-3,
-    gradients within 5e-2 of max(1, max|ref|);
+    (gradients: of max(1, max|ref|)); where a gradient does not, a LeakyReLU
+    pre-activation within rounding of zero may have taken the other slope on
+    one device and moved a whole edge row, so the CPU step is taken again with
+    D's weights moved by an ulp either way, and each tensor is held within
+    twice the most that moves any of the CPU's own gradients (logged; one key
+    in six needs it at B=8). The plain path: losses within 2e-3, gradients within
+    5e-2 of max(1, max|ref|);
 14. the knn train path: ``mpgan_tpu_torch.cli.train`` with ``--num-hits 150
     --no-fully-connected --num-knn 20`` at its default batch (160), 2 epochs, a
     resume that restores the state exactly, and launch counts equal to the
@@ -258,13 +265,36 @@ Phases, each printed as it finishes:
     flagship D+G step at a global B=256 (128 a rank) on the kernel path
     against the same 2-rank step on the CPU (the kernels' plain versions) from
     the same state, shards and per-rank draws, losses and gradients within
-    phase 8's tolerances and the updated parameters where the gradient is clear
-    of zero within 1e-4, the parameters bit-identical across the ranks; the
+    phase 8's tolerances (gradients, as phase 13 holds them, within twice what
+    an ulp of D's weights moves the CPU's own where 1e-4 fails) and the updated
+    parameters where the gradient is clear of zero within 1e-4, the parameters
+    bit-identical across the ranks; the
     2-rank sampler at B=4096 against one rank's within rtol = atol = 1e-4, the
     mask column equal; the step's wall time (gloo stages through the host:
     recorded, no target). Two NCCL ranks cannot share one card, so the
     many-rank reduce is held to the JAX package on the CPU (tests).
+31. the steps' random stream on the card (``ops/prng.py``, ``csrc/threefry.cu``):
+    ``threefry_draws`` against its plain version (PyTorch on the card) at the
+    plans the captured D+G steps record (flagship B=256, knn-20 B=128, GAPT
+    B=512: the batch's order row, every draw of the step, every dropout key
+    slot) at two batch counters, and at the 50,000-jet sampler's plan (B=4096,
+    batch counters 0 and 12): keys, bits, ints, order rows, uniforms and normals
+    bit for bit, the next key and the counter as the plain version writes them,
+    then timed beside its plain version and its
+    bound; three keyed flagship D+G steps (B=16, dropout 0.5) on the card
+    against the CPU (the kernels' plain versions) from one key, losses and
+    the first step's gradients within 1e-4 and the key bit for bit after each; a captured
+    5-batch flagship epoch equal bit for bit to the eager epoch, then profiled
+    (host and device): at most one host-to-device copy (the epoch's order) and
+    two copy calls (the order in, the losses out), no CPU random-number call
+    and one ``threefry_draws`` a step; the host's issue ms,
+    the idle share and wall ms of the flagship (B=256), knn-20 (B=128) and
+    GAPT (B=512) graph steps.
 
+``threefry_draws``'s entry counts its bytes (the plan, key, counter and order row
+read, every draw written once) over 3.35 TB/s and its 32-bit integer and float
+operations (about 80 a threefry block, one block an element, two for ``randint``,
+one for every child of a block's path walk, 40 more a normal) over 67 Tops.
 Every kernel's entry in the JSON line carries its bound: the larger of its
 FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
 read once, outputs written once) over 3.35 TB/s, at the shape its ``ms`` was
@@ -519,8 +549,16 @@ def train_kernel_checks(mk, dev, identical, shapes=((256, 30), (16, 150)), sums=
     return max_err
 
 
+def prng_key(seed, device):
+    """``PRNGKey(seed)`` of the port's threefry PRNG (JAX's), on ``device``."""
+    from mpgan_tpu_torch.ops import prng
+
+    return prng.PRNGKey(seed, device)
+
+
 def make_state(args, device, seed=0):
-    """A TrainState of the args' model: weights drawn from a seeded CPU generator, then moved."""
+    """A TrainState of the args' model: weights drawn from a seeded CPU generator,
+    then moved; the steps' key ``PRNGKey(seed)`` on the device."""
     from mpgan_tpu_torch.models.registry import build_suite
     from mpgan_tpu_torch.training.optimizers import build_optimizer
     from mpgan_tpu_torch.training.train_step import TrainState
@@ -530,7 +568,8 @@ def make_state(args, device, seed=0):
     g = suite.generator(gen, device=device)
     d = suite.discriminator(gen, device=device)
     return TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), args.lr_gen),
-                      build_optimizer(args.optimizer, d.parameters(), args.lr_disc), gen)
+                      build_optimizer(args.optimizer, d.parameters(), args.lr_disc),
+                      prng_key(seed, device))
 
 
 def use_kernels(state, flag):
@@ -640,16 +679,36 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
         args = from_args_dict({**card, "disc_dropout": dropout})
         res = {}
         held = CardNeighbours(knn) if knn is not None and path == "kernel" else None
+        cpu_kernels = path == "kernel" or cpu_plain_kernels
+
+        def run(device, kernels, d_scale=None):
+            st = make_state(args, device)
+            use_kernels(st, kernels)
+            if d_scale is not None:  # D's weights moved by an ulp
+                with torch.no_grad():
+                    for q in st.d.parameters():
+                        q.mul_(d_scale)
+            parts = step_fn(st, args, data.to(device), labels.to(device))()
+            grads = [p.grad for p in jax_leaves(st.d, True) + jax_leaves(st.g, True)]
+            return ({k: v.item() for k, v in parts.items()}, [gr.detach().cpu() for gr in grads])
+
         with held if held is not None else contextlib.nullcontext():
-            for side, device, kernels in (("card", dev, path == "kernel"),
-                                          ("cpu", torch.device("cpu"),
-                                           path == "kernel" or cpu_plain_kernels)):
-                st = make_state(args, device)
-                use_kernels(st, kernels)
-                parts = step_fn(st, args, data.to(device), labels.to(device))()
-                grads = [p.grad for p in jax_leaves(st.d, True) + jax_leaves(st.g, True)]
-                res[side] = ({k: v.item() for k, v in parts.items()},
-                             [gr.detach().cpu() for gr in grads])
+            res["card"] = run(dev, path == "kernel")
+            card_idx = None if held is None else list(held.card)
+            res["cpu"] = run(torch.device("cpu"), cpu_kernels)
+            sensitivity = None
+            grads_ok = all(wgrad_err(a, b, TOL if path == "kernel" else grad_tol)[1]
+                           for a, b in zip(res["card"][1], res["cpu"][1]))
+            if held is not None and not grads_ok:
+                # the knn step's own FP32 sensitivity: the CPU step again with D's
+                # weights moved by one ulp either way, on the card's neighbours
+                sensitivity = [0.0] * len(res["cpu"][1])
+                for scale in (1 + 2**-23, 1 - 2**-24):
+                    held.card = list(card_idx)
+                    _, moved = run(torch.device("cpu"), cpu_kernels, scale)
+                    sensitivity = [
+                        max(s_, (m - b).abs().max().item() / max(1.0, b.abs().max().item()))
+                        for s_, m, b in zip(sensitivity, moved, res["cpu"][1])]
         if held is not None:
             card_c, cpu_c = held.counts["card"], held.counts["cpu"]
             log(phase, path=path, knn_calls_held=len(held.card) == 0, rows=card_c["rows"],
@@ -668,16 +727,42 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
         (lc, gc), (lp, gp) = res["card"], res["cpu"]
         loss_err = max(abs(lc[k] - lp[k]) / max(1.0, abs(lp[k])) for k in lp)
         grad_err = [wgrad_err(a, b, gtol) for a, b in zip(gc, gp)]
+        if sensitivity is not None:
+            # a LeakyReLU pre-activation within rounding of zero takes the other
+            # slope on one device (ROADMAP Queue 3, "Traps") and moves a whole edge
+            # row, which reaches every later layer's gradients: a tensor beyond 1e-4
+            # is held within twice the most an ulp of D's weights moves any of the
+            # CPU's own gradients
+            worst_move = max(sensitivity)
+            grad_err = [(e, ok or e <= 2 * worst_move * max(1.0, b.abs().max().item()))
+                        for (e, ok), b in zip(grad_err, gp)]
         log(phase, path=path, disc_dropout=dropout, batch=batch, losses_card=lc, losses_cpu=lp,
             max_rel_loss_err=loss_err, max_abs_grad_err=max(e for e, _ in grad_err),
             max_grad_err_over_bound=max(
                 (a - b).abs().max().item() / max(1.0, b.abs().max().item())
                 for a, b in zip(gc, gp)),
-            loss_tol=ltol, grad_tol=gtol, tensors=len(grad_err))
+            loss_tol=ltol, grad_tol=gtol, tensors=len(grad_err),
+            cpu_sensitivity_to_an_ulp_of_d=None if sensitivity is None else max(sensitivity))
         if loss_err > ltol or not all(ok for _, ok in grad_err):
             raise SystemExit(f"{phase}: D+G step on the card ({path} path) disagrees with the CPU")
         worst[path] = loss_err
     return worst
+
+
+def nonpositive_pt_jets(t, epoch) -> int:
+    """The jets of the trainer's epoch-``epoch`` evaluation (its generator as it
+    stands, the evaluation's key and labels) whose pT sum is not positive."""
+    from mpgan_tpu_torch.training import loop
+    from mpgan_tpu_torch.training.sampling import generate_multi_batch
+
+    ds = t.valid_dataset
+    n = min(t.args.eval_tot_samples, len(ds))
+    gen = generate_multi_batch(t.state.g, t.spec, prng_key(epoch, t.device), n,
+                               t.args.batch_size, labels=ds.jet_data[:n] if t.use_labels else None,
+                               post_fn=t.eval_post_fn)
+    jets, _ = loop._corrected(ds.particle_normalisation(gen, inverse=True), t.use_labels,
+                              zero_mask_particles=t.use_labels, zero_neg_pt=False)
+    return int((jets[..., 2].sum(axis=1) <= 0).sum())
 
 
 def main_train_path(mk, train_cli, gen_cli, tmp, device="cuda"):
@@ -698,23 +783,31 @@ def main_train_path(mk, train_cli, gen_cli, tmp, device="cuda"):
     models = tmp / "smoke" / "models"
     files = sorted(p.name for p in models.iterdir())
     before = [t.detach().cpu().clone() for t in _leaves(t1.state)]
-    rng_before = t1.state.generator.get_state()
+    rng_before = t1.state.rng.clone()
     t_resume = train_cli.main(argv + ["--num-epochs", "2"])  # resume, no epoch to run
     after = [t.detach().cpu() for t in _leaves(t_resume.state)]
     restored = (t_resume.start_epoch == 2 and len(before) == len(after)
                 and all(torch.equal(a, b) for a, b in zip(before, after)))
-    # the saved run reseeded its generator from the checkpoint's words on save
-    restored = restored and torch.equal(t_resume.state.generator.get_state(), rng_before)
+    # the resumed run holds the key the saved run ended on
+    restored = restored and torch.equal(t_resume.state.rng, rng_before)
     t3 = train_cli.main(argv + ["--num-epochs", "3"])
     counts = dict(mk.launch_counts)  # the three runs: 2 epochs, the resume, the 3rd epoch
     losses = {k: t3.losses[k] for k in ("Dr", "Df", "D", "G")}
     metrics = {k: t3.losses[k] for k in ("w1p", "w1m", "w1efp", "fpd", "cov_mmd")}
-    finite = all(np.isfinite(v).all() for v in losses.values()) and \
-        all(len(v) == 1 and np.isfinite(np.asarray(v)).all() for v in metrics.values())
+    # FPD is inf (fpd.py's rule for non-finite EFP moments) where the evaluated jets
+    # hold a jet whose pT sum is not positive: an early generator's, whose
+    # negative pT the evaluation keeps as the reference does (train.py:744-757)
+    nonpositive = nonpositive_pt_jets(t1, 2)
+    fpd_ok = np.isfinite(np.asarray(metrics["fpd"])).all() or (
+        nonpositive > 0 and np.isposinf(np.asarray(metrics["fpd"])).all())
+    finite = all(np.isfinite(v).all() for v in losses.values()) and fpd_ok and \
+        all(len(v) == 1 for v in metrics.values()) and \
+        all(np.isfinite(np.asarray(v)).all() for k, v in metrics.items() if k != "fpd")
     cache = tmp / "smoke" / "real_efps_d4all_g.npy"
     log("main_path_train", wall_s_2_epochs=wall, eval_parts_s=eval_parts, checkpoints=files,
         resumed_from=t_resume.start_epoch, state_restored=restored,
         epochs=len(t3.losses["G"]), losses=losses, metrics=metrics,
+        eval_jets_with_nonpositive_pt_sum=nonpositive,
         real_efp_cache=cache.exists(), best_epoch=t3.best_epoch, launches=counts)
     if files != ["state_1.npz", "state_2.npz"] or not (models / "state_3.npz").exists():
         raise SystemExit(f"train CLI checkpoints missing: {files}")
@@ -723,7 +816,8 @@ def main_train_path(mk, train_cli, gen_cli, tmp, device="cuda"):
     if not restored:
         raise SystemExit("resume did not restore the saved train state")
     if not finite or len(t3.losses["G"]) != 3 or t3.losses["G"][:2] != t1.losses["G"]:
-        raise SystemExit(f"train CLI losses not finite or not resumed: {losses}")
+        raise SystemExit(f"train CLI losses or metrics not finite or not resumed: {losses} "
+                         f"{metrics} ({nonpositive} evaluated jets with a pT sum <= 0)")
     for name in ("edge_aggregate_train", "edge_aggregate_bwd", "edge_aggregate_bwd_no_wgrads",
                  "edge_aggregate_fn"):
         if counts[name] == 0:
@@ -1017,7 +1111,7 @@ def knn_generation(mk, gen_cli, dev, card):
     lab = ds.jet_data[np.random.default_rng(0).choice(len(ds), size=2048)]
     mk.reset_launch_counts()
     t0 = time.perf_counter()
-    out = generate_multi_batch(g, spec, torch.Generator(device=dev).manual_seed(1), 2048, 512,
+    out = generate_multi_batch(g, spec, prng_key(1, dev), 2048, 512,
                                labels=lab)
     wall = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
@@ -1103,13 +1197,13 @@ def knn_train_path(mk, train_cli, tmp):
     t1 = train_cli.main(argv)
     wall = time.perf_counter() - t0
     before = [t.detach().cpu().clone() for t in _leaves(t1.state)]
-    rng_before = t1.state.generator.get_state()
+    rng_before = t1.state.rng.clone()
     t2 = train_cli.main(argv)  # resume, no epoch to run
     counts = dict(mk.launch_counts)
     after = [t.detach().cpu() for t in _leaves(t2.state)]
     restored = (t2.start_epoch == 2 and len(before) == len(after)
                 and all(torch.equal(a, b) for a, b in zip(before, after))
-                and torch.equal(t2.state.generator.get_state(), rng_before))
+                and torch.equal(t2.state.rng, rng_before))
     batch = t1.args.batch_size
     steps = 2 * (len(t1.train_dataset) // batch)
     eval_batches = -(-min(t1.args.eval_tot_samples, len(t1.valid_dataset)) // batch)
@@ -1313,7 +1407,7 @@ def gapt_generation(mk, gen_cli, dev, card, from_args_dict):
         g.cfg = dataclasses.replace(g.cfg, use_kernels=flag)
         mk.reset_launch_counts()
         outs[route] = generate_multi_batch(g, suite.noise,
-                                           torch.Generator(device=dev).manual_seed(1), 8192,
+                                           prng_key(1, dev), 8192,
                                            1024, labels=lab)
         outs[route + "_launches"] = mk.launch_counts["gapt_g_fused"]
     g.cfg = dataclasses.replace(g.cfg, use_kernels=None)
@@ -1345,12 +1439,12 @@ def gapt_train_path(mk, train_cli, tmp):
     models = tmp / "gapt" / "models"
     files = sorted(p.name for p in models.iterdir())
     before = [t.detach().cpu().clone() for t in _leaves(t1.state)]
-    rng_before = t1.state.generator.get_state()
+    rng_before = t1.state.rng.clone()
     t2 = train_cli.main(argv + ["--num-epochs", "2"])  # resume, no epoch to run
     after = [t.detach().cpu() for t in _leaves(t2.state)]
     restored = (t2.start_epoch == 2 and len(before) == len(after)
                 and all(torch.equal(a, b) for a, b in zip(before, after))
-                and torch.equal(t2.state.generator.get_state(), rng_before))
+                and torch.equal(t2.state.rng, rng_before))
     t3 = train_cli.main(argv + ["--num-epochs", "3"])
     counts = dict(mk.launch_counts)
     batch = t1.args.batch_size
@@ -1584,14 +1678,14 @@ def knn_split_route(kk, mk, dev, from_args_dict, card):
     try:
         set_knn_route("3")
         mk.reset_launch_counts()
-        out3 = generate_multi_batch(g, suite.noise, torch.Generator(device=dev).manual_seed(1),
+        out3 = generate_multi_batch(g, suite.noise, prng_key(1, dev),
                                     1024, 512, labels=lab)
         parts = step()
         parts = {k: v.item() for k, v in step().items()}
         torch.cuda.synchronize()
         launches = dict(mk.launch_counts)
         set_knn_route()
-        out4 = generate_multi_batch(g, suite.noise, torch.Generator(device=dev).manual_seed(1),
+        out4 = generate_multi_batch(g, suite.noise, prng_key(1, dev),
                                     1024, 512, labels=lab)
         # 2 generation batches x 2 layers, and per D+G step 10 forwards x ... as phase 14 counts:
         # 8 layer forwards with a gradient and 2 without, 6 K6 with and 2 without weight gradients
@@ -1872,9 +1966,8 @@ def zoo_timings(t, dev):
         g_step(st, t.step_cfg, t.spec, data, labels, post_gen=t.post_gen, epoch=t.model_epoch)
 
     gb = 4096
-    gen = torch.Generator(device=dev).manual_seed(3)
-    noise = t.spec.sample(gen, gb, dev)
-    points = t.spec.sample_points(gen, gb, dev)
+    noise = t.spec.sample(prng_key(3, dev), gb)
+    points = t.spec.sample_points(prng_key(4, dev), gb)
     glabels = None
     if labels_all is not None:
         glabels = labels_all[torch.arange(gb, device=dev) % len(labels_all)]
@@ -2040,7 +2133,7 @@ def fpnd_phase(mk, dev, card, from_args_dict):
     real = corrected(ds, ds.particle_data)
     mk.reset_launch_counts()
     t0 = time.perf_counter()
-    gen_norm = generate_multi_batch(g, suite.noise, torch.Generator(device=dev).manual_seed(1),
+    gen_norm = generate_multi_batch(g, suite.noise, prng_key(1, dev),
                                     FPND_JETS, args.batch_size, labels=ds.jet_data)
     gen_s = time.perf_counter() - t0
     launches = mk.launch_counts["edge_aggregate_fn"]
@@ -2350,13 +2443,13 @@ def graph_trainer(args, dev, tmp, name, scan):
 
 def state_diff(a, b) -> tuple[bool, float]:
     """Whether two TrainStates are bit-identical (parameters, BN statistics, SN
-    vectors, optimizer state and step counts, the generator), and the largest
+    vectors, optimizer state and step counts, the key), and the largest
     relative difference of their tensors."""
     ta, tb = _leaves(a), _leaves(b)
     for sa, sb in ((a.g_opt, b.g_opt), (a.d_opt, b.d_opt)):
         ta += [st["step"].reshape(1).float() for st in sa.state.values() if "step" in st]
         tb += [st["step"].reshape(1).float() for st in sb.state.values() if "step" in st]
-    same = len(ta) == len(tb) and torch.equal(a.generator.get_state(), b.generator.get_state())
+    same = len(ta) == len(tb) and torch.equal(a.rng, b.rng)
     rel = 0.0
     for x, y in zip(ta, tb):
         same = same and torch.equal(x, y)
@@ -2375,9 +2468,11 @@ def timed_epoch(t, epoch, loader) -> float:
 
 def issue_epoch(t, epoch, loader) -> float:
     """The host's time to issue a step, ms: one epoch with the device drained
-    before each step call (the graphs' ``StepGraphs.step``, the eager loop's
-    ``d_step``/``g_step``), each call timed until it returns."""
+    before each step call (the graphs' ``StaticStep.__call__``, a replay once
+    captured; the eager loop's ``d_step``/``g_step``), each call timed until it
+    returns."""
     from mpgan_tpu_torch.training import loop
+    from mpgan_tpu_torch.training import train_step as tts
 
     spent = [0.0]
 
@@ -2390,13 +2485,12 @@ def issue_epoch(t, epoch, loader) -> float:
             return out
         return inner
 
-    saved = (t.graphs.step, loop.d_step, loop.g_step)
-    t.graphs.step, loop.d_step, loop.g_step = (timed(f) for f in saved)
+    saved = (tts.StaticStep.__call__, loop.d_step, loop.g_step)
+    tts.StaticStep.__call__, loop.d_step, loop.g_step = (timed(f) for f in saved)
     try:
         t.train_epoch(epoch, loader)
     finally:
-        del t.graphs.step
-        loop.d_step, loop.g_step = saved[1:]
+        tts.StaticStep.__call__, loop.d_step, loop.g_step = saved
     return spent[0] * 1e3 / len(loader)
 
 
@@ -2540,7 +2634,7 @@ def graph_samplers(mk, dev, card, from_args_dict):
         def run(static, n=n_jets):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            jets = generate_multi_batch(g, suite.noise, torch.Generator(device=dev).manual_seed(2),
+            jets = generate_multi_batch(g, suite.noise, prng_key(2, dev),
                                         n, b, labels=labels[:n], static=static)
             return jets, time.perf_counter() - t0
 
@@ -3540,12 +3634,12 @@ def bf16_knn_gapt_cli(mk, train_cli, tmp):
             t1 = train_cli.main(argv)
             counts = dict(mk.launch_counts)
             before = [t.detach().cpu().clone() for t in _leaves(t1.state)]
-            rng_before = t1.state.generator.get_state()
+            rng_before = t1.state.rng.clone()
             t2 = train_cli.main(argv)  # resume, no epoch to run
             after = [t.detach().cpu() for t in _leaves(t2.state)]
             restored = (t2.start_epoch == 2 and len(before) == len(after)
                         and all(torch.equal(a, c) for a, c in zip(before, after))
-                        and torch.equal(t2.state.generator.get_state(), rng_before))
+                        and torch.equal(t2.state.rng, rng_before))
             batch = t1.args.batch_size
             steps = 2 * (len(t1.train_dataset) // batch)
             eval_batches = -(-min(t1.args.eval_tot_samples, len(t1.valid_dataset)) // batch)
@@ -3608,16 +3702,16 @@ MESH_TURNS = ("plain", "mesh", "mesh", "plain")
 
 
 def step_draws(args, data, seed):
-    """A D+G step's draws on ``data``'s device from a CPU generator seeded ``seed``:
-    the same values at every call (the dropout keys too, drawn as the step asks)."""
+    """A D+G step's draws on ``data``'s device from the key ``PRNGKey(seed)``, as
+    a step without a mesh draws them: the same values at every call (the
+    dropout keys are keys below a copy of the key)."""
     from mpgan_tpu_torch.models.registry import build_suite
     from mpgan_tpu_torch.training import train_step as tts
 
-    gen = torch.Generator().manual_seed(seed)
+    holder = types.SimpleNamespace(rng=prng_key(seed, data.device))
     cfg, spec = tts.step_config(args), build_suite(args).noise
-    move = lambda t: t.to(data.device)  # noqa: E731
-    return (tts.map_draws(move, tts.host_draw_d(gen, cfg, spec, data)),
-            tts.map_draws(move, tts.host_draw_g(gen, cfg, spec, data.shape[0])))
+    return (tts.draw_d(holder, cfg, spec, data),
+            tts.draw_g(holder, cfg, spec, data.shape[0], data.device))
 
 
 def drawn_step(state, args, data, labels, draws, mesh):
@@ -3805,12 +3899,19 @@ def mesh_rank(p):
     rows = mesh.rows(p["batch"])
     data, labels = data[rows], labels[rows]
     out = {"backend": mesh.backend, "rank": mesh.rank}
-    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+    for side, device, d_scale in (("card", dev, None), ("cpu", torch.device("cpu"), None),
+                                  ("cpu_d_up", torch.device("cpu"), 1 + 2**-23),
+                                  ("cpu_d_down", torch.device("cpu"), 1 - 2**-24)):
         st = make_state(args, device)
         use_kernels(st, True)  # the CPU runs the kernels' plain versions: the same masks
+        if d_scale is not None:  # D's weights moved by an ulp (the step's own sensitivity)
+            with torch.no_grad():
+                for q in st.d.parameters():
+                    q.mul_(d_scale)
         x, lab = data.to(device), labels.to(device)
         parts = drawn_step(st, args, x, lab, step_draws(args, x, 100 + mesh.rank), mesh)
         params = jax_leaves(st.d, True) + jax_leaves(st.g, True)
+        out["d_tensors"] = len(jax_leaves(st.d, True))
         out[side] = {"losses": {k: v.item() for k, v in parts.items()},
                      "grads": [q.grad.detach().cpu() for q in params],
                      "params": [q.detach().cpu() for q in params]}
@@ -3829,7 +3930,7 @@ def mesh_rank(p):
     g = make_state(args, dev).g
     lab_all = p["sampler_labels"]
     t0 = time.perf_counter()
-    jets = generate_multi_batch(g, p["spec"], torch.Generator(device=dev).manual_seed(7),
+    jets = generate_multi_batch(g, p["spec"], prng_key(7, dev),
                                 len(lab_all), p["sampler_batch"], labels=lab_all, mesh=mesh)
     out["sampler_wall_s"] = time.perf_counter() - t0
     out["jets"] = jets
@@ -3840,9 +3941,10 @@ def mesh_two_ranks(dev, from_args_dict, card):
     """Phase 30 (b): two ranks of gloo on one card (``make_mesh(devices=[cuda:0,
     cuda:0])``). The 2-rank step on the card against the 2-rank step on the CPU
     (losses and gradients within phase 8's rtol = atol = 1e-4, gradients of
-    max(1, max|ref|); the updated parameters where the gradient is clear of
-    zero, 1e-3, within 1e-4 too, RMSprop's first step being about 10 * lr *
-    sign(g)); the parameters bit-identical across the ranks; the 2-rank
+    max(1, max|ref|), or, as phase 13 holds them, within twice the most an ulp
+    of D's weights moves the CPU's own gradients; the updated parameters where
+    the gradient is clear of zero, 1e-3, within 1e-4 too, RMSprop's first step
+    being about 10 * lr * sign(g)); the parameters bit-identical across the ranks; the 2-rank
     sampler against one rank's at rtol = atol = 1e-4, the mask column equal."""
     from mpgan_tpu_torch.models.registry import build_suite
     from mpgan_tpu_torch.parallel.mesh import launch
@@ -3856,7 +3958,7 @@ def mesh_two_ranks(dev, from_args_dict, card):
     ranks = launch(mesh_rank, 2, "cuda", p)
     wall = time.perf_counter() - t0
     single = generate_multi_batch(make_state(args, dev).g, spec,
-                                  torch.Generator(device=dev).manual_seed(7), len(lab), 4096,
+                                  prng_key(7, dev), len(lab), 4096,
                                   labels=lab)
     res = {"seconds": wall, "backend": [r["backend"] for r in ranks],
            "step_wall_ms": [r["step_wall_ms"] for r in ranks],
@@ -3866,7 +3968,16 @@ def mesh_two_ranks(dev, from_args_dict, card):
         c, h = r["card"], r["cpu"]
         loss_err = max(abs(c["losses"][k] - h["losses"][k]) / max(1.0, abs(h["losses"][k]))
                        for k in h["losses"])
-        grad_ok = all(ok for _, ok in (wgrad_err(a, b) for a, b in zip(c["grads"], h["grads"])))
+        over = [(a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                for a, b in zip(c["grads"], h["grads"])]
+        # as phase 13: a gradient beyond 1e-4 is held within twice the most an ulp of
+        # D's weights moves any of the CPU's own gradients (a LeakyReLU pre-activation
+        # within rounding of zero takes the other slope on one device)
+        moved = max((m - b).abs().max().item() / max(1.0, b.abs().max().item())
+                    for side in ("cpu_d_up", "cpu_d_down")
+                    for m, b in zip(r[side]["grads"], h["grads"]))
+        grad_ok = all(e <= TOL or e <= 2 * moved for e in over)
+        nd = r["d_tensors"]
         param_err = max(((a - b).abs() * (g.abs() > 1e-3)).max().item()
                         for a, b, g in zip(c["params"], h["params"], h["grads"]))
         sampler_abs, _, sampler_bad = errors(torch.as_tensor(r["jets"]), torch.as_tensor(single))
@@ -3874,6 +3985,8 @@ def mesh_two_ranks(dev, from_args_dict, card):
         res[f"rank{r['rank']}"] = {
             "losses_card": c["losses"], "losses_cpu": h["losses"], "max_rel_loss_err": loss_err,
             "grads_within_tol": grad_ok, "max_param_err_where_grad_clear": param_err,
+            "max_grad_err_over_bound_d": max(over[:nd]),
+            "max_grad_err_over_bound_g": max(over[nd:]), "cpu_sensitivity_to_an_ulp_of_d": moved,
             "sampler_max_abs_err": sampler_abs, "sampler_out_of_tol": sampler_bad,
             "sampler_mask_column_equal": mask_equal}
         if loss_err > TOL or not grad_ok or param_err > TOL or sampler_bad or not mask_equal:
@@ -3915,6 +4028,247 @@ def mesh_phase(mk, train_cli, gen_cli, dev, card, from_args_dict, tmp):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 31. the steps' random stream on the card (ops/prng.py, csrc/threefry.cu)
+# ---------------------------------------------------------------------------
+
+PRNG_PATHS = {"flagship": (FLAGSHIP, 256), "knn20": (KNN150, 128), "gapt": (GAPT, 512)}
+PRNG_NORMAL_TOL = 0.0  # normals too: both sides round every step alike (ops/prng.py)
+THREEFRY_OPS = 80  # 32-bit operations of one threefry2x32 block (20 rounds, 5 injections)
+ERF_INV_OPS = 40  # a normal's further operations (log1p, sqrt, the polynomial)
+
+
+def threefry_bound(plan) -> dict:
+    """Bound of one ``threefry_draws`` launch of ``plan``: every output word
+    written once and the plan, key, counter and order row read once, over the
+    memory rate; or the threefry blocks its elements and path walks take and the
+    normals' erf_inv, over 67 Tops (one 32-bit lane operation a clock a lane),
+    whichever is larger."""
+    from mpgan_tpu_torch.ops import prng
+
+    moved = plan.words * 4 + plan.table.numel() * 4 + 8 + 8 + 8
+    ops = 0
+    for r in plan.rows:
+        blocks = max(1, -(-r.elements // prng.EPB))
+        per = {"randint": 2, "edge_seed": 3, "key": 0, "order": 0}.get(r.dist, 1)
+        ops += r.elements * per * THREEFRY_OPS + blocks * len(r.path) * THREEFRY_OPS
+        if r.dist == "normal":
+            ops += r.elements * ERF_INV_OPS
+        if r.dist == "order":
+            moved += r.elements * 4
+    out = bound(0, moved)
+    t_ops = ops / PEAK_FP32 * 1e3
+    if t_ops > out["bound_ms"]:
+        out.update(bound_ms=t_ops, bound_by="operations")
+    return out
+
+
+def threefry_check(plan, key, counters, order=None) -> float:
+    """``threefry_draws`` on the card against its plain version at each batch
+    counter, advancing the key once and the counter: every draw bit for bit
+    (normals within PRNG_NORMAL_TOL, 0); returns the largest normal difference."""
+    from mpgan_tpu_torch.ops import prng
+
+    worst = 0.0
+    dev = key.device
+    for c in counters:
+        outs = {}
+        for side in ("kernel", "plain"):
+            k = key.clone()
+            counter = torch.tensor([c], dtype=torch.int32, device=dev)
+            out = torch.full((plan.words,), -7, dtype=torch.int32, device=dev)
+            fn = prng.threefry_draws if side == "kernel" else prng.threefry_draws_reference
+            fn(k, plan, out, counter, order, advance=1, bump=True)
+            outs[side] = (out, k, counter)
+        torch.cuda.synchronize()
+        (ok_, kk_, ck), (op_, kp, cp) = outs["kernel"], outs["plain"]
+        if not (torch.equal(kk_, kp) and torch.equal(ck, cp)):
+            raise SystemExit(f"threefry_draws: next key or counter differs from the plain "
+                             f"version's at counter {c}")
+        for r, a, b in zip(plan.rows, plan.views(ok_), plan.views(op_)):
+            if r.dist == "normal":
+                err = (a - b).abs().max().item() if a.numel() else 0.0
+                worst = max(worst, err)
+                if not torch.allclose(a, b, rtol=PRNG_NORMAL_TOL, atol=PRNG_NORMAL_TOL):
+                    raise SystemExit(f"threefry_draws: normals {r.shape} at path {r.path} "
+                                     f"beyond {PRNG_NORMAL_TOL} of the plain version ({err})")
+            elif not torch.equal(a.view(torch.int32) if a.dtype == torch.uint32 else a,
+                                 b.view(torch.int32) if b.dtype == torch.uint32 else b):
+                raise SystemExit(f"threefry_draws: {r.dist} {r.shape} at path {r.path} "
+                                 f"differs from the plain version at counter {c}")
+    return worst
+
+
+def threefry_times(plan, key, order=None) -> dict:
+    """The kernel's and the plain version's ms for one launch of ``plan``, with its bound."""
+    from mpgan_tpu_torch.ops import prng
+
+    dev = key.device
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.empty(plan.words, dtype=torch.int32, device=dev)
+    kernel = lambda: prng.threefry_draws(key, plan, out, counter, order)  # noqa: E731
+    plain = lambda: prng.threefry_draws_reference(key, plan, out, counter, order)  # noqa: E731
+    ms = {"kernel": float("inf"), "plain": float("inf")}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        ms[which] = min(ms[which], best_ms(kernel if which == "kernel" else plain,
+                                           inner=20 if which == "kernel" else 1))
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"], **threefry_bound(plan),
+            "rows": len(plan.rows), "words": plan.words, "blocks": plan.blocks}
+
+
+def prng_plans(mk, dev, card, from_args_dict):
+    """Phase 31 (a): each captured step's plan and the sampler's, the kernel
+    against its plain version, then timed."""
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.ops import prng
+    from mpgan_tpu_torch.training import train_step as tts
+    from mpgan_tpu_torch.training.sampling import noise_spec
+
+    worst, times = 0.0, {}
+    for name, (model, b) in PRNG_PATHS.items():
+        args = from_args_dict(model)
+        args.batch_size = b
+        data, labels = graph_data(args, 2 * b)
+        st = make_state(args, dev)
+        suite = build_suite(args)
+        keys = ["Dr", "Df", "D", "G"] + (["gp"] if args.gp else [])
+        graphs = tts.StepGraphs(st, tts.step_config(args), suite.noise, keys, dev,
+                                post_gen=suite.post_gen)
+        order = np.arange(2 * b).reshape(2, b)
+        graphs.epoch(tts.step_kinds(2), torch.as_tensor(data, device=dev),
+                     None if labels is None else torch.as_tensor(labels, device=dev), order)
+        step = graphs.steps["dg"]
+        worst = max(worst, threefry_check(step.plan, st.rng, (0, 1), step.order))
+        times[name] = threefry_times(step.plan, st.rng, step.order)
+        times[name]["key_slots"] = sum(len(sl.log) for sl in step.slots)
+        del graphs, step, st
+        torch.cuda.empty_cache()
+    spec = noise_spec("mpgan", {"latent_node_size": 32}, 30, 0.2)
+    plan = prng.Plan(spec.rows(4096, (prng.COUNTER,)), dev)
+    key = prng_key(0, dev)
+    worst = max(worst, threefry_check(plan, key, (0, 12)))
+    times["sampler"] = threefry_times(plan, key)
+    log("prng_plans", card=card, max_abs_err_normals=worst, tol=PRNG_NORMAL_TOL, plans=times)
+    return worst, times
+
+
+def prng_steps(mk, dev, card, from_args_dict, tmp):
+    """Phase 31 (b-d): keyed steps on the card against the CPU; a captured epoch
+    against the eager one, profiled; issue ms, idle share and wall ms of the
+    graph steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpgan_tpu_torch.data.loader import BatchLoader
+    from mpgan_tpu_torch.ops import prng
+    from mpgan_tpu_torch.utils.weights import jax_leaves
+
+    # (b) three keyed flagship steps, card against CPU, the key after each
+    args = from_args_dict({**FLAGSHIP, "disc_dropout": 0.5})
+    data, labels = real_batch(16)
+    sides = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        st = make_state(args, device)
+        use_kernels(st, True)
+        step = step_fn(st, args, data.to(device), labels.to(device))
+        res = []
+        for _ in range(3):
+            parts = {k: v.item() for k, v in step().items()}
+            grads = [p.grad.detach().cpu().clone()
+                     for p in jax_leaves(st.d, True) + jax_leaves(st.g, True)]
+            res.append((parts, grads, st.rng.cpu().clone()))
+        sides[side] = res
+    loss_err, grad_ratio = 0.0, []
+    for i, ((lc, gc, kc), (lp, gp, kp)) in enumerate(zip(sides["card"], sides["cpu"])):
+        loss_err = max([loss_err] + [abs(lc[k] - lp[k]) / max(1.0, abs(lp[k])) for k in lp])
+        grad_ratio.append(max(wgrad_err(a, b)[0] / max(1.0, b.abs().max().item())
+                              for a, b in zip(gc, gp)))
+        # the gradients as phase 8 holds them at the first step; later steps start
+        # from parameters that RMSprop moved by about lr * sign(g), where a gradient
+        # within rounding of zero may take either sign on the two devices
+        if not torch.equal(kc, kp) or loss_err > TOL or (i == 0 and grad_ratio[0] > TOL):
+            raise SystemExit(f"phase 31: keyed step {i + 1} on the card disagrees with the "
+                             f"CPU (loss {loss_err}, gradients {grad_ratio}, keys "
+                             f"{kc.tolist()} {kp.tolist()})")
+    log("prng_keyed_steps", steps=3, batch=16, max_rel_loss_err=loss_err, tol=TOL,
+        max_grad_err_over_scale_by_step=grad_ratio, keys_bit_identical=True)
+
+    # (c) the captured 5-batch epoch against the eager one, then a profile of it
+    b = 256
+    args = from_args_dict(FLAGSHIP)
+    args.batch_size = b
+    data, labels = graph_data(args, GRAPH_STEPS * b)
+    runs = {}
+    for scan in (False, True):
+        t = graph_trainer(args, dev, tmp, f"prng_{int(scan)}", scan)
+        loader = BatchLoader(data, labels, batch_size=b, shuffle=True, seed=args.seed)
+        t.train_epoch(1, loader)
+        runs[scan] = (t, loader)
+    torch.cuda.synchronize()
+    same, rel = state_diff(runs[False][0].state, runs[True][0].state)
+    if not same:
+        raise SystemExit(f"phase 31: the captured epoch differs from the eager one ({rel})")
+    t, loader = runs[True]
+    mk.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t.train_epoch(2, loader)
+        torch.cuda.synchronize()
+    draws = prng.launch_counts["threefry_draws"]
+    events = prof.events()
+    h2d = [e.name for e in events if "HtoD" in e.name or "Host to Device" in e.name]
+    rand_ops = [e.name for e in events if e.name.startswith("aten::") and any(
+        w in e.name for w in ("rand", "normal_", "uniform_", "bernoulli", "random_",
+                              "multinomial"))]
+    kernels = sum(1 for e in events if "threefry_draws_kernel" in e.name)
+    # the runtime's copy and sync calls the epoch made, by name (the trace's own
+    # names for copies and memsets beside them)
+    calls = {}
+    for e in events:
+        if any(w in e.name for w in ("emcpy", "emset", "ynchronize", "GraphLaunch")):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    log("prng_epoch_profile", card=card, batches=GRAPH_STEPS, bit_identical_to_eager=same,
+        host_to_device_copies=len(h2d), copies=sorted(set(h2d)), cpu_random_calls=rand_ops,
+        threefry_draws_launches=draws, threefry_kernels_in_trace=kernels,
+        replays=t.graphs.replays, copy_sync_and_graph_calls=calls)
+    # the runtime's copy calls: the order in, the losses out (the device-side copy
+    # records are not always all in the trace)
+    if len(h2d) > 1 or calls.get("cudaMemcpyAsync", 0) > 2 or rand_ops \
+            or draws != GRAPH_STEPS:
+        raise SystemExit(f"phase 31: the captured epoch made {len(h2d)} host-to-device copies "
+                         f"and {calls.get('cudaMemcpyAsync', 0)} copy calls (the order's and "
+                         f"the losses' only allowed), CPU random calls {rand_ops}, "
+                         f"{draws} threefry_draws launches for {GRAPH_STEPS} steps")
+    runs = t = None
+    torch.cuda.empty_cache()
+
+    # (d) issue ms, idle share and wall ms of the graph steps
+    steps = {}
+    for name, (model, b) in PRNG_PATHS.items():
+        a = from_args_dict(model)
+        a.batch_size = b
+        data, labels = graph_data(a, GRAPH_STEPS * b)
+        t = graph_trainer(a, dev, tmp, f"prng_{name}", True)
+        loader = BatchLoader(data, labels if t.use_labels else None, batch_size=b,
+                             shuffle=True, seed=a.seed)
+        t.train_epoch(1, loader)  # records, warms up, captures
+        wall = [timed_epoch(t, 2 + i, loader) for i in range(2)]
+        steps[name] = {"batch": b, "wall_ms": min(wall), "issue_ms": issue_epoch(t, 4, loader),
+                       **epoch_profile(t, 5, loader)}
+        t = None
+        torch.cuda.empty_cache()
+    log("prng_graph_steps", card=card, steps=steps)
+    return steps
+
+
+def prng_phase(mk, dev, card, from_args_dict, tmp):
+    """Phase 31: the steps' random stream on the card."""
+    t0 = time.perf_counter()
+    worst, times = prng_plans(mk, dev, card, from_args_dict)
+    steps = prng_steps(mk, dev, card, from_args_dict, tmp)
+    log("prng", card=card, seconds=time.perf_counter() - t0)
+    return worst, times, steps
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -3927,6 +4281,7 @@ def main() -> None:
     from mpgan_tpu_torch.ops import gapt_kernels as gk
     from mpgan_tpu_torch.ops import knn_kernels as kk
     from mpgan_tpu_torch.ops import mp_kernels as mk
+    from mpgan_tpu_torch.ops import prng
     from mpgan_tpu_torch.training.config import build_mpgan_generator, from_args_dict
     from mpgan_tpu_torch.training.sampling import generate_multi_batch, noise_spec
     from mpgan_tpu_torch.utils.weights import mp_generator_to_reference_sd
@@ -4018,7 +4373,7 @@ def main() -> None:
     ds150 = JetNetDataset("g", num_particles=150, split="valid", synthetic_num_jets=10000)
     lab150 = ds150.jet_data[np.random.default_rng(1).choice(len(ds150), size=2048)]
     t0 = time.perf_counter()
-    out150 = generate_multi_batch(g150, spec150, torch.Generator(device=dev).manual_seed(1),
+    out150 = generate_multi_batch(g150, spec150, prng_key(1, dev),
                                   2048, 512, labels=lab150)
     wall150 = time.perf_counter() - t0
     launches = dict(mk.launch_counts)
@@ -4027,10 +4382,14 @@ def main() -> None:
         raise SystemExit(f"150p output {out150.shape} is not finite (2048, 150, 4)")
     if not np.array_equal(mask150.sum(1), (lab150[:, 0] * 150).astype(np.int32)):
         raise SystemExit("150p mask counts disagree with the labels")
-    log("main_path_150p", jets=list(out150.shape), wall_s=wall150, launches=launches)
+    gen_draws = prng.launch_counts["threefry_draws"]
+    log("main_path_150p", jets=list(out150.shape), wall_s=wall150, launches=launches,
+        threefry_draws=gen_draws)
     for name in ("edge_aggregate", "edge_aggregate_fn"):
         if launches[name] == 0:
             raise SystemExit(f"kernel {name} never launched on the generation path")
+    if gen_draws == 0:
+        raise SystemExit("kernel threefry_draws never launched on the generation path")
 
     # 6. kernel path against plain path at the sampler's batch, then timings (kernel and
     # plain in turns)
@@ -4166,6 +4525,10 @@ def main() -> None:
         mesh_launches = mesh_phase(mk, train_cli, gen, dev, card, from_args_dict,
                                    pathlib.Path(tmp))
     later.append(mesh_launches)
+    # 31. the steps' random stream on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        prng_err, prng_times, prng_steps_ = prng_phase(mk, dev, card, from_args_dict,
+                                                       pathlib.Path(tmp))
 
     def bf16_row(name, jobs):
         """The bf16 mode inside a kernel's row: its launches in phase 28, worst
@@ -4308,6 +4671,17 @@ def main() -> None:
          "ms_n150": gtimes[150]["ms"], "plain_ms_n150": gtimes[150]["plain_ms"],
          "bound_ms_n150": gtimes[150]["bound_ms"], "shape_n150": gtimes[150]["shape"],
          "bf16": bf16_knn_row("gapt_g_fused", ("b1024", "b4096"))},
+        {"name": "threefry_draws", "route": "cuda", "source": "mpgan_tpu_torch/csrc/threefry.cu",
+         "replaces": "mpgan_tpu/training/train_step.py:182 (jax.random inside the jitted "
+                     "step, :261; no pallas_call)",
+         # phases 4-5 (the sampler, 50,000 + 2,048 jets) and phase 31's captured epoch
+         "launches": gen_draws + GRAPH_STEPS, "max_abs_err": prng_err,
+         **{k: v for k, v in prng_times["flagship"].items()},
+         "shape": "the flagship D+G step's plan, B=256",
+         **{f"{name}_{k}": v for name in ("knn20", "gapt", "sampler")
+            for k, v in prng_times[name].items() if k in ("ms", "plain_ms", "bound_ms",
+                                                           "bound_by", "words")},
+         "graph_steps": prng_steps_},
     ]
     log("knn_train_step", batch=128, kernel_ms=knn_step_ms["kernel"],
         plain_ms=knn_step_ms["plain"])

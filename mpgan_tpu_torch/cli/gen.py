@@ -6,7 +6,9 @@ sample jets on ``--device``, unnormalize with the per-jet-type feature maxima
 (gen.py:10-17, 127-143), zero masked particles, clamp pT and save ``.npy``.
 A PCGAN card's latents are decoded by the ``G_pc`` in the card's
 ``pcgan_weights_dir`` (the JAX ``gen`` does not decode them, and fails there).
-On a GPU every batch after the first replays one captured CUDA graph of G's
+The noise comes from the key ``PRNGKey(--seed)``, as the JAX ``gen`` draws it,
+so the same weights and seed give the JAX package's jets. On a GPU every batch
+after the first replays one captured CUDA graph of the batch's draw and G's
 forward (``training/sampling.py``). ``--mesh-shape M`` generates on ``M``
 ranks (``parallel/mesh.py``), each running G on its rows of every batch, with
 the single-device output; rank 0 saves it.
@@ -28,6 +30,7 @@ import torch
 from ..data.jetnet import JetNetDataset
 from ..data.normalize import FPND_FEATURE_MAXES
 from ..models.registry import build_suite, pcgan_weight_path
+from ..ops import prng
 from ..parallel.mesh import Mesh, launch, make_mesh
 from ..training import checkpoint as ckpt
 from ..training.config import Args, from_args_txt
@@ -50,7 +53,7 @@ def _train_state_generator(args: Args, suite, path: str, device: torch.device):
     g, d = suite.generator(device=device), suite.discriminator(device=device)
     state = TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), 1e-4),
                        build_optimizer(args.optimizer, d.parameters(), 1e-4),
-                       torch.Generator())
+                       prng.PRNGKey(0, device))
     ckpt.load_train_state(path, state)
     return state.g
 
@@ -115,10 +118,9 @@ def generate(ns: argparse.Namespace, device: torch.device, mesh: Mesh | None = N
         rng = np.random.default_rng(ns.seed)
         labels = ds.jet_data[rng.choice(len(ds), size=ns.num_samples)]
 
-    generator = torch.Generator(device=device).manual_seed(ns.seed)
     gen_jets = generate_multi_batch(
-        g, spec, generator, ns.num_samples, ns.batch_size, labels=labels, mesh=mesh,
-        post_fn=suite.decode_eval,
+        g, spec, prng.PRNGKey(ns.seed, device), ns.num_samples, ns.batch_size, labels=labels,
+        mesh=mesh, post_fn=suite.decode_eval,
     ).astype(np.float64)
     if mesh is not None and not mesh.is_main:
         return

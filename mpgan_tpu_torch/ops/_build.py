@@ -26,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_ext"
 SOURCES = ("edge_aggregate.cu", "edge_aggregate_bwd.cu", "edge_aggregate_bf16.cu",
            "edge_aggregate_bwd_bf16.cu", "knn_fused.cu", "knn_edge_bwd.cu", "knn_search.cu",
-           "knn_edge_aggregate.cu", "knn_fused_bf16.cu", "knn_edge_bwd_bf16.cu", "gapt_fused.cu")
+           "knn_edge_aggregate.cu", "knn_fused_bf16.cu", "knn_edge_bwd_bf16.cu", "gapt_fused.cu",
+           "threefry.cu")
 HEADERS = ("edge_common.cuh", "edge_products.cuh", "edge_products_bf16.cuh",
            "edge_fwd_common.cuh", "edge_fwd_bf16_tiles.cuh",
            "edge_bwd_common.cuh",
@@ -203,6 +204,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mpgan_gapt_fused_bf16.restype = i
     lib.mpgan_gapt_item_smem.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
     lib.mpgan_gapt_item_smem.restype = i
+    lib.mpgan_threefry_draws.argtypes = [p, p, i, i, p, p, p, i, i, p, i, i, p]
+    lib.mpgan_threefry_draws.restype = i
     lib.mpgan_cuda_error_string.argtypes = [i]
     lib.mpgan_cuda_error_string.restype = ctypes.c_char_p
 

@@ -10,8 +10,9 @@ intensity of an MNIST cloud, a jet's pT and mask) is left as it is.
 The functions are plain functions of tensors: they take their uniforms and
 normals as arguments (:class:`AugmentDraws`, with JAX's shapes ``[B, 1, 1]``
 and ``[B, 1, 2]``), so no key lives inside them. :func:`draw_augment` draws
-one batch's from a ``torch.Generator``; a test can hand over the JAX
-package's draws instead.
+one batch's from a threefry key as the JAX package does (``split(rng, 8)``:
+children 0-1 for r90, 2-3 flip, 4-5 translate, 6-7 scale), through the plan
+rows of :func:`augment_rows`; a test can hand over other draws instead.
 
 The JAX package builds each transform as a 3-column factor, so it raises on a
 cloud with a fourth feature (the mask column of every masked jet card); here
@@ -23,9 +24,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
 
 import torch
+
+from . import prng
 
 Pair = tuple[torch.Tensor, torch.Tensor]  # (mix uniforms [B,1,1], the transform's draws)
 
@@ -55,29 +57,36 @@ class AugmentDraws:
     translate: Pair | None = None
     scale: Pair | None = None
 
-    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "AugmentDraws":
-        return AugmentDraws(**{f.name: None if getattr(self, f.name) is None
-                               else tuple(fn(t) for t in getattr(self, f.name))
-                               for f in dataclasses.fields(self)})
+
+def augment_rows(cfg: AugmentConfig, path: tuple, batch_size: int) -> list[prng.Row]:
+    """The enabled transforms' draws below the key at ``path``, in the reference's
+    order: each a mix uniform ``[B,1,1]`` and its own draw from children ``2t``
+    and ``2t + 1`` of the key (``mpgan_tpu/ops/augment.py:33-75``)."""
+    b, path, rows = batch_size, tuple(path), []
+    for t, (on, shape) in enumerate(((cfg.aug_r90, (b, 1, 1)), (cfg.aug_f, (b, 1, 2)),
+                                     (cfg.aug_t, (b, 1, 2)), (cfg.aug_s, (b, 1, 1)))):
+        if on:
+            own = prng.Row("normal", shape, path + (2 * t + 1,), 1.0) if t == 3 else \
+                prng.Row("uniform", shape, path + (2 * t + 1,))
+            rows += [prng.Row("uniform", (b, 1, 1), path + (2 * t,)), own]
+    return rows
 
 
-def draw_augment(cfg: AugmentConfig, generator: torch.Generator, batch_size: int
-                 ) -> AugmentDraws:
-    """The draws of the enabled transforms, in the reference's order, on the
-    generator's device."""
-    u = lambda *s: torch.rand((batch_size,) + s, generator=generator,  # noqa: E731
-                              device=generator.device)
-    draws = AugmentDraws()
-    if cfg.aug_r90:
-        draws.r90 = (u(1, 1), u(1, 1))
-    if cfg.aug_f:
-        draws.flip = (u(1, 1), u(1, 2))
-    if cfg.aug_t:
-        draws.translate = (u(1, 1), u(1, 2))
-    if cfg.aug_s:
-        draws.scale = (u(1, 1), torch.randn((batch_size, 1, 1), generator=generator,
-                                            device=generator.device))
-    return draws
+def augment_from(cfg: AugmentConfig, draws: list[torch.Tensor]) -> AugmentDraws:
+    """:class:`AugmentDraws` from :func:`augment_rows`' draws."""
+    it = iter(draws)
+    out = AugmentDraws()
+    for name, on in (("r90", cfg.aug_r90), ("flip", cfg.aug_f), ("translate", cfg.aug_t),
+                     ("scale", cfg.aug_s)):
+        if on:
+            setattr(out, name, (next(it), next(it)))
+    return out
+
+
+def draw_augment(cfg: AugmentConfig, key: torch.Tensor, batch_size: int) -> AugmentDraws:
+    """The draws of the enabled transforms from ``key``, on its device."""
+    rows = augment_rows(cfg, (), batch_size)
+    return augment_from(cfg, prng.draw(key, rows) if rows else [])
 
 
 def _xy(x: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:

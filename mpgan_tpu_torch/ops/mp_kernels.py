@@ -66,6 +66,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from .prng import launch_counts as threefry_counts
 from .linear import _M32, _hash_keys, _i32, dropout_threshold_mult, hash_mult
 
 MAX_WIDTH = 256  # widest layer the kernels hold in shared memory
@@ -101,16 +102,24 @@ launch_counts = {
 }
 
 
+# every count a graph's capture and replays account for: these kernels' and the
+# PRNG's (``prng.launch_counts``, ``threefry_draws``)
+_COUNTS = (launch_counts, threefry_counts)
+
+
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    """Set the kernels' counts, the PRNG's among them, to 0."""
+    for counts in _COUNTS:
+        for k in counts:
+            counts[k] = 0
 
 
 class CountedGraph:
     """``body`` captured once into a CUDA graph (``torch.cuda.CUDAGraph``, in
     the memory ``pool`` when given), with replay accounting for
-    ``launch_counts``: the launches the capture counted are taken back (nothing
-    ran) and kept in ``launches``, and every :meth:`replay` adds them. ``out``
+    ``launch_counts`` and the PRNG's ``threefry_draws`` count: the launches the
+    capture counted are taken back (nothing ran) and kept in ``launches``, and
+    every :meth:`replay` adds them. ``out``
     is what ``body`` returned. A capture error raises.
 
     ``graph`` may be another object with ``capture()`` (a context manager) and
@@ -119,7 +128,7 @@ class CountedGraph:
     def __init__(self, body: Callable[[], Any], pool=None, graph=None):
         self.graph = graph if graph is not None else torch.cuda.CUDAGraph()
         self.pool = pool
-        before = dict(launch_counts)
+        before = [dict(counts) for counts in _COUNTS]
         if isinstance(self.graph, torch.cuda.CUDAGraph):
             capture = torch.cuda.graph(self.graph, pool=pool)
         else:
@@ -128,15 +137,17 @@ class CountedGraph:
             with capture:
                 self.out = body()
         finally:
-            self.launches = {k: launch_counts[k] - before[k] for k in launch_counts
-                             if launch_counts[k] != before[k]}
-            launch_counts.update(before)
+            self.launches = {k: counts[k] - old[k] for counts, old in zip(_COUNTS, before)
+                             for k in counts if counts[k] != old[k]}
+            for counts, old in zip(_COUNTS, before):
+                counts.update(old)
         _LIVE_GRAPHS.add(self)
 
     def replay(self) -> None:
         self.graph.replay()
-        for k, v in self.launches.items():
-            launch_counts[k] += v
+        for counts in _COUNTS:
+            for k in counts.keys() & self.launches.keys():
+                counts[k] += self.launches[k]
 
 
 def warm_up(fn: Callable[[], Any], device: torch.device) -> Any:
@@ -423,9 +434,9 @@ def _check_edge_shapes(name, u1, u2, mask, pairs):
 
 
 def _check_dropout(name: str, dropout_p: float, seed) -> None:
-    """The rate, and an int seed's range; a seed tensor's value is checked where
-    it is filled (``KeySlots.fill``), since reading it here would wait for the
-    device."""
+    """The rate, and an int seed's range; a seed tensor's value is not read, since
+    that would wait for the device (the keys' seeds lie in [0, 2**30] by
+    construction: ``prng.edge_seed_of``)."""
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"{name}: dropout_p {dropout_p} outside [0, 1)")
     if dropout_p <= 0:

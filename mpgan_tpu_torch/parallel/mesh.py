@@ -21,8 +21,9 @@ double backward), the G step switches D's ``requires_grad`` off, and JAX
   inside a world that is already set up (``torchrun``: ``WORLD_SIZE`` and
   ``RANK`` in the environment), else in ``M`` spawned processes that meet at a
   ``file://`` rendezvous in a temporary directory;
-- :func:`fold_in` gives a rank its own draws from the replicated generator
-  (the counterpart of the JAX step's ``_localize``).
+- :func:`fold_in` gives a rank its own key from the replicated one, JAX's
+  ``fold_in(key, rank)``, and :func:`local_path` the same as a step of a
+  plan's path (the JAX step's ``_localize``).
 
 Not ported: ``jit_step`` (the GSPMD step, which the JAX package's tests alone
 use) and ``shard_batch_spec``/``replicated_spec`` (sharding objects of JAX;
@@ -43,6 +44,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 import torch.distributed as dist
+
+from ..ops import prng
 
 # a spawned rank's rendezvous, rank and world size (set by :func:`launch`'s worker)
 _INIT_METHOD: str | None = None
@@ -254,26 +257,16 @@ def broadcast_modules(modules: Sequence[torch.nn.Module], mesh: Mesh) -> None:
             mesh.broadcast_(t.data)
 
 
-_FOLD = 0x9E3779B97F4A7C15
-_MASK = (1 << 64) - 1
+def fold_in(key: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's key from the replicated ``key``: ``jax.random.fold_in(key,
+    rank)``. A mesh of one draws otherwise than no mesh, as in JAX."""
+    return prng.fold_in(key, mesh.rank)
 
 
-def _mix64(z: int) -> int:
-    """splitmix64's finaliser."""
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK
-    return z ^ (z >> 31)
-
-
-def fold_in(generator: torch.Generator, mesh: Mesh) -> torch.Generator:
-    """This rank's generator for one step: one 64-bit word drawn from the
-    replicated ``generator`` (so that it advances alike on every rank, and a
-    checkpoint of rank 0 resumes them all), mixed with the rank into the seed
-    of a fresh CPU generator. A mesh of one draws otherwise than no mesh, as
-    ``fold_in(key, 0)`` differs from ``key`` in JAX."""
-    hi, lo = torch.randint(0, 2**32, (2,), generator=generator, dtype=torch.int64).tolist()
-    word = (hi << 32) | lo
-    return torch.Generator().manual_seed(_mix64((word + (mesh.rank + 1) * _FOLD) & _MASK))
+def local_path(mesh: Mesh | None) -> tuple:
+    """What a step's split key is folded with on this rank, as a path of children:
+    ``(rank,)`` on a mesh (``fold_in(k, rank)`` is child ``rank`` of ``k``), else ``()``."""
+    return () if mesh is None else (mesh.rank,)
 
 
 def _worker(rank: int, size: int, tmp: str, call: bytes) -> None:

@@ -12,10 +12,11 @@ one file moves between the two packages. The leaves, in order:
   ``exp_avg``, then ``exp_avg_sq`` (``AdamState(count, mu, nu)``); Adadelta
   ``square_avg`` then ``acc_delta``. An optimizer that has not stepped yet
   saves zeros, as optax's fresh state holds;
-- the rng: two uint32 words. The port draws them from its ``torch.Generator``
-  and reseeds the generator from them, on save and on load, so a resumed run
-  continues the stream a saved run continues. The JAX package reads the two
-  words as its PRNG key; the two packages' random streams differ.
+- the rng: the state's threefry key, its two uint32 words as they are. Both
+  packages read them as their PRNG key, so a JAX TrainState carries its
+  stream across and a resume continues the saved run's stream; a port
+  checkpoint written when the port drew from a ``torch.Generator`` (two words
+  drawn from it) loads its words as a key.
 
 Loss histories are one ``<key>.txt`` per metric (np.savetxt, train.py:538-540),
 truncated to the resume epoch on load (setup_training.py:1576-1579). Writes
@@ -37,19 +38,6 @@ from .optimizers import state_names
 from .train_step import TrainState, drop_graphs
 
 
-def _words_seed(words: np.ndarray) -> int:
-    """A torch seed from two uint32 words."""
-    return ((int(words[0]) << 32) | int(words[1])) & (2**63 - 1)
-
-
-def rng_words(generator: torch.Generator) -> np.ndarray:
-    """Draw two uint32 words from ``generator`` and reseed it from them."""
-    words = torch.randint(0, 2**32, (2,), generator=generator, dtype=torch.int64).numpy()
-    words = words.astype(np.uint32)
-    generator.manual_seed(_words_seed(words))
-    return words
-
-
 def _opt_leaves(opt: torch.optim.Optimizer, params: list[torch.Tensor]) -> list[np.ndarray]:
     names = state_names(opt)
     out: list[np.ndarray] = []
@@ -66,14 +54,14 @@ def _opt_leaves(opt: torch.optim.Optimizer, params: list[torch.Tensor]) -> list[
 
 
 def train_state_leaves(state: TrainState) -> list[np.ndarray]:
-    """The TrainState as the JAX package's flattened leaves (advances the rng)."""
+    """The TrainState as the JAX package's flattened leaves."""
     g_params, d_params = jax_leaves(state.g, True), jax_leaves(state.d, True)
     leaves = [t.detach().cpu().numpy() for t in g_params]
     leaves += [t.detach().cpu().numpy() for t in jax_leaves(state.g, params=False)]
     leaves += [t.detach().cpu().numpy() for t in d_params]
     leaves += [t.detach().cpu().numpy() for t in jax_leaves(state.d, params=False)]
     leaves += _opt_leaves(state.g_opt, g_params) + _opt_leaves(state.d_opt, d_params)
-    leaves.append(rng_words(state.generator))
+    leaves.append(state.rng.detach().cpu().numpy().astype(np.uint32).reshape(2))
     return leaves
 
 
@@ -89,7 +77,7 @@ def _load_opt(opt: torch.optim.Optimizer, params: list[torch.Tensor], leaves: li
         if name == "step":
             continue
         for k, p in enumerate(params):
-            per_param[k][name] = torch.as_tensor(np.asarray(leaves[pos], np.float32)).to(p.device)
+            per_param[k][name] = torch.tensor(np.asarray(leaves[pos], np.float32), device=p.device)
             pos += 1
     capturable = opt.defaults.get("capturable", False)
     for p, st in zip(params, per_param):
@@ -126,7 +114,8 @@ def load_train_state_leaves(state: TrainState, leaves: list) -> None:
     refresh_sn_v(state.d)
     pos = _load_opt(state.g_opt, g_params, leaves, len(tensors))
     pos = _load_opt(state.d_opt, d_params, leaves, pos)
-    state.generator.manual_seed(_words_seed(np.asarray(leaves[pos]).astype(np.uint32)))
+    words = np.asarray(leaves[pos]).astype(np.uint32).reshape(2)
+    state.rng.copy_(torch.from_numpy(words.copy()).to(state.rng.device))
 
 
 def save_train_state(path: str | pathlib.Path, state: TrainState) -> None:
@@ -141,10 +130,7 @@ def save_train_state(path: str | pathlib.Path, state: TrainState) -> None:
 
 
 def copy_checkpoint(src: str | pathlib.Path, dst: str | pathlib.Path) -> None:
-    """Copy a saved checkpoint, atomically. A second ``save_train_state`` of an
-    unchanged state would not write the same file: it draws new rng words and
-    reseeds the generator, so a run that saved twice would not continue the
-    stream that a resume from the first file continues."""
+    """Copy a saved checkpoint, atomically."""
     dst = pathlib.Path(dst)
     tmp = dst.with_name(dst.name + ".tmp")
     shutil.copyfile(src, tmp)

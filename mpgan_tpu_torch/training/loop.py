@@ -36,7 +36,7 @@ Debugging (the JAX loop's flags):
   GPU, device activity) and writes its Chrome trace and ``key_averages()``
   table under ``<out_dir>/profile/``, where the JAX loop writes its trace;
 - ``--debug`` logs D(real) on the epoch's last batch, G's first samples from
-  fixed noise (``torch.Generator`` seed 0) and D on them, after every epoch;
+  fixed noise (the key ``PRNGKey(0)``) and D on them, after every epoch;
 - ``--debug-nans`` is the counterpart of ``jax_debug_nans``: it raises
   ``FloatingPointError`` at the first NaN. A forward hook on every submodule
   of G and D (a device sync a module) names the first module whose output
@@ -79,6 +79,7 @@ from ..data.jetnet import gen_jet_corrections
 from ..data.loader import BatchLoader
 from ..evaluation import cov_mmd, efps, fpd, w1efp, w1m, w1p
 from ..models.registry import build_suite, pcgan_weight_path
+from ..ops import prng
 from ..parallel.mesh import Mesh, broadcast_modules, make_mesh
 from ..utils import plotting
 from . import checkpoint as ckpt
@@ -92,7 +93,7 @@ from .train_step import (
     epoch_kwargs,
     g_step,
     step_config,
-    to_device,
+    step_kinds,
 )
 
 logger = logging.getLogger(__name__)
@@ -185,13 +186,16 @@ class Trainer:
             self.eval_post_fn = lambda out, point_noise: suite.post_gen(out)
         # the 0-based model epoch the legacy MPGAN's --mask-epoch compares against
         self.model_epoch = self.start_epoch
-        # one CPU generator: model init first, then every draw of every step
-        rng = torch.Generator().manual_seed(int(args.seed))
-        g = suite.generator(rng, device=self.device)
-        d = suite.discriminator(rng, device=self.device)
+        # the models' initial weights from a CPU generator seeded --seed; the
+        # steps' key as the JAX package seeds it: split(PRNGKey(seed), 3)[2]
+        # (init_train_state's krest), so the same seed gives JAX's step stream
+        init = torch.Generator().manual_seed(int(args.seed))
+        g = suite.generator(init, device=self.device)
+        d = suite.discriminator(init, device=self.device)
         opt = lambda m, lr: build_optimizer(  # noqa: E731
             args.optimizer, m.parameters(), lr, beta1=args.beta1, beta2=args.beta2)
-        self.state = TrainState(g, d, opt(g, args.lr_gen), opt(d, args.lr_disc), rng)
+        key = prng.fold_in(prng.PRNGKey(int(args.seed)), 2).to(self.device)
+        self.state = TrainState(g, d, opt(g, args.lr_gen), opt(d, args.lr_disc), key)
         if self.start_epoch > 0:
             ckpt.load_train_state(ckpt.checkpoint_path(self.models_dir, self.start_epoch),
                                   self.state)
@@ -282,8 +286,12 @@ class Trainer:
             sums = self.graphs.sums
             for v in sums.values():
                 v.zero_()
-            data, labels = self._static_epoch_steps(data_all, labels_all,
-                                                    self._batch_indices(loader))
+            steps = step_kinds(num_batches, args.num_critic, args.num_gen)
+            self.graphs.epoch(steps, data_all, labels_all, self._batch_indices(loader),
+                              self._epoch_phase(self.model_epoch))
+            last = self.graphs.last_batch()
+            data = data_all.index_select(0, last)
+            labels = None if labels_all is None else labels_all.index_select(0, last)
             return self._end_epoch(epoch, sums, num_batches, data, labels)
         order = torch.as_tensor(self._batch_indices(loader), device=self.device)
         sums = {k: torch.zeros((), device=self.device) for k in self.d_loss_keys + ["G"]}
@@ -337,27 +345,10 @@ class Trainer:
                 break
         return data, labels
 
-    def _static_epoch_steps(self, data_all, labels_all, order: np.ndarray):
-        """The epoch on :class:`StepGraphs`: one D+G step a batch with ``num_critic
-        = num_gen = 1``, else the eager loop's interleave of D and G steps;
-        returns the last batch."""
-        args = self.args
-        phase = self._epoch_phase(self.model_epoch)
-        fused = args.num_critic == 1 and args.num_gen == 1
-        for batch_ndx, idx in enumerate(order):
-            if fused:
-                self.graphs.step("dg", data_all, labels_all, idx, phase)
-                continue
-            if args.num_critic > 1 or batch_ndx == 0 or (batch_ndx - 1) % args.num_gen == 0:
-                self.graphs.step("d", data_all, labels_all, idx, phase)
-            if args.num_critic == 1 or (batch_ndx - 1) % args.num_critic == 0:
-                self.graphs.step("g", data_all, labels_all, idx, phase)
-        last = torch.as_tensor(order[-1], device=self.device)
-        return data_all[last], None if labels_all is None else labels_all[last]
-
     def _log_d_outputs(self, data: torch.Tensor, labels: torch.Tensor | None):
         """``--debug``: D(real) on ``data``, G's samples from fixed noise
-        (``torch.Generator`` seed 0) and D on them, D and G in eval mode with
+        (the key ``PRNGKey(0)``, ``mpgan_tpu/training/loop.py:531``) and D on them,
+        D and G in eval mode with
         their spectral-norm vectors left alone (train.py:413-447); returns the
         three tensors."""
         g, d, suite = self.state.g, self.state.d, self.suite
@@ -366,8 +357,8 @@ class Trainer:
             if suite.encode_real is not None:
                 data = suite.encode_real(data)
             real_out = d(data, labels, update_sn=False, **d_kw)
-            noise = self.spec.sample(torch.Generator().manual_seed(0), data.shape[0], "cpu")
-            fake = g(to_device(noise, self.device), labels, update_sn=False, **g_kw)
+            noise = self.spec.sample(prng.PRNGKey(0, self.device), data.shape[0])
+            fake = g(noise, labels, update_sn=False, **g_kw)
             if self.post_gen is not None:
                 fake = self.post_gen(fake)
             fake_out = d(fake, labels, update_sn=False, **d_kw)
@@ -403,7 +394,7 @@ class Trainer:
             zero_mask_particles=False, zero_neg_pt=False)
         labels = ds.jet_data[sel] if self.use_labels else None
         gen_norm = generate_multi_batch(
-            self.state.g, self.spec, torch.Generator(device=self.device).manual_seed(epoch),
+            self.state.g, self.spec, prng.PRNGKey(epoch, self.device),
             n_eval, args.batch_size, labels=labels, mesh=self.mesh, post_fn=self.eval_post_fn,
             **epoch_kwargs(self.state.g, self._epoch_phase(self.model_epoch)),
         )

@@ -6,8 +6,10 @@ As in the JAX package, targets are ``[B, 1]``: the reference draws ``[B]``
 targets against ``[B, 1]`` outputs under label smoothing (train.py:354-358),
 which broadcasts to ``[B, B]`` inside its loss; that quirk is not reproduced.
 Random draws (smoothed targets, flips, the GP interpolation weight) come from
-the caller's ``torch.Generator`` on the CPU; the train step copies them to the
-device.
+a threefry key (:mod:`..ops.prng`) in JAX's shapes and order, so a key draws
+the JAX package's values: :func:`target_rows` and :func:`targets_from` split
+``d_targets`` into its plan rows and the targets made from their draws, for a
+step that draws every part in one plan.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from ..ops import prng
 
 
 def _bce(outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -27,21 +31,49 @@ def _mse(outputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return torch.mean((outputs - targets) ** 2)
 
 
-def d_targets(generator: torch.Generator | None, batch_size: int, label_smoothing: bool,
-              label_noise: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Real/fake targets ``[B, 1]``: 1 and 0, or with smoothing U(0.7, 1.2) and
-    U(0, 0.3), then flipped with probability ``label_noise`` (train.py:352-363)."""
-    y_real = torch.ones(batch_size, 1)
-    y_fake = torch.zeros(batch_size, 1)
+def target_rows(path: tuple, batch_size: int, label_smoothing: bool,
+                label_noise: float) -> list[prng.Row]:
+    """``d_targets``' draws below the key at ``path``: with smoothing U(0.7, 1.2)
+    and U(0, 0.3) ``[B, 1]`` from children 0 and 1, with label noise two
+    uniforms from children 0 and 1 of child 2 (of the key itself without
+    smoothing), as ``mpgan_tpu/training/losses.py:43-49`` splits."""
+    rows, rng = [], tuple(path)
     if label_smoothing:
-        y_real = 0.7 + 0.5 * torch.rand(batch_size, 1, generator=generator)
-        y_fake = 0.3 * torch.rand(batch_size, 1, generator=generator)
+        rows += [prng.Row("uniform", (batch_size, 1), rng + (0,), 0.7, 1.2),
+                 prng.Row("uniform", (batch_size, 1), rng + (1,), 0.0, 0.3)]
+        rng = rng + (2,)
     if label_noise:
-        flip_r = torch.rand(batch_size, 1, generator=generator) < label_noise
-        flip_f = torch.rand(batch_size, 1, generator=generator) < label_noise
-        y_real = torch.where(flip_r, torch.zeros(()), y_real)
-        y_fake = torch.where(flip_f, torch.ones(()), y_fake)
+        rows += [prng.Row("uniform", (batch_size, 1), rng + (i,)) for i in (0, 1)]
+    return rows
+
+
+def targets_from(draws: list[torch.Tensor], batch_size: int, label_smoothing: bool,
+                 label_noise: float, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The targets ``[B, 1]`` from :func:`target_rows`' draws: 1 and 0, or the
+    smoothed uniforms, then flipped where the flip uniforms fall below
+    ``label_noise`` (train.py:352-363)."""
+    device = draws[0].device if draws else device
+    y_real = torch.ones(batch_size, 1, device=device)
+    y_fake = torch.zeros(batch_size, 1, device=device)
+    draws = list(draws)
+    if label_smoothing:
+        y_real, y_fake = draws.pop(0), draws.pop(0)
+    if label_noise:
+        flip_r, flip_f = draws
+        y_real = torch.where(flip_r < label_noise, torch.zeros((), device=device), y_real)
+        y_fake = torch.where(flip_f < label_noise, torch.ones((), device=device), y_fake)
     return y_real, y_fake
+
+
+def d_targets(key: torch.Tensor | None, batch_size: int, label_smoothing: bool,
+              label_noise: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Real/fake targets ``[B, 1]`` drawn from ``key`` (unused without smoothing
+    and noise): 1 and 0, or with smoothing U(0.7, 1.2) and U(0, 0.3), then
+    flipped with probability ``label_noise`` (train.py:352-363), on the key's device."""
+    rows = target_rows((), batch_size, label_smoothing, label_noise)
+    draws = prng.draw(key, rows) if rows else []
+    return targets_from(draws, batch_size, label_smoothing, label_noise,
+                        None if key is None else key.device)
 
 
 def d_loss(loss: str, real_outputs: torch.Tensor, fake_outputs: torch.Tensor,
@@ -94,7 +126,12 @@ def gradient_penalty(d_fn: Callable[[torch.Tensor], torch.Tensor], alpha: torch.
     return gp_lambda * torch.mean((grad_norm - 1.0) ** 2)
 
 
-def gp_alpha(generator: torch.Generator | None, like: torch.Tensor) -> torch.Tensor:
-    """The per-sample interpolation weight U(0, 1), shaped ``[B, 1, ...]`` like ``like``."""
-    shape = (like.shape[0],) + (1,) * (like.dim() - 1)
-    return torch.rand(shape, generator=generator, dtype=like.dtype)
+def alpha_shape(like_shape: tuple) -> tuple:
+    """The GP weight's shape for a real batch shaped ``like_shape``: ``[B, 1, ...]``."""
+    return (like_shape[0],) + (1,) * (len(like_shape) - 1)
+
+
+def gp_alpha(key: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The per-sample interpolation weight U(0, 1) from ``key``, shaped ``[B, 1, ...]``
+    like ``like`` (``mpgan_tpu/training/losses.py:108``)."""
+    return prng.uniform(key.to(like.device), alpha_shape(tuple(like.shape)))

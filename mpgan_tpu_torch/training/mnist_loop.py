@@ -18,9 +18,9 @@ import logging
 import pathlib
 
 import numpy as np
-import torch
 
 from ..evaluation.mnist_fid import get_fid
+from ..ops import prng
 from ..utils import plotting
 from . import checkpoint as ckpt
 from .loop import Trainer
@@ -60,7 +60,7 @@ class MNISTTrainer(Trainer):
 
         n_eval = args.get("fid_eval_samples", 8192)
         gen_clouds = generate_multi_batch(
-            self.state.g, self.spec, torch.Generator(device=self.device).manual_seed(epoch),
+            self.state.g, self.spec, prng.PRNGKey(epoch, self.device),
             n_eval, args.batch_size, mesh=self.mesh,
             **epoch_kwargs(self.state.g, self.model_epoch))
         if self.is_main:

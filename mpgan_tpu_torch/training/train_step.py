@@ -27,18 +27,26 @@ batch into the training representation before D sees it (the JAX package's
 ``train_step.py:185-186``), without gradients. A model with ``reads_epoch``
 (the legacy MPGAN) takes the model epoch, ``epoch=``, in both steps.
 
-Every random draw of a step (noise, smoothed targets, the GP weight, the
-augmentation's uniforms and normals, the dropout key words and in-kernel
-seeds) comes from ``TrainState.generator``, a
-CPU ``torch.Generator``, in a fixed order. A test can pass the draws instead
-(``DDraws``/``GDraws``), for example the JAX package's own.
+Every random draw of a step comes from ``TrainState.rng``, a threefry key
+(:mod:`..ops.prng`, a uint32 ``[2]`` tensor on the models' device), as the JAX
+step draws from its state's key (``mpgan_tpu/training/train_step.py:182,
+261``): the D step splits it 9 ways (the next key; G's noise, the real, fake
+and GP passes' dropout keys, the GP weight, the targets, the augmentation of
+the real and of the fake batch), the G step 5 ways (the next key; the noise,
+G's and D's dropout keys, the augmentation). A step's draws are one plan
+(:func:`part_draws`) drawn on the device by one ``threefry_draws`` launch,
+which writes the next key over the state's; the dropout keys are
+:class:`..ops.keys.Keys` below the step's key. A test can pass the draws
+instead (``DDraws``/``GDraws``).
 
 :class:`StaticStep` takes the same steps on static buffers, so that a CUDA
 graph can replay them (the counterpart of the JAX epoch's ``lax.scan`` body
-and its fused ``dg_step``): the host draws what the eager step draws, in its
-order, the dropout keys included (:class:`..ops.keys.KeySlots`), and copies
-them into the buffers before each run. :class:`StepGraphs` keeps the epoch
-loop's static steps.
+and its fused ``dg_step``): one ``threefry_draws`` launch at the start of the
+body draws the batch's rows from the epoch's order at a device batch counter,
+every draw of the step, the dropout keys included
+(:class:`..ops.keys.KeySlots`), into one buffer, writes the next key and
+advances the counter. :class:`StepGraphs` keeps the epoch loop's static steps;
+an epoch copies its order to the device once and then replays.
 
 Mixed precision (``StepConfig.bf16``, ``--compute-dtype bfloat16``; the JAX
 package's ``train_step.py:148-166``): every G and D apply of the step runs on
@@ -65,28 +73,27 @@ its rows of the global batch, and after the backward, before the optimizer's
 update, one :func:`..parallel.mesh.pmean_` averages over the ranks the stepped
 model's gradients, the loss parts and every floating buffer of both models
 (BN running statistics, SN vectors), as ``train_step.py:244-248, 287-291`` do,
-so that the parameters and optimizer states stay replicated. Each part of a
-step draws one word from the replicated generator and takes its draws from a
-generator seeded by that word and the rank (:func:`..parallel.mesh.fold_in`,
-JAX's ``_localize``); without a mesh no word is drawn.
+so that the parameters and optimizer states stay replicated. The key is
+replicated; each rank folds its rank into each of a step's split keys (but not
+the next key), as JAX's ``_localize`` does (:func:`..parallel.mesh.local_path`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-import math
 import weakref
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
-from ..ops.augment import AugmentConfig, AugmentDraws, augment, draw_augment
-from ..ops.keys import GeneratorKeys, KeySlots
+from ..ops import prng
+from ..ops.augment import AugmentConfig, AugmentDraws, augment, augment_from, augment_rows
+from ..ops.keys import Keys, KeySlots
 from ..ops.mp_kernels import CountedGraph, graph_pool, warm_up
-from ..parallel.mesh import Mesh, fold_in, pmean_
-from .losses import d_loss, d_targets, g_loss, gp_alpha, gradient_penalty
+from ..parallel.mesh import Mesh, local_path, pmean_
+from .losses import alpha_shape, d_loss, g_loss, gradient_penalty, target_rows, targets_from
 from .sampling import NoiseSpec, drop_samplers, route_key
 
 logger = logging.getLogger(__name__)
@@ -98,7 +105,7 @@ class TrainState:
     d: torch.nn.Module
     g_opt: torch.optim.Optimizer
     d_opt: torch.optim.Optimizer
-    generator: torch.Generator  # CPU; every draw of the step
+    rng: torch.Tensor  # the threefry key (uint32 [2]); every draw of the steps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,8 +138,9 @@ def step_config(args: Any) -> StepConfig:
 @dataclasses.dataclass
 class DDraws:
     """The draws of one D step: G's noise, the dropout keys of the real and the
-    fake pass, the loss targets (None: plain 1 and 0), the GP's keys and
-    interpolation weight, and the augmentation's of the real and the fake batch."""
+    fake pass, the loss targets (None: plain 1 and 0; or a function that makes
+    them), the GP's keys and interpolation weight, and the augmentation's of the
+    real and the fake batch."""
 
     noise: torch.Tensor
     real: Any
@@ -155,79 +163,101 @@ class GDraws:
     aug: AugmentDraws | None = None
 
 
-def to_device(t: torch.Tensor, device) -> torch.Tensor:
-    """Copy a host draw to ``device`` without making the host wait for the
-    device's queue (a pageable copy would drain it every step)."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+@dataclasses.dataclass
+class PartDraws:
+    """A step part's draws as plan rows below the step's key: ``rows``, the
+    path of each dropout key field (``keys``), and ``make(views, keys)``, which
+    builds the ``DDraws``/``GDraws`` from the rows' draws and a keys object a field."""
+
+    rows: list
+    keys: dict
+    make: Callable[[Sequence[torch.Tensor], dict], Any]
 
 
-# the fields of a step's draws that hold tensors, and those that hold keys
-DRAW_TENSORS = {DDraws: ("noise", "targets", "gp_alpha", "aug_real", "aug_fake"),
-                GDraws: ("noise", "aug")}
-DRAW_KEYS = {DDraws: ("real", "fake", "gp"), GDraws: ("g", "d")}
+def part_draws(part: str, cfg: StepConfig, spec: NoiseSpec, batch_size: int,
+               like_shape: tuple | None = None, prefix: tuple = (),
+               mesh: Mesh | None = None) -> PartDraws:
+    """The draws of a D (``part`` "d") or G ("g") step whose key is the one at
+    ``prefix`` below the plan's (``(0,)`` for the G part of a D+G step), as the
+    JAX step splits it: D's children 1-8 are the noise, real, fake and GP
+    passes' keys, the GP weight, the targets and the two augmentations'; G's
+    1-4 the noise, G's and D's keys and the augmentation's. With ``mesh`` each
+    child is folded with the rank. ``like_shape``: the (encoded) real batch's
+    shape, which the GP weight takes."""
+    b, local = batch_size, local_path(mesh)
+    k = lambda i: tuple(prefix) + (i,) + local  # noqa: E731
+    rows: list = []
+    spans: dict = {}
+
+    def add(name, new):
+        spans[name] = (len(rows), len(rows) + len(new))
+        rows.extend(new)
+
+    add("noise", spec.rows(b, k(1)))
+    if part == "d":
+        targets = cfg.loss in ("og", "ls") and (cfg.label_smoothing or cfg.label_noise)
+        if targets:
+            add("targets", target_rows(k(6), b, cfg.label_smoothing, cfg.label_noise))
+        if cfg.gp_lambda:
+            add("gp_alpha", [prng.Row("uniform", alpha_shape(tuple(like_shape)), k(5))])
+        if cfg.augment is not None:
+            add("aug_real", augment_rows(cfg.augment, k(7), b))
+            add("aug_fake", augment_rows(cfg.augment, k(8), b))
+        keys = {"real": k(2), "fake": k(3), "gp": k(4)}
+    else:
+        if cfg.augment is not None:
+            add("aug", augment_rows(cfg.augment, k(4), b))
+        keys = {"g": k(2), "d": k(3)}
+
+    def make(views, key_objs):
+        got = {name: list(views[lo:hi]) for name, (lo, hi) in spans.items()}
+
+        def aug(name):
+            return augment_from(cfg.augment, got[name]) if name in got else None
+
+        if part == "g":
+            return GDraws(got["noise"][0], key_objs["g"], key_objs["d"], aug("aug"))
+        tgt = None
+        if "targets" in got:  # made in the step from the buffer's draws, each run
+            tgt = lambda: targets_from(got["targets"], b, cfg.label_smoothing,  # noqa: E731
+                                       cfg.label_noise)
+        alpha = got["gp_alpha"][0] if "gp_alpha" in got else None
+        return DDraws(got["noise"][0], key_objs["real"], key_objs["fake"], tgt, key_objs["gp"],
+                      alpha, aug("aug_real"), aug("aug_fake"))
+
+    return PartDraws(rows, keys, make)
 
 
-def map_draws(fn: Callable[[torch.Tensor], torch.Tensor], draws):
-    """``draws`` (a ``DDraws`` or ``GDraws``) with ``fn`` applied to every tensor,
-    field by field in ``DRAW_TENSORS`` order."""
-    def tree(obj):
-        if obj is None:
-            return None
-        if isinstance(obj, torch.Tensor):
-            return fn(obj)
-        if isinstance(obj, AugmentDraws):
-            return obj.map(fn)
-        return tuple(tree(o) for o in obj)
-    return dataclasses.replace(draws, **{f: tree(getattr(draws, f))
-                                         for f in DRAW_TENSORS[type(draws)]})
+def _state_key(state: TrainState, device) -> torch.Tensor:
+    """The state's key, moved once to ``device`` (where the step's tensors are)."""
+    if state.rng.device != torch.device(device):
+        state.rng = state.rng.to(device)
+    return state.rng
 
 
-def host_draw_d(gen: torch.Generator, cfg: StepConfig, spec: NoiseSpec,
-                like: torch.Tensor) -> DDraws:
-    """The draws of a D step on the host, for a real batch shaped like ``like``
-    (the GP weight takes its shape and dtype), with ``GeneratorKeys`` for the
-    dropout keys."""
-    b = like.shape[0]
-    noise = spec.sample(gen, b, "cpu")
-    targets = None
-    if cfg.loss in ("og", "ls") and (cfg.label_smoothing or cfg.label_noise):
-        targets = d_targets(gen, b, cfg.label_smoothing, cfg.label_noise)
-    alpha = gp_alpha(gen, like) if cfg.gp_lambda else None
-    aug_real = aug_fake = None
-    if cfg.augment is not None:
-        aug_real, aug_fake = (draw_augment(cfg.augment, gen, b) for _ in range(2))
-    keys = GeneratorKeys(gen)
-    return DDraws(noise, keys, keys, targets, keys, alpha, aug_real, aug_fake)
-
-
-def host_draw_g(gen: torch.Generator, cfg: StepConfig, spec: NoiseSpec,
-                batch_size: int) -> GDraws:
-    """The draws of a G step on the host, with ``GeneratorKeys``."""
-    noise = spec.sample(gen, batch_size, "cpu")
-    aug = draw_augment(cfg.augment, gen, batch_size) if cfg.augment is not None else None
-    keys = GeneratorKeys(gen)
-    return GDraws(noise, keys, keys, aug)
-
-
-def step_generator(state: TrainState, mesh: Mesh | None) -> torch.Generator:
-    """Where a step part's draws come from: the state's generator, or with a
-    mesh this rank's generator folded from it (one word drawn)."""
-    return state.generator if mesh is None else fold_in(state.generator, mesh)
+def draw_part(state: TrainState, pd: PartDraws, device,
+              serve: Callable[[dict], dict] | None = None):
+    """A step part's draws from the state's key in one launch, which writes the
+    next key over it; the dropout keys are :class:`Keys` below the old key, or
+    what ``serve`` makes of them (a static step's recorded slots)."""
+    key = _state_key(state, device)
+    root = key.clone()
+    views = prng.draw(key, pd.rows, advance=1)
+    keys = {f: Keys(root, p) for f, p in pd.keys.items()}
+    return pd.make(views, keys if serve is None else serve(keys))
 
 
 def draw_d(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor,
            mesh: Mesh | None = None) -> DDraws:
-    return map_draws(lambda t: to_device(t, data.device),
-                     host_draw_d(step_generator(state, mesh), cfg, spec, data))
+    """A D step's draws for the (encoded) real batch ``data``; advances the key."""
+    pd = part_draws("d", cfg, spec, data.shape[0], tuple(data.shape), mesh=mesh)
+    return draw_part(state, pd, data.device)
 
 
 def draw_g(state: TrainState, cfg: StepConfig, spec: NoiseSpec, batch_size: int,
            device, mesh: Mesh | None = None) -> GDraws:
-    return map_draws(lambda t: to_device(t, device),
-                     host_draw_g(step_generator(state, mesh), cfg, spec, batch_size))
+    """A G step's draws; advances the key."""
+    return draw_part(state, part_draws("g", cfg, spec, batch_size, mesh=mesh), device)
 
 
 def reduce_step(mesh: Mesh | None, model: torch.nn.Module, losses: Sequence[torch.Tensor],
@@ -313,7 +343,8 @@ def d_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
         # real pass on unaugmented data (train.py:425)
         real_out = _apply(cfg, d, data, labels, train=True, rng=draws.real, **d_kw)
         fake_out = _apply(cfg, d, fake, labels, train=True, rng=draws.fake, **d_kw)
-    total, parts = d_loss(cfg.loss, real_out, fake_out, draws.targets)
+    targets = draws.targets() if callable(draws.targets) else draws.targets
+    total, parts = d_loss(cfg.loss, real_out, fake_out, targets)
     if cfg.gp_lambda:
         gp = gradient_penalty(lambda x: _apply(cfg, d, x, labels, train=True, rng=draws.gp,
                                                **d_kw),
@@ -370,63 +401,60 @@ def g_step(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tens
 class StaticStep:
     """A D step, a G step or both on one batch (``kind`` "d", "g" or "dg", the
     JAX loop's ``dg_step``) on static buffers. Each call takes one step on the
-    batch ``data_all[idx]`` (``labels_all`` likewise) and adds its loss parts to
-    ``sums``, device scalars:
+    batch ``data_all[order[counter]]`` (``labels_all`` likewise), adds its loss
+    parts to ``sums``, device scalars, and adds one to ``counter`` (int32
+    ``[1]`` on the device; ``order`` the epoch's ``[steps, B]`` int32 rows):
 
-    - the first call records: an ordinary step (:func:`d_step`, :func:`g_step`)
-      whose dropout keys :class:`KeySlots` logs as they are drawn; it fixes the
-      layout of the static buffer;
-    - every later call draws on the host what the eager step draws, in its
-      order (per part: noise, targets, GP weight, augmentation, then the logged
-      keys) into one fresh pinned tensor, with the batch's indices in front, and
-      one non-blocking copy moves it into the static buffer, where the step's
-      body reads its inputs. The body runs as it is (the CPU), or, with
-      ``capture``, runs once on a side stream (torch.cuda.graphs' warm-up
-      rule), is captured at the next call into a CUDA graph
-      (:class:`CountedGraph`, in :func:`graph_pool`) and replayed from then on.
+    - the first call records: an ordinary step (:func:`d_step`, :func:`g_step`,
+      drawing from the state's key) whose dropout keys :class:`KeySlots` logs;
+      it fixes the plan of the static buffer: the batch's row of ``order``, then
+      per part its draws (:func:`part_draws`, the G part of "dg" below child 0)
+      and its logged keys;
+    - every later call runs the body: one ``threefry_draws`` launch of that
+      plan from the state's key, which writes the buffer, the next key (child 0
+      once a part) and the counter, then the step on views of the buffer. The
+      body runs as it is (the CPU), or, with ``capture``, runs once on a side
+      stream (torch.cuda.graphs' warm-up rule), is captured at the next call
+      into a CUDA graph (:class:`CountedGraph`, in :func:`graph_pool`) and
+      replayed from then on: no host work but the replay.
 
     A call gives the eager step's parameters, optimizer state, loss parts and
-    generator state. ``draws``, one per part, replaces the generator's draws
-    (host tensors and keys objects, e.g. a test's JAX-replay keys). With
-    ``mesh`` the body holds the steps' reduces (a captured graph holds the
-    NCCL all-reduce) and ``idx`` is this rank's rows of the batch."""
+    key. With ``mesh`` the body holds the steps' reduces (a captured graph
+    holds the NCCL all-reduce) and ``order`` holds this rank's rows."""
 
     def __init__(self, kind: str, state: TrainState, cfg: StepConfig, spec: NoiseSpec,
                  data_all: torch.Tensor, labels_all: torch.Tensor | None,
-                 sums: dict[str, torch.Tensor], post_gen: PostGen | None = None,
-                 encode_real: PostGen | None = None, epoch: int = 0, capture: bool = False,
-                 mesh: Mesh | None = None):
+                 sums: dict[str, torch.Tensor], order: torch.Tensor, counter: torch.Tensor,
+                 post_gen: PostGen | None = None, encode_real: PostGen | None = None,
+                 epoch: int = 0, capture: bool = False, mesh: Mesh | None = None):
         if kind not in ("d", "g", "dg"):
             raise ValueError(f"step kind {kind!r}: expected d, g or dg")
         self.kind, self.state, self.cfg, self.spec = kind, state, cfg, spec
         self.data_all, self.labels_all, self.sums = data_all, labels_all, sums
+        self.order, self.counter = order, counter
         self.post_gen, self.encode_real, self.epoch = post_gen, encode_real, epoch
         self.capture, self.mesh = capture, mesh
         self.device = data_all.device
-        self.slots = [KeySlots(self.device) for _ in kind]
+        self.slots = [KeySlots() for _ in kind]
         self.calls = 0
         self.graph: CountedGraph | None = None
-        self._templates: list = [None] * len(kind)
-        self._like: tuple | None = None  # the (encoded) real batch's shape and dtype
+        self._like: tuple | None = None  # the (encoded) real batch's shape
 
-    def __call__(self, idx, draws: Sequence | None = None) -> None:
-        idx = torch.as_tensor(np.asarray(idx), dtype=torch.int32)
+    def __call__(self) -> None:
         if self.calls == 0:
-            self._record(idx, draws)
+            self._record()
+        elif self.graph is not None:
+            self.graph.replay()
+        elif not self.capture:
+            self._body()
+        elif self.calls == 1:
+            warm_up(self._body, self.device)
         else:
-            self.buffer.copy_(self._fill(idx, draws), non_blocking=True)
-            if self.graph is not None:
-                self.graph.replay()
-            elif not self.capture:
-                self._body()
-            elif self.calls == 1:
-                warm_up(self._body, self.device)
-            else:
-                self.graph = CountedGraph(self._body, pool=graph_pool())
-                self.graph.replay()
-                logger.info(f"captured the {self.kind} step (batch {idx.shape[0]}) in a CUDA "
-                            f"graph, replayed from its next batch on; hand-written kernel "
-                            f"launches a replay: {self.graph.launches}")
+            self.graph = CountedGraph(self._body, pool=graph_pool())
+            self.graph.replay()
+            logger.info(f"captured the {self.kind} step (batch {self.order.shape[1]}) in a "
+                        f"CUDA graph, replayed from its next batch on; hand-written kernel "
+                        f"launches a replay: {self.graph.launches}")
         self.calls += 1
 
     def _batch(self, idx: torch.Tensor):
@@ -444,82 +472,57 @@ class StaticStep:
         for k, v in out.items():
             self.sums[k].add_(v)
 
-    def _host_draws(self, i: int, like: torch.Tensor, b: int, draws: Sequence | None):
-        if draws is not None and draws[i] is not None:
-            return draws[i]
-        gen = step_generator(self.state, self.mesh)
-        if self.kind[i] == "d":
-            return host_draw_d(gen, self.cfg, self.spec, like)
-        return host_draw_g(gen, self.cfg, self.spec, b)
+    def _part(self, i: int, prefix: tuple) -> PartDraws:
+        b = self.order.shape[1]
+        return part_draws(self.kind[i], self.cfg, self.spec, b, self._like, prefix, self.mesh)
 
-    def _with_slots(self, i: int, host):
-        return dataclasses.replace(host, **{f: self.slots[i].root(f)
-                                            for f in DRAW_KEYS[type(host)]})
-
-    def _record(self, idx: torch.Tensor, draws: Sequence | None) -> None:
-        data, labels = self._batch(to_device(idx, self.device))
-        b = idx.shape[0]
+    def _record(self) -> None:
+        idx = self.order.index_select(0, self.counter.long()).reshape(-1)
+        data, labels = self._batch(idx)
         for i, part in enumerate(self.kind):
             sources: dict = {}
 
             def made(like, i=i, sources=sources):
-                host = self._host_draws(i, like, b, draws)
-                self._templates[i] = host
                 if like is not None:
-                    self._like = (tuple(like.shape), like.dtype)
-                sources.update({f: getattr(host, f) for f in DRAW_KEYS[type(host)]})
-                return self._with_slots(i, map_draws(lambda t: to_device(t, self.device), host))
+                    self._like = tuple(like.shape)
+
+                def serve(keys):  # the slots log the keys' requests
+                    sources.update(keys)
+                    return {f: self.slots[i].root(f) for f in keys}
+                return draw_part(self.state, self._part(i, ()), self.device, serve)
 
             with self.slots[i].recording(sources):
                 self._run(part, data, labels, made if part == "d" else made(None))
-        self._layout(b)
+        self.counter.add_(1)
+        self._layout()
 
-    def _layout(self, b: int) -> None:
-        """Carve the static buffer: the batch's indices, then per part its
-        tensors' leaves (float32) and its key slots."""
-        off, self._parts, static = b, [], []
-        for i, host in enumerate(self._templates):
-            leaves: list[torch.Tensor] = []
-            map_draws(lambda t: leaves.append(t) or t, host)
-            if any(t.dtype != torch.float32 for t in leaves):
-                raise TypeError("static step: every draw must be float32")
-            shapes = [tuple(t.shape) for t in leaves]
-            keys_off = off + sum(math.prod(sh) for sh in shapes)
-            self._parts.append((off, shapes, keys_off))
-            off = keys_off + len(self.slots[i].log)
-        self.buffer = torch.empty(off, dtype=torch.int32, device=self.device)
-        self.idx = self.buffer[:b]
-        for i, (off, shapes, keys_off) in enumerate(self._parts):
-            views = []
-            for sh in shapes:
-                views.append(self.buffer[off:off + math.prod(sh)].view(torch.float32).view(sh))
-                off += math.prod(sh)
-            it = iter(views)
-            static.append(self._with_slots(i, map_draws(lambda t: next(it), self._templates[i])))
-            self.slots[i].buffer = self.buffer[keys_off:keys_off + len(self.slots[i].log)]
-        self._static = static
-
-    def _fill(self, idx: torch.Tensor, draws: Sequence | None) -> torch.Tensor:
-        host = torch.empty(self.buffer.numel(), dtype=torch.int32,
-                           pin_memory=self.device.type == "cuda")
-        b = idx.shape[0]
-        host[:b].copy_(idx)
-        like = None if self._like is None else torch.empty(self._like[0], dtype=self._like[1],
-                                                           device="meta")
-        for i, (off, shapes, keys_off) in enumerate(self._parts):
-            d = self._host_draws(i, like, b, draws)
-            leaves: list[torch.Tensor] = []
-            map_draws(lambda t: leaves.append(t) or t, d)
-            if [tuple(t.shape) for t in leaves] != shapes:
-                raise ValueError("static step: the draws' shapes differ from the recorded step's")
-            for t in leaves:
-                host[off:off + t.numel()].view(torch.float32).copy_(t.reshape(-1))
-                off += t.numel()
-            self.slots[i].fill({f: getattr(d, f) for f in DRAW_KEYS[type(d)]},
-                               host[keys_off:keys_off + len(self.slots[i].log)])
-        return host
+    def _layout(self) -> None:
+        """The plan: the batch's row of the order, then each part's draws, then
+        each part's logged keys; the static draws are views of its buffer."""
+        parts = [self._part(i, (0,) * i) for i in range(len(self.kind))]
+        rows = [prng.Row("order", (self.order.shape[1],))]
+        for pd in parts:
+            rows += pd.rows
+        first_slot = len(rows)
+        for i, pd in enumerate(parts):
+            rows += self.slots[i].rows(pd.keys)
+        self.plan = prng.Plan(rows, self.device)
+        self.buffer = torch.empty(self.plan.words, dtype=torch.int32, device=self.device)
+        views = self.plan.views(self.buffer)
+        self.idx = views[0]
+        self._static, lo = [], 1
+        for i, pd in enumerate(parts):
+            self._static.append(pd.make(views[lo:lo + len(pd.rows)],
+                                        {f: self.slots[i].root(f) for f in pd.keys}))
+            lo += len(pd.rows)
+        off = self.plan.offsets[first_slot] if first_slot < len(rows) else self.plan.words
+        for slots in self.slots:
+            slots.buffer = self.buffer[off:off + len(slots.log)]
+            off += len(slots.log)
 
     def _body(self) -> None:
+        self.plan.run(self.state.rng, self.buffer, self.counter, self.order,
+                      advance=len(self.kind), bump=True)
         data, labels = self._batch(self.idx)
         for i, part in enumerate(self.kind):
             with self.slots[i].serving():
@@ -529,14 +532,31 @@ class StaticStep:
 _LIVE_STEP_GRAPHS: "weakref.WeakSet[StepGraphs]" = weakref.WeakSet()
 
 
+def step_kinds(num_batches: int, num_critic: int = 1, num_gen: int = 1) -> list[tuple[int, str]]:
+    """The epoch's steps as ``(batch, kind)``: one "dg" a batch with ``num_critic =
+    num_gen = 1``, else the eager loop's interleave of "d" and "g" steps
+    (train.py:841-878)."""
+    if num_critic == 1 and num_gen == 1:
+        return [(b, "dg") for b in range(num_batches)]
+    steps = []
+    for b in range(num_batches):
+        if num_critic > 1 or b == 0 or (b - 1) % num_gen == 0:
+            steps.append((b, "d"))
+        if num_critic == 1 or (b - 1) % num_critic == 0:
+            steps.append((b, "g"))
+    return steps
+
+
 class StepGraphs:
     """The epoch loop's static steps (:class:`StaticStep`), one per kind, with
-    the loss sums they add to. They hold for one staged dataset, batch size,
-    model phase (the legacy model's ``--mask-epoch``) and kernel route; a step
-    on any other drops them (and their graphs) and records anew. ``capture``:
-    replay CUDA graphs (all in :func:`graph_pool`), else run the bodies as they
-    are (the CPU). ``captures`` and ``replays`` count the graphs' captures and
-    the steps that replayed one. ``mesh``: the steps reduce over its ranks."""
+    the loss sums they add to, the epoch's order (one row a step) and the batch
+    counter, all on the device. They hold for one staged dataset, order shape,
+    model phase (the legacy model's ``--mask-epoch``) and kernel route; an
+    epoch on any other drops them (and their graphs) and records anew.
+    ``capture``: replay CUDA graphs (all in :func:`graph_pool`), else run the
+    bodies as they are (the CPU). ``captures`` and ``replays`` count the graphs'
+    captures and the steps that replayed one. ``mesh``: the steps reduce over
+    its ranks."""
 
     def __init__(self, state: TrainState, cfg: StepConfig, spec: NoiseSpec,
                  loss_keys: Sequence[str], device, post_gen: PostGen | None = None,
@@ -544,31 +564,46 @@ class StepGraphs:
                  mesh: Mesh | None = None):
         self.state, self.cfg, self.spec = state, cfg, spec
         self.post_gen, self.encode_real = post_gen, encode_real
-        self.capture, self.mesh = capture, mesh
+        self.capture, self.mesh, self.device = capture, mesh, torch.device(device)
         self.sums = {k: torch.zeros((), device=device) for k in loss_keys}
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        self.order: torch.Tensor | None = None
         self.steps: dict[str, StaticStep] = {}
         self.captures = self.replays = 0
         self._key = None
         _LIVE_STEP_GRAPHS.add(self)
 
-    def step(self, kind: str, data_all: torch.Tensor, labels_all: torch.Tensor | None,
-             idx, epoch: int = 0) -> None:
-        key = (id(data_all), id(labels_all), len(idx), epoch,
+    def epoch(self, steps: Sequence[tuple[int, str]], data_all: torch.Tensor,
+              labels_all: torch.Tensor | None, order: np.ndarray, epoch: int = 0) -> None:
+        """Take ``steps`` (``(batch, kind)``, :func:`step_kinds`) on the batches of
+        ``order`` (``[batches, B]``): one copy of their rows to the device, then a
+        replay (or a body) a step. The loss sums are added to, not zeroed."""
+        rows = np.ascontiguousarray(np.asarray(order)[[b for b, _ in steps]], dtype=np.int32)
+        key = (id(data_all), id(labels_all), rows.shape, epoch,
                route_key(self.state.g, self.state.d))
         if key != self._key:
             self.drop()
             self._key = key
-        if kind not in self.steps:
-            self.steps[kind] = StaticStep(
-                kind, self.state, self.cfg, self.spec, data_all, labels_all, self.sums,
-                post_gen=self.post_gen, encode_real=self.encode_real, epoch=epoch,
-                capture=self.capture, mesh=self.mesh)
-        step = self.steps[kind]
-        captured = step.graph is not None
-        step(idx)
-        if step.graph is not None:
-            self.replays += 1
-            self.captures += not captured
+            self.order = torch.empty(rows.shape, dtype=torch.int32, device=self.device)
+        self.order.copy_(torch.from_numpy(rows))
+        self.counter.zero_()
+        for _, kind in steps:
+            if kind not in self.steps:
+                self.steps[kind] = StaticStep(
+                    kind, self.state, self.cfg, self.spec, data_all, labels_all, self.sums,
+                    self.order, self.counter, post_gen=self.post_gen,
+                    encode_real=self.encode_real, epoch=epoch, capture=self.capture,
+                    mesh=self.mesh)
+            step = self.steps[kind]
+            captured = step.graph is not None
+            step()
+            if step.graph is not None:
+                self.replays += 1
+                self.captures += not captured
+
+    def last_batch(self) -> torch.Tensor:
+        """The last step's batch rows (device int32), as the order holds them."""
+        return self.order[-1]
 
     def drop(self) -> None:
         self.steps.clear()

@@ -19,6 +19,17 @@ epoch of ``chip_smoke.GRAPH_STEPS`` batches that captures, then wall ms a step
 step, idle share and kernels a step (``chip_smoke.epoch_profile``); ``--paths``
 names some of them (flagship, knn20, knn20_route3, gapt).
 
+``--graphs`` times the graph steps as the training loop runs them
+(``--epoch-scan``, an epoch of ``chip_smoke.GRAPH_STEPS`` batches that
+captures first): the float32 and bf16 flagship at B=256, knn-20 at B=128 and
+GAPT at B=512, each with its wall ms a step (the best of ``--reps`` epochs),
+the host's time to issue a step (``chip_smoke.issue_epoch``: the device
+drained before each step call) and a ``torch.profiler`` epoch (device ms a
+step, idle share, kernels a step); then GAPT generation through
+``generate_multi_batch`` at B=1024 and B=4096 (jets/s, 50 batches, the best of
+``--reps``). A checkpoint whose sampler takes a key gets ``PRNGKey(1)``, an
+older one a device ``torch.Generator`` seeded 1.
+
 ``--root`` names the checkout whose ``chip_smoke.py`` and ``mpgan_tpu_torch``
 are used (default: the one that holds this script), and ``--label`` goes into
 every line, so that two checkouts run in turns on one card can be told apart.
@@ -31,7 +42,9 @@ import json
 import pathlib
 import sys
 import tempfile
+import time
 
+import numpy as np
 import torch
 
 
@@ -43,6 +56,8 @@ def main(argv=None):
     ap.add_argument("--bf16", action="store_true", help="time the bf16 graph steps")
     ap.add_argument("--paths", default="flagship,knn20,knn20_route3,gapt",
                     help="the bf16 graph steps to time, comma-separated")
+    ap.add_argument("--graphs", action="store_true",
+                    help="time the float32 and bf16 graph steps and GAPT generation")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_step_bench: no CUDA device available")
@@ -54,6 +69,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = cs.card_line()
+    if args.graphs:
+        return graph_steps(cs, from_args_dict, dev, card, args)
     if args.bf16:
         return bf16_graph_steps(cs, from_args_dict, dev, card, args)
     for name, model, batch, n in (("flagship", cs.FLAGSHIP, 256, 30),
@@ -99,6 +116,51 @@ def bf16_graph_steps(cs, from_args_dict, dev, card, args):
             torch.cuda.empty_cache()
         finally:
             cs.set_knn_route()
+
+
+def graph_steps(cs, from_args_dict, dev, card, args):
+    from mpgan_tpu_torch.data.loader import BatchLoader
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training.sampling import generate_multi_batch
+
+    for name, model, batch in (("flagship", cs.FLAGSHIP, 256),
+                               ("flagship_bf16", {**cs.FLAGSHIP, "compute_dtype": "bfloat16"},
+                                256),
+                               ("knn20", cs.KNN150, 128), ("gapt", cs.GAPT, 512)):
+        margs = from_args_dict(model)
+        margs.batch_size = batch
+        data, labels = cs.graph_data(margs, cs.GRAPH_STEPS * batch)
+        with tempfile.TemporaryDirectory() as tmp:
+            t = cs.graph_trainer(margs, dev, pathlib.Path(tmp), name, True)
+            loader = BatchLoader(data, labels if t.use_labels else None, batch_size=batch,
+                                 shuffle=True, seed=margs.seed)
+            t.train_epoch(1, loader)  # records, warms up, captures
+            wall = [cs.timed_epoch(t, 2 + i, loader) for i in range(args.reps)]
+            issue = cs.issue_epoch(t, 2 + args.reps, loader)
+            prof = cs.epoch_profile(t, 3 + args.reps, loader)
+        print(json.dumps({"label": args.label, "card": card, "graph_step": name, "batch": batch,
+                          "wall_ms_best": min(wall), "wall_ms_all": wall, "issue_ms": issue,
+                          "profile": prof}), flush=True)
+        del t
+        torch.cuda.empty_cache()
+    margs = from_args_dict(cs.GAPT)
+    g = build_suite(margs).generator(torch.Generator().manual_seed(30), device=dev)
+    spec = build_suite(margs).noise
+    labels = cs.graph_data(margs, 4096)[1]
+    for batch in (1024, 4096):
+        n = 50 * batch
+        lab = None if labels is None else labels[np.arange(n) % len(labels)]
+        rates = []
+        for _ in range(args.reps + 1):  # the first call captures
+            key = cs.prng_key(1, dev) if hasattr(cs, "prng_key") else \
+                torch.Generator(device=dev).manual_seed(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate_multi_batch(g, spec, key, n, batch, labels=lab)
+            rates.append(n / (time.perf_counter() - t0))
+        print(json.dumps({"label": args.label, "card": card, "gapt_generation": batch,
+                          "jets_per_s": max(rates[1:]), "jets_per_s_all": rates[1:]}),
+              flush=True)
 
 
 if __name__ == "__main__":

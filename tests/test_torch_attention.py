@@ -19,7 +19,7 @@ import jax.numpy as jnp
 from mpgan_tpu.ops import attention as jatt
 from mpgan_tpu_torch.ops import attention as tatt
 
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -163,7 +163,7 @@ def test_mab_matches_jax(cfg_kwargs, train, cross):
     tx = torch.from_numpy(x) if cross else ty
     with torch.no_grad():
         yt = m(tx, ty, tatt.sab_mask(torch.from_numpy(mask), x.shape[1]), train=train,
-               rng=JaxKeys(key) if train else None)
+               rng=port_keys(key) if train else None)
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
     if train:
         # the last op is a dropout: the zero patterns are the masks, bit for bit

@@ -33,6 +33,7 @@ from mpgan_tpu.ops import augment as jaug
 from mpgan_tpu.training import config as jconfig
 from mpgan_tpu.training import optimizers as jopt
 from mpgan_tpu.training import train_step as jts
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.data.jetnet import JetNetDataset
 from mpgan_tpu_torch.models import registry as tregistry
 from mpgan_tpu_torch.ops import augment as taug
@@ -41,7 +42,7 @@ from mpgan_tpu_torch.training import optimizers as topt
 from mpgan_tpu_torch.training import train_step as tts
 from mpgan_tpu_torch.utils.weights import jax_leaves, load_jax_trees, tree_leaves
 
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 
 torch.backends.cuda.matmul.allow_tf32 = False
 AUG_TOL = dict(rtol=1e-6, atol=1e-6)
@@ -134,10 +135,10 @@ def test_masked_clouds_jax_raises_the_port_keeps_later_features():
     np.testing.assert_array_equal(t[..., 3], x[..., 3])
 
 
-def test_draw_augment_draws_the_enabled_transforms_from_the_generator():
+def test_draw_augment_draws_the_enabled_transforms_from_the_key():
     cfg = taug.AugmentConfig(aug_f=True, aug_s=True)
-    a = taug.draw_augment(cfg, torch.Generator().manual_seed(1), 6)
-    b = taug.draw_augment(cfg, torch.Generator().manual_seed(1), 6)
+    a = taug.draw_augment(cfg, prng.PRNGKey(1), 6)
+    b = taug.draw_augment(cfg, prng.PRNGKey(1), 6)
     assert a.r90 is None and a.translate is None
     assert [t.shape for t in a.flip] == [(6, 1, 1), (6, 1, 2)]
     assert [t.shape for t in a.scale] == [(6, 1, 1), (6, 1, 1)]
@@ -186,7 +187,7 @@ class StepPair:
         self.tstate = tts.TrainState(g, d, topt.build_optimizer(t.optimizer, g.parameters(),
                                                                 t.lr_gen),
                                      topt.build_optimizer(t.optimizer, d.parameters(), t.lr_disc),
-                                     torch.Generator().manual_seed(0))
+                                     prng.PRNGKey(0))
 
     def _recording(self, opt, name):
         import optax
@@ -223,8 +224,8 @@ class StepPair:
         noise, _ = js.noise.sample(k_noise, b)
         alpha = torch.from_numpy(np.array(jax.random.uniform(k_gp, (b, 1, 1))))
         self.d_draws = tts.DDraws(
-            torch.from_numpy(np.array(noise)), JaxKeys(k_real), JaxKeys(k_fake), None,
-            JaxKeys(k_gp_drop), alpha, *(None if aug is None else jax_draws(aug, k, b)
+            torch.from_numpy(np.array(noise)), port_keys(k_real), port_keys(k_fake), None,
+            port_keys(k_gp_drop), alpha, *(None if aug is None else jax_draws(aug, k, b)
                                          for k in (k_aug_r, k_aug_f)))
         j1, jd_parts = d_step(j0, jd)
         td_parts = tts.d_step(self.tstate, tcfg, self.tsuite.noise, td, None,
@@ -235,7 +236,7 @@ class StepPair:
         noise, _ = js.noise.sample(k_noise, b)
         j2, jg_parts = g_step(j1, jd)
         tg_parts = tts.g_step(self.tstate, tcfg, self.tsuite.noise, td, None, draws=tts.GDraws(
-            torch.from_numpy(np.array(noise)), JaxKeys(k_g), JaxKeys(k_d),
+            torch.from_numpy(np.array(noise)), port_keys(k_g), port_keys(k_d),
             None if aug is None else jax_draws(aug, k_aug, b)))
         g_grads = [p.grad for p in jax_leaves(self.tstate.g, True)]
         return (jd_parts, td_parts, jg_parts, tg_parts), (d_grads, g_grads)

@@ -40,7 +40,7 @@ from mpgan_tpu.training import train_step as jts
 from mpgan_tpu_torch.training import train_step as tts
 
 from test_torch_bf16_steps import GRAD_SHARE, LOSS_TOL, _check_grads, _Pair, _port_grads
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 from test_torch_zoo import _card
 
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)
@@ -287,14 +287,14 @@ def jit_steps(pair, with_g=True, **flags):
     noise, _ = js.noise.sample(k_noise, len(data))
     alpha = jax.random.uniform(k_gp, (len(data),) + (1,) * (data.ndim - 1))
     td_parts = tts.d_step(pair.tstate, tcfg, ts.noise, td, tl, draws=tts.DDraws(
-        torch.from_numpy(np.array(noise)), JaxKeys(k_real), JaxKeys(k_fake), None,
-        JaxKeys(k_gp_drop), torch.from_numpy(np.array(alpha))), post_gen=ts.post_gen)
+        torch.from_numpy(np.array(noise)), port_keys(k_real), port_keys(k_fake), None,
+        port_keys(k_gp_drop), torch.from_numpy(np.array(alpha))), post_gen=ts.post_gen)
     out = {"d": (j[1], td_parts, j[2], _port_grads(pair.tstate.d))}
     if with_g:
         _, k_noise, k_g, k_d, _ = jax.random.split(j[0].rng, 5)
         noise, _ = js.noise.sample(k_noise, len(data))
         tg = tts.g_step(pair.tstate, tcfg, ts.noise, td, tl, draws=tts.GDraws(
-            torch.from_numpy(np.array(noise)), JaxKeys(k_g), JaxKeys(k_d)), post_gen=ts.post_gen)
+            torch.from_numpy(np.array(noise)), port_keys(k_g), port_keys(k_d)), post_gen=ts.post_gen)
         out["g"] = (j[4], tg, j[5], _port_grads(pair.tstate.g))
     return out
 

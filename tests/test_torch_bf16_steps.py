@@ -31,6 +31,7 @@ import jax.numpy as jnp
 from mpgan_tpu.models import registry as jregistry
 from mpgan_tpu.training import config as jconfig
 from mpgan_tpu.training import train_step as jts
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.data.jetnet import JetNetDataset
 from mpgan_tpu_torch.models import registry as tregistry
 from mpgan_tpu_torch.ops.linear import MLP, MLPConfig
@@ -39,7 +40,7 @@ from mpgan_tpu_torch.training import optimizers as topt
 from mpgan_tpu_torch.training import train_step as tts
 from mpgan_tpu_torch.utils.weights import jax_leaves, load_jax_trees, tree_leaves
 
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 from test_torch_zoo import FAMILIES, _args, _card, _Family, _jax_opt, _np
 from test_torch_zoo import pcgan_dir  # noqa: F401  (a fixture)
 
@@ -98,15 +99,15 @@ def _steps(pair, with_g=True, **flags):
     alpha = jax.random.uniform(k_gp, (len(data),) + (1,) * (data.ndim - 1))
     j1, jd = d_step(j0, *jargs_)
     td_parts = tts.d_step(pair.tstate, tcfg, ts.noise, td, tl, draws=tts.DDraws(
-        torch.from_numpy(np.array(noise)), JaxKeys(k_real), JaxKeys(k_fake), None,
-        JaxKeys(k_gp_drop), torch.from_numpy(np.array(alpha))), post_gen=ts.post_gen)
+        torch.from_numpy(np.array(noise)), port_keys(k_real), port_keys(k_fake), None,
+        port_keys(k_gp_drop), torch.from_numpy(np.array(alpha))), post_gen=ts.post_gen)
     out = {"d": (jd, td_parts, pair.grads["d"], _port_grads(pair.tstate.d))}
     if with_g:
         _, k_noise, k_g, k_d, _ = jax.random.split(j1.rng, 5)
         noise, _ = js.noise.sample(k_noise, len(data))
         j2, jg = g_step(j1, *jargs_)
         tg = tts.g_step(pair.tstate, tcfg, ts.noise, td, tl, draws=tts.GDraws(
-            torch.from_numpy(np.array(noise)), JaxKeys(k_g), JaxKeys(k_d)), post_gen=ts.post_gen)
+            torch.from_numpy(np.array(noise)), port_keys(k_g), port_keys(k_d)), post_gen=ts.post_gen)
         out["g"] = (jg, tg, pair.grads["g"], _port_grads(pair.tstate.g))
         out["state"] = (j2, pair.tstate)
     return out
@@ -165,7 +166,7 @@ def test_every_zoo_family_takes_bf16_steps(family, pcgan_dir):  # noqa: F811
     g, d = suite.generator(gen), suite.discriminator(gen)
     opt = lambda m, lr: topt.build_optimizer(args.optimizer, m.parameters(), lr,  # noqa: E731
                                              beta1=args.beta1, beta2=args.beta2)
-    st = tts.TrainState(g, d, opt(g, args.lr_gen), opt(d, args.lr_disc), gen)
+    st = tts.TrainState(g, d, opt(g, args.lr_gen), opt(d, args.lr_disc), prng.PRNGKey(0))
     ds = JetNetDataset("g", num_particles=args.num_hits, synthetic_num_jets=50,
                        mask_feature=bool(args.get("mask")))
     td = torch.from_numpy(ds.particle_data[:4])

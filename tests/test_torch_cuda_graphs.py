@@ -9,7 +9,7 @@ them on a GPU machine with
   seed tensor changed gives the new seed's;
 - ``CountedGraph`` replays add the captured launches to ``launch_counts``;
 - the static-buffer D+G step captured and replayed equals the eager loop bit
-  for bit (parameters, optimizer state, buffers, losses, generator; in float32
+  for bit (parameters, optimizer state, buffers, losses, key; in float32
   and in bf16, ``--compute-dtype bfloat16``, the knn-20 and GAPT steps too),
   and the sampler's graph equals the eager sampler's jets bit for bit;
 - K9's packed weights follow the parameters through graph replays: a master
@@ -26,6 +26,7 @@ from mpgan_tpu_torch.data.jetnet import JetNetDataset
 from mpgan_tpu_torch.models import registry
 from mpgan_tpu_torch.ops import knn_kernels as kk
 from mpgan_tpu_torch.ops import mp_kernels as mk
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.training import sampling
 from mpgan_tpu_torch.training import train_step as ts
 from mpgan_tpu_torch.training.config import from_args_dict
@@ -105,7 +106,8 @@ def _state(args, dev):
     gen = torch.Generator().manual_seed(0)
     g, d = suite.generator(gen, device=dev), suite.discriminator(gen, device=dev)
     return suite, ts.TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), args.lr_gen),
-                                build_optimizer(args.optimizer, d.parameters(), args.lr_disc), gen)
+                                build_optimizer(args.optimizer, d.parameters(), args.lr_disc),
+                                prng.PRNGKey(0, dev))
 
 
 KNN20 = {**CARD, "num_hits": 150, "fully_connected": False, "num_knn": 20}
@@ -127,13 +129,14 @@ def test_graph_steps_equal_the_eager_steps(dev, card):
     keys = ["Dr", "Df", "D", "G"]
     sums = {k: torch.zeros((), device=dev) for k in keys}
     graphs = ts.StepGraphs(graph, cfg, suite.noise, keys, dev, capture=True)
-    for idx in np.arange(b * steps).reshape(steps, b):
+    order = np.arange(b * steps).reshape(steps, b)
+    for idx in order:
         sel = torch.as_tensor(idx, device=dev)
         parts = ts.d_step(eager, cfg, suite.noise, data[sel], labels[sel])
         parts.update(ts.g_step(eager, cfg, suite.noise, data[sel], labels[sel]))
         for k, v in parts.items():
             sums[k] += v
-        graphs.step("dg", data, labels, idx)
+    graphs.epoch(ts.step_kinds(steps), data, labels, order)
     torch.cuda.synchronize()
     assert graphs.captures == 1 and graphs.replays == steps - 2
     assert all(torch.equal(sums[k], graphs.sums[k]) for k in keys)
@@ -143,7 +146,7 @@ def test_graph_steps_equal_the_eager_steps(dev, card):
     for oa, ob in ((eager.g_opt, graph.g_opt), (eager.d_opt, graph.d_opt)):
         for sa, sb in zip(oa.state.values(), ob.state.values()):
             assert all(torch.equal(sa[k], sb[k]) for k in sa)
-    assert torch.equal(eager.generator.get_state(), graph.generator.get_state())
+    assert torch.equal(eager.rng, graph.rng)
 
 
 def test_the_sampler_graph_equals_the_eager_sampler(dev):
@@ -153,7 +156,7 @@ def test_the_sampler_graph_equals_the_eager_sampler(dev):
     sampling.drop_samplers(state.g)
     mk.reset_launch_counts()
     jets = [sampling.generate_multi_batch(state.g, suite.noise,
-                                          torch.Generator(device=dev).manual_seed(3), 1000, 256,
+                                          prng.PRNGKey(3, dev), 1000, 256,
                                           labels=labels, static=static) for static in (True, False)]
     np.testing.assert_array_equal(*jets)
     # 4 batches a call: the graph's replays count as the eager loop's launches

@@ -20,7 +20,8 @@ from mpgan_tpu_torch.models.mpgan import MPDiscriminator, MPGenerator
 from mpgan_tpu_torch.ops import _build
 from mpgan_tpu_torch.ops import knn_kernels as kk
 from mpgan_tpu_torch.ops import mp_kernels as mk
-from mpgan_tpu_torch.ops.keys import GeneratorKeys
+from mpgan_tpu_torch.ops import prng
+from mpgan_tpu_torch.ops.keys import Keys
 from mpgan_tpu_torch.training.config import (
     build_mpgan_discriminator,
     build_mpgan_generator,
@@ -396,7 +397,7 @@ def test_discriminator_without_weight_grads_launches_k3_without_them(dev):
     x.requires_grad_()
     d.requires_grad_(False)
     mk.reset_launch_counts()
-    out = d(x, None, train=True, rng=GeneratorKeys(torch.Generator().manual_seed(1)))
+    out = d(x, None, train=True, rng=Keys(prng.PRNGKey(1, dev)))
     out.sum().backward()
     torch.cuda.synchronize()
     assert mk.launch_counts["edge_aggregate_train"] == 2
@@ -883,7 +884,7 @@ def test_knn_discriminator_backward_launches_k6(dev):
                          (True, "knn_edge_aggregate_bwd_no_wgrads")):
         d.requires_grad_(not frozen)
         mk.reset_launch_counts()
-        out = d(x, None, train=True, rng=GeneratorKeys(torch.Generator().manual_seed(1)))
+        out = d(x, None, train=True, rng=Keys(prng.PRNGKey(1, dev)))
         out.sum().backward()
         torch.cuda.synchronize()
         assert mk.launch_counts["knn_fused_layer_train"] == 2
@@ -1581,3 +1582,86 @@ def test_knn_forward_kernels_build_and_run_with_phase_clocks(dev):
         assert shares["in_products_loop"] > 0 and shares["tail"] > 0, r
         assert (shares["search"] > 0) == (r["kernel"] == "knn_fused_layer"), r
         assert abs(sum(list(shares.values())[:4]) + shares["search"] - 1.0) < 1e-2, r
+
+
+# ---------------------------------------------------------------------------
+# threefry_draws: the steps' random stream (ops/prng.py, csrc/threefry.cu)
+# ---------------------------------------------------------------------------
+
+PRNG_ROWS = [prng.Row("order", (6,)), prng.Row("key", (2,), (3, prng.COUNTER, 1)),
+             prng.Row("split", (9, 2), (2,)), prng.Row("words", (1,), (1, 0, 4)),
+             prng.Row("edge_seed", (1,), (5, 2)), prng.Row("bits", (3000,), (7,)),
+             prng.Row("uniform", (5000, 3), (1,), 0.7, 1.2), prng.Row("uniform", (70,), (2,)),
+             prng.Row("normal", (2**17 + 5,), (1, 0), 0.2), prng.Row("normal", (33,), (4,), 1.0),
+             prng.Row("randint", (2000,), (3,), 0, 2**30),
+             prng.Row("randint", (50,), (3,), -7, 1000)]
+
+
+@pytest.mark.parametrize("advance,bump", [(0, False), (1, True), (2, True)])
+def test_threefry_draws_matches_its_plain_version(dev, advance, bump):
+    """Every distribution against the plain version on the CPU, bit for bit (the
+    normals' log1p is written out in both, every rounding the same); the next
+    key and the counter too."""
+    order = torch.arange(30, dtype=torch.int32).reshape(5, 6)
+    outs = {}
+    for side, device in (("card", dev), ("cpu", "cpu")):
+        plan = prng.Plan(PRNG_ROWS, device)
+        key = prng.PRNGKey(11, device)
+        counter = torch.tensor([2], dtype=torch.int32, device=device)
+        out = plan.run(key, None, counter, order.to(device), advance=advance, bump=bump)
+        outs[side] = ([v.cpu() for v in plan.views(out)], key.cpu(), counter.cpu())
+    before = prng.launch_counts["threefry_draws"]
+    torch.cuda.synchronize()
+    (vc, kc, cc), (vp, kp, cp) = outs["card"], outs["cpu"]
+    for r, a, b in zip(PRNG_ROWS, vc, vp):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), r
+    assert torch.equal(kc, kp) and torch.equal(cc, cp)
+    assert prng.launch_counts["threefry_draws"] == before
+
+
+def test_threefry_draws_advances_in_place_over_many_launches(dev):
+    """The last block writes the next key after every block has read it; the
+    ticket resets, so a hundred launches give the plain version's key."""
+    plan = prng.Plan([prng.Row("normal", (300_000,), (1,), 1.0)], dev)
+    key, ref = prng.PRNGKey(3, dev), prng.PRNGKey(3)
+    out = torch.empty(plan.words, dtype=torch.int32, device=dev)
+    before = prng.launch_counts["threefry_draws"]
+    for _ in range(100):
+        plan.run(key, out, advance=1)
+    for _ in range(100):
+        ref = prng.fold_in(ref, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(key.cpu(), ref)
+    assert prng.launch_counts["threefry_draws"] == before + 100
+
+
+def test_threefry_draws_in_a_graph_draws_anew_at_every_replay(dev):
+    """A captured launch reads the key and the counter at each replay and
+    advances both; CountedGraph counts its launches."""
+    order = torch.arange(12, dtype=torch.int32, device=dev).reshape(3, 4)
+    plan = prng.Plan([prng.Row("order", (4,)), prng.Row("normal", (64,), (prng.COUNTER, 0), 1.0)],
+                     dev)
+    key, counter = prng.PRNGKey(5, dev), torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.empty(plan.words, dtype=torch.int32, device=dev)
+    plan.run(key.clone(), out, counter.clone(), order)  # warm-up outside the capture
+    mk.reset_launch_counts()
+    graph = mk.CountedGraph(lambda: plan.run(key, out, counter, order, advance=1, bump=True))
+    seen = []
+    for _ in range(3):
+        graph.replay()
+        seen.append([v.clone() for v in plan.views(out)])
+    torch.cuda.synchronize()
+    assert prng.launch_counts["threefry_draws"] == 3 and int(counter) == 3
+    ref_key = prng.PRNGKey(5)
+    for c, (rows, noise) in enumerate(seen):
+        assert rows.tolist() == list(range(4 * c, 4 * c + 4))
+        want = prng.normal(prng.fold_in(prng.fold_in(ref_key, c), 0), (64,))
+        assert torch.equal(noise.cpu(), want)
+        ref_key = prng.fold_in(ref_key, 0)
+    assert torch.equal(key.cpu(), ref_key)
+    mk.reset_launch_counts()
+
+
+def test_threefry_draws_refuses_a_plan_without_its_counter(dev):
+    with pytest.raises(ValueError, match="counter"):
+        prng.Plan([prng.Row("bits", (4,), (prng.COUNTER,))], dev).run(prng.PRNGKey(0, dev))

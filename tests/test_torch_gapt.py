@@ -24,6 +24,7 @@ from mpgan_tpu.models import gapt as jgapt
 from mpgan_tpu.models import registry as jregistry
 from mpgan_tpu.ops import gapt_pallas as jgp
 from mpgan_tpu.training import config as jconfig
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.models import gapt as tgapt
 from mpgan_tpu_torch.models import registry as tregistry
 from mpgan_tpu_torch.ops import gapt_kernels as gk
@@ -35,7 +36,7 @@ from mpgan_tpu_torch.utils.weights import (
     jax_leaves,
 )
 
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 DEFAULT = {"model": "gapt"}
@@ -89,7 +90,7 @@ def test_generator_matches_jax(card, train):
                                train=train, rng=key if train else None)
     with torch.no_grad():
         yt = g(torch.from_numpy(x), torch.from_numpy(labels), train=train,
-               rng=JaxKeys(key) if train else None)
+               rng=port_keys(key) if train else None)
     assert yt.shape == (3, jcfg.num_particles, 3 + int(jcfg.use_mask))
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
     if jcfg.use_mask:
@@ -115,7 +116,7 @@ def test_discriminator_matches_jax(card, train):
                                None if labels is None else jnp.asarray(labels), train=train,
                                rng=key if train else None)
     yt = d(torch.from_numpy(x), None if labels is None else torch.from_numpy(labels),
-           train=train, rng=JaxKeys(key) if train else None)
+           train=train, rng=port_keys(key) if train else None)
     assert yt.shape == (4, 1)
     np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), **TOL)
 
@@ -247,7 +248,7 @@ def test_registry_builds_mpgan_and_refuses_the_rest():
             assert (suite.model, suite.model_d) == (model, model_d)
             g, d = suite.generator(), suite.discriminator()
             assert isinstance(g, torch.nn.Module) and isinstance(d, torch.nn.Module)
-            noise = suite.noise.sample(torch.Generator().manual_seed(0), 2, "cpu")
+            noise = suite.noise.sample(prng.PRNGKey(0), 2, "cpu")
             assert g(noise, torch.full((2, 1), 0.5)).shape[0] == 2
 
 

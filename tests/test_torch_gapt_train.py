@@ -24,6 +24,7 @@ from mpgan_tpu.training import losses as jlosses
 from mpgan_tpu.training import optimizers as jopt
 from mpgan_tpu.training import sampling as jsampling
 from mpgan_tpu.training import train_step as jts
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.cli import gen as tgen_cli
 from mpgan_tpu_torch.cli import train as ttrain_cli
 from mpgan_tpu_torch.data import jetnet as tjetnet
@@ -40,7 +41,7 @@ from mpgan_tpu_torch.utils.weights import (
     jax_leaves,
 )
 
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-4)
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -102,7 +103,7 @@ def test_gapt_d_step_and_g_step_match_jax(card):
     d = gapt_discriminator_from_jax(_np(jstate.d_params), _np(jstate.d_state), suite.d_cfg)
     tstate = tts.TrainState(g, d, topt.build_optimizer("rmsprop", g.parameters(), targs.lr_gen),
                             topt.build_optimizer("rmsprop", d.parameters(), targs.lr_disc),
-                            torch.Generator().manual_seed(0))
+                            prng.PRNGKey(0))
     assert suite.noise.shape == spec.shape
     data, labels = _batch(jargs.num_hits, 4)
     jd, jl = jnp.asarray(data), jnp.asarray(labels)
@@ -121,7 +122,7 @@ def test_gapt_d_step_and_g_step_match_jax(card):
     jgrads = jax.grad(d_loss_fn)(jstate.d_params)
     jstate1, jparts = d_step(jstate, jd, jl)
     tparts = tts.d_step(tstate, tts.StepConfig(), suite.noise, td, tl, draws=tts.DDraws(
-        torch.from_numpy(np.array(noise)), JaxKeys(k_real), JaxKeys(k_fake)))
+        torch.from_numpy(np.array(noise)), port_keys(k_real), port_keys(k_fake)))
     for k in ("Dr", "Df", "D"):
         np.testing.assert_allclose(tparts[k].numpy(), np.asarray(jparts[k]), **FWD_TOL)
     _compare_update(jax_leaves(tstate.d, True), jstate.d_params, jstate1.d_params, jgrads,
@@ -140,7 +141,7 @@ def test_gapt_d_step_and_g_step_match_jax(card):
     jgrads = jax.grad(g_loss_fn)(jstate1.g_params)
     jstate2, jmetrics = g_step(jstate1, jd, jl)
     tmetrics = tts.g_step(tstate, tts.StepConfig(), suite.noise, td, tl, draws=tts.GDraws(
-        torch.from_numpy(np.array(noise)), JaxKeys(k_g), JaxKeys(k_d)))
+        torch.from_numpy(np.array(noise)), port_keys(k_g), port_keys(k_d)))
     np.testing.assert_allclose(tmetrics["G"].numpy(), np.asarray(jmetrics["G"]), **FWD_TOL)
     _compare_update(jax_leaves(tstate.g, True), jstate1.g_params, jstate2.g_params, jgrads,
                     1e-5)
@@ -162,7 +163,8 @@ def test_gapt_d_step_fake_batch_takes_the_fused_route_when_asked():
         g, d = suite.generator(rng), suite.discriminator(rng)
         g.cfg = dataclasses.replace(g.cfg, use_kernels=flag)
         st = tts.TrainState(g, d, topt.build_optimizer("rmsprop", g.parameters(), 1e-4),
-                            topt.build_optimizer("rmsprop", d.parameters(), 1e-4), rng)
+                            topt.build_optimizer("rmsprop", d.parameters(), 1e-4),
+                            prng.PRNGKey(1))
         out = tts.d_step(st, tts.StepConfig(), suite.noise, data, labels)
         out.update(tts.g_step(st, tts.StepConfig(), suite.noise, data, labels))
         parts.append({k: v.item() for k, v in out.items()})

@@ -20,6 +20,7 @@ from mpgan_tpu.training import config as jconfig
 from mpgan_tpu.training import optimizers as jopt
 from mpgan_tpu.training import train_step as jts
 from mpgan_tpu.utils.torch_import import load_torch_state_dict, mp_generator_from_torch
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.cli import gen
 from mpgan_tpu_torch.data.normalize import FPND_FEATURE_MAXES
 from mpgan_tpu_torch.models.mpgan import MPGenerator
@@ -73,7 +74,7 @@ def test_gen_cli_cpu_output_and_determinism(tiny_card, tmp_path):
     ds = JetNetDataset("g", num_particles=12, split="valid")
     labels = ds.jet_data[np.random.default_rng(3).choice(len(ds), size=10)]
     spec = noise_spec("mpgan", {"latent_node_size": 8}, 12, args.sd)
-    raw = generate_multi_batch(g, spec, torch.Generator().manual_seed(3), 10, 4, labels=labels)
+    raw = generate_multi_batch(g, spec, prng.PRNGKey(3), 10, 4, labels=labels)
     mask = raw[:, :, -1] >= 0
     assert 0 < mask.sum() < mask.size
     assert (a[~mask] == 0).all()
@@ -135,11 +136,14 @@ def test_knn_reference_pt_loads_equally_in_jax_and_port_and_runs_through_gen(tmp
 
 
 def test_generate_is_one_batch_of_generate_multi_batch(tiny_card):
+    """Batch 0 of ``generate_multi_batch(key)`` samples from ``split(key, nb)[0]``,
+    as JAX's does: ``generate`` from that key."""
     _, _, g = tiny_card
     spec = noise_spec("mpgan", {"latent_node_size": 8}, 12)
     labels = (np.arange(1, 7) / 12)[:, None].astype(np.float32)
-    one = generate(g.eval(), spec, torch.Generator().manual_seed(5), 6, torch.from_numpy(labels))
-    multi = generate_multi_batch(g, spec, torch.Generator().manual_seed(5), 6, 6, labels=labels)
+    one = generate(g.eval(), spec, prng.split(prng.PRNGKey(5), 1)[0], 6,
+                   torch.from_numpy(labels))
+    multi = generate_multi_batch(g, spec, prng.PRNGKey(5), 6, 6, labels=labels)
     assert not one.requires_grad and one.shape == (6, 12, 4)
     np.testing.assert_array_equal(one.numpy(), multi)
     np.testing.assert_array_equal(one[..., -1].numpy().sum(1) + 0.5 * 12, np.arange(1, 7))
@@ -196,7 +200,7 @@ def test_gen_cli_samples_from_a_port_written_npz(tiny_card, tmp_path):
     d = suite.discriminator(torch.Generator().manual_seed(2))
     state = TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), 1e-4),
                        build_optimizer(args.optimizer, d.parameters(), 1e-4),
-                       torch.Generator().manual_seed(0))
+                       prng.PRNGKey(0))
     npz = tmp_path / "state_7.npz"
     tckpt.save_train_state(npz, state)
     from_npz = _run(card, npz, tmp_path / "npz.npy", "--seed", "5")

@@ -3,11 +3,11 @@
 - key slots: the plain versions of K2, K3, K5, K6 and K8 with a seed read from a
   slot equal the same calls with an int seed bit for bit, and K1 equals
   ``mp_pallas._dropmul``; ``hash_dropout`` with a slot equals the JAX package's;
-- filling the slots from ``GeneratorKeys`` draws the eager step's values in its
-  order, and leaves the generator where the eager step leaves it;
+- the step's plan fills the slots with the values the eager step's keys give,
+  in its order, and leaves the state's key where the eager step leaves it;
 - ``StaticStep`` run as it is (the CPU's path) equals ``d_step``/``g_step`` bit
-  for bit: parameters, optimizer state, loss parts, generator state; with JAX's
-  draws, a D and a G step on it equal the JAX package's;
+  for bit: parameters, optimizer state, loss parts, key; from JAX's key, a D
+  and a G step on it equal the JAX package's;
 - a CPU ``Trainer`` with ``epoch_scan`` on and off trains alike, a legacy
   ``--mask-epoch`` crossing included; the static sampler equals the eager loop;
 - ``CountedGraph``'s replay accounting, on a stub graph.
@@ -37,7 +37,8 @@ from mpgan_tpu_torch.models import registry as tregistry
 from mpgan_tpu_torch.ops import knn_kernels as tkk
 from mpgan_tpu_torch.ops import linear as tlinear
 from mpgan_tpu_torch.ops import mp_kernels as tmk
-from mpgan_tpu_torch.ops.keys import GeneratorKeys, KeySlots
+from mpgan_tpu_torch.ops import prng
+from mpgan_tpu_torch.ops.keys import Keys, KeySlots
 from mpgan_tpu_torch.training import checkpoint as tckpt
 from mpgan_tpu_torch.training import config as tconfig
 from mpgan_tpu_torch.training import sampling as tsampling
@@ -46,7 +47,7 @@ from mpgan_tpu_torch.training.loop import Trainer
 from mpgan_tpu_torch.training.optimizers import build_optimizer
 from mpgan_tpu_torch.utils.weights import jax_leaves
 
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 from test_torch_train_step import FWD_TOL, NARROW, _batch, _compare_update, _step_pair
 
 SEED = 123457
@@ -56,32 +57,20 @@ GAPT = {"model": "gapt", "num_hits": 8, "gapt_embed_dim": 16, "num_heads": 2,
 LEGACY = dict(NARROW, model="old_mpgan", model_D="old_mpgan", lr_disc=3e-5, lr_gen=1e-5)
 
 
-class FixedKeys:
-    """Keys that give one edge seed and one pair of words, whatever the split."""
-
-    def __init__(self, seed=SEED, words=(0x12345678, 0x9ABCDEF0)):
-        self.seed, self.w = seed, words
-
-    def split(self, num):
-        return [self] * num
-
-    def words(self):
-        return self.w
-
-    def edge_seed(self):
-        return self.seed
-
-
-def _served(kind, source, device="cpu"):
-    """A ``kind`` request of a root key, recorded, then filled from ``source``
-    and served from the slots' buffer: the form a replayed step reads."""
-    slots = KeySlots(device)
-    with slots.recording(source):
+def _served(kind, keys):
+    """A ``kind`` request of a root key (a :class:`Keys`), recorded, then drawn by
+    the slots' plan rows into their buffer and served from it: the form a
+    replayed step reads."""
+    slots = KeySlots()
+    with slots.recording({"r": keys}):
         getattr(slots.root("r"), kind)()
-    slots.buffer = torch.empty(len(slots.log), dtype=torch.int32)
-    slots.fill(source, slots.buffer)
+    slots.buffer = prng.Plan(slots.rows({"r": keys.path})).run(keys.root)
     with slots.serving():
         return getattr(slots.root("r"), kind)()
+
+
+KEY = Keys(prng.PRNGKey(SEED))
+EDGE_SEED = int(KEY.edge_seed())
 
 
 def _dense(b=3, n=13, widths=(8, 12, 6), seed=0):
@@ -102,12 +91,12 @@ def _dense(b=3, n=13, widths=(8, 12, 6), seed=0):
 
 @pytest.mark.parametrize("salt", [0, 3])
 def test_dropmul_with_a_slot_seed_is_pallas_dropmul(salt):
-    seed = _served("edge_seed", FixedKeys())
-    assert seed.dtype == torch.int32 and seed.shape == (1,) and seed.item() == SEED
+    seed = _served("edge_seed", KEY)
+    assert seed.dtype == torch.int32 and seed.shape == (1,) and seed.item() == EDGE_SEED
     ids = tmk.pair_ids(2, 13, "cpu").reshape(-1, 1)
     t = tmk._dropmul(ids, 20, 0.5, seed, salt)
-    np.testing.assert_array_equal(t.numpy(), tmk._dropmul(ids, 20, 0.5, SEED, salt).numpy())
-    j = jmpp._dropmul((ids.shape[0], 20), 0.5, jnp.asarray(SEED, jnp.int32), salt, None,
+    np.testing.assert_array_equal(t.numpy(), tmk._dropmul(ids, 20, 0.5, EDGE_SEED, salt).numpy())
+    j = jmpp._dropmul((ids.shape[0], 20), 0.5, jnp.asarray(EDGE_SEED, jnp.int32), salt, None,
                       ids=jnp.asarray(ids.numpy().astype(np.uint32)))
     np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
@@ -116,8 +105,9 @@ def test_dropmul_with_a_slot_seed_is_pallas_dropmul(salt):
 def test_hash_dropout_with_a_slot_is_jax_hash_dropout(p):
     x = np.random.RandomState(1).randn(3, 13, 17).astype(np.float32)
     key = jax.random.PRNGKey(7)
-    slot = _served("words", JaxKeys(key))
-    assert slot.item() == tlinear.hash_seed(JaxKeys(key).words())
+    slot = _served("words", port_keys(key))
+    kd = np.asarray(key)
+    assert slot.item() == tlinear.hash_seed((int(kd[0]), int(kd[1])))
     t = tlinear.hash_dropout(torch.from_numpy(x), p, slot).numpy()
     np.testing.assert_array_equal(t, np.asarray(jlinear.hash_dropout(jnp.asarray(x), p, key)))
 
@@ -125,13 +115,13 @@ def test_hash_dropout_with_a_slot_is_jax_hash_dropout(p):
 @pytest.mark.parametrize("sum_agg", [True, False])
 def test_dense_kernels_plain_versions_take_a_slot_seed(sum_agg):
     u1, u2, mask, hidden, g = _dense()
-    seed = _served("edge_seed", FixedKeys())
-    a = tmk.edge_aggregate(u1, u2, mask, hidden, 0.2, sum_agg, 0.5, SEED)
+    seed = _served("edge_seed", KEY)
+    a = tmk.edge_aggregate(u1, u2, mask, hidden, 0.2, sum_agg, 0.5, EDGE_SEED)
     b = tmk.edge_aggregate(u1, u2, mask, hidden, 0.2, sum_agg, 0.5, seed)
     assert torch.equal(a, b) and not torch.equal(a, tmk.edge_aggregate(
-        u1, u2, mask, hidden, 0.2, sum_agg, 0.5, SEED + 1))
+        u1, u2, mask, hidden, 0.2, sum_agg, 0.5, EDGE_SEED + 1))
     for need in (True, False):
-        ga = tmk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2, sum_agg, 0.5, SEED, need)
+        ga = tmk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2, sum_agg, 0.5, EDGE_SEED, need)
         gb = tmk.edge_aggregate_bwd(u1, u2, mask, hidden, g, 0.2, sum_agg, 0.5, seed, need)
         for x, y in zip([*ga[:3], *ga[3]], [*gb[:3], *gb[3]]):
             assert torch.equal(x, y)
@@ -146,17 +136,17 @@ def test_knn_kernels_plain_versions_take_a_slot_seed(want_dists):
     u1, u2, mask, hidden, g = _dense(b, n)
     u2m = torch.cat([u2, mask], dim=-1)
     w_d = f(u1.shape[-1])
-    seed = _served("edge_seed", FixedKeys())
+    seed = _served("edge_seed", KEY)
     common = (xs, xs, u1, u2m, w_d, hidden, k, True, want_dists, 0.2, True, 0.5)
-    a = tkk.knn_fused_layer(*common, SEED, True)
+    a = tkk.knn_fused_layer(*common, EDGE_SEED, True)
     s = tkk.knn_fused_layer(*common, seed, True)
     assert all(torch.equal(x, y) for x, y in zip(a, s) if x is not None)
     idx, dists = a[1], a[2]
     k8 = [tkk.knn_edge_aggregate(u1, u2m, idx, dists, w_d, hidden, 0.2, True, 0.5, sd)
-          for sd in (SEED, seed)]
+          for sd in (EDGE_SEED, seed)]
     assert torch.equal(*k8) and torch.equal(k8[0], a[0])
     k6 = [tkk.knn_edge_aggregate_bwd(u1, u2m, idx, dists, w_d, hidden, g, 0.2, True, 0.5, sd)
-          for sd in (SEED, seed)]
+          for sd in (EDGE_SEED, seed)]
     flat = lambda r: [t for t in (*r[:5], *r[5]) if t is not None]  # noqa: E731
     assert all(torch.equal(x, y) for x, y in zip(flat(k6[0]), flat(k6[1])))
 
@@ -167,8 +157,6 @@ def test_seed_tensors_are_checked_and_ints_range_checked():
         tmk.edge_aggregate(u1, u2, mask, hidden, 0.2, True, 0.5, torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="outside"):
         tmk.edge_aggregate(u1, u2, mask, hidden, 0.2, True, 0.5, -1)
-    with pytest.raises(ValueError, match="outside"):
-        _served("edge_seed", FixedKeys(seed=2**31))
 
 
 # ---------------------------------------------------------------------------
@@ -177,20 +165,22 @@ def test_seed_tensors_are_checked_and_ints_range_checked():
 
 
 def test_key_slots_serve_only_the_recorded_requests():
-    slots = KeySlots("cpu")
+    slots = KeySlots()
     root = slots.root("r")
     with pytest.raises(RuntimeError, match="outside"):
         root.words()
-    with slots.recording(FixedKeys()):
+    with slots.recording({"r": Keys(KEY.root, (4,))}):
         root.split(2)[1].words()
         root.edge_seed()
-    assert slots.log == [("words", "r", ((2, 1),)), ("edge_seed", "r", ())]
+    assert slots.log == [("words", "r", (1,)), ("edge_seed", "r", ())]
     with pytest.raises(RuntimeError, match="no buffer"):
         with slots.serving():
             pass
-    slots.buffer = torch.empty(2, dtype=torch.int32)
-    slots.fill({"r": FixedKeys(seed=5)}, slots.buffer)
-    assert slots.buffer.tolist() == [tlinear.hash_seed(FixedKeys().w), 5]
+    rows = slots.rows({"r": (4,)})
+    assert [(r.dist, r.path) for r in rows] == [("words", (4, 1)), ("edge_seed", (4,))]
+    slots.buffer = prng.Plan(rows).run(KEY.root)
+    assert slots.buffer.tolist() == [int(Keys(KEY.root, (4, 1)).words()),
+                                     int(Keys(KEY.root, (4,)).edge_seed())]
     with pytest.raises(RuntimeError, match="not the recorded"):
         with slots.serving():
             root.edge_seed()
@@ -204,21 +194,24 @@ def test_key_slots_serve_only_the_recorded_requests():
 # ---------------------------------------------------------------------------
 
 
-class LoggedKeys(GeneratorKeys):
-    """``GeneratorKeys`` that log what they draw, as the slots hold it."""
+class LoggedKeys(Keys):
+    """``Keys`` that log what they draw, as the slots hold it."""
 
-    def __init__(self, generator, out):
-        super().__init__(generator)
+    def __init__(self, keys, out):
+        super().__init__(keys.root, keys.path)
         self.out = out
+
+    def split(self, num):
+        return [LoggedKeys(k, self.out) for k in super().split(num)]
 
     def words(self):
         w = super().words()
-        self.out.append(tlinear.hash_seed(w))
+        self.out.append(int(w))
         return w
 
     def edge_seed(self):
         s = super().edge_seed()
-        self.out.append(s)
+        self.out.append(int(s))
         return s
 
 
@@ -235,7 +228,8 @@ def _state(args, seed=0):
     g, d = suite.generator(gen), suite.discriminator(gen)
     opt = lambda m, lr: build_optimizer(args.optimizer, m.parameters(), lr,  # noqa: E731
                                         beta1=args.beta1, beta2=args.beta2)
-    return suite, tts.TrainState(g, d, opt(g, args.lr_gen), opt(d, args.lr_disc), gen)
+    return suite, tts.TrainState(g, d, opt(g, args.lr_gen), opt(d, args.lr_disc),
+                                 prng.PRNGKey(seed))
 
 
 def _data(args, n_jets, seed=0):
@@ -259,7 +253,7 @@ def _assert_same_state(a, b):
     assert len(ta) == len(tb)
     for x, y in zip(ta, tb):
         assert torch.equal(x, y)
-    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    assert torch.equal(a.rng, b.rng)
 
 
 def _eager(state, suite, cfg, kind, data, labels, epoch=0, keys_log=None):
@@ -268,18 +262,19 @@ def _eager(state, suite, cfg, kind, data, labels, epoch=0, keys_log=None):
     if "d" in kind:
         draws = None
         if keys_log is not None:
-            draws = lambda x: dataclasses.replace(  # noqa: E731
-                tts.draw_d(state, cfg, suite.noise, x),
-                **dict.fromkeys(("real", "fake", "gp"), LoggedKeys(state.generator, keys_log)))
+            def draws(x):
+                dd = tts.draw_d(state, cfg, suite.noise, x)
+                return dataclasses.replace(dd, **{f: LoggedKeys(getattr(dd, f), keys_log)
+                                                  for f in ("real", "fake", "gp")})
         out.update(tts.d_step(state, cfg, suite.noise, data, labels, draws=draws,
                               post_gen=suite.post_gen, encode_real=suite.encode_real,
                               epoch=epoch))
     if "g" in kind:
         draws = None
         if keys_log is not None:
-            draws = dataclasses.replace(tts.draw_g(state, cfg, suite.noise, data.shape[0], "cpu"),
-                                        **dict.fromkeys(("g", "d"),
-                                                        LoggedKeys(state.generator, keys_log)))
+            gd = tts.draw_g(state, cfg, suite.noise, data.shape[0], "cpu")
+            draws = dataclasses.replace(gd, **{f: LoggedKeys(getattr(gd, f), keys_log)
+                                               for f in ("g", "d")})
         out.update(tts.g_step(state, cfg, suite.noise, data, labels, draws=draws,
                               post_gen=suite.post_gen, epoch=epoch))
     return out
@@ -300,18 +295,18 @@ def test_fill_draws_the_eager_steps_keys_in_order(case):
     data, labels = _data(args, 8)
     cfg = tts.step_config(args)
     (suite, eager), (_, static) = _state(args), _state(args)
+    order = torch.arange(8, dtype=torch.int32).repeat(2, 1)
     step = tts.StaticStep("dg", static, cfg, suite.noise, data, labels,
                           {k: torch.zeros(()) for k in ("Dr", "Df", "D", "G")},
-                          post_gen=suite.post_gen)
-    idx = np.arange(8)
+                          order, torch.zeros(1, dtype=torch.int32), post_gen=suite.post_gen)
     for i in range(2):
         logged: list[int] = []
         _eager(eager, suite, cfg, "dg", data, labels, keys_log=logged)
-        step(idx)
-        if i:  # the second call fills the slots from the generator
+        step()
+        if i:  # the second call's plan fills the slots from the key
             filled = torch.cat([s.buffer for s in step.slots]).tolist()
             assert filled == logged and len(logged) > 0
-        assert torch.equal(eager.generator.get_state(), static.generator.get_state())
+        assert torch.equal(eager.rng, static.rng)
 
 
 STATIC_CASES = {
@@ -340,12 +335,13 @@ def test_static_step_uncaptured_is_the_eager_step_bit_for_bit(case):
     sums_e = {k: torch.zeros(()) for k in keys}
     graphs = tts.StepGraphs(static, cfg, suite.noise, keys, "cpu", post_gen=suite.post_gen)
     order = np.random.RandomState(0).permutation(3 * b).reshape(3, b)
-    for idx in order:
-        for kind in kinds.split(","):
-            for k, v in _eager(eager, suite, cfg, kind, data[idx], labels[idx]).items():
-                sums_e[k] += v
-            graphs.step(kind, data, labels, idx)
+    steps = [(i, kind) for i in range(3) for kind in kinds.split(",")]
+    for i, kind in steps:
+        for k, v in _eager(eager, suite, cfg, kind, data[order[i]], labels[order[i]]).items():
+            sums_e[k] += v
+    graphs.epoch(steps, data, labels, order)
     assert graphs.replays == 0 and all(s.calls == 3 for s in graphs.steps.values())
+    assert int(graphs.counter) == len(steps)
     for k in keys:
         assert torch.equal(sums_e[k], graphs.sums[k]), k
     _assert_same_state(eager, static)
@@ -357,14 +353,16 @@ def test_step_graphs_record_again_for_new_data_or_phase():
     suite, state = _state(args)
     graphs = tts.StepGraphs(state, tts.step_config(args), suite.noise, ["Dr", "Df", "D", "G"],
                             "cpu")
-    graphs.step("dg", data, labels, np.arange(6))
-    graphs.step("dg", data, labels, np.arange(6, 12))
+    order = np.arange(12).reshape(2, 6)
+    graphs.epoch(tts.step_kinds(2), data, labels, order)
     first = graphs.steps["dg"]
     assert first.calls == 2
-    graphs.step("dg", data, labels, np.arange(6), epoch=1)  # another model phase
-    assert graphs.steps["dg"] is not first and graphs.steps["dg"].calls == 1
+    graphs.epoch(tts.step_kinds(2), data, labels, order)  # the same: kept
+    assert graphs.steps["dg"] is first and first.calls == 4
+    graphs.epoch(tts.step_kinds(2), data, labels, order, epoch=1)  # another model phase
+    assert graphs.steps["dg"] is not first and graphs.steps["dg"].calls == 2
     again = data.clone()  # another staged dataset
-    graphs.step("dg", again, labels, np.arange(6), epoch=1)
+    graphs.epoch(tts.step_kinds(2), again, labels, order, epoch=1)
     assert graphs.steps["dg"].data_all is again
     # a load replaces the optimizer state the steps read: they go
     tckpt.load_train_state_leaves(state, tckpt.train_state_leaves(state))
@@ -372,24 +370,29 @@ def test_step_graphs_record_again_for_new_data_or_phase():
 
 
 # ---------------------------------------------------------------------------
-# (d) with JAX's draws, the static step's D and G updates are the JAX package's
+# (d) from JAX's key, the static step's D and G updates are the JAX package's
 # ---------------------------------------------------------------------------
 
 
 def test_static_d_and_g_steps_with_jax_draws_match_jax():
+    """Static D steps, then static G steps, from the JAX state's key with no
+    draws passed: each draws what the JAX step draws, and ends on its key."""
     from mpgan_tpu.models.mpgan import mp_discriminator_apply, mp_generator_apply
 
     # the plain paths (the JAX kernel path runs in interpret mode, and the seed slots'
     # kernel path is held to the int seeds' above)
     (gcfg, dcfg, spec, jstate, d_step, g_step), (tstate, tspec) = _step_pair(NARROW, False)
+    tstate.rng.copy_(torch.from_numpy(np.asarray(jstate.rng).copy()))
     data, labels = _batch(NARROW, 4)
     jd, jl = jnp.asarray(data), jnp.asarray(labels)
     td, tl = torch.from_numpy(data), torch.from_numpy(labels)
     sums = {k: torch.zeros(()) for k in ("Dr", "Df", "D", "G")}
-    static_d = tts.StaticStep("d", tstate, tts.StepConfig(), tspec, td, tl, sums)
-    static_g = tts.StaticStep("g", tstate, tts.StepConfig(), tspec, td, tl, sums)
-    idx = np.arange(4)
-    # two D steps (record, then the static body), then two G steps, each on JAX's draws
+    order = torch.arange(4, dtype=torch.int32).repeat(2, 1)
+    static_d = tts.StaticStep("d", tstate, tts.StepConfig(), tspec, td, tl, sums, order,
+                              torch.zeros(1, dtype=torch.int32))
+    static_g = tts.StaticStep("g", tstate, tts.StepConfig(), tspec, td, tl, sums, order,
+                              torch.zeros(1, dtype=torch.int32))
+    # two D steps (record, then the static body), then two G steps
     for call in range(2):
         _, k_noise, k_real, k_fake, *_ = jax.random.split(jstate.rng, 9)
         noise, _ = spec.sample(k_noise, 4)
@@ -404,14 +407,14 @@ def test_static_d_and_g_steps_with_jax_draws_match_jax():
         jnext, jparts = d_step(jstate, jd, jl)
         for v in sums.values():
             v.zero_()
-        static_d(idx, draws=[tts.DDraws(torch.from_numpy(np.array(noise)), JaxKeys(k_real),
-                                        JaxKeys(k_fake))])
+        static_d()
         for k in ("Dr", "Df", "D"):
             np.testing.assert_allclose(sums[k].numpy(), np.asarray(jparts[k]), **FWD_TOL)
         if call:  # the static body's update (the first, recorded, is d_step's own)
             _compare_update(jax_leaves(tstate.d, True), jstate.d_params, jnext.d_params,
                             jax.grad(d_loss_fn)(jstate.d_params), 1e-6)
         jstate = jnext
+        np.testing.assert_array_equal(tstate.rng.numpy(), np.asarray(jstate.rng))
     for call in range(2):
         _, k_noise, k_g, k_d, _ = jax.random.split(jstate.rng, 5)
         noise, _ = spec.sample(k_noise, 4)
@@ -425,13 +428,13 @@ def test_static_d_and_g_steps_with_jax_draws_match_jax():
 
         jnext, jmetrics = g_step(jstate, jd, jl)
         sums["G"].zero_()
-        static_g(idx, draws=[tts.GDraws(torch.from_numpy(np.array(noise)), JaxKeys(k_g),
-                                        JaxKeys(k_d))])
+        static_g()
         np.testing.assert_allclose(sums["G"].numpy(), np.asarray(jmetrics["G"]), **FWD_TOL)
         if call:
             _compare_update(jax_leaves(tstate.g, True), jstate.g_params, jnext.g_params,
                             jax.grad(g_loss_fn)(jstate.g_params), 1e-6)
         jstate = jnext
+        np.testing.assert_array_equal(tstate.rng.numpy(), np.asarray(jstate.rng))
     assert static_d.calls == static_g.calls == 2 and len(static_d.slots[0].log) > 0
 
 
@@ -508,13 +511,13 @@ def test_static_sampler_equals_the_eager_loop(case):
     args = _card_args(card)
     suite, state = _state(args)
     spec, post_fn = suite.noise, None
-    if case == "point_noise":  # PCGAN's hook: point noise drawn after each batch's noise
+    if case == "point_noise":  # PCGAN's hook: point noise from each batch key's child 1
         spec = dataclasses.replace(spec, point_shape=(args.num_hits, 2))
         post_fn = lambda out, pts: out + pts.sum(-1, keepdim=True)  # noqa: E731
     _, labels = _data(args, 23)
     for seed in (1, 2):  # the second call runs on the kept sampler
         outs = [tsampling.generate_multi_batch(
-            state.g, spec, torch.Generator().manual_seed(seed), 23, 8, labels=labels.numpy(),
+            state.g, spec, prng.PRNGKey(seed), 23, 8, labels=labels.numpy(),
             post_fn=post_fn, static=static, **g_kwargs) for static in (True, False)]
         assert outs[0].shape[0] == 23
         np.testing.assert_array_equal(*outs)
@@ -581,11 +584,13 @@ def test_optimizers_are_capturable_only_on_a_gpu():
         assert build_optimizer(name, p, 1e-3).defaults["capturable"] is False
 
 
-def test_generator_keys_words_and_slot_seed_agree():
-    gen = torch.Generator().manual_seed(3)
-    w = GeneratorKeys(gen).words()
-    slot = _served("words", FixedKeys(words=w))
-    assert slot.item() == tlinear.hash_seed(w)
+def test_keys_words_and_slot_seed_agree():
+    """A key's words drawn at once and through a slot: one seed, one mask, the
+    hash of the key's two words."""
+    keys = Keys(prng.PRNGKey(3), (2, 5))
+    w = keys.words()
+    slot = _served("words", keys)
+    assert slot.item() == w.item() == tlinear.hash_seed(prng.key_words(keys.key()))
     x = torch.randn(4, 9)
     assert torch.equal(tlinear.hash_dropout(x, 0.5, w), tlinear.hash_dropout(x, 0.5, slot))
 
@@ -595,7 +600,7 @@ def test_a_kept_sampler_is_not_reused_once_the_weights_move():
     suite, state = _state(args)
     labels = _data(args, 8)[1].numpy()
     run = lambda: tsampling.generate_multi_batch(  # noqa: E731
-        state.g, suite.noise, torch.Generator().manual_seed(0), 8, 8, labels=labels)
+        state.g, suite.noise, prng.PRNGKey(0), 8, 8, labels=labels)
     before = run()
     w = next(state.g.parameters())
     w.data = w.data.clone()  # same values, new storage (as .to() or an assigning load)

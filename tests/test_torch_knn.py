@@ -39,7 +39,7 @@ from mpgan_tpu_torch.ops import mp_kernels as tmk
 from mpgan_tpu_torch.training import config as tconfig
 from mpgan_tpu_torch.utils.weights import mlp_sd_from_jax, mp_generator_from_jax
 
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 
 torch.backends.cuda.matmul.allow_tf32 = False
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -452,7 +452,7 @@ def test_knn_layer_train_matches_jax(mp_args, use_pallas):
 
     (_, yj), (jgp, jgx) = jax.value_and_grad(jf, argnums=(0, 1), has_aux=True)(params, _j(x))
     tx = _t(x).requires_grad_()
-    yt = tmp.mp_layer_apply(layer, tx, mask=_t(mask), train=True, rng=JaxKeys(key),
+    yt = tmp.mp_layer_apply(layer, tx, mask=_t(mask), train=True, rng=port_keys(key),
                             use_kernels=use_pallas)
     torch.sin(yt).sum().backward()
     np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), **FWD_TOL)

@@ -29,7 +29,7 @@ from mpgan_tpu_torch.ops import mp as tmp
 from mpgan_tpu_torch.ops import mp_kernels as tmk
 from mpgan_tpu_torch.utils.weights import mlp_sd_from_jax
 
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -132,7 +132,7 @@ def test_knn_layer_route_train_matches_jax(monkeypatch, kernel, select, mp_args)
 
     (_, yj), (jgp, jgx) = jax.value_and_grad(jf, argnums=(0, 1), has_aux=True)(params, _j(x))
     tx = _t(x).requires_grad_()
-    yt = tmp.mp_layer_apply(layer, tx, mask=_t(mask), train=True, rng=JaxKeys(key),
+    yt = tmp.mp_layer_apply(layer, tx, mask=_t(mask), train=True, rng=port_keys(key),
                             use_kernels=True)
     torch.sin(yt).sum().backward()
     np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), **FWD_TOL)
@@ -160,7 +160,7 @@ def test_the_ports_routes_equal_each_other(monkeypatch, mp_args, train):
         tx = _t(x).requires_grad_()
         y = tmp.mp_layer_apply(layer, tx, mask=_t(mask), labels=_t(labels),
                                num_jet_particles=_t(njp), train=train,
-                               rng=JaxKeys(jax.random.PRNGKey(1)) if train else None,
+                               rng=port_keys(jax.random.PRNGKey(1)) if train else None,
                                use_kernels=True)
         torch.sin(y).sum().backward()
         outs[name], grads[name] = y.detach(), tx.grad

@@ -2,8 +2,8 @@
 PyTorch port against the JAX package.
 
 - ``d_loss``/``g_loss`` (og, ls, w, hinge) on the same targets within 1e-5;
-- ``d_targets``' shapes, ranges and flip rates (its draws come from a torch
-  generator, so they are checked by their distribution);
+- ``d_targets``' shapes, ranges and flip rates from a threefry key (the
+  values themselves against JAX's in ``tests/test_torch_prng.py``);
 - the GP penalty through a train-mode discriminator and its gradient with
   respect to D's weights (a double backward) within 1e-5 and 1e-4;
 - the optimizers on identical gradients (both follow the torch update rules,
@@ -23,13 +23,14 @@ from mpgan_tpu.models.mpgan import mp_discriminator_apply, mp_discriminator_init
 from mpgan_tpu.training import config as jconfig
 from mpgan_tpu.training import losses as jlosses
 from mpgan_tpu.training import optimizers as jopt
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.data.jetnet import JetNetDataset
 from mpgan_tpu_torch.training import config as tconfig
 from mpgan_tpu_torch.training import losses as tlosses
 from mpgan_tpu_torch.training import optimizers as topt
 from mpgan_tpu_torch.utils.weights import jax_leaves, mp_discriminator_from_jax
 
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 
 torch.backends.cuda.matmul.allow_tf32 = False
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -69,11 +70,11 @@ def test_losses_match_jax(loss):
 
 
 def test_d_targets_shapes_ranges_and_flips():
-    gen = torch.Generator().manual_seed(0)
-    y_real, y_fake = tlosses.d_targets(gen, 4000, True, 0.0)
+    key = prng.PRNGKey(0)
+    y_real, y_fake = tlosses.d_targets(key, 4000, True, 0.0)
     assert y_real.shape == y_fake.shape == (4000, 1)
     assert 0.7 <= y_real.min() and y_real.max() <= 1.2 and 0 <= y_fake.min() and y_fake.max() <= 0.3
-    y_real, y_fake = tlosses.d_targets(gen, 4000, False, 0.25)
+    y_real, y_fake = tlosses.d_targets(prng.fold_in(key, 1), 4000, False, 0.25)
     assert abs((y_real == 0).float().mean() - 0.25) < 0.03
     assert abs((y_fake == 1).float().mean() - 0.25) < 0.03
     ones, zeros = tlosses.d_targets(None, 3, False, 0.0)
@@ -98,7 +99,7 @@ def test_gradient_penalty_and_its_double_backward_match_jax():
 
     gp_j, grads_j = jax.value_and_grad(jgp)(params)
     gp_t = tlosses.gradient_penalty(
-        lambda x: d(x, torch.from_numpy(labels), train=True, rng=JaxKeys(k_drop)),
+        lambda x: d(x, torch.from_numpy(labels), train=True, rng=port_keys(k_drop)),
         torch.from_numpy(np.array(alpha)), torch.from_numpy(real), torch.from_numpy(fake), 10.0)
     gp_t.backward()
     np.testing.assert_allclose(gp_t.item(), float(gp_j), **FWD_TOL)

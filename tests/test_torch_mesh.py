@@ -3,18 +3,19 @@
 
 - one D step then one G step on a 2-rank gloo mesh against the JAX step built
   with ``pmean_axis="data"`` under ``shard_map_step`` on a 2-device mesh, on
-  the same shards and draws: JAX's per-shard keys (``split`` as in
-  ``train_step.py:182, 261``, then ``fold_in(k, r)``) replayed on rank ``r``.
-  Loss parts within 1e-5, the gradients and updates within
-  ``_compare_update``'s bounds, the models' state (BN running statistics, SN
-  vectors) after both steps within 1e-4; the parameters and buffers equal bit
-  for bit across the ranks. Cases: the dense card with D dropout 0.5 (K1's
+  the same shards, from the JAX state's key with no draws passed: each rank
+  folds its rank into the step's split keys (``train_step.py:176-179, 182,
+  261``) and ends on JAX's next key, bit for bit. Loss parts within 1e-5,
+  the gradients and updates within ``_compare_update``'s bounds, the models'
+  state (BN running statistics, SN vectors) after both steps within 1e-4; the
+  parameters and buffers equal bit for bit across the ranks. Cases: the dense card with D dropout 0.5 (K1's
   masks on the kernels' plain path), the ``graphcnn`` zoo family (its G's
   train-mode BN makes the state differ between shards) and SN in D;
 - ``generate_multi_batch`` on 2 ranks against one process
   (``tests/test_training.py:374-396``'s counterpart);
 - a mesh of one with given draws is the step without a mesh, bit for bit; the
-  per-rank draws, the reduce, ``make_mesh``'s refusals and the rows of a rank.
+  per-rank keys (JAX's ``fold_in``), the reduce, ``make_mesh``'s refusals and
+  the rows of a rank.
 
 The ranks run ``tests/torch_mesh_ranks.py`` through ``mesh.launch``, every
 case of this module in one world (:func:`ranks`).
@@ -40,6 +41,7 @@ from mpgan_tpu.training import optimizers as jopt
 from mpgan_tpu.training import train_step as jts
 from mpgan_tpu_torch.data.jetnet import JetNetDataset
 from mpgan_tpu_torch.models import registry as tregistry
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.parallel import mesh as tmesh
 from mpgan_tpu_torch.training import config as tconfig
 from mpgan_tpu_torch.training import sampling as tsampling
@@ -47,7 +49,7 @@ from mpgan_tpu_torch.training import train_step as tts
 from mpgan_tpu_torch.utils.weights import load_jax_trees, tree_leaves
 
 import torch_mesh_ranks
-from test_torch_ops import JaxKeys
+from test_torch_ops import port_keys
 from test_torch_train_step import NARROW, _batch, _compare_update, _step_pair
 from test_torch_zoo import WIDTHS
 
@@ -80,14 +82,6 @@ def _keeping(opt):
     return optax.GradientTransformation(init, update)
 
 
-def _fold(key, r):
-    return np.asarray(jax.random.fold_in(key, r))
-
-
-def _per_rank(key):
-    return np.stack([_fold(key, r) for r in range(RANKS)])
-
-
 class _Pair:
     """A card's JAX suite and shard-mapped steps, the JAX-initialised state and
     the port's modules holding its weights."""
@@ -117,30 +111,15 @@ class _Pair:
         load_jax_trees(self.d, _np(self.jstate.d_params), _np(self.jstate.d_state))
 
 
-def _payload(pair, data, labels, j0, j1):
-    """The ranks' inputs: modules, optimizer, batch and each shard's draws."""
-    shard = B // RANKS
-    spec, a = pair.js.noise, pair.targs
-    _, k_noise, k_real, k_fake, k_gp_drop, k_gp, *_ = jax.random.split(j0.rng, 9)
-    d_noise = np.stack([np.asarray(spec.sample(jax.random.fold_in(k_noise, r), shard)[0])
-                        for r in range(RANKS)])
-    _, gk_noise, k_g, k_d, _ = jax.random.split(j1.rng, 5)
-    g_noise = np.stack([np.asarray(spec.sample(jax.random.fold_in(gk_noise, r), shard)[0])
-                        for r in range(RANKS)])
-    p = dict(g=pair.g, d=pair.d, data=data, labels=labels,
-             opt=dict(optimizer=a.optimizer, beta1=a.beta1, beta2=a.beta2, lr_gen=a.lr_gen,
-                      lr_disc=a.lr_disc),
-             step_cfg=tts.StepConfig(loss=a.loss, gp_lambda=a.gp), spec=pair.ts.noise,
-             post_gen=pair.ts.post_gen, encode_real=pair.ts.encode_real,
-             d_noise=d_noise, g_noise=g_noise,
-             keys={"real": _per_rank(k_real), "fake": _per_rank(k_fake), "g": _per_rank(k_g),
-                   "d": _per_rank(k_d)})
-    if a.gp:
-        p["keys"]["gp_drop"] = _per_rank(k_gp_drop)
-        p["alpha"] = np.stack([np.asarray(jax.random.uniform(
-            jax.random.fold_in(k_gp, r), (shard,) + (1,) * (data.ndim - 1)))
-            for r in range(RANKS)])
-    return p
+def _payload(pair, data, labels, j0):
+    """The ranks' inputs: modules, optimizer, batch and the JAX state's key."""
+    a = pair.targs
+    return dict(g=pair.g, d=pair.d, data=data, labels=labels,
+                opt=dict(optimizer=a.optimizer, beta1=a.beta1, beta2=a.beta2, lr_gen=a.lr_gen,
+                         lr_disc=a.lr_disc),
+                step_cfg=tts.StepConfig(loss=a.loss, gp_lambda=a.gp), spec=pair.ts.noise,
+                post_gen=pair.ts.post_gen, encode_real=pair.ts.encode_real,
+                rng=np.asarray(j0.rng).copy())
 
 
 def _with_grads(params, grads):
@@ -164,7 +143,7 @@ def _stepped(case):
     j0 = pair.jstate
     j1, jd_parts = pair.d_step(j0, *batch)
     j2, jg_parts = pair.g_step(j1, *batch)
-    return (pair, (j0, j1, j2), jd_parts, jg_parts), _payload(pair, data, labels, j0, j1)
+    return (pair, (j0, j1, j2), jd_parts, jg_parts), _payload(pair, data, labels, j0)
 
 
 def _sampler():
@@ -196,6 +175,8 @@ def test_two_rank_d_and_g_step_match_jax_shard_map(ranks, case):
     task = list(CARDS).index(case)
     lr_d, lr_g = pair.targs.lr_disc, pair.targs.lr_gen
     for out in (o[task] for o in outs):
+        np.testing.assert_array_equal(out["rng_d"], np.asarray(j1.rng))
+        np.testing.assert_array_equal(out["rng_g"], np.asarray(j2.rng))
         for k, v in jd_parts.items():
             np.testing.assert_allclose(out[k], np.asarray(v), **FWD_TOL)
         np.testing.assert_allclose(out["G"], np.asarray(jg_parts["G"]), **FWD_TOL)
@@ -220,7 +201,7 @@ def test_generate_multi_batch_on_two_ranks_matches_one_process(ranks, static):
     single-process output, the mask multiplicities included, from the labels."""
     jax_side, outs = ranks
     p = jax_side["sampler"]
-    single = tsampling.generate_multi_batch(p["g"], p["spec"], torch.Generator().manual_seed(1),
+    single = tsampling.generate_multi_batch(p["g"], p["spec"], prng.PRNGKey(1),
                                             50, 16, labels=p["labels"], static=static)
     task = len(CARDS) + (not static)
     for out in (o[task] for o in outs):
@@ -250,9 +231,9 @@ def test_mesh_of_one_step_with_given_draws_is_the_step_without_a_mesh(one):
         data, labels = map(torch.from_numpy, _batch(NARROW, 4))
         _, k_noise, k_real, k_fake, *_ = jax.random.split(jstate.rng, 9)
         draws = tts.DDraws(torch.from_numpy(np.array(spec.sample(k_noise, 4)[0])),
-                           JaxKeys(k_real), JaxKeys(k_fake))
+                           port_keys(k_real), port_keys(k_fake))
         parts = tts.d_step(tstate, tts.StepConfig(), tspec, data, labels, draws=draws, mesh=mesh)
-        gd = tts.GDraws(draws.noise, JaxKeys(k_real), JaxKeys(k_fake))
+        gd = tts.GDraws(draws.noise, port_keys(k_real), port_keys(k_fake))
         parts.update(tts.g_step(tstate, tts.StepConfig(), tspec, data, labels, draws=gd,
                                 mesh=mesh))
         out.append(([v.numpy() for v in parts.values()],
@@ -263,23 +244,30 @@ def test_mesh_of_one_step_with_given_draws_is_the_step_without_a_mesh(one):
 
 
 def test_mesh_step_draws_one_word_a_part_and_folds_in_the_rank(one):
-    """Without a mesh no word is drawn; with one each part draws one word from
-    the state's generator and its draws from the rank's fold; the ranks' folds
-    differ, and a mesh of one draws otherwise than no mesh."""
-    state = tts.TrainState(None, None, None, None, torch.Generator().manual_seed(7))
-    assert tts.step_generator(state, None) is state.generator
-    before = state.generator.get_state()
-    folded = [tmesh.fold_in(torch.Generator().set_state(before), dataclasses.replace(one, rank=r))
-              for r in range(3)]
-    draws = [torch.randn(5, generator=g) for g in folded]
+    """Without a mesh the step's split keys are used as they are; with one each
+    is folded with the rank (JAX's ``fold_in``), the next key is not: the ranks'
+    draws differ, a mesh of one draws otherwise than no mesh, and the key
+    advances alike on every rank."""
+    assert tmesh.local_path(None) == ()
+    key = jax.random.PRNGKey(7)
+    tkey = prng.PRNGKey(7)
+    for r in range(3):
+        rank = dataclasses.replace(one, rank=r)
+        assert tmesh.local_path(rank) == (r,)
+        np.testing.assert_array_equal(tmesh.fold_in(tkey, rank).numpy(),
+                                      np.asarray(jax.random.fold_in(key, r)))
+    spec = tsampling.NoiseSpec((3, 2))
+    draws = []
+    for mesh in (None, one, dataclasses.replace(one, rank=1)):
+        state = tts.TrainState(None, None, None, None, prng.PRNGKey(7))
+        draws.append(tts.draw_g(state, tts.StepConfig(), spec, 4, "cpu", mesh=mesh).noise)
+        np.testing.assert_array_equal(state.rng.numpy(), np.asarray(jax.random.split(key, 5)[0]))
+    k_noise = jax.random.split(key, 5)[1]
+    for got, k in zip(draws, (k_noise, jax.random.fold_in(k_noise, 0),
+                              jax.random.fold_in(k_noise, 1))):
+        want = jax.random.normal(jax.random.split(k)[0], (4, 3, 2)) * 0.2
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
     assert not torch.equal(draws[0], draws[1]) and not torch.equal(draws[1], draws[2])
-    plain = torch.randn(5, generator=torch.Generator().set_state(before))
-    assert not torch.equal(plain, draws[0])
-    g = tts.step_generator(state, one)
-    assert torch.equal(torch.randn(5, generator=g), draws[0])
-    after = torch.Generator().set_state(before)
-    torch.randint(0, 2**32, (2,), generator=after, dtype=torch.int64)  # one word
-    assert torch.equal(state.generator.get_state(), after.get_state())
 
 
 def test_pmean_reduces_in_one_kept_bucket(one):

@@ -34,7 +34,7 @@ from mpgan_tpu_torch.models import registry as tregistry
 from mpgan_tpu_torch.training import config as tconfig
 from mpgan_tpu_torch.utils.weights import load_jax_trees
 
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 
 torch.backends.cuda.matmul.allow_tf32 = False
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -100,7 +100,7 @@ def _run(jcfg, params, state, module, x, labels, train, epoch=1):
                                    train=train, rng=key if train else None, epoch=epoch)
     # update_sn=False: the spectral-norm u stays as loaded, as the JAX state here
     got = module(torch.from_numpy(x), None if labels is None else torch.from_numpy(labels),
-                 train=train, rng=JaxKeys(key) if train else None, epoch=epoch,
+                 train=train, rng=port_keys(key) if train else None, epoch=epoch,
                  update_sn=False)
     return np.asarray(want), got.detach().numpy()
 

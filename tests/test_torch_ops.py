@@ -20,6 +20,7 @@ from mpgan_tpu.ops import linear as jlinear
 from mpgan_tpu.ops import masking as jmasking
 from mpgan_tpu.ops import spectral_norm as jsn
 from mpgan_tpu_torch.ops import linear as tlinear
+from mpgan_tpu_torch.ops.keys import Keys
 from mpgan_tpu_torch.ops import masking as tmasking
 from mpgan_tpu_torch.ops import spectral_norm as tsn
 from mpgan_tpu_torch.utils.weights import mlp_sd_from_jax
@@ -82,24 +83,12 @@ def test_mlp_eval_matches_jax(final_linear, batch_norm, spectral_norm):
     np.testing.assert_allclose(y_torch.detach().numpy(), np.asarray(y_jax), **TOL)
 
 
-class JaxKeys:
-    """The port's keys protocol (``mpgan_tpu_torch.ops.keys``) replaying JAX key
-    splits, so a port module draws the dropout masks the JAX module draws for
-    the same key. The other train tests import it from here."""
-
-    def __init__(self, key):
-        self.key = key
-
-    def split(self, num):
-        return [JaxKeys(k) for k in jax.random.split(self.key, num)]
-
-    def words(self):
-        kd = np.asarray(self.key).ravel()
-        return int(kd[0]), int(kd[-1])
-
-    def edge_seed(self):
-        s = jax.random.randint(jax.random.fold_in(self.key, 1), (), 0, 2**30, dtype=jnp.int32)
-        return int(np.float32(s))
+def port_keys(key):
+    """The port's own keys (``mpgan_tpu_torch.ops.keys.Keys``) of the JAX key
+    ``key``: its two words as the port's threefry key, so a port module draws
+    the dropout masks the JAX module draws for ``key``. The other train tests
+    import it from here."""
+    return Keys(torch.from_numpy(np.asarray(key, dtype=np.uint32).copy()))
 
 
 @pytest.mark.parametrize("n", [13, 30, 150])
@@ -108,7 +97,7 @@ def test_hash_dropout_bit_identical_to_jax(n, p):
     x = np.random.RandomState(n).randn(3, n, 17).astype(np.float32)
     key = jax.random.PRNGKey(n)
     j = np.asarray(jlinear.hash_dropout(jnp.asarray(x), p, key))
-    t = tlinear.hash_dropout(torch.from_numpy(x), p, JaxKeys(key).words()).numpy()
+    t = tlinear.hash_dropout(torch.from_numpy(x), p, port_keys(key).words()).numpy()
     np.testing.assert_array_equal(t, j)
     assert abs((t == 0).mean() - p) < 0.05
 
@@ -133,7 +122,7 @@ def test_mlp_train_matches_jax(final_linear, batch_norm, spectral_norm, dropout_
     )
     mlp = tlinear.MLP(tcfg)
     mlp.load_state_dict(mlp_sd_from_jax("", tcfg, params, state), strict=True)
-    y_torch = mlp(torch.from_numpy(x), train=True, rng=JaxKeys(key))
+    y_torch = mlp(torch.from_numpy(x), train=True, rng=port_keys(key))
     np.testing.assert_allclose(y_torch.detach().numpy(), np.asarray(y_jax), **TOL)
     # the same zeros: dropout masks agree bit for bit
     np.testing.assert_array_equal(y_torch.detach().numpy() == 0, np.asarray(y_jax) == 0)

@@ -28,6 +28,7 @@ from mpgan_tpu.training import checkpoint as jckpt
 from mpgan_tpu.training import config as jconfig
 from mpgan_tpu.training import optimizers as jopt
 from mpgan_tpu.training import train_step as jts
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.cli import args as targs_cli
 from mpgan_tpu_torch.cli import train as ttrain_cli
 from mpgan_tpu_torch.data import jetnet as tjetnet
@@ -127,11 +128,14 @@ def test_port_checkpoint_loads_in_jax(tmp_path, optimizer):
 
 def test_checkpoint_rng_continues_the_saved_stream(tmp_path):
     trainer = _trainer(tmp_path, dict(CARD, num_epochs=1))
+    """The key's two words are saved as they are and loaded as the key: saving
+    leaves the stream where it was, and a load returns to it."""
+    key = trainer.state.rng.clone()
     tckpt.save_train_state(tmp_path / "a.npz", trainer.state)
-    after_save = torch.randint(0, 2**31, (4,), generator=trainer.state.generator)
+    assert torch.equal(trainer.state.rng, key)
+    trainer.state.rng.copy_(prng.PRNGKey(5))
     tckpt.load_train_state(tmp_path / "a.npz", trainer.state)
-    after_load = torch.randint(0, 2**31, (4,), generator=trainer.state.generator)
-    assert torch.equal(after_save, after_load)
+    assert torch.equal(trainer.state.rng, key)
 
 
 def test_batch_loader_order_matches_jax():
@@ -414,8 +418,7 @@ def test_best_epoch_by_fpd_is_kept_and_survives_a_resume(tmp_path, monkeypatch):
     assert all((run / f).exists() for f in BEST_FILES)
     assert t1.best_epoch == [[0, 10.0], [1, 4.5]]
     np.testing.assert_array_equal(np.loadtxt(run / "best_epoch.txt"), [[0, 10.0], [1, 4.5]])
-    # the epoch's own checkpoint, rng words included: a second save would have
-    # reseeded the training generator
+    # the epoch's own checkpoint, rng words included
     best = np.load(run / "state_best_epoch.npz")
     epoch1 = np.load(run / "models" / "state_1.npz")
     assert best.files == epoch1.files
@@ -428,7 +431,6 @@ def test_best_epoch_by_fpd_is_kept_and_survives_a_resume(tmp_path, monkeypatch):
     assert t2.start_epoch == 2
     assert t2.best_epoch == [[0, 10.0], [1, 4.5], [4, 1.25]]
     np.testing.assert_array_equal(np.loadtxt(run / "best_epoch.txt"), t2.best_epoch)
-    # the run trained on from the epoch-4 checkpoint's generator state
+    # the run ends on the key its epoch-4 checkpoint holds
     words = np.load(run / "models" / "state_4.npz")[f"leaf_{len(best.files) - 1}"]
-    want = torch.Generator().manual_seed(tckpt._words_seed(words)).get_state()
-    assert torch.equal(t2.state.generator.get_state(), want)
+    np.testing.assert_array_equal(t2.state.rng.numpy(), words)

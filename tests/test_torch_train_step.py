@@ -32,6 +32,7 @@ from mpgan_tpu.training import losses as jlosses
 from mpgan_tpu.training import optimizers as jopt
 from mpgan_tpu.training import sampling as jsampling
 from mpgan_tpu.training import train_step as jts
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.data.jetnet import JetNetDataset
 from mpgan_tpu_torch.models import registry as tregistry
 from mpgan_tpu_torch.ops.augment import AugmentConfig
@@ -46,7 +47,7 @@ from mpgan_tpu_torch.utils.weights import (
     mp_generator_from_jax,
 )
 
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 
 torch.backends.cuda.matmul.allow_tf32 = False
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -92,7 +93,7 @@ def test_discriminator_matches_jax(train, use_pallas, extra):
                                    rng=key if train else None)
     d.cfg = dataclasses.replace(d.cfg, use_kernels=use_pallas)
     yt = d(torch.from_numpy(data), torch.from_numpy(labels), train=train,
-           rng=JaxKeys(key) if train else None)
+           rng=port_keys(key) if train else None)
     assert yt.shape == (4, 1)
     np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), **FWD_TOL)
 
@@ -111,7 +112,7 @@ def test_knn_discriminator_matches_jax(train, use_pallas, extra):
                                    rng=key if train else None)
     d.cfg = dataclasses.replace(d.cfg, use_kernels=use_pallas)
     yt = d(torch.from_numpy(data), torch.from_numpy(labels), train=train,
-           rng=JaxKeys(key) if train else None)
+           rng=port_keys(key) if train else None)
     np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj), **FWD_TOL)
 
 
@@ -170,7 +171,7 @@ def _step_pair(card, use_pallas, post_gen=None):
                                   tconfig.build_mpgan_discriminator(targs))
     tstate = tts.TrainState(g, d, topt.build_optimizer("rmsprop", g.parameters(), targs.lr_gen),
                             topt.build_optimizer("rmsprop", d.parameters(), targs.lr_disc),
-                            torch.Generator().manual_seed(0))
+                            prng.PRNGKey(0))
     tspec = tsampling.noise_spec("mpgan", {"latent_node_size": targs.latent_node_size},
                                  targs.num_hits, targs.sd)
     return (gcfg, dcfg, spec, jstate, d_step, g_step), (tstate, tspec)
@@ -228,7 +229,7 @@ def _check_steps_match_jax(card, use_pallas, post_gens=(None, None)):
     jgrads = jax.grad(d_loss_fn)(jstate.d_params)
     jstate1, jparts = d_step(jstate, jd, jl)
     tparts = tts.d_step(tstate, tts.StepConfig(), tspec, td, tl, draws=tts.DDraws(
-        torch.from_numpy(np.array(noise)), JaxKeys(k_real), JaxKeys(k_fake)), post_gen=tpost)
+        torch.from_numpy(np.array(noise)), port_keys(k_real), port_keys(k_fake)), post_gen=tpost)
     for k in ("Dr", "Df", "D"):
         np.testing.assert_allclose(tparts[k].numpy(), np.asarray(jparts[k]), **FWD_TOL)
     _compare_update(jax_leaves(tstate.d, True), jstate.d_params, jstate1.d_params, jgrads,
@@ -249,7 +250,7 @@ def _check_steps_match_jax(card, use_pallas, post_gens=(None, None)):
     jgrads = jax.grad(g_loss_fn)(jstate1.g_params)
     jstate2, jmetrics = g_step(jstate1, jd, jl)
     tmetrics = tts.g_step(tstate, tts.StepConfig(), tspec, td, tl, draws=tts.GDraws(
-        torch.from_numpy(np.array(noise)), JaxKeys(k_g), JaxKeys(k_d)), post_gen=tpost)
+        torch.from_numpy(np.array(noise)), port_keys(k_g), port_keys(k_d)), post_gen=tpost)
     np.testing.assert_allclose(tmetrics["G"].numpy(), np.asarray(jmetrics["G"]), **FWD_TOL)
     _compare_update(jax_leaves(tstate.g, True), jstate1.g_params, jstate2.g_params, jgrads,
                     1e-6, zero_grads_stay=jpost is not None)
@@ -273,12 +274,15 @@ def test_mask_manual_d_step_and_g_step_match_jax(use_pallas, flags):
 
 
 def test_steps_draw_everything_from_the_state_generator():
-    """Without explicit draws, two states seeded alike take identical steps."""
+    """Without explicit draws, two states keyed alike take identical steps, and
+    each step writes the next key: child 0 of the old (JAX's split keeps it)."""
     outs = []
     for _ in range(2):
         _, (tstate, tspec) = _step_pair(NARROW, True)
         data, labels = map(torch.from_numpy, _batch(NARROW, 4))
+        key = tstate.rng.clone()
         parts = tts.d_step(tstate, tts.StepConfig(label_smoothing=True), tspec, data, labels)
         parts.update(tts.g_step(tstate, tts.StepConfig(), tspec, data, labels))
+        assert torch.equal(tstate.rng, prng.split(prng.split(key, 9)[0], 5)[0])
         outs.append({k: v.item() for k, v in parts.items()})
     assert outs[0] == outs[1]

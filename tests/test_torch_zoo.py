@@ -36,6 +36,7 @@ from mpgan_tpu.training import optimizers as jopt
 from mpgan_tpu.training import sampling as jsampling
 from mpgan_tpu.training import train_step as jts
 from mpgan_tpu.utils.torch_import import generator_from_torch
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.cli import args as targs_cli
 from mpgan_tpu_torch.cli import gen as tgen_cli
 from mpgan_tpu_torch.cli import train as ttrain_cli
@@ -55,7 +56,7 @@ from mpgan_tpu_torch.utils.weights import (
     tree_leaves,
 )
 
-from test_torch_ops import JaxKeys  # the JAX key tree, replayed
+from test_torch_ops import port_keys  # the port's keys of a JAX key
 
 torch.backends.cuda.matmul.allow_tf32 = False
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -156,8 +157,7 @@ class _Family:
         g, d = s.generator(torch.Generator().manual_seed(5)), s.discriminator()
         opt = lambda m, lr: topt.build_optimizer(a.optimizer, m.parameters(), lr,  # noqa: E731
                                                  beta1=a.beta1, beta2=a.beta2)
-        return tts.TrainState(g, d, opt(g, a.lr_gen), opt(d, a.lr_disc),
-                              torch.Generator().manual_seed(0))
+        return tts.TrainState(g, d, opt(g, a.lr_gen), opt(d, a.lr_disc), prng.PRNGKey(0))
 
     def batch(self, b=4):
         a = self.targs
@@ -195,8 +195,8 @@ def stepped(request, pcgan_dir):
     alpha = jax.random.uniform(k_gp, (len(data),) + (1,) * (real.ndim - 1))
     j1, jd_parts = d_step(j0, *jargs_)
     td_parts = tts.d_step(fam.tstate, step_cfg, fam.tsuite.noise, td, tl, draws=tts.DDraws(
-        torch.from_numpy(np.array(noise)), JaxKeys(k_real), JaxKeys(k_fake), None,
-        JaxKeys(k_gp_drop), torch.from_numpy(np.array(alpha))),
+        torch.from_numpy(np.array(noise)), port_keys(k_real), port_keys(k_fake), None,
+        port_keys(k_gp_drop), torch.from_numpy(np.array(alpha))),
         post_gen=fam.tsuite.post_gen, encode_real=fam.tsuite.encode_real)
     d_grads = [None if p.grad is None else p.grad.clone() for p in jax_leaves(fam.tstate.d, True)]
 
@@ -205,7 +205,7 @@ def stepped(request, pcgan_dir):
     noise, _ = fam.jsuite.noise.sample(k_noise, len(data))
     j2, jg_parts = g_step(j1, *jargs_)
     tg_parts = tts.g_step(fam.tstate, step_cfg, fam.tsuite.noise, td, tl, draws=tts.GDraws(
-        torch.from_numpy(np.array(noise)), JaxKeys(k_g), JaxKeys(k_d)),
+        torch.from_numpy(np.array(noise)), port_keys(k_g), port_keys(k_d)),
         post_gen=fam.tsuite.post_gen)
     return fam, (j0, j1, j2), (jd_parts, td_parts, jg_parts, tg_parts), d_grads
 
@@ -370,7 +370,7 @@ def test_train_cli_runs_and_resumes(family, tmp_path, pcgan_dir):
     args = ttrain_cli._reload_args_on_resume(targs_cli.parse_cli(argv[2:]))
     t2 = Trainer(args, t1.train_dataset, t1.valid_dataset, device="cpu")
     assert t2.start_epoch == 1
-    assert torch.equal(t2.state.generator.get_state(), t1.state.generator.get_state())
+    assert torch.equal(t2.state.rng, t1.state.rng)
     for a, b in zip(tckpt.train_state_leaves(t2.state)[:-1],
                     tckpt.train_state_leaves(t1.state)[:-1]):
         np.testing.assert_array_equal(a, b)

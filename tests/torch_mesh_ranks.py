@@ -3,14 +3,15 @@
 on the CPU, one thread a rank. :func:`run_tasks` makes the mesh and runs a
 test module's tasks in turn in that one world (a world's start costs seconds),
 returning their results, numpy arrays and losses, which ``launch`` hands back
-in rank order. JAX is imported only to replay the JAX step's per-shard keys
-(``JaxKeys``)."""
+in rank order. JAX is not imported: the ranks take the JAX state's key words
+and draw from them as the JAX step does."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.parallel.mesh import make_mesh
 from mpgan_tpu_torch.training import optimizers as topt
 from mpgan_tpu_torch.training import train_step as tts
@@ -34,32 +35,28 @@ def run_tasks(ranks: int, tasks: list[tuple[str, object]]) -> list:
 
 
 def step(mesh, p: dict) -> dict:
-    """One D step and one G step on this rank's rows of ``p["data"]`` with the
-    draws of its shard (JAX's keys, raw)."""
-    from test_torch_ops import JaxKeys
-
-    r, rows = mesh.rank, mesh.rows(len(p["data"]))
+    """One D step and one G step on this rank's rows of ``p["data"]``, drawing
+    from the JAX state's key ``p["rng"]`` (no draws passed): each rank folds its
+    rank into the step's split keys, as the JAX step under ``shard_map`` does."""
+    rows = mesh.rows(len(p["data"]))
     g, d, a = p["g"], p["d"], p["opt"]
     opt = lambda m, lr: topt.build_optimizer(a["optimizer"], m.parameters(), lr,  # noqa: E731
                                              beta1=a["beta1"], beta2=a["beta2"])
     state = tts.TrainState(g, d, opt(g, a["lr_gen"]), opt(d, a["lr_disc"]),
-                           torch.Generator().manual_seed(0))
+                           torch.from_numpy(p["rng"].copy()))
     data = torch.from_numpy(p["data"][rows])
     labels = None if p["labels"] is None else torch.from_numpy(p["labels"][rows])
-    keys = {k: JaxKeys(v[r]) for k, v in p["keys"].items()}
-    t = lambda x: torch.from_numpy(x[r])  # noqa: E731
     cfg = p["step_cfg"]
     out = {}
-    d_draws = tts.DDraws(t(p["d_noise"]), keys["real"], keys["fake"], None, keys.get("gp_drop"),
-                         None if "alpha" not in p else t(p["alpha"]))
-    parts = tts.d_step(state, cfg, p["spec"], data, labels, draws=d_draws, mesh=mesh,
+    parts = tts.d_step(state, cfg, p["spec"], data, labels, mesh=mesh,
                        post_gen=p["post_gen"], encode_real=p["encode_real"])
     out.update({k: v.numpy() for k, v in parts.items()})
     out["d_grads"], out["d_params"] = _grads(d), _leaves(d, True)
-    g_draws = tts.GDraws(t(p["g_noise"]), keys["g"], keys["d"])
-    out["G"] = tts.g_step(state, cfg, p["spec"], data, labels, draws=g_draws, mesh=mesh,
+    out["rng_d"] = state.rng.numpy().copy()
+    out["G"] = tts.g_step(state, cfg, p["spec"], data, labels, mesh=mesh,
                           post_gen=p["post_gen"])["G"].numpy()
     out["g_grads"], out["g_params"] = _grads(g), _leaves(g, True)
+    out["rng_g"] = state.rng.numpy().copy()
     out["state"] = _leaves(g, False) + _leaves(d, False)
     out["all"] = [t.detach().numpy().copy() for m in (g, d)
                   for t in (*m.parameters(), *m.buffers())]
@@ -68,8 +65,8 @@ def step(mesh, p: dict) -> dict:
 
 def sample(mesh, p: dict) -> np.ndarray:
     """``generate_multi_batch`` on the mesh."""
-    gen = torch.Generator().manual_seed(p["seed"])
-    return generate_multi_batch(p["g"], p["spec"], gen, p["n"], p["batch"], labels=p["labels"],
+    return generate_multi_batch(p["g"], p["spec"], prng.PRNGKey(p["seed"]), p["n"], p["batch"],
+                                labels=p["labels"],
                                 mesh=mesh, static=p["static"])
 
 
