@@ -35,16 +35,20 @@ Phases, each printed as it finishes:
    order);
 8. one flagship-width D+G step on the card against the same step on the CPU
    (the kernels' plain versions), B=16, from the same state, batch, noise and
-   dropout keys: losses and every gradient agree. Again on the card's plain
-   path with dropout 0 (the plain path draws other masks than the kernels);
+   dropout keys: losses and every gradient agree (where they do not, the rows
+   at LeakyReLU's kink left out, :class:`KinkRows`, as in phase 13). Again on
+   the card's plain path with dropout 0 (the plain path draws other masks than
+   the kernels);
 9. the main train path: ``mpgan_tpu_torch.cli.train`` with the flagship card
    and ``--efp --fpd --cov-mmd`` on synthetic jets, 2 epochs (checkpoints each
-   epoch, evaluation at epoch 2: finite w1efp and coverage/MMD, FPD finite or,
-   where the evaluated jets hold a jet whose pT sum is not positive (an early
-   generator's negative pT, kept as the reference keeps it), inf; and the
-   real-EFP cache), then a resume that restores the state exactly, then a 3rd
-   epoch. Launch counters are reset before and read after; K2 with dropout, K3
-   with and without weight gradients and K4 must all have launched. Then
+   epoch, evaluation at epoch 2: finite w1efp and coverage/MMD, a finite FPD
+   where no evaluated jet has a pT sum that is not positive (an early
+   generator's negative pT, which the evaluation keeps as the reference does,
+   makes FPD inf) and, in any case, a finite FPD of the evaluated jets whose pT
+   sum is positive; and the real-EFP cache), then a resume that restores the
+   state exactly, then a 3rd epoch. Launch counters are reset before and read
+   after; K2 with dropout, K3 with and without weight gradients and K4 must all
+   have launched. Then
    ``mpgan_tpu_torch.cli.gen`` samples 2,000 jets from the run's
    ``state_2.npz`` (counters reset before, read after: K4 must launch);
 10. the D+G step at B=256 N=30, kernel path and plain path in turns (CUDA
@@ -85,13 +89,11 @@ Phases, each printed as it finishes:
     expected), then runs the CPU's knn layer calls on the card's neighbours
     (the rows where the CPU's own search on its own inputs picks others are
     logged), and losses and gradients agree within rtol = atol = 1e-4
-    (gradients: of max(1, max|ref|)); where a gradient does not, a LeakyReLU
-    pre-activation within rounding of zero may have taken the other slope on
-    one device and moved a whole edge row, so the CPU step is taken again with
-    D's weights moved by an ulp either way, and each tensor is held within
-    twice the most that moves any of the CPU's own gradients (logged; one key
-    in six needs it at B=8). The plain path: losses within 2e-3, gradients within
-    5e-2 of max(1, max|ref|);
+    (gradients: of max(1, max|ref|)); where they do not, the receiver rows
+    whose edges hold a LeakyReLU pre-activation at the kink (:class:`KinkRows`)
+    are left out of both steps' gradients and every tensor is held at 1e-4
+    again (the rows left out are logged). The plain path: losses within 2e-3,
+    gradients within 5e-2 of max(1, max|ref|);
 14. the knn train path: ``mpgan_tpu_torch.cli.train`` with ``--num-hits 150
     --no-fully-connected --num-knn 20`` at its default batch (160), 2 epochs, a
     resume that restores the state exactly, and launch counts equal to the
@@ -265,10 +267,9 @@ Phases, each printed as it finishes:
     flagship D+G step at a global B=256 (128 a rank) on the kernel path
     against the same 2-rank step on the CPU (the kernels' plain versions) from
     the same state, shards and per-rank draws, losses and gradients within
-    phase 8's tolerances (gradients, as phase 13 holds them, within twice what
-    an ulp of D's weights moves the CPU's own where 1e-4 fails) and the updated
-    parameters where the gradient is clear of zero within 1e-4, the parameters
-    bit-identical across the ranks; the
+    phase 8's tolerances (where 1e-4 fails, with the kink's receiver rows left
+    out, as phase 13 does) and the updated parameters where the gradient is
+    clear of zero within 1e-4, the parameters bit-identical across the ranks; the
     2-rank sampler at B=4096 against one rank's within rtol = atol = 1e-4, the
     mask column equal; the step's wall time (gloo stages through the host:
     recorded, no target). Two NCCL ranks cannot share one card, so the
@@ -278,12 +279,12 @@ Phases, each printed as it finishes:
     plans the captured D+G steps record (flagship B=256, knn-20 B=128, GAPT
     B=512: the batch's order row, every draw of the step, every dropout key
     slot) at two batch counters, and at the 50,000-jet sampler's plan (B=4096,
-    batch counters 0 and 12): keys, bits, ints, order rows, uniforms and normals
-    bit for bit, the next key and the counter as the plain version writes them,
-    then timed beside its plain version and its
-    bound; three keyed flagship D+G steps (B=16, dropout 0.5) on the card
-    against the CPU (the kernels' plain versions) from one key, losses and
-    the first step's gradients within 1e-4 and the key bit for bit after each; a captured
+    batch counters 0 and 12): keys, key words, edge seeds, order rows, uniforms
+    and normals bit for bit, the next key and the counter as the plain version
+    writes them, then timed beside its plain version and its bound; three keyed
+    flagship D+G steps (B=16, dropout 0.5) on the card against the CPU (the
+    kernels' plain versions) from one key, losses and the first step's
+    gradients within 1e-4 and the key bit for bit after each; a captured
     5-batch flagship epoch equal bit for bit to the eager epoch, then profiled
     (host and device): at most one host-to-device copy (the epoch's order) and
     two copy calls (the order in, the losses out), no CPU random-number call
@@ -293,8 +294,8 @@ Phases, each printed as it finishes:
 
 ``threefry_draws``'s entry counts its bytes (the plan, key, counter and order row
 read, every draw written once) over 3.35 TB/s and its 32-bit integer and float
-operations (about 80 a threefry block, one block an element, two for ``randint``,
-one for every child of a block's path walk, 40 more a normal) over 67 Tops.
+operations (about 80 a threefry block, one block an element, three for an edge
+seed, one for every child of a block's path walk, 40 more a normal) over 67 Tops.
 Every kernel's entry in the JSON line carries its bound: the larger of its
 FLOPs over 67 TFLOP/s (FP32 outside the tensor cores) and its bytes (inputs
 read once, outputs written once) over 3.35 TB/s, at the shape its ``ms`` was
@@ -355,6 +356,10 @@ FN = [224, 256, 256]  # fn's input [agg | x] and hidden widths; the output width
 KNN150 = {**FLAGSHIP, "num_hits": 150, "fully_connected": False, "num_knn": 20}
 GAPT = {"model": "gapt", "jets": "g", "num_hits": 30}
 MAX_DIFFERING_SHARE = 0.01  # receiver rows whose neighbours may differ at near-ties
+# a pre-activation within this many ulps of the sum of its terms' magnitudes is at
+# LeakyReLU's kink (KinkRows): the kernels sum a hidden layer in another order
+KINK_ULPS = 16
+KINK_ROUNDS = 3  # card-against-CPU steps with the kink's rows left out, at most
 # phase 12: share of the knn generator's values at B=512 that may lie beyond rtol = atol
 # = 1e-4 of the plain path, whose exact-distance search breaks bucket ties otherwise
 # (sound runs read 0.023%, PERF.md)
@@ -660,11 +665,182 @@ class CardNeighbours:
         self.kk.knn_fused_layer, self.kk.knn_select_reference = self.fused, self.select
 
 
+class KinkRows:
+    """Phases 8, 13 and 30 (b): the rows whose LeakyReLU pre-activations lie at
+    the kink, left out of a card-against-CPU step's gradients on both sides.
+
+    A pre-activation within rounding of zero may take the other slope on the
+    card than on the CPU (ROADMAP Queue 3, "Traps") and move its row's whole
+    gradient, and through it every gradient upstream. Every edge-layer call of
+    a step (K2 with K3, K5 with K6, or their plain versions) and every MLP
+    call (``linear.MLP``: torch on both sides) is recorded on each side
+    (:attr:`side`). An edge-layer call records its inputs, copied to the CPU,
+    and for the knn layer the card's neighbours (``held``, phase 13's
+    :class:`CardNeighbours`, which the CPU's calls run on); :meth:`flag`
+    recomputes its edge chain (the kernels' plain versions) on both sides'
+    inputs: a pre-activation is at the kink where the two give it opposite
+    signs, or where either lies within KINK_ULPS ulps of the sum of its terms'
+    magnitudes (the kernel sums in another order), and where a gradient reaches
+    it (the sender unmasked, the dropout multiplier not 0); the rows are the
+    call's receivers. An MLP call records the pre-activations its LeakyReLUs
+    take (``torch.where`` on floats, its only such call); one is at the kink where the
+    two sides' differ in sign; the rows are the output's. From then on those
+    rows of the call are left out: they pass forward as they are and take no
+    gradient, on both sides, so that no gradient reaches their pre-activations.
+    Every other row and every tensor is then held at 1e-4 as before."""
+
+    def __init__(self, held=None):
+        self.held = held
+        self.side = "card"
+        self.records = {"card": [], "cpu": []}
+        self.left_out: list[torch.Tensor | None] = []
+
+    def begin(self, side: str) -> None:
+        self.side = side
+        self.records[side] = []
+
+    def rows_left_out(self) -> int:
+        return sum(self.rows_by_call())
+
+    def rows_by_call(self) -> list[int]:
+        return [0 if r is None else int(r.sum()) for r in self.left_out]
+
+    def _pass(self, rec, out):
+        c = len(self.records[self.side])
+        self.records[self.side].append(rec)
+        rows = self.left_out[c] if c < len(self.left_out) else None
+        if rows is None or not rows.any():
+            return out
+        return torch.where(rows.to(out.device)[..., None], out.detach(), out)
+
+    def __enter__(self):
+        from torch.overrides import TorchFunctionMode
+
+        from mpgan_tpu_torch.ops import linear, mp
+
+        self.mp, self.dense, self.knn = mp, mp.EdgeAggregate, mp.knn_aggregate
+        self.mlp, self.mlp_forward = linear.MLP, linear.MLP.forward
+        cpu = lambda t: None if t is None else t.detach().cpu().clone()  # noqa: E731
+        kinks = self
+
+        class Dense:
+            @staticmethod
+            def apply(u1, u2, m, alpha, sum_agg, p, seed, *hidden):
+                out = kinks.dense.apply(u1, u2, m, alpha, sum_agg, p, seed, *hidden)
+                rec = None if not torch.is_grad_enabled() else dict(
+                    kind="dense", u1=cpu(u1), u2=cpu(u2), m=cpu(m), hidden=[cpu(t) for t in hidden],
+                    alpha=alpha, p=p, seed=cpu(seed) if isinstance(seed, torch.Tensor) else seed)
+                return kinks._pass(rec, out)
+
+        def knn(xs, xf, u1, u2m, w_d, hidden, k, self_loops, want_dists, alpha, sum_agg,
+                dropout_p=0.0, seed=0, **search):
+            out = kinks.knn(xs, xf, u1, u2m, w_d, hidden, k, self_loops, want_dists, alpha,
+                            sum_agg, dropout_p, seed, **search)
+            rec = None if not torch.is_grad_enabled() else dict(
+                kind="knn", xs=cpu(xs), xf=cpu(xf), u1=cpu(u1), u2m=cpu(u2m), w_d=cpu(w_d),
+                hidden=[cpu(t) for t in hidden], want_dists=want_dists, alpha=alpha,
+                p=dropout_p, seed=cpu(seed) if isinstance(seed, torch.Tensor) else seed,
+                idx=cpu(kinks.held.card[-1]) if kinks.side == "card" and kinks.held else None)
+            return kinks._pass(rec, out)
+
+        class Wheres(TorchFunctionMode):
+            """The floating values ``torch.where`` takes where its condition
+            holds (a key drawn on the CPU inside the call uses it on ints)."""
+
+            def __init__(self):
+                super().__init__()
+                self.seen = []
+
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                if func is torch.where and len(args) == 3 and args[1].is_floating_point():
+                    self.seen.append(cpu(args[1]))
+                return func(*args, **(kwargs or {}))
+
+        def mlp_forward(mlp, x, train=False, rng=None, update_sn=True):
+            if not torch.is_grad_enabled():
+                return kinks._pass(None, kinks.mlp_forward(mlp, x, train, rng, update_sn))
+            with Wheres() as wheres:
+                out = kinks.mlp_forward(mlp, x, train, rng, update_sn)
+            return kinks._pass(dict(kind="mlp", zs=wheres.seen), out)
+
+        mp.EdgeAggregate, mp.knn_aggregate = Dense, knn
+        self.mlp.forward = mlp_forward
+        return self
+
+    def __exit__(self, *exc):
+        self.mp.EdgeAggregate, self.mp.knn_aggregate = self.dense, self.knn
+        self.mlp.forward = self.mlp_forward
+
+    @staticmethod
+    def _chain(rec, idx):
+        """A recorded call's pre-activations, the sums of their terms'
+        magnitudes, and where a gradient reaches them, layer by layer."""
+        from mpgan_tpu_torch.ops import knn_kernels as kk
+        from mpgan_tpu_torch.ops import mp_kernels as mk
+
+        hidden, alpha, p, seed = rec["hidden"], rec["alpha"], rec["p"], rec["seed"]
+        u1 = rec["u1"]
+        if rec["kind"] == "dense":
+            zs, acts, mults = mk._chain_recompute(u1, rec["u2"], hidden, alpha, p, seed)
+            live = (rec["m"] != 0)[:, None, :, :]
+            s1 = u1.abs()[:, :, None, :] + rec["u2"].abs()[:, None, :, :]
+        else:
+            dists = kk._edge_dists(rec["xs"], rec["xf"], idx)[0] if rec["want_dists"] else None
+            zs, acts, mults, smask = kk._knn_chain(u1, rec["u2m"], idx, dists, rec["w_d"],
+                                                   hidden, alpha, p, seed)
+            live = smask != 0
+            senders = kk._gather_rows(rec["u2m"], idx)[..., :u1.shape[-1]]
+            s1 = u1.abs()[:, :, None, :] + senders.abs()
+            if dists is not None:
+                s1 = s1 + (dists[..., None] * rec["w_d"]).abs()
+        scales = [s1] + [acts[i].abs() @ w.abs() + b.abs()
+                         for i, (w, b) in enumerate(mk._pairs(hidden))]
+        lives = [live if m is None else live & (m != 0) for m in mults]
+        return zs, scales, lives
+
+    def flag(self) -> int:
+        """Leave out, from the next steps on, the receiver rows of each call that
+        hold an edge at the kink on either side's inputs; the number of rows
+        newly left out."""
+        card, cpu = self.records["card"], self.records["cpu"]
+        if len(card) != len(cpu):
+            raise SystemExit(f"the step made {len(card)} edge-layer calls on the card and "
+                             f"{len(cpu)} on the CPU")
+        new = 0
+        for c, (rc, rp) in enumerate(zip(card, cpu)):
+            if c >= len(self.left_out):
+                self.left_out.append(None)
+            if rc is None or rp is None or (rc["kind"] == "mlp" and not rc["zs"]):
+                continue
+            if rc["kind"] == "mlp":
+                if len(rc["zs"]) != len(rp["zs"]):
+                    raise SystemExit(f"MLP call {c}: {len(rc['zs'])} activations on the card, "
+                                     f"{len(rp['zs'])} on the CPU")
+                rows = torch.zeros(rc["zs"][0].shape[:-1], dtype=torch.bool)
+                for a, b in zip(rc["zs"], rp["zs"]):
+                    rows |= ((a >= 0) != (b >= 0)).any(-1)
+            else:
+                idx = rc.get("idx")
+                (za, sa, la), (zb, sb, _) = self._chain(rc, idx), self._chain(rp, idx)
+                rows = torch.zeros(za[0].shape[:2], dtype=torch.bool)
+                for a, b, s_a, s_b, live in zip(za, zb, sa, sb, la):
+                    tol = KINK_ULPS * 2.0**-24 * torch.maximum(s_a, s_b)
+                    at = ((a >= 0) != (b >= 0)) | (a.abs() <= tol) | (b.abs() <= tol)
+                    rows |= (at & live).flatten(2).any(-1)
+            old = self.left_out[c]
+            merged = rows if old is None else rows | old
+            new += int(merged.sum()) - (0 if old is None else int(old.sum()))
+            self.left_out[c] = merged
+        return new
+
+
 def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
                cpu_plain_kernels=True, loss_tol=TOL, grad_tol=TOL, knn=None):
     """Phases 8 and 13: a D+G step at the published widths on the card against the
     CPU. The kernel path runs with dropout 0.5 against the kernels' plain
-    versions on the CPU, within rtol = atol = 1e-4; with ``knn`` (the knn kernels'
+    versions on the CPU, within rtol = atol = 1e-4 (where a round misses it, the
+    next leaves out the rows at LeakyReLU's kink that it found, :class:`KinkRows`,
+    for at most KINK_ROUNDS rounds); with ``knn`` (the knn kernels'
     module) every K5 call's neighbours are held to the plain search on the same
     inputs, and every knn layer call on the CPU runs on the card's neighbours
     (:class:`CardNeighbours`). The card's plain path runs with dropout 0, within
@@ -681,34 +857,35 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
         held = CardNeighbours(knn) if knn is not None and path == "kernel" else None
         cpu_kernels = path == "kernel" or cpu_plain_kernels
 
-        def run(device, kernels, d_scale=None):
+        ltol, gtol = (TOL, TOL) if path == "kernel" else (loss_tol, grad_tol)
+        kinks = KinkRows(held) if path == "kernel" else None
+
+        def run(device, kernels):
             st = make_state(args, device)
             use_kernels(st, kernels)
-            if d_scale is not None:  # D's weights moved by an ulp
-                with torch.no_grad():
-                    for q in st.d.parameters():
-                        q.mul_(d_scale)
             parts = step_fn(st, args, data.to(device), labels.to(device))()
             grads = [p.grad for p in jax_leaves(st.d, True) + jax_leaves(st.g, True)]
             return ({k: v.item() for k, v in parts.items()}, [gr.detach().cpu() for gr in grads])
 
-        with held if held is not None else contextlib.nullcontext():
-            res["card"] = run(dev, path == "kernel")
-            card_idx = None if held is None else list(held.card)
-            res["cpu"] = run(torch.device("cpu"), cpu_kernels)
-            sensitivity = None
-            grads_ok = all(wgrad_err(a, b, TOL if path == "kernel" else grad_tol)[1]
-                           for a, b in zip(res["card"][1], res["cpu"][1]))
-            if held is not None and not grads_ok:
-                # the knn step's own FP32 sensitivity: the CPU step again with D's
-                # weights moved by one ulp either way, on the card's neighbours
-                sensitivity = [0.0] * len(res["cpu"][1])
-                for scale in (1 + 2**-23, 1 - 2**-24):
-                    held.card = list(card_idx)
-                    _, moved = run(torch.device("cpu"), cpu_kernels, scale)
-                    sensitivity = [
-                        max(s_, (m - b).abs().max().item() / max(1.0, b.abs().max().item()))
-                        for s_, m, b in zip(sensitivity, moved, res["cpu"][1])]
+        def agree(card_side, cpu_side):
+            (lc, gc), (lp, gp) = card_side, cpu_side
+            return max(abs(lc[k] - lp[k]) / max(1.0, abs(lp[k])) for k in lp) <= ltol and \
+                all(wgrad_err(a, b, gtol)[1] for a, b in zip(gc, gp))
+
+        rounds = []
+        with contextlib.ExitStack() as stack:
+            for ctx in (held, kinks):
+                if ctx is not None:
+                    stack.enter_context(ctx)
+            for _ in range(KINK_ROUNDS if kinks is not None else 1):
+                for side, device, kernels in (("card", dev, path == "kernel"),
+                                              ("cpu", torch.device("cpu"), cpu_kernels)):
+                    if kinks is not None:
+                        kinks.begin(side)
+                    res[side] = run(device, kernels)
+                rounds.append(0 if kinks is None else kinks.rows_left_out())
+                if agree(res["card"], res["cpu"]) or kinks is None or kinks.flag() == 0:
+                    break
         if held is not None:
             card_c, cpu_c = held.counts["card"], held.counts["cpu"]
             log(phase, path=path, knn_calls_held=len(held.card) == 0, rows=card_c["rows"],
@@ -723,46 +900,55 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
             if not held.card_search_ok():
                 raise SystemExit(f"{phase}: K5's neighbours in the step disagree with the plain "
                                  f"search on the same inputs: {card_c}")
-        ltol, gtol = (TOL, TOL) if path == "kernel" else (loss_tol, grad_tol)
         (lc, gc), (lp, gp) = res["card"], res["cpu"]
         loss_err = max(abs(lc[k] - lp[k]) / max(1.0, abs(lp[k])) for k in lp)
         grad_err = [wgrad_err(a, b, gtol) for a, b in zip(gc, gp)]
-        if sensitivity is not None:
-            # a LeakyReLU pre-activation within rounding of zero takes the other
-            # slope on one device (ROADMAP Queue 3, "Traps") and moves a whole edge
-            # row, which reaches every later layer's gradients: a tensor beyond 1e-4
-            # is held within twice the most an ulp of D's weights moves any of the
-            # CPU's own gradients
-            worst_move = max(sensitivity)
-            grad_err = [(e, ok or e <= 2 * worst_move * max(1.0, b.abs().max().item()))
-                        for (e, ok), b in zip(grad_err, gp)]
         log(phase, path=path, disc_dropout=dropout, batch=batch, losses_card=lc, losses_cpu=lp,
             max_rel_loss_err=loss_err, max_abs_grad_err=max(e for e, _ in grad_err),
             max_grad_err_over_bound=max(
                 (a - b).abs().max().item() / max(1.0, b.abs().max().item())
                 for a, b in zip(gc, gp)),
             loss_tol=ltol, grad_tol=gtol, tensors=len(grad_err),
-            cpu_sensitivity_to_an_ulp_of_d=None if sensitivity is None else max(sensitivity))
+            kink_rows_left_out_by_round=rounds,
+            kink_rows_by_call=None if kinks is None else kinks.rows_by_call(),
+            receiver_rows_of_the_edge_calls=None if kinks is None else sum(
+                r["u1"].shape[0] * r["u1"].shape[1] for r in kinks.records["card"]
+                if r is not None and r["kind"] != "mlp"))
         if loss_err > ltol or not all(ok for _, ok in grad_err):
             raise SystemExit(f"{phase}: D+G step on the card ({path} path) disagrees with the CPU")
         worst[path] = loss_err
     return worst
 
 
-def nonpositive_pt_jets(t, epoch) -> int:
+def positive_pt_fpd(t, epoch) -> tuple[int, float]:
     """The jets of the trainer's epoch-``epoch`` evaluation (its generator as it
-    stands, the evaluation's key and labels) whose pT sum is not positive."""
+    stands, the evaluation's key, labels and real jets, as ``Trainer.evaluate``
+    makes them): how many have a pT sum that is not positive, and the FPD of the
+    others, computed as ``Trainer._score`` computes it."""
+    from mpgan_tpu_torch.evaluation import efps, fpd
     from mpgan_tpu_torch.training import loop
     from mpgan_tpu_torch.training.sampling import generate_multi_batch
 
-    ds = t.valid_dataset
-    n = min(t.args.eval_tot_samples, len(ds))
+    args, ds = t.args, t.valid_dataset
+    n = min(args.eval_tot_samples, len(ds))
+    sel = np.sort(np.random.default_rng(args.seed).permutation(len(ds))[:n]) \
+        if args.get("eval_shuffle") else slice(None, n)
+    real, _ = loop._corrected(ds.particle_normalisation(ds.particle_data[sel], inverse=True),
+                              t.use_labels, zero_mask_particles=False, zero_neg_pt=False)
     gen = generate_multi_batch(t.state.g, t.spec, prng_key(epoch, t.device), n,
-                               t.args.batch_size, labels=ds.jet_data[:n] if t.use_labels else None,
+                               args.batch_size, labels=ds.jet_data[sel] if t.use_labels else None,
                                post_fn=t.eval_post_fn)
     jets, _ = loop._corrected(ds.particle_normalisation(gen, inverse=True), t.use_labels,
                               zero_mask_particles=t.use_labels, zero_neg_pt=False)
-    return int((jets[..., 2].sum(axis=1) <= 0).sum())
+    positive = jets[jets[..., 2].sum(axis=1) > 0]
+    gen_efps = efps(positive, select="d<=4-all", device=t.device)
+    bad = ~np.isfinite(gen_efps).all(axis=1)
+    if bad.any():
+        gen_efps[bad] = efps(positive[bad], select="d<=4-all", use_device=False)
+    m = len(positive)
+    value, _ = fpd(real, positive, real_efps=t._cached_real_efps(real), gen_efps=gen_efps,
+                   min_samples=min(5000, m // 2), max_samples=min(20000, m))
+    return n - m, float(value)
 
 
 def main_train_path(mk, train_cli, gen_cli, tmp, device="cuda"):
@@ -796,10 +982,11 @@ def main_train_path(mk, train_cli, gen_cli, tmp, device="cuda"):
     metrics = {k: t3.losses[k] for k in ("w1p", "w1m", "w1efp", "fpd", "cov_mmd")}
     # FPD is inf (fpd.py's rule for non-finite EFP moments) where the evaluated jets
     # hold a jet whose pT sum is not positive: an early generator's, whose
-    # negative pT the evaluation keeps as the reference does (train.py:744-757)
-    nonpositive = nonpositive_pt_jets(t1, 2)
-    fpd_ok = np.isfinite(np.asarray(metrics["fpd"])).all() or (
-        nonpositive > 0 and np.isposinf(np.asarray(metrics["fpd"])).all())
+    # negative pT the evaluation keeps as the reference does (train.py:744-757);
+    # the FPD of the others must be finite in any case
+    nonpositive, fpd_positive = positive_pt_fpd(t1, 2)
+    fpd_ok = np.isfinite(fpd_positive) and (
+        nonpositive > 0 or np.isfinite(np.asarray(metrics["fpd"])).all())
     finite = all(np.isfinite(v).all() for v in losses.values()) and fpd_ok and \
         all(len(v) == 1 for v in metrics.values()) and \
         all(np.isfinite(np.asarray(v)).all() for k, v in metrics.items() if k != "fpd")
@@ -807,7 +994,7 @@ def main_train_path(mk, train_cli, gen_cli, tmp, device="cuda"):
     log("main_path_train", wall_s_2_epochs=wall, eval_parts_s=eval_parts, checkpoints=files,
         resumed_from=t_resume.start_epoch, state_restored=restored,
         epochs=len(t3.losses["G"]), losses=losses, metrics=metrics,
-        eval_jets_with_nonpositive_pt_sum=nonpositive,
+        eval_jets_with_nonpositive_pt_sum=nonpositive, fpd_of_the_others=fpd_positive,
         real_efp_cache=cache.exists(), best_epoch=t3.best_epoch, launches=counts)
     if files != ["state_1.npz", "state_2.npz"] or not (models / "state_3.npz").exists():
         raise SystemExit(f"train CLI checkpoints missing: {files}")
@@ -3884,8 +4071,11 @@ def mesh_rank(p):
     """Phase 30 (b), one rank of a gloo mesh of two ranks on one card: the
     flagship D+G step at the global batch ``p["batch"]`` (this rank's half) on
     the kernel path, then the same 2-rank step on the CPU (the kernels' plain
-    versions) from the same state, shard and per-rank draws; its wall time on
-    the card; and the 2-rank sampler. Returns what the parent compares."""
+    versions) from the same state, shard and per-rank draws, in KINK_ROUNDS
+    rounds (the first as it is, each later one with the receiver rows at the
+    kink that the rounds before found on this rank left out, :class:`KinkRows`;
+    every rank takes every round, the reduces being collective); its wall time
+    on the card; and the 2-rank sampler. Returns what the parent compares."""
     from mpgan_tpu_torch.parallel.mesh import make_mesh
     from mpgan_tpu_torch.training.config import from_args_dict
     from mpgan_tpu_torch.training.sampling import generate_multi_batch
@@ -3898,23 +4088,28 @@ def mesh_rank(p):
     data, labels = real_batch(p["batch"])
     rows = mesh.rows(p["batch"])
     data, labels = data[rows], labels[rows]
-    out = {"backend": mesh.backend, "rank": mesh.rank}
-    for side, device, d_scale in (("card", dev, None), ("cpu", torch.device("cpu"), None),
-                                  ("cpu_d_up", torch.device("cpu"), 1 + 2**-23),
-                                  ("cpu_d_down", torch.device("cpu"), 1 - 2**-24)):
-        st = make_state(args, device)
-        use_kernels(st, True)  # the CPU runs the kernels' plain versions: the same masks
-        if d_scale is not None:  # D's weights moved by an ulp (the step's own sensitivity)
-            with torch.no_grad():
-                for q in st.d.parameters():
-                    q.mul_(d_scale)
-        x, lab = data.to(device), labels.to(device)
-        parts = drawn_step(st, args, x, lab, step_draws(args, x, 100 + mesh.rank), mesh)
-        params = jax_leaves(st.d, True) + jax_leaves(st.g, True)
-        out["d_tensors"] = len(jax_leaves(st.d, True))
-        out[side] = {"losses": {k: v.item() for k, v in parts.items()},
-                     "grads": [q.grad.detach().cpu() for q in params],
-                     "params": [q.detach().cpu() for q in params]}
+    out = {"backend": mesh.backend, "rank": mesh.rank, "rounds": []}
+    with KinkRows() as kinks:
+        for r in range(KINK_ROUNDS):
+            if r:
+                kinks.flag()
+            got = {"rows_left_out": kinks.rows_left_out()}
+            for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+                kinks.begin(side)
+                st = make_state(args, device)
+                use_kernels(st, True)  # the CPU runs the kernels' plain versions: the same masks
+                x, lab = data.to(device), labels.to(device)
+                parts = drawn_step(st, args, x, lab, step_draws(args, x, 100 + mesh.rank), mesh)
+                params = jax_leaves(st.d, True) + jax_leaves(st.g, True)
+                out["d_tensors"] = len(jax_leaves(st.d, True))
+                got[side] = {"losses": {k: v.item() for k, v in parts.items()},
+                             "grads": [q.grad.detach().cpu() for q in params],
+                             "params": [q.detach().cpu() for q in params]}
+            out["rounds"].append(got)
+        out["receiver_rows"] = sum(rec["u1"].shape[0] * rec["u1"].shape[1]
+                                   for rec in kinks.records["card"]
+                                   if rec is not None and rec["kind"] != "mlp")
+        out["rows_by_call"] = kinks.rows_by_call()
     # the step's wall time on the card (gloo stages its reduces through the host)
     st = make_state(args, dev)
     x, lab = data.to(dev), labels.to(dev)
@@ -3941,11 +4136,12 @@ def mesh_two_ranks(dev, from_args_dict, card):
     """Phase 30 (b): two ranks of gloo on one card (``make_mesh(devices=[cuda:0,
     cuda:0])``). The 2-rank step on the card against the 2-rank step on the CPU
     (losses and gradients within phase 8's rtol = atol = 1e-4, gradients of
-    max(1, max|ref|), or, as phase 13 holds them, within twice the most an ulp
-    of D's weights moves the CPU's own gradients; the updated parameters where
-    the gradient is clear of zero, 1e-3, within 1e-4 too, RMSprop's first step
-    being about 10 * lr * sign(g)); the parameters bit-identical across the ranks; the 2-rank
-    sampler against one rank's at rtol = atol = 1e-4, the mask column equal."""
+    max(1, max|ref|), the updated parameters where the gradient is clear of
+    zero, 1e-3, within 1e-4 too, RMSprop's first step being about 10 * lr *
+    sign(g)), at the first round of :func:`mesh_rank` that holds on every rank
+    (the kink's rows left out after the first, logged); the parameters
+    bit-identical across the ranks; the 2-rank sampler against one rank's at
+    rtol = atol = 1e-4, the mask column equal."""
     from mpgan_tpu_torch.models.registry import build_suite
     from mpgan_tpu_torch.parallel.mesh import launch
     from mpgan_tpu_torch.training.sampling import generate_multi_batch
@@ -3963,36 +4159,42 @@ def mesh_two_ranks(dev, from_args_dict, card):
     res = {"seconds": wall, "backend": [r["backend"] for r in ranks],
            "step_wall_ms": [r["step_wall_ms"] for r in ranks],
            "sampler_wall_s": [r["sampler_wall_s"] for r in ranks]}
-    bad = []
-    for r in ranks:
-        c, h = r["card"], r["cpu"]
+    def held(rnd, nd):
+        """One rank's round: the card against the CPU."""
+        c, h = rnd["card"], rnd["cpu"]
         loss_err = max(abs(c["losses"][k] - h["losses"][k]) / max(1.0, abs(h["losses"][k]))
                        for k in h["losses"])
         over = [(a - b).abs().max().item() / max(1.0, b.abs().max().item())
                 for a, b in zip(c["grads"], h["grads"])]
-        # as phase 13: a gradient beyond 1e-4 is held within twice the most an ulp of
-        # D's weights moves any of the CPU's own gradients (a LeakyReLU pre-activation
-        # within rounding of zero takes the other slope on one device)
-        moved = max((m - b).abs().max().item() / max(1.0, b.abs().max().item())
-                    for side in ("cpu_d_up", "cpu_d_down")
-                    for m, b in zip(r[side]["grads"], h["grads"]))
-        grad_ok = all(e <= TOL or e <= 2 * moved for e in over)
-        nd = r["d_tensors"]
         param_err = max(((a - b).abs() * (g.abs() > 1e-3)).max().item()
                         for a, b, g in zip(c["params"], h["params"], h["grads"]))
+        return {"losses_card": c["losses"], "losses_cpu": h["losses"],
+                "max_rel_loss_err": loss_err, "max_grad_err_over_bound_d": max(over[:nd]),
+                "max_grad_err_over_bound_g": max(over[nd:]),
+                "max_param_err_where_grad_clear": param_err,
+                "rows_left_out": rnd["rows_left_out"],
+                "tensors_beyond_tol": [i for i, e in enumerate(over) if e > TOL],
+                "ok": loss_err <= TOL and max(over) <= TOL and param_err <= TOL}
+
+    rounds = [[held(rnd, r["d_tensors"]) for rnd in r["rounds"]] for r in ranks]
+    first = next((i for i in range(KINK_ROUNDS) if all(rr[i]["ok"] for rr in rounds)), None)
+    res["round_held"] = first
+    bad = []
+    for r, rr in zip(ranks, rounds):
         sampler_abs, _, sampler_bad = errors(torch.as_tensor(r["jets"]), torch.as_tensor(single))
         mask_equal = np.array_equal(r["jets"][..., -1], single[..., -1])
         res[f"rank{r['rank']}"] = {
-            "losses_card": c["losses"], "losses_cpu": h["losses"], "max_rel_loss_err": loss_err,
-            "grads_within_tol": grad_ok, "max_param_err_where_grad_clear": param_err,
-            "max_grad_err_over_bound_d": max(over[:nd]),
-            "max_grad_err_over_bound_g": max(over[nd:]), "cpu_sensitivity_to_an_ulp_of_d": moved,
+            "rounds": [{k: v for k, v in x.items() if k not in ("losses_card", "losses_cpu")}
+                       for x in rr],
+            **{k: v for k, v in rr[0 if first is None else first].items()},
+            "receiver_rows": r["receiver_rows"], "kink_rows_by_call": r["rows_by_call"],
             "sampler_max_abs_err": sampler_abs, "sampler_out_of_tol": sampler_bad,
             "sampler_mask_column_equal": mask_equal}
-        if loss_err > TOL or not grad_ok or param_err > TOL or sampler_bad or not mask_equal:
+        if first is None or sampler_bad or not mask_equal:
             bad.append(r["rank"])
-    same = all(torch.equal(a, b) for side in ("card", "cpu")
-               for a, b in zip(ranks[0][side]["params"], ranks[1][side]["params"]))
+    same = all(torch.equal(a, b) for rnd in range(KINK_ROUNDS) for side in ("card", "cpu")
+               for a, b in zip(ranks[0]["rounds"][rnd][side]["params"],
+                               ranks[1]["rounds"][rnd][side]["params"]))
     res["params_bit_identical_across_ranks"] = same
     log("mesh_two_ranks", card=card, **res)
     if bad or not same or res["backend"] != ["gloo", "gloo"]:
@@ -4050,7 +4252,7 @@ def threefry_bound(plan) -> dict:
     ops = 0
     for r in plan.rows:
         blocks = max(1, -(-r.elements // prng.EPB))
-        per = {"randint": 2, "edge_seed": 3, "key": 0, "order": 0}.get(r.dist, 1)
+        per = {"edge_seed": 3, "key": 0, "order": 0}.get(r.dist, 1)
         ops += r.elements * per * THREEFRY_OPS + blocks * len(r.path) * THREEFRY_OPS
         if r.dist == "normal":
             ops += r.elements * ERF_INV_OPS
@@ -4155,7 +4357,8 @@ def prng_plans(mk, dev, card, from_args_dict):
 def prng_steps(mk, dev, card, from_args_dict, tmp):
     """Phase 31 (b-d): keyed steps on the card against the CPU; a captured epoch
     against the eager one, profiled; issue ms, idle share and wall ms of the
-    graph steps."""
+    graph steps. Returns the graph steps' figures and the ``threefry_draws``
+    launches of the profiled epoch."""
     from torch.profiler import ProfilerActivity, profile
 
     from mpgan_tpu_torch.data.loader import BatchLoader
@@ -4257,16 +4460,16 @@ def prng_steps(mk, dev, card, from_args_dict, tmp):
         t = None
         torch.cuda.empty_cache()
     log("prng_graph_steps", card=card, steps=steps)
-    return steps
+    return steps, draws
 
 
 def prng_phase(mk, dev, card, from_args_dict, tmp):
     """Phase 31: the steps' random stream on the card."""
     t0 = time.perf_counter()
     worst, times = prng_plans(mk, dev, card, from_args_dict)
-    steps = prng_steps(mk, dev, card, from_args_dict, tmp)
+    steps, draws = prng_steps(mk, dev, card, from_args_dict, tmp)
     log("prng", card=card, seconds=time.perf_counter() - t0)
-    return worst, times, steps
+    return worst, times, steps, draws
 
 
 def main() -> None:
@@ -4527,8 +4730,8 @@ def main() -> None:
     later.append(mesh_launches)
     # 31. the steps' random stream on the card
     with tempfile.TemporaryDirectory() as tmp:
-        prng_err, prng_times, prng_steps_ = prng_phase(mk, dev, card, from_args_dict,
-                                                       pathlib.Path(tmp))
+        prng_err, prng_times, prng_steps_, epoch_draws = prng_phase(
+            mk, dev, card, from_args_dict, pathlib.Path(tmp))
 
     def bf16_row(name, jobs):
         """The bf16 mode inside a kernel's row: its launches in phase 28, worst
@@ -4675,7 +4878,7 @@ def main() -> None:
          "replaces": "mpgan_tpu/training/train_step.py:182 (jax.random inside the jitted "
                      "step, :261; no pallas_call)",
          # phases 4-5 (the sampler, 50,000 + 2,048 jets) and phase 31's captured epoch
-         "launches": gen_draws + GRAPH_STEPS, "max_abs_err": prng_err,
+         "launches": gen_draws + epoch_draws, "max_abs_err": prng_err,
          **{k: v for k, v in prng_times["flagship"].items()},
          "shape": "the flagship D+G step's plan, B=256",
          **{f"{name}_{k}": v for name in ("knn20", "gapt", "sampler")

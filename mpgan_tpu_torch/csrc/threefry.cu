@@ -38,7 +38,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxPath = 12;
-enum Dist { KEY = 0, SPLIT, WORDS, EDGE_SEED, BITS, UNIFORM, NORMAL, RANDINT, ORDER };
+enum Dist { KEY = 0, WORDS, EDGE_SEED, UNIFORM, NORMAL, ORDER };
 // a row's fields (ops/prng.py: Plan)
 constexpr int R_DIST = 0, R_COUNT = 1, R_OFF = 2, R_LEN = 3, R_PATH = 4;
 constexpr int R_A = R_PATH + kMaxPath, R_B = R_A + 1, R_BLOCK = R_B + 1;
@@ -171,13 +171,6 @@ __global__ void __launch_bounds__(kThreads) threefry_draws_kernel(
         out[off] = static_cast<int>(k0);
         out[off + 1] = static_cast<int>(k1);
         break;
-      case SPLIT: {
-        uint32_t y0, y1;
-        threefry(k0, k1, 0u, static_cast<uint32_t>(e), y0, y1);
-        out[off + 2 * e] = static_cast<int>(y0);
-        out[off + 2 * e + 1] = static_cast<int>(y1);
-        break;
-      }
       case WORDS:
         out[off] = static_cast<int>(k0 * 0xC2B2AE3Du + k1 * 0x27D4EB2Fu);
         break;
@@ -191,9 +184,6 @@ __global__ void __launch_bounds__(kThreads) threefry_draws_kernel(
         out[off] = __float2int_rz(__uint2float_rn(v));
         break;
       }
-      case BITS:
-        out[off + e] = static_cast<int>(bits_at(k0, k1, static_cast<uint32_t>(e)));
-        break;
       case UNIFORM:
         out[off + e] = __float_as_int(uniform_of(bits_at(k0, k1, static_cast<uint32_t>(e)), fa, fb));
         break;
@@ -201,21 +191,6 @@ __global__ void __launch_bounds__(kThreads) threefry_draws_kernel(
         const float u = uniform_of(bits_at(k0, k1, static_cast<uint32_t>(e)),
                                    __int_as_float(0xBF7FFFFF), 1.0f);
         out[off + e] = __float_as_int(__fmul_rn(__fmul_rn(1.41421354f, erf_inv32(u)), fa));
-        break;
-      }
-      case RANDINT: {
-        const int lo_i = r[R_A], hi_i = r[R_B];
-        const uint32_t span = hi_i > lo_i
-            ? static_cast<uint32_t>(hi_i) - static_cast<uint32_t>(lo_i) : 1u;
-        uint32_t mult = 65536u % span;
-        mult = (mult * mult) % span;
-        uint32_t h0 = k0, h1 = k1, l0 = k0, l1 = k1;
-        child(h0, h1, 0u);
-        child(l0, l1, 1u);
-        const uint32_t hb = bits_at(h0, h1, static_cast<uint32_t>(e));
-        const uint32_t lb = bits_at(l0, l1, static_cast<uint32_t>(e));
-        const uint32_t o = ((hb % span) * mult + lb % span) % span;
-        out[off + e] = static_cast<int>(static_cast<uint32_t>(lo_i) + o);
         break;
       }
       case ORDER:

@@ -21,13 +21,15 @@ a GPU), so a module draws the JAX module's masks for the same key.
 captured in a CUDA graph draws fresh masks at every replay: ``words()`` and
 ``edge_seed()`` return one-element int32 views of one buffer, which the step's
 plan (:class:`.prng.Plan`, one row a request, :meth:`KeySlots.rows`) fills on
-the device before each run of the step.
+the device before each run of the step. :class:`KeyLog` does the same for an
+eager step: the requests of a part's last run are drawn with the part's next
+draws, in the same launch.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import torch
 
@@ -138,3 +140,42 @@ class SlotKey:
 
     def edge_seed(self) -> torch.Tensor:
         return self.slots._request("edge_seed", self.root, self.path)
+
+
+class KeyLog(KeySlots):
+    """An eager step part's key requests, drawn in the launch of the part's draws.
+
+    A part asks for the same keys at every step, so the requests of its last
+    run (:attr:`log`, renewed by :meth:`renew`) become rows of the next run's
+    plan (:meth:`rows`), and :meth:`begin` hands over their draws. A request is
+    served from those draws while the run repeats the log request for request;
+    from the first that does not, each is drawn alone by a :class:`Keys` of the
+    source, as :class:`Keys` draws it, so the values do not depend on the log."""
+
+    def __init__(self):
+        super().__init__()
+        self._seen: list[Request] | None = None
+        self._values: Sequence[torch.Tensor] = ()
+        self._matching = False
+
+    def renew(self) -> None:
+        """Take the last run's requests as the log (before the next run's rows)."""
+        if self._seen is not None:
+            self.log, self._seen = self._seen, None
+
+    def begin(self, source: Mapping[str, Keys], values: Sequence[torch.Tensor]) -> None:
+        """Serve a new run: ``values`` are the draws of :meth:`rows`, in order."""
+        self._source, self._values = source, values
+        self._seen, self._matching = [], True
+
+    def _request(self, kind: str, root: str, path: tuple) -> torch.Tensor:
+        if self._seen is None:
+            raise RuntimeError("key log: a request before begin()")
+        i = len(self._seen)
+        self._seen.append((kind, root, path))
+        self._matching = self._matching and i < len(self.log) and self.log[i] == (kind, root,
+                                                                                   path)
+        if self._matching:
+            return self._values[i]
+        key = Keys(self._source[root].root, self._source[root].path + path)
+        return key.words() if kind == "words" else key.edge_seed()

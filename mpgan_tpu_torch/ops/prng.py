@@ -28,7 +28,9 @@ Written from ``jax/_src/prng.py`` and ``jax/_src/random.py``:
   ``random.py`` does (32-bit products that wrap).
 
 The draws a caller needs are written as a plan: rows (:class:`Row`) that name a
-key below a root key by its path of children, a distribution and a shape. A
+key below a root key by its path of children, a distribution (the ones the
+step and the sampler draw: the key itself, dropout key words, edge seeds,
+uniforms, normals and the batch's order row) and a shape. A
 :class:`Plan` is evaluated by :func:`threefry_draws`: the plain version below for
 tensors on the CPU, the kernel ``csrc/threefry.cu`` for tensors on a CUDA
 device (one launch for every row of the plan), anything else raises. A plan
@@ -63,7 +65,7 @@ NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 EPB = 1024  # elements a CUDA block draws (256 threads, 4 each)
 WIDTH = 24  # int32 words a plan row takes
 MAX_PATH = 12
-DISTS = ("key", "split", "words", "edge_seed", "bits", "uniform", "normal", "randint", "order")
+DISTS = ("key", "words", "edge_seed", "uniform", "normal", "order")
 
 launch_counts = {"threefry_draws": 0}  # kernel launches (CountedGraph accounts replays)
 
@@ -240,11 +242,9 @@ class Row:
     ``dist`` and the output's ``shape``:
 
     - ``key``: the key itself, shape ``(2,)``;
-    - ``split``: its first ``n`` children, ``(n, 2)``;
     - ``words``: ``linear.hash_seed`` of its two words, ``(1,)`` (a dropout key slot);
     - ``edge_seed``: :func:`edge_seed_of`, ``(1,)``;
-    - ``bits``, ``uniform`` on ``[a, b)``, ``normal`` times ``a``, ``randint`` on
-      ``[a, b)``: any shape;
+    - ``uniform`` on ``[a, b)``, ``normal`` times ``a``: any shape;
     - ``order``: ``order[counter]``, the batch's row of the plan's order, ``(B,)``.
     """
 
@@ -256,15 +256,11 @@ class Row:
 
     @property
     def elements(self) -> int:
-        if self.dist == "key":
-            return 1
-        if self.dist == "split":
-            return self.shape[0]
-        return math.prod(self.shape)
+        return 1 if self.dist == "key" else math.prod(self.shape)
 
     @property
     def words(self) -> int:
-        return 2 * self.elements if self.dist in ("key", "split") else self.elements
+        return 2 if self.dist == "key" else self.elements
 
 
 def _f32_bits(v: float) -> int:
@@ -275,7 +271,7 @@ class Plan:
     """Rows laid out one after another in an int32 output buffer of
     :attr:`words` words, and the int32 ``[rows, WIDTH]`` table the kernel reads
     (on ``device``): dist, elements, offset, path length, path, ``a``, ``b``
-    (float bits, or ints for ``randint``), and the row's first CUDA block."""
+    (float bits) and the row's first CUDA block."""
 
     def __init__(self, rows: Sequence[Row], device: torch.device | str = "cpu"):
         if not rows:
@@ -291,9 +287,9 @@ class Plan:
                 raise ValueError(f"path {r.path}: children in [0, 2**31), or COUNTER")
             if r.dist == "normal" and not r.a:
                 raise ValueError("a normal row's scale (a) is 0")
-            ab = [int(r.a), int(r.b)] if r.dist == "randint" else [_f32_bits(r.a), _f32_bits(r.b)]
             row = [DISTS.index(r.dist), r.elements, off, len(r.path)]
-            row += list(r.path) + [0] * (MAX_PATH - len(r.path)) + ab + [block]
+            row += list(r.path) + [0] * (MAX_PATH - len(r.path))
+            row += [_f32_bits(r.a), _f32_bits(r.b), block]
             table.append(row + [0] * (WIDTH - len(row)))
             self.offsets.append(off)
             off += r.words
@@ -309,7 +305,7 @@ class Plan:
         res = []
         for r, off in zip(self.rows, self.offsets):
             v = out[off:off + r.words]
-            if r.dist in ("key", "split"):
+            if r.dist == "key":
                 v = v.view(torch.uint32).view(r.shape)
             elif r.dist in ("uniform", "normal"):
                 v = v.view(torch.float32).view(r.shape)
@@ -405,24 +401,16 @@ def threefry_draws_reference(key: torch.Tensor, plan: Plan, out: torch.Tensor,
         n = r.elements
         if r.dist == "key":
             val = torch.tensor(k, dtype=torch.int64)
-        elif r.dist == "split":
-            y0, y1 = threefry2x32(k[0], k[1], torch.zeros(n, dtype=torch.int64, device=dev),
-                                  torch.arange(n, dtype=torch.int64, device=dev))
-            val = torch.stack([y0, y1], dim=1)
         elif r.dist == "words":
             val = torch.tensor([hash_seed(k)], dtype=torch.int64)
         elif r.dist == "edge_seed":
             val = torch.tensor([edge_seed_of(k)], dtype=torch.int64)
-        elif r.dist == "bits":
-            val = _bits(k, n, dev)
         elif r.dist == "uniform":
             val = _uniform(_bits(k, n, dev), r.a, r.b)
         elif r.dist == "normal":
             u = _uniform(_bits(k, n, dev), NORMAL_LO, 1.0)
             val = torch.tensor(SQRT2, dtype=torch.float32) * erf_inv(u) * \
                 torch.tensor(r.a, dtype=torch.float32)
-        elif r.dist == "randint":
-            val = _randint(k, n, int(r.a), int(r.b), dev)
         else:  # order
             val = order.reshape(-1, n)[c].to(dev, torch.int64)
         seg = out[off:off + r.words]
@@ -442,21 +430,27 @@ def threefry_draws_reference(key: torch.Tensor, plan: Plan, out: torch.Tensor,
 # ---------------------------------------------------------------------------
 # jax.random's functions on keys
 # ---------------------------------------------------------------------------
+#
+# Keys, bits and ints are computed on the host (no path of the port draws them
+# on the device); uniforms and normals are one-row plans, drawn on the key's
+# device.
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)``: uint32 ``[num, 2]``."""
-    return draw(key, [Row("split", (num, 2))])[0]
+    k = key_words(key)
+    return torch.stack([key_of(*_child(k, i)) for i in range(num)]).to(key.device)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for ``0 <= data < 2**31``."""
-    return draw(key, [Row("key", (2,), (int(data),))])[0]
+    return key_of(*_child(key_words(key), int(data)), key.device)
 
 
 def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32) as int32 bits."""
-    return draw(key, [Row("bits", tuple(shape))])[0]
+    bits = _bits(key_words(key), math.prod(shape))
+    return _i32(bits).reshape(tuple(shape)).to(key.device)
 
 
 def uniform(key: torch.Tensor, shape: tuple, minval: float = 0.0,
@@ -471,4 +465,5 @@ def normal(key: torch.Tensor, shape: tuple, scale: float = 1.0) -> torch.Tensor:
 
 def randint(key: torch.Tensor, shape: tuple, minval: int, maxval: int) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` with int32 bounds, int32."""
-    return draw(key, [Row("randint", tuple(shape), (), minval, maxval)])[0]
+    ints = _randint(key_words(key), math.prod(shape), int(minval), int(maxval))
+    return ints.reshape(tuple(shape)).to(key.device)

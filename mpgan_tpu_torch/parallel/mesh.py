@@ -21,9 +21,9 @@ double backward), the G step switches D's ``requires_grad`` off, and JAX
   inside a world that is already set up (``torchrun``: ``WORLD_SIZE`` and
   ``RANK`` in the environment), else in ``M`` spawned processes that meet at a
   ``file://`` rendezvous in a temporary directory;
-- :func:`fold_in` gives a rank its own key from the replicated one, JAX's
-  ``fold_in(key, rank)``, and :func:`local_path` the same as a step of a
-  plan's path (the JAX step's ``_localize``).
+- :func:`local_path` gives a rank its own keys from the replicated one, JAX's
+  ``fold_in(key, rank)`` on each of a step's split keys, as a step of a plan's
+  path (the JAX step's ``_localize``).
 
 Not ported: ``jit_step`` (the GSPMD step, which the JAX package's tests alone
 use) and ``shard_batch_spec``/``replicated_spec`` (sharding objects of JAX;
@@ -45,7 +45,6 @@ from typing import Any, Callable, Sequence
 import torch
 import torch.distributed as dist
 
-from ..ops import prng
 
 # a spawned rank's rendezvous, rank and world size (set by :func:`launch`'s worker)
 _INIT_METHOD: str | None = None
@@ -257,15 +256,10 @@ def broadcast_modules(modules: Sequence[torch.nn.Module], mesh: Mesh) -> None:
             mesh.broadcast_(t.data)
 
 
-def fold_in(key: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This rank's key from the replicated ``key``: ``jax.random.fold_in(key,
-    rank)``. A mesh of one draws otherwise than no mesh, as in JAX."""
-    return prng.fold_in(key, mesh.rank)
-
-
 def local_path(mesh: Mesh | None) -> tuple:
     """What a step's split key is folded with on this rank, as a path of children:
-    ``(rank,)`` on a mesh (``fold_in(k, rank)`` is child ``rank`` of ``k``), else ``()``."""
+    ``(rank,)`` on a mesh (``fold_in(k, rank)`` is child ``rank`` of ``k``), else ``()``.
+    A mesh of one draws otherwise than no mesh, as in JAX."""
     return () if mesh is None else (mesh.rank,)
 
 

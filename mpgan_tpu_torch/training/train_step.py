@@ -35,8 +35,9 @@ and GP passes' dropout keys, the GP weight, the targets, the augmentation of
 the real and of the fake batch), the G step 5 ways (the next key; the noise,
 G's and D's dropout keys, the augmentation). A step's draws are one plan
 (:func:`part_draws`) drawn on the device by one ``threefry_draws`` launch,
-which writes the next key over the state's; the dropout keys are
-:class:`..ops.keys.Keys` below the step's key. A test can pass the draws
+which writes the next key over the state's; the dropout keys are keys below
+the step's key (:class:`..ops.keys.Keys`), drawn in the same launch from a
+part's second step on (:class:`..ops.keys.KeyLog`). A test can pass the draws
 instead (``DDraws``/``GDraws``).
 
 :class:`StaticStep` takes the same steps on static buffers, so that a CUDA
@@ -90,7 +91,7 @@ import torch
 
 from ..ops import prng
 from ..ops.augment import AugmentConfig, AugmentDraws, augment, augment_from, augment_rows
-from ..ops.keys import Keys, KeySlots
+from ..ops.keys import KeyLog, Keys, KeySlots
 from ..ops.mp_kernels import CountedGraph, graph_pool, warm_up
 from ..parallel.mesh import Mesh, local_path, pmean_
 from .losses import alpha_shape, d_loss, g_loss, gradient_penalty, target_rows, targets_from
@@ -106,6 +107,8 @@ class TrainState:
     g_opt: torch.optim.Optimizer
     d_opt: torch.optim.Optimizer
     rng: torch.Tensor  # the threefry key (uint32 [2]); every draw of the steps
+    # the eager parts' dropout key requests, drawn with their draws (KeyLog)
+    key_logs: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,29 +238,39 @@ def _state_key(state: TrainState, device) -> torch.Tensor:
     return state.rng
 
 
-def draw_part(state: TrainState, pd: PartDraws, device,
+def draw_part(state: TrainState, pd: PartDraws, device, part: str = "",
               serve: Callable[[dict], dict] | None = None):
     """A step part's draws from the state's key in one launch, which writes the
-    next key over it; the dropout keys are :class:`Keys` below the old key, or
-    what ``serve`` makes of them (a static step's recorded slots)."""
+    next key over it. The dropout keys are :class:`Keys` below the old key, or
+    what ``serve`` makes of them (a static step's recorded slots); with
+    ``part`` (an eager step's "d" or "g") they are served from the same launch,
+    which also draws the requests of the part's last run
+    (:class:`..ops.keys.KeyLog`, kept in ``state.key_logs``)."""
     key = _state_key(state, device)
     root = key.clone()
-    views = prng.draw(key, pd.rows, advance=1)
     keys = {f: Keys(root, p) for f, p in pd.keys.items()}
-    return pd.make(views, keys if serve is None else serve(keys))
+    logs = getattr(state, "key_logs", None)
+    if serve is not None or not part or logs is None:
+        views = prng.draw(key, pd.rows, advance=1)
+        return pd.make(views, keys if serve is None else serve(keys))
+    log = logs.setdefault(part, KeyLog())
+    log.renew()
+    views = prng.draw(key, pd.rows + log.rows(pd.keys), advance=1)
+    log.begin(keys, views[len(pd.rows):])
+    return pd.make(views[:len(pd.rows)], {f: log.root(f) for f in pd.keys})
 
 
 def draw_d(state: TrainState, cfg: StepConfig, spec: NoiseSpec, data: torch.Tensor,
            mesh: Mesh | None = None) -> DDraws:
     """A D step's draws for the (encoded) real batch ``data``; advances the key."""
     pd = part_draws("d", cfg, spec, data.shape[0], tuple(data.shape), mesh=mesh)
-    return draw_part(state, pd, data.device)
+    return draw_part(state, pd, data.device, "d")
 
 
 def draw_g(state: TrainState, cfg: StepConfig, spec: NoiseSpec, batch_size: int,
            device, mesh: Mesh | None = None) -> GDraws:
     """A G step's draws; advances the key."""
-    return draw_part(state, part_draws("g", cfg, spec, batch_size, mesh=mesh), device)
+    return draw_part(state, part_draws("g", cfg, spec, batch_size, mesh=mesh), device, "g")
 
 
 def reduce_step(mesh: Mesh | None, model: torch.nn.Module, losses: Sequence[torch.Tensor],
@@ -489,7 +502,7 @@ class StaticStep:
                 def serve(keys):  # the slots log the keys' requests
                     sources.update(keys)
                     return {f: self.slots[i].root(f) for f in keys}
-                return draw_part(self.state, self._part(i, ()), self.device, serve)
+                return draw_part(self.state, self._part(i, ()), self.device, serve=serve)
 
             with self.slots[i].recording(sources):
                 self._run(part, data, labels, made if part == "d" else made(None))

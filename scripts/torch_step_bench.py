@@ -30,6 +30,12 @@ step, idle share, kernels a step); then GAPT generation through
 ``--reps``). A checkpoint whose sampler takes a key gets ``PRNGKey(1)``, an
 older one a device ``torch.Generator`` seeded 1.
 
+``--eager`` times the same four steps on the eager loop (``--no-epoch-scan``,
+a step's draws and its dropout keys drawn as the loop draws them): wall ms a
+step (the best of ``--reps`` epochs of ``chip_smoke.GRAPH_STEPS`` batches after
+a first epoch), issue ms and a ``torch.profiler`` epoch, as ``--graphs`` reads
+them.
+
 ``--root`` names the checkout whose ``chip_smoke.py`` and ``mpgan_tpu_torch``
 are used (default: the one that holds this script), and ``--label`` goes into
 every line, so that two checkouts run in turns on one card can be told apart.
@@ -58,6 +64,8 @@ def main(argv=None):
                     help="the bf16 graph steps to time, comma-separated")
     ap.add_argument("--graphs", action="store_true",
                     help="time the float32 and bf16 graph steps and GAPT generation")
+    ap.add_argument("--eager", action="store_true",
+                    help="time the float32 and bf16 eager steps (--no-epoch-scan)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_step_bench: no CUDA device available")
@@ -69,7 +77,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = cs.card_line()
-    if args.graphs:
+    if args.graphs or args.eager:
         return graph_steps(cs, from_args_dict, dev, card, args)
     if args.bf16:
         return bf16_graph_steps(cs, from_args_dict, dev, card, args)
@@ -119,6 +127,7 @@ def bf16_graph_steps(cs, from_args_dict, dev, card, args):
 
 
 def graph_steps(cs, from_args_dict, dev, card, args):
+    """The graph steps and GAPT generation, or with ``args.eager`` the eager steps."""
     from mpgan_tpu_torch.data.loader import BatchLoader
     from mpgan_tpu_torch.models.registry import build_suite
     from mpgan_tpu_torch.training.sampling import generate_multi_batch
@@ -131,18 +140,21 @@ def graph_steps(cs, from_args_dict, dev, card, args):
         margs.batch_size = batch
         data, labels = cs.graph_data(margs, cs.GRAPH_STEPS * batch)
         with tempfile.TemporaryDirectory() as tmp:
-            t = cs.graph_trainer(margs, dev, pathlib.Path(tmp), name, True)
+            t = cs.graph_trainer(margs, dev, pathlib.Path(tmp), name, not args.eager)
             loader = BatchLoader(data, labels if t.use_labels else None, batch_size=batch,
                                  shuffle=True, seed=margs.seed)
             t.train_epoch(1, loader)  # records, warms up, captures
             wall = [cs.timed_epoch(t, 2 + i, loader) for i in range(args.reps)]
             issue = cs.issue_epoch(t, 2 + args.reps, loader)
             prof = cs.epoch_profile(t, 3 + args.reps, loader)
-        print(json.dumps({"label": args.label, "card": card, "graph_step": name, "batch": batch,
+        print(json.dumps({"label": args.label, "card": card,
+                          "eager_step" if args.eager else "graph_step": name, "batch": batch,
                           "wall_ms_best": min(wall), "wall_ms_all": wall, "issue_ms": issue,
                           "profile": prof}), flush=True)
         del t
         torch.cuda.empty_cache()
+    if args.eager:
+        return
     margs = from_args_dict(cs.GAPT)
     g = build_suite(margs).generator(torch.Generator().manual_seed(30), device=dev)
     spec = build_suite(margs).noise

@@ -194,23 +194,22 @@ def test_key_slots_serve_only_the_recorded_requests():
 # ---------------------------------------------------------------------------
 
 
-class LoggedKeys(Keys):
-    """``Keys`` that log what they draw, as the slots hold it."""
+class LoggedKeys:
+    """A step's keys object that logs what it draws, as the slots hold it."""
 
     def __init__(self, keys, out):
-        super().__init__(keys.root, keys.path)
-        self.out = out
+        self.keys, self.out = keys, out
 
     def split(self, num):
-        return [LoggedKeys(k, self.out) for k in super().split(num)]
+        return [LoggedKeys(k, self.out) for k in self.keys.split(num)]
 
     def words(self):
-        w = super().words()
+        w = self.keys.words()
         self.out.append(int(w))
         return w
 
     def edge_seed(self):
-        s = super().edge_seed()
+        s = self.keys.edge_seed()
         self.out.append(int(s))
         return s
 

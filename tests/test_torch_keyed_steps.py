@@ -187,6 +187,51 @@ def test_static_steps_equal_eager_steps_bit_for_bit(pair):
     assert int(graphs.counter) == 3
 
 
+def test_eager_steps_draw_their_dropout_keys_in_one_launch_a_part(pair, monkeypatch):
+    """From its second step on, an eager part draws its dropout keys in the
+    launch of its draws (the last run's requests, ``ops/keys.KeyLog``): one
+    ``threefry_draws`` a part; the first step draws each key alone."""
+    _, p = pair
+    st = p.port_state()
+    launches = []
+    plain = prng.threefry_draws
+    monkeypatch.setattr(prng, "threefry_draws",
+                        lambda *a, **k: (launches.append(1), plain(*a, **k))[1])
+    per_step = []
+    for i in range(3):
+        before = len(launches)
+        _port_eager_step(p, st, i)
+        per_step.append(len(launches) - before)
+    requests = sum(len(log.log) for log in st.key_logs.values())
+    assert per_step == [2 + requests, 2, 2]
+
+
+def test_key_log_serves_the_log_and_draws_what_it_lacks():
+    """A run that leaves the log is served by keys drawn alone, with the same
+    values; its requests become the next log."""
+    from mpgan_tpu_torch.ops.keys import KeyLog, Keys
+
+    root = prng.PRNGKey(8)
+    src = {"a": Keys(root, (2,)), "b": Keys(root, (3, 1))}
+    log = KeyLog()
+    want = lambda r, path, kind: getattr(Keys(root, src[r].path + path), kind)()  # noqa: E731
+    runs = [[("words", "a", (0,)), ("edge_seed", "b", ())],
+            [("words", "a", (0,)), ("edge_seed", "b", ())],
+            [("words", "a", (0,)), ("words", "b", (1,)), ("edge_seed", "a", ())]]
+    for run in runs:
+        log.renew()
+        rows = log.rows({"a": (2,), "b": (3, 1)})
+        values = prng.draw(root, rows) if rows else []
+        log.begin(src, values)
+        for kind, r, path in run:
+            key = log.root(r)
+            for i in path:
+                key = key.split(i + 1)[i]
+            assert torch.equal(getattr(key, kind)(), want(r, path, kind))
+    log.renew()
+    assert log.log == runs[-1]
+
+
 def test_step_kinds_interleave():
     assert tts.step_kinds(3) == [(0, "dg"), (1, "dg"), (2, "dg")]
     assert tts.step_kinds(3, num_critic=2) == [(0, "d"), (1, "d"), (1, "g"), (2, "d")]

@@ -42,6 +42,7 @@ from mpgan_tpu.training import train_step as jts
 from mpgan_tpu_torch.data.jetnet import JetNetDataset
 from mpgan_tpu_torch.models import registry as tregistry
 from mpgan_tpu_torch.ops import prng
+from mpgan_tpu_torch.ops.keys import Keys
 from mpgan_tpu_torch.parallel import mesh as tmesh
 from mpgan_tpu_torch.training import config as tconfig
 from mpgan_tpu_torch.training import sampling as tsampling
@@ -254,7 +255,7 @@ def test_mesh_step_draws_one_word_a_part_and_folds_in_the_rank(one):
     for r in range(3):
         rank = dataclasses.replace(one, rank=r)
         assert tmesh.local_path(rank) == (r,)
-        np.testing.assert_array_equal(tmesh.fold_in(tkey, rank).numpy(),
+        np.testing.assert_array_equal(Keys(tkey, tmesh.local_path(rank)).key().numpy(),
                                       np.asarray(jax.random.fold_in(key, r)))
     spec = tsampling.NoiseSpec((3, 2))
     draws = []

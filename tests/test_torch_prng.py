@@ -179,7 +179,7 @@ def test_plan_rows_counter_order_advance_and_bump():
     rows = [prng.Row("order", (4,)), prng.Row("key", (2,), (prng.COUNTER, 1)),
             prng.Row("uniform", (5, 2), (3,), 0.7, 1.2), prng.Row("normal", (6,), (1, 0), 0.2),
             prng.Row("words", (1,), (4, 1)), prng.Row("edge_seed", (1,), (2,)),
-            prng.Row("split", (3, 2), ()), prng.Row("randint", (4,), (6,), 0, 2**30)]
+            prng.Row("key", (2,), (5,)), prng.Row("uniform", (4,), (6,), -3.0, 2.0)]
     plan = prng.Plan(rows)
     key = root.clone()
     views = plan.views(plan.run(key, counter=counter, order=order, advance=2, bump=True))
@@ -191,8 +191,8 @@ def test_plan_rows_counter_order_advance_and_bump():
         assert torch.equal(v, a)
     k = Keys(root, (4, 1))
     assert int(views[4]) == int(k.words()) and int(views[5]) == int(Keys(root, (2,)).edge_seed())
-    assert torch.equal(views[6], prng.split(root, 3))
-    assert torch.equal(views[7], prng.randint(prng.fold_in(root, 6), (4,), 0, 2**30))
+    assert torch.equal(views[6], prng.split(root, 6)[5])
+    assert torch.equal(views[7], prng.uniform(prng.fold_in(root, 6), (4,), -3.0, 2.0))
     assert views[2].dtype == torch.float32 and views[6].dtype == torch.uint32
     # the next key: child 0 of child 0 of the root; the counter advanced
     np.testing.assert_array_equal(key.numpy(), prng.fold_in(prng.fold_in(root, 0), 0).numpy())
@@ -201,19 +201,20 @@ def test_plan_rows_counter_order_advance_and_bump():
 
 def test_plan_refuses_what_the_kernel_does_not_take():
     key = prng.PRNGKey(0)
-    with pytest.raises(ValueError, match="unknown distribution"):
-        prng.Plan([prng.Row("gamma")])
+    for dist in ("gamma", "split", "bits", "randint"):  # keys, bits and ints: the host's
+        with pytest.raises(ValueError, match="unknown distribution"):
+            prng.Plan([prng.Row(dist)])
     with pytest.raises(ValueError, match="path"):
-        prng.Plan([prng.Row("bits", (2,), (0,) * (prng.MAX_PATH + 1))])
+        prng.Plan([prng.Row("uniform", (2,), (0,) * (prng.MAX_PATH + 1))])
     with pytest.raises(ValueError, match="scale"):
         prng.Plan([prng.Row("normal", (2,))])
     with pytest.raises(ValueError, match="counter"):
-        prng.Plan([prng.Row("bits", (2,), (prng.COUNTER,))]).run(key)
+        prng.Plan([prng.Row("uniform", (2,), (prng.COUNTER,))]).run(key)
     with pytest.raises(ValueError, match="order"):
         prng.Plan([prng.Row("order", (4,))]).run(key, counter=torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="uint32"):
-        prng.Plan([prng.Row("bits", (2,))]).run(torch.zeros(2, dtype=torch.int64))
-    plan = prng.Plan([prng.Row("bits", (2,))], "meta")
+        prng.Plan([prng.Row("uniform", (2,))]).run(torch.zeros(2, dtype=torch.int64))
+    plan = prng.Plan([prng.Row("uniform", (2,))], "meta")
     with pytest.raises(ValueError, match="meta"):
         prng.threefry_draws(torch.zeros(2, dtype=torch.uint32, device="meta"), plan,
                             torch.empty(2, dtype=torch.int32, device="meta"))
