@@ -562,16 +562,18 @@ def prng_key(seed, device):
 
 
 def make_state(args, device, seed=0):
-    """A TrainState of the args' model: weights drawn from a seeded CPU generator,
-    then moved; the steps' key ``PRNGKey(seed)`` on the device."""
+    """A TrainState of the args' model: G and D drawn on ``device`` from the
+    children 0 and 1 of ``PRNGKey(seed)`` (the same bits on the card and the
+    CPU, phase 32); the steps' key ``PRNGKey(seed)`` on the device."""
     from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.ops import prng
     from mpgan_tpu_torch.training.optimizers import build_optimizer
     from mpgan_tpu_torch.training.train_step import TrainState
 
     suite = build_suite(args)
-    gen = torch.Generator().manual_seed(seed)
-    g = suite.generator(gen, device=device)
-    d = suite.discriminator(gen, device=device)
+    kg, kd = prng.split(prng.PRNGKey(seed))
+    g = suite.generator(kg, device=device)
+    d = suite.discriminator(kd, device=device)
     return TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), args.lr_gen),
                       build_optimizer(args.optimizer, d.parameters(), args.lr_disc),
                       prng_key(seed, device))
@@ -1291,8 +1293,8 @@ def knn_generation(mk, gen_cli, dev, card):
 
     args = from_args_dict(KNN150)
     cfg = build_mpgan_generator(args)
-    g_cpu = MPGenerator(cfg, torch.Generator().manual_seed(3))
-    g = MPGenerator(cfg, torch.Generator().manual_seed(3), device=dev)
+    g_cpu = MPGenerator(cfg, prng_key(3, "cpu"))
+    g = MPGenerator(cfg, prng_key(3, "cpu"), device=dev)
     spec = noise_spec("mpgan", {"latent_node_size": 32}, 150, args.sd)
     ds = JetNetDataset("g", num_particles=150, split="valid")
     lab = ds.jet_data[np.random.default_rng(0).choice(len(ds), size=2048)]
@@ -1327,27 +1329,47 @@ def knn_generation(mk, gen_cli, dev, card):
     if launches["knn_fused_layer"] != 2 * 4 * 2:  # 2 layers, 4 batches, both entry points
         raise SystemExit(f"knn generation launched K5 {launches['knn_fused_layer']} times, not 16")
 
-    # 8 jets against the same path through the plain versions (CPU); the sampler's batch
-    # against the plain path
+    # 8 jets against the same path through the plain versions (CPU), whose knn calls
+    # run on the card's neighbours (CardNeighbours, as phase 13: the two devices round
+    # the second layer's inputs otherwise and may break a near-tie otherwise; the
+    # card's search is held to the plain search on its own inputs); the sampler's
+    # batch against the plain path
+    from mpgan_tpu_torch.ops import knn_kernels as kk
+
     noise = torch.randn(512, 150, 32, generator=torch.Generator(device=dev).manual_seed(2),
                         device=dev) * 0.2
     labels = torch.as_tensor(lab[:512], device=dev)
     kernel_cfg, plain_cfg = cfg, dataclasses.replace(cfg, use_kernels=False)
     g_cpu.cfg = dataclasses.replace(cfg, use_kernels=True)
+    held = CardNeighbours(kk)
     with torch.inference_mode():
         y_k = g(noise, labels)
-        y_ref = g_cpu(noise[:8].cpu(), labels[:8].cpu()).to(dev)
+        y_own = g_cpu(noise[:8].cpu(), labels[:8].cpu()).to(dev)  # the CPU's own search
+        with held:
+            y_k8 = g(noise[:8], labels[:8])
+            y_ref = g_cpu(noise[:8].cpu(), labels[:8].cpu()).to(dev)
         g.cfg = plain_cfg
         y_p = g(noise, labels)
         g.cfg = kernel_cfg
-    abs_err, rel_err, bad = errors(y_k[:8], y_ref)
+    abs_err, rel_err, bad = errors(y_k8, y_ref)
+    own_err, _, own_bad = errors(y_k[:8], y_own)
     p_err, _, p_bad = errors(y_k, y_p)
     share = p_bad / y_p.numel()
+    card_c, cpu_c = held.counts["card"], held.counts["cpu"]
     log("knn_generator_check", n=150, jets_vs_plain_versions=8,
         max_abs_err_vs_plain_versions=abs_err, out_of_tol_vs_plain_versions=bad,
+        card_8_jets_bit_identical_to_its_512=torch.equal(y_k8, y_k[:8]),
+        rows=card_c["rows"], card_search_vs_plain_on_its_inputs_rows_differing=card_c[
+            "differing"], of_them_beyond_a_bucket_step=card_c["far"],
+        cpu_search_on_cpu_inputs_rows_differing=cpu_c["differing"],
+        max_abs_err_vs_plain_versions_own_search=own_err,
+        out_of_tol_vs_plain_versions_own_search=own_bad,
         jets_vs_plain_path=512, max_abs_err_vs_plain_path=p_err,
         share_beyond_tol_vs_plain_path=share, max_share=MAX_PLAIN_PATH_SHARE)
-    if bad or not torch.equal(y_k[:8, :, -1], y_ref[..., -1]):
+    if held.card or not held.card_search_ok():
+        raise SystemExit(f"150p knn generator: K5's neighbours disagree with the plain search "
+                         f"on the same inputs ({card_c}, {len(held.card)} calls unmatched)")
+    if bad or not torch.equal(y_k8[..., -1], y_ref[..., -1]):
         raise SystemExit("150p knn generator: kernel path disagrees with its plain versions")
     if share > MAX_PLAIN_PATH_SHARE or not torch.equal(y_k[..., -1], y_p[..., -1]):
         raise SystemExit("150p knn generator: kernel path too far from the plain path")
@@ -1521,7 +1543,7 @@ def gapt_kernel_checks(gk, dev, from_args_dict):
     for n, b, masked in ((30, 1024, True), (30, 1024, False), (30, 37, True), (30, 1023, False),
                          (30, 4096, True), (150, 128, True), (150, 512, True)):
         g = build_suite(from_args_dict({**GAPT, "num_hits": n})).generator(
-            torch.Generator().manual_seed(n), device=dev)
+            prng_key(n, "cpu"), device=dev)
         x, mask = gapt_kernel_inputs(dev, g, b, masked, seed=b)
         w = g.fused_weights()
         plan = gk.gapt_plan(b, n, g.cfg.embed_dim, g.cfg.num_heads,
@@ -1557,7 +1579,7 @@ def gapt_generation(mk, gen_cli, dev, card, from_args_dict):
 
     args = from_args_dict(GAPT)
     suite = build_suite(args)
-    g_cpu = suite.generator(torch.Generator().manual_seed(5))
+    g_cpu = suite.generator(prng_key(5, "cpu"))
     batch, total = 4096, 50000
     mk.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1587,7 +1609,7 @@ def gapt_generation(mk, gen_cli, dev, card, from_args_dict):
                          f"{batches} batches (all launches: {launches})")
 
     # generate_multi_batch at B=1024 on both routes, from the same noise
-    g = suite.generator(torch.Generator().manual_seed(5), device=dev)
+    g = suite.generator(prng_key(5, "cpu"), device=dev)
     lab = labels[:8192]
     outs = {}
     for route, flag in (("kernel", None), ("plain", False)):
@@ -1670,7 +1692,7 @@ def gapt_timings(gk, dev, from_args_dict, card):
 
     args = from_args_dict(GAPT)
     suite = build_suite(args)
-    g = suite.generator(torch.Generator().manual_seed(5), device=dev)
+    g = suite.generator(prng_key(5, "cpu"), device=dev)
     cfg = g.cfg
     rates = {}
     for b in (1024, 4096):
@@ -1716,7 +1738,7 @@ def gapt_timings(gk, dev, from_args_dict, card):
         times[b]["sdpa_attention_stage_ms_per_layer"] = best_ms(
             lambda: F.scaled_dot_product_attention(q, k, v))
     g150 = build_suite(from_args_dict({**GAPT, "num_hits": 150})).generator(
-        torch.Generator().manual_seed(6), device=dev)
+        prng_key(6, "cpu"), device=dev)
     x, mask = gapt_kernel_inputs(dev, g150, 512, True, seed=3)
     w150 = g150.fused_weights()
     with torch.no_grad():
@@ -1856,7 +1878,7 @@ def knn_split_route(kk, mk, dev, from_args_dict, card):
 
     args = from_args_dict(KNN150)
     suite = build_suite(args)
-    g = suite.generator(torch.Generator().manual_seed(3), device=dev)
+    g = suite.generator(prng_key(3, "cpu"), device=dev)
     ds = JetNetDataset("g", num_particles=150, split="valid")
     lab = ds.jet_data[np.random.default_rng(0).choice(len(ds), size=1024)]
     data, labels = (t.to(dev) for t in real_batch(128, 150))
@@ -2009,6 +2031,25 @@ def timed_parts(module, names, times, calls):
             setattr(module, name, fn)
 
 
+def positive_pt_metrics(calls, compute=True) -> tuple[int, list | None, list | None]:
+    """An evaluation's generated jets (as ``Trainer._score`` passed them to
+    ``w1efp`` and ``fpd``, recorded by :func:`timed_parts`): how many have a pT
+    sum that is not positive and, with ``compute``, the w1efp and FPD of the
+    others, on the same real jets, EFPs and arguments."""
+    from mpgan_tpu_torch.training import loop
+
+    (real, gen), w_kw, _, _ = calls["w1efp"][0]
+    keep = gen[..., 2].sum(axis=1) > 0
+    m = int(keep.sum())
+    if not compute:
+        return len(gen) - m, None, None
+    w1em, w1es = loop.w1efp(real, gen[keep], **w_kw)
+    (real_f, gen_f), f_kw, _, _ = calls["fpd"][0]
+    f_kw = dict(f_kw, gen_efps=f_kw["gen_efps"][keep], min_samples=min(5000, m // 2),
+                max_samples=min(20000, m))
+    return len(gen) - m, [*w1em, *w1es], list(loop.fpd(real_f, gen_f[keep], **f_kw))
+
+
 def evaluation(mk, dev, card, tmp):
     """Phase 22: ``Trainer.eval_save_plot`` at the loop's size (50,000 jets
     against 50,000 synthetic real jets, ``--efp --fpd --cov-mmd``) for the flagship
@@ -2052,8 +2093,21 @@ def evaluation(mk, dev, card, tmp):
         metrics = {k: trainer.losses[k] for k in ("w1efp", "fpd", "cov_mmd")}
         if gen_norm.shape != (EVAL_JETS, n, 4) or not np.isfinite(gen_norm).all():
             raise SystemExit(f"evaluation at {n}p: generated {gen_norm.shape}, not finite")
-        if not all(len(v) == 2 and np.isfinite(np.asarray(v)).all() for v in metrics.values()):
-            raise SystemExit(f"evaluation at {n}p: metrics not finite: {metrics}")
+        # as phase 9: an untrained generator's evaluated jets may hold a jet whose pT
+        # sum is not positive, whose EFPs are not finite (w1efp nan, FPD inf); the
+        # metrics of the others must be finite in any case
+        nonpositive, others = [], []
+        for i, (_, run_calls) in enumerate(runs):
+            finite = all(len(v) == 2 and np.isfinite(np.asarray(v[i])).all()
+                         for v in metrics.values())
+            left, w1e, fpd_v = positive_pt_metrics(run_calls, compute=not finite)
+            nonpositive.append(left)
+            others.append(None if finite else {"w1efp": w1e, "fpd": fpd_v})
+            cov_ok = np.isfinite(np.asarray(metrics["cov_mmd"][i])).all()
+            if not finite and not (left > 0 and cov_ok and np.isfinite(w1e).all()
+                                   and np.isfinite(fpd_v).all()):
+                raise SystemExit(f"evaluation at {n}p: metrics not finite: {metrics} ({left} "
+                                 f"jets with a pT sum <= 0; the others' {others[-1]})")
         if len(real) * n * n <= efp.DEVICE_THRESHOLD["cuda"] or real_efps.shape != (EVAL_JETS, 35):
             raise SystemExit(f"evaluation at {n}p: the real EFPs did not take the device path")
         # the card's FP32 EFPs against the float64 path (the JAX package's bar)
@@ -2084,6 +2138,7 @@ def evaluation(mk, dev, card, tmp):
             emd_rel = float(np.max(np.abs(on_card - on_cpu) / np.abs(on_cpu)))
         log("evaluation", card=card, n=n, jets=EVAL_JETS, batch=args.batch_size,
             seconds=[r[0] for r in runs], metrics=metrics, launches=launches[kernel],
+            jets_with_nonpositive_pt_sum=nonpositive, metrics_of_the_others=others,
             efp_rel_err_f64=efp_rel, efp_rows_beyond_tol=efp_bad, efp_rows_checked=rows,
             efp_peak_bytes=efp_peak, efp_bound_bytes=efp_bound, plan_squares=squares,
             gen_rows_recomputed_f64=f64_rows, cov_mmd_peak_bytes=cov_peak,
@@ -2188,9 +2243,9 @@ def model_zoo(mk, train_cli, gen_cli, dev, card, from_args_dict, tmp):
     weights = tmp / "pcgan_weights"
     weights.mkdir()
     pc_cfg = pcgan_config(from_args_dict({"model": "pcgan", "jets": "g"}))
-    torch.save(GInv(pc_cfg, torch.Generator().manual_seed(21)).state_dict(),
+    torch.save(GInv(pc_cfg, prng_key(21, "cpu")).state_dict(),
                weights / "pcgan_G_inv_g.pt")
-    torch.save(GPc(pc_cfg, torch.Generator().manual_seed(22)).state_dict(),
+    torch.save(GPc(pc_cfg, prng_key(22, "cpu")).state_dict(),
                weights / "pcgan_G_pc_g.pt")
 
     mk.reset_launch_counts()
@@ -2234,7 +2289,7 @@ def model_zoo(mk, train_cli, gen_cli, dev, card, from_args_dict, tmp):
 
     # the legacy generator: kernel path against plain path at the sampler's batch
     mplfc_args = legacy_card(from_args_dict)(MPLFC_CARD)
-    mplfc_g = build_suite(mplfc_args).generator(torch.Generator().manual_seed(4), device=dev)
+    mplfc_g = build_suite(mplfc_args).generator(prng_key(4, "cpu"), device=dev)
     lab = torch.as_tensor((np.random.default_rng(2).integers(1, 31, size=(4096, 1)) / 30)
                           .astype(np.float32), device=dev)
     for name, g, labels in (("mpfc", trainers["mpfc"].state.g, None), ("mplfc", mplfc_g, lab)):
@@ -2314,7 +2369,7 @@ def fpnd_phase(mk, dev, card, from_args_dict):
 
     args = from_args_dict(FLAGSHIP)
     suite = build_suite(args)
-    g = suite.generator(torch.Generator().manual_seed(0), device=dev)
+    g = suite.generator(prng_key(0, "cpu"), device=dev)
     ds = JetNetDataset("g", num_particles=30, split="valid", split_fraction=(0.0, 1.0),
                        synthetic_num_jets=FPND_JETS, mask_feature=True, num_particles_label=True)
     real = corrected(ds, ds.particle_data)
@@ -2813,7 +2868,7 @@ def graph_samplers(mk, dev, card, from_args_dict):
     for name, card_d, b in shapes:
         args = from_args_dict(card_d)
         suite = build_suite(args)
-        g = suite.generator(torch.Generator().manual_seed(6), device=dev)
+        g = suite.generator(prng_key(6, "cpu"), device=dev)
         n_jets = 3 * b  # the third batch replays a captured graph
         _, labels = real_batch(GRAPH_RATE_BATCHES * b, args.num_hits)
         labels = labels.numpy()
@@ -3612,7 +3667,7 @@ def bf16_gapt_kernel_checks(gk, dev, from_args_dict):
     from mpgan_tpu_torch.models.registry import build_suite
 
     args = from_args_dict(GAPT)
-    g = build_suite(args).generator(torch.Generator().manual_seed(29), device=dev)
+    g = build_suite(args).generator(prng_key(29, "cpu"), device=dev)
     w32 = g.fused_weights()
     w16 = gk.GaptWeights(*to_bf16(*w32))
     worst, identical, times = 0.0, True, {}
@@ -3647,7 +3702,7 @@ def bf16_gapt_kernel_checks(gk, dev, from_args_dict):
         del x, mask, x16, m16, out, again, wide, ref
     # the per-jet path (N=300: qkv in device scratch) on bf16 inputs
     g300 = build_suite(from_args_dict({**GAPT, "num_hits": 300})).generator(
-        torch.Generator().manual_seed(300), device=dev)
+        prng_key(300, "cpu"), device=dev)
     x, mask = gapt_kernel_inputs(dev, g300, 8, True, seed=300)
     x16, m16 = to_bf16(x, mask)
     w300 = gk.GaptWeights(*to_bf16(*g300.fused_weights()))
@@ -4048,7 +4103,7 @@ def mesh_cli(mk, train_cli, gen_cli, mesh, tmp, card):
 
     args = from_args_dict(FLAGSHIP)
     (tmp / "card.txt").write_text(repr(args.to_dict()))
-    g = MPGenerator(build_mpgan_generator(args), torch.Generator().manual_seed(0))
+    g = MPGenerator(build_mpgan_generator(args), prng_key(0, "cpu"))
     torch.save(mp_generator_to_reference_sd(g), tmp / "G.pt")
     jets, walls = {}, {}
     for shape in ("0", "1"):
@@ -4354,6 +4409,25 @@ def prng_plans(mk, dev, card, from_args_dict):
     return worst, times
 
 
+def keyed_steps_agree(sides) -> tuple[float, list, str | None]:
+    """Phase 31 (b)'s steps, card against CPU: the largest relative loss
+    difference, each step's largest gradient difference over its scale, and
+    what disagrees (None where nothing does): a key, a loss beyond TOL, or the
+    first step's gradients beyond TOL (later steps start from parameters that
+    RMSprop moved by about lr * sign(g), where a gradient within rounding of
+    zero may take either sign on the two devices)."""
+    loss_err, grad_ratio = 0.0, []
+    for i, ((lc, gc, kc), (lp, gp, kp)) in enumerate(zip(sides["card"], sides["cpu"])):
+        loss_err = max([loss_err] + [abs(lc[k] - lp[k]) / max(1.0, abs(lp[k])) for k in lp])
+        grad_ratio.append(max(wgrad_err(a, b)[0] / max(1.0, b.abs().max().item())
+                              for a, b in zip(gc, gp)))
+        if not torch.equal(kc, kp) or loss_err > TOL or (i == 0 and grad_ratio[0] > TOL):
+            return loss_err, grad_ratio, (
+                f"keyed step {i + 1} on the card disagrees with the CPU (loss {loss_err}, "
+                f"gradients {grad_ratio}, keys {kc.tolist()} {kp.tolist()})")
+    return loss_err, grad_ratio, None
+
+
 def prng_steps(mk, dev, card, from_args_dict, tmp):
     """Phase 31 (b-d): keyed steps on the card against the CPU; a captured epoch
     against the eager one, profiled; issue ms, idle share and wall ms of the
@@ -4365,35 +4439,36 @@ def prng_steps(mk, dev, card, from_args_dict, tmp):
     from mpgan_tpu_torch.ops import prng
     from mpgan_tpu_torch.utils.weights import jax_leaves
 
-    # (b) three keyed flagship steps, card against CPU, the key after each
+    # (b) three keyed flagship steps, card against CPU, the key after each; the
+    # first step's gradients as phase 8 holds them (where a round misses 1e-4, the
+    # next leaves out the rows at LeakyReLU's kink that it found, KinkRows)
     args = from_args_dict({**FLAGSHIP, "disc_dropout": 0.5})
     data, labels = real_batch(16)
-    sides = {}
-    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        st = make_state(args, device)
-        use_kernels(st, True)
-        step = step_fn(st, args, data.to(device), labels.to(device))
-        res = []
-        for _ in range(3):
-            parts = {k: v.item() for k, v in step().items()}
-            grads = [p.grad.detach().cpu().clone()
-                     for p in jax_leaves(st.d, True) + jax_leaves(st.g, True)]
-            res.append((parts, grads, st.rng.cpu().clone()))
-        sides[side] = res
-    loss_err, grad_ratio = 0.0, []
-    for i, ((lc, gc, kc), (lp, gp, kp)) in enumerate(zip(sides["card"], sides["cpu"])):
-        loss_err = max([loss_err] + [abs(lc[k] - lp[k]) / max(1.0, abs(lp[k])) for k in lp])
-        grad_ratio.append(max(wgrad_err(a, b)[0] / max(1.0, b.abs().max().item())
-                              for a, b in zip(gc, gp)))
-        # the gradients as phase 8 holds them at the first step; later steps start
-        # from parameters that RMSprop moved by about lr * sign(g), where a gradient
-        # within rounding of zero may take either sign on the two devices
-        if not torch.equal(kc, kp) or loss_err > TOL or (i == 0 and grad_ratio[0] > TOL):
-            raise SystemExit(f"phase 31: keyed step {i + 1} on the card disagrees with the "
-                             f"CPU (loss {loss_err}, gradients {grad_ratio}, keys "
-                             f"{kc.tolist()} {kp.tolist()})")
+    rounds = []
+    with KinkRows() as kinks:
+        for _ in range(KINK_ROUNDS):
+            sides = {}
+            for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+                kinks.begin(side)
+                st = make_state(args, device)
+                use_kernels(st, True)
+                step = step_fn(st, args, data.to(device), labels.to(device))
+                res = []
+                for _ in range(3):
+                    parts = {k: v.item() for k, v in step().items()}
+                    grads = [p.grad.detach().cpu().clone()
+                             for p in jax_leaves(st.d, True) + jax_leaves(st.g, True)]
+                    res.append((parts, grads, st.rng.cpu().clone()))
+                sides[side] = res
+            rounds.append(kinks.rows_left_out())
+            loss_err, grad_ratio, fault = keyed_steps_agree(sides)
+            if fault is None or kinks.flag() == 0:
+                break
     log("prng_keyed_steps", steps=3, batch=16, max_rel_loss_err=loss_err, tol=TOL,
-        max_grad_err_over_scale_by_step=grad_ratio, keys_bit_identical=True)
+        max_grad_err_over_scale_by_step=grad_ratio, keys_bit_identical=fault is None,
+        kink_rows_left_out_by_round=rounds, kink_rows_by_call=kinks.rows_by_call())
+    if fault is not None:
+        raise SystemExit(f"phase 31: {fault}")
 
     # (c) the captured 5-batch epoch against the eager one, then a profile of it
     b = 256
@@ -4470,6 +4545,139 @@ def prng_phase(mk, dev, card, from_args_dict, tmp):
     steps, draws = prng_steps(mk, dev, card, from_args_dict, tmp)
     log("prng", card=card, seconds=time.perf_counter() - t0)
     return worst, times, steps, draws
+
+
+# ---------------------------------------------------------------------------
+# 32. models initialised from the threefry key on the card (ops/init.py)
+# ---------------------------------------------------------------------------
+
+# TreeGAN at its published widths: the branch tensor of its last depth,
+# [16, 64, 128], is the largest single draw of any model
+TREEGAN = {"model": "treegan", "model_D": "rgan", "jets": "g", "num_hits": 30}
+INIT_MODELS = {"flagship": FLAGSHIP, "knn20": KNN150, "gapt": GAPT, "treegan": TREEGAN}
+INIT_DERIVED_TOL = 1e-6  # weight_u (a normalised normal draw) and weight_v (from it)
+INIT_SEED = 7
+
+
+def init_compare(got: dict, want: dict, what: str) -> float:
+    """Two state dicts (or FPND trees, flattened): drawn leaves and constants bit
+    for bit, the leaves derived from draws within INIT_DERIVED_TOL. Returns the
+    largest derived difference."""
+    worst = 0.0
+    if got.keys() != want.keys():
+        raise SystemExit(f"phase 32: {what}: state dict keys differ")
+    for name, a in got.items():
+        a, b = a.detach().cpu(), want[name].detach().cpu()
+        if str(name).endswith(("weight_u", "weight_v")):
+            err = (a - b).abs().max().item() if a.numel() else 0.0
+            worst = max(worst, err)
+            if err > INIT_DERIVED_TOL:
+                raise SystemExit(f"phase 32: {what}.{name} on the card {err} from the CPU's")
+        elif a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                a.view(torch.int32) if a.dtype == torch.float32 else a,
+                b.view(torch.int32) if b.dtype == torch.float32 else b):
+            raise SystemExit(f"phase 32: {what}.{name} drawn on the card differs from the "
+                             "CPU's draw")
+    return worst
+
+
+def timed_init(build, reps=3) -> tuple[torch.nn.Module, dict]:
+    """``build()`` on the card ``reps`` times: the module, and the wall ms
+    (synchronised) of the first build (no draw's plan kept, as in a model's one
+    init) and the least of the others (the plans kept by ``prng.draw``), with
+    the ``threefry_draws`` launches of one build."""
+    from mpgan_tpu_torch.ops import prng
+
+    prng._plan.cache_clear()
+    times, module, launches = [], None, 0
+    for _ in range(reps):
+        module = None
+        torch.cuda.synchronize()
+        before = prng.launch_counts["threefry_draws"]
+        t0 = time.perf_counter()
+        module = build()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = prng.launch_counts["threefry_draws"] - before
+    return module, {"ms": times[0], "ms_again": min(times[1:], default=None),
+                    "launches": launches}
+
+
+def init_phase(mk, dev, card, from_args_dict, tmp):
+    """Phase 32: each model of the main paths, TreeGAN's G and FPND's random
+    trunk drawn on the card and on the CPU from one key, every drawn leaf bit for
+    bit (the kernel against its plain version), the derived ones within 1e-6;
+    a Trainer built on the card from --seed against the CPU's. Returns the
+    ``threefry_draws`` launches of the card's builds (counts set to 0 before
+    them) and the init's ms and launches per model."""
+    from mpgan_tpu_torch.evaluation import fpnd as F
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.ops import prng
+    from mpgan_tpu_torch.training import checkpoint as tckpt
+    from mpgan_tpu_torch.utils.weights import jax_leaves
+
+    t_phase = time.perf_counter()
+    key_cpu = prng.PRNGKey(INIT_SEED)
+    key_dev = prng.PRNGKey(INIT_SEED, dev)
+    cpu_models, per_model, worst = {}, {}, 0.0
+    for name, model in INIT_MODELS.items():
+        suite = build_suite(from_args_dict(model))
+        sides = [("G", suite.generator)] + ([] if name == "treegan" else
+                                           [("D", suite.discriminator)])
+        for side, build in sides:
+            cpu_models[f"{name}_{side}"] = (build, build(key_cpu))
+    mk.reset_launch_counts()
+    for what, (build, cpu) in cpu_models.items():
+        module, per_model[what] = timed_init(lambda: build(key_dev, device=dev))
+        worst = max(worst, init_compare(module.state_dict(), cpu.state_dict(), what))
+        per_model[what]["parameters"] = sum(p.numel() for p in module.parameters())
+    # FPND's trunk: normals drawn straight into the weights, all bit for bit
+    trunk, per_model["fpnd_trunk"] = timed_init(lambda: F.particlenet_init(device=dev))
+    leaves = lambda tree: dict(enumerate(_tree_tensors(tree)))  # noqa: E731
+    init_compare(leaves(trunk), leaves(F.particlenet_init()), "fpnd_trunk")
+    per_model["fpnd_trunk"]["parameters"] = sum(x.numel() for x in _tree_tensors(trunk))
+
+    # the Trainer from --seed: on the card against the CPU, leaf by leaf, its key too
+    args = from_args_dict({**FLAGSHIP, "seed": INIT_SEED, "spectral_norm_disc": True})
+    t_card, per_model["trainer_flagship_sn"] = timed_init(
+        lambda: graph_trainer(args, dev, tmp, "init_card", True), reps=1)
+    t_cpu = graph_trainer(args, torch.device("cpu"), tmp, "init_cpu", False)
+    u = {t.data_ptr() for m in (t_cpu.state.g, t_cpu.state.d)
+         for n, t in m.named_buffers() if n.endswith("weight_u")}
+    derived = {i for i, t in enumerate(
+        jax_leaves(t_cpu.state.g, True) + jax_leaves(t_cpu.state.g, False)
+        + jax_leaves(t_cpu.state.d, True) + jax_leaves(t_cpu.state.d, False))
+        if t.data_ptr() in u}
+    got, want = tckpt.train_state_leaves(t_card.state), tckpt.train_state_leaves(t_cpu.state)
+    trainer_err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i in derived:
+            trainer_err = max(trainer_err, float(np.abs(a - b).max()))
+        elif not np.array_equal(np.asarray(a).reshape(-1).view(np.uint8),
+                                np.asarray(b).reshape(-1).view(np.uint8)):
+            raise SystemExit(f"phase 32: Trainer leaf {i} on the card differs from the CPU's")
+    if len(got) != len(want) or not derived or trainer_err > INIT_DERIVED_TOL:
+        raise SystemExit(f"phase 32: the card's Trainer state against the CPU's: {len(got)} "
+                         f"and {len(want)} leaves, u at {trainer_err}")
+    draws = prng.launch_counts["threefry_draws"]
+    t_card = t_cpu = None
+    torch.cuda.empty_cache()
+    log("init_on_card", card=card, seed=INIT_SEED, models=per_model,
+        max_abs_err_derived=max(worst, trainer_err), tol_derived=INIT_DERIVED_TOL,
+        drawn_leaves_bit_identical=True, trainer_leaves=len(got),
+        threefry_draws_launches=draws, seconds=time.perf_counter() - t_phase)
+    if draws == 0:
+        raise SystemExit("phase 32: threefry_draws never launched by the card's init")
+    return draws, per_model
+
+
+def _tree_tensors(tree) -> list:
+    """An FPND trunk's tensors in a fixed order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tree_tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for item in tree for t in _tree_tensors(item)]
+    return [tree]
 
 
 def main() -> None:
@@ -4549,7 +4757,7 @@ def main() -> None:
         tmp = pathlib.Path(tmp)
         args = from_args_dict(FLAGSHIP)
         (tmp / "card.txt").write_text(repr(args.to_dict()))
-        g30 = MPGenerator(build_mpgan_generator(args), torch.Generator().manual_seed(0))
+        g30 = MPGenerator(build_mpgan_generator(args), prng_key(0, "cpu"))
         torch.save(mp_generator_to_reference_sd(g30), tmp / "G.pt")
         out_file = tmp / "gen.npy"
         t0 = time.perf_counter()
@@ -4571,7 +4779,7 @@ def main() -> None:
     # 5. 150-particle dense generation
     args150 = from_args_dict({**FLAGSHIP, "num_hits": 150})
     cfg150 = build_mpgan_generator(args150)
-    g150 = MPGenerator(cfg150, torch.Generator().manual_seed(1), device=dev)
+    g150 = MPGenerator(cfg150, prng_key(1, "cpu"), device=dev)
     spec150 = noise_spec("mpgan", {"latent_node_size": 32}, 150, args150.sd)
     ds150 = JetNetDataset("g", num_particles=150, split="valid", synthetic_num_jets=10000)
     lab150 = ds150.jet_data[np.random.default_rng(1).choice(len(ds150), size=2048)]
@@ -4732,6 +4940,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         prng_err, prng_times, prng_steps_, epoch_draws = prng_phase(
             mk, dev, card, from_args_dict, pathlib.Path(tmp))
+    # 32. the models' initial weights drawn from the key on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        init_draws, init_models = init_phase(mk, dev, card, from_args_dict, pathlib.Path(tmp))
 
     def bf16_row(name, jobs):
         """The bf16 mode inside a kernel's row: its launches in phase 28, worst
@@ -4876,15 +5087,17 @@ def main() -> None:
          "bf16": bf16_knn_row("gapt_g_fused", ("b1024", "b4096"))},
         {"name": "threefry_draws", "route": "cuda", "source": "mpgan_tpu_torch/csrc/threefry.cu",
          "replaces": "mpgan_tpu/training/train_step.py:182 (jax.random inside the jitted "
-                     "step, :261; no pallas_call)",
-         # phases 4-5 (the sampler, 50,000 + 2,048 jets) and phase 31's captured epoch
-         "launches": gen_draws + epoch_draws, "max_abs_err": prng_err,
+                     "step, :261, and in the models' init functions; no pallas_call)",
+         # phases 4-5 (the sampler, 50,000 + 2,048 jets), phase 31's captured epoch
+         # and phase 32's builds of the models on the card
+         "launches": gen_draws + epoch_draws + init_draws, "max_abs_err": prng_err,
          **{k: v for k, v in prng_times["flagship"].items()},
          "shape": "the flagship D+G step's plan, B=256",
          **{f"{name}_{k}": v for name in ("knn20", "gapt", "sampler")
             for k, v in prng_times[name].items() if k in ("ms", "plain_ms", "bound_ms",
                                                            "bound_by", "words")},
-         "graph_steps": prng_steps_},
+         "graph_steps": prng_steps_,
+         "init": {m: {k: v[k] for k in ("ms", "launches")} for m, v in init_models.items()}},
     ]
     log("knn_train_step", batch=128, kernel_ms=knn_step_ms["kernel"],
         plain_ms=knn_step_ms["plain"])

@@ -48,8 +48,9 @@ def _device(name: str) -> torch.device:
 
 
 def _train_state_generator(args: Args, suite, path: str, device: torch.device):
-    """G from a TrainState checkpoint: a template state of the card's models and
-    optimizer takes the file's leaves (``training/checkpoint.py``)."""
+    """G from a TrainState checkpoint: a template state of the card's models
+    (drawn from the default key, ``PRNGKey(0)``, as the JAX ``gen`` builds its
+    template) and optimizer takes the file's leaves (``training/checkpoint.py``)."""
     g, d = suite.generator(device=device), suite.discriminator(device=device)
     state = TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), 1e-4),
                        build_optimizer(args.optimizer, d.parameters(), 1e-4),

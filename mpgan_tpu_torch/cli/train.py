@@ -25,9 +25,9 @@ losses from one seed (``training/loop.py``).
 
 ``--fpnd`` (30-particle g, t and q jets) scores with jetnet's ParticleNet
 from ``<datasets_path>/pnet_state_dict.pt`` when that file is there, else with
-a random trunk from a ``torch.Generator`` seeded 42, with a warning: such a
-score is self-consistent across a run but differs from the JAX package's
-random-trunk FPND and is not comparable to published values. ``--aug-*``,
+the JAX package's random trunk (drawn from ``PRNGKey(42)``), with a warning:
+such a score equals the JAX package's random-trunk FPND and is not comparable
+to published values. ``--aug-*``,
 ``--profile``, ``--debug`` and ``--debug-nans`` run as in the JAX package
 (``training/loop.py``). ``--compute-dtype bfloat16`` trains in bf16 on
 float32 master weights (``training/train_step.py``), on every path, the knn
@@ -136,8 +136,8 @@ def fpnd_hook(args, device: torch.device | str):
     if not (args.datasets_path and path.exists()):
         logging.warning(
             "FPND: no pnet_state_dict.pt under --datasets-path, so a random ParticleNet trunk "
-            "(torch.Generator seed 42) scores the jets: self-consistent across this run, but "
-            "not the JAX package's random trunk and not comparable to published FPND values")
+            "(PRNGKey(42), as the JAX package's) scores the jets: not comparable to published "
+            "FPND values")
         return make_fpnd_fn(None, device)
     try:
         params = load_particlenet(str(path))

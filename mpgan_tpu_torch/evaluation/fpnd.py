@@ -21,10 +21,10 @@ gather is a TPU device).
 :func:`fpnd` computes the activations on ``device`` (the card by default) and
 the moments and the Frechet distance on the host. The published weights are
 jetnet's ``pnet_state_dict.pt`` (``utils.weights.load_particlenet``); without
-them the trunk is random, drawn from a ``torch.Generator`` seeded 42. That
-trunk is not the JAX package's (drawn with ``jax.random``): a random-trunk
-FPND is self-consistent across a run, differs between the two packages, and
-is not comparable to published FPND values.
+them the trunk is random, drawn on the evaluating device from the threefry key
+``PRNGKey(42)`` as the JAX package draws its random trunk, so the two
+packages give the same random-trunk FPND; it is not comparable to published
+FPND values.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..ops import init, prng
 from .fpd import frechet_distance
 
 _BN_EPS = 1e-5
@@ -42,34 +43,39 @@ _BN_EPS = 1e-5
 INPUT_DIMS = 3
 K = 16
 CONV_WIDTHS = ((64, 64, 64), (128, 128, 128), (256, 256, 256))
-RANDOM_TRUNK_SEED = 42
+RANDOM_TRUNK_SEED = 42  # the random trunk's key is PRNGKey(RANDOM_TRUNK_SEED)
 
 Params = dict[str, Any]  # the JAX package's tree, with tensors for leaves
 
 
-def _bn_params(width: int, prefix: str = "") -> dict[str, torch.Tensor]:
-    return {prefix + "scale": torch.ones(width), prefix + "bias": torch.zeros(width),
-            prefix + "mean": torch.zeros(width), prefix + "var": torch.ones(width)}
+def _bn_params(width: int, prefix: str = "", device: torch.device | str = "cpu"
+               ) -> dict[str, torch.Tensor]:
+    one, zero = torch.ones(width, device=device), torch.zeros(width, device=device)
+    return {prefix + "scale": one, prefix + "bias": zero, prefix + "mean": zero.clone(),
+            prefix + "var": one.clone()}
 
 
-def particlenet_init(generator: torch.Generator | None = None) -> Params:
-    """A random trunk (on the CPU): each weight ``N(0, 1) / sqrt(fan_in)`` in
-    block order (the edge layers, then the shortcut), batch norms the
-    identity. ``generator`` defaults to one seeded ``RANDOM_TRUNK_SEED``."""
-    if generator is None:
-        generator = torch.Generator().manual_seed(RANDOM_TRUNK_SEED)
+def particlenet_init(key: torch.Tensor | None = None,
+                     device: torch.device | str = "cpu") -> Params:
+    """A random trunk on ``device``, drawn from the threefry ``key``
+    (``PRNGKey(RANDOM_TRUNK_SEED)`` when None) as the JAX package's
+    ``particlenet_init`` draws it: weight ``wi`` of block ``bi`` is
+    ``normal(fold_in(key, 10 bi + wi), (w, cin)) * (1 / sqrt(cin))``, the
+    shortcut's from ``fold_in(key, 10 bi + 9)``; batch norms the identity."""
+    k = init.root(prng.PRNGKey(RANDOM_TRUNK_SEED) if key is None else key, device)
 
-    def weight(out: int, cin: int) -> torch.Tensor:
-        return torch.randn((out, cin), generator=generator) / math.sqrt(cin)
+    def weight(child: int, out: int, cin: int) -> torch.Tensor:
+        return init.normal(k.fold_in(child), (out, cin), 1.0 / math.sqrt(cin))
 
-    params: Params = {"input_bn": _bn_params(INPUT_DIMS), "edge_convs": []}
+    params: Params = {"input_bn": _bn_params(INPUT_DIMS, device=device), "edge_convs": []}
     in_feat = INPUT_DIMS
-    for widths in CONV_WIDTHS:
+    for bi, widths in enumerate(CONV_WIDTHS):
         convs, cin = [], 2 * in_feat
-        for w in widths:
-            convs.append({"w": weight(w, cin), **_bn_params(w, "bn_")})
+        for wi, w in enumerate(widths):
+            convs.append({"w": weight(10 * bi + wi, w, cin), **_bn_params(w, "bn_", device)})
             cin = w
-        shortcut = {"w": weight(widths[-1], in_feat), **_bn_params(widths[-1], "bn_")}
+        shortcut = {"w": weight(10 * bi + 9, widths[-1], in_feat),
+                    **_bn_params(widths[-1], "bn_", device)}
         params["edge_convs"].append({"convs": convs, "shortcut": shortcut})
         in_feat = widths[-1]
     return params
@@ -141,7 +147,7 @@ def fpnd(real_jets: np.ndarray, gen_jets: np.ndarray, params: Params | None = No
     50,000 jets each, train.py:549-555); activations on ``device``, moments and
     distance on the host."""
     if params is None:
-        params = particlenet_init()
+        params = particlenet_init(device=device)
     a_real = activations(params, real_jets[:num_samples], batch_size, device)
     a_gen = activations(params, gen_jets[:num_samples], batch_size, device)
     return frechet_from_activations(a_real, a_gen)
@@ -157,8 +163,9 @@ def frechet_from_activations(a_real: np.ndarray, a_gen: np.ndarray) -> float:
 def make_fpnd_fn(params: Params | None = None, device: torch.device | str = "cuda"):
     """The trainer's hook ``fpnd_fn(gen_jets, jet_type, real_jets)`` on
     ``device``: the trunk ``params`` (``utils.weights.load_particlenet`` of a
-    jetnet ``pnet_state_dict.pt``), else the seeded random trunk."""
-    params = params_to(params if params is not None else particlenet_init(), device)
+    jetnet ``pnet_state_dict.pt``), else the random trunk of ``PRNGKey(42)``."""
+    params = params_to(params if params is not None else particlenet_init(device=device),
+                       device)
 
     def _fn(gen_jets, jet_type, real_jets=None):
         if real_jets is None:

@@ -27,6 +27,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from ...ops import init
 from ...ops.linear import batch_norm, make_linear
 
 
@@ -55,12 +56,12 @@ def knn_indices(x: torch.Tensor, k: int, loop: bool) -> torch.Tensor:
 
 
 class NNConv(nn.Module):
-    def __init__(self, in_f: int, out_f: int, generator):
+    def __init__(self, in_f: int, out_f: int, edge_key, root_key):
         super().__init__()
         self.in_f, self.out_f = in_f, out_f
         # edge network Linear(in, in * out) (ext_models.py:88-93)
-        self.nn = make_linear(in_f, in_f * out_f, generator)
-        self.root = make_linear(in_f, out_f, generator)
+        self.nn = make_linear(in_f, in_f * out_f, edge_key)
+        self.root = make_linear(in_f, out_f, root_key)
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         b = torch.arange(x.shape[0], device=x.device)[:, None, None]
@@ -74,17 +75,21 @@ class NNConv(nn.Module):
 
 
 class GraphCNNGenerator(nn.Module):
-    def __init__(self, cfg: GraphCNNGANGConfig, generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+    def __init__(self, cfg: GraphCNNGANGConfig, key=None, device: torch.device | str = "cpu"):
+        """Drawn as ``graphcnn_g_init``: ``split(key, 3 * len(sizes) + 1)``, the
+        dense layer from ``keys[0]``, conv ``i``'s edge and root maps from
+        ``keys[3i + 1]`` and ``keys[3i + 2]``."""
         super().__init__()
         if cfg.num_knn > cfg.num_hits:
             raise ValueError(f"graphcnngan: num_knn {cfg.num_knn} > num_hits {cfg.num_hits} "
                              "(the preset searches 20 neighbours)")
         self.cfg = cfg
         sizes = cfg.all_sizes
-        self.dense = make_linear(cfg.latent_dim, cfg.num_hits * sizes[0], generator)
+        keys = init.root(key, device).split(3 * len(sizes) + 1)
+        self.dense = make_linear(cfg.latent_dim, cfg.num_hits * sizes[0], keys[0])
         self.layers = nn.ModuleList(
-            NNConv(sizes[i], sizes[i + 1], generator) for i in range(len(sizes) - 1))
+            NNConv(sizes[i], sizes[i + 1], keys[3 * i + 1], keys[3 * i + 2])
+            for i in range(len(sizes) - 1))
         self.bn_layers = nn.ModuleList(
             nn.BatchNorm1d(sizes[i + 1], eps=1e-5) for i in range(len(sizes) - 1))
         self.to(device)

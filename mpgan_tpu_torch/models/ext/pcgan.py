@@ -21,6 +21,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from ...ops import init
 from ...ops.linear import make_linear
 from .rgan import linear_stack
 
@@ -40,12 +41,11 @@ class PCGANConfig:
 class LatentGenerator(nn.Module):
     """``[B, latent_dim] -> [B, z1_dim]``, LeakyReLU(0.2) between layers."""
 
-    def __init__(self, cfg: PCGANConfig, generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+    def __init__(self, cfg: PCGANConfig, key=None, device: torch.device | str = "cpu"):
         super().__init__()
         self.cfg = cfg
         self.model = linear_stack([cfg.latent_dim, *cfg.latent_g_layers, cfg.z1_dim],
-                                  generator, 0.2)
+                                  init.root(key, device), 0.2)
         self.to(device)
 
     def forward(self, x, labels=None, train: bool = False, rng=None, update_sn: bool = True):
@@ -55,11 +55,11 @@ class LatentGenerator(nn.Module):
 class LatentDiscriminator(nn.Module):
     """``[B, z1_dim] -> [B, 1]``, no sigmoid (trained with the WGAN loss)."""
 
-    def __init__(self, cfg: PCGANConfig, generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+    def __init__(self, cfg: PCGANConfig, key=None, device: torch.device | str = "cpu"):
         super().__init__()
         self.cfg = cfg
-        self.model = linear_stack([cfg.z1_dim, *cfg.latent_d_layers, 1], generator, 0.2)
+        self.model = linear_stack([cfg.z1_dim, *cfg.latent_d_layers, 1],
+                                  init.root(key, device), 0.2)
         self.to(device)
 
     def forward(self, x, labels=None, train: bool = False, rng=None, update_sn: bool = True):
@@ -67,14 +67,15 @@ class LatentDiscriminator(nn.Module):
 
 
 class PermEqui(nn.Module):
-    """``max1``: ``Gamma(x - max x)``; ``max``/``mean``: ``Gamma(x) - Lambda(pool x)``."""
+    """``max1``: ``Gamma(x - max x)``; ``max``/``mean``: ``Gamma(x) - Lambda(pool x)``.
+    Gamma from ``key``, Lambda from ``fold_in(key, 1)`` (``g_inv_init``)."""
 
-    def __init__(self, in_dim: int, out_dim: int, pool: str, generator):
+    def __init__(self, in_dim: int, out_dim: int, pool: str, key):
         super().__init__()
         self.pool = pool
-        self.Gamma = make_linear(in_dim, out_dim, generator)
+        self.Gamma = make_linear(in_dim, out_dim, key)
         if pool in ("max", "mean"):
-            self.Lambda = make_linear(in_dim, out_dim, generator, bias=False)
+            self.Lambda = make_linear(in_dim, out_dim, key.fold_in(1), bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pool == "max1":
@@ -87,19 +88,20 @@ class PermEqui(nn.Module):
 class GInv(nn.Module):
     """The DeepSets encoder ``G_inv_Tanh`` (pcgan_model.py:45-93): three
     PermEqui layers with tanh, a max pool, the ``ro`` head.
-    ``[B, N, feat] -> [B, z1_dim]``."""
+    ``[B, N, feat] -> [B, z1_dim]``. Drawn as ``g_inv_init``: ``split(key,
+    5)``, the PermEqui layers from the first three, ``ro`` from the last two."""
 
-    def __init__(self, cfg: PCGANConfig, generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+    def __init__(self, cfg: PCGANConfig, key=None, device: torch.device | str = "cpu"):
         super().__init__()
         self.cfg = cfg
+        keys = init.root(key, device).split(5)
         sizes = [cfg.node_feat_size, cfg.d_dim, cfg.d_dim, cfg.d_dim]
         mods: list[nn.Module] = []
         for i in range(3):
-            mods += [PermEqui(sizes[i], sizes[i + 1], cfg.pool, generator), nn.Tanh()]
+            mods += [PermEqui(sizes[i], sizes[i + 1], cfg.pool, keys[i]), nn.Tanh()]
         self.phi = nn.Sequential(*mods)
-        self.ro = nn.Sequential(make_linear(cfg.d_dim, cfg.d_dim, generator), nn.Tanh(),
-                                make_linear(cfg.d_dim, cfg.z1_dim, generator))
+        self.ro = nn.Sequential(make_linear(cfg.d_dim, cfg.d_dim, keys[3]), nn.Tanh(),
+                                make_linear(cfg.d_dim, cfg.z1_dim, keys[4]))
         self.to(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -109,20 +111,22 @@ class GInv(nn.Module):
 class GPc(nn.Module):
     """The point decoder ``G_pc`` (pcgan_model.py:219-248):
     ``fc(z1) + fu(z2)``, four softplus + Linear layers, softplus, the output
-    layer. ``z1 [B, 1 or N, z1_dim]``, ``z2 [B, N, z2_dim]`` -> ``[B, N, feat]``."""
+    layer. ``z1 [B, 1 or N, z1_dim]``, ``z2 [B, N, z2_dim]`` -> ``[B, N, feat]``.
+    Drawn as ``g_pc_init``: ``split(key, 7)`` for fc, fu, the four hidden
+    layers and the output layer."""
 
-    def __init__(self, cfg: PCGANConfig, generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+    def __init__(self, cfg: PCGANConfig, key=None, device: torch.device | str = "cpu"):
         super().__init__()
         self.cfg = cfg
+        keys = init.root(key, device).split(7)
         hid = max(250, 2 * cfg.z1_dim)
-        self.fc = make_linear(cfg.z1_dim, hid, generator)
-        self.fu = make_linear(cfg.z2_dim, hid, generator, bias=False)
+        self.fc = make_linear(cfg.z1_dim, hid, keys[0])
+        self.fu = make_linear(cfg.z2_dim, hid, keys[1], bias=False)
         mods: list[nn.Module] = []
-        for _ in range(4):
-            mods += [nn.Softplus(), make_linear(hid, hid, generator)]
+        for i in range(4):
+            mods += [nn.Softplus(), make_linear(hid, hid, keys[2 + i])]
         self.main = nn.Sequential(*mods, nn.Softplus(),
-                                  make_linear(hid, cfg.node_feat_size, generator))
+                                  make_linear(hid, cfg.node_feat_size, keys[6]))
         self.to(device)
 
     def forward(self, z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:

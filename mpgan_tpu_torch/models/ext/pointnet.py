@@ -12,7 +12,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from .rgan import _linears, _mlp
+from .rgan import _mlp, two_stacks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,12 +26,12 @@ class PointNetMixDConfig:
 
 
 class PointNetMixDiscriminator(nn.Module):
-    def __init__(self, cfg: PointNetMixDConfig, generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+    def __init__(self, cfg: PointNetMixDConfig, key=None, device: torch.device | str = "cpu"):
         super().__init__()
         self.cfg = cfg
-        self.pointfc = _linears([cfg.node_feat_size, *cfg.pointfc_layers], generator)
-        self.fc = _linears([cfg.pointfc_layers[-1] * 2, *cfg.fc_layers, 1], generator)
+        self.pointfc, self.fc = two_stacks(
+            [cfg.node_feat_size, *cfg.pointfc_layers],
+            [cfg.pointfc_layers[-1] * 2, *cfg.fc_layers, 1], key, device)
         self.to(device)
 
     def forward(self, x, labels=None, train: bool = False, rng=None, update_sn: bool = True):

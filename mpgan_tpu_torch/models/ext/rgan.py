@@ -15,15 +15,18 @@ import dataclasses
 import torch
 from torch import nn
 
+from ...ops import init
 from ...ops.linear import make_linear
 
 
-def linear_stack(sizes, generator: torch.Generator | None, alpha: float) -> nn.Sequential:
+def linear_stack(sizes, key, alpha: float) -> nn.Sequential:
     """``Linear`` layers with ``LeakyReLU(alpha)`` between them, as one
-    ``nn.Sequential`` (linear layers at even indices)."""
+    ``nn.Sequential`` (linear layers at even indices); layer ``i`` drawn from
+    child ``i`` of ``split(key, len(sizes) - 1)``, as ``rgan_g_init``."""
+    keys = init.root(key).split(len(sizes) - 1)
     mods: list[nn.Module] = []
     for i in range(len(sizes) - 1):
-        mods.append(make_linear(sizes[i], sizes[i + 1], generator))
+        mods.append(make_linear(sizes[i], sizes[i + 1], keys[i]))
         if i < len(sizes) - 2:
             mods.append(nn.LeakyReLU(alpha))
     return nn.Sequential(*mods)
@@ -43,12 +46,11 @@ class RGANGConfig:
 
 
 class RGANGenerator(nn.Module):
-    def __init__(self, cfg: RGANGConfig, generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+    def __init__(self, cfg: RGANGConfig, key=None, device: torch.device | str = "cpu"):
         super().__init__()
         self.cfg = cfg
         sizes = [cfg.latent_dim, *cfg.fc_layers, cfg.num_hits * cfg.node_feat_size]
-        self.model = linear_stack(sizes, generator, cfg.leaky_relu_alpha)
+        self.model = linear_stack(sizes, init.root(key, device), cfg.leaky_relu_alpha)
         self.to(device)
 
     def forward(self, x, labels=None, train: bool = False, rng=None, update_sn: bool = True):
@@ -74,18 +76,26 @@ def _mlp(x: torch.Tensor, layers: nn.ModuleList, alpha: float, last_activation: 
     return x
 
 
-def _linears(sizes, generator) -> nn.ModuleList:
-    return nn.ModuleList(make_linear(sizes[i], sizes[i + 1], generator)
+def _linears(sizes, keys) -> nn.ModuleList:
+    """Linear layer ``i`` of ``sizes`` drawn from ``keys[i]``."""
+    return nn.ModuleList(make_linear(sizes[i], sizes[i + 1], keys[i])
                          for i in range(len(sizes) - 1))
 
 
+def two_stacks(first, second, key, device) -> tuple[nn.ModuleList, nn.ModuleList]:
+    """Two linear stacks drawn as ``rgan_d_init`` and ``pointnet_d_init`` draw
+    theirs: ``split(key, len(first) + len(second) - 2)``, the first stack's
+    layers, then the second's."""
+    keys = init.root(key, device).split(len(first) + len(second) - 2)
+    return _linears(first, keys), _linears(second, keys[len(first) - 1:])
+
+
 class RGANDiscriminator(nn.Module):
-    def __init__(self, cfg: RGANDConfig, generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+    def __init__(self, cfg: RGANDConfig, key=None, device: torch.device | str = "cpu"):
         super().__init__()
         self.cfg = cfg
-        self.sfc = _linears([cfg.node_feat_size, *cfg.sfc_layers], generator)
-        self.fc = _linears([cfg.sfc_layers[-1], *cfg.fc_layers, 1], generator)
+        self.sfc, self.fc = two_stacks([cfg.node_feat_size, *cfg.sfc_layers],
+                                       [cfg.sfc_layers[-1], *cfg.fc_layers, 1], key, device)
         self.to(device)
 
     def forward(self, x, labels=None, train: bool = False, rng=None, update_sn: bool = True):

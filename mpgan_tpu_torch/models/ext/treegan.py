@@ -26,7 +26,8 @@ import math
 import torch
 from torch import nn
 
-from ...ops.linear import make_linear
+from ...ops import init
+from ...ops.linear import empty_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,27 +41,38 @@ class TreeGANGConfig:
         return len(self.features) - 1
 
 
+def _linear_no_bias(in_dim: int, out_dim: int, key) -> nn.Linear:
+    """A bias-free Linear whose weight is drawn from ``key`` itself, uniform on
+    ``+-1/sqrt(in)`` (treegan.py's ``_linear_no_bias``: no split)."""
+    lin = empty_linear(in_dim, out_dim, bias=False, device=key.root.device)
+    bound = 1.0 / math.sqrt(in_dim)
+    with torch.no_grad():
+        lin.weight.copy_(init.uniform(key, (out_dim, in_dim), -bound, bound))
+    return lin
+
+
 class TreeGCN(nn.Module):
-    def __init__(self, cfg: TreeGANGConfig, depth: int, node: int, generator):
+    def __init__(self, cfg: TreeGANGConfig, depth: int, node: int, key):
+        """Drawn as one depth of ``treegan_g_init``: ``keys = split(fold_in(key,
+        depth), depth + 5)``, root map ``i`` from ``keys[i]``, ``W_branch``,
+        the two loop maps and the bias from ``keys[-4..-1]``."""
         super().__init__()
         in_f, out_f = cfg.features[depth], cfg.features[depth + 1]
         degree = cfg.degrees[depth]
         self.depth, self.node, self.degree = depth, node, degree
         self.last = depth == cfg.layer_num - 1
+        keys = key.fold_in(depth).split(depth + 5)
         # one root map per ancestor depth (ext_models.py:224-229)
         self.W_root = nn.ModuleList(
-            make_linear(cfg.features[i], out_f, generator, bias=False) for i in range(depth + 1))
+            _linear_no_bias(cfg.features[i], out_f, keys[i]) for i in range(depth + 1))
         # upsampling tensor [node, in, degree * in], xavier-uniform with gain sqrt(2)
-        self.W_branch = nn.Parameter(torch.empty(node, in_f, degree * in_f))
         bound = math.sqrt(2.0) * math.sqrt(6.0 / (in_f + degree * in_f))
-        with torch.no_grad():
-            self.W_branch.uniform_(-bound, bound, generator=generator)
-        self.W_loop = nn.Sequential(make_linear(in_f, in_f * cfg.support, generator, bias=False),
-                                    make_linear(in_f * cfg.support, out_f, generator, bias=False))
-        self.bias = nn.Parameter(torch.empty(1, degree, out_f))
-        with torch.no_grad():
-            self.bias.uniform_(-1.0 / math.sqrt(out_f), 1.0 / math.sqrt(out_f),
-                               generator=generator)
+        self.W_branch = nn.Parameter(
+            init.uniform(keys[-4], (node, in_f, degree * in_f), -bound, bound))
+        self.W_loop = nn.Sequential(_linear_no_bias(in_f, in_f * cfg.support, keys[-3]),
+                                    _linear_no_bias(in_f * cfg.support, out_f, keys[-2]))
+        self.bias = nn.Parameter(init.uniform(keys[-1], (1, degree, out_f),
+                                              -1.0 / math.sqrt(out_f), 1.0 / math.sqrt(out_f)))
 
     def forward(self, tree: list[torch.Tensor]) -> torch.Tensor:
         node, degree = self.node, self.degree
@@ -78,14 +90,14 @@ class TreeGCN(nn.Module):
 
 
 class TreeGANGenerator(nn.Module):
-    def __init__(self, cfg: TreeGANGConfig, generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+    def __init__(self, cfg: TreeGANGConfig, key=None, device: torch.device | str = "cpu"):
         super().__init__()
         self.cfg = cfg
+        k = init.root(key, device)
         self.gcn = nn.Sequential()
         node = 1
         for depth in range(cfg.layer_num):
-            self.gcn.add_module(f"TreeGCN_{depth}", TreeGCN(cfg, depth, node, generator))
+            self.gcn.add_module(f"TreeGCN_{depth}", TreeGCN(cfg, depth, node, k))
             node *= cfg.degrees[depth]
         self.to(device)
 

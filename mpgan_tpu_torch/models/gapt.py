@@ -34,6 +34,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from ..ops import init
 from ..ops.attention import MAB, MABConfig, sab_mask
 from ..ops.gapt_kernels import (
     GaptWeights,
@@ -99,27 +100,31 @@ class GAPTConfig:
         )
 
 
-def _xavier_uniform(shape: tuple[int, ...], generator: torch.Generator | None) -> nn.Parameter:
+def _xavier_uniform(shape: tuple[int, ...], key) -> nn.Parameter:
     fan_in, fan_out = shape[-1], shape[-2]
     bound = math.sqrt(6.0 / (fan_in + fan_out))
-    return nn.Parameter(torch.empty(shape).uniform_(-bound, bound, generator=generator))
+    return nn.Parameter(init.uniform(key, shape, -bound, bound))
 
 
 class SAB(nn.Module):
     """One set-attention block: a single MAB (``mab``), or with ``use_isab``
     the inducing points ``I`` and two MABs, ``H = mab0(I, x)``,
-    ``out = mab1(x, H)`` (gapt/model.py:142-191)."""
+    ``out = mab1(x, H)`` (gapt/model.py:142-191). Drawn from ``key`` as
+    ``_sab_init``: the MAB from the key itself, or ``k_i, k0, k1 = split(key,
+    3)`` for ``I``, ``mab0`` and ``mab1``."""
 
-    def __init__(self, cfg: GAPTConfig, generator: torch.Generator | None = None):
+    def __init__(self, cfg: GAPTConfig, key=None):
         super().__init__()
         self.cfg = cfg
         mab_cfg = cfg.mab_cfg()
+        k = init.root(key)
         if not cfg.use_isab:
-            self.mab = MAB(mab_cfg, generator)
+            self.mab = MAB(mab_cfg, k)
         else:
-            self.I = _xavier_uniform((1, cfg.num_isab_nodes, cfg.embed_dim), generator)
-            self.mab0 = MAB(mab_cfg, generator)
-            self.mab1 = MAB(mab_cfg, generator)
+            k_i, k0, k1 = k.split(3)
+            self.I = _xavier_uniform((1, cfg.num_isab_nodes, cfg.embed_dim), k_i)
+            self.mab0 = MAB(mab_cfg, k0)
+            self.mab1 = MAB(mab_cfg, k1)
 
     def forward(self, x, mask, train: bool, rng, update_sn: bool) -> torch.Tensor:
         cfg = self.cfg
@@ -134,15 +139,16 @@ class SAB(nn.Module):
 
 
 class GAPTGenerator(nn.Module):
-    """Generator module. Parameters are drawn on the CPU from ``generator``
-    and then moved to ``device``."""
+    """Generator module. Parameters are drawn on ``device`` from the threefry
+    ``key`` as ``gapt_g_init`` draws them (``ops/init.py``): ``split(key, L +
+    1)``, SAB ``i`` from child ``i``, final_fc from ``keys[-1]``."""
 
-    def __init__(self, cfg: GAPTConfig, generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+    def __init__(self, cfg: GAPTConfig, key=None, device: torch.device | str = "cpu"):
         super().__init__()
         self.cfg = cfg
-        self.sabs = nn.ModuleList(SAB(cfg, generator) for _ in range(cfg.sab_layers))
-        self.final_fc = MLP(cfg.final_fc_cfg(), generator)
+        keys = init.root(key, device).split(cfg.sab_layers + 1)
+        self.sabs = nn.ModuleList(SAB(cfg, keys[i]) for i in range(cfg.sab_layers))
+        self.final_fc = MLP(cfg.final_fc_cfg(), keys[-1])
         self._packed: tuple[tuple, GaptWeights] | None = None
         self.to(device)
 
@@ -200,12 +206,13 @@ class GAPTGenerator(nn.Module):
 
 class PMA(nn.Module):
     """Pooling by multihead attention with one learned seed ``S``
-    (gapt/model.py:158-174, 319-322)."""
+    (gapt/model.py:158-174, 319-322); ``k_seed, k_mab = split(key)``."""
 
-    def __init__(self, cfg: GAPTConfig, generator: torch.Generator | None = None):
+    def __init__(self, cfg: GAPTConfig, key=None):
         super().__init__()
-        self.S = _xavier_uniform((1, 1, cfg.embed_dim), generator)
-        self.mab = MAB(cfg.mab_cfg(), generator)
+        k_seed, k_mab = init.root(key).split(2)
+        self.S = _xavier_uniform((1, 1, cfg.embed_dim), k_seed)
+        self.mab = MAB(cfg.mab_cfg(), k_mab)
 
     def forward(self, x, mask, train: bool, rng, update_sn: bool) -> torch.Tensor:
         seed = self.S.expand(x.shape[0], -1, -1)
@@ -213,14 +220,18 @@ class PMA(nn.Module):
 
 
 class GAPTDiscriminator(nn.Module):
-    def __init__(self, cfg: GAPTConfig, generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+    """Drawn from ``key`` as ``gapt_d_init``: ``split(key, L + 3)``, the
+    embedding from ``keys[0]``, SAB ``i`` from ``keys[i + 1]``, the PMA from
+    ``keys[-2]``, final_fc from ``keys[-1]``."""
+
+    def __init__(self, cfg: GAPTConfig, key=None, device: torch.device | str = "cpu"):
         super().__init__()
         self.cfg = cfg
-        self.input_embedding = MLP(cfg.embed_cfg(), generator)
-        self.sabs = nn.ModuleList(SAB(cfg, generator) for _ in range(cfg.sab_layers))
-        self.pma = PMA(cfg, generator)
-        self.final_fc = MLP(cfg.final_fc_cfg(), generator)
+        keys = init.root(key, device).split(cfg.sab_layers + 3)
+        self.input_embedding = MLP(cfg.embed_cfg(), keys[0])
+        self.sabs = nn.ModuleList(SAB(cfg, keys[i + 1]) for i in range(cfg.sab_layers))
+        self.pma = PMA(cfg, keys[-2])
+        self.final_fc = MLP(cfg.final_fc_cfg(), keys[-1])
         self.to(device)
 
     def forward(self, x: torch.Tensor, labels: torch.Tensor | None = None,

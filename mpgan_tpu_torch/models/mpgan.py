@@ -35,7 +35,8 @@ from typing import Any
 import torch
 from torch import nn
 
-from ..ops.linear import MLP, MLPConfig, linear_init
+from ..ops import init
+from ..ops.linear import MLP, MLPConfig, make_linear
 from ..ops.masking import counts_from_labels, mask_from_counts, split_mask
 from ..ops.mp import MPLayer, MPLayerConfig
 
@@ -159,25 +160,27 @@ class MPGeneratorConfig:
 
 
 class MPGenerator(nn.Module):
-    """Generator module. Parameters are drawn on the CPU from ``generator``
-    (the distributions of ``mp_generator_init``) and then moved to ``device``.
-    Its ``state_dict`` keys are the reference's (``mp_layers.{i}.fe/fn.*``,
-    ``lfc_layer.*``, ``fmg_layer.*``)."""
+    """Generator module. Parameters are drawn on ``device`` from the threefry
+    ``key`` as ``mp_generator_init`` draws them (``ops/init.py``):
+    ``split(key, len(layers) + 2)``, layer ``i`` from child ``i``, lfc from
+    ``keys[-2]``, fmg from ``keys[-1]``. Its ``state_dict`` keys are the
+    reference's (``mp_layers.{i}.fe/fn.*``, ``lfc_layer.*``, ``fmg_layer.*``)."""
 
     def __init__(
         self,
         cfg: MPGeneratorConfig,
-        generator: torch.Generator | None = None,
+        key=None,
         device: torch.device | str = "cpu",
     ):
         super().__init__()
         self.cfg = cfg
-        self.mp_layers = nn.ModuleList(MPLayer(c, generator) for c in cfg.layers)
+        keys = init.root(key, device).split(len(cfg.layers) + 2)
+        self.mp_layers = nn.ModuleList(MPLayer(c, k) for c, k in zip(cfg.layers, keys))
         if cfg.lfc:
-            self.lfc_layer = nn.Linear(cfg.lfc_latent_size, cfg.num_particles * cfg.input_node_size)
-            linear_init(self.lfc_layer.weight, self.lfc_layer.bias, generator)
+            self.lfc_layer = make_linear(cfg.lfc_latent_size,
+                                         cfg.num_particles * cfg.input_node_size, keys[-2])
         if cfg.fmg_cfg is not None:
-            self.fmg_layer = MLP(cfg.fmg_cfg, generator)
+            self.fmg_layer = MLP(cfg.fmg_cfg, keys[-1])
         self.to(device)
 
     def _get_mask(self, x, labels, train, rng, update_sn):
@@ -304,20 +307,23 @@ class MPDiscriminatorConfig:
 
 
 class MPDiscriminator(nn.Module):
-    """Discriminator module; ``state_dict`` keys are the reference's
+    """Discriminator module, drawn on ``device`` from ``key`` as
+    ``mp_discriminator_init`` draws it: ``split(key, len(layers) + 1)``, fnd
+    from ``keys[-1]``. ``state_dict`` keys are the reference's
     (``mp_layers.{i}.fe/fn.*``, ``fnd_layer.*``)."""
 
     def __init__(
         self,
         cfg: MPDiscriminatorConfig,
-        generator: torch.Generator | None = None,
+        key=None,
         device: torch.device | str = "cpu",
     ):
         super().__init__()
         self.cfg = cfg
-        self.mp_layers = nn.ModuleList(MPLayer(c, generator) for c in cfg.layers)
+        keys = init.root(key, device).split(len(cfg.layers) + 1)
+        self.mp_layers = nn.ModuleList(MPLayer(c, k) for c, k in zip(cfg.layers, keys))
         if cfg.fnd_cfg is not None:
-            self.fnd_layer = MLP(cfg.fnd_cfg, generator)
+            self.fnd_layer = MLP(cfg.fnd_cfg, keys[-1])
         self.to(device)
 
     def forward(self, x: torch.Tensor, labels: torch.Tensor | None = None,

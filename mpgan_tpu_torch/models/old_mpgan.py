@@ -34,6 +34,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from ..ops import init
 from ..ops.linear import MLP, MLPConfig, make_linear
 from ..ops.masking import mask_from_counts, split_mask
 from ..ops.mp import MPLayer, MPLayerConfig
@@ -156,18 +157,21 @@ class OldMPGAN(nn.Module):
 
     reads_epoch = True
 
-    def __init__(self, cfg: OldMPGANConfig, generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+    def __init__(self, cfg: OldMPGANConfig, key=None, device: torch.device | str = "cpu"):
+        """Drawn on ``device`` from ``key`` as ``old_mpgan_init`` draws it:
+        ``split(key, len(layers) + 3)``, lfc, fnd and fmg from ``keys[-3]``,
+        ``keys[-2]`` and ``keys[-1]``."""
         super().__init__()
         self.cfg = cfg
-        self.mp_layers = nn.ModuleList(MPLayer(c, generator) for c in cfg.layers)
+        keys = init.root(key, device).split(len(cfg.layers) + 3)
+        self.mp_layers = nn.ModuleList(MPLayer(c, k) for c, k in zip(cfg.layers, keys))
         if cfg.lfc:
             self.lfc = make_linear(cfg.lfc_latent_size,
-                                   cfg.num_particles * cfg.first_layer_node_size, generator)
+                                   cfg.num_particles * cfg.first_layer_node_size, keys[-3])
         if cfg.fnd_cfg is not None:
-            self.fnd = MLP(cfg.fnd_cfg, generator)
+            self.fnd = MLP(cfg.fnd_cfg, keys[-2])
         if cfg.fmg_cfg is not None:
-            self.fmg = MLP(cfg.fmg_cfg, generator)
+            self.fmg = MLP(cfg.fmg_cfg, keys[-1])
         self.to(device)
 
     def forward(self, x: torch.Tensor, labels: torch.Tensor | None = None,

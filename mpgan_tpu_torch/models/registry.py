@@ -45,13 +45,16 @@ class ModelSuite:
     # (``--mask-manual``: the pT-cutoff mask column)
     post_gen: Callable[[torch.Tensor], torch.Tensor] | None = None
 
-    def generator(self, rng: torch.Generator | None = None,
+    def generator(self, key: torch.Tensor | None = None,
                   device: torch.device | str = "cpu") -> torch.nn.Module:
-        return self.g_cls(self.g_cfg, rng, device=device)
+        """G drawn on ``device`` from the threefry ``key`` (``PRNGKey(0)`` when
+        None), as the JAX family's init draws it from the same key."""
+        return self.g_cls(self.g_cfg, key, device=device)
 
-    def discriminator(self, rng: torch.Generator | None = None,
+    def discriminator(self, key: torch.Tensor | None = None,
                       device: torch.device | str = "cpu") -> torch.nn.Module:
-        return self.d_cls(self.d_cfg, rng, device=device)
+        """D drawn on ``device`` from ``key``, as :meth:`generator`."""
+        return self.d_cls(self.d_cfg, key, device=device)
 
 
 def _model_args(args: cfg_mod.Args) -> dict[str, Any]:

@@ -30,36 +30,37 @@ import math
 import torch
 from torch import nn
 
+from . import init
 from .linear import MLP, MLPConfig, hash_dropout
 
 _LN_EPS = 1e-5
 
 
 class _OutProj(nn.Module):
-    def __init__(self, embed_dim: int):
+    def __init__(self, weight: torch.Tensor):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(embed_dim, embed_dim))
-        self.bias = nn.Parameter(torch.zeros(embed_dim))
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(torch.zeros(weight.shape[0], device=weight.device))
 
 
 class MHA(nn.Module):
     """Multi-head attention; ``nn.MultiheadAttention``'s default init drawn from
-    ``generator``: xavier-uniform packed in-proj, zero in-proj bias, out-proj
-    like a Linear with zero bias."""
+    ``key`` as ``mha_init`` draws it: ``k1, k2 = split(key)``, ``in_proj``
+    xavier-uniform on ``[3E, E]`` from ``k1``, zero in-proj bias, out-proj
+    uniform on ``+-1/sqrt(E)`` from ``k2`` with zero bias."""
 
-    def __init__(self, embed_dim: int, num_heads: int, generator: torch.Generator | None = None):
+    def __init__(self, embed_dim: int, num_heads: int, key=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not divisible by {num_heads} heads")
         self.embed_dim, self.num_heads = embed_dim, num_heads
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
-        self.out_proj = _OutProj(embed_dim)
+        k1, k2 = init.root(key).split(2)
         bound = math.sqrt(6.0 / (3 * embed_dim + embed_dim))
         out_bound = 1.0 / math.sqrt(embed_dim)
-        with torch.no_grad():
-            self.in_proj_weight.uniform_(-bound, bound, generator=generator)
-            self.out_proj.weight.uniform_(-out_bound, out_bound, generator=generator)
+        self.in_proj_weight = nn.Parameter(
+            init.uniform(k1, (3 * embed_dim, embed_dim), -bound, bound))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim, device=k1.root.device))
+        self.out_proj = _OutProj(init.uniform(k2, (embed_dim, embed_dim), -out_bound, out_bound))
 
     def forward(self, q: torch.Tensor, kv: torch.Tensor,
                 attn_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -121,10 +122,10 @@ class MABConfig:
 class _Norm(nn.Module):
     """LayerNorm parameters under ``nn.LayerNorm``'s names."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, device: torch.device | str = "cpu"):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight, self.bias)
@@ -132,16 +133,18 @@ class _Norm(nn.Module):
 
 class MAB(nn.Module):
     """Submodule names follow the reference: ``attention``, ``ff``, ``norm1``,
-    ``norm2``."""
+    ``norm2``; drawn from ``key`` as ``mab_init``: ``k1, k2 = split(key)``
+    for the attention and the ff MLP."""
 
-    def __init__(self, cfg: MABConfig, generator: torch.Generator | None = None):
+    def __init__(self, cfg: MABConfig, key=None):
         super().__init__()
         self.cfg = cfg
-        self.attention = MHA(cfg.embed_dim, cfg.num_heads, generator)
-        self.ff = MLP(cfg.ff, generator)
+        k1, k2 = init.root(key).split(2)
+        self.attention = MHA(cfg.embed_dim, cfg.num_heads, k1)
+        self.ff = MLP(cfg.ff, k2)
         if cfg.layer_norm:
-            self.norm1 = _Norm(cfg.embed_dim)
-            self.norm2 = _Norm(cfg.embed_dim)
+            self.norm1 = _Norm(cfg.embed_dim, k1.root.device)
+            self.norm2 = _Norm(cfg.embed_dim, k1.root.device)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, y_mask: torch.Tensor | None = None,
                 train: bool = False, rng=None, update_sn: bool = True) -> torch.Tensor:

@@ -45,6 +45,10 @@ class Keys:
     def split(self, num: int) -> list["Keys"]:
         return [Keys(self.root, self.path + (i,)) for i in range(num)]
 
+    def fold_in(self, data: int) -> "Keys":
+        """``fold_in(key, data)``: child ``data``, as ``split(key, n)[data]``."""
+        return Keys(self.root, self.path + (int(data),))
+
     def words(self) -> torch.Tensor:
         return prng.draw(self.root, [prng.Row("words", (1,), self.path)])[0]
 

@@ -33,6 +33,7 @@ from typing import Any, Sequence
 import torch
 from torch import nn
 
+from . import init
 from .spectral_norm import spectral_normalize
 
 _BN_EPS = 1e-5
@@ -139,45 +140,50 @@ class MLPConfig:
         return self.spectral_norm and self.layer_has_activation(i)
 
 
-def linear_init(
-    weight: torch.Tensor, bias: torch.Tensor, generator: torch.Generator | None = None
-) -> None:
-    """torch ``nn.Linear``'s default init, drawn from ``generator``:
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias."""
+def linear_init(weight: torch.Tensor, bias: torch.Tensor | None, key=None) -> None:
+    """``mpgan_tpu/ops/linear.py::linear_init`` into ``weight [out, in]`` and
+    ``bias``: ``wk, bk = split(key)``, each uniform on ``+-1/sqrt(in)`` (torch
+    ``nn.Linear``'s default distribution). ``bias`` None: a layer the JAX
+    package draws with ``linear_init`` and then drops the bias of."""
+    wk, bk = init.root(key).split(2)
     in_dim = weight.shape[1]
     bound = 1.0 / math.sqrt(in_dim) if in_dim > 0 else 0.0
     with torch.no_grad():
-        weight.uniform_(-bound, bound, generator=generator)
-        bias.uniform_(-bound, bound, generator=generator)
+        weight.copy_(init.uniform(wk, weight.shape, -bound, bound))
+        if bias is not None:
+            bias.copy_(init.uniform(bk, bias.shape, -bound, bound))
 
 
-def make_linear(in_dim: int, out_dim: int, generator: torch.Generator | None = None,
-                bias: bool = True) -> nn.Linear:
-    """An ``nn.Linear`` drawn as :func:`linear_init` draws it (weight, then bias)."""
-    lin = nn.Linear(in_dim, out_dim, bias=bias)
-    bound = 1.0 / math.sqrt(in_dim) if in_dim > 0 else 0.0
-    with torch.no_grad():
-        lin.weight.uniform_(-bound, bound, generator=generator)
-        if bias:
-            lin.bias.uniform_(-bound, bound, generator=generator)
+def empty_linear(in_dim: int, out_dim: int, bias: bool = True,
+                 device: torch.device | str = "cpu") -> nn.Linear:
+    """An ``nn.Linear`` with uninitialised parameters on ``device`` (it draws
+    nothing from torch's RNG)."""
+    return torch.nn.utils.skip_init(nn.Linear, in_dim, out_dim, bias=bias, device=device)
+
+
+def make_linear(in_dim: int, out_dim: int, key=None, bias: bool = True) -> nn.Linear:
+    """An ``nn.Linear`` drawn by :func:`linear_init` from ``key``, on the key's device."""
+    k = init.root(key)
+    lin = empty_linear(in_dim, out_dim, bias, k.root.device)
+    linear_init(lin.weight, lin.bias if bias else None, k)
     return lin
 
 
 class _SNParams(nn.Module):
     """Parameters of a spectral-norm wrapped Linear, under the reference's names."""
 
-    def __init__(self, in_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, out_dim: int, device: torch.device | str = "cpu"):
         super().__init__()
-        self.weight_bar = nn.Parameter(torch.empty(out_dim, in_dim))
-        self.bias = nn.Parameter(torch.empty(out_dim))
-        self.register_buffer("weight_u", torch.empty(out_dim))
-        self.register_buffer("weight_v", torch.empty(in_dim))
+        self.weight_bar = nn.Parameter(torch.empty(out_dim, in_dim, device=device))
+        self.bias = nn.Parameter(torch.empty(out_dim, device=device))
+        self.register_buffer("weight_u", torch.empty(out_dim, device=device))
+        self.register_buffer("weight_v", torch.empty(in_dim, device=device))
 
 
 class SNLinear(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, out_dim: int, device: torch.device | str = "cpu"):
         super().__init__()
-        self.module = _SNParams(in_dim, out_dim)
+        self.module = _SNParams(in_dim, out_dim, device)
 
     def weight_and_bias(self, update_sn: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
         """The normalized weight; ``update_sn`` keeps the advanced ``u``/``v``."""
@@ -199,30 +205,39 @@ def layer_weight_and_bias(layer: nn.Module, update_sn: bool = True
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: MLPConfig, generator: torch.Generator | None = None):
+    def __init__(self, cfg: MLPConfig, key=None):
+        """``mlp_init``'s draws from ``key`` (see :mod:`.init`), on the key's
+        device: ``split(key, L + 1)``, layer ``i`` from child ``i``; a
+        spectral-norm layer's ``u`` is ``normal(split(keys[-1], L)[i])``
+        normalised, and ``weight_v`` (no JAX leaf) ``normalize(w^T u)``, as
+        ``utils/weights`` derives it."""
         super().__init__()
         self.cfg = cfg
+        k = init.root(key)
+        dev = k.root.device
+        keys = k.split(cfg.num_layers + 1)
+        sn_keys = keys[-1].split(cfg.num_layers)
         layers = []
         for i in range(cfg.num_layers):
             d_in, d_out = cfg.sizes[i], cfg.sizes[i + 1]
             if cfg.layer_has_sn(i):
-                layer = SNLinear(d_in, d_out)
+                layer = SNLinear(d_in, d_out, dev)
                 p = layer.module
-                linear_init(p.weight_bar, p.bias, generator)
+                linear_init(p.weight_bar, p.bias, keys[i])
                 with torch.no_grad():
-                    u = torch.randn(d_out, generator=generator)
+                    u = init.normal(sn_keys[i], (d_out,))
                     p.weight_u.copy_(u / (torch.linalg.vector_norm(u) + 1e-12))
                     v = p.weight_bar.t() @ p.weight_u
                     p.weight_v.copy_(v / (torch.linalg.vector_norm(v) + 1e-12))
             else:
-                layer = nn.Linear(d_in, d_out)
-                linear_init(layer.weight, layer.bias, generator)
+                layer = empty_linear(d_in, d_out, device=dev)
+                linear_init(layer.weight, layer.bias, keys[i])
             layers.append(layer)
         self.net = nn.ModuleList(layers)
         if cfg.batch_norm:
             # BatchNorm1d's own init: scale 1, bias 0, running mean 0, var 1
             self.bn = nn.ModuleList(
-                nn.BatchNorm1d(cfg.sizes[i + 1], eps=_BN_EPS)
+                nn.BatchNorm1d(cfg.sizes[i + 1], eps=_BN_EPS, device=dev)
                 for i in range(cfg.num_layers)
                 if cfg.layer_has_activation(i)
             )

@@ -53,6 +53,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from . import init
 from .knn_kernels import knn_aggregate, knn_aggregate_split
 from .linear import MLP, MLPConfig, layer_weight_and_bias
 from .mp_kernels import EdgeAggregate, edge_aggregate_fn
@@ -125,11 +126,13 @@ class MPLayerConfig:
 
 
 class MPLayer(nn.Module):
-    def __init__(self, cfg: MPLayerConfig, generator: torch.Generator | None = None):
+    def __init__(self, cfg: MPLayerConfig, key=None):
+        """``mp_layer_init``'s draws: ``fe_key, fn_key = split(key)``."""
         super().__init__()
         self.cfg = cfg
-        self.fe = MLP(cfg.fe, generator)
-        self.fn = MLP(cfg.fn, generator)
+        fe_key, fn_key = init.root(key).split(2)
+        self.fe = MLP(cfg.fe, fe_key)
+        self.fn = MLP(cfg.fn, fn_key)
 
     def forward(self, x, *, mask=None, labels=None, num_jet_particles=None,
                 train: bool = False, rng=None, update_sn: bool = True,

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .linear import hash_seed
+from . import linear as _linear
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -402,7 +402,7 @@ def threefry_draws_reference(key: torch.Tensor, plan: Plan, out: torch.Tensor,
         if r.dist == "key":
             val = torch.tensor(k, dtype=torch.int64)
         elif r.dist == "words":
-            val = torch.tensor([hash_seed(k)], dtype=torch.int64)
+            val = torch.tensor([_linear.hash_seed(k)], dtype=torch.int64)
         elif r.dist == "edge_seed":
             val = torch.tensor([edge_seed_of(k)], dtype=torch.int64)
         elif r.dist == "uniform":

@@ -14,9 +14,9 @@ one file moves between the two packages. The leaves, in order:
   saves zeros, as optax's fresh state holds;
 - the rng: the state's threefry key, its two uint32 words as they are. Both
   packages read them as their PRNG key, so a JAX TrainState carries its
-  stream across and a resume continues the saved run's stream; a port
-  checkpoint written when the port drew from a ``torch.Generator`` (two words
-  drawn from it) loads its words as a key.
+  stream across and a resume continues the saved run's stream. Any two words
+  load as a key, those of a port checkpoint whose rng leaf holds two words
+  drawn from a ``torch.Generator`` (before the port's stream was JAX's) too.
 
 Loss histories are one ``<key>.txt`` per metric (np.savetxt, train.py:538-540),
 truncated to the resume epoch on load (setup_training.py:1576-1579). Writes

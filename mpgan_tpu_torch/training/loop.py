@@ -186,15 +186,15 @@ class Trainer:
             self.eval_post_fn = lambda out, point_noise: suite.post_gen(out)
         # the 0-based model epoch the legacy MPGAN's --mask-epoch compares against
         self.model_epoch = self.start_epoch
-        # the models' initial weights from a CPU generator seeded --seed; the
-        # steps' key as the JAX package seeds it: split(PRNGKey(seed), 3)[2]
-        # (init_train_state's krest), so the same seed gives JAX's step stream
-        init = torch.Generator().manual_seed(int(args.seed))
-        g = suite.generator(init, device=self.device)
-        d = suite.discriminator(init, device=self.device)
+        # kg, kd, krest = split(PRNGKey(seed), 3), as init_train_state splits
+        # it: G and D drawn on the device from the first two, the steps' key
+        # the third, so one seed gives the JAX package's weights and stream
+        root = prng.PRNGKey(int(args.seed))
+        g = suite.generator(prng.fold_in(root, 0), device=self.device)
+        d = suite.discriminator(prng.fold_in(root, 1), device=self.device)
         opt = lambda m, lr: build_optimizer(  # noqa: E731
             args.optimizer, m.parameters(), lr, beta1=args.beta1, beta2=args.beta2)
-        key = prng.fold_in(prng.PRNGKey(int(args.seed)), 2).to(self.device)
+        key = prng.fold_in(root, 2).to(self.device)
         self.state = TrainState(g, d, opt(g, args.lr_gen), opt(d, args.lr_disc), key)
         if self.start_epoch > 0:
             ckpt.load_train_state(ckpt.checkpoint_path(self.models_dir, self.start_epoch),

@@ -140,7 +140,7 @@ def outputs(cs, mk, kk, gk, dev, from_args_dict) -> dict[str, torch.Tensor]:
                                                               1515, need))
     from mpgan_tpu_torch.models.registry import build_suite
 
-    g = build_suite(from_args_dict(cs.GAPT)).generator(torch.Generator().manual_seed(15),
+    g = build_suite(from_args_dict(cs.GAPT)).generator(cs.prng_key(15, "cpu"),
                                                         device=dev)
     x, mask = cs.gapt_kernel_inputs(dev, g, 64, True, seed=15)
     with torch.no_grad():

@@ -162,7 +162,7 @@ def bf16_rows(cs, mk, gk, dev, report, phases):
     from mpgan_tpu_torch.models.registry import build_suite
     from mpgan_tpu_torch.training.config import from_args_dict
 
-    g = build_suite(from_args_dict(cs.GAPT)).generator(torch.Generator().manual_seed(30),
+    g = build_suite(from_args_dict(cs.GAPT)).generator(cs.prng_key(30, "cpu"),
                                                        device=dev)
     w = gk.GaptWeights(*cs.to_bf16(*g.fused_weights()))
     for b in (1024, 4096):
@@ -270,7 +270,7 @@ def main(argv=None):
     for n, b in ((30, 1024), (30, 4096), (150, 512)):
         if n not in gens:
             gens[n] = build_suite(from_args_dict({**cs.GAPT, "num_hits": n})).generator(
-                torch.Generator().manual_seed(30 if n == 30 else 6), device=dev)
+                cs.prng_key(30 if n == 30 else 6, "cpu"), device=dev)
         g = gens[n]
         x, mask = cs.gapt_kernel_inputs(dev, g, b, True, seed=b + 1)
         w, heads = g.fused_weights(), g.cfg.num_heads
@@ -304,7 +304,7 @@ def main(argv=None):
 
     for n, b in ((30, 4096), (150, 512)):
         g = MPGenerator(build_mpgan_generator(from_args_dict({**cs.FLAGSHIP, "num_hits": n})),
-                        torch.Generator().manual_seed(n), device=dev)
+                        cs.prng_key(n, "cpu"), device=dev)
         noise = torch.randn(b, n, 32, generator=torch.Generator(device=dev).manual_seed(2),
                             device=dev) * 0.2
         lab = torch.full((b, 1), 0.7, device=dev)

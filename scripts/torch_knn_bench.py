@@ -194,7 +194,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     # knn-20 generation at the sampler's batch, route 4 and route 3 in turns
-    g = build_suite(from_args_dict(cs.KNN150)).generator(torch.Generator().manual_seed(3),
+    g = build_suite(from_args_dict(cs.KNN150)).generator(cs.prng_key(3, "cpu"),
                                                          device=dev)
     noise = torch.randn(512, N, 32, generator=torch.Generator(device=dev).manual_seed(2),
                         device=dev) * 0.2

@@ -156,7 +156,7 @@ def graph_steps(cs, from_args_dict, dev, card, args):
     if args.eager:
         return
     margs = from_args_dict(cs.GAPT)
-    g = build_suite(margs).generator(torch.Generator().manual_seed(30), device=dev)
+    g = build_suite(margs).generator(cs.prng_key(30, "cpu"), device=dev)
     spec = build_suite(margs).noise
     labels = cs.graph_data(margs, 4096)[1]
     for batch in (1024, 4096):

@@ -179,7 +179,7 @@ class StepPair:
         js = self.jsuite
         self.jstate = jts.init_train_state(jax.random.PRNGKey(0), js.g_init, js.d_init,
                                            js.g_cfg, js.d_cfg, g_opt, d_opt)
-        g, d = self.tsuite.generator(torch.Generator().manual_seed(5)), \
+        g, d = self.tsuite.generator(prng.PRNGKey(5)), \
             self.tsuite.discriminator()
         load_jax_trees(g, _np(self.jstate.g_params), _np(self.jstate.g_state))
         load_jax_trees(d, _np(self.jstate.d_params), _np(self.jstate.d_state))

@@ -162,8 +162,8 @@ def test_every_zoo_family_takes_bf16_steps(family, pcgan_dir):  # noqa: F811
     weights = pcgan_dir if family == "pcgan" else None
     args = _args(tconfig, family, pcgan_dir if family == "pcgan" else "")
     suite = tregistry.build_suite(args, pcgan_weights_dir=weights)
-    gen = torch.Generator().manual_seed(0)
-    g, d = suite.generator(gen), suite.discriminator(gen)
+    kg, kd = prng.split(prng.PRNGKey(0))
+    g, d = suite.generator(kg), suite.discriminator(kd)
     opt = lambda m, lr: topt.build_optimizer(args.optimizer, m.parameters(), lr,  # noqa: E731
                                              beta1=args.beta1, beta2=args.beta2)
     st = tts.TrainState(g, d, opt(g, args.lr_gen), opt(d, args.lr_disc), prng.PRNGKey(0))
@@ -185,7 +185,7 @@ def test_every_zoo_family_takes_bf16_steps(family, pcgan_dir):  # noqa: F811
 def test_bf16_apply_runs_the_module_in_bf16_and_moves_its_buffers():
     """``bf16_apply`` runs every layer on bf16 copies, returns float32 and
     copies the BN running statistics back (each passing through bf16)."""
-    mlp = MLP(MLPConfig((5, 7, 3), batch_norm=True), torch.Generator().manual_seed(0))
+    mlp = MLP(MLPConfig((5, 7, 3), batch_norm=True), prng.PRNGKey(0))
     seen = []
     mlp.register_forward_pre_hook(lambda m, a: seen.append((a[0].dtype, m.net[1].weight.dtype)))
     x = torch.randn(6, 5, generator=torch.Generator().manual_seed(1))

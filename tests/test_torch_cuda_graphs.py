@@ -103,8 +103,8 @@ def test_a_replayed_launch_hashes_the_seed_in_its_buffer(dev):
 
 def _state(args, dev):
     suite = registry.build_suite(args)
-    gen = torch.Generator().manual_seed(0)
-    g, d = suite.generator(gen, device=dev), suite.discriminator(gen, device=dev)
+    kg, kd = prng.split(prng.PRNGKey(0))
+    g, d = suite.generator(kg, device=dev), suite.discriminator(kd, device=dev)
     return suite, ts.TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), args.lr_gen),
                                 build_optimizer(args.optimizer, d.parameters(), args.lr_disc),
                                 prng.PRNGKey(0, dev))

@@ -140,7 +140,7 @@ def test_refused_launch_raises(dev):
 @pytest.mark.parametrize("num_hits", [30, 150])
 def test_generator_kernel_path_matches_plain_path(dev, num_hits):
     cfg = build_mpgan_generator(from_args_dict({"model": "mpgan", "num_hits": num_hits}))
-    g = MPGenerator(cfg, torch.Generator().manual_seed(0), device=dev)
+    g = MPGenerator(cfg, prng.PRNGKey(0), device=dev)
     noise = torch.randn(8, num_hits, 32, generator=torch.Generator(device=dev).manual_seed(1),
                         device=dev) * 0.2
     labels = torch.full((8, 1), 0.7, device=dev)
@@ -157,7 +157,7 @@ def test_150p_fe128_256_generator_kernel_path_matches_plain_path(dev):
     chain, 128 -> 256."""
     cfg = build_mpgan_generator(from_args_dict({"model": "mpgan", "num_hits": 150,
                                                 "fe": [128, 256]}))
-    g = MPGenerator(cfg, torch.Generator().manual_seed(0), device=dev)
+    g = MPGenerator(cfg, prng.PRNGKey(0), device=dev)
     noise = torch.randn(4, 150, 32, generator=torch.Generator(device=dev).manual_seed(1),
                         device=dev) * 0.2
     labels = torch.full((4, 1), 0.7, device=dev)
@@ -390,7 +390,7 @@ def test_discriminator_without_weight_grads_launches_k3_without_them(dev):
     """The G step's D pass: parameters with requires_grad off, so the backward
     takes K3 without the weight contractions, and only the input has a gradient."""
     args = from_args_dict({"model": "mpgan"})
-    d = MPDiscriminator(build_mpgan_discriminator(args), torch.Generator().manual_seed(0),
+    d = MPDiscriminator(build_mpgan_discriminator(args), prng.PRNGKey(0),
                         device=dev)
     x = torch.randn(16, 30, 4, device=dev) * 0.3
     x[..., -1] = (torch.rand(16, 30, device=dev) > 0.3).float() - 0.5
@@ -858,7 +858,7 @@ def test_knn_generator_kernel_path_matches_its_plain_versions(dev):
     """The 150-particle knn-20 generator on the card against the same path
     through the kernels' plain versions on the CPU: same keys, same neighbours."""
     cfg = build_mpgan_generator(from_args_dict(KNN150))
-    g = MPGenerator(cfg, torch.Generator().manual_seed(0))
+    g = MPGenerator(cfg, prng.PRNGKey(0))
     noise = torch.randn(4, 150, 32, generator=torch.Generator().manual_seed(1)) * 0.2
     labels = torch.tensor([[1.0], [0.4], [0.1], [0.02]])
     with torch.inference_mode():
@@ -876,7 +876,7 @@ def test_knn_discriminator_backward_launches_k6(dev):
     """D in train mode: K5 emitting idx, then K6 with the weight contractions;
     with D's parameters frozen (the G step), K6 without them."""
     d = MPDiscriminator(build_mpgan_discriminator(from_args_dict(KNN150)),
-                        torch.Generator().manual_seed(0), device=dev)
+                        prng.PRNGKey(0), device=dev)
     x = torch.randn(4, 150, 4, device=dev) * 0.3
     x[..., -1] = (torch.rand(4, 150, device=dev) > 0.3).float() - 0.5
     x.requires_grad_()
@@ -1063,7 +1063,7 @@ def test_knn_layer_routes_on_the_card(dev, monkeypatch):
     from mpgan_tpu_torch.ops import mp
 
     cfg = build_mpgan_generator(from_args_dict(KNN150))
-    g = MPGenerator(cfg, torch.Generator().manual_seed(0), device=dev)
+    g = MPGenerator(cfg, prng.PRNGKey(0), device=dev)
     noise = torch.randn(4, 150, 32, generator=torch.Generator().manual_seed(1)).to(dev) * 0.2
     labels = torch.tensor([[1.0], [0.4], [0.1], [0.02]], device=dev)
     outs = {}
@@ -1339,7 +1339,7 @@ def _gapt(dev, n, e, heads, layers, masked, seed=0):
 
     cfg = GAPTConfig(num_particles=n, feat_size=3, is_generator=True, sab_layers=layers,
                      num_heads=heads, embed_dim=e, use_mask=masked)
-    return GAPTGenerator(cfg, torch.Generator().manual_seed(seed), device=dev)
+    return GAPTGenerator(cfg, prng.PRNGKey(seed), device=dev)
 
 
 @pytest.mark.parametrize("n,e,heads,layers,masked,b", [

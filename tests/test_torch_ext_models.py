@@ -34,6 +34,7 @@ from mpgan_tpu_torch.models.ext import pcgan as tpcgan
 from mpgan_tpu_torch.models.ext import pointnet as tpointnet
 from mpgan_tpu_torch.models.ext import rgan as trgan
 from mpgan_tpu_torch.models.ext import treegan as ttreegan
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.utils.weights import jax_leaves, load_jax_trees, tree_leaves
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -46,7 +47,7 @@ def _np(tree):
 
 def _pair(jinit, jcls_cfg, tcls, tcfg, seed=0):
     params, state = jinit(jax.random.PRNGKey(seed), jcls_cfg)
-    module = load_jax_trees(tcls(tcfg, torch.Generator().manual_seed(seed + 100)),
+    module = load_jax_trees(tcls(tcfg, prng.PRNGKey(seed + 100)),
                             _np(params), _np(state))
     return params, state, module
 
@@ -218,7 +219,7 @@ def _ref_sd(module):
 @pytest.mark.parametrize("pool", ["max1", "max", "mean"])
 def test_pcgan_g_inv_matches_jax(pool):
     kw = dict(node_feat_size=3, z1_dim=12, d_dim=16, pool=pool)
-    g_inv = tpcgan.GInv(tpcgan.PCGANConfig(**kw), torch.Generator().manual_seed(1))
+    g_inv = tpcgan.GInv(tpcgan.PCGANConfig(**kw), prng.PRNGKey(1))
     jcfg = jpcgan.PCGANConfig(**kw)
     params, state = jpcgan.g_inv_weights_from_torch(_ref_sd(g_inv), jcfg)
     x = np.tanh(_x(5, 10, 3))
@@ -231,7 +232,7 @@ def test_pcgan_g_inv_matches_jax(pool):
 
 def test_pcgan_g_pc_matches_jax_on_equal_point_noise():
     kw = dict(node_feat_size=3, z1_dim=12, z2_dim=4)
-    g_pc = tpcgan.GPc(tpcgan.PCGANConfig(**kw), torch.Generator().manual_seed(2))
+    g_pc = tpcgan.GPc(tpcgan.PCGANConfig(**kw), prng.PRNGKey(2))
     jcfg = jpcgan.PCGANConfig(**kw)
     params, state = jpcgan.g_pc_weights_from_torch(_ref_sd(g_pc), jcfg)
     z1, z2 = _x(5, 1, 12), _x(5, 10, 4, seed=1)

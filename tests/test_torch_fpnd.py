@@ -30,6 +30,7 @@ from mpgan_tpu.evaluation import fpnd as jfpnd
 from mpgan_tpu_torch.cli import args as targs_cli
 from mpgan_tpu_torch.cli import train as ttrain_cli
 from mpgan_tpu_torch.evaluation import fpnd as tfpnd
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.utils.weights import load_particlenet, particlenet_from_jax
 
 from test_fpnd_import import _build_torch_particlenet
@@ -97,7 +98,7 @@ def test_fpnd_matches_jax(jax_trunk):
 
 def test_random_trunk_is_seeded():
     a, b = tfpnd.particlenet_init(), tfpnd.particlenet_init()
-    c = tfpnd.particlenet_init(torch.Generator().manual_seed(7))
+    c = tfpnd.particlenet_init(prng.PRNGKey(7))
     wa, wb, wc = (p["edge_convs"][2]["convs"][1]["w"] for p in (a, b, c))
     assert wa.shape == (256, 256) and torch.equal(wa, wb) and not torch.equal(wa, wc)
     jets = torch.from_numpy(_jets(8))

@@ -163,7 +163,7 @@ def test_fused_plain_version_matches_the_pallas_kernel(n, e, h, layers, masked, 
 def test_fused_wrapper_is_eval_only_and_checks_shapes():
     tcfg = tgapt.GAPTConfig(num_particles=5, feat_size=3, is_generator=True, sab_layers=1,
                             num_heads=2, embed_dim=8, use_kernels=True)
-    g = tgapt.GAPTGenerator(tcfg, torch.Generator().manual_seed(0))
+    g = tgapt.GAPTGenerator(tcfg, prng.PRNGKey(0))
     w = g.fused_weights()
     assert g.fused_weights() is w  # cached until a parameter changes
     x = torch.zeros(2, 5, 8)
@@ -266,7 +266,7 @@ def test_weights_there_and_back(card):
                 np.testing.assert_array_equal(t.detach().numpy(), np.asarray(leaf))
         sd = gapt_generator_to_reference_sd(m)
         assert set(sd) == set(m.state_dict())
-        other = type(m)(m.cfg, torch.Generator().manual_seed(9))
+        other = type(m)(m.cfg, prng.PRNGKey(9))
         other.load_state_dict(sd, strict=True)
         for a, b in zip(jax_leaves(other, True), jax_leaves(m, True)):
             assert torch.equal(a, b)

@@ -159,8 +159,8 @@ def test_gapt_d_step_fake_batch_takes_the_fused_route_when_asked():
     data, labels = map(torch.from_numpy, _batch(8, 4))
     parts = []
     for flag in (False, True):
-        rng = torch.Generator().manual_seed(1)
-        g, d = suite.generator(rng), suite.discriminator(rng)
+        kg, kd = prng.split(prng.PRNGKey(1))
+        g, d = suite.generator(kg), suite.discriminator(kd)
         g.cfg = dataclasses.replace(g.cfg, use_kernels=flag)
         st = tts.TrainState(g, d, topt.build_optimizer("rmsprop", g.parameters(), 1e-4),
                             topt.build_optimizer("rmsprop", d.parameters(), 1e-4),
@@ -244,7 +244,7 @@ def test_gen_cli_from_a_gapt_pt(tmp_path, masked):
     card = dict(NARROW, gapt_mask=masked)
     args = tconfig.from_args_dict(card)
     suite = build_suite(args)
-    g = suite.generator(torch.Generator().manual_seed(2))
+    g = suite.generator(prng.PRNGKey(2))
     (tmp_path / "card.txt").write_text(repr(args.to_dict()))
     torch.save(gapt_generator_to_reference_sd(g), tmp_path / "G.pt")
     out = tmp_path / "gen.npy"

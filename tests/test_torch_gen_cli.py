@@ -44,7 +44,7 @@ def tiny_card(tmp_path):
     args = tconfig.from_args_dict(CARD)
     card = tmp_path / "card.txt"
     card.write_text(repr(args.to_dict()))
-    g = MPGenerator(tconfig.build_mpgan_generator(args), torch.Generator().manual_seed(1))
+    g = MPGenerator(tconfig.build_mpgan_generator(args), prng.PRNGKey(1))
     pt = tmp_path / "G.pt"
     torch.save(mp_generator_to_reference_sd(g), pt)
     return card, pt, g
@@ -111,7 +111,7 @@ def test_knn_reference_pt_loads_equally_in_jax_and_port_and_runs_through_gen(tmp
     samples from it."""
     args = tconfig.from_args_dict(KNN_CARD)
     tcfg = tconfig.build_mpgan_generator(args)
-    g0 = MPGenerator(tcfg, torch.Generator().manual_seed(2))
+    g0 = MPGenerator(tcfg, prng.PRNGKey(2))
     assert g0.mp_layers[0].fe.net[0].module.weight_bar.shape[1] == 2 * 8 + 1
     pt = tmp_path / "G.pt"
     torch.save(mp_generator_to_reference_sd(g0), pt)
@@ -197,7 +197,7 @@ def test_gen_cli_samples_from_a_port_written_npz(tiny_card, tmp_path):
     card, pt, g = tiny_card
     args = tconfig.from_args_txt(str(card))
     suite = build_suite(args)
-    d = suite.discriminator(torch.Generator().manual_seed(2))
+    d = suite.discriminator(prng.PRNGKey(2))
     state = TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), 1e-4),
                        build_optimizer(args.optimizer, d.parameters(), 1e-4),
                        prng.PRNGKey(0))

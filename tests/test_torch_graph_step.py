@@ -223,8 +223,8 @@ def _card_args(card, **kw):
 
 def _state(args, seed=0):
     suite = tregistry.build_suite(args)
-    gen = torch.Generator().manual_seed(seed)
-    g, d = suite.generator(gen), suite.discriminator(gen)
+    kg, kd = prng.split(prng.PRNGKey(seed))
+    g, d = suite.generator(kg), suite.discriminator(kd)
     opt = lambda m, lr: build_optimizer(args.optimizer, m.parameters(), lr,  # noqa: E731
                                         beta1=args.beta1, beta2=args.beta2)
     return suite, tts.TrainState(g, d, opt(g, args.lr_gen), opt(d, args.lr_disc),

@@ -95,8 +95,7 @@ class Pair:
     def port_state(self, key_seed=99):
         """A port TrainState holding the JAX state's leaves, its key among them."""
         a, s = self.targs, self.ts
-        g, d = s.generator(torch.Generator().manual_seed(1)), s.discriminator(
-            torch.Generator().manual_seed(2))
+        g, d = s.generator(prng.PRNGKey(1)), s.discriminator(prng.PRNGKey(2))
         opt = lambda m, lr: topt.build_optimizer(a.optimizer, m.parameters(), lr,  # noqa: E731
                                                  beta1=a.beta1, beta2=a.beta2)
         st = tts.TrainState(g, d, opt(g, a.lr_gen), opt(d, a.lr_disc), prng.PRNGKey(key_seed))

@@ -149,7 +149,7 @@ def _stepped(case):
 
 def _sampler():
     suite = tregistry.build_suite(tconfig.from_args_dict(SAMPLER))
-    g, spec = suite.generator(torch.Generator().manual_seed(3)), suite.noise
+    g, spec = suite.generator(prng.PRNGKey(3)), suite.noise
     labels = (np.random.RandomState(0).randint(1, 11, size=50) / 10)[:, None].astype(np.float32)
     return dict(g=g, spec=spec, seed=1, n=50, batch=16, labels=labels)
 

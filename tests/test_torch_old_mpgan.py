@@ -31,6 +31,7 @@ from mpgan_tpu.ops import mp as jmp
 from mpgan_tpu.training import config as jconfig
 from mpgan_tpu_torch.models import old_mpgan as told
 from mpgan_tpu_torch.models import registry as tregistry
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.training import config as tconfig
 from mpgan_tpu_torch.utils.weights import load_jax_trees
 
@@ -74,7 +75,7 @@ def _pair(extra, gen, mask_epoch, kernels, seed=0):
     tcfg = told.OldMPGANConfig.build(_legacy_args(tconfig, extra), gen=gen)
     params, state = jold.old_mpgan_init(jax.random.PRNGKey(seed), jcfg)
     module = told.OldMPGAN(dataclasses.replace(tcfg, use_kernels=kernels),
-                           torch.Generator().manual_seed(seed))
+                           prng.PRNGKey(seed))
     load_jax_trees(module, jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, state))
     return jcfg, params, state, module
 

@@ -22,6 +22,7 @@ from mpgan_tpu.ops import spectral_norm as jsn
 from mpgan_tpu_torch.ops import linear as tlinear
 from mpgan_tpu_torch.ops.keys import Keys
 from mpgan_tpu_torch.ops import masking as tmasking
+from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.ops import spectral_norm as tsn
 from mpgan_tpu_torch.utils.weights import mlp_sd_from_jax
 
@@ -165,7 +166,7 @@ def test_mlp_train_dropout_needs_an_rng():
 def test_mlp_init_distribution_matches_linear_init():
     """Uniform(+-1/sqrt(fan_in)) weights and biases, as mpgan_tpu.ops.linear.linear_init."""
     cfg = tlinear.MLPConfig.build([256], input_size=64, output_size=128)
-    mlp = tlinear.MLP(cfg, torch.Generator().manual_seed(0))
+    mlp = tlinear.MLP(cfg, prng.PRNGKey(0))
     for layer, fan_in in zip(mlp.net, (64, 256)):
         bound = 1 / np.sqrt(fan_in)
         w = layer.weight.detach().numpy()

@@ -102,8 +102,8 @@ def pcgan_dir(tmp_path_factory):
     """Seeded random G_inv / G_pc in the reference layout, as ``<dir>/pcgan_G_*_g.pt``."""
     d = tmp_path_factory.mktemp("pcgan")
     cfg = PCGANConfig(node_feat_size=3, latent_dim=8, z1_dim=12, z2_dim=4, d_dim=16)
-    torch.save(GInv(cfg, torch.Generator().manual_seed(11)).state_dict(), d / "pcgan_G_inv_g.pt")
-    torch.save(GPc(cfg, torch.Generator().manual_seed(12)).state_dict(), d / "pcgan_G_pc_g.pt")
+    torch.save(GInv(cfg, prng.PRNGKey(11)).state_dict(), d / "pcgan_G_inv_g.pt")
+    torch.save(GPc(cfg, prng.PRNGKey(12)).state_dict(), d / "pcgan_G_pc_g.pt")
     return str(d)
 
 
@@ -154,7 +154,7 @@ class _Family:
 
     def port_state(self):
         a, s = self.targs, self.tsuite
-        g, d = s.generator(torch.Generator().manual_seed(5)), s.discriminator()
+        g, d = s.generator(prng.PRNGKey(5)), s.discriminator()
         opt = lambda m, lr: topt.build_optimizer(a.optimizer, m.parameters(), lr,  # noqa: E731
                                                  beta1=a.beta1, beta2=a.beta2)
         return tts.TrainState(g, d, opt(g, a.lr_gen), opt(d, a.lr_disc), prng.PRNGKey(0))
@@ -303,7 +303,7 @@ def test_reference_state_dict_reads_back_in_both_packages(model):
               "pcgan": "pcgan", "old_mpgan": "mplfc"}[model]
     jargs, targs = _args(jconfig, family), _args(tconfig, family)
     js, ts = jregistry.build_suite(jargs), tregistry.build_suite(targs)
-    g = ts.generator(torch.Generator().manual_seed(3))
+    g = ts.generator(prng.PRNGKey(3))
     if model == "graphcnngan":
         with torch.no_grad():  # running statistics away from their init
             for bn in g.bn_layers:
