@@ -36,9 +36,13 @@ Phases, each printed as it finishes:
 8. one flagship-width D+G step on the card against the same step on the CPU
    (the kernels' plain versions), B=16, from the same state, batch, noise and
    dropout keys: losses and every gradient agree (where they do not, the rows
-   at LeakyReLU's kink left out, :class:`KinkRows`, as in phase 13). Again on
-   the card's plain path with dropout 0 (the plain path draws other masks than
-   the kernels);
+   at LeakyReLU's kink left out, :class:`KinkRows`, as in phase 13); then the
+   same step part by part (:func:`part_by_part`): the D step and then the G
+   step each started on both devices from the card's state (both models, the
+   optimizers' state and the key copied into the CPU's), each part's losses,
+   gradients, updated state and key held at 1e-4 in the same kink rounds. Again
+   on the card's plain path with dropout 0 (the plain path draws other masks
+   than the kernels);
 9. the main train path: ``mpgan_tpu_torch.cli.train`` with the flagship card
    and ``--efp --fpd --cov-mmd`` on synthetic jets, 2 epochs (checkpoints each
    epoch, evaluation at epoch 2: finite w1efp and coverage/MMD, a finite FPD
@@ -92,8 +96,8 @@ Phases, each printed as it finishes:
     (gradients: of max(1, max|ref|)); where they do not, the receiver rows
     whose edges hold a LeakyReLU pre-activation at the kink (:class:`KinkRows`)
     are left out of both steps' gradients and every tensor is held at 1e-4
-    again (the rows left out are logged). The plain path: losses within 2e-3,
-    gradients within 5e-2 of max(1, max|ref|);
+    again (the rows left out are logged); then part by part, as phase 8. The
+    plain path: losses within 2e-3, gradients within 5e-2 of max(1, max|ref|);
 14. the knn train path: ``mpgan_tpu_torch.cli.train`` with ``--num-hits 150
     --no-fully-connected --num-knn 20`` at its default batch (160), 2 epochs, a
     resume that restores the state exactly, and launch counts equal to the
@@ -269,8 +273,9 @@ Phases, each printed as it finishes:
     the same state, shards and per-rank draws, losses and gradients within
     phase 8's tolerances (where 1e-4 fails, with the kink's receiver rows left
     out, as phase 13 does) and the updated parameters where the gradient is
-    clear of zero within 1e-4, the parameters bit-identical across the ranks; the
-    2-rank sampler at B=4096 against one rank's within rtol = atol = 1e-4, the
+    clear of zero within 1e-4, the parameters bit-identical across the ranks,
+    then part by part as phase 8 (each part's first kink round that holds on
+    both ranks); the 2-rank sampler at B=4096 against one rank's within rtol = atol = 1e-4, the
     mask column equal; the step's wall time (gloo stages through the host:
     recorded, no target). Two NCCL ranks cannot share one card, so the
     many-rank reduce is held to the JAX package on the CPU (tests).
@@ -284,13 +289,29 @@ Phases, each printed as it finishes:
     writes them, then timed beside its plain version and its bound; three keyed
     flagship D+G steps (B=16, dropout 0.5) on the card against the CPU (the
     kernels' plain versions) from one key, losses and the first step's
-    gradients within 1e-4 and the key bit for bit after each; a captured
+    gradients within 1e-4 and the key bit for bit after each, then the three
+    steps part by part as phase 8, each part started from the card's state; a captured
     5-batch flagship epoch equal bit for bit to the eager epoch, then profiled
     (host and device): at most one host-to-device copy (the epoch's order) and
     two copy calls (the order in, the losses out), no CPU random-number call
     and one ``threefry_draws`` a step; the host's issue ms,
     the idle share and wall ms of the flagship (B=256), knn-20 (B=128) and
-    GAPT (B=512) graph steps.
+    GAPT (B=512) graph steps;
+32. the models' initial weights drawn from the key on the card against the
+    CPU's (:func:`init_phase`);
+33. the MP layer's configuration lattice (:func:`lattice_phase`): the JAX
+    package's 48 points (``tests/test_kernel_fuzz.py``'s sampler and seeds, B=2,
+    n 9-16, widths 4-16), 8 at the published widths (flags from
+    ``Random(7000 + i)``; dense N=30 B=64, knn N=150 k=20 B=16 on routes 4 and
+    3) and one on the K4 route. At each valid point: FP32 with dropout off, the
+    kernel path against the plain path, output and every gradient at rtol =
+    atol = 1e-4 (weight gradients of max(1, max|ref|)), a rerun bit for bit;
+    with dropout on, the kernels against their plain versions on the card (the
+    same seeds), the dense plan for 7 SMs and the other knn route at 1e-4; bf16
+    against the bf16 plain versions at 1e-2 (knn gradients as a whole, relative
+    L2 3e-2); the kernels launched are those the point's gate names, none at a
+    point the kernels do not take. An invalid point raises the same
+    ``ValueError`` on both paths. One line a point, every fault raised at the end.
 
 ``threefry_draws``'s entry counts its bytes (the plan, key, counter and order row
 read, every draw written once) over 3.35 TB/s and its 32-bit integer and float
@@ -319,10 +340,12 @@ before those lines, as does a machine without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import logging
 import pathlib
+import random
 import re
 import subprocess
 import sys
@@ -836,8 +859,154 @@ class KinkRows:
         return new
 
 
+def copy_state(src, dst) -> None:
+    """``dst`` (a TrainState of the same models, on any device) made equal to
+    ``src``: both models' parameters and buffers, both optimizers' state
+    tensors (``step`` as the optimizer on ``dst``'s device keeps it) and the key."""
+    with torch.no_grad():
+        for a, b in ((src.g, dst.g), (src.d, dst.d)):
+            for ta, tb in zip(a.state_dict().values(), b.state_dict().values()):
+                tb.copy_(ta)
+        for (ma, oa), (mb, ob) in (((src.g, src.g_opt), (dst.g, dst.g_opt)),
+                                   ((src.d, src.d_opt), (dst.d, dst.d_opt))):
+            capturable = ob.defaults.get("capturable", False)
+            for pa, pb in zip(ma.parameters(), mb.parameters()):
+                ob.state.pop(pb, None)
+                if pa in oa.state:
+                    ob.state[pb] = {
+                        k: (torch.tensor(float(v), device=pb.device if capturable else "cpu")
+                            if k == "step" else v.detach().to(pb.device, copy=True))
+                        for k, v in oa.state[pa].items()}
+        dst.rng.copy_(src.rng)
+
+
+def part_figures(state, model_name, parts) -> dict:
+    """What a part of a step leaves to compare: its losses, the stepped model's
+    gradients, both models' parameters and buffers, both optimizers' state
+    tensors (``step`` left out) and the key, on the CPU."""
+    from mpgan_tpu_torch.utils.weights import jax_leaves
+
+    cpu = lambda t: t.detach().cpu().clone()  # noqa: E731
+    model = getattr(state, model_name)
+    return {"losses": {k: v.item() for k, v in parts.items()},
+            "grads": [cpu(p.grad) if p.grad is not None else torch.zeros(p.shape)
+                      for p in jax_leaves(model, True)],
+            "params": [cpu(p) for p in (*state.g.parameters(), *state.d.parameters())],
+            "stepped_grads": [cpu(p.grad) if p.grad is not None else torch.zeros(p.shape)
+                              for p in (*state.g.parameters(), *state.d.parameters())],
+            "buffers": [cpu(b) for b in (*state.g.buffers(), *state.d.buffers())
+                        if b.is_floating_point()],
+            "opt": [cpu(v) for opt in (state.g_opt, state.d_opt) for s in opt.state.values()
+                    for k, v in s.items() if k != "step"],
+            "key": cpu(state.rng)}
+
+
+def part_agree(c, h) -> dict:
+    """A part on the card (``c``) against the CPU (``h``): the losses relative to
+    max(1, |loss|); each gradient and optimizer state tensor over TOL * max(1,
+    max|ref|); the buffers elementwise over TOL + TOL * |ref|; the updated
+    parameters where the gradient is clear of zero, 1e-3 (RMSprop's first step
+    is about 10 * lr * sign(g)), within TOL; the key bit for bit."""
+    over = lambda a, b: (a - b).abs().max().item() / (TOL * max(1.0, b.abs().max().item()))  # noqa: E731
+    loss_err = max(abs(c["losses"][k] - h["losses"][k]) / max(1.0, abs(h["losses"][k]))
+                   for k in h["losses"])
+    grads = max([over(a, b) for a, b in zip(c["grads"], h["grads"]) if b.numel()] or [0.0])
+    opt = max([over(a, b) for a, b in zip(c["opt"], h["opt"]) if b.numel()] or [0.0])
+    buffers = max([((a - b).abs() / (TOL + TOL * b.abs())).max().item()
+                   for a, b in zip(c["buffers"], h["buffers"]) if b.numel()] or [0.0])
+    params = max([((a - b).abs() * (g.abs() > 1e-3)).max().item()
+                  for a, b, g in zip(c["params"], h["params"], h["stepped_grads"])
+                  if b.numel()] or [0.0])
+    key = torch.equal(c["key"], h["key"])
+    return {"max_rel_loss_err": loss_err, "grad_over_bound": grads, "opt_over_bound": opt,
+            "buffer_over_bound": buffers, "max_param_err_where_grad_clear": params,
+            "key_bit_identical": key,
+            "ok": (loss_err <= TOL and grads <= 1.0 and opt <= 1.0 and buffers <= 1.0
+                   and params <= TOL and key)}
+
+
+def part_by_part(dev, args, data, labels, steps, phase, knn=None, draws=None, mesh=None):
+    """Beside a free-running card-against-CPU comparison: each part of each of
+    ``steps`` D+G steps on the kernel path started from the same state on both
+    sides. Before a part, the card's whole state (both models, their
+    optimizers' state and the key) is copied into a CPU state; the part runs on
+    both (the CPU on the kernels' plain versions; with ``knn``, on the card's
+    neighbours, :class:`CardNeighbours`) and is held by :func:`part_agree`,
+    in rounds that leave out the rows at LeakyReLU's kink (:class:`KinkRows`);
+    the next part starts from the card's state after the first round (the part
+    as it ran). With ``mesh`` (phase 30 (b), a rank of it), every round runs,
+    the reduces being collective, and ``draws(x)`` gives the parts' draws on
+    ``x``'s device. Returns,
+    per part, its rounds' figures, the rows each round left out and the
+    receiver rows of its edge-layer calls."""
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training.train_step import d_step, g_step, step_config
+
+    cfg, spec = step_config(args), build_suite(args).noise
+    run = {"d": lambda st, x, lab: d_step(st, cfg, spec, x, lab, mesh=mesh,
+                                          draws=None if draws is None else draws(x)[0]),
+           "g": lambda st, x, lab: g_step(st, cfg, spec, x, lab, mesh=mesh,
+                                          draws=None if draws is None else draws(x)[1])}
+    cpu_dev = torch.device("cpu")
+    start = make_state(args, dev)
+    out = []
+    for step in range(steps):
+        for part in ("d", "g"):
+            held = CardNeighbours(knn) if knn is not None else None
+            kinks = KinkRows(held)
+            rounds, after = [], None
+            with contextlib.ExitStack() as stack:
+                for ctx in (held, kinks):
+                    if ctx is not None:
+                        stack.enter_context(ctx)
+                for r in range(KINK_ROUNDS):
+                    if r and mesh is not None:
+                        kinks.flag()
+                    figures = {}
+                    for side, device in (("card", dev), ("cpu", cpu_dev)):
+                        kinks.begin(side)
+                        st = make_state(args, device)
+                        copy_state(start, st)
+                        use_kernels(st, True)
+                        parts = run[part](st, data.to(device), labels.to(device))
+                        figures[side] = part_figures(st, part, parts)
+                        if side == "card" and r == 0:
+                            after = st
+                    held_r = part_agree(figures["card"], figures["cpu"])
+                    rounds.append({**held_r, "rows_left_out": kinks.rows_left_out()})
+                    if mesh is None and (held_r["ok"] or kinks.flag() == 0):
+                        break
+            if held is not None and held.card:
+                raise SystemExit(f"{phase}: {len(held.card)} knn calls on the card had no "
+                                 "counterpart on the CPU")
+            out.append({"step": step + 1, "part": part, "rounds": rounds,
+                        "kink_rows_by_call": kinks.rows_by_call(),
+                        "receiver_rows": sum(r["u1"].shape[0] * r["u1"].shape[1]
+                                             for r in kinks.records["card"]
+                                             if r is not None and r["kind"] != "mlp")})
+            start = after
+    return out
+
+
+def parts_held(phase, parts, held=None) -> list:
+    """Logs the parts of :func:`part_by_part` (each with the figures of its
+    round ``held[i]``, by default its first round that holds, else its last);
+    returns those that no round held at 1e-4."""
+    rows = []
+    for i, p in enumerate(parts):
+        r = held[i] if held is not None else \
+            next((j for j, rr in enumerate(p["rounds"]) if rr["ok"]), None)
+        figures = p["rounds"][-1 if r is None else r]
+        rows.append({"step": p["step"], "part": p["part"], "round_held": r,
+                     "kink_rows_left_out_by_round": [rr["rows_left_out"] for rr in p["rounds"]],
+                     "kink_rows_by_call": p["kink_rows_by_call"],
+                     "receiver_rows_of_the_edge_calls": p["receiver_rows"],
+                     **{k: v for k, v in figures.items() if k not in ("ok", "rows_left_out")}})
+    log(phase, comparison="part_by_part", parts=rows, tol=TOL)
+    return [row for row in rows if row["round_held"] is None]
+
 def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
-               cpu_plain_kernels=True, loss_tol=TOL, grad_tol=TOL, knn=None):
+               cpu_plain_kernels=True, loss_tol=TOL, grad_tol=TOL, knn=None, parts=False):
     """Phases 8 and 13: a D+G step at the published widths on the card against the
     CPU. The kernel path runs with dropout 0.5 against the kernels' plain
     versions on the CPU, within rtol = atol = 1e-4 (where a round misses it, the
@@ -848,7 +1017,9 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
     (:class:`CardNeighbours`). The card's plain path runs with dropout 0, within
     ``loss_tol`` and ``grad_tol``: against the CPU's kernel path for the dense
     layer (one function, two paths), against the CPU's plain path for the knn
-    layer (``cpu_plain_kernels=False``: its two paths search differently)."""
+    layer (``cpu_plain_kernels=False``: its two paths search differently).
+    With ``parts``, the kernel path's step is also held part by part, each part
+    started from the same state on both sides (:func:`part_by_part`)."""
     from mpgan_tpu_torch.utils.weights import jax_leaves
 
     data, labels = real_batch(batch, card["num_hits"])
@@ -918,6 +1089,11 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
                 if r is not None and r["kind"] != "mlp"))
         if loss_err > ltol or not all(ok for _, ok in grad_err):
             raise SystemExit(f"{phase}: D+G step on the card ({path} path) disagrees with the CPU")
+        if parts and path == "kernel":
+            bad = parts_held(phase, part_by_part(dev, args, data, labels, 1, phase, knn=knn))
+            if bad:
+                raise SystemExit(f"{phase}: parts of the step started from the card's state "
+                                 f"disagree with the CPU: {bad}")
         worst[path] = loss_err
     return worst
 
@@ -4165,6 +4341,10 @@ def mesh_rank(p):
                                    for rec in kinks.records["card"]
                                    if rec is not None and rec["kind"] != "mlp")
         out["rows_by_call"] = kinks.rows_by_call()
+    # the same step part by part, each part started from the card's state on both sides
+    out["parts"] = part_by_part(
+        dev, args, data, labels, 1, "mesh_two_ranks", mesh=mesh,
+        draws=lambda x: step_draws(args, x, 100 + mesh.rank))
     # the step's wall time on the card (gloo stages its reduces through the host)
     st = make_state(args, dev)
     x, lab = data.to(dev), labels.to(dev)
@@ -4255,6 +4435,14 @@ def mesh_two_ranks(dev, from_args_dict, card):
     if bad or not same or res["backend"] != ["gloo", "gloo"]:
         raise SystemExit(f"phase 30: the 2-rank gloo step or sampler disagrees (ranks {bad}, "
                          f"parameters equal across ranks {same})")
+    # part by part: each part's first round that holds on every rank
+    held = [next((i for i in range(KINK_ROUNDS)
+                  if all(r["parts"][p]["rounds"][i]["ok"] for r in ranks)), None)
+            for p in range(len(ranks[0]["parts"]))]
+    missed = [parts_held(f"mesh_two_ranks_rank{r['rank']}", r["parts"], held) for r in ranks]
+    if any(missed):
+        raise SystemExit(f"phase 30: parts of the 2-rank step started from the card's state "
+                         f"disagree with the CPU: {missed}")
     return res
 
 
@@ -4469,6 +4657,11 @@ def prng_steps(mk, dev, card, from_args_dict, tmp):
         kink_rows_left_out_by_round=rounds, kink_rows_by_call=kinks.rows_by_call())
     if fault is not None:
         raise SystemExit(f"phase 31: {fault}")
+    bad = parts_held("prng_keyed_steps", part_by_part(dev, args, data, labels, 3,
+                                                      "prng_keyed_steps"))
+    if bad:
+        raise SystemExit(f"phase 31: parts of the keyed steps started from the card's state "
+                         f"disagree with the CPU: {bad}")
 
     # (c) the captured 5-batch epoch against the eager one, then a profile of it
     b = 256
@@ -4671,6 +4864,367 @@ def init_phase(mk, dev, card, from_args_dict, tmp):
     return draws, per_model
 
 
+# phase 33: the MP layer's configuration lattice on the card
+LATTICE_CASES = 48  # tests/test_kernel_fuzz.py's points: its sampler, seeds 4242 + case
+LATTICE_WIDE = 8  # points at the published widths, their flags from Random(7000 + i)
+LATTICE_PLAN_SMS = 7  # a dense dropout point's second plan: the plans for 7 SMs
+LATTICE_ROUTES = {"4": ("4", "1"), "3": ("3", "1")}  # MPGAN_TPU_KNN_KERNEL, _SELECT
+
+
+def lattice_sample(r) -> dict:
+    """``tests/test_kernel_fuzz.py``'s ``_sample`` (a CPU test holds the two equal)."""
+    s = {}
+    s["fully_connected"] = r.random() < 0.5
+    s["pos_diffs"] = r.random() < 0.6
+    s["all_ef"] = r.random() < 0.5
+    s["delta_r"] = r.random() < 0.6
+    s["delta_coords"] = r.random() < 0.35
+    s["coords"] = r.choice(["polarrel", "cartesian"])
+    s["clabels"] = r.choice([0, 0, 1, 2])
+    s["mask_fne_np"] = r.random() < 0.35
+    s["sum_agg"] = r.random() < 0.7
+    s["self_loops"] = r.random() < 0.7
+    s["dropout_p"] = r.choice([0.0, 0.0, 0.3])
+    s["spectral_norm"] = r.random() < 0.3
+    s["batch_norm"] = r.random() < 0.15
+    s["masked"] = r.random() < 0.75
+    s["num_knn"] = r.choice([3, 4])
+    s["n"] = r.choice([13, 16]) if s["fully_connected"] else r.choice([9, 14])
+    s["f"] = r.choice([4, 6])
+    s["h1"] = r.choice([8, 16])
+    s["h2"] = r.choice([8, 12])
+    s["out"] = r.choice([4, 6])
+    s["block"] = r.choice([8, 16])
+    s["kernel"] = r.choice(["1", "2", "3", "4"])
+    s["select"] = r.choice(["0", "1"])
+    return s
+
+
+def lattice_points() -> list[dict]:
+    """The 48 points at JAX's shapes (B = 2, its widths), 8 at the published
+    widths (fe [96, 160, 192], fn [256, 256], node size 32; dense at N = 30,
+    B = 64, knn at N = 150, k = 20, B = 16 under routes 4 and 3) and one on the
+    K4 route at those widths."""
+    points = []
+    for case in range(LATTICE_CASES):
+        s = lattice_sample(random.Random(4242 + case))
+        points.append({**s, "case": case, "seed": case, "b": 2, "fe": [s["h1"], s["h2"]],
+                       "fn": [s["h2"]]})
+    for i in range(LATTICE_WIDE):
+        s = lattice_sample(random.Random(7000 + i))
+        dense = s["fully_connected"]
+        points.append({**s, "case": f"wide{i}", "seed": 7000 + i, "f": 32, "out": 32,
+                       "fe": list(FE), "fn": [256, 256], "b": 64 if dense else 16,
+                       "n": 30 if dense else 150, "num_knn": s["num_knn"] if dense else 20})
+    # the K4 route (eval, no conditioning, no SN or BN) with gradients, which no
+    # sampled point takes: a dense published-width layer
+    points.append({**points[LATTICE_CASES], "case": "k4", "seed": 7100, "fully_connected": True,
+                   "pos_diffs": False, "clabels": 0, "mask_fne_np": False, "dropout_p": 0.0,
+                   "spectral_norm": False, "batch_norm": False, "masked": True, "b": 64,
+                   "n": 30})
+    return points
+
+
+def lattice_flags(s) -> str:
+    """A point's flags in a few characters."""
+    on = [name for name, flag in (("pd", "pos_diffs"), ("ae", "all_ef"), ("dr", "delta_r"),
+                                  ("dc", "delta_coords"), ("np", "mask_fne_np"),
+                                  ("sum", "sum_agg"), ("sl", "self_loops"),
+                                  ("sn", "spectral_norm"), ("bn", "batch_norm"),
+                                  ("m", "masked")) if s[flag]]
+    knn = "" if s["fully_connected"] else f" knn{s['num_knn']} K{s['kernel']}S{s['select']}"
+    return (f"{'dense' if s['fully_connected'] else 'knn'} {' '.join(on)} {s['coords'][:4]} "
+            f"cl{s['clabels']} p{s['dropout_p']} b{s['b']} n{s['n']} f{s['f']} "
+            f"fe{s['fe']} fn{s['fn']} o{s['out']}{knn}")
+
+
+def lattice_cfg(s, dropout_p):
+    from mpgan_tpu_torch.ops import mp
+
+    return mp.MPLayerConfig.build(
+        s["f"], s["fe"], s["fn"], s["out"],
+        linear_args={"dropout_p": dropout_p, "spectral_norm": s["spectral_norm"],
+                     "batch_norm": s["batch_norm"]},
+        pos_diffs=s["pos_diffs"], all_ef=s["all_ef"], delta_r=s["delta_r"],
+        delta_coords=s["delta_coords"], coords=s["coords"], clabels=s["clabels"],
+        mask_fne_np=s["mask_fne_np"], fully_connected=s["fully_connected"],
+        num_knn=s["num_knn"], self_loops=s["self_loops"], sum_agg=s["sum_agg"])
+
+
+def lattice_inputs(s, dev) -> dict:
+    """The JAX test's inputs (``RandomState(seed)``, x * 0.4, its mask, labels
+    and particle counts), its ``train`` rule and its key ``PRNGKey(1000 + seed)``."""
+    from mpgan_tpu_torch.ops import prng
+
+    nprng = np.random.RandomState(s["seed"])
+    b, n = s["b"], s["n"]
+    x = nprng.randn(b, n, s["f"]).astype(np.float32) * 0.4
+    mask = None
+    if s["masked"]:
+        counts = nprng.randint(1, n + 1, size=b)
+        mask = (np.arange(n)[None, :] < counts[:, None]).astype(np.float32)[..., None]
+    labels = nprng.rand(b, 3).astype(np.float32)
+    njp = nprng.randint(1, n + 1, size=b).astype(np.float32) / n
+    t = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa: E731
+    return dict(x=t(x), mask=t(mask), labels=t(labels), njp=t(njp),
+                train=s["dropout_p"] > 0 or s["batch_norm"],
+                key=prng.PRNGKey(1000 + s["seed"], dev))
+
+
+@contextlib.contextmanager
+def lattice_env(kernel, select, sms=None):
+    """The knn route the layer reads at call time and, with ``sms``, the dense
+    kernels planned for that many SMs."""
+    from mpgan_tpu_torch.ops import mp_kernels as mk
+
+    set_knn_route(kernel, select)
+    count = mk._sm_count
+    if sms is not None:
+        mk._sm_count = lambda device: sms
+    try:
+        yield
+    finally:
+        mk._sm_count = count
+        set_knn_route()
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The kernel path through the kernels' plain versions on the card: every
+    wrapper takes its CUDA tensors for CPU ones (the same seeds, so the same
+    masks)."""
+    from mpgan_tpu_torch.ops import knn_kernels as kk
+    from mpgan_tpu_torch.ops import mp_kernels as mk
+
+    saved = mk._on_cpu, kk._on_cpu
+    mk._on_cpu = kk._on_cpu = lambda *tensors: True
+    try:
+        yield
+    finally:
+        mk._on_cpu, kk._on_cpu = saved
+
+
+def lattice_run(layer, d, kernels, dtype=torch.float32):
+    """One forward and backward of the loss ``sum(sin(y))`` on its own copy of
+    ``layer`` (spectral norm advances ``u`` in place): the output, the
+    gradients of every parameter in JAX leaf order and of ``x``, and the
+    kernels' launches."""
+    from mpgan_tpu_torch.ops import mp
+    from mpgan_tpu_torch.ops import mp_kernels as mk
+    from mpgan_tpu_torch.ops.keys import Keys
+    from mpgan_tpu_torch.utils.weights import _mlp_leaves
+
+    layer = copy.deepcopy(layer).to(dtype)
+    x = d["x"].to(dtype, copy=True).requires_grad_()
+    mask = None if d["mask"] is None else d["mask"].to(dtype)
+    mk.reset_launch_counts()
+    y = mp.mp_layer_apply(layer, x, mask=mask, labels=d["labels"], num_jet_particles=d["njp"],
+                          train=d["train"], rng=Keys(d["key"]), use_kernels=kernels)
+    torch.sin(y.float()).sum().backward()
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in mk.launch_counts.items() if v}
+    leaves = _mlp_leaves(layer.fe, True) + _mlp_leaves(layer.fn, True)
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+    return [y.detach()] + grads + [x.grad], launches
+
+
+def lattice_over(outs, refs, bf16=False, whole=False) -> tuple[float, int]:
+    """The largest error over its bound and the tensor it is in (0 the output,
+    then the parameters' gradients in JAX leaf order, ``x``'s last). FP32: the
+    output and ``x``'s gradient elementwise (1e-4 + 1e-4 * |ref|), each weight
+    gradient against 1e-4 * max(1, max|ref|). bf16, phase 28's rules: the
+    output elementwise at 1e-2, each parameter's gradient against 1e-2 *
+    max(1, max|ref|); ``x``'s gradient as a whole (K6's rule, phase 29:
+    relative L2 over 3e-2 and the largest error over max(1, max|ref|) over
+    0.1): it sums bf16-rounded products of K3's gradients with fe's first
+    layer, terms several times its size that cancel, so a bf16 ulp of one of
+    them moves a few of its elements by several 1e-2 of its scale at any
+    LeakyReLU slope (PERF.md, PR 21); ``whole`` (knn points, K6's rule): every
+    gradient as a whole."""
+    tol = BF16_TOL if bf16 else TOL
+    worst, at = 0.0, 0
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        o, r = o.float(), r.float()
+        if not o.numel():
+            continue
+        err = (o - r).abs()
+        if i and (whole or (bf16 and i == len(outs) - 1)):
+            rel, share, _ = bf16_whole(o, r)
+            over = max(rel / BF16_REL_L2, share / BF16_MAX_SHARE)
+        elif i and (bf16 or i < len(outs) - 1):
+            over = err.max().item() / (tol * max(1.0, r.abs().max().item()))
+        else:
+            over = (err / (tol + tol * r.abs())).max().item()
+        if over > worst:
+            worst, at = over, i
+    return worst, at
+
+
+def lattice_expected(cfg, d, route, bf16) -> set:
+    """The kernels the point's kernel path must launch, forward and backward."""
+    from mpgan_tpu_torch.ops import mp
+
+    if not mp.fused_eligible(cfg, d["train"]):
+        return set()
+    if cfg.fully_connected:
+        k4 = (not d["train"] and d["x"].shape[1] <= 64 and not cfg.fn.batch_norm
+              and not cfg.fn.spectral_norm and cfg.clabels == 0 and not cfg.mask_fne_np)
+        k2 = "edge_aggregate_train" if d["train"] and cfg.fe.dropout_p > 0 else "edge_aggregate"
+        names = {"edge_aggregate_fn", "edge_aggregate", "edge_aggregate_bwd"} if k4 else \
+            {k2, "edge_aggregate_bwd"}
+    else:
+        kernel, select = route
+        if select == "0":
+            names = {"knn_edge_aggregate"}
+        elif kernel == "4":
+            names = {"knn_fused_layer_train"}
+        else:
+            names = {"knn_search", "knn_edge_aggregate"}
+        names.add("knn_edge_aggregate_bwd")
+    return {n + "_bf16" for n in names} if bf16 else names
+
+
+def lattice_point(s, dev) -> dict:
+    """Phase 33 at one point: what it ran, the largest error over its bound of
+    each comparison, the launches, and the faults found (empty where none)."""
+    from mpgan_tpu_torch.ops import mp, prng
+
+    dense = s["fully_connected"]
+    routes = [(s["kernel"], s["select"])] if dense or s["b"] == 2 else \
+        list(LATTICE_ROUTES.values())
+    d = lattice_inputs(s, dev)
+    res = {"case": s["case"], "flags": lattice_flags(s), "over": {}, "at": {}, "launches": {},
+           "faults": []}
+    cfg0 = lattice_cfg(s, 0.0)
+    layer0 = mp.MPLayer(cfg0, prng.PRNGKey(s["seed"], dev))
+
+    def fault(what):
+        res["faults"].append(what)
+
+    def check_launches(what, got, want):
+        res["launches"][what] = got
+        if set(got) != want:
+            fault(f"{what}: launched {sorted(got)}, expected {sorted(want)}")
+
+    with lattice_env(*routes[0]):
+        msgs = []
+        for kernels in (False, True):
+            try:
+                lattice_run(layer0, d, kernels)
+                msgs.append(None)
+            except ValueError as e:
+                msgs.append(str(e))
+    if msgs[0] is not None or msgs[1] is not None:
+        res["path"] = "invalid"
+        if msgs[0] != msgs[1]:
+            fault(f"the paths raise otherwise: {msgs}")
+        return res
+    res["path"] = "kernel" if mp.fused_eligible(cfg0, d["train"]) else "plain"
+
+    # FP32, dropout off: the kernel path on the card against the plain path; a rerun
+    for kernel, select in routes:
+        tag = "" if len(routes) == 1 else f"_route{kernel}"
+        with lattice_env(kernel, select):
+            ref, _ = lattice_run(layer0, d, False)
+            out, launched = lattice_run(layer0, d, True)
+            again, _ = lattice_run(layer0, d, True)
+        res["over"]["fp32" + tag], res["at"]["fp32" + tag] = lattice_over(out, ref)
+        res.setdefault("rerun_bit_identical", True)
+        res["rerun_bit_identical"] &= all(torch.equal(a, b) for a, b in zip(out, again))
+        check_launches("fp32" + tag, launched, lattice_expected(cfg0, d, (kernel, select),
+                                                                 False))
+
+    cfg = lattice_cfg(s, s["dropout_p"])
+    layer = layer0
+    if s["dropout_p"] > 0:
+        # dropout on: the kernels on the card against their plain versions on the
+        # card (the same seeds); a rerun; a second dense plan; the other knn route
+        layer = mp.MPLayer(cfg, prng.PRNGKey(s["seed"], dev))
+        for kernel, select in routes:
+            tag = "" if len(routes) == 1 else f"_route{kernel}"
+            with lattice_env(kernel, select):
+                out, launched = lattice_run(layer, d, True)
+                again, _ = lattice_run(layer, d, True)
+                with plain_versions():
+                    ref, none = lattice_run(layer, d, True)
+            res["over"]["dropout" + tag], res["at"]["dropout" + tag] = lattice_over(out, ref)
+            res["rerun_bit_identical"] &= all(torch.equal(a, b) for a, b in zip(out, again))
+            check_launches("dropout" + tag, launched,
+                           lattice_expected(cfg, d, (kernel, select), False))
+            if none:
+                fault(f"the plain versions launched {sorted(none)}")
+        if res["path"] == "kernel" and dense:
+            with lattice_env(*routes[0], sms=LATTICE_PLAN_SMS):
+                other, _ = lattice_run(layer, d, True)
+            res["over"]["dropout_plan_7_sms"], res["at"]["dropout_plan_7_sms"] = \
+                lattice_over(other, out)
+        elif res["path"] == "kernel":
+            outs = {}
+            for kernel, select in LATTICE_ROUTES.values():
+                with lattice_env(kernel, select):
+                    outs[kernel] = lattice_run(layer, d, True)[0]
+            res["over"]["dropout_route3_vs_4"], res["at"]["dropout_route3_vs_4"] = \
+                lattice_over(outs["3"], outs["4"])
+
+    if res["path"] == "kernel":
+        # bf16 (dropout as sampled): the bf16 modes against their plain versions
+        for kernel, select in routes:
+            tag = "" if len(routes) == 1 else f"_route{kernel}"
+            with lattice_env(kernel, select):
+                out, launched = lattice_run(layer, d, True, torch.bfloat16)
+                with plain_versions():
+                    ref, _ = lattice_run(layer, d, True, torch.bfloat16)
+            res["over"]["bf16" + tag], res["at"]["bf16" + tag] = lattice_over(
+                out, ref, bf16=True, whole=not dense)
+            gx, rx = out[-1].float(), ref[-1].float()
+            res["bf16_x_grad_err_of_scale" + tag] = \
+                (gx - rx).abs().max().item() / max(1.0, rx.abs().max().item())
+            check_launches("bf16" + tag, launched, lattice_expected(cfg, d, (kernel, select),
+                                                                    True))
+    for what, over in res["over"].items():
+        if not over <= 1.0:
+            fault(f"{what}: error {over} times its bound")
+    if not res.get("rerun_bit_identical", True):
+        fault("a rerun of the kernel path differs")
+    return res
+
+
+def lattice_phase(card) -> dict:
+    """Phase 33: the MP layer at the JAX package's 48 lattice points and 8 at the
+    published widths, kernel path against plain path (FP32, dropout off),
+    kernels against their plain versions (dropout on, bf16), dropout under a
+    second dense plan and across the knn routes, reruns bit for bit, and the
+    kernels each point's gate names. Every point runs; the faults are raised
+    together at the end. Returns the launches of the phase by kernel."""
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    faults, worst, launches, paths = [], {}, {}, {}
+    for s in lattice_points():
+        t0 = time.perf_counter()
+        try:
+            res = lattice_point(s, dev)
+        except Exception as e:  # a kernel that refuses or fails at the point is a fault too
+            res = {"case": s["case"], "flags": lattice_flags(s), "path": "error",
+                   "faults": [f"{type(e).__name__}: {e}"]}
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        log("lattice", **res)
+        faults += [f"point {res['case']}: {f}" for f in res["faults"]]
+        paths[res["path"]] = paths.get(res["path"], 0) + 1
+        for what, over in res.get("over", {}).items():
+            key = what.split("_route")[0]
+            worst[key] = max(worst.get(key, 0.0), over)
+        for counts in res.get("launches", {}).values():
+            for name, c in counts.items():
+                launches[name] = launches.get(name, 0) + c
+    seconds = time.perf_counter() - t_phase
+    log("lattice_summary", card=card, points=LATTICE_CASES + LATTICE_WIDE + 1, paths=paths,
+        worst_over_bound=worst, launches=launches, faults=len(faults), seconds=seconds)
+    if faults:
+        raise SystemExit("phase 33: " + "; ".join(faults))
+    return launches
+
+
 def _tree_tensors(tree) -> list:
     """An FPND trunk's tensors in a fixed order (dict keys sorted)."""
     if isinstance(tree, dict):
@@ -4871,7 +5425,7 @@ def main() -> None:
 
     # 7-10. training
     train_err = train_kernel_checks(mk, dev, identical)
-    step_check(dev, from_args_dict)
+    step_check(dev, from_args_dict, parts=True)
     with tempfile.TemporaryDirectory() as tmp:
         train_launches = main_train_path(mk, train_cli, gen, pathlib.Path(tmp))
     step_ms, ttimes = train_timings(mk, dev, from_args_dict, card)
@@ -4883,7 +5437,7 @@ def main() -> None:
     knn_gen_launches = knn_generation(mk, gen, dev, card)
     step_check(dev, from_args_dict, card=KNN150, batch=8, phase="knn_step_check",
                cpu_plain_kernels=False, loss_tol=NEAR_TIE_LOSS_TOL, grad_tol=NEAR_TIE_GRAD_TOL,
-               knn=kk)
+               knn=kk, parts=True)
     with tempfile.TemporaryDirectory() as tmp:
         knn_train_launches = knn_train_path(mk, train_cli, pathlib.Path(tmp))
     knn_step_ms, ktimes = knn_timings(kk, dev, from_args_dict, card)
@@ -4943,6 +5497,8 @@ def main() -> None:
     # 32. the models' initial weights drawn from the key on the card
     with tempfile.TemporaryDirectory() as tmp:
         init_draws, init_models = init_phase(mk, dev, card, from_args_dict, pathlib.Path(tmp))
+    # 33. the MP layer's configuration lattice
+    lattice_launches = lattice_phase(card)
 
     def bf16_row(name, jobs):
         """The bf16 mode inside a kernel's row: its launches in phase 28, worst
@@ -5099,6 +5655,10 @@ def main() -> None:
          "graph_steps": prng_steps_,
          "init": {m: {k: v[k] for k in ("ms", "launches")} for m, v in init_models.items()}},
     ]
+    for row in kernels:  # phase 33's launches of each kernel, its bf16 mode's included
+        row["lattice_launches"] = sum(
+            c for name, c in lattice_launches.items()
+            if re.sub(r"_train|_no_wgrads|_bf16", "", name) == row["name"])
     log("knn_train_step", batch=128, kernel_ms=knn_step_ms["kernel"],
         plain_ms=knn_step_ms["plain"])
     log("train_step", kernel_ms=step_ms["kernel"], plain_ms=step_ms["plain"])

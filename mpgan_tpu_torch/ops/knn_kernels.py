@@ -811,7 +811,8 @@ def _dists_backward(xs, xf, idx, dists, ddists):
     b, n, k = idx.shape
     flat = (idx.long() + torch.arange(b, device=idx.device)[:, None, None] * n).reshape(-1)
     dxf = torch.zeros(b * n, xs.shape[-1], dtype=torch.float32, device=xs.device)
-    dxf.index_add_(0, flat, d_diffs.reshape(b * n * k, -1).float())
+    # an accumulating index_put_ sums each row in a fixed order (index_add_ on a GPU does not)
+    dxf.index_put_((flat,), d_diffs.reshape(b * n * k, -1).float(), accumulate=True)
     return -d_diffs.sum(dim=2), dxf.reshape(xf.shape).to(xs.dtype)
 
 
@@ -825,8 +826,8 @@ class KnnFusedLayer(torch.autograd.Function):
     no gradient is needed. The backward launches K6 with the weight
     contractions only when a hidden weight, bias or ``w_d`` needs a gradient.
     ``xs`` and ``xf`` get a gradient through the distances only (the selection
-    is detached); that step is plain torch, and its scatter into ``dxf`` is an
-    ``index_add_``, whose order of additions on a GPU is not fixed. Once
+    is detached); that step is plain torch, its scatter into ``dxf`` an
+    accumulating ``index_put_``, which sums in a fixed order. Once
     differentiable, like :class:`.mp_kernels.EdgeAggregate`."""
 
     @staticmethod

@@ -56,7 +56,7 @@ from torch import nn
 from . import init
 from .knn_kernels import knn_aggregate, knn_aggregate_split
 from .linear import MLP, MLPConfig, layer_weight_and_bias
-from .mp_kernels import EdgeAggregate, edge_aggregate_fn
+from .mp_kernels import EdgeAggregate, EdgeAggregateFn
 
 _MASK_PUSH = 1e4  # masked particles move this far out, so no search selects them
 
@@ -204,11 +204,10 @@ def _pairwise_knn(cfg: MPLayerConfig, x: torch.Tensor, mask: torch.Tensor | None
     is a TPU device)."""
     b, n, f = x.shape
     idx, knn_dists = _knn_search(cfg, x, mask)
-    flat = idx.reshape(b, n * cfg.num_knn, 1)
-    x2 = torch.gather(x, 1, flat.expand(-1, -1, f)).reshape(b, n, cfg.num_knn, f)
-    a_mask = None
-    if mask is not None:
-        a_mask = torch.gather(mask, 1, flat).reshape(b, n, cfg.num_knn, 1)
+    # an indexed read, whose gradient (an accumulating index_put_) sums in a fixed order
+    jets = torch.arange(b, device=x.device)[:, None, None]
+    x2 = x[jets, idx]
+    a_mask = None if mask is None else mask[jets, idx]
     parts = [x[:, :, None, :].expand(b, n, cfg.num_knn, f), x2]
     if cfg.pos_diffs:
         parts.append(knn_dists)
@@ -295,9 +294,10 @@ def _mp_layer_apply_fused(layer: MPLayer, x, mask, labels, num_jet_particles, tr
         fn_flat = [w1t[:fe_out].contiguous(), w1t[fe_out:].contiguous(), fn_lin[0].bias]
         for lin in fn_lin[1:]:
             fn_flat.extend([lin.weight.t().contiguous(), lin.bias])
-        return edge_aggregate_fn(
-            u1.contiguous(), u2.contiguous(), m, hidden_flat, x.contiguous(), tuple(fn_flat),
-            cfg.fe.leaky_relu_alpha, cfg.sum_agg, cfg.fn.leaky_relu_alpha, cfg.fn.final_linear,
+        return EdgeAggregateFn.apply(
+            u1.contiguous(), u2.contiguous(), m, x.contiguous(), cfg.fe.leaky_relu_alpha,
+            cfg.sum_agg, cfg.fn.leaky_relu_alpha, cfg.fn.final_linear, len(hidden_flat),
+            *hidden_flat, *fn_flat,
         )
 
     dropout_p, seed = _edge_dropout(cfg, train, rng)

@@ -22,6 +22,8 @@ on the pass and products of ``csrc/edge_products.cuh``):
 - :class:`EdgeAggregate`: the autograd ``Function`` of K2 forward and K3
   backward. It launches K3 without the weight contractions when no hidden
   weight needs a gradient (the G step through D).
+- :class:`EdgeAggregateFn`: K4 forward; its backward recomputes K2 and runs
+  fn in torch, K3 as K2's backward, as the JAX custom VJP does.
 
 K1 (``mp_pallas._dropmul``) keys each element on a global pair id, the feature
 column, the layer salt (0 for layer 1, k for hidden layer k) and an integer
@@ -1200,3 +1202,38 @@ def edge_aggregate_fn(
     _build.check(code, name)
     launch_counts[name] += 1
     return out
+
+
+class EdgeAggregateFn(torch.autograd.Function):
+    """K4 forward; the backward recomputes through the unfused composition, K2
+    then fn in torch, with K3 as K2's backward (``mp_pallas.edge_aggregate_fn``'s
+    custom VJP), so that a layer on the K4 route is differentiable in eval mode.
+
+    ``EdgeAggregateFn.apply(u1, u2, mask, x, alpha, sum_agg, fn_alpha,
+    fn_final_linear, n_hidden, *hidden_flat, *fn_flat)``, ``n_hidden`` the
+    length of ``hidden_flat``. Once differentiable."""
+
+    @staticmethod
+    def forward(ctx, u1, u2, mask, x, alpha, sum_agg, fn_alpha, fn_final_linear, n_hidden,
+                *flat):
+        ctx.save_for_backward(u1, u2, mask, x, *flat)
+        ctx.cfg = (alpha, sum_agg, fn_alpha, fn_final_linear, n_hidden)
+        return edge_aggregate_fn(u1, u2, mask, flat[:n_hidden], x, flat[n_hidden:], alpha,
+                                 sum_agg, fn_alpha, fn_final_linear)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        alpha, sum_agg, fn_alpha, fn_final_linear, n_hidden = ctx.cfg
+        needs = ctx.needs_input_grad[:4] + ctx.needs_input_grad[9:]
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+        u1, u2, mask, x, *flat = inputs
+        bf16 = _is_bf16(u1, u2, mask, x, *flat)
+        with torch.enable_grad():
+            agg = EdgeAggregate.apply(u1, u2, mask, alpha, sum_agg, 0.0, 0, *flat[:n_hidden])
+            y = _fn_chain(agg.float() if bf16 else agg, x, flat[n_hidden:], fn_alpha,
+                          fn_final_linear, bf16)
+        wanted = [t for t, need in zip(inputs, needs) if need]
+        got = iter(torch.autograd.grad(y, wanted, g, allow_unused=True))
+        grads = [next(got) if need else None for need in needs]
+        return (*grads[:4], None, None, None, None, None, *grads[4:])

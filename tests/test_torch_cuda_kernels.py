@@ -1034,8 +1034,8 @@ def test_knn_forward_plans_on_the_card_equal_the_launchers(dev):
 
 def test_knn_split_function_grads_match_the_fused_functions(dev):
     """K7 -> K8 -> K6 through their Functions against K5 -> K6: the same
-    kernels' stages, so the same gradients (the distance scatter's
-    ``index_add_`` sums in no fixed order, hence a tolerance on xs and xf)."""
+    kernels' stages, so the same gradients (those of xs and xf, which reach
+    them through the distances, held at a tolerance)."""
     d = _knn_inputs(dev, 4, 150, 32, [96, 160, 192], 20, seed=9)
 
     def grads(fn):
