@@ -303,15 +303,20 @@ Phases, each printed as it finishes:
     package's 48 points (``tests/test_kernel_fuzz.py``'s sampler and seeds, B=2,
     n 9-16, widths 4-16), 8 at the published widths (flags from
     ``Random(7000 + i)``; dense N=30 B=64, knn N=150 k=20 B=16 on routes 4 and
-    3) and one on the K4 route. At each valid point: FP32 with dropout off, the
-    kernel path against the plain path, output and every gradient at rtol =
-    atol = 1e-4 (weight gradients of max(1, max|ref|)), a rerun bit for bit;
-    with dropout on, the kernels against their plain versions on the card (the
-    same seeds), the dense plan for 7 SMs and the other knn route at 1e-4; bf16
-    against the bf16 plain versions at 1e-2 (knn gradients as a whole, relative
-    L2 3e-2); the kernels launched are those the point's gate names, none at a
-    point the kernels do not take. An invalid point raises the same
-    ``ValueError`` on both paths. One line a point, every fault raised at the end.
+    3), one on the K4 route and two conditioned dense ones with dropout. At
+    each valid point: FP32 with dropout off, the kernel path against the plain
+    path, output and every gradient at rtol = atol = 1e-4 (weight gradients of
+    max(1, max|ref|)), a rerun bit for bit; with dropout on, the kernels
+    against their plain versions on the card (the same seeds), the dense plan
+    for 7 SMs and the other knn route at 1e-4; where an FP32 comparison
+    misses, again with the receiver rows at LeakyReLU's kink left out of the
+    loss on both sides (their count logged); bf16 against the bf16 plain
+    versions at 1e-2 (knn gradients as a whole, relative L2 3e-2; a dense
+    point's ``x`` gradient elementwise, an element that misses held by an
+    FP32 witness); the launches, ``threefry_draws``'s among them, are those
+    the point's gate and dropout name, the layer's init draws included. An
+    invalid point raises the same ``ValueError`` on both paths. One line a
+    point, every fault raised at the end.
 
 ``threefry_draws``'s entry counts its bytes (the plan, key, counter and order row
 read, every draw written once) over 3.35 TB/s and its 32-bit integer and float
@@ -355,6 +360,7 @@ import types
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 TOL = 1e-4  # rtol = atol: FP32 FMA chains against cuBLAS FP32 sums in another order
 FLAGSHIP = {"model": "mpgan", "jets": "g", "num_hits": 30}
@@ -690,6 +696,22 @@ class CardNeighbours:
         self.kk.knn_fused_layer, self.kk.knn_select_reference = self.fused, self.select
 
 
+class FloatWheres(TorchFunctionMode):
+    """The floating values ``torch.where`` takes where its condition holds (a
+    LeakyReLU's pre-activations; a key drawn on the CPU inside the call uses it
+    on ints), each through ``keep``."""
+
+    def __init__(self, keep=lambda t: t.detach().clone()):
+        super().__init__()
+        self.keep = keep
+        self.seen = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.where and len(args) == 3 and args[1].is_floating_point():
+            self.seen.append(self.keep(args[1]))
+        return func(*args, **(kwargs or {}))
+
+
 class KinkRows:
     """Phases 8, 13 and 30 (b): the rows whose LeakyReLU pre-activations lie at
     the kink, left out of a card-against-CPU step's gradients on both sides.
@@ -739,8 +761,6 @@ class KinkRows:
         return torch.where(rows.to(out.device)[..., None], out.detach(), out)
 
     def __enter__(self):
-        from torch.overrides import TorchFunctionMode
-
         from mpgan_tpu_torch.ops import linear, mp
 
         self.mp, self.dense, self.knn = mp, mp.EdgeAggregate, mp.knn_aggregate
@@ -768,23 +788,10 @@ class KinkRows:
                 idx=cpu(kinks.held.card[-1]) if kinks.side == "card" and kinks.held else None)
             return kinks._pass(rec, out)
 
-        class Wheres(TorchFunctionMode):
-            """The floating values ``torch.where`` takes where its condition
-            holds (a key drawn on the CPU inside the call uses it on ints)."""
-
-            def __init__(self):
-                super().__init__()
-                self.seen = []
-
-            def __torch_function__(self, func, types, args=(), kwargs=None):
-                if func is torch.where and len(args) == 3 and args[1].is_floating_point():
-                    self.seen.append(cpu(args[1]))
-                return func(*args, **(kwargs or {}))
-
         def mlp_forward(mlp, x, train=False, rng=None, update_sn=True):
             if not torch.is_grad_enabled():
                 return kinks._pass(None, kinks.mlp_forward(mlp, x, train, rng, update_sn))
-            with Wheres() as wheres:
+            with FloatWheres(cpu) as wheres:
                 out = kinks.mlp_forward(mlp, x, train, rng, update_sn)
             return kinks._pass(dict(kind="mlp", zs=wheres.seen), out)
 
@@ -882,18 +889,29 @@ def copy_state(src, dst) -> None:
 
 def part_figures(state, model_name, parts) -> dict:
     """What a part of a step leaves to compare: its losses, the stepped model's
-    gradients, both models' parameters and buffers, both optimizers' state
-    tensors (``step`` left out) and the key, on the CPU."""
+    gradients (in JAX leaf order; in its parameters' order as its optimizer
+    took them, None where it took none; and laid over ``params``, None for the
+    other model's), both models' parameters and buffers,
+    both optimizers' state tensors (``step`` left out) and the key, on the CPU."""
     from mpgan_tpu_torch.utils.weights import jax_leaves
 
     cpu = lambda t: t.detach().cpu().clone()  # noqa: E731
     model = getattr(state, model_name)
+    stepped = {id(p): None if p.grad is None else cpu(p.grad) for p in model.parameters()}
     return {"losses": {k: v.item() for k, v in parts.items()},
             "grads": [cpu(p.grad) if p.grad is not None else torch.zeros(p.shape)
                       for p in jax_leaves(model, True)],
-            "params": [cpu(p) for p in (*state.g.parameters(), *state.d.parameters())],
-            "stepped_grads": [cpu(p.grad) if p.grad is not None else torch.zeros(p.shape)
-                              for p in (*state.g.parameters(), *state.d.parameters())],
+            "stepped_grads": list(stepped.values()),
+            "params_grads": [stepped.get(id(p)) for p in (*state.g.parameters(),
+                                                           *state.d.parameters())],
+            **part_state(state)}
+
+
+def part_state(state) -> dict:
+    """Both models' parameters and floating buffers, both optimizers' state
+    tensors (``step`` left out) and the key, on the CPU."""
+    cpu = lambda t: t.detach().cpu().clone()  # noqa: E731
+    return {"params": [cpu(p) for p in (*state.g.parameters(), *state.d.parameters())],
             "buffers": [cpu(b) for b in (*state.g.buffers(), *state.d.buffers())
                         if b.is_floating_point()],
             "opt": [cpu(v) for opt in (state.g_opt, state.d_opt) for s in opt.state.values()
@@ -901,28 +919,74 @@ def part_figures(state, model_name, parts) -> dict:
             "key": cpu(state.rng)}
 
 
-def part_agree(c, h) -> dict:
-    """A part on the card (``c``) against the CPU (``h``): the losses relative to
-    max(1, |loss|); each gradient and optimizer state tensor over TOL * max(1,
-    max|ref|); the buffers elementwise over TOL + TOL * |ref|; the updated
-    parameters where the gradient is clear of zero, 1e-3 (RMSprop's first step
-    is about 10 * lr * sign(g)), within TOL; the key bit for bit."""
+def part_replay(st, start, model_name, grads) -> dict:
+    """The stepped model's optimizer step on the CPU state ``st`` made equal to
+    ``start`` (the state both sides started from), on the card's gradients
+    ``grads``: the updated state the card's step must hold (:func:`part_state`)."""
+    copy_state(start, st)
+    for p, g in zip(getattr(st, model_name).parameters(), grads):
+        p.grad = None if g is None else g.clone()
+    getattr(st, model_name + "_opt").step()
+    return part_state(st)
+
+
+def part_agree(c, h, r, p0) -> dict:
+    """A part on the card (``c``) against the CPU (``h``), both started from the
+    parameters ``p0``: the losses relative to max(1, |loss|); each gradient
+    and optimizer state tensor over TOL * max(1, max|ref|); the buffers
+    elementwise over TOL + TOL * |ref|; the updated parameters where the
+    gradient is clear of zero, 1e-3, within TOL; the key bit for bit. The
+    updated state is also held elementwise against
+    the CPU's optimizer step on the card's own gradients (``r``,
+    :func:`part_replay`): each optimizer state tensor within TOL * |ref|, each
+    updated parameter within TOL * |its update| (p - p0) and an ulp of the
+    parameter (both sides round p0 + update). The same elementwise figures
+    against the CPU's own step are logged, not held: there the two gradients'
+    difference passes through RMSprop's division, so an element whose
+    gradient is a small share of its tensor's scale carries that gradient's
+    error (held above, against the scale) as a large relative error."""
+    tiny = torch.finfo(torch.float32).tiny
+    inf = torch.tensor(float("inf"))
+    ulp = lambda t: torch.nextafter(t.abs(), inf) - t.abs()  # noqa: E731
     over = lambda a, b: (a - b).abs().max().item() / (TOL * max(1.0, b.abs().max().item()))  # noqa: E731
+
+    def state_over(a, b):
+        return (a - b).abs() / (TOL * b.abs() + tiny)
+
+    def update_over(a, b, p):
+        return (a - b).abs() / (TOL * (b - p).abs() + ulp(torch.maximum(a.abs(), b.abs())))
+
+    def worst(overs):
+        overs = [o for o in overs if o.numel()]
+        return (max([o.max().item() for o in overs] or [0.0]),
+                sum(int((o > 1.0).sum()) for o in overs))
+
     loss_err = max(abs(c["losses"][k] - h["losses"][k]) / max(1.0, abs(h["losses"][k]))
                    for k in h["losses"])
     grads = max([over(a, b) for a, b in zip(c["grads"], h["grads"]) if b.numel()] or [0.0])
+    buffers = worst([(a - b).abs() / (TOL + TOL * b.abs())
+                     for a, b in zip(c["buffers"], h["buffers"])])[0]
+    opt_r, _ = worst([state_over(a, b) for a, b in zip(c["opt"], r["opt"])])
+    upd_r, _ = worst([update_over(a, b, p) for a, b, p in zip(c["params"], r["params"], p0)])
     opt = max([over(a, b) for a, b in zip(c["opt"], h["opt"]) if b.numel()] or [0.0])
-    buffers = max([((a - b).abs() / (TOL + TOL * b.abs())).max().item()
-                   for a, b in zip(c["buffers"], h["buffers"]) if b.numel()] or [0.0])
     params = max([((a - b).abs() * (g.abs() > 1e-3)).max().item()
-                  for a, b, g in zip(c["params"], h["params"], h["stepped_grads"])
-                  if b.numel()] or [0.0])
+                  for a, b, g in zip(c["params"], h["params"], h["params_grads"])
+                  if g is not None and b.numel()] or [0.0])
+    opt_h, opt_h_n = worst([state_over(a, b) for a, b in zip(c["opt"], h["opt"])])
+    upd_h, upd_h_n = worst([update_over(a, b, p) for a, b, p in zip(c["params"], h["params"],
+                                                                   p0)])
+    flips = sum(int((torch.sign(a) != torch.sign(b)).sum())
+                for a, b in zip(c["params_grads"], h["params_grads"]) if a is not None)
     key = torch.equal(c["key"], h["key"])
-    return {"max_rel_loss_err": loss_err, "grad_over_bound": grads, "opt_over_bound": opt,
-            "buffer_over_bound": buffers, "max_param_err_where_grad_clear": params,
+    return {"max_rel_loss_err": loss_err, "grad_over_bound": grads, "buffer_over_bound": buffers,
+            "opt_over_bound": opt, "max_param_err_where_grad_clear": params,
+            "opt_over_bound_vs_replay": opt_r, "update_over_bound_vs_replay": upd_r,
             "key_bit_identical": key,
-            "ok": (loss_err <= TOL and grads <= 1.0 and opt <= 1.0 and buffers <= 1.0
-                   and params <= TOL and key)}
+            "opt_over_bound_vs_cpu_step_logged": opt_h, "opt_elements_over_vs_cpu_step": opt_h_n,
+            "update_over_bound_vs_cpu_step_logged": upd_h,
+            "update_elements_over_vs_cpu_step": upd_h_n, "grad_sign_flip_elements": flips,
+            "ok": (loss_err <= TOL and grads <= 1.0 and buffers <= 1.0 and opt <= 1.0
+                   and params <= TOL and opt_r <= 1.0 and upd_r <= 1.0 and key)}
 
 
 def part_by_part(dev, args, data, labels, steps, phase, knn=None, draws=None, mesh=None):
@@ -949,6 +1013,7 @@ def part_by_part(dev, args, data, labels, steps, phase, knn=None, draws=None, me
                                           draws=None if draws is None else draws(x)[1])}
     cpu_dev = torch.device("cpu")
     start = make_state(args, dev)
+    replay_st = make_state(args, cpu_dev)
     out = []
     for step in range(steps):
         for part in ("d", "g"):
@@ -963,6 +1028,8 @@ def part_by_part(dev, args, data, labels, steps, phase, knn=None, draws=None, me
                     if r and mesh is not None:
                         kinks.flag()
                     figures = {}
+                    p0 = [p.detach().cpu().clone() for p in (*start.g.parameters(),
+                                                             *start.d.parameters())]
                     for side, device in (("card", dev), ("cpu", cpu_dev)):
                         kinks.begin(side)
                         st = make_state(args, device)
@@ -972,7 +1039,9 @@ def part_by_part(dev, args, data, labels, steps, phase, knn=None, draws=None, me
                         figures[side] = part_figures(st, part, parts)
                         if side == "card" and r == 0:
                             after = st
-                    held_r = part_agree(figures["card"], figures["cpu"])
+                    replay = part_replay(replay_st, start, part,
+                                         figures["card"]["stepped_grads"])
+                    held_r = part_agree(figures["card"], figures["cpu"], replay, p0)
                     rounds.append({**held_r, "rows_left_out": kinks.rows_left_out()})
                     if mesh is None and (held_r["ok"] or kinks.flag() == 0):
                         break
@@ -4903,8 +4972,8 @@ def lattice_sample(r) -> dict:
 def lattice_points() -> list[dict]:
     """The 48 points at JAX's shapes (B = 2, its widths), 8 at the published
     widths (fe [96, 160, 192], fn [256, 256], node size 32; dense at N = 30,
-    B = 64, knn at N = 150, k = 20, B = 16 under routes 4 and 3) and one on the
-    K4 route at those widths."""
+    B = 64, knn at N = 150, k = 20, B = 16 under routes 4 and 3), one on the
+    K4 route at those widths and two conditioned dense ones with dropout."""
     points = []
     for case in range(LATTICE_CASES):
         s = lattice_sample(random.Random(4242 + case))
@@ -4922,6 +4991,17 @@ def lattice_points() -> list[dict]:
                    "pos_diffs": False, "clabels": 0, "mask_fne_np": False, "dropout_p": 0.0,
                    "spectral_norm": False, "batch_norm": False, "masked": True, "b": 64,
                    "n": 30})
+    # K2 and K3 in train mode with dropout on the conditioned first layer (the
+    # labels and particle counts folded into u2), which every sampled dense
+    # published-width point leaves to the plain path (pos_diffs): wide4 and
+    # wide5 without pos_diffs, dropout 0.3; the second with 2 labels, mean
+    # aggregation and spectral norm
+    wide = points[LATTICE_CASES:LATTICE_CASES + LATTICE_WIDE]
+    points.append({**wide[4], "case": "cond1", "seed": 7101, "pos_diffs": False,
+                   "mask_fne_np": True, "clabels": 1, "dropout_p": 0.3})
+    points.append({**wide[5], "case": "cond2", "seed": 7102, "pos_diffs": False,
+                   "mask_fne_np": True, "clabels": 2, "dropout_p": 0.3, "sum_agg": False,
+                   "spectral_norm": True})
     return points
 
 
@@ -4938,17 +5018,22 @@ def lattice_flags(s) -> str:
             f"fe{s['fe']} fn{s['fn']} o{s['out']}{knn}")
 
 
-def lattice_cfg(s, dropout_p):
-    from mpgan_tpu_torch.ops import mp
-
-    return mp.MPLayerConfig.build(
-        s["f"], s["fe"], s["fn"], s["out"],
+def lattice_cfg_args(s, dropout_p) -> tuple[tuple, dict]:
+    """``MPLayerConfig.build``'s arguments at point ``s`` (either package's)."""
+    return (s["f"], s["fe"], s["fn"], s["out"]), dict(
         linear_args={"dropout_p": dropout_p, "spectral_norm": s["spectral_norm"],
                      "batch_norm": s["batch_norm"]},
         pos_diffs=s["pos_diffs"], all_ef=s["all_ef"], delta_r=s["delta_r"],
         delta_coords=s["delta_coords"], coords=s["coords"], clabels=s["clabels"],
         mask_fne_np=s["mask_fne_np"], fully_connected=s["fully_connected"],
         num_knn=s["num_knn"], self_loops=s["self_loops"], sum_agg=s["sum_agg"])
+
+
+def lattice_cfg(s, dropout_p):
+    from mpgan_tpu_torch.ops import mp
+
+    args, kw = lattice_cfg_args(s, dropout_p)
+    return mp.MPLayerConfig.build(*args, **kw)
 
 
 def lattice_inputs(s, dev) -> dict:
@@ -5004,11 +5089,134 @@ def plain_versions():
         mk._on_cpu, kk._on_cpu = saved
 
 
-def lattice_run(layer, d, kernels, dtype=torch.float32):
-    """One forward and backward of the loss ``sum(sin(y))`` on its own copy of
-    ``layer`` (spectral norm advances ``u`` in place): the output, the
-    gradients of every parameter in JAX leaf order and of ``x``, and the
-    kernels' launches."""
+def lattice_launched() -> dict:
+    """The launches counted since the counts were last set to 0: the kernels'
+    and the PRNG's (``threefry_draws``)."""
+    from mpgan_tpu_torch.ops import mp_kernels as mk
+
+    return {k: v for counts in mk._COUNTS for k, v in counts.items() if v}
+
+
+def lattice_layer(cfg, s, dev):
+    """The point's layer drawn on ``dev`` from ``PRNGKey(seed)``, and the
+    launches its init made."""
+    from mpgan_tpu_torch.ops import mp, prng
+    from mpgan_tpu_torch.ops import mp_kernels as mk
+
+    mk.reset_launch_counts()
+    layer = mp.MPLayer(cfg, prng.PRNGKey(s["seed"], dev))
+    return layer, lattice_launched()
+
+
+def lattice_init_expected(cfg) -> dict:
+    """``threefry_draws`` launches of the layer's init: a weight and a bias
+    a linear layer, and a spectral-norm layer's ``u``."""
+    draws = sum(2 * m.num_layers + sum(m.layer_has_sn(i) for i in range(m.num_layers))
+                for m in (cfg.fe, cfg.fn))
+    return {"threefry_draws": draws}
+
+
+@contextlib.contextmanager
+def lattice_recording(layer, record):
+    """Into ``record`` (unless None), what a run of ``layer`` computes at
+    LeakyReLU's kinks: the pre-activations of its fe and fn MLP calls
+    (``"fe"``, ``"fn"``: the plain path's edge chain and every node MLP) and
+    the inputs of its dense edge-aggregate call (``"dense"``, as
+    :class:`KinkRows` records them: the kernel or its plain version)."""
+    if record is None:
+        yield
+        return
+    from mpgan_tpu_torch.ops import linear, mp
+
+    forward, dense = linear.MLP.forward, mp.EdgeAggregate
+    keep = lambda t: t.detach().float().clone()  # noqa: E731
+
+    def mlp_forward(mlp, x, train=False, rng=None, update_sn=True):
+        name = "fe" if mlp is layer.fe else "fn" if mlp is layer.fn else None
+        if name is None:
+            return forward(mlp, x, train, rng, update_sn)
+        with FloatWheres(keep) as wheres:
+            out = forward(mlp, x, train, rng, update_sn)
+        record[name] = wheres.seen
+        return out
+
+    class Dense:
+        @staticmethod
+        def apply(u1, u2, m, alpha, sum_agg, p, seed, *hidden):
+            record["dense"] = dict(kind="dense", u1=keep(u1), u2=keep(u2), m=keep(m),
+                                   hidden=[keep(t) for t in hidden], alpha=alpha, p=p,
+                                   seed=seed)
+            return dense.apply(u1, u2, m, alpha, sum_agg, p, seed, *hidden)
+
+    linear.MLP.forward, mp.EdgeAggregate = mlp_forward, Dense
+    try:
+        yield
+    finally:
+        linear.MLP.forward, mp.EdgeAggregate = forward, dense
+
+
+def lattice_kink_rows(ra, rb):
+    """The receiver rows ``[B, N]`` at LeakyReLU's kink between two runs'
+    records (:func:`lattice_recording`), as :class:`KinkRows` finds them: a
+    node MLP pre-activation the two runs give opposite signs; an edge-chain
+    pre-activation the two give opposite signs (a dense call's chain
+    recomputed by the kernels' plain versions on its inputs), or that lies
+    within KINK_ULPS ulps of its terms' magnitude sum on a recomputed chain,
+    where a gradient reaches it. None where the records hold no such rows."""
+    rows = None
+    for za, zb in zip(ra.get("fn", []), rb.get("fn", [])):
+        if za.shape == zb.shape and za.dim() == 3:
+            flip = ((za >= 0) != (zb >= 0)).any(-1)
+            rows = flip if rows is None else rows | flip
+    chains = [KinkRows._chain(r["dense"], None) if "dense" in r else
+              (r["fe"], None, None) if "fe" in r else None for r in (ra, rb)]
+    if None in chains:
+        return rows
+    lives = chains[0][2] or chains[1][2]
+    for layer_i, (za, zb) in enumerate(zip(chains[0][0], chains[1][0])):
+        if za.shape != zb.shape or za.dim() != 4:
+            continue
+        at = (za >= 0) != (zb >= 0)
+        for zs, scales, _ in chains:
+            if scales is not None:
+                at |= zs[layer_i].abs() <= KINK_ULPS * 2.0**-24 * scales[layer_i]
+        if lives is not None:
+            at &= lives[layer_i]
+        at = at.flatten(2).any(-1)
+        rows = at if rows is None else rows | at
+    return rows
+
+
+def lattice_held(layer, d, runs, res, what):
+    """Two runs of ``layer`` on ``d`` (``runs``: the kwargs of each
+    :func:`lattice_run`, the second the reference), held by
+    :func:`lattice_over`: where they miss, held again with the receiver rows
+    at LeakyReLU's kink (:func:`lattice_kink_rows`) left out of the loss on
+    both sides, their count logged. The first run's result, and each run's
+    launches."""
+    recs = [{}, {}]
+    (out, launched), (ref, ref_launched) = [lattice_run(layer, d, record=rec, **kw)
+                                            for rec, kw in zip(recs, runs)]
+    res["over"][what], res["at"][what] = lattice_over(out, ref)
+    if res["over"][what] > 1.0:
+        rows = lattice_kink_rows(*recs)
+        if rows is not None and rows.any():
+            res.setdefault("kinks", {})[what] = {"over": res["over"][what],
+                                                 "rows_left_out": int(rows.sum()),
+                                                 "rows": rows.numel()}
+            a, b = [lattice_run(layer, d, left_out=rows, **kw)[0] for kw in runs]
+            res["over"][what], res["at"][what] = lattice_over(a, b)
+    return out, launched, ref_launched
+
+
+def lattice_run(layer, d, kernels, dtype=torch.float32, left_out=None, record=None,
+                versions=False):
+    """One forward and backward of the loss ``sum(sin(y))`` (without the rows
+    ``left_out``) on its own copy of ``layer`` (spectral norm advances ``u``
+    in place): the output, the gradients of every parameter in JAX leaf order
+    and of ``x``, and the launches (the kernels' and the dropout keys'
+    draws); with ``record``, what :func:`lattice_recording` records; with
+    ``versions``, through the kernels' plain versions (:func:`plain_versions`)."""
     from mpgan_tpu_torch.ops import mp
     from mpgan_tpu_torch.ops import mp_kernels as mk
     from mpgan_tpu_torch.ops.keys import Keys
@@ -5018,12 +5226,18 @@ def lattice_run(layer, d, kernels, dtype=torch.float32):
     x = d["x"].to(dtype, copy=True).requires_grad_()
     mask = None if d["mask"] is None else d["mask"].to(dtype)
     mk.reset_launch_counts()
-    y = mp.mp_layer_apply(layer, x, mask=mask, labels=d["labels"], num_jet_particles=d["njp"],
-                          train=d["train"], rng=Keys(d["key"]), use_kernels=kernels)
-    torch.sin(y.float()).sum().backward()
+    with plain_versions() if versions else contextlib.nullcontext():
+        with lattice_recording(layer, record):
+            y = mp.mp_layer_apply(layer, x, mask=mask, labels=d["labels"],
+                                  num_jet_particles=d["njp"], train=d["train"],
+                                  rng=Keys(d["key"]), use_kernels=kernels)
+        loss = torch.sin(y.float())
+        if left_out is not None:
+            loss = loss * (~left_out)[..., None]
+        loss.sum().backward()
     if x.is_cuda:
         torch.cuda.synchronize()
-    launches = {k: v for k, v in mk.launch_counts.items() if v}
+    launches = lattice_launched()
     leaves = _mlp_leaves(layer.fe, True) + _mlp_leaves(layer.fn, True)
     grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
     return [y.detach()] + grads + [x.grad], launches
@@ -5034,14 +5248,10 @@ def lattice_over(outs, refs, bf16=False, whole=False) -> tuple[float, int]:
     then the parameters' gradients in JAX leaf order, ``x``'s last). FP32: the
     output and ``x``'s gradient elementwise (1e-4 + 1e-4 * |ref|), each weight
     gradient against 1e-4 * max(1, max|ref|). bf16, phase 28's rules: the
-    output elementwise at 1e-2, each parameter's gradient against 1e-2 *
-    max(1, max|ref|); ``x``'s gradient as a whole (K6's rule, phase 29:
-    relative L2 over 3e-2 and the largest error over max(1, max|ref|) over
-    0.1): it sums bf16-rounded products of K3's gradients with fe's first
-    layer, terms several times its size that cancel, so a bf16 ulp of one of
-    them moves a few of its elements by several 1e-2 of its scale at any
-    LeakyReLU slope (PERF.md, PR 21); ``whole`` (knn points, K6's rule): every
-    gradient as a whole."""
+    output elementwise at 1e-2, each gradient against 1e-2 * max(1,
+    max|ref|); ``whole`` (knn points, K6's rule, phase 29): every gradient as
+    a whole, relative L2 over 3e-2 and the largest error over max(1,
+    max|ref|) over 0.1."""
     tol = BF16_TOL if bf16 else TOL
     worst, at = 0.0, 0
     for i, (o, r) in enumerate(zip(outs, refs)):
@@ -5049,7 +5259,7 @@ def lattice_over(outs, refs, bf16=False, whole=False) -> tuple[float, int]:
         if not o.numel():
             continue
         err = (o - r).abs()
-        if i and (whole or (bf16 and i == len(outs) - 1)):
+        if i and whole:
             rel, share, _ = bf16_whole(o, r)
             over = max(rel / BF16_REL_L2, share / BF16_MAX_SHARE)
         elif i and (bf16 or i < len(outs) - 1):
@@ -5061,19 +5271,45 @@ def lattice_over(outs, refs, bf16=False, whole=False) -> tuple[float, int]:
     return worst, at
 
 
-def lattice_expected(cfg, d, route, bf16) -> set:
-    """The kernels the point's kernel path must launch, forward and backward."""
+def lattice_x_witness(out, ref, exact) -> dict:
+    """A dense point's bf16 ``x`` gradient: the kernels' (``out``) against their
+    bf16 plain versions' (``ref``) elementwise at 1e-2 * max(1, max|ref|).
+    Where an element misses, both are held against the FP32 plain versions on
+    the same bf16-rounded inputs and weights (``exact``): the point holds only
+    if the kernels' gradient lies no further from FP32 than the plain
+    versions' (the largest error over max(1, max|exact|)), that is, where the
+    miss lies within the bf16 mode's own error (its terms, bf16 products
+    several times the sum's size, cancel). Relative L2 logged beside."""
+    o, r, e = out.float(), ref.float(), exact.float()
+    bound = BF16_TOL * max(1.0, r.abs().max().item())
+    miss = (o - r).abs() > bound
+    scale = max(1.0, e.abs().max().item())
+    res = {"over": (o - r).abs().max().item() / bound, "elements_over": int(miss.sum()),
+           "rows_over": int(miss.any(-1).sum()), "rows": miss[..., 0].numel(),
+           "kernel_err_vs_fp32": (o - e).abs().max().item() / scale,
+           "plain_err_vs_fp32": (r - e).abs().max().item() / scale,
+           "kernel_rel_l2_vs_fp32": bf16_whole(o, e)[0],
+           "plain_rel_l2_vs_fp32": bf16_whole(r, e)[0]}
+    res["ok"] = not miss.any() or res["kernel_err_vs_fp32"] <= res["plain_err_vs_fp32"]
+    return res
+
+
+def lattice_expected(cfg, d, route, bf16) -> dict:
+    """The launches the point's kernel path must make, forward and backward: one
+    of each kernel its gate names, and a ``threefry_draws`` launch for each
+    dropout key it draws (in train mode with dropout: the kernels' seed and a
+    key for each fn layer; on the plain path a key for each fe and fn layer)."""
     from mpgan_tpu_torch.ops import mp
 
-    if not mp.fused_eligible(cfg, d["train"]):
-        return set()
-    if cfg.fully_connected:
+    fused = mp.fused_eligible(cfg, d["train"])
+    names = set()
+    if fused and cfg.fully_connected:
         k4 = (not d["train"] and d["x"].shape[1] <= 64 and not cfg.fn.batch_norm
               and not cfg.fn.spectral_norm and cfg.clabels == 0 and not cfg.mask_fne_np)
         k2 = "edge_aggregate_train" if d["train"] and cfg.fe.dropout_p > 0 else "edge_aggregate"
         names = {"edge_aggregate_fn", "edge_aggregate", "edge_aggregate_bwd"} if k4 else \
             {k2, "edge_aggregate_bwd"}
-    else:
+    elif fused:
         kernel, select = route
         if select == "0":
             names = {"knn_edge_aggregate"}
@@ -5082,13 +5318,16 @@ def lattice_expected(cfg, d, route, bf16) -> set:
         else:
             names = {"knn_search", "knn_edge_aggregate"}
         names.add("knn_edge_aggregate_bwd")
-    return {n + "_bf16" for n in names} if bf16 else names
+    want = {n + "_bf16" if bf16 else n: 1 for n in names}
+    if d["train"] and cfg.fe.dropout_p > 0:
+        want["threefry_draws"] = (1 if fused else cfg.fe.num_layers) + cfg.fn.num_layers
+    return want
 
 
 def lattice_point(s, dev) -> dict:
     """Phase 33 at one point: what it ran, the largest error over its bound of
     each comparison, the launches, and the faults found (empty where none)."""
-    from mpgan_tpu_torch.ops import mp, prng
+    from mpgan_tpu_torch.ops import mp
 
     dense = s["fully_connected"]
     routes = [(s["kernel"], s["select"])] if dense or s["b"] == 2 else \
@@ -5096,16 +5335,18 @@ def lattice_point(s, dev) -> dict:
     d = lattice_inputs(s, dev)
     res = {"case": s["case"], "flags": lattice_flags(s), "over": {}, "at": {}, "launches": {},
            "faults": []}
-    cfg0 = lattice_cfg(s, 0.0)
-    layer0 = mp.MPLayer(cfg0, prng.PRNGKey(s["seed"], dev))
 
     def fault(what):
         res["faults"].append(what)
 
     def check_launches(what, got, want):
         res["launches"][what] = got
-        if set(got) != want:
-            fault(f"{what}: launched {sorted(got)}, expected {sorted(want)}")
+        if got != want:
+            fault(f"{what}: launched {got}, expected {want}")
+
+    cfg0 = lattice_cfg(s, 0.0)
+    layer0, launched = lattice_layer(cfg0, s, dev)
+    check_launches("init", launched, lattice_init_expected(cfg0))
 
     with lattice_env(*routes[0]):
         msgs = []
@@ -5126,10 +5367,9 @@ def lattice_point(s, dev) -> dict:
     for kernel, select in routes:
         tag = "" if len(routes) == 1 else f"_route{kernel}"
         with lattice_env(kernel, select):
-            ref, _ = lattice_run(layer0, d, False)
-            out, launched = lattice_run(layer0, d, True)
+            out, launched, _ = lattice_held(layer0, d, [{"kernels": True}, {"kernels": False}],
+                                            res, "fp32" + tag)
             again, _ = lattice_run(layer0, d, True)
-        res["over"]["fp32" + tag], res["at"]["fp32" + tag] = lattice_over(out, ref)
         res.setdefault("rerun_bit_identical", True)
         res["rerun_bit_identical"] &= all(torch.equal(a, b) for a, b in zip(out, again))
         check_launches("fp32" + tag, launched, lattice_expected(cfg0, d, (kernel, select),
@@ -5140,18 +5380,18 @@ def lattice_point(s, dev) -> dict:
     if s["dropout_p"] > 0:
         # dropout on: the kernels on the card against their plain versions on the
         # card (the same seeds); a rerun; a second dense plan; the other knn route
-        layer = mp.MPLayer(cfg, prng.PRNGKey(s["seed"], dev))
+        layer, launched = lattice_layer(cfg, s, dev)
+        check_launches("init_dropout", launched, lattice_init_expected(cfg))
         for kernel, select in routes:
             tag = "" if len(routes) == 1 else f"_route{kernel}"
             with lattice_env(kernel, select):
-                out, launched = lattice_run(layer, d, True)
+                out, launched, none = lattice_held(layer, d, [{"kernels": True}, {
+                    "kernels": True, "versions": True}], res, "dropout" + tag)
                 again, _ = lattice_run(layer, d, True)
-                with plain_versions():
-                    ref, none = lattice_run(layer, d, True)
-            res["over"]["dropout" + tag], res["at"]["dropout" + tag] = lattice_over(out, ref)
             res["rerun_bit_identical"] &= all(torch.equal(a, b) for a, b in zip(out, again))
             check_launches("dropout" + tag, launched,
                            lattice_expected(cfg, d, (kernel, select), False))
+            none = {k: v for k, v in none.items() if k != "threefry_draws"}
             if none:
                 fault(f"the plain versions launched {sorted(none)}")
         if res["path"] == "kernel" and dense:
@@ -5168,18 +5408,25 @@ def lattice_point(s, dev) -> dict:
                 lattice_over(outs["3"], outs["4"])
 
     if res["path"] == "kernel":
-        # bf16 (dropout as sampled): the bf16 modes against their plain versions
+        # bf16 (dropout as sampled): the bf16 modes against their plain versions;
+        # a dense point's x gradient with its FP32 witness where it misses
+        # (lattice_x_witness)
         for kernel, select in routes:
             tag = "" if len(routes) == 1 else f"_route{kernel}"
             with lattice_env(kernel, select):
                 out, launched = lattice_run(layer, d, True, torch.bfloat16)
                 with plain_versions():
                     ref, _ = lattice_run(layer, d, True, torch.bfloat16)
+                    if dense:
+                        exact, _ = lattice_run(copy.deepcopy(layer).to(torch.bfloat16),
+                                               {**d, "x": d["x"].bfloat16()}, True)
+            held = slice(None, -1) if dense else slice(None)
             res["over"]["bf16" + tag], res["at"]["bf16" + tag] = lattice_over(
-                out, ref, bf16=True, whole=not dense)
-            gx, rx = out[-1].float(), ref[-1].float()
-            res["bf16_x_grad_err_of_scale" + tag] = \
-                (gx - rx).abs().max().item() / max(1.0, rx.abs().max().item())
+                out[held], ref[held], bf16=True, whole=not dense)
+            if dense:
+                res["bf16_x_grad"] = lattice_x_witness(out[-1], ref[-1], exact[-1])
+                if not res["bf16_x_grad"]["ok"]:
+                    fault(f"bf16 x gradient: {res['bf16_x_grad']}")
             check_launches("bf16" + tag, launched, lattice_expected(cfg, d, (kernel, select),
                                                                     True))
     for what, over in res["over"].items():
@@ -5191,16 +5438,18 @@ def lattice_point(s, dev) -> dict:
 
 
 def lattice_phase(card) -> dict:
-    """Phase 33: the MP layer at the JAX package's 48 lattice points and 8 at the
-    published widths, kernel path against plain path (FP32, dropout off),
-    kernels against their plain versions (dropout on, bf16), dropout under a
-    second dense plan and across the knn routes, reruns bit for bit, and the
-    kernels each point's gate names. Every point runs; the faults are raised
-    together at the end. Returns the launches of the phase by kernel."""
+    """Phase 33: the MP layer at the JAX package's 48 lattice points and 11 at
+    the published widths (:func:`lattice_points`), kernel path against plain
+    path (FP32, dropout off), kernels against their plain versions (dropout
+    on, bf16), dropout under a second dense plan and across the knn routes,
+    reruns bit for bit, and the launches each point's gate names. Every point
+    runs; the faults are raised together at the end. Returns the launches of
+    the phase by kernel, ``threefry_draws`` among them."""
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
     faults, worst, launches, paths = [], {}, {}, {}
-    for s in lattice_points():
+    points = lattice_points()
+    for s in points:
         t0 = time.perf_counter()
         try:
             res = lattice_point(s, dev)
@@ -5218,7 +5467,7 @@ def lattice_phase(card) -> dict:
             for name, c in counts.items():
                 launches[name] = launches.get(name, 0) + c
     seconds = time.perf_counter() - t_phase
-    log("lattice_summary", card=card, points=LATTICE_CASES + LATTICE_WIDE + 1, paths=paths,
+    log("lattice_summary", card=card, points=len(points), paths=paths,
         worst_over_bound=worst, launches=launches, faults=len(faults), seconds=seconds)
     if faults:
         raise SystemExit("phase 33: " + "; ".join(faults))

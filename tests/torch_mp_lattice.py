@@ -25,7 +25,9 @@ from __future__ import annotations
 
 import copy
 import functools
+import pathlib
 import random
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +40,9 @@ from mpgan_tpu_torch.ops import prng
 from mpgan_tpu_torch.ops.keys import Keys
 from mpgan_tpu_torch.utils.weights import _mlp_leaves, mlp_sd_from_jax
 from test_kernel_fuzz import N_CASES, _sample
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the card phase's recipe: configurations and inputs)
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 BWD = dict(rtol=1e-4, atol=1e-4)
@@ -54,42 +59,27 @@ def set_env(monkeypatch, s: dict) -> None:
     monkeypatch.setenv("MPGAN_TPU_KNN_SELECT", s["select"])
 
 
-def build_args(s: dict, dropout_p: float) -> tuple[tuple, dict]:
-    """``MPLayerConfig.build``'s arguments at point ``s`` (either package's)."""
-    args = (s["f"], [s["h1"], s["h2"]], [s["h2"]], s["out"])
-    kw = dict(
-        linear_args={"dropout_p": dropout_p, "spectral_norm": s["spectral_norm"],
-                     "batch_norm": s["batch_norm"]},
-        pos_diffs=s["pos_diffs"], all_ef=s["all_ef"], delta_r=s["delta_r"],
-        delta_coords=s["delta_coords"], coords=s["coords"], clabels=s["clabels"],
-        mask_fne_np=s["mask_fne_np"], fully_connected=s["fully_connected"],
-        num_knn=s["num_knn"], self_loops=s["self_loops"], sum_agg=s["sum_agg"],
-    )
-    return args, kw
+def card_point(case: int, s: dict | None = None) -> dict:
+    """The point as ``chip_smoke.py`` phase 33 runs it (B = 2, fe ``[h1, h2]``,
+    fn ``[h2]``, seed ``case``): its configuration and inputs are built by the
+    card's own recipe (``lattice_cfg_args``, ``lattice_inputs``)."""
+    s = point(case) if s is None else s
+    return {**s, "case": case, "seed": case, "b": 2, "fe": [s["h1"], s["h2"]], "fn": [s["h2"]]}
 
 
-def inputs(case: int, s: dict) -> dict:
-    """JAX's inputs at the point, as numpy arrays, and its train rule."""
-    nprng = np.random.RandomState(case)
-    b, n = 2, s["n"]
-    x = (nprng.randn(b, n, s["f"]).astype(np.float32) * 0.4)
-    mask = None
-    if s["masked"]:
-        counts = nprng.randint(1, n + 1, size=b)
-        mask = (np.arange(n)[None, :] < counts[:, None]).astype(np.float32)[..., None]
-    labels = nprng.rand(b, 3).astype(np.float32)
-    njp = nprng.randint(1, n + 1, size=b).astype(np.float32) / n
-    return dict(x=x, mask=mask, labels=labels, njp=njp,
-                train=s["dropout_p"] > 0 or s["batch_norm"],
-                key=np.asarray(jax.random.PRNGKey(1000 + case), np.uint32))
+def inputs(s: dict) -> dict:
+    """JAX's inputs at the card point ``s``, as numpy arrays, its train rule
+    and key (``chip_smoke.lattice_inputs`` on the CPU)."""
+    d = chip_smoke.lattice_inputs(s, "cpu")
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in d.items()}
 
 
 class Point:
     """Both packages' layers at lattice point ``case``, dropout at ``dropout_p``."""
 
     def __init__(self, case: int, dropout_p: float, s: dict | None = None):
-        self.case, self.s = case, point(case) if s is None else s
-        args, kw = build_args(self.s, dropout_p)
+        self.case, self.s = case, card_point(case, s)
+        args, kw = chip_smoke.lattice_cfg_args(self.s, dropout_p)
         self.jcfg = jmp.MPLayerConfig.build(*args, **kw)
         self.tcfg = tmp.MPLayerConfig.build(*args, **kw)
         self.params, self.state = jmp.mp_layer_init(jax.random.PRNGKey(case), self.jcfg)
@@ -97,7 +87,7 @@ class Point:
         s_np = jax.tree.map(np.asarray, self.state)
         self.sd = {**mlp_sd_from_jax("fe.", self.tcfg.fe, p_np["fe"], s_np["fe"]),
                    **mlp_sd_from_jax("fn.", self.tcfg.fn, p_np["fn"], s_np["fn"])}
-        self.d = inputs(case, self.s)
+        self.d = inputs(self.s)
 
     def port_init_matches(self) -> float:
         """The port's layer drawn from ``PRNGKey(case)`` against the JAX
@@ -183,8 +173,7 @@ def valid(case: int) -> bool:
     """Whether the point's configuration passes the port's up-front checks
     (the tests hold the JAX side to the same answer)."""
     p = point(case)
-    args, kw = build_args(p, 0.0)
-    cfg = tmp.MPLayerConfig.build(*args, **kw)
+    cfg = chip_smoke.lattice_cfg(card_point(case), 0.0)
     try:
         tmp._check_edge_features(cfg)
         if not cfg.fully_connected:
@@ -194,12 +183,12 @@ def valid(case: int) -> bool:
     return True
 
 
-def checks(lo: int, hi: int) -> list[str]:
-    """The checks of points ``lo`` to ``hi - 1``, ``"<case>-<check>"``: an
-    invalid point's ``invalid``; a valid point's ``init``, ``off-plain`` and
+def checks(cases) -> list[str]:
+    """The checks of the points ``cases``, ``"<case>-<check>"``: an invalid
+    point's ``invalid``; a valid point's ``init``, ``off-plain`` and
     ``off-kernel``, and with dropout ``on-plain`` and ``on-kernel``."""
     out = []
-    for c in range(lo, hi):
+    for c in cases:
         if not valid(c):
             out.append(f"{c}-invalid")
             continue
