@@ -268,15 +268,15 @@ Phases, each printed as it finishes:
     gradients and K4 launched); ``cli.gen --mesh-shape 1``'s 50,000 jets equal
     to ``--mesh-shape 0``'s. (b) A gloo mesh of two ranks sharing the card
     (``make_mesh(devices=[cuda:0, cuda:0])``, two spawned processes): the
-    flagship D+G step at a global B=256 (128 a rank) on the kernel path
+    flagship D+G step at a global B=128 (64 a rank) on the kernel path
     against the same 2-rank step on the CPU (the kernels' plain versions) from
     the same state, shards and per-rank draws, losses and gradients within
     phase 8's tolerances (where 1e-4 fails, with the kink's receiver rows left
     out, as phase 13 does) and the updated parameters where the gradient is
     clear of zero within 1e-4, the parameters bit-identical across the ranks,
     then part by part as phase 8 (each part's first kink round that holds on
-    both ranks); the 2-rank sampler at B=4096 against one rank's within rtol = atol = 1e-4, the
-    mask column equal; the step's wall time (gloo stages through the host:
+    both ranks); the 2-rank sampler of 4,096 jets at B=2048 against one
+    rank's within rtol = atol = 1e-4, the mask column equal; the step's wall time (gloo stages through the host:
     recorded, no target). Two NCCL ranks cannot share one card, so the
     many-rank reduce is held to the JAX package on the CPU (tests).
 31. the steps' random stream on the card (``ops/prng.py``, ``csrc/threefry.cu``):
@@ -312,11 +312,32 @@ Phases, each printed as it finishes:
     misses, again with the receiver rows at LeakyReLU's kink left out of the
     loss on both sides (their count logged); bf16 against the bf16 plain
     versions at 1e-2 (knn gradients as a whole, relative L2 3e-2; a dense
-    point's ``x`` gradient elementwise, an element that misses held by an
-    FP32 witness); the launches, ``threefry_draws``'s among them, are those
-    the point's gate and dropout name, the layer's init draws included. An
-    invalid point raises the same ``ValueError`` on both paths. One line a
-    point, every fault raised at the end.
+    point's ``x`` gradient elementwise, a miss excused only where each run's
+    K3 calls, carried to ``x``, lie within one bf16 ulp of du and the spread
+    of 8 jittered sum orders of a float64 model of the bf16 mode on their own
+    inputs, and the kernels' K2 calls within 1e-2 of the plain versions' on
+    the same inputs, both held at every element, :func:`lattice_x_envelope`);
+    the launches, ``threefry_draws``'s among
+    them, are those the point's gate and dropout name, the layer's init draws
+    included. An invalid point raises the same ``ValueError`` on both paths.
+    One line a point, every fault raised at the end.
+34. the 150-particle dense paths that ``bench.py`` times (:func:`dense150_phase`),
+    each driven with the counts set to 0 before and read after: the ``--fe
+    128 256`` generator (50,000 jets through ``gen``, the sampler at B=512,
+    8 jets against the CPU and the batch against the plain path at 1e-4, the
+    captured sampler bit for bit, K2 alone, jets/s in turns); the
+    flagship-width D+G step (D's last layer scaled, :func:`unsaturated`; the
+    epochs at D's learning rate 1e-9, each moving both models), at B=4
+    against the CPU (phase 8's rules, part by part) and at B=128 on the
+    graphs against the eager loop bit for bit,
+    timed in turns, the plain path's step at the largest batch that fits, K2
+    and K3 at B=128 against their plain versions and timed; the bf16 step at
+    B=128 against float32 (5%, the predicted bf16 launches, a trace), its
+    graph epoch bit for bit and timed beside float32's; the bf16 generator
+    through ``bf16_apply`` against its bf16 plain versions at 1e-2; ``cli.train
+    --num-hits 150`` for 2 epochs, a resume and a 3rd epoch that moves the
+    parameters, in the predicted launches; and K4's backward route at B=256 N=30 against its plain
+    versions, timed beside its bound.
 
 ``threefry_draws``'s entry counts its bytes (the plan, key, counter and order row
 read, every draw written once) over 3.35 TB/s and its 32-bit integer and float
@@ -408,11 +429,12 @@ PEAK_TF32 = 495e12  # FLOP/s, H100 SXM dense TF32 tensor cores (NVIDIA data shee
 PEAK_HBM = 3.35e12  # bytes/s
 
 
-def dense_fwd_bound(b: int, n: int, fn_out: int | None = None) -> dict:
-    """Bound of K2 (``fn_out`` None) or K4 at the published widths."""
-    hidden = macs(FE) + sum(FE[1:])  # weights and biases
-    floats = 2 * b * n * FE[0] + b * n + hidden + b * n * (FE[-1] if fn_out is None else fn_out)
-    flops = 2 * b * n * n * macs(FE)
+def dense_fwd_bound(b: int, n: int, fn_out: int | None = None, fe=FE) -> dict:
+    """Bound of K2 (``fn_out`` None) or K4 at the published widths (K2: or
+    the ``fe`` chain's)."""
+    hidden = macs(fe) + sum(fe[1:])  # weights and biases
+    floats = 2 * b * n * fe[0] + b * n + hidden + b * n * (fe[-1] if fn_out is None else fn_out)
+    flops = 2 * b * n * n * macs(fe)
     if fn_out is not None:
         fn = FN + [fn_out]
         floats += b * n * 32 + macs(fn) + sum(fn[1:])
@@ -486,12 +508,13 @@ def errors(out, ref):
     return err.max().item(), rel, bad
 
 
-def wgrad_err(out, ref, tol=TOL):
-    """Max abs error of a weight gradient and whether it is within tol * max(1, max|ref|)."""
+def wgrad_err(out, ref, tol=TOL, floor=1.0):
+    """Max abs error of a weight gradient and whether it is within tol *
+    max(floor, max|ref|) (``floor`` 0: of the tensor's own scale)."""
     if out.numel() == 0:
         return 0.0, True
     err = (out - ref).abs().max().item()
-    return err, err <= tol * max(1.0, ref.abs().max().item())
+    return err, err <= tol * max(floor, ref.abs().max().item())
 
 
 def best_ms(fn, reps=3, inner=3):
@@ -603,9 +626,77 @@ def make_state(args, device, seed=0):
     kg, kd = prng.split(prng.PRNGKey(seed))
     g = suite.generator(kg, device=device)
     d = suite.discriminator(kd, device=device)
-    return TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), args.lr_gen),
-                      build_optimizer(args.optimizer, d.parameters(), args.lr_disc),
-                      prng_key(seed, device))
+    state = TrainState(g, d, build_optimizer(args.optimizer, g.parameters(), args.lr_gen),
+                       build_optimizer(args.optimizer, d.parameters(), args.lr_disc),
+                       prng_key(seed, device))
+    return state
+
+
+# D's last layer's scale in the 150-particle steps (unsaturated)
+UNSATURATE = 2.0**-6
+
+
+@contextlib.contextmanager
+def unsaturated():
+    """Every MPGAN D drawn inside (``ModelSuite.discriminator``: the states of
+    :func:`make_state`, of a Trainer, of the train CLI; a resumed run loads
+    its checkpoint over it) with its last layer (fnd's linear) scaled by
+    UNSATURATE, the same bits on every device. At 150 particles the
+    untrained D's logits reach 50-60 (sums over 150 senders, twice), where
+    float32's sigmoid is exactly 0 or 1 and every gradient of the step
+    exactly 0, so that a comparison of two steps or epochs would hold
+    vacuously; scaled, they lie near 1 and every tensor of both models takes
+    a gradient."""
+    from mpgan_tpu_torch.models.registry import ModelSuite
+
+    draw = ModelSuite.discriminator
+
+    def scaled(suite, key=None, device="cpu"):
+        d = draw(suite, key, device)
+        with torch.no_grad():
+            last = d.fnd_layer.net[-1]
+            last.weight.mul_(UNSATURATE)
+            last.bias.mul_(UNSATURATE)
+        return d
+
+    ModelSuite.discriminator = scaled
+    try:
+        yield
+    finally:
+        ModelSuite.discriminator = draw
+
+
+def model_params(state) -> dict:
+    """A copy of each model's parameters (``"g"``, ``"d"``) and of its
+    optimizer's state tensors (``"g_opt"``, ``"d_opt"``; none before the
+    optimizer's first step)."""
+    return {**{m: [p.detach().clone() for p in getattr(state, m).parameters()]
+               for m in ("g", "d")},
+            **{f"{m}_opt": opt_tensors(getattr(state, f"{m}_opt")) for m in ("g", "d")}}
+
+
+def opt_tensors(opt) -> dict:
+    return {(i, k): v.detach().clone() for i, st in enumerate(opt.state.values())
+            for k, v in st.items() if k != "step" and isinstance(v, torch.Tensor)}
+
+
+def params_moved(state, before, what) -> dict:
+    """The L2 norm of each model's parameter change since ``before``
+    (:func:`model_params`), and of its optimizer state's; fails where both
+    are 0 for a model (its gradients were 0 at every step, so that a
+    comparison of such states, two runs bit for bit or a resume, would hold
+    vacuously for it)."""
+    norms = {}
+    for m in ("g", "d"):
+        norms[m] = sum(((p.detach() - q) ** 2).sum().item()
+                       for p, q in zip(getattr(state, m).parameters(), before[m])) ** 0.5
+        now, then = opt_tensors(getattr(state, f"{m}_opt")), before[f"{m}_opt"]
+        norms[f"{m}_opt"] = sum(((v - then[k]) ** 2).sum().item() if k in then else
+                                (v ** 2).sum().item() for k, v in now.items()) ** 0.5
+    if not all(norms[m] or norms[f"{m}_opt"] for m in ("g", "d")):
+        raise SystemExit(f"{what}: the run left a model's parameters and optimizer state "
+                         f"unchanged {norms}: its comparison would hold vacuously")
+    return norms
 
 
 def use_kernels(state, flag):
@@ -930,10 +1021,10 @@ def part_replay(st, start, model_name, grads) -> dict:
     return part_state(st)
 
 
-def part_agree(c, h, r, p0) -> dict:
+def part_agree(c, h, r, p0, floor=1.0) -> dict:
     """A part on the card (``c``) against the CPU (``h``), both started from the
     parameters ``p0``: the losses relative to max(1, |loss|); each gradient
-    and optimizer state tensor over TOL * max(1, max|ref|); the buffers
+    and optimizer state tensor over TOL * max(``floor``, max|ref|); the buffers
     elementwise over TOL + TOL * |ref|; the updated parameters where the
     gradient is clear of zero, 1e-3, within TOL; the key bit for bit. The
     updated state is also held elementwise against
@@ -948,7 +1039,8 @@ def part_agree(c, h, r, p0) -> dict:
     tiny = torch.finfo(torch.float32).tiny
     inf = torch.tensor(float("inf"))
     ulp = lambda t: torch.nextafter(t.abs(), inf) - t.abs()  # noqa: E731
-    over = lambda a, b: (a - b).abs().max().item() / (TOL * max(1.0, b.abs().max().item()))  # noqa: E731
+    over = lambda a, b: (a - b).abs().max().item() / (  # noqa: E731
+        TOL * max(floor, b.abs().max().item(), torch.finfo(torch.float32).tiny))
 
     def state_over(a, b):
         return (a - b).abs() / (TOL * b.abs() + tiny)
@@ -989,7 +1081,8 @@ def part_agree(c, h, r, p0) -> dict:
                    and params <= TOL and opt_r <= 1.0 and upd_r <= 1.0 and key)}
 
 
-def part_by_part(dev, args, data, labels, steps, phase, knn=None, draws=None, mesh=None):
+def part_by_part(dev, args, data, labels, steps, phase, knn=None, draws=None, mesh=None,
+                 floor=1.0):
     """Beside a free-running card-against-CPU comparison: each part of each of
     ``steps`` D+G steps on the kernel path started from the same state on both
     sides. Before a part, the card's whole state (both models, their
@@ -1000,7 +1093,7 @@ def part_by_part(dev, args, data, labels, steps, phase, knn=None, draws=None, me
     the next part starts from the card's state after the first round (the part
     as it ran). With ``mesh`` (phase 30 (b), a rank of it), every round runs,
     the reduces being collective, and ``draws(x)`` gives the parts' draws on
-    ``x``'s device. Returns,
+    ``x``'s device; ``floor``: as :func:`part_agree`'s. Returns,
     per part, its rounds' figures, the rows each round left out and the
     receiver rows of its edge-layer calls."""
     from mpgan_tpu_torch.models.registry import build_suite
@@ -1041,7 +1134,7 @@ def part_by_part(dev, args, data, labels, steps, phase, knn=None, draws=None, me
                             after = st
                     replay = part_replay(replay_st, start, part,
                                          figures["card"]["stepped_grads"])
-                    held_r = part_agree(figures["card"], figures["cpu"], replay, p0)
+                    held_r = part_agree(figures["card"], figures["cpu"], replay, p0, floor)
                     rounds.append({**held_r, "rows_left_out": kinks.rows_left_out()})
                     if mesh is None and (held_r["ok"] or kinks.flag() == 0):
                         break
@@ -1075,7 +1168,8 @@ def parts_held(phase, parts, held=None) -> list:
     return [row for row in rows if row["round_held"] is None]
 
 def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
-               cpu_plain_kernels=True, loss_tol=TOL, grad_tol=TOL, knn=None, parts=False):
+               cpu_plain_kernels=True, loss_tol=TOL, grad_tol=TOL, knn=None, parts=False,
+               floor=1.0):
     """Phases 8 and 13: a D+G step at the published widths on the card against the
     CPU. The kernel path runs with dropout 0.5 against the kernels' plain
     versions on the CPU, within rtol = atol = 1e-4 (where a round misses it, the
@@ -1088,7 +1182,11 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
     layer (one function, two paths), against the CPU's plain path for the knn
     layer (``cpu_plain_kernels=False``: its two paths search differently).
     With ``parts``, the kernel path's step is also held part by part, each part
-    started from the same state on both sides (:func:`part_by_part`)."""
+    started from the same state on both sides (:func:`part_by_part`).
+    ``floor``: the kernel path's gradients are held against 1e-4 * max(floor, max|ref|) (0:
+    each its own scale). Fails where the card's step leaves a model without a nonzero
+    gradient (a vacuous comparison); logs each gradient's error over its own
+    scale."""
     from mpgan_tpu_torch.utils.weights import jax_leaves
 
     data, labels = real_batch(batch, card["num_hits"])
@@ -1100,6 +1198,7 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
         cpu_kernels = path == "kernel" or cpu_plain_kernels
 
         ltol, gtol = (TOL, TOL) if path == "kernel" else (loss_tol, grad_tol)
+        gfloor = floor if path == "kernel" else 1.0  # the plain path has no kink rounds
         kinks = KinkRows(held) if path == "kernel" else None
 
         def run(device, kernels):
@@ -1107,12 +1206,17 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
             use_kernels(st, kernels)
             parts = step_fn(st, args, data.to(device), labels.to(device))()
             grads = [p.grad for p in jax_leaves(st.d, True) + jax_leaves(st.g, True)]
+            live = {m: any(p.grad is not None and p.grad.any() for p in jax_leaves(model, True))
+                    for m, model in (("d", st.d), ("g", st.g))}
+            if not all(live.values()):
+                raise SystemExit(f"{phase}: the step on {device} left a model without a "
+                                 f"nonzero gradient {live}: the comparison would hold vacuously")
             return ({k: v.item() for k, v in parts.items()}, [gr.detach().cpu() for gr in grads])
 
         def agree(card_side, cpu_side):
             (lc, gc), (lp, gp) = card_side, cpu_side
             return max(abs(lc[k] - lp[k]) / max(1.0, abs(lp[k])) for k in lp) <= ltol and \
-                all(wgrad_err(a, b, gtol)[1] for a, b in zip(gc, gp))
+                all(wgrad_err(a, b, gtol, gfloor)[1] for a, b in zip(gc, gp))
 
         rounds = []
         with contextlib.ExitStack() as stack:
@@ -1144,12 +1248,15 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
                                  f"search on the same inputs: {card_c}")
         (lc, gc), (lp, gp) = res["card"], res["cpu"]
         loss_err = max(abs(lc[k] - lp[k]) / max(1.0, abs(lp[k])) for k in lp)
-        grad_err = [wgrad_err(a, b, gtol) for a, b in zip(gc, gp)]
+        grad_err = [wgrad_err(a, b, gtol, gfloor) for a, b in zip(gc, gp)]
         log(phase, path=path, disc_dropout=dropout, batch=batch, losses_card=lc, losses_cpu=lp,
             max_rel_loss_err=loss_err, max_abs_grad_err=max(e for e, _ in grad_err),
             max_grad_err_over_bound=max(
                 (a - b).abs().max().item() / max(1.0, b.abs().max().item())
                 for a, b in zip(gc, gp)),
+            max_grad_err_over_own_scale=max(
+                (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                for a, b in zip(gc, gp) if b.numel()), grad_floor=gfloor,
             loss_tol=ltol, grad_tol=gtol, tensors=len(grad_err),
             kink_rows_left_out_by_round=rounds,
             kink_rows_by_call=None if kinks is None else kinks.rows_by_call(),
@@ -1159,7 +1266,8 @@ def step_check(dev, from_args_dict, card=FLAGSHIP, batch=16, phase="step_check",
         if loss_err > ltol or not all(ok for _, ok in grad_err):
             raise SystemExit(f"{phase}: D+G step on the card ({path} path) disagrees with the CPU")
         if parts and path == "kernel":
-            bad = parts_held(phase, part_by_part(dev, args, data, labels, 1, phase, knn=knn))
+            bad = parts_held(phase, part_by_part(dev, args, data, labels, 1, phase, knn=knn,
+                                                 floor=floor))
             if bad:
                 raise SystemExit(f"{phase}: parts of the step started from the card's state "
                                  f"disagree with the CPU: {bad}")
@@ -3006,80 +3114,87 @@ def epoch_profile(t, epoch, loader) -> dict:
 
 
 def graph_step_paths(mk, dev, card, from_args_dict, tmp):
-    """Phase 27, training: every path's epoch of GRAPH_STEPS batches on the eager
-    loop and on the graphs from one seed, bit for bit; launches, peak memory,
-    and step times in turns."""
+    """Phase 27, training: every path's :func:`graph_step_path`."""
+    return {name: graph_step_path(mk, dev, card, name, args, route, tmp)
+            for name, (args, route) in graph_paths(from_args_dict).items()}
+
+
+def graph_step_path(mk, dev, card, name, args, route, tmp) -> dict:
+    """A training path's epoch of GRAPH_STEPS batches on the eager loop and on
+    the graphs from one seed, bit for bit, the eager epoch moving each model
+    (:func:`params_moved`); launches, peak memory, and step times in turns
+    (phases 27 and 34)."""
     from mpgan_tpu_torch.data.loader import BatchLoader
 
-    results = {}
-    for name, (args, route) in graph_paths(from_args_dict).items():
-        set_knn_route(route)
-        try:
-            b = args.batch_size
-            steps = GRAPH_STEPS if args.num_critic == 1 else GRAPH_STEPS_CRITIC5
-            data, labels = graph_data(args, steps * b)
-            epochs = 2 if name == "legacy_mask_epoch" else 1
-            runs = {}
-            for scan in (False, True):
-                t = graph_trainer(args, dev, tmp, f"{name}_{int(scan)}", scan)
-                loader = BatchLoader(data, labels if t.use_labels else None, batch_size=b,
-                                     shuffle=True, seed=args.seed)
-                torch.cuda.synchronize()
-                torch.cuda.empty_cache()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                mk.reset_launch_counts()
-                for e in range(1, epochs + 1):
-                    t.train_epoch(e, loader)
-                torch.cuda.synchronize()
-                runs[scan] = {"trainer": t, "loader": loader,
-                              "launches": {k: v for k, v in mk.launch_counts.items() if v},
-                              "peak_mb": (torch.cuda.max_memory_allocated() - base) / 2**20}
-            eager, graph = runs[False], runs[True]
-            te, tg = eager["trainer"], graph["trainer"]
-            same, rel = state_diff(te.state, tg.state)
-            keys = te.d_loss_keys + ["G"]
-            losses_same = all(te.losses[k] == tg.losses[k] for k in keys)
-            kinds = sorted(tg.graphs.steps)
-            res = {"batch": b, "epochs": epochs, "kinds": kinds,
-                   "captures": tg.graphs.captures, "replays": tg.graphs.replays,
-                   "state_bit_identical": same, "max_rel_diff": rel,
-                   "losses_equal": losses_same,
-                   "losses": {k: tg.losses[k] for k in keys},
-                   "launches_eager": eager["launches"], "launches_graph": graph["launches"],
-                   "peak_mb_eager": eager["peak_mb"], "peak_mb_graph": graph["peak_mb"]}
-            if not same and rel > 1e-6:
-                log("graph_step", card=card, path=name, **res)
-                raise SystemExit(f"{name}: the graph steps' state differs from the eager "
-                                 f"loop's by {rel} relative")
-            # (the external pair reaches no hand-written kernel: rGAN G, WGAN-GP's plain D)
-            if eager["launches"] != graph["launches"] or (not eager["launches"]
-                                                          and name != "fcmp_wgan_gp"):
-                raise SystemExit(f"{name}: kernel launches eager {eager['launches']} != graph "
-                                 f"{graph['launches']}")
-            if not tg.graphs.replays or tg.graphs.captures != epochs * len(kinds):
-                raise SystemExit(f"{name}: {tg.graphs.captures} captures, "
-                                 f"{tg.graphs.replays} replays")
-            # step times in turns, on the captured graphs; then a profile of each
-            ms = {"eager": [], "graph": []}
-            epoch = epochs
-            for which in GRAPH_TURNS:
-                epoch += 1
-                ms[which].append(timed_epoch(runs[which == "graph"]["trainer"], epoch,
-                                             runs[which == "graph"]["loader"]))
-            for which, r in (("eager", eager), ("graph", graph)):
-                res[f"wall_ms_{which}"] = ms[which]
-                res[f"issue_ms_{which}"] = issue_epoch(r["trainer"], epoch + 1, r["loader"])
-                res[f"profile_{which}"] = epoch_profile(r["trainer"], epoch + 2, r["loader"])
-                epoch += 2
-            res["replays"] = tg.graphs.replays
-            log("graph_step", card=card, path=name, **res)
-            results[name] = res
-        finally:
-            set_knn_route()
-            runs = te = tg = None
+    set_knn_route(route)
+    try:
+        b = args.batch_size
+        steps = GRAPH_STEPS if args.num_critic == 1 else GRAPH_STEPS_CRITIC5
+        data, labels = graph_data(args, steps * b)
+        epochs = 2 if name == "legacy_mask_epoch" else 1
+        runs = {}
+        for scan in (False, True):
+            t = graph_trainer(args, dev, tmp, f"{name}_{int(scan)}", scan)
+            loader = BatchLoader(data, labels if t.use_labels else None, batch_size=b,
+                                 shuffle=True, seed=args.seed)
+            torch.cuda.synchronize()
             torch.cuda.empty_cache()
-    return results
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = model_params(t.state)
+            mk.reset_launch_counts()
+            for e in range(1, epochs + 1):
+                t.train_epoch(e, loader)
+            torch.cuda.synchronize()
+            runs[scan] = {"trainer": t, "loader": loader, "before": before,
+                          "launches": {k: v for k, v in mk.launch_counts.items() if v},
+                          "peak_mb": (torch.cuda.max_memory_allocated() - base) / 2**20}
+        eager, graph = runs[False], runs[True]
+        te, tg = eager["trainer"], graph["trainer"]
+        moved = params_moved(te.state, eager.pop("before"), name)
+        graph.pop("before")
+        same, rel = state_diff(te.state, tg.state)
+        keys = te.d_loss_keys + ["G"]
+        losses_same = all(te.losses[k] == tg.losses[k] for k in keys)
+        kinds = sorted(tg.graphs.steps)
+        res = {"batch": b, "epochs": epochs, "kinds": kinds,
+               "captures": tg.graphs.captures, "replays": tg.graphs.replays,
+               "state_bit_identical": same, "max_rel_diff": rel, "params_moved": moved,
+               "losses_equal": losses_same,
+               "losses": {k: tg.losses[k] for k in keys},
+               "launches_eager": eager["launches"], "launches_graph": graph["launches"],
+               "peak_mb_eager": eager["peak_mb"], "peak_mb_graph": graph["peak_mb"]}
+        if not same and rel > 1e-6:
+            log("graph_step", card=card, path=name, **res)
+            raise SystemExit(f"{name}: the graph steps' state differs from the eager "
+                             f"loop's by {rel} relative")
+        # (the external pair reaches no hand-written kernel: rGAN G, WGAN-GP's plain D)
+        if eager["launches"] != graph["launches"] or (not eager["launches"]
+                                                      and name != "fcmp_wgan_gp"):
+            raise SystemExit(f"{name}: kernel launches eager {eager['launches']} != graph "
+                             f"{graph['launches']}")
+        if not tg.graphs.replays or tg.graphs.captures != epochs * len(kinds):
+            raise SystemExit(f"{name}: {tg.graphs.captures} captures, "
+                             f"{tg.graphs.replays} replays")
+        # step times in turns, on the captured graphs; then a profile of each
+        ms = {"eager": [], "graph": []}
+        epoch = epochs
+        for which in GRAPH_TURNS:
+            epoch += 1
+            ms[which].append(timed_epoch(runs[which == "graph"]["trainer"], epoch,
+                                         runs[which == "graph"]["loader"]))
+        for which, r in (("eager", eager), ("graph", graph)):
+            res[f"wall_ms_{which}"] = ms[which]
+            res[f"issue_ms_{which}"] = issue_epoch(r["trainer"], epoch + 1, r["loader"])
+            res[f"profile_{which}"] = epoch_profile(r["trainer"], epoch + 2, r["loader"])
+            epoch += 2
+        res["replays"] = tg.graphs.replays
+        log("graph_step", card=card, path=name, **res)
+        return res
+    finally:
+        set_knn_route()
+        runs = te = tg = None
+        torch.cuda.empty_cache()
 
 
 def graph_cli(train_cli, dev, tmp):
@@ -3465,17 +3580,19 @@ TILES_KNN = r"bf16_tiles_kernel<\s*(\(int\))?\d+\s*,\s*(true|\(bool\)1|1)\s*,"
 TILES_FN = r"bf16_tiles_fn_kernel<"
 
 
-def bf16_step_check(mk, dev, card, from_args_dict):
-    """A flagship bf16 D+G step at B=256 from the same weights and draws as a
-    float32 one: losses within 5%, every master tensor float32, only bf16 edge
-    kernels launched; a torch.profiler trace of bf16 steps names K2, K3 and K4's
-    bf16 kernels."""
+def bf16_step_check(mk, dev, card, from_args_dict, card_d=FLAGSHIP, batch=256):
+    """A bf16 D+G step (by default the flagship's at B=256) from the same
+    weights and draws as a float32 one: losses within 5%, every master tensor
+    float32, the bf16 edge kernels a step predicts launched
+    (:func:`dense_steps_expected`) and the float32 ones by the float32 step;
+    a torch.profiler trace of bf16 steps names the bf16 kernels: K2, K3 and,
+    at N <= 64, K4."""
     from torch.profiler import ProfilerActivity, profile
 
-    data, labels = (t.to(dev) for t in real_batch(256))
+    data, labels = (t.to(dev) for t in real_batch(batch, card_d["num_hits"]))
     res = {}
     for name, extra in (("f32", {}), ("bf16", {"compute_dtype": "bfloat16"})):
-        args = from_args_dict({**FLAGSHIP, **extra})
+        args = from_args_dict({**card_d, **extra})
         st = make_state(args, dev)
         step = step_fn(st, args, data, labels)
         mk.reset_launch_counts()
@@ -3489,46 +3606,54 @@ def bf16_step_check(mk, dev, card, from_args_dict):
             step16()
         torch.cuda.synchronize()
     names = trace_names(prof)
+    k4 = card_d["num_hits"] <= 64
     named = {what: [k for k in names if re.search(pat, k) and (not bf16 or "bfloat16" in k)]
              for what, pat, bf16 in (("K2", TILES_DENSE, False),
                                      ("K4", TILES_FN, False),
-                                     ("K3", "edge_aggregate_bwd_kernel<", True))}
-    log("bf16_step_check", card=card, batch=256, losses_f32=l32, losses_bf16=l16,
-        max_rel_loss_diff=rel, tol=BF16_STEP_LOSS_TOL, master_state_float32=leaves_f32,
-        launches_f32=c32, launches_bf16=c16, trace_kernels={k: v[:1] for k, v in named.items()})
+                                     ("K3", "edge_aggregate_bwd_kernel<", True))
+             if k4 or what != "K4"}
+    expected = {k: dense_steps_expected(card_d["num_hits"], 1, bf16=bf16)
+                for k, bf16 in (("f32", False), ("bf16", True))}
+    log("bf16_step_check", card=card, batch=batch, n=card_d["num_hits"], losses_f32=l32,
+        losses_bf16=l16, max_rel_loss_diff=rel, tol=BF16_STEP_LOSS_TOL,
+        master_state_float32=leaves_f32, launches_f32=c32, launches_bf16=c16,
+        expected=expected, trace_kernels={k: v[:1] for k, v in named.items()})
     if rel > BF16_STEP_LOSS_TOL or not leaves_f32:
         raise SystemExit(f"bf16 step: losses {l16} against float32 {l32}, master float32 "
                          f"{leaves_f32}")
-    if set(c16) != {"edge_aggregate_bf16", "edge_aggregate_train_bf16",
-                    "edge_aggregate_fn_bf16", "edge_aggregate_bwd_bf16",
-                    "edge_aggregate_bwd_no_wgrads_bf16"} or any(k.endswith("_bf16") for k in c32):
-        raise SystemExit(f"bf16 step launched {c16}, the float32 step {c32}")
+    if c16 != expected["bf16"] or c32 != expected["f32"]:
+        raise SystemExit(f"bf16 step launched {c16}, the float32 step {c32}, predicted "
+                         f"{expected}")
     if not all(named.values()):
         raise SystemExit(f"the bf16 step's trace names no bf16 kernel for "
                          f"{[k for k, v in named.items() if not v]}: {names[:20]}")
     return c16
 
 
-def bf16_graph_and_timing(mk, dev, card, from_args_dict, tmp):
-    """The flagship bf16 epoch (GRAPH_STEPS batches of 256) on the eager loop and
-    on the captured graph from one seed, bit for bit; then the bf16 and the
-    float32 graph steps in turns (float32, bf16, bf16, float32) and a profile of
-    each: wall, device time, idle share."""
+def bf16_graph_and_timing(mk, dev, card, from_args_dict, tmp, card_d=FLAGSHIP, b=256):
+    """A bf16 epoch (GRAPH_STEPS batches of ``b``; by default the flagship's at
+    256) on the eager loop and on the captured graph from one seed, bit for
+    bit, the eager epoch moving each model (:func:`params_moved`); then the
+    bf16 and the float32 graph steps in turns (float32, bf16, bf16, float32)
+    and a profile of each: wall, device time, idle share."""
     from mpgan_tpu_torch.data.loader import BatchLoader
 
-    a32 = from_args_dict(FLAGSHIP)
-    a16 = from_args_dict({**FLAGSHIP, "compute_dtype": "bfloat16"})
-    a32.batch_size = a16.batch_size = b = 256
+    a32 = from_args_dict(card_d)
+    a16 = from_args_dict({**card_d, "compute_dtype": "bfloat16"})
+    a32.batch_size = a16.batch_size = b
     data, labels = graph_data(a16, GRAPH_STEPS * b)
     runs = {}
     for name, args, scan in (("bf16_eager", a16, False), ("bf16_graph", a16, True),
                              ("f32_graph", a32, True)):
         t = graph_trainer(args, dev, tmp, name, scan)
         loader = BatchLoader(data, labels, batch_size=b, shuffle=True, seed=args.seed)
+        before = model_params(t.state)
         mk.reset_launch_counts()
         t.train_epoch(1, loader)
         torch.cuda.synchronize()
         runs[name] = (t, loader, {k: v for k, v in mk.launch_counts.items() if v})
+        if name == "bf16_eager":
+            moved = params_moved(t.state, before, "bf16 epoch")
     (te, _, ce), (tg, _, cg) = runs["bf16_eager"], runs["bf16_graph"]
     same, rel = state_diff(te.state, tg.state)
     losses_same = all(te.losses[k] == tg.losses[k] for k in ("Dr", "Df", "D", "G"))
@@ -3545,11 +3670,13 @@ def bf16_graph_and_timing(mk, dev, card, from_args_dict, tmp):
     for which in ("f32_graph", "bf16_graph"):
         t, loader, _ = runs[which]
         prof[which] = epoch_profile(t, epoch + 1, loader)
-    log("bf16_graph_step", card=card, batch=b, steps=GRAPH_STEPS, state_bit_identical=same,
+    log("bf16_graph_step", card=card, batch=b, n=card_d["num_hits"], steps=GRAPH_STEPS,
+        state_bit_identical=same, params_moved=moved,
         losses_equal=losses_same, replays=tg.graphs.replays, launches=cg,
         wall_ms_f32=ms["f32_graph"], wall_ms_bf16=ms["bf16_graph"],
         profile_f32=prof["f32_graph"], profile_bf16=prof["bf16_graph"])
     return {"wall_ms_f32": min(ms["f32_graph"]), "wall_ms_bf16": min(ms["bf16_graph"]),
+            "launches_per_step": {k: v / GRAPH_STEPS for k, v in cg.items()},
             "profile_f32": prof["f32_graph"], "profile_bf16": prof["bf16_graph"]}
 
 
@@ -3572,13 +3699,7 @@ def bf16_cli(mk, train_cli, tmp):
     t3 = train_cli.main(argv + ["--num-epochs", "3"])
     counts = dict(mk.launch_counts)
     steps = 3 * (len(t1.train_dataset) // t1.args.batch_size)
-    # per D+G step: the D step's G (eval) runs K4 in its 2 layers; D on real and fake
-    # K2 with dropout and K3 with weight gradients, 2 layers each; the G step's G K2
-    # without dropout (gen_dropout 0) and K3 with weight gradients, its D K2 with
-    # dropout and K3 without them
-    predicted = {"edge_aggregate_fn_bf16": 2 * steps, "edge_aggregate_train_bf16": 6 * steps,
-                 "edge_aggregate_bf16": 2 * steps, "edge_aggregate_bwd_bf16": 6 * steps,
-                 "edge_aggregate_bwd_no_wgrads_bf16": 2 * steps}
+    predicted = dense_steps_expected(30, steps, bf16=True)
     npz = np.load(tmp / "bf16" / "models" / "state_3.npz")
     ckpt_f32 = all(npz[k].dtype == np.float32 for k in npz.files if npz[k].dtype.kind in "fV")
     losses = {k: t3.losses[k] for k in ("Dr", "Df", "D", "G")}
@@ -4436,6 +4557,13 @@ def mesh_rank(p):
     return out
 
 
+# phase 30 (b)'s depth: the global batch of its 2-rank step (held against the CPU, whose
+# plain versions take most of the phase's time) and the jets of its 2-rank sampler
+# (256 and 8,192 before the 150-particle phase 34 joined the script)
+MESH_TWO_RANKS_BATCH = 128
+MESH_TWO_RANKS_JETS = 4096
+
+
 def mesh_two_ranks(dev, from_args_dict, card):
     """Phase 30 (b): two ranks of gloo on one card (``make_mesh(devices=[cuda:0,
     cuda:0])``). The 2-rank step on the card against the 2-rank step on the CPU
@@ -4452,13 +4580,14 @@ def mesh_two_ranks(dev, from_args_dict, card):
 
     args = from_args_dict(FLAGSHIP)
     spec = build_suite(args).noise
-    lab = real_batch(8192)[1].numpy()
-    p = {"batch": 256, "spec": spec, "sampler_labels": lab, "sampler_batch": 4096}
+    lab = real_batch(MESH_TWO_RANKS_JETS)[1].numpy()
+    p = {"batch": MESH_TWO_RANKS_BATCH, "spec": spec, "sampler_labels": lab,
+         "sampler_batch": MESH_TWO_RANKS_JETS // 2}
     t0 = time.perf_counter()
     ranks = launch(mesh_rank, 2, "cuda", p)
     wall = time.perf_counter() - t0
     single = generate_multi_batch(make_state(args, dev).g, spec,
-                                  prng_key(7, dev), len(lab), 4096,
+                                  prng_key(7, dev), len(lab), p["sampler_batch"],
                                   labels=lab)
     res = {"seconds": wall, "backend": [r["backend"] for r in ranks],
            "step_wall_ms": [r["step_wall_ms"] for r in ranks],
@@ -5210,13 +5339,14 @@ def lattice_held(layer, d, runs, res, what):
 
 
 def lattice_run(layer, d, kernels, dtype=torch.float32, left_out=None, record=None,
-                versions=False):
+                versions=False, parts=None):
     """One forward and backward of the loss ``sum(sin(y))`` (without the rows
     ``left_out``) on its own copy of ``layer`` (spectral norm advances ``u``
     in place): the output, the gradients of every parameter in JAX leaf order
     and of ``x``, and the launches (the kernels' and the dropout keys'
     draws); with ``record``, what :func:`lattice_recording` records; with
-    ``versions``, through the kernels' plain versions (:func:`plain_versions`)."""
+    ``parts``, what :func:`lattice_x_calls` records; with ``versions``,
+    through the kernels' plain versions (:func:`plain_versions`)."""
     from mpgan_tpu_torch.ops import mp
     from mpgan_tpu_torch.ops import mp_kernels as mk
     from mpgan_tpu_torch.ops.keys import Keys
@@ -5227,14 +5357,14 @@ def lattice_run(layer, d, kernels, dtype=torch.float32, left_out=None, record=No
     mask = None if d["mask"] is None else d["mask"].to(dtype)
     mk.reset_launch_counts()
     with plain_versions() if versions else contextlib.nullcontext():
-        with lattice_recording(layer, record):
+        with lattice_recording(layer, record), lattice_x_calls(parts):
             y = mp.mp_layer_apply(layer, x, mask=mask, labels=d["labels"],
                                   num_jet_particles=d["njp"], train=d["train"],
                                   rng=Keys(d["key"]), use_kernels=kernels)
-        loss = torch.sin(y.float())
-        if left_out is not None:
-            loss = loss * (~left_out)[..., None]
-        loss.sum().backward()
+            loss = torch.sin(y.float())
+            if left_out is not None:
+                loss = loss * (~left_out)[..., None]
+            loss.sum().backward()
     if x.is_cuda:
         torch.cuda.synchronize()
     launches = lattice_launched()
@@ -5271,26 +5401,229 @@ def lattice_over(outs, refs, bf16=False, whole=False) -> tuple[float, int]:
     return worst, at
 
 
-def lattice_x_witness(out, ref, exact) -> dict:
-    """A dense point's bf16 ``x`` gradient: the kernels' (``out``) against their
-    bf16 plain versions' (``ref``) elementwise at 1e-2 * max(1, max|ref|).
-    Where an element misses, both are held against the FP32 plain versions on
-    the same bf16-rounded inputs and weights (``exact``): the point holds only
-    if the kernels' gradient lies no further from FP32 than the plain
-    versions' (the largest error over max(1, max|exact|)), that is, where the
-    miss lies within the bf16 mode's own error (its terms, bf16 products
-    several times the sum's size, cancel). Relative L2 logged beside."""
-    o, r, e = out.float(), ref.float(), exact.float()
+@contextlib.contextmanager
+def lattice_x_calls(record):
+    """Into ``record`` (unless None), what a dense run hands to ``x``'s
+    gradient through its kernel calls: fe layer 1's weight as the layer used
+    it (``w1``, and the node width ``f``), and the inputs and outputs of every
+    K2 call (``"k2"``: the forward's on the K2 route, the backward's recompute
+    on the K4 route) and every K3 call (``"k3"``), the kernels' or, on the
+    plain path or under :func:`plain_versions`, their plain versions'."""
+    if record is None:
+        yield
+        return
+    from mpgan_tpu_torch.ops import mp
+    from mpgan_tpu_torch.ops import mp_kernels as mk
+
+    decompose, k2, k3 = mp._decompose_first_layer, mk.edge_aggregate, mk.edge_aggregate_bwd
+    keep = lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    record.update(k2=[], k3=[])
+
+    def call(u1, u2, m, hidden, alpha, sum_agg, p, seed, **kw):
+        return dict(u1=keep(u1), u2=keep(u2), m=keep(m), hidden=[keep(t) for t in hidden],
+                    alpha=alpha, sum_agg=sum_agg, p=p, seed=keep(seed),
+                    **{k: keep(v) for k, v in kw.items()})
+
+    def decomposed(cfg, weights, *a, **kw):
+        record["w1"], record["f"] = keep(weights[0][0]), cfg.input_node_size
+        return decompose(cfg, weights, *a, **kw)
+
+    def forward(u1, u2, m, hidden, alpha, sum_agg, p=0.0, seed=0):
+        out = k2(u1, u2, m, hidden, alpha, sum_agg, p, seed)
+        record["k2"].append(call(u1, u2, m, hidden, alpha, sum_agg, p, seed, out=out))
+        return out
+
+    def backward(u1, u2, m, hidden, g, alpha, sum_agg, p=0.0, seed=0, need_wgrads=True):
+        out = k3(u1, u2, m, hidden, g, alpha, sum_agg, p, seed, need_wgrads)
+        record["k3"].append(call(u1, u2, m, hidden, alpha, sum_agg, p, seed, g=g,
+                                 du1=out[0], du2=out[1]))
+        return out
+
+    mp._decompose_first_layer, mk.edge_aggregate, mk.edge_aggregate_bwd = \
+        decomposed, forward, backward
+    try:
+        yield
+    finally:
+        mp._decompose_first_layer, mk.edge_aggregate, mk.edge_aggregate_bwd = \
+            decompose, k2, k3
+
+
+# jittered float64 models an envelope, fixed (with jittered's draw) before the rule first
+# ran on the card
+LATTICE_X_SAMPLES = 8
+U32 = 2.0**-24  # float32's unit roundoff
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16, held in its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at ``|t|`` (2^-133, bf16's least subnormal,
+    at zero)."""
+    _, e = torch.frexp(t)
+    return torch.where(t == 0, torch.full_like(t, 2.0**-133),
+                       torch.ldexp(torch.ones_like(t), (e - 8).clamp_min(-133)))
+
+
+def jittered(z, jitter, terms: int, scale):
+    """``z``, standing for a float32 sum of ``terms`` terms whose magnitudes
+    sum to ``scale()``, moved with the generator ``jitter`` by a draw uniform
+    within sqrt(terms) u scale. Its standard deviation, sqrt(terms / 3) u
+    scale, bounds that of such a sum whose additions each round by an
+    independent error uniform within u of the partial sum (Monte Carlo
+    arithmetic: one float32 implementation among those that sum in another
+    order). ``z`` itself without ``jitter``."""
+    if jitter is None:
+        return z
+    noise = torch.rand(z.shape, generator=jitter, dtype=z.dtype, device=z.device) * 2 - 1
+    return z + noise * (terms**0.5 * U32) * scale().detach()
+
+
+class Product64(torch.autograd.Function):
+    """``a @ w + b`` in float64 for a float32 product: the forward's sums and
+    the backward's ``dz w^T`` each moved as :func:`jittered` moves a float32
+    sum. ``w`` and ``b`` take no gradient."""
+
+    @staticmethod
+    def forward(ctx, a, w, b, jitter):
+        ctx.save_for_backward(w)
+        ctx.jitter = jitter
+        return jittered(a @ w + b, jitter, w.shape[0] + 1, lambda: a.abs() @ w.abs() + b.abs())
+
+    @staticmethod
+    def backward(ctx, dz):
+        (w,) = ctx.saved_tensors
+        return (jittered(dz @ w.t(), ctx.jitter, w.shape[1], lambda: dz.abs() @ w.abs().t()),
+                None, None, None)
+
+
+def edge_model64(c, jitter=None):
+    """A float64 model of one K2 or K3 call (``c``, as :func:`lattice_x_calls`
+    records it) in the mode its inputs select, rounding what that mode
+    rounds and nothing else. bf16 inputs: each product operand of the edge
+    chain rounded to bf16 (``mp_pallas._split_mlp_chain``), every sum after
+    that in float64 (the aggregate and, by autograd, the backward: ``da`` on
+    the bf16 weights' values, landing on the unrounded activations), the
+    aggregate, or du1 and du2, rounded to bf16 once. float32 or float64
+    inputs: the FP32 mode in float64, nothing rounded. Autograd over its own
+    forward, apart from the plain versions' recompute; only K1's dropout
+    multipliers come from its plain version. With ``jitter``, every sum moved
+    as :func:`jittered` moves it. Returns a K2 call's aggregate, or a K3
+    call's (du1, du2) (``c`` holds ``g``), in float64."""
+    from mpgan_tpu_torch.ops import mp_kernels as mk
+
+    f64 = torch.float64
+    rnd = bf16_round if c["u1"].dtype == torch.bfloat16 else (lambda t: t)
+    u1, u2 = (c[k].to(f64).requires_grad_() for k in ("u1", "u2"))
+    b, n = u1.shape[:2]
+    ids = mk.pair_ids(b, n, u1.device) if c["p"] > 0 else None
+
+    def act(z, salt):
+        a = torch.where(z >= 0, z, c["alpha"] * z)
+        return a if ids is None else a * mk._dropmul(ids, z.shape[-1], c["p"], c["seed"], salt)
+
+    z0 = jittered(u1[:, :, None, :] + u2[:, None, :, :], jitter, 2,
+                  lambda: u1.abs()[:, :, None, :] + u2.abs()[:, None, :, :])
+    a = act(z0, 0)
+    hidden = [t.to(f64) for t in c["hidden"]]
+    for salt in range(1, len(hidden) // 2 + 1):
+        op = a + (rnd(a) - a).detach()  # the product takes the bf16 operand, da lands on a
+        a = act(Product64.apply(op, hidden[2 * salt - 2], hidden[2 * salt - 1], jitter), salt)
+    terms = a * c["m"].to(f64)[:, None, :, :]
+    agg = jittered(terms.sum(2), jitter, n, lambda: terms.abs().sum(2))
+    agg = agg if c["sum_agg"] else agg / n
+    if "g" not in c:
+        return rnd(agg.detach())
+    du1, du2, dz0 = torch.autograd.grad(agg, [u1, u2, z0], c["g"].to(f64))
+    return (rnd(jittered(du1, jitter, n, lambda: dz0.abs().sum(2))),
+            rnd(jittered(du2, jitter, n, lambda: dz0.abs().sum(1))))
+
+
+def lattice_x_call_over(c, w1, f, samples=LATTICE_X_SAMPLES) -> dict:
+    """One K2 or K3 call of a dense bf16 run against its float64 model
+    (:func:`edge_model64` on the call's own inputs), elementwise, in
+    envelopes: each output within one bf16 ulp of the model's plus the
+    farthest that ``samples`` jittered models lie from it (``"agg"`` for K2;
+    ``"du1"``, ``"du2"`` for K3); and K3's du1 and du2 carried to ``x``
+    through fe layer 1's decomposed product in float64
+    (``_decompose_first_layer``: ``du1 W1[:, :f] + du2 W1[:, f:2f]``,
+    ``"x"``), within one bf16 ulp of each of the model's carried through
+    ``|W1|`` (the issue's bound) plus the jittered models' spread there."""
+    f64 = torch.float64
+    wa, wb = w1.to(f64)[:, :f], w1.to(f64)[:, f:2 * f]
+    bwd = "g" in c
+
+    def parts(out):
+        if not bwd:
+            return {"agg": out.to(f64)}
+        du1, du2 = out[0].to(f64), out[1].to(f64)
+        return {"du1": du1, "du2": du2, "x": du1 @ wa + du2 @ wb}
+
+    at = parts(edge_model64(c))
+    env = {k: bf16_ulp(v) for k, v in at.items() if k != "x"}
+    if bwd:
+        env["x"] = env["du1"] @ wa.abs() + env["du2"] @ wb.abs()
+    spread = {k: torch.zeros_like(v) for k, v in at.items()}
+    for i in range(samples):
+        jitter = torch.Generator(device=wa.device).manual_seed(i)
+        for k, v in parts(edge_model64(c, jitter)).items():
+            spread[k] = torch.maximum(spread[k], (v - at[k]).abs())
+    side = parts((c["du1"], c["du2"]) if bwd else c["out"])
+    return {k: (side[k] - at[k]).abs() / (env[k] + spread[k]) for k in at}
+
+
+def lattice_x_envelope(out, ref, kernel, plain, samples=LATTICE_X_SAMPLES) -> dict:
+    """A dense point's bf16 ``x`` gradient: the kernels' against the bf16
+    plain versions' elementwise at 1e-2 * max(1, max|ref|), as every other
+    bf16 gradient. Where an element misses, the point holds only if each run
+    (``kernel``, ``plain``: its :func:`lattice_x_calls` record) hands ``x``
+    what its kernels must: every K3 call, carried to ``x``, within its
+    envelope of the float64 model on its own inputs
+    (:func:`lattice_x_call_over`'s ``"x"``), and every K2 call of the kernels'
+    run within 1e-2 of its tensor's largest of the plain versions' on the
+    same inputs (phase 28's bf16 output rule without its floor of 1, which
+    holds nothing where an aggregate is small). Those calls are held at
+    every element, missed or not: a call outside them is a fault where
+    ``x``'s gradient hides it too. Logged: each call's elementwise readings
+    against the model (K3's du1, du2, K2's aggregate: the model resolves
+    them only to the mode's own flips, ROADMAP Queue 3 item 6), the K2 calls'
+    largest difference in bf16 steps, and what the runs' K3 calls do not
+    hand on (``rest_over``: fn's gradient of ``x`` and of the aggregate,
+    which take other slopes where the runs' bf16 aggregates differ), over
+    the 1e-2 bound."""
+    o, r = out.double(), ref.double()
     bound = BF16_TOL * max(1.0, r.abs().max().item())
     miss = (o - r).abs() > bound
-    scale = max(1.0, e.abs().max().item())
     res = {"over": (o - r).abs().max().item() / bound, "elements_over": int(miss.sum()),
            "rows_over": int(miss.any(-1).sum()), "rows": miss[..., 0].numel(),
-           "kernel_err_vs_fp32": (o - e).abs().max().item() / scale,
-           "plain_err_vs_fp32": (r - e).abs().max().item() / scale,
-           "kernel_rel_l2_vs_fp32": bf16_whole(o, e)[0],
-           "plain_rel_l2_vs_fp32": bf16_whole(r, e)[0]}
-    res["ok"] = not miss.any() or res["kernel_err_vs_fp32"] <= res["plain_err_vs_fp32"]
+           "samples": samples}
+    held, handed = True, {}
+    for side, rec in (("kernel", kernel), ("plain", plain)):
+        wa, wb = rec["w1"].double()[:, :rec["f"]], rec["w1"].double()[:, rec["f"]:2 * rec["f"]]
+        for kind in ("k2", "k3"):
+            overs = [lattice_x_call_over(c, rec["w1"], rec["f"], samples) for c in rec[kind]]
+            res[f"{side}_{kind}_calls"] = len(overs)
+            for what in ("agg",) if kind == "k2" else ("du1", "du2", "x"):
+                res[f"{side}_{kind}_{what}_over_envelope"] = max(
+                    (v[what].max().item() for v in overs), default=0.0)
+        held &= res[f"{side}_k3_x_over_envelope"] <= 1.0
+        res[f"{side}_k3_x_over_envelope_at_misses"] = max(
+            (v["x"][miss].max().item() for v in overs if miss.any()), default=0.0)
+        handed[side] = sum(c["du1"].double() @ wa + c["du2"].double() @ wb for c in rec["k3"])
+    res["k2_over"] = res["k2_steps_max"] = 0.0
+    for ck, cp in zip(kernel["k2"], plain["k2"], strict=True):
+        if not all(torch.equal(ck[k], cp[k]) for k in ("u1", "u2", "m")):
+            raise SystemExit("phase 33: the two runs' K2 calls took different inputs")
+        a, b = ck["out"].double(), cp["out"].double()
+        res["k2_over"] = max(res["k2_over"], (a - b).abs().max().item()
+                             / (BF16_TOL * b.abs().max().item()))
+        res["k2_steps_max"] = max(res["k2_steps_max"], ((a - b).abs() / bf16_ulp(
+            torch.maximum(a.abs(), b.abs()))).max().item())
+    held &= res["k2_over"] <= 1.0
+    res["rest_over"] = ((o - r) - (handed["kernel"] - handed["plain"])).abs().max().item() / bound
+    res["ok"] = held  # held at every element, so at the misses too
     return res
 
 
@@ -5409,22 +5742,20 @@ def lattice_point(s, dev) -> dict:
 
     if res["path"] == "kernel":
         # bf16 (dropout as sampled): the bf16 modes against their plain versions;
-        # a dense point's x gradient with its FP32 witness where it misses
-        # (lattice_x_witness)
+        # a dense point's x gradient at 1e-2, each run's K2 and K3 calls held
+        # (lattice_x_envelope)
         for kernel, select in routes:
             tag = "" if len(routes) == 1 else f"_route{kernel}"
+            parts = [{}, {}] if dense else [None, None]
             with lattice_env(kernel, select):
-                out, launched = lattice_run(layer, d, True, torch.bfloat16)
-                with plain_versions():
-                    ref, _ = lattice_run(layer, d, True, torch.bfloat16)
-                    if dense:
-                        exact, _ = lattice_run(copy.deepcopy(layer).to(torch.bfloat16),
-                                               {**d, "x": d["x"].bfloat16()}, True)
+                out, launched = lattice_run(layer, d, True, torch.bfloat16, parts=parts[0])
+                ref, _ = lattice_run(layer, d, True, torch.bfloat16, versions=True,
+                                     parts=parts[1])
             held = slice(None, -1) if dense else slice(None)
             res["over"]["bf16" + tag], res["at"]["bf16" + tag] = lattice_over(
                 out[held], ref[held], bf16=True, whole=not dense)
             if dense:
-                res["bf16_x_grad"] = lattice_x_witness(out[-1], ref[-1], exact[-1])
+                res["bf16_x_grad"] = lattice_x_envelope(out[-1], ref[-1], *parts)
                 if not res["bf16_x_grad"]["ok"]:
                     fault(f"bf16 x gradient: {res['bf16_x_grad']}")
             check_launches("bf16" + tag, launched, lattice_expected(cfg, d, (kernel, select),
@@ -5472,6 +5803,464 @@ def lattice_phase(card) -> dict:
     if faults:
         raise SystemExit("phase 33: " + "; ".join(faults))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 34: the 150-particle dense paths that bench.py times, end to end on the card
+# ---------------------------------------------------------------------------
+DENSE150 = {**FLAGSHIP, "num_hits": 150}  # bench.py's 150p dense card (flagship widths)
+DENSE150_FE = {**DENSE150, "fe": [128, 256]}  # bench.py's headline generator
+DENSE150_GEN_BATCH = 512  # bench.py's generation batch
+DENSE150_STEP_BATCH = 128  # bench.py's train-step batch
+DENSE150_GEN_JETS = 50000
+DENSE150_CHECK_JETS = 8  # jets held to the CPU
+# the D+G step held to the CPU: 4 jets of 150 particles give each edge-layer call 600
+# receiver rows (phase 8's 16 flagship jets give 480), at a quarter of B=16's CPU time (a
+# step of the kernels' plain versions takes about 40 s on 8 CPU cores at B=16)
+DENSE150_CPU_BATCH = 4
+BF16_GEN_LOGGED = 5e-2  # the bf16 generator against the float32 one: share beyond, logged
+# D's learning rate in the 150p epochs and train CLI run (the card's is 3e-5): RMSprop's
+# first update moves every element by about 10 lr, and D's logits, sums over 150 senders
+# twice, saturate sigmoid again after it, scaled or not; G's gradients are then exactly 0
+# in bf16 and about 1e-10 in float32 for the rest of the epoch (measured on an H100), so
+# that its side of a comparison of two epochs would hold vacuously. At 1e-9 D stays near
+# its unsaturated start and both models' parameters move.
+DENSE150_LR_DISC = 1e-9
+PLAIN_MEMORY_SHARE = 0.8  # of the card's free memory a timed plain-path step may need
+
+
+def dense_steps_expected(n: int, steps: int, eval_batches: int = 0, bf16: bool = False) -> dict:
+    """The dense kernels ``steps`` D+G steps of the MPGAN card at ``n``
+    particles launch, and ``eval_batches`` batches of the evaluation's G: per
+    step the D step's G (eval) K4 in its 2 layers (N <= 64), else K2; D on
+    real and fake K2 with dropout and K3 with weight gradients, 2 layers each;
+    the G step's G K2 without dropout (gen_dropout 0) and K3 with weight
+    gradients, its D K2 with dropout and K3 without them; an evaluation batch
+    2 K4 or 2 K2."""
+    tag = "_bf16" if bf16 else ""
+    k4 = n <= 64
+    counts = {"edge_aggregate" + tag: (2 if k4 else 4) * steps + (0 if k4 else 2 * eval_batches),
+              "edge_aggregate_train" + tag: 6 * steps, "edge_aggregate_bwd" + tag: 6 * steps,
+              "edge_aggregate_bwd_no_wgrads" + tag: 2 * steps}
+    if k4:
+        counts["edge_aggregate_fn" + tag] = 2 * steps + 2 * eval_batches
+    return counts
+
+
+def dense150_generator(mk, gen_cli, dev, card, from_args_dict, tmp) -> dict:
+    """Phase 34 (1): bench.py's headline generator, the 150-particle ``--fe 128
+    256`` card: 50,000 jets through ``cli.gen`` and 2,048 through
+    ``generate_multi_batch`` at B=512 (K2 2 a batch, no K4), shape, finiteness
+    and mask counts; 8 jets on the card against the same path on the CPU (the
+    kernels' plain versions, the same keys) at 1e-4; the sampler's batch
+    against the card's plain path at 1e-4, the mask column equal; the captured
+    sampler bit for bit the eager one; K2 at the batch against its plain
+    version (rerun bit for bit); jets/s of the kernel and plain paths in
+    turns, launches a batch and peak memory."""
+    from mpgan_tpu_torch.data.jetnet import JetNetDataset
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training.sampling import drop_samplers, generate_multi_batch
+    from mpgan_tpu_torch.utils.weights import mp_generator_to_reference_sd
+
+    b, n, fe = DENSE150_GEN_BATCH, 150, DENSE150_FE["fe"]
+    args = from_args_dict(DENSE150_FE)
+    suite = build_suite(args)
+    g_cpu = suite.generator(prng_key(34, "cpu"))
+    g = suite.generator(prng_key(34, "cpu"), device=dev)
+    if any(tuple(layer.fe.sizes[1:]) != tuple(fe) for layer in g.cfg.layers):
+        raise SystemExit(f"phase 34: the --fe 128 256 card built fe {g.cfg.layers[0].fe.sizes}")
+    (tmp / "card150.txt").write_text(repr(args.to_dict()))
+    torch.save(mp_generator_to_reference_sd(g_cpu), tmp / "G150.pt")
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen_cli.main(["--g-args", str(tmp / "card150.txt"), "--g-state", str(tmp / "G150.pt"),
+                  "--output-file", str(tmp / "gen150.npy"), "--device", "cuda", "--seed", "0",
+                  "--num-samples", str(DENSE150_GEN_JETS), "--batch-size", str(b)])
+    cli_wall = time.perf_counter() - t0
+    cli_launches = dict(mk.launch_counts)
+    jets = np.load(tmp / "gen150.npy")
+    ds = JetNetDataset("g", num_particles=n, split="valid")
+    lab = ds.jet_data[np.random.default_rng(0).choice(len(ds), size=DENSE150_GEN_JETS)]
+    counts = (lab[:, -1].astype(np.float32) * n).astype(np.int32)
+    batches = -(-DENSE150_GEN_JETS // b)
+    if jets.shape != (DENSE150_GEN_JETS, n, 3) or not np.isfinite(jets).all():
+        raise SystemExit(f"phase 34: gen output {jets.shape} is not finite "
+                         f"({DENSE150_GEN_JETS}, {n}, 3)")
+    if not np.array_equal(np.any(jets != 0, axis=-1).sum(axis=1), counts) \
+            or (jets[:, :, 2] < 0).any():
+        raise SystemExit("phase 34: gen output: masked particles not zero or negative pT")
+
+    # the sampler at B=512: captured, then eager, bit for bit
+    sampled = 4 * b
+    runs = {}
+    for static in (True, False):
+        drop_samplers(g)
+        mk.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = generate_multi_batch(g, suite.noise, prng_key(1, dev), sampled, b,
+                                   labels=lab[:sampled], static=static)
+        runs[static] = (out, time.perf_counter() - t0, dict(mk.launch_counts))
+    (out, wall, launches), (eager, _, eager_launches) = runs[True], runs[False]
+    if out.shape != (sampled, n, 4) or not np.isfinite(out).all():
+        raise SystemExit(f"phase 34: 150p fe [128, 256] output {out.shape} is not finite")
+    if not np.array_equal((out[..., -1] + 0.5).sum(1), counts[:sampled]):
+        raise SystemExit("phase 34: 150p fe [128, 256] mask counts disagree with the labels")
+    for what, got, want in (("gen", cli_launches, 2 * batches),
+                            ("sampler", launches, 2 * (sampled // b)),
+                            ("eager sampler", eager_launches, 2 * (sampled // b))):
+        if {k: v for k, v in got.items() if v} != {"edge_aggregate": want}:
+            raise SystemExit(f"phase 34: the {what} launched {got}, K2 {want} times expected "
+                             "and nothing else")
+    captured_equal = np.array_equal(out, eager)
+    if not captured_equal:
+        raise SystemExit("phase 34: the captured 150p sampler differs from the eager one")
+
+    # 8 jets on the card against the CPU (the kernels' plain versions, the same keys)
+    few = DENSE150_CHECK_JETS
+    g_cpu.cfg = dataclasses.replace(g_cpu.cfg, use_kernels=True)
+    y8 = torch.as_tensor(generate_multi_batch(g, suite.noise, prng_key(5, dev), few, few,
+                                              labels=lab[:few]))
+    y8_cpu = torch.as_tensor(generate_multi_batch(g_cpu, suite.noise, prng_key(5, "cpu"), few,
+                                                  few, labels=lab[:few]))
+    cpu_err, cpu_rel, cpu_bad = errors(y8, y8_cpu)
+    # the sampler's batch against the card's plain path
+    noise = torch.randn(b, n, 32, generator=torch.Generator(device=dev).manual_seed(34),
+                        device=dev) * 0.2
+    labels = torch.as_tensor(lab[:b], device=dev)
+    kernel_cfg, plain_cfg = g.cfg, dataclasses.replace(g.cfg, use_kernels=False)
+
+    def run(cfg):
+        def f():
+            g.cfg = cfg
+            with torch.inference_mode():
+                return g(noise, labels, update_sn=False)
+        return f
+
+    y_k = run(kernel_cfg)()
+    y_p = run(plain_cfg)()
+    p_err, p_rel, p_bad = errors(y_k, y_p)
+    mask_equal = torch.equal(y_k[..., -1], y_p[..., -1])
+    del y_k, y_p
+    log("dense150_generator_check", card=card, fe=fe, jets_vs_cpu=few,
+        max_abs_err_vs_cpu=cpu_err, max_rel_err_vs_cpu=cpu_rel, out_of_tol_vs_cpu=cpu_bad,
+        mask_column_equal_vs_cpu=torch.equal(y8[..., -1], y8_cpu[..., -1]),
+        jets_vs_plain_path=b, max_abs_err_vs_plain_path=p_err, max_rel_err_vs_plain_path=p_rel,
+        out_of_tol_vs_plain_path=p_bad, mask_column_equal_vs_plain_path=mask_equal,
+        captured_sampler_bit_identical=captured_equal, tol=TOL)
+    if cpu_bad or not torch.equal(y8[..., -1], y8_cpu[..., -1]):
+        raise SystemExit("phase 34: the 150p fe [128, 256] generator on the card disagrees "
+                         "with the CPU")
+    if p_bad or not mask_equal:
+        raise SystemExit("phase 34: the 150p fe [128, 256] generator's kernel path disagrees "
+                         "with its plain path")
+
+    # K2 alone at the batch's shape, then the generator's rates in turns
+    identical, max_err = {"edge_aggregate": True}, {"edge_aggregate": 0.0}
+    u1, u2, mask, hidden, _, _ = kernel_inputs(dev, b, n, 3, seed=34, fe=fe)
+    k2_ms, k2_plain_ms = main_shape(
+        identical, max_err, "edge_aggregate", b, n,
+        lambda: mk.edge_aggregate(u1, u2, mask, hidden, 0.2, True),
+        lambda: mk.edge_aggregate_reference(u1, u2, mask, hidden, 0.2, True), inner=1)
+    del u1, u2, mask, hidden
+    ms = {"kernel": float("inf"), "plain": float("inf")}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for which in order:
+            ms[which] = min(ms[which], best_ms(run(kernel_cfg if which == "kernel"
+                                                   else plain_cfg)))
+    peak_mb = {}
+    for which, cfg in (("kernel", kernel_cfg), ("plain", plain_cfg)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run(cfg)()
+        torch.cuda.synchronize()
+        peak_mb[which] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    mk.reset_launch_counts()
+    run(kernel_cfg)()
+    per_batch = {k: v for k, v in mk.launch_counts.items() if v}
+    g.cfg = kernel_cfg
+    k2 = {"shape": f"B={b} N={n} fe {fe} eval", "ms": k2_ms, "plain_ms": k2_plain_ms,
+          **dense_fwd_bound(b, n, fe=fe), "max_abs_err": max_err["edge_aggregate"],
+          "two_runs_bit_identical": identical["edge_aggregate"]}
+    log("dense150_generation", card=card, fe=fe, gen_jets=DENSE150_GEN_JETS, gen_wall_s=cli_wall,
+        gen_launches={k: v for k, v in cli_launches.items() if v}, sampler_jets=sampled,
+        sampler_wall_s=wall, batch=b, kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+        kernel_jets_per_s=b / ms["kernel"] * 1e3, plain_jets_per_s=b / ms["plain"] * 1e3,
+        launches_per_batch=per_batch, peak_mb=peak_mb, k2=k2)
+    drop_samplers(g)
+    del g, g_cpu
+    torch.cuda.empty_cache()
+    return {"launches": {k: cli_launches.get(k, 0) + launches.get(k, 0) + eager_launches.get(k, 0)
+                         for k in set(cli_launches) | set(launches)},
+            "k2": k2, "jets_per_s": b / ms["kernel"] * 1e3,
+            "identical": identical["edge_aggregate"]}
+
+
+def dense150_plain_step(dev, from_args_dict, card, st_kernel=None) -> dict:
+    """The plain path's D+G step at the largest batch up to B=128 whose peak
+    memory, scaled from a B=16 step's, fits PLAIN_MEMORY_SHARE of the card's
+    free memory (it materialises [B, N, N, H] pair tensors), timed beside the
+    kernel path's step at that batch in turns."""
+    free = torch.cuda.mem_get_info()[0]
+    args = from_args_dict(DENSE150)
+    data, labels = (t.to(dev) for t in real_batch(16, 150))
+    st = make_state(args, dev)
+    use_kernels(st, False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn(st, args, data, labels)()
+    torch.cuda.synchronize()
+    per_jet = (torch.cuda.max_memory_allocated() - base) / 16
+    del st
+    torch.cuda.empty_cache()
+    b = next((b for b in (128, 64, 32, 16) if per_jet * b <= PLAIN_MEMORY_SHARE * free), 16)
+    data, labels = (t.to(dev) for t in real_batch(b, 150))
+    st = make_state(args, dev)
+    step = step_fn(st, args, data, labels)
+
+    def run(flag):
+        def f():
+            use_kernels(st, flag)
+            step()
+        return f
+
+    ms = {"kernel": float("inf"), "plain": float("inf")}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for which in order:
+            ms[which] = min(ms[which], best_ms(run(which == "kernel"), inner=1))
+    res = {"batch": b, "plain_peak_mb_per_jet": per_jet / 2**20,
+           "plain_peak_mb_predicted_b128": per_jet * 128 / 2**20, "free_mb": free / 2**20,
+           "kernel_ms": ms["kernel"], "plain_ms": ms["plain"]}
+    log("dense150_plain_step", card=card, **res)
+    del st, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def k4_backward_route(mk, dev, card, b=256, n=30) -> dict:
+    """K4's backward route (:class:`EdgeAggregateFn`: K2 recomputed, fn in torch,
+    K3 with weight gradients) at B=256 N=30: every gradient against the same
+    route through the plain versions (1e-4; weight gradients of max(1,
+    max|ref|)), then timed beside it, with its bound: the recompute's, K3's
+    and fn's forward and backward products over 67 TFLOP/s, or their bytes."""
+    u1, u2, mask, hidden, x, fn = kernel_inputs(dev, b, n, 3, seed=256)
+    inputs = [t.clone().requires_grad_() for t in (u1, u2, x, *hidden, *fn)]
+    g = torch.randn(b, n, 3, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+
+    def route(versions):
+        u1_, u2_, x_, *flat = inputs
+        with plain_versions() if versions else contextlib.nullcontext():
+            y = mk.EdgeAggregateFn.apply(u1_, u2_, mask, x_, 0.2, True, 0.2, True, len(hidden),
+                                         *flat)
+
+        def backward():
+            with plain_versions() if versions else contextlib.nullcontext():
+                return torch.autograd.grad(y, inputs, g, retain_graph=True)
+        return backward
+
+    kernel, plain = route(False), route(True)
+    mk.reset_launch_counts()
+    out = kernel()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in mk.launch_counts.items() if v}
+    ref = plain()
+    err = [errors(o, r) if i < 3 else wgrad_err(o, r) for i, (o, r) in enumerate(zip(out, ref))]
+    bad = sum(e[2] for e in err[:3]) + sum(not ok for _, ok in err[3:])
+    ms = {"kernel": float("inf"), "plain": float("inf")}
+    for order in (("plain", "kernel"), ("kernel", "plain")):
+        for which in order:
+            ms[which] = min(ms[which], best_ms(kernel if which == "kernel" else plain))
+    fn_widths = FN + [3]
+    flops = 4 * 2 * b * n * n * macs(FE) + 3 * 2 * b * n * macs(fn_widths)
+    floats = (2 * b * n * FE[0] + b * n) * 2 + 2 * b * n * 32 + b * n * 3 \
+        + 2 * (macs(FE) + sum(FE[1:]) + macs(fn_widths) + sum(fn_widths[1:]) + 32 * FN[1])
+    res = {"shape": f"B={b} N={n}", "ms": ms["kernel"], "plain_ms": ms["plain"],
+           **bound(flops, 4 * floats), "launches": launches,
+           "max_abs_err": max(e[0] for e in err)}
+    log("k4_backward_route", card=card, **res, failures=bad)
+    if bad or launches != {"edge_aggregate": 1, "edge_aggregate_bwd": 1}:
+        raise SystemExit(f"phase 34: K4's backward route disagrees with its plain versions "
+                         f"({bad} tensors) or launched {launches}")
+    return res
+
+
+def dense150_steps(mk, dev, card, from_args_dict, tmp) -> dict:
+    """Phase 34 (2, 3): the 150-particle dense D+G step (bench.py's
+    ``train_step_ms_150p_dense_b128`` and ``_bf16_b128``). FP32 at
+    DENSE150_CPU_BATCH on the card against the CPU as phase 8 holds it (:func:`step_check`, with
+    :class:`KinkRows` and part by part); at B=128 the eager step and the
+    ``StaticStep`` graphs bit for bit over an epoch, both timed in turns
+    (:func:`graph_step_path`); the plain path's step where it fits
+    (:func:`dense150_plain_step`); K2 with dropout and K3 at B=128 against
+    their plain versions (phase 7's checks) and timed. Every D drawn
+    :func:`unsaturated`, the epochs at D's learning rate DENSE150_LR_DISC, each
+    epoch moving both models (:func:`params_moved`). bf16 at B=128: the step
+    against the float32 one from the same weights and draws, exactly the
+    predicted bf16 launches, a trace naming them; the bf16 epoch on the graph
+    against the eager one bit for bit, bf16 and float32 graph steps in turns."""
+    t0 = time.perf_counter()
+    b, n = DENSE150_STEP_BATCH, 150
+    with unsaturated():
+        step_check(dev, from_args_dict, card=DENSE150, batch=DENSE150_CPU_BATCH,
+                   phase="dense150_step_check", parts=True, floor=0.0)
+        args = from_args_dict({**DENSE150, "lr_disc": DENSE150_LR_DISC})
+        args.batch_size = b
+        f32 = graph_step_path(mk, dev, card, "dense150", args, None, tmp)
+    want = dense_steps_expected(150, GRAPH_STEPS)
+    if f32["launches_graph"] != want:
+        raise SystemExit(f"phase 34: the 150p dense epoch launched {f32['launches_graph']}, "
+                         f"predicted {want}")
+    plain = dense150_plain_step(dev, from_args_dict, card)
+    identical = {"edge_aggregate": True, "edge_aggregate_bwd": True}
+    err = train_kernel_checks(mk, dev, identical, shapes=((b, n),), sums=(True,))
+    ktimes = train_kernel_times(mk, dev, ((b, n),))[n]
+    log("dense150_kernel_times", card=card, **ktimes)
+    with unsaturated():
+        c16 = bf16_step_check(mk, dev, card, from_args_dict, card_d=DENSE150, batch=b)
+        bf16 = bf16_graph_and_timing(mk, dev, card, from_args_dict, tmp,
+                                     card_d={**DENSE150, "lr_disc": DENSE150_LR_DISC}, b=b)
+    log("dense150_steps", card=card, batch=b, seconds=time.perf_counter() - t0,
+        graph_wall_ms=min(f32["wall_ms_graph"]), eager_wall_ms=min(f32["wall_ms_eager"]),
+        device_ms=f32["profile_graph"]["device_ms"], idle_share=f32["profile_graph"]["idle_share"],
+        issue_ms_graph=f32["issue_ms_graph"], peak_mb_graph=f32["peak_mb_graph"],
+        plain=plain, bf16_graph_wall_ms=bf16["wall_ms_bf16"],
+        bf16_device_ms=bf16["profile_bf16"]["device_ms"],
+        bf16_idle_share=bf16["profile_bf16"]["idle_share"])
+    launches = {k: f32["launches_eager"].get(k, 0) + f32["launches_graph"].get(k, 0)
+                + c16.get(k, 0) for k in set(f32["launches_graph"]) | set(c16)}
+    return {"launches": launches, "f32": f32, "plain": plain, "err": err,
+            "identical": identical, "times": ktimes, "bf16": bf16}
+
+
+def dense150_bf16_generator(mk, dev, card, from_args_dict) -> dict:
+    """Phase 34 (4): bench.py's ``jets_per_sec_150p_bf16``: the flagship-width
+    150-particle G at B=512 in eval mode through ``train_step.bf16_apply``
+    (bf16 copies of its parameters and buffers, bf16 noise: the counterpart of
+    bench.py's ``_cast_floats``), against the same call through the bf16
+    plain versions at rtol = atol = 1e-2 (the mask column equal) and against
+    the float32 G on the same noise (the share of values beyond 5e-2
+    logged); jets/s beside the float32 G's in turns, one K2 bf16 launch a
+    layer."""
+    from mpgan_tpu_torch.models.registry import build_suite
+    from mpgan_tpu_torch.training.train_step import bf16_apply
+
+    b, n = DENSE150_GEN_BATCH, 150
+    g = build_suite(from_args_dict(DENSE150)).generator(prng_key(35, "cpu"), device=dev)
+    g.eval()
+    noise = torch.randn(b, n, 32, generator=torch.Generator(device=dev).manual_seed(35),
+                        device=dev) * 0.2
+    labels = torch.as_tensor(
+        (np.random.default_rng(35).integers(1, n + 1, size=(b, 1)) / n).astype(np.float32),
+        device=dev)
+    run16 = lambda: bf16_apply(g, noise, labels, update_sn=False)  # noqa: E731
+    run32 = lambda: g(noise, labels, update_sn=False)  # noqa: E731
+    with torch.no_grad():
+        mk.reset_launch_counts()
+        y16 = run16()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in mk.launch_counts.items() if v}
+        with plain_versions():
+            y16p = run16()
+        y32 = run32()
+        err, bad = bf16_err(y16, y16p, scaled=False)
+        mask_equal = torch.equal(y16[..., -1], y16p[..., -1])
+        share = ((y16 - y32).abs() > BF16_GEN_LOGGED).float().mean().item()
+        ms = {"bf16": float("inf"), "f32": float("inf")}
+        for order in (("f32", "bf16"), ("bf16", "f32")):
+            for which in order:
+                ms[which] = min(ms[which], best_ms(run16 if which == "bf16" else run32))
+    res = {"batch": b, "max_abs_err_vs_bf16_plain": err, "out_of_tol_vs_bf16_plain": bad,
+           "mask_column_equal": mask_equal, "tol": BF16_TOL,
+           "share_beyond_5e-2_vs_float32": share, "bf16_ms": ms["bf16"], "f32_ms": ms["f32"],
+           "bf16_jets_per_s": b / ms["bf16"] * 1e3, "f32_jets_per_s": b / ms["f32"] * 1e3,
+           "launches": launches}
+    log("dense150_bf16_generator", card=card, **res)
+    if bad or not mask_equal or launches != {"edge_aggregate_bf16": 2}:
+        raise SystemExit(f"phase 34: the bf16 150p generator disagrees with its bf16 plain "
+                         f"versions ({bad} values beyond {BF16_TOL}) or launched {launches}")
+    return res
+
+
+def dense150_train_cli(mk, train_cli, tmp) -> dict:
+    """Phase 34 (5): ``cli.train --num-hits 150`` (dense, its default batch 32,
+    the graph epochs; every D drawn :func:`unsaturated`, its learning rate
+    DENSE150_LR_DISC) for 2 epochs with the
+    evaluation, a resume that restores the state exactly, a 3rd epoch that
+    moves the parameters; counts set to 0 before and read after:
+    K2 with and without dropout and K3 with and without weight gradients in
+    the counts the steps and the evaluation predict, no K4 and no knn
+    kernel."""
+    argv = ["--device", "cuda", "--name", "dense150", "--model", "mpgan", "--jets", "g",
+            "--num-hits", "150", "--dir-path", str(tmp), "--num-samples", "640",
+            "--eval-tot-samples", "640", "--w1-num-samples", "320", "--save-model-epochs", "1",
+            "--save-epochs", "2", "--epoch-scan", "--lr-disc", str(DENSE150_LR_DISC)]
+    mk.reset_launch_counts()
+    with unsaturated():
+        t0 = time.perf_counter()
+        t1 = train_cli.main(argv + ["--num-epochs", "2"])
+        wall = time.perf_counter() - t0
+        before = [t.detach().cpu().clone() for t in _leaves(t1.state)]
+        rng_before = t1.state.rng.clone()
+        t2 = train_cli.main(argv + ["--num-epochs", "2"])  # resume, no epoch to run
+        after = [t.detach().cpu() for t in _leaves(t2.state)]
+        restored = (t2.start_epoch == 2 and len(before) == len(after)
+                    and all(torch.equal(a, c) for a, c in zip(before, after))
+                    and torch.equal(t2.state.rng, rng_before))
+        resumed = model_params(t2.state)
+        t3 = train_cli.main(argv + ["--num-epochs", "3"])
+    moved = params_moved(t3.state, resumed, "phase 34's train CLI, epoch 3")
+    counts = {k: v for k, v in mk.launch_counts.items() if v}
+    batch = t1.args.batch_size
+    steps = 3 * (len(t1.train_dataset) // batch)
+    eval_batches = -(-min(t1.args.eval_tot_samples, len(t1.valid_dataset)) // batch)
+    predicted = dense_steps_expected(150, steps, eval_batches)
+    losses = {k: t3.losses[k] for k in ("Dr", "Df", "D", "G")}
+    finite = all(np.isfinite(v).all() for v in losses.values()) and \
+        all(np.isfinite(np.asarray(t3.losses[k])).all() for k in ("w1p", "w1m"))
+    files = sorted(f.name for f in (tmp / "dense150" / "models").iterdir())
+    log("dense150_train_cli", wall_s_2_epochs=wall, batch=batch, steps=steps,
+        eval_batches=eval_batches, checkpoints=files, resumed_from=t2.start_epoch,
+        state_restored=restored, epoch3_params_moved=moved, epochs=len(t3.losses["G"]),
+        losses=losses, w1m=t3.losses["w1m"], replays=t3.graphs.replays, launches=counts,
+        predicted=predicted)
+    if batch != 32 or not all(c.fully_connected for c in t1.state.g.cfg.layers):
+        raise SystemExit("phase 34: the train CLI did not build the dense 150p model at batch 32")
+    if files != ["state_1.npz", "state_2.npz", "state_3.npz"] or not restored:
+        raise SystemExit(f"phase 34: train CLI checkpoints {files}, state restored: {restored}")
+    if not finite or len(t3.losses["G"]) != 3 or t3.losses["G"][:2] != t1.losses["G"] \
+            or not t3.graphs.replays:
+        raise SystemExit(f"phase 34: train CLI losses not finite or not resumed, or no graph "
+                         f"replayed: {losses}")
+    if counts != predicted:
+        raise SystemExit(f"phase 34: the 150p dense train CLI launched {counts}, predicted "
+                         f"{predicted}")
+    return counts
+
+
+def dense150_phase(mk, train_cli, gen_cli, dev, card, from_args_dict, tmp) -> dict:
+    """Phase 34: the 150-particle dense paths bench.py times, each driven with
+    the counts set to 0 just before it and read just after; returns their
+    figures, the launches by kernel among them."""
+    t0 = time.perf_counter()
+    gen = dense150_generator(mk, gen_cli, dev, card, from_args_dict, tmp)
+    steps = dense150_steps(mk, dev, card, from_args_dict, tmp)
+    bf16_gen = dense150_bf16_generator(mk, dev, card, from_args_dict)
+    cli = dense150_train_cli(mk, train_cli, tmp)
+    k4_bwd = k4_backward_route(mk, dev, card)
+    launches = {}
+    for counts in (gen["launches"], steps["launches"], bf16_gen["launches"], cli,
+                   k4_bwd["launches"]):
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+    log("dense150", card=card, seconds=time.perf_counter() - t0, launches=launches,
+        jets_per_s_fe128_256=gen["jets_per_s"], jets_per_s_bf16=bf16_gen["bf16_jets_per_s"],
+        step_ms_b128=min(steps["f32"]["wall_ms_graph"]),
+        step_ms_bf16_b128=steps["bf16"]["wall_ms_bf16"])
+    return {"launches": launches, "gen": gen, "steps": steps, "bf16_gen": bf16_gen,
+            "k4_bwd": k4_bwd}
 
 
 def _tree_tensors(tree) -> list:
@@ -5748,6 +6537,14 @@ def main() -> None:
         init_draws, init_models = init_phase(mk, dev, card, from_args_dict, pathlib.Path(tmp))
     # 33. the MP layer's configuration lattice
     lattice_launches = lattice_phase(card)
+    # 34. the 150-particle dense paths bench.py times
+    with tempfile.TemporaryDirectory() as tmp:
+        dense150 = dense150_phase(mk, train_cli, gen, dev, card, from_args_dict,
+                                  pathlib.Path(tmp))
+    identical["edge_aggregate"] &= dense150["gen"]["identical"] and \
+        dense150["steps"]["identical"]["edge_aggregate"]
+    identical["edge_aggregate_bwd"] &= dense150["steps"]["identical"]["edge_aggregate_bwd"]
+    d150_times = dense150["steps"]["times"]
 
     def bf16_row(name, jobs):
         """The bf16 mode inside a kernel's row: its launches in phase 28, worst
@@ -5908,6 +6705,23 @@ def main() -> None:
         row["lattice_launches"] = sum(
             c for name, c in lattice_launches.items()
             if re.sub(r"_train|_no_wgrads|_bf16", "", name) == row["name"])
+        # phase 34's main paths, its bf16 mode's included
+        row["dense150_launches"] = sum(
+            c for name, c in dense150["launches"].items()
+            if re.sub(r"_train|_no_wgrads|_bf16", "", name) == row["name"])
+        row["launches"] += row["dense150_launches"]
+    k2_row, k4_row, k3_row = kernels[:3]
+    k2_row["max_abs_err"] = max(k2_row["max_abs_err"], dense150["gen"]["k2"]["max_abs_err"],
+                                dense150["steps"]["err"]["edge_aggregate"])
+    k2_row["dense150"] = {"eval_fe128_256": {k: v for k, v in dense150["gen"]["k2"].items()
+                                             if k not in ("max_abs_err",
+                                                          "two_runs_bit_identical")},
+                          "train": d150_times["train_fwd"]}
+    k3_row["max_abs_err"] = max(k3_row["max_abs_err"],
+                                dense150["steps"]["err"]["edge_aggregate_bwd"])
+    k3_row["dense150"] = {"bwd": d150_times["bwd"], "bwd_no_wgrads": d150_times["bwd_no_wgrads"]}
+    k4_row["backward_route"] = {k: v for k, v in dense150["k4_bwd"].items()
+                                if k not in ("launches", "max_abs_err")}
     log("knn_train_step", batch=128, kernel_ms=knn_step_ms["kernel"],
         plain_ms=knn_step_ms["plain"])
     log("train_step", kernel_ms=step_ms["kernel"], plain_ms=step_ms["plain"])

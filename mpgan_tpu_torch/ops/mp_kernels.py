@@ -229,12 +229,14 @@ def _dropmul(ids: torch.Tensor, cols: int, p: float, seed, salt: int) -> torch.T
 
 
 def _is_bf16(*tensors: torch.Tensor) -> bool:
-    """True for all-bfloat16 tensors (the bf16 mode), False for all-float32;
+    """True for all-bfloat16 tensors (the bf16 mode), False for all-float32
+    (or all-float64 on the CPU: the plain versions' FP32 mode run in float64);
     raises on anything else or a mix."""
     dtypes = {t.dtype for t in tensors}
     if dtypes == {torch.bfloat16}:
         return True
-    if dtypes == {torch.float32}:
+    if dtypes == {torch.float32} or (dtypes == {torch.float64}
+                                     and all(t.device.type == "cpu" for t in tensors)):
         return False
     raise TypeError(f"the kernels take all-float32 or all-bfloat16 tensors, got "
                     f"{sorted(map(str, dtypes))}")

@@ -134,3 +134,65 @@ def test_sampled_points_are_unchanged_by_the_added_ones():
     assert {p["case"] for p in chip_smoke.lattice_points()[chip_smoke.LATTICE_CASES
                                                            + chip_smoke.LATTICE_WIDE:]} == \
         {"k4", "cond1", "cond2"}
+
+
+def _x_envelope_runs(monkeypatch, case, fault=None):
+    """Phase 33's two bf16 runs at a dense lattice point (here both through the
+    plain versions), each recorded for :func:`chip_smoke.lattice_x_envelope`;
+    with ``fault`` (``("k3", share)`` or ``("k2", share)``), the first run's
+    K3 hands back a du1, or its K2 an aggregate, whose receiver row 1 of jet
+    0 is ``1 + share`` times the right one."""
+    from mpgan_tpu_torch.ops import mp_kernels as mk
+
+    s = POINTS[case]
+    d = chip_smoke.lattice_inputs(s, "cpu")
+    layer, _ = chip_smoke.lattice_layer(chip_smoke.lattice_cfg(s, s["dropout_p"]), s, "cpu")
+    runs = []
+    for planted in (fault, None):
+        if planted is not None:
+            kind, share = planted
+            name = "edge_aggregate_bwd_reference" if kind == "k3" else "edge_aggregate_reference"
+            right = getattr(mk, name)
+
+            def wrong(*a, **k):
+                out = right(*a, **k)
+                t = (out[0] if kind == "k3" else out).clone()
+                t[0, 1] = t[0, 1] * (1 + share)
+                return (t,) + tuple(out[1:]) if kind == "k3" else t
+
+            monkeypatch.setattr(mk, name, wrong)
+        rec = {}
+        out, _ = chip_smoke.lattice_run(layer, d, True, torch.bfloat16, parts=rec)
+        monkeypatch.undo()
+        runs.append((out[-1], rec))
+    (out, kernel), (ref, plain) = runs
+    return chip_smoke.lattice_x_envelope(out, ref, kernel, plain)
+
+
+@pytest.mark.parametrize("case", ["3", "k4"])
+def test_lattice_x_envelope_holds_the_bf16_mode(case, monkeypatch):
+    """A dense point's bf16 ``x`` gradient (K2 route at point 3, the K4 route at
+    ``k4``, whose batch is cut to 2 here): two runs of the bf16 mode agree at
+    1e-2, each K3 call within its envelope of the float64 model, the K2
+    calls equal."""
+    if case == "k4":
+        monkeypatch.setitem(POINTS, "k4", {**POINTS["k4"], "b": 2})
+    res = _x_envelope_runs(monkeypatch, case)
+    assert res["ok"] and res["over"] == 0.0 and res["k2_over"] == 0.0
+    assert res["kernel_k3_calls"] == res["kernel_k2_calls"] == 1
+    assert res["kernel_k3_x_over_envelope"] <= 1.0
+
+
+@pytest.mark.parametrize("fault", [("k3", 0.05), ("k3", 0.1), ("k2", 0.05)])
+def test_lattice_x_envelope_finds_a_fault(fault, monkeypatch):
+    """A K3 whose du1, or a K2 whose aggregate, is 5% (or 10%) off in one
+    receiver row is found: that run's K3 call lies outside its envelope of
+    the model (the smallest such fault it finds: between 3% and 5% of one du1
+    row at point 3), or its K2 call more than 1e-2 of the aggregate's largest
+    from the other run's, while the other run's K3 holds."""
+    res = _x_envelope_runs(monkeypatch, "3", fault)
+    assert not res["ok"]
+    if fault[0] == "k3":
+        assert res["kernel_k3_x_over_envelope"] > 1.0 >= res["plain_k3_x_over_envelope"]
+    else:
+        assert res["k2_over"] > 1.0
