@@ -1,0 +1,9 @@
+"""K5 in eval mode, generating, as a share of its roofline, percent (``work.chain_fwd``
+with the search)."""
+
+KERNELS = ["knn_fwd_kernel<true, float>"]
+FAMILY = "knn_fwd"
+
+
+def read(r):
+    return r.roofline(FAMILY, KERNELS)

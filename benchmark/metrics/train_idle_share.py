@@ -1,0 +1,5 @@
+"""The device's idle share of the traced training window, percent: 100 (1 - busy / window)."""
+
+
+def read(r):
+    return r.idle_pct()
